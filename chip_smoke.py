@@ -1,0 +1,560 @@
+#!/usr/bin/env python3
+"""GPU smoke run of the PyTorch/CUDA port (dynamo_tpu_torch).
+
+Run from the root of a checkout on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py
+
+Phases, each of which must pass (any failure exits non-zero):
+
+1. card: name and power limit from nvidia-smi;
+2. build: every CUDA source under dynamo_tpu_torch/csrc compiles with nvcc
+   (one process per source, in parallel) into build/dynamo_tpu_torch/;
+3. kernels: each kernel is held against its plain PyTorch version on the
+   card at the serving shapes of llama-3-8b (KH 8, G 4, D 128, page 16,
+   B 8, 64 pages per sequence, seq_len 1..1024, plus a windowed-and-sinks
+   case): kv_write bitwise outside trash page 0, the attention kernels at
+   atol=rtol=1e-2 in bf16 and 1e-5 in f32. Each kernel, its plain version
+   and one library call computing the same function are timed with CUDA
+   events, L2 flushed before every launch;
+4. serve: InferenceEngine(ModelSpec.llama3_8b()) at full width and depth
+   with random bf16 weights from a seeded generator serves 8 concurrent
+   greedy requests (prompts of 64..512 tokens, two sharing a 256-token
+   prefix, 32 tokens each) through generate(); every request must end with
+   "length" after exactly 32 tokens, the second sharer must hit the prefix
+   cache, the fused kernel must launch exactly 32 times per decode step,
+   and one stream's tokens must be near-argmax under the unpaged
+   reference forward;
+5. unfused: one decode_forward with DYNAMO_FUSED_DECODE=0 against the fused
+   path on the same pool state; logits agree within the stated tolerance
+   and paged_attention_v3 and kv_write each launch 32 times.
+
+Prints, before the last line, the card line and one JSON object with every
+kernel's measurements; the last line is
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+DEVICE = "cuda"
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+KERNEL_SHAPES = dict(B=8, KH=8, G=4, D=128, page=16, P=64)
+SEQ_LENS = (1, 37, 130, 256, 511, 700, 1000, 1024)
+WINDOW = 256  # windowed-and-sinks case
+ATTN_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
+LOGIT_REL_TOL = 2e-2  # fused vs unfused logits: max |diff| / max |logit|
+NEAR_ARGMAX = 0.5  # reference logit of each served token vs the reference max
+SERVE_TOKENS = 32
+REPS = 20
+SLEEP_CYCLES = 5_000_000  # ~2.5 ms of device time at the H100's clock
+
+
+class SmokeError(RuntimeError):
+    pass
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeError(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=30, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+# ------------------------------------------------------------ timing
+
+
+def time_ms(fn, flush, reps=REPS) -> float:
+    """Mean device time of ``fn`` over ``reps`` launches, each after an L2
+    flush (the decode path finds its pages cold: 32 layers of context far
+    exceed the 50 MB L2)."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        # keep the device busy while the host enqueues the rest, so the
+        # events time the device work and not the wrapper's host overhead
+        torch.cuda._sleep(SLEEP_CYCLES)
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+# ------------------------------------------------------------ kernels
+
+
+def kernel_inputs(dtype, seed=0):
+    """Decode-step inputs at the serving shapes; pools hold L=2 layers."""
+    s = KERNEL_SHAPES
+    B, KH, G, D, page, P = s["B"], s["KH"], s["G"], s["D"], s["page"], s["P"]
+    rng = np.random.default_rng(seed)
+    NP = 1 + B * P
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+
+    bt = np.zeros((B, P), np.int32)
+    for i in range(B):
+        bt[i] = rng.permutation(np.arange(1 + i * P, 1 + (i + 1) * P))
+    sl = np.asarray(SEQ_LENS, np.int32)
+    pos = sl - 1
+    dst_page = np.asarray([bt[i, pos[i] // page] for i in range(B)], np.int32)
+    cuda = lambda a: torch.from_numpy(a).to(DEVICE)  # noqa: E731
+    return {
+        "q": randn(B, KH * G, D), "k_pages": randn(2, NP, KH, page, D),
+        "v_pages": randn(2, NP, KH, page, D), "k_new": randn(B, KH, D),
+        "v_new": randn(B, KH, D), "bt": cuda(bt), "sl": cuda(sl),
+        "dst_page": cuda(dst_page), "dst_off": cuda((pos % page).astype(np.int32)),
+        "sinks": torch.randn(KH * G, generator=gen, device=DEVICE),
+    }
+
+
+def visible(seq_lens, window, fused):
+    """Per sequence: pool positions the function must read."""
+    out = []
+    for s in seq_lens:
+        ctx = s - 1 if fused else s
+        lo = max(s - window, 0) if window else 0
+        out.append(max(ctx - lo, 0))
+    return out
+
+
+def attention_bound(fused: bool, window: int) -> tuple[float, str]:
+    s = KERNEL_SHAPES
+    B, KH, G, D, page = s["B"], s["KH"], s["G"], s["D"], s["page"]
+    H, el = KH * G, 2
+    vis = visible(SEQ_LENS, window, fused)
+    nbytes = 2 * B * H * D * el  # q in, out
+    nbytes += sum(vis) * 2 * KH * D * el  # K and V of the live context
+    nbytes += sum(-(-v // page) for v in vis) * 4 + B * 4  # table, lens
+    flops = 4 * H * D * sum(vis)  # q.k and p.v
+    if fused:
+        nbytes += 2 * B * KH * D * el * 2 + 2 * B * 4  # new rows in + out
+        flops += 4 * H * D * B
+    return bound_ms(nbytes, flops)
+
+
+def sdpa_call(t, layer):
+    """One scaled_dot_product_attention call over the gathered context
+    (the library yardstick; the port never calls it). Gather and GQA
+    expansion are set-up, outside the timed call."""
+    from dynamo_tpu_torch.ops.attention import gather_pages
+
+    q = t["q"]
+    B, H, D = q.shape
+    KH = t["k_pages"].shape[2]
+    k = gather_pages(t["k_pages"][layer], t["bt"])  # [B, S, KH, D]
+    v = gather_pages(t["v_pages"][layer], t["bt"])
+    S = k.shape[1]
+    k = k.transpose(1, 2).repeat_interleave(H // KH, dim=1).contiguous()
+    v = v.transpose(1, 2).repeat_interleave(H // KH, dim=1).contiguous()
+    pos = torch.arange(S, device=q.device)[None]
+    mask = (pos < t["sl"].long()[:, None])[:, None, None, :]
+    qq = q[:, :, None, :]
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qq, k, v, attn_mask=mask)
+
+
+def check_kernels(flush) -> dict[str, dict]:
+    from dynamo_tpu_torch.ops.cuda import fused_decode, kv_write, paged_attention_v3
+
+    results: dict[str, dict] = {}
+    layer = 1
+    for dtype_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype_name)
+        tol = ATTN_TOL[dtype_name]
+        t = kernel_inputs(dt)
+        args = ("q", "k_new", "v_new", "bt", "sl", "dst_page", "dst_off")
+        for window, sinks in ((0, None), (WINDOW, t["sinks"])):
+            case = f"{dtype_name}{'/window+sinks' if window else ''}"
+            q, kn, vn, bt, sl, dp, do = (t[k] for k in args)
+            kp, vp = t["k_pages"].clone(), t["v_pages"].clone()
+            kp2, vp2 = t["k_pages"].clone(), t["v_pages"].clone()
+            got = fused_decode.fused_decode_attention(
+                q, kp, vp, kn, vn, bt, sl, dp, do, layer=layer,
+                window=window, sinks=sinks)
+            want = fused_decode.fused_decode_plain(
+                q, kp2, vp2, kn, vn, bt, sl, dp, do, layer=layer,
+                window=window, sinks=sinks)
+            torch.cuda.synchronize()
+            err_f = (got.float() - want.float()).abs().max().item()
+            require(torch.isfinite(got).all().item(), f"fused_decode {case}: non-finite")
+            require(err_f <= tol + tol * want.float().abs().max().item(),
+                    f"fused_decode {case}: max err {err_f}")
+            require(torch.equal(kp[:, 1:], kp2[:, 1:]) and torch.equal(vp[:, 1:], vp2[:, 1:]),
+                    f"fused_decode {case}: pools differ from the plain append")
+            got = paged_attention_v3.paged_decode_attention_v3(
+                q, kp[layer], vp[layer], bt, sl, window=window, sinks=sinks)
+            want = paged_attention_v3.paged_attention_v3_plain(
+                q, kp[layer], vp[layer], bt, sl, window=window, sinks=sinks)
+            torch.cuda.synchronize()
+            err_v = (got.float() - want.float()).abs().max().item()
+            require(err_v <= tol + tol * want.float().abs().max().item(),
+                    f"paged_attention_v3 {case}: max err {err_v}")
+            print(f"check {case}: fused_decode max_abs_err={err_f:.3e} "
+                  f"paged_attention_v3 max_abs_err={err_v:.3e} (tol {tol})")
+            if dtype_name == "bfloat16" and window == 0:
+                results["fused_decode"] = {"max_abs_err": err_f}
+                results["paged_attention_v3"] = {"max_abs_err": err_v}
+        kp, vp = t["k_pages"].clone(), t["v_pages"].clone()
+        kp2, vp2 = kp.clone(), vp.clone()
+        kv_write.kv_write(kp, vp, t["k_new"], t["v_new"], t["dst_page"],
+                          t["dst_off"], layer=0)
+        kv_write.kv_write_plain(kp2, vp2, t["k_new"], t["v_new"],
+                                t["dst_page"], t["dst_off"], layer=0)
+        torch.cuda.synchronize()
+        require(torch.equal(kp[:, 1:], kp2[:, 1:]) and torch.equal(vp[:, 1:], vp2[:, 1:]),
+                f"kv_write {dtype_name}: not bitwise equal to index_put_")
+        print(f"check {dtype_name}: kv_write bitwise equal outside page 0")
+        if dtype_name == "bfloat16":
+            results["kv_write"] = {"max_abs_err": 0.0}
+
+    # timing at the serving shapes, bf16, no window
+    t = kernel_inputs(torch.bfloat16)
+    q, kn, vn, bt, sl, dp, do = (t[k] for k in
+                                 ("q", "k_new", "v_new", "bt", "sl", "dst_page", "dst_off"))
+    kp, vp = t["k_pages"], t["v_pages"]
+    B, H, D = q.shape
+    KH, page = kp.shape[2], kp.shape[3]
+    res = results["fused_decode"]
+    res["ms"] = time_ms(lambda: fused_decode.fused_decode_attention(
+        q, kp, vp, kn, vn, bt, sl, dp, do, layer=layer), flush)
+    res["plain_ms"] = time_ms(lambda: fused_decode.fused_decode_plain(
+        q, kp, vp, kn, vn, bt, sl, dp, do, layer=layer), flush)
+    res["library_ms"] = time_ms(sdpa_call(t, layer), flush)
+    res["bound_ms"], res["bound_by"] = attention_bound(True, 0)
+    res = results["paged_attention_v3"]
+    res["ms"] = time_ms(lambda: paged_attention_v3.paged_decode_attention_v3(
+        q, kp[layer], vp[layer], bt, sl), flush)
+    res["plain_ms"] = time_ms(lambda: paged_attention_v3.paged_attention_v3_plain(
+        q, kp[layer], vp[layer], bt, sl), flush)
+    res["library_ms"] = time_ms(sdpa_call(t, layer), flush)
+    res["bound_ms"], res["bound_by"] = attention_bound(False, 0)
+    res = results["kv_write"]
+    res["ms"] = time_ms(lambda: kv_write.kv_write(
+        kp, vp, kn, vn, dp, do, layer=layer), flush)
+    res["plain_ms"] = time_ms(lambda: kv_write.kv_write_plain(
+        kp, vp, kn, vn, dp, do, layer=layer), flush)
+    NP = kp.shape[1]
+    rows = (((layer * NP + dp.long()) * KH)[:, None]
+            + torch.arange(KH, device=DEVICE)[None]) * page + do.long()[:, None]
+    rows = rows.reshape(-1)
+    kflat, vflat = kp.view(-1, D), vp.view(-1, D)
+    kr, vr = kn.reshape(-1, D), vn.reshape(-1, D)
+
+    def library_copy():  # one index_copy_ per pool
+        kflat.index_copy_(0, rows, kr)
+        vflat.index_copy_(0, rows, vr)
+
+    res["library_ms"] = time_ms(library_copy, flush)
+    el = 2
+    res["bound_ms"], res["bound_by"] = bound_ms(
+        4 * B * KH * D * el + 2 * B * 4, 0.0)
+    for name, r in results.items():
+        print(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']})")
+    return results
+
+
+# ------------------------------------------------------------ serving
+
+
+def make_prompts(vocab: int):
+    rng = np.random.default_rng(1234)
+    lens = rng.integers(64, 513, size=8)
+    prompts = [rng.integers(3, vocab, int(n)).tolist() for n in lens]
+    shared = rng.integers(3, vocab, 256).tolist()
+    # requests 0 and 1 share a 256-token prefix (16 full pages)
+    prompts[0] = shared + prompts[0][: max(int(lens[0]) - 256, 16)]
+    prompts[1] = shared + rng.integers(3, vocab, 100).tolist()
+    return prompts
+
+
+async def serve(engine, prompts):
+    from dynamo_tpu_torch.runtime.context import Context
+
+    t0 = time.perf_counter()
+    ttft: dict[int, float] = {}
+    first_token = asyncio.Event()
+
+    async def one(i):
+        req = {"token_ids": prompts[i], "sampling": {"temperature": 0.0},
+               "stop_conditions": {"max_tokens": SERVE_TOKENS, "ignore_eos": True}}
+        t_sub = time.perf_counter()
+        items = []
+        async for item in engine.generate(req, Context()):
+            if item["token_ids"] and i not in ttft:
+                ttft[i] = time.perf_counter() - t_sub
+                if i == 0:
+                    first_token.set()
+            items.append(item)
+        return items
+
+    tasks = {i: asyncio.ensure_future(one(i)) for i in range(len(prompts)) if i != 1}
+    # the second sharer arrives once the first one's prompt pages are sealed
+    await first_token.wait()
+    cached_before = engine.cached_prompt_tokens
+    tasks[1] = asyncio.ensure_future(one(1))
+    results = {i: await task for i, task in tasks.items()}
+    wall = time.perf_counter() - t0
+    return results, ttft, wall, engine.cached_prompt_tokens - cached_before
+
+
+def near_argmax_check(spec, params, prompt, tokens) -> tuple[float, float]:
+    """Teacher-forced unpaged reference forward over prompt + served
+    tokens: each served token's reference logit must lie within NEAR_ARGMAX
+    of the reference maximum. Returns (exact agreement, worst gap)."""
+    from dynamo_tpu_torch.models import llama
+
+    seq = torch.tensor(prompt + tokens[:-1], device=DEVICE)
+    with torch.no_grad():
+        logits = llama.reference_forward(spec, params, seq)[len(prompt) - 1:]
+    served = torch.tensor(tokens, device=DEVICE)
+    top = logits.max(dim=-1).values
+    picked = logits.gather(1, served[:, None])[:, 0]
+    gap = (top - picked).max().item()
+    agree = (logits.argmax(dim=-1) == served).float().mean().item()
+    require(torch.isfinite(logits).all().item(), "reference logits non-finite")
+    require(gap <= NEAR_ARGMAX, f"served token {gap:.3f} below the reference max")
+    return agree, gap
+
+
+def profile_decode_step(step) -> None:
+    """One traced decode step (B=8, fused path): wall time, device-busy
+    time (sum of kernel self times), idle share and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def dev_us(evt):
+        return getattr(evt, "self_device_time_total",
+                       getattr(evt, "self_cuda_time_total", 0.0))
+
+    # device-side events only: a CPU op's device time repeats its kernels'
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in kernels)
+    print(f"profile decode step: wall {wall * 1e3:.2f} ms, device busy "
+          f"{busy / 1e3:.2f} ms, idle share {max(0.0, 1 - busy / 1e6 / wall):.3f}")
+    for e in sorted(kernels, key=dev_us, reverse=True)[:10]:
+        print(f"  {dev_us(e) / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
+
+
+def unfused_check(engine, prompts):
+    """One decode step through the fused kernel and through the unfused
+    pair on the same pool state. Each path reads only the context below
+    the new token plus its own new row, so the second run sees the same
+    state as the first."""
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.ops.cuda import fused_decode, kv_write, paged_attention_v3
+
+    spec, cfg = engine.spec, engine.config
+    B = len(prompts)
+    bts = np.zeros((B, cfg.max_pages_per_seq), np.int32)
+    for i, p in enumerate(prompts):
+        for j in range(len(p) // cfg.page_size + 1):
+            bts[i, j] = engine.allocator.alloc_page()
+    T = cfg.bucket_for(max(len(p) for p in prompts))
+    tokens = np.zeros((B, T), np.int32)
+    for i, p in enumerate(prompts):
+        tokens[i, : len(p)] = p
+    lens = torch.tensor([len(p) for p in prompts])
+    bts_d = torch.from_numpy(bts).to(DEVICE)
+    with torch.no_grad():
+        logits = llama.prefill_forward_batch(
+            spec, engine.params, torch.from_numpy(tokens).to(DEVICE), bts_d,
+            torch.zeros(B, dtype=torch.int64), engine.k_pages, engine.v_pages, lens)
+        nxt = logits.argmax(dim=-1).to(torch.int32)
+        seq_lens = (lens + 1).to(torch.int32).to(DEVICE)
+        active = torch.ones(B, dtype=torch.bool, device=DEVICE)
+        profile_decode_step(lambda: llama.decode_forward(
+            spec, engine.params, nxt, bts_d, seq_lens, engine.k_pages,
+            engine.v_pages, active))
+        out = {}
+        for mode in ("1", "0"):
+            os.environ["DYNAMO_FUSED_DECODE"] = mode
+            counters = (fused_decode.fused_decode_attention,
+                        paged_attention_v3.paged_decode_attention_v3, kv_write.kv_write)
+            for fn in counters:
+                fn.launches = 0
+            out[mode] = llama.decode_forward(
+                spec, engine.params, nxt, bts_d, seq_lens, engine.k_pages,
+                engine.v_pages, active)
+            torch.cuda.synchronize()
+            out[mode + "_launches"] = [fn.launches for fn in counters]
+        os.environ.pop("DYNAMO_FUSED_DECODE")
+    L = spec.num_layers
+    require(out["1_launches"] == [L, 0, 0], f"fused path launches {out['1_launches']}")
+    require(out["0_launches"] == [0, L, L], f"unfused path launches {out['0_launches']}")
+    ref, alt = out["1"], out["0"]
+    rel = ((alt - ref).abs().max() / ref.abs().max()).item()
+    agree = (alt.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    require(torch.isfinite(alt).all().item(), "unfused logits non-finite")
+    require(rel <= LOGIT_REL_TOL, f"unfused logits differ: rel {rel:.3e}")
+    print(f"unfused: logits max|diff|/max|logit| = {rel:.3e} (tol {LOGIT_REL_TOL}), "
+          f"argmax agreement {agree:.3f}, launches fused/v3/kv_write "
+          f"{out['1_launches']} then {out['0_launches']}")
+    return out["0_launches"]
+
+
+def serve_phase(engine, prompts) -> dict[str, int]:
+    """Drive the serving path with the kernel counts zeroed just before and
+    read just after; check the streams, the prefix-cache hit, the launch
+    counts and one stream against the reference forward."""
+    from dynamo_tpu_torch.ops.cuda import fused_decode, kv_write, paged_attention_v3
+
+    spec = engine.spec
+    counters = {"fused_decode": fused_decode.fused_decode_attention,
+                "paged_attention_v3": paged_attention_v3.paged_decode_attention_v3,
+                "kv_write": kv_write.kv_write}
+
+    async def drive():
+        try:
+            return await serve(engine, prompts)
+        finally:
+            await engine.close()
+
+    for fn in counters.values():
+        fn.launches = 0
+    steps0 = engine.steps
+    results, ttft, wall, hit = asyncio.run(drive())
+    serve_launches = {name: fn.launches for name, fn in counters.items()}
+    steps = engine.steps - steps0
+    for i, items in results.items():
+        toks = [t for x in items for t in x["token_ids"]]
+        require(items[-1]["finish_reason"] == "length" and len(toks) == SERVE_TOKENS,
+                f"request {i}: {len(toks)} tokens, finish {items[-1]['finish_reason']}")
+        require(all(0 <= t < spec.vocab_size for t in toks), f"request {i}: bad ids")
+    require(hit >= 256, f"second sharer's prefix-cache hit was {hit} tokens")
+    require(serve_launches["fused_decode"] == spec.num_layers * steps,
+            f"fused_decode launched {serve_launches['fused_decode']} times "
+            f"over {steps} decode steps")
+    require(serve_launches["kv_write"] == 0 and serve_launches["paged_attention_v3"] == 0,
+            "the fused serving path launched the unfused kernels")
+    n_out = sum(len([t for x in items for t in x["token_ids"]]) for items in results.values())
+    step_ms = 1e3 * sum(engine.decode_step_times) / max(len(engine.decode_step_times), 1)
+    print(f"serve: {len(results)} requests, {n_out} tokens in {wall:.3f} s = "
+          f"{n_out / wall:.1f} tok/s; TTFT mean "
+          f"{1e3 * sum(ttft.values()) / len(ttft):.1f} ms, max "
+          f"{1e3 * max(ttft.values()):.1f} ms; decode step mean {step_ms:.2f} ms over "
+          f"{steps} steps; prefix-cache hit {hit} tokens; fused_decode launches "
+          f"{serve_launches['fused_decode']} = {spec.num_layers} x {steps}")
+    longest = max(range(len(prompts)), key=lambda i: len(prompts[i]))
+    served = [t for x in results[longest] for t in x["token_ids"]]
+    agree, gap = near_argmax_check(spec, engine.params, prompts[longest], served)
+    print(f"reference: request {longest} exact greedy agreement {agree:.3f}, "
+          f"worst gap to the reference max {gap:.3f} (tol {NEAR_ARGMAX})")
+    return serve_launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke run needs the GPU",
+              file=sys.stderr)
+        return 2
+    if not (ROOT / "dynamo_tpu_torch" / "csrc").is_dir():
+        print("chip_smoke: run from a checkout holding dynamo_tpu_torch/",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelSpec
+    from dynamo_tpu_torch.engine.core import InferenceEngine
+    from dynamo_tpu_torch.ops.cuda import build
+
+    t_start = time.perf_counter()
+    card = card_line()
+    print(card)
+    t0 = time.perf_counter()
+    build.build(verbose=True)
+    build.load_library()
+    print(f"build: {time.perf_counter() - t0:.1f} s")
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+    kernels = check_kernels(flush)
+    del flush
+
+    spec = ModelSpec.llama3_8b()
+    cfg = EngineConfig(page_size=16, num_pages=2048, max_pages_per_seq=64,
+                       max_decode_slots=8)
+    t0 = time.perf_counter()
+    engine = InferenceEngine(spec, cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in engine.params.parameters())
+    print(f"engine: {spec.name} {n_params / 1e9:.2f}B params, "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated, "
+          f"init {time.perf_counter() - t0:.1f} s")
+    prompts = make_prompts(spec.vocab_size)
+    serve_launches = serve_phase(engine, prompts)
+    unfused = unfused_check(engine, prompts)
+    launches = {"fused_decode": serve_launches["fused_decode"],
+                "paged_attention_v3": unfused[1], "kv_write": unfused[2]}
+    sources = {
+        "fused_decode": ("dynamo_tpu_torch/csrc/fused_decode.cu",
+                         "dynamo_tpu/ops/pallas/fused_decode.py:58"),
+        "paged_attention_v3": ("dynamo_tpu_torch/csrc/paged_attention_v3.cu",
+                               "dynamo_tpu/ops/pallas/paged_attention_v3.py:76"),
+        "kv_write": ("dynamo_tpu_torch/csrc/kv_write.cu",
+                     "dynamo_tpu/ops/pallas/kv_write.py:39"),
+    }
+    line = {"kernels": [
+        {"name": name, "route": "cuda", "source": sources[name][0],
+         "replaces": sources[name][1], "launches": launches[name],
+         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+         "library_ms": r["library_ms"]}
+        for name, r in kernels.items()
+    ]}
+    print(f"total: {time.perf_counter() - t_start:.1f} s")
+    print(card)
+    print(json.dumps(line))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeError as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        sys.exit(1)

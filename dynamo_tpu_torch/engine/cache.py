@@ -1,0 +1,189 @@
+"""Host-side paged-KV bookkeeping: page allocator + prefix cache.
+
+The device holds the page arrays (models/llama.py init_cache); this module
+owns which page holds what: a free list, per-request page ownership, and a
+prefix cache mapping sequence hashes (the same chain the router uses -
+tokens.py) to pages whose contents are a completed block. Completed
+requests' pages become *inactive* (cached, evictable LRU) rather than freed,
+so repeated prefixes skip prefill compute - the engine-side mirror of the
+router's radix view. Store/evict callbacks feed the KvEventPublisher.
+
+Page 0 is reserved (trash page for padded scatters) and never allocated.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import OrderedDict
+from dataclasses import dataclass, field
+from typing import Callable
+
+__all__ = ["PageAllocator", "OutOfPages", "SeqPages"]
+
+
+class OutOfPages(Exception):
+    """No free or evictable pages left (backpressure signal)."""
+
+
+@dataclass
+class SeqPages:
+    """Pages owned by one running request."""
+
+    request_id: str
+    pages: list[int] = field(default_factory=list)  # in sequence order
+    # per-page sequence hash once the page's block is complete (else None)
+    hashes: list[int | None] = field(default_factory=list)
+    cached_prefix_pages: int = 0  # how many leading pages came from cache
+
+    @property
+    def num_pages(self) -> int:
+        return len(self.pages)
+
+    def truncate(self, keep: int) -> list[int]:
+        """Drop tail pages beyond the first ``keep``, returning the
+        dropped ids (caller releases them to the allocator). Refuses to
+        cross into hashed pages: a sealed block is live prefix-cache
+        state, and the only rollback caller (speculative-verify tail
+        release, engine/core.py _process_verify) must never have
+        allocated past one."""
+        keep = max(keep, 0)
+        for i in range(len(self.pages) - 1, keep - 1, -1):
+            if self.hashes[i] is not None:
+                keep = i + 1  # defensive: never drop a sealed page
+                break
+        dropped = self.pages[keep:]
+        del self.pages[keep:]
+        del self.hashes[keep:]
+        return dropped
+
+
+class PageAllocator:
+    def __init__(
+        self,
+        num_pages: int,
+        page_size: int,
+        *,
+        on_store: Callable[[int, int], None] | None = None,
+        on_evict: Callable[[list[int]], None] | None = None,
+    ):
+        # page 0 is the trash page; usable pages are 1..num_pages-1
+        self.page_size = page_size
+        self.num_pages = num_pages
+        self._free: list[int] = list(range(num_pages - 1, 0, -1))
+        # sequence_hash -> page id, for complete cached blocks
+        self._hash_page: dict[int, int] = {}
+        self._page_hash: dict[int, int] = {}
+        self._ref: dict[int, int] = {}  # page -> refcount (running requests)
+        self._inactive: OrderedDict[int, float] = OrderedDict()  # page -> ts (LRU)
+        self._on_store = on_store or (lambda sh, parent: None)
+        self._on_evict = on_evict or (lambda shs: None)
+
+    # -- observers ---------------------------------------------------------
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def evictable_pages(self) -> int:
+        return len(self._inactive)
+
+    @property
+    def used_pages(self) -> int:
+        return (self.num_pages - 1) - len(self._free)
+
+    def used_page_ids(self) -> list[int]:
+        """Every non-free page id (active + cached-inactive), sorted.
+        The SPMD rejoin snapshot transfers exactly these pages — free
+        pages hold no state a replayed descriptor could ever read."""
+        free = set(self._free)
+        return [p for p in range(1, self.num_pages) if p not in free]
+
+    @property
+    def active_pages(self) -> int:
+        return self.used_pages - len(self._inactive)
+
+    def available(self) -> int:
+        return self.free_pages + self.evictable_pages
+
+    # -- prefix cache lookup ----------------------------------------------
+
+    def match_prefix(self, sequence_hashes: list[int]) -> list[int]:
+        """Longest consecutive run of cached pages for this hash chain.
+        Returns the page ids (does NOT take references - call take_prefix)."""
+        pages = []
+        for sh in sequence_hashes:
+            page = self._hash_page.get(sh)
+            if page is None:
+                break
+            pages.append(page)
+        return pages
+
+    def take_prefix(self, sequence_hashes: list[int]) -> list[int]:
+        """match_prefix + acquire a reference on each matched page."""
+        pages = self.match_prefix(sequence_hashes)
+        for p in pages:
+            self._ref[p] = self._ref.get(p, 0) + 1
+            self._inactive.pop(p, None)
+        return pages
+
+    # -- allocation --------------------------------------------------------
+
+    def alloc_page(self) -> int:
+        """Allocate one referenced page, evicting LRU cache if needed."""
+        if not self._free:
+            self._evict_one()
+        page = self._free.pop()
+        self._ref[page] = 1
+        return page
+
+    def _evict_one(self) -> None:
+        if not self._inactive:
+            raise OutOfPages("no free pages and nothing evictable")
+        page, _ts = self._inactive.popitem(last=False)
+        sh = self._page_hash.pop(page, None)
+        if sh is not None:
+            del self._hash_page[sh]
+            self._on_evict([sh])
+        self._ref.pop(page, None)
+        self._free.append(page)
+
+    # -- sealing (block completed -> enters prefix cache) ------------------
+
+    def seal_page(self, page: int, sequence_hash: int, parent_hash: int) -> None:
+        """Mark a page's block complete and cacheable under its hash.
+
+        If the hash is already cached on another page, the existing entry
+        wins (dedup) but this page keeps serving its request.
+        """
+        if sequence_hash in self._hash_page:
+            return
+        self._hash_page[sequence_hash] = page
+        self._page_hash[page] = sequence_hash
+        self._on_store(sequence_hash, parent_hash)
+
+    # -- release -----------------------------------------------------------
+
+    def release(self, pages: list[int]) -> None:
+        """Drop one reference per page; unreferenced pages with a hash stay
+        cached (inactive LRU); unhashed pages (partial blocks) free up."""
+        now = time.monotonic()
+        for page in pages:
+            refs = self._ref.get(page, 0) - 1
+            if refs > 0:
+                self._ref[page] = refs
+                continue
+            self._ref.pop(page, None)
+            if page in self._page_hash:
+                self._inactive[page] = now
+                self._inactive.move_to_end(page)
+            else:
+                self._free.append(page)
+
+    def clear_cache(self) -> int:
+        """Evict every inactive cached page (admin reset). Returns count."""
+        n = 0
+        while self._inactive:
+            self._evict_one()
+            n += 1
+        return n

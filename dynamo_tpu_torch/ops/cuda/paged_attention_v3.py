@@ -1,0 +1,133 @@
+"""Read-only paged decode attention: CUDA kernel + its plain version.
+
+Replaces the TPU kernel
+dynamo_tpu/ops/pallas/paged_attention_v3.py:_decode_kernel_v3 (wrapper
+``paged_decode_attention_v3``): GQA decode attention of ``q [B, H, D]`` over
+one layer's page-major pool ``[num_pages, KH, page, D]`` through
+``block_tables [B, P]``, positions ``< seq_len`` (the new token is already in
+the pool), with an optional sliding window (keys ``>= seq_len - window``),
+per-head sink logits (denominator only) and a softmax ``scale`` (default
+1/sqrt(D)). Softmax in f32. The query is pre-scaled and rounded to its
+dtype, as the TPU wrapper does.
+
+Bound on the H100: bytes. Each live context token costs ``2 * KH * D``
+pool elements read (K and V) against ``4 * H * D`` flops, under one flop
+per byte at bf16, far below the ~295 the card needs to be compute bound.
+The TPU kernel's windowed DMA pipeline, block-diagonal score matmul and
+cross-program prefetch are Mosaic machinery with no counterpart here. The
+kernel (csrc/paged_attention_v3.cu, common.cuh) gives each (sequence, KV
+head) one block, loads each live page's ``[page, D]`` K/V tile once into
+shared memory with 16-byte loads and serves all G query heads of that KV
+head from it (one warp per head, f32 online softmax), so every live byte
+crosses device memory exactly once. It reads only pages below
+``ceil(seq_len / page)`` (and from the window's first page): pages a
+sequence has not reached, and the trash page, are never read.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from dynamo_tpu_torch.ops.attention import paged_decode_attention
+from dynamo_tpu_torch.ops.cuda.build import check, dtype_code, load_library, stream_ptr
+
+PAGE_SIZES = (16,)
+HEAD_DIMS = (64, 128)
+
+
+def prescale(q: torch.Tensor, scale: float | None) -> torch.Tensor:
+    """q * scale rounded to q's dtype (the TPU wrappers' pre-scaling)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return (q.float() * scale).to(q.dtype)
+
+
+def paged_attention_v3_plain(
+    q, k_pages, v_pages, block_tables, seq_lens, *,
+    window: int = 0, sinks=None, scale: float | None = None,
+) -> torch.Tensor:
+    """Plain version: gather the context, masked f32 softmax."""
+    return paged_decode_attention(
+        prescale(q, scale), k_pages, v_pages, block_tables, seq_lens,
+        window=window, sinks=sinks, scale=1.0,
+    )
+
+
+def check_attention_args(q, k_layer, v_layer, block_tables, seq_lens, sinks,
+                         name: str) -> None:
+    """Validation shared by both attention kernels' wrappers."""
+    tensors = [q, k_layer, v_layer, block_tables, seq_lens]
+    if sinks is not None:
+        tensors.append(sinks)
+    if any(t.device != q.device for t in tensors):
+        raise ValueError(f"{name}: all tensors must be on one CUDA device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: tensors must be contiguous")
+    B, H, D = q.shape
+    KH, page, Dk = k_layer.shape[-3:]
+    if k_layer.shape != v_layer.shape or Dk != D:
+        raise ValueError(f"{name}: pool shape {tuple(k_layer.shape)} does "
+                         f"not match q {tuple(q.shape)}")
+    if H % KH or not 1 <= H // KH <= 16:
+        raise ValueError(f"{name}: {H} query heads over {KH} KV heads "
+                         "(needs a group size in 1..16)")
+    if page not in PAGE_SIZES or D not in HEAD_DIMS:
+        raise ValueError(f"{name}: page {page} / head dim {D} not supported "
+                         f"(pages {PAGE_SIZES}, head dims {HEAD_DIMS})")
+    if not q.dtype == k_layer.dtype == v_layer.dtype:
+        raise TypeError(f"{name}: q and pools must share a dtype")
+    dtype_code(q.dtype)
+    if block_tables.dim() != 2 or block_tables.shape[0] != B:
+        raise ValueError(f"{name}: block_tables must be [B, P]")
+    if seq_lens.shape != (B,):
+        raise ValueError(f"{name}: seq_lens must be [B]")
+    if block_tables.dtype != torch.int32 or seq_lens.dtype != torch.int32:
+        raise TypeError(f"{name}: block_tables/seq_lens must be int32")
+    if sinks is not None and (sinks.shape != (H,) or sinks.dtype != torch.float32):
+        raise ValueError(f"{name}: sinks must be float32 [H]")
+
+
+def paged_decode_attention_v3(
+    q: torch.Tensor,  # [B, H, D]
+    k_pages: torch.Tensor,  # [num_pages, KH, page, D]
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, P] int32
+    seq_lens: torch.Tensor,  # [B] int32 (length INCLUDING the new token)
+    *,
+    window: int = 0,
+    sinks: torch.Tensor | None = None,  # [H] learned sink logits
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Decode attention over one layer of the page-major cache. CUDA
+    tensors launch the kernel; CPU tensors take the plain version."""
+    if q.device.type == "cpu":
+        return paged_attention_v3_plain(
+            q, k_pages, v_pages, block_tables, seq_lens,
+            window=window, sinks=sinks, scale=scale,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention_v3: unsupported device {q.device}")
+    if sinks is not None:
+        sinks = sinks.float().contiguous()
+    check_attention_args(q, k_pages, v_pages, block_tables, seq_lens, sinks,
+                         "paged_attention_v3")
+    B, H, D = q.shape
+    _, KH, page, _ = k_pages.shape
+    out = torch.empty_like(q)
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    rc = load_library().dtt_paged_attention_v3(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        block_tables.data_ptr(), seq_lens.data_ptr(),
+        sinks.data_ptr() if sinks is not None else None, out.data_ptr(),
+        B, H, KH, D, page, block_tables.shape[1], window, scale,
+        dtype_code(q.dtype), stream_ptr(q),
+    )
+    check(rc, "paged_attention_v3")
+    paged_decode_attention_v3.launches += 1
+    return out
+
+
+paged_decode_attention_v3.launches = 0

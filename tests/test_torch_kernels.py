@@ -1,0 +1,232 @@
+"""The port's decode kernels (dynamo_tpu_torch/ops/cuda/) against the JAX
+package's Pallas kernels.
+
+On the CPU each wrapper takes its kernel's plain PyTorch version; the JAX
+side runs the Pallas kernels in interpret mode. Both get the same
+numpy-seeded inputs. Tolerances: f32 at 1e-5 (the two differ only in the
+order of f32 sums), bf16 at 2e-2 (bf16 outputs round at slightly different
+points), kv_write bitwise outside trash page 0.
+
+On the card, chip_smoke.py holds each CUDA kernel against its plain version.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dynamo_tpu.ops.pallas.fused_decode import fused_decode_attention as jax_fused
+from dynamo_tpu.ops.pallas.kv_write import kv_write_pallas
+from dynamo_tpu.ops.pallas.paged_attention_v3 import paged_decode_attention_v3 as jax_v3
+from dynamo_tpu_torch.ops.cuda import fused_decode, kv_write, paged_attention_v3
+
+pytestmark = pytest.mark.unit
+
+TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+@pytest.fixture(autouse=True)
+def _few_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _both(arr: np.ndarray, dtype: str):
+    """The same values as a JAX array and a torch tensor."""
+    if dtype == "bfloat16":
+        return (jnp.asarray(arr, jnp.bfloat16),
+                torch.from_numpy(arr.copy()).to(torch.bfloat16))
+    if arr.dtype.kind == "i":
+        return jnp.asarray(arr), torch.from_numpy(arr.copy())
+    return jnp.asarray(arr, jnp.float32), torch.from_numpy(arr.copy())
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x.astype(jnp.float32))
+
+
+def _decode_inputs(L=2, KH=2, G=2, page=4, D=8, B=4, P=3, seed=0,
+                   seq_lens=(6, 1, 12, 9)):
+    """Pools with distinct pages per sequence (page 0 = trash), per-slot
+    seq_lens INCLUDING the new token, and the new token's page/offset."""
+    rng = np.random.default_rng(seed)
+    NP = 1 + B * P
+    sl = np.asarray(seq_lens[:B], np.int32)
+    bt = np.zeros((B, P), np.int32)
+    for i in range(B):
+        bt[i] = rng.permutation(np.arange(1 + i * P, 1 + (i + 1) * P))
+    pos = sl - 1
+    return {
+        "q": rng.standard_normal((B, KH * G, D)).astype(np.float32),
+        "k_pages": rng.standard_normal((L, NP, KH, page, D)).astype(np.float32),
+        "v_pages": rng.standard_normal((L, NP, KH, page, D)).astype(np.float32),
+        "k_new": rng.standard_normal((B, KH, D)).astype(np.float32),
+        "v_new": rng.standard_normal((B, KH, D)).astype(np.float32),
+        "bt": bt,
+        "sl": sl,
+        "dst_page": np.asarray([bt[i, pos[i] // page] for i in range(B)], np.int32),
+        "dst_off": (pos % page).astype(np.int32),
+        "sinks": rng.standard_normal((KH * G,)).astype(np.float32),
+    }
+
+
+FUSED_CASES = {
+    # name: (input overrides, kernel options)
+    "gqa": ({}, {}),
+    "group4": ({"KH": 2, "G": 4}, {}),
+    "window": ({}, {"window": 5}),
+    "sinks": ({}, {"sinks": True}),
+    "window_sinks_multichunk": ({"P": 4, "seq_lens": (15, 2, 16, 7)},
+                                {"window": 6, "sinks": True, "chunk1": True}),
+    "multichunk": ({"P": 4, "seq_lens": (13, 1, 16, 5)}, {"chunk1": True}),
+    "all_len_one": ({"seq_lens": (1, 1, 1, 1)}, {}),
+}
+
+
+# every case at f32; bf16 on the cases that cover each code path once
+BF16_FUSED = ("gqa", "window_sinks_multichunk")
+BF16_V3 = ("gqa", "window_sinks")
+
+
+@pytest.mark.parametrize("case,dtype", [
+    (c, dt) for c in sorted(FUSED_CASES) for dt in ("float32", "bfloat16")
+    if dt == "float32" or c in BF16_FUSED
+])
+def test_fused_decode_plain_matches_pallas(case, dtype):
+    over, opts = FUSED_CASES[case]
+    x = _decode_inputs(seed=len(case), **over)
+    layer = 1
+    j = {k: _both(v, dtype if v.dtype.kind == "f" else "") for k, v in x.items()}
+    sinks = "sinks" if opts.get("sinks") else None
+    window = opts.get("window", 0)
+    got = fused_decode.fused_decode_attention(
+        *(j[k][1] for k in ("q", "k_pages", "v_pages", "k_new", "v_new",
+                            "bt", "sl", "dst_page", "dst_off")),
+        layer=layer, window=window,
+        sinks=torch.from_numpy(x["sinks"]) if sinks else None,
+    )
+    k_t, v_t = j["k_pages"][1], j["v_pages"][1]
+    want, want_k, want_v = jax_fused(
+        *(j[k][0] for k in ("q", "k_pages", "v_pages", "k_new", "v_new",
+                            "bt", "sl", "dst_page", "dst_off")),
+        layer=layer, window=window,
+        sinks=jnp.asarray(x["sinks"]) if sinks else None,
+        interpret=True, window_pages_override=1 if opts.get("chunk1") else None,
+    )
+    tol = TOL[dtype]
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+    # the append is a copy: pools bitwise equal (no inactive rows here)
+    np.testing.assert_array_equal(_np(k_t), _np(want_k))
+    np.testing.assert_array_equal(_np(v_t), _np(want_v))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_decode_inactive_slot_on_trash_page(dtype):
+    """An inactive slot (seq_len 1, dst page 0) writes only the trash page;
+    its output is the single-key merge, finite, on both sides."""
+    x = _decode_inputs(seed=21)
+    x["sl"][1] = 1
+    x["dst_page"][1] = 0
+    x["dst_off"][1] = 0
+    j = {k: _both(v, dtype if v.dtype.kind == "f" else "") for k, v in x.items()}
+    args = ("q", "k_pages", "v_pages", "k_new", "v_new", "bt", "sl",
+            "dst_page", "dst_off")
+    got = fused_decode.fused_decode_attention(*(j[k][1] for k in args), layer=0)
+    want, want_k, _ = jax_fused(*(j[k][0] for k in args), layer=0,
+                                interpret=True)
+    tol = TOL[dtype]
+    assert np.isfinite(_np(got)).all()
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+    np.testing.assert_array_equal(_np(j["k_pages"][1])[:, 1:],
+                                  _np(want_k)[:, 1:])
+    # the inactive row attends to nothing but itself: output == v_new
+    G = x["q"].shape[1] // x["k_new"].shape[1]
+    np.testing.assert_allclose(
+        _np(got)[1], np.repeat(_np(j["v_new"][1])[1], G, axis=0),
+        rtol=tol, atol=tol,
+    )
+
+
+V3_CASES = {
+    "gqa": ({}, {}),
+    "group4": ({"KH": 2, "G": 4}, {}),
+    "window": ({}, {"window": 5}),
+    "sinks": ({}, {"sinks": True}),
+    "window_sinks": ({"seq_lens": (11, 3, 12, 8)}, {"window": 4, "sinks": True}),
+    "short_and_full": ({"seq_lens": (1, 12, 2, 11)}, {}),
+}
+
+
+@pytest.mark.parametrize("case,dtype", [
+    (c, dt) for c in sorted(V3_CASES) for dt in ("float32", "bfloat16")
+    if dt == "float32" or c in BF16_V3
+])
+def test_paged_attention_v3_plain_matches_pallas(case, dtype):
+    over, opts = V3_CASES[case]
+    x = _decode_inputs(seed=100 + len(case), **over)
+    layer = 1
+    q = _both(x["q"], dtype)
+    kp = _both(x["k_pages"][layer], dtype)
+    vp = _both(x["v_pages"][layer], dtype)
+    bt, sl = _both(x["bt"], ""), _both(x["sl"], "")
+    window = opts.get("window", 0)
+    sinks = x["sinks"] if opts.get("sinks") else None
+    got = paged_attention_v3.paged_decode_attention_v3(
+        q[1], kp[1], vp[1], bt[1], sl[1], window=window,
+        sinks=torch.from_numpy(sinks) if sinks is not None else None,
+    )
+    want = jax_v3(
+        q[0], kp[0], vp[0], bt[0], sl[0], window=window,
+        sinks=jnp.asarray(sinks) if sinks is not None else None,
+        interpret=True,
+    )
+    tol = TOL[dtype]
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layer", [0, 1])
+def test_kv_write_plain_matches_pallas(layer, dtype):
+    """Bitwise outside page 0; rows aimed at page 0 collide there."""
+    rng = np.random.default_rng(7 + layer)
+    L, NP, KH, page, D, N = 2, 6, 2, 4, 8, 5
+    pools = [rng.standard_normal((L, NP, KH, page, D)).astype(np.float32)
+             for _ in range(2)]
+    rows = [rng.standard_normal((N, KH, D)).astype(np.float32)
+            for _ in range(2)]
+    dst_page = np.asarray([1, 0, 3, 5, 0], np.int32)
+    dst_off = np.asarray([0, 1, 2, 3, 1], np.int32)
+    kp, vp = (_both(p, dtype) for p in pools)
+    kn, vn = (_both(r, dtype) for r in rows)
+    dp, do = _both(dst_page, ""), _both(dst_off, "")
+    kv_write.kv_write(kp[1], vp[1], kn[1], vn[1], dp[1], do[1], layer=layer)
+    want_k, want_v = kv_write_pallas(kp[0], vp[0], kn[0], vn[0], dp[0], do[0],
+                                     layer=layer, interpret=True)
+    np.testing.assert_array_equal(_np(kp[1])[:, 1:], _np(want_k)[:, 1:])
+    np.testing.assert_array_equal(_np(vp[1])[:, 1:], _np(want_v)[:, 1:])
+    # the other layer's page 0 is untouched on both sides
+    other = 1 - layer
+    np.testing.assert_array_equal(_np(kp[1])[other], _np(want_k)[other])
+
+
+def test_wrappers_reject_unsupported_devices():
+    """A wrapper takes the plain version only for CPU tensors; any other
+    device without a kernel raises instead of falling back."""
+    x = _decode_inputs()
+    meta = {k: torch.from_numpy(v).to("meta") for k, v in x.items()}
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_decode.fused_decode_attention(
+            *(meta[k] for k in ("q", "k_pages", "v_pages", "k_new", "v_new",
+                                "bt", "sl", "dst_page", "dst_off")), layer=0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        paged_attention_v3.paged_decode_attention_v3(
+            meta["q"], meta["k_pages"][0], meta["v_pages"][0], meta["bt"],
+            meta["sl"])
+    with pytest.raises(ValueError, match="unsupported device"):
+        kv_write.kv_write(meta["k_pages"], meta["v_pages"], meta["k_new"],
+                          meta["v_new"], meta["dst_page"], meta["dst_off"],
+                          layer=0)
