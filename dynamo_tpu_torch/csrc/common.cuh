@@ -1,8 +1,79 @@
-// Shared device helpers for the paged decode kernels (sm_90a).
+// Shared device code of the paged decode kernels (sm_90a).
 //
 // The pools are PAGE-MAJOR: [L, num_pages, KH, PAGE, D], one page of one
-// layer being one contiguous [KH, PAGE, D] block. Page 0 is the trash page.
-// Element types: float (dtype code 0) and __nv_bfloat16 (dtype code 1).
+// layer being one contiguous [KH, PAGE, D] block, so one KV head's page is
+// one contiguous PAGE * D run. Page 0 is the trash page. Element types:
+// float (dtype code 0) and __nv_bfloat16 (dtype code 1).
+//
+// decode_attention_kernel below serves both attention entry points:
+// dtt_fused_decode (fused_decode.cu, FUSED = true), which replaces
+// dynamo_tpu/ops/pallas/fused_decode.py:_fused_decode_kernel, and
+// dtt_paged_attention_v3 (paged_attention_v3.cu, FUSED = false), which
+// replaces dynamo_tpu/ops/pallas/paged_attention_v3.py:_decode_kernel_v3.
+//
+// Bound on the H100: bytes. Each live context token costs 2 * KH * D pool
+// elements (K and V) against 4 * H * D flops: about one flop per byte at
+// bf16, far below the ~295 the card needs before tensor cores set the
+// pace. At B=8 and a 512-token context one layer reads 16.8 MB, 5.0 us at
+// 3.35 TB/s. The design therefore aims at keeping bytes moving:
+//
+// * Split context ("flash-decoding"). Grid (S_grid, KH, B). The host picks
+//   S_grid so that B * KH * S_grid covers the SMs about twice (at most
+//   kMaxSplits). In the kernel, (sequence b, KV head kh) cuts its live page
+//   range [lo / PAGE, ceil(ctx / PAGE)), from seq_lens[b], into S =
+//   min(S_grid, max(live pages / kMinSplitPages, 1)) near-equal runs;
+//   split s walks run s, and splits s >= S exit at once. So the host never
+//   reads seq_lens, the launch can be captured in a CUDA graph, and a short
+//   context takes one split however large S_grid is. With no live page the
+//   one split records an empty partial (m = kNegInf, l = 0, acc = 0).
+// * Loads that do not need seq_lens[b] (the query, the new K/V rows, the
+//   sinks) are issued together with it and staged in shared memory, so a
+//   launch waits on one round trip to memory before it asks for tiles.
+// * A ring of page tiles kept in flight (64 KB: 8 stages at bf16 D 128).
+//   Each stage holds one head's K and V page tiles in T (not widened),
+//   filled by two 1-D bulk copies (cp.async.bulk ... mbarrier::
+//   complete_tx) that a producer warp starts, refilling a stage as soon as
+//   its consumer releases it on a second mbarrier.
+// * Four consumer warps, each owning whole tiles (tile i goes to warp
+//   i % 4), so the tile loop has no block-wide barrier. Scores: lane owns
+//   D / 32 neighbouring head dims of all 16 tokens of the tile (a warp
+//   reads each K row whole, free of bank conflicts) against the query
+//   (pre-scaled, rounded to T, kept in f32 in shared memory), for the
+//   group's heads 4 at a time; a 5-step butterfly reduce-scatter of the
+//   64 partial dot products leaves lane l the scores of token l / 2 for two
+//   heads. So the query is read once per tile rather than once per token.
+//   f32 online softmax per warp and head over the tile's 16 tokens. P.V:
+//   lane owns head dims 2 * lane + 64 j and the next one for all G heads.
+//   Block size is 160 for every G in 1..16 and D in {64, 128}.
+// * Combine in the same launch. The block merges its four warps' partials
+//   in shared memory. With S == 1 it finishes the head there. Otherwise
+//   every split writes its partial (acc[G, D], m, l) in f32 to the
+//   workspace [B, KH, S_grid, G, D + 2], then __threadfence() and an atomicAdd
+//   on the (b, kh) ticket. The last split to arrive merges the partials
+//   (loads independent across splits and heads). Then (FUSED) the new token
+//   merges as one extra key, then the sinks; the head is normalised and
+//   written out; the ticket is reset to 0 for the next launch or graph
+//   replay; and only then (FUSED) the new K/V row lands at (dst_page,
+//   dst_off).
+//
+// Race freedom of the FUSED row write: the row lies at position
+// seq_len - 1, on the tail page, which a split reads as a whole tile. The
+// last-arriving split writes the row after every split of its (b, kh) has
+// taken its ticket, and a split takes its ticket only after its last tile
+// has landed in shared memory and been read; so no tile read overlaps the
+// write. With S == 1 the one block writes it after a block-wide barrier
+// that follows its last tile; the spare splits read nothing. Other blocks
+// of the sequence serve other KV heads, whose rows lie elsewhere in the
+// page, and sequences never share a tail page.
+//
+// Keys read from the pool: positions in [lo, ctx), ctx = seq_len
+// (read-only form: the new token is already in the pool) or seq_len - 1
+// (FUSED: the new token (k_new, v_new) merges analytically as one extra
+// key). lo = seq_len - window with a sliding window, else 0. Only pages
+// below ceil(ctx / PAGE) are read, so the trash page, where inactive slots
+// write, is never read for a live row. Masked rows of a tile are skipped
+// by selection, never multiplied by a zero weight, so junk (even NaN) in a
+// masked slot cannot leak. Sinks add exp(sink) to the denominator only.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -17,6 +88,27 @@ constexpr int kBF16 = 1;
 // finite "minus infinity" (the TPU kernels' NEG_INF): masked scores stay
 // finite, so exp(NEG_INF - m) underflows to 0 instead of producing NaN
 constexpr float kNegInf = -1e30f;
+
+constexpr int kPage = 16;      // tokens per page (the only page size)
+constexpr int kWarps = 4;      // consumer warps per block
+constexpr int kBlock = 32 * (kWarps + 1);  // and one producer warp
+constexpr int kMaxSplits = 64;  // S <= kMaxSplits (ops/cuda: MAX_SPLITS)
+// a context is split only into runs of at least this many pages (two
+// tiles per consumer warp): below it the cross-split merge costs more
+// than the tiles it spreads
+constexpr int kMinSplitPages = 2 * kWarps;
+
+// shared memory given to the ring of page tiles per block; the ring holds
+// 4, 8, 12 or 16 stages of one head's K and V page tiles: a multiple of
+// the consumer warps, so stage i % stages is always consumed by warp
+// i % kWarps, which waits on its phases strictly in turn (a parity wait
+// can then never mistake an older completed phase for the awaited one)
+constexpr int kRingBytes = 64 * 1024;
+template <typename T, int D>
+__host__ __device__ constexpr int ring_stages() {
+  constexpr int n = kRingBytes / (2 * kPage * D * (int)sizeof(T));
+  return n < kWarps ? kWarps : n > 4 * kWarps ? 4 * kWarps : n / kWarps * kWarps;
+}
 
 template <typename T>
 __device__ __forceinline__ float to_f(T x);
@@ -53,39 +145,198 @@ __device__ __forceinline__ void copy_vec(T* __restrict__ dst,
   for (int i = threadIdx.x; i < nv; i += blockDim.x) d[i] = s[i];
 }
 
-// Load one [PAGE, D] tile of T into shared memory as f32, 16 bytes per
-// thread per load (neighbouring threads on neighbouring addresses).
-template <typename T, int PAGE, int D>
-__device__ __forceinline__ void load_tile(float* __restrict__ dst,
-                                          const T* __restrict__ src) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kChunks = PAGE * D / kVec;
-  const uint4* s = reinterpret_cast<const uint4*>(src);
-  for (int i = threadIdx.x; i < kChunks; i += blockDim.x) {
-    uint4 raw = s[i];
-    const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int u = 0; u < kVec; ++u) dst[i * kVec + u] = to_f<T>(e[u]);
+// ---- mbarrier and 1-D bulk copy (PTX, sm_90) ----
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// wait until the phase with this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra.uni DONE;\n"
+      "bra.uni LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// two neighbouring elements of T as floats
+template <typename T>
+__device__ __forceinline__ float2 load2(const T* p);
+template <>
+__device__ __forceinline__ float2 load2<float>(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+template <>
+__device__ __forceinline__ float2 load2<__nv_bfloat16>(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// N (2 or 4) neighbouring elements of T as floats
+template <typename T, int N>
+__device__ __forceinline__ void load_row(const T* p, float (&f)[N]) {
+  static_assert(N == 2 || N == 4, "2 or 4 elements");
+  if constexpr (sizeof(T) == 4) {
+    if constexpr (N == 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p);
+      f[0] = v.x, f[1] = v.y, f[2] = v.z, f[3] = v.w;
+    } else {
+      const float2 v = *reinterpret_cast<const float2*>(p);
+      f[0] = v.x, f[1] = v.y;
+    }
+  } else {
+    const float2 a = load2<T>(p);
+    f[0] = a.x, f[1] = a.y;
+    if constexpr (N == 4) {
+      const float2 c = load2<T>(p + 2);
+      f[2] = c.x, f[3] = c.y;
+    }
   }
 }
 
-// GQA paged decode attention for one (sequence, KV head) per block; warp g
-// of the block serves query head kh * G + g, so blockDim.x == 32 * G.
-//
-// Keys read from the pool: positions in [lo, ctx), where ctx = seq_len
-// (read-only form: the new token is already in the pool) or seq_len - 1
-// (FUSED: the new token (k_new, v_new) merges analytically as one extra
-// key, then its row is written to (dst_page, dst_off) of the layer).
-// lo = seq_len - window with a sliding window, else 0. Only pages below
-// ceil(ctx / PAGE) are read, so the trash page, where inactive slots
-// write, is never read for a live row. Sinks add exp(sink) to the softmax
-// denominator only. f32 online softmax throughout.
-//
-// Race freedom of the FUSED write: no block reads the row being written
-// (reads stop at seq_len - 2), other blocks of the same sequence own other
-// heads, and sequences never share a tail page.
-template <typename T, int PAGE, int D, bool FUSED>
-__global__ void __launch_bounds__(512)
+// Butterfly reduce-scatter of 64 per-lane values over the warp: each step
+// halves the values a lane holds, keeping the half that lane bit
+// log2(HALF) - 1 selects and adding its partner's copy of that half. After
+// the five steps v[0..1] of lane l hold the warp sums of entries
+// 2 l, 2 l + 1 (lane bits 4..0 select entry bits 5..1).
+template <int HALF>
+__device__ __forceinline__ void reduce_scatter(float (&v)[64], int lane) {
+  constexpr int kMask = HALF / 2;
+  const bool up = (lane & kMask) != 0;
+#pragma unroll
+  for (int j = 0; j < HALF; ++j) {
+    const float send = up ? v[j] : v[j + HALF];
+    const float keep = up ? v[j + HALF] : v[j];
+    v[j] = keep + __shfl_xor_sync(0xffffffffu, send, kMask);
+  }
+  if constexpr (HALF > 2) reduce_scatter<HALF / 2>(v, lane);
+}
+
+// ---- dynamic shared memory of one block (byte offsets) ----
+
+struct SmemPlan {
+  int q;      // [G, D] f32: the pre-scaled query
+  int nv;     // [2, D] f32: the new K and V rows (FUSED)
+  int sink;   // [G] f32: the sinks
+  int p;      // [kWarps, G, PAGE] f32: each warp's tile probabilities
+  int snew;   // [G] f32: the new token's scores (FUSED)
+  int ml;     // [2, G] f32: merged max and denominator
+  int bars;   // [2, stages] mbarriers: tile landed, then tile released
+  int flag;   // int: this block is the last split of its (b, kh)
+  int total;
+};
+
+// The ring sits at offset 0. Once every tile is consumed, the block reuses
+// it for the warps' partials [kWarps, G, D + 2] f32 and then for the
+// splits' maxima, weights and denominators [2, S, G] f32; ring_stages
+// keeps it large enough for both.
+template <typename T, int D>
+__host__ __device__ inline SmemPlan smem_plan(int G) {
+  constexpr int kStages = ring_stages<T, D>();
+  SmemPlan p;
+  int off = kStages * 2 * kPage * D * (int)sizeof(T);  // K and V stages
+  p.q = off;
+  off += G * D * 4;
+  p.nv = off;
+  off += 2 * D * 4;
+  p.sink = off;
+  off += (G + 3) / 4 * 16;  // the tile probabilities are read as float4
+  p.p = off;
+  off += kWarps * G * kPage * 4;
+  p.snew = off;
+  off += G * 4;
+  p.ml = off;
+  off += 2 * G * 4;
+  off = (off + 7) / 8 * 8;
+  p.bars = off;
+  off += 2 * kStages * 8;
+  p.flag = off;
+  off += 16;
+  p.total = off;
+  return p;
+}
+
+// acc[g][*] += P[g] . V over one tile, for lane's head dims (2 * lane + 64 j
+// and the next one). MASKED selects the rows in [t_lo, t_hi): junk in a
+// masked row never meets a zero weight.
+template <typename T, int D, int GB, bool MASKED>
+__device__ __forceinline__ void tile_pv(float (&acc)[GB][D / 32],
+                                        const T* __restrict__ vt,
+                                        const float* __restrict__ pw, int G,
+                                        int lane, int t_lo, int t_hi) {
+  constexpr int kPairs = D / 64;
+#pragma unroll
+  for (int t4 = 0; t4 < kPage / 4; ++t4) {
+    float2 vf[4][kPairs];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int t = 4 * t4 + u;
+      const bool ok = !MASKED || (t >= t_lo && t < t_hi);
+#pragma unroll
+      for (int j = 0; j < kPairs; ++j) {
+        const float2 v = load2<T>(vt + t * D + 2 * lane + 64 * j);
+        vf[u][j] = ok ? v : make_float2(0.f, 0.f);
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      if (g < G) {
+        const float4 pp = reinterpret_cast<const float4*>(pw + g * kPage)[t4];
+#pragma unroll
+        for (int j = 0; j < kPairs; ++j) {
+          acc[g][2 * j] += pp.x * vf[0][j].x + pp.y * vf[1][j].x +
+                           pp.z * vf[2][j].x + pp.w * vf[3][j].x;
+          acc[g][2 * j + 1] += pp.x * vf[0][j].y + pp.y * vf[1][j].y +
+                               pp.z * vf[2][j].y + pp.w * vf[3][j].y;
+        }
+      }
+    }
+  }
+}
+
+// GQA paged decode attention, split context with an in-launch combine; see
+// the notes at the top of this file. GB >= G is the compile-time bound of
+// the group size (4 or 16); threads hold per-head state for GB heads.
+template <typename T, int D, int GB, bool FUSED>
+__global__ void __launch_bounds__(kBlock, GB <= 4 ? 3 : 2)
     decode_attention_kernel(const T* __restrict__ q,  // [B, H, D]
                             T* k_layer,               // [NP, KH, PAGE, D]
                             T* v_layer,
@@ -97,107 +348,392 @@ __global__ void __launch_bounds__(512)
                             const int* __restrict__ dst_off,       // [B]
                             const float* __restrict__ sinks,  // [H] or null
                             T* __restrict__ out,              // [B, H, D]
+                            float* __restrict__ ws,  // [B, KH, S, G, D + 2]
+                            int* __restrict__ tickets,  // [B * KH], zeroed
                             int KH, int G, int P, int window, float scale) {
-  constexpr int kDpl = D / 32;  // head dims per lane: d = lane + 32 * j
-  __shared__ float k_tile[PAGE * D];
-  __shared__ float v_tile[PAGE * D];
+  constexpr int kDl = D / 32;               // head dims per lane
+  constexpr int kHS = 128 / D;              // merge: threads per head dim
+  constexpr int kGA = GB / kHS;             // merge: heads per thread
+  constexpr int kTileElems = kPage * D;
+  constexpr uint32_t kTileBytes = kTileElems * sizeof(T);
+  constexpr int kW = D + 2;                 // partial row: acc, m, l
+  constexpr int kStages = ring_stages<T, D>();
+  static_assert(kStages * 2 * kTileElems * (int)sizeof(T) >= kWarps * GB * kW * 4,
+                "the idle ring must hold the warps' partials");
 
-  const int b = blockIdx.x;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const SmemPlan plan = smem_plan<T, D>(G);
+  T* stages = reinterpret_cast<T*>(smem);
+  float* part_s = reinterpret_cast<float*>(smem);  // after the ring is idle
+  float* qf = reinterpret_cast<float*>(smem + plan.q);
+  float* nv_s = reinterpret_cast<float*>(smem + plan.nv);
+  float* sink_s = reinterpret_cast<float*>(smem + plan.sink);
+  float* p_s = reinterpret_cast<float*>(smem + plan.p);
+  float* snew_s = reinterpret_cast<float*>(smem + plan.snew);
+  float* ml_s = reinterpret_cast<float*>(smem + plan.ml);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + plan.bars);
+  uint64_t* empty = full + kStages;
+  int* last_s = reinterpret_cast<int*>(smem + plan.flag);
+
+  const int split = blockIdx.x;
+  const int S_grid = gridDim.x;
   const int kh = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int g = threadIdx.x >> 5;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int H = KH * G;
-  const int h = kh * G + g;
   const int seq_len = seq_lens[b];
+
+  // Loads that do not need seq_len go out with it (each decode layer finds
+  // them outside the L2) and land in shared memory before the split test,
+  // which keeps the compiler from sinking them past it: the query,
+  // pre-scaled and rounded to T exactly as the TPU wrapper does, in f32
+  // [G, D]; (FUSED) the new K and V rows in f32; the sinks.
+  {
+    constexpr int kQPer = (GB * D + kBlock - 1) / kBlock;
+    constexpr int kNVPer = (2 * D + kBlock - 1) / kBlock;
+    const T* qg = q + ((size_t)b * H + (size_t)kh * G) * D;
+    const size_t row = ((size_t)b * KH + kh) * D;
+    T qv[kQPer], nv[kNVPer];
+    float sk = 0.f;
+#pragma unroll
+    for (int r = 0; r < kQPer; ++r) {
+      const int i = tid + r * kBlock;
+      if (i < G * D) qv[r] = qg[i];
+    }
+    if (FUSED) {
+#pragma unroll
+      for (int r = 0; r < kNVPer; ++r) {
+        const int i = tid + r * kBlock;
+        if (i < 2 * D) nv[r] = i < D ? k_new[row + i] : v_new[row + i - D];
+      }
+    }
+    if (sinks != nullptr && tid < G) sk = sinks[kh * G + tid];
+#pragma unroll
+    for (int r = 0; r < kQPer; ++r) {
+      const int i = tid + r * kBlock;
+      if (i < G * D) qf[i] = to_f<T>(from_f<T>(to_f<T>(qv[r]) * scale));
+    }
+    if (FUSED) {
+#pragma unroll
+      for (int r = 0; r < kNVPer; ++r) {
+        const int i = tid + r * kBlock;
+        if (i < 2 * D) nv_s[i] = to_f<T>(nv[r]);
+      }
+    }
+    if (sinks != nullptr && tid < G) sink_s[tid] = sk;
+  }
+
   const int ctx = FUSED ? seq_len - 1 : seq_len;
   const int lo = window > 0 ? max(seq_len - window, 0) : 0;
 
-  // the query, pre-scaled and rounded to T exactly as the TPU wrapper does
-  float qv[kDpl];
-  const T* qrow = q + ((size_t)b * H + h) * D;
-#pragma unroll
-  for (int j = 0; j < kDpl; ++j)
-    qv[j] = to_f<T>(from_f<T>(to_f<T>(qrow[lane + 32 * j]) * scale));
+  // the live page range is cut into S <= S_grid near-equal runs of at
+  // least kMinSplitPages pages each, or one run (empty when no page is
+  // live); the grid's spare splits leave here, before the ring, the
+  // workspace or the ticket, so a short context pays for one split
+  const int lo_p = lo / kPage;
+  const int n_live = max((ctx + kPage - 1) / kPage - lo_p, 0);
+  const int S = min(S_grid, max(n_live / kMinSplitPages, 1));
+  if (split >= S) return;
+  const int p_begin = lo_p + (int)((long long)split * n_live / S);
+  const int n = lo_p + (int)((long long)(split + 1) * n_live / S) - p_begin;
 
-  float m = kNegInf, l = 0.f;
-  float acc[kDpl];
-#pragma unroll
-  for (int j = 0; j < kDpl; ++j) acc[j] = 0.f;
+  const size_t page_stride = (size_t)KH * kPage * D;
+  const size_t head_off = (size_t)kh * kPage * D;
+  const int* bt = block_tables + (size_t)b * P;
 
-  const size_t page_stride = (size_t)KH * PAGE * D;
-  const size_t head_off = (size_t)kh * PAGE * D;
-  const int n_pages = (ctx + PAGE - 1) / PAGE;
-  for (int p = lo / PAGE; p < n_pages; ++p) {
-    const size_t base = (size_t)block_tables[(size_t)b * P + p] * page_stride;
-    __syncthreads();  // every warp is done with the previous tile
-    load_tile<T, PAGE, D>(k_tile, k_layer + base + head_off);
-    load_tile<T, PAGE, D>(v_tile, v_layer + base + head_off);
-    __syncthreads();
-
-    float s[PAGE];
-    float pm = kNegInf;
-#pragma unroll
-    for (int t = 0; t < PAGE; ++t) {
-      float part = 0.f;
-#pragma unroll
-      for (int j = 0; j < kDpl; ++j) part += qv[j] * k_tile[t * D + lane + 32 * j];
-      part = warp_sum(part);
-      const int pos = p * PAGE + t;
-      s[t] = (pos >= lo && pos < ctx) ? part : kNegInf;
-      pm = fmaxf(pm, s[t]);
+  auto fetch = [&](int i) {
+    const int st = i % kStages;
+    const size_t base = (size_t)bt[p_begin + i] * page_stride + head_off;
+    T* dst = stages + (size_t)2 * st * kTileElems;
+    mbar_expect_tx(&full[st], 2 * kTileBytes);
+    bulk_load(dst, k_layer + base, kTileBytes, &full[st]);
+    bulk_load(dst + kTileElems, v_layer + base, kTileBytes, &full[st]);
+  };
+  if (tid == kWarps * 32) {  // the producer's lane 0: first tiles at once
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 1);
     }
-    const float m_new = fmaxf(m, pm);
-    const float alpha = expf(m - m_new);
-    l *= alpha;
+    mbar_init_fence();
+    for (int i = 0; i < min(n, kStages); ++i) fetch(i);
+  }
+  __syncthreads();
+
+  float acc[GB][kDl];
+  float m_r[GB], l_r[GB];
 #pragma unroll
-    for (int j = 0; j < kDpl; ++j) acc[j] *= alpha;
+  for (int g = 0; g < GB; ++g) {
+    m_r[g] = kNegInf;
+    l_r[g] = 0.f;
 #pragma unroll
-    for (int t = 0; t < PAGE; ++t) {
-      const int pos = p * PAGE + t;
-      if (pos >= lo && pos < ctx) {  // masked rows may hold non-finite junk
-        const float pt = expf(s[t] - m_new);
-        l += pt;
+    for (int j = 0; j < kDl; ++j) acc[g][j] = 0.f;
+  }
+
+  if (warp == kWarps) {
+    // producer: while the first tiles land, the new token's scores (FUSED);
+    // then keep the ring full, refilling a stage once it is released
+    if (FUSED) {
+      float kv[kDl];
 #pragma unroll
-        for (int j = 0; j < kDpl; ++j) acc[j] += pt * v_tile[t * D + lane + 32 * j];
+      for (int j = 0; j < kDl; ++j) kv[j] = nv_s[lane + 32 * j];
+      for (int g = 0; g < G; ++g) {
+        float part = 0.f;
+#pragma unroll
+        for (int j = 0; j < kDl; ++j) part += qf[g * D + lane + 32 * j] * kv[j];
+        part = warp_sum(part);
+        if (lane == 0) snew_s[g] = part;
       }
     }
-    m = m_new;
+    if (lane == 0) {
+      for (int i = kStages; i < n; ++i) {
+        mbar_wait(&empty[i % kStages], (uint32_t)(i / kStages - 1) & 1u);
+        fetch(i);
+      }
+    }
+  } else {
+    // consumers: warp w takes tiles w, w + 4, ...; in the score step each
+    // lane owns head dims [kDl * lane, + kDl) of all 16 tokens, and a
+    // 5-step butterfly reduce-scatter leaves it the full scores of token
+    // lane / 2 for heads 2 * (lane & 1) + {0, 1} of each group of 4
+    const int t_me = lane >> 1;
+    const int k_me = 2 * (lane & 1);
+    float* pw = p_s + warp * G * kPage;
+    for (int i = warp; i < n; i += kWarps) {
+      const int st = i % kStages;
+      const int pos0 = (p_begin + i) * kPage;
+      const int t_lo = max(lo - pos0, 0);
+      const int t_hi = min(ctx - pos0, kPage);
+      mbar_wait(&full[st], (uint32_t)(i / kStages) & 1u);
+      const T* kt = stages + (size_t)2 * st * kTileElems;
+      const T* vt = kt + kTileElems;
+      const bool valid = t_me >= t_lo && t_me < t_hi;
+#pragma unroll
+      for (int hg = 0; hg < GB / 4; ++hg) {
+        if (4 * hg >= G) break;
+        float qv[4][kDl];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (4 * hg + k < G) {
+            load_row<float, kDl>(qf + (4 * hg + k) * D + kDl * lane, qv[k]);
+          } else {
+#pragma unroll
+            for (int d = 0; d < kDl; ++d) qv[k][d] = 0.f;
+          }
+        }
+        // v[4 t + k]: this lane's share of the score of token t, head k
+        float v[4 * kPage];
+#pragma unroll
+        for (int t = 0; t < kPage; ++t) {
+          float kf[kDl];
+          load_row<T, kDl>(kt + t * D + kDl * lane, kf);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            float sum = 0.f;
+#pragma unroll
+            for (int d = 0; d < kDl; ++d) sum += qv[k][d] * kf[d];
+            v[4 * t + k] = sum;
+          }
+        }
+        reduce_scatter<32>(v, lane);
+        // online softmax over the tile's 16 tokens for the lane's two heads
+        // (the 16 lanes of one parity hold one head pair)
+        float m_tile[2], p_tile[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float sv = valid ? v[j] : kNegInf;
+          float mx = sv;
+#pragma unroll
+          for (int o = 2; o < 32; o <<= 1)
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+          const float m_old = (lane & 1) ? m_r[4 * hg + 2 + j] : m_r[4 * hg + j];
+          const float m_new = fmaxf(m_old, mx);
+          const float p = valid ? expf(sv - m_new) : 0.f;
+          float ps = p;
+#pragma unroll
+          for (int o = 2; o < 32; o <<= 1) ps += __shfl_xor_sync(0xffffffffu, ps, o);
+          m_tile[j] = m_new;
+          p_tile[j] = ps;
+          const int g = 4 * hg + k_me + j;
+          if (g < G) pw[g * kPage + t_me] = p;
+        }
+        // every lane takes each head's new max and tile sum from lane 0
+        // (heads 0 and 1 of the group) or lane 1 (heads 2 and 3)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int g = 4 * hg + k;
+          const float m_new = __shfl_sync(0xffffffffu, m_tile[k & 1], k >> 1);
+          const float ps = __shfl_sync(0xffffffffu, p_tile[k & 1], k >> 1);
+          if (g < G) {
+            const float alpha = expf(m_r[g] - m_new);
+            l_r[g] = l_r[g] * alpha + ps;
+            m_r[g] = m_new;
+#pragma unroll
+            for (int j = 0; j < kDl; ++j) acc[g][j] *= alpha;
+          }
+        }
+      }
+      __syncwarp();
+      if (t_lo == 0 && t_hi == kPage)
+        tile_pv<T, D, GB, false>(acc, vt, pw, G, lane, t_lo, t_hi);
+      else
+        tile_pv<T, D, GB, true>(acc, vt, pw, G, lane, t_lo, t_hi);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
+  }
+  __syncthreads();  // every tile consumed: the ring is idle
+
+  // the warps' partials, then their merge per (head, head dim)
+  if (warp < kWarps) {
+    float* wp = part_s + warp * G * kW;
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      if (g < G) {
+#pragma unroll
+        for (int j = 0; j < kDl; ++j)
+          wp[g * kW + 2 * lane + 64 * (j / 2) + (j & 1)] = acc[g][j];
+        if (lane == 0) {
+          wp[g * kW + D] = m_r[g];
+          wp[g * kW + D + 1] = l_r[g];
+        }
+      }
+    }
+  }
+  __syncthreads();
+  const int d_me = tid % D;   // merge: head dim (threads below 128)
+  const int hs_me = tid / D;  // merge: first head
+  float mm[kGA], ll[kGA], aa[kGA];
+  if (tid < 128) {
+#pragma unroll
+    for (int k = 0; k < kGA; ++k) {
+      const int g = hs_me + kHS * k;
+      if (g >= G) continue;
+      float m = kNegInf;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) m = fmaxf(m, part_s[(w * G + g) * kW + D]);
+      float l = 0.f, a = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float* e = part_s + (w * G + g) * kW;
+        const float c = expf(e[D] - m);
+        l += e[D + 1] * c;
+        a += e[d_me] * c;
+      }
+      mm[k] = m;
+      ll[k] = l;
+      aa[k] = a;
+    }
   }
 
-  if (FUSED) {
-    // the new token as one more key: score q.k_new, value v_new. The
-    // decode query sits at the new token, so it is always visible.
-    const T* kn = k_new + ((size_t)b * KH + kh) * D;
-    const T* vn = v_new + ((size_t)b * KH + kh) * D;
-    float part = 0.f;
+  int* ticket = tickets + (size_t)b * KH + kh;
+  if (S > 1) {
+    // this split's partial, then its ticket; the last split merges them
+    float* wb = ws + ((size_t)b * KH + kh) * S_grid * G * kW;
+    if (tid < 128) {
+      float* wp = wb + (size_t)split * G * kW;
 #pragma unroll
-    for (int j = 0; j < kDpl; ++j) part += qv[j] * to_f<T>(kn[lane + 32 * j]);
-    const float s_new = warp_sum(part);
-    const float m_f = fmaxf(m, s_new);
-    const float alpha = expf(m - m_f);
-    const float p_new = expf(s_new - m_f);
-    l = l * alpha + p_new;
+      for (int k = 0; k < kGA; ++k) {
+        const int g = hs_me + kHS * k;
+        if (g >= G) continue;
+        wp[g * kW + d_me] = aa[k];
+        if (d_me == 0) {
+          wp[g * kW + D] = mm[k];
+          wp[g * kW + D + 1] = ll[k];
+        }
+      }
+    }
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) *last_s = atomicAdd(ticket, 1) == S - 1;
+    __syncthreads();
+    if (!*last_s) return;
+    __threadfence();  // see every split's partial
+
+    // maxima and denominators into shared memory; per head (one warp
+    // each) the merged max M, the weights exp(m_s - M) and the denominator
+    float* w_s = part_s;           // [S, G] maxima, then weights
+    float* lw_s = part_s + S * G;  // [S, G] denominators
+    for (int i = tid; i < S * G; i += kBlock) {
+      w_s[i] = __ldcg(wb + (size_t)i * kW + D);
+      lw_s[i] = __ldcg(wb + (size_t)i * kW + D + 1);
+    }
+    __syncthreads();
+    for (int g = warp; g < G; g += kWarps + 1) {
+      float m = kNegInf;
+      for (int s = lane; s < S; s += 32) m = fmaxf(m, w_s[s * G + g]);
 #pragma unroll
-    for (int j = 0; j < kDpl; ++j)
-      acc[j] = acc[j] * alpha + p_new * to_f<T>(vn[lane + 32 * j]);
-    m = m_f;
+      for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      float l = 0.f;
+      for (int s = lane; s < S; s += 32) {
+        const float c = expf(w_s[s * G + g] - m);
+        l += lw_s[s * G + g] * c;
+        w_s[s * G + g] = c;
+      }
+      l = warp_sum(l);
+      if (lane == 0) {
+        ml_s[g] = m;
+        ml_s[G + g] = l;
+      }
+    }
+    __syncthreads();
+    if (tid < 128) {
+#pragma unroll
+      for (int k = 0; k < kGA; ++k) aa[k] = 0.f;
+      const float* e = wb + d_me;
+#pragma unroll 16
+      for (int s = 0; s < S; ++s) {
+#pragma unroll
+        for (int k = 0; k < kGA; ++k) {
+          const int g = hs_me + kHS * k;
+          if (g < G)
+            aa[k] += w_s[s * G + g] * __ldcg(e + (size_t)(s * G + g) * kW);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kGA; ++k) {
+        const int g = hs_me + kHS * k;
+        if (g >= G) continue;
+        mm[k] = ml_s[g];
+        ll[k] = ml_s[G + g];
+      }
+    }
   }
-  if (sinks != nullptr) {
-    // a virtual key with value 0: exp(sink) joins the denominator only
-    const float sink = sinks[h];
-    const float m_s = fmaxf(m, sink);
-    const float c = expf(m - m_s);
-    l = l * c + expf(sink - m_s);
+
+  if (tid < 128) {
 #pragma unroll
-    for (int j = 0; j < kDpl; ++j) acc[j] *= c;
+    for (int k = 0; k < kGA; ++k) {
+      const int g = hs_me + kHS * k;
+      if (g >= G) continue;
+      float m = mm[k], l = ll[k], a = aa[k];
+      if (FUSED) {
+        // the new token as one more key: score q.k_new, value v_new. The
+        // decode query sits at the new token, so it is always visible.
+        const float s_new = snew_s[g];
+        const float m_f = fmaxf(m, s_new);
+        const float alpha = expf(m - m_f);
+        const float p_new = expf(s_new - m_f);
+        l = l * alpha + p_new;
+        a = a * alpha + p_new * nv_s[D + d_me];
+        m = m_f;
+      }
+      if (sinks != nullptr) {
+        // a virtual key with value 0: exp(sink) joins the denominator only
+        const float sink = sink_s[g];
+        const float m_s = fmaxf(m, sink);
+        const float c = expf(m - m_s);
+        l = l * c + expf(sink - m_s);
+        a *= c;
+      }
+      out[((size_t)b * H + (size_t)kh * G + g) * D + d_me] =
+          from_f<T>(a / fmaxf(l, 1e-30f));
+    }
   }
-  const float inv = 1.f / fmaxf(l, 1e-30f);
-  T* orow = out + ((size_t)b * H + h) * D;
-#pragma unroll
-  for (int j = 0; j < kDpl; ++j) orow[lane + 32 * j] = from_f<T>(acc[j] * inv);
+  if (S > 1 && tid == 0) *ticket = 0;  // clean for the next launch or replay
 
   if (FUSED) {
-    // land this head's new KV row in place
+    // every split of (b, kh) has read its tiles: land the new KV row
     const size_t row = (size_t)dst_page[b] * page_stride + head_off +
                        (size_t)dst_off[b] * D;
     const size_t src = ((size_t)b * KH + kh) * D;
@@ -206,34 +742,73 @@ __global__ void __launch_bounds__(512)
   }
 }
 
-// Host-side launcher shared by the two attention entry points.
+// static: its function-local `raised` must stay private to this library
+// (an inline function's static is one object across every library the
+// process loads, so a second build of these kernels would skip raising
+// its own limit)
+template <typename T, int D, int GB, bool FUSED>
+static int launch_split(dim3 grid, cudaStream_t stream, const void* q,
+                        void* k_layer, void* v_layer, const void* k_new,
+                        const void* v_new, const int* block_tables,
+                        const int* seq_lens, const int* dst_page,
+                        const int* dst_off, const float* sinks, void* out,
+                        float* ws, int* tickets, int KH, int G, int P,
+                        int window, float scale) {
+  auto kernel = decode_attention_kernel<T, D, GB, FUSED>;
+  const int bytes = smem_plan<T, D>(G).total;
+  // above 48 KB the limit is raised once per kernel and device (the most a
+  // launch needs is the G = 16 plan)
+  static int raised[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (bytes > 48 * 1024 && (dev >= 64 || raised[dev] < bytes)) {
+    const int most = smem_plan<T, D>(16).total;
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 64) raised[dev] = most;
+  }
+  kernel<<<grid, kBlock, bytes, stream>>>(
+      (const T*)q, (T*)k_layer, (T*)v_layer, (const T*)k_new, (const T*)v_new,
+      block_tables, seq_lens, dst_page, dst_off, sinks, (T*)out, ws, tickets,
+      KH, G, P, window, scale);
+  return (int)cudaGetLastError();
+}
+
+// Host-side launcher shared by the two attention entry points. `ws` holds
+// B * KH * S * G * (D + 2) floats; `tickets` B * KH ints, zero on entry
+// (the kernel leaves them zero). Both must belong to this stream alone.
 template <bool FUSED>
-inline int launch_decode_attention(
+static int launch_decode_attention(
     const void* q, void* k_layer, void* v_layer, const void* k_new,
     const void* v_new, const int* block_tables, const int* seq_lens,
     const int* dst_page, const int* dst_off, const float* sinks, void* out,
-    int B, int H, int KH, int D, int page, int P, int window, float scale,
-    int dtype, cudaStream_t stream) {
-  const int G = H / KH;
-  if (page != 16 || (D != 64 && D != 128) || G < 1 || G > 16 || H % KH)
+    float* ws, int* tickets, int S, int B, int H, int KH, int D, int page,
+    int P, int window, float scale, int dtype, cudaStream_t stream) {
+  const int G = KH > 0 ? H / KH : 0;
+  if (page != kPage || (D != 64 && D != 128) || G < 1 || G > 16 || H % KH ||
+      S < 1 || S > kMaxSplits || KH > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(B, KH), block(32 * G);
-#define DTT_LAUNCH(T, DD)                                                  \
-  decode_attention_kernel<T, 16, DD, FUSED><<<grid, block, 0, stream>>>(   \
-      (const T*)q, (T*)k_layer, (T*)v_layer, (const T*)k_new,              \
-      (const T*)v_new, block_tables, seq_lens, dst_page, dst_off, sinks,   \
-      (T*)out, KH, G, P, window, scale)
+  const dim3 grid(S, KH, B);
+#define DTT_LAUNCH(T, DD, GG)                                                 \
+  return launch_split<T, DD, GG, FUSED>(                                      \
+      grid, stream, q, k_layer, v_layer, k_new, v_new, block_tables,          \
+      seq_lens, dst_page, dst_off, sinks, out, ws, tickets, KH, G, P, window, \
+      scale)
+#define DTT_BY_G(T, DD)          \
+  if (G <= 4) DTT_LAUNCH(T, DD, 4); \
+  DTT_LAUNCH(T, DD, 16)
   if (dtype == kBF16) {
-    if (D == 128) DTT_LAUNCH(__nv_bfloat16, 128);
-    else DTT_LAUNCH(__nv_bfloat16, 64);
-  } else if (dtype == kF32) {
-    if (D == 128) DTT_LAUNCH(float, 128);
-    else DTT_LAUNCH(float, 64);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    if (D == 128) { DTT_BY_G(__nv_bfloat16, 128); }
+    DTT_BY_G(__nv_bfloat16, 64);
   }
+  if (dtype == kF32) {
+    if (D == 128) { DTT_BY_G(float, 128); }
+    DTT_BY_G(float, 64);
+  }
+#undef DTT_BY_G
 #undef DTT_LAUNCH
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace dtt

@@ -13,13 +13,15 @@ exactly the single-key merge.
 Bound on the H100: bytes, as for paged_attention_v3: the live context's K
 and V (``2 * ctx * KH * D`` elements per sequence) dominate; the append
 adds ``2 * KH * D`` per sequence. The TPU kernel staged the destination
-page through VMEM because Mosaic cannot store one row; here the block
-that owns KV head ``kh`` of a sequence (csrc/fused_decode.cu, common.cuh)
-stores that head's new row directly after its attention. This is race
-free with every block running at once: no block reads the row being
-written (reads stop at ``seq_len - 1``), and sequences never share a tail
-page. Against the unfused pair it saves one launch per layer and the
-re-read of the freshly written row.
+page through VMEM because Mosaic cannot store one row. Here the kernel
+(csrc/fused_decode.cu, common.cuh) splits each (sequence, KV head)'s live
+pages over ``S`` blocks as paged_attention_v3 does; the last split of each
+(sequence, KV head) to take its ticket merges the partials, the new token
+and the sinks, and only then stores that head's new row directly. Every
+split has read its tiles before it takes its ticket, so no tile read
+races the write; sequences never share a tail page. Against the unfused
+pair it saves one launch per layer and the re-read of the freshly written
+row.
 """
 
 from __future__ import annotations
@@ -31,7 +33,11 @@ import torch
 from dynamo_tpu_torch.ops.attention import paged_decode_attention
 from dynamo_tpu_torch.ops.cuda.build import check, dtype_code, load_library, stream_ptr
 from dynamo_tpu_torch.ops.cuda.kv_write import kv_write_plain
-from dynamo_tpu_torch.ops.cuda.paged_attention_v3 import check_attention_args, prescale
+from dynamo_tpu_torch.ops.cuda.paged_attention_v3 import (
+    check_attention_args,
+    prescale,
+    split_buffers,
+)
 
 
 def fused_decode_plain(
@@ -102,15 +108,20 @@ def fused_decode_attention(
         raise ValueError("fused_decode: dst_page/dst_off must be [B]")
     if dst_page.dtype != torch.int32 or dst_off.dtype != torch.int32:
         raise TypeError("fused_decode: dst_page/dst_off must be int32")
+    if k_new.data_ptr() % 16 or v_new.data_ptr() % 16:
+        raise ValueError("fused_decode: new rows must be 16-byte aligned")
     out = torch.empty_like(q)
     if scale is None:
         scale = 1.0 / math.sqrt(D)
+    P = block_tables.shape[1]
+    S, ws, tickets = split_buffers(q, KH, P)
     rc = load_library().dtt_fused_decode(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_new.data_ptr(), v_new.data_ptr(), block_tables.data_ptr(),
         seq_lens.data_ptr(), dst_page.data_ptr(), dst_off.data_ptr(),
         sinks.data_ptr() if sinks is not None else None, out.data_ptr(),
-        B, H, KH, D, page, block_tables.shape[1], NP, layer, window, scale,
+        ws.data_ptr(), tickets.data_ptr(), S,
+        B, H, KH, D, page, P, NP, layer, window, scale,
         dtype_code(q.dtype), stream_ptr(q),
     )
     check(rc, "fused_decode")

@@ -15,13 +15,21 @@ pool elements read (K and V) against ``4 * H * D`` flops, under one flop
 per byte at bf16, far below the ~295 the card needs to be compute bound.
 The TPU kernel's windowed DMA pipeline, block-diagonal score matmul and
 cross-program prefetch are Mosaic machinery with no counterpart here. The
-kernel (csrc/paged_attention_v3.cu, common.cuh) gives each (sequence, KV
-head) one block, loads each live page's ``[page, D]`` K/V tile once into
-shared memory with 16-byte loads and serves all G query heads of that KV
-head from it (one warp per head, f32 online softmax), so every live byte
-crosses device memory exactly once. It reads only pages below
+kernel (csrc/paged_attention_v3.cu, common.cuh) splits each (sequence, KV
+head)'s live pages over ``S`` blocks (``num_splits``), streams each
+split's ``[page, D]`` K/V tiles through a ring of bulk copies kept in
+flight, serves all G query heads of the KV head from each tile (f32 online
+softmax), and merges the splits' partials in the same launch: the last
+split of each (sequence, KV head) to take its ticket does the merge. Each
+(sequence, KV head) uses at most one of the ``S`` splits per 8 live pages
+(at least one split); the rest leave at once. It reads only pages below
 ``ceil(seq_len / page)`` (and from the window's first page): pages a
-sequence has not reached, and the trash page, are never read.
+sequence has not reached, and the trash page, are never read. The host
+never reads ``seq_lens``, so a launch can be captured in a CUDA graph.
+Eager launches share one ticket buffer per (device, stream): two streams
+never share one, and stream order finishes one launch before the next
+starts, so the tickets are clean. A captured launch has tickets of its own
+(``split_buffers``).
 """
 
 from __future__ import annotations
@@ -35,6 +43,49 @@ from dynamo_tpu_torch.ops.cuda.build import check, dtype_code, load_library, str
 
 PAGE_SIZES = (16,)
 HEAD_DIMS = (64, 128)
+MAX_SPLITS = 64  # csrc/common.cuh kMaxSplits
+
+_sm_counts: dict[int, int] = {}
+_tickets: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def num_splits(B: int, KH: int, P: int, sms: int) -> int:
+    """Blocks per (sequence, KV head): ``B * KH * S`` near twice the card's
+    ``sms`` SMs (rounded, so B=32 x KH=8 on 132 SMs stays at one split,
+    which measured faster than two), at least 1 and at most the ``P``
+    pages of a block table row (a split then holds at least one page slot)
+    and MAX_SPLITS (the merge's shared-memory room)."""
+    bk = max(B * KH, 1)
+    want = (2 * sms + bk // 2) // bk
+    return max(1, min(want, P, MAX_SPLITS))
+
+
+def split_buffers(q: torch.Tensor, KH: int, P: int):
+    """(S, workspace, tickets) for one launch on ``q``'s device and current
+    stream. The workspace ``[B, KH, S, G, D + 2]`` f32 takes each split's
+    partial (acc, m, l); the tickets, one int per (sequence, KV head), are
+    zero on entry and the kernel leaves them zero. An eager launch takes
+    its stream's ticket buffer; a launch captured in a CUDA graph takes
+    tickets of its own, zeroed inside the graph and kept by the graph's
+    memory pool, so no eager launch and no other graph ever shares them
+    (whatever stream the graph is replayed on, and however the eager
+    buffer grows meanwhile)."""
+    B, H, D = q.shape
+    dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
+    if dev not in _sm_counts:
+        _sm_counts[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    S = num_splits(B, KH, P, _sm_counts[dev])
+    ws = torch.empty((B, KH, S, H // KH, D + 2), dtype=torch.float32,
+                     device=q.device)
+    if torch.cuda.is_current_stream_capturing():
+        return S, ws, torch.zeros(B * KH, dtype=torch.int32, device=q.device)
+    key = (dev, stream_ptr(q))
+    tk = _tickets.get(key)
+    if tk is None or tk.numel() < B * KH:
+        tk = torch.zeros(max(B * KH, 2 * (tk.numel() if tk is not None else 0)),
+                         dtype=torch.int32, device=q.device)
+        _tickets[key] = tk
+    return S, ws, tk
 
 
 def prescale(q: torch.Tensor, scale: float | None) -> torch.Tensor:
@@ -87,6 +138,8 @@ def check_attention_args(q, k_layer, v_layer, block_tables, seq_lens, sinks,
         raise TypeError(f"{name}: block_tables/seq_lens must be int32")
     if sinks is not None and (sinks.shape != (H,) or sinks.dtype != torch.float32):
         raise ValueError(f"{name}: sinks must be float32 [H]")
+    if any(t.data_ptr() % 16 for t in (q, k_layer, v_layer)):
+        raise ValueError(f"{name}: q and the pools must be 16-byte aligned")
 
 
 def paged_decode_attention_v3(
@@ -118,11 +171,14 @@ def paged_decode_attention_v3(
     out = torch.empty_like(q)
     if scale is None:
         scale = 1.0 / math.sqrt(D)
+    P = block_tables.shape[1]
+    S, ws, tickets = split_buffers(q, KH, P)
     rc = load_library().dtt_paged_attention_v3(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), seq_lens.data_ptr(),
         sinks.data_ptr() if sinks is not None else None, out.data_ptr(),
-        B, H, KH, D, page, block_tables.shape[1], window, scale,
+        ws.data_ptr(), tickets.data_ptr(), S,
+        B, H, KH, D, page, P, window, scale,
         dtype_code(q.dtype), stream_ptr(q),
     )
     check(rc, "paged_attention_v3")

@@ -8,7 +8,12 @@ order of f32 sums), bf16 at 2e-2 (bf16 outputs round at slightly different
 points), kv_write bitwise outside trash page 0.
 
 On the card, chip_smoke.py holds each CUDA kernel against its plain version.
+The CUDA attention kernels' own arithmetic (context splits, per-warp tiles,
+the in-launch merge) is emulated at the end of this file and held against
+both.
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -230,3 +235,163 @@ def test_wrappers_reject_unsupported_devices():
         kv_write.kv_write(meta["k_pages"], meta["v_pages"], meta["k_new"],
                           meta["v_new"], meta["dst_page"], meta["dst_off"],
                           layer=0)
+
+
+# ------------------------------------------------------------------
+# The CUDA kernels' split-context arithmetic (csrc/common.cuh), emulated
+# in f32: each (sequence, KV head) cuts its live pages into
+# min(S, max(live pages // 8, 1)) near-equal runs (one empty run when no
+# page is live; the grid's other splits leave at once); within a run, consumer warp w takes tiles w, w + 4, ... with an
+# online softmax per tile; the block merges its warps, the last split
+# merges the splits, then the new token as one more key, then the sinks.
+
+NEG_INF = -1e30
+KERNEL_WARPS = 4  # csrc/common.cuh kWarps
+KERNEL_MIN_SPLIT_PAGES = 8  # csrc/common.cuh kMinSplitPages
+
+
+@pytest.mark.parametrize("B,KH,P,sms", [
+    (8, 8, 64, 132), (1, 8, 512, 132), (32, 8, 32, 132), (1, 1, 512, 132),
+    (8, 8, 2, 132), (256, 8, 64, 132), (1, 2, 3, 132), (4, 2, 8, 1),
+])
+def test_num_splits_plan(B, KH, P, sms):
+    """Every (sequence, KV head) gets at least one split, never more than
+    the P page slots of its row or MAX_SPLITS; where those caps allow, the
+    grid covers the SMs about twice."""
+    S = paged_attention_v3.num_splits(B, KH, P, sms)
+    assert 1 <= S <= min(P, paged_attention_v3.MAX_SPLITS)
+    if S < min(P, paged_attention_v3.MAX_SPLITS) and B * KH < 2 * sms:
+        assert 1.5 * sms <= B * KH * S <= 2.5 * sms
+
+
+def _merge(parts):
+    """(m, l, acc) partials -> one, scaled to the largest max."""
+    m = torch.stack([p[0] for p in parts]).max(dim=0).values
+    l = sum(p[1] * torch.exp(p[0] - m) for p in parts)
+    acc = sum(p[2] * torch.exp(p[0] - m)[:, None] for p in parts)
+    return m, l, acc
+
+
+def _emulate_split_kernel(q, k_layer, v_layer, bt, sl, *, S, window=0,
+                          sinks=None, new_kv=None):
+    """The kernels' split-and-merge arithmetic over one layer's pool
+    [NP, KH, page, D]; ``new_kv`` = (k_new, v_new) gives the fused form."""
+    B, H, D = q.shape
+    _, KH, page, _ = k_layer.shape
+    G = H // KH
+    qs = paged_attention_v3.prescale(q, None).float()
+    kf, vf = k_layer.float(), v_layer.float()
+    out = torch.empty(B, H, D)
+    for b in range(B):
+        seq_len = int(sl[b])
+        ctx = seq_len - 1 if new_kv is not None else seq_len
+        lo = max(seq_len - window, 0) if window else 0
+        lo_p = lo // page
+        n_live = max(-(-ctx // page) - lo_p, 0)
+        S_b = min(S, max(n_live // KERNEL_MIN_SPLIT_PAGES, 1))  # splits used
+        for kh in range(KH):
+            qg = qs[b, kh * G:(kh + 1) * G]  # [G, D]
+            splits = []
+            for s in range(S_b):
+                p_begin = lo_p + s * n_live // S_b
+                n = lo_p + (s + 1) * n_live // S_b - p_begin
+                warps = []
+                for w in range(KERNEL_WARPS):
+                    m = torch.full((G,), NEG_INF)
+                    l = torch.zeros(G)
+                    acc = torch.zeros(G, D)
+                    for i in range(w, n, KERNEL_WARPS):
+                        page_id = int(bt[b, p_begin + i])
+                        pos = (p_begin + i) * page + torch.arange(page)
+                        valid = (pos >= lo) & (pos < ctx)
+                        sc = torch.where(valid, qg @ kf[page_id, kh].T, NEG_INF)
+                        m_new = torch.maximum(m, sc.max(dim=1).values)
+                        alpha = torch.exp(m - m_new)
+                        p = torch.where(valid, torch.exp(sc - m_new[:, None]), 0.0)
+                        vt = torch.where(valid[:, None], vf[page_id, kh], 0.0)
+                        l = l * alpha + p.sum(dim=1)
+                        acc = acc * alpha[:, None] + p @ vt
+                        m = m_new
+                    warps.append((m, l, acc))
+                splits.append(_merge(warps))
+            m, l, acc = _merge(splits) if S_b > 1 else splits[0]
+            if new_kv is not None:
+                s_new = qg @ new_kv[0][b, kh].float()
+                m_f = torch.maximum(m, s_new)
+                alpha, p_new = torch.exp(m - m_f), torch.exp(s_new - m_f)
+                l = l * alpha + p_new
+                acc = acc * alpha[:, None] + p_new[:, None] * new_kv[1][b, kh].float()
+                m = m_f
+            if sinks is not None:
+                sk = sinks[kh * G:(kh + 1) * G].float()
+                m_s = torch.maximum(m, sk)
+                c = torch.exp(m - m_s)
+                l = l * c + torch.exp(sk - m_s)
+                acc = acc * c[:, None]
+            out[b, kh * G:(kh + 1) * G] = acc / torch.clamp(l, min=1e-30)[:, None]
+    return out.to(q.dtype)
+
+
+SPLIT_P = 32  # page slots per row: up to 4 splits of 8 pages
+SPLIT_SCENARIOS = {
+    # name: (seq_lens, kernel options); pages of 4 tokens
+    "base": ((1, 45, 128, 97), {}),
+    # 107 - 70 = 37 starts mid-page, 18 live pages in 2 splits
+    "window_across_splits": ((107, 2, 128, 90), {"window": 70}),
+    "sinks": ((5, 128, 1, 67), {"sinks": True}),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _split_reference(fused: bool, scenario: str):
+    """Inputs, plain version and Pallas (interpret) outputs, f32."""
+    seq_lens, opts = SPLIT_SCENARIOS[scenario]
+    x = _decode_inputs(seed=50 + len(scenario), P=SPLIT_P, seq_lens=seq_lens)
+    j = {k: _both(v, "float32" if v.dtype.kind == "f" else "") for k, v in x.items()}
+    window = opts.get("window", 0)
+    sinks = x["sinks"] if opts.get("sinks") else None
+    layer = 1
+    if fused:
+        args = ("q", "k_pages", "v_pages", "k_new", "v_new", "bt", "sl",
+                "dst_page", "dst_off")
+        plain = fused_decode.fused_decode_plain(
+            *(j[k][1].clone() for k in args), layer=layer, window=window,
+            sinks=torch.from_numpy(sinks) if sinks is not None else None)
+        pallas, _, _ = jax_fused(
+            *(j[k][0] for k in args), layer=layer, window=window,
+            sinks=jnp.asarray(sinks) if sinks is not None else None,
+            interpret=True)
+    else:
+        plain = paged_attention_v3.paged_attention_v3_plain(
+            j["q"][1], j["k_pages"][1][layer], j["v_pages"][1][layer],
+            j["bt"][1], j["sl"][1], window=window,
+            sinks=torch.from_numpy(sinks) if sinks is not None else None)
+        pallas = jax_v3(
+            j["q"][0], j["k_pages"][0][layer], j["v_pages"][0][layer],
+            j["bt"][0], j["sl"][0], window=window,
+            sinks=jnp.asarray(sinks) if sinks is not None else None,
+            interpret=True)
+    return x, window, sinks, _np(plain), _np(pallas)
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 7, SPLIT_P])
+@pytest.mark.parametrize("scenario", sorted(SPLIT_SCENARIOS))
+@pytest.mark.parametrize("fused", [True, False], ids=["fused_decode", "paged_attention_v3"])
+def test_split_merge_arithmetic_matches_plain_and_pallas(fused, scenario, S):
+    """The kernels' split-and-merge arithmetic on a grid of S splits equals
+    the plain version and the Pallas kernel (f32 at 1e-5): a sequence takes
+    at most one split per 8 live pages, an empty split (m = NEG_INF, l = 0:
+    seq_len 1, fused) keeps the single-key merge, and a window starting
+    mid-page may cross split boundaries."""
+    x, window, sinks, plain, pallas = _split_reference(fused, scenario)
+    layer = 1
+    got = _emulate_split_kernel(
+        torch.from_numpy(x["q"]), torch.from_numpy(x["k_pages"][layer]),
+        torch.from_numpy(x["v_pages"][layer]), torch.from_numpy(x["bt"]),
+        torch.from_numpy(x["sl"]), S=S, window=window,
+        sinks=torch.from_numpy(sinks) if sinks is not None else None,
+        new_kv=(torch.from_numpy(x["k_new"]), torch.from_numpy(x["v_new"]))
+        if fused else None)
+    tol = TOL["float32"]
+    np.testing.assert_allclose(_np(got), plain, rtol=tol, atol=tol)
+    np.testing.assert_allclose(_np(got), pallas, rtol=tol, atol=tol)
