@@ -37,7 +37,23 @@ Phases, each of which must pass (any failure exits non-zero):
    reference forward;
 5. unfused: one decode_forward with DYNAMO_FUSED_DECODE=0 against the fused
    path on the same pool state; logits agree within the stated tolerance
-   and paged_attention_v3 and kv_write each launch 32 times.
+   and paged_attention_v3 and kv_write each launch 32 times;
+6. fp8 (kv_dtype="fp8": e4m3 pools with one bf16 scale per page and KV
+   head): phase 3's checks for the fp8 branches of both attention kernels
+   at the same shapes and cases (queries in f32 and in bf16), plus new rows
+   with 3x the amax their destination page's scale encodes (every scale
+   grows), appends at row 0 of pages a last occupant left with a stale
+   scale of 64, and inactive slots on page 0;
+   the fused kernel's pool values AND scales bitwise equal to the plain
+   append (ops/quant.py) outside page 0; times and bounds as in phase 3,
+   SDPA over the dequantized context as the library call; one fp8 fused
+   call in a CUDA graph; a second engine with kv_dtype="fp8" on the bf16
+   engine's weights (its pools freed first) serves the same 8 requests
+   (32 fp8 fused launches per decode step, the prefix hit, one stream
+   near-argmax under the reference); phase 5 on the fp8
+   pools, where paged_attention_v3 launches 32 times in its fp8 form and
+   the kv_write kernel never (fp8 appends are quant_append_rows, as in the
+   reference).
 
 Prints, before the last line, the card line and one JSON object with every
 kernel's measurements; the last line is
@@ -85,7 +101,17 @@ F32_TOL = 1e-5  # attention in f32: atol = rtol
 BF16_SPACINGS = 2  # attention in bf16, per element: this many bf16 spacings
 BF16_FLOOR = 1e-5  # of the larger of |got|, |want|, plus this (outputs near 0)
 LOGIT_REL_TOL = 2e-2  # fused vs unfused logits: max |diff| / max |logit|
-NEAR_ARGMAX = 0.5  # reference logit of each served token vs the reference max
+# reference logit of each served token vs the reference max, for both KV
+# forms: the fp8 serve's worst gap read 0.062 on an H100 80GB HBM3 at 700 W
+# (bf16: 0.000), so the bound leaves it 8x room
+NEAR_ARGMAX = 0.5
+# fp8 fused vs unfused logits: the unfused path reads each layer's new K/V
+# row back at fp8 (up to half an e4m3 step, 1/16 of the value, off) where
+# the fused one merges it exactly; it read 1.948e-2 on an H100 80GB HBM3 at
+# 700 W beside bf16's 1.452e-2 (limit 2e-2): 5e-2 leaves room for other
+# weights
+LOGIT_REL_TOL_FP8 = 5e-2
+STALE_SCALE = 64.0  # a recycled page's leftover scale (fresh-page case)
 SERVE_TOKENS = 32
 REPS = 20
 SLEEP_CYCLES = 5_000_000  # ~2.5 ms of device time at the H100's clock
@@ -172,6 +198,45 @@ def kernel_inputs(dtype, seed=0, seq_lens=SEQ_LENS, **over):
     }
 
 
+def fp8_pools(t, seed=0):
+    """Replace t's pools by fp8 QuantPools that dequantize to about the
+    same normal draws (ops/cuda/sweep.py fp8_pool)."""
+    from dynamo_tpu_torch.ops.cuda.sweep import fp8_pool
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(1000 + seed)
+    for name in ("k_pages", "v_pages"):
+        t[name] = fp8_pool(t[name], gen)
+    return t
+
+
+def clone_pool(p):
+    from dynamo_tpu_torch.ops.quant import QuantPool, is_quant
+
+    return QuantPool(p.vals.clone(), p.scale.clone()) if is_quant(p) else p.clone()
+
+
+def pools_equal(a, b) -> bool:
+    """Bitwise equality outside trash page 0 (values, and scales of fp8
+    pools)."""
+    from dynamo_tpu_torch.ops.quant import is_quant
+
+    if is_quant(a):
+        return (torch.equal(a.vals[:, 1:].view(torch.uint8), b.vals[:, 1:].view(torch.uint8))
+                and torch.equal(a.scale[:, 1:], b.scale[:, 1:]))
+    return torch.equal(a[:, 1:], b[:, 1:])
+
+
+def copy_pool_(dst, src) -> None:
+    from dynamo_tpu_torch.ops.quant import is_quant
+
+    if is_quant(dst):
+        dst.vals.view(torch.uint8).copy_(src.vals.view(torch.uint8))
+        dst.scale.copy_(src.scale)
+    else:
+        dst.copy_(src)
+
+
 def visible(seq_lens, window, fused):
     """Per sequence: pool positions the function must read."""
     out = []
@@ -182,33 +247,45 @@ def visible(seq_lens, window, fused):
     return out
 
 
-def attention_bound(fused: bool, window: int, seq_lens=SEQ_LENS,
+def attention_bound(fused: bool, window: int, seq_lens=SEQ_LENS, fp8=False,
                     **over) -> tuple[float, str]:
+    """Least time for one call: bytes read and written once over the HBM
+    rate, or flops over the bf16 peak. fp8 pools move 1 byte per element
+    plus 2 bytes of scale per live (page, KV head) for K and for V; the
+    fused fp8 append rewrites the head's whole page run and its scale."""
     s = {**KERNEL_SHAPES, **over}
     B, KH, G, D, page = s["B"], s["KH"], s["G"], s["D"], s["page"]
     H, el = KH * G, 2
+    pel = 1 if fp8 else el  # pool element bytes
     vis = visible(seq_lens, window, fused)
+    pages = sum(-(-v // page) for v in vis)
     nbytes = 2 * B * H * D * el  # q in, out
-    nbytes += sum(vis) * 2 * KH * D * el  # K and V of the live context
-    nbytes += sum(-(-v // page) for v in vis) * 4 + B * 4  # table, lens
+    nbytes += sum(vis) * 2 * KH * D * pel  # K and V of the live context
+    nbytes += pages * 4 + B * 4  # table, lens
+    if fp8:
+        nbytes += pages * KH * 2 * 2  # K and V scales of the live pages
     flops = 4 * H * D * sum(vis)  # q.k and p.v
     if fused:
-        nbytes += 2 * B * KH * D * el * 2 + 2 * B * 4  # new rows in + out
+        nbytes += 2 * B * KH * D * el + 2 * B * 4  # new rows in, dst indices
+        if fp8:
+            nbytes += 2 * B * KH * (page * D + 2)  # page runs + scales out
+        else:
+            nbytes += 2 * B * KH * D * el  # rows out
         flops += 4 * H * D * B
     return bound_ms(nbytes, flops)
 
 
 def sdpa_call(t, layer):
     """One scaled_dot_product_attention call over the gathered context
-    (the library yardstick; the port never calls it). Gather and GQA
-    expansion are set-up, outside the timed call."""
-    from dynamo_tpu_torch.ops.attention import gather_pages
+    (the library yardstick; the port never calls it). Gather, fp8 dequant
+    (to q's dtype) and GQA expansion are set-up, outside the timed call."""
+    from dynamo_tpu_torch.ops.attention import gather_ctx, pool_layer
 
     q = t["q"]
     B, H, D = q.shape
     KH = t["k_pages"].shape[2]
-    k = gather_pages(t["k_pages"][layer], t["bt"])  # [B, S, KH, D]
-    v = gather_pages(t["v_pages"][layer], t["bt"])
+    k = gather_ctx(pool_layer(t["k_pages"], layer), t["bt"]).to(q.dtype)  # [B, S, KH, D]
+    v = gather_ctx(pool_layer(t["v_pages"], layer), t["bt"]).to(q.dtype)
     S = k.shape[1]
     k = k.transpose(1, 2).repeat_interleave(H // KH, dim=1).contiguous()
     v = v.transpose(1, 2).repeat_interleave(H // KH, dim=1).contiguous()
@@ -253,12 +330,13 @@ def check_attention(t, case: str, window: int, sinks,
     """Both attention kernels against their plain versions on inputs ``t``;
     the fused kernel's pools must equal the plain append outside page 0.
     Returns the two max abs errors."""
+    from dynamo_tpu_torch.ops.attention import pool_layer
     from dynamo_tpu_torch.ops.cuda import fused_decode, paged_attention_v3
 
     args = ("q", "k_new", "v_new", "bt", "sl", "dst_page", "dst_off")
     q, kn, vn, bt, sl, dp, do = (t[k] for k in args)
-    kp, vp = t["k_pages"].clone(), t["v_pages"].clone()
-    kp2, vp2 = t["k_pages"].clone(), t["v_pages"].clone()
+    kp, vp = clone_pool(t["k_pages"]), clone_pool(t["v_pages"])
+    kp2, vp2 = clone_pool(t["k_pages"]), clone_pool(t["v_pages"])
     got = fused_decode.fused_decode_attention(
         q, kp, vp, kn, vn, bt, sl, dp, do, layer=layer,
         window=window, sinks=sinks)
@@ -267,12 +345,13 @@ def check_attention(t, case: str, window: int, sinks,
         window=window, sinks=sinks)
     torch.cuda.synchronize()
     err_f, read_f = attention_error(got, want, f"fused_decode {case}")
-    require(torch.equal(kp[:, 1:], kp2[:, 1:]) and torch.equal(vp[:, 1:], vp2[:, 1:]),
+    require(pools_equal(kp, kp2) and pools_equal(vp, vp2),
             f"fused_decode {case}: pools differ from the plain append")
+    kl, vl = pool_layer(kp, layer), pool_layer(vp, layer)
     got = paged_attention_v3.paged_decode_attention_v3(
-        q, kp[layer], vp[layer], bt, sl, window=window, sinks=sinks)
+        q, kl, vl, bt, sl, window=window, sinks=sinks)
     want = paged_attention_v3.paged_attention_v3_plain(
-        q, kp[layer], vp[layer], bt, sl, window=window, sinks=sinks)
+        q, kl, vl, bt, sl, window=window, sinks=sinks)
     torch.cuda.synchronize()
     err_v, read_v = attention_error(got, want, f"paged_attention_v3 {case}")
     print(f"check {case}: fused_decode max err {read_f}, "
@@ -300,7 +379,7 @@ def fused_vs_read_only(t, layer: int) -> None:
 
 
 def check_kernels(flush) -> dict[str, dict]:
-    from dynamo_tpu_torch.ops.cuda import fused_decode, kv_write, paged_attention_v3
+    from dynamo_tpu_torch.ops.cuda import kv_write
 
     results: dict[str, dict] = {}
     layer = 1
@@ -334,26 +413,14 @@ def check_kernels(flush) -> dict[str, dict]:
             del tc
 
     # timing at the serving shapes, bf16, no window
+    times = time_attention(flush, fp8=False)
+    for name in ("fused_decode", "paged_attention_v3"):
+        results[name].update(times[name])
     t = kernel_inputs(torch.bfloat16)
-    q, kn, vn, bt, sl, dp, do = (t[k] for k in
-                                 ("q", "k_new", "v_new", "bt", "sl", "dst_page", "dst_off"))
+    q, kn, vn, dp, do = (t[k] for k in ("q", "k_new", "v_new", "dst_page", "dst_off"))
     kp, vp = t["k_pages"], t["v_pages"]
     B, H, D = q.shape
     KH, page = kp.shape[2], kp.shape[3]
-    res = results["fused_decode"]
-    res["ms"] = time_ms(lambda: fused_decode.fused_decode_attention(
-        q, kp, vp, kn, vn, bt, sl, dp, do, layer=layer), flush)
-    res["plain_ms"] = time_ms(lambda: fused_decode.fused_decode_plain(
-        q, kp, vp, kn, vn, bt, sl, dp, do, layer=layer), flush)
-    res["library_ms"] = time_ms(sdpa_call(t, layer), flush)
-    res["bound_ms"], res["bound_by"] = attention_bound(True, 0)
-    res = results["paged_attention_v3"]
-    res["ms"] = time_ms(lambda: paged_attention_v3.paged_decode_attention_v3(
-        q, kp[layer], vp[layer], bt, sl), flush)
-    res["plain_ms"] = time_ms(lambda: paged_attention_v3.paged_attention_v3_plain(
-        q, kp[layer], vp[layer], bt, sl), flush)
-    res["library_ms"] = time_ms(sdpa_call(t, layer), flush)
-    res["bound_ms"], res["bound_by"] = attention_bound(False, 0)
     res = results["kv_write"]
     res["ms"] = time_ms(lambda: kv_write.kv_write(
         kp, vp, kn, vn, dp, do, layer=layer), flush)
@@ -375,33 +442,53 @@ def check_kernels(flush) -> dict[str, dict]:
     res["bound_ms"], res["bound_by"] = bound_ms(
         4 * B * KH * D * el + 2 * B * 4, 0.0)
     del t, kp, vp, kflat, vflat
+    print_times(results)
+    return results
 
-    # one long context (B 1, seq_len 8192), bf16, no window
-    t = kernel_inputs(torch.bfloat16, seq_lens=(LONG_SEQ_LEN,), **LONG)
-    q, kn, vn, bt, sl, dp, do = (t[k] for k in
-                                 ("q", "k_new", "v_new", "bt", "sl", "dst_page", "dst_off"))
-    kp, vp = t["k_pages"], t["v_pages"]
-    long = {
-        "fused_decode": (
-            lambda: fused_decode.fused_decode_attention(
-                q, kp, vp, kn, vn, bt, sl, dp, do, layer=layer),
-            lambda: fused_decode.fused_decode_plain(
-                q, kp, vp, kn, vn, bt, sl, dp, do, layer=layer), True),
-        "paged_attention_v3": (
-            lambda: paged_attention_v3.paged_decode_attention_v3(
-                q, kp[layer], vp[layer], bt, sl),
-            lambda: paged_attention_v3.paged_attention_v3_plain(
-                q, kp[layer], vp[layer], bt, sl), False),
-    }
-    sdpa = sdpa_call(t, layer)
-    for name, (kernel, plain, fused) in long.items():
-        res = results[name]
-        res["long_ms"] = time_ms(kernel, flush)
-        res["long_plain_ms"] = time_ms(plain, flush)
-        res["long_library_ms"] = time_ms(sdpa, flush)
-        res["long_bound_ms"], _ = attention_bound(
-            fused, 0, seq_lens=(LONG_SEQ_LEN,), **LONG)
-    del t, kp, vp, sdpa
+
+def time_attention(flush, fp8: bool) -> dict[str, dict]:
+    """Both attention kernels, their plain versions and SDPA timed at the
+    serving shapes and (keys with "long_") at B 1 x LONG_SEQ_LEN, bf16
+    queries, no window; pools bf16 or fp8."""
+    from dynamo_tpu_torch.ops.attention import pool_layer
+    from dynamo_tpu_torch.ops.cuda import fused_decode, paged_attention_v3
+
+    out: dict[str, dict] = {"fused_decode": {}, "paged_attention_v3": {}}
+    layer = 1
+    for key, seq_lens, over in (("", SEQ_LENS, {}), ("long_", (LONG_SEQ_LEN,), LONG)):
+        t = kernel_inputs(torch.bfloat16, seq_lens=seq_lens, **over)
+        if fp8:
+            fp8_pools(t)
+        q, kn, vn, bt, sl, dp, do = (t[k] for k in
+                                     ("q", "k_new", "v_new", "bt", "sl", "dst_page", "dst_off"))
+        kp, vp = t["k_pages"], t["v_pages"]
+        kl, vl = pool_layer(kp, layer), pool_layer(vp, layer)
+        sdpa = sdpa_call(t, layer)
+        fns = {
+            "fused_decode": (
+                lambda: fused_decode.fused_decode_attention(
+                    q, kp, vp, kn, vn, bt, sl, dp, do, layer=layer),
+                lambda: fused_decode.fused_decode_plain(
+                    q, kp, vp, kn, vn, bt, sl, dp, do, layer=layer), True),
+            "paged_attention_v3": (
+                lambda: paged_attention_v3.paged_decode_attention_v3(q, kl, vl, bt, sl),
+                lambda: paged_attention_v3.paged_attention_v3_plain(q, kl, vl, bt, sl),
+                False),
+        }
+        for name, (kernel, plain, fused) in fns.items():
+            r = out[name]
+            r[key + "ms"] = time_ms(kernel, flush)
+            r[key + "plain_ms"] = time_ms(plain, flush)
+            r[key + "library_ms"] = time_ms(sdpa, flush)
+            r[key + "bound_ms"], by = attention_bound(fused, 0, seq_lens=seq_lens,
+                                                      fp8=fp8, **over)
+            if not key:
+                r["bound_by"] = by
+        del t, kp, vp, kl, vl, sdpa, fns
+    return out
+
+
+def print_times(results: dict[str, dict]) -> None:
     for name, r in results.items():
         print(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
@@ -410,31 +497,101 @@ def check_kernels(flush) -> dict[str, dict]:
             print(f"time {name} B=1 seq_len {LONG_SEQ_LEN}: kernel {r['long_ms']:.4f} ms, "
                   f"plain {r['long_plain_ms']:.4f} ms, library "
                   f"{r['long_library_ms']:.4f} ms, bound {r['long_bound_ms']:.5f} ms")
+
+
+FP8_CASES = ("scale-growth", "fresh-over-polluted", "inactive-slots")
+
+
+def fp8_case_inputs(dt, case: str, seed: int, layer: int):
+    """Inputs of the fp8-only cases at the serving shapes (fp8 pools):
+    new rows with 3x the amax their destination page's scale encodes
+    (448 x scale, per head), so every appended page's scale grows about 3x
+    and its old rows re-encode; appends at row 0 of pages whose last
+    occupant left garbage and a scale of STALE_SCALE; two inactive slots
+    (seq_len 1) appending to trash page 0."""
+    from dynamo_tpu_torch.ops.quant import FP8_MAX
+
+    if case == "fresh-over-polluted":
+        # every position seq_len - 1 starts a page
+        t = fp8_pools(kernel_inputs(dt, seed=seed, seq_lens=(17, 33, 1, 129, 257, 513,
+                                                              769, 1009)), seed)
+        require(bool((t["dst_off"] == 0).all()), "fresh-page case: dst_off != 0")
+        for name in ("k_pages", "v_pages"):
+            t[name].scale[:, t["dst_page"].long()] = STALE_SCALE
+        return t
+    t = fp8_pools(kernel_inputs(dt, seed=seed), seed)
+    if case == "scale-growth":
+        for nk, pk in (("k_new", "k_pages"), ("v_new", "v_pages")):
+            encodes = FP8_MAX * t[pk].scale[layer, t["dst_page"].long()].float()  # [B, KH]
+            row = t[nk].float()
+            t[nk] = (row * (3 * encodes / row.abs().amax(-1))[..., None]).to(dt)
+    elif case == "inactive-slots":
+        for i in (1, 5):
+            t["sl"][i], t["dst_page"][i], t["dst_off"][i] = 1, 0, 0
+    else:
+        raise SmokeError(f"unknown fp8 case {case}")
+    return t
+
+
+def check_kernels_fp8(flush) -> dict[str, dict]:
+    """The fp8 branches of both attention kernels: queries in f32 and bf16
+    over e4m3 pools, at the serving shapes (with and without window and
+    sinks), every CHECK_CASES entry and FP8_CASES; then timed as phase 3."""
+    results: dict[str, dict] = {"fused_decode/fp8": {}, "paged_attention_v3/fp8": {}}
+    layer = 1
+    for dtype_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype_name)
+        t = fp8_pools(kernel_inputs(dt))
+        for window, sinks in ((0, None), (WINDOW, t["sinks"])):
+            case = f"fp8/{dtype_name}{'/window+sinks' if window else ''}"
+            err_f, err_v = check_attention(t, case, window, sinks, layer)
+            if dtype_name == "bfloat16" and window == 0:
+                results["fused_decode/fp8"]["max_abs_err"] = err_f
+                results["paged_attention_v3/fp8"]["max_abs_err"] = err_v
+        del t
+        for name, over, seq_lens, window, with_sinks in CHECK_CASES:
+            tc = fp8_pools(kernel_inputs(dt, seed=len(name), seq_lens=seq_lens or SEQ_LENS,
+                                         **over), seed=len(name))
+            check_attention(tc, f"fp8/{dtype_name}/{name}", window,
+                            tc["sinks"] if with_sinks else None, layer)
+            del tc
+        for i, case in enumerate(FP8_CASES):
+            tc = fp8_case_inputs(dt, case, 40 + i, layer)
+            check_attention(tc, f"fp8/{dtype_name}/{case}", 0, None, layer)
+            del tc
+    times = time_attention(flush, fp8=True)
+    for name in ("fused_decode", "paged_attention_v3"):
+        results[name + "/fp8"].update(times[name])
+    print_times(results)
     return results
 
 
-def graph_check() -> None:
+def graph_check(fp8: bool = False) -> None:
     """Capture one fused_decode_attention call in a CUDA graph, make an
     eager call at twice the batch on the capture stream (which outgrows the
     stream's ticket buffer), then replay the graph twice on fresh pool
     copies: the output must equal the eager launch and the pools the plain
-    append. A ticket left dirty, a graph sharing tickets that an eager call
-    frees, or a host read inside the wrapper (at capture), fails here."""
+    append (with fp8 pools: values and the scales the kernel writes inside
+    the graph). A ticket left dirty, a graph sharing tickets that an eager
+    call frees, or a host read inside the wrapper (at capture), fails
+    here."""
     from dynamo_tpu_torch.ops.cuda import fused_decode
 
     t = kernel_inputs(torch.bfloat16, seed=5)
+    if fp8:
+        fp8_pools(t, seed=5)
     args = ("q", "k_new", "v_new", "bt", "sl", "dst_page", "dst_off")
     q, kn, vn, bt, sl, dp, do = (t[k] for k in args)
     layer = 1
-    kp_ref, vp_ref = t["k_pages"].clone(), t["v_pages"].clone()
+    kp_ref, vp_ref = clone_pool(t["k_pages"]), clone_pool(t["v_pages"])
     fused_decode.fused_decode_plain(q, kp_ref, vp_ref, kn, vn, bt, sl, dp, do,
                                     layer=layer, sinks=t["sinks"])
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
-    kp, vp = t["k_pages"].clone(), t["v_pages"].clone()
+    kp, vp = clone_pool(t["k_pages"]), clone_pool(t["v_pages"])
     with torch.cuda.stream(side):  # eager launch on the capture stream
         eager = fused_decode.fused_decode_attention(
-            q, kp.clone(), vp.clone(), kn, vn, bt, sl, dp, do, layer=layer,
+            q, clone_pool(kp), clone_pool(vp), kn, vn, bt, sl, dp, do, layer=layer,
             sinks=t["sinks"])
     side.synchronize()
     graph = torch.cuda.CUDAGraph()
@@ -442,21 +599,24 @@ def graph_check() -> None:
         out = fused_decode.fused_decode_attention(
             q, kp, vp, kn, vn, bt, sl, dp, do, layer=layer, sinks=t["sinks"])
     big = kernel_inputs(torch.bfloat16, seed=6, B=2 * KERNEL_SHAPES["B"])
+    if fp8:
+        fp8_pools(big, seed=6)
     with torch.cuda.stream(side):
         fused_decode.fused_decode_attention(
             *(big[k] for k in ("q", "k_pages", "v_pages", "k_new", "v_new", "bt",
                                "sl", "dst_page", "dst_off")), layer=layer)
     side.synchronize()
     del big
+    form = "fp8" if fp8 else "bf16"
     for rep in range(2):
-        kp.copy_(t["k_pages"])
-        vp.copy_(t["v_pages"])
+        copy_pool_(kp, t["k_pages"])
+        copy_pool_(vp, t["v_pages"])
         graph.replay()
         torch.cuda.synchronize()
-        require(torch.equal(out, eager), f"graph replay {rep}: output differs from eager")
-        require(torch.equal(kp[:, 1:], kp_ref[:, 1:]) and torch.equal(vp[:, 1:], vp_ref[:, 1:]),
-                f"graph replay {rep}: pools differ from the plain append")
-    print("graph: fused_decode captured once, an eager call at twice the batch, "
+        require(torch.equal(out, eager), f"graph {form} replay {rep}: output differs from eager")
+        require(pools_equal(kp, kp_ref) and pools_equal(vp, vp_ref),
+                f"graph {form} replay {rep}: pools differ from the plain append")
+    print(f"graph {form}: fused_decode captured once, an eager call at twice the batch, "
           "replayed twice: output equal to the eager launch, pools equal to the "
           "plain append")
 
@@ -524,9 +684,10 @@ def near_argmax_check(spec, params, prompt, tokens) -> tuple[float, float]:
     return agree, gap
 
 
-def profile_decode_step(step) -> None:
+def profile_decode_step(step, form: str) -> None:
     """One traced decode step (B=8, fused path): wall time, device-busy
-    time (sum of kernel self times), idle share and the top kernels."""
+    time (sum of kernel self times), idle share, the fused kernel's device
+    time and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     step()
@@ -545,8 +706,11 @@ def profile_decode_step(step) -> None:
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
     busy = sum(dev_us(e) for e in kernels)
-    print(f"profile decode step: wall {wall * 1e3:.2f} ms, device busy "
-          f"{busy / 1e3:.2f} ms, idle share {max(0.0, 1 - busy / 1e6 / wall):.3f}")
+    attn = [e for e in kernels if "decode_attention_kernel" in e.key]
+    print(f"profile {form} decode step: wall {wall * 1e3:.2f} ms, device busy "
+          f"{busy / 1e3:.2f} ms, idle share {max(0.0, 1 - busy / 1e6 / wall):.3f}, "
+          f"fused_decode {sum(dev_us(e) for e in attn) / 1e3:.3f} ms over "
+          f"{sum(e.count for e in attn)} launches")
     for e in sorted(kernels, key=dev_us, reverse=True)[:10]:
         print(f"  {dev_us(e) / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
 
@@ -555,11 +719,15 @@ def unfused_check(engine, prompts):
     """One decode step through the fused kernel and through the unfused
     pair on the same pool state. Each path reads only the context below
     the new token plus its own new row, so the second run sees the same
-    state as the first."""
+    state as the first. With fp8 pools the unfused pair is the quantized
+    append (quant_append_rows: the kv_write kernel does not launch) and
+    paged_attention_v3's fp8 form, which reads the new row back at fp8.
+    Returns the unfused run's launches (v3, v3 in fp8 form, kv_write)."""
     from dynamo_tpu_torch.models import llama
     from dynamo_tpu_torch.ops.cuda import fused_decode, kv_write, paged_attention_v3
 
     spec, cfg = engine.spec, engine.config
+    fp8 = engine.kv_dtype == "fp8"
     B = len(prompts)
     bts = np.zeros((B, cfg.max_pages_per_seq), np.int32)
     for i, p in enumerate(prompts):
@@ -571,6 +739,8 @@ def unfused_check(engine, prompts):
         tokens[i, : len(p)] = p
     lens = torch.tensor([len(p) for p in prompts])
     bts_d = torch.from_numpy(bts).to(DEVICE)
+    fused_fn = fused_decode.fused_decode_attention
+    v3_fn = paged_attention_v3.paged_decode_attention_v3
     with torch.no_grad():
         logits = llama.prefill_forward_batch(
             spec, engine.params, torch.from_numpy(tokens).to(DEVICE), bts_d,
@@ -580,44 +750,52 @@ def unfused_check(engine, prompts):
         active = torch.ones(B, dtype=torch.bool, device=DEVICE)
         profile_decode_step(lambda: llama.decode_forward(
             spec, engine.params, nxt, bts_d, seq_lens, engine.k_pages,
-            engine.v_pages, active))
+            engine.v_pages, active), engine.kv_dtype)
         out = {}
         for mode in ("1", "0"):
             os.environ["DYNAMO_FUSED_DECODE"] = mode
-            counters = (fused_decode.fused_decode_attention,
-                        paged_attention_v3.paged_decode_attention_v3, kv_write.kv_write)
-            for fn in counters:
-                fn.launches = 0
+            for fn in (fused_fn, v3_fn):
+                fn.launches = fn.fp8_launches = 0
+            kv_write.kv_write.launches = 0
             out[mode] = llama.decode_forward(
                 spec, engine.params, nxt, bts_d, seq_lens, engine.k_pages,
                 engine.v_pages, active)
             torch.cuda.synchronize()
-            out[mode + "_launches"] = [fn.launches for fn in counters]
+            out[mode + "_launches"] = [fused_fn.launches, fused_fn.fp8_launches,
+                                       v3_fn.launches, v3_fn.fp8_launches,
+                                       kv_write.kv_write.launches]
         os.environ.pop("DYNAMO_FUSED_DECODE")
     L = spec.num_layers
-    require(out["1_launches"] == [L, 0, 0], f"fused path launches {out['1_launches']}")
-    require(out["0_launches"] == [0, L, L], f"unfused path launches {out['0_launches']}")
+    f8 = L if fp8 else 0
+    require(out["1_launches"] == [L, f8, 0, 0, 0],
+            f"fused path launches (fused, fp8, v3, fp8, kv_write) {out['1_launches']}")
+    want = [0, 0, L, f8, 0 if fp8 else L]
+    require(out["0_launches"] == want,
+            f"unfused path launches (fused, fp8, v3, fp8, kv_write) {out['0_launches']}")
+    tol = LOGIT_REL_TOL_FP8 if fp8 else LOGIT_REL_TOL
     ref, alt = out["1"], out["0"]
     rel = ((alt - ref).abs().max() / ref.abs().max()).item()
     agree = (alt.argmax(-1) == ref.argmax(-1)).float().mean().item()
     require(torch.isfinite(alt).all().item(), "unfused logits non-finite")
-    require(rel <= LOGIT_REL_TOL, f"unfused logits differ: rel {rel:.3e}")
-    print(f"unfused: logits max|diff|/max|logit| = {rel:.3e} (tol {LOGIT_REL_TOL}), "
-          f"argmax agreement {agree:.3f}, launches fused/v3/kv_write "
-          f"{out['1_launches']} then {out['0_launches']}")
-    return out["0_launches"]
+    require(rel <= tol, f"unfused {engine.kv_dtype} logits differ: rel {rel:.3e}")
+    print(f"unfused {engine.kv_dtype}: logits max|diff|/max|logit| = {rel:.3e} (tol {tol}), "
+          f"argmax agreement {agree:.3f}, launches (fused, fused fp8, v3, v3 fp8, "
+          f"kv_write) {out['1_launches']} then {out['0_launches']}")
+    return out["0_launches"][2:]
 
 
-def serve_phase(engine, prompts) -> dict[str, int]:
+def serve_phase(engine, prompts, bf16_tokens=None):
     """Drive the serving path with the kernel counts zeroed just before and
     read just after; check the streams, the prefix-cache hit, the launch
-    counts and one stream against the reference forward."""
+    counts (all in fp8 form for an fp8 engine) and one stream against the
+    reference forward. Returns (launches, served tokens per request); with
+    ``bf16_tokens`` also prints the share of tokens equal to them."""
     from dynamo_tpu_torch.ops.cuda import fused_decode, kv_write, paged_attention_v3
 
     spec = engine.spec
-    counters = {"fused_decode": fused_decode.fused_decode_attention,
-                "paged_attention_v3": paged_attention_v3.paged_decode_attention_v3,
-                "kv_write": kv_write.kv_write}
+    fp8 = engine.kv_dtype == "fp8"
+    fused_fn = fused_decode.fused_decode_attention
+    v3_fn = paged_attention_v3.paged_decode_attention_v3
 
     async def drive():
         try:
@@ -625,37 +803,51 @@ def serve_phase(engine, prompts) -> dict[str, int]:
         finally:
             await engine.close()
 
-    for fn in counters.values():
-        fn.launches = 0
+    for fn in (fused_fn, v3_fn):
+        fn.launches = fn.fp8_launches = 0
+    kv_write.kv_write.launches = 0
     steps0 = engine.steps
     results, ttft, wall, hit = asyncio.run(drive())
-    serve_launches = {name: fn.launches for name, fn in counters.items()}
+    serve_launches = {"fused_decode": fused_fn.launches,
+                      "fused_decode/fp8": fused_fn.fp8_launches,
+                      "paged_attention_v3": v3_fn.launches,
+                      "kv_write": kv_write.kv_write.launches}
     steps = engine.steps - steps0
+    tokens = {}
     for i, items in results.items():
         toks = [t for x in items for t in x["token_ids"]]
         require(items[-1]["finish_reason"] == "length" and len(toks) == SERVE_TOKENS,
                 f"request {i}: {len(toks)} tokens, finish {items[-1]['finish_reason']}")
         require(all(0 <= t < spec.vocab_size for t in toks), f"request {i}: bad ids")
+        tokens[i] = toks
     require(hit >= 256, f"second sharer's prefix-cache hit was {hit} tokens")
     require(serve_launches["fused_decode"] == spec.num_layers * steps,
             f"fused_decode launched {serve_launches['fused_decode']} times "
             f"over {steps} decode steps")
+    require(serve_launches["fused_decode/fp8"] == (serve_launches["fused_decode"] if fp8 else 0),
+            f"fused_decode launched {serve_launches['fused_decode/fp8']} times in fp8 form "
+            f"on a {engine.kv_dtype} engine")
     require(serve_launches["kv_write"] == 0 and serve_launches["paged_attention_v3"] == 0,
             "the fused serving path launched the unfused kernels")
-    n_out = sum(len([t for x in items for t in x["token_ids"]]) for items in results.values())
+    n_out = sum(len(v) for v in tokens.values())
     step_ms = 1e3 * sum(engine.decode_step_times) / max(len(engine.decode_step_times), 1)
-    print(f"serve: {len(results)} requests, {n_out} tokens in {wall:.3f} s = "
+    print(f"serve {engine.kv_dtype}: {len(results)} requests, {n_out} tokens in {wall:.3f} s = "
           f"{n_out / wall:.1f} tok/s; TTFT mean "
           f"{1e3 * sum(ttft.values()) / len(ttft):.1f} ms, max "
           f"{1e3 * max(ttft.values()):.1f} ms; decode step mean {step_ms:.2f} ms over "
           f"{steps} steps; prefix-cache hit {hit} tokens; fused_decode launches "
-          f"{serve_launches['fused_decode']} = {spec.num_layers} x {steps}")
+          f"{serve_launches['fused_decode']} = {spec.num_layers} x {steps} "
+          f"({serve_launches['fused_decode/fp8']} in fp8 form); KV pools "
+          f"{engine.pool_bytes} bytes ({engine.pool_bytes / 1e9:.3f} GB)")
+    if bf16_tokens is not None:
+        same = sum(a == b for i in tokens for a, b in zip(tokens[i], bf16_tokens[i]))
+        print(f"serve {engine.kv_dtype}: {same / n_out:.4f} of the tokens equal to the "
+              f"bf16 serve's ({same} of {n_out})")
     longest = max(range(len(prompts)), key=lambda i: len(prompts[i]))
-    served = [t for x in results[longest] for t in x["token_ids"]]
-    agree, gap = near_argmax_check(spec, engine.params, prompts[longest], served)
-    print(f"reference: request {longest} exact greedy agreement {agree:.3f}, "
-          f"worst gap to the reference max {gap:.3f} (tol {NEAR_ARGMAX})")
-    return serve_launches
+    agree, gap = near_argmax_check(spec, engine.params, prompts[longest], tokens[longest])
+    print(f"reference {engine.kv_dtype}: request {longest} exact greedy agreement "
+          f"{agree:.3f}, worst gap to the reference max {gap:.3f} (tol {NEAR_ARGMAX})")
+    return serve_launches, tokens
 
 
 def main() -> int:
@@ -682,24 +874,43 @@ def main() -> int:
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
     kernels = check_kernels(flush)
+    kernels.update(check_kernels_fp8(flush))
     del flush
     graph_check()
+    graph_check(fp8=True)
 
     spec = ModelSpec.llama3_8b()
-    cfg = EngineConfig(page_size=16, num_pages=2048, max_pages_per_seq=64,
-                       max_decode_slots=8)
+    cfg = dict(page_size=16, num_pages=2048, max_pages_per_seq=64, max_decode_slots=8)
     t0 = time.perf_counter()
-    engine = InferenceEngine(spec, cfg, device=DEVICE)
+    engine = InferenceEngine(spec, EngineConfig(**cfg, kv_dtype="bf16"), device=DEVICE)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in engine.params.parameters())
     print(f"engine: {spec.name} {n_params / 1e9:.2f}B params, "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated, "
           f"init {time.perf_counter() - t0:.1f} s")
     prompts = make_prompts(spec.vocab_size)
-    serve_launches = serve_phase(engine, prompts)
+    serve_launches, bf16_tokens = serve_phase(engine, prompts)
     unfused = unfused_check(engine, prompts)
+
+    # the same weights behind an fp8 KV cache; the bf16 pools go first
+    params = engine.params
+    engine.k_pages = engine.v_pages = None
+    del engine
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    engine = InferenceEngine(spec, EngineConfig(**cfg, kv_dtype="fp8"), params=params,
+                             device=DEVICE)
+    torch.cuda.synchronize()
+    print(f"engine fp8: KV pools {engine.pool_bytes / 1e9:.3f} GB, "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated, "
+          f"init {time.perf_counter() - t0:.1f} s")
+    serve_fp8, _ = serve_phase(engine, prompts, bf16_tokens=bf16_tokens)
+    unfused_fp8 = unfused_check(engine, prompts)
+
     launches = {"fused_decode": serve_launches["fused_decode"],
-                "paged_attention_v3": unfused[1], "kv_write": unfused[2]}
+                "paged_attention_v3": unfused[0], "kv_write": unfused[2],
+                "fused_decode/fp8": serve_fp8["fused_decode/fp8"],
+                "paged_attention_v3/fp8": unfused_fp8[1]}
     sources = {
         "fused_decode": ("dynamo_tpu_torch/csrc/fused_decode.cu",
                          "dynamo_tpu/ops/pallas/fused_decode.py:58"),
@@ -707,6 +918,12 @@ def main() -> int:
                                "dynamo_tpu/ops/pallas/paged_attention_v3.py:76"),
         "kv_write": ("dynamo_tpu_torch/csrc/kv_write.cu",
                      "dynamo_tpu/ops/pallas/kv_write.py:39"),
+        # the kernels' quantized branches: in-register dequant, and (fused)
+        # the requantizing read-modify-write of the destination page
+        "fused_decode/fp8": ("dynamo_tpu_torch/csrc/fused_decode.cu",
+                             "dynamo_tpu/ops/pallas/fused_decode.py:275"),
+        "paged_attention_v3/fp8": ("dynamo_tpu_torch/csrc/paged_attention_v3.cu",
+                                   "dynamo_tpu/ops/pallas/paged_attention_v3.py:197"),
     }
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],

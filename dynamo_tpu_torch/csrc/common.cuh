@@ -2,8 +2,12 @@
 //
 // The pools are PAGE-MAJOR: [L, num_pages, KH, PAGE, D], one page of one
 // layer being one contiguous [KH, PAGE, D] block, so one KV head's page is
-// one contiguous PAGE * D run. Page 0 is the trash page. Element types:
-// float (dtype code 0) and __nv_bfloat16 (dtype code 1).
+// one contiguous PAGE * D run. Page 0 is the trash page. The query, the
+// output and the new K/V rows share one element type T: float (code 0) or
+// __nv_bfloat16 (code 1). The pools' element type TP is T, or
+// __nv_fp8_e4m3 (code 2) for an fp8 KV cache, which has one bf16 scale per
+// (layer, page, KV head) beside it, [L, num_pages, KH]: a value is
+// e4m3 * scale.
 //
 // decode_attention_kernel below serves both attention entry points:
 // dtt_fused_decode (fused_decode.cu, FUSED = true), which replaces
@@ -56,15 +60,30 @@
 //   replay; and only then (FUSED) the new K/V row lands at (dst_page,
 //   dst_off).
 //
-// Race freedom of the FUSED row write: the row lies at position
-// seq_len - 1, on the tail page, which a split reads as a whole tile. The
-// last-arriving split writes the row after every split of its (b, kh) has
-// taken its ticket, and a split takes its ticket only after its last tile
-// has landed in shared memory and been read; so no tile read overlaps the
-// write. With S == 1 the one block writes it after a block-wide barrier
-// that follows its last tile; the spare splits read nothing. Other blocks
-// of the sequence serve other KV heads, whose rows lie elsewhere in the
-// page, and sequences never share a tail page.
+// fp8 pools (TP = __nv_fp8_e4m3): each consumer warp loads its next
+// tile's two scales, scale[block_tables[b, p], kh], while it works on the
+// current one, and dequantizes on use (e4m3 -> f16 -> f32 is exact, then
+// times the scale: the plain version's dequantized value). The FUSED append
+// is then a read-modify-write of the whole PAGE x D run of (dst_page, kh)
+// and its scale, the same arithmetic as ops/quant.py quant_append_rows:
+// new scale = bf16_rne(max(old, amax|row| / 448)) (old = 0 when dst_off is
+// 0: a fresh page), old rows times old / new, the new row divided by the
+// new scale, each clipped to +-448 and cast once, round to nearest even
+// (cvt.rn.satfinite; IEEE divisions, no fast math).
+//
+// Race freedom of the FUSED write: the row lies at position seq_len - 1,
+// on the tail page, which a split reads as a whole tile (with its two
+// scales). The last-arriving split writes after every split of its (b, kh)
+// has taken its ticket, and a split takes its ticket only after its last
+// tile has landed in shared memory and been read, and after every scale it
+// loaded has been used; so no read of the head's run or of its scale
+// overlaps the write, whether it rewrites one row (bf16, f32) or the whole
+// run and the scale (fp8). With S == 1 the one block writes after a
+// block-wide barrier that follows its last tile; the spare splits read
+// nothing. Other blocks of the sequence serve other KV heads, whose runs
+// and scales are disjoint, and sequences never share a tail page. Inactive
+// slots all write trash page 0, concurrently: garbage there by contract,
+// every access in bounds.
 //
 // Keys read from the pool: positions in [lo, ctx), ctx = seq_len
 // (read-only form: the new token is already in the pool) or seq_len - 1
@@ -77,13 +96,26 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace dtt {
 
 constexpr int kF32 = 0;
 constexpr int kBF16 = 1;
+constexpr int kFP8 = 2;  // pools only: __nv_fp8_e4m3 values + bf16 scales
+
+constexpr float kFp8Max = 448.f;  // e4m3 max finite (ops/quant.py FP8_MAX)
+constexpr float kTiny = 1e-30f;   // division guard (ops/quant.py _TINY)
+
+template <typename TP>
+__host__ __device__ constexpr bool is_fp8() {
+  return std::is_same<TP, __nv_fp8_e4m3>::value;
+}
 
 // finite "minus infinity" (the TPU kernels' NEG_INF): masked scores stay
 // finite, so exp(NEG_INF - m) underflows to 0 instead of producing NaN
@@ -99,14 +131,15 @@ constexpr int kMaxSplits = 64;  // S <= kMaxSplits (ops/cuda: MAX_SPLITS)
 constexpr int kMinSplitPages = 2 * kWarps;
 
 // shared memory given to the ring of page tiles per block; the ring holds
-// 4, 8, 12 or 16 stages of one head's K and V page tiles: a multiple of
+// 4, 8, 12 or 16 stages of one head's K and V page tiles (of the pool's
+// element type TP: 16 stages at fp8): a multiple of
 // the consumer warps, so stage i % stages is always consumed by warp
 // i % kWarps, which waits on its phases strictly in turn (a parity wait
 // can then never mistake an older completed phase for the awaited one)
 constexpr int kRingBytes = 64 * 1024;
-template <typename T, int D>
+template <typename TP, int D>
 __host__ __device__ constexpr int ring_stages() {
-  constexpr int n = kRingBytes / (2 * kPage * D * (int)sizeof(T));
+  constexpr int n = kRingBytes / (2 * kPage * D * (int)sizeof(TP));
   return n < kWarps ? kWarps : n > 4 * kWarps ? 4 * kWarps : n / kWarps * kWarps;
 }
 
@@ -126,6 +159,25 @@ __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as a bf16 cast
+}
+
+// two neighbouring e4m3 values (low byte first) as floats: exact, since
+// every e4m3 value is an f16
+__device__ __forceinline__ float2 fp8x2_to_float2(uint16_t v) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)v, __NV_E4M3);
+  return __half22float2(__half2(h));
+}
+
+// clip to +-448 (a NaN stays NaN, as torch.clamp keeps it), then one
+// round-to-nearest-even cast f32 -> e4m3
+__device__ __forceinline__ uint32_t f32_to_fp8(float x) {
+  x = x < -kFp8Max ? -kFp8Max : (x > kFp8Max ? kFp8Max : x);
+  return (uint32_t)__nv_cvt_float_to_fp8(x, __NV_SATFINITE, __NV_E4M3);
+}
+
+// ops/quant.py quant_values for one element (f32, before the clip)
+__device__ __forceinline__ float quant_value(float x, float scale) {
+  return scale > 0.f ? __fdiv_rn(x, fmaxf(scale, kTiny)) : 0.f;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -209,12 +261,26 @@ template <>
 __device__ __forceinline__ float2 load2<__nv_bfloat16>(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
+template <>
+__device__ __forceinline__ float2 load2<__nv_fp8_e4m3>(const __nv_fp8_e4m3* p) {
+  return fp8x2_to_float2(*reinterpret_cast<const uint16_t*>(p));
+}
 
 // N (2 or 4) neighbouring elements of T as floats
 template <typename T, int N>
 __device__ __forceinline__ void load_row(const T* p, float (&f)[N]) {
   static_assert(N == 2 || N == 4, "2 or 4 elements");
-  if constexpr (sizeof(T) == 4) {
+  if constexpr (is_fp8<T>()) {
+    if constexpr (N == 4) {
+      const uint32_t v = *reinterpret_cast<const uint32_t*>(p);
+      const float2 a = fp8x2_to_float2((uint16_t)(v & 0xffffu));
+      const float2 c = fp8x2_to_float2((uint16_t)(v >> 16));
+      f[0] = a.x, f[1] = a.y, f[2] = c.x, f[3] = c.y;
+    } else {
+      const float2 a = load2<T>(p);
+      f[0] = a.x, f[1] = a.y;
+    }
+  } else if constexpr (sizeof(T) == 4) {
     if constexpr (N == 4) {
       const float4 v = *reinterpret_cast<const float4*>(p);
       f[0] = v.x, f[1] = v.y, f[2] = v.z, f[3] = v.w;
@@ -259,6 +325,8 @@ struct SmemPlan {
   int p;      // [kWarps, G, PAGE] f32: each warp's tile probabilities
   int snew;   // [G] f32: the new token's scores (FUSED)
   int ml;     // [2, G] f32: merged max and denominator
+  int rq;     // [4] f32: (FUSED, fp8) new scale and old / new, K then V
+  int dst;    // [2] int: (FUSED, fp8) dst_page[b], dst_off[b]
   int bars;   // [2, stages] mbarriers: tile landed, then tile released
   int flag;   // int: this block is the last split of its (b, kh)
   int total;
@@ -268,11 +336,11 @@ struct SmemPlan {
 // it for the warps' partials [kWarps, G, D + 2] f32 and then for the
 // splits' maxima, weights and denominators [2, S, G] f32; ring_stages
 // keeps it large enough for both.
-template <typename T, int D>
+template <typename TP, int D>
 __host__ __device__ inline SmemPlan smem_plan(int G) {
-  constexpr int kStages = ring_stages<T, D>();
+  constexpr int kStages = ring_stages<TP, D>();
   SmemPlan p;
-  int off = kStages * 2 * kPage * D * (int)sizeof(T);  // K and V stages
+  int off = kStages * 2 * kPage * D * (int)sizeof(TP);  // K and V stages
   p.q = off;
   off += G * D * 4;
   p.nv = off;
@@ -285,6 +353,10 @@ __host__ __device__ inline SmemPlan smem_plan(int G) {
   off += G * 4;
   p.ml = off;
   off += 2 * G * 4;
+  p.rq = off;
+  off += 4 * 4;
+  p.dst = off;
+  off += 2 * 4;
   off = (off + 7) / 8 * 8;
   p.bars = off;
   off += 2 * kStages * 8;
@@ -296,12 +368,12 @@ __host__ __device__ inline SmemPlan smem_plan(int G) {
 
 // acc[g][*] += P[g] . V over one tile, for lane's head dims (2 * lane + 64 j
 // and the next one). MASKED selects the rows in [t_lo, t_hi): junk in a
-// masked row never meets a zero weight.
-template <typename T, int D, int GB, bool MASKED>
+// masked row never meets a zero weight. fp8 tiles dequantize by `sv`.
+template <typename TP, int D, int GB, bool MASKED>
 __device__ __forceinline__ void tile_pv(float (&acc)[GB][D / 32],
-                                        const T* __restrict__ vt,
+                                        const TP* __restrict__ vt,
                                         const float* __restrict__ pw, int G,
-                                        int lane, int t_lo, int t_hi) {
+                                        int lane, int t_lo, int t_hi, float sv) {
   constexpr int kPairs = D / 64;
 #pragma unroll
   for (int t4 = 0; t4 < kPage / 4; ++t4) {
@@ -312,7 +384,8 @@ __device__ __forceinline__ void tile_pv(float (&acc)[GB][D / 32],
       const bool ok = !MASKED || (t >= t_lo && t < t_hi);
 #pragma unroll
       for (int j = 0; j < kPairs; ++j) {
-        const float2 v = load2<T>(vt + t * D + 2 * lane + 64 * j);
+        float2 v = load2<TP>(vt + t * D + 2 * lane + 64 * j);
+        if constexpr (is_fp8<TP>()) v = make_float2(v.x * sv, v.y * sv);
         vf[u][j] = ok ? v : make_float2(0.f, 0.f);
       }
     }
@@ -334,12 +407,15 @@ __device__ __forceinline__ void tile_pv(float (&acc)[GB][D / 32],
 
 // GQA paged decode attention, split context with an in-launch combine; see
 // the notes at the top of this file. GB >= G is the compile-time bound of
-// the group size (4 or 16); threads hold per-head state for GB heads.
-template <typename T, int D, int GB, bool FUSED>
+// the group size (4 or 16); threads hold per-head state for GB heads. T is
+// the query / output / new-row type, TP the pools' (T, or e4m3 with scales).
+template <typename T, typename TP, int D, int GB, bool FUSED>
 __global__ void __launch_bounds__(kBlock, GB <= 4 ? 3 : 2)
     decode_attention_kernel(const T* __restrict__ q,  // [B, H, D]
-                            T* k_layer,               // [NP, KH, PAGE, D]
-                            T* v_layer,
+                            TP* k_layer,              // [NP, KH, PAGE, D]
+                            TP* v_layer,
+                            __nv_bfloat16* k_scale,  // [NP, KH] (fp8) or null
+                            __nv_bfloat16* v_scale,
                             const T* __restrict__ k_new,  // [B, KH, D]
                             const T* __restrict__ v_new,
                             const int* __restrict__ block_tables,  // [B, P]
@@ -355,15 +431,17 @@ __global__ void __launch_bounds__(kBlock, GB <= 4 ? 3 : 2)
   constexpr int kHS = 128 / D;              // merge: threads per head dim
   constexpr int kGA = GB / kHS;             // merge: heads per thread
   constexpr int kTileElems = kPage * D;
-  constexpr uint32_t kTileBytes = kTileElems * sizeof(T);
+  constexpr uint32_t kTileBytes = kTileElems * sizeof(TP);
   constexpr int kW = D + 2;                 // partial row: acc, m, l
-  constexpr int kStages = ring_stages<T, D>();
-  static_assert(kStages * 2 * kTileElems * (int)sizeof(T) >= kWarps * GB * kW * 4,
+  constexpr int kStages = ring_stages<TP, D>();
+  constexpr bool kQuant = is_fp8<TP>();
+  static_assert(kQuant || std::is_same<T, TP>::value, "plain pools hold T");
+  static_assert(kStages * 2 * kTileElems * (int)sizeof(TP) >= kWarps * GB * kW * 4,
                 "the idle ring must hold the warps' partials");
 
   extern __shared__ __align__(128) unsigned char smem[];
-  const SmemPlan plan = smem_plan<T, D>(G);
-  T* stages = reinterpret_cast<T*>(smem);
+  const SmemPlan plan = smem_plan<TP, D>(G);
+  TP* stages = reinterpret_cast<TP*>(smem);
   float* part_s = reinterpret_cast<float*>(smem);  // after the ring is idle
   float* qf = reinterpret_cast<float*>(smem + plan.q);
   float* nv_s = reinterpret_cast<float*>(smem + plan.nv);
@@ -389,7 +467,9 @@ __global__ void __launch_bounds__(kBlock, GB <= 4 ? 3 : 2)
   // them outside the L2) and land in shared memory before the split test,
   // which keeps the compiler from sinking them past it: the query,
   // pre-scaled and rounded to T exactly as the TPU wrapper does, in f32
-  // [G, D]; (FUSED) the new K and V rows in f32; the sinks.
+  // [G, D]; (FUSED) the new K and V rows in f32; the sinks; (FUSED, fp8)
+  // the destination page and offset.
+  int* dst_s = reinterpret_cast<int*>(smem + plan.dst);
   {
     constexpr int kQPer = (GB * D + kBlock - 1) / kBlock;
     constexpr int kNVPer = (2 * D + kBlock - 1) / kBlock;
@@ -410,6 +490,8 @@ __global__ void __launch_bounds__(kBlock, GB <= 4 ? 3 : 2)
       }
     }
     if (sinks != nullptr && tid < G) sk = sinks[kh * G + tid];
+    int dst = 0;
+    if (FUSED && kQuant && tid < 2) dst = tid == 0 ? dst_page[b] : dst_off[b];
 #pragma unroll
     for (int r = 0; r < kQPer; ++r) {
       const int i = tid + r * kBlock;
@@ -423,6 +505,7 @@ __global__ void __launch_bounds__(kBlock, GB <= 4 ? 3 : 2)
       }
     }
     if (sinks != nullptr && tid < G) sink_s[tid] = sk;
+    if (FUSED && kQuant && tid < 2) dst_s[tid] = dst;
   }
 
   const int ctx = FUSED ? seq_len - 1 : seq_len;
@@ -446,7 +529,7 @@ __global__ void __launch_bounds__(kBlock, GB <= 4 ? 3 : 2)
   auto fetch = [&](int i) {
     const int st = i % kStages;
     const size_t base = (size_t)bt[p_begin + i] * page_stride + head_off;
-    T* dst = stages + (size_t)2 * st * kTileElems;
+    TP* dst = stages + (size_t)2 * st * kTileElems;
     mbar_expect_tx(&full[st], 2 * kTileBytes);
     bulk_load(dst, k_layer + base, kTileBytes, &full[st]);
     bulk_load(dst + kTileElems, v_layer + base, kTileBytes, &full[st]);
@@ -500,14 +583,27 @@ __global__ void __launch_bounds__(kBlock, GB <= 4 ? 3 : 2)
     const int t_me = lane >> 1;
     const int k_me = 2 * (lane & 1);
     float* pw = p_s + warp * G * kPage;
+    // (fp8) the K and V scales of tile i, loaded one tile ahead
+    auto tile_scales = [&](int i) {
+      const size_t si = (size_t)bt[p_begin + i] * KH + kh;
+      return make_float2(__bfloat162float(k_scale[si]), __bfloat162float(v_scale[si]));
+    };
+    float2 sc_next = make_float2(1.f, 1.f);
+    if constexpr (kQuant) {
+      if (warp < n) sc_next = tile_scales(warp);
+    }
     for (int i = warp; i < n; i += kWarps) {
       const int st = i % kStages;
       const int pos0 = (p_begin + i) * kPage;
       const int t_lo = max(lo - pos0, 0);
       const int t_hi = min(ctx - pos0, kPage);
+      const float2 sc = sc_next;
+      if constexpr (kQuant) {
+        if (i + kWarps < n) sc_next = tile_scales(i + kWarps);
+      }
       mbar_wait(&full[st], (uint32_t)(i / kStages) & 1u);
-      const T* kt = stages + (size_t)2 * st * kTileElems;
-      const T* vt = kt + kTileElems;
+      const TP* kt = stages + (size_t)2 * st * kTileElems;
+      const TP* vt = kt + kTileElems;
       const bool valid = t_me >= t_lo && t_me < t_hi;
 #pragma unroll
       for (int hg = 0; hg < GB / 4; ++hg) {
@@ -527,7 +623,11 @@ __global__ void __launch_bounds__(kBlock, GB <= 4 ? 3 : 2)
 #pragma unroll
         for (int t = 0; t < kPage; ++t) {
           float kf[kDl];
-          load_row<T, kDl>(kt + t * D + kDl * lane, kf);
+          load_row<TP, kDl>(kt + t * D + kDl * lane, kf);
+          if constexpr (kQuant) {
+#pragma unroll
+            for (int d = 0; d < kDl; ++d) kf[d] *= sc.x;
+          }
 #pragma unroll
           for (int k = 0; k < 4; ++k) {
             float sum = 0.f;
@@ -576,9 +676,9 @@ __global__ void __launch_bounds__(kBlock, GB <= 4 ? 3 : 2)
       }
       __syncwarp();
       if (t_lo == 0 && t_hi == kPage)
-        tile_pv<T, D, GB, false>(acc, vt, pw, G, lane, t_lo, t_hi);
+        tile_pv<TP, D, GB, false>(acc, vt, pw, G, lane, t_lo, t_hi, sc.y);
       else
-        tile_pv<T, D, GB, true>(acc, vt, pw, G, lane, t_lo, t_hi);
+        tile_pv<TP, D, GB, true>(acc, vt, pw, G, lane, t_lo, t_hi, sc.y);
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[st]);
     }
@@ -732,7 +832,7 @@ __global__ void __launch_bounds__(kBlock, GB <= 4 ? 3 : 2)
   }
   if (S > 1 && tid == 0) *ticket = 0;  // clean for the next launch or replay
 
-  if (FUSED) {
+  if constexpr (FUSED && !kQuant) {
     // every split of (b, kh) has read its tiles: land the new KV row
     const size_t row = (size_t)dst_page[b] * page_stride + head_off +
                        (size_t)dst_off[b] * D;
@@ -740,22 +840,95 @@ __global__ void __launch_bounds__(kBlock, GB <= 4 ? 3 : 2)
     copy_vec<T>(k_layer + row, k_new + src, D);
     copy_vec<T>(v_layer + row, v_new + src, D);
   }
+  if constexpr (FUSED && kQuant) {
+    // every split of (b, kh) has read its tiles and their scales: requantize
+    // the head's run of the destination page around the new row (the new
+    // rows, unquantized, are in nv_s). The run's words (four e4m3 values
+    // each) and the old scales are loaded together, before any store, so
+    // the read costs one trip to memory; warp 0 then takes K's scale and
+    // warp 1 V's.
+    constexpr int kRunWords = kPage * D / 4;
+    constexpr int kIters = (2 * kRunWords + kBlock - 1) / kBlock;
+    float* rq_s = reinterpret_cast<float*>(smem + plan.rq);
+    const int doff = dst_s[1];
+    const size_t si = (size_t)dst_s[0] * KH + kh;
+    const size_t run = (size_t)dst_s[0] * page_stride + head_off;
+    auto word_at = [&](int w) {
+      const int kv = w / kRunWords;  // 0: K, 1: V
+      return reinterpret_cast<uint32_t*>((kv ? v_layer : k_layer) + run) +
+             (w - kv * kRunWords);
+    };
+    uint32_t old_w[kIters];
+#pragma unroll
+    for (int r = 0; r < kIters; ++r) {
+      const int w = tid + r * kBlock;
+      if (w < 2 * kRunWords) old_w[r] = *word_at(w);
+    }
+    if (warp < 2) {
+      // a fresh page (dst_off 0) starts from scale 0, never its last
+      // occupant's
+      const __nv_bfloat16* sc = warp == 0 ? k_scale : v_scale;
+      const float old = doff == 0 ? 0.f : __bfloat162float(sc[si]);
+      const float* row = nv_s + warp * D;
+      float amax = 0.f;
+      for (int d = lane; d < D; d += 32) amax = fmaxf(amax, fabsf(row[d]));
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+      if (lane == 0) {
+        const float ns = __bfloat162float(
+            __float2bfloat16_rn(fmaxf(old, __fdiv_rn(amax, kFp8Max))));
+        rq_s[2 * warp] = ns;
+        rq_s[2 * warp + 1] = ns > 0.f ? __fdiv_rn(old, fmaxf(ns, kTiny)) : 0.f;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < kIters; ++r) {
+      const int w = tid + r * kBlock;
+      if (w >= 2 * kRunWords) break;
+      const int kv = w / kRunWords;
+      const int e = (w - kv * kRunWords) * 4;  // element in the run
+      const int t = e / D;
+      float f[4];
+      if (t == doff) {
+        const float ns = rq_s[2 * kv];
+        const float* src = nv_s + kv * D + (e - t * D);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) f[j] = quant_value(src[j], ns);
+      } else {
+        const float fac = rq_s[2 * kv + 1];
+        const float2 a = fp8x2_to_float2((uint16_t)(old_w[r] & 0xffffu));
+        const float2 c = fp8x2_to_float2((uint16_t)(old_w[r] >> 16));
+        f[0] = __fmul_rn(a.x, fac);
+        f[1] = __fmul_rn(a.y, fac);
+        f[2] = __fmul_rn(c.x, fac);
+        f[3] = __fmul_rn(c.y, fac);
+      }
+      *word_at(w) = f32_to_fp8(f[0]) | (f32_to_fp8(f[1]) << 8) |
+                    (f32_to_fp8(f[2]) << 16) | (f32_to_fp8(f[3]) << 24);
+    }
+    if (tid == 0) {
+      k_scale[si] = __float2bfloat16_rn(rq_s[0]);
+      v_scale[si] = __float2bfloat16_rn(rq_s[2]);
+    }
+  }
 }
 
 // static: its function-local `raised` must stay private to this library
 // (an inline function's static is one object across every library the
 // process loads, so a second build of these kernels would skip raising
 // its own limit)
-template <typename T, int D, int GB, bool FUSED>
+template <typename T, typename TP, int D, int GB, bool FUSED>
 static int launch_split(dim3 grid, cudaStream_t stream, const void* q,
-                        void* k_layer, void* v_layer, const void* k_new,
-                        const void* v_new, const int* block_tables,
-                        const int* seq_lens, const int* dst_page,
-                        const int* dst_off, const float* sinks, void* out,
-                        float* ws, int* tickets, int KH, int G, int P,
-                        int window, float scale) {
-  auto kernel = decode_attention_kernel<T, D, GB, FUSED>;
-  const int bytes = smem_plan<T, D>(G).total;
+                        void* k_layer, void* v_layer, void* k_scale,
+                        void* v_scale, const void* k_new, const void* v_new,
+                        const int* block_tables, const int* seq_lens,
+                        const int* dst_page, const int* dst_off,
+                        const float* sinks, void* out, float* ws, int* tickets,
+                        int KH, int G, int P, int window, float scale) {
+  auto kernel = decode_attention_kernel<T, TP, D, GB, FUSED>;
+  const int bytes = smem_plan<TP, D>(G).total;
   // above 48 KB the limit is raised once per kernel and device (the most a
   // launch needs is the G = 16 plan)
   static int raised[64] = {};
@@ -763,49 +936,60 @@ static int launch_split(dim3 grid, cudaStream_t stream, const void* q,
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   if (bytes > 48 * 1024 && (dev >= 64 || raised[dev] < bytes)) {
-    const int most = smem_plan<T, D>(16).total;
+    const int most = smem_plan<TP, D>(16).total;
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
     if (e != cudaSuccess) return (int)e;
     if (dev < 64) raised[dev] = most;
   }
   kernel<<<grid, kBlock, bytes, stream>>>(
-      (const T*)q, (T*)k_layer, (T*)v_layer, (const T*)k_new, (const T*)v_new,
-      block_tables, seq_lens, dst_page, dst_off, sinks, (T*)out, ws, tickets,
-      KH, G, P, window, scale);
+      (const T*)q, (TP*)k_layer, (TP*)v_layer, (__nv_bfloat16*)k_scale,
+      (__nv_bfloat16*)v_scale, (const T*)k_new, (const T*)v_new, block_tables,
+      seq_lens, dst_page, dst_off, sinks, (T*)out, ws, tickets, KH, G, P,
+      window, scale);
   return (int)cudaGetLastError();
 }
 
 // Host-side launcher shared by the two attention entry points. `ws` holds
 // B * KH * S * G * (D + 2) floats; `tickets` B * KH ints, zero on entry
 // (the kernel leaves them zero). Both must belong to this stream alone.
+// `qtype` is the query / output / new-row type (kF32, kBF16), `ptype` the
+// pools' (qtype, or kFP8 with one layer's [NP, KH] bf16 scales in
+// k_scale / v_scale, which are null otherwise).
 template <bool FUSED>
 static int launch_decode_attention(
-    const void* q, void* k_layer, void* v_layer, const void* k_new,
-    const void* v_new, const int* block_tables, const int* seq_lens,
-    const int* dst_page, const int* dst_off, const float* sinks, void* out,
-    float* ws, int* tickets, int S, int B, int H, int KH, int D, int page,
-    int P, int window, float scale, int dtype, cudaStream_t stream) {
+    const void* q, void* k_layer, void* v_layer, void* k_scale, void* v_scale,
+    const void* k_new, const void* v_new, const int* block_tables,
+    const int* seq_lens, const int* dst_page, const int* dst_off,
+    const float* sinks, void* out, float* ws, int* tickets, int S, int B,
+    int H, int KH, int D, int page, int P, int window, float scale, int qtype,
+    int ptype, cudaStream_t stream) {
   const int G = KH > 0 ? H / KH : 0;
   if (page != kPage || (D != 64 && D != 128) || G < 1 || G > 16 || H % KH ||
       S < 1 || S > kMaxSplits || KH > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
+  if ((ptype == kFP8) != (k_scale != nullptr && v_scale != nullptr) ||
+      (ptype != kFP8 && ptype != qtype))
+    return (int)cudaErrorInvalidValue;
   const dim3 grid(S, KH, B);
-#define DTT_LAUNCH(T, DD, GG)                                                 \
-  return launch_split<T, DD, GG, FUSED>(                                      \
-      grid, stream, q, k_layer, v_layer, k_new, v_new, block_tables,          \
-      seq_lens, dst_page, dst_off, sinks, out, ws, tickets, KH, G, P, window, \
-      scale)
-#define DTT_BY_G(T, DD)          \
-  if (G <= 4) DTT_LAUNCH(T, DD, 4); \
-  DTT_LAUNCH(T, DD, 16)
-  if (dtype == kBF16) {
-    if (D == 128) { DTT_BY_G(__nv_bfloat16, 128); }
-    DTT_BY_G(__nv_bfloat16, 64);
+#define DTT_LAUNCH(T, TP, DD, GG)                                            \
+  return launch_split<T, TP, DD, GG, FUSED>(                                 \
+      grid, stream, q, k_layer, v_layer, k_scale, v_scale, k_new, v_new,     \
+      block_tables, seq_lens, dst_page, dst_off, sinks, out, ws, tickets, KH, \
+      G, P, window, scale)
+#define DTT_BY_G(T, TP, DD)              \
+  if (G <= 4) DTT_LAUNCH(T, TP, DD, 4); \
+  DTT_LAUNCH(T, TP, DD, 16)
+#define DTT_BY_D(T, TP)                        \
+  if (D == 128) { DTT_BY_G(T, TP, 128); }      \
+  DTT_BY_G(T, TP, 64)
+  if (ptype == kFP8) {
+    if (qtype == kBF16) { DTT_BY_D(__nv_bfloat16, __nv_fp8_e4m3); }
+    if (qtype == kF32) { DTT_BY_D(float, __nv_fp8_e4m3); }
+  } else {
+    if (qtype == kBF16) { DTT_BY_D(__nv_bfloat16, __nv_bfloat16); }
+    if (qtype == kF32) { DTT_BY_D(float, float); }
   }
-  if (dtype == kF32) {
-    if (D == 128) { DTT_BY_G(float, 128); }
-    DTT_BY_G(float, 64);
-  }
+#undef DTT_BY_D
 #undef DTT_BY_G
 #undef DTT_LAUNCH
   return (int)cudaErrorInvalidValue;

@@ -7,7 +7,6 @@ serving engine's memory and batching envelope.
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 
 
@@ -245,8 +244,11 @@ class EngineConfig:
     page_size: int = 16  # tokens per page (= router block_size granularity)
     num_pages: int = 2048  # device page budget (the trash page is extra)
     max_pages_per_seq: int = 64  # max context = page_size * this
-    # KV-cache storage dtype: "" or "bf16" = unquantized pool in the model
-    # dtype. "" consults DYN_KV_DTYPE. fp8 raises until the fp8 slice.
+    # KV-cache storage dtype: "bf16" = unquantized pool in the model dtype,
+    # "fp8" = e4m3 values + per-page per-head bf16 scales (ops/quant.py:
+    # half the pool's bytes and half the bytes decode attention reads).
+    # "" consults DYN_KV_DTYPE, default bf16; an explicit value here wins
+    # over the environment.
     kv_dtype: str = ""
     # decode slots (the decode batch). None = auto-size from the page
     # budget: every slot can still hold a full-length context
@@ -298,13 +300,9 @@ class EngineConfig:
             self.max_decode_slots = max(
                 8, min(64, self.num_pages // max(1, self.max_pages_per_seq))
             )
-        kv = (self.kv_dtype or os.environ.get("DYN_KV_DTYPE", "")).strip().lower()
-        if kv not in ("", "bf16"):
-            raise NotImplementedError(
-                f"kv_dtype={kv!r}: the port serves bf16 KV pools only; the "
-                "fp8 KV cache arrives with the port's fp8 slice"
-            )
-        self.kv_dtype = "bf16"
+        from dynamo_tpu_torch.ops.quant import resolve_kv_dtype
+
+        self.kv_dtype = resolve_kv_dtype(self.kv_dtype)
 
     @property
     def max_context(self) -> int:

@@ -98,11 +98,18 @@ class InferenceEngine:
         if params is None:
             params = self.fam.init_params(spec, self.config.seed, device=self.device)
         self.params = params
-        # +1 page: index 0 is the trash page
+        # +1 page: index 0 is the trash page. kv_dtype "fp8" makes both
+        # pools QuantPools (ops/quant.py): e4m3 values + bf16 scales
+        self.kv_dtype = self.config.kv_dtype
         self.k_pages, self.v_pages = self.fam.init_cache(
             spec, self.config.num_pages + 1, self.config.page_size,
-            device=self.device,
+            device=self.device, kv_dtype=self.kv_dtype,
         )
+        # device bytes of both pools (values and, for fp8, scales)
+        self.pool_bytes = sum(p.nbytes for p in (self.k_pages, self.v_pages))
+        log.info("KV pools: kv_dtype %s, %d pages of %d tokens, %.3f GB",
+                 self.kv_dtype, self.config.num_pages + 1,
+                 self.config.page_size, self.pool_bytes / 1e9)
         self.allocator = PageAllocator(
             self.config.num_pages + 1, self.config.page_size
         )

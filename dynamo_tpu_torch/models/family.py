@@ -25,8 +25,10 @@ class GqaFamily:
     def init_params(self, spec, seed, device=None):
         return self.m.init_params(spec, seed, device=device)
 
-    def init_cache(self, spec, num_pages, page_size, device=None):
-        return self.m.init_cache(spec, num_pages, page_size, device=device)
+    def init_cache(self, spec, num_pages, page_size, device=None,
+                   kv_dtype="bf16"):
+        return self.m.init_cache(spec, num_pages, page_size, device=device,
+                                 kv_dtype=kv_dtype)
 
     def prefill(self, spec, params, tokens, bt, start, k, v, n):
         return self.m.prefill_forward(spec, params, tokens, bt, start, k, v, n)

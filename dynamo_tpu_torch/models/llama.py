@@ -9,7 +9,10 @@ mirror the JAX entry points: ``prefill_forward``, ``prefill_forward_batch``,
 The KV pools ``[L, num_pages, KH, page, D]`` are updated IN PLACE by every
 forward that writes them (the JAX package's donation + aliasing). Page 0 is
 the trash page: padded token positions and inactive decode slots write
-there, so static-shape batches never corrupt live pages.
+there, so static-shape batches never corrupt live pages. With
+``kv_dtype="fp8"`` each pool is a ``QuantPool`` (ops/quant.py): prefill
+quantizes whole pages, decode appends requantize, and every reader
+dequantizes.
 
 Devices are explicit: init functions default to ``cuda`` and raise when no
 GPU is present unless the caller passes ``device="cpu"``.
@@ -27,8 +30,15 @@ from dynamo_tpu_torch.engine.config import ModelSpec
 from dynamo_tpu_torch.ops.attention import (
     causal_attention,
     decode_update_attention,
-    gather_pages,
+    gather_ctx,
     page_tiles,
+    pool_layer,
+)
+from dynamo_tpu_torch.ops.quant import (
+    QuantPool,
+    init_quant_pool,
+    is_quant,
+    quant_page_tiles,
 )
 
 TRASH_PAGE = 0  # reserved page index for padded-position writes
@@ -138,14 +148,18 @@ def init_params(
 
 def init_cache(
     spec: ModelSpec, num_pages: int, page_size: int, dtype=None,
-    device: str | torch.device | None = None,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    device: str | torch.device | None = None, kv_dtype: str = "bf16",
+) -> tuple[torch.Tensor, torch.Tensor] | tuple[QuantPool, QuantPool]:
     """K and V page arrays [L, num_pages, kv_heads, page_size, head_dim],
-    zeroed. ``num_pages`` must already include the trash page (index 0)."""
+    zeroed. ``num_pages`` must already include the trash page (index 0).
+    ``kv_dtype="fp8"`` allocates QuantPools instead: fp8 values of that
+    shape and bf16 scales [L, num_pages, kv_heads], zeros (empty pages)."""
     dev = resolve_device(device)
-    dtype = dtype or torch_dtype(spec.dtype)
     shape = (spec.num_layers, num_pages, spec.num_kv_heads, page_size,
              spec.head_dim)
+    if kv_dtype == "fp8":
+        return init_quant_pool(shape, 3, dev), init_quant_pool(shape, 3, dev)
+    dtype = dtype or torch_dtype(spec.dtype)
     return (torch.zeros(shape, dtype=dtype, device=dev),
             torch.zeros(shape, dtype=dtype, device=dev))
 
@@ -285,12 +299,33 @@ def _logits(spec: ModelSpec, params: LlamaParams, x: torch.Tensor) -> torch.Tens
 # ---------------------------------------------------------------- prefill
 
 
-def _write_prefill_pages(pool, li, safe_pg, arr, page_size):
+def _write_prefill_pages(pool, li, safe_pg, arr, page_size, valid_tok):
     """Page-granular prefill write: prompts start page-aligned (prefix hits
     are whole pages), so the rows land as whole [KH, page, D] tiles. Tail
     garbage beyond the real tokens is masked in attention and overwritten
-    by decode appends; fully padded tiles go to the trash page."""
-    pool[li, safe_pg] = page_tiles(arr, page_size)
+    by decode appends; fully padded tiles go to the trash page. A QuantPool
+    zeroes the rows past the real tokens (``valid_tok [n_tiles, page]``)
+    BEFORE the page amax, so garbage cannot inflate the scale, then takes
+    one scale per (page, head)."""
+    tiles = page_tiles(arr, page_size)
+    if is_quant(pool):
+        vals, s = quant_page_tiles(tiles, valid_tok[:, None, :, None], (2, 3))
+        pool.vals.view(torch.uint8)[li, safe_pg] = vals.view(torch.uint8)
+        pool.scale[li, safe_pg] = s
+        return
+    pool[li, safe_pg] = tiles
+
+
+def _overlay_rows(ctx, rows, positions):
+    """ctx [N, max_ctx, KH, D] f32 with this prompt's exact rows [N, T, KH,
+    D] written at ``positions [N, T]``; positions past the context are
+    dropped (the reference's ``mode="drop"``: they go to a spare row)."""
+    N, max_ctx = ctx.shape[:2]
+    ext = torch.cat([ctx, ctx.new_zeros((N, 1) + ctx.shape[2:])], dim=1)
+    pos = torch.where(positions < max_ctx, positions, max_ctx)
+    n_idx = torch.arange(N, device=ctx.device)[:, None].expand_as(pos)
+    ext[n_idx, pos] = rows.to(ext.dtype)
+    return ext[:, :max_ctx]
 
 
 def prefill_forward(
@@ -328,7 +363,9 @@ def prefill_forward_batch(
     matmuls batch over [N, T, d], the per-layer KV write is one page-tile
     write over all N*T/page tiles, and attention runs per prompt over its
     own table. Padded rows (num_tokens 0) write only the trash page.
-    Returns the last real position's logits [N, V] f32."""
+    Over fp8 pools each prompt attends to its own rows exactly: they are
+    overlaid on the dequantized read-back, so only a cached prefix pays
+    fp8. Returns the last real position's logits [N, V] f32."""
     dev = k_pages.device
     N, T = tokens.shape
     page_size = k_pages.shape[3]
@@ -344,16 +381,21 @@ def prefill_forward_batch(
     pg_idx_raw = torch.gather(block_tables.long(), 1, page_starts // page_size)
     valid_pg = page_starts < (start + ntok)[:, None]
     safe_pg = torch.where(valid_pg, pg_idx_raw, TRASH_PAGE).reshape(N * n_pg)
+    valid_tok = (idx[None, :] < ntok[:, None]).reshape(N * n_pg, page_size)
 
     x = params.embed[tokens]  # [N, T, d]
     rot = rope_tables(spec, positions)
     for li, lp in enumerate(params.layers):
         h = rms_norm(x, lp.attn_norm, spec.rms_eps)
         q, k, v = _attn_qkv(spec, lp, h, rot)
-        _write_prefill_pages(k_pages, li, safe_pg, k, page_size)
-        _write_prefill_pages(v_pages, li, safe_pg, v, page_size)
-        k_ctx = gather_pages(k_pages[li], block_tables)  # [N, max_ctx, kvh, D]
-        v_ctx = gather_pages(v_pages[li], block_tables)
+        _write_prefill_pages(k_pages, li, safe_pg, k, page_size, valid_tok)
+        _write_prefill_pages(v_pages, li, safe_pg, v, page_size, valid_tok)
+        # [N, max_ctx, kvh, D], dequantized to f32 from an fp8 pool
+        k_ctx = gather_ctx(pool_layer(k_pages, li), block_tables)
+        v_ctx = gather_ctx(pool_layer(v_pages, li), block_tables)
+        if is_quant(k_pages):
+            k_ctx = _overlay_rows(k_ctx, k, positions)
+            v_ctx = _overlay_rows(v_ctx, v, positions)
         attn = torch.stack([
             causal_attention(
                 q[i], k_ctx[i], v_ctx[i], positions[i], kv_len[i],

@@ -9,6 +9,10 @@ padding of the pool is a Mosaic layout rule with no counterpart here.
 Decode dispatch: a CUDA tensor goes to the hand-written kernels
 (ops/cuda/), a CPU tensor to their plain versions. Prefill attention is
 plain torch ops, as it is plain XLA in the reference.
+
+A pool is a tensor (values in the model dtype) or an fp8 ``QuantPool``
+(ops/quant.py): every reader here gathers through ``gather_ctx``, which
+dequantizes the latter to f32.
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ import math
 import os
 
 import torch
+
+from dynamo_tpu_torch.ops.quant import gather_dequant_pages, is_quant
 
 NEG_INF = -1e30
 
@@ -49,6 +55,20 @@ def gather_pages(pages: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor
     toks = pages[block_table]  # [..., P, KH, page, D]
     *lead, P, KH, page, D = toks.shape
     return toks.transpose(-3, -2).reshape(*lead, P * page, KH, D)
+
+
+def pool_layer(pool, li: int):
+    """One layer of a pool of either form."""
+    return pool.layer(li) if is_quant(pool) else pool[li]
+
+
+def gather_ctx(pool_l, block_table: torch.Tensor) -> torch.Tensor:
+    """One layer's context [..., max_ctx, KH, D] for either pool form: a
+    tensor gathers in its dtype, a QuantPool layer gathers and dequantizes
+    to f32."""
+    if is_quant(pool_l):
+        return gather_dequant_pages(pool_l, block_table)
+    return gather_pages(pool_l, block_table)
 
 
 def causal_attention(
@@ -101,8 +121,8 @@ def _softmax_with_sinks(
 
 def paged_decode_attention(
     q: torch.Tensor,  # [B, heads, D] (one new token per sequence)
-    k_pages: torch.Tensor,  # [num_pages, kv_heads, page_size, D]
-    v_pages: torch.Tensor,
+    k_pages,  # one layer [num_pages, kv_heads, page_size, D], or a QuantPool's
+    v_pages,
     block_tables: torch.Tensor,  # [B, max_pages_per_seq]
     seq_lens: torch.Tensor,  # [B] context length INCLUDING the new token
     *,
@@ -114,12 +134,13 @@ def paged_decode_attention(
     """Decode-step attention: each query attends to its full paged context
     (gather, then masked attention). ``new_kv=(k_new, v_new)`` [B, KH, D]
     overlays the new token's rows at position ``seq_lens - 1`` after the
-    gather, which is the fused kernel's analytic new-token merge. Masked V
-    rows are zeroed where non-finite, so junk in a masked slot can never
-    turn 0-probability x V into NaN."""
+    gather, which is the fused kernel's analytic new-token merge (exact
+    rows over an fp8 pool's dequantized read-back). Masked V rows are
+    zeroed where non-finite, so junk in a masked slot can never turn
+    0-probability x V into NaN."""
     B, H, D = q.shape
-    k = gather_pages(k_pages, block_tables)  # [B, max_ctx, KH, D]
-    v = gather_pages(v_pages, block_tables)
+    k = gather_ctx(k_pages, block_tables)  # [B, max_ctx, KH, D]
+    v = gather_ctx(v_pages, block_tables)
     max_ctx = k.shape[1]
     if new_kv is not None:
         rows = torch.arange(B, device=q.device)
@@ -165,7 +186,11 @@ def decode_update_attention(
     kernel (ops/cuda/fused_decode.py) by default; with DYNAMO_FUSED_DECODE=0
     the unfused pair, kv_write then paged_attention_v3. The pools are
     updated IN PLACE (the counterpart of the reference's input/output
-    aliasing plus donation). Returns the attention output [B, H, D]."""
+    aliasing plus donation). Returns the attention output [B, H, D].
+    fp8 QuantPools take the same routes: the kernels' fp8 forms, and on the
+    unfused path the quantized append (kv_write routes it to
+    quant_append_rows); paged_attention_v3 then reads the new row back at
+    fp8, as the reference's Pallas v3 route does."""
     D = q.shape[-1]
     if use_fused_decode():
         from dynamo_tpu_torch.ops.cuda.fused_decode import fused_decode_attention
@@ -179,15 +204,15 @@ def decode_update_attention(
 
     kv_write(k_pages, v_pages, k_new, v_new, dst_page, dst_off, layer=layer)
     return paged_decode_attention_auto(
-        q, k_pages[layer], v_pages[layer], block_tables, seq_lens,
-        window=window, sinks=sinks,
+        q, pool_layer(k_pages, layer), pool_layer(v_pages, layer),
+        block_tables, seq_lens, window=window, sinks=sinks,
     )
 
 
 def paged_decode_attention_auto(
     q: torch.Tensor,
-    k_pages: torch.Tensor,  # one layer: [num_pages, KH, page, D]
-    v_pages: torch.Tensor,
+    k_pages,  # one layer: [num_pages, KH, page, D], or a QuantPool's
+    v_pages,
     block_tables: torch.Tensor,
     seq_lens: torch.Tensor,
     *,

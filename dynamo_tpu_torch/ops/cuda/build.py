@@ -31,12 +31,12 @@ _F = ctypes.c_float
 SIGNATURES = {
     "dtt_kv_write": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "dtt_paged_attention_v3": [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P,
     ],
     "dtt_fused_decode": [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P,
     ],
 }
 
@@ -135,10 +135,20 @@ def check(rc: int, name: str) -> None:
 
 
 def dtype_code(dtype: torch.dtype) -> int:
+    """csrc/common.cuh code of a query / output / new-row dtype (and of a
+    plain pool's, which matches it)."""
     codes = {torch.float32: 0, torch.bfloat16: 1}
     if dtype not in codes:
         raise TypeError(f"kernels take float32 or bfloat16, not {dtype}")
     return codes[dtype]
+
+
+def pool_code(dtype: torch.dtype) -> int:
+    """csrc/common.cuh code of a pool's value dtype: the query's, or fp8
+    e4m3 (code 2, with bf16 scales beside it)."""
+    if dtype == torch.float8_e4m3fn:
+        return 2
+    return dtype_code(dtype)
 
 
 def stream_ptr(tensor: torch.Tensor) -> int:

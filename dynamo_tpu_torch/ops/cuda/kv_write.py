@@ -14,6 +14,14 @@ single row; on Hopper a row store is direct, so the kernel
 16-byte vector stores and moves exactly the row bytes. At decode shapes
 (N = 8 rows of 2 KB) one launch moves 64 KB, so launch latency, not
 bandwidth, sets its time.
+
+fp8 pools (``QuantPool``) never reach the kernel: the TPU kernel has no
+fp8 branch, and the reference sends a quantized pool to its XLA
+``quant_append_rows`` instead (dynamo_tpu/ops/pallas/kv_write.py
+write_new_kv). So does this wrapper, on any device: ops/quant.py
+``quant_append_rows`` in PyTorch ops, the same code as the plain version.
+That is the reference's own route, not a fallback around a kernel; the
+kv_write kernel launches 0 times on the fp8 path.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from dynamo_tpu_torch.ops.cuda.build import check, dtype_code, load_library, stream_ptr
+from dynamo_tpu_torch.ops.quant import is_quant, quant_append_rows
 
 
 def kv_write_plain(
@@ -28,7 +37,12 @@ def kv_write_plain(
     k_new: torch.Tensor, v_new: torch.Tensor,
     dst_page: torch.Tensor, dst_off: torch.Tensor, *, layer: int,
 ) -> None:
-    """Plain version: one ``index_put_`` per pool (in place)."""
+    """Plain version: one ``index_put_`` per pool (in place); fp8 pools
+    take the quantized append."""
+    if is_quant(k_pages):
+        quant_append_rows(k_pages, k_new, dst_page, dst_off, layer)
+        quant_append_rows(v_pages, v_new, dst_page, dst_off, layer)
+        return
     page = dst_page.long()
     off = dst_off.long()
     k_pages[layer][page, :, off] = k_new.to(k_pages.dtype)
@@ -73,8 +87,9 @@ def kv_write(
 ) -> None:
     """Write N new-token KV rows into layer ``layer``'s page slots, in
     place. CUDA tensors launch the kernel; CPU tensors take the plain
-    version."""
-    if k_pages.device.type == "cpu":
+    version; fp8 pools take ``quant_append_rows`` on any device (see the
+    module notes)."""
+    if k_pages.device.type == "cpu" or is_quant(k_pages):
         kv_write_plain(
             k_pages, v_pages, k_new, v_new, dst_page, dst_off, layer=layer
         )

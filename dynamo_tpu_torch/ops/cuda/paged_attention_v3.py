@@ -30,6 +30,14 @@ Eager launches share one ticket buffer per (device, stream): two streams
 never share one, and stream order finishes one launch before the next
 starts, so the tickets are clean. A captured launch has tickets of its own
 (``split_buffers``).
+
+fp8 branch (the TPU kernel's ``quantized=True``): the pools are one
+layer's ``QuantPool`` slices, e4m3 values ``[num_pages, KH, page, D]``
+and bf16 scales ``[num_pages, KH]``. The kernel reads each tile's two
+scales itself (``scale[block_tables[b, p], kh]``; the TPU wrapper
+pre-gathered them only because Mosaic indexes VMEM statically) and
+dequantizes on use. Half the bytes of bf16 per live token; the query and
+output stay in the model dtype.
 """
 
 from __future__ import annotations
@@ -39,7 +47,14 @@ import math
 import torch
 
 from dynamo_tpu_torch.ops.attention import paged_decode_attention
-from dynamo_tpu_torch.ops.cuda.build import check, dtype_code, load_library, stream_ptr
+from dynamo_tpu_torch.ops.cuda.build import (
+    check,
+    dtype_code,
+    load_library,
+    pool_code,
+    stream_ptr,
+)
+from dynamo_tpu_torch.ops.quant import FP8_DTYPE, SCALE_DTYPE, is_quant
 
 PAGE_SIZES = (16,)
 HEAD_DIMS = (64, 128)
@@ -106,10 +121,32 @@ def paged_attention_v3_plain(
     )
 
 
-def check_attention_args(q, k_layer, v_layer, block_tables, seq_lens, sinks,
+def pool_parts(pool):
+    """(values, scales or None) of a pool of either form."""
+    return (pool.vals, pool.scale) if is_quant(pool) else (pool, None)
+
+
+def check_attention_args(q, k_pool, v_pool, block_tables, seq_lens, sinks,
                          name: str) -> None:
-    """Validation shared by both attention kernels' wrappers."""
+    """Validation shared by both attention kernels' wrappers. The pools are
+    tensors of q's dtype, or fp8 QuantPools (one layer or all) whose scales
+    have the values' leading dims."""
+    if is_quant(k_pool) != is_quant(v_pool):
+        raise TypeError(f"{name}: K and V pools must be of one form")
+    k_layer, k_scale = pool_parts(k_pool)
+    v_layer, v_scale = pool_parts(v_pool)
     tensors = [q, k_layer, v_layer, block_tables, seq_lens]
+    if k_scale is not None:
+        tensors += [k_scale, v_scale]
+        if k_layer.dtype != FP8_DTYPE or v_layer.dtype != FP8_DTYPE:
+            raise TypeError(f"{name}: QuantPool values must be float8_e4m3fn")
+        if k_scale.dtype != SCALE_DTYPE or v_scale.dtype != SCALE_DTYPE:
+            raise TypeError(f"{name}: QuantPool scales must be bfloat16")
+        if (k_scale.shape != k_layer.shape[:-2]
+                or v_scale.shape != v_layer.shape[:-2]):
+            raise ValueError(f"{name}: scales must be [..., num_pages, KH]")
+    elif not q.dtype == k_layer.dtype == v_layer.dtype:
+        raise TypeError(f"{name}: q and plain pools must share a dtype")
     if sinks is not None:
         tensors.append(sinks)
     if any(t.device != q.device for t in tensors):
@@ -127,8 +164,6 @@ def check_attention_args(q, k_layer, v_layer, block_tables, seq_lens, sinks,
     if page not in PAGE_SIZES or D not in HEAD_DIMS:
         raise ValueError(f"{name}: page {page} / head dim {D} not supported "
                          f"(pages {PAGE_SIZES}, head dims {HEAD_DIMS})")
-    if not q.dtype == k_layer.dtype == v_layer.dtype:
-        raise TypeError(f"{name}: q and pools must share a dtype")
     dtype_code(q.dtype)
     if block_tables.dim() != 2 or block_tables.shape[0] != B:
         raise ValueError(f"{name}: block_tables must be [B, P]")
@@ -144,8 +179,8 @@ def check_attention_args(q, k_layer, v_layer, block_tables, seq_lens, sinks,
 
 def paged_decode_attention_v3(
     q: torch.Tensor,  # [B, H, D]
-    k_pages: torch.Tensor,  # [num_pages, KH, page, D]
-    v_pages: torch.Tensor,
+    k_pages,  # [num_pages, KH, page, D], or a QuantPool layer slice
+    v_pages,
     block_tables: torch.Tensor,  # [B, P] int32
     seq_lens: torch.Tensor,  # [B] int32 (length INCLUDING the new token)
     *,
@@ -153,8 +188,9 @@ def paged_decode_attention_v3(
     sinks: torch.Tensor | None = None,  # [H] learned sink logits
     scale: float | None = None,
 ) -> torch.Tensor:
-    """Decode attention over one layer of the page-major cache. CUDA
-    tensors launch the kernel; CPU tensors take the plain version."""
+    """Decode attention over one layer of the page-major cache (plain or
+    fp8 pools). CUDA tensors launch the kernel; CPU tensors take the plain
+    version."""
     if q.device.type == "cpu":
         return paged_attention_v3_plain(
             q, k_pages, v_pages, block_tables, seq_lens,
@@ -166,24 +202,35 @@ def paged_decode_attention_v3(
         sinks = sinks.float().contiguous()
     check_attention_args(q, k_pages, v_pages, block_tables, seq_lens, sinks,
                          "paged_attention_v3")
+    if k_pages.ndim != 4:
+        raise ValueError("paged_attention_v3: pools must be one layer "
+                         "[num_pages, KH, page, D]")
     B, H, D = q.shape
     _, KH, page, _ = k_pages.shape
+    k_vals, k_scale = pool_parts(k_pages)
+    v_vals, v_scale = pool_parts(v_pages)
     out = torch.empty_like(q)
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     P = block_tables.shape[1]
     S, ws, tickets = split_buffers(q, KH, P)
     rc = load_library().dtt_paged_attention_v3(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        q.data_ptr(), k_vals.data_ptr(), v_vals.data_ptr(),
+        k_scale.data_ptr() if k_scale is not None else None,
+        v_scale.data_ptr() if v_scale is not None else None,
         block_tables.data_ptr(), seq_lens.data_ptr(),
         sinks.data_ptr() if sinks is not None else None, out.data_ptr(),
         ws.data_ptr(), tickets.data_ptr(), S,
         B, H, KH, D, page, P, window, scale,
-        dtype_code(q.dtype), stream_ptr(q),
+        dtype_code(q.dtype), pool_code(k_vals.dtype), stream_ptr(q),
     )
     check(rc, "paged_attention_v3")
     paged_decode_attention_v3.launches += 1
+    if k_scale is not None:
+        paged_decode_attention_v3.fp8_launches += 1
     return out
 
 
+# launches of the kernel, and of its fp8 form among them
 paged_decode_attention_v3.launches = 0
+paged_decode_attention_v3.fp8_launches = 0

@@ -1,6 +1,6 @@
 """Split-count sweep of the two attention kernels (needs one GPU).
 
-    python3 -m dynamo_tpu_torch.ops.cuda.sweep [--out PATH]
+    python3 -m dynamo_tpu_torch.ops.cuda.sweep [--out PATH] [--fp8]
 
 Times the public wrappers ``paged_decode_attention_v3`` and
 ``fused_decode_attention`` in bf16 (KH 8, G 4, D 128, page 16) at decode
@@ -10,7 +10,10 @@ shapes: the smoke's B=8 x seq_len 1..1024, one 8192-token sequence, B=8 x
 count ``num_splits`` picks; the read-only kernel also at the other split
 counts listed per case. Times are CUDA events around one call after an L2
 flush and a device sleep, mean of 20, as ``chip_smoke.py`` times them; a
-one-element ``add_`` timed the same way gives the floor.
+one-element ``add_`` timed the same way gives the floor. With ``--fp8``
+both kernels also run at each case's default split count on fp8 pools
+(e4m3 values with one bf16 scale per page and KV head), beside the bf16
+points at the same shapes.
 
 Only the wrappers' public arguments are used, so a copy of this file times
 an older tree of the package as well (one without ``num_splits`` at its
@@ -66,6 +69,18 @@ def inputs(B: int, P: int, seq_lens, seed: int = 0) -> dict:
             "dst_page": ints(bt[np.arange(B), pos // PAGE]), "dst_off": ints(pos % PAGE)}
 
 
+def fp8_pool(x: torch.Tensor, gen: torch.Generator):
+    """A pool of normal draws ``x [L, NP, KH, page, D]`` as an fp8
+    QuantPool that dequantizes to about ``x``: e4m3 values of 40 x the
+    draws (clipped to +-448), scales per (layer, page, head) uniform in
+    [0.5, 1.5] / 40 (bf16) from ``gen``."""
+    from dynamo_tpu_torch.ops.quant import FP8_DTYPE, SCALE_DTYPE, QuantPool
+
+    scale = (torch.rand(x.shape[:3], generator=gen, device=x.device) + 0.5) / 40
+    return QuantPool((40 * x.float()).clamp(-448, 448).to(FP8_DTYPE),
+                     scale.to(SCALE_DTYPE))
+
+
 def time_ms(fn, flush) -> float:
     fn()
     torch.cuda.synchronize()
@@ -86,6 +101,9 @@ def time_ms(fn, flush) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=str(build.BUILD_DIR / "sweep.json"))
+    ap.add_argument("--fp8", action="store_true",
+                    help="also time both kernels on fp8 pools at each case's "
+                         "default split count")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("sweep: needs a CUDA device")
@@ -98,7 +116,8 @@ def main() -> int:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     one = torch.zeros(1, device="cuda")
     floor = time_ms(lambda: one.add_(1), flush)
-    rows = [{"case": "empty op", "kernel": "torch add_", "S": None, "ms": floor}]
+    rows = [{"case": "empty op", "kernel": "torch add_", "S": None, "pool": None,
+             "ms": floor}]
     print(f"empty op (one-element add_): {floor:.4f} ms", flush=True)
     for case, (B, P, seq_lens, splits) in CASES.items():
         t = inputs(B, P, seq_lens)
@@ -123,9 +142,26 @@ def main() -> int:
                     pa.num_splits = plan
             S_run = S if S is not None else S0
             rows.append({"case": case, "kernel": name, "S": S_run,
-                         "default": S is None, "ms": ms})
+                         "default": S is None, "pool": "bf16", "ms": ms})
             label = "grid" if S_run is None else f"S {S_run:3d}{' *' if S is None else ''}"
-            print(f"{case:8s} {name:18s} {label:8s} {ms:.4f} ms", flush=True)
+            print(f"{case:8s} {name:18s} {label:8s} bf16 {ms:.4f} ms", flush=True)
+        if args.fp8:
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(1000)
+            f8 = {name: fp8_pool(t[name], gen) for name in ("k", "v")}
+            calls = {
+                "paged_attention_v3": lambda: pa.paged_decode_attention_v3(
+                    t["q"], f8["k"].layer(1), f8["v"].layer(1), t["bt"], t["sl"]),
+                "fused_decode": lambda: fused_decode.fused_decode_attention(
+                    t["q"], f8["k"], f8["v"], t["k_new"], t["v_new"], t["bt"],
+                    t["sl"], t["dst_page"], t["dst_off"], layer=1),
+            }
+            for name, call in calls.items():
+                ms = time_ms(call, flush)
+                rows.append({"case": case, "kernel": name, "S": S0, "default": True,
+                             "pool": "fp8", "ms": ms})
+                print(f"{case:8s} {name:18s} S {S0:3d} * fp8  {ms:.4f} ms", flush=True)
+            del f8
         del t, calls
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps({"card": card, "rows": rows}))

@@ -93,6 +93,36 @@ async def test_greedy_streams_match_jax_engine():
     assert teng.allocator.active_pages == 0
 
 
+async def test_fp8_greedy_streams_match_jax_engine(monkeypatch):
+    """kv_dtype="fp8" on both engines: identical greedy streams, the
+    prefix-sharing prompt included. The reference runs its Pallas decode
+    kernels (interpret mode), the route the port's kernels follow."""
+    monkeypatch.setenv("DYNAMO_PALLAS", "1")
+    jp, tp = _weights(seed=2)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 128, n).tolist() for n in (6, 13, 21, 9)]
+    prompts.append(prompts[2][:16] + [5, 9, 1])  # shares 4 pages with prompt 2
+    jeng = JaxEngine(JaxSpec(**SPEC_KW), JaxEngineConfig(**CFG_KW, kv_dtype="fp8"),
+                     params=jp)
+    teng = _engine(tp, kv_dtype="fp8")
+    assert teng.kv_dtype == "fp8" and teng.pool_bytes == sum(
+        p.vals.nbytes + p.scale.nbytes for p in (teng.k_pages, teng.v_pages))
+    # four concurrent streams, then the sharer once its prefix is sealed
+    want = await asyncio.gather(*(
+        _collect(jeng, _req(p, 8), JaxContext()) for p in prompts[:4]))
+    want.append(await _collect(jeng, _req(prompts[4], 8), JaxContext()))
+    got = await asyncio.gather(*(
+        _collect(teng, _req(p, 8), Context()) for p in prompts[:4]))
+    got.append(await _collect(teng, _req(prompts[4], 8), Context()))
+    await jeng.close()
+    await teng.close()
+    for w, g in zip(want, got):
+        assert _tokens(g) == _tokens(w)
+        assert len(_tokens(g)) == 8 and g[-1]["finish_reason"] == "length"
+    assert teng.cached_prompt_tokens == 16
+    assert teng.allocator.active_pages == 0
+
+
 async def test_prefix_cache_hit_reuses_sealed_pages():
     eng = _engine()
     prompt = list(range(10, 26))  # 16 tokens = 4 pages

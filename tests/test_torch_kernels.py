@@ -16,13 +16,16 @@ both.
 import functools
 
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
 
+from dynamo_tpu.ops import quant as jquant
 from dynamo_tpu.ops.pallas.fused_decode import fused_decode_attention as jax_fused
 from dynamo_tpu.ops.pallas.kv_write import kv_write_pallas
 from dynamo_tpu.ops.pallas.paged_attention_v3 import paged_decode_attention_v3 as jax_v3
+from dynamo_tpu_torch.ops import quant as tquant
 from dynamo_tpu_torch.ops.cuda import fused_decode, kv_write, paged_attention_v3
 
 pytestmark = pytest.mark.unit
@@ -395,3 +398,163 @@ def test_split_merge_arithmetic_matches_plain_and_pallas(fused, scenario, S):
     tol = TOL["float32"]
     np.testing.assert_allclose(_np(got), plain, rtol=tol, atol=tol)
     np.testing.assert_allclose(_np(got), pallas, rtol=tol, atol=tol)
+
+
+# ------------------------------------------------------------------
+# fp8 pools (QuantPool): e4m3 values with one bf16 scale per (layer, page,
+# KV head). The kernels' fp8 branches against the Pallas kernels'
+# quantized branches in interpret mode: outputs at the tolerances above,
+# the fused append's values and scales bitwise outside trash page 0.
+
+F8 = ml_dtypes.float8_e4m3fn
+
+
+def _fp8_pools_both(x, seed):
+    """x's K and V pools as fp8 QuantPools, the same bytes on both sides:
+    values ~N(0, 1) after dequant, scales per (layer, page, head)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name in ("k_pages", "v_pages"):
+        u8 = np.clip(40 * x[name], -448, 448).astype(F8).view(np.uint8)
+        scale = (rng.uniform(0.5, 1.5, x[name].shape[:3]) / 40).astype(np.float32)
+        s16 = scale.astype(ml_dtypes.bfloat16).view(np.uint16)
+        out[name] = _quant_pool_both(u8, s16)
+    return out
+
+
+def _quant_pool_both(u8: np.ndarray, s16: np.ndarray):
+    return (
+        jquant.QuantPool(jnp.asarray(u8.view(F8)),
+                         jnp.asarray(s16.view(ml_dtypes.bfloat16))),
+        tquant.QuantPool(torch.from_numpy(u8.copy()).view(torch.float8_e4m3fn),
+                         torch.from_numpy(s16.view(np.int16).copy()).view(torch.bfloat16)),
+    )
+
+
+def _pool_bytes(pool) -> tuple[np.ndarray, np.ndarray]:
+    """(value bytes, scale bits) of a QuantPool from either package."""
+    if isinstance(pool.vals, torch.Tensor):
+        return (pool.vals.view(torch.uint8).numpy(),
+                pool.scale.view(torch.int16).numpy().view(np.uint16))
+    return (np.asarray(pool.vals).view(np.uint8),
+            np.asarray(pool.scale).view(np.uint16))
+
+
+FP8_FUSED_CASES = {
+    # name: (input overrides, kernel options)
+    "multichunk": ({"P": 4, "seq_lens": (13, 1, 16, 5)}, {"chunk1": True}),
+    "window_sinks": ({"P": 4, "seq_lens": (15, 2, 16, 7)},
+                     {"window": 6, "sinks": True, "chunk1": True}),
+    "inactive_trash": ({}, {"inactive": 1}),
+    # every append at row 0 of a page whose last occupant left garbage and
+    # a stale scale of 64
+    "fresh_over_polluted": ({"seq_lens": (5, 9, 1, 9)}, {"polluted": True}),
+    # new rows far above what the pages' scales encode: the scales grow
+    "growth": ({}, {"growth": 60.0}),
+}
+
+
+@pytest.mark.parametrize("case,dtype", [
+    (c, dt) for c in sorted(FP8_FUSED_CASES) for dt in ("float32", "bfloat16")
+])
+def test_fused_decode_fp8_plain_matches_pallas(case, dtype):
+    over, opts = FP8_FUSED_CASES[case]
+    x = _decode_inputs(seed=200 + len(case), **over)
+    if opts.get("inactive") is not None:
+        i = opts["inactive"]
+        x["sl"][i], x["dst_page"][i], x["dst_off"][i] = 1, 0, 0
+    x["k_new"] *= opts.get("growth", 1.0)
+    x["v_new"] *= opts.get("growth", 1.0)
+    layer = 1
+    pools = _fp8_pools_both(x, seed=len(case))
+    if opts.get("polluted"):
+        for name in ("k_pages", "v_pages"):
+            u8, s16 = (a.copy() for a in _pool_bytes(pools[name][1]))
+            s16[layer, x["dst_page"]] = np.asarray(64.0, ml_dtypes.bfloat16).view(np.uint16)
+            pools[name] = _quant_pool_both(u8, s16)
+        assert (x["dst_off"] == 0).all()
+    j = {k: _both(v, dtype if v.dtype.kind == "f" else "")
+         for k, v in x.items() if k not in ("k_pages", "v_pages")}
+    sinks = x["sinks"] if opts.get("sinks") else None
+    window = opts.get("window", 0)
+    kp_t, vp_t = pools["k_pages"][1], pools["v_pages"][1]
+    got = fused_decode.fused_decode_attention(
+        j["q"][1], kp_t, vp_t, *(j[k][1] for k in ("k_new", "v_new", "bt", "sl",
+                                                   "dst_page", "dst_off")),
+        layer=layer, window=window,
+        sinks=torch.from_numpy(sinks) if sinks is not None else None,
+    )
+    want, want_k, want_v = jax_fused(
+        j["q"][0], pools["k_pages"][0], pools["v_pages"][0],
+        *(j[k][0] for k in ("k_new", "v_new", "bt", "sl", "dst_page", "dst_off")),
+        layer=layer, window=window,
+        sinks=jnp.asarray(sinks) if sinks is not None else None,
+        interpret=True, window_pages_override=1 if opts.get("chunk1") else None,
+    )
+    tol = TOL[dtype]
+    assert np.isfinite(_np(got)).all()
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+    for t_pool, j_pool in ((kp_t, want_k), (vp_t, want_v)):
+        (tv, ts), (jv, js) = _pool_bytes(t_pool), _pool_bytes(j_pool)
+        np.testing.assert_array_equal(tv[:, 1:], jv[:, 1:])
+        np.testing.assert_array_equal(ts[:, 1:], js[:, 1:])
+    live = x["dst_page"][x["dst_page"] > 0]
+    new_s = kp_t.scale[layer, live].float()
+    if opts.get("growth"):
+        old = _pool_bytes(_fp8_pools_both(x, seed=len(case))["k_pages"][1])[1]
+        old_s = torch.from_numpy(old.view(np.int16)).view(torch.bfloat16)[layer, live]
+        assert (new_s > old_s.float()).all()
+    if opts.get("polluted"):
+        assert (new_s < 1.0).all()
+
+
+FP8_V3_CASES = {
+    "gqa": ({}, {}),
+    "window_sinks": ({"seq_lens": (11, 3, 12, 8)}, {"window": 4, "sinks": True}),
+    "short_and_full": ({"seq_lens": (1, 12, 2, 11)}, {}),
+}
+
+
+@pytest.mark.parametrize("case,dtype", [
+    (c, dt) for c in sorted(FP8_V3_CASES) for dt in ("float32", "bfloat16")
+])
+def test_paged_attention_v3_fp8_plain_matches_pallas(case, dtype):
+    over, opts = FP8_V3_CASES[case]
+    x = _decode_inputs(seed=300 + len(case), **over)
+    layer = 1
+    pools = _fp8_pools_both(x, seed=len(case))
+    q = _both(x["q"], dtype)
+    bt, sl = _both(x["bt"], ""), _both(x["sl"], "")
+    window = opts.get("window", 0)
+    sinks = x["sinks"] if opts.get("sinks") else None
+    kp, vp = pools["k_pages"], pools["v_pages"]
+    got = paged_attention_v3.paged_decode_attention_v3(
+        q[1], kp[1].layer(layer), vp[1].layer(layer), bt[1], sl[1],
+        window=window, sinks=torch.from_numpy(sinks) if sinks is not None else None,
+    )
+    want = jax_v3(
+        q[0], kp[0].vals[layer], vp[0].vals[layer], bt[0], sl[0], window=window,
+        sinks=jnp.asarray(sinks) if sinks is not None else None, interpret=True,
+        k_scale=kp[0].scale[layer], v_scale=vp[0].scale[layer],
+    )
+    tol = TOL[dtype]
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+def test_kv_write_routes_fp8_pools_to_quant_append():
+    """The kv_write kernel has no fp8 branch (nor has the TPU kernel): an
+    fp8 pool takes quant_append_rows, the reference's own route, and the
+    kernel's launch count does not move."""
+    x = _decode_inputs(seed=17)
+    pools = _fp8_pools_both(x, seed=3)
+    kp, vp = pools["k_pages"][1], pools["v_pages"][1]
+    kp2, vp2 = (tquant.QuantPool(p.vals.clone(), p.scale.clone()) for p in (kp, vp))
+    args = [torch.from_numpy(x[k]) for k in ("k_new", "v_new", "dst_page", "dst_off")]
+    before = kv_write.kv_write.launches
+    kv_write.kv_write(kp, vp, *args, layer=1)
+    tquant.quant_append_rows(kp2, args[0], args[2], args[3], 1)
+    tquant.quant_append_rows(vp2, args[1], args[2], args[3], 1)
+    assert kv_write.kv_write.launches == before
+    for a, b in ((kp, kp2), (vp, vp2)):
+        for u, w in zip(_pool_bytes(a), _pool_bytes(b)):
+            np.testing.assert_array_equal(u, w)

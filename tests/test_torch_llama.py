@@ -235,3 +235,121 @@ def test_rope_spec_yarn_matches():
         want = jllama.rope_spec(jspec, jnp.asarray(x), jnp.asarray(pos))
         got = llama.rope_spec(tspec, torch.from_numpy(x), torch.from_numpy(pos))
         _close(got, want, atol=1e-5)
+
+
+# ------------------------------------------------------------------
+# fp8 KV pools (kv_dtype="fp8"): QuantPools on both sides. Logits at f32
+# within ATOL. The pools pass through matmuls and rope, whose sin / cos may
+# differ by an ulp, so they are held dequantized: every element within one
+# e4m3 step (at the larger of the two values and scales), and at least
+# 99.9% of the value bytes identical. One such flipped byte moves a later
+# step's logits by more than ATOL, so each decode step starts from the
+# reference's pool bytes.
+
+
+def _fp8_caches(tspec, jspec):
+    jk, jv = jllama.init_cache(jspec, NUM_PAGES, PAGE, kv_dtype="fp8")
+    tk, tv = llama.init_cache(tspec, NUM_PAGES, PAGE, device="cpu", kv_dtype="fp8")
+    return (jk, jv), (tk, tv)
+
+
+def _e4m3_step(mag: np.ndarray) -> np.ndarray:
+    """Gap between neighbouring e4m3 values at |x| (3 mantissa bits;
+    subnormal spacing 2^-9 below 2^-6)."""
+    e = np.floor(np.log2(np.maximum(mag, 2.0 ** -6)))
+    return 2.0 ** (e - 3)
+
+
+def _assert_fp8_pools_close(t_pools, j_pools, pages):
+    """Both pools (K and V) on ``pages``: each dequantized element within
+    one e4m3 step, and >= 99.9% of the value bytes identical."""
+    same = total = 0
+    for t_pool, j_pool in zip(t_pools, j_pools):
+        tv = t_pool.vals[:, pages].view(torch.uint8).numpy()
+        jv = np.asarray(j_pool.vals)[:, pages].view(np.uint8)
+        same, total = same + (tv == jv).sum(), total + tv.size
+        tq = t_pool.vals[:, pages].float().numpy()
+        jq = np.asarray(j_pool.vals[:, pages].astype(jnp.float32))
+        ts = t_pool.scale[:, pages].float().numpy()[..., None, None]
+        js = np.asarray(j_pool.scale[:, pages].astype(jnp.float32))[..., None, None]
+        step = _e4m3_step(np.maximum(np.abs(tq), np.abs(jq))) * np.maximum(ts, js)
+        diff = np.abs(tq * ts - jq * js)
+        assert (diff <= step + 1e-12).all(), float((diff / step).max())
+    assert same / total >= 0.999, (same, total)
+
+
+def _copy_fp8_pools(t_pools, j_pools):
+    """Overwrite the port's pools with the reference's bytes."""
+    for t_pool, j_pool in zip(t_pools, j_pools):
+        t_pool.vals.view(torch.uint8).copy_(
+            torch.from_numpy(np.asarray(j_pool.vals).view(np.uint8).copy()))
+        t_pool.scale.view(torch.int16).copy_(
+            torch.from_numpy(np.asarray(j_pool.scale).view(np.int16).copy()))
+
+
+def _fresh_jit(fn, spec):
+    """A jit of ``fn`` (with ``spec`` bound) that no earlier trace can
+    serve: the reference reads DYNAMO_PALLAS / DYNAMO_FUSED_DECODE while
+    tracing, and JAX caches traces per function object."""
+    return jax.jit(lambda *args: fn(spec, *args))
+
+
+@pytest.mark.parametrize("fused", ["1", "0"])
+def test_fp8_prefill_and_decode_match(fused, monkeypatch):
+    """Packed prefill (one prompt behind a cached page, one padded row)
+    then two decode steps over fp8 pools, through the fused path and
+    through the unfused pair. The port follows the reference's Pallas
+    routes, so the reference runs with DYNAMO_PALLAS=1 (interpret mode):
+    the fused kernel reads the destination page before its requantizing
+    append, and the unfused pair appends, then v3 reads the new row back at
+    fp8. (Its XLA route appends first and overlays the exact row: when a
+    scale grows, the older rows of that page read requantized.)"""
+    tspec, jspec, jp, tp = _models(seed=6)
+    (jk, jv), (tk, tv) = _fp8_caches(tspec, jspec)
+    N, T = 4, 8
+    lens, starts = [5, 8, 3, 0], [0, 0, 4, 0]
+    bts = np.zeros((N, P), np.int32)
+    bts[0, :2] = [1, 2]
+    bts[1, :3] = [3, 4, 5]
+    bts[2, :2] = [6, 7]
+    rng = np.random.default_rng(2)
+    tokens = np.zeros((N, T), np.int32)
+    for i, n in enumerate(lens):
+        tokens[i, :n] = rng.integers(0, 97, n)
+    # the cached page of prompt 2 comes from an earlier prefill
+    cached = np.zeros((1, T), np.int32)
+    cached[0, :4] = rng.integers(0, 97, 4)
+    args = (np.asarray([0], np.int32), [4])
+    _, jk, jv, _ = jllama.prefill_forward_batch(
+        jspec, jp, jnp.asarray(cached), jnp.asarray(bts[2:3]),
+        jnp.asarray(args[0]), jk, jv, jnp.asarray(args[1], jnp.int32))
+    llama.prefill_forward_batch(tspec, tp, torch.from_numpy(cached),
+                                torch.from_numpy(bts[2:3]), torch.tensor([0]),
+                                tk, tv, torch.tensor([4]))
+    want, jk, jv, _ = jllama.prefill_forward_batch(
+        jspec, jp, jnp.asarray(tokens), jnp.asarray(bts),
+        jnp.asarray(starts, jnp.int32), jk, jv, jnp.asarray(lens, jnp.int32))
+    got = llama.prefill_forward_batch(
+        tspec, tp, torch.from_numpy(tokens), torch.from_numpy(bts),
+        torch.tensor(starts), tk, tv, torch.tensor(lens))
+    _close(got[:3], np.asarray(want)[:3])
+    live = list(range(1, 8))
+    _assert_fp8_pools_close((tk, tv), (jk, jv), live)
+
+    monkeypatch.setenv("DYNAMO_FUSED_DECODE", fused)
+    monkeypatch.setenv("DYNAMO_PALLAS", "1")
+    decode = _fresh_jit(jllama.decode_forward_impl, jspec)
+    active = np.asarray([True, True, True, False])
+    seq = np.asarray([6, 9, 8, 1], np.int32)
+    toks = np.asarray([11, 12, 13, 0], np.int32)
+    for _ in range(2):
+        _copy_fp8_pools((tk, tv), (jk, jv))
+        want, jk, jv = decode(jp, jnp.asarray(toks), jnp.asarray(bts),
+                              jnp.asarray(seq), jk, jv, jnp.asarray(active))
+        got = llama.decode_forward(tspec, tp, torch.from_numpy(toks),
+                                   torch.from_numpy(bts), torch.from_numpy(seq),
+                                   tk, tv, torch.from_numpy(active))
+        _close(got[active], np.asarray(want)[active])
+        _assert_fp8_pools_close((tk, tv), (jk, jv), live)
+        toks = np.asarray(want).argmax(-1).astype(np.int32)
+        seq = seq + active
