@@ -28,17 +28,35 @@ Phases, each of which must pass (any failure exits non-zero):
    pools: each replay must equal the first eager launch (nothing syncs with
    the host, and the graph keeps its own split tickets);
 4. serve: InferenceEngine(ModelSpec.llama3_8b()) at full width and depth
-   with random bf16 weights from a seeded generator serves 8 concurrent
-   greedy requests (prompts of 64..512 tokens, two sharing a 256-token
-   prefix, 32 tokens each) through generate(); every request must end with
-   "length" after exactly 32 tokens, the second sharer must hit the prefix
-   cache, the fused kernel must launch exactly 32 times per decode step,
-   and one stream's tokens must be near-argmax under the unpaged
-   reference forward;
-5. unfused: one decode_forward with DYNAMO_FUSED_DECODE=0 against the fused
+   with random bf16 weights from a seeded generator, its decode graphs
+   captured first (precompile), serves through generate(), on one event
+   loop, with the kernel counts zeroed before each serve and read after:
+   (a) default: 8 concurrent greedy requests (prompts of 64..512 tokens,
+   two sharing a 256-token prefix, 32 tokens each); every request must end
+   with "length" after exactly 32 tokens, the second sharer must hit the
+   prefix cache, the fused kernel must launch exactly 32 times per decode
+   step (graph replays included), and one stream's tokens must be
+   near-argmax under the unpaged reference forward; (b) chunked: one
+   greedy request with a 990-token prompt (two 512-token prefill chunks),
+   near-argmax as (a); (c) logprobs: two identical requests with
+   logprobs=5, temperature 0.8 and a seed, whose streams must be equal,
+   with 5 ordered top entries per token and logprobs within LOGPROB_TOL of
+   the reference forward's;
+5. step graphs: the engine's one-step function captured in a CUDA graph
+   (DecodeGraphs, greedy and sampled-with-logprobs variants) and replayed
+   for a 4-step burst against eager decode_steps on copies of the same
+   pools: tokens and logprobs identical, pools bitwise equal, 32 kernel
+   launches per replay; once more with DYNAMO_FUSED_DECODE=0 (kv_write +
+   paged_attention_v3 captured); host wall of a B=8 step, eager against
+   graph, and one graph step traced (wall, device busy, idle share);
+6. unfused: one decode_forward with DYNAMO_FUSED_DECODE=0 against the fused
    path on the same pool state; logits agree within the stated tolerance
-   and paged_attention_v3 and kv_write each launch 32 times;
-6. fp8 (kv_dtype="fp8": e4m3 pools with one bf16 scale per page and KV
+   and paged_attention_v3 and kv_write each launch 32 times; one eager
+   decode_forward traced;
+7. pipelined: a second bf16 engine on the same weights (the first one's
+   graphs and pools freed first) with pipeline_decode=True, depth 2 and
+   decode_steps_per_dispatch=4 serves (a)'s requests with (a)'s checks;
+8. fp8 (kv_dtype="fp8": e4m3 pools with one bf16 scale per page and KV
    head): phase 3's checks for the fp8 branches of both attention kernels
    at the same shapes and cases (queries in f32 and in bf16), plus new rows
    with 3x the amax their destination page's scale encodes (every scale
@@ -50,7 +68,8 @@ Phases, each of which must pass (any failure exits non-zero):
    call in a CUDA graph; a second engine with kv_dtype="fp8" on the bf16
    engine's weights (its pools freed first) serves the same 8 requests
    (32 fp8 fused launches per decode step, the prefix hit, one stream
-   near-argmax under the reference); phase 5 on the fp8
+   near-argmax under the reference); phase 5's fused step graphs on the
+   fp8 pools (values and scales bitwise); phase 6 on the fp8
    pools, where paged_attention_v3 launches 32 times in its fp8 form and
    the kv_write kernel never (fp8 appends are quant_append_rows, as in the
    reference).
@@ -112,7 +131,13 @@ NEAR_ARGMAX = 0.5
 # weights
 LOGIT_REL_TOL_FP8 = 5e-2
 STALE_SCALE = 64.0  # a recycled page's leftover scale (fresh-page case)
+# served logprobs vs the unpaged reference forward's log-softmax at the
+# same ids: the bound NEAR_ARGMAX puts on a logit gap
+LOGPROB_TOL = 0.5
 SERVE_TOKENS = 32
+CHUNKED_PROMPT = 990  # tokens: prefill chunks of 512 + 478, under the 1024 context
+GRAPH_STEPS = 4  # burst of the step-graph check
+LOGPROBS = 5
 REPS = 20
 SLEEP_CYCLES = 5_000_000  # ~2.5 ms of device time at the H100's clock
 
@@ -686,8 +711,9 @@ def near_argmax_check(spec, params, prompt, tokens) -> tuple[float, float]:
 
 def profile_decode_step(step, form: str) -> None:
     """One traced decode step (B=8, fused path): wall time, device-busy
-    time (sum of kernel self times), idle share, the fused kernel's device
-    time and the top kernels."""
+    time (sum of kernel self times, kernels replayed from a CUDA graph
+    included), idle share, the fused kernel's device time and the top
+    kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     step()
@@ -707,12 +733,165 @@ def profile_decode_step(step, form: str) -> None:
                if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
     busy = sum(dev_us(e) for e in kernels)
     attn = [e for e in kernels if "decode_attention_kernel" in e.key]
-    print(f"profile {form} decode step: wall {wall * 1e3:.2f} ms, device busy "
+    if not busy:
+        print(f"profile {form}: wall {wall * 1e3:.2f} ms; device busy not measured "
+              "(the trace holds no device kernels)")
+        return
+    print(f"profile {form}: wall {wall * 1e3:.2f} ms, device busy "
           f"{busy / 1e3:.2f} ms, idle share {max(0.0, 1 - busy / 1e6 / wall):.3f}, "
           f"fused_decode {sum(dev_us(e) for e in attn) / 1e3:.3f} ms over "
           f"{sum(e.count for e in attn)} launches")
     for e in sorted(kernels, key=dev_us, reverse=True)[:10]:
         print(f"  {dev_us(e) / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
+
+
+def prefill_slots(engine, prompts, room: int = 1):
+    """Prefill ``prompts`` into fresh pages of the engine's pools (one
+    packed prefill, beside the engine); returns host arrays: block tables
+    [B, P] with page room for ``room`` decode tokens, the first tokens
+    (argmax) [B] and seq_lens [B] counting them, int32."""
+    from dynamo_tpu_torch.models import llama
+
+    spec, cfg = engine.spec, engine.config
+    B = len(prompts)
+    bts = np.zeros((B, cfg.max_pages_per_seq), np.int32)
+    for i, p in enumerate(prompts):
+        for j in range((len(p) + room - 1) // cfg.page_size + 1):
+            bts[i, j] = engine.allocator.alloc_page()
+    tokens = np.zeros((B, cfg.bucket_for(max(len(p) for p in prompts))), np.int32)
+    for i, p in enumerate(prompts):
+        tokens[i, : len(p)] = p
+    lens = torch.tensor([len(p) for p in prompts])
+    with torch.no_grad():
+        logits = llama.prefill_forward_batch(
+            spec, engine.params, torch.from_numpy(tokens).to(DEVICE),
+            torch.from_numpy(bts).to(DEVICE), torch.zeros(B, dtype=torch.int64),
+            engine.k_pages, engine.v_pages, lens)
+    first = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
+    return bts, first, (lens + 1).to(torch.int32).numpy()
+
+
+def host_ms(fn, reps: int = 10) -> float:
+    """Mean host wall time of ``fn()`` up to the device's completion."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def step_graph_check(engine, prompts, unfused: bool = False) -> None:
+    """The engine's one-step function captured in a CUDA graph
+    (engine/graphs.DecodeGraphs) against eager decode_steps, on copies of
+    the same pools after a prefill of ``prompts``: a GRAPH_STEPS burst in
+    the greedy variant and in the sampled variant with logprobs (half the
+    rows at temperature 0.8, with top-k / top-p on some). Tokens and
+    logprobs must be identical and the pools bitwise equal outside page 0;
+    each replay must run one attention launch per layer (unfused: v3 and
+    kv_write each). Then, fused, the host wall of one B=8 step of each
+    variant, eager against graph, and one traced greedy graph step."""
+    from dynamo_tpu_torch.engine.graphs import DecodeGraphs
+    from dynamo_tpu_torch.models import llama
+
+    spec, cfg = engine.spec, engine.config
+    form = engine.kv_dtype + (" unfused" if unfused else "")
+    L, B, n = spec.num_layers, len(prompts), GRAPH_STEPS
+    n_lp = min(20, spec.vocab_size - 1)
+    bts, first, seq_lens = prefill_slots(engine, prompts, room=n)
+    half = B // 2
+    inputs = {
+        "tokens": first, "block_tables": bts, "seq_lens": seq_lens,
+        "active": np.ones(B, bool),
+        "temperature": np.asarray([0.0] * half + [0.8] * (B - half), np.float32),
+        "top_k": np.asarray([0] * (B - 2) + [40, 0], np.int32),
+        "top_p": np.asarray([1.0] * (B - 1) + [0.9], np.float32),
+        "seeds": (np.arange(B, dtype=np.uint32) * 7919 + 11).astype(np.uint32),
+        "steps": np.zeros(B, np.int32),
+    }
+    if unfused:
+        os.environ["DYNAMO_FUSED_DECODE"] = "0"
+    want_counts = ({"paged_attention_v3": L * n, "kv_write": L * n} if unfused
+                   else {"fused_decode": L * n})
+    try:
+        for sampled, lp_width in ((False, 0), (True, n_lp)):
+            inp = dict(inputs, temperature=inputs["temperature"] * sampled)
+            eager_pools = (clone_pool(engine.k_pages), clone_pool(engine.v_pages))
+            graph_pools = (clone_pool(engine.k_pages), clone_pool(engine.v_pages))
+            with torch.no_grad():
+                want = llama.decode_steps(
+                    spec, engine.params, *(torch.from_numpy(inp[k]) for k in
+                                           ("tokens", "block_tables", "seq_lens")),
+                    *eager_pools, torch.from_numpy(inp["active"]),
+                    *(torch.from_numpy(inp[k]) for k in ("temperature", "top_k", "top_p")),
+                    torch.from_numpy(inp["seeds"].astype(np.int64)),
+                    torch.from_numpy(inp["steps"]), n_steps=n, n_logprobs=lp_width)
+            want = [x.cpu().numpy() for x in (want if lp_width else (want,))]
+
+            def step(t, s, k, pools=graph_pools):
+                llama.decode_step_(spec, engine.params, *pools, t, sampled=s, n_logprobs=k)
+
+            runner = DecodeGraphs(step, batch=B, pages_per_seq=cfg.max_pages_per_seq,
+                                  max_steps=n, n_logprobs=n_lp, device=torch.device(DEVICE))
+            with torch.no_grad():
+                runner.precompile([(sampled, lp_width)])
+                zero_counts()
+                got = runner.dispatch(inp, n, sampled=sampled, n_logprobs=lp_width).result()
+            counts = {k: v for k, v in read_counts().items() if v}
+            variant = f"{'sampled' if sampled else 'greedy'}, n_logprobs {lp_width}"
+            require(counts == {**want_counts, **({"fused_decode/fp8": L * n} if not unfused
+                                                 and engine.kv_dtype == "fp8" else {})},
+                    f"graph {form} ({variant}): launches {counts} over {n} replays")
+            require(np.array_equal(got[0], first), f"graph {form}: fed column differs")
+            tok_ok = np.array_equal(got[1], want[0])
+            lp_diff = max((float(np.abs(a.astype(np.float64) - b).max())
+                           for a, b in zip(got[2::2], want[1::2])), default=0.0)
+            ids_ok = lp_width == 0 or np.array_equal(got[3], want[2])
+            pools_ok = (pools_equal(graph_pools[0], eager_pools[0])
+                        and pools_equal(graph_pools[1], eager_pools[1]))
+            print(f"graph {form} ({variant}): {n} replays vs eager decode_steps: tokens "
+                  f"{'identical' if tok_ok else 'DIFFER'}, logprobs max |diff| {lp_diff:.3e}, "
+                  f"top ids {'identical' if ids_ok else 'DIFFER'}, pools "
+                  f"{'bitwise equal' if pools_ok else 'DIFFER'}; launches {counts}")
+            require(tok_ok and ids_ok and lp_diff == 0.0 and pools_ok,
+                    f"graph {form} ({variant}) differs from eager decode_steps")
+            if not unfused:
+
+                def graph_step():
+                    return runner.dispatch(inp, 1, sampled=sampled,
+                                           n_logprobs=lp_width).result()
+
+                def eager_step():
+                    with torch.no_grad():
+                        out = llama.decode_steps(
+                            spec, engine.params, *(torch.from_numpy(inp[k]) for k in
+                                                   ("tokens", "block_tables", "seq_lens")),
+                            *eager_pools, torch.from_numpy(inp["active"]),
+                            *(torch.from_numpy(inp[k]) for k in
+                              ("temperature", "top_k", "top_p")),
+                            torch.from_numpy(inp["seeds"].astype(np.int64)),
+                            torch.from_numpy(inp["steps"]), n_steps=1, n_logprobs=lp_width)
+                        return [x.cpu() for x in (out if lp_width else (out,))]
+
+                e_ms, g_ms = host_ms(eager_step), host_ms(graph_step)
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                torch.cuda.synchronize()
+                start.record()
+                burst = runner.dispatch(inp, 1, sampled=sampled, n_logprobs=lp_width)
+                end.record()
+                burst.result()
+                print(f"step {engine.kv_dtype} B={B} ({variant}): host wall eager decode_steps "
+                      f"{e_ms:.2f} ms, graph replay {g_ms:.2f} ms ({e_ms / g_ms:.1f}x); "
+                      f"graph step device span {start.elapsed_time(end):.3f} ms")
+                if not sampled:
+                    profile_decode_step(graph_step, f"{engine.kv_dtype} graph step")
+            runner.release()
+            del eager_pools, graph_pools, runner
+            torch.cuda.empty_cache()
+    finally:
+        os.environ.pop("DYNAMO_FUSED_DECODE", None)
 
 
 def unfused_check(engine, prompts):
@@ -726,31 +905,20 @@ def unfused_check(engine, prompts):
     from dynamo_tpu_torch.models import llama
     from dynamo_tpu_torch.ops.cuda import fused_decode, kv_write, paged_attention_v3
 
-    spec, cfg = engine.spec, engine.config
+    spec = engine.spec
     fp8 = engine.kv_dtype == "fp8"
     B = len(prompts)
-    bts = np.zeros((B, cfg.max_pages_per_seq), np.int32)
-    for i, p in enumerate(prompts):
-        for j in range(len(p) // cfg.page_size + 1):
-            bts[i, j] = engine.allocator.alloc_page()
-    T = cfg.bucket_for(max(len(p) for p in prompts))
-    tokens = np.zeros((B, T), np.int32)
-    for i, p in enumerate(prompts):
-        tokens[i, : len(p)] = p
-    lens = torch.tensor([len(p) for p in prompts])
+    bts, first, lens = prefill_slots(engine, prompts)
     bts_d = torch.from_numpy(bts).to(DEVICE)
+    nxt = torch.from_numpy(first).to(DEVICE)
+    seq_lens = torch.from_numpy(lens).to(DEVICE)
     fused_fn = fused_decode.fused_decode_attention
     v3_fn = paged_attention_v3.paged_decode_attention_v3
     with torch.no_grad():
-        logits = llama.prefill_forward_batch(
-            spec, engine.params, torch.from_numpy(tokens).to(DEVICE), bts_d,
-            torch.zeros(B, dtype=torch.int64), engine.k_pages, engine.v_pages, lens)
-        nxt = logits.argmax(dim=-1).to(torch.int32)
-        seq_lens = (lens + 1).to(torch.int32).to(DEVICE)
         active = torch.ones(B, dtype=torch.bool, device=DEVICE)
         profile_decode_step(lambda: llama.decode_forward(
             spec, engine.params, nxt, bts_d, seq_lens, engine.k_pages,
-            engine.v_pages, active), engine.kv_dtype)
+            engine.v_pages, active), f"{engine.kv_dtype} eager decode_forward")
         out = {}
         for mode in ("1", "0"):
             os.environ["DYNAMO_FUSED_DECODE"] = mode
@@ -784,35 +952,158 @@ def unfused_check(engine, prompts):
     return out["0_launches"][2:]
 
 
-def serve_phase(engine, prompts, bf16_tokens=None):
-    """Drive the serving path with the kernel counts zeroed just before and
-    read just after; check the streams, the prefix-cache hit, the launch
-    counts (all in fp8 form for an fp8 engine) and one stream against the
-    reference forward. Returns (launches, served tokens per request); with
-    ``bf16_tokens`` also prints the share of tokens equal to them."""
+def zero_counts() -> None:
+    from dynamo_tpu_torch.ops.cuda import fused_decode, kv_write, paged_attention_v3  # noqa: F401
+    from dynamo_tpu_torch.ops.cuda.build import KERNELS
+
+    for fn in KERNELS:
+        fn.launches = fn.fp8_launches = 0
+
+
+def read_counts() -> dict[str, int]:
+    """Kernels run since zero_counts(), graph replays included."""
     from dynamo_tpu_torch.ops.cuda import fused_decode, kv_write, paged_attention_v3
 
-    spec = engine.spec
-    fp8 = engine.kv_dtype == "fp8"
-    fused_fn = fused_decode.fused_decode_attention
-    v3_fn = paged_attention_v3.paged_decode_attention_v3
+    f = fused_decode.fused_decode_attention
+    v3 = paged_attention_v3.paged_decode_attention_v3
+    return {"fused_decode": f.launches, "fused_decode/fp8": f.fp8_launches,
+            "paged_attention_v3": v3.launches, "paged_attention_v3/fp8": v3.fp8_launches,
+            "kv_write": kv_write.kv_write.launches}
+
+
+def serve_phases(engine, phases):
+    """Drive ``phases`` [(name, async fn(engine))] on one event loop (the
+    engine's step thread posts to the loop that started it), the kernel
+    counts zeroed just before each and read just after; closes the engine.
+    Returns {name: {"res": fn's result, "counts": kernel launches, and the
+    phase's model "steps", decode dispatch "times", graph "replays",
+    eager "readmits" and prefill "chunks"}}."""
+
+    def marks():
+        return {"steps": engine.steps, "replays": engine._graphs.replays,
+                "readmits": engine.eager_readmits, "chunks": engine.prefill_chunks}
 
     async def drive():
+        out = {}
         try:
-            return await serve(engine, prompts)
+            for name, fn in phases:
+                before, n0 = marks(), len(engine.decode_step_times)
+                zero_counts()
+                res = await fn(engine)
+                counts = read_counts()
+                out[name] = {"res": res, "counts": counts,
+                             "times": list(engine.decode_step_times)[n0:],
+                             **{k: v - before[k] for k, v in marks().items()}}
         finally:
             await engine.close()
+        return out
 
-    for fn in (fused_fn, v3_fn):
-        fn.launches = fn.fp8_launches = 0
-    kv_write.kv_write.launches = 0
-    steps0 = engine.steps
-    results, ttft, wall, hit = asyncio.run(drive())
-    serve_launches = {"fused_decode": fused_fn.launches,
-                      "fused_decode/fp8": fused_fn.fp8_launches,
-                      "paged_attention_v3": v3_fn.launches,
-                      "kv_write": kv_write.kv_write.launches}
-    steps = engine.steps - steps0
+    return asyncio.run(drive())
+
+
+def precompile(engine, label: str) -> None:
+    t0 = time.perf_counter()
+    engine.precompile()
+    torch.cuda.synchronize()
+    print(f"precompile {label}: {len(engine._graphs._graphs)} decode graph variants "
+          f"captured in {time.perf_counter() - t0:.2f} s")
+
+
+async def requests(engine, reqs):
+    """Run ``reqs`` concurrently; returns (items per request, TTFT per
+    request, wall seconds)."""
+    from dynamo_tpu_torch.runtime.context import Context
+
+    t0 = time.perf_counter()
+
+    async def one(req):
+        items, first = [], None
+        async for item in engine.generate(req, Context()):
+            if item["token_ids"] and first is None:
+                first = time.perf_counter() - t0
+            items.append(item)
+        return items, first
+
+    out = await asyncio.gather(*(one(r) for r in reqs))
+    return [o[0] for o in out], [o[1] for o in out], time.perf_counter() - t0
+
+
+def make_request(prompt, n=SERVE_TOKENS, **extra):
+    """A request for ``n`` tokens, greedy unless ``extra`` sets sampling."""
+    return {"token_ids": prompt, "sampling": {"temperature": 0.0},
+            "stop_conditions": {"max_tokens": n, "ignore_eos": True}, **extra}
+
+
+def chunked_check(engine, prompt, out) -> None:
+    """The long prompt prefilled in chunks and streamed its 32 tokens,
+    near-argmax under the reference forward."""
+    (items, ttft, wall), counts, steps = out["res"], out["counts"], out["steps"]
+    toks = [t for x in items[0] for t in x["token_ids"]]
+    require(items[0][-1]["finish_reason"] == "length" and len(toks) == SERVE_TOKENS,
+            f"chunked request: {len(toks)} tokens, finish {items[0][-1]['finish_reason']}")
+    require(out["chunks"] == 2, f"chunked request ran {out['chunks']} prefill chunks")
+    require(counts["fused_decode"] == engine.spec.num_layers * steps == out["replays"]
+            * engine.spec.num_layers,
+            f"chunked serve: fused_decode {counts['fused_decode']} over {steps} steps")
+    agree, gap = near_argmax_check(engine.spec, engine.params, prompt, toks)
+    print(f"serve chunked {engine.kv_dtype}: {len(prompt)}-token prompt in "
+          f"{out['chunks']} prefill chunks of <= "
+          f"{engine.config.max_prefill_chunk_tokens}, TTFT {1e3 * ttft[0]:.1f} ms, "
+          f"{SERVE_TOKENS} tokens in {wall:.3f} s; reference exact greedy agreement "
+          f"{agree:.3f}, worst gap {gap:.3f} (tol {NEAR_ARGMAX})")
+
+
+def logprob_check(engine, prompt, out) -> None:
+    """Two identical seeded temperature-0.8 requests with logprobs: equal
+    streams, LOGPROBS ordered top entries per token, and every served
+    logprob within LOGPROB_TOL of the reference forward's log-softmax."""
+    from dynamo_tpu_torch.models import llama
+
+    (items, ttft, wall), counts, steps = out["res"], out["counts"], out["steps"]
+    streams = [[t for x in it for t in x["token_ids"]] for it in items]
+    entries = [e for x in items[0] for e in x.get("logprobs") or ()]
+    toks = streams[0]
+    require(all(it[-1]["finish_reason"] == "length" for it in items)
+            and len(toks) == SERVE_TOKENS, "logprob requests did not finish by length")
+    require(streams[0] == streams[1], "identical seeded requests streamed different tokens")
+    require(len(entries) == SERVE_TOKENS and all(len(e["top"]) == LOGPROBS for e in entries),
+            f"logprob entries: {len(entries)} for {SERVE_TOKENS} tokens")
+    require([e["id"] for e in entries] == toks, "logprob entry ids differ from the tokens")
+    for e in entries:
+        tops = [t["logprob"] for t in e["top"]]
+        require(all(np.isfinite(tops)) and tops == sorted(tops, reverse=True)
+                and e["logprob"] <= tops[0] + 1e-6 and tops[0] <= 0.0,
+                f"bad logprob entry {e}")
+    require(counts["fused_decode"] == engine.spec.num_layers * steps == out["replays"]
+            * engine.spec.num_layers,
+            f"logprob serve: fused_decode {counts['fused_decode']} over {steps} steps")
+    seq = torch.tensor(prompt + toks[:-1], device=DEVICE)
+    with torch.no_grad():
+        ref = torch.log_softmax(
+            llama.reference_forward(engine.spec, engine.params, seq)[len(prompt) - 1:], -1)
+    ids = torch.tensor([[e["id"]] + [t["id"] for t in e["top"]] for e in entries],
+                       device=DEVICE)
+    got = torch.tensor([[e["logprob"]] + [t["logprob"] for t in e["top"]] for e in entries],
+                       device=DEVICE)
+    diff = (ref.gather(1, ids) - got).abs().max().item()
+    off_argmax = sum(e["id"] != e["top"][0]["id"] for e in entries)
+    require(diff <= LOGPROB_TOL, f"served logprobs {diff:.3f} from the reference")
+    print(f"serve logprobs {engine.kv_dtype}: 2 x {SERVE_TOKENS} tokens (logprobs={LOGPROBS}, "
+          f"temperature 0.8, seed) in {wall:.3f} s, streams equal, {off_argmax} of "
+          f"{SERVE_TOKENS} tokens off the top entry; max |logprob - reference| {diff:.4f} "
+          f"(tol {LOGPROB_TOL})")
+
+
+def serve_check(engine, prompts, out, label, bf16_tokens=None):
+    """Check a serve of ``prompts``: the streams, the prefix-cache hit, the
+    launch counts (all in fp8 form for an fp8 engine) and one stream
+    against the reference forward. Returns (launches, served tokens per
+    request); with ``bf16_tokens`` also prints the share of tokens equal
+    to them."""
+    results, ttft, wall, hit = out["res"]
+    serve_launches, steps, times = out["counts"], out["steps"], out["times"]
+    spec = engine.spec
+    fp8 = engine.kv_dtype == "fp8"
     tokens = {}
     for i, items in results.items():
         toks = [t for x in items for t in x["token_ids"]]
@@ -829,25 +1120,55 @@ def serve_phase(engine, prompts, bf16_tokens=None):
             f"on a {engine.kv_dtype} engine")
     require(serve_launches["kv_write"] == 0 and serve_launches["paged_attention_v3"] == 0,
             "the fused serving path launched the unfused kernels")
+    require(out["replays"] == steps,
+            f"{out['replays']} graph replays for {steps} decode steps")
     n_out = sum(len(v) for v in tokens.values())
-    step_ms = 1e3 * sum(engine.decode_step_times) / max(len(engine.decode_step_times), 1)
-    print(f"serve {engine.kv_dtype}: {len(results)} requests, {n_out} tokens in {wall:.3f} s = "
+    disp_ms = 1e3 * sum(times) / max(len(times), 1)
+    print(f"serve {label}: {len(results)} requests, {n_out} tokens in {wall:.3f} s = "
           f"{n_out / wall:.1f} tok/s; TTFT mean "
           f"{1e3 * sum(ttft.values()) / len(ttft):.1f} ms, max "
-          f"{1e3 * max(ttft.values()):.1f} ms; decode step mean {step_ms:.2f} ms over "
-          f"{steps} steps; prefix-cache hit {hit} tokens; fused_decode launches "
+          f"{1e3 * max(ttft.values()):.1f} ms; decode dispatch-to-host mean {disp_ms:.2f} ms "
+          f"over {len(times)} dispatches of {steps} steps ({1e3 * wall / steps:.2f} ms of "
+          f"wall per step); prefix-cache hit {hit} tokens; fused_decode launches "
           f"{serve_launches['fused_decode']} = {spec.num_layers} x {steps} "
-          f"({serve_launches['fused_decode/fp8']} in fp8 form); KV pools "
+          f"({serve_launches['fused_decode/fp8']} in fp8 form); graph replays "
+          f"{out['replays']}; eager re-admissions {out['readmits']}; KV pools "
           f"{engine.pool_bytes} bytes ({engine.pool_bytes / 1e9:.3f} GB)")
     if bf16_tokens is not None:
         same = sum(a == b for i in tokens for a, b in zip(tokens[i], bf16_tokens[i]))
-        print(f"serve {engine.kv_dtype}: {same / n_out:.4f} of the tokens equal to the "
-              f"bf16 serve's ({same} of {n_out})")
+        print(f"serve {label}: {same / n_out:.4f} of the tokens equal to the "
+              f"default bf16 serve's ({same} of {n_out})")
     longest = max(range(len(prompts)), key=lambda i: len(prompts[i]))
     agree, gap = near_argmax_check(spec, engine.params, prompts[longest], tokens[longest])
-    print(f"reference {engine.kv_dtype}: request {longest} exact greedy agreement "
+    print(f"reference {label}: request {longest} exact greedy agreement "
           f"{agree:.3f}, worst gap to the reference max {gap:.3f} (tol {NEAR_ARGMAX})")
     return serve_launches, tokens
+
+
+def new_engine(spec, cfg, label, params=None):
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.core import InferenceEngine
+
+    t0 = time.perf_counter()
+    engine = InferenceEngine(spec, EngineConfig(**cfg), params=params, device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in engine.params.parameters())
+    print(f"engine {label}: {spec.name} {n_params / 1e9:.2f}B params, KV pools "
+          f"{engine.pool_bytes / 1e9:.3f} GB, {torch.cuda.memory_allocated() / 2**30:.1f} GiB "
+          f"allocated, init {time.perf_counter() - t0:.1f} s")
+    precompile(engine, label)
+    return engine
+
+
+def drop_engine(engine):
+    """Free an engine's pools, its graphs first (they point at the pools);
+    returns its weights."""
+    params = engine.params
+    engine.release_graphs()
+    engine.k_pages = engine.v_pages = None
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return params
 
 
 def main() -> int:
@@ -860,8 +1181,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from dynamo_tpu_torch.engine.config import EngineConfig, ModelSpec
-    from dynamo_tpu_torch.engine.core import InferenceEngine
+    from dynamo_tpu_torch.engine.config import ModelSpec
     from dynamo_tpu_torch.ops.cuda import build
 
     t_start = time.perf_counter()
@@ -881,31 +1201,47 @@ def main() -> int:
 
     spec = ModelSpec.llama3_8b()
     cfg = dict(page_size=16, num_pages=2048, max_pages_per_seq=64, max_decode_slots=8)
-    t0 = time.perf_counter()
-    engine = InferenceEngine(spec, EngineConfig(**cfg, kv_dtype="bf16"), device=DEVICE)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in engine.params.parameters())
-    print(f"engine: {spec.name} {n_params / 1e9:.2f}B params, "
-          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated, "
-          f"init {time.perf_counter() - t0:.1f} s")
     prompts = make_prompts(spec.vocab_size)
-    serve_launches, bf16_tokens = serve_phase(engine, prompts)
-    unfused = unfused_check(engine, prompts)
+    rng = np.random.default_rng(99)
+    long_prompt = rng.integers(3, spec.vocab_size, CHUNKED_PROMPT).tolist()
+    lp_req = make_request(prompts[2], sampling={"temperature": 0.8, "seed": 2024},
+                            output_options={"logprobs": LOGPROBS})
 
-    # the same weights behind an fp8 KV cache; the bf16 pools go first
-    params = engine.params
-    engine.k_pages = engine.v_pages = None
+    async def default_serve(engine):
+        return await serve(engine, prompts)
+
+    engine = new_engine(spec, dict(cfg, kv_dtype="bf16"), "bf16")
+    out = serve_phases(engine, [
+        ("default", default_serve),
+        ("chunked", lambda e: requests(e, [make_request(long_prompt)])),
+        ("logprobs", lambda e: requests(e, [lp_req, lp_req])),
+    ])
+    serve_launches, bf16_tokens = serve_check(engine, prompts, out["default"], "bf16")
+    chunked_check(engine, long_prompt, out["chunked"])
+    logprob_check(engine, prompts[2], out["logprobs"])
+    step_graph_check(engine, prompts)
+    step_graph_check(engine, prompts, unfused=True)
+    unfused = unfused_check(engine, prompts)
+    params = drop_engine(engine)
     del engine
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    engine = InferenceEngine(spec, EngineConfig(**cfg, kv_dtype="fp8"), params=params,
-                             device=DEVICE)
-    torch.cuda.synchronize()
-    print(f"engine fp8: KV pools {engine.pool_bytes / 1e9:.3f} GB, "
-          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated, "
-          f"init {time.perf_counter() - t0:.1f} s")
-    serve_fp8, _ = serve_phase(engine, prompts, bf16_tokens=bf16_tokens)
+
+    # the same weights, pipelined decode (bursts of 4, two in flight)
+    engine = new_engine(spec, dict(cfg, kv_dtype="bf16", pipeline_decode=True,
+                                   pipeline_depth=2, decode_steps_per_dispatch=4),
+                        "bf16 pipelined", params=params)
+    out = serve_phases(engine, [("pipelined", default_serve)])
+    serve_check(engine, prompts, out["pipelined"], "bf16 pipelined", bf16_tokens=bf16_tokens)
+    drop_engine(engine)
+    del engine
+
+    # the same weights behind an fp8 KV cache
+    engine = new_engine(spec, dict(cfg, kv_dtype="fp8"), "fp8", params=params)
+    out = serve_phases(engine, [("default", default_serve)])
+    serve_fp8, _ = serve_check(engine, prompts, out["default"], "fp8", bf16_tokens=bf16_tokens)
+    step_graph_check(engine, prompts)
     unfused_fp8 = unfused_check(engine, prompts)
+    drop_engine(engine)
+    del engine
 
     launches = {"fused_decode": serve_launches["fused_decode"],
                 "paged_attention_v3": unfused[0], "kv_write": unfused[2],

@@ -265,16 +265,34 @@ class EngineConfig:
     # burst cap while prompts wait and the batch is under half full, so a
     # queued prompt is not held behind a long burst. 0 = never cap.
     decode_steps_admit_pending: int = 4
-    # longest uncached prompt tail one prefill takes; a longer one needs
-    # chunked prefill (the port refuses it until that slice)
+    # longest uncached prompt tail one prefill dispatch takes; a longer
+    # prompt prefills in chunks of this many tokens, one per engine step,
+    # interleaved with decode bursts (a multiple of page_size: chunks start
+    # on page boundaries)
     max_prefill_chunk_tokens: int = 512
     seed: int = 0  # base of the per-request sampling seeds
     step_idle_sleep_s: float = 0.002  # step-thread poll while page-stalled
+    # pipelined decode bursts: dispatch ahead with the fed tokens chained
+    # on the device, processing each burst's tokens pipeline_depth bursts
+    # late, so the host's work hides behind device execution. Stops are
+    # detected up to pipeline_depth * decode_steps_per_dispatch tokens late
+    # (overshoot discarded). Cancels flush the pipeline; admissions
+    # interleave without flushing.
+    pipeline_decode: bool = False
+    pipeline_depth: int = 2  # in-flight decode bursts when pipelined
+    # admission first tokens sampled on the device and landed a step later
+    # (the step thread never waits on their copy to the host); off = the
+    # synchronous sample-and-emit path
+    async_admissions: bool = True
+    # when a processed burst frees slots, run the admission pass again in
+    # the same step cycle (the replacement's prefill dispatches behind the
+    # in-flight burst)
+    eager_readmit: bool = True
+    # bounded wait for a closed-loop client's resubmission right after its
+    # finish item posted, hidden behind an in-flight burst. 0 = don't wait.
+    readmit_wait_s: float = 0.002
 
     # -- JAX engine only, until their slices are ported -----------------------
-    pipeline_decode: bool = False
-    pipeline_depth: int = 2
-    async_admissions: bool = True
     tp: int = 1
     dp: int = 1
     sp: int = 1
@@ -292,8 +310,6 @@ class EngineConfig:
     guided_mode: str = "auto"  # "auto" | "off"
     guided_cache_entries: int = 32
     profile: bool = False
-    eager_readmit: bool = True
-    readmit_wait_s: float = 0.002
 
     def __post_init__(self) -> None:
         if self.max_decode_slots is None:

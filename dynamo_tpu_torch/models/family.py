@@ -1,7 +1,8 @@
 """Model-family dispatch (counterpart of dynamo_tpu/models/family.py).
 
 The engine drives a small adapter surface (params/cache init, prefill,
-packed prefill, decode bursts) and the adapter maps it onto the family's
+packed prefill, and the one decode step its bursts run, which its CUDA
+graphs capture) and the adapter maps it onto the family's
 functional core. This slice ports the dense GQA family only.
 """
 
@@ -16,6 +17,8 @@ __all__ = ["get_family", "GqaFamily"]
 
 class GqaFamily:
     """llama-family adapter: thin passthrough to models/llama.py."""
+
+    supports_logprobs = True
 
     def __init__(self):
         from dynamo_tpu_torch.models import llama
@@ -38,12 +41,11 @@ class GqaFamily:
             spec, params, tokens, bts, starts, k, v, ns
         )
 
-    def decode_steps(self, spec, params, tokens, bts, lens, k, v, active,
-                     temps, topk, topp, seeds, steps, *, n_steps):
-        return self.m.decode_steps(
-            spec, params, tokens, bts, lens, k, v, active, temps, topk,
-            topp, seeds, steps, n_steps=n_steps,
-        )
+    def decode_step(self, spec, params, k, v, t, *, sampled, n_logprobs):
+        """One model step over fixed tensors (engine/graphs.py captures
+        it)."""
+        self.m.decode_step_(spec, params, k, v, t, sampled=sampled,
+                            n_logprobs=n_logprobs)
 
 
 def get_family(spec: ModelSpec) -> Any:

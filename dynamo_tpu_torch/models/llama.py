@@ -5,6 +5,9 @@ The counterpart of dynamo_tpu/models/llama.py for the dense GQA path.
 orientation as in the JAX pytree, so ``x @ w``); plain functions on tensors
 mirror the JAX entry points: ``prefill_forward``, ``prefill_forward_batch``,
 ``decode_forward``, ``decode_steps`` and ``reference_forward``.
+``decode_steps`` loops ``decode_step_``, one model step over fixed tensors
+(``StepTensors``), which the engine's CUDA graphs capture
+(engine/graphs.py).
 
 The KV pools ``[L, num_pages, KH, page, D]`` are updated IN PLACE by every
 forward that writes them (the JAX package's donation + aliasing). Page 0 is
@@ -21,6 +24,7 @@ GPU is present unless the caller passes ``device="cpu"``.
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -453,41 +457,141 @@ def decode_forward(
     return _logits(spec, params, x)
 
 
+@dataclass
+class StepTensors:
+    """The fixed tensors one decode model step reads and advances
+    (``decode_step_``): the counterpart of the carry of the JAX package's
+    ``decode_steps`` loop. A CUDA graph captures the step over one set of
+    these and replays it; the eager ``decode_steps`` runs the same step over
+    a fresh set, so both compute the same thing.
+
+    ``out`` holds one int32 record row per step after row 0, which the
+    caller fills with the burst's fed tokens: ``record_width(B, n_lp)``
+    words, the sampled ids [B] and, with logprobs, the sampled logprobs
+    [B] (f32 bits), the top ids [B, n_lp] and the top logprobs [B, n_lp]
+    (f32 bits). Rows are step-major, so a burst's first ``1 + n`` rows are
+    one contiguous block (one copy to the host)."""
+
+    tokens: torch.Tensor  # [B] int32 last token per slot (advanced)
+    block_tables: torch.Tensor  # [B, P] int32
+    seq_lens: torch.Tensor  # [B] int32 INCLUDING the new token (advanced)
+    active: torch.Tensor  # [B] int32, 1 = live slot
+    temperature: torch.Tensor  # [B] f32
+    top_k: torch.Tensor  # [B] int32 (0 = off)
+    top_p: torch.Tensor  # [B] f32 (1.0 = off)
+    seeds: torch.Tensor  # [B] int32, the uint32 seed's bits
+    steps: torch.Tensor  # [B] int32 tokens generated so far (advanced)
+    step_idx: torch.Tensor  # [1] int32 step within the burst (advanced)
+    out: torch.Tensor  # [1 + n_max, record_width] int32
+
+
+def record_width(B: int, n_logprobs: int) -> int:
+    """int32 words of one step's record (StepTensors.out)."""
+    return B * (2 + 2 * n_logprobs) if n_logprobs else B
+
+
+def decode_step_(
+    spec: ModelSpec, params: LlamaParams, k_pages, v_pages, t: StepTensors,
+    *, sampled: bool, n_logprobs: int,
+) -> None:
+    """One decode model step over the fixed tensors ``t``, in place: the
+    forward (pools appended in place), sampling (``sampled=False``: the
+    greedy argmax, which the host picks for an all-greedy batch), optional
+    logprobs, the record row ``1 + step_idx``, then tokens, seq_lens (by
+    active), steps and step_idx advance. Reads no device value on the
+    host, so a CUDA graph can capture it."""
+    from dynamo_tpu_torch.engine.sampling import (
+        greedy_tokens,
+        sample_tokens,
+        token_logprobs,
+    )
+
+    active = t.active != 0
+    logits = decode_forward(spec, params, t.tokens, t.block_tables, t.seq_lens,
+                            k_pages, v_pages, active)
+    if sampled:
+        nxt = sample_tokens(logits, t.temperature, t.top_k, t.top_p, t.seeds,
+                            t.steps)
+    else:
+        nxt = greedy_tokens(logits)
+    nxt = torch.where(active, nxt, t.tokens)
+    row = nxt
+    if n_logprobs:
+        picked, top_i, top_v = token_logprobs(logits, nxt, n_logprobs)
+        row = torch.cat([nxt, picked.view(torch.int32), top_i.reshape(-1),
+                         top_v.reshape(-1).view(torch.int32)])
+    t.out.index_copy_(0, t.step_idx.long() + 1, row[None])
+    t.tokens.copy_(nxt)
+    t.seq_lens.add_(t.active)
+    t.steps.add_(1)
+    t.step_idx.add_(1)
+
+
+def unpack_records(rows: torch.Tensor, B: int, n_logprobs: int):
+    """Step records [n, record_width] -> sampled [B, n] int32, or with
+    logprobs (sampled, logprobs [B, n] f32, top_ids [B, n, N] int32,
+    top_logprobs [B, n, N] f32): the JAX ``decode_steps`` outputs."""
+    n = rows.shape[0]
+    sampled = rows[:, :B].T
+    if not n_logprobs:
+        return sampled
+    N = n_logprobs
+    lp = rows[:, B:2 * B].contiguous().view(torch.float32).T
+    ti = rows[:, 2 * B:2 * B + B * N].reshape(n, B, N).transpose(0, 1)
+    tv = rows[:, 2 * B + B * N:].contiguous().view(torch.float32)
+    return sampled, lp, ti, tv.reshape(n, B, N).transpose(0, 1)
+
+
 def decode_steps(
     spec: ModelSpec,
     params: LlamaParams,
-    tokens: torch.Tensor,  # [B] last sampled token per slot (device)
-    block_tables: torch.Tensor,  # [B, max_pages_per_seq] int32 (device)
+    tokens: torch.Tensor,  # [B] last sampled token per slot
+    block_tables: torch.Tensor,  # [B, max_pages_per_seq] int32
     seq_lens: torch.Tensor,  # [B] int32, INCLUDING the first new token
     k_pages: torch.Tensor,  # updated in place
     v_pages: torch.Tensor,
-    active: torch.Tensor,  # [B] bool (device)
+    active: torch.Tensor,  # [B] bool
     temperature: torch.Tensor,  # [B] host f32
-    top_k: torch.Tensor,  # [B] host int
-    top_p: torch.Tensor,  # [B] host f32
-    seeds: torch.Tensor,  # [B] host int
-    steps: torch.Tensor,  # [B] host int: tokens generated so far per slot
+    top_k: torch.Tensor,  # [B] int
+    top_p: torch.Tensor,  # [B] f32
+    seeds: torch.Tensor,  # [B] int (uint32 seed)
+    steps: torch.Tensor,  # [B] int: tokens generated so far per slot
     n_steps: int = 1,
-) -> torch.Tensor:
-    """``n_steps`` decode iterations + sampling; returns sampled [B, n_steps]
-    int32 on the device. Callers pre-extend block tables so every active
-    slot has page room for n more tokens; a stop inside a burst is handled
-    by the caller discarding the tail. Sampling folds in the per-slot
-    generated count, so bursts reproduce the per-request stream."""
-    from dynamo_tpu_torch.engine.sampling import sample_tokens
+    n_logprobs: int = 0,
+):
+    """``n_steps`` decode iterations + sampling, eagerly, through
+    ``decode_step_``. Returns sampled [B, n_steps] int32 on the pools'
+    device; with ``n_logprobs`` > 0, (sampled, sampled_logprobs [B, n],
+    top_ids [B, n, N], top_logprobs [B, n, N]) as the JAX package's
+    ``decode_steps`` (N = n_logprobs). Callers pre-extend block tables so
+    every active slot has page room for n more tokens; a stop inside a
+    burst is handled by the caller discarding the tail. Sampling folds in
+    the per-slot generated count, so bursts reproduce the per-request
+    stream. Whether any row samples is read from ``temperature``, a host
+    tensor (no device sync)."""
+    dev = k_pages.device
+    B = tokens.shape[0]
 
-    out = []
-    toks, lens = tokens, seq_lens
-    step_inc = active.to(torch.int32)
-    for i in range(n_steps):
-        logits = decode_forward(
-            spec, params, toks, block_tables, lens, k_pages, v_pages, active
-        )
-        nxt = sample_tokens(logits, temperature, top_k, top_p, seeds, steps + i)
-        nxt = torch.where(active, nxt, toks.to(torch.int32))
-        out.append(nxt)
-        toks, lens = nxt, lens + step_inc
-    return torch.stack(out, dim=1)
+    def dev_t(x, dtype):
+        return x.to(device=dev, dtype=dtype).clone()
+
+    t = StepTensors(
+        tokens=dev_t(tokens, torch.int32), block_tables=dev_t(block_tables, torch.int32),
+        seq_lens=dev_t(seq_lens, torch.int32), active=dev_t(active, torch.int32),
+        temperature=dev_t(temperature, torch.float32), top_k=dev_t(top_k, torch.int32),
+        top_p=dev_t(top_p, torch.float32),
+        seeds=dev_t(seeds.long() & 0xFFFFFFFF, torch.int64).to(torch.int32),
+        steps=dev_t(steps, torch.int32),
+        step_idx=torch.zeros(1, dtype=torch.int32, device=dev),
+        out=torch.zeros((1 + n_steps, record_width(B, n_logprobs)), dtype=torch.int32,
+                        device=dev),
+    )
+    t.out[0, :B] = t.tokens
+    sampled = bool((temperature > 0).any())
+    for _ in range(n_steps):
+        decode_step_(spec, params, k_pages, v_pages, t, sampled=sampled,
+                     n_logprobs=n_logprobs)
+    return unpack_records(t.out[1:], B, n_logprobs)
 
 
 # -------------------------------------------------------------- reference

@@ -153,3 +153,29 @@ def pool_code(dtype: torch.dtype) -> int:
 
 def stream_ptr(tensor: torch.Tensor) -> int:
     return torch.cuda.current_stream(tensor.device).cuda_stream
+
+
+# every kernel wrapper with launch counters (see ``counted``)
+KERNELS: list = []
+
+
+def counted(fn):
+    """Give a kernel wrapper its counters: ``launches`` (and
+    ``fp8_launches``, its fp8 form's among them) count kernels that ran;
+    ``captured`` / ``fp8_captured`` count launches recorded into a CUDA
+    graph, which run only when the graph replays. A graph's runner
+    (engine/graphs.py) adds its captured launches to ``launches`` at every
+    replay."""
+    fn.launches = fn.fp8_launches = fn.captured = fn.fp8_captured = 0
+    KERNELS.append(fn)
+    return fn
+
+
+def count_launch(fn, fp8: bool = False) -> None:
+    """One launch of ``fn``'s kernel on the current stream."""
+    if torch.cuda.is_current_stream_capturing():
+        fn.captured += 1
+        fn.fp8_captured += int(fp8)
+    else:
+        fn.launches += 1
+        fn.fp8_launches += int(fp8)

@@ -46,6 +46,8 @@ import torch
 from dynamo_tpu_torch.ops.attention import paged_decode_attention, pool_layer
 from dynamo_tpu_torch.ops.cuda.build import (
     check,
+    count_launch,
+    counted,
     dtype_code,
     load_library,
     pool_code,
@@ -82,6 +84,7 @@ def fused_decode_plain(
     return out
 
 
+@counted
 def fused_decode_attention(
     q: torch.Tensor,  # [B, H, D]
     k_pages,  # [L, num_pages, KH, page, D] or a QuantPool (updated in place)
@@ -151,12 +154,5 @@ def fused_decode_attention(
         dtype_code(q.dtype), pool_code(k_vals.dtype), stream_ptr(q),
     )
     check(rc, "fused_decode")
-    fused_decode_attention.launches += 1
-    if k_scale is not None:
-        fused_decode_attention.fp8_launches += 1
+    count_launch(fused_decode_attention, fp8=k_scale is not None)
     return out
-
-
-# launches of the kernel, and of its fp8 form among them
-fused_decode_attention.launches = 0
-fused_decode_attention.fp8_launches = 0

@@ -28,7 +28,14 @@ from __future__ import annotations
 
 import torch
 
-from dynamo_tpu_torch.ops.cuda.build import check, dtype_code, load_library, stream_ptr
+from dynamo_tpu_torch.ops.cuda.build import (
+    check,
+    count_launch,
+    counted,
+    dtype_code,
+    load_library,
+    stream_ptr,
+)
 from dynamo_tpu_torch.ops.quant import is_quant, quant_append_rows
 
 
@@ -75,6 +82,7 @@ def _check_args(k_pages, v_pages, k_new, v_new, dst_page, dst_off, layer):
         raise ValueError(f"kv_write: layer {layer} out of range [0, {L})")
 
 
+@counted
 def kv_write(
     k_pages: torch.Tensor,  # [L, num_pages, KH, page, D] (updated in place)
     v_pages: torch.Tensor,
@@ -106,7 +114,4 @@ def kv_write(
         stream_ptr(k_pages),
     )
     check(rc, "kv_write")
-    kv_write.launches += 1
-
-
-kv_write.launches = 0
+    count_launch(kv_write)

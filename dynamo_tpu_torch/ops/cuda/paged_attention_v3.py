@@ -49,6 +49,8 @@ import torch
 from dynamo_tpu_torch.ops.attention import paged_decode_attention
 from dynamo_tpu_torch.ops.cuda.build import (
     check,
+    count_launch,
+    counted,
     dtype_code,
     load_library,
     pool_code,
@@ -177,6 +179,7 @@ def check_attention_args(q, k_pool, v_pool, block_tables, seq_lens, sinks,
         raise ValueError(f"{name}: q and the pools must be 16-byte aligned")
 
 
+@counted
 def paged_decode_attention_v3(
     q: torch.Tensor,  # [B, H, D]
     k_pages,  # [num_pages, KH, page, D], or a QuantPool layer slice
@@ -225,12 +228,5 @@ def paged_decode_attention_v3(
         dtype_code(q.dtype), pool_code(k_vals.dtype), stream_ptr(q),
     )
     check(rc, "paged_attention_v3")
-    paged_decode_attention_v3.launches += 1
-    if k_scale is not None:
-        paged_decode_attention_v3.fp8_launches += 1
+    count_launch(paged_decode_attention_v3, fp8=k_scale is not None)
     return out
-
-
-# launches of the kernel, and of its fp8 form among them
-paged_decode_attention_v3.launches = 0
-paged_decode_attention_v3.fp8_launches = 0
