@@ -72,7 +72,27 @@ Phases, each of which must pass (any failure exits non-zero):
    fp8 pools (values and scales bitwise); phase 6 on the fp8
    pools, where paged_attention_v3 launches 32 times in its fp8 form and
    the kv_write kernel never (fp8 appends are quant_append_rows, as in the
-   reference).
+   reference);
+9. HTTP: the one-process serving stack on the same weights, built through
+   the port's entry points on one event loop (DistributedRuntime over an
+   InMemoryHub, launch_engine_worker with pipeline_decode and its decode
+   graphs captured, ModelWatcher, HttpFrontend on port 0) and driven by a
+   stdlib HTTP client: /v1/models and /health (one instance); the 8
+   prompts through generate() on the same engine before and after the
+   HTTP run, /clear_kv_blocks between;
+   the 8 prompts as concurrent streamed token-id /v1/completions (32
+   tokens each, ignore_eos, include_usage: each ends with data: [DONE],
+   usage.completion_tokens 32 and finish_reason "length"); one
+   /v1/chat/completions through the chat template; one stream dropped
+   after two chunks (the worker's admin cache_status must show no active
+   page within 2 s); one malformed body (400, the reference's error JSON);
+   /metrics (the TTFT histogram counts every request that reached the
+   engine). fused_decode must launch 32 times per decode step over the
+   phase. Prints client TTFT and tok/s beside the direct serves, and the
+   share of completion texts equal to the decoded direct tokens;
+10. CLI: ``python3 -m dynamo_tpu_torch.cli run --in http --out engine
+   --model llama-3-8b --port 0 --precompile`` in a process of its own
+   prints DYNAMO_HTTP=host:port and streams a 16-token chat completion.
 
 Prints, before the last line, the card line and one JSON object with every
 kernel's measurements; the last line is
@@ -138,6 +158,8 @@ SERVE_TOKENS = 32
 CHUNKED_PROMPT = 990  # tokens: prefill chunks of 512 + 478, under the 1024 context
 GRAPH_STEPS = 4  # burst of the step-graph check
 LOGPROBS = 5
+CLI_TOKENS = 16  # the CLI phase's streamed chat completion
+CLI_START_S = 180  # the CLI process's limit to print DYNAMO_HTTP=
 REPS = 20
 SLEEP_CYCLES = 5_000_000  # ~2.5 ms of device time at the H100's clock
 
@@ -1171,6 +1193,284 @@ def drop_engine(engine):
     return params
 
 
+# ------------------------------------------------------------ HTTP serving
+
+
+async def http_call(port, method, path, body=None, raw=None, drop_after=None):
+    """One HTTP/1.1 request on a connection of its own (stdlib only).
+    Returns (status, body bytes, seconds from the send to each body chunk).
+    A chunked (SSE) body is read chunk by chunk; with ``drop_after`` the
+    client goes away after that many chunks."""
+    data = raw if raw is not None else b"" if body is None else json.dumps(body).encode()
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    try:
+        t0 = time.perf_counter()
+        writer.write(f"{method} {path} HTTP/1.1\r\nHost: localhost\r\nConnection: close\r\n"
+                     f"Content-Type: application/json\r\nContent-Length: {len(data)}\r\n"
+                     "\r\n".encode() + data)
+        await writer.drain()
+        lines = (await reader.readuntil(b"\r\n\r\n")).decode("latin-1").split("\r\n")
+        status = int(lines[0].split(" ")[1])
+        headers = dict((k.strip().lower(), v.strip()) for k, _, v in
+                       (ln.partition(":") for ln in lines[1:] if ln))
+        if headers.get("transfer-encoding", "").lower() != "chunked":
+            out = await reader.readexactly(int(headers.get("content-length", 0)))
+            return status, out, [time.perf_counter() - t0]
+        chunks, times = [], []
+        while drop_after is None or len(chunks) < drop_after:
+            size = int((await reader.readuntil(b"\r\n")).split(b";")[0], 16)
+            if size == 0:
+                break
+            chunks.append(await reader.readexactly(size))
+            await reader.readexactly(2)
+            times.append(time.perf_counter() - t0)
+        return status, b"".join(chunks), times
+    finally:
+        writer.close()
+
+
+def sse_events(body: bytes) -> list:
+    """The SSE payloads of a stream: parsed JSON, and the final "[DONE]"."""
+    events = [e for e in body.decode().split("\n\n") if e]
+    require(all(e.startswith("data: ") for e in events), f"bad SSE framing {body[:200]!r}")
+    return [e[6:] if e == "data: [DONE]" else json.loads(e[6:]) for e in events]
+
+
+async def admin_call(drt, payload):
+    """The worker's first answer to ``payload`` on its admin endpoint."""
+    from dynamo_tpu_torch.runtime.context import Context
+
+    client = await drt.namespace("dynamo").component("backend").endpoint(
+        "admin").client().start()
+    try:
+        (inst,) = await client.wait_for_instances(1, timeout=2)
+        async for item in client.call_instance(inst.instance_id, payload, Context()):
+            return item
+    finally:
+        await client.close()
+
+
+def http_serve(spec, cfg, params, prompts, default_serve_out, default_tokens):
+    """Phase 9: the one-process serving stack through the port's entry
+    points (in-memory hub, launch_engine_worker with its decode graphs
+    captured, ModelWatcher, HttpFrontend on port 0), all on one event loop,
+    driven by a stdlib HTTP client: /v1/models and /health; the 8 prompts as
+    concurrent streamed token-id completions (32 tokens, ignore_eos, usage);
+    one chat completion through the chat template; one stream dropped after
+    two chunks; one malformed body; the worker's pages all freed; /metrics.
+    The same 8 requests through generate() on the same engine before and
+    after the HTTP run (/clear_kv_blocks between) give the frontend's cost. Returns the
+    phase's fused_decode launches."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.worker import launch_engine_worker
+    from dynamo_tpu_torch.frontend.http import HttpFrontend
+    from dynamo_tpu_torch.frontend.tokenizer import MockTokenizer
+    from dynamo_tpu_torch.frontend.watcher import ModelManager, ModelWatcher
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.runtime.hub import InMemoryHub
+
+    name, L = spec.name, spec.num_layers
+    n = len(prompts)
+
+    async def drive():
+        drt = DistributedRuntime(InMemoryHub())
+        t0 = time.perf_counter()
+        engine, _ = await launch_engine_worker(
+            drt, model=name, spec=spec, params=params, device=DEVICE, precompile=True,
+            engine_config=EngineConfig(**cfg, pipeline_decode=True))
+        print(f"http worker: {name} engine built, {len(engine._graphs._graphs)} decode "
+              f"graph variants captured, registered in {time.perf_counter() - t0:.2f} s")
+        watcher = await ModelWatcher(drt, ModelManager()).start()
+        frontend = HttpFrontend(watcher.manager, host="127.0.0.1", port=0, drt=drt)
+        try:
+            await watcher.wait_for_model(name, timeout=30)
+            _, port = await frontend.start()
+            out = {"engine": engine}
+            for path in ("/v1/models", "/health"):
+                status, body, _ = await http_call(port, "GET", path)
+                out[path] = (status, json.loads(body))
+            async def clear():
+                # evict the prompts' cached pages through the HTTP admin route
+                status, body, _ = await http_call(port, "POST", "/clear_kv_blocks", {})
+                t_clear = time.perf_counter()
+                while engine.allocator.evictable_pages and time.perf_counter() - t_clear < 2:
+                    await asyncio.sleep(0.01)
+                return (status, json.loads(body)), engine.allocator.evictable_pages
+
+            # the same requests through generate() on the same engine, before
+            # and after the HTTP run (each on a cleared prefix cache)
+            direct = [make_request(p) for p in prompts]
+            out["direct"] = [await requests(engine, direct)]
+            out["clear"] = [await clear()]
+            before = (engine.steps, engine._graphs.replays)
+            zero_counts()
+            t_http = time.perf_counter()
+            out["streams"] = await asyncio.gather(*(http_call(port, "POST", "/v1/completions", {
+                "model": name, "prompt": p, "max_tokens": SERVE_TOKENS, "ignore_eos": True,
+                "stream": True, "stream_options": {"include_usage": True}}) for p in prompts))
+            out["wall"] = time.perf_counter() - t_http
+            status, body, _ = await http_call(port, "POST", "/v1/chat/completions", {
+                "model": name, "messages": [{"role": "user", "content": "Name three colours."}],
+                "max_tokens": SERVE_TOKENS, "ignore_eos": True})
+            out["chat"] = (status, json.loads(body))
+            status, body, _ = await http_call(port, "POST", "/v1/completions", {
+                "model": name, "prompt": prompts[3][:64], "max_tokens": 512,
+                "ignore_eos": True, "stream": True}, drop_after=2)
+            out["dropped"] = (status, sse_events(body))
+            status, body, _ = await http_call(port, "POST", "/v1/chat/completions",
+                                              raw=b"{not json")
+            out["malformed"] = (status, json.loads(body))
+            t_drop = time.perf_counter()
+            status = await admin_call(drt, {"op": "cache_status"})
+            while status["active_pages"] and time.perf_counter() - t_drop < 2:
+                await asyncio.sleep(0.02)
+                status = await admin_call(drt, {"op": "cache_status"})
+            out["freed_s"] = time.perf_counter() - t_drop
+            out["cache_status"] = status
+            out["counts"] = read_counts()
+            out["steps"] = engine.steps - before[0]
+            out["replays"] = engine._graphs.replays - before[1]
+            status, body, _ = await http_call(port, "GET", "/metrics")
+            out["metrics"] = (status, body.decode())
+            out["clear"].append(await clear())
+            out["direct"].append(await requests(engine, direct))
+        finally:
+            await frontend.stop()
+            await watcher.close()
+            await engine.close()
+            await drt.close()
+        return out
+
+    out = asyncio.run(drive())
+    require(out["/v1/models"][0] == 200 and [m["id"] for m in out["/v1/models"][1]["data"]]
+            == [name], f"/v1/models: {out['/v1/models']}")
+    require(out["/health"] == (200, {"status": "healthy", "models": {name: {"instances": 1}}}),
+            f"/health: {out['/health']}")
+    require(all(c == ((200, {"results": {"dynamo/backend": {"workers_cleared": 1}}}), 0)
+                for c in out["clear"]),
+            f"/clear_kv_blocks: (answer, cached pages left) {out['clear']}")
+    tok = MockTokenizer()
+    ttft, texts = [], []
+    for i, (status, body, times) in enumerate(out["streams"]):
+        ev = sse_events(body) if status == 200 else []
+        chunks = [e for e in ev[:-1] if e.get("choices")]
+        usage = ev[-2].get("usage") if len(ev) >= 2 else None
+        require(status == 200 and ev[-1] == "[DONE]" and chunks
+                and chunks[-1]["choices"][0]["finish_reason"] == "length"
+                and usage and usage["completion_tokens"] == SERVE_TOKENS
+                and usage["prompt_tokens"] == len(prompts[i]),
+                f"http stream {i}: status {status}, last events {ev[-3:]}")
+        ttft.append(times[0])
+        texts.append("".join(c["choices"][0]["text"] for c in chunks))
+    status, chat = out["chat"]
+    require(status == 200 and chat["choices"][0]["finish_reason"] == "length"
+            and chat["usage"]["completion_tokens"] == SERVE_TOKENS,
+            f"http chat: status {status}, {chat}")
+    status, ev = out["dropped"]
+    require(status == 200 and len(ev) == 2 and all(isinstance(e, dict) for e in ev),
+            f"http dropped stream: status {status}, {ev}")
+    require(out["malformed"] == (400, {"error": {
+        "message": "invalid JSON body", "type": "invalid_request_error", "param": None,
+        "code": None}}), f"http malformed body: {out['malformed']}")
+    require(out["cache_status"]["ok"] and out["cache_status"]["active_pages"] == 0,
+            f"pages still active {out['freed_s']:.2f} s after the dropped stream: "
+            f"{out['cache_status']}")
+    status, text = out["metrics"]
+    reached = n + 2  # the streams, the chat completion, the dropped stream
+    ttft_count = [float(ln.rsplit(" ", 1)[1]) for ln in text.splitlines()
+                  if ln.startswith("dynamo_time_to_first_token_seconds_count{")]
+    require(status == 200 and ttft_count == [reached],
+            f"/metrics: TTFT count {ttft_count}, {reached} requests reached the engine")
+    counts, steps = out["counts"], out["steps"]
+    require(counts["fused_decode"] == L * steps and steps > 0 and out["replays"] == steps,
+            f"http phase: fused_decode launched {counts['fused_decode']} times over "
+            f"{steps} decode steps ({out['replays']} graph replays)")
+    require(counts["kv_write"] == counts["paged_attention_v3"] == 0,
+            "the HTTP serving path launched the unfused kernels")
+
+    _, d_ttft, dd_wall, _ = default_serve_out["res"]
+    n_tok = n * SERVE_TOKENS
+    direct_tokens = [[t for x in it for t in x["token_ids"]] for it in out["direct"][0][0]]
+    same = sum(texts[i] == tok.decode(direct_tokens[i]) for i in range(n))
+    same_default = sum(texts[i] == tok.decode(default_tokens[i]) for i in range(n))
+    wall = out["wall"]
+    d_wall = sum(w for _, _, w in out["direct"]) / 2
+    print(f"serve http bf16 pipelined: {n} concurrent streamed completions x "
+          f"{SERVE_TOKENS} tokens in {wall:.3f} s = {n_tok / wall:.1f} tok/s; client TTFT "
+          f"mean {1e3 * sum(ttft) / n:.1f} ms, max {1e3 * max(ttft):.1f} ms; fused_decode "
+          f"launches {counts['fused_decode']} = {L} x {steps} steps "
+          f"(chat, dropped stream and the drain included), graph replays {out['replays']}")
+    for when, (_, d_first, w) in zip(("before", "after"), out["direct"]):
+        print(f"serve direct generate() on the same engine, {when} the HTTP run (8 at "
+              f"once): {w:.3f} s = {n_tok / w:.1f} tok/s, TTFT mean "
+              f"{1e3 * sum(d_first) / n:.1f} ms, max {1e3 * max(d_first):.1f} ms")
+    print(f"serve http: frontend share of the wall against the mean of the two direct runs "
+          f"{(wall - d_wall) / wall:.4f}; the default serve (phase 4a, non-pipelined, second "
+          f"sharer late): {dd_wall:.3f} s = {n_tok / dd_wall:.1f} tok/s, TTFT mean "
+          f"{1e3 * sum(d_ttft.values()) / n:.1f} ms, max {1e3 * max(d_ttft.values()):.1f} ms")
+    print(f"serve http: completion texts equal to MockTokenizer.decode of the same engine's "
+          f"direct tokens (before) {same}/{n}, of the default serve's {same_default}/{n}; chat "
+          f"completion {chat['usage']}; dropped stream's pages freed "
+          f"{1e3 * out['freed_s']:.0f} ms after the malformed body's 400; /metrics TTFT "
+          f"count {int(ttft_count[0])}")
+    drop_engine(out.pop("engine"))
+    return counts["fused_decode"]
+
+
+def cli_check(model: str, device: str | None = None) -> None:
+    """Phase 10: ``python3 -m dynamo_tpu_torch.cli run --in http --out
+    engine`` in a process of its own (random weights, graphs captured
+    first) must print DYNAMO_HTTP=host:port and stream a chat completion
+    of CLI_TOKENS tokens ending with data: [DONE]. The process is ended
+    before this returns."""
+    import queue
+    import threading
+
+    cmd = [sys.executable, "-m", "dynamo_tpu_torch.cli", "run", "--in", "http", "--out",
+           "engine", "--model", model, "--port", "0", "--precompile"]
+    if device:
+        cmd += ["--device", device]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    lines: queue.Queue = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout], daemon=True).start()
+    try:
+        seen, port = [], None
+        while port is None:
+            try:
+                line = lines.get(timeout=1.0)
+            except queue.Empty:
+                require(proc.poll() is None and time.perf_counter() - t0 < CLI_START_S,
+                        f"cli: no DYNAMO_HTTP= (exit code {proc.poll()}): {seen[-10:]}")
+                continue
+            seen.append(line)
+            if line.startswith("DYNAMO_HTTP="):
+                port = int(line.strip().rsplit(":", 1)[1])
+        t_ready = time.perf_counter() - t0
+        status, body, times = asyncio.run(http_call(port, "POST", "/v1/chat/completions", {
+            "model": model, "messages": [{"role": "user", "content": "Hello there"}],
+            "max_tokens": CLI_TOKENS, "ignore_eos": True, "stream": True,
+            "stream_options": {"include_usage": True}}))
+        ev = sse_events(body) if status == 200 else []
+        chunks = [e for e in ev[:-1] if e.get("choices")]
+        usage = ev[-2].get("usage") if len(ev) >= 2 else None
+        require(status == 200 and ev[-1] == "[DONE]" and chunks
+                and chunks[-1]["choices"][0]["finish_reason"] == "length"
+                and usage and usage["completion_tokens"] == CLI_TOKENS,
+                f"cli: status {status}, last events {ev[-3:]}")
+        print(f"cli: {' '.join(cmd[1:])}: DYNAMO_HTTP after {t_ready:.1f} s; a streamed chat "
+              f"completion of {CLI_TOKENS} tokens in {times[-1]:.3f} s ({len(chunks)} "
+              f"chunks, client TTFT {1e3 * times[0]:.1f} ms), usage {usage}")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(30)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the GPU",
@@ -1217,6 +1517,7 @@ def main() -> int:
         ("logprobs", lambda e: requests(e, [lp_req, lp_req])),
     ])
     serve_launches, bf16_tokens = serve_check(engine, prompts, out["default"], "bf16")
+    default_out = out["default"]
     chunked_check(engine, long_prompt, out["chunked"])
     logprob_check(engine, prompts[2], out["logprobs"])
     step_graph_check(engine, prompts)
@@ -1243,7 +1544,15 @@ def main() -> int:
     drop_engine(engine)
     del engine
 
-    launches = {"fused_decode": serve_launches["fused_decode"],
+    # the same weights served over HTTP by the one-process stack
+    http_launches = http_serve(spec, dict(cfg, kv_dtype="bf16"), params, prompts,
+                               default_out, bf16_tokens)
+    del params
+    torch.cuda.empty_cache()
+    # the same stack from the command line, in a process of its own
+    cli_check(spec.name)
+
+    launches = {"fused_decode": serve_launches["fused_decode"] + http_launches,
                 "paged_attention_v3": unfused[0], "kv_write": unfused[2],
                 "fused_decode/fp8": serve_fp8["fused_decode/fp8"],
                 "paged_attention_v3/fp8": unfused_fp8[1]}

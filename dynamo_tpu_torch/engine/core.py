@@ -29,8 +29,10 @@ ignore_eos, stop_token_ids, min_tokens); ``eos_token_ids``;
 N clamped to 20).
 
 Not in this engine yet (see ROADMAP): tenancy and quotas, preemption,
-speculative and guided decoding, KVBM and disagg, migration resume,
-SPMD/meshes, multimodal, embeddings, telemetry, faults and tracing.
+speculative and guided decoding (a request marked ``guided`` is refused
+with a typed ``invalid_request`` error item, as the reference engine with
+guided decoding off does), KVBM and disagg, migration resume, SPMD/meshes,
+multimodal, embeddings, telemetry, faults and tracing.
 """
 
 from __future__ import annotations
@@ -178,6 +180,7 @@ class InferenceEngine:
         self._loop_thread: int | None = None
         self._wake = threading.Event()
         self._closed = False
+        self._clear_cache_requested = False
         self._partial: _PartialPrefill | None = None
         # dispatched-but-unprocessed decode bursts, oldest first (at most
         # pipeline_depth + 1 when pipelined)
@@ -234,6 +237,13 @@ class InferenceEngine:
         KV pools and the weights: call this before freeing either."""
         self._graphs.release()
 
+    def request_clear_cache(self) -> None:
+        """Admin: drop every inactive prefix-cache page (the HTTP
+        clear_kv_blocks route). Honoured on the step thread, the
+        allocator's owner, after the in-flight bursts land."""
+        self._clear_cache_requested = True
+        self._wake.set()
+
     async def generate(
         self, request: dict[str, Any], context: Context
     ) -> AsyncIterator[dict[str, Any]]:
@@ -255,6 +265,14 @@ class InferenceEngine:
         if len(token_ids) >= self.config.max_context:
             yield {"token_ids": [], "finish_reason": "error",
                    "error": f"prompt exceeds max context {self.config.max_context}"}
+            return
+        if request.get("guided"):
+            # no guided decoding here yet: refuse as the reference engine
+            # does with guided_mode=off (a typed invalid_request -> HTTP 400)
+            yield {"token_ids": [], "finish_reason": "error",
+                   "error": "invalid_request: guided decoding unavailable on this "
+                            "worker (guided_mode=off, multi-host SPMD, or no "
+                            "tokenizer vocabulary)"}
             return
         out_q: asyncio.Queue = asyncio.Queue()
         self._waiting.append(_Waiting(request, context, out_q))
@@ -301,7 +319,8 @@ class InferenceEngine:
                 did_work = self._step()
                 if not did_work:
                     self._wake.clear()
-                    if not self._waiting and not any(self._slots):
+                    if (not self._waiting and not any(self._slots)
+                            and not self._clear_cache_requested):
                         self._wake.wait()
                     else:
                         self._wake.wait(self.config.step_idle_sleep_s)
@@ -341,9 +360,14 @@ class InferenceEngine:
             # interleaves with the reserved slot.
             stopped = any(s is not None and s.context.is_stopped
                           for s in self._slots)
-            if self._partial is not None or stopped:
+            if self._partial is not None or stopped or self._clear_cache_requested:
                 self._flush_pipeline()
                 did = True
+        if self._clear_cache_requested:
+            self._clear_cache_requested = False
+            n = self.allocator.clear_cache()
+            log.info("admin clear_kv_blocks: evicted %d cached pages", n)
+            did = True
         # advance an in-flight chunked prefill, or admit waiting requests
         # up to a per-step token budget; decode still runs below, so a
         # prefill steals at most a budget's (or a chunk's) worth of time

@@ -37,7 +37,8 @@ CFG_KW = dict(page_size=4, num_pages=96, max_pages_per_seq=16,
               max_decode_slots=4, prefill_buckets=(8, 16, 32, 64))
 EMBED_SCALE = 32.0  # peaked logits (tests/test_quant_goldens.py)
 FORBIDDEN = ("jax", "jaxlib", "dynamo_tpu", "xxhash", "aiohttp", "msgpack",
-             "prometheus_client", "ml_dtypes")
+             "prometheus_client", "ml_dtypes", "yaml", "transformers", "tokenizers",
+             "uvloop")
 
 
 @pytest.fixture(autouse=True)
