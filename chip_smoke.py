@@ -92,7 +92,28 @@ Phases, each of which must pass (any failure exits non-zero):
    share of completion texts equal to the decoded direct tokens;
 10. CLI: ``python3 -m dynamo_tpu_torch.cli run --in http --out engine
    --model llama-3-8b --port 0 --precompile`` in a process of its own
-   prints DYNAMO_HTTP=host:port and streams a 16-token chat completion.
+   prints DYNAMO_HTTP=host:port and streams a 16-token chat completion;
+11. processes: with every engine of phases 1-10 freed (the card's free
+   memory printed, room for two workers required), ``cli hub``, two
+   ``cli worker --model llama-3-8b --precompile`` on the phase-1 config
+   (the same seeded weights) started together, and ``cli frontend``, each
+   a fresh interpreter talking TCP: /v1/models and two generate instances
+   in the hub; the 8 prompts as concurrent streamed token-id completions
+   through the frontend (each ends with data: [DONE], "length" and 32
+   completion tokens; both workers serve) and through the hub-discovered
+   TCP data plane from this process (their token ids near-argmax under the
+   reference forward, drawn here once the workers are gone; the frontend
+   streams' texts must equal their decoded tokens); one more stream whose
+   worker is SIGTERM'd after its 5th chunk (the stream finishes, the
+   worker had it in flight, exits 0 after printing ENGINE_DRAINED
+   leftover=0, its instance key leaves the hub, and the survivor serves
+   the next completion); the 8 prompts once more through the frontend, all
+   on the survivor. The frontend set to both workers runs twice (before
+   and after the TCP set). Each set of 8 is timed on cleared prefix caches and
+   printed beside phase 9's. Then the survivor, the frontend and the hub
+   SIGTERM'd, each exiting 0 within its deadline. The workers
+   log their kernel launches since ENGINE_READY: fused_decode must launch
+   32 times per logged step, and their sum joins the kernels line.
 
 Prints, before the last line, the card line and one JSON object with every
 kernel's measurements; the last line is
@@ -1196,11 +1217,13 @@ def drop_engine(engine):
 # ------------------------------------------------------------ HTTP serving
 
 
-async def http_call(port, method, path, body=None, raw=None, drop_after=None):
+async def http_call(port, method, path, body=None, raw=None, drop_after=None,
+                    on_chunk=None):
     """One HTTP/1.1 request on a connection of its own (stdlib only).
     Returns (status, body bytes, seconds from the send to each body chunk).
     A chunked (SSE) body is read chunk by chunk; with ``drop_after`` the
-    client goes away after that many chunks."""
+    client goes away after that many chunks; ``on_chunk(n)`` is awaited
+    after the n-th chunk."""
     data = raw if raw is not None else b"" if body is None else json.dumps(body).encode()
     reader, writer = await asyncio.open_connection("127.0.0.1", port)
     try:
@@ -1224,6 +1247,8 @@ async def http_call(port, method, path, body=None, raw=None, drop_after=None):
             chunks.append(await reader.readexactly(size))
             await reader.readexactly(2)
             times.append(time.perf_counter() - t0)
+            if on_chunk is not None:
+                await on_chunk(len(chunks))
         return status, b"".join(chunks), times
     finally:
         writer.close()
@@ -1414,7 +1439,8 @@ def http_serve(spec, cfg, params, prompts, default_serve_out, default_tokens):
           f"{1e3 * out['freed_s']:.0f} ms after the malformed body's 400; /metrics TTFT "
           f"count {int(ttft_count[0])}")
     drop_engine(out.pop("engine"))
-    return counts["fused_decode"]
+    return counts["fused_decode"], {"tok_s": n_tok / wall, "ttft_mean": sum(ttft) / n,
+                                    "ttft_max": max(ttft)}
 
 
 def cli_check(model: str, device: str | None = None) -> None:
@@ -1469,6 +1495,408 @@ def cli_check(model: str, device: str | None = None) -> None:
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.wait(30)
+
+
+# ------------------------------------------------------- processes over TCP
+
+WORKER_BYTES = 22e9  # llama-3-8b bf16 weights 16.06 GB + 4.30 GB pool + graphs
+PROC_START_S = 300  # a child's limit to print its ready line
+PROC_EXIT_S = 60  # a child's limit to exit after SIGTERM
+
+
+class Child:
+    """One ``python3 -m dynamo_tpu_torch.cli`` process (a fresh interpreter,
+    never a fork of this CUDA process); its output lines land in a queue."""
+
+    def __init__(self, *args):
+        import queue
+        import threading
+
+        self.name = args[0]
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "dynamo_tpu_torch.cli", *args], cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.lines: queue.Queue = queue.Queue()
+        self.seen: list[str] = []
+        threading.Thread(target=self._pump, daemon=True).start()
+
+    def _pump(self):
+        for line in self.proc.stdout:
+            self.lines.put(line.rstrip("\n"))
+        self.lines.put(None)
+
+    def wait_line(self, prefix: str, timeout: float) -> str:
+        """The first line from here on that starts with ``prefix``."""
+        import queue
+
+        deadline = time.perf_counter() + timeout
+        while time.perf_counter() < deadline:
+            try:
+                line = self.lines.get(timeout=0.2)
+            except queue.Empty:
+                continue
+            if line is None:
+                break
+            self.seen.append(line)
+            if line.startswith(prefix):
+                return line
+        require(False, f"{self.name}: no {prefix!r} line within {timeout} s (exit code "
+                f"{self.proc.poll()}): {self.seen[-12:]}")
+
+    def stop(self, timeout: float = PROC_EXIT_S) -> int:
+        """SIGTERM, then the exit code; a child past its deadline fails."""
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            return self.proc.wait(timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(30)
+            require(False, f"{self.name} did not exit within {timeout} s of SIGTERM")
+
+    def logged(self, prefix: str) -> str | None:
+        """A line already read, or still queued, that starts with ``prefix``."""
+        while True:
+            line = self.lines.get_nowait() if not self.lines.empty() else None
+            if line is None:
+                break
+            self.seen.append(line)
+        return next((ln for ln in self.seen if ln.startswith(prefix)), None)
+
+
+def process_phase(spec, cfg, prompts, default_tokens, http_stats, device=None) -> int:
+    """Phase 11: the port as a deployment of processes over TCP. ``cli hub``,
+    two ``cli worker --precompile`` on the phase-1 EngineConfig values (the
+    same seeded weights) started together, ``cli frontend``; the 8 prompts
+    as concurrent streamed token-id completions through the frontend, and
+    once more through the hub-discovered TCP data plane from this process
+    (their token ids, held near-argmax under the reference forward once the
+    workers are gone); one more stream whose worker is SIGTERM'd after its
+    5th chunk (the stream finishes, the worker drains and exits 0, its
+    instance key leaves the hub, the survivor serves the next request); the
+    8 prompts through the frontend again after the TCP set, and to the
+    survivor alone; then every child
+    SIGTERM'd within its deadline. Returns the workers'
+    fused_decode launches, which must be 32 per logged step."""
+    import re
+
+    from dynamo_tpu_torch.frontend.tokenizer import MockTokenizer
+    from dynamo_tpu_torch.models.family import get_family
+
+    import gc
+
+    name, n = spec.name, len(prompts)
+    # the engines of phases 1-10 are closed and dropped; reference cycles
+    # (an engine and its served handlers) still hold their weights until a
+    # collection runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info() if DEVICE == "cuda" else (0, 0)
+    held = torch.cuda.memory_allocated()
+    print(f"processes: card memory free {free / 1e9:.2f} of {total / 1e9:.2f} GB before "
+          f"spawning (this process: {held / 1e9:.3f} GB allocated, "
+          f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved)")
+    # what is left is neither an engine's weights (16 GB) nor its pools
+    # (4.3 GB): name the largest live tensors
+    live = sorted((t for t in gc.get_objects()
+                   if isinstance(t, torch.Tensor) and t.device.type == "cuda"),
+                  key=lambda t: -t.untyped_storage().nbytes())[:3]
+    print("processes: largest tensors this process holds: " + (", ".join(
+        f"{tuple(t.shape)} {t.dtype} ({t.untyped_storage().nbytes() / 1e9:.3f} GB)"
+        for t in live) or "none"))
+    require(held < 2e9, f"this process still holds {held / 1e9:.3f} GB of tensors")
+    require(DEVICE != "cuda" or free >= 2 * WORKER_BYTES,
+            f"room for two workers: {free / 1e9:.2f} GB free, {2 * WORKER_BYTES / 1e9:.0f} "
+            "GB needed")
+    dev = ["--device", device] if device else []
+    flags = ["--page-size", str(cfg["page_size"]), "--num-pages", str(cfg["num_pages"]),
+             "--max-pages-per-seq", str(cfg["max_pages_per_seq"]),
+             "--max-decode-slots", str(cfg["max_decode_slots"])]
+    children: list[Child] = []
+    t0 = time.perf_counter()
+    try:
+        hub_proc = Child("hub", "--port", "0")
+        children.append(hub_proc)
+        hub = hub_proc.wait_line("DYNAMO_HUB=", 60).split("=", 1)[1]
+        workers = [Child("worker", "--hub", hub, "--model", name, "--precompile",
+                         *flags, *dev) for _ in range(2)]
+        children += workers
+        front = Child("frontend", "--hub", hub, "--port", "0", "--host", "127.0.0.1")
+        children.append(front)
+        port = int(front.wait_line("DYNAMO_HTTP=", 60).rsplit(":", 1)[1])
+        for w in workers:
+            w.wait_line("ENGINE_READY", PROC_START_S)
+            line = next(ln for ln in w.seen if "engine worker " in ln)
+            w.lease = int(re.search(r"engine worker ([0-9a-f]+) up", line).group(1), 16) >> 16
+        t_ready = time.perf_counter() - t0
+        out = asyncio.run(_drive_processes(spec, prompts, hub, port, workers, front))
+        for child in (out["survivor"], front, hub_proc):
+            require(child.stop() == 0, f"{child.name} exited non-zero: {child.seen[-8:]}")
+    finally:
+        for child in children:
+            if child.proc.poll() is None:
+                child.proc.kill()
+                child.proc.wait(30)
+
+    # kernel launches, from each worker's log line
+    logs = [json.loads(w.logged("ENGINE_LAUNCHES ").split(" ", 1)[1]) for w in workers]
+    fused = sum(x["launches"].get("fused_decode_attention", 0) for x in logs)
+    steps = sum(x["steps"] for x in logs)
+    L = spec.num_layers
+    require(all(x["steps"] > 0 for x in logs), f"a worker served no decode step: {logs}")
+    require(DEVICE != "cuda" or (fused == L * steps and all(
+        x["replays"] == x["steps"] for x in logs)),
+        f"processes: fused_decode launched {fused} times over {steps} logged steps {logs}")
+    require(all(x["launches"].get(k, 0) == 0 for x in logs for k in (
+        "kv_write", "paged_decode_attention_v3", "fused_decode_attention/fp8")),
+        f"processes: a worker launched another kernel form: {logs}")
+
+    # every stream through the frontend: both workers, then the survivor
+    tok = MockTokenizer()
+
+    def frontend_set(streams, label):
+        ttft, texts = [], []
+        for i, (status, body, times) in enumerate(streams):
+            ev = sse_events(body) if status == 200 else []
+            chunks = [e for e in ev[:-1] if e.get("choices")]
+            usage = ev[-2].get("usage") if len(ev) >= 2 else None
+            require(status == 200 and ev[-1] == "[DONE]" and chunks
+                    and chunks[-1]["choices"][0]["finish_reason"] == "length"
+                    and usage and usage["completion_tokens"] == SERVE_TOKENS
+                    and usage["prompt_tokens"] == len(prompts[i]),
+                    f"processes {label} stream {i}: status {status}, last events {ev[-3:]}")
+            ttft.append(times[0])
+            texts.append("".join(c["choices"][0]["text"] for c in chunks))
+        return ttft, texts
+
+    ttft, texts = frontend_set(out["streams"], "two-worker")
+    again_ttft, _ = frontend_set(out["again"], "two-worker repeat")
+    solo_ttft, solo_texts = frontend_set(out["solo"], "survivor")
+    for label in ("drained", "after"):
+        status, body, _ = out[label]
+        ev = sse_events(body) if status == 200 else []
+        usage = ev[-2].get("usage") if len(ev) >= 2 else None
+        require(status == 200 and ev[-1] == "[DONE]" and usage
+                and usage["completion_tokens"] == SERVE_TOKENS,
+                f"processes {label} stream: status {status}, last events {ev[-3:]}")
+    tcp_tokens = out["tcp"]
+    require(all(len(t) == SERVE_TOKENS for t in tcp_tokens),
+            f"processes: TCP data-plane streams of {[len(t) for t in tcp_tokens]} tokens")
+
+    # the TCP streams' tokens under the reference forward, on the same seeded
+    # weights drawn here now that the workers are gone
+    params = get_family(spec).init_params(spec, 0, device=DEVICE)
+    checks = [near_argmax_check(spec, params, prompts[i], tcp_tokens[i]) for i in range(n)]
+    del params
+    torch.cuda.empty_cache()
+
+    # the stdlib codec's host cost for one coalesced frame of a decode step
+    from dynamo_tpu_torch.runtime import codec
+
+    frame = {"kind": "data", "ch": 3, "payloads": [{"token_ids": [int(t)]} for t in
+                                                   tcp_tokens[0][:8]]}
+    body = codec.packb(frame)
+    reps = 2000
+    t_pack = time.perf_counter()
+    for _ in range(reps):
+        codec.packb(frame)
+    t_unpack = time.perf_counter()
+    for _ in range(reps):
+        codec.unpackb(body)
+    t_end = time.perf_counter()
+    pack_us, unpack_us = 1e6 * (t_unpack - t_pack) / reps, 1e6 * (t_end - t_unpack) / reps
+
+    n_tok = n * SERVE_TOKENS
+    same_default = sum(tcp_tokens[i] == default_tokens[i] for i in range(n))
+    # the OpenAI streams carry text, not token ids: under the mock tokenizer
+    # only ids 16..271 have text, so these texts check the few tokens that do
+    decoded = [tok.decode(t) for t in tcp_tokens]
+    same_text = sum(texts[i] == decoded[i] for i in range(n))
+    same_solo = sum(solo_texts[i] == decoded[i] for i in range(n))
+    with_text = sum(16 <= t < 272 for ts in tcp_tokens for t in ts)
+    require(same_text == n, f"processes: {same_text}/{n} frontend texts equal the decoded "
+            "tokens of the same prompts over the TCP data plane")
+    print(f"processes: hub, 2 workers ({name}, --precompile) and frontend ready in "
+          f"{t_ready:.1f} s; both workers served ({out['served']})")
+
+    def rates(label, wall, ttft_mean, ttft_max):
+        return (f"{label}: {wall:.3f} s = {n_tok / wall:.1f} tok/s, client TTFT mean "
+                f"{1e3 * ttft_mean:.1f} ms, max {1e3 * ttft_max:.1f} ms")
+
+    print(f"processes: {n} concurrent streams x {SERVE_TOKENS} tokens, each set on cleared "
+          "prefix caches; " + "; ".join([
+              rates("phase 9 (one process, one engine, HTTP)", n_tok / http_stats["tok_s"],
+                    http_stats["ttft_mean"], http_stats["ttft_max"]),
+              rates("frontend -> 2 worker processes (their first traffic)", out["wall"],
+                    sum(ttft) / n, max(ttft)),
+              rates("this process -> 2 worker processes over the TCP data plane "
+                    "(no frontend)", out["tcp_wall"], sum(out["tcp_ttft"]) / n,
+                    max(out["tcp_ttft"])),
+              rates("frontend -> 2 worker processes again", out["again_wall"],
+                    sum(again_ttft) / n, max(again_ttft)),
+              rates("frontend -> 1 worker process (the survivor)", out["solo_wall"],
+                    sum(solo_ttft) / n, max(solo_ttft))]))
+    print(f"processes: the {n} prompts over the TCP data plane from this process: "
+          f"{same_default}/{n} token streams equal the default serve's; near-argmax worst "
+          f"gap {max(g for _, g in checks):.3f}, exact agreement min "
+          f"{min(a for a, _ in checks):.3f}; frontend texts equal to their decoded tokens: "
+          f"two workers {same_text}/{n} (required), survivor {same_solo}/{n} ({with_text} of "
+          f"{n_tok} tokens have text under the mock tokenizer)")
+    print(f"processes: drain: the SIGTERM'd worker had {out['drain_inflight']} request in "
+          f"flight, exited 0 after {out['drain_s']:.2f} s with '{out['drained_line']}', its "
+          f"instance key left the hub ({out['left']} generate instance left), the next "
+          f"completion went to the survivor; fused_decode launches {fused} = {L} x {steps} "
+          f"steps over both workers ({[x['steps'] for x in logs]} steps, replays "
+          f"{[x['replays'] for x in logs]})")
+    print(f"processes: codec host time per coalesced frame of 8 token items "
+          f"({len(body)} bytes): pack {pack_us:.2f} us, unpack {unpack_us:.2f} us")
+    return fused
+
+
+async def _drive_processes(spec, prompts, hub, port, workers, front):
+    """Phase 11's traffic, on this process's own loop."""
+    import re
+    import signal
+
+    from dynamo_tpu_torch.runtime.config import RuntimeConfig
+    from dynamo_tpu_torch.runtime.context import Context
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.runtime.hub_client import RemoteHub
+    from dynamo_tpu_torch.runtime.push import PushRouter, RouterMode
+
+    name = spec.name
+    prefix = "v1/instances/dynamo/backend/generate/"
+    drt = DistributedRuntime(await RemoteHub.connect(hub), RuntimeConfig(hub_address=hub))
+    out: dict = {}
+    try:
+        t0 = time.perf_counter()
+        while True:
+            status, body, _ = await http_call(port, "GET", "/v1/models")
+            listed = [m["id"] for m in json.loads(body)["data"]] if status == 200 else []
+            keys = await drt.hub.get_prefix(prefix)
+            if listed == [name] and len(keys) == 2:
+                break
+            require(time.perf_counter() - t0 < 30,
+                    f"processes: /v1/models {listed}, {len(keys)} generate instances")
+            await asyncio.sleep(0.1)
+        admin = await drt.namespace("dynamo").component("backend").endpoint(
+            "admin").client().start()
+        await admin.wait_for_instances(2, timeout=10)
+
+        async def cache_status():
+            out = {}
+            for iid in admin.instance_ids():
+                async for item in admin.call_instance(iid, {"op": "cache_status"},
+                                                      Context()):
+                    out[iid] = item
+            return out
+
+        async def clear_caches():
+            # every timed set starts on cleared prefix caches, as phase 9's
+            for iid in admin.instance_ids():
+                async for _ in admin.call_instance(iid, {"op": "clear_kv_blocks"},
+                                                   Context()):
+                    pass
+            t_clear = time.perf_counter()
+            while any(s["cached_pages"] for s in (await cache_status()).values()):
+                require(time.perf_counter() - t_clear < 5,
+                        "processes: the prefix caches were not cleared")
+                await asyncio.sleep(0.01)
+
+        async def frontend_streams():
+            t = time.perf_counter()
+            streams = await asyncio.gather(*(http_call(port, "POST", "/v1/completions", {
+                "model": name, "prompt": p, "max_tokens": SERVE_TOKENS,
+                "ignore_eos": True, "stream": True,
+                "stream_options": {"include_usage": True}}) for p in prompts))
+            return streams, time.perf_counter() - t
+
+        await clear_caches()
+        out["streams"], out["wall"] = await frontend_streams()
+        served = await cache_status()
+        out["served"] = ", ".join(f"{s['cached_pages']} cached pages" for s in served.values())
+        require(len(served) == 2 and all(s["cached_pages"] > 0 for s in served.values()),
+                f"processes: not both workers served: {served}")
+
+        # the same prompts over the TCP data plane, round robin, from here
+        router = await PushRouter.from_endpoint(
+            drt.namespace("dynamo").component("backend").endpoint("generate"),
+            RouterMode.ROUND_ROBIN)
+        await router.client.wait_for_instances(2, timeout=10)
+
+        async def tcp_one(p):
+            toks, first = [], None
+            async for item in router.generate(make_request(p), Context()):
+                if first is None:
+                    first = time.perf_counter() - t_tcp
+                toks += item["token_ids"]
+            return toks, first
+
+        await clear_caches()
+        t_tcp = time.perf_counter()
+        tcp = await asyncio.gather(*(tcp_one(p) for p in prompts))
+        out["tcp_wall"] = time.perf_counter() - t_tcp
+        out["tcp"], out["tcp_ttft"] = [t for t, _ in tcp], [f for _, f in tcp]
+        await router.client.close()
+        # the frontend set again, now that both workers have served traffic
+        await clear_caches()
+        out["again"], out["again_wall"] = await frontend_streams()
+
+        # SIGTERM drain of the worker serving one more stream
+        victim = {}
+
+        async def on_chunk(k):
+            if k != 5:
+                return
+            busy = [iid for iid, st in (await cache_status()).items() if st["active_pages"]]
+            require(len(busy) == 1, f"processes: {len(busy)} workers hold the stream")
+            w = next(w for w in workers if w.lease == busy[0] >> 16)
+            victim["w"], victim["t"] = w, time.perf_counter()
+            w.proc.send_signal(signal.SIGTERM)
+
+        out["drained"] = await http_call(port, "POST", "/v1/completions", {
+            "model": name, "prompt": prompts[4], "max_tokens": SERVE_TOKENS,
+            "ignore_eos": True, "stream": True, "stream_options": {"include_usage": True}},
+            on_chunk=on_chunk)
+        w = victim.get("w")
+        require(w is not None, "processes: the drained stream ended before its 5th chunk")
+        code = await asyncio.to_thread(w.stop)
+        out["drain_s"] = time.perf_counter() - victim["t"]
+        line = w.logged("ENGINE_DRAINED ")
+        require(code == 0 and line == "ENGINE_DRAINED leftover=0",
+                f"processes: drained worker exit {code}, line {line!r}: {w.seen[-8:]}")
+        out["drained_line"] = line
+        m = re.search(r"graceful drain \((\d+) in flight",
+                      next((ln for ln in w.seen if "graceful drain" in ln), ""))
+        out["drain_inflight"] = int(m.group(1)) if m else None
+        require(out["drain_inflight"] == 1,
+                f"processes: the worker drained {out['drain_inflight']} requests, not 1")
+        keys = await drt.hub.get_prefix(prefix)
+        out["left"] = len(keys)
+        require(len(keys) == 1 and all(int(k.rsplit("/", 1)[1], 16) >> 16 != w.lease
+                                       for k in keys),
+                f"processes: the drained worker's key is still in the hub: {list(keys)}")
+        survivor = next(x for x in workers if x is not w)
+        out["survivor"] = survivor
+        before = await cache_status()
+        out["after"] = await http_call(port, "POST", "/v1/completions", {
+            "model": name, "prompt": prompts[5], "max_tokens": SERVE_TOKENS,
+            "ignore_eos": True, "stream": True, "stream_options": {"include_usage": True}})
+        after = await cache_status()
+        require(list(after) == list(before) and len(after) == 1
+                and next(iter(after)) >> 16 == survivor.lease,
+                f"processes: the next completion's worker: {before} -> {after}")
+        # the 8 streams once more through the frontend, all on the survivor:
+        # one worker process at phase 9's batch, behind the same TCP hops
+        await clear_caches()
+        out["solo"], out["solo_wall"] = await frontend_streams()
+        await admin.close()
+    finally:
+        await drt.close()
+    return out
+
 
 
 def main() -> int:
@@ -1545,14 +1973,17 @@ def main() -> int:
     del engine
 
     # the same weights served over HTTP by the one-process stack
-    http_launches = http_serve(spec, dict(cfg, kv_dtype="bf16"), params, prompts,
-                               default_out, bf16_tokens)
+    http_launches, http_stats = http_serve(spec, dict(cfg, kv_dtype="bf16"), params,
+                                           prompts, default_out, bf16_tokens)
     del params
     torch.cuda.empty_cache()
     # the same stack from the command line, in a process of its own
     cli_check(spec.name)
+    # hub, two workers and frontend, each a process of its own
+    process_launches = process_phase(spec, cfg, prompts, bf16_tokens, http_stats)
 
-    launches = {"fused_decode": serve_launches["fused_decode"] + http_launches,
+    launches = {"fused_decode": serve_launches["fused_decode"] + http_launches
+                + process_launches,
                 "paged_attention_v3": unfused[0], "kv_write": unfused[2],
                 "fused_decode/fp8": serve_fp8["fused_decode/fp8"],
                 "paged_attention_v3/fp8": unfused_fp8[1]}

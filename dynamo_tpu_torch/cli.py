@@ -1,16 +1,20 @@
-"""dynamo-tpu's torch CLI: the one-process serving stack (the counterpart of
-dynamo_tpu/cli.py).
+"""dynamo-tpu's torch CLI (the counterpart of dynamo_tpu/cli.py).
 
     python -m dynamo_tpu_torch.cli run --in http --out engine --model llama-3-8b
         in-memory hub + torch engine worker + OpenAI HTTP frontend on one
         event loop; prints DYNAMO_HTTP=host:port once serving
     python -m dynamo_tpu_torch.cli run --in batch:reqs.jsonl --out engine
         offline batch: one JSON result line per input line
+    python -m dynamo_tpu_torch.cli hub|worker|frontend ...
+        one service process of a deployment (the same as python -m
+        dynamo_tpu_torch.<module>): the TCP hub (prints DYNAMO_HUB=), an
+        engine worker (prints ENGINE_READY; SIGTERM drains it) and the
+        OpenAI frontend (prints DYNAMO_HTTP=)
 
 The engine runs on the GPU; ``--device cpu`` runs it on the CPU (tests).
 Not yet ported, and refused: ``--in text``, ``--out mocker|echo`` and the
-service subcommands (hub, frontend, worker, router, ...), which need the
-TCP hub (ROADMAP Queue A item 4b) or their own slices.
+other service subcommands (router, mocker, planner, ...), which wait for
+their own slices.
 """
 
 from __future__ import annotations
@@ -20,16 +24,28 @@ import asyncio
 import json
 import sys
 
-REFUSED_COMMANDS = ("hub", "hub-replica", "frontend", "worker", "mocker", "router",
-                    "encoder", "operator", "planner", "bench", "profile")
+SUBCOMMAND_MODULES = {
+    "hub": "dynamo_tpu_torch.runtime.hub_server",
+    "frontend": "dynamo_tpu_torch.frontend.__main__",
+    "worker": "dynamo_tpu_torch.engine.worker",
+}
+# the reference's other service commands -> the ROADMAP Queue A item that
+# ports them
+REFUSED_COMMANDS = {
+    "hub-replica": "item 14", "mocker": "item 3, 4c", "router": "item 2, 4b-ii",
+    "encoder": "item 12", "operator": "item 14", "planner": "item 14",
+    "bench": "item 14", "profile": "item 14",
+}
 
 
 def _usage() -> str:
     return (
-        "usage: python -m dynamo_tpu_torch.cli run [args]\n"
+        "usage: python -m dynamo_tpu_torch.cli <command> [args]\n"
         "commands:\n"
         "  run        one-process serving stack (--in http|batch:FILE "
         "--out engine)\n"
+        + "".join(f"  {name:<10} launch {mod}\n"
+                  for name, mod in SUBCOMMAND_MODULES.items())
     )
 
 
@@ -162,10 +178,15 @@ def main(argv: list[str] | None = None) -> int:
     cmd, rest = argv[0], argv[1:]
     if cmd == "run":
         return _run_command(rest)
+    mod_name = SUBCOMMAND_MODULES.get(cmd)
+    if mod_name is not None:
+        import importlib
+
+        importlib.import_module(mod_name).main(rest)
+        return 0
     if cmd in REFUSED_COMMANDS:
         raise NotImplementedError(
-            f"{cmd!r} runs as its own process, which needs the TCP hub "
-            "(ROADMAP Queue A item 4b) or its own slice; use 'run'")
+            f"{cmd!r} is not ported yet (ROADMAP Queue A {REFUSED_COMMANDS[cmd]})")
     print(f"unknown command: {cmd!r}\n{_usage()}", file=sys.stderr)
     return 2
 

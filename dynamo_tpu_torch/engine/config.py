@@ -7,7 +7,8 @@ serving engine's memory and batching envelope.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import os
+from dataclasses import dataclass, fields
 
 
 @dataclass(frozen=True)
@@ -238,7 +239,8 @@ class ModelSpec:
 class EngineConfig:
     """The JAX engine's config, field for field. The port's engine reads
     the fields in the first group; the rest belong to features it has not
-    ported yet (ROADMAP Queue A) and are ignored."""
+    ported yet, and a value other than the default there raises
+    NotImplementedError naming its ROADMAP Queue A item (UNPORTED)."""
 
     # -- read by the port's engine ------------------------------------------
     page_size: int = 16  # tokens per page (= router block_size granularity)
@@ -292,7 +294,7 @@ class EngineConfig:
     # finish item posted, hidden behind an in-flight burst. 0 = don't wait.
     readmit_wait_s: float = 0.002
 
-    # -- JAX engine only, until their slices are ported -----------------------
+    # -- JAX engine only, until their slices are ported (see UNPORTED) ------
     tp: int = 1
     dp: int = 1
     sp: int = 1
@@ -319,6 +321,21 @@ class EngineConfig:
         from dynamo_tpu_torch.ops.quant import resolve_kv_dtype
 
         self.kv_dtype = resolve_kv_dtype(self.kv_dtype)
+        defaults = _UNPORTED_DEFAULTS
+        for name, item in UNPORTED.items():
+            value = getattr(self, name)
+            if name == "tenants":
+                value = value or ""  # {} is the reference's parsed "": unmetered
+            if value != defaults[name]:
+                raise NotImplementedError(
+                    f"EngineConfig.{name}={value!r}: the port's engine does not "
+                    f"have {item}; only the default {defaults[name]!r} is served")
+        if os.environ.get("DYN_TENANT_QUOTAS"):
+            raise NotImplementedError(
+                f"DYN_TENANT_QUOTAS is set: the port's engine does not have "
+                f"{UNPORTED['tenants']}")
+        if self.guided_mode not in ("auto", "off"):
+            raise ValueError(f"guided_mode {self.guided_mode!r} (auto | off)")
 
     @property
     def max_context(self) -> int:
@@ -332,3 +349,20 @@ class EngineConfig:
             f"prompt length {length} exceeds largest prefill bucket "
             f"{self.prefill_buckets[-1]}"
         )
+
+
+_OVERLOAD = "tenancy, quotas, admission bounds and preemption (ROADMAP Queue A item 5)"
+_SPEC = "speculative decoding (ROADMAP Queue A item 6)"
+_PARALLEL = "parallelism (ROADMAP Queue A item 11)"
+# fields of features the port's engine lacks -> what is missing. guided_mode
+# is not here: the engine refuses guided requests itself, as the reference
+# engine with guided_mode="off" does, so "auto" and "off" serve alike
+UNPORTED = {
+    "tp": _PARALLEL, "dp": _PARALLEL, "sp": _PARALLEL, "ep": _PARALLEL, "pp": _PARALLEL,
+    "max_waiting": _OVERLOAD, "tenants": _OVERLOAD, "preemption": _OVERLOAD,
+    "spec_mode": _SPEC, "spec_k_max": _SPEC, "spec_ngram_min": _SPEC,
+    "spec_ngram_max": _SPEC, "spec_ewma_alpha": _SPEC, "spec_reprobe_tokens": _SPEC,
+    "guided_cache_entries": "guided decoding (ROADMAP Queue A item 7)",
+    "profile": "the step-phase profiler (ROADMAP Queue A item 13)",
+}
+_UNPORTED_DEFAULTS = {f.name: f.default for f in fields(EngineConfig) if f.name in UNPORTED}

@@ -58,7 +58,11 @@ from dynamo_tpu_torch.engine.sampling import (
 )
 from dynamo_tpu_torch.models.family import get_family
 from dynamo_tpu_torch.models.llama import resolve_device
-from dynamo_tpu_torch.runtime.context import Context, DeadlineExceeded
+from dynamo_tpu_torch.runtime.context import (
+    Context,
+    DeadlineExceeded,
+    ServiceUnavailable,
+)
 from dynamo_tpu_torch.tokens import TokenBlockSequence
 
 log = logging.getLogger("dynamo_tpu_torch.engine")
@@ -180,6 +184,10 @@ class InferenceEngine:
         self._loop_thread: int | None = None
         self._wake = threading.Event()
         self._closed = False
+        # graceful drain (worker SIGTERM): refuse new requests, finish the
+        # admitted ones; the deadline prices the refusals' Retry-After
+        self._draining = False
+        self._drain_deadline: float | None = None
         self._clear_cache_requested = False
         self._partial: _PartialPrefill | None = None
         # dispatched-but-unprocessed decode bursts, oldest first (at most
@@ -244,6 +252,37 @@ class InferenceEngine:
         self._clear_cache_requested = True
         self._wake.set()
 
+    def begin_drain(self, deadline_s: float | None = None) -> None:
+        """Graceful-drain entry (the worker's SIGTERM path): refuse NEW
+        requests with ServiceUnavailable (retryable, so the frontend's
+        migration operator re-drives them on a live worker) while admitted
+        work runs to completion. The step loop keeps running until close().
+        ``deadline_s``: seconds until the drain force-cancels; refusals
+        carry what is left of it as Retry-After."""
+        self._draining = True
+        if deadline_s is not None:
+            self._drain_deadline = time.monotonic() + max(deadline_s, 0.0)
+        self._wake.set()
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    def _drain_retry_after(self) -> float:
+        """Retry-After for draining refusals: the remaining drain window
+        when known (clamped to [1, 60]), else 1 s."""
+        if self._drain_deadline is None:
+            return 1.0
+        return min(max(self._drain_deadline - time.monotonic(), 1.0), 60.0)
+
+    def inflight(self) -> int:
+        """Admitted-but-unfinished work (the drain-completion signal)."""
+        return (
+            sum(s is not None for s in self._slots)
+            + len(self._waiting)
+            + (1 if self._partial is not None else 0)
+        )
+
     async def generate(
         self, request: dict[str, Any], context: Context
     ) -> AsyncIterator[dict[str, Any]]:
@@ -252,6 +291,12 @@ class InferenceEngine:
             yield {"token_ids": [], "finish_reason": "error",
                    "error": "engine closed"}
             return
+        if self._draining:
+            # typed refusal: it crosses the transport as a retryable,
+            # 503-mappable error (another worker may accept)
+            raise ServiceUnavailable(
+                "worker draining", retry_after_s=self._drain_retry_after()
+            )
         if context.deadline_expired:
             raise DeadlineExceeded(
                 f"request {context.id} deadline passed before admission"

@@ -4,21 +4,29 @@ dynamo_tpu/engine/worker.py, aggregated mode).
 ``launch_engine_worker`` builds ``InferenceEngine(spec, cfg, device=...)``,
 optionally captures its decode graphs (``precompile``) off the event loop,
 registers the model card and the ``generate`` endpoint, serves the
-``admin`` endpoint (``clear_kv_blocks``, ``cache_status``) and starts the
-engine's step thread on the calling loop: the step thread posts its tokens
-to the loop that started it, so run the worker and the HTTP frontend on one
-loop.
+``admin`` endpoint (``clear_kv_blocks``, ``cache_status``, ``drain``) and
+starts the engine's step thread on the calling loop: the step thread posts
+its tokens to the loop that started it.
+
+``python -m dynamo_tpu_torch.engine.worker --hub HOST:PORT`` (or ``python -m
+dynamo_tpu_torch.cli worker``) runs one worker process: it connects to the
+hub, serves, prints ``ENGINE_READY``, and on SIGTERM drains (withdraws its
+instance key, refuses new requests, finishes the admitted ones, closes the
+engine), prints its kernel launch counts and ``ENGINE_DRAINED leftover=N``,
+and exits. The engine runs on the GPU; ``--device cpu`` runs it on the CPU.
 
 The default router mode is "round_robin" (the reference's is "kv") until
 the KV router and the KV-event publisher are ported (ROADMAP Queue A item
-4b). Not in this slice: the worker process entry point (it needs the TCP
-hub, 4b), KV-event and metrics publishers, health server, drain, faults and
-timeline admin ops, disagg, KVBM, SPMD, speculative and guided decoding.
+2, 4b-ii). The reference's flags for features the port lacks raise
+NotImplementedError naming their item: disagg, KVBM, SPMD and meshes,
+speculative decoding, tenancy, health server, parsers, multimodal.
 """
 
 from __future__ import annotations
 
+import argparse
 import asyncio
+import json
 import logging
 
 import torch
@@ -27,9 +35,14 @@ from dynamo_tpu_torch.engine.config import EngineConfig, ModelSpec
 from dynamo_tpu_torch.engine.core import InferenceEngine
 from dynamo_tpu_torch.frontend.model_card import register_llm
 from dynamo_tpu_torch.frontend.tokenizer import load_tokenizer
+from dynamo_tpu_torch.runtime.config import RuntimeConfig
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+from dynamo_tpu_torch.runtime.hub_client import connect_hub
+from dynamo_tpu_torch.runtime.logging_util import setup_logging
 
 log = logging.getLogger("dynamo_tpu_torch.engine.worker")
+
+PREFILL_COMPONENT = "prefill"
 
 
 async def launch_engine_worker(
@@ -56,12 +69,12 @@ async def launch_engine_worker(
     if router_mode == "kv":
         raise NotImplementedError(
             "router_mode 'kv' needs the KV router and the KV-event publisher "
-            "(ROADMAP Queue A item 4b); use 'round_robin'"
+            "(ROADMAP Queue A item 2, 4b-ii); use 'round_robin'"
         )
     if model_type not in ("chat", "completions"):
         raise NotImplementedError(
             f"model_type {model_type!r}: the port serves chat and completions "
-            "models (embeddings are ROADMAP Queue A item 14)"
+            "models (embeddings are ROADMAP Queue A item 12)"
         )
     load_tokenizer(tokenizer)  # a tokenizer the frontend cannot load fails here
     cfg = engine_config or EngineConfig()
@@ -92,6 +105,12 @@ async def launch_engine_worker(
         if op == "clear_kv_blocks":
             engine.request_clear_cache()
             yield {"ok": True}
+        elif op == "drain":
+            # operator-triggered drain: the SIGTERM path's withdraw-and-
+            # stop-admitting, but the process stays up (exiting is the
+            # operator's call)
+            await _withdraw_and_begin_drain(drt, engine, served)
+            yield {"ok": True, "inflight": engine.inflight()}
         elif op == "cache_status":
             yield {
                 "ok": True,
@@ -112,3 +131,264 @@ async def launch_engine_worker(
         cfg.max_decode_slots,
     )
     return engine, served
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches in this process so far, by kernel and fp8 form
+    (ops/cuda/build.py counters; graph replays included)."""
+    from dynamo_tpu_torch.ops.cuda.build import KERNELS
+
+    out: dict[str, int] = {}
+    for fn in KERNELS:
+        out[fn.__name__] = fn.launches
+        out[fn.__name__ + "/fp8"] = fn.fp8_launches
+    return out
+
+
+def _engine_config(args: argparse.Namespace) -> EngineConfig:
+    """The reference's EngineConfig from the worker's flags (CLI beats the
+    DYN_* env / DYN_CONFIG layer); flags of unported features raise here or
+    in EngineConfig."""
+    refused = [
+        (args.model_path, "--model-path: checkpoint loading (ROADMAP Queue A item 4)"),
+        (args.router_mode == "kv", "--router-mode kv: the KV router and the KV-event "
+         "publisher (ROADMAP Queue A item 2, 4b-ii)"),
+        (args.mode != "aggregated", f"--mode {args.mode}: disaggregated serving "
+         "(ROADMAP Queue A item 10)"),
+        (args.kvbm_host_mb or args.kvbm_disk_mb or args.kvbm_disk_dir
+         or args.kvbm_remote_blocks, "--kvbm-*: KVBM (ROADMAP Queue A item 10)"),
+        (args.prefill_component != PREFILL_COMPONENT or args.prefill_router_mode != "kv"
+         or args.max_local_prefill_length != 128 or args.always_remote_prefill,
+         "--prefill-* / --max-local-prefill-length / --always-remote-prefill: "
+         "disaggregated serving (ROADMAP Queue A item 10)"),
+        (args.mirror or args.coordinator_address or args.num_processes is not None
+         or args.process_id is not None,
+         "--mirror / --coordinator-address: SPMD multi-host (ROADMAP Queue A item 11)"),
+        (args.health_port >= 0 or args.health_interval != 5.0
+         or args.health_timeout != 5.0,
+         "--health-port / --health-interval / --health-timeout: the health server "
+         "(ROADMAP Queue A item 3, 4c)"),
+        (args.tool_call_parser or args.reasoning_parser,
+         "--tool-call-parser / --reasoning-parser: parsers (ROADMAP Queue A item 3, 4c)"),
+        (args.mm_tokens_per_image or args.image_token_id or args.mm_video_frames != 8,
+         "--mm-*: multimodal (ROADMAP Queue A item 12)"),
+    ]
+    for hit, what in refused:
+        if hit:
+            raise NotImplementedError(f"{what} is not ported")
+    env_cfg = RuntimeConfig.from_env()
+    return EngineConfig(
+        page_size=args.page_size,
+        num_pages=args.num_pages,
+        max_pages_per_seq=args.max_pages_per_seq,
+        max_decode_slots=args.max_decode_slots,
+        decode_steps_per_dispatch=args.decode_steps_per_dispatch,
+        # serving workers ALWAYS pipeline, as the reference's do: burst N+1
+        # dispatches with device-chained tokens while burst N's tokens are
+        # on their way to the host (stops are detected up to
+        # pipeline_depth bursts late, the overshoot discarded)
+        pipeline_decode=True,
+        max_prefill_chunk_tokens=args.max_prefill_chunk_tokens,
+        tp=args.tp,
+        sp=args.sp,
+        ep=args.ep,
+        spec_mode=args.spec if args.spec is not None else (env_cfg.spec_mode or "off"),
+        spec_k_max=args.spec_k_max or env_cfg.spec_k_max or 8,
+        spec_ngram_min=args.spec_ngram_min,
+        spec_ngram_max=args.spec_ngram_max,
+        guided_mode=args.guided if args.guided is not None else (
+            env_cfg.guided_mode or "auto"),
+        tenants=(args.tenant_quotas if args.tenant_quotas is not None
+                 else (env_cfg.tenant_quotas or "")),
+        max_waiting=args.max_waiting,
+        preemption=args.preemption,
+    )
+
+
+async def _amain(args: argparse.Namespace, ecfg: EngineConfig) -> None:
+    from dynamo_tpu_torch.models.llama import resolve_device
+
+    device = resolve_device(args.device)  # no GPU and no --device cpu raises here
+    rcfg = RuntimeConfig.from_env()
+    if args.hub:
+        rcfg.override_hub(args.hub)
+    drt = DistributedRuntime(await connect_hub(rcfg.hub_target()), rcfg)
+    engine = None
+    try:
+        engine, served = await launch_engine_worker(
+            drt,
+            namespace=args.namespace,
+            component=args.component,
+            endpoint=args.endpoint,
+            model=args.model,
+            model_name=args.model_name,
+            model_type=args.model_type,
+            tokenizer=args.tokenizer,
+            engine_config=ecfg,
+            router_mode=args.router_mode,
+            precompile=args.precompile,
+            device=device,
+        )
+        # launches from here on: precompile's warm-up steps are not traffic
+        base = (launch_counts(), engine.steps, engine._graphs.replays)
+        print("ENGINE_READY", flush=True)
+        drain = _install_drain_handler(drt, engine, served, base)
+        await drt.runtime.wait_for_shutdown()
+        if drain["task"] is not None:
+            await drain["task"]  # it closes the engine, then prints
+    finally:
+        if engine is not None:
+            await engine.close()
+        await drt.close()
+
+
+def _install_drain_handler(drt, engine, served, base) -> dict:
+    """SIGTERM => graceful drain (k8s preStop / pod deletion path). Returns
+    the state holding the drain task once one starts."""
+    import signal
+
+    state: dict = {"task": None}
+
+    def on_sigterm() -> None:
+        if state["task"] is not None:
+            return  # second SIGTERM while draining: let the first finish
+        # keep a strong reference: the loop holds tasks only weakly
+        state["task"] = asyncio.get_running_loop().create_task(
+            graceful_drain(drt, engine, served, base=base)
+        )
+
+    try:
+        asyncio.get_running_loop().add_signal_handler(signal.SIGTERM, on_sigterm)
+    except (NotImplementedError, RuntimeError):  # pragma: no cover
+        pass  # non-unix event loop
+    return state
+
+
+async def _withdraw_and_begin_drain(
+    drt, engine, served, deadline_s: float | None = None
+) -> None:
+    """Steps 1-2 of the drain contract, shared by the SIGTERM path and the
+    admin ``drain`` op: WITHDRAW the instance key from the hub (lease kept
+    alive, so routers stop picking this worker within one watch event),
+    then STOP ADMITTING (new generates refuse with ServiceUnavailable,
+    whose Retry-After is the remaining drain window)."""
+    try:
+        await drt.hub.delete(served.instance.path)
+    except (ConnectionError, RuntimeError) as e:
+        log.warning("drain: instance withdrawal failed (%s)", e)
+    engine.begin_drain(
+        drt.config.drain_timeout_s if deadline_s is None else deadline_s
+    )
+
+
+async def graceful_drain(
+    drt, engine, served, timeout_s: float | None = None, base=None
+) -> None:
+    """Worker drain (the k8s preStop contract):
+
+    1. WITHDRAW this worker's instance key from the hub (lease kept alive);
+    2. STOP ADMITTING: new generates refuse with ServiceUnavailable
+       (retryable: migration re-drives them on a live worker);
+    3. FINISH IN-FLIGHT work under the drain deadline;
+    4. EXIT: runtime shutdown force-cancels whatever outlived the deadline,
+       the engine closes (step thread joined, decode graphs released), the
+       kernel launch counts since ``base`` are logged, then
+       ``ENGINE_DRAINED leftover=N``.
+    """
+    timeout_s = drt.config.drain_timeout_s if timeout_s is None else timeout_s
+    log.warning("SIGTERM: graceful drain (%d in flight, timeout %.0fs)",
+                engine.inflight(), timeout_s)
+    await _withdraw_and_begin_drain(drt, engine, served, timeout_s)
+    loop = asyncio.get_running_loop()
+    deadline = loop.time() + timeout_s
+    server = drt._server
+    while loop.time() < deadline:
+        if engine.inflight() == 0 and (server is None or server.num_inflight == 0):
+            break
+        await asyncio.sleep(0.1)
+    leftover = engine.inflight()
+    if leftover:
+        log.warning("drain deadline: %d request(s) still in flight", leftover)
+    # past the deadline the transport stop force-cancels at once
+    await drt.shutdown(drain=True, drain_timeout=5.0 if leftover == 0 else 0.0)
+    await engine.close()
+    counts, steps, replays = base or ({}, 0, 0)
+    launches = {k: v - counts.get(k, 0) for k, v in launch_counts().items()}
+    print("ENGINE_LAUNCHES " + json.dumps({
+        "launches": launches, "steps": engine.steps - steps,
+        "replays": engine._graphs.replays - replays}), flush=True)
+    print(f"ENGINE_DRAINED leftover={leftover}", flush=True)
+
+
+def main(argv: list[str] | None = None) -> None:
+    p = argparse.ArgumentParser(description="dynamo-tpu torch engine worker")
+    p.add_argument("--hub", default=None)
+    p.add_argument("--namespace", default="dynamo")
+    p.add_argument("--component", default="backend")
+    p.add_argument("--endpoint", default="generate")
+    p.add_argument("--model", default="tiny-test", help="model preset name")
+    p.add_argument("--model-path", default=None,
+                   help="local checkpoint dir (not ported: raises)")
+    p.add_argument("--model-name", default=None, help="served model name")
+    p.add_argument("--model-type", default="chat",
+                   choices=["chat", "completions", "embeddings"])
+    p.add_argument("--tokenizer", default="mock")
+    p.add_argument("--device", default=None,
+                   help="torch device of the engine (default: the GPU)")
+    p.add_argument("--page-size", type=int, default=16)
+    p.add_argument("--num-pages", type=int, default=2048)
+    p.add_argument("--max-pages-per-seq", type=int, default=64)
+    p.add_argument("--max-decode-slots", type=int, default=8)
+    p.add_argument("--decode-steps-per-dispatch", type=int, default=1)
+    p.add_argument("--max-prefill-chunk-tokens", type=int, default=512)
+    p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--sp", type=int, default=1)
+    p.add_argument("--ep", type=int, default=1)
+    p.add_argument("--router-mode", default="round_robin",
+                   choices=["kv", "round_robin", "random"])
+    p.add_argument("--tool-call-parser", default=None)
+    p.add_argument("--reasoning-parser", default=None)
+    p.add_argument("--mm-tokens-per-image", type=int, default=0)
+    p.add_argument("--image-token-id", type=int, default=0)
+    p.add_argument("--mm-video-frames", type=int, default=8)
+    p.add_argument("--mode", default="aggregated",
+                   choices=["aggregated", "prefill", "decode"])
+    p.add_argument("--prefill-component", default=PREFILL_COMPONENT)
+    p.add_argument("--prefill-router-mode", default="kv",
+                   choices=["kv", "round_robin", "random"])
+    p.add_argument("--max-local-prefill-length", type=int, default=128)
+    p.add_argument("--always-remote-prefill", action="store_true")
+    p.add_argument("--kvbm-host-mb", type=int, default=0)
+    p.add_argument("--kvbm-disk-mb", type=int, default=0)
+    p.add_argument("--kvbm-disk-dir", default=None)
+    p.add_argument("--kvbm-remote-blocks", type=int, default=0)
+    p.add_argument("--spec", default=None, choices=["off", "ngram"])
+    p.add_argument("--spec-k-max", type=int, default=0)
+    p.add_argument("--spec-ngram-min", type=int, default=1)
+    p.add_argument("--spec-ngram-max", type=int, default=4)
+    p.add_argument("--tenant-quotas", default=None)
+    p.add_argument("--max-waiting", type=int, default=0)
+    p.add_argument("--preemption", action=argparse.BooleanOptionalAction, default=True)
+    p.add_argument("--guided", default=None, choices=["auto", "off"],
+                   help="guided requests are refused either way (no guided "
+                        "decoding in the port's engine yet)")
+    p.add_argument("--precompile", action=argparse.BooleanOptionalAction, default=False,
+                   help="capture every decode graph variant before registering")
+    p.add_argument("--health-port", type=int, default=-1)
+    p.add_argument("--health-interval", type=float, default=5.0)
+    p.add_argument("--health-timeout", type=float, default=5.0)
+    p.add_argument("--mirror", default=None, choices=["leader", "follower"])
+    p.add_argument("--coordinator-address", default=None)
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+    args = p.parse_args(argv)
+    ecfg = _engine_config(args)  # unported flags raise before any set-up
+    setup_logging()
+    try:
+        asyncio.run(_amain(args, ecfg))
+    except KeyboardInterrupt:
+        pass
+
+
+if __name__ == "__main__":
+    main()

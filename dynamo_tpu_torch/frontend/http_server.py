@@ -8,10 +8,13 @@ module does the part of aiohttp's work that frontend/http.py relies on:
   it), a body of 1 MiB or more refused with 413 (aiohttp's default
   ``client_max_size``) without reading it;
 - routing by (method, path): an unknown path answers 404, a known path
-  with another method 405 with ``Allow``;
+  with another method 405 with ``Allow``; ``HEAD`` on a GET route answers
+  the GET's status and headers, ``Content-Length`` included, with no body
+  (aiohttp's ``allow_head=True``);
 - JSON / text responses with ``Content-Length``, and streamed responses
   (SSE) in chunked transfer encoding, so the connection stays usable after
-  the stream ends;
+  the stream ends; an HTTP/1.0 client, which has no chunked coding, gets
+  the raw body and the connection closes at its end, as aiohttp does;
 - a client that goes away mid-stream surfaces as ``ConnectionResetError``
   from ``StreamResponse.write``;
 - ``stop()`` closes every open connection itself: Python 3.12's
@@ -101,14 +104,16 @@ class Response:
 
 
 class StreamResponse:
-    """A streamed 200 response in chunked transfer encoding (SSE). A write
-    to a client that went away raises ConnectionResetError."""
+    """A streamed 200 response (SSE): in chunked transfer encoding, or raw
+    up to the connection's close for an HTTP/1.0 client. A write to a
+    client that went away raises ConnectionResetError."""
 
     def __init__(self, request: Request, headers: dict[str, str]):
         self._writer = request.writer
         self._headers = headers
         self.status = 200
         self.finished = False
+        self.chunked = request.version != "HTTP/1.0"
 
     async def _send(self, data: bytes) -> None:
         if self._writer.is_closing():
@@ -117,18 +122,21 @@ class StreamResponse:
         await self._writer.drain()
 
     async def prepare(self) -> None:
-        lines = ["HTTP/1.1 200 OK", "Transfer-Encoding: chunked",
+        framing = "Transfer-Encoding: chunked" if self.chunked else "Connection: close"
+        lines = ["HTTP/1.1 200 OK", framing,
                  *(f"{k}: {v}" for k, v in self._headers.items())]
         await self._send(("\r\n".join(lines) + "\r\n\r\n").encode("latin-1"))
 
     async def write(self, data: bytes) -> None:
         if data:
-            await self._send(b"%x\r\n%b\r\n" % (len(data), data))
+            await self._send(b"%x\r\n%b\r\n" % (len(data), data) if self.chunked
+                             else data)
 
     async def write_eof(self) -> None:
         if not self.finished:
             self.finished = True
-            await self._send(b"0\r\n\r\n")
+            if self.chunked:
+                await self._send(b"0\r\n\r\n")
 
 
 Handler = Callable[[Request], Awaitable["Response | StreamResponse"]]
@@ -266,9 +274,11 @@ class HttpServer:
         resp = await self._dispatch(request)
         if isinstance(resp, StreamResponse):
             # a streamed response ends its own body; one that failed
-            # before its end leaves the connection unusable
-            return resp.finished and request.keep_alive
-        writer.write(resp.head(request.keep_alive) + resp.body)
+            # before its end, or one delimited by the close, leaves the
+            # connection unusable
+            return resp.finished and resp.chunked and request.keep_alive
+        head = resp.head(request.keep_alive)
+        writer.write(head if method == "HEAD" else head + resp.body)
         await writer.drain()
         return request.keep_alive
 
@@ -277,6 +287,8 @@ class HttpServer:
         if methods is None:
             return Response(404, "404: Not Found")
         handler = methods.get(request.method)
+        if handler is None and request.method == "HEAD":
+            handler = methods.get("GET")
         if handler is None:
             return Response(405, "405: Method Not Allowed",
                             headers={"Allow": ",".join(sorted(methods))})

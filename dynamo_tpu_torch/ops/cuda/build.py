@@ -4,12 +4,17 @@ Every ``*.cu`` source compiles with its own ``nvcc`` process, all started
 together, for ``sm_90a``; the objects link into one shared library with a
 plain C interface, ``build/dynamo_tpu_torch/libkernels.so`` at the root of
 the checkout, loaded with ``ctypes``. The build runs at first use and again
-whenever a source is newer than the library. Nothing here runs at import.
+whenever a source is newer than the library. The staleness check and the
+build hold an ``fcntl`` lock on ``build/dynamo_tpu_torch/.lock``, so
+processes started together on a fresh checkout (a hub's workers) build once
+and load the same library. Nothing here runs at import.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -68,12 +73,39 @@ def _stale() -> bool:
     )
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile every source in parallel and link ``libkernels.so``.
-    Writes into a private temporary directory and renames the library into
-    place, so concurrent builders never load a half-written file."""
-    nvcc = nvcc_path()
+@contextlib.contextmanager
+def _build_lock():
+    """Hold the cross-process build lock (released by the kernel if the
+    holder dies, so a killed build leaves nothing to clean up)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile every source in parallel and link ``libkernels.so``, under
+    the build lock."""
+    with _build_lock():
+        return _compile(verbose)
+
+
+def ensure_built() -> Path:
+    """Build unless the library is fresh; one process builds while the
+    others wait on the lock, then find it fresh."""
+    with _build_lock():
+        if _stale():
+            _compile(False)
+    return LIB_PATH
+
+
+def _compile(verbose: bool) -> Path:
+    """Writes into a private temporary directory and renames the library
+    into place, so a reader never loads a half-written file."""
+    nvcc = nvcc_path()
     sources = sorted(CSRC.glob("*.cu"))
     flags = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
     if verbose:
@@ -113,9 +145,7 @@ def load_library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            if _stale():
-                build()
-            lib = ctypes.CDLL(str(LIB_PATH))
+            lib = ctypes.CDLL(str(ensure_built()))
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes

@@ -6,9 +6,9 @@ KV store under ``v1/instances/{ns}/{component}/{endpoint}/{instance_id}``,
 bound to its lease: when the lease dies the key goes, and every watcher
 (routers, clients) sees the worker disappear.
 
-The port's ``Client`` serves instances of transport ``"local"`` (handlers
-in this process). A ``"tcp"`` instance raises StreamError until the TCP
-transport is ported (ROADMAP Queue A item 4b).
+``Client`` calls ``"local"`` instances (handlers in this process) directly
+and ``"tcp"`` instances over one pooled ``InstanceChannel`` each, dialled
+when the instance appears (``prewarm_dials``) or at the first call.
 """
 
 from __future__ import annotations
@@ -19,8 +19,13 @@ from contextlib import aclosing
 from dataclasses import dataclass, field
 from typing import TYPE_CHECKING, Any, AsyncIterator
 
-from dynamo_tpu_torch.runtime.context import Context, StreamError
-from dynamo_tpu_torch.runtime.transport import Handler, call_local
+from dynamo_tpu_torch.runtime.context import (
+    Context,
+    ServiceUnavailable,
+    StreamError,
+    spawn,
+)
+from dynamo_tpu_torch.runtime.transport import Handler, InstanceChannel, call_local
 
 if TYPE_CHECKING:
     from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
@@ -152,6 +157,10 @@ class Client:
         self._drt = drt
         self.endpoint = endpoint
         self._instances: dict[int, Instance] = {}
+        self._channels: dict[int, InstanceChannel] = {}
+        # channels of withdrawn instances whose streams are still running
+        self._retiring: set[InstanceChannel] = set()
+        self._dials: dict[int, asyncio.Task] = {}  # single-flight, by iid
         self._watch_task: asyncio.Task | None = None
         self._started = False
         self._events: asyncio.Event = asyncio.Event()  # set on any membership change
@@ -171,9 +180,25 @@ class Client:
                 if ev.kind == "put" and ev.value:
                     inst = Instance.from_dict(ev.value)
                     self._instances[inst.instance_id] = inst
+                    if inst.transport == "tcp" and self._drt.config.prewarm_dials:
+                        # warm the pool at discovery so the instance's
+                        # first request doesn't pay the dial
+                        spawn(self._prewarm(inst),
+                              name=f"prewarm-{inst.instance_id:x}")
                 elif ev.kind == "delete":
                     iid = int(ev.key.rsplit("/", 1)[-1], 16)
                     self._instances.pop(iid, None)
+                    dial = self._dials.pop(iid, None)
+                    if dial is not None:
+                        dial.cancel()
+                    ch = self._channels.pop(iid, None)
+                    if ch is not None and ch.busy:
+                        # a withdrawn (draining) worker finishes the streams
+                        # it holds: closing their channel would kill them
+                        # into a migration. The last one closes it.
+                        self._retiring.add(ch)
+                    elif ch is not None:
+                        await ch.close()
                 self.membership_gen += 1
                 self._events.set()
         except asyncio.CancelledError:
@@ -215,20 +240,89 @@ class Client:
         inst = self._instances.get(instance_id)
         if inst is None:
             raise StreamError(f"instance {instance_id:x} not found for {self.endpoint.path}")
-        if inst.transport != "local":
-            raise StreamError(
-                f"instance {instance_id:x} of {self.endpoint.path} serves over "
-                f"{inst.transport!r}; the port serves in-process instances only "
-                "until the TCP transport lands (ROADMAP Queue A item 4b)"
+        if inst.transport == "local":
+            handler = self._drt.local_registry.get(inst.wire_path)
+            if handler is None:
+                raise StreamError(f"local instance {instance_id:x} has no handler")
+            local_stream = call_local(handler, payload, context)
+            async with aclosing(local_stream):
+                async for item in local_stream:
+                    yield item
+            return
+        ch = await self._channel(inst)
+        try:
+            stream = ch.call(inst.wire_path, payload, context)
+            async with aclosing(stream):
+                async for item in stream:
+                    yield item
+        except ServiceUnavailable:
+            # the worker answered (draining or saturated): the channel and
+            # the other streams on it are sound
+            raise
+        except StreamError:
+            # connection-level death: drop the channel so the next call
+            # redials
+            if self._channels.get(instance_id) is ch:
+                del self._channels[instance_id]
+            self._retiring.discard(ch)
+            await ch.close()
+            raise
+        finally:
+            if ch in self._retiring and not ch.busy:
+                self._retiring.discard(ch)
+                await ch.close()
+
+    async def _prewarm(self, inst: Instance) -> None:
+        try:
+            await self._channel(inst)
+        except (StreamError, asyncio.CancelledError):
+            # best effort: the first real call redials (and migration
+            # re-drives if the instance is truly gone)
+            pass
+
+    async def _channel(self, inst: Instance) -> InstanceChannel:
+        ch = self._channels.get(inst.instance_id)
+        if ch is not None and ch.connected:
+            return ch
+        # single-flight per instance id: two concurrent first calls must
+        # not both dial (the loser's socket would leak)
+        dial = self._dials.get(inst.instance_id)
+        if dial is None:
+            dial = asyncio.ensure_future(self._dial(inst))
+            self._dials[inst.instance_id] = dial
+            dial.add_done_callback(
+                lambda _t, iid=inst.instance_id: self._dials.pop(iid, None)
             )
-        handler = self._drt.local_registry.get(inst.wire_path)
-        if handler is None:
-            raise StreamError(f"local instance {instance_id:x} has no handler")
-        local_stream = call_local(handler, payload, context)
-        async with aclosing(local_stream):
-            async for item in local_stream:
-                yield item
+        # shield: a cancelled caller must not kill the shared dial the
+        # other waiters are relying on
+        try:
+            return await asyncio.shield(dial)
+        except asyncio.CancelledError:
+            if dial.cancelled():
+                # the dial itself was torn down (instance deleted mid-dial):
+                # surface a retryable stream death, not caller cancellation
+                raise StreamError(
+                    f"instance {inst.instance_id:x} went away mid-dial"
+                ) from None
+            raise
+
+    async def _dial(self, inst: Instance) -> InstanceChannel:
+        ch = InstanceChannel(inst.host, inst.port, uds=inst.uds)
+        try:
+            await ch.connect(self._drt.config.connect_timeout_s)
+        except (OSError, asyncio.TimeoutError) as e:
+            await ch.close()
+            raise StreamError(f"connect to {inst.host}:{inst.port} failed: {e}") from e
+        self._channels[inst.instance_id] = ch
+        return ch
 
     async def close(self) -> None:
         if self._watch_task is not None:
             self._watch_task.cancel()
+        for dial in list(self._dials.values()):
+            dial.cancel()
+        self._dials.clear()
+        for ch in [*self._channels.values(), *self._retiring]:
+            await ch.close()
+        self._channels.clear()
+        self._retiring.clear()

@@ -2,19 +2,18 @@
 counterpart of dynamo_tpu/runtime/distributed.py).
 
 ``Runtime`` owns the process lifecycle (shutdown event). ``DistributedRuntime``
-adds the cluster: the hub, the process lease and its keepalive, the local
-in-proc handler registry, and the component tree accessor.
-
-The port runs the one-process stack only: the hub is the in-memory one
-living in this process, so every served endpoint is a ``"local"`` instance.
-A hub address raises NotImplementedError until the TCP hub client and the
-endpoint transport are ported (ROADMAP Queue A item 4b).
+adds the cluster: the hub (in-memory, or a ``RemoteHub`` over TCP), the
+process lease and its keepalive, the shared ``EndpointServer`` for this
+process's endpoints, the local in-proc handler registry, and the component
+tree accessor. Endpoints serve as ``"local"`` instances only when the hub is
+the in-memory one living in this process; otherwise they serve over TCP.
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import os
 import random
 from typing import Any
 
@@ -26,15 +25,10 @@ from dynamo_tpu_torch.runtime.component import (
 )
 from dynamo_tpu_torch.runtime.config import RuntimeConfig
 from dynamo_tpu_torch.runtime.hub import Hub, InMemoryHub
-from dynamo_tpu_torch.runtime.transport import Handler, LocalRegistry
+from dynamo_tpu_torch.runtime.hub_client import RemoteHub
+from dynamo_tpu_torch.runtime.transport import EndpointServer, Handler, LocalRegistry
 
 log = logging.getLogger("dynamo_tpu_torch.runtime")
-
-REMOTE_HUB_TODO = (
-    "the port's runtime serves an in-memory hub only; the TCP hub client, "
-    "hub server and endpoint transport are ROADMAP Queue A item 4b"
-)
-
 
 class Runtime:
     """Process runtime: shutdown coordination."""
@@ -57,27 +51,32 @@ class DistributedRuntime:
     """Cluster handle: hub + lease + endpoint serving + component tree."""
 
     def __init__(self, hub: Hub, config: RuntimeConfig | None = None, runtime: Runtime | None = None):
-        if not isinstance(hub, InMemoryHub):
-            raise NotImplementedError(REMOTE_HUB_TODO)
         self.hub = hub
         self.config = config or RuntimeConfig()
         self.runtime = runtime or Runtime()
         self.local_registry = LocalRegistry()
+        self._server: EndpointServer | None = None
         self._lease_id: int | None = None
         self._keepalive_task: asyncio.Task | None = None
         self._served: list[ServedEndpoint] = []
         self._closed = False
+        # local instances dispatch in-proc only when hub state is shared, i.e.
+        # the hub is the in-memory one living in this very process
+        self._local_ok = isinstance(hub, InMemoryHub)
 
     # -- construction ------------------------------------------------------
 
     @classmethod
     async def from_settings(cls, config: RuntimeConfig | None = None) -> "DistributedRuntime":
-        """An in-memory hub; a configured hub address raises."""
+        """Connect per config: remote hub if ``hub_target()`` (replica
+        list or single address) is set, else an in-memory one."""
         config = config or RuntimeConfig.from_env()
+        hub: Hub
         if config.hub_target():
-            raise NotImplementedError(
-                f"hub address {config.hub_target()!r}: {REMOTE_HUB_TODO}")
-        return cls(InMemoryHub(), config)
+            hub = await RemoteHub.connect(config.hub_target(), config.connect_timeout_s)
+        else:
+            hub = InMemoryHub()
+        return cls(hub, config)
 
     # -- component tree ----------------------------------------------------
 
@@ -108,8 +107,26 @@ class DistributedRuntime:
                     return
         except asyncio.CancelledError:
             pass
+        except ConnectionError:
+            log.error("hub connection lost in keepalive; shutting down")
+            self.runtime.shutdown()
 
     # -- endpoint serving --------------------------------------------------
+
+    _uds_seq = 0
+
+    async def _endpoint_server(self) -> EndpointServer:
+        if self._server is None:
+            uds_path = None
+            if self.config.uds_dir:
+                DistributedRuntime._uds_seq += 1
+                uds_path = os.path.join(
+                    self.config.uds_dir,
+                    f"dyn-{os.getpid()}-{DistributedRuntime._uds_seq}.sock",
+                )
+            self._server = EndpointServer(host=self.config.host, uds_path=uds_path)
+            await self._server.start()
+        return self._server
 
     async def serve_endpoint(
         self,
@@ -120,17 +137,34 @@ class DistributedRuntime:
         graceful_shutdown: bool = True,
     ) -> ServedEndpoint:
         lease = await self.lease_id()
-        inst = Instance(
-            instance_id=self._alloc_instance_id(lease),
-            namespace=endpoint.namespace,
-            component=endpoint.component,
-            endpoint=endpoint.name,
-            host="local",
-            port=0,
-            transport="local",
-            metadata=metadata,
-        )
-        self.local_registry.register(inst.wire_path, handler)
+        instance_id = self._alloc_instance_id(lease)
+        if self._local_ok:
+            # in-proc hub => one-process deployment: skip the TCP hop
+            inst = Instance(
+                instance_id=instance_id,
+                namespace=endpoint.namespace,
+                component=endpoint.component,
+                endpoint=endpoint.name,
+                host="local",
+                port=0,
+                transport="local",
+                metadata=metadata,
+            )
+            self.local_registry.register(inst.wire_path, handler)
+        else:
+            server = await self._endpoint_server()
+            inst = Instance(
+                instance_id=instance_id,
+                namespace=endpoint.namespace,
+                component=endpoint.component,
+                endpoint=endpoint.name,
+                host=server.host,
+                port=server.port,
+                transport="tcp",
+                metadata=metadata,
+                uds=server.uds_path or "",
+            )
+            server.register(inst.wire_path, handler)
         await self.hub.put(inst.path, inst.to_dict(), lease_id=lease)
         served = ServedEndpoint(inst, endpoint, self)
         self._served.append(served)
@@ -166,7 +200,10 @@ class DistributedRuntime:
             g = self.config.withdraw_grace_s if grace_s is None else grace_s
             if g > 0:
                 await asyncio.sleep(g)
-        self.local_registry.unregister(served.instance.wire_path)
+        if served.instance.transport == "local":
+            self.local_registry.unregister(served.instance.wire_path)
+        elif self._server is not None:
+            self._server.unregister(served.instance.wire_path)
         if served in self._served:
             self._served.remove(served)
 
@@ -180,10 +217,15 @@ class DistributedRuntime:
         self._closed = True
         for served in list(self._served):
             await self.deregister_endpoint(served, drain=drain, grace_s=0.0)
+        if self._server is not None:
+            await self._server.stop(drain=drain, timeout=drain_timeout)
         if self._keepalive_task is not None:
             self._keepalive_task.cancel()
         if self._lease_id is not None:
-            await self.hub.revoke_lease(self._lease_id)
+            try:
+                await self.hub.revoke_lease(self._lease_id)
+            except (ConnectionError, RuntimeError):
+                pass
         self.runtime.shutdown()
 
     async def close(self) -> None:

@@ -301,3 +301,67 @@ async def test_page_backpressure_and_deadline():
     with pytest.raises(DeadlineExceeded):
         await _collect(eng, _req(a, 4), Context(deadline=0.0))
     await eng.close()
+
+
+_UNPORTED_VALUES = {
+    "tp": 2, "dp": 2, "sp": 2, "ep": 2, "pp": 2, "max_waiting": 4,
+    "tenants": "a:weight=4", "preemption": False, "spec_mode": "ngram",
+    "spec_k_max": 4, "spec_ngram_min": 2, "spec_ngram_max": 3,
+    "spec_ewma_alpha": 0.25, "spec_reprobe_tokens": 32, "guided_cache_entries": 8,
+    "profile": True,
+}
+
+
+@pytest.mark.parametrize("field", list(_UNPORTED_VALUES))
+def test_config_refuses_fields_of_unported_features(field):
+    """A value the reference engine honours for a feature the port lacks
+    raises NotImplementedError naming the ROADMAP item, instead of running
+    a different engine without a word."""
+    from dynamo_tpu_torch.engine.config import UNPORTED
+
+    value = _UNPORTED_VALUES[field]
+    assert set(_UNPORTED_VALUES) == set(UNPORTED)
+    assert getattr(JaxEngineConfig(**{field: value}), field) is not None
+    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue A item \d+"):
+        EngineConfig(**{field: value})
+
+
+def test_config_defaults_and_guided_modes_still_build(monkeypatch):
+    for mode in ("auto", "off"):
+        assert EngineConfig(guided_mode=mode).guided_mode == mode
+    assert EngineConfig(tenants={}).tp == 1
+    with pytest.raises(ValueError, match="guided_mode"):
+        EngineConfig(guided_mode="on")
+    monkeypatch.setenv("DYN_TENANT_QUOTAS", "a:weight=2")
+    with pytest.raises(NotImplementedError, match="item 5"):
+        EngineConfig()
+
+
+async def test_drain_refuses_new_and_finishes_admitted_like_jax():
+    """begin_drain: a request admitted before it runs to its end, a new one
+    is refused with ServiceUnavailable carrying the drain window as
+    Retry-After, and inflight() falls to 0: as in the JAX engine."""
+    from dynamo_tpu.runtime.context import ServiceUnavailable as JaxUnavailable
+    from dynamo_tpu_torch.runtime.context import ServiceUnavailable
+
+    jp, tp = _weights(seed=4)
+    out = {}
+    for side, eng, ctx_cls, refusal in (
+            ("jax", JaxEngine(JaxSpec(**SPEC_KW), JaxEngineConfig(**CFG_KW), params=jp),
+             JaxContext, JaxUnavailable),
+            ("port", _engine(tp), Context, ServiceUnavailable)):
+        await eng.start()
+        stream = eng.generate(_req(range(3, 12), 12), ctx_cls())
+        first = await stream.__anext__()
+        assert eng.inflight() == 1
+        eng.begin_drain(5.0)
+        assert eng.draining
+        with pytest.raises(refusal) as e:
+            await _collect(eng, _req(range(3, 9), 4), ctx_cls())
+        rest = [x async for x in stream]
+        out[side] = (_tokens([first] + rest), rest[-1]["finish_reason"], str(e.value),
+                     1.0 <= e.value.retry_after_s <= 5.0, eng.inflight())
+        await eng.close()
+    assert out["port"] == out["jax"]
+    assert len(out["port"][0]) == 12 and out["port"][1:] == (
+        "length", "worker draining", True, 0)

@@ -156,20 +156,40 @@ async def test_push_router_round_robin_over_local_instances():
 
 
 async def test_client_refuses_tcp_instances_and_remote_hubs():
+    """Since the TCP transport and hub client landed, a tcp instance is
+    dialled and a hub address connected: a tcp instance nobody listens for
+    fails its call with a retryable StreamError (the migration trigger),
+    a hub address nobody serves fails to connect, and no address still
+    means an in-memory hub. Loopback only."""
+    import socket
+
+    from dynamo_tpu_torch.runtime.hub_server import HubServer
+
+    with socket.socket() as sock:  # a loopback port with no listener
+        sock.bind(("127.0.0.1", 0))
+        dead_port = sock.getsockname()[1]
     drt = DistributedRuntime(InMemoryHub())
     ep = drt.namespace("ns").component("c").endpoint("e")
     await drt.hub.put(ep.instance_prefix + "ab", {
         "instance_id": 0xAB, "namespace": "ns", "component": "c", "endpoint": "e",
-        "host": "10.0.0.1", "port": 9, "transport": "tcp"})
+        "host": "127.0.0.1", "port": dead_port, "transport": "tcp"})
     client = await ep.client().start()
     await client.wait_for_instances(1, timeout=2)
-    with pytest.raises(StreamError, match="4b"):
+    with pytest.raises(StreamError, match="connect to 127.0.0.1"):
         async for _ in client.call_instance(0xAB, {}, Context()):
             pass
     await client.close()
     await drt.close()
-    with pytest.raises(NotImplementedError, match="4b"):
-        await DistributedRuntime.from_settings(RuntimeConfig(hub_address="h:1"))
+    with pytest.raises(OSError):
+        await DistributedRuntime.from_settings(
+            RuntimeConfig(hub_address=f"127.0.0.1:{dead_port}"))
+    server = HubServer(port=0)
+    await server.start()
+    remote = await DistributedRuntime.from_settings(
+        RuntimeConfig(hub_address=f"127.0.0.1:{server.port}"))
+    assert not isinstance(remote.hub, InMemoryHub)
+    await remote.close()
+    await server.stop()
     local = await DistributedRuntime.from_settings(RuntimeConfig())
     assert isinstance(local.hub, InMemoryHub)
     await local.close()
@@ -268,11 +288,14 @@ def test_metrics_exposition_matches_prometheus_client():
                       for f in text_string_to_metric_families(text) for s in f.samples)
 
     assert samples(got) == samples(want)
-    # global providers (the migration counters) join every exposition
-    import dynamo_tpu_torch.frontend.migration  # noqa: F401
+    # global providers (the migration counters) join every exposition; the
+    # counter is process-wide, so other tests in this process may have
+    # moved it
+    from dynamo_tpu_torch.frontend.migration import STATS
 
     assert treg.exposition().startswith(got.encode())
-    assert b"\ndynamo_migrations_total 0\n" in treg.exposition()
+    line = f"\ndynamo_migrations_total {STATS['migrations']}\n".encode()
+    assert line in treg.exposition()
 
 
 def test_metrics_children_and_guards():

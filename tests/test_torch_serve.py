@@ -384,6 +384,83 @@ def test_unserved_routes_and_methods(stacks):
     assert status == 200 and "/v1/completions" in html
 
 
+async def _raw(port: int, request: bytes) -> tuple[bytes, dict, bytes]:
+    """Send raw request bytes on a fresh connection and read to EOF:
+    (status line, lower-case headers, body)."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(request)
+    await writer.drain()
+    out = await asyncio.wait_for(reader.read(), TIMEOUT)
+    writer.close()
+    head, _, body = out.partition(b"\r\n\r\n")
+    lines = head.decode("latin-1").split("\r\n")
+    headers = {k.strip().lower(): v.strip() for k, _, v in
+               (ln.partition(":") for ln in lines[1:])}
+    return lines[0].encode(), headers, body
+
+
+def _ports(stacks):
+    return {"jax": stacks.jhttp.port, "port": stacks.http.port}
+
+
+@pytest.mark.parametrize("route", ["/health", "/v1/models", "/live"])
+def test_head_on_get_routes_matches_aiohttp(stacks, route):
+    """HEAD on a GET route answers the GET's status, type and length with
+    no body, as aiohttp's allow_head does; HEAD on a POST-only route is
+    405 on both."""
+    req = b"HEAD %b HTTP/1.1\r\nHost: x\r\nConnection: close\r\n\r\n" % route.encode()
+    got = {side: stacks.run(_raw(port, req)) for side, port in _ports(stacks).items()}
+    get_len = len(json.dumps(stacks.run(stacks.get("port", route))[1]).encode())
+    for side, (status, headers, body) in got.items():
+        assert status.endswith(b" 200 OK") and body == b"", (side, status, body)
+        assert headers["content-type"] == "application/json; charset=utf-8", side
+        assert int(headers["content-length"]) == get_len, (side, headers)
+    req = b"HEAD /v1/completions HTTP/1.1\r\nHost: x\r\nConnection: close\r\n\r\n"
+    for side, port in _ports(stacks).items():
+        status, _, body = stacks.run(_raw(port, req))
+        assert status.split(b" ")[1] == b"405" and body == b"", side
+
+
+def test_http10_stream_is_unchunked_like_aiohttp(stacks):
+    """An HTTP/1.0 client gets the raw SSE body, no chunked coding, and
+    the connection closes at its end, as from aiohttp; the events equal
+    aiohttp's minus id/created."""
+    data = json.dumps({"model": MODEL, "prompt": "old client", "max_tokens": 5,
+                       "ignore_eos": True, "stream": True}).encode()
+    req = (b"POST /v1/completions HTTP/1.0\r\nContent-Type: application/json\r\n"
+           b"Content-Length: %d\r\n\r\n%b" % (len(data), data))
+    got = {side: stacks.run(_raw(port, req)) for side, port in _ports(stacks).items()}
+    events = {}
+    for side, (status, headers, body) in got.items():
+        assert status.split(b" ")[1] == b"200", side
+        assert "transfer-encoding" not in headers, (side, headers)
+        assert headers["content-type"].startswith("text/event-stream"), side
+        events[side] = _sse_chunks(body.decode())
+    _assert_same(_strip(events["port"]), _strip(events["jax"]))
+    assert events["port"][-1] == "[DONE]" and len(events["port"]) == 6
+
+
+def test_http11_stream_stays_chunked_and_keep_alive(stacks):
+    """HTTP/1.1 streams stay chunked, and the connection serves the next
+    request after the stream's end."""
+
+    async def two_requests():
+        reader, writer = await _open_stream(stacks.http.port, {
+            "model": MODEL, "prompt": "keep me", "max_tokens": 3, "ignore_eos": True,
+            "stream": True})
+        chunks = []
+        while (chunk := await _read_chunk(reader)):
+            chunks.append(chunk)
+        writer.write(b"GET /health HTTP/1.1\r\nHost: x\r\n\r\n")
+        head = await reader.readuntil(b"\r\n\r\n")
+        writer.close()
+        return chunks, head
+
+    chunks, head = stacks.run(two_requests())
+    assert chunks[-1] == b"data: [DONE]\n\n" and len(chunks) == 4
+    assert head.startswith(b"HTTP/1.1 200 OK")
+
+
 def _counters(text: str) -> dict:
     """Counter samples and histogram counts of an exposition, by
     (name, labels): the parts two stacks fed the same requests share."""
@@ -470,8 +547,8 @@ def test_disconnect_mid_stream_frees_pages(stacks):
     assert active == 0 and steps < 150
     status = stacks.run(_admin(stacks, {"op": "cache_status"}))
     assert status["ok"] and status["active_pages"] == 0
-    assert stacks.run(_admin(stacks, {"op": "drain"})) == {
-        "ok": False, "error": "unknown op 'drain'"}
+    assert stacks.run(_admin(stacks, {"op": "faults"})) == {
+        "ok": False, "error": "unknown op 'faults'"}
 
 
 async def _admin(stacks, payload):
@@ -601,8 +678,8 @@ def test_cli_batch_and_refusals(tmp_path):
 
     with pytest.raises(NotImplementedError, match="mocker"):
         cli.main(["run", "--out", "mocker"])
-    with pytest.raises(NotImplementedError, match="4b"):
-        cli.main(["hub"])
+    with pytest.raises(NotImplementedError, match="4b-ii"):
+        cli.main(["router"])
 
 
 def test_cli_without_gpu_refuses_the_cpu():
