@@ -108,8 +108,25 @@ Phases, each of which must pass (any failure exits non-zero):
    worker had it in flight, exits 0 after printing ENGINE_DRAINED
    leftover=0, its instance key leaves the hub, and the survivor serves
    the next completion); the 8 prompts once more through the frontend, all
-   on the survivor. The frontend set to both workers runs twice (before
-   and after the TCP set). Each set of 8 is timed on cleared prefix caches and
+   on the survivor. The workers register router mode "kv" (the default), so
+   the frontend routes every set through its KvRouter; the first set, with
+   no prefix to reuse, must not put all 8 on one worker. The frontend set
+   to both workers runs twice (before and after the TCP set). Before the
+   drain, the prefix-family set, from this process through its own
+   KvPushRouter and KvRouter over the TCP hub, on cleared caches: 4
+   families of a 384-token prefix (24 pages) with a head and a follower of
+   64 distinct tokens more, greedy, 32 tokens; the 4 heads concurrently,
+   then (within 5 s) the router's radix must hold each head's prompt
+   hashes, computed here with compute_sequence_hashes(prompt, 16), under
+   the worker that served it (xxh3 end to end: engine, event, router) and
+   both workers' published load must be idle; then the 4 followers
+   concurrently, each routed to its head's worker with
+   estimated_prefix_hit_num_blocks 24, one of them near-argmax under the
+   reference forward; a cache clear must then empty the radix for both
+   workers within 5 s (their removed events). Printed, not gated: pick
+   time by phase, event lag, host hash costs (xxh3 beside blake2b),
+   follower against head TTFT, and the same waves through a round-robin
+   PushRouter with the followers in a seeded shuffled order. Each set of 8 is timed on cleared prefix caches and
    printed beside phase 9's. Then the survivor, the frontend and the hub
    SIGTERM'd, each exiting 0 within its deadline. The workers
    log their kernel launches since ENGINE_READY: fused_decode must launch
@@ -183,6 +200,14 @@ CLI_TOKENS = 16  # the CLI phase's streamed chat completion
 CLI_START_S = 180  # the CLI process's limit to print DYNAMO_HTTP=
 REPS = 20
 SLEEP_CYCLES = 5_000_000  # ~2.5 ms of device time at the H100's clock
+# phase 11's prefix-family set: FAMILIES shared prefixes of FAMILY_PREFIX
+# tokens (24 pages of 16), each with a head and a follower of FAMILY_TAIL
+# distinct tokens more
+FAMILIES = 4
+FAMILY_PREFIX = 384
+FAMILY_TAIL = 64
+FAMILY_SEED = 4242
+EVENT_DEADLINE_S = 5.0  # head blocks into the router's radix; cleared caches out
 
 
 class SmokeError(RuntimeError):
@@ -1689,6 +1714,8 @@ def process_phase(spec, cfg, prompts, default_tokens, http_stats, device=None) -
     # weights drawn here now that the workers are gone
     params = get_family(spec).init_params(spec, 0, device=DEVICE)
     checks = [near_argmax_check(spec, params, prompts[i], tcp_tokens[i]) for i in range(n)]
+    prefix_family_report(out["prefix"],
+                         lambda p, t: near_argmax_check(spec, params, p, t))
     del params
     torch.cuda.empty_cache()
 
@@ -1843,6 +1870,9 @@ async def _drive_processes(spec, prompts, hub, port, workers, front):
         # the frontend set again, now that both workers have served traffic
         await clear_caches()
         out["again"], out["again_wall"] = await frontend_streams()
+        # prefix families through this process's own KV router, then the
+        # same waves round robin, each on cleared caches
+        out["prefix"] = await _prefix_family_set(drt, spec, clear_caches)
 
         # SIGTERM drain of the worker serving one more stream
         victim = {}
@@ -1897,6 +1927,258 @@ async def _drive_processes(spec, prompts, hub, port, workers, front):
         await drt.close()
     return out
 
+
+
+async def _prefix_family_set(drt, spec, clear_caches) -> dict:
+    """Phase 11's prefix-family set on the two workers, from this process:
+    a KvPushRouter over a direct PushRouter and a KvRouter fed by the
+    workers' KV events and load through the TCP hub. Wave 1 sends the
+    FAMILIES heads concurrently; once the router's radix holds each head's
+    prompt blocks (as compute_sequence_hashes computes them here) under the
+    worker that served it, and both workers' published load is idle, wave 2
+    sends the followers concurrently. Then a cleared cache must empty the
+    radix (the workers' removed events). The same two waves once more
+    through a round-robin PushRouter, followers in a seeded shuffled order.
+    Returns the per-request workers, overlaps, TTFTs, event lags and pick
+    times; the gates are in process_phase."""
+    from dynamo_tpu_torch.kv_router import router as router_mod
+    from dynamo_tpu_torch.kv_router.protocols import RouterConfig
+    from dynamo_tpu_torch.kv_router.router import KvPushRouter, KvRouter
+    from dynamo_tpu_torch.runtime.context import Context
+    from dynamo_tpu_torch.runtime.push import PushRouter, RouterMode
+    from dynamo_tpu_torch.tokens import compute_sequence_hashes
+
+    page = 16
+    rng = np.random.default_rng(FAMILY_SEED)
+    heads, followers = [], []
+    for _ in range(FAMILIES):
+        prefix = rng.integers(3, spec.vocab_size, FAMILY_PREFIX).tolist()
+        heads.append(prefix + rng.integers(3, spec.vocab_size, FAMILY_TAIL).tolist())
+        followers.append(prefix + rng.integers(3, spec.vocab_size, FAMILY_TAIL).tolist())
+    endpoint = drt.namespace("dynamo").component("backend").endpoint("generate")
+    push = await PushRouter.from_endpoint(endpoint, RouterMode.DIRECT)
+    await push.client.wait_for_instances(2, timeout=10)
+    kv = await KvRouter(drt.hub, "dynamo/backend", RouterConfig(block_size=page)).start()
+    res: dict = {"heads": heads, "followers": followers}
+    picked: dict[int, tuple[int, int]] = {}  # id(request tokens) -> (worker, overlap)
+    inner = push.generate
+
+    def spy(request, context, *, instance_id=None):
+        picked[id(request["token_ids"])] = (instance_id,
+                                            request["estimated_prefix_hit_num_blocks"])
+        return inner(request, context, instance_id=instance_id)
+
+    push.generate = spy
+    kvp = KvPushRouter(push, kv)
+    # per-pick phase times: deltas of the router's own totals around each pick
+    per_pick: list[dict] = []
+    pick = kv.find_best_match
+
+    def timed_pick(*a, **kw):
+        before = dict(kv.pick_phase_totals)
+        out = pick(*a, **kw)
+        per_pick.append({k: kv.pick_phase_totals[k] - before[k] for k in before})
+        return out
+
+    kv.find_best_match = timed_pick
+    phases = {"hash": router_mod._PH_HASH, "overlap": router_mod._PH_OVERLAP,
+              "select": router_mod._PH_SELECT}
+    sums0 = {k: h.sum for k, h in phases.items()}
+
+    async def wave(prompts, route):
+        """Each prompt's tokens, TTFT from the wave's start, and the host
+        clock at its first and last token."""
+        t0 = time.perf_counter()
+
+        async def one(p):
+            r = {"tokens": [], "first_at": None}
+            async for item in route(make_request(p), Context()):
+                if r["first_at"] is None and item["token_ids"]:
+                    r["first_at"] = time.perf_counter()
+                r["tokens"] += item["token_ids"]
+            r["end_at"] = time.perf_counter()
+            r["ttft"] = r["first_at"] - t0
+            return r
+
+        return await asyncio.gather(*(one(p) for p in prompts))
+
+    def idle() -> bool:
+        states = {s.worker_id: s.metrics for s in kv.scheduler.workers()}
+        return len(states) == 2 and all(m.active_kv_blocks == 0 and m.running_requests == 0
+                                        for m in states.values())
+
+    async def radix_settles(cond) -> float:
+        t = time.perf_counter()
+        while not cond():
+            require(time.perf_counter() - t < EVENT_DEADLINE_S,
+                    "processes prefix set: the router's radix and load did not settle "
+                    f"within {EVENT_DEADLINE_S} s: {kv.tree.num_blocks()} blocks")
+            await asyncio.sleep(0.001)
+        return time.perf_counter()
+
+    try:
+        await clear_caches()
+        await radix_settles(lambda: kv.tree.num_blocks() == 0 and idle())
+        head_hashes = [compute_sequence_hashes(h, page) for h in heads]
+
+        def held(i: int) -> bool:
+            w = picked.get(id(heads[i]), (None,))[0]
+            hs = head_hashes[i]
+            return w is not None and kv.tree.find_matches(
+                hs, touch=False).scores.get(w) == len(hs)
+
+        # the host clock at which each head's prompt blocks first stand in
+        # the radix under its worker, polled while wave 1 runs
+        seen: dict[int, float] = {}
+
+        async def watch_radix():
+            while len(seen) < FAMILIES:
+                for i in range(FAMILIES):
+                    if i not in seen and held(i):
+                        seen[i] = time.perf_counter()
+                await asyncio.sleep(0.001)
+
+        watcher = asyncio.ensure_future(watch_radix())
+        try:
+            w1 = await wave(heads, kvp.generate)
+            res["head_workers"] = [picked[id(h)][0] for h in heads]
+            await radix_settles(lambda: all(held(i) for i in range(FAMILIES)))
+            await asyncio.wait_for(watcher, EVENT_DEADLINE_S)
+        finally:
+            watcher.cancel()
+        # the prompt blocks seal at prefill: from a head's first token (its
+        # prefill is done) and from its last token (all its traffic is done)
+        res["event_lag_first_s"] = [seen[i] - w1[i]["first_at"] for i in range(FAMILIES)]
+        res["event_lag_s"] = [seen[i] - w1[i]["end_at"] for i in range(FAMILIES)]
+        await radix_settles(idle)
+        res["held_blocks"] = [len(hs) for hs in head_hashes]
+        w2 = await wave(followers, kvp.generate)
+        res["follower_picks"] = [picked[id(f)] for f in followers]
+        res["head_ttft"] = [r["ttft"] for r in w1]
+        res["follower_ttft"] = [r["ttft"] for r in w2]
+        res["head_tokens"] = [r["tokens"] for r in w1]
+        res["follower_tokens"] = [r["tokens"] for r in w2]
+        res["pick_mean_us"] = {k: 1e6 * (h.sum - sums0[k]) / max(len(per_pick), 1)
+                               for k, h in phases.items()}
+        res["pick_max_us"] = {k: 1e6 * max(p[k] for p in per_pick) for k in phases}
+        res["picks"] = len(per_pick)
+        # the removed events of a cleared cache empty the radix
+        await clear_caches()
+        t_clear = time.perf_counter()
+        wids = sorted(set(res["head_workers"]) | {w for w, _ in res["follower_picks"]})
+        await radix_settles(lambda: all(kv.tree.num_blocks(w) == 0 for w in wids))
+        res["clear_lag_s"] = time.perf_counter() - t_clear
+        res["after_clear"] = {w: kv.tree.num_blocks(w) for w in push.client.instance_ids()}
+
+        # the same waves round robin, followers in a seeded shuffled order
+        rr = PushRouter(push.client, RouterMode.ROUND_ROBIN)
+        served: dict[int, int] = {}
+
+        def rr_route(request, context):
+            target = rr.select()
+            served[id(request["token_ids"])] = target
+            return rr.generate(request, context, instance_id=target)
+
+        order = np.random.default_rng(FAMILY_SEED + 2).permutation(FAMILIES).tolist()
+        await radix_settles(idle)
+        r1 = await wave(heads, rr_route)
+        await radix_settles(idle)
+        r2 = await wave([followers[i] for i in order], rr_route)
+        rr_heads = [served[id(h)] for h in heads]
+        res["rr_hits"] = [served[id(followers[i])] == rr_heads[i] for i in order]
+        res["rr_order"] = order
+        res["rr_head_ttft"] = [r["ttft"] for r in r1]
+        res["rr_follower_ttft"] = [r["ttft"] for r in r2]
+        await clear_caches()
+    finally:
+        await kv.close()
+        await push.client.close()
+    return res
+
+
+def prefix_family_report(res: dict, fused_check) -> None:
+    """Phase 11's prefix-family gates and lines: the radix held each head's
+    prompt hashes under its worker; every follower on its head's worker with
+    the prefix's page count as its overlap; one follower near-argmax
+    (``fused_check(prompt, tokens)``); the cleared caches' removed events
+    emptied the radix. Timings are printed, never gated."""
+    import hashlib
+
+    from dynamo_tpu_torch.kv_router.hashing import PrefixHashCache
+    from dynamo_tpu_torch.tokens import block_hash, chain_hash, compute_sequence_hashes
+    from dynamo_tpu_torch.xxh3 import xxh3_64
+
+    n = FAMILIES
+    prefix_pages = FAMILY_PREFIX // 16
+    on_head = [w == h for (w, _), h in zip(res["follower_picks"], res["head_workers"])]
+    overlaps = [o for _, o in res["follower_picks"]]
+    require(sum(on_head) == n and all(o == prefix_pages for o in overlaps),
+            f"processes prefix set: followers on their head's worker {on_head}, overlap "
+            f"blocks {overlaps} (want {prefix_pages} each)")
+    require(all(len(t) == SERVE_TOKENS for t in res["head_tokens"] + res["follower_tokens"]),
+            "processes prefix set: a stream ended short")
+    require(all(v == 0 for v in res["after_clear"].values()),
+            f"processes prefix set: the radix after the clear holds {res['after_clear']}")
+    agree, gap = fused_check(res["followers"][0], res["follower_tokens"][0])
+
+    # host cost of the hashes this slice puts on the step thread and the router
+    rng = np.random.default_rng(0)
+    block = rng.integers(0, 128_256, 16).tolist()
+    data = np.asarray(block, np.uint32).tobytes()
+    reps = 2000
+
+    def per_call_us(fn) -> float:
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return 1e6 * (time.perf_counter() - t) / reps
+
+    xx_block = per_call_us(lambda: block_hash(block))
+    xx_link = per_call_us(lambda: chain_hash(0x1234, 0x5678))
+    b2_block = per_call_us(lambda: hashlib.blake2b(data, digest_size=8).digest())
+    b2_link = per_call_us(lambda: hashlib.blake2b(data[:16], digest_size=8).digest())
+    prompt = res["followers"][0]
+    direct = per_call_us(lambda: compute_sequence_hashes(prompt, 16))
+    cache = PrefixHashCache()
+    cache.sequence_hashes(prompt, 16)
+    cached = per_call_us(lambda: cache.sequence_hashes(prompt, 16))
+    cold = per_call_us(lambda: PrefixHashCache().sequence_hashes(prompt, 16))
+    # the reference cache's key: one seeded xxh3 of a 4-block chunk (256
+    # bytes), against chaining those four blocks directly
+    chunk = np.asarray(prompt[:64], np.uint32).tobytes()
+    digest = per_call_us(lambda: xxh3_64(chunk, 16))
+    chain4 = per_call_us(lambda: compute_sequence_hashes(prompt[:64], 16))
+
+    def ms(xs):
+        return f"mean {1e3 * sum(xs) / len(xs):.1f} ms, max {1e3 * max(xs):.1f} ms"
+
+    pm, px = res["pick_mean_us"], res["pick_max_us"]
+    print(f"processes prefix set: {n} families ({FAMILY_PREFIX}-token prefix = "
+          f"{prefix_pages} pages, {FAMILY_TAIL}-token tails, greedy, {SERVE_TOKENS} tokens) "
+          f"through this process's KvRouter: heads on workers "
+          f"{[hex(w) for w in res['head_workers']]}; radix held each head's "
+          f"{res['held_blocks'][0]} prompt hashes (computed here) under its worker; "
+          f"followers on their head's worker {sum(on_head)}/{n}, overlap blocks {overlaps}; "
+          f"follower 0 near-argmax worst gap {gap:.3f}, exact agreement {agree:.3f}; "
+          f"radix after the clear {res['after_clear']}")
+    print(f"processes prefix set: TTFT heads {ms(res['head_ttft'])}, followers "
+          f"{ms(res['follower_ttft'])}; event lag, a head's prompt blocks into the radix "
+          f"under its worker, from its first token {ms(res['event_lag_first_s'])}, from "
+          f"its last token {ms(res['event_lag_s'])} (negative: in before it); clear to an "
+          f"empty radix {1e3 * res['clear_lag_s']:.1f} ms")
+    print("processes prefix set: router pick over " + str(res["picks"]) + " picks, us "
+          + ", ".join(f"{k} mean {pm[k]:.1f} max {px[k]:.1f}" for k in pm)
+          + " (means from router_pick_seconds)")
+    print(f"processes prefix set: host hash cost per call, us: xxh3 16-token block "
+          f"{xx_block:.2f} (blake2b {b2_block:.2f}), chain link {xx_link:.2f} (blake2b "
+          f"{b2_link:.2f}); a {len(prompt)}-token prompt's sequence hashes direct "
+          f"{direct:.1f}, PrefixHashCache cold {cold:.1f}, warm {cached:.1f}; a 4-block "
+          f"chunk's seeded 256-byte xxh3 digest (the reference cache's key) {digest:.1f} "
+          f"against chaining its 4 blocks {chain4:.1f}")
+    print(f"processes prefix set: round robin on cleared caches (followers in the seeded "
+          f"order {res['rr_order']}): followers on their head's "
+          f"worker {sum(res['rr_hits'])}/{n} ({res['rr_hits']}); TTFT heads "
+          f"{ms(res['rr_head_ttft'])}, followers {ms(res['rr_follower_ttft'])}")
 
 
 def main() -> int:

@@ -5,16 +5,20 @@
         event loop; prints DYNAMO_HTTP=host:port once serving
     python -m dynamo_tpu_torch.cli run --in batch:reqs.jsonl --out engine
         offline batch: one JSON result line per input line
-    python -m dynamo_tpu_torch.cli hub|worker|frontend ...
+    python -m dynamo_tpu_torch.cli hub|worker|frontend|router ...
         one service process of a deployment (the same as python -m
         dynamo_tpu_torch.<module>): the TCP hub (prints DYNAMO_HUB=), an
-        engine worker (prints ENGINE_READY; SIGTERM drains it) and the
-        OpenAI frontend (prints DYNAMO_HTTP=)
+        engine worker (prints ENGINE_READY; SIGTERM drains it; publishes
+        its KV events and load, router mode "kv" by default), the OpenAI
+        frontend (prints DYNAMO_HTTP=; routes a "kv" card by prefix
+        overlap) and the standalone KV router service (prints
+        ROUTER_READY; serves "generate" and "best_worker" on component
+        "router")
 
 The engine runs on the GPU; ``--device cpu`` runs it on the CPU (tests).
 Not yet ported, and refused: ``--in text``, ``--out mocker|echo`` and the
-other service subcommands (router, mocker, planner, ...), which wait for
-their own slices.
+other service subcommands (mocker, planner, ...), which wait for their own
+slices.
 """
 
 from __future__ import annotations
@@ -28,11 +32,12 @@ SUBCOMMAND_MODULES = {
     "hub": "dynamo_tpu_torch.runtime.hub_server",
     "frontend": "dynamo_tpu_torch.frontend.__main__",
     "worker": "dynamo_tpu_torch.engine.worker",
+    "router": "dynamo_tpu_torch.kv_router.service",
 }
 # the reference's other service commands -> the ROADMAP Queue A item that
 # ports them
 REFUSED_COMMANDS = {
-    "hub-replica": "item 14", "mocker": "item 3, 4c", "router": "item 2, 4b-ii",
+    "hub-replica": "item 14", "mocker": "item 3, 4c",
     "encoder": "item 12", "operator": "item 14", "planner": "item 14",
     "bench": "item 14", "profile": "item 14",
 }

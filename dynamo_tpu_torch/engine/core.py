@@ -8,6 +8,12 @@ reduced to the serving core. One dedicated step THREAD owns the device:
 
 Prefix caching is page-granular and keyed by the sequence-hash chain of
 tokens.py. Completed requests' sealed pages stay cached (evictable LRU).
+Every seal and eviction is a KV event (``events``, a KvEventPublisher), and
+the engine's load goes out as ForwardPassMetrics (``metrics``) at the
+reference's points: admissions, chunked-prefill advances, slot releases,
+the admin cache clear and every 16th decode step. Both publishers are
+attached by the worker; the step thread calls them, and they post to the
+loop.
 
 A prompt whose uncached tail exceeds ``max_prefill_chunk_tokens`` prefills
 in chunks, one per step, interleaved with decode bursts (``_PartialPrefill``).
@@ -32,7 +38,8 @@ Not in this engine yet (see ROADMAP): tenancy and quotas, preemption,
 speculative and guided decoding (a request marked ``guided`` is refused
 with a typed ``invalid_request`` error item, as the reference engine with
 guided decoding off does), KVBM and disagg, migration resume, SPMD/meshes,
-multimodal, embeddings, telemetry, faults and tracing.
+multimodal, embeddings, telemetry, faults and tracing, the MoE dropped-slot
+count (``moe_dropped_slots`` publishes 0: no MoE family yet).
 """
 
 from __future__ import annotations
@@ -56,6 +63,7 @@ from dynamo_tpu_torch.engine.sampling import (
     sample_tokens,
     token_logprobs,
 )
+from dynamo_tpu_torch.kv_router.protocols import ForwardPassMetrics
 from dynamo_tpu_torch.models.family import get_family
 from dynamo_tpu_torch.models.llama import resolve_device
 from dynamo_tpu_torch.runtime.context import (
@@ -147,6 +155,8 @@ class InferenceEngine:
         *,
         params=None,
         device: str | torch.device | None = None,
+        event_publisher=None,
+        metrics_publisher=None,
     ):
         self.spec = spec
         self.config = config or EngineConfig()
@@ -173,7 +183,14 @@ class InferenceEngine:
         log.info("KV pools: kv_dtype %s, %d pages of %d tokens, %.3f GB",
                  self.kv_dtype, cfg.num_pages + 1, cfg.page_size,
                  self.pool_bytes / 1e9)
-        self.allocator = PageAllocator(cfg.num_pages + 1, cfg.page_size)
+        # KV events and load metrics (kv_router/publisher.py), None until a
+        # worker attaches its publishers
+        self.events = event_publisher
+        self.metrics = metrics_publisher
+        self.allocator = PageAllocator(
+            cfg.num_pages + 1, cfg.page_size,
+            on_store=self._on_store, on_evict=self._on_evict,
+        )
         self._slots: list[_Slot | None] = [None] * cfg.max_decode_slots
         # FIFO admission queue: the event loop appends, only the step
         # thread pops (deque ends are thread-safe)
@@ -213,6 +230,10 @@ class InferenceEngine:
         # wall seconds per decode dispatch, host clock from the dispatch to
         # its sampled tokens on the host
         self.decode_step_times: collections.deque = collections.deque(maxlen=4096)
+        # rolling wall-clock latency of a step that did work, in ms (0 = not
+        # measured yet): published in ForwardPassMetrics as the worker's
+        # degradation fingerprint
+        self.step_time_ewma_ms = 0.0
 
     # -- public API --------------------------------------------------------
 
@@ -233,6 +254,14 @@ class InferenceEngine:
             await asyncio.to_thread(self._thread.join, 10.0)
         if self._thread is None or not self._thread.is_alive():
             self.release_graphs()
+        # the step thread is gone: flush the last KV events (bounded: a hub
+        # that went away first retries its reconnect window), stop publishing
+        for pub in (self.events, self.metrics):
+            if pub is not None:
+                try:
+                    await asyncio.wait_for(pub.close(), 2.0)
+                except (asyncio.TimeoutError, ConnectionError):
+                    log.warning("publisher close: last KV events not flushed")
 
     def precompile(self) -> None:
         """Capture every decode graph variant now, before traffic (the JAX
@@ -347,6 +376,26 @@ class InferenceEngine:
             if item.get("finish_reason") is not None:
                 return
 
+    # -- KV events and load ------------------------------------------------
+
+    def _on_store(self, sh: int, parent: int) -> None:
+        if self.events is not None:
+            self.events.block_stored(sh, parent)
+
+    def _on_evict(self, shs: list[int]) -> None:
+        if self.events is not None and shs:
+            self.events.blocks_removed(shs)
+
+    def _publish_metrics(self) -> None:
+        if self.metrics is not None:
+            self.metrics.publish(ForwardPassMetrics(
+                active_kv_blocks=self.allocator.active_pages,
+                total_kv_blocks=self.allocator.num_pages - 1,
+                waiting_requests=len(self._waiting),
+                running_requests=sum(s is not None for s in self._slots),
+                step_time_ms=self.step_time_ewma_ms,
+            ))
+
     # -- step loop ---------------------------------------------------------
 
     def _post(self, q: asyncio.Queue, item: Any) -> None:
@@ -361,7 +410,14 @@ class InferenceEngine:
         """The step thread: owns the device; blocking waits are fine here."""
         while not self._closed:
             try:
+                step_t0 = time.perf_counter()
                 did_work = self._step()
+                if did_work:
+                    dt_ms = (time.perf_counter() - step_t0) * 1000.0
+                    self.step_time_ewma_ms = (
+                        dt_ms if self.step_time_ewma_ms == 0.0
+                        else 0.8 * self.step_time_ewma_ms + 0.2 * dt_ms
+                    )
                 if not did_work:
                     self._wake.clear()
                     if (not self._waiting and not any(self._slots)
@@ -412,6 +468,7 @@ class InferenceEngine:
             self._clear_cache_requested = False
             n = self.allocator.clear_cache()
             log.info("admin clear_kv_blocks: evicted %d cached pages", n)
+            self._publish_metrics()
             did = True
         # advance an in-flight chunked prefill, or admit waiting requests
         # up to a per-step token budget; decode still runs below, so a
@@ -419,6 +476,7 @@ class InferenceEngine:
         if self._partial is not None:
             self._advance_partial_safe()
             did = True
+            self._publish_metrics()
         else:
             did |= self._admit_phase()
         if any(s is not None for s in self._slots):
@@ -483,6 +541,8 @@ class InferenceEngine:
             n_admitted += 1
         if preps:
             self._complete_admissions(self._run_packed_prefills(preps))
+        if did:
+            self._publish_metrics()
         return did
 
     def _eager_readmit(self, freed: int) -> None:
@@ -656,6 +716,7 @@ class InferenceEngine:
             p.sp.pages = []
             self._post(p.waiting.out_q,
                        {"token_ids": [], "finish_reason": "cancelled"})
+            self._publish_metrics()
             return
         end = min(p.done + self._prefill_chunk_max(), len(p.token_ids))
         logits = self._run_prefill_chunk(p.sp, p.token_ids, p.done, end)
@@ -1265,6 +1326,8 @@ class InferenceEngine:
             if finish is not None:
                 self._finish(i, slot, finish, emit=False)
             self._post(slot.out_q, item)
+        if self.steps % 16 < n_burst:
+            self._publish_metrics()
 
     def _accept_token(self, slot: _Slot, tok: int) -> str | None:
         """Record one sampled token on the slot; return its finish reason
@@ -1305,6 +1368,7 @@ class InferenceEngine:
         pages, slot.pages.pages = slot.pages.pages, []
         self.allocator.release(pages)
         self._slots[slot_idx] = None
+        self._publish_metrics()
         if emit:
             item: dict[str, Any] = {"token_ids": [], "finish_reason": reason}
             if error:

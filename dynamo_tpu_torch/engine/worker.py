@@ -3,10 +3,12 @@ dynamo_tpu/engine/worker.py, aggregated mode).
 
 ``launch_engine_worker`` builds ``InferenceEngine(spec, cfg, device=...)``,
 optionally captures its decode graphs (``precompile``) off the event loop,
-registers the model card and the ``generate`` endpoint, serves the
-``admin`` endpoint (``clear_kv_blocks``, ``cache_status``, ``drain``) and
-starts the engine's step thread on the calling loop: the step thread posts
-its tokens to the loop that started it.
+registers the model card (``kv_block_size`` = the page size, the router
+mode) and the ``generate`` endpoint, serves the ``admin`` endpoint
+(``clear_kv_blocks``, ``cache_status``, ``drain``), attaches the KV-event
+and load-metrics publishers under the served instance id and starts the
+engine's step thread on the calling loop: the step thread posts its tokens,
+its KV events and its load to the loop that started it.
 
 ``python -m dynamo_tpu_torch.engine.worker --hub HOST:PORT`` (or ``python -m
 dynamo_tpu_torch.cli worker``) runs one worker process: it connects to the
@@ -15,11 +17,11 @@ instance key, refuses new requests, finishes the admitted ones, closes the
 engine), prints its kernel launch counts and ``ENGINE_DRAINED leftover=N``,
 and exits. The engine runs on the GPU; ``--device cpu`` runs it on the CPU.
 
-The default router mode is "round_robin" (the reference's is "kv") until
-the KV router and the KV-event publisher are ported (ROADMAP Queue A item
-2, 4b-ii). The reference's flags for features the port lacks raise
-NotImplementedError naming their item: disagg, KVBM, SPMD and meshes,
-speculative decoding, tenancy, health server, parsers, multimodal.
+The default router mode is "kv", as the reference's: frontends route by
+prefix overlap from this worker's KV events (kv_router/). The reference's
+flags for features the port lacks raise NotImplementedError naming their
+item: disagg (with its prefill router), KVBM, SPMD and meshes, speculative
+decoding, tenancy, health server, parsers, multimodal.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from dynamo_tpu_torch.engine.config import EngineConfig, ModelSpec
 from dynamo_tpu_torch.engine.core import InferenceEngine
 from dynamo_tpu_torch.frontend.model_card import register_llm
 from dynamo_tpu_torch.frontend.tokenizer import load_tokenizer
+from dynamo_tpu_torch.kv_router.publisher import KvEventPublisher, WorkerMetricsPublisher
 from dynamo_tpu_torch.runtime.config import RuntimeConfig
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 from dynamo_tpu_torch.runtime.hub_client import connect_hub
@@ -57,7 +60,7 @@ async def launch_engine_worker(
     tokenizer: str = "mock",
     engine_config: EngineConfig | None = None,
     spec: ModelSpec | None = None,
-    router_mode: str = "round_robin",
+    router_mode: str = "kv",
     precompile: bool = False,
     device: str | torch.device | None = None,
     params=None,
@@ -66,11 +69,6 @@ async def launch_engine_worker(
     ``device`` (None = the GPU; no GPU raises), serving ``params`` (default:
     the seeded random init of ``engine_config.seed``). Returns (engine,
     served generate endpoint)."""
-    if router_mode == "kv":
-        raise NotImplementedError(
-            "router_mode 'kv' needs the KV router and the KV-event publisher "
-            "(ROADMAP Queue A item 2, 4b-ii); use 'round_robin'"
-        )
     if model_type not in ("chat", "completions"):
         raise NotImplementedError(
             f"model_type {model_type!r}: the port serves chat and completions "
@@ -124,7 +122,14 @@ async def launch_engine_worker(
 
     await drt.namespace(namespace).component(component).endpoint("admin").serve(
         admin_handler, metadata={"role": "admin"})
+    # KV events + load metrics under the served instance id: the id every
+    # router's radix index and scheduler key this worker by
+    wid = served.instance.instance_id
+    comp_path = f"{namespace}/{component}"
+    engine.events = KvEventPublisher(drt.hub, comp_path, wid).start()
+    engine.metrics = WorkerMetricsPublisher(drt.hub, comp_path, wid).start()
     await engine.start()
+    engine._publish_metrics()
     log.info(
         "engine worker %x up: model=%s device=%s pages=%d slots=%d",
         served.instance.instance_id, spec.name, engine.device, cfg.num_pages,
@@ -151,8 +156,6 @@ def _engine_config(args: argparse.Namespace) -> EngineConfig:
     in EngineConfig."""
     refused = [
         (args.model_path, "--model-path: checkpoint loading (ROADMAP Queue A item 4)"),
-        (args.router_mode == "kv", "--router-mode kv: the KV router and the KV-event "
-         "publisher (ROADMAP Queue A item 2, 4b-ii)"),
         (args.mode != "aggregated", f"--mode {args.mode}: disaggregated serving "
          "(ROADMAP Queue A item 10)"),
         (args.kvbm_host_mb or args.kvbm_disk_mb or args.kvbm_disk_dir
@@ -344,7 +347,7 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--sp", type=int, default=1)
     p.add_argument("--ep", type=int, default=1)
-    p.add_argument("--router-mode", default="round_robin",
+    p.add_argument("--router-mode", default="kv",
                    choices=["kv", "round_robin", "random"])
     p.add_argument("--tool-call-parser", default=None)
     p.add_argument("--reasoning-parser", default=None)

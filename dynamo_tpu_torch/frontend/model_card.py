@@ -7,9 +7,9 @@ Workers write their card to the hub under ``v1/mdc/{ns}/{component}/{endpoint}``
 bound to their lease (ref: lib/llm/src/model_card.rs:118
 ModelDeploymentCard, local_model.rs:418 attach; etcd path v1/mdc).
 
-The port's default router mode is "round_robin" (the reference's is "kv"):
-the KV router is ROADMAP Queue A item 4b, and a "kv" card raises at
-pipeline build until then.
+A card built without a router mode says "round_robin" (the reference's
+dataclass says "kv"); ``register_llm`` and the workers register "kv" by
+default, as the reference's, and the watcher builds a KV router for it.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ class ModelDeploymentCard:
     context_length: int = 8192
     kv_block_size: int = 16
     migration_limit: int = 3
-    router_mode: str = "round_robin"  # "round_robin" | "random" ("kv": 4b)
+    router_mode: str = "round_robin"  # "kv" | "round_robin" | "random"
     chat_template: str | None = None
     tool_call_parser: str | None = None  # parsers.TOOL_PARSERS key
     reasoning_parser: str | None = None  # parsers.REASONING_PARSERS key
@@ -81,7 +81,7 @@ async def register_llm(
     context_length: int = 8192,
     kv_block_size: int = 16,
     migration_limit: int = 3,
-    router_mode: str = "round_robin",
+    router_mode: str = "kv",
     tool_call_parser: str | None = None,
     reasoning_parser: str | None = None,
     mm_tokens_per_image: int = 0,

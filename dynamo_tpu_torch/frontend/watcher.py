@@ -2,13 +2,16 @@
 of dynamo_tpu/frontend/watcher.py).
 
 ModelWatcher watches the hub ``v1/mdc/`` prefix; for each card it assembles
-the serving chain Preprocessor -> Backend -> Migration -> PushRouter ->
+the serving chain Preprocessor -> Backend -> Migration -> router ->
 instances and registers it in ModelManager under the served model name.
-Cards disappearing (lease expiry / deregistration) tear the pipeline down.
+The router is a PushRouter (round_robin / random cards) or, for a "kv"
+card, a KvPushRouter over a direct-mode PushRouter: a KvRouter fed by the
+workers' KV events and load picks each request's instance. Cards
+disappearing (lease expiry / deregistration) tear the pipeline down.
 
-A card asking for the KV router or multimodal input raises at pipeline
-build (ROADMAP Queue A items 4b and 14); the watcher logs it and keeps
-watching, as the reference does for a card it cannot build.
+A card asking for multimodal input raises at pipeline build (ROADMAP Queue
+A item 12); the watcher logs it and keeps watching, as the reference does
+for a card it cannot build.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ from typing import Any, AsyncIterator
 from dynamo_tpu_torch.frontend.model_card import MDC_ROOT, ModelDeploymentCard
 from dynamo_tpu_torch.frontend.preprocessor import OpenAIPreprocessor
 from dynamo_tpu_torch.frontend.tokenizer import load_tokenizer
+from dynamo_tpu_torch.kv_router.protocols import RouterConfig
+from dynamo_tpu_torch.kv_router.router import KvPushRouter, KvRouter
 from dynamo_tpu_torch.runtime.context import Context
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 from dynamo_tpu_torch.runtime.pipeline import build_chain
@@ -35,8 +40,11 @@ class ModelPipeline:
     preprocessor: OpenAIPreprocessor
     engine: Any  # Backend(Migration(router))
     push_router: PushRouter
+    kv_router: KvRouter | None = None
 
     async def close(self) -> None:
+        if self.kv_router is not None:
+            await self.kv_router.close()
         await self.push_router.client.close()
 
     def generate(self, preprocessed: dict, context: Context) -> AsyncIterator[dict]:
@@ -68,14 +76,9 @@ class ModelManager:
 async def build_pipeline(
     drt: DistributedRuntime, card: ModelDeploymentCard
 ) -> ModelPipeline:
-    if card.router_mode == "kv":
-        raise NotImplementedError(
-            f"model {card.name!r}: router_mode 'kv' needs the KV router "
-            "(ROADMAP Queue A item 4b); register with 'round_robin'"
-        )
     if card.mm_tokens_per_image or card.mm_video_frames:
         raise NotImplementedError(
-            f"model {card.name!r}: multimodal input is ROADMAP Queue A item 14"
+            f"model {card.name!r}: multimodal input is ROADMAP Queue A item 12"
         )
     tokenizer = load_tokenizer(card.tokenizer)
     preprocessor = OpenAIPreprocessor(
@@ -91,8 +94,25 @@ async def build_pipeline(
         .component(card.component)
         .endpoint(card.endpoint)
     )
-    mode = RouterMode.RANDOM if card.router_mode == "random" else RouterMode.ROUND_ROBIN
-    push = await PushRouter.from_endpoint(endpoint, mode)
+    mode = {
+        "kv": RouterMode.KV,
+        "round_robin": RouterMode.ROUND_ROBIN,
+        "random": RouterMode.RANDOM,
+    }.get(card.router_mode, RouterMode.ROUND_ROBIN)
+    push = await PushRouter.from_endpoint(
+        endpoint, RouterMode.DIRECT if mode is RouterMode.KV else mode)
+    kv_router: KvRouter | None = None
+    router_engine: Any = push
+    if mode is RouterMode.KV:
+        kv_router = await KvRouter(
+            drt.hub, card.component_path,
+            RouterConfig(block_size=card.kv_block_size),
+        ).start()
+        # the block size and the hash salt MUST match what the workers hash
+        # their KV events with (engines hash unsalted unless the card says
+        # otherwise): a mismatch silently zeroes every prefix overlap
+        router_engine = KvPushRouter(
+            push, kv_router, salt=card.runtime_config.get("kv_salt"))
     # chains are data through the operator registry: cards may splice extra
     # operators via runtime_config["operators"] between backend and router
     extra = list(card.runtime_config.get("operators") or [])
@@ -102,10 +122,11 @@ async def build_pipeline(
             *extra,
             ("migration", {"migration_limit": card.migration_limit}),
         ],
-        push,
+        router_engine,
     )
     return ModelPipeline(
         card=card, preprocessor=preprocessor, engine=backend, push_router=push,
+        kv_router=kv_router,
     )
 
 

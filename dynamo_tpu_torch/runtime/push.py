@@ -2,9 +2,9 @@
 copy of dynamo_tpu/runtime/push.py).
 
 Modes: random, round_robin, direct(instance_id). The KV-aware mode wraps
-this router in the reference (kv_router/); the port has no KV router yet
-(ROADMAP Queue A item 4b). On no instances or stream death the caller (the
-migration operator) decides whether to retry.
+this router in direct mode (kv_router/router.py KvPushRouter). On no
+instances or stream death the caller (the migration operator) decides
+whether to retry.
 """
 
 from __future__ import annotations

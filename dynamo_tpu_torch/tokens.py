@@ -5,16 +5,15 @@ cache, KVBM block reuse, disagg KV handoff) keys off the same content hash of
 token blocks, so workers and routers agree on block identity without
 communicating.
 
-Scheme: the chaining of dynamo_tpu/tokens.py, with a 64-bit BLAKE2b
-(``hashlib.blake2b(digest_size=8)``, little-endian) in place of xxh3_64,
-because xxhash is not a dependency of this package. The values therefore
-differ from the xxh3 wire hashes the router indexes; a router slice must
-reconcile the two before this engine publishes KV events.
+Scheme (the reference's, dynamo_tpu/tokens.py, bit for bit): xxh3_64 from
+this package's standard-library XXH3 (xxh3.py), so a worker's prefix cache,
+its KV events and any router (this package's or the reference's) agree on
+block identity:
 
-- ``block_hash(tokens)``: the hash of the little-endian u32 token ids of one
+- ``block_hash(tokens)``: xxh3_64 over the little-endian u32 token ids of one
   block. Position-independent (content identity).
 - ``sequence_hash``: chained prefix identity -
-  ``H(parent_sequence_hash_u64le || block_hash_u64le)`` with the first block
+  ``xxh3_64(parent_sequence_hash_u64le || block_hash_u64le)`` with the first block
   chaining from the salt hash. Two sequences share a sequence_hash iff they
   share the whole token prefix (and salt: model + lora + tenant separation).
 
@@ -25,10 +24,11 @@ decode loops pay O(1) amortized hashing cost.
 
 from __future__ import annotations
 
-import hashlib
 import struct
 from dataclasses import dataclass, field
 from typing import Iterable, Iterator, Sequence
+
+from dynamo_tpu_torch.xxh3 import xxh3_64
 
 __all__ = [
     "block_hash",
@@ -54,16 +54,9 @@ def _tokens_bytes(tokens: Sequence[int]) -> bytes:
         return b"".join(struct.pack("<I", t & 0xFFFFFFFF) for t in tokens)
 
 
-def _h64(data: bytes, seed: int = 0) -> int:
-    """64-bit BLAKE2b of ``data``; a nonzero ``seed`` keys the hash."""
-    key = _U64.pack(seed & 0xFFFFFFFFFFFFFFFF) if seed else b""
-    digest = hashlib.blake2b(data, digest_size=8, key=key).digest()
-    return int.from_bytes(digest, "little")
-
-
 def block_hash(tokens: Sequence[int], seed: int = 0) -> int:
     """Content hash of one block of token ids (order-sensitive)."""
-    return _h64(_tokens_bytes(tokens), seed=seed)
+    return xxh3_64(_tokens_bytes(tokens), seed)
 
 
 def salt_hash(salt: str | bytes | None) -> int:
@@ -72,12 +65,12 @@ def salt_hash(salt: str | bytes | None) -> int:
         return _NULL_SALT
     if isinstance(salt, str):
         salt = salt.encode("utf-8")
-    return _h64(salt)
+    return xxh3_64(salt)
 
 
 def chain_hash(parent: int, child_block_hash: int) -> int:
     """Extend a sequence hash chain by one block."""
-    return _h64(
+    return xxh3_64(
         _U64.pack(parent & 0xFFFFFFFFFFFFFFFF)
         + _U64.pack(child_block_hash & 0xFFFFFFFFFFFFFFFF)
     )

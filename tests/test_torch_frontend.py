@@ -343,8 +343,15 @@ async def test_refused_features_raise():
         OpenAIPreprocessor(MockTokenizer(), model_name="m", tool_call_parser="hermes")
     drt = DistributedRuntime(InMemoryHub())
     base = dict(name="m", namespace="ns", component="c", endpoint="e")
-    with pytest.raises(NotImplementedError, match="4b"):
-        await build_pipeline(drt, ModelDeploymentCard(**base, router_mode="kv"))
+    # a kv card is no longer refused: its chain ends in a KvPushRouter over
+    # a direct-mode PushRouter, with the card's block size
+    kv = await build_pipeline(drt, ModelDeploymentCard(**base, router_mode="kv",
+                                                       kv_block_size=4))
+    assert type(kv.engine.downstream.downstream).__name__ == "KvPushRouter"
+    assert kv.engine.downstream.downstream.push_router is kv.push_router
+    assert kv.push_router.mode.value == "direct"
+    assert kv.kv_router.config.block_size == 4
+    await kv.close()
     with pytest.raises(NotImplementedError, match="parsers"):
         await build_pipeline(drt, ModelDeploymentCard(**base, reasoning_parser="basic"))
     with pytest.raises(NotImplementedError, match="multimodal"):

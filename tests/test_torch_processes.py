@@ -408,7 +408,9 @@ _REFUSED_FLAGS = {
     "tool-call-parser": (["--tool-call-parser", "hermes"], "item 3"),
     "reasoning-parser": (["--reasoning-parser", "basic"], "item 3"),
     "mm-tokens": (["--mm-tokens-per-image", "4"], "item 12"),
-    "router-kv": (["--router-mode", "kv"], "item 2"),
+    # --router-mode kv is ported (the default); the disagg prefill
+    # router stays refused with disagg
+    "prefill-router-mode": (["--prefill-router-mode", "round_robin"], "item 10"),
 }
 
 

@@ -107,7 +107,8 @@ class _Stacks:
         self.drt = DistributedRuntime(InMemoryHub())
         self.eng, _ = await launch_engine_worker(
             self.drt, model_name=MODEL, spec=ModelSpec(**SPEC_KW),
-            engine_config=EngineConfig(**CFG_KW), params=tp, device="cpu")
+            engine_config=EngineConfig(**CFG_KW), params=tp, device="cpu",
+            router_mode="round_robin")
         self.watch = await ModelWatcher(self.drt, ModelManager()).start()
         await self.watch.wait_for_model(MODEL, timeout=10)
         self.http = HttpFrontend(self.watch.manager, host="127.0.0.1", port=0,
@@ -678,8 +679,8 @@ def test_cli_batch_and_refusals(tmp_path):
 
     with pytest.raises(NotImplementedError, match="mocker"):
         cli.main(["run", "--out", "mocker"])
-    with pytest.raises(NotImplementedError, match="4b-ii"):
-        cli.main(["router"])
+    with pytest.raises(NotImplementedError, match="item 14"):
+        cli.main(["planner"])
 
 
 def test_cli_without_gpu_refuses_the_cpu():

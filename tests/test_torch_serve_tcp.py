@@ -91,7 +91,8 @@ class _TcpStacks:
         self.meng, served = await launch_engine_worker(
             self.mworker, component="port-backend", model_name=MIXED_MODEL,
             spec=ModelSpec(**SPEC_KW),
-            engine_config=EngineConfig(**CFG_KW), params=tp, device="cpu")
+            engine_config=EngineConfig(**CFG_KW), params=tp, device="cpu",
+            router_mode="round_robin")
         assert served.instance.transport == "tcp"
         self.jfront = JaxRuntime(await JaxRemoteHub.connect(jaddr), jcfg)
         self.jwatch = await JaxModelWatcher(self.jfront, JaxModelManager()).start()
@@ -108,7 +109,8 @@ class _TcpStacks:
                                          RuntimeConfig(hub_address=addr))
         self.eng, served = await launch_engine_worker(
             self.worker, model_name=MODEL, spec=ModelSpec(**SPEC_KW),
-            engine_config=EngineConfig(**CFG_KW), params=tp, device="cpu")
+            engine_config=EngineConfig(**CFG_KW), params=tp, device="cpu",
+            router_mode="round_robin")
         assert served.instance.transport == "tcp"
         self.front = DistributedRuntime(await RemoteHub.connect(addr),
                                         RuntimeConfig(hub_address=addr))
