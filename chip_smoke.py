@@ -89,7 +89,21 @@ Phases, each of which must pass (any failure exits non-zero):
    /metrics (the TTFT histogram counts every request that reached the
    engine). fused_decode must launch 32 times per decode step over the
    phase. Prints client TTFT and tok/s beside the direct serves, and the
-   share of completion texts equal to the decoded direct tokens;
+   share of completion texts equal to the decoded direct tokens. Then the
+   serving features on the same engine, each request alone on a cleared
+   prefix cache (FEATURE_TOKENS tokens, greedy): at the serve's shortest
+   and longest prompt lengths, a chat completion and the same messages
+   through /v1/responses non-streamed (text and output_tokens equal to the
+   chat completion's) and streamed (response.created, then only
+   response.output_text.delta events with the response's item id, then
+   response.completed; the deltas join to the chat text, the usage's
+   output_tokens equal); the engine registered again under a card with
+   the hermes tool-call and deepseek_r1 reasoning parsers, and a chat
+   completion with tools through it, aggregated and streamed: random
+   weights write no markers, so reasoning_content plus content equal the
+   plain card's content, with no tool_calls, the same finish_reason and
+   usage; 32 fused_decode launches per step; the parsers' host time per
+   chunk of a scripted stream printed;
 10. CLI: ``python3 -m dynamo_tpu_torch.cli run --in http --out engine
    --model llama-3-8b --port 0 --precompile`` in a process of its own
    prints DYNAMO_HTTP=host:port and streams a 16-token chat completion;
@@ -126,7 +140,18 @@ Phases, each of which must pass (any failure exits non-zero):
    workers within 5 s (their removed events). Printed, not gated: pick
    time by phase, event lag, host hash costs (xxh3 beside blake2b),
    follower against head TTFT, and the same waves through a round-robin
-   PushRouter with the followers in a seeded shuffled order. Each set of 8 is timed on cleared prefix caches and
+   PushRouter with the followers in a seeded shuffled order. The workers
+   run with --health-port 0 --health-interval 1 and the hermes /
+   deepseek_r1 parsers; after the prefix-family set, the health set:
+   /ready 200 on both status servers; each worker's canary latency (the
+   health manager's canary, from here); the admin faults op arms
+   health.canary:corrupt scoped to worker A, which must be quarantined
+   within 3 canary periods (its card flagged in the hub, reason="sdc" on
+   its /metrics, /ready 503); the next 4 completions through the frontend
+   must all go to B; clearing the spec must readmit A within 3 canary
+   periods (readmission takes 3 clean canaries; a period is the interval
+   plus the slowest measured canary; 0.25 s of slack for the hub's put
+   and the poll). Each set of 8 is timed on cleared prefix caches and
    printed beside phase 9's. Then the survivor, the frontend and the hub
    SIGTERM'd, each exiting 0 within its deadline. The workers
    log their kernel launches since ENGINE_READY: fused_decode must launch
@@ -197,6 +222,7 @@ CHUNKED_PROMPT = 990  # tokens: prefill chunks of 512 + 478, under the 1024 cont
 GRAPH_STEPS = 4  # burst of the step-graph check
 LOGPROBS = 5
 CLI_TOKENS = 16  # the CLI phase's streamed chat completion
+FEATURE_TOKENS = 16  # each request of phase 9's serving-feature set
 CLI_START_S = 180  # the CLI process's limit to print DYNAMO_HTTP=
 REPS = 20
 SLEEP_CYCLES = 5_000_000  # ~2.5 ms of device time at the H100's clock
@@ -1382,6 +1408,13 @@ def http_serve(spec, cfg, params, prompts, default_serve_out, default_tokens):
             out["replays"] = engine._graphs.replays - before[1]
             status, body, _ = await http_call(port, "GET", "/metrics")
             out["metrics"] = (status, body.decode())
+            zero_counts()
+            before = (engine.steps, engine._graphs.replays)
+            out["features"] = await serve_features(drt, port, engine, spec, cfg, prompts,
+                                                   watcher, clear)
+            out["features"]["counts"] = read_counts()
+            out["features"]["steps"] = engine.steps - before[0]
+            out["features"]["replays"] = engine._graphs.replays - before[1]
             out["clear"].append(await clear())
             out["direct"].append(await requests(engine, direct))
         finally:
@@ -1463,9 +1496,182 @@ def http_serve(spec, cfg, params, prompts, default_serve_out, default_tokens):
           f"completion {chat['usage']}; dropped stream's pages freed "
           f"{1e3 * out['freed_s']:.0f} ms after the malformed body's 400; /metrics TTFT "
           f"count {int(ttft_count[0])}")
+    features = features_check(out["features"], L)
     drop_engine(out.pop("engine"))
-    return counts["fused_decode"], {"tok_s": n_tok / wall, "ttft_mean": sum(ttft) / n,
-                                    "ttft_max": max(ttft)}
+    return counts["fused_decode"] + features, {"tok_s": n_tok / wall,
+                                               "ttft_mean": sum(ttft) / n,
+                                               "ttft_max": max(ttft)}
+
+
+def feature_text(n_tokens: int) -> str:
+    """A user message whose chat prompt is about ``n_tokens`` mock tokens."""
+    words = "the quick brown fox jumps over a lazy dog while seven ravens watch ".split()
+    out, i = [], 0
+    while len(" ".join(out)) < n_tokens - 32:  # the template's own tokens
+        out.append(words[i % len(words)])
+        i += 1
+    return " ".join(out)
+
+
+async def serve_features(drt, port, engine, spec, cfg, prompts, watcher, clear) -> dict:
+    """Phase 9's serving features on the same engine, each request alone
+    on a cleared prefix cache (so each prefill is whole and each greedy
+    stream is the same computation): a plain chat completion, then
+    /v1/responses non-streamed and streamed with the same messages, at the
+    shortest and longest serve prompt lengths; then the same engine
+    registered a second time under a card with the hermes tool-call and
+    deepseek_r1 reasoning parsers, and a chat completion with ``tools``
+    through it, aggregated and streamed."""
+    from dynamo_tpu_torch.frontend.model_card import register_llm
+
+    name = spec.name
+    out: dict = {"lengths": [], "responses": []}
+
+    async def post(path, body):
+        await clear()
+        status, data, _ = await http_call(port, "POST", path, body)
+        if status == 200 and body.get("stream"):
+            return status, data
+        return status, json.loads(data)
+
+    for n in (min(map(len, prompts)), max(map(len, prompts))):
+        messages = [{"role": "user", "content": feature_text(n)}]
+        plain = await post("/v1/chat/completions", {
+            "model": name, "messages": messages, "max_tokens": FEATURE_TOKENS})
+        flat = await post("/v1/responses", {
+            "model": name, "input": messages, "max_output_tokens": FEATURE_TOKENS})
+        streamed = await post("/v1/responses", {
+            "model": name, "input": messages, "max_output_tokens": FEATURE_TOKENS,
+            "stream": True})
+        out["responses"].append((plain, flat, streamed))
+    # the parsed card: the same handler under another component
+    parsed = f"{name}-parsed"
+    await register_llm(
+        drt, drt.namespace("dynamo").component("parsed").endpoint("generate"),
+        engine.generate, model_name=parsed, context_length=engine.config.max_context,
+        kv_block_size=cfg["page_size"], router_mode="round_robin",
+        tool_call_parser="hermes", reasoning_parser="deepseek_r1")
+    await watcher.wait_for_model(parsed, timeout=30)
+    tools = [{"type": "function", "function": {
+        "name": "get_weather", "parameters": {
+            "type": "object", "properties": {"city": {"type": "string"}}}}}]
+    messages = [{"role": "user", "content": feature_text(len(prompts[3]))}]
+    out["plain_chat"] = await post("/v1/chat/completions", {
+        "model": name, "messages": messages, "max_tokens": FEATURE_TOKENS, "tools": tools})
+    out["parsed_chat"] = await post("/v1/chat/completions", {
+        "model": parsed, "messages": messages, "max_tokens": FEATURE_TOKENS, "tools": tools})
+    out["parsed_stream"] = await post("/v1/chat/completions", {
+        "model": parsed, "messages": messages, "max_tokens": FEATURE_TOKENS, "tools": tools,
+        "stream": True})
+    return out
+
+
+def responses_events(body: bytes) -> list:
+    """The named SSE events of a /v1/responses stream: [(event, data)]."""
+    out = []
+    for e in (e for e in body.decode().split("\n\n") if e):
+        name, _, data = e.partition("\n")
+        require(name.startswith("event: ") and data.startswith("data: "),
+                f"bad /v1/responses SSE framing {e[:200]!r}")
+        out.append((name[len("event: "):], json.loads(data[len("data: "):])))
+    return out
+
+
+def jail_us_per_chunk(reps: int = 200) -> tuple[float, int]:
+    """Host microseconds per text delta of the chat stream's parser work
+    (the deepseek_r1 reasoning split, then the hermes jail), and the
+    number of deltas, on a scripted stream: a think block, an answer and
+    a tool call cut into 4-character deltas (the random-weight engine's
+    tokens carry almost no text under the mock tokenizer)."""
+    from dynamo_tpu_torch.parsers import (
+        JailedStream,
+        make_reasoning_parser,
+        make_tool_config,
+    )
+
+    text = (feature_text(96) + "</think>" + feature_text(96) + ' <tool_call>{"name": '
+            '"get_weather", "arguments": {"city": "San Francisco"}}</tool_call>')
+    deltas = [text[i:i + 4] for i in range(0, len(text), 4)]
+    cfg = make_tool_config("hermes")
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        jail, reasoning = JailedStream(cfg), make_reasoning_parser("deepseek_r1")
+        for text in deltas:
+            _, content = reasoning.feed(text)
+            if content:
+                jail.feed(content)
+        _, tail = reasoning.finish()
+        jail.feed(tail)
+        jail.finish()
+    return 1e6 * (time.perf_counter() - t0) / (reps * len(deltas)), len(deltas)
+
+
+def features_check(f: dict, L: int) -> int:
+    """Phase 9's feature gates; returns their fused_decode launches."""
+    deltas = []
+    for (ps, plain), (fs, flat), (ss, streamed) in f["responses"]:
+        require(ps == fs == ss == 200, f"responses: statuses {ps}, {fs}, {ss}: {flat}")
+        text = plain["choices"][0]["message"]["content"]
+        n_out = plain["usage"]["completion_tokens"]
+        require(flat["object"] == "response" and flat["status"] == "completed"
+                and flat["output"][0]["content"][0]["text"] == text
+                and flat["usage"]["output_tokens"] == n_out
+                and flat["usage"]["input_tokens"] == plain["usage"]["prompt_tokens"],
+                f"/v1/responses {flat} against the chat completion {plain}")
+        ev = responses_events(streamed)
+        names = [e for e, _ in ev]
+        rid = ev[0][1]["response"]["id"] if ev else None
+        require(len(ev) >= 2 and names[0] == "response.created"
+                and names[-1] == "response.completed"
+                and set(names[1:-1]) <= {"response.output_text.delta"}
+                and ev[0][1]["response"]["status"] == "in_progress"
+                and all(d["item_id"] == rid for _, d in ev[1:-1])
+                and ev[-1][1]["response"]["id"] == rid,
+                f"/v1/responses stream events {names[:3]}...{names[-2:]}")
+        d = [x["delta"] for _, x in ev[1:-1]]
+        require("".join(d) == text
+                and ev[-1][1]["response"]["usage"]["output_tokens"] == n_out,
+                f"/v1/responses stream: text or usage differ from the chat completion: "
+                f"{ev[-1]}")
+        deltas += d
+        f["lengths"].append((plain["usage"]["prompt_tokens"], n_out, len(d)))
+    (ps, plain), (qs, parsed) = f["plain_chat"], f["parsed_chat"]
+    require(ps == qs == 200, f"parsed chat: statuses {ps}, {qs}: {parsed}")
+    want = plain["choices"][0]["message"]["content"]
+    msg = parsed["choices"][0]["message"]
+    # random weights write no </think> or <tool_call>: deepseek_r1 opens in
+    # reasoning, so the whole text is reasoning_content and no call is parsed
+    got = (msg.get("reasoning_content") or "") + (msg.get("content") or "")
+    require(got == want and "tool_calls" not in msg
+            and parsed["choices"][0]["finish_reason"] == plain["choices"][0]["finish_reason"]
+            and parsed["usage"] == plain["usage"],
+            f"parsed chat {parsed} against the same request without parsers {plain}")
+    ss, body = f["parsed_stream"]
+    ev = sse_events(body) if ss == 200 else []
+    chunks = [e for e in ev[:-1] if isinstance(e, dict) and e.get("choices")]
+    streamed = "".join((c["choices"][0]["delta"].get("reasoning_content") or "")
+                       + (c["choices"][0]["delta"].get("content") or "") for c in chunks)
+    require(ss == 200 and ev[-1] == "[DONE]" and streamed == want
+            and not any("tool_calls" in c["choices"][0]["delta"] for c in chunks)
+            and chunks[-1]["choices"][0]["finish_reason"]
+            == plain["choices"][0]["finish_reason"],
+            f"parsed chat stream: status {ss}, text equal {streamed == want}")
+    counts, steps = f["counts"], f["steps"]
+    require(counts["fused_decode"] == L * steps and steps > 0 and f["replays"] == steps,
+            f"features: fused_decode launched {counts['fused_decode']} times over "
+            f"{steps} decode steps ({f['replays']} graph replays)")
+    us, n_chunks = jail_us_per_chunk()
+    print(f"serve http features: /v1/responses non-streamed and streamed equal the chat "
+          f"completion (text, output tokens) at (prompt tokens, output tokens, deltas) "
+          f"{f['lengths']}; the tools chat through the hermes + deepseek_r1 card equals "
+          f"the plain one (reasoning_content {len(msg.get('reasoning_content') or '')} "
+          f"chars, content {len(msg.get('content') or '')} chars, finish "
+          f"{parsed['choices'][0]['finish_reason']}, {parsed['usage']['completion_tokens']} "
+          f"tokens), streamed too; text-bearing response deltas from the engine "
+          f"{len(deltas)} (most random-weight tokens have no mock-tokenizer text); parser "
+          f"host time {us:.2f} us per chunk over a scripted {n_chunks}-delta stream; "
+          f"fused_decode launches {counts['fused_decode']} = {L} x {steps} steps")
+    return counts["fused_decode"]
 
 
 def cli_check(model: str, device: str | None = None) -> None:
@@ -1527,6 +1733,8 @@ def cli_check(model: str, device: str | None = None) -> None:
 WORKER_BYTES = 22e9  # llama-3-8b bf16 weights 16.06 GB + 4.30 GB pool + graphs
 PROC_START_S = 300  # a child's limit to print its ready line
 PROC_EXIT_S = 60  # a child's limit to exit after SIGTERM
+HEALTH_INTERVAL_S = 1.0  # the workers' canary period (--health-interval)
+HEALTH_PERIODS = 3  # quarantine and readmission each within this many canary periods
 
 
 class Child:
@@ -1646,12 +1854,16 @@ def process_phase(spec, cfg, prompts, default_tokens, http_stats, device=None) -
         children.append(hub_proc)
         hub = hub_proc.wait_line("DYNAMO_HUB=", 60).split("=", 1)[1]
         workers = [Child("worker", "--hub", hub, "--model", name, "--precompile",
-                         *flags, *dev) for _ in range(2)]
+                         "--health-port", "0", "--health-interval", str(HEALTH_INTERVAL_S),
+                         "--tool-call-parser", "hermes", "--reasoning-parser",
+                         "deepseek_r1", *flags, *dev) for _ in range(2)]
         children += workers
         front = Child("frontend", "--hub", hub, "--port", "0", "--host", "127.0.0.1")
         children.append(front)
         port = int(front.wait_line("DYNAMO_HTTP=", 60).rsplit(":", 1)[1])
         for w in workers:
+            w.status_port = int(w.wait_line("SYSTEM_STATUS_PORT=", PROC_START_S)
+                                .split("=", 1)[1])
             w.wait_line("ENGINE_READY", PROC_START_S)
             line = next(ln for ln in w.seen if "engine worker " in ln)
             w.lease = int(re.search(r"engine worker ([0-9a-f]+) up", line).group(1), 16) >> 16
@@ -1777,6 +1989,16 @@ def process_phase(spec, cfg, prompts, default_tokens, http_stats, device=None) -
           f"completion went to the survivor; fused_decode launches {fused} = {L} x {steps} "
           f"steps over both workers ({[x['steps'] for x in logs]} steps, replays "
           f"{[x['replays'] for x in logs]})")
+    h = out["health"]
+    print(f"processes: health (--health-interval {HEALTH_INTERVAL_S:g} s, hermes + "
+          f"deepseek_r1 cards): /ready 200 on both workers; canary latency (median of 5, "
+          f"ms) A {1e3 * h['latency'][0]:.2f}, B {1e3 * h['latency'][1]:.2f}; "
+          f"health.canary:corrupt armed on A through its admin faults op: quarantined "
+          f"after {h['quarantine_s']:.3f} s (reason=\"sdc\" on its /metrics, /ready 503), "
+          f"the next 4 completions all on B ({h['routed']}), readmitted "
+          f"{h['readmit_s']:.3f} s after the spec was cleared (limit {h['limit_s']:.3f} s "
+          f"= {HEALTH_PERIODS} canary periods + 0.25 s); A ran {h['probes']} canaries, each a "
+          f"one-token prefill with no decode step (0 fused_decode launches)")
     print(f"processes: codec host time per coalesced frame of 8 token items "
           f"({len(body)} bytes): pack {pack_us:.2f} us, unpack {unpack_us:.2f} us")
     return fused
@@ -1873,6 +2095,9 @@ async def _drive_processes(spec, prompts, hub, port, workers, front):
         # prefix families through this process's own KV router, then the
         # same waves round robin, each on cleared caches
         out["prefix"] = await _prefix_family_set(drt, spec, clear_caches)
+        # health: readiness, canary latency, SDC quarantine and readmission
+        out["health"] = await _health_set(drt, workers, admin, cache_status,
+                                          clear_caches, port, name, prompts)
 
         # SIGTERM drain of the worker serving one more stream
         victim = {}
@@ -1927,6 +2152,118 @@ async def _drive_processes(spec, prompts, hub, port, workers, front):
         await drt.close()
     return out
 
+
+
+async def _health_set(drt, workers, admin, cache_status, clear_caches, port, name,
+                      prompts) -> dict:
+    """Phase 11's health set: both workers' status servers answer /ready
+    200; each worker's canary latency through its TCP endpoint (the health
+    manager's own canary call, from here); the admin faults op arms
+    health.canary:corrupt scoped to worker A's fault identity: A must be
+    quarantined within HEALTH_PERIODS canary periods, show reason="sdc" on
+    its /metrics and /ready 503, and the next 4 completions through the
+    frontend must all go to B; clearing the spec must readmit A within
+    HEALTH_PERIODS canary periods (readmission takes 3 clean canaries)."""
+    from types import SimpleNamespace
+
+    from dynamo_tpu_torch.runtime.context import Context
+    from dynamo_tpu_torch.runtime.health import (
+        DEFAULT_CANARY,
+        HealthCheckManager,
+        is_quarantined,
+    )
+
+    async def status(w, path):
+        st, body, _ = await http_call(w.status_port, "GET", path)
+        return st, body.decode()
+
+    async def until(cond, what, limit_s):
+        t = time.perf_counter()
+        while not await cond():
+            require(time.perf_counter() - t < limit_s, f"processes health: {what} not "
+                    f"within {limit_s:.2f} s")
+            await asyncio.sleep(0.01)
+        return time.perf_counter() - t
+
+    async def ready(w):
+        return (await status(w, "/ready"))[0] == 200
+
+    async def ready_all():
+        return [await ready(w) for w in workers] == [True, True]
+
+    await until(ready_all, "/ready 200 on both workers", 10 * HEALTH_INTERVAL_S)
+    gen = await drt.namespace("dynamo").component("backend").endpoint(
+        "generate").client().start()
+    res: dict = {}
+    try:
+        await gen.wait_for_instances(2, timeout=10)
+        insts = {i.instance_id >> 16: i for i in gen.instances()}
+        probe = HealthCheckManager(drt)
+        res["latency"] = []
+        for w in workers:
+            served = SimpleNamespace(instance=insts[w.lease])
+            times = []
+            for _ in range(5):
+                t = time.perf_counter()
+                toks = await probe._canary(served, dict(DEFAULT_CANARY))
+                times.append(time.perf_counter() - t)
+                require(len(toks) == 1, f"processes health: canary answered {toks}")
+            res["latency"].append(sorted(times)[2])
+        # a period is the sleep plus one canary; the slack covers the card's
+        # put through the hub and this poll's 10 ms step
+        limit = HEALTH_PERIODS * (HEALTH_INTERVAL_S + max(res["latency"])) + 0.25
+        res["limit_s"] = limit
+        a, b = workers
+        a_inst = insts[a.lease]
+        (a_admin,) = [i for i in admin.instance_ids() if i >> 16 == a.lease]
+
+        async def faults(spec):
+            async for item in admin.call_instance(a_admin, {"op": "faults", "spec": spec},
+                                                  Context()):
+                return item
+
+        async def a_quarantined():
+            return is_quarantined(await drt.hub.get(a_inst.path))
+
+        key = HealthCheckManager._fault_key(a_inst)
+        armed = await faults(f"health.canary:corrupt~{key}")
+        require(armed["ok"] and armed["rules"] == [f"health.canary:corrupt~{key}"],
+                f"processes health: faults op answered {armed}")
+        res["quarantine_s"] = await until(a_quarantined, "worker A quarantined", limit)
+        st, metrics = await status(a, "/metrics")
+        require(st == 200 and 'dynamo_worker_quarantines_total{reason="sdc"} 1' in metrics,
+                "processes health: worker A's /metrics shows no sdc quarantine")
+        require((await status(a, "/ready"))[0] == 503 and (await status(b, "/ready"))[0]
+                == 200, "processes health: /ready of the quarantined worker is not 503")
+        async def watched():  # this process's copy of A's card is flagged
+            return any(i.instance_id == a_inst.instance_id and is_quarantined(i)
+                       for i in gen.instances())
+
+        await until(watched, "the quarantined card watched", 5)
+        await asyncio.sleep(0.2)  # the frontend's watch of the same put
+        await clear_caches()
+        for p in prompts[:4]:
+            st, body, _ = await http_call(port, "POST", "/v1/completions", {
+                "model": name, "prompt": p, "max_tokens": 8, "ignore_eos": True})
+            require(st == 200 and json.loads(body)["usage"]["completion_tokens"] == 8,
+                    f"processes health: a completion during the quarantine: {st} {body}")
+        served = await cache_status()
+        by_worker = {iid >> 16: s["cached_pages"] for iid, s in served.items()}
+        res["routed"] = f"cached pages A {by_worker[a.lease]}, B {by_worker[b.lease]}"
+        require(by_worker[a.lease] == 0 and by_worker[b.lease] > 0,
+                f"processes health: routed during A's quarantine: {res['routed']}")
+        cleared = await faults("")
+        require(cleared["ok"] and cleared["rules"] == [], f"faults op answered {cleared}")
+
+        async def a_admitted():
+            return not await a_quarantined()
+
+        res["readmit_s"] = await until(a_admitted, "worker A readmitted", limit)
+        await until(lambda: ready(a), "worker A /ready 200", 5)
+        res["probes"] = json.loads((await status(a, "/health"))[1])["endpoints"][0]["probes"]
+    finally:
+        await gen.close()
+    return res
 
 
 async def _prefix_family_set(drt, spec, clear_caches) -> dict:

@@ -5,7 +5,12 @@
         event loop; prints DYNAMO_HTTP=host:port once serving
     python -m dynamo_tpu_torch.cli run --in batch:reqs.jsonl --out engine
         offline batch: one JSON result line per input line
-    python -m dynamo_tpu_torch.cli hub|worker|frontend|router ...
+    python -m dynamo_tpu_torch.cli run --in text --out echo
+        interactive chat on stdin (one line per turn, ctrl-d ends)
+    python -m dynamo_tpu_torch.cli run ... --out mocker|echo
+        the same inputs in front of a mock engine (simulated timing, no
+        model) instead of the torch engine; echo returns the prompt
+    python -m dynamo_tpu_torch.cli hub|worker|frontend|router|mocker ...
         one service process of a deployment (the same as python -m
         dynamo_tpu_torch.<module>): the TCP hub (prints DYNAMO_HUB=), an
         engine worker (prints ENGINE_READY; SIGTERM drains it; publishes
@@ -13,12 +18,12 @@
         frontend (prints DYNAMO_HTTP=; routes a "kv" card by prefix
         overlap) and the standalone KV router service (prints
         ROUTER_READY; serves "generate" and "best_worker" on component
-        "router")
+        "router") and a fleet of mock workers (prints MOCKERS_READY N)
 
 The engine runs on the GPU; ``--device cpu`` runs it on the CPU (tests).
-Not yet ported, and refused: ``--in text``, ``--out mocker|echo`` and the
-other service subcommands (mocker, planner, ...), which wait for their own
-slices.
+``--out engine`` is the default (the reference's is ``mocker``): the port's
+main path is the card. The other service subcommands (planner, ...) are
+refused until their own slices.
 """
 
 from __future__ import annotations
@@ -33,12 +38,12 @@ SUBCOMMAND_MODULES = {
     "frontend": "dynamo_tpu_torch.frontend.__main__",
     "worker": "dynamo_tpu_torch.engine.worker",
     "router": "dynamo_tpu_torch.kv_router.service",
+    "mocker": "dynamo_tpu_torch.mocker.__main__",
 }
 # the reference's other service commands -> the ROADMAP Queue A item that
 # ports them
 REFUSED_COMMANDS = {
-    "hub-replica": "item 14", "mocker": "item 3, 4c",
-    "encoder": "item 12", "operator": "item 14", "planner": "item 14",
+    "hub-replica": "item 14", "encoder": "item 12", "operator": "item 14", "planner": "item 14",
     "bench": "item 14", "profile": "item 14",
 }
 
@@ -47,40 +52,62 @@ def _usage() -> str:
     return (
         "usage: python -m dynamo_tpu_torch.cli <command> [args]\n"
         "commands:\n"
-        "  run        one-process serving stack (--in http|batch:FILE "
-        "--out engine)\n"
+        "  run        one-process serving stack (--in http|text|batch:FILE "
+        "--out engine|mocker|echo)\n"
         + "".join(f"  {name:<10} launch {mod}\n"
                   for name, mod in SUBCOMMAND_MODULES.items())
     )
 
 
 async def _arun(args: argparse.Namespace) -> None:
-    from dynamo_tpu_torch.engine.config import EngineConfig
-    from dynamo_tpu_torch.engine.worker import launch_engine_worker
     from dynamo_tpu_torch.frontend.watcher import ModelManager, ModelWatcher
     from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
     from dynamo_tpu_torch.runtime.hub import InMemoryHub
 
     drt = DistributedRuntime(InMemoryHub())
-    # serving always pipelines the decode bursts (as the reference's worker)
-    engine, _ = await launch_engine_worker(
-        drt, namespace=args.namespace, model=args.model,
-        model_name=args.model_name,
-        engine_config=EngineConfig(pipeline_decode=True),
-        precompile=args.precompile, device=args.device,
-    )
-    model_name = args.model_name or engine.spec.name
+    if args.out in ("mocker", "echo"):
+        from dynamo_tpu_torch.mocker.__main__ import launch_mock_worker
+        from dynamo_tpu_torch.mocker.engine import MockEngineConfig
+
+        model_name = args.model_name or (
+            "echo" if args.out == "echo" else "mock-model")
+        engine, _ = await launch_mock_worker(
+            drt, args.namespace, "backend", "generate",
+            MockEngineConfig(block_size=16, speedup_ratio=args.speedup_ratio,
+                             echo_prompt=args.out == "echo"),
+            model_name=model_name, register_card=True,
+        )
+
+        async def close_engine() -> None:  # the mock engine's publishers
+            for pub in (engine.events, engine.metrics):
+                await pub.close()
+    else:
+        from dynamo_tpu_torch.engine.config import EngineConfig
+        from dynamo_tpu_torch.engine.worker import launch_engine_worker
+
+        # serving always pipelines the decode bursts (as the reference's
+        # worker)
+        engine, _ = await launch_engine_worker(
+            drt, namespace=args.namespace, model=args.model,
+            model_name=args.model_name,
+            engine_config=EngineConfig(pipeline_decode=True),
+            precompile=args.precompile, device=args.device,
+        )
+        model_name = args.model_name or engine.spec.name
+        close_engine = engine.close
     manager = ModelManager()
     watcher = await ModelWatcher(drt, manager).start()
     try:
         await watcher.wait_for_model(model_name, timeout=30)
         if args.inp == "http":
             await _serve_http(args, drt, manager, model_name)
+        elif args.inp == "text":
+            await _serve_text(args, manager.get(model_name), model_name)
         else:
             await _serve_batch(args, manager.get(model_name), model_name)
     finally:
         await watcher.close()
-        await engine.close()
+        await close_engine()
         await drt.close()
 
 
@@ -139,13 +166,39 @@ async def _serve_batch(args, pipe, model_name: str) -> None:
             sys.stdout.write(json.dumps(r) + "\n")
 
 
+async def _serve_text(args, pipe, model_name: str) -> None:
+    """Interactive chat: one stdin line per user turn, the reply streamed
+    to stdout; end of input ends the session."""
+    from dynamo_tpu_torch.runtime.context import Context
+
+    print(f"interactive chat with {model_name!r} (ctrl-d to exit)")
+    loop = asyncio.get_running_loop()
+    while True:
+        try:
+            line = await loop.run_in_executor(None, input, "> ")
+        except EOFError:
+            return
+        if not line.strip():
+            continue
+        body = {
+            "model": model_name, "max_tokens": args.max_tokens,
+            "messages": [{"role": "user", "content": line}],
+        }
+        pre = pipe.preprocessor.preprocess(body)
+        async for d in pipe.generate(pre, Context()):
+            if d.get("text"):
+                print(d["text"], end="", flush=True)
+        print()
+
+
 def _run_command(rest: list[str]) -> int:
     p = argparse.ArgumentParser(prog="python -m dynamo_tpu_torch.cli run")
     p.add_argument("--in", dest="inp", default="http",
-                   help="http | batch:FILE.jsonl")
+                   help="http | text | batch:FILE.jsonl")
     p.add_argument("--out", default="engine",
-                   help="engine (mocker and echo are not ported yet)")
-    p.add_argument("--model", default="tiny-test", help="model preset")
+                   choices=["engine", "mocker", "echo"])
+    p.add_argument("--model", default="tiny-test",
+                   help="model preset (out=engine)")
     p.add_argument("--model-name", default=None)
     p.add_argument("--device", default=None,
                    help="torch device of the engine (default: the GPU)")
@@ -156,18 +209,14 @@ def _run_command(rest: list[str]) -> int:
                    default=False,
                    help="capture every decode graph variant before serving")
     p.add_argument("--max-tokens", type=int, default=128)
+    p.add_argument("--speedup-ratio", type=float, default=1.0,
+                   help="out=mocker|echo: divide the simulated step times")
     p.add_argument("--output", default=None,
                    help="batch mode: write JSONL results here (default stdout)")
     p.add_argument("--batch-concurrency", type=int, default=8)
     args = p.parse_args(rest)
-    if args.out != "engine":
-        raise NotImplementedError(
-            f"--out {args.out}: the port serves --out engine only (the mocker "
-            "is not ported yet)")
-    if args.inp != "http" and not args.inp.startswith("batch:"):
-        if args.inp == "text":
-            raise NotImplementedError("--in text is not ported yet")
-        p.error(f"unknown --in {args.inp!r} (http | batch:FILE)")
+    if args.inp not in ("http", "text") and not args.inp.startswith("batch:"):
+        p.error(f"unknown --in {args.inp!r} (http | text | batch:FILE)")
     try:
         asyncio.run(_arun(args))
     except KeyboardInterrupt:

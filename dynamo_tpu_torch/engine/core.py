@@ -247,6 +247,16 @@ class InferenceEngine:
             self._thread.start()
         return self
 
+    @property
+    def is_dead(self) -> bool:
+        """True when the step thread exited WITHOUT an orderly close: the
+        engine monitor's signal (runtime/health.py ``EngineMonitor``)."""
+        return (
+            self._thread is not None
+            and not self._thread.is_alive()
+            and not self._closed
+        )
+
     async def close(self) -> None:
         self._closed = True
         self._wake.set()

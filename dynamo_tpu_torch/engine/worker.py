@@ -4,11 +4,13 @@ dynamo_tpu/engine/worker.py, aggregated mode).
 ``launch_engine_worker`` builds ``InferenceEngine(spec, cfg, device=...)``,
 optionally captures its decode graphs (``precompile``) off the event loop,
 registers the model card (``kv_block_size`` = the page size, the router
-mode) and the ``generate`` endpoint, serves the ``admin`` endpoint
-(``clear_kv_blocks``, ``cache_status``, ``drain``), attaches the KV-event
-and load-metrics publishers under the served instance id and starts the
-engine's step thread on the calling loop: the step thread posts its tokens,
-its KV events and its load to the loop that started it.
+mode, the tool-call and reasoning parsers) and the ``generate`` endpoint,
+serves the ``admin`` endpoint (``clear_kv_blocks``, ``cache_status``,
+``drain``, ``faults``), attaches the KV-event and load-metrics publishers
+under the served instance id and starts the engine's step thread on the
+calling loop: the step thread posts its tokens, its KV events and its load
+to the loop that started it. Given a ``HealthCheckManager``, it canary-probes
+the served endpoint and an ``EngineMonitor`` watches the step thread.
 
 ``python -m dynamo_tpu_torch.engine.worker --hub HOST:PORT`` (or ``python -m
 dynamo_tpu_torch.cli worker``) runs one worker process: it connects to the
@@ -16,12 +18,16 @@ hub, serves, prints ``ENGINE_READY``, and on SIGTERM drains (withdraws its
 instance key, refuses new requests, finishes the admitted ones, closes the
 engine), prints its kernel launch counts and ``ENGINE_DRAINED leftover=N``,
 and exits. The engine runs on the GPU; ``--device cpu`` runs it on the CPU.
+``--health-port N`` (0 = any free port) serves ``/live``, ``/ready``,
+``/health`` and ``/metrics`` there (prints ``SYSTEM_STATUS_PORT=``) and
+canary-probes the worker every ``--health-interval`` seconds.
 
 The default router mode is "kv", as the reference's: frontends route by
 prefix overlap from this worker's KV events (kv_router/). The reference's
 flags for features the port lacks raise NotImplementedError naming their
 item: disagg (with its prefill router), KVBM, SPMD and meshes, speculative
-decoding, tenancy, health server, parsers, multimodal.
+decoding, tenancy, multimodal. The admin ``timeline`` op, which reads the
+flight recorder, answers an error naming item 13.
 """
 
 from __future__ import annotations
@@ -38,10 +44,19 @@ from dynamo_tpu_torch.engine.core import InferenceEngine
 from dynamo_tpu_torch.frontend.model_card import register_llm
 from dynamo_tpu_torch.frontend.tokenizer import load_tokenizer
 from dynamo_tpu_torch.kv_router.publisher import KvEventPublisher, WorkerMetricsPublisher
+from dynamo_tpu_torch.parsers import make_reasoning_parser, make_tool_config
 from dynamo_tpu_torch.runtime.config import RuntimeConfig
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+from dynamo_tpu_torch.runtime.faults import FAULTS
+from dynamo_tpu_torch.runtime.health import (
+    EngineMonitor,
+    HealthCheckConfig,
+    HealthCheckManager,
+    SystemStatusServer,
+)
 from dynamo_tpu_torch.runtime.hub_client import connect_hub
 from dynamo_tpu_torch.runtime.logging_util import setup_logging
+from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
 
 log = logging.getLogger("dynamo_tpu_torch.engine.worker")
 
@@ -61,6 +76,9 @@ async def launch_engine_worker(
     engine_config: EngineConfig | None = None,
     spec: ModelSpec | None = None,
     router_mode: str = "kv",
+    tool_call_parser: str | None = None,
+    reasoning_parser: str | None = None,
+    health=None,  # HealthCheckManager: canary-probe this worker's endpoint
     precompile: bool = False,
     device: str | torch.device | None = None,
     params=None,
@@ -69,6 +87,9 @@ async def launch_engine_worker(
     ``device`` (None = the GPU; no GPU raises), serving ``params`` (default:
     the seeded random init of ``engine_config.seed``). Returns (engine,
     served generate endpoint)."""
+    # an unknown parser name fails here, before the engine is built
+    make_tool_config(tool_call_parser)
+    make_reasoning_parser(reasoning_parser)
     if model_type not in ("chat", "completions"):
         raise NotImplementedError(
             f"model_type {model_type!r}: the port serves chat and completions "
@@ -92,6 +113,8 @@ async def launch_engine_worker(
         context_length=cfg.max_context,
         kv_block_size=cfg.page_size,
         router_mode=router_mode,
+        tool_call_parser=tool_call_parser,
+        reasoning_parser=reasoning_parser,
         runtime_config={"engine": "torch", "device": str(engine.device)},
         metadata={"engine": "torch", "role": "aggregated"},
     )
@@ -109,6 +132,20 @@ async def launch_engine_worker(
             # operator's call)
             await _withdraw_and_begin_drain(drt, engine, served)
             yield {"ok": True, "inflight": engine.inflight()}
+        elif op == "faults":
+            # flip the process-wide fault registry live (runtime/faults.py):
+            # {"op": "faults", "spec": "...", "seed": N} reconfigures;
+            # {"op": "faults"} reports active rules + trip counters
+            if "spec" in request:
+                try:
+                    FAULTS.configure(request.get("spec") or "", request.get("seed"))
+                except ValueError as e:
+                    yield {"ok": False, "error": str(e)}
+                    return
+            yield {"ok": True, **FAULTS.snapshot()}
+        elif op == "timeline":
+            yield {"ok": False, "error": "op 'timeline' needs the flight recorder, "
+                                         "not ported (ROADMAP Queue A item 13)"}
         elif op == "cache_status":
             yield {
                 "ok": True,
@@ -129,6 +166,9 @@ async def launch_engine_worker(
     engine.events = KvEventPublisher(drt.hub, comp_path, wid).start()
     engine.metrics = WorkerMetricsPublisher(drt.hub, comp_path, wid).start()
     await engine.start()
+    if health is not None:
+        health.register(served)
+        engine.monitor = EngineMonitor(drt, engine)
     engine._publish_metrics()
     log.info(
         "engine worker %x up: model=%s device=%s pages=%d slots=%d",
@@ -167,12 +207,6 @@ def _engine_config(args: argparse.Namespace) -> EngineConfig:
         (args.mirror or args.coordinator_address or args.num_processes is not None
          or args.process_id is not None,
          "--mirror / --coordinator-address: SPMD multi-host (ROADMAP Queue A item 11)"),
-        (args.health_port >= 0 or args.health_interval != 5.0
-         or args.health_timeout != 5.0,
-         "--health-port / --health-interval / --health-timeout: the health server "
-         "(ROADMAP Queue A item 3, 4c)"),
-        (args.tool_call_parser or args.reasoning_parser,
-         "--tool-call-parser / --reasoning-parser: parsers (ROADMAP Queue A item 3, 4c)"),
         (args.mm_tokens_per_image or args.image_token_id or args.mm_video_frames != 8,
          "--mm-*: multimodal (ROADMAP Queue A item 12)"),
     ]
@@ -216,8 +250,18 @@ async def _amain(args: argparse.Namespace, ecfg: EngineConfig) -> None:
     if args.hub:
         rcfg.override_hub(args.hub)
     drt = DistributedRuntime(await connect_hub(rcfg.hub_target()), rcfg)
-    engine = None
+    engine = health = status_server = None
     try:
+        if args.health_port >= 0:
+            health = HealthCheckManager(drt, HealthCheckConfig(
+                interval_s=args.health_interval, timeout_s=args.health_timeout))
+            # a registry on the status server turns its /metrics on; the
+            # exposition also renders every registered global provider
+            # (quarantines, fault trips)
+            status_server = await SystemStatusServer(
+                health=health, metrics=MetricsRegistry(), port=args.health_port,
+            ).start()
+            print(f"SYSTEM_STATUS_PORT={status_server.port}", flush=True)
         engine, served = await launch_engine_worker(
             drt,
             namespace=args.namespace,
@@ -229,6 +273,9 @@ async def _amain(args: argparse.Namespace, ecfg: EngineConfig) -> None:
             tokenizer=args.tokenizer,
             engine_config=ecfg,
             router_mode=args.router_mode,
+            tool_call_parser=args.tool_call_parser,
+            reasoning_parser=args.reasoning_parser,
+            health=health,
             precompile=args.precompile,
             device=device,
         )
@@ -240,6 +287,10 @@ async def _amain(args: argparse.Namespace, ecfg: EngineConfig) -> None:
         if drain["task"] is not None:
             await drain["task"]  # it closes the engine, then prints
     finally:
+        if health is not None:
+            await health.close()
+        if status_server is not None:
+            await status_server.stop()
         if engine is not None:
             await engine.close()
         await drt.close()

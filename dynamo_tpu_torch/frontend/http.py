@@ -4,6 +4,8 @@ dynamo_tpu/frontend/http.py, on frontend/http_server.py instead of aiohttp).
 Routes:
   POST /v1/chat/completions   - streaming (SSE) + aggregated
   POST /v1/completions        - streaming (SSE) + aggregated
+  POST /v1/responses          - OpenAI Responses API on the chat pipeline
+                                (SSE events or one response object)
   GET  /v1/models             - discovered model cards
   POST /clear_kv_blocks       - evict every worker's inactive prefix-cache pages
   GET  /health, /live, /ready - liveness/readiness
@@ -12,9 +14,9 @@ Routes:
   GET  /openapi.json, /docs   - the served surface
 
 The statuses, JSON error bodies and metrics are the reference's. Not served
-until their slices (ROADMAP Queue A), so they answer 404: /v1/responses,
-/v1/embeddings, /debug/timeline. There is no audit bus and no tracing span
-yet (Queue A item 15).
+until their slices (ROADMAP Queue A), so they answer 404: /v1/embeddings
+(item 12) and /debug/timeline (item 13). There is no audit bus and no
+tracing span yet (item 13).
 
 Client disconnect mid-SSE stops the request's context, so the engine frees
 the slot and its pages.
@@ -66,8 +68,19 @@ _SSE_DONE = b"data: [DONE]\n\n"
 _JSON_ENCODER = json.JSONEncoder()
 
 
+_SSE_EVENT = b"event: "
+_SSE_EVENT_DATA = b"\ndata: "
+
+
 def _sse_bytes(chunk: dict) -> bytes:
     return b"".join((_SSE_DATA, _JSON_ENCODER.encode(chunk).encode(), _SSE_SEP))
+
+
+def _sse_event_bytes(event: str, payload: dict) -> bytes:
+    return b"".join((
+        _SSE_EVENT, event.encode(), _SSE_EVENT_DATA,
+        _JSON_ENCODER.encode(payload).encode(), _SSE_SEP,
+    ))
 
 
 # per-request deadline override (ms); clamped to the server-side default
@@ -96,6 +109,7 @@ class HttpFrontend:
         for method, path, handler in (
             ("POST", "/v1/chat/completions", self.chat_completions),
             ("POST", "/v1/completions", self.completions),
+            ("POST", "/v1/responses", self.responses),
             ("GET", "/v1/models", self.models),
             ("POST", "/clear_kv_blocks", self.clear_kv_blocks),
             ("GET", "/health", self.health),
@@ -216,6 +230,7 @@ class HttpFrontend:
                     "Chat completion", "openai", stream=True),
                 "/v1/completions": op("Text completion", "openai",
                                       stream=True),
+                "/v1/responses": op("Responses API", "openai"),
                 "/v1/models": op("Discovered models", "openai",
                                  method="get"),
                 "/clear_kv_blocks": op("Evict inactive prefix-cache pages "
@@ -447,6 +462,150 @@ class HttpFrontend:
             ctx.stop_generating()
         await resp.write_eof()
         return resp
+
+    async def responses(self, request: Request) -> Response | StreamResponse:
+        """OpenAI Responses API surface (/v1/responses): maps input onto
+        the chat pipeline; streams response.output_text.delta events or
+        returns one response object."""
+        try:
+            body = request.json()
+        except ValueError:
+            return _error(400, "invalid JSON body")
+        try:
+            validate_request(body, "responses")
+        except RequestValidationError as e:
+            return _error(400, str(e), param=e.param)
+        pipe, err = self._pipeline_or_error(body)
+        if err is not None:
+            return err
+        model = pipe.card.name
+        inp = body.get("input", "")
+        messages = (
+            inp if isinstance(inp, list)
+            else [{"role": "user", "content": str(inp)}]
+        )
+        chat_body = {
+            "model": model,
+            "messages": messages,
+            "max_tokens": body.get("max_output_tokens"),
+            "temperature": body.get("temperature"),
+            "top_p": body.get("top_p"),
+        }
+        chat_body = {k: v for k, v in chat_body.items() if v is not None}
+        try:
+            ctx = self._context(request)
+        except RequestValidationError as e:
+            self._m_requests.labels(model, "responses", "400").inc()
+            return _error(400, str(e), param=e.param)
+        try:
+            return await self._serve_responses(request, body, pipe, chat_body, ctx)
+        except OverQuota as e:
+            # the completions routes' 429 accounting
+            ctx.stop_generating()
+            self._m_requests.labels(model, "responses", "429").inc()
+            return _error(
+                429, f"over quota: {e}", code="over_quota",
+                headers={"Retry-After": _retry_after_header(e.retry_after_s)},
+            )
+
+    async def _serve_responses(
+        self, request: Request, body: dict, pipe: ModelPipeline,
+        chat_body: dict, ctx: Context,
+    ) -> Response | StreamResponse:
+        model = pipe.card.name
+        rid = f"resp_{ctx.id}"
+        try:
+            preprocessed = await self._compute.run(
+                pipe.preprocessor.preprocess, chat_body
+            )
+        except ValueError as e:
+            return _error(400, str(e))
+        prompt_tokens = len(preprocessed["token_ids"])
+        deltas = self._timed_stream(
+            pipe.generate(preprocessed, ctx), model, time.monotonic()
+        )
+
+        if body.get("stream"):
+            resp = StreamResponse(request, {
+                "Content-Type": "text/event-stream",
+                "Cache-Control": "no-store",
+            })
+            await resp.prepare()
+
+            async def send(event: str, payload: dict) -> None:
+                await resp.write(_sse_event_bytes(event, payload))
+
+            await send("response.created",
+                       {"response": {"id": rid, "status": "in_progress"}})
+            n_out = 0
+            try:
+                async with aclosing(deltas):
+                    async for d in deltas:
+                        n_out += len(d.get("token_ids") or ())
+                        if d.get("finish_reason") == "error":
+                            await send("response.failed", {
+                                "response": {
+                                    "id": rid, "status": "failed",
+                                    "error": {"message": d.get("error")
+                                              or "generation error"},
+                                }
+                            })
+                            await resp.write_eof()
+                            return resp
+                        if d.get("text"):
+                            await send(
+                                "response.output_text.delta",
+                                {"delta": d["text"], "item_id": rid},
+                            )
+                await send("response.completed", {
+                    "response": {
+                        "id": rid, "status": "completed",
+                        "usage": {"input_tokens": prompt_tokens,
+                                  "output_tokens": n_out},
+                    }
+                })
+            except (ConnectionError, asyncio.CancelledError, StreamError):
+                ctx.stop_generating()
+                raise
+            await resp.write_eof()
+            self._mark_completed(model, prompt_tokens)
+            return resp
+
+        try:
+            agg = await pipe.preprocessor.aggregate_chat(
+                deltas, request_id=ctx.id, prompt_tokens=prompt_tokens,
+                request=body,
+            )
+        except StreamError as e:
+            ctx.stop_generating()
+            return _error(502, f"generation failed: {e}")
+        if agg["choices"][0]["finish_reason"] == "error":
+            return _error(502, "generation error")
+        msg = agg["choices"][0]["message"]
+        self._mark_completed(model, prompt_tokens)
+        return Response.json({
+            "id": rid,
+            "object": "response",
+            "created_at": agg["created"],
+            "status": "completed",
+            "model": model,
+            "output": [{
+                "type": "message",
+                "id": f"msg_{ctx.id}",
+                "role": "assistant",
+                "status": "completed",
+                "content": [{
+                    "type": "output_text",
+                    "text": msg.get("content") or "",
+                    "annotations": [],
+                }],
+            }],
+            "usage": {
+                "input_tokens": prompt_tokens,
+                "output_tokens": agg["usage"]["completion_tokens"],
+                "total_tokens": agg["usage"]["total_tokens"],
+            },
+        })
 
     async def clear_kv_blocks(self, request: Request) -> Response:
         """Admin: evict every worker's inactive prefix-cache pages through

@@ -7,15 +7,18 @@ prompt given as token ids is taken as is.
 
 Backward: wrap the Backend's detokenized deltas as OpenAI
 chat.completion.chunk / text_completion objects and aggregate non-streaming
-responses.
+responses. A card's tool-call parser jails call regions out of the chat
+stream (parsers/jail.py) and its reasoning parser splits think segments
+into ``reasoning_content``, as the reference's preprocessor does.
 
-Left out until their slices (ROADMAP Queue A): the tool-call and reasoning
-parsers (a card naming one raises here, at pipeline build), grammar
-compilation for guided decoding, and multimodal content parts. A request
+Left out until their slices (ROADMAP Queue A): grammar compilation for
+guided decoding (item 7) and multimodal content parts (item 12). A request
 that asks for constrained generation (``response_format`` json_object /
 json_schema, a forced ``tool_choice``, ``nvext.guided_regex``) is marked
 ``guided`` on the reference's triggers and no grammar is built: the port's
-engine refuses it as an engine with guided decoding off does.
+engine refuses it as an engine with guided decoding off does. A forced
+tool call on a model whose parser cannot be forced fails here first, with
+the reference's grammar errors.
 """
 
 from __future__ import annotations
@@ -31,6 +34,12 @@ from dynamo_tpu_torch.frontend.protocols import (
 )
 from dynamo_tpu_torch.frontend.tokenizer import Tokenizer
 from dynamo_tpu_torch.frontend.validation import is_token_prompt
+from dynamo_tpu_torch.parsers import (
+    JailedStream,
+    make_reasoning_parser,
+    make_tool_config,
+    parse_tool_calls,
+)
 
 
 class OpenAIPreprocessor:
@@ -45,28 +54,55 @@ class OpenAIPreprocessor:
         tool_call_parser: str | None = None,
         reasoning_parser: str | None = None,
     ):
-        if tool_call_parser or reasoning_parser:
-            raise NotImplementedError(
-                f"model {model_name!r} names a tool-call or reasoning parser "
-                f"({tool_call_parser or reasoning_parser!r}); the port has no "
-                "parsers yet (ROADMAP Queue A, parsers/)"
-            )
         self.tokenizer = tokenizer
         self.model_name = model_name
         self.context_length = context_length
         self.default_max_tokens = default_max_tokens
+        self.tool_call_parser = tool_call_parser
+        self.reasoning_parser = reasoning_parser
+        # fail fast on unknown parser names: a typo must break worker
+        # startup, not every subsequent chat request
+        self._tool_cfg = make_tool_config(tool_call_parser)
+        make_reasoning_parser(reasoning_parser)
         self._template = (
             jinja2.Template(chat_template) if chat_template else None
         )
 
-    @staticmethod
-    def _guided_kind(request: dict[str, Any]) -> str | None:
+    def _tool_config(self, request: dict[str, Any] | None):
+        """Jail only when the model has a parser AND the request brought
+        tools. Every tool_choice shape except "none" flows through: "auto"
+        (parse if the model calls), "required" and named functions (a
+        guided request, which the engine refuses until guided decoding is
+        ported)."""
+        if self._tool_cfg is None or not request or not request.get("tools"):
+            return None
+        if request.get("tool_choice") == "none":
+            return None
+        return self._tool_cfg
+
+    def _reasoning(self):
+        return make_reasoning_parser(self.reasoning_parser)
+
+    def _guided_kind(self, request: dict[str, Any]) -> str | None:
         """Which constrained generation a request asks for, on the
         reference's triggers and in its order (``_guided_spec``): a forced
         tool call, then ``response_format``, then ``nvext.guided_regex``;
-        None when nothing constrains generation."""
+        None when nothing constrains generation. A forced tool call raises
+        the reference's grammar errors (``tool_call_regex``) when the
+        model's parser cannot carry one."""
         tc = request.get("tool_choice")
         if tc is not None and tc not in ("none", "auto"):
+            if self._tool_cfg is None:
+                raise ValueError(
+                    "this model has no tool-call parser configured; forced "
+                    "tool_choice needs one (worker --tool-call-parser)"
+                )
+            if getattr(self._tool_cfg, "format", "json") != "json":
+                raise ValueError(
+                    f"guided tool calls are unsupported for the "
+                    f"{self._tool_cfg.format!r} tool-parser format (json-format "
+                    "parsers only)"
+                )
             return "tool_call"
         rf = request.get("response_format")
         if isinstance(rf, dict) and rf.get("type") in ("json_object", "json_schema"):
@@ -219,35 +255,106 @@ class OpenAIPreprocessor:
         prompt_tokens: int = 0,
         request: dict[str, Any] | None = None,
     ) -> AsyncIterator[dict[str, Any]]:
-        """Backend deltas -> chat.completion.chunk dicts (SSE payloads): one
-        chunk per backend delta, the role on the first, logprob entries on
-        the chunk of their tokens."""
+        """Backend deltas -> chat.completion.chunk dicts (SSE payloads).
+
+        When the model card configures a tool parser and the request
+        carries ``tools``, text runs through the jail (parsers/jail.py):
+        marker-delimited call regions leave the stream as ``tool_calls``
+        deltas. A configured reasoning parser independently splits think
+        segments into ``reasoning_content``.
+        """
         rid = request_id or new_request_id()
         created = now_unix()
         first = True
         completion_tokens = 0
-        async for d in deltas:
-            completion_tokens += len(d.get("token_ids", ()))
-            text = d.get("text") or ""
-            delta: dict[str, Any] = {"content": text} if text else {}
+        tool_cfg = self._tool_config(request)
+        jail = JailedStream(tool_cfg) if tool_cfg is not None else None
+        reasoning = self._reasoning()
+        tool_index = 0
+        saw_tool_calls = False
+        held_lp: list[dict] = []  # logprob entries from jailed deltas
+
+        def chunk_for(delta: dict[str, Any], finish: str | None,
+                      logprobs: list[dict] | None = None):
+            nonlocal first
             if first:
                 delta = {"role": "assistant", **delta}
                 first = False
             choice: dict[str, Any] = {
-                "index": 0, "delta": delta,
-                "finish_reason": d.get("finish_reason"),
+                "index": 0, "delta": delta, "finish_reason": finish
             }
-            if d.get("logprobs"):
+            if logprobs:
                 choice["logprobs"] = {
-                    "content": self._chat_logprob_content(d["logprobs"])
+                    "content": self._chat_logprob_content(logprobs)
                 }
-            yield {
+            return {
                 "id": rid,
                 "object": "chat.completion.chunk",
                 "created": created,
                 "model": self.model_name,
                 "choices": [choice],
             }
+
+        async for d in deltas:
+            completion_tokens += len(d.get("token_ids", ()))
+            finish = d.get("finish_reason")
+            text = d.get("text") or ""
+
+            r_delta, content = reasoning.feed(text) if reasoning else ("", text)
+            events = []
+            if content:
+                events = (
+                    jail.feed(content) if jail else [("content", content)]
+                )
+            if finish is not None:
+                if reasoning is not None:
+                    r_tail, c_tail = reasoning.finish()
+                    r_delta += r_tail
+                    if c_tail:
+                        events += (
+                            jail.feed(c_tail) if jail
+                            else [("content", c_tail)]
+                        )
+                if jail is not None:
+                    events += jail.finish()
+
+            pending: list[dict[str, Any]] = []
+            if r_delta:
+                pending.append({"reasoning_content": r_delta})
+            for kind, payload in events:
+                if kind == "content":
+                    if payload:
+                        pending.append({"content": payload})
+                else:  # tool_calls
+                    calls = [
+                        c.to_openai(tool_index + i)
+                        for i, c in enumerate(payload)
+                    ]
+                    tool_index += len(calls)
+                    saw_tool_calls = True
+                    pending.append({"tool_calls": calls})
+
+            if finish is not None and saw_tool_calls and finish == "stop":
+                finish = "tool_calls"
+            # keep a chunk per backend delta when not jailing (clients see
+            # per-token progress even for invisible tokens); while jailed,
+            # silence is the point
+            if not pending and (jail is None or finish is not None):
+                pending.append({})
+            # logprob entries ride the first emitted chunk; while the jail
+            # holds a delta back entirely they accumulate (clients align
+            # logprobs.content to tokens, so none may be dropped)
+            held_lp.extend(d.get("logprobs") or ())
+            for i, delta in enumerate(pending):
+                lp_out = None
+                if i == 0 and held_lp:
+                    lp_out, held_lp = held_lp, []
+                yield chunk_for(
+                    delta,
+                    finish if (finish is not None and i == len(pending) - 1)
+                    else None,
+                    logprobs=lp_out,
+                )
         if include_usage:
             yield {
                 "id": rid,
@@ -279,9 +386,31 @@ class OpenAIPreprocessor:
             lp_entries.extend(d.get("logprobs") or ())
             if d.get("finish_reason"):
                 finish = d["finish_reason"]
+        text = "".join(text_parts)
+
+        message: dict[str, Any] = {"role": "assistant"}
+        reasoning = self._reasoning()
+        if reasoning is not None:
+            r1, c1 = reasoning.feed(text)
+            r2, c2 = reasoning.finish()
+            if r1 + r2:
+                message["reasoning_content"] = r1 + r2
+            text = c1 + c2
+        tool_cfg = self._tool_config(request)
+        calls, normal = (
+            parse_tool_calls(text, tool_cfg) if tool_cfg is not None
+            else ([], text)
+        )
+        if calls:
+            message["tool_calls"] = [c.to_openai(i) for i, c in enumerate(calls)]
+            message["content"] = normal or None
+            if finish == "stop":
+                finish = "tool_calls"
+        else:
+            message["content"] = text
         choice: dict[str, Any] = {
             "index": 0,
-            "message": {"role": "assistant", "content": "".join(text_parts)},
+            "message": message,
             "finish_reason": finish,
         }
         if lp_entries:

@@ -1,0 +1,168 @@
+"""The port's fault registry (runtime/faults.py) against the JAX package's.
+
+The spec grammar parses to the same rules and round-trips through
+``spec()``; malformed specs raise the same errors; the same spec and seed
+give the same drop / delay / error / no-op decision at every call, the same
+``corrupt_bytes`` flips and ``corrupt_token_ids`` values, the same
+snapshots, and trip counts that stay cumulative across ``configure()``.
+All comparisons are exact (the decisions are seeded ``random.Random``
+draws; there is no tolerance).
+"""
+
+import asyncio
+import random
+
+import pytest
+
+from dynamo_tpu.runtime import faults as jfaults
+from dynamo_tpu.runtime.integrity import corrupt_token_ids as jax_corrupt_tokens
+from dynamo_tpu_torch.runtime import faults as tfaults
+from dynamo_tpu_torch.runtime.integrity import corrupt_token_ids, token_checksum
+
+pytestmark = pytest.mark.unit
+
+SPECS = [
+    "transport.send:drop@0.02",
+    "hub.fsync:delay=50ms",
+    "engine.step:error@0.001",
+    "disagg.pull:error@1x1",
+    "disagg.pull:corrupt=3x1",
+    "engine.step:delay=80ms~10.0.0.3:*",
+    "transport.partition:drop=a:1|b:2",
+    "transport.partition:drop=a:1>b:2@0.5",
+    "x.y:delay=0.2s@0.5x3,x.y:drop@0.3,z:error",
+    "health.canary:corrupt~127.0.0.1:*",
+    "health.canary:corrupt=2@0.5",
+    "a:delay=1.5,b:delay=2m",
+]
+BAD_SPECS = [
+    "site_without_action",
+    "x:explode",
+    "x:delay",
+    "transport.partition:drop",
+    "transport.partition:delay=5ms",
+    "transport.partition:drop=a:1>",
+    "x:corrupt=0",
+    "x:corrupt=-1",
+    "x:drop~",
+    "x:drop@abc",
+    "x:delay=fast",
+]
+
+
+def _rules(pkg, spec):
+    return [vars(r) for r in pkg.parse_spec(spec)]
+
+
+@pytest.mark.parametrize("spec", SPECS)
+def test_spec_parses_and_round_trips_like_jax(spec):
+    assert _rules(tfaults, spec) == _rules(jfaults, spec)
+    specs = [r.spec() for r in tfaults.parse_spec(spec)]
+    assert specs == [r.spec() for r in jfaults.parse_spec(spec)]
+    assert _rules(tfaults, ",".join(specs)) == _rules(tfaults, spec)
+
+
+@pytest.mark.parametrize("spec", BAD_SPECS)
+def test_bad_specs_raise_like_jax(spec):
+    errors = []
+    for pkg in (jfaults, tfaults):
+        with pytest.raises(Exception) as e:
+            pkg.FaultRegistry(spec)
+        errors.append((type(e.value).__name__, str(e.value)))
+    assert errors[0] == errors[1]
+
+
+def _decisions(pkg, spec, seed, n=300):
+    """Every site's decision for n calls, interleaved across sites and
+    instances, plus the delays fire() would sleep."""
+    reg = pkg.FaultRegistry(spec, seed=seed, instance="10.0.0.3:7000")
+    out = []
+    rng = random.Random(seed)
+    for _ in range(n):
+        site = rng.choice(["transport.send", "hub.fsync", "engine.step", "x.y", "z",
+                           "disagg.pull", "a", "b"])
+        inst = rng.choice([None, "10.0.0.3:1", "10.0.0.4:1", ""])
+        rule = reg.decide(site, instance=inst, kinds=("drop", "delay", "error"))
+        out.append(None if rule is None else (rule.spec(), rule.trips))
+    links = [reg.link_blocked("transport.partition", s, d)
+             for s, d in [("a:1", "b:2"), ("b:2", "a:1"), ("a:1", "c:3")] * 20]
+    return out, links, reg.snapshot(), dict(reg.trip_counts), reg.exposition()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 7])
+def test_same_spec_and_seed_same_decisions(seed):
+    spec = ",".join(s for s in SPECS if not s.startswith("health"))
+    assert _decisions(tfaults, spec, seed) == _decisions(jfaults, spec, seed)
+
+
+def test_fire_and_fire_sync_raise_and_sleep_like_jax():
+    spec = "s:drop@0.3,s:error@0.3,s:delay=1ms@0.3"
+
+    async def run(pkg):
+        reg = pkg.FaultRegistry(spec, seed=3)
+        out = []
+        for i in range(60):
+            try:
+                if i % 2:
+                    await reg.fire("s")
+                else:
+                    reg.fire_sync("s")
+                out.append("ok")
+            except ConnectionResetError as e:
+                out.append(("drop", type(e).__name__, str(e)))
+            except RuntimeError as e:
+                out.append(("error", type(e).__name__, str(e)))
+        return out, reg.snapshot()
+
+    assert asyncio.run(run(tfaults)) == asyncio.run(run(jfaults))
+    assert issubclass(tfaults.FaultDrop, ConnectionResetError)
+    assert issubclass(tfaults.FaultInjected, RuntimeError)
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_corrupt_bytes_flip_the_same_bits(seed):
+    spec = "p:corrupt=3@0.7x5,q:corrupt"
+    regs = [pkg.FaultRegistry(spec, seed=seed) for pkg in (jfaults, tfaults)]
+    data = bytes(range(64))
+    for i in range(10):
+        site = "p" if i % 3 else "q"
+        outs = [r.corrupt_bytes(site, data) for r in regs]
+        assert outs[0] == outs[1]
+        # a corrupt rule never fires at a fire() site
+        assert all(r.decide(site, kinds=("drop", "delay", "error")) is None
+                   for r in regs)
+    assert regs[0].snapshot() == regs[1].snapshot()
+
+
+def test_corrupt_token_ids_and_cumulative_trips():
+    """The process-wide registries: the canary hook flips one token value
+    the same way in both packages, only for the scoped instance; trip
+    counts keep growing across configure()."""
+    toks = [5, 6, 7, 128255]
+    try:
+        for pkg in (jfaults, tfaults):
+            pkg.FAULTS.configure("health.canary:corrupt~127.0.0.1:*", seed=11)
+        got = corrupt_token_ids("health.canary", toks, instance="127.0.0.1:9000")
+        want = jax_corrupt_tokens("health.canary", toks, instance="127.0.0.1:9000")
+        assert got == want and got != toks
+        assert sum(a != b for a, b in zip(got, toks)) == 1
+        assert token_checksum(got) != token_checksum(toks)
+        # another worker's canary is untouched, and so is no identity
+        assert corrupt_token_ids("health.canary", toks, instance="10.1.1.1:1") is toks
+        assert corrupt_token_ids("health.canary", toks) is toks
+        before = tfaults.FAULTS.trip_counts[("health.canary", "corrupt")]
+        tfaults.FAULTS.configure("health.canary:corrupt", seed=11)
+        corrupt_token_ids("health.canary", toks)
+        assert tfaults.FAULTS.trip_counts[("health.canary", "corrupt")] == before + 1
+        snap = tfaults.FAULTS.snapshot()
+        assert snap["rules"] == ["health.canary:corrupt"] and snap["enabled"]
+        assert snap["trips"]["health.canary:corrupt"] == before + 1
+        from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
+
+        text = MetricsRegistry().exposition().decode()
+        assert ('dynamo_fault_trips_total{site="health.canary",action="corrupt"} '
+                f"{before + 1}") in text
+    finally:
+        jfaults.FAULTS.clear()
+        tfaults.FAULTS.clear()
+    assert corrupt_token_ids("health.canary", toks) is toks

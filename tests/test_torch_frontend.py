@@ -104,7 +104,14 @@ def test_guided_requests_marked_on_jax_triggers(body):
     assert {**got, "guided": None} == {**want, "guided": None}
     forced = {"messages": MSG, "tools": [{"type": "function", "function": {"name": "f"}}],
               "tool_choice": "required"}
-    assert tp.preprocess(forced)["guided"]["kind"] == "tool_call"
+    # a forced tool call needs a tool-call parser, in both packages
+    with pytest.raises(ValueError, match="no tool-call parser") as e:
+        tp.preprocess(forced)
+    with pytest.raises(ValueError, match="no tool-call parser") as je:
+        jp.preprocess(forced)
+    assert str(e.value) == str(je.value)
+    hermes = OpenAIPreprocessor(MockTokenizer(), model_name="m", tool_call_parser="hermes")
+    assert hermes.preprocess(forced)["guided"]["kind"] == "tool_call"
 
 
 def test_token_id_prompt_equals_its_text_prompt():
@@ -339,8 +346,10 @@ async def test_refused_features_raise():
     with pytest.raises(ValueError, match="transformers"):
         load_tokenizer("/models/llama")
     assert isinstance(load_tokenizer(None), MockTokenizer)
-    with pytest.raises(NotImplementedError, match="parsers"):
-        OpenAIPreprocessor(MockTokenizer(), model_name="m", tool_call_parser="hermes")
+    # the parsers are ported: a known name builds, an unknown one raises
+    OpenAIPreprocessor(MockTokenizer(), model_name="m", tool_call_parser="hermes")
+    with pytest.raises(ValueError, match="unknown tool parser"):
+        OpenAIPreprocessor(MockTokenizer(), model_name="m", tool_call_parser="nope")
     drt = DistributedRuntime(InMemoryHub())
     base = dict(name="m", namespace="ns", component="c", endpoint="e")
     # a kv card is no longer refused: its chain ends in a KvPushRouter over
@@ -352,8 +361,9 @@ async def test_refused_features_raise():
     assert kv.push_router.mode.value == "direct"
     assert kv.kv_router.config.block_size == 4
     await kv.close()
-    with pytest.raises(NotImplementedError, match="parsers"):
-        await build_pipeline(drt, ModelDeploymentCard(**base, reasoning_parser="basic"))
+    parsed = await build_pipeline(drt, ModelDeploymentCard(**base, reasoning_parser="basic"))
+    assert parsed.preprocessor.reasoning_parser == "basic"
+    await parsed.close()
     with pytest.raises(NotImplementedError, match="multimodal"):
         await build_pipeline(drt, ModelDeploymentCard(**base, mm_tokens_per_image=4))
     pipe = await build_pipeline(drt, ModelDeploymentCard(**base))

@@ -402,11 +402,6 @@ _REFUSED_FLAGS = {
     "tenant-quotas": (["--tenant-quotas", "a:weight=2"], "item 5"),
     "max-waiting": (["--max-waiting", "8"], "item 5"),
     "no-preemption": (["--no-preemption"], "item 5"),
-    "health-port": (["--health-port", "0"], "item 3"),
-    "health-interval": (["--health-interval", "2"], "item 3"),
-    "health-timeout": (["--health-timeout", "1"], "item 3"),
-    "tool-call-parser": (["--tool-call-parser", "hermes"], "item 3"),
-    "reasoning-parser": (["--reasoning-parser", "basic"], "item 3"),
     "mm-tokens": (["--mm-tokens-per-image", "4"], "item 12"),
     # --router-mode kv is ported (the default); the disagg prefill
     # router stays refused with disagg
@@ -476,3 +471,89 @@ def test_build_lock_builds_once_across_processes(tmp_path):
     assert sum("-shared" in r for r in runs) == 1, runs  # one link
     assert sum(" -c " in f" {r} " for r in runs) == 2, runs  # one compile per source
     assert (tmp_path / "build" / "libkernels.so").exists()
+
+
+async def _faults_op(hub: str, spec: str | None) -> dict:
+    drt = DistributedRuntime(await RemoteHub.connect(hub), RuntimeConfig(hub_address=hub))
+    try:
+        client = await drt.namespace("dynamo").component("backend").endpoint(
+            "admin").client().start()
+        (inst,) = await client.wait_for_instances(1, timeout=10)
+        payload = {"op": "faults"} if spec is None else {"op": "faults", "spec": spec}
+        async for item in client.call_instance(inst.instance_id, payload, Context()):
+            await client.close()
+            return item
+    finally:
+        await drt.close()
+
+
+def _status(port: int, path: str) -> tuple[int, str]:
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def test_worker_health_server_parsers_and_faults_op():
+    """A worker with --health-port, --health-interval, the hermes and
+    deepseek_r1 parsers: its status server answers /ready 200 once a clean
+    canary has run; the admin faults op arms health.canary:corrupt scoped
+    to this worker, which quarantines it (/ready 503, reason="sdc" on its
+    /metrics); clearing the spec readmits it. `cli mocker` serves a fleet
+    of mock workers on the same hub."""
+    children = []
+    try:
+        hub = _Child("hub", "--port", "0")
+        children.append(hub)
+        addr = hub.wait_line(r"^DYNAMO_HUB=").split("=", 1)[1]
+        worker = _Child("worker", "--hub", addr, "--device", "cpu", "--model", MODEL,
+                        "--health-port", "0", "--health-interval", "0.2",
+                        "--tool-call-parser", "hermes", "--reasoning-parser",
+                        "deepseek_r1")
+        children.append(worker)
+        port = int(worker.wait_line(r"^SYSTEM_STATUS_PORT=").split("=", 1)[1])
+        worker.wait_line(r"^ENGINE_READY$")
+
+        def until(path, status, body=None, timeout=20.0):
+            deadline = time.monotonic() + timeout
+            while True:
+                got = _status(port, path)
+                if got[0] == status and (body is None or body in got[1]):
+                    return got
+                assert time.monotonic() < deadline, (path, got)
+                time.sleep(0.1)
+
+        assert until("/live", 200)[1] == '{"status": "live"}'
+        until("/ready", 200)
+        health = json.loads(_status(port, "/health")[1])
+        assert health["endpoints"][0]["path"] == "dynamo/backend/generate"
+        card = asyncio.run(_instances_cards(addr))
+        assert card["tool_call_parser"] == "hermes"
+        assert card["reasoning_parser"] == "deepseek_r1"
+        snap = asyncio.run(_faults_op(addr, "health.canary:corrupt~*"))
+        assert snap["ok"] and snap["rules"] == ["health.canary:corrupt~*"]
+        until("/ready", 503)
+        until("/metrics", 200, 'dynamo_worker_quarantines_total{reason="sdc"} 1')
+        bad = asyncio.run(_faults_op(addr, "x:explode"))
+        assert bad["ok"] is False and "explode" in bad["error"]
+        assert asyncio.run(_faults_op(addr, ""))["rules"] == []
+        until("/ready", 200)
+        mocker = _Child("mocker", "--hub", addr, "--num-workers", "2",
+                        "--model-name", "mock", "--speedup-ratio", "100")
+        children.append(mocker)
+        mocker.wait_line(r"^MOCKERS_READY 2$")
+    finally:
+        for child in reversed(children):
+            child.stop()
+
+
+async def _instances_cards(hub: str) -> dict:
+    """The worker's model card, as the hub holds it."""
+    drt = DistributedRuntime(await RemoteHub.connect(hub), RuntimeConfig(hub_address=hub))
+    try:
+        cards = await drt.hub.get_prefix("v1/mdc/")
+        (card,) = cards.values()
+        return card
+    finally:
+        await drt.close()

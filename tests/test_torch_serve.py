@@ -1,7 +1,8 @@
 """The port's one-process serving stack against the JAX package's, over HTTP.
 
 JAX side: ``InferenceEngine(params=..., guided_mode="off")``, ``register_llm``
-with round-robin routing, ``ModelWatcher`` and the aiohttp ``HttpFrontend``.
+with round-robin routing and the hermes tool-call parser, ``ModelWatcher``
+and the aiohttp ``HttpFrontend``.
 Port side: ``launch_engine_worker`` on the same weights (``device="cpu"``),
 its ``ModelWatcher`` and its asyncio ``HttpFrontend``. Both stacks live on
 one background event loop for the module; each test sends the same
@@ -9,8 +10,10 @@ requests to both and compares the answers: response bodies minus
 ``id``/``created`` (logprobs within LP_TOL, everything else, text included,
 equal), SSE chunk sequences, usage, statuses and JSON error bodies.
 
-Also here: a client that disconnects mid-stream frees its pages, the admin
-routes, the routes this slice does not serve, and the CLI in a subprocess.
+Also here: ``/v1/responses`` (the response object minus ids and times, the
+SSE event names and data, the 400 bodies), a client that disconnects
+mid-stream frees its pages, the admin routes, the routes the port does not
+serve yet, and the CLI in a subprocess.
 """
 
 import asyncio
@@ -94,7 +97,7 @@ class _Stacks:
         self.jdrt = JaxRuntime(JaxHub())
         ep = self.jdrt.namespace("dynamo").component("backend").endpoint("generate")
         await jax_register_llm(self.jdrt, ep, self.jeng.generate, model_name=MODEL,
-                               router_mode="round_robin",
+                               router_mode="round_robin", tool_call_parser="hermes",
                                context_length=self.jeng.config.max_context,
                                kv_block_size=CFG_KW["page_size"])
         await self.jeng.start()
@@ -108,7 +111,7 @@ class _Stacks:
         self.eng, _ = await launch_engine_worker(
             self.drt, model_name=MODEL, spec=ModelSpec(**SPEC_KW),
             engine_config=EngineConfig(**CFG_KW), params=tp, device="cpu",
-            router_mode="round_robin")
+            router_mode="round_robin", tool_call_parser="hermes")
         self.watch = await ModelWatcher(self.drt, ModelManager()).start()
         await self.watch.wait_for_model(MODEL, timeout=10)
         self.http = HttpFrontend(self.watch.manager, host="127.0.0.1", port=0,
@@ -134,6 +137,8 @@ class _Stacks:
         async with self.session.post(self.bases[side] + route, headers=headers,
                                      **kw) as r:
             text = await r.text()
+            if r.content_type == "text/event-stream" and route == "/v1/responses":
+                return r.status, _sse_events(text)
             if r.content_type == "text/event-stream":
                 return r.status, _sse_chunks(text)
             if r.content_type == "application/json":
@@ -175,9 +180,22 @@ def _sse_chunks(text: str) -> list:
             for e in events]
 
 
+def _sse_events(text: str) -> list:
+    """Named SSE events (the Responses API): [(event, data), ...]."""
+    out = []
+    for e in (e for e in text.split("\n\n") if e):
+        name, data = e.split("\n")
+        assert name.startswith("event: ") and data.startswith("data: "), e
+        out.append((name[len("event: "):], json.loads(data[len("data: "):])))
+    return out
+
+
 def _strip(x):
     if isinstance(x, dict):
-        return {k: _strip(v) for k, v in x.items() if k not in ("id", "created")}
+        return {k: _strip(v) for k, v in x.items()
+                if k not in ("id", "created", "created_at", "item_id")}
+    if isinstance(x, tuple):
+        return tuple(_strip(v) for v in x)
     if isinstance(x, list):
         return [_strip(v) for v in x]
     return x
@@ -314,6 +332,18 @@ _ERRORS = {
                                     "properties": {"ok": {"type": "boolean"}},
                                     "required": ["ok"]}}}},
                            None, None),
+    # a forced tool call is guided decoding: refused by both engines
+    "forced-tool-call": ("/v1/chat/completions",
+                         {"model": MODEL, "messages": CHAT, "max_tokens": 8,
+                          "tools": [{"type": "function", "function": {"name": "f"}}],
+                          "tool_choice": "required"},
+                         None, None),
+    "named-tool-call": ("/v1/chat/completions",
+                        {"model": MODEL, "messages": CHAT, "max_tokens": 8,
+                         "tools": [{"type": "function", "function": {"name": "f"}}],
+                         "tool_choice": {"type": "function", "function": {"name": "f"}},
+                         "stream": True},
+                        None, None),
 }
 
 
@@ -371,8 +401,78 @@ def test_chunked_request_bodies(stacks, case):
         assert json.loads(out.split(b"\r\n\r\n", 1)[1])["usage"]["completion_tokens"] == 2
 
 
+_RESPONSES = {
+    "text": {"model": MODEL, "input": "Name three colours.", "max_output_tokens": 9},
+    "messages": {"model": MODEL, "input": CHAT, "max_output_tokens": 7,
+                 "temperature": 0.0, "top_p": 0.9},
+    "stream": {"model": MODEL, "input": "Stream me.", "max_output_tokens": 8,
+               "stream": True},
+    "stream-messages": {"model": MODEL, "input": CHAT, "max_output_tokens": 6,
+                        "stream": True},
+}
+
+
+@pytest.mark.parametrize("case", list(_RESPONSES))
+def test_responses_parity(stacks, case):
+    """/v1/responses on both stacks: the response object minus ids and
+    times, or the SSE event names and data minus ids, equal; the output
+    equals the same request through /v1/chat/completions."""
+    body = _RESPONSES[case]
+    (ws, want), (gs, got) = stacks.run(_gather(
+        stacks.post("jax", "/v1/responses", body), stacks.post("port", "/v1/responses",
+                                                              body)))
+    assert gs == ws == 200, (got, want)
+    _assert_same(_strip(got), _strip(want))
+    inp = body["input"]
+    chat = {"model": MODEL, "max_tokens": body["max_output_tokens"],
+            "messages": inp if isinstance(inp, list) else [{"role": "user",
+                                                             "content": inp}]}
+    chat.update({k: body[k] for k in ("temperature", "top_p") if k in body})
+    status, plain = stacks.run(stacks.post("port", "/v1/chat/completions", chat))
+    assert status == 200
+    text, n_out = plain["choices"][0]["message"]["content"], plain["usage"][
+        "completion_tokens"]
+    if body.get("stream"):
+        names = [e for e, _ in got]
+        assert names[0] == "response.created" and names[-1] == "response.completed"
+        assert set(names[1:-1]) <= {"response.output_text.delta"}
+        assert all(d["item_id"] == got[0][1]["response"]["id"] for e, d in got[1:-1])
+        assert "".join(d["delta"] for _, d in got[1:-1]) == text
+        assert got[-1][1]["response"]["usage"]["output_tokens"] == n_out
+    else:
+        assert got["object"] == "response" and got["status"] == "completed"
+        assert got["id"].startswith("resp_") and got["output"][0]["id"].startswith("msg_")
+        assert got["output"][0]["content"][0]["text"] == text
+        assert got["usage"]["output_tokens"] == n_out
+
+
+_RESPONSES_ERRORS = {
+    "invalid-json": (None, "{not json", None),
+    "no-input": ({"model": MODEL}, None, None),
+    "missing-model": ({"input": "x"}, None, None),
+    "unknown-model": ({"model": "nope", "input": "x"}, None, None),
+    "bad-temperature": ({"model": MODEL, "input": "x", "temperature": "hot"}, None,
+                        None),
+    "bad-tenant": ({"model": MODEL, "input": "x"}, None, {"x-dyn-tenant": "not ok!"}),
+    "prompt-over-context": ({"model": MODEL, "input": "x" * 300}, None, None),
+}
+
+
+@pytest.mark.parametrize("case", list(_RESPONSES_ERRORS))
+def test_responses_errors_match(stacks, case):
+    body, raw, headers = _RESPONSES_ERRORS[case]
+    (ws, want), (gs, got) = stacks.run(_gather(
+        stacks.post("jax", "/v1/responses", body, headers, raw),
+        stacks.post("port", "/v1/responses", body, headers, raw)))
+    assert (gs, got) == (ws, want)
+    assert 400 <= gs < 500 and got["error"]["type"] == "invalid_request_error"
+
+
 def test_unserved_routes_and_methods(stacks):
-    for route in ("/v1/responses", "/v1/embeddings", "/nope"):
+    """/v1/embeddings and /debug/timeline wait for their slices (404);
+    /v1/responses is served (test_responses_parity) and listed in
+    openapi.json."""
+    for route in ("/v1/embeddings", "/nope"):
         assert stacks.run(stacks.post("port", route, {"model": MODEL}))[0] == 404
     assert stacks.run(stacks.get("port", "/debug/timeline"))[0] == 404
     (ws, _), (gs, _) = stacks.run(_gather(
@@ -380,7 +480,7 @@ def test_unserved_routes_and_methods(stacks):
     assert gs == ws == 405
     status, spec = stacks.run(stacks.get("port", "/openapi.json"))
     assert status == 200 and "/v1/chat/completions" in spec["paths"]
-    assert "/v1/responses" not in spec["paths"]
+    assert "/v1/responses" in spec["paths"]
     status, html = stacks.run(stacks.get("port", "/docs"))
     assert status == 200 and "/v1/completions" in html
 
@@ -549,7 +649,9 @@ def test_disconnect_mid_stream_frees_pages(stacks):
     status = stacks.run(_admin(stacks, {"op": "cache_status"}))
     assert status["ok"] and status["active_pages"] == 0
     assert stacks.run(_admin(stacks, {"op": "faults"})) == {
-        "ok": False, "error": "unknown op 'faults'"}
+        "ok": True, "enabled": False, "seed": 0, "rules": [], "trips": {}}
+    assert stacks.run(_admin(stacks, {"op": "nope"})) == {
+        "ok": False, "error": "unknown op 'nope'"}
 
 
 async def _admin(stacks, payload):
@@ -677,8 +779,8 @@ def test_cli_batch_and_refusals(tmp_path):
                                                          for x in lines)
     from dynamo_tpu_torch import cli
 
-    with pytest.raises(NotImplementedError, match="mocker"):
-        cli.main(["run", "--out", "mocker"])
+    with pytest.raises(SystemExit):  # argparse: not one of the outputs
+        cli.main(["run", "--out", "nope"])
     with pytest.raises(NotImplementedError, match="item 14"):
         cli.main(["planner"])
 
