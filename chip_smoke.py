@@ -156,6 +156,38 @@ Phases, each of which must pass (any failure exits non-zero):
    SIGTERM'd, each exiting 0 within its deadline. The workers
    log their kernel launches since ENGINE_READY: fused_decode must launch
    32 times per logged step, and their sum joins the kernels line.
+12. speculative decoding (run after phase 8 and before phase 9, so its
+   engines are freed before the workers of phase 11 spawn): (a) kv_write at
+   a verify's shape, 72 rows (8 sequences x 9, starting 3, 7 and 15 tokens
+   into a page, siblings on shared pages, 2 padded rows on page 0), bitwise
+   equal to its plain version outside page 0 and timed as in phase 3 beside
+   it and one index_put_ per pool (its row "kv_write/verify" in the kernels
+   line); SPEC_REQUESTS greedy requests whose prompts repeat a seeded
+   SPEC_SEGMENT-token segment up to 64..512 tokens, SPEC_TOKENS tokens each
+   (the last SPEC_SHORT), through an engine with spec_mode="ngram"
+   (spec_k_max 8, pipelined, decode graphs and the verify grid captured by
+   precompile) and one with spec off, each freed before the next is built;
+   (b) on the first spec engine, before it serves: the verify captured per
+   row count (1, 2, 4, 8) against an eager verify_forward on copies of the
+   same pools (targets identical, pools bitwise equal outside page 0,
+   kv_write 32 launches per replay), the device span of an 8-row verify
+   replay against a B=8 decode graph step, one traced replay; (c) on the
+   phase-4 random weights: every stream near-argmax under the reference
+   forward and equal to spec-off's up to its first position whose reference
+   top-2 gap is under NEAR_ARGMAX, kv_write launched 32 times per verify
+   dispatch; (d) on peaked weights (the same layer tensors; the input
+   embedding scaled by the smallest of SPEC_SCALES that gives a reference
+   top-2 gap over NEAR_ARGMAX; an untied head whose column for a token is
+   the embedding row of the token it follows in its segment, so the greedy
+   stream continues the segment): streams equal spec-off's token for
+   token, acceptance >= 0.9, >= 4 tokens per verify row, the short request
+   ends "length" after exactly SPEC_SHORT tokens, free plus cached pages
+   back to the start, and with engine.spec_verify armed through FAULTS the
+   same requests again: every verify faults, every slot falls back to
+   bursts, streams unchanged; (e) (d) on fp8 pools, (b) on fp8 pools first:
+   streams equal spec-off's, kv_write never launched. Prints verifies,
+   drafts, acceptance, tokens per verify dispatch and row, tok/s on and
+   off, and the host wall per verify dispatch.
 
 Prints, before the last line, the card line and one JSON object with every
 kernel's measurements; the last line is
@@ -234,6 +266,17 @@ FAMILY_PREFIX = 384
 FAMILY_TAIL = 64
 FAMILY_SEED = 4242
 EVENT_DEADLINE_S = 5.0  # head blocks into the router's radix; cleared caches out
+# phase 12 (speculative decoding): SPEC_REQUESTS greedy requests whose
+# prompts repeat a seeded SPEC_SEGMENT-token segment up to 64..512 tokens,
+# SPEC_TOKENS tokens each (the last SPEC_SHORT: not a multiple of the
+# verify width SPEC_W = spec_k_max + 1)
+SPEC_W = 9
+SPEC_REQUESTS = 8
+SPEC_SEGMENT = 12
+SPEC_SEED = 909
+SPEC_TOKENS = 64
+SPEC_SHORT = 50
+SPEC_SCALES = (1.0, 4.0, 16.0, 64.0, 256.0)  # input-embedding scales tried, smallest first
 
 
 class SmokeError(RuntimeError):
@@ -804,10 +847,10 @@ def near_argmax_check(spec, params, prompt, tokens) -> tuple[float, float]:
 
 
 def profile_decode_step(step, form: str) -> None:
-    """One traced decode step (B=8, fused path): wall time, device-busy
-    time (sum of kernel self times, kernels replayed from a CUDA graph
-    included), idle share, the fused kernel's device time and the top
-    kernels."""
+    """One traced decode step (B=8, fused path) or verify replay: wall
+    time, device-busy time (sum of kernel self times, kernels replayed from
+    a CUDA graph included), idle share, the fused kernel's device time and
+    the top kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     step()
@@ -831,10 +874,11 @@ def profile_decode_step(step, form: str) -> None:
         print(f"profile {form}: wall {wall * 1e3:.2f} ms; device busy not measured "
               "(the trace holds no device kernels)")
         return
+    fused = (f", fused_decode {sum(dev_us(e) for e in attn) / 1e3:.3f} ms over "
+             f"{sum(e.count for e in attn)} launches" if attn else "")
     print(f"profile {form}: wall {wall * 1e3:.2f} ms, device busy "
-          f"{busy / 1e3:.2f} ms, idle share {max(0.0, 1 - busy / 1e6 / wall):.3f}, "
-          f"fused_decode {sum(dev_us(e) for e in attn) / 1e3:.3f} ms over "
-          f"{sum(e.count for e in attn)} launches")
+          f"{busy / 1e3:.2f} ms, idle share {max(0.0, 1 - busy / 1e6 / wall):.3f}"
+          f"{fused}")
     for e in sorted(kernels, key=dev_us, reverse=True)[:10]:
         print(f"  {dev_us(e) / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
 
@@ -1099,8 +1143,11 @@ def precompile(engine, label: str) -> None:
     t0 = time.perf_counter()
     engine.precompile()
     torch.cuda.synchronize()
-    print(f"precompile {label}: {len(engine._graphs._graphs)} decode graph variants "
-          f"captured in {time.perf_counter() - t0:.2f} s")
+    verify = (f" and {len(engine._verify._graphs)} verify graphs (rows "
+              f"{engine._verify.row_counts} x {engine._verify.width})"
+              if engine._verify is not None else "")
+    print(f"precompile {label}: {len(engine._graphs._graphs)} decode graph variants"
+          f"{verify} captured in {time.perf_counter() - t0:.2f} s")
 
 
 async def requests(engine, reqs):
@@ -1263,6 +1310,378 @@ def drop_engine(engine):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return params
+
+
+# ------------------------------------------------------ speculative decoding
+
+
+def check_kv_write_verify(flush) -> dict:
+    """kv_write at a bf16 verify's shape: 8 sequences x SPEC_W rows (72),
+    starting 3, 7 and 15 tokens into a page, siblings on shared pages, the
+    last 2 rows padded onto trash page 0; llama-3-8b's KH 8, D 128.
+    Bitwise equal to the plain version outside page 0; timed as phase 3
+    with its plain version and one index_put_ per pool."""
+    from dynamo_tpu_torch.ops.cuda import kv_write
+
+    KH, D, page, B, W, P = 8, 128, 16, 8, SPEC_W, 8
+    N = B * W
+    rng = np.random.default_rng(21)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(21)
+    NP = 1 + B * P
+    pools = [torch.randn((2, NP, KH, page, D), generator=gen, device=DEVICE)
+             .to(torch.bfloat16) for _ in range(2)]
+    rows = [torch.randn((N, KH, D), generator=gen, device=DEVICE).to(torch.bfloat16)
+            for _ in range(2)]
+    dst_page = np.zeros((N,), np.int32)
+    dst_off = np.zeros((N,), np.int32)
+    for i in range(B):
+        pages = 1 + i * P + rng.permutation(P)
+        start = (3, 7, 15)[i % 3] + page * int(rng.integers(0, 4))
+        for w in range(W):
+            pos = start + w
+            dst_page[i * W + w] = pages[pos // page]
+            dst_off[i * W + w] = pos % page
+    dst_page[-2:] = 0  # padded rows
+    dp = torch.from_numpy(dst_page).to(DEVICE)
+    do = torch.from_numpy(dst_off).to(DEVICE)
+    shared = N - 2 - len(set(dst_page[:-2].tolist()))
+    layer = 1
+    got = [p.clone() for p in pools]
+    want = [p.clone() for p in pools]
+    kv_write.kv_write(*got, *rows, dp, do, layer=layer)
+    kv_write.kv_write_plain(*want, *rows, dp, do, layer=layer)
+    torch.cuda.synchronize()
+    require(all(torch.equal(g[:, 1:], w[:, 1:]) for g, w in zip(got, want)),
+            "kv_write at the verify shape: not bitwise equal to the plain version")
+    res = {"max_abs_err": 0.0}
+    kp, vp = pools
+    res["ms"] = time_ms(lambda: kv_write.kv_write(kp, vp, *rows, dp, do, layer=layer),
+                        flush)
+    res["plain_ms"] = time_ms(lambda: kv_write.kv_write_plain(
+        kp, vp, *rows, dp, do, layer=layer), flush)
+    idx = (dp.long()[:, None], torch.arange(KH, device=DEVICE)[None], do.long()[:, None])
+
+    def library_put():  # one index_put_ per pool
+        kp[layer].index_put_(idx, rows[0])
+        vp[layer].index_put_(idx, rows[1])
+
+    res["library_ms"] = time_ms(library_put, flush)
+    res["bound_ms"], res["bound_by"] = bound_ms(4 * N * KH * D * 2 + 2 * N * 4, 0.0)
+    print(f"check kv_write verify shape: {N} rows ({B} x {SPEC_W}, starts 3/7/15 "
+          f"into a page, {shared} rows on a page an earlier row also writes, 2 padded "
+          f"rows on page 0) bitwise equal to the plain version outside page 0; "
+          f"{res['ms']:.4f} ms (plain {res['plain_ms']:.4f}, index_put_ "
+          f"{res['library_ms']:.4f}), bound {res['bound_ms']:.6f} ms by "
+          f"{res['bound_by']}")
+    return res
+
+
+def spec_prompts(vocab: int):
+    """SPEC_REQUESTS prompts, each a seeded 12-token segment repeated up to
+    64..512 tokens; the segments' 96 tokens are distinct."""
+    rng = np.random.default_rng(SPEC_SEED)
+    toks = rng.choice(np.arange(3, vocab), size=SPEC_REQUESTS * SPEC_SEGMENT,
+                      replace=False).tolist()
+    lens = rng.integers(64, 513, size=SPEC_REQUESTS)
+    segs = [toks[i * SPEC_SEGMENT:(i + 1) * SPEC_SEGMENT] for i in range(SPEC_REQUESTS)]
+    return segs, [(s * (int(n) // SPEC_SEGMENT + 1))[: int(n)] for s, n in zip(segs, lens)]
+
+
+def verify_graph_check(engine, prompts) -> None:
+    """The engine's verify captured per row count (VerifyGraphs) against an
+    eager verify_forward on copies of the same pools, after a prefill of
+    ``prompts``: each row is the first token plus the next segment tokens,
+    rows of 1..SPEC_W tokens at mid-page starts. Targets identical, pools
+    bitwise equal outside page 0 (fp8 values and scales), kv_write 32
+    launches per bf16 replay and 0 on fp8. Then the device span of a verify
+    replay of 8 rows against a decode graph step of 8 slots, and the host
+    wall of an eager verify."""
+    from dynamo_tpu_torch.engine.graphs import VerifyGraphs, verify_row_counts
+    from dynamo_tpu_torch.models import llama
+
+    spec, cfg = engine.spec, engine.config
+    L, B, W, fp8 = spec.num_layers, len(prompts), cfg.spec_k_max + 1, engine.kv_dtype == "fp8"
+    bts, first, seq_lens = prefill_slots(engine, prompts, room=W)
+    tokens = np.zeros((B, W), np.int32)
+    nts = np.asarray([W, W - 2, 1, W, 5, W, 3, W][:B], np.int32)
+    for i, p in enumerate(prompts):
+        tokens[i, 0] = first[i]
+        tokens[i, 1:] = [p[(len(p) + j) % SPEC_SEGMENT] for j in range(W - 1)]
+        tokens[i, nts[i]:] = 0
+    starts = (seq_lens - 1).astype(np.int32)
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)  # noqa: E731
+    base = (clone_pool(engine.k_pages), clone_pool(engine.v_pages))
+    eager = (clone_pool(engine.k_pages), clone_pool(engine.v_pages))
+    graph = (clone_pool(engine.k_pages), clone_pool(engine.v_pages))
+    runner = VerifyGraphs(
+        lambda t, b, s, n: llama.verify_forward(spec, engine.params, t, b, s, *graph, n),
+        batch=B, width=W, pages_per_seq=cfg.max_pages_per_seq, device=torch.device(DEVICE))
+    form = engine.kv_dtype
+    try:
+        with torch.no_grad():
+            runner.precompile()
+            for n in verify_row_counts(B):
+                for pools in (eager, graph):
+                    for dst, src in zip(pools, base):
+                        copy_pool_(dst, src)
+                want = llama.verify_forward(spec, engine.params, dev(tokens[:n]),
+                                            dev(bts[:n]), dev(starts[:n]), *eager,
+                                            dev(nts[:n])).cpu().numpy()
+                zero_counts()
+                got = runner.dispatch(tokens[:n], bts[:n], starts[:n], nts[:n]).wait().numpy()
+                counts = read_counts()
+                pools_ok = all(pools_equal(a, b) for a, b in zip(graph, eager))
+                print(f"verify graph {form} ({n} rows x {W}): replay vs eager verify_forward: "
+                      f"targets {'identical' if np.array_equal(got, want) else 'DIFFER'}, pools "
+                      f"{'bitwise equal' if pools_ok else 'DIFFER'}; kv_write launches "
+                      f"{counts['kv_write']}")
+                require(np.array_equal(got, want) and pools_ok,
+                        f"verify graph {form} ({n} rows) differs from eager verify_forward")
+                require(counts["kv_write"] == (0 if fp8 else L),
+                        f"verify graph {form}: kv_write launched {counts['kv_write']} times "
+                        "in one replay")
+            # device spans: verify replay (8 rows) vs a decode graph step (8 slots)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+            def span(fn, reps=5):
+                fn()
+                total = 0.0
+                for _ in range(reps):
+                    torch.cuda.synchronize()
+                    start.record()
+                    out = fn()
+                    end.record()
+                    out.wait() if hasattr(out, "wait") else out.result()
+                    total += start.elapsed_time(end)
+                return total / reps
+
+            v_ms = span(lambda: runner.dispatch(tokens, bts, starts, nts))
+            inputs = {"tokens": first, "block_tables": bts, "seq_lens": seq_lens,
+                      "active": np.ones(B, bool), "temperature": np.zeros(B, np.float32),
+                      "top_k": np.zeros(B, np.int32), "top_p": np.ones(B, np.float32),
+                      "seeds": np.zeros(B, np.uint32), "steps": np.zeros(B, np.int32)}
+            d_ms = span(lambda: engine._graphs.dispatch(inputs, 1, sampled=False,
+                                                       n_logprobs=0))
+            e_ms = host_ms(lambda: llama.verify_forward(
+                spec, engine.params, dev(tokens), dev(bts), dev(starts), *eager,
+                dev(nts)).cpu(), reps=5)
+            profile_decode_step(lambda: runner.dispatch(tokens, bts, starts, nts).wait(),
+                                f"{form} verify replay ({B} x {W})")
+        print(f"verify {form}: device span of a {B} x {W} verify replay {v_ms:.3f} ms vs a "
+              f"B={B} decode graph step {d_ms:.3f} ms ({v_ms / d_ms:.2f}x); eager "
+              f"verify_forward host wall {e_ms:.2f} ms ({e_ms / v_ms:.1f}x the replay)")
+    finally:
+        runner.release()
+        engine.allocator.release([int(p) for p in bts.reshape(-1) if p])
+        del base, eager, graph, runner
+        torch.cuda.empty_cache()
+
+
+def peaked_params(spec, params, segs):
+    """Weights whose greedy stream continues each prompt's segment: the
+    layer tensors of ``params`` shared, the input embedding scaled, and a
+    head whose column for token u is the embedding row of the token that
+    u follows in its segment (every other token maps to itself). With the
+    residual stream dominated by the input token, the argmax after token t
+    is the next token of t's segment. Picks the smallest scale in
+    SPEC_SCALES at which every position of one prompt's reference forward
+    has its argmax on the segment and a top-2 gap over NEAR_ARGMAX."""
+    from dynamo_tpu_torch.models import llama
+
+    require(not spec.tie_embeddings, f"{spec.name}: the peaked head needs an untied head")
+    succ = torch.arange(spec.vocab_size, device=DEVICE)
+    for seg in segs:
+        for a, b in zip(seg, seg[1:] + seg[:1]):
+            succ[b] = a  # head column of b: the row of the token b follows
+    head = params.embed[succ].T.contiguous()
+    layers = [{n: t for n, t in lp.named_parameters()} for lp in params.layers]
+    prompt = (segs[0] * 8)[: 4 * SPEC_SEGMENT + 5]
+    seq = torch.tensor(prompt, device=DEVICE)
+    want = torch.tensor(prompt[1:] + [segs[0][len(prompt) % SPEC_SEGMENT]], device=DEVICE)
+    for scale in SPEC_SCALES:
+        p = llama.LlamaParams(params.embed * scale, params.final_norm, layers, head)
+        with torch.no_grad():
+            logits = llama.reference_forward(spec, p, seq)
+        top2 = logits.topk(2, dim=-1).values
+        gap = (top2[:, 0] - top2[:, 1]).min().item()
+        if torch.equal(logits.argmax(-1), want) and gap > NEAR_ARGMAX:
+            print(f"spec peaked weights: input embedding x {scale}, head = embedding rows "
+                  f"permuted along the {len(segs)} segments; worst reference top-2 gap "
+                  f"{gap:.3f} over {len(prompt)} positions")
+            return p
+        del p
+    raise SmokeError("no scale in SPEC_SCALES makes the stream follow the segments")
+
+
+def spec_reqs(prompts, n=SPEC_TOKENS):
+    reqs = [make_request(p, n) for p in prompts]
+    reqs[-1] = make_request(prompts[-1], SPEC_SHORT)  # not a multiple of SPEC_W
+    return reqs
+
+
+def spec_streams(out, reqs) -> list[list[int]]:
+    items, _ttft, _wall = out["res"]
+    streams = []
+    for i, (it, req) in enumerate(zip(items, reqs)):
+        toks = [t for x in it for t in x["token_ids"]]
+        n = req["stop_conditions"]["max_tokens"]
+        require(it[-1]["finish_reason"] == "length" and len(toks) == n,
+                f"spec request {i}: {len(toks)} tokens of {n}, finish "
+                f"{it[-1]['finish_reason']}")
+        streams.append(toks)
+    return streams
+
+
+def spec_serve(spec, cfg, params, prompts, label, extra=(), graph_check=False):
+    """Serve ``prompts`` on an engine with spec ngram and on one with spec
+    off (the first freed before the second is built), both precompiled;
+    ``extra`` phases run on the spec engine after the main serve, and with
+    ``graph_check`` the verify graph check runs on it first. Returns
+    {"ngram": phase outputs, "off": ..., "snap": spec counters after the
+    serve, "verify_ms": host ms per verify dispatch, "free": (free pages at
+    the start, free + evictable at the end)}."""
+    reqs = spec_reqs(prompts)
+    res = {}
+    for mode in ("ngram", "off"):
+        engine = new_engine(spec, dict(cfg, spec_mode=mode), f"{label} spec {mode}",
+                            params=params)
+        free0 = engine.allocator.free_pages
+        marks = {}
+
+        async def serve_spec(e):
+            out = await requests(e, reqs)
+            marks.update(snap=dict(e.spec_snapshot(), rows=e.spec_rows),
+                         verify=list(e.verify_times),
+                         free=(free0, e.allocator.free_pages + e.allocator.evictable_pages))
+            return out
+
+        phases = [("serve", serve_spec)] + (list(extra) if mode == "ngram" else [])
+        if mode == "ngram" and graph_check:
+            verify_graph_check(engine, prompts)
+        res[mode] = serve_phases(engine, phases)
+        if mode == "ngram":
+            res.update(snap=marks["snap"], free=marks["free"],
+                       verify_ms=1e3 * sum(marks["verify"]) / max(len(marks["verify"]), 1))
+        drop_engine(engine)
+        del engine
+    return res
+
+
+def spec_report(res, reqs, label, L) -> dict:
+    """Print one spec cell's counters and rates (the decode bursts of
+    either engine must launch fused_decode once per layer and step);
+    returns its numbers."""
+    snap = res["snap"]
+    on, off = res["ngram"]["serve"], res["off"]["serve"]
+    for mode, out in (("on", on), ("off", off)):
+        require(out["counts"]["fused_decode"] == L * out["steps"] == L * out["replays"],
+                f"spec {label} {mode}: fused_decode {out['counts']['fused_decode']} over "
+                f"{out['steps']} decode steps")
+    n_tok = sum(r["stop_conditions"]["max_tokens"] for r in reqs)
+    tps = {m: n_tok / res[m]["serve"]["res"][2] for m in ("ngram", "off")}
+    # tokens a verify lands: the accepted drafts plus one per row
+    per_dispatch = (snap["accepted"] + snap["rows"]) / max(snap["verifies"], 1)
+    per_row = (snap["accepted"] + snap["rows"]) / max(snap["rows"], 1)
+    print(f"spec {label}: verifies {snap['verifies']} of {snap['rows']} rows, drafted "
+          f"{snap['drafted']}, accepted {snap['accepted']}, acceptance "
+          f"{snap['acceptance_rate']}, tokens per verify dispatch {per_dispatch:.2f} "
+          f"({per_row:.2f} per row), decode steps {on['steps']}; "
+          f"{tps['ngram']:.1f} tok/s on vs {tps['off']:.1f} off "
+          f"({tps['ngram'] / tps['off']:.2f}x); host wall per verify dispatch "
+          f"{res['verify_ms']:.2f} ms; launches on: kv_write {on['counts']['kv_write']}, "
+          f"fused_decode {on['counts']['fused_decode']}; off: fused_decode "
+          f"{off['counts']['fused_decode']}")
+    return {"per_dispatch": per_dispatch, "per_row": per_row, "tps": tps, "snap": snap,
+            "kv_write": on["counts"]["kv_write"]}
+
+
+def spec_phase(spec, cfg, params, flush) -> tuple[dict, int]:
+    """Phase 12: speculative decoding. Returns (kv_write's verify-shape
+    measurements, kv_write launches on the spec path)."""
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.runtime.faults import FAULTS
+
+    L = spec.num_layers
+    kv_res = check_kv_write_verify(flush)
+    segs, prompts = spec_prompts(spec.vocab_size)
+    reqs = spec_reqs(prompts)
+    scfg = dict(cfg, pipeline_decode=True, spec_k_max=SPEC_W - 1)
+
+    # (b) + (c): the phase-4 random weights
+    res = spec_serve(spec, dict(scfg, kv_dtype="bf16"), params, prompts, "random",
+                     graph_check=True)
+    c = spec_report(res, reqs, "random weights bf16", L)
+    require(c["kv_write"] == L * c["snap"]["verifies"] > 0,
+            f"spec random: kv_write {c['kv_write']} launches for "
+            f"{c['snap']['verifies']} verify dispatches")
+    on = spec_streams(res["ngram"]["serve"], reqs)
+    off = spec_streams(res["off"]["serve"], reqs)
+    agree = []
+    for i, p in enumerate(prompts):
+        near_argmax_check(spec, params, p, on[i])
+        near_argmax_check(spec, params, p, off[i])
+        seq = torch.tensor(p + on[i][:-1], device=DEVICE)
+        with torch.no_grad():
+            top2 = llama.reference_forward(spec, params, seq)[len(p) - 1:].topk(2, dim=-1).values
+        gaps = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+        tie = int(np.argmax(gaps < NEAR_ARGMAX)) if (gaps < NEAR_ARGMAX).any() else len(gaps)
+        same = next((j for j, (a, b) in enumerate(zip(on[i], off[i])) if a != b), len(on[i]))
+        require(same >= tie, f"spec random request {i}: spec on and off part at token "
+                             f"{same}, before the first reference near-tie at {tie}")
+        agree.append((same, tie))
+    print(f"spec random: streams near-argmax under the reference; spec on = off up to "
+          f"(first difference, first near-tie) {agree}")
+
+    # (d): peaked weights, the layers of (c) shared
+    pparams = peaked_params(spec, params, segs)
+
+    async def fault_serve(e):
+        v0 = e.spec_verifies
+        FAULTS.configure("engine.spec_verify:error@1.0", seed=5)
+        try:
+            out = await requests(e, reqs)
+        finally:
+            trips = FAULTS.snapshot()["trips"].get("engine.spec_verify:error", 0)
+            FAULTS.configure("")
+        return out, e.spec_verifies - v0, trips
+
+    res = spec_serve(spec, dict(scfg, kv_dtype="bf16"), pparams, prompts, "peaked",
+                     extra=[("fault", fault_serve)])
+    d = spec_report(res, reqs, "peaked weights bf16", L)
+    on = spec_streams(res["ngram"]["serve"], reqs)
+    off = spec_streams(res["off"]["serve"], reqs)
+    require(on == off, "spec peaked: streams differ between spec on and off")
+    require(d["snap"]["acceptance_rate"] is not None and d["snap"]["acceptance_rate"] >= 0.9,
+            f"spec peaked: acceptance {d['snap']['acceptance_rate']} < 0.9")
+    require(d["per_row"] >= 4, f"spec peaked: {d['per_row']:.2f} tokens per verify "
+                                "row < 4")
+    require(d["kv_write"] == L * d["snap"]["verifies"],
+            f"spec peaked: kv_write {d['kv_write']} for {d['snap']['verifies']} verifies")
+    free0, free1 = res["free"]
+    require(free1 == free0, f"spec peaked: {free1} free + cached pages after, {free0} before")
+    f_out, f_verifies, trips = res["ngram"]["fault"]["res"]
+    fault_streams = spec_streams({"res": f_out}, reqs)
+    require(fault_streams == off and f_verifies == 0 and trips >= 1,
+            f"spec peaked fault: streams {'equal' if fault_streams == off else 'DIFFER'}, "
+            f"{f_verifies} verifies, {trips} trips")
+    print(f"spec peaked: streams equal spec off; request {len(reqs) - 1} ended 'length' "
+          f"after exactly {SPEC_SHORT} tokens; free + cached pages {free1} = {free0} at "
+          f"the start; engine.spec_verify fault ({trips} trips): every slot fell back to "
+          f"bursts, 0 verifies, streams unchanged")
+
+    # (e): (d) on fp8 pools, with the verify graph check on fp8 pools first
+    res = spec_serve(spec, dict(scfg, kv_dtype="fp8"), pparams, prompts, "peaked fp8",
+                     graph_check=True)
+    e = spec_report(res, reqs, "peaked weights fp8", L)
+    print(f"spec peaked fp8: acceptance {e['snap']['acceptance_rate']}")
+    on = spec_streams(res["ngram"]["serve"], reqs)
+    off = spec_streams(res["off"]["serve"], reqs)
+    require(on == off, "spec peaked fp8: streams differ between spec on and off")
+    require(e["kv_write"] == 0, f"spec fp8: kv_write launched {e['kv_write']} times")
+    del pparams
+    torch.cuda.empty_cache()
+    return kv_res, c["kv_write"] + d["kv_write"]
 
 
 # ------------------------------------------------------------ HTTP serving
@@ -2591,6 +3010,11 @@ def main() -> int:
     drop_engine(engine)
     del engine
 
+    # speculative decoding on the same weights, then on peaked ones
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+    kernels["kv_write/verify"], spec_kv_launches = spec_phase(spec, cfg, params, flush)
+    del flush
+
     # the same weights served over HTTP by the one-process stack
     http_launches, http_stats = http_serve(spec, dict(cfg, kv_dtype="bf16"), params,
                                            prompts, default_out, bf16_tokens)
@@ -2604,6 +3028,7 @@ def main() -> int:
     launches = {"fused_decode": serve_launches["fused_decode"] + http_launches
                 + process_launches,
                 "paged_attention_v3": unfused[0], "kv_write": unfused[2],
+                "kv_write/verify": spec_kv_launches,
                 "fused_decode/fp8": serve_fp8["fused_decode/fp8"],
                 "paged_attention_v3/fp8": unfused_fp8[1]}
     sources = {
@@ -2613,6 +3038,11 @@ def main() -> int:
                                "dynamo_tpu/ops/pallas/paged_attention_v3.py:76"),
         "kv_write": ("dynamo_tpu_torch/csrc/kv_write.cu",
                      "dynamo_tpu/ops/pallas/kv_write.py:39"),
+        # the same kernel at a speculative verify's shape: N x W rows per
+        # layer, siblings on shared pages (the reference's write_new_kv call
+        # in verify_forward, dynamo_tpu/models/llama.py:716)
+        "kv_write/verify": ("dynamo_tpu_torch/csrc/kv_write.cu",
+                            "dynamo_tpu/ops/pallas/kv_write.py:39"),
         # the kernels' quantized branches: in-register dequant, and (fused)
         # the requantizing read-modify-write of the destination page
         "fused_decode/fp8": ("dynamo_tpu_torch/csrc/fused_decode.cu",

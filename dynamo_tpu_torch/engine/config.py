@@ -293,6 +293,14 @@ class EngineConfig:
     # bounded wait for a closed-loop client's resubmission right after its
     # finish item posted, hidden behind an in-flight burst. 0 = don't wait.
     readmit_wait_s: float = 0.002
+    # speculative decoding (engine/spec.py): "off" | "ngram" (prompt-lookup
+    # drafts, verified in one packed dispatch; greedy, logprob-free slots)
+    spec_mode: str = "off"
+    spec_k_max: int = 8  # max drafts per verify (verify width k_max + 1)
+    spec_ngram_min: int = 1
+    spec_ngram_max: int = 4
+    spec_ewma_alpha: float = 0.5  # acceptance-rate EWMA weight
+    spec_reprobe_tokens: int = 64  # parked-slot tokens between k=1 probes
 
     # -- JAX engine only, until their slices are ported (see UNPORTED) ------
     tp: int = 1
@@ -303,12 +311,6 @@ class EngineConfig:
     max_waiting: int = 0
     tenants: str | dict = ""
     preemption: bool = True
-    spec_mode: str = "off"  # "off" | "ngram"
-    spec_k_max: int = 8
-    spec_ngram_min: int = 1
-    spec_ngram_max: int = 4
-    spec_ewma_alpha: float = 0.5
-    spec_reprobe_tokens: int = 64
     guided_mode: str = "auto"  # "auto" | "off"
     guided_cache_entries: int = 32
     profile: bool = False
@@ -352,7 +354,6 @@ class EngineConfig:
 
 
 _OVERLOAD = "tenancy, quotas, admission bounds and preemption (ROADMAP Queue A item 5)"
-_SPEC = "speculative decoding (ROADMAP Queue A item 6)"
 _PARALLEL = "parallelism (ROADMAP Queue A item 11)"
 # fields of features the port's engine lacks -> what is missing. guided_mode
 # is not here: the engine refuses guided requests itself, as the reference
@@ -360,8 +361,6 @@ _PARALLEL = "parallelism (ROADMAP Queue A item 11)"
 UNPORTED = {
     "tp": _PARALLEL, "dp": _PARALLEL, "sp": _PARALLEL, "ep": _PARALLEL, "pp": _PARALLEL,
     "max_waiting": _OVERLOAD, "tenants": _OVERLOAD, "preemption": _OVERLOAD,
-    "spec_mode": _SPEC, "spec_k_max": _SPEC, "spec_ngram_min": _SPEC,
-    "spec_ngram_max": _SPEC, "spec_ewma_alpha": _SPEC, "spec_reprobe_tokens": _SPEC,
     "guided_cache_entries": "guided decoding (ROADMAP Queue A item 7)",
     "profile": "the step-phase profiler (ROADMAP Queue A item 13)",
 }

@@ -25,6 +25,14 @@ first token is sampled on the device right after its prefill, feeds the
 next burst there, and lands on the host later, so the step thread never
 waits for it.
 
+With ``spec_mode="ngram"`` greedy, logprob-free requests decode
+speculatively (engine/spec.py): each cycle, every slot whose drafts keep
+verifying drafts from its own history, and all of them verify in one
+packed dispatch (``_spec_phase``: ``engine/graphs.VerifyGraphs``, one
+captured graph per power-of-two row count), landing 1..k+1 tokens each,
+while every other slot takes the decode burst. The stream equals
+spec-off's at temperature 0.
+
 ``generate(request, context)`` is the AsyncEngine surface: it yields
 ``{"token_ids": [...]}`` deltas (plus ``"logprobs"`` entries when asked)
 and ends with an item whose ``finish_reason`` is ``stop``, ``length``,
@@ -35,10 +43,11 @@ ignore_eos, stop_token_ids, min_tokens); ``eos_token_ids``;
 N clamped to 20).
 
 Not in this engine yet (see ROADMAP): tenancy and quotas, preemption,
-speculative and guided decoding (a request marked ``guided`` is refused
+guided decoding (a request marked ``guided`` is refused
 with a typed ``invalid_request`` error item, as the reference engine with
 guided decoding off does), KVBM and disagg, migration resume, SPMD/meshes,
-multimodal, embeddings, telemetry, faults and tracing, the MoE dropped-slot
+multimodal, embeddings, telemetry and tracing, the fault sites other than
+``engine.spec_verify``, the MoE dropped-slot
 count (``moe_dropped_slots`` publishes 0: no MoE family yet).
 """
 
@@ -57,12 +66,13 @@ import torch
 
 from dynamo_tpu_torch.engine.cache import OutOfPages, PageAllocator, SeqPages
 from dynamo_tpu_torch.engine.config import EngineConfig, ModelSpec
-from dynamo_tpu_torch.engine.graphs import DecodeGraphs, HostCopy
+from dynamo_tpu_torch.engine.graphs import DecodeGraphs, HostCopy, VerifyGraphs
 from dynamo_tpu_torch.engine.sampling import (
     greedy_tokens,
     sample_tokens,
     token_logprobs,
 )
+from dynamo_tpu_torch.engine.spec import SPEC_TOKENS, SlotSpec
 from dynamo_tpu_torch.kv_router.protocols import ForwardPassMetrics
 from dynamo_tpu_torch.models.family import get_family
 from dynamo_tpu_torch.models.llama import resolve_device
@@ -71,11 +81,13 @@ from dynamo_tpu_torch.runtime.context import (
     DeadlineExceeded,
     ServiceUnavailable,
 )
+from dynamo_tpu_torch.runtime.faults import FAULTS, FaultDrop, FaultInjected
 from dynamo_tpu_torch.tokens import TokenBlockSequence
 
 log = logging.getLogger("dynamo_tpu_torch.engine")
 
 MAX_PAGE_STALLS = 2000  # admission passes / decode steps a request may wait for pages
+MAX_SPEC_STALLS = 200  # verify cycles a spec slot may wait for its fed token's page
 
 
 @dataclass
@@ -102,6 +114,7 @@ class _Slot:
     # async admission: the first sampled token is still on the device (it
     # feeds the next decode burst there); its host value lands later
     first_pending: bool = False
+    spec: SlotSpec | None = None  # speculative decoding state (greedy slots)
 
 
 @dataclass
@@ -223,6 +236,22 @@ class InferenceEngine:
             max_steps=max(1, cfg.decode_steps_per_dispatch),
             n_logprobs=self._n_lp, device=self.device,
         )
+        # speculative decoding (engine/spec.py): the verify grid, one
+        # captured graph per power-of-two row count at width k_max + 1
+        self._spec_on = (cfg.spec_mode == "ngram"
+                         and getattr(self.fam, "supports_spec_decode", False))
+        self._verify = VerifyGraphs(
+            self._verify_fn, batch=len(self._slots), width=cfg.spec_k_max + 1,
+            pages_per_seq=cfg.max_pages_per_seq, device=self.device,
+        ) if self._spec_on else None
+        self.spec_verifies = 0  # verify dispatches issued
+        self.spec_drafted = 0  # draft tokens proposed into verifies
+        self.spec_accepted = 0  # drafts the target's argmax confirmed
+        self.spec_rejected = 0  # drafts cut by accept-longest-prefix
+        self.spec_rows = 0  # slot rows verified (a dispatch verifies 1..B)
+        # wall seconds per verify dispatch, host clock from the dispatch to
+        # its targets on the host
+        self.verify_times: collections.deque = collections.deque(maxlen=4096)
         self.steps = 0  # decode model steps dispatched
         self.cached_prompt_tokens = 0  # prompt tokens served from the prefix cache
         self.eager_readmits = 0  # admission passes that refilled a freed slot at once
@@ -274,15 +303,20 @@ class InferenceEngine:
                     log.warning("publisher close: last KV events not flushed")
 
     def precompile(self) -> None:
-        """Capture every decode graph variant now, before traffic (the JAX
-        engine's precompile()). Call before start() or while idle; a no-op
-        on the CPU."""
+        """Capture every decode graph variant, and with spec on the verify
+        grid, now, before traffic (the JAX engine's precompile()). Call
+        before start() or while idle; a no-op on the CPU."""
         self._graphs.precompile()
+        if self._verify is not None:
+            self._verify.precompile()
 
     def release_graphs(self) -> None:
-        """Drop the captured decode graphs. They hold raw pointers to the
-        KV pools and the weights: call this before freeing either."""
+        """Drop the captured decode and verify graphs. They hold raw
+        pointers to the KV pools and the weights: call this before freeing
+        either."""
         self._graphs.release()
+        if self._verify is not None:
+            self._verify.release()
 
     def request_clear_cache(self) -> None:
         """Admin: drop every inactive prefix-cache page (the HTTP
@@ -489,6 +523,10 @@ class InferenceEngine:
             self._publish_metrics()
         else:
             did |= self._admit_phase()
+        # speculative verify of the spec-managed slots: each lands 1..k+1
+        # tokens in one packed dispatch; the others take the burst below
+        if self._spec_on:
+            did |= self._spec_phase()
         if any(s is not None for s in self._slots):
             did |= self._decode_step()
         elif self._pipeline:
@@ -837,6 +875,15 @@ class InferenceEngine:
             self._seed_counter += 1
             sample_seed = (int(self._opt(sampling, "seed", self._seed_counter))
                            & 0xFFFFFFFF)
+        temperature = float(self._opt(sampling, "temperature", 0.0))
+        logprobs = self._clamp_logprobs(
+            (req.get("output_options") or {}).get("logprobs"))
+        # speculation is greedy-only (accept-longest-prefix against the
+        # target's argmax is exact at temperature 0) and logprob-free (the
+        # verify returns token ids)
+        slot_spec = None
+        if self._spec_on and temperature <= 0.0 and logprobs is None:
+            slot_spec = SlotSpec.for_config(self.config)
         return _Slot(
             request_id=waiting.context.id,
             context=waiting.context,
@@ -845,7 +892,7 @@ class InferenceEngine:
             pages=sp,
             seq_len=seq_len,
             remaining=remaining,
-            temperature=float(self._opt(sampling, "temperature", 0.0)),
+            temperature=temperature,
             top_k=int(self._opt(sampling, "top_k", 0)),
             top_p=float(self._opt(sampling, "top_p", 1.0)),
             ignore_eos=bool(stop.get("ignore_eos", False)),
@@ -855,8 +902,8 @@ class InferenceEngine:
             generated=generated,
             last_token=last_token,
             sample_seed=sample_seed,
-            logprobs=self._clamp_logprobs(
-                (req.get("output_options") or {}).get("logprobs")),
+            logprobs=logprobs,
+            spec=slot_spec,
         )
 
     @staticmethod
@@ -1085,6 +1132,178 @@ class InferenceEngine:
             item["logprobs"] = [logprob_entry]
         self._post(slot.out_q, item)
 
+    # -- speculative decoding ----------------------------------------------
+
+    def spec_snapshot(self) -> dict[str, Any]:
+        """Speculation counters: verify dispatches, draft outcomes and the
+        live acceptance rate."""
+        judged = self.spec_accepted + self.spec_rejected
+        return {
+            "verifies": self.spec_verifies,
+            "drafted": self.spec_drafted,
+            "accepted": self.spec_accepted,
+            "rejected": self.spec_rejected,
+            "acceptance_rate": (
+                round(self.spec_accepted / judged, 4) if judged else None),
+        }
+
+    def _verify_fn(self, tokens, block_tables, start_pos, num_tokens):
+        """The verify VerifyGraphs captures (bound to the engine's weights
+        and pools)."""
+        return self.fam.verify(self.spec, self.params, tokens, block_tables,
+                               start_pos, self.k_pages, self.v_pages, num_tokens)
+
+    def _spec_managed(self, slot: _Slot) -> bool:
+        """True while the slot takes the verify path INSTEAD of decode
+        bursts. first_pending slots stay burst-managed: their first token
+        is still on the device, so the drafter has no suffix to match yet
+        (and the burst's feed lands it)."""
+        return (slot.spec is not None and slot.spec.active
+                and not slot.first_pending)
+
+    def _spec_phase(self) -> bool:
+        """Draft + one batched verify for every spec-managed slot that no
+        in-flight decode burst covers.
+
+        With the pipeline, a slot is either burst-managed or spec-managed
+        in a cycle: _build_batch skips spec-managed slots, so their
+        in-flight bursts drain within pipeline_depth cycles, after which
+        every cycle verifies them. A verified slot's last token is on the
+        host, so its next burst (after k decays) stages it from there. A
+        slot whose drafter finds nothing still verifies at width 1 (it must
+        emit a token this cycle), and the miss decays its k."""
+        cfg = self.config
+        B = len(self._slots)
+        covered = [False] * B
+        for pb in self._pipeline:
+            for i in range(B):
+                if pb["batch"]["active"][i] and self._slot_matches(i, pb["batch"]):
+                    covered[i] = True
+        cands: list[tuple[int, _Slot, list[int]]] = []
+        for i, slot in enumerate(self._slots):
+            if slot is None or not self._spec_managed(slot):
+                continue
+            if slot.context.is_stopped or covered[i]:
+                # stopped slots cancel through _build_batch; covered ones
+                # verify once their in-flight burst is processed
+                continue
+            if cfg.max_context - slot.seq_len < 2:
+                continue  # no room to write even the fed token safely
+            k_cap = min(slot.remaining - 1, cfg.max_context - slot.seq_len - 2,
+                        cfg.spec_k_max)
+            slot.spec.sync_from_seq(slot.seq)
+            draft = [int(t) for t in slot.spec.propose(k_cap)] if k_cap > 0 else []
+            cands.append((i, slot, draft))
+        if not cands:
+            return False
+
+        # page room for the fed token + drafts: OutOfPages trims the draft
+        # to the pages held; a slot that cannot hold its fed token stalls
+        ready: list[tuple[int, _Slot, list[int], int]] = []
+        for i, slot, draft in cands:
+            m = 1 + len(draft)
+            base_pages = slot.pages.num_pages
+            while (slot.seq_len + m - 1) // cfg.page_size >= slot.pages.num_pages:
+                try:
+                    slot.pages.pages.append(self.allocator.alloc_page())
+                    slot.pages.hashes.append(None)
+                except OutOfPages:
+                    m = min(m, slot.pages.num_pages * cfg.page_size - slot.seq_len)
+                    break
+            if m < 1:
+                # a long stall hands the slot back to the burst path, whose
+                # backpressure owns the give-up decision
+                slot.stalled_steps += 1
+                if slot.stalled_steps > MAX_SPEC_STALLS:
+                    slot.spec.disable()
+                continue
+            slot.stalled_steps = 0
+            ready.append((i, slot, draft[: m - 1], base_pages))
+        if not ready:
+            return False
+
+        if FAULTS.enabled:
+            try:
+                # an injected verify failure falls back per slot before any
+                # KV write: rollback is allocator bookkeeping only, and the
+                # request decodes on untouched state
+                FAULTS.fire_sync("engine.spec_verify")
+            except (FaultInjected, FaultDrop) as e:
+                for _i, slot, _draft, base_pages in ready:
+                    self.allocator.release(slot.pages.truncate(base_pages))
+                    slot.spec.disable()
+                log.warning("spec verify fault (%s): %d slot(s) fall back to "
+                            "non-spec decode", e, len(ready))
+                return True
+
+        # ONE packed dispatch: rows pad to a captured power of two, width
+        # spec_k_max + 1; padded rows have 0 tokens and write trash page 0
+        W = cfg.spec_k_max + 1
+        n = next(c for c in self._verify.row_counts if c >= len(ready))
+        tokens = np.zeros((n, W), np.int32)
+        bts = np.zeros((n, cfg.max_pages_per_seq), np.int32)
+        starts = np.zeros((n,), np.int32)
+        nts = np.zeros((n,), np.int32)
+        for r, (_i, slot, draft, _bp) in enumerate(ready):
+            row = [slot.last_token, *draft]
+            tokens[r, : len(row)] = row
+            bts[r, : slot.pages.num_pages] = slot.pages.pages
+            starts[r] = slot.seq_len
+            nts[r] = len(row)
+        t0 = time.perf_counter()
+        targets = self._verify.dispatch(tokens, bts, starts, nts).wait().numpy()
+        self.verify_times.append(time.perf_counter() - t0)
+        self.spec_verifies += 1
+        self.spec_rows += len(ready)
+        for r, (i, slot, draft, _bp) in enumerate(ready):
+            if self._slots[i] is slot:
+                self._process_verify(i, slot, draft, targets[r])
+        self._publish_metrics()
+        return True
+
+    def _process_verify(self, slot_idx: int, slot: _Slot, draft: list[int],
+                        targets: np.ndarray) -> None:
+        """Greedy accept-longest-prefix over one slot's verify row.
+        ``targets[j]`` is the target's argmax after [last_token,
+        draft[:j]]: drafts are accepted while they equal it, and
+        ``targets[n_acc]`` (the correction, or the bonus token when all
+        matched) always emits. Every emitted token goes through
+        _accept_token, so a max_tokens / EOS / stop boundary inside the
+        verify cuts exactly there."""
+        n_acc = 0
+        while n_acc < len(draft) and int(targets[n_acc]) == draft[n_acc]:
+            n_acc += 1
+        drafted = len(draft)
+        self.spec_drafted += drafted
+        self.spec_accepted += n_acc
+        self.spec_rejected += drafted - n_acc
+        if drafted:
+            SPEC_TOKENS.labels(outcome="accepted").inc(n_acc)
+            SPEC_TOKENS.labels(outcome="rejected").inc(drafted - n_acc)
+        slot.spec.observe(drafted, n_acc)
+        toks: list[int] = []
+        finish = None
+        for tok in targets[: n_acc + 1]:
+            toks.append(int(tok))
+            finish = self._accept_token(slot, int(tok))
+            if finish is not None:
+                break
+        # the fed token and the accepted drafts are now cache state (the
+        # last emitted token's write belongs to the next dispatch)
+        slot.seq_len += len(toks)
+        # release pages past the accepted prefix: the rejected tail sits
+        # beyond seq_len (masked, overwritten later), its pages must not
+        # stay pinned
+        keep = (slot.seq_len + self.config.page_size - 1) // self.config.page_size
+        released = slot.pages.truncate(max(keep, 1))
+        if released:
+            self.allocator.release(released)
+        self._maybe_seal(slot)
+        item: dict[str, Any] = {"token_ids": toks, "finish_reason": finish}
+        if finish is not None:
+            self._finish(slot_idx, slot, finish, emit=False)
+        self._post(slot.out_q, item)
+
     # -- decode ------------------------------------------------------------
 
     def _graph_step(self, t, sampled: bool, n_logprobs: int) -> None:
@@ -1175,7 +1394,8 @@ class InferenceEngine:
             # ramp-up: short bursts get the next admission wave in sooner
             n_burst = max(1, min(n_burst, cfg.decode_steps_admit_pending))
         for i, slot in enumerate(self._slots):
-            if slot is not None and not slot.context.is_stopped:
+            if (slot is not None and not slot.context.is_stopped
+                    and not self._spec_managed(slot)):
                 # an overshooting position would index past the table
                 n_burst = max(1, min(n_burst, cfg.max_context - slot.seq_len
                                      - int(extra[i])))
@@ -1188,6 +1408,9 @@ class InferenceEngine:
                     self._finish(i, slot, "cancelled")
                 # pipelined: _step flushes before cancels; the next step
                 # finishes the slot
+                continue
+            if self._spec_managed(slot):
+                # its tokens come from the verify path (_spec_phase)
                 continue
             if slot.remaining <= extra[i]:
                 continue  # the in-flight bursts already cover its budget
@@ -1320,6 +1543,9 @@ class InferenceEngine:
                     break
             burst[i] = (toks, finish)
             slot.seq_len += len(toks)  # the fed tokens are now in the cache
+            if slot.spec is not None:
+                # a parked spec slot (k 0) counts down to its next reprobe
+                slot.spec.on_tokens(len(toks))
             self._maybe_seal(slot)
         # phase 2: stream tokens, finish slots
         for i, (toks, finish) in burst.items():

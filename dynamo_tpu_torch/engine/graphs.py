@@ -29,6 +29,12 @@ Launch counts: a kernel wrapper counts a launch made under capture as
 kernel's captured launches, and every replay adds them to the wrapper's
 ``launches``, so the counters stay true under graphs.
 
+``VerifyGraphs`` does the same for the speculative verify
+(``models/llama.verify_forward``): one graph per power-of-two row count at
+the static width ``spec_k_max + 1``, the counterpart of the JAX engine's
+verify programs, with one staged copy in and one targets copy out per
+dispatch.
+
 Graphs hold raw pointers to the KV pools and the weights: ``release()``
 drops them before either is freed.
 """
@@ -261,3 +267,136 @@ class DecodeGraphs:
         if self.cuda:
             self.replays += n_steps
         return Burst(t.out[: 1 + n_steps].clone(), B, n_steps, n_logprobs)
+
+
+def verify_row_counts(batch: int) -> list[int]:
+    """The verify grid's row counts: the powers of two up to the first one
+    that holds ``batch`` rows ({1, 2, 4, 8} at 8 decode slots), as the JAX
+    engine's precompile() compiles them."""
+    counts = [1]
+    while counts[-1] < batch:
+        counts.append(counts[-1] * 2)
+    return counts
+
+
+class VerifyGraphs:
+    """The speculative-verify grid: static device inputs for up to
+    ``verify_row_counts(batch)[-1]`` rows of ``width`` tokens (tokens
+    [R, W], block tables [R, P], start positions [R], token counts [R],
+    int32) and ``verify(tokens, block_tables, start_pos, num_tokens) ->
+    targets [n, W]`` (the family's verify bound to the model and pools)
+    captured once per row count n over the first n rows: the counterpart
+    of the JAX engine's verify programs, one per power-of-two row count at
+    the static width ``spec_k_max + 1``.
+
+    A dispatch makes one host-to-device copy from a pinned staging buffer
+    and, after the replay, one device-to-host copy of the targets into
+    pinned memory. On a CPU device the same buffers run ``verify``
+    eagerly; on a CUDA device a capture or a replay that fails raises.
+    Launch counters stay true under replay, as for ``DecodeGraphs``."""
+
+    def __init__(
+        self,
+        verify: Callable[..., torch.Tensor],
+        *,
+        batch: int,
+        width: int,
+        pages_per_seq: int,
+        device: torch.device,
+    ):
+        self.verify = verify
+        self.row_counts = verify_row_counts(batch)
+        self.width = width
+        self.device = device
+        self.cuda = device.type == "cuda"
+        R, W, P = self.row_counts[-1], width, pages_per_seq
+        sizes = {"tokens": R * W, "block_tables": R * P, "start_pos": R,
+                 "num_tokens": R}
+        self._slices: dict[str, slice] = {}
+        off = 0
+        for name, n in sizes.items():
+            self._slices[name] = slice(off, off + n)
+            off += n
+        self.flat = torch.zeros(off, dtype=torch.int32, device=device)
+        self._shapes = {"tokens": (R, W), "block_tables": (R, P),
+                        "start_pos": (R,), "num_tokens": (R,)}
+        self.targets = torch.zeros((R, W), dtype=torch.int32, device=device)
+        self._graphs: dict[int, tuple] = {}
+        self._pool = None
+        self.replays = 0
+
+    def _inputs(self, n: int) -> list[torch.Tensor]:
+        """The first ``n`` rows of each static input."""
+        return [self.flat[s].view(self._shapes[name])[:n]
+                for name, s in self._slices.items()]
+
+    def _run(self, n: int) -> None:
+        self.targets[:n].copy_(self.verify(*self._inputs(n)))
+
+    def precompile(self) -> None:
+        """Capture every row count now (a no-op on the CPU)."""
+        if self.cuda:
+            for n in self.row_counts:
+                self._graph(n)
+
+    def release(self) -> None:
+        """Drop every graph and their memory pool."""
+        self._graphs.clear()
+        self._pool = None
+
+    def _graph(self, n: int):
+        if n not in self._graphs:
+            self._graphs[n] = self._capture(n)
+        return self._graphs[n]
+
+    def _capture(self, n: int):
+        """Warm up on a side stream, then capture, both over blank inputs:
+        every row has 0 tokens, so only trash page 0 is written. Returns
+        (graph, {kernel wrapper: (launches, fp8 launches) per replay})."""
+        from dynamo_tpu_torch.ops.cuda.build import KERNELS
+
+        self.flat.zero_()
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_STEPS):
+                self._run(n)
+        cur.wait_stream(side)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        before = {fn: (fn.captured, fn.fp8_captured) for fn in KERNELS}
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pool):
+            self._run(n)
+        counts = {fn: (fn.captured - c, fn.fp8_captured - c8)
+                  for fn, (c, c8) in before.items()}
+        return graph, {fn: c for fn, c in counts.items() if c != (0, 0)}
+
+    def dispatch(self, tokens: np.ndarray, block_tables: np.ndarray,
+                 start_pos: np.ndarray, num_tokens: np.ndarray) -> HostCopy:
+        """One verify of ``n`` rows (a captured row count): host arrays
+        tokens [n, W], block_tables [n, P], start_pos [n], num_tokens [n].
+        Returns the targets' copy to the host ([n, W] int32)."""
+        n = tokens.shape[0]
+        if n not in self.row_counts or tokens.shape[1] != self.width:
+            raise ValueError(f"verify of {tuple(tokens.shape)}: rows must be one of "
+                             f"{self.row_counts}, width {self.width}")
+        if self.cuda:
+            graph, per_replay = self._graph(n)
+        staging = torch.zeros(self.flat.numel(), dtype=torch.int32,
+                              pin_memory=self.cuda)
+        host = staging.numpy()
+        for (name, s), arr in zip(self._slices.items(),
+                                  (tokens, block_tables, start_pos, num_tokens)):
+            host[s].reshape(self._shapes[name])[:n] = arr
+        self.flat.copy_(staging, non_blocking=True)
+        if self.cuda:
+            graph.replay()
+            self.replays += 1
+            for fn, (c, c8) in per_replay.items():
+                fn.launches += c
+                fn.fp8_launches += c8
+        else:
+            self._run(n)
+        return HostCopy(self.targets[:n].clone())

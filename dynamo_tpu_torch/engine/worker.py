@@ -25,9 +25,10 @@ canary-probes the worker every ``--health-interval`` seconds.
 The default router mode is "kv", as the reference's: frontends route by
 prefix overlap from this worker's KV events (kv_router/). The reference's
 flags for features the port lacks raise NotImplementedError naming their
-item: disagg (with its prefill router), KVBM, SPMD and meshes, speculative
-decoding, tenancy, multimodal. The admin ``timeline`` op, which reads the
-flight recorder, answers an error naming item 13.
+item: disagg (with its prefill router), KVBM, SPMD and meshes, tenancy,
+multimodal. ``--spec ngram`` (or ``DYN_SPEC_MODE``) turns on speculative
+decoding, with ``--spec-k-max`` and ``--spec-ngram-min/max``. The admin
+``timeline`` op, which reads the flight recorder, answers an error naming item 13.
 """
 
 from __future__ import annotations
@@ -370,11 +371,22 @@ async def graceful_drain(
     launches = {k: v - counts.get(k, 0) for k, v in launch_counts().items()}
     print("ENGINE_LAUNCHES " + json.dumps({
         "launches": launches, "steps": engine.steps - steps,
-        "replays": engine._graphs.replays - replays}), flush=True)
+        "replays": engine._graphs.replays - replays,
+        "spec": engine.spec_snapshot() if engine._spec_on else None}), flush=True)
     print(f"ENGINE_DRAINED leftover={leftover}", flush=True)
 
 
 def main(argv: list[str] | None = None) -> None:
+    args = parse_args(argv)
+    ecfg = _engine_config(args)  # unported flags raise before any set-up
+    setup_logging()
+    try:
+        asyncio.run(_amain(args, ecfg))
+    except KeyboardInterrupt:
+        pass
+
+
+def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="dynamo-tpu torch engine worker")
     p.add_argument("--hub", default=None)
     p.add_argument("--namespace", default="dynamo")
@@ -435,13 +447,7 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--coordinator-address", default=None)
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
-    args = p.parse_args(argv)
-    ecfg = _engine_config(args)  # unported flags raise before any set-up
-    setup_logging()
-    try:
-        asyncio.run(_amain(args, ecfg))
-    except KeyboardInterrupt:
-        pass
+    return p.parse_args(argv)
 
 
 if __name__ == "__main__":

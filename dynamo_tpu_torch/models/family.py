@@ -1,9 +1,9 @@
 """Model-family dispatch (counterpart of dynamo_tpu/models/family.py).
 
 The engine drives a small adapter surface (params/cache init, prefill,
-packed prefill, and the one decode step its bursts run, which its CUDA
-graphs capture) and the adapter maps it onto the family's
-functional core. This slice ports the dense GQA family only.
+packed prefill, the one decode step its bursts run and the speculative
+verify, both of which its CUDA graphs capture) and the adapter maps it
+onto the family's functional core. This slice ports the dense GQA family only.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ class GqaFamily:
     """llama-family adapter: thin passthrough to models/llama.py."""
 
     supports_logprobs = True
+    supports_spec_decode = True
 
     def __init__(self):
         from dynamo_tpu_torch.models import llama
@@ -40,6 +41,13 @@ class GqaFamily:
         return self.m.prefill_forward_batch(
             spec, params, tokens, bts, starts, k, v, ns
         )
+
+    def verify(self, spec, params, tokens, bts, starts, k, v, ntoks,
+               allowed=None):
+        """Speculative verify: targets [N, W] int32 on the device
+        (engine/graphs.py VerifyGraphs captures it)."""
+        return self.m.verify_forward(spec, params, tokens, bts, starts, k, v,
+                                     ntoks, allowed)
 
     def decode_step(self, spec, params, k, v, t, *, sampled, n_logprobs):
         """One model step over fixed tensors (engine/graphs.py captures

@@ -4,10 +4,11 @@ The counterpart of dynamo_tpu/models/llama.py for the dense GQA path.
 ``nn.Module``s hold the weights (``LlamaParams``, names and ``[in, out]``
 orientation as in the JAX pytree, so ``x @ w``); plain functions on tensors
 mirror the JAX entry points: ``prefill_forward``, ``prefill_forward_batch``,
-``decode_forward``, ``decode_steps`` and ``reference_forward``.
+``verify_forward``, ``decode_forward``, ``decode_steps`` and
+``reference_forward``.
 ``decode_steps`` loops ``decode_step_``, one model step over fixed tensors
 (``StepTensors``), which the engine's CUDA graphs capture
-(engine/graphs.py).
+(engine/graphs.py), as they capture ``verify_forward``.
 
 The KV pools ``[L, num_pages, KH, page, D]`` are updated IN PLACE by every
 forward that writes them (the JAX package's donation + aliasing). Page 0 is
@@ -32,6 +33,7 @@ from torch import nn
 
 from dynamo_tpu_torch.engine.config import ModelSpec
 from dynamo_tpu_torch.ops.attention import (
+    NEG_INF,
     causal_attention,
     decode_update_attention,
     gather_ctx,
@@ -414,6 +416,106 @@ def prefill_forward_batch(
     last = (ntok - 1).clamp(0, T - 1)
     x_last = x[torch.arange(N, device=dev), last]
     return _logits(spec, params, x_last)
+
+
+# ----------------------------------------------------------------- verify
+
+
+def verify_forward(
+    spec: ModelSpec,
+    params: LlamaParams,
+    tokens: torch.Tensor,  # [N, W] int32: [fed token, drafts...] per row
+    block_tables: torch.Tensor,  # [N, max_pages_per_seq] int32
+    start_pos: torch.Tensor,  # [N] int32: cache length before the fed token
+    k_pages,  # updated in place
+    v_pages,
+    num_tokens: torch.Tensor,  # [N] int32 valid tokens per row (0 = padded row)
+    allowed: torch.Tensor | None = None,  # [N, W, V] bool: guided masks
+) -> torch.Tensor:
+    """Speculative-verify forward: N slots' fed token + drafts in one
+    forward, with the target's greedy choice at EVERY position (the
+    engine's _spec_phase). Returns targets [N, W] int32 on the device: the
+    argmax is taken there (over ``verify_logits``, masked by ``allowed``),
+    so no [N, W, V] tensor reaches the host. Reads no device value on the
+    host, so a CUDA graph can capture it (engine/graphs.VerifyGraphs)."""
+    from dynamo_tpu_torch.engine.sampling import greedy_tokens
+
+    logits = verify_logits(spec, params, tokens, block_tables, start_pos,
+                           k_pages, v_pages, num_tokens)
+    if allowed is not None:
+        logits = torch.where(allowed, logits, NEG_INF)
+    return greedy_tokens(logits)
+
+
+def verify_logits(spec, params, tokens, block_tables, start_pos, k_pages,
+                  v_pages, num_tokens) -> torch.Tensor:
+    """The verify forward's logits [N, W, V] f32 at every position
+    (arguments as ``verify_forward``'s); writes the rows' KV in place.
+
+    It differs from prefill in two ways. KV writes are token-granular: a
+    verify starts wherever decode left off, mid-page, so each layer's N*W
+    rows go through ``kv_write`` (one launch per layer on a bf16/f32
+    pool). Its rows may share pages; the kernel stores each row directly,
+    so siblings on one page never overwrite each other. An fp8 pool's
+    append is a page read-modify-write (``quant_append_rows``), so it lands
+    one position at a time, W calls per layer, each on distinct pages.
+    Padded and invalid positions write trash page 0. Logits come at all W
+    positions, masked by ``allowed`` when given.
+
+    Rejected drafts' rows stay past the slot's post-verify length, masked
+    from attention and overwritten by the next write there."""
+    from dynamo_tpu_torch.ops.attention import batched_causal_attention
+    from dynamo_tpu_torch.ops.cuda.kv_write import kv_write
+
+    dev = k_pages.device
+    N, W = tokens.shape
+    P = block_tables.shape[1]
+    page_size = k_pages.shape[3]
+    start = start_pos.long()
+    ntok = num_tokens.long()
+    idx = torch.arange(W, device=dev)
+    positions = start[:, None] + idx[None, :]  # [N, W]
+    valid = idx[None, :] < ntok[:, None]
+    # positions past the table (padding, rows near the context cap) would
+    # gather out of range: clamp first, the result is masked anyway
+    pg_col = (positions // page_size).clamp(max=P - 1)
+    pg_raw = torch.gather(block_tables.long(), 1, pg_col)
+    safe_pg2 = torch.where(valid, pg_raw, TRASH_PAGE).to(torch.int32)  # [N, W]
+    offs2 = (positions % page_size).to(torch.int32)
+    safe_pg, offs = safe_pg2.reshape(N * W), offs2.reshape(N * W)
+    kv_len = start + ntok
+    quant = is_quant(k_pages)
+
+    x = params.embed[tokens.long()]  # [N, W, d]
+    rot = rope_tables(spec, positions)
+    KH, D = spec.num_kv_heads, spec.head_dim
+    for li, lp in enumerate(params.layers):
+        h = rms_norm(x, lp.attn_norm, spec.rms_eps)
+        q, k, v = _attn_qkv(spec, lp, h, rot)  # [N, W, heads, D]
+        if quant:
+            for w in range(W):
+                kv_write(k_pages, v_pages, k[:, w].contiguous(), v[:, w].contiguous(),
+                         safe_pg2[:, w].contiguous(), offs2[:, w].contiguous(),
+                         layer=li)
+        else:
+            kv_write(k_pages, v_pages, k.reshape(N * W, KH, D),
+                     v.reshape(N * W, KH, D), safe_pg, offs, layer=li)
+        k_ctx = gather_ctx(pool_layer(k_pages, li), block_tables)
+        v_ctx = gather_ctx(pool_layer(v_pages, li), block_tables)
+        if quant:
+            # the fed token and the drafts judge each other at full
+            # precision over the dequantized context
+            k_ctx = _overlay_rows(k_ctx, k, positions)
+            v_ctx = _overlay_rows(v_ctx, v, positions)
+        attn = batched_causal_attention(
+            q, k_ctx, v_ctx, positions, kv_len,
+            window=spec.attn_window(li), sinks=lp.get("sinks"),
+        )
+        x = x + _o_proj(spec, lp, attn.reshape(N, W, -1))
+        h = rms_norm(x, lp.mlp_norm, spec.rms_eps)
+        x = x + _mlp(lp, h)
+
+    return _logits(spec, params, x)
 
 
 # ---------------------------------------------------------------- decode

@@ -104,6 +104,37 @@ def causal_attention(
     return out.to(q.dtype)
 
 
+def batched_causal_attention(
+    q: torch.Tensor,  # [N, T, heads, D]
+    k: torch.Tensor,  # [N, S, kv_heads, D]
+    v: torch.Tensor,  # [N, S, kv_heads, D]
+    q_positions: torch.Tensor,  # [N, T]
+    kv_len: torch.Tensor,  # [N] valid kv tokens per row (a device tensor)
+    *,
+    window: int = 0,
+    sinks: torch.Tensor | None = None,  # [H]
+) -> torch.Tensor:
+    """``causal_attention`` over N rows at once, each with its own context
+    and length (the reference vmaps it). Query heads are grouped over their
+    KV head instead of repeating K/V, and every length is a device tensor,
+    so a CUDA graph can capture it. Returns [N, T, heads, D]."""
+    N, T, H, D = q.shape
+    S, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    scale = 1.0 / math.sqrt(D)
+    qg = q.float().reshape(N, T, KH, G, D)
+    logits = torch.einsum("ntkgd,nskd->nkgts", qg, k.float()) * scale
+    kv_pos = torch.arange(S, device=q.device)[None, None, :]
+    pos = q_positions[:, :, None]
+    mask = (kv_pos <= pos) & (kv_pos < kv_len.reshape(N, 1, 1))
+    if window:
+        mask &= kv_pos > pos - window
+    logits = torch.where(mask[:, None], logits.reshape(N, H, T, S), NEG_INF)
+    probs = _softmax_with_sinks(logits, sinks, H).reshape(N, KH, G, T, S)
+    out = torch.einsum("nkgts,nskd->ntkgd", probs, v.float())
+    return out.reshape(N, T, H, D).to(q.dtype)
+
+
 def _softmax_with_sinks(
     logits: torch.Tensor, sinks: torch.Tensor | None, H: int
 ) -> torch.Tensor:

@@ -312,16 +312,27 @@ _UNPORTED_VALUES = {
 }
 
 
+# fields that were refused until their feature was ported: they now build
+# with the value (speculative decoding: Queue A item 6)
+_PORTED_SINCE = ("spec_mode", "spec_k_max", "spec_ngram_min", "spec_ngram_max",
+                 "spec_ewma_alpha", "spec_reprobe_tokens")
+
+
 @pytest.mark.parametrize("field", list(_UNPORTED_VALUES))
 def test_config_refuses_fields_of_unported_features(field):
     """A value the reference engine honours for a feature the port lacks
     raises NotImplementedError naming the ROADMAP item, instead of running
-    a different engine without a word."""
+    a different engine without a word. The fields of a feature ported since
+    build and keep the value, as the reference's config does."""
     from dynamo_tpu_torch.engine.config import UNPORTED
 
     value = _UNPORTED_VALUES[field]
-    assert set(_UNPORTED_VALUES) == set(UNPORTED)
+    assert set(_UNPORTED_VALUES) == set(UNPORTED) | set(_PORTED_SINCE)
+    assert not set(UNPORTED) & set(_PORTED_SINCE)
     assert getattr(JaxEngineConfig(**{field: value}), field) is not None
+    if field in _PORTED_SINCE:
+        assert getattr(EngineConfig(**{field: value}), field) == value
+        return
     with pytest.raises(NotImplementedError, match=r"ROADMAP Queue A item \d+"):
         EngineConfig(**{field: value})
 

@@ -397,8 +397,9 @@ _REFUSED_FLAGS = {
     "ep": (["--ep", "2"], "item 11"),
     "mirror": (["--mirror", "leader"], "item 11"),
     "coordinator": (["--coordinator-address", "h:1"], "item 11"),
-    "spec": (["--spec", "ngram"], "item 6"),
-    "spec-k-max": (["--spec-k-max", "4"], "item 6"),
+    # ported since (speculative decoding): these build their config
+    "spec": (["--spec", "ngram"], None),
+    "spec-k-max": (["--spec-k-max", "4"], None),
     "tenant-quotas": (["--tenant-quotas", "a:weight=2"], "item 5"),
     "max-waiting": (["--max-waiting", "8"], "item 5"),
     "no-preemption": (["--no-preemption"], "item 5"),
@@ -412,10 +413,17 @@ _REFUSED_FLAGS = {
 @pytest.mark.parametrize("case", list(_REFUSED_FLAGS))
 def test_worker_flags_of_unported_features_raise(case):
     """The JAX worker's flags for features the port lacks raise
-    NotImplementedError naming their ROADMAP item, before any set-up."""
+    NotImplementedError naming their ROADMAP item, before any set-up. The
+    flags of a feature ported since build the worker's engine config."""
     from dynamo_tpu_torch import cli
+    from dynamo_tpu_torch.engine.worker import _engine_config, parse_args
 
     flags, item = _REFUSED_FLAGS[case]
+    if item is None:
+        cfg = _engine_config(parse_args(["--device", "cpu", *flags]))
+        assert cfg.spec_mode == ("ngram" if "--spec" in flags else "off")
+        assert cfg.spec_k_max == (4 if "--spec-k-max" in flags else 8)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue A {item}"):
         cli.main(["worker", "--hub", "127.0.0.1:1", "--device", "cpu", *flags])
 
