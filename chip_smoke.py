@@ -188,6 +188,28 @@ Phases, each of which must pass (any failure exits non-zero):
    streams equal spec-off's, kv_write never launched. Prints verifies,
    drafts, acceptance, tokens per verify dispatch and row, tok/s on and
    off, and the host wall per verify dispatch.
+13. overload (run after phase 12 and before phase 9, on the phase-4
+   weights): (a) slot pressure, on a pipelined engine (depth 2, bursts of
+   4, phase 4's config) with preemption on, then on one with it off: the 8
+   prompts of phase 4 as batch-class requests of tenant "bt"
+   (OVERLOAD_BATCH_TOKENS tokens, ignore_eos); once every one holds a slot
+   with its first token, OVERLOAD_INTERACTIVE interactive requests
+   (seeded prompts of 64..128 tokens, OVERLOAD_INTERACTIVE_TOKENS tokens)
+   OVERLOAD_GAP_S apart. Gates: every stream ends "length" with its count;
+   at least one interactive_admission preemption with preemption on, none
+   off; interactive TTFT lower on than off (means); every batch stream
+   near-argmax under the reference forward and equal to its preemption-off
+   run up to its first reference near-tie; interactive streams
+   near-argmax; 0 active pages after; fused_decode once per layer and
+   step. Prints interactive TTFT mean and max both ways, batch tok/s,
+   preemptions by reason and admission_rejects. (b) page pressure: a
+   pipelined engine with an OVERLOAD_PAGES-page pool, which two batch
+   streams of OVERLOAD_PAGE_PROMPT + OVERLOAD_PAGE_TOKENS tokens exhaust;
+   then one interactive request, which must complete near-argmax through
+   an interactive_pages preemption; both batch streams end "length", 0
+   active pages after. (c) quota: on that engine, tenant "q" with
+   OVERLOAD_QUOTA: its second request must raise OverQuota with a positive
+   Retry-After, counted in admission_rejects.
 
 Prints, before the last line, the card line and one JSON object with every
 kernel's measurements; the last line is
@@ -277,6 +299,20 @@ SPEC_SEED = 909
 SPEC_TOKENS = 64
 SPEC_SHORT = 50
 SPEC_SCALES = (1.0, 4.0, 16.0, 64.0, 256.0)  # input-embedding scales tried, smallest first
+# phase 13 (overload): the 8 prompts of phase 4 as batch-class requests of
+# OVERLOAD_BATCH_TOKENS tokens (tenant "bt"), then OVERLOAD_INTERACTIVE
+# interactive requests of OVERLOAD_INTERACTIVE_TOKENS, OVERLOAD_GAP_S apart;
+# the page-pressure cell's pool holds OVERLOAD_PAGES pages, which two batch
+# streams of OVERLOAD_PAGE_PROMPT + OVERLOAD_PAGE_TOKENS tokens exhaust
+OVERLOAD_BATCH_TOKENS = 192
+OVERLOAD_INTERACTIVE = 4
+OVERLOAD_INTERACTIVE_TOKENS = 32
+OVERLOAD_GAP_S = 0.05
+OVERLOAD_SEED = 1313
+OVERLOAD_PAGES = 100
+OVERLOAD_PAGE_PROMPT = 768
+OVERLOAD_PAGE_TOKENS = 200
+OVERLOAD_QUOTA = "q:rate=10,burst=60"  # the quota cell's tenant
 
 
 class SmokeError(RuntimeError):
@@ -1596,10 +1632,28 @@ def spec_report(res, reqs, label, L) -> dict:
             "kv_write": on["counts"]["kv_write"]}
 
 
+def equal_to_first_near_tie(spec, params, prompt, got, want) -> tuple[int, int]:
+    """Two greedy streams of ``prompt`` served different ways: both
+    near-argmax under the reference forward; returns (the first position
+    where they differ, the first position of ``got`` whose reference top-2
+    gap is under NEAR_ARGMAX), each len(got) when there is none. The
+    streams may only part at or after a near-tie."""
+    from dynamo_tpu_torch.models import llama
+
+    near_argmax_check(spec, params, prompt, got)
+    near_argmax_check(spec, params, prompt, want)
+    seq = torch.tensor(prompt + got[:-1], device=DEVICE)
+    with torch.no_grad():
+        top2 = llama.reference_forward(spec, params, seq)[len(prompt) - 1:].topk(2, dim=-1).values
+    gaps = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    tie = int(np.argmax(gaps < NEAR_ARGMAX)) if (gaps < NEAR_ARGMAX).any() else len(gaps)
+    same = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), len(got))
+    return same, tie
+
+
 def spec_phase(spec, cfg, params, flush) -> tuple[dict, int]:
     """Phase 12: speculative decoding. Returns (kv_write's verify-shape
     measurements, kv_write launches on the spec path)."""
-    from dynamo_tpu_torch.models import llama
     from dynamo_tpu_torch.runtime.faults import FAULTS
 
     L = spec.num_layers
@@ -1619,14 +1673,7 @@ def spec_phase(spec, cfg, params, flush) -> tuple[dict, int]:
     off = spec_streams(res["off"]["serve"], reqs)
     agree = []
     for i, p in enumerate(prompts):
-        near_argmax_check(spec, params, p, on[i])
-        near_argmax_check(spec, params, p, off[i])
-        seq = torch.tensor(p + on[i][:-1], device=DEVICE)
-        with torch.no_grad():
-            top2 = llama.reference_forward(spec, params, seq)[len(p) - 1:].topk(2, dim=-1).values
-        gaps = (top2[:, 0] - top2[:, 1]).cpu().numpy()
-        tie = int(np.argmax(gaps < NEAR_ARGMAX)) if (gaps < NEAR_ARGMAX).any() else len(gaps)
-        same = next((j for j, (a, b) in enumerate(zip(on[i], off[i])) if a != b), len(on[i]))
+        same, tie = equal_to_first_near_tie(spec, params, p, on[i], off[i])
         require(same >= tie, f"spec random request {i}: spec on and off part at token "
                              f"{same}, before the first reference near-tie at {tie}")
         agree.append((same, tie))
@@ -1682,6 +1729,202 @@ def spec_phase(spec, cfg, params, flush) -> tuple[dict, int]:
     del pparams
     torch.cuda.empty_cache()
     return kv_res, c["kv_write"] + d["kv_write"]
+
+
+# ------------------------------------------------------------ overload
+
+
+def overload_prompts(vocab: int):
+    rng = np.random.default_rng(OVERLOAD_SEED)
+    inter = [rng.integers(3, vocab, int(n)).tolist()
+             for n in rng.integers(64, 129, OVERLOAD_INTERACTIVE)]
+    pages = [rng.integers(3, vocab, OVERLOAD_PAGE_PROMPT).tolist() for _ in range(2)]
+    return inter, pages
+
+
+async def tenant_stream(engine, req, tenant, priority, t0):
+    """One request under ``tenant`` / ``priority`` headers: (items, seconds
+    from its submit to its first token, seconds from ``t0`` to its end)."""
+    from dynamo_tpu_torch.runtime.context import PRIORITY_HEADER, TENANT_HEADER, Context
+
+    t_sub = time.perf_counter()
+    items, first = [], None
+    ctx = Context(headers={TENANT_HEADER: tenant, PRIORITY_HEADER: priority})
+    async for item in engine.generate(req, ctx):
+        if item["token_ids"] and first is None:
+            first = time.perf_counter() - t_sub
+        items.append(item)
+    return items, first, time.perf_counter() - t0
+
+
+def stream_tokens(items, n, what) -> list[int]:
+    toks = [t for x in items for t in x["token_ids"]]
+    require(items[-1]["finish_reason"] == "length" and len(toks) == n,
+            f"{what}: {len(toks)} tokens of {n}, finish {items[-1]['finish_reason']}")
+    return toks
+
+
+def overload_slot_cell(spec, cfg, params, prompts, inter, preemption: bool) -> dict:
+    """Slot pressure: the 8 batch requests fill every slot, then the
+    interactive arrivals, OVERLOAD_GAP_S apart, on a pipelined engine with
+    ``preemption`` on or off. Returns the drive's phase output."""
+
+    async def drive(engine):
+        t0 = time.perf_counter()
+        batch = [asyncio.ensure_future(tenant_stream(
+            engine, make_request(p, OVERLOAD_BATCH_TOKENS), "bt", "batch", t0))
+            for p in prompts]
+        # every batch stream holds a slot and has its first token
+        while (sum(s is not None and not s.first_pending for s in engine._slots)
+               < len(prompts)):
+            require(not any(b.done() for b in batch), "a batch stream ended before "
+                                                      "all 8 held a slot")
+            await asyncio.sleep(0.002)
+        t_inter = time.perf_counter()
+        interactive = []
+        for p in inter:
+            interactive.append(asyncio.ensure_future(tenant_stream(
+                engine, make_request(p, OVERLOAD_INTERACTIVE_TOKENS), "it",
+                "interactive", t0)))
+            await asyncio.sleep(OVERLOAD_GAP_S)
+        b_out = await asyncio.gather(*batch)
+        i_out = await asyncio.gather(*interactive)
+        return {"batch": b_out, "inter": i_out, "t_inter": t_inter - t0,
+                "preemptions": dict(engine.preemptions),
+                "rejects": dict(engine.admission_rejects),
+                "active_pages": engine.allocator.active_pages}
+
+    label = f"overload preemption {'on' if preemption else 'off'}"
+    engine = new_engine(spec, dict(cfg, kv_dtype="bf16", pipeline_decode=True,
+                                   pipeline_depth=2, decode_steps_per_dispatch=4,
+                                   preemption=preemption), label, params=params)
+    out = serve_phases(engine, [("slots", drive)])["slots"]
+    drop_engine(engine)
+    return out
+
+
+def overload_phase(spec, cfg, params, prompts) -> int:
+    """Phase 13: the overload plane on the phase-4 weights. Returns the
+    fused_decode launches of its drives."""
+    L = spec.num_layers
+    inter, page_prompts = overload_prompts(spec.vocab_size)
+    cells = {on: overload_slot_cell(spec, cfg, params, prompts, inter, on)
+             for on in (True, False)}
+    launches = 0
+    streams = {}
+    for on, out in cells.items():
+        label = f"overload preemption {'on' if on else 'off'}"
+        counts, steps = out["counts"], out["steps"]
+        require(counts["fused_decode"] == L * steps == L * out["replays"],
+                f"{label}: fused_decode {counts['fused_decode']} over {steps} steps")
+        launches += counts["fused_decode"]
+        res = out["res"]
+        b = [stream_tokens(items, OVERLOAD_BATCH_TOKENS, f"{label} batch {i}")
+             for i, (items, _f, _e) in enumerate(res["batch"])]
+        it = [stream_tokens(items, OVERLOAD_INTERACTIVE_TOKENS, f"{label} interactive {i}")
+              for i, (items, _f, _e) in enumerate(res["inter"])]
+        require(res["active_pages"] == 0, f"{label}: {res['active_pages']} pages held "
+                                          "after every stream ended")
+        ttft = [f for _i, f, _e in res["inter"]]
+        b_end = max(e for _i, _f, e in res["batch"])
+        n_batch = len(b) * OVERLOAD_BATCH_TOKENS
+        streams[on] = {"batch": b, "inter": it, "ttft": ttft}
+        print(f"{label}: interactive TTFT mean {1e3 * sum(ttft) / len(ttft):.1f} ms, max "
+              f"{1e3 * max(ttft):.1f} ms ({len(ttft)} requests of "
+              f"{OVERLOAD_INTERACTIVE_TOKENS} tokens, {1e3 * OVERLOAD_GAP_S:.0f} ms apart, "
+              f"the first {1e3 * res['t_inter']:.0f} ms after the batch submits); batch "
+              f"{n_batch} tokens in {b_end:.3f} s = {n_batch / b_end:.1f} tok/s; "
+              f"preemptions {res['preemptions']}; admission_rejects {res['rejects']}; "
+              f"{steps} decode steps, fused_decode {counts['fused_decode']}")
+    on, off = cells[True]["res"], cells[False]["res"]
+    require(on["preemptions"].get("interactive_admission", 0) >= 1,
+            f"overload: no interactive_admission preemption ({on['preemptions']})")
+    require(off["preemptions"] == {}, f"overload off: preemptions {off['preemptions']}")
+    mean = {k: sum(v["ttft"]) / len(v["ttft"]) for k, v in streams.items()}
+    require(mean[True] < mean[False], f"overload: interactive TTFT {mean[True]:.3f} s "
+                                      f"with preemption, {mean[False]:.3f} s without")
+    agree = []
+    for i, p in enumerate(prompts):
+        same, tie = equal_to_first_near_tie(spec, params, p, streams[True]["batch"][i],
+                                            streams[False]["batch"][i])
+        require(same >= tie, f"overload batch {i}: the preemption-on stream parts from "
+                             f"the preemption-off one at token {same}, before the first "
+                             f"reference near-tie at {tie}")
+        agree.append((same, tie))
+    for i, p in enumerate(inter):
+        near_argmax_check(spec, params, p, streams[True]["inter"][i])
+    print(f"overload: interactive TTFT {mean[True] / mean[False]:.3f}x with preemption; "
+          f"batch streams near-argmax, preemption on = off up to (first difference, first "
+          f"near-tie) {agree}; interactive streams near-argmax; 0 active pages after")
+
+    # page pressure, then the quota cell, on one small-pool engine
+    async def page_cell(engine):
+        t0 = time.perf_counter()
+        batch = [asyncio.ensure_future(tenant_stream(
+            engine, make_request(p, OVERLOAD_PAGE_TOKENS), "bt", "batch", t0))
+            for p in page_prompts]
+        while engine.allocator.available() > 0:
+            require(not any(b.done() for b in batch), "a batch stream ended before the "
+                                                      "pool ran out")
+            await asyncio.sleep(0.002)
+        t_full = time.perf_counter() - t0
+        items, first, _end = await tenant_stream(
+            engine, make_request(inter[0], OVERLOAD_INTERACTIVE_TOKENS), "it",
+            "interactive", t0)
+        b_out = await asyncio.gather(*batch)
+        return {"batch": b_out, "inter": items, "ttft": first, "t_full": t_full,
+                "preemptions": dict(engine.preemptions),
+                "active_pages": engine.allocator.active_pages}
+
+    async def quota_cell(engine):
+        from dynamo_tpu_torch.runtime.context import OverQuota
+
+        t0 = time.perf_counter()
+        req = make_request(inter[1][:32], 8)
+        first, _f, _e = await tenant_stream(engine, req, "q", "batch", t0)
+        try:
+            await tenant_stream(engine, req, "q", "batch", t0)
+        except OverQuota as e:
+            return {"first": first, "error": str(e), "retry": e.retry_after_s,
+                    "rejects": dict(engine.admission_rejects)}
+        raise SmokeError(f"quota: the second request of tenant q ({OVERLOAD_QUOTA}) "
+                         "was not refused")
+
+    engine = new_engine(spec, dict(cfg, kv_dtype="bf16", pipeline_decode=True,
+                                   pipeline_depth=2, decode_steps_per_dispatch=4,
+                                   num_pages=OVERLOAD_PAGES, tenants=OVERLOAD_QUOTA),
+                        "overload pages", params=params)
+    out = serve_phases(engine, [("pages", page_cell), ("quota", quota_cell)])
+    drop_engine(engine)
+    del engine
+    for name in ("pages", "quota"):
+        counts, steps = out[name]["counts"], out[name]["steps"]
+        require(counts["fused_decode"] == L * steps == L * out[name]["replays"],
+                f"overload {name}: fused_decode {counts['fused_decode']} over {steps} steps")
+        launches += counts["fused_decode"]
+    pg = out["pages"]["res"]
+    for i, (items, _f, _e) in enumerate(pg["batch"]):
+        stream_tokens(items, OVERLOAD_PAGE_TOKENS, f"overload pages batch {i}")
+    toks = stream_tokens(pg["inter"], OVERLOAD_INTERACTIVE_TOKENS, "overload pages interactive")
+    near_argmax_check(spec, params, inter[0], toks)
+    require(pg["preemptions"].get("interactive_pages", 0) >= 1,
+            f"overload pages: no interactive_pages preemption ({pg['preemptions']})")
+    require(pg["active_pages"] == 0, f"overload pages: {pg['active_pages']} pages held "
+                                     "after every stream ended")
+    print(f"overload pages: {OVERLOAD_PAGES}-page pool exhausted by 2 batch streams "
+          f"({OVERLOAD_PAGE_PROMPT} + {OVERLOAD_PAGE_TOKENS} tokens) after "
+          f"{1e3 * pg['t_full']:.0f} ms; the interactive request completed "
+          f"({OVERLOAD_INTERACTIVE_TOKENS} tokens, near-argmax, TTFT "
+          f"{1e3 * pg['ttft']:.1f} ms); preemptions {pg['preemptions']}; both batch streams "
+          f"ended 'length'; 0 active pages after; fused_decode "
+          f"{out['pages']['counts']['fused_decode']}")
+    q = out["quota"]["res"]
+    stream_tokens(q["first"], 8, "overload quota first request")
+    require(q["retry"] > 0 and q["rejects"]["over_quota"] == 1,
+            f"overload quota: Retry-After {q['retry']}, rejects {q['rejects']}")
+    print(f"overload quota ({OVERLOAD_QUOTA}): the second request refused: {q['error']}; "
+          f"Retry-After {q['retry']:.3f} s; admission_rejects {q['rejects']}")
+    return launches
 
 
 # ------------------------------------------------------------ HTTP serving
@@ -3015,6 +3258,9 @@ def main() -> int:
     kernels["kv_write/verify"], spec_kv_launches = spec_phase(spec, cfg, params, flush)
     del flush
 
+    # the overload plane on the same weights: priority, preemption, quotas
+    overload_launches = overload_phase(spec, cfg, params, prompts)
+
     # the same weights served over HTTP by the one-process stack
     http_launches, http_stats = http_serve(spec, dict(cfg, kv_dtype="bf16"), params,
                                            prompts, default_out, bf16_tokens)
@@ -3026,7 +3272,7 @@ def main() -> int:
     process_launches = process_phase(spec, cfg, prompts, bf16_tokens, http_stats)
 
     launches = {"fused_decode": serve_launches["fused_decode"] + http_launches
-                + process_launches,
+                + process_launches + overload_launches,
                 "paged_attention_v3": unfused[0], "kv_write": unfused[2],
                 "kv_write/verify": spec_kv_launches,
                 "fused_decode/fp8": serve_fp8["fused_decode/fp8"],

@@ -302,15 +302,34 @@ class EngineConfig:
     spec_ewma_alpha: float = 0.5  # acceptance-rate EWMA weight
     spec_reprobe_tokens: int = 64  # parked-slot tokens between k=1 probes
 
+    # admission queue bound: a request arriving with this many already
+    # waiting is refused with ServiceUnavailable (-> migration re-drives
+    # on another worker, or HTTP 503 + Retry-After when none can take it),
+    # unless a LOWER-priority waiting entry can be shed in its place
+    # (engine/tenancy.py shed policy: lowest priority class, most-over-
+    # quota tenant, newest entry). The 503's Retry-After derives from live
+    # queue depth x recent step time. 0 = off.
+    max_waiting: int = 0
+    # per-tenant fairness + quotas (engine/tenancy.py): quota spec string
+    # ("tenantA:weight=4,rate=1000,burst=2000;*:rate=200") or an already
+    # parsed {tenant: TenantQuota} dict. "" = consult DYN_TENANT_QUOTAS,
+    # default unmetered equal-weight tenants (the weighted-fair queue
+    # still applies; buckets are wide open).
+    tenants: str | dict = ""
+    # priority preemption: when an interactive request cannot admit (no
+    # free slot, or the prompt cannot get pages), pause a BATCH stream
+    # (over-quota tenants first, newest admission first). Its complete
+    # blocks seal into the prefix cache, its slot and pages free, and it
+    # re-enqueues prompt + generated for a transparent resume by
+    # re-prefill. False = interactive waits like everyone else.
+    preemption: bool = True
+
     # -- JAX engine only, until their slices are ported (see UNPORTED) ------
     tp: int = 1
     dp: int = 1
     sp: int = 1
     ep: int = 1
     pp: int = 1
-    max_waiting: int = 0
-    tenants: str | dict = ""
-    preemption: bool = True
     guided_mode: str = "auto"  # "auto" | "off"
     guided_cache_entries: int = 32
     profile: bool = False
@@ -326,16 +345,15 @@ class EngineConfig:
         defaults = _UNPORTED_DEFAULTS
         for name, item in UNPORTED.items():
             value = getattr(self, name)
-            if name == "tenants":
-                value = value or ""  # {} is the reference's parsed "": unmetered
             if value != defaults[name]:
                 raise NotImplementedError(
                     f"EngineConfig.{name}={value!r}: the port's engine does not "
                     f"have {item}; only the default {defaults[name]!r} is served")
-        if os.environ.get("DYN_TENANT_QUOTAS"):
-            raise NotImplementedError(
-                f"DYN_TENANT_QUOTAS is set: the port's engine does not have "
-                f"{UNPORTED['tenants']}")
+        if isinstance(self.tenants, str):
+            from dynamo_tpu_torch.engine.tenancy import parse_tenant_quotas
+
+            spec = self.tenants or os.environ.get("DYN_TENANT_QUOTAS", "")
+            self.tenants = parse_tenant_quotas(spec)
         if self.guided_mode not in ("auto", "off"):
             raise ValueError(f"guided_mode {self.guided_mode!r} (auto | off)")
 
@@ -353,14 +371,12 @@ class EngineConfig:
         )
 
 
-_OVERLOAD = "tenancy, quotas, admission bounds and preemption (ROADMAP Queue A item 5)"
 _PARALLEL = "parallelism (ROADMAP Queue A item 11)"
 # fields of features the port's engine lacks -> what is missing. guided_mode
 # is not here: the engine refuses guided requests itself, as the reference
 # engine with guided_mode="off" does, so "auto" and "off" serve alike
 UNPORTED = {
     "tp": _PARALLEL, "dp": _PARALLEL, "sp": _PARALLEL, "ep": _PARALLEL, "pp": _PARALLEL,
-    "max_waiting": _OVERLOAD, "tenants": _OVERLOAD, "preemption": _OVERLOAD,
     "guided_cache_entries": "guided decoding (ROADMAP Queue A item 7)",
     "profile": "the step-phase profiler (ROADMAP Queue A item 13)",
 }

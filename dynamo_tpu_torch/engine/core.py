@@ -3,8 +3,9 @@
 The counterpart of dynamo_tpu/engine/core.py, written for this package and
 reduced to the serving core. One dedicated step THREAD owns the device:
 
-  admit (FIFO, into free slots) -> packed prefill + first-token sample
-        -> decode bursts over all active slots -> stream tokens
+  admit (by priority class and tenant, into free slots) -> packed prefill
+        + first-token sample -> decode bursts over all active slots
+        -> stream tokens
 
 Prefix caching is page-granular and keyed by the sequence-hash chain of
 tokens.py. Completed requests' sealed pages stay cached (evictable LRU).
@@ -33,6 +34,23 @@ captured graph per power-of-two row count), landing 1..k+1 tokens each,
 while every other slot takes the decode burst. The stream equals
 spec-off's at temperature 0.
 
+Admission is the reference's overload plane (engine/tenancy.py): the
+waiting queue is a ``TenantScheduler`` that serves the interactive class
+first and shares each class between tenants by weighted fair queueing,
+charges each request's token cost (prompt + decode budget) to its tenant's
+token bucket (``OverQuota``, HTTP 429, when it cannot pay), bounds the
+queue at ``max_waiting`` (shedding a lower-priority entry in a
+higher-priority arrival's favour, else ``ServiceUnavailable``), and, with
+``preemption``, pauses the newest batch stream for an interactive request
+that finds no free slot or no free pages. A paused stream re-enqueues
+prompt + generated with its seed pinned and resumes by re-prefill through
+the prefix cache (the reference also offloads its blocks to the KVBM host
+tier, which this package does not have yet). Tenant and priority come from
+the ``x-dyn-tenant`` / ``x-dyn-priority`` headers of the Context, or the
+request's ``tenant`` / ``priority`` fields. A resume prompt stamped with
+``token_checksum`` by the migration operator is verified at intake
+(``IntegrityError``, a StreamError, on a mismatch).
+
 ``generate(request, context)`` is the AsyncEngine surface: it yields
 ``{"token_ids": [...]}`` deltas (plus ``"logprobs"`` entries when asked)
 and ends with an item whose ``finish_reason`` is ``stop``, ``length``,
@@ -42,13 +60,13 @@ ignore_eos, stop_token_ids, min_tokens); ``eos_token_ids``;
 ``output_options.logprobs`` (the sampled token's logprob plus the top N,
 N clamped to 20).
 
-Not in this engine yet (see ROADMAP): tenancy and quotas, preemption,
-guided decoding (a request marked ``guided`` is refused
-with a typed ``invalid_request`` error item, as the reference engine with
-guided decoding off does), KVBM and disagg, migration resume, SPMD/meshes,
-multimodal, embeddings, telemetry and tracing, the fault sites other than
-``engine.spec_verify``, the MoE dropped-slot
-count (``moe_dropped_slots`` publishes 0: no MoE family yet).
+Not in this engine yet (see ROADMAP): guided decoding (a request marked
+``guided`` is refused with a typed ``invalid_request`` error item, as the
+reference engine with guided decoding off does), KVBM and disagg,
+SPMD/meshes, multimodal, embeddings, telemetry and tracing, the fault
+sites other than ``engine.spec_verify``, ``engine.preempt`` and the
+``migration.resume`` corrupt site, the MoE dropped-slot count
+(``moe_dropped_slots`` publishes 0: no MoE family yet).
 """
 
 from __future__ import annotations
@@ -56,6 +74,7 @@ from __future__ import annotations
 import asyncio
 import collections
 import logging
+import queue
 import threading
 import time
 from dataclasses import dataclass
@@ -73,15 +92,21 @@ from dynamo_tpu_torch.engine.sampling import (
     token_logprobs,
 )
 from dynamo_tpu_torch.engine.spec import SPEC_TOKENS, SlotSpec
+from dynamo_tpu_torch.engine.tenancy import TenantScheduler
 from dynamo_tpu_torch.kv_router.protocols import ForwardPassMetrics
 from dynamo_tpu_torch.models.family import get_family
 from dynamo_tpu_torch.models.llama import resolve_device
 from dynamo_tpu_torch.runtime.context import (
+    PRIORITY_HEADER,
+    TENANT_HEADER,
     Context,
     DeadlineExceeded,
+    OverQuota,
     ServiceUnavailable,
+    tenancy_from_headers,
 )
 from dynamo_tpu_torch.runtime.faults import FAULTS, FaultDrop, FaultInjected
+from dynamo_tpu_torch.runtime.integrity import verify_resume_tokens
 from dynamo_tpu_torch.tokens import TokenBlockSequence
 
 log = logging.getLogger("dynamo_tpu_torch.engine")
@@ -115,6 +140,12 @@ class _Slot:
     # feeds the next decode burst there); its host value lands later
     first_pending: bool = False
     spec: SlotSpec | None = None  # speculative decoding state (greedy slots)
+    # tenancy (engine/tenancy.py): who this stream belongs to, its priority
+    # class, and the request dict a preemption rebuilds its resume from
+    tenant: str = "default"
+    priority: str = "interactive"
+    request: dict[str, Any] | None = None
+    admitted_seq: int = 0  # monotonic admission order (preempt newest first)
 
 
 @dataclass
@@ -122,6 +153,18 @@ class _Waiting:
     request: dict[str, Any]
     context: Context
     out_q: asyncio.Queue
+    # perf_counter at enqueue: the admit-wait start the reference's step
+    # profiler reads (ROADMAP Queue A item 13)
+    enq_t: float = 0.0
+    # the TenantScheduler's keys: the class picks the lane group, the
+    # tenant the lane, the cost the weighted-fair vtime advance
+    tenant: str = "default"
+    priority: str = "interactive"
+    cost: float = 1.0
+    # True when generate() charged the tenant's bucket: a zero-service
+    # bounce refunds only charged entries (preemption resumes re-enter
+    # uncharged)
+    charged: bool = False
     page_stalls: int = 0  # admission passes bounced on OutOfPages
 
 
@@ -157,7 +200,7 @@ class _Admitted:
     pre: tuple | None = None
 
 
-_REQUEUED = object()  # _prefill sentinel: entry went back to the queue head
+_REQUEUED = object()  # _prefill sentinel: entry went back to its lane head
 
 
 class InferenceEngine:
@@ -205,9 +248,19 @@ class InferenceEngine:
             on_store=self._on_store, on_evict=self._on_evict,
         )
         self._slots: list[_Slot | None] = [None] * cfg.max_decode_slots
-        # FIFO admission queue: the event loop appends, only the step
-        # thread pops (deque ends are thread-safe)
-        self._waiting: collections.deque[_Waiting] = collections.deque()
+        # fair admission (engine/tenancy.py): weighted-fair tenant lanes in
+        # two priority classes plus token buckets. The event loop enqueues
+        # and sheds, the step thread dequeues; one lock inside covers both
+        self._waiting = TenantScheduler(
+            cfg.tenants if isinstance(cfg.tenants, dict) else None)
+        # paused batch streams by reason (interactive_admission,
+        # interactive_pages)
+        self.preemptions: dict[str, int] = {}
+        self._admit_seq = 0  # monotonic admission order for victim ranking
+        self.admission_rejects = {
+            "draining": 0, "saturated": 0, "deadline": 0,
+            "over_quota": 0, "shed": 0,
+        }
         self._seed_counter = cfg.seed
         self._thread: threading.Thread | None = None
         self._loop: asyncio.AbstractEventLoop | None = None
@@ -259,6 +312,9 @@ class InferenceEngine:
         # wall seconds per decode dispatch, host clock from the dispatch to
         # its sampled tokens on the host
         self.decode_step_times: collections.deque = collections.deque(maxlen=4096)
+        # wall seconds per step-loop cycle that did work: the saturation
+        # Retry-After's step-time samples
+        self.step_times: collections.deque = collections.deque(maxlen=4096)
         # rolling wall-clock latency of a step that did work, in ms (0 = not
         # measured yet): published in ForwardPassMetrics as the worker's
         # degradation fingerprint
@@ -348,11 +404,38 @@ class InferenceEngine:
             return 1.0
         return min(max(self._drain_deadline - time.monotonic(), 1.0), 60.0)
 
+    def _saturation_retry_after(self) -> float:
+        """Retry-After for saturation bounces and sheds, from live state:
+        queue depth x recent mean step time / slot count estimates how long
+        until the backlog drains a slot's worth of work. Clamped to
+        [0.25, 30] so a cold engine (no step samples yet) still gives a
+        sane hint."""
+        depth = self._waiting.qsize()
+        samples = list(self.step_times)[-64:]
+        mean_step = (sum(samples) / len(samples)) if samples else 0.05
+        est = depth * mean_step / max(len(self._slots), 1)
+        return min(max(est, 0.25), 30.0)
+
+    def _request_tenancy(
+        self, request: dict[str, Any], context: Context
+    ) -> tuple[str, str]:
+        """(tenant, priority) for one request: the validated wire headers
+        first (the frontend stamped them into Context.headers), the request
+        dict's fields as the direct caller's fallback. Past the scheduler's
+        dynamic-tenant cap, fresh tenant ids share the overflow tenant."""
+        tenant, priority = tenancy_from_headers(context.headers)
+        if TENANT_HEADER not in context.headers and request.get("tenant"):
+            tenant = str(request["tenant"])
+        if (PRIORITY_HEADER not in context.headers
+                and request.get("priority") in ("interactive", "batch")):
+            priority = str(request["priority"])
+        return self._waiting.resolve(tenant), priority
+
     def inflight(self) -> int:
         """Admitted-but-unfinished work (the drain-completion signal)."""
         return (
             sum(s is not None for s in self._slots)
-            + len(self._waiting)
+            + self._waiting.qsize()
             + (1 if self._partial is not None else 0)
         )
 
@@ -364,17 +447,34 @@ class InferenceEngine:
             yield {"token_ids": [], "finish_reason": "error",
                    "error": "engine closed"}
             return
+        tenant, priority = self._request_tenancy(request, context)
         if self._draining:
             # typed refusal: it crosses the transport as a retryable,
             # 503-mappable error (another worker may accept)
+            self.admission_rejects["draining"] += 1
             raise ServiceUnavailable(
                 "worker draining", retry_after_s=self._drain_retry_after()
             )
+        max_waiting = self.config.max_waiting
+        if (max_waiting and self._waiting.qsize() >= max_waiting
+                and not self._waiting.sheddable_below(priority)):
+            # full queue and nothing outranked: bounce now; with a
+            # sheddable lower-priority entry the enqueue check sheds it
+            self.admission_rejects["saturated"] += 1
+            raise ServiceUnavailable(
+                f"engine saturated ({self._waiting.qsize()} waiting)",
+                retry_after_s=self._saturation_retry_after(),
+            )
         if context.deadline_expired:
+            self.admission_rejects["deadline"] += 1
             raise DeadlineExceeded(
                 f"request {context.id} deadline passed before admission"
             )
         await self.start()
+        # a migration resume prompt arrives stamped with its checksum; a
+        # mismatch raises IntegrityError, a StreamError, so the operator
+        # re-drives from its pristine copy
+        verify_resume_tokens(request)
         token_ids = list(request.get("token_ids") or [])
         if not token_ids:
             yield {"token_ids": [], "finish_reason": "error",
@@ -384,16 +484,49 @@ class InferenceEngine:
             yield {"token_ids": [], "finish_reason": "error",
                    "error": f"prompt exceeds max context {self.config.max_context}"}
             return
+        # token-bucket quota: the request's full token cost (prompt + decode
+        # budget) before any staging; over quota is a typed, non-retryable
+        # bounce whose Retry-After comes from bucket state (HTTP 429).
+        # Preemption resumes re-enter through the queue, never here
+        cost = float(len(token_ids) + self._decode_budget(request, len(token_ids)))
+        quota_retry = self._waiting.charge(tenant, cost)
+        if quota_retry is not None:
+            self.admission_rejects["over_quota"] += 1
+            raise OverQuota(
+                f"tenant {tenant!r} over token quota (cost {cost:.0f} tokens)",
+                retry_after_s=quota_retry,
+            )
         if request.get("guided"):
             # no guided decoding here yet: refuse as the reference engine
-            # does with guided_mode=off (a typed invalid_request -> HTTP 400)
+            # does with guided_mode=off (a typed invalid_request -> HTTP
+            # 400); zero service rendered, so the charge comes back
+            self._waiting.refund(tenant, cost)
             yield {"token_ids": [], "finish_reason": "error",
                    "error": "invalid_request: guided decoding unavailable on this "
                             "worker (guided_mode=off, multi-host SPMD, or no "
                             "tokenizer vocabulary)"}
             return
+        if max_waiting and self._waiting.qsize() >= max_waiting:
+            # re-check at the enqueue (arrivals that passed the early check
+            # together must not blow past the bound): shed the lowest-
+            # priority, most-over-quota, newest waiting entry in this
+            # request's favour when one ranks below it
+            victim = self._waiting.shed_victim(priority)
+            if victim is None:
+                self.admission_rejects["saturated"] += 1
+                self._waiting.refund(tenant, cost)
+                raise ServiceUnavailable(
+                    f"engine saturated ({self._waiting.qsize()} waiting)",
+                    retry_after_s=self._saturation_retry_after(),
+                )
+            self.admission_rejects["shed"] += 1
+            # zero service rendered: the victim's charge comes back
+            self._refund_if_charged(victim)
+            self._post(victim.out_q, {"_shed": self._saturation_retry_after()})
         out_q: asyncio.Queue = asyncio.Queue()
-        self._waiting.append(_Waiting(request, context, out_q))
+        self._waiting.put_nowait(_Waiting(
+            request, context, out_q, enq_t=time.perf_counter(), tenant=tenant,
+            priority=priority, cost=cost, charged=True))
         self._wake.set()
         deadline_hit = False
         while True:
@@ -416,6 +549,13 @@ class InferenceEngine:
                 context.stop_generating()
                 self._wake.set()
                 continue
+            if "_shed" in item:
+                # shed from the queue in a higher-priority arrival's favour:
+                # the retryable typed refusal (another worker may take it)
+                raise ServiceUnavailable(
+                    "shed under overload (outranked while waiting)",
+                    retry_after_s=float(item["_shed"]),
+                )
             yield item
             if item.get("finish_reason") is not None:
                 return
@@ -435,7 +575,7 @@ class InferenceEngine:
             self.metrics.publish(ForwardPassMetrics(
                 active_kv_blocks=self.allocator.active_pages,
                 total_kv_blocks=self.allocator.num_pages - 1,
-                waiting_requests=len(self._waiting),
+                waiting_requests=self._waiting.qsize(),
                 running_requests=sum(s is not None for s in self._slots),
                 step_time_ms=self.step_time_ewma_ms,
             ))
@@ -457,14 +597,16 @@ class InferenceEngine:
                 step_t0 = time.perf_counter()
                 did_work = self._step()
                 if did_work:
-                    dt_ms = (time.perf_counter() - step_t0) * 1000.0
+                    dt = time.perf_counter() - step_t0
+                    self.step_times.append(dt)
+                    dt_ms = dt * 1000.0
                     self.step_time_ewma_ms = (
                         dt_ms if self.step_time_ewma_ms == 0.0
                         else 0.8 * self.step_time_ewma_ms + 0.2 * dt_ms
                     )
                 if not did_work:
                     self._wake.clear()
-                    if (not self._waiting and not any(self._slots)
+                    if (self._waiting.empty() and not any(self._slots)
                             and not self._clear_cache_requested):
                         self._wake.wait()
                     else:
@@ -488,8 +630,9 @@ class InferenceEngine:
         for i, slot in enumerate(self._slots):
             if slot is not None:
                 self._finish(i, slot, "error", error=error)
-        while self._waiting:
-            self._error(self._waiting.popleft(), error)
+        for w in self._waiting.drain():
+            self._refund_if_charged(w)
+            self._error(w, error)
 
     def _step(self) -> bool:
         did = False
@@ -536,7 +679,10 @@ class InferenceEngine:
         return did
 
     def _admit_phase(self) -> bool:
-        """Admit waiting requests FIFO into free slots, up to a per-step
+        """Admit waiting requests in the scheduler's order (interactive
+        class first, then the tenant lane of least vtime) into free slots,
+        pausing a batch stream for an interactive head that finds no free
+        slot (``preemption``), up to a per-step
         prompt-token budget while other streams decode (a queue of short
         prompts lands in one step; a long one waits a step rather than
         stalling running decodes). On a cold batch, admit at most half the
@@ -554,22 +700,31 @@ class InferenceEngine:
         did = False
         preps: list[dict] = []
         reserved: set[int] = set()
-        while self._partial is None and self._waiting:
+        while self._partial is None:
             free_idx = next(
                 (i for i, s in enumerate(self._slots)
                  if s is None and i not in reserved),
                 None,
             )
-            if free_idx is None:
+            if free_idx is None and not self._waiting.empty():
+                # no free slot for a waiting INTERACTIVE request: pause a
+                # batch stream instead of making the interactive user wait
+                # out the batch tenant's backlog
+                free_idx = self._preempt_for_admission(reserved)
+            # the head's cost, peeked before the dequeue
+            head = self._waiting.peek()
+            if free_idx is None or head is None:
                 break
-            head = self._waiting[0]
             cost = min(len(head.request.get("token_ids") or ()) or 1,
                        self._prefill_chunk_max())
             if n_admitted and cost > budget and decoding and not warm:
                 break  # the first admission always proceeds
             if not decoding and n_admitted >= cold_cap:
                 break
-            waiting = self._waiting.popleft()
+            try:
+                waiting = self._waiting.get_nowait()
+            except queue.Empty:
+                break  # a concurrent shed emptied the queue since the peek
             if waiting.context.is_stopped:
                 self._post(waiting.out_q,
                            {"token_ids": [], "finish_reason": "cancelled"})
@@ -603,11 +758,129 @@ class InferenceEngine:
         if (not cfg.eager_readmit or freed <= 0 or self._partial is not None
                 or self._closed):
             return
-        if not self._waiting and cfg.readmit_wait_s > 0 and self._pipeline:
+        if self._waiting.empty() and cfg.readmit_wait_s > 0 and self._pipeline:
             self._wake.clear()
             self._wake.wait(cfg.readmit_wait_s)
-        if self._waiting and self._admit_phase():
+        if not self._waiting.empty() and self._admit_phase():
             self.eager_readmits += 1
+
+    # -- priority preemption -----------------------------------------------
+
+    def _preempt_for_admission(self, reserved: set[int]) -> int | None:
+        """Slot-pressure preemption: the head of the waiting queue is
+        interactive and no slot is free: pause a batch stream and hand its
+        slot to the admission loop. Returns the freed index, or None (no
+        eligible victim, preemption off, or the head is not interactive)."""
+        if not self.config.preemption:
+            return None
+        head = self._waiting.peek()
+        if head is None or head.priority != "interactive":
+            return None
+        return self._preempt_batch_slot(
+            reason="interactive_admission", reserved=reserved)
+
+    def _victim_slot(self) -> tuple[int, _Slot] | None:
+        """Preemption victim policy: batch-class slots only, over-quota
+        tenants first, newest admission first (the oldest batch stream
+        keeps its progress). Slots whose first token is still on the device
+        are not eligible."""
+        best: tuple[tuple[int, int], int, _Slot] | None = None
+        for i, slot in enumerate(self._slots):
+            if slot is None or slot.priority != "batch":
+                continue
+            if slot.first_pending or slot.context.is_stopped or slot.remaining < 1:
+                continue
+            over = self._waiting.tenant_over_quota(slot.tenant)
+            key = (0 if over else 1, -slot.admitted_seq)
+            if best is None or key < best[0]:
+                best = (key, i, slot)
+        if best is None:
+            return None
+        return best[1], best[2]
+
+    def _preempt_batch_slot(
+        self, *, reason: str, reserved: set[int] | None = None,
+        free_slot_ok: bool = True,
+    ) -> int | None:
+        """Pause one batch stream to make room (slots and pages):
+
+        1. fire the ``engine.preempt`` fault site (an injected error skips
+           the preemption: serving degrades to waiting, never breaks);
+        2. process every in-flight burst and land every admission wave, so
+           slot state is exact and no replay still reads the victim's
+           pages (the bursts' record copies are what synchronise);
+        3. seal the victim's complete blocks into the prefix cache;
+        4. release its pages and slot as a finish does (the next replay's
+           staged row for the slot reads inactive and writes only trash
+           page 0), and re-enqueue ``prompt + generated`` with the shrunk
+           budget and the seed pinned, uncharged, in its batch lane: the
+           client's stream pauses, then resumes through the normal
+           prefix-cache admission (greedy streams continue as unpaused).
+
+        Returns the freed slot index (also when the flush alone freed one,
+        unless ``free_slot_ok`` is False: a page-pressure caller's own empty
+        slot would match and nothing would be freed), or None."""
+        victim = self._victim_slot()
+        if victim is None:
+            return None
+        if FAULTS.enabled:
+            try:
+                FAULTS.fire_sync("engine.preempt")
+            except Exception as e:  # noqa: BLE001 - injected failure
+                log.warning("engine.preempt fault: skipping preemption (%s)", e)
+                return None
+        self._flush_pipeline()
+        self._materialize_waves(force=True)
+        if free_slot_ok:
+            free_idx = next(
+                (i for i, s in enumerate(self._slots)
+                 if s is None and i not in (reserved or ())),
+                None,
+            )
+            if free_idx is not None:
+                return free_idx  # the flush landed a finish
+        i, slot = victim
+        if self._slots[i] is not slot or slot.context.is_stopped:
+            return None  # finished or cancelled during the flush
+        self._maybe_seal(slot)
+        resume = self._build_resume_request(slot)
+        self.preemptions[reason] = self.preemptions.get(reason, 0) + 1
+        self._finish(i, slot, "preempted", emit=False)
+        self._waiting.put_nowait(_Waiting(
+            resume, slot.context, slot.out_q, enq_t=time.perf_counter(),
+            tenant=slot.tenant, priority=slot.priority,
+            cost=float(len(resume["token_ids"]) + slot.remaining),
+        ))
+        log.info("preempted %s (tenant=%s, %d generated) for %s",
+                 slot.request_id, slot.tenant, slot.generated, reason)
+        return i
+
+    @staticmethod
+    def _build_resume_request(slot: _Slot) -> dict[str, Any]:
+        """Resume request for a preempted stream: prompt + everything
+        already streamed becomes the new prompt (sealed blocks rehit the
+        prefix cache; only the unsealed tail re-prefills), the decode budget
+        shrinks to what was left, and the sampling seed is pinned."""
+        req = dict(slot.request)
+        req["token_ids"] = [int(t) for t in slot.seq.tokens()]
+        stop = dict(req.get("stop_conditions") or {})
+        stop["max_tokens"] = max(int(slot.remaining), 1)
+        if stop.get("min_tokens"):
+            stop["min_tokens"] = max(int(stop["min_tokens"]) - slot.generated, 0)
+        req["stop_conditions"] = stop
+        sampling = dict(req.get("sampling") or {})
+        sampling["seed"] = slot.sample_seed
+        req["sampling"] = sampling
+        return req
+
+    def _refund_if_charged(self, waiting: _Waiting) -> None:
+        """Credit back a charged entry's quota when it is bounced with zero
+        service (shed, never-fitting prompt, page stalls exhausted, prefill
+        failure): a tenant must not burn bucket on requests it was never
+        served, or retryable errors decay into 429s."""
+        if waiting.charged:
+            waiting.charged = False  # at most one refund per entry
+            self._waiting.refund(waiting.tenant, waiting.cost)
 
     # -- admission ---------------------------------------------------------
 
@@ -646,6 +919,7 @@ class InferenceEngine:
             return self._prefill(slot_idx, waiting)
         except Exception as e:  # noqa: BLE001
             log.exception("prefill failed for %s", waiting.context.id)
+            self._refund_if_charged(waiting)
             self._error(waiting, f"prefill failed: {e}")
             return None
 
@@ -680,24 +954,42 @@ class InferenceEngine:
         token_ids = list(req["token_ids"])
         seq = TokenBlockSequence.from_tokens(token_ids, cfg.page_size)
         needed_pages = (len(token_ids) + cfg.page_size - 1) // cfg.page_size
+        sp = None
         try:
             sp = self._acquire_prompt_pages(
                 waiting.context.id, seq, needed_pages, len(token_ids)
             )
         except OutOfPages:
-            # page BACKPRESSURE: a neighbour finishing frees pages, so the
-            # entry waits at the queue head, with bounded patience; a prompt
-            # that could never fit errors at once
+            # PAGE-pressure preemption: an interactive prompt that cannot
+            # get pages may pause a batch stream and retry once
+            if (cfg.preemption and waiting.priority == "interactive"
+                    and self._preempt_batch_slot(
+                        reason="interactive_pages", free_slot_ok=False)
+                    is not None):
+                try:
+                    sp = self._acquire_prompt_pages(
+                        waiting.context.id, seq, needed_pages, len(token_ids))
+                except OutOfPages:
+                    sp = None
+        if sp is None:
+            # page BACKPRESSURE: a neighbour finishing (or a later
+            # preemption) frees pages, so the entry waits at its lane head,
+            # with bounded patience; a prompt that could never fit errors
+            # at once
             if needed_pages >= self.allocator.num_pages - 1:
+                self._refund_if_charged(waiting)
                 self._error(waiting, f"kv pages exhausted (prompt needs "
                                      f"{needed_pages} pages; pool can never hold it)")
                 return None
             if waiting.page_stalls >= MAX_PAGE_STALLS:
+                self._refund_if_charged(waiting)
                 self._error(waiting, "kv pages exhausted (admission waited "
                                      f"{waiting.page_stalls} passes)")
                 return None
             waiting.page_stalls += 1
-            self._waiting.appendleft(waiting)
+            # lane-head requeue with the dequeue's vtime advance undone: a
+            # stall is zero service and must not burn fair share
+            self._waiting.requeue(waiting)
             return _REQUEUED
         start_pos = sp.cached_prefix_pages * cfg.page_size
         self.cached_prompt_tokens += start_pos
@@ -800,6 +1092,7 @@ class InferenceEngine:
                     for p in chunk:
                         self.allocator.release(p["sp"].pages)
                         p["sp"].pages = []
+                        self._refund_if_charged(p["waiting"])
                         self._error(p["waiting"], f"prefill failed: {e}")
                     continue
                 pres = self._fused_first_tokens(logits, [p["waiting"] for p in chunk])
@@ -884,6 +1177,7 @@ class InferenceEngine:
         slot_spec = None
         if self._spec_on and temperature <= 0.0 and logprobs is None:
             slot_spec = SlotSpec.for_config(self.config)
+        self._admit_seq += 1
         return _Slot(
             request_id=waiting.context.id,
             context=waiting.context,
@@ -904,6 +1198,10 @@ class InferenceEngine:
             sample_seed=sample_seed,
             logprobs=logprobs,
             spec=slot_spec,
+            tenant=waiting.tenant,
+            priority=waiting.priority,
+            request=req,
+            admitted_seq=self._admit_seq,
         )
 
     @staticmethod
@@ -1043,11 +1341,12 @@ class InferenceEngine:
             self._slots[slot_idx] = slot
         self._admit_waves.append(wave)
 
-    def _materialize_waves(self) -> bool:
+    def _materialize_waves(self, force: bool = False) -> bool:
         """Land admission waves whose host copy is in. A wave whose pending
         slots are all covered by an in-flight burst is left to that burst's
         processing, which lands its tokens from the burst's own download;
-        an aged wave that no burst covers lands from its own copy."""
+        an aged wave that no burst covers lands from its own copy.
+        ``force`` lands every wave now (a preemption needs exact slots)."""
         did = False
         keep: list[dict] = []
         covered: set[int] = set()
@@ -1062,7 +1361,7 @@ class InferenceEngine:
                 did = True  # every record finished or was cancelled
                 continue
             in_burst = all(si in covered for si, _s, _row in live)
-            if ap["copy"].ready() or (ap["age"] >= 2 and not in_burst):
+            if force or ap["copy"].ready() or (ap["age"] >= 2 and not in_burst):
                 self._materialize_one(ap)
                 did = True
             else:
@@ -1389,7 +1688,7 @@ class InferenceEngine:
 
         n_burst = cfg.decode_steps_per_dispatch
         n_active = sum(s is not None for s in self._slots)
-        if (cfg.decode_steps_admit_pending and self._waiting
+        if (cfg.decode_steps_admit_pending and not self._waiting.empty()
                 and n_active * 2 < len(self._slots)):
             # ramp-up: short bursts get the next admission wave in sooner
             n_burst = max(1, min(n_burst, cfg.decode_steps_admit_pending))

@@ -1,10 +1,34 @@
 """End-to-end integrity stamps: the part of dynamo_tpu/runtime/integrity.py
-the port uses (the migration operator's resume-prompt checksum, and the
-``corrupt`` chaos hook the SDC canary runs its tokens through)."""
+the port uses (the migration operator's resume-prompt checksum, verified at
+the engine's intake; the ``corrupt`` chaos hook the SDC canary and the
+resume check run their tokens through; the failure counter and its
+exposition).
+
+A failed check raises :class:`IntegrityError`, a ``StreamError`` subclass,
+so it rides the migration operator's retry path: the operator re-drives
+from its pristine copy instead of an engine prefilling a poisoned prompt.
+Failures are counted per path and exported on every /metrics surface as
+``dynamo_integrity_failures_total{path}``.
+"""
 
 from __future__ import annotations
 
+import threading
 import zlib
+
+from dynamo_tpu_torch.runtime.context import StreamError
+
+
+class IntegrityError(StreamError):
+    """A payload failed its content checksum on receipt.
+
+    Subclassing StreamError is the design: the migration operator retries
+    StreamErrors, so a corrupt payload recovers through the machinery
+    worker death already exercises, and is never decoded."""
+
+
+_lock = threading.Lock()
+_failures: dict[str, int] = {}
 
 
 def token_checksum(token_ids) -> int:
@@ -14,6 +38,17 @@ def token_checksum(token_ids) -> int:
     for t in token_ids or ():
         crc = zlib.crc32(int(t).to_bytes(8, "big", signed=True), crc)
     return crc & 0xFFFFFFFF
+
+
+def integrity_failure(path: str) -> None:
+    """Count one checksum failure on ``path`` (migration.resume here)."""
+    with _lock:
+        _failures[path] = _failures.get(path, 0) + 1
+
+
+def integrity_snapshot() -> dict[str, int]:
+    with _lock:
+        return dict(_failures)
 
 
 def corrupt_token_ids(site: str, token_ids: list, instance=None) -> list:
@@ -36,3 +71,54 @@ def corrupt_token_ids(site: str, token_ids: list, instance=None) -> list:
         int.from_bytes(flipped[i : i + 8], "big", signed=True)
         for i in range(0, len(flipped), 8)
     ]
+
+
+def verify_resume_tokens(request: dict) -> dict:
+    """Engine-intake guard for migration resume payloads.
+
+    The migration operator stamps ``token_checksum`` over the resume
+    prompt (original + pre-crash tokens). Here, in the receiving engine,
+    the tokens first pass the ``migration.resume`` corrupt fault (the
+    simulated wire), then verify. A mismatch raises IntegrityError, a
+    StreamError, so the operator re-drives from its pristine copy instead
+    of this engine prefilling a poisoned prompt. Requests without the
+    stamp pass through untouched."""
+    expected = request.get("token_checksum")
+    if expected is None:
+        return request
+    toks = corrupt_token_ids(
+        "migration.resume", list(request.get("token_ids") or [])
+    )
+    actual = token_checksum(toks)
+    if actual != int(expected):
+        integrity_failure("migration.resume")
+        raise IntegrityError(
+            f"resume prompt checksum mismatch: expected "
+            f"{int(expected):#010x}, got {actual:#010x}"
+        )
+    return request
+
+
+def _exposition() -> str:
+    snap = integrity_snapshot()
+    if not snap:
+        return ""
+    lines = [
+        "# HELP dynamo_integrity_failures_total KV payload checksum "
+        "failures by path (detected corruption, never decoded).",
+        "# TYPE dynamo_integrity_failures_total counter",
+    ]
+    for path, n in sorted(snap.items()):
+        lines.append(
+            f'dynamo_integrity_failures_total{{path="{path}"}} {n}'
+        )
+    return "\n".join(lines) + "\n"
+
+
+def _register_metrics() -> None:
+    from dynamo_tpu_torch.runtime import metrics
+
+    metrics.register_global_provider("integrity", _exposition)
+
+
+_register_metrics()

@@ -313,9 +313,10 @@ _UNPORTED_VALUES = {
 
 
 # fields that were refused until their feature was ported: they now build
-# with the value (speculative decoding: Queue A item 6)
+# with the value (speculative decoding: Queue A item 6; overload: item 5)
 _PORTED_SINCE = ("spec_mode", "spec_k_max", "spec_ngram_min", "spec_ngram_max",
-                 "spec_ewma_alpha", "spec_reprobe_tokens")
+                 "spec_ewma_alpha", "spec_reprobe_tokens", "max_waiting", "tenants",
+                 "preemption")
 
 
 @pytest.mark.parametrize("field", list(_UNPORTED_VALUES))
@@ -331,7 +332,13 @@ def test_config_refuses_fields_of_unported_features(field):
     assert not set(UNPORTED) & set(_PORTED_SINCE)
     assert getattr(JaxEngineConfig(**{field: value}), field) is not None
     if field in _PORTED_SINCE:
-        assert getattr(EngineConfig(**{field: value}), field) == value
+        # a quota spec string is parsed as the reference's config parses it
+        want = getattr(JaxEngineConfig(**{field: value}), field)
+        got = getattr(EngineConfig(**{field: value}), field)
+        if field == "tenants":
+            got, want = ({t: vars(q) for t, q in d.items()} for d in (got, want))
+            assert got == {"a": {"weight": 4.0, "rate": 0.0, "burst": 0.0}}
+        assert got == want and (field == "tenants" or got == value)
         return
     with pytest.raises(NotImplementedError, match=r"ROADMAP Queue A item \d+"):
         EngineConfig(**{field: value})
@@ -343,8 +350,14 @@ def test_config_defaults_and_guided_modes_still_build(monkeypatch):
     assert EngineConfig(tenants={}).tp == 1
     with pytest.raises(ValueError, match="guided_mode"):
         EngineConfig(guided_mode="on")
+    # DYN_TENANT_QUOTAS builds the quotas when the config names none, as the
+    # reference's config does (it used to be refused, naming item 5)
     monkeypatch.setenv("DYN_TENANT_QUOTAS", "a:weight=2")
-    with pytest.raises(NotImplementedError, match="item 5"):
+    assert {t: vars(q) for t, q in EngineConfig().tenants.items()} == {
+        t: vars(q) for t, q in JaxEngineConfig().tenants.items()} == {
+        "a": {"weight": 2.0, "rate": 0.0, "burst": 0.0}}
+    monkeypatch.setenv("DYN_TENANT_QUOTAS", "a:frobnicate=1")
+    with pytest.raises(ValueError, match="unknown field"):
         EngineConfig()
 
 

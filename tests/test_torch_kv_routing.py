@@ -213,6 +213,16 @@ async def test_two_workers_behind_kv_frontend_route_followers_to_heads():
             hs = compute_sequence_hashes(h, PAGE)
             await _until(lambda: kv.tree.find_matches(hs, touch=False).scores.get(w)
                          == len(hs))
+
+        def idle() -> bool:
+            # both workers' published load is idle: a stale one (published
+            # every 0.25 s) can outweigh 24 tokens of overlap in the pick
+            states = {s.worker_id: s.metrics for s in kv.scheduler.workers()}
+            return len(states) == 2 and all(
+                m.active_kv_blocks == 0 and m.running_requests == 0
+                for m in states.values())
+
+        await _until(idle)
         await asyncio.gather(*(complete(f) for f in followers))
         for f, w in zip(followers, head_workers):
             assert picks[tuple(f)] == (w, 24 // PAGE)

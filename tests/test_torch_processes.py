@@ -397,12 +397,12 @@ _REFUSED_FLAGS = {
     "ep": (["--ep", "2"], "item 11"),
     "mirror": (["--mirror", "leader"], "item 11"),
     "coordinator": (["--coordinator-address", "h:1"], "item 11"),
-    # ported since (speculative decoding): these build their config
+    # ported since (speculative decoding, overload): these build their config
     "spec": (["--spec", "ngram"], None),
     "spec-k-max": (["--spec-k-max", "4"], None),
-    "tenant-quotas": (["--tenant-quotas", "a:weight=2"], "item 5"),
-    "max-waiting": (["--max-waiting", "8"], "item 5"),
-    "no-preemption": (["--no-preemption"], "item 5"),
+    "tenant-quotas": (["--tenant-quotas", "a:weight=2"], None),
+    "max-waiting": (["--max-waiting", "8"], None),
+    "no-preemption": (["--no-preemption"], None),
     "mm-tokens": (["--mm-tokens-per-image", "4"], "item 12"),
     # --router-mode kv is ported (the default); the disagg prefill
     # router stays refused with disagg
@@ -423,6 +423,10 @@ def test_worker_flags_of_unported_features_raise(case):
         cfg = _engine_config(parse_args(["--device", "cpu", *flags]))
         assert cfg.spec_mode == ("ngram" if "--spec" in flags else "off")
         assert cfg.spec_k_max == (4 if "--spec-k-max" in flags else 8)
+        assert {t: q.weight for t, q in cfg.tenants.items()} == (
+            {"a": 2.0} if "--tenant-quotas" in flags else {})
+        assert cfg.max_waiting == (8 if "--max-waiting" in flags else 0)
+        assert cfg.preemption is ("--no-preemption" not in flags)
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue A {item}"):
         cli.main(["worker", "--hub", "127.0.0.1:1", "--device", "cpu", *flags])
