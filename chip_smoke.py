@@ -63,16 +63,19 @@ Phases, each of which must pass (any failure exits non-zero):
    grows), appends at row 0 of pages a last occupant left with a stale
    scale of 64, and inactive slots on page 0;
    the fused kernel's pool values AND scales bitwise equal to the plain
-   append (ops/quant.py) outside page 0; times and bounds as in phase 3,
+   append (ops/quant.py) outside page 0; kv_write's fp8 form (the
+   requantizing append) on the same three cases, values and scales bitwise
+   equal to kv_write_plain outside page 0, timed (row "kv_write/fp8", no
+   library call computes it); times and bounds as in phase 3,
    SDPA over the dequantized context as the library call; one fp8 fused
    call in a CUDA graph; a second engine with kv_dtype="fp8" on the bf16
    engine's weights (its pools freed first) serves the same 8 requests
    (32 fp8 fused launches per decode step, the prefix hit, one stream
-   near-argmax under the reference); phase 5's fused step graphs on the
-   fp8 pools (values and scales bitwise); phase 6 on the fp8
-   pools, where paged_attention_v3 launches 32 times in its fp8 form and
-   the kv_write kernel never (fp8 appends are quant_append_rows, as in the
-   reference);
+   near-argmax under the reference); phase 5's step graphs on the fp8
+   pools, fused and unfused (values and scales bitwise); phase 6 on the
+   fp8 pools, where paged_attention_v3 and kv_write each launch 32 times
+   in their fp8 forms, with the unfused eager step's host wall beside the
+   same step with kv_write's plain version (the parent's route);
 9. HTTP: the one-process serving stack on the same weights, built through
    the port's entry points on one event loop (DistributedRuntime over an
    InMemoryHub, launch_engine_worker with pipeline_decode and its decode
@@ -162,16 +165,20 @@ Phases, each of which must pass (any failure exits non-zero):
    into a page, siblings on shared pages, 2 padded rows on page 0), bitwise
    equal to its plain version outside page 0 and timed as in phase 3 beside
    it and one index_put_ per pool (its row "kv_write/verify" in the kernels
-   line); SPEC_REQUESTS greedy requests whose prompts repeat a seeded
-   SPEC_SEGMENT-token segment up to 64..512 tokens, SPEC_TOKENS tokens each
+   line); the same on fp8 pools (row "kv_write/fp8-verify"), each row
+   with its own amax (scales grow between siblings) and the pages that the
+   start-15 runs cross into holding a stale scale; SPEC_REQUESTS greedy
+   requests whose prompts repeat a seeded SPEC_SEGMENT-token segment up to
+   64..512 tokens, SPEC_TOKENS tokens each
    (the last SPEC_SHORT), through an engine with spec_mode="ngram"
    (spec_k_max 8, pipelined, decode graphs and the verify grid captured by
    precompile) and one with spec off, each freed before the next is built;
    (b) on the first spec engine, before it serves: the verify captured per
    row count (1, 2, 4, 8) against an eager verify_forward on copies of the
    same pools (targets identical, pools bitwise equal outside page 0,
-   kv_write 32 launches per replay), the device span of an 8-row verify
-   replay against a B=8 decode graph step, one traced replay; (c) on the
+   kv_write 32 launches per replay, in its fp8 form on fp8 pools), the
+   device span of an 8-row verify replay against a B=8 decode graph step
+   (and, on fp8 pools, against the bf16 verify), one traced replay; (c) on the
    phase-4 random weights: every stream near-argmax under the reference
    forward and equal to spec-off's up to its first position whose reference
    top-2 gap is under NEAR_ARGMAX, kv_write launched 32 times per verify
@@ -185,7 +192,8 @@ Phases, each of which must pass (any failure exits non-zero):
    back to the start, and with engine.spec_verify armed through FAULTS the
    same requests again: every verify faults, every slot falls back to
    bursts, streams unchanged; (e) (d) on fp8 pools, (b) on fp8 pools first:
-   streams equal spec-off's, kv_write never launched. Prints verifies,
+   streams equal spec-off's, kv_write launched 32 times per verify
+   dispatch, all in its fp8 form. Prints verifies,
    drafts, acceptance, tokens per verify dispatch and row, tok/s on and
    off, and the host wall per verify dispatch.
 13. overload (run after phase 12 and before phase 9, on the phase-4
@@ -233,6 +241,7 @@ ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 KERNEL_SHAPES = dict(B=8, KH=8, G=4, D=128, page=16, P=64)
 SEQ_LENS = (1, 37, 130, 256, 511, 700, 1000, 1024)
 WINDOW = 256  # windowed-and-sinks case
@@ -357,9 +366,9 @@ def time_ms(fn, flush, reps=REPS) -> float:
     return total / reps
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / BF16_FLOPS
+    t_ops = flops / peak
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -688,9 +697,9 @@ def time_attention(flush, fp8: bool) -> dict[str, dict]:
 
 def print_times(results: dict[str, dict]) -> None:
     for name, r in results.items():
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
-              f"({r['bound_by']})")
+              f"library {lib}, bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
         if "long_ms" in r:
             print(f"time {name} B=1 seq_len {LONG_SEQ_LEN}: kernel {r['long_ms']:.4f} ms, "
                   f"plain {r['long_plain_ms']:.4f} ms, library "
@@ -731,6 +740,38 @@ def fp8_case_inputs(dt, case: str, seed: int, layer: int):
     return t
 
 
+def fp8_append_bound(dst_page: torch.Tensor, KH: int, page: int, D: int,
+                     el: int = 2) -> tuple[float, str]:
+    """Least time of kv_write's fp8 form on these rows: each touched
+    (page, KV head) run of K and of V read and written once with its bf16
+    scale, the rows on live pages read, every index read (bytes); one f32
+    multiply or divide per run value and step on the CUDA cores
+    (operations). Rows on trash page 0 are skipped."""
+    pg = dst_page.cpu().numpy()
+    live = pg[pg != 0]
+    runs = 2 * len(set(live.tolist())) * KH
+    nbytes = runs * 2 * (page * D + 2) + 2 * live.size * KH * D * el + 2 * pg.size * 4
+    return bound_ms(nbytes, 2 * live.size * KH * page * D, F32_FLOPS)
+
+
+def check_kv_write_fp8(t, case: str, layer: int = 1) -> None:
+    """kv_write's fp8 form on ``t``'s pools and rows against kv_write_plain
+    (rounds of quant_append_rows): values and scales bitwise equal outside
+    page 0."""
+    from dynamo_tpu_torch.ops.cuda import kv_write
+
+    args = (t["k_new"], t["v_new"], t["dst_page"], t["dst_off"])
+    got = [clone_pool(t[k]) for k in ("k_pages", "v_pages")]
+    want = [clone_pool(t[k]) for k in ("k_pages", "v_pages")]
+    kv_write.kv_write(*got, *args, layer=layer)
+    kv_write.kv_write_plain(*want, *args, layer=layer)
+    torch.cuda.synchronize()
+    require(all(pools_equal(g, w) for g, w in zip(got, want)),
+            f"kv_write fp8 {case}: pools differ from kv_write_plain")
+    print(f"check {case}: kv_write fp8 form bitwise equal to kv_write_plain "
+          "(values and scales) outside page 0")
+
+
 def check_kernels_fp8(flush) -> dict[str, dict]:
     """The fp8 branches of both attention kernels: queries in f32 and bf16
     over e4m3 pools, at the serving shapes (with and without window and
@@ -746,6 +787,7 @@ def check_kernels_fp8(flush) -> dict[str, dict]:
             if dtype_name == "bfloat16" and window == 0:
                 results["fused_decode/fp8"]["max_abs_err"] = err_f
                 results["paged_attention_v3/fp8"]["max_abs_err"] = err_v
+        check_kv_write_fp8(t, f"fp8/{dtype_name}", layer)
         del t
         for name, over, seq_lens, window, with_sinks in CHECK_CASES:
             tc = fp8_pools(kernel_inputs(dt, seed=len(name), seq_lens=seq_lens or SEQ_LENS,
@@ -756,12 +798,31 @@ def check_kernels_fp8(flush) -> dict[str, dict]:
         for i, case in enumerate(FP8_CASES):
             tc = fp8_case_inputs(dt, case, 40 + i, layer)
             check_attention(tc, f"fp8/{dtype_name}/{case}", 0, None, layer)
+            check_kv_write_fp8(tc, f"fp8/{dtype_name}/{case}", layer)
             del tc
     times = time_attention(flush, fp8=True)
     for name in ("fused_decode", "paged_attention_v3"):
         results[name + "/fp8"].update(times[name])
+    results["kv_write/fp8"] = time_kv_write_fp8(flush, layer)
     print_times(results)
     return results
+
+
+def time_kv_write_fp8(flush, layer: int) -> dict:
+    """kv_write's fp8 form and its plain version at the serving shapes
+    (bf16 rows, 8 rows with scale growth, one per sequence)."""
+    from dynamo_tpu_torch.ops.cuda import kv_write
+
+    t = fp8_case_inputs(torch.bfloat16, "scale-growth", 40, layer)
+    kp, vp = t["k_pages"], t["v_pages"]
+    args = (t["k_new"], t["v_new"], t["dst_page"], t["dst_off"])
+    res = {"max_abs_err": 0.0, "library_ms": None}
+    res["ms"] = time_ms(lambda: kv_write.kv_write(kp, vp, *args, layer=layer), flush)
+    res["plain_ms"] = time_ms(lambda: kv_write.kv_write_plain(kp, vp, *args, layer=layer),
+                              flush)
+    KH, page, D = kp.shape[2], kp.shape[3], kp.shape[4]
+    res["bound_ms"], res["bound_by"] = fp8_append_bound(t["dst_page"], KH, page, D)
+    return res
 
 
 def graph_check(fp8: bool = False) -> None:
@@ -1014,8 +1075,9 @@ def step_graph_check(engine, prompts, unfused: bool = False) -> None:
                 got = runner.dispatch(inp, n, sampled=sampled, n_logprobs=lp_width).result()
             counts = {k: v for k, v in read_counts().items() if v}
             variant = f"{'sampled' if sampled else 'greedy'}, n_logprobs {lp_width}"
-            require(counts == {**want_counts, **({"fused_decode/fp8": L * n} if not unfused
-                                                 and engine.kv_dtype == "fp8" else {})},
+            fp8_counts = ({k + "/fp8": v for k, v in want_counts.items()}
+                          if engine.kv_dtype == "fp8" else {})
+            require(counts == {**want_counts, **fp8_counts},
                     f"graph {form} ({variant}): launches {counts} over {n} replays")
             require(np.array_equal(got[0], first), f"graph {form}: fed column differs")
             tok_ok = np.array_equal(got[1], want[0])
@@ -1072,10 +1134,12 @@ def unfused_check(engine, prompts):
     """One decode step through the fused kernel and through the unfused
     pair on the same pool state. Each path reads only the context below
     the new token plus its own new row, so the second run sees the same
-    state as the first. With fp8 pools the unfused pair is the quantized
-    append (quant_append_rows: the kv_write kernel does not launch) and
-    paged_attention_v3's fp8 form, which reads the new row back at fp8.
-    Returns the unfused run's launches (v3, v3 in fp8 form, kv_write)."""
+    state as the first. With fp8 pools the unfused pair is kv_write's fp8
+    form (the quantized append) and paged_attention_v3's fp8 form, which
+    reads the new row back at fp8; then the unfused eager step's host wall
+    with the kernel and with kv_write's plain version in its place (the
+    route of the reference's XLA path). Returns the unfused run's launches
+    (v3, v3 in fp8 form, kv_write, kv_write in fp8 form)."""
     from dynamo_tpu_torch.models import llama
     from dynamo_tpu_torch.ops.cuda import fused_decode, kv_write, paged_attention_v3
 
@@ -1096,24 +1160,40 @@ def unfused_check(engine, prompts):
         out = {}
         for mode in ("1", "0"):
             os.environ["DYNAMO_FUSED_DECODE"] = mode
-            for fn in (fused_fn, v3_fn):
-                fn.launches = fn.fp8_launches = 0
-            kv_write.kv_write.launches = 0
+            zero_counts()
             out[mode] = llama.decode_forward(
                 spec, engine.params, nxt, bts_d, seq_lens, engine.k_pages,
                 engine.v_pages, active)
             torch.cuda.synchronize()
             out[mode + "_launches"] = [fused_fn.launches, fused_fn.fp8_launches,
                                        v3_fn.launches, v3_fn.fp8_launches,
-                                       kv_write.kv_write.launches]
+                                       kv_write.kv_write.launches,
+                                       kv_write.kv_write.fp8_launches]
+        if fp8:
+
+            def step():
+                return llama.decode_forward(spec, engine.params, nxt, bts_d, seq_lens,
+                                            engine.k_pages, engine.v_pages, active).cpu()
+
+            kernel_ms = host_ms(step)
+            real = kv_write.kv_write
+            kv_write.kv_write = kv_write.kv_write_plain
+            try:
+                plain_ms = host_ms(step)
+            finally:
+                kv_write.kv_write = real
+            print(f"unfused fp8 eager step B={B}: host wall {kernel_ms:.2f} ms with "
+                  f"kv_write's fp8 form, {plain_ms:.2f} ms with its plain version "
+                  f"(quant_append_rows) ({plain_ms / kernel_ms:.2f}x)")
         os.environ.pop("DYNAMO_FUSED_DECODE")
     L = spec.num_layers
     f8 = L if fp8 else 0
-    require(out["1_launches"] == [L, f8, 0, 0, 0],
-            f"fused path launches (fused, fp8, v3, fp8, kv_write) {out['1_launches']}")
-    want = [0, 0, L, f8, 0 if fp8 else L]
+    require(out["1_launches"] == [L, f8, 0, 0, 0, 0],
+            f"fused path launches (fused, fp8, v3, fp8, kv_write, fp8) {out['1_launches']}")
+    want = [0, 0, L, f8, L, f8]
     require(out["0_launches"] == want,
-            f"unfused path launches (fused, fp8, v3, fp8, kv_write) {out['0_launches']}")
+            f"unfused path launches (fused, fp8, v3, fp8, kv_write, fp8) "
+            f"{out['0_launches']}")
     tol = LOGIT_REL_TOL_FP8 if fp8 else LOGIT_REL_TOL
     ref, alt = out["1"], out["0"]
     rel = ((alt - ref).abs().max() / ref.abs().max()).item()
@@ -1122,7 +1202,7 @@ def unfused_check(engine, prompts):
     require(rel <= tol, f"unfused {engine.kv_dtype} logits differ: rel {rel:.3e}")
     print(f"unfused {engine.kv_dtype}: logits max|diff|/max|logit| = {rel:.3e} (tol {tol}), "
           f"argmax agreement {agree:.3f}, launches (fused, fused fp8, v3, v3 fp8, "
-          f"kv_write) {out['1_launches']} then {out['0_launches']}")
+          f"kv_write, kv_write fp8) {out['1_launches']} then {out['0_launches']}")
     return out["0_launches"][2:]
 
 
@@ -1142,7 +1222,8 @@ def read_counts() -> dict[str, int]:
     v3 = paged_attention_v3.paged_decode_attention_v3
     return {"fused_decode": f.launches, "fused_decode/fp8": f.fp8_launches,
             "paged_attention_v3": v3.launches, "paged_attention_v3/fp8": v3.fp8_launches,
-            "kv_write": kv_write.kv_write.launches}
+            "kv_write": kv_write.kv_write.launches,
+            "kv_write/fp8": kv_write.kv_write.fp8_launches}
 
 
 def serve_phases(engine, phases):
@@ -1351,13 +1432,17 @@ def drop_engine(engine):
 # ------------------------------------------------------ speculative decoding
 
 
-def check_kv_write_verify(flush) -> dict:
-    """kv_write at a bf16 verify's shape: 8 sequences x SPEC_W rows (72),
+def check_kv_write_verify(flush, fp8: bool = False) -> dict:
+    """kv_write at a verify's shape: 8 sequences x SPEC_W rows (72),
     starting 3, 7 and 15 tokens into a page, siblings on shared pages, the
-    last 2 rows padded onto trash page 0; llama-3-8b's KH 8, D 128.
-    Bitwise equal to the plain version outside page 0; timed as phase 3
-    with its plain version and one index_put_ per pool."""
+    last 2 rows padded onto trash page 0; llama-3-8b's KH 8, D 128; bf16
+    rows. On fp8 pools each row carries its own amax (0.3x to 10x a
+    normal draw, so scales grow between siblings) and the pages the
+    start-15 runs cross into at offset 0 hold STALE_SCALE. Bitwise equal to
+    the plain version outside page 0 (fp8: values and scales); timed as
+    phase 3 with its plain version and (bf16) one index_put_ per pool."""
     from dynamo_tpu_torch.ops.cuda import kv_write
+    from dynamo_tpu_torch.ops.cuda.sweep import fp8_pool
 
     KH, D, page, B, W, P = 8, 128, 16, 8, SPEC_W, 8
     N = B * W
@@ -1383,33 +1468,53 @@ def check_kv_write_verify(flush) -> dict:
     do = torch.from_numpy(dst_off).to(DEVICE)
     shared = N - 2 - len(set(dst_page[:-2].tolist()))
     layer = 1
-    got = [p.clone() for p in pools]
-    want = [p.clone() for p in pools]
+    fresh = sorted({int(p) for p, o in zip(dst_page, dst_off) if p and not o})
+    if fp8:
+        pools = [fp8_pool(p, gen) for p in pools]
+        amp = 0.3 + 9.7 * torch.rand((N, 1, 1), generator=gen, device=DEVICE)
+        rows = [(r.float() * amp).to(torch.bfloat16) for r in rows]
+        for p in pools:
+            p.scale[layer, fresh] = STALE_SCALE
+    got = [clone_pool(p) for p in pools]
+    want = [clone_pool(p) for p in pools]
     kv_write.kv_write(*got, *rows, dp, do, layer=layer)
     kv_write.kv_write_plain(*want, *rows, dp, do, layer=layer)
     torch.cuda.synchronize()
-    require(all(torch.equal(g[:, 1:], w[:, 1:]) for g, w in zip(got, want)),
-            "kv_write at the verify shape: not bitwise equal to the plain version")
+    if fp8:
+        old_pages = sorted(set(dst_page[dst_page > 0].tolist()) - set(fresh))
+        grown = int((got[0].scale[layer, old_pages] > pools[0].scale[layer, old_pages])
+                    .sum())
+    form = "fp8" if fp8 else "bf16"
+    require(all(pools_equal(g, w) for g, w in zip(got, want)),
+            f"kv_write {form} at the verify shape: not bitwise equal to the plain version")
     res = {"max_abs_err": 0.0}
     kp, vp = pools
     res["ms"] = time_ms(lambda: kv_write.kv_write(kp, vp, *rows, dp, do, layer=layer),
                         flush)
     res["plain_ms"] = time_ms(lambda: kv_write.kv_write_plain(
         kp, vp, *rows, dp, do, layer=layer), flush)
-    idx = (dp.long()[:, None], torch.arange(KH, device=DEVICE)[None], do.long()[:, None])
+    if fp8:
+        res["library_ms"] = None
+        res["bound_ms"], res["bound_by"] = fp8_append_bound(dp, KH, page, D)
+        extra = (f"; {len(fresh)} runs cross into a page at offset 0 over a stale "
+                 f"scale of {STALE_SCALE}; {grown} of {len(old_pages) * KH} K scales of "
+                 "the other touched pages grew")
+    else:
+        idx = (dp.long()[:, None], torch.arange(KH, device=DEVICE)[None], do.long()[:, None])
 
-    def library_put():  # one index_put_ per pool
-        kp[layer].index_put_(idx, rows[0])
-        vp[layer].index_put_(idx, rows[1])
+        def library_put():  # one index_put_ per pool
+            kp[layer].index_put_(idx, rows[0])
+            vp[layer].index_put_(idx, rows[1])
 
-    res["library_ms"] = time_ms(library_put, flush)
-    res["bound_ms"], res["bound_by"] = bound_ms(4 * N * KH * D * 2 + 2 * N * 4, 0.0)
-    print(f"check kv_write verify shape: {N} rows ({B} x {SPEC_W}, starts 3/7/15 "
+        res["library_ms"] = time_ms(library_put, flush)
+        res["bound_ms"], res["bound_by"] = bound_ms(4 * N * KH * D * 2 + 2 * N * 4, 0.0)
+        extra = ""
+    lib = "none" if res["library_ms"] is None else f"{res['library_ms']:.4f}"
+    print(f"check kv_write {form} verify shape: {N} rows ({B} x {SPEC_W}, starts 3/7/15 "
           f"into a page, {shared} rows on a page an earlier row also writes, 2 padded "
-          f"rows on page 0) bitwise equal to the plain version outside page 0; "
-          f"{res['ms']:.4f} ms (plain {res['plain_ms']:.4f}, index_put_ "
-          f"{res['library_ms']:.4f}), bound {res['bound_ms']:.6f} ms by "
-          f"{res['bound_by']}")
+          f"rows on page 0{extra}) bitwise equal to the plain version outside page 0; "
+          f"{res['ms']:.4f} ms (plain {res['plain_ms']:.4f}, library {lib}), bound "
+          f"{res['bound_ms']:.6f} ms by {res['bound_by']}")
     return res
 
 
@@ -1424,15 +1529,16 @@ def spec_prompts(vocab: int):
     return segs, [(s * (int(n) // SPEC_SEGMENT + 1))[: int(n)] for s, n in zip(segs, lens)]
 
 
-def verify_graph_check(engine, prompts) -> None:
+def verify_graph_check(engine, prompts, bf16_verify_ms=None) -> float:
     """The engine's verify captured per row count (VerifyGraphs) against an
     eager verify_forward on copies of the same pools, after a prefill of
     ``prompts``: each row is the first token plus the next segment tokens,
     rows of 1..SPEC_W tokens at mid-page starts. Targets identical, pools
     bitwise equal outside page 0 (fp8 values and scales), kv_write 32
-    launches per bf16 replay and 0 on fp8. Then the device span of a verify
-    replay of 8 rows against a decode graph step of 8 slots, and the host
-    wall of an eager verify."""
+    launches per replay (in its fp8 form on fp8 pools). Then the device
+    span of a verify replay of 8 rows against a decode graph step of 8
+    slots (and against ``bf16_verify_ms``, a bf16 verify's span, when
+    given), and the host wall of an eager verify. Returns the span."""
     from dynamo_tpu_torch.engine.graphs import VerifyGraphs, verify_row_counts
     from dynamo_tpu_torch.models import llama
 
@@ -1471,12 +1577,12 @@ def verify_graph_check(engine, prompts) -> None:
                 print(f"verify graph {form} ({n} rows x {W}): replay vs eager verify_forward: "
                       f"targets {'identical' if np.array_equal(got, want) else 'DIFFER'}, pools "
                       f"{'bitwise equal' if pools_ok else 'DIFFER'}; kv_write launches "
-                      f"{counts['kv_write']}")
+                      f"{counts['kv_write']} ({counts['kv_write/fp8']} in fp8 form)")
                 require(np.array_equal(got, want) and pools_ok,
                         f"verify graph {form} ({n} rows) differs from eager verify_forward")
-                require(counts["kv_write"] == (0 if fp8 else L),
+                require(counts["kv_write"] == L and counts["kv_write/fp8"] == (L if fp8 else 0),
                         f"verify graph {form}: kv_write launched {counts['kv_write']} times "
-                        "in one replay")
+                        f"({counts['kv_write/fp8']} fp8) in one replay")
             # device spans: verify replay (8 rows) vs a decode graph step (8 slots)
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
 
@@ -1504,9 +1610,12 @@ def verify_graph_check(engine, prompts) -> None:
                 dev(nts)).cpu(), reps=5)
             profile_decode_step(lambda: runner.dispatch(tokens, bts, starts, nts).wait(),
                                 f"{form} verify replay ({B} x {W})")
+        vs_bf16 = (f", {v_ms / bf16_verify_ms:.2f}x the bf16 verify's "
+                   f"{bf16_verify_ms:.3f} ms" if bf16_verify_ms else "")
         print(f"verify {form}: device span of a {B} x {W} verify replay {v_ms:.3f} ms vs a "
-              f"B={B} decode graph step {d_ms:.3f} ms ({v_ms / d_ms:.2f}x); eager "
+              f"B={B} decode graph step {d_ms:.3f} ms ({v_ms / d_ms:.2f}x){vs_bf16}; eager "
               f"verify_forward host wall {e_ms:.2f} ms ({e_ms / v_ms:.1f}x the replay)")
+        return v_ms
     finally:
         runner.release()
         engine.allocator.release([int(p) for p in bts.reshape(-1) if p])
@@ -1569,14 +1678,16 @@ def spec_streams(out, reqs) -> list[list[int]]:
     return streams
 
 
-def spec_serve(spec, cfg, params, prompts, label, extra=(), graph_check=False):
+def spec_serve(spec, cfg, params, prompts, label, extra=(), graph_check=False,
+               bf16_verify_ms=None):
     """Serve ``prompts`` on an engine with spec ngram and on one with spec
     off (the first freed before the second is built), both precompiled;
     ``extra`` phases run on the spec engine after the main serve, and with
     ``graph_check`` the verify graph check runs on it first. Returns
     {"ngram": phase outputs, "off": ..., "snap": spec counters after the
     serve, "verify_ms": host ms per verify dispatch, "free": (free pages at
-    the start, free + evictable at the end)}."""
+    the start, free + evictable at the end), and with ``graph_check``
+    "verify_span": an 8-row verify replay's device span in ms}."""
     reqs = spec_reqs(prompts)
     res = {}
     for mode in ("ngram", "off"):
@@ -1594,7 +1705,7 @@ def spec_serve(spec, cfg, params, prompts, label, extra=(), graph_check=False):
 
         phases = [("serve", serve_spec)] + (list(extra) if mode == "ngram" else [])
         if mode == "ngram" and graph_check:
-            verify_graph_check(engine, prompts)
+            res["verify_span"] = verify_graph_check(engine, prompts, bf16_verify_ms)
         res[mode] = serve_phases(engine, phases)
         if mode == "ngram":
             res.update(snap=marks["snap"], free=marks["free"],
@@ -1625,11 +1736,11 @@ def spec_report(res, reqs, label, L) -> dict:
           f"({per_row:.2f} per row), decode steps {on['steps']}; "
           f"{tps['ngram']:.1f} tok/s on vs {tps['off']:.1f} off "
           f"({tps['ngram'] / tps['off']:.2f}x); host wall per verify dispatch "
-          f"{res['verify_ms']:.2f} ms; launches on: kv_write {on['counts']['kv_write']}, "
-          f"fused_decode {on['counts']['fused_decode']}; off: fused_decode "
-          f"{off['counts']['fused_decode']}")
+          f"{res['verify_ms']:.2f} ms; launches on: kv_write {on['counts']['kv_write']} "
+          f"({on['counts']['kv_write/fp8']} in fp8 form), fused_decode "
+          f"{on['counts']['fused_decode']}; off: fused_decode {off['counts']['fused_decode']}")
     return {"per_dispatch": per_dispatch, "per_row": per_row, "tps": tps, "snap": snap,
-            "kv_write": on["counts"]["kv_write"]}
+            "kv_write": on["counts"]["kv_write"], "kv_write/fp8": on["counts"]["kv_write/fp8"]}
 
 
 def equal_to_first_near_tie(spec, params, prompt, got, want) -> tuple[int, int]:
@@ -1651,13 +1762,15 @@ def equal_to_first_near_tie(spec, params, prompt, got, want) -> tuple[int, int]:
     return same, tie
 
 
-def spec_phase(spec, cfg, params, flush) -> tuple[dict, int]:
+def spec_phase(spec, cfg, params, flush) -> tuple[dict, dict, int, int]:
     """Phase 12: speculative decoding. Returns (kv_write's verify-shape
-    measurements, kv_write launches on the spec path)."""
+    measurements on bf16 and on fp8 pools, its launches on the bf16 and on
+    the fp8 spec path)."""
     from dynamo_tpu_torch.runtime.faults import FAULTS
 
     L = spec.num_layers
     kv_res = check_kv_write_verify(flush)
+    kv_res_fp8 = check_kv_write_verify(flush, fp8=True)
     segs, prompts = spec_prompts(spec.vocab_size)
     reqs = spec_reqs(prompts)
     scfg = dict(cfg, pipeline_decode=True, spec_k_max=SPEC_W - 1)
@@ -1665,6 +1778,7 @@ def spec_phase(spec, cfg, params, flush) -> tuple[dict, int]:
     # (b) + (c): the phase-4 random weights
     res = spec_serve(spec, dict(scfg, kv_dtype="bf16"), params, prompts, "random",
                      graph_check=True)
+    random_span = res["verify_span"]
     c = spec_report(res, reqs, "random weights bf16", L)
     require(c["kv_write"] == L * c["snap"]["verifies"] > 0,
             f"spec random: kv_write {c['kv_write']} launches for "
@@ -1719,16 +1833,22 @@ def spec_phase(spec, cfg, params, flush) -> tuple[dict, int]:
 
     # (e): (d) on fp8 pools, with the verify graph check on fp8 pools first
     res = spec_serve(spec, dict(scfg, kv_dtype="fp8"), pparams, prompts, "peaked fp8",
-                     graph_check=True)
+                     graph_check=True, bf16_verify_ms=random_span)
     e = spec_report(res, reqs, "peaked weights fp8", L)
-    print(f"spec peaked fp8: acceptance {e['snap']['acceptance_rate']}")
     on = spec_streams(res["ngram"]["serve"], reqs)
     off = spec_streams(res["off"]["serve"], reqs)
     require(on == off, "spec peaked fp8: streams differ between spec on and off")
-    require(e["kv_write"] == 0, f"spec fp8: kv_write launched {e['kv_write']} times")
+    require(e["kv_write"] == e["kv_write/fp8"] == L * e["snap"]["verifies"] > 0,
+            f"spec fp8: kv_write {e['kv_write']} launches ({e['kv_write/fp8']} fp8) for "
+            f"{e['snap']['verifies']} verify dispatches")
+    print(f"spec peaked fp8: acceptance {e['snap']['acceptance_rate']}; streams equal spec "
+          f"off; {e['tps']['ngram']:.1f} tok/s on vs {e['tps']['off']:.1f} off "
+          f"({e['tps']['ngram'] / e['tps']['off']:.2f}x; bf16 peaked "
+          f"{d['tps']['ngram'] / d['tps']['off']:.2f}x); verify replay "
+          f"{res['verify_span']:.3f} ms vs bf16 {random_span:.3f} ms")
     del pparams
     torch.cuda.empty_cache()
-    return kv_res, c["kv_write"] + d["kv_write"]
+    return kv_res, kv_res_fp8, c["kv_write"] + d["kv_write"], e["kv_write/fp8"]
 
 
 # ------------------------------------------------------------ overload
@@ -3249,13 +3369,15 @@ def main() -> int:
     out = serve_phases(engine, [("default", default_serve)])
     serve_fp8, _ = serve_check(engine, prompts, out["default"], "fp8", bf16_tokens=bf16_tokens)
     step_graph_check(engine, prompts)
+    step_graph_check(engine, prompts, unfused=True)
     unfused_fp8 = unfused_check(engine, prompts)
     drop_engine(engine)
     del engine
 
     # speculative decoding on the same weights, then on peaked ones
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
-    kernels["kv_write/verify"], spec_kv_launches = spec_phase(spec, cfg, params, flush)
+    (kernels["kv_write/verify"], kernels["kv_write/fp8-verify"], spec_kv_launches,
+     spec_kv_fp8_launches) = spec_phase(spec, cfg, params, flush)
     del flush
 
     # the overload plane on the same weights: priority, preemption, quotas
@@ -3276,7 +3398,9 @@ def main() -> int:
                 "paged_attention_v3": unfused[0], "kv_write": unfused[2],
                 "kv_write/verify": spec_kv_launches,
                 "fused_decode/fp8": serve_fp8["fused_decode/fp8"],
-                "paged_attention_v3/fp8": unfused_fp8[1]}
+                "paged_attention_v3/fp8": unfused_fp8[1],
+                "kv_write/fp8": unfused_fp8[3],
+                "kv_write/fp8-verify": spec_kv_fp8_launches}
     sources = {
         "fused_decode": ("dynamo_tpu_torch/csrc/fused_decode.cu",
                          "dynamo_tpu/ops/pallas/fused_decode.py:58"),
@@ -3295,6 +3419,14 @@ def main() -> int:
                              "dynamo_tpu/ops/pallas/fused_decode.py:275"),
         "paged_attention_v3/fp8": ("dynamo_tpu_torch/csrc/paged_attention_v3.cu",
                                    "dynamo_tpu/ops/pallas/paged_attention_v3.py:197"),
+        # kv_write's fp8 form: the requantizing append that the kernel's
+        # dispatcher sends a QuantPool to (write_new_kv's quantized route),
+        # at the unfused decode shape and at a verify's, where the reference
+        # lands it one position per call (dynamo_tpu/models/llama.py:710)
+        "kv_write/fp8": ("dynamo_tpu_torch/csrc/kv_write.cu",
+                         "dynamo_tpu/ops/pallas/kv_write.py:219"),
+        "kv_write/fp8-verify": ("dynamo_tpu_torch/csrc/kv_write.cu",
+                                "dynamo_tpu/ops/pallas/kv_write.py:219"),
     }
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],

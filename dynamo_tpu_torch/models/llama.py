@@ -454,13 +454,15 @@ def verify_logits(spec, params, tokens, block_tables, start_pos, k_pages,
 
     It differs from prefill in two ways. KV writes are token-granular: a
     verify starts wherever decode left off, mid-page, so each layer's N*W
-    rows go through ``kv_write`` (one launch per layer on a bf16/f32
-    pool). Its rows may share pages; the kernel stores each row directly,
-    so siblings on one page never overwrite each other. An fp8 pool's
-    append is a page read-modify-write (``quant_append_rows``), so it lands
-    one position at a time, W calls per layer, each on distinct pages.
-    Padded and invalid positions write trash page 0. Logits come at all W
-    positions, masked by ``allowed`` when given.
+    rows go through ``kv_write``, one launch per layer on either pool
+    type. Its rows may share pages. On a bf16/f32 pool the kernel stores
+    each row directly, so siblings on one page never overwrite each other.
+    On an fp8 pool an append requantizes its whole page, and the kernel
+    applies a page's rows in index order (slot-major, so position order
+    within a slot), re-encoding the page to e4m3 after each: the bits of
+    the reference's one-position-at-a-time loop. Padded and invalid
+    positions write trash page 0. Logits come at all W positions, masked
+    by ``allowed`` when given.
 
     Rejected drafts' rows stay past the slot's post-verify length, masked
     from attention and overwritten by the next write there."""
@@ -480,9 +482,8 @@ def verify_logits(spec, params, tokens, block_tables, start_pos, k_pages,
     # gather out of range: clamp first, the result is masked anyway
     pg_col = (positions // page_size).clamp(max=P - 1)
     pg_raw = torch.gather(block_tables.long(), 1, pg_col)
-    safe_pg2 = torch.where(valid, pg_raw, TRASH_PAGE).to(torch.int32)  # [N, W]
-    offs2 = (positions % page_size).to(torch.int32)
-    safe_pg, offs = safe_pg2.reshape(N * W), offs2.reshape(N * W)
+    safe_pg = torch.where(valid, pg_raw, TRASH_PAGE).to(torch.int32).reshape(N * W)
+    offs = (positions % page_size).to(torch.int32).reshape(N * W)
     kv_len = start + ntok
     quant = is_quant(k_pages)
 
@@ -492,14 +493,8 @@ def verify_logits(spec, params, tokens, block_tables, start_pos, k_pages,
     for li, lp in enumerate(params.layers):
         h = rms_norm(x, lp.attn_norm, spec.rms_eps)
         q, k, v = _attn_qkv(spec, lp, h, rot)  # [N, W, heads, D]
-        if quant:
-            for w in range(W):
-                kv_write(k_pages, v_pages, k[:, w].contiguous(), v[:, w].contiguous(),
-                         safe_pg2[:, w].contiguous(), offs2[:, w].contiguous(),
-                         layer=li)
-        else:
-            kv_write(k_pages, v_pages, k.reshape(N * W, KH, D),
-                     v.reshape(N * W, KH, D), safe_pg, offs, layer=li)
+        kv_write(k_pages, v_pages, k.reshape(N * W, KH, D),
+                 v.reshape(N * W, KH, D), safe_pg, offs, layer=li)
         k_ctx = gather_ctx(pool_layer(k_pages, li), block_tables)
         v_ctx = gather_ctx(pool_layer(v_pages, li), block_tables)
         if quant:

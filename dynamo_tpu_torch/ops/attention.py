@@ -218,10 +218,11 @@ def decode_update_attention(
     the unfused pair, kv_write then paged_attention_v3. The pools are
     updated IN PLACE (the counterpart of the reference's input/output
     aliasing plus donation). Returns the attention output [B, H, D].
-    fp8 QuantPools take the same routes: the kernels' fp8 forms, and on the
-    unfused path the quantized append (kv_write routes it to
-    quant_append_rows); paged_attention_v3 then reads the new row back at
-    fp8, as the reference's Pallas v3 route does."""
+    fp8 QuantPools take the same routes, in the kernels' fp8 forms: on the
+    unfused path kv_write's fp8 form is the quantized append (the
+    reference's quant_append_rows, in one launch), and paged_attention_v3
+    then reads the new row back at fp8, as the reference's Pallas v3
+    route does."""
     D = q.shape[-1]
     if use_fused_decode():
         from dynamo_tpu_torch.ops.cuda.fused_decode import fused_decode_attention

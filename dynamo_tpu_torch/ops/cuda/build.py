@@ -34,7 +34,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # argument types of every C entry point; each returns a cudaError_t as int
 SIGNATURES = {
-    "dtt_kv_write": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "dtt_kv_write": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "dtt_paged_attention_v3": [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P,

@@ -12,9 +12,12 @@ means the page was just acquired, so the old scale counts as 0 there.
 The codec gives the same bits as the JAX one: divisions in f32, the clip
 to +-448 BEFORE every cast (e4m3fn has no infinity; casts differ between
 frameworks past the range), one direct f32 -> e4m3 round-to-nearest-even
-cast. The fused CUDA kernel (csrc/common.cuh) repeats this arithmetic in
-its in-place append, and chip_smoke.py holds its pool bits against
-``quant_append_rows``.
+cast. Two CUDA kernels repeat this arithmetic in place: the fused decode
+kernel's append (csrc/common.cuh) and kv_write's fp8 form
+(csrc/kv_write.cu), which applies the rows aimed at one page in index
+order, one full append each, so rows that share a page (a verify's
+siblings) land in one launch. chip_smoke.py holds both kernels' pool bits
+against ``quant_append_rows``.
 
 Values are read and written through ``uint8`` views: PyTorch has no
 gather or scatter kernel for ``float8_e4m3fn`` on every device.
@@ -168,7 +171,8 @@ def quant_append_rows(
     page just acquired does not inherit its last occupant's scale),
     re-encode the old rows, splice the quantized rows in, scatter back.
     Rows must target distinct pages (duplicates on trash page 0 leave
-    garbage there, by contract)."""
+    garbage there, by contract); ops/cuda/kv_write.py applies rows that
+    share a page in rounds of distinct pages."""
     page_size = pool.vals.shape[-2]
     pg = dst_page.long()
     off = dst_off.long()

@@ -541,20 +541,160 @@ def test_paged_attention_v3_fp8_plain_matches_pallas(case, dtype):
     np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
 
 
-def test_kv_write_routes_fp8_pools_to_quant_append():
-    """The kv_write kernel has no fp8 branch (nor has the TPU kernel): an
-    fp8 pool takes quant_append_rows, the reference's own route, and the
-    kernel's launch count does not move."""
-    x = _decode_inputs(seed=17)
-    pools = _fp8_pools_both(x, seed=3)
-    kp, vp = pools["k_pages"][1], pools["v_pages"][1]
-    kp2, vp2 = (tquant.QuantPool(p.vals.clone(), p.scale.clone()) for p in (kp, vp))
-    args = [torch.from_numpy(x[k]) for k in ("k_new", "v_new", "dst_page", "dst_off")]
+STALE = np.asarray(64.0, ml_dtypes.bfloat16).view(np.uint16)  # a recycled page's scale
+
+
+def _fp8_append_case(case: str, dtype: str, layer: int = 1):
+    """An fp8 append at a small size: pools of both packages with the same
+    bytes, rows, their destinations, and the reference's calls (index
+    groups on distinct pages, applied in order with write_new_kv).
+
+    decode: 4 rows on distinct pages, mid-page, with 3x the amax their
+    page's scale encodes. fresh_over_stale: 4 row-0 appends on pages a last
+    occupant left with garbage and a scale of 64. verify: 4 slots x W 9
+    rows (n = slot * W + w), starts 3, 7, 15 and 19 tokens into the table;
+    siblings share pages, the start-15 run crosses at w 1 into a page at
+    offset 0 that holds a stale scale, the last slot has 5 tokens and 4
+    padded rows on page 0; row amaxes vary 10x, so scales grow between
+    siblings. The reference lands them one position per call, as its
+    verify forward does. interleaved: verify's rows in position-major
+    order (n = w * 4 + slot), so a page's rows are never adjacent."""
+    rng = np.random.default_rng(31 + len(case))
+    L, NP, KH, page, D = 2, 16, 2, 16, 16
+    u8 = [np.clip(40 * rng.standard_normal((L, NP, KH, page, D)), -448, 448)
+          .astype(F8).view(np.uint8) for _ in range(2)]
+    s16 = [(rng.uniform(0.5, 1.5, (L, NP, KH)) / 40).astype(ml_dtypes.bfloat16)
+           .view(np.uint16) for _ in range(2)]
+    if case in ("decode", "fresh_over_stale"):
+        dst_page = np.asarray([3, 1, 6, 4], np.int32)
+        dst_off = np.asarray([5, 9, 1, 14] if case == "decode" else [0] * 4, np.int32)
+        rows = [rng.standard_normal((4, KH, D)).astype(np.float32) for _ in range(2)]
+        if case == "decode":
+            for r, s in zip(rows, s16):
+                enc = 448 * s.view(ml_dtypes.bfloat16).astype(np.float32)[layer, dst_page]
+                r *= (3 * enc / np.abs(r).max(-1))[..., None]
+        else:
+            for s in s16:
+                s[layer, dst_page] = STALE
+        calls = [np.arange(4)]
+    else:
+        W, slots = 9, 4
+        bts = np.asarray([[2, 5, 9], [7, 1, 12], [4, 11, 14], [13, 8, 3]], np.int32)
+        starts, nts = (3, 7, 15, 19), (9, 9, 9, 5)
+        pos = np.asarray(starts)[:, None] + np.arange(W)[None]
+        valid = np.arange(W)[None] < np.asarray(nts)[:, None]
+        pg = np.where(valid, np.take_along_axis(bts, pos // page, axis=1), 0)
+        off = pos % page
+        for s in s16:
+            s[layer, bts[2, 1]] = STALE  # the page the start-15 run enters
+        amp = rng.uniform(0.3, 3.0, (slots, W, 1, 1))
+        rows = [(amp * rng.standard_normal((slots, W, KH, D))).astype(np.float32)
+                for _ in range(2)]
+        order = (1, 0) if case == "interleaved" else (0, 1)
+        rows = [r.transpose(*order, 2, 3).reshape(slots * W, KH, D) for r in rows]
+        dst_page = pg.transpose(*order).reshape(-1).astype(np.int32)
+        dst_off = off.transpose(*order).reshape(-1).astype(np.int32)
+        idx = np.arange(slots * W).reshape((slots, W) if order == (0, 1) else (W, slots))
+        calls = [idx[:, w] if order == (0, 1) else idx[w] for w in range(W)]
+    pools = [_quant_pool_both(u, s) for u, s in zip(u8, s16)]
+    return pools, [_both(r, dtype) for r in rows], dst_page, dst_off, calls
+
+
+def _hold_fp8_append(case: str, dtype: str, layer: int = 1):
+    """kv_write on CPU QuantPools (the plain version, in rounds) against
+    the reference's write_new_kv applied call by call: values and scales
+    bitwise outside page 0; no kernel launch."""
+    from dynamo_tpu.ops.pallas.kv_write import write_new_kv
+
+    pools, rows, dst_page, dst_off, calls = _fp8_append_case(case, dtype, layer)
+    (jk, tk), (jv, tv) = pools
+    (jkn, tkn), (jvn, tvn) = rows
     before = kv_write.kv_write.launches
-    kv_write.kv_write(kp, vp, *args, layer=1)
-    tquant.quant_append_rows(kp2, args[0], args[2], args[3], 1)
-    tquant.quant_append_rows(vp2, args[1], args[2], args[3], 1)
+    kv_write.kv_write(tk, tv, tkn, tvn, torch.from_numpy(dst_page),
+                      torch.from_numpy(dst_off), layer=layer)
     assert kv_write.kv_write.launches == before
-    for a, b in ((kp, kp2), (vp, vp2)):
-        for u, w in zip(_pool_bytes(a), _pool_bytes(b)):
-            np.testing.assert_array_equal(u, w)
+    for c in calls:
+        jk, jv = write_new_kv(jk, jv, jkn[c], jvn[c], jnp.asarray(dst_page[c]),
+                              jnp.asarray(dst_off[c]), layer=layer)
+    for t_pool, j_pool in ((tk, jk), (tv, jv)):
+        for u, w in zip(_pool_bytes(t_pool), _pool_bytes(j_pool)):
+            np.testing.assert_array_equal(u[:, 1:], w[:, 1:])
+    return dst_page, dst_off
+
+
+def test_kv_write_routes_fp8_pools_to_quant_append():
+    """An fp8 pool on the CPU takes the plain version, which for rows on
+    distinct pages is one quant_append_rows per pool (the reference's
+    route): the decode shape, bitwise; the kernel's count does not move."""
+    _hold_fp8_append("decode", "float32")
+
+
+@pytest.mark.parametrize("case", ["decode", "fresh_over_stale", "verify", "interleaved"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kv_write_fp8_plain_matches_position_order(case, dtype):
+    """kv_write's fp8 form applies a page's rows in index order, one full
+    requantizing append each: the reference's one-position-per-call loop,
+    bit for bit, whether or not a page's rows are adjacent."""
+    dst_page, dst_off = _hold_fp8_append(case, dtype)
+    rounds = kv_write.append_rounds(torch.from_numpy(dst_page)).numpy()
+    assert (rounds[dst_page == 0] == 0).all()
+    if case in ("verify", "interleaved"):
+        assert rounds.max() == 8  # a page holds all 9 rows of the start-3 slot
+        assert (dst_page == 0).sum() == 4 and ((dst_off == 0) & (dst_page != 0)).sum() == 1
+
+
+# ------------------------------------------------------------------
+# kv_write's fp8 schedule (csrc/kv_write.cu), emulated with the port's
+# codec ops: the first row of each page owns its runs; the scale chain
+# (new scale and old / new after each of the page's rows, in index order)
+# runs first; then each token of a run takes the last row written at it,
+# quantized under that row's scale, and one e4m3 re-encode per later row
+# of the page. Held bitwise against the plain version, which applies the
+# rows in rounds.
+
+
+def _emulate_fp8_append(pool, rows, dst_page, dst_off, layer):
+    vals = pool.vals.view(torch.uint8)[layer]
+    scale = pool.scale[layer]
+    KH, page = vals.shape[1], vals.shape[2]
+    pg, off = dst_page.tolist(), dst_off.tolist()
+    for n, p in enumerate(pg):
+        if p == 0 or p in pg[:n]:
+            continue
+        js = [j for j in range(n, len(pg)) if pg[j] == p]
+        for kh in range(KH):
+            cur = scale[p, kh].float()
+            ns, fac = [], []
+            for j in js:
+                old = torch.zeros_like(cur) if off[j] == 0 else cur
+                cur = tquant.append_scale(old, rows[j, kh].float()[None])[0]
+                ns.append(cur)
+                fac.append(tquant.rescale_factor(old, cur))
+            run = vals[p, kh].view(torch.float8_e4m3fn)
+            out = torch.empty_like(run)
+            for t in range(page):
+                at = [i for i, j in enumerate(js) if off[j] == t]
+                last = at[-1] if at else -1
+                v = (tquant.quant_values(rows[js[last], kh].float(), ns[last])
+                     .to(torch.float8_e4m3fn) if at else run[t])
+                for i in range(last + 1, len(js)):
+                    v = (v.float() * fac[i]).clamp(-tquant.FP8_MAX, tquant.FP8_MAX).to(
+                        torch.float8_e4m3fn)
+                out[t] = v
+            vals[p, kh] = out.view(torch.uint8)
+            scale[p, kh] = cur.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", ["decode", "fresh_over_stale", "verify", "interleaved"])
+def test_kv_write_fp8_kernel_schedule_matches_plain(case):
+    pools, rows, dst_page, dst_off, _ = _fp8_append_case(case, "bfloat16")
+    (_, tk), (_, tv) = pools
+    (_, tkn), (_, tvn) = rows
+    dp, do = torch.from_numpy(dst_page), torch.from_numpy(dst_off)
+    want = [tquant.QuantPool(p.vals.clone(), p.scale.clone()) for p in (tk, tv)]
+    kv_write.kv_write_plain(*want, tkn, tvn, dp, do, layer=1)
+    for pool, r in ((tk, tkn), (tv, tvn)):
+        _emulate_fp8_append(pool, r, dp, do, layer=1)
+    for got, w in zip((tk, tv), want):
+        for u, x in zip(_pool_bytes(got), _pool_bytes(w)):
+            np.testing.assert_array_equal(u[:, 1:], x[:, 1:])

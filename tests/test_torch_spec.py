@@ -289,25 +289,29 @@ def test_verify_forward_matches_reference(extras, kv, monkeypatch):
     for r, n in enumerate(nts):
         assert got[r, :n].tolist() == want[r, :n].tolist(), r
 
-    # token-granular writes: one kv_write per layer (W per layer on fp8)
-    per_layer = W if kv == "fp8" else 1
-    assert [w[0] for w in writes] == [li for li in range(tspec.num_layers)
-                                      for _ in range(per_layer)]
+    # token-granular writes: one kv_write of all N x W rows per layer, on
+    # either pool type
+    assert [w[0] for w in writes] == list(range(tspec.num_layers))
     positions, valid = _jax_placement(starts, nts)
     pg = jnp.take_along_axis(jnp.asarray(bts), positions // PAGE, axis=1)
     pg = jnp.where(valid, pg, 0)
     offs = positions % PAGE
     # the reference's write, on the port's rows, from the same pool bytes
-    for i, (li, kn, vn, dp, do) in enumerate(writes):
+    for li, kn, vn, dp, do in writes:
+        np.testing.assert_array_equal(dp.numpy(), np.asarray(pg.reshape(-1)))
+        np.testing.assert_array_equal(do.numpy(), np.asarray(offs.reshape(-1)))
         jn = [jnp.asarray(x.float().numpy()).astype(
             jnp.bfloat16 if x.dtype == torch.bfloat16 else jnp.float32) for x in (kn, vn)]
-        if kv == "fp8":  # one position per call
-            jdp, jdo = pg[:, i % W], offs[:, i % W]
+        if kv == "fp8":
+            # the reference's verify lands an fp8 pool's rows one position
+            # per call (dynamo_tpu/models/llama.py verify_forward)
+            jn = [x.reshape(len(nts), W, *x.shape[1:]) for x in jn]
+            for w in range(W):
+                jk0, jv0 = jax_write_new_kv(jk0, jv0, jn[0][:, w], jn[1][:, w],
+                                            pg[:, w], offs[:, w], layer=li)
         else:
-            jdp, jdo = pg.reshape(-1), offs.reshape(-1)
-        np.testing.assert_array_equal(dp.numpy(), np.asarray(jdp))
-        np.testing.assert_array_equal(do.numpy(), np.asarray(jdo))
-        jk0, jv0 = jax_write_new_kv(jk0, jv0, *jn, jdp, jdo, layer=li)
+            jk0, jv0 = jax_write_new_kv(jk0, jv0, *jn, pg.reshape(-1), offs.reshape(-1),
+                                        layer=li)
     for t_pool, j_pool in ((tk, jk0), (tv, jv0)):
         for a, b in zip(_pool_bytes(t_pool), _pool_bytes(j_pool)):
             np.testing.assert_array_equal(a, b)
