@@ -105,8 +105,12 @@ Phases, each of which must pass (any failure exits non-zero):
    completion with tools through it, aggregated and streamed: random
    weights write no markers, so reasoning_content plus content equal the
    plain card's content, with no tool_calls, the same finish_reason and
-   usage; 32 fused_decode launches per step; the parsers' host time per
-   chunk of a scripted stream printed;
+   usage; guided decoding: a json_schema chat (GUIDED_SCHEMA) on the plain
+   card must end "stop" with content that parses and conforms, and a
+   forced tool_choice chat through a card with the hermes parser alone
+   must come back as one tool_calls entry naming the forced function with
+   arguments of its enum; 32 fused_decode launches per step; the parsers'
+   host time per chunk of a scripted stream printed;
 10. CLI: ``python3 -m dynamo_tpu_torch.cli run --in http --out engine
    --model llama-3-8b --port 0 --precompile`` in a process of its own
    prints DYNAMO_HTTP=host:port and streams a 16-token chat completion;
@@ -120,7 +124,10 @@ Phases, each of which must pass (any failure exits non-zero):
    completion tokens; both workers serve) and through the hub-discovered
    TCP data plane from this process (their token ids near-argmax under the
    reference forward, drawn here once the workers are gone; the frontend
-   streams' texts must equal their decoded tokens); one more stream whose
+   streams' texts must equal their decoded tokens); one guided completion
+   (nvext.guided_regex GUIDED_REGEX) through the frontend, which must end
+   "stop" with text the pattern matches (the worker built its vocabulary
+   and the grammar crossed the wire); one more stream whose
    worker is SIGTERM'd after its 5th chunk (the stream finishes, the
    worker had it in flight, exits 0 after printing ENGINE_DRAINED
    leftover=0, its instance key leaves the hub, and the survivor serves
@@ -218,6 +225,48 @@ Phases, each of which must pass (any failure exits non-zero):
    active pages after. (c) quota: on that engine, tenant "q" with
    OVERLOAD_QUOTA: its second request must raise OverQuota with a positive
    Retry-After, counted in admission_rejects.
+14. guided decoding (run after phase 13 and before phase 9, on the phase-4
+   weights, with the mock tokenizer's vocabulary at 128256 ids): the
+   grammars' char DFAs checked finite (the bounded ones' longest sentence
+   under GUIDED_TOKENS); (a) masked step graphs on pools of their own
+   after a prefill of the 8 prompts, 4 rows under the masks of distinct
+   states of the GUIDED_SCHEMA grammar and 4 all-True, a greedy replay and
+   a sampled-with-20-logprobs replay (rows 2, 3, 6, 7 at temperature 0.8)
+   of DecodeGraphs' masked variant against eager decode_steps(allowed=...)
+   on copies of the same pools: records bitwise equal, every masked row's
+   token allowed, the all-True rows' records bitwise equal to the unmasked
+   graph's, pools bitwise equal outside page 0, 32 fused_decode launches
+   per replay; the same on fp8 pools, and one greedy unfused bf16 replay
+   (32 launches each of paged_attention_v3 and kv_write); (b) one
+   pipelined engine (phase 7's bursts of 4, depth 2) with the vocabulary,
+   its unmasked then masked decode variants captured (seconds and graph
+   memory of each printed), serves the 8 prompts at once, GUIDED_TOKENS
+   tokens each, even ones greedy and odd ones seeded at temperature 0.8:
+   2 json_schema, 2 json_object, 2 regex, 2 free. Gates: no violation
+   counted; every guided stream walks its grammar's DFA; the json_schema
+   and regex requests end "stop", conformant, their texts parsing and
+   conforming or matching; a conformant json_object parses; the ok count
+   equals the conformant finishes; the greedy guided streams near-argmax
+   under the reference forward masked by their cursors; the free streams
+   near the reference (the greedy one's argmax, the sampled one's seeded
+   Gumbel draw) and equal to the same requests served all free on the
+   same engine (cleared cache) up to their first reference near-tie;
+   every dispatch while a guided slot is live is one masked step with no
+   burst in flight; 0 active pages; 32 fused_decode launches per step;
+   (c) guided x spec: VerifyGraphs' masked capture per row count against
+   an eager verify_forward(allowed=...) on copies of pools of its own
+   (targets identical and allowed, pools bitwise equal outside page 0, 32
+   kv_write launches per replay), then the greedy guided requests of (b)
+   and one of GUIDED_REPEAT through an engine with spec_mode "ngram"
+   (spec_k_max 8) and one with spec off: at least one masked verify
+   dispatch, kv_write 32 times per verify dispatch, every stream
+   near-argmax under the masked reference, spec on equal to off up to the
+   first masked reference near-tie. Prints, not gated: the vocabulary
+   build, compile ms, one new state's mask ms (the O(V) walk), mask staging
+   bytes and device ms per dispatch ([8, V] decode, [8, 9, V] verify), host
+   wall of a masked against an unmasked graph step, dispatch-to-host ms of
+   masked single steps against the free pipelined bursts, tok/s mixed
+   against all-free, and the spec cell's walls.
 
 Prints, before the last line, the card line and one JSON object with every
 kernel's measurements; the last line is
@@ -229,6 +278,7 @@ from __future__ import annotations
 import asyncio
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -322,6 +372,27 @@ OVERLOAD_PAGES = 100
 OVERLOAD_PAGE_PROMPT = 768
 OVERLOAD_PAGE_TOKENS = 200
 OVERLOAD_QUOTA = "q:rate=10,burst=60"  # the quota cell's tenant
+# phase 14 (guided decoding): GUIDED_TOKENS tokens per request; the bounded
+# schema (an enum and a maxLength string, both required), a sentence of it
+# whose prefixes give the masked rows' distinct grammar states, the
+# fixed-shape regex, and a repeating regex (its greedy output repeats, so
+# prompt-lookup drafts exist for guided x spec); seeds GUIDED_SEED + i
+GUIDED_TOKENS = 128
+GUIDED_SEED = 1414
+GUIDED_SCHEMA = {"type": "object",
+                 "properties": {"color": {"enum": ["red", "green", "blue"]},
+                                "name": {"type": "string", "maxLength": 8}},
+                 "required": ["color", "name"]}
+GUIDED_SAMPLE_TEXT = '{"color": "red", "name": "ab"}'
+GUIDED_REGEX = "[0-9]{3}-[a-z]{4}"
+GUIDED_REPEAT = "(ab|cd){4,40}"
+# phase 9's forced tool call: a tool whose one argument is an enum (the
+# hermes grammar's longest sentence is 122 tokens)
+GUIDED_TOOL = {"type": "function", "function": {
+    "name": "get_weather", "parameters": {
+        "type": "object", "properties": {"city": {"enum": ["Paris", "Oslo"]}},
+        "required": ["city"]}}}
+GUIDED_TOOL_TOKENS = 160
 
 
 class SmokeError(RuntimeError):
@@ -1070,7 +1141,7 @@ def step_graph_check(engine, prompts, unfused: bool = False) -> None:
             runner = DecodeGraphs(step, batch=B, pages_per_seq=cfg.max_pages_per_seq,
                                   max_steps=n, n_logprobs=n_lp, device=torch.device(DEVICE))
             with torch.no_grad():
-                runner.precompile([(sampled, lp_width)])
+                runner.precompile([(sampled, lp_width, False)])
                 zero_counts()
                 got = runner.dispatch(inp, n, sampled=sampled, n_logprobs=lp_width).result()
             counts = {k: v for k, v in read_counts().items() if v}
@@ -2050,6 +2121,632 @@ def overload_phase(spec, cfg, params, prompts) -> int:
 # ------------------------------------------------------------ HTTP serving
 
 
+# ------------------------------------------------------------ guided decoding
+
+
+def guided_grammars(vocab) -> dict:
+    """Phase 14's grammars, lowered as the frontend lowers them; the bounded
+    ones (a schema of an enum and a maxLength string, a fixed-shape regex,
+    the repeating regex) must be finite: their char DFA has no cycle, and
+    its longest sentence, one mock token per char, fits in GUIDED_TOKENS."""
+    from dynamo_tpu_torch.guided import grammar_from_request
+
+    reqs = {
+        "json_schema": {"response_format": {"type": "json_schema", "json_schema": {
+            "name": "smoke", "schema": GUIDED_SCHEMA}}},
+        "json_object": {"response_format": {"type": "json_object"}},
+        "regex": {"nvext": {"guided_regex": GUIDED_REGEX}},
+        "repeat": {"nvext": {"guided_regex": GUIDED_REPEAT}},
+    }
+    out = {k: grammar_from_request(r) for k, r in reqs.items()}
+    for kind in ("json_schema", "regex", "repeat"):
+        n = longest_sentence(out[kind]["regex"])
+        require(n is not None and n < GUIDED_TOKENS,
+                f"guided {kind}: grammar not finite within {GUIDED_TOKENS} tokens ({n})")
+    return out
+
+
+def longest_sentence(src: str) -> int | None:
+    """Chars of the longest sentence of a regex's char DFA, or None when
+    the DFA has a cycle (an unbounded grammar)."""
+    from dynamo_tpu_torch.guided import compile_regex
+
+    dfa = compile_regex(src)
+    memo: dict[int, int] = {}
+    on_path: set[int] = set()
+
+    def longest(s: int) -> int | None:
+        if s in memo:
+            return memo[s]
+        if s in on_path:
+            return None
+        on_path.add(s)
+        best = 0
+        for nxt in set(dfa.trans[s].values()):
+            n = longest(nxt)
+            if n is None:
+                return None
+            best = max(best, n + 1)
+        on_path.discard(s)
+        memo[s] = best
+        return best
+
+    return longest(dfa.start)
+
+
+def guided_states(comp, grammar, text: str, k: int = 4) -> list[int]:
+    """``k`` distinct char-DFA states along ``text`` (a sentence of the
+    grammar), the start state first."""
+    tok = {t: i for i, t in enumerate(comp.vocab.tokens) if t}
+    st = comp.state_for(grammar, eos_ids=(2,))
+    states = [st.state]
+    for ch in text:
+        require(st.advance(tok[ch]), f"guided: {text!r} leaves the grammar at {ch!r}")
+        if st.state not in states:
+            states.append(st.state)
+    require(len(states) >= k, f"guided: {len(states)} distinct states along {text!r}")
+    return states[:k]
+
+
+def own_pools(spec, params, prompts, kv_dtype: str, room: int):
+    """Fresh pools holding ``prompts`` after one packed prefill (slot i owns
+    a run of pages of its own, page 0 the trash page); returns (pools,
+    block tables [B, P], first tokens [B], seq_lens [B] counting them), the
+    arrays int32 on the host."""
+    from dynamo_tpu_torch.models import llama
+
+    B, page, P = len(prompts), 16, 64
+    per = max((len(p) + room) // page + 1 for p in prompts)
+    pools = llama.init_cache(spec, 1 + B * per, page, device=DEVICE, kv_dtype=kv_dtype)
+    bts = np.zeros((B, P), np.int32)
+    for i in range(B):
+        bts[i, :per] = np.arange(1 + i * per, 1 + (i + 1) * per)
+    T = -(-max(len(p) for p in prompts) // page) * page
+    tokens = np.zeros((B, T), np.int32)
+    for i, p in enumerate(prompts):
+        tokens[i, : len(p)] = p
+    lens = torch.tensor([len(p) for p in prompts])
+    with torch.no_grad():
+        logits = llama.prefill_forward_batch(
+            spec, params, torch.from_numpy(tokens).to(DEVICE),
+            torch.from_numpy(bts).to(DEVICE), torch.zeros(B, dtype=torch.int64),
+            *pools, lens)
+    first = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
+    return pools, bts, first, (lens + 1).to(torch.int32).numpy()
+
+
+def staging_ms(dst: torch.Tensor, src: np.ndarray, reps: int = 10) -> float:
+    """Device ms of one mask staging: the pinned host buffer's copy into the
+    graph's static mask (graphs.py's ``_pinned`` then ``copy_``)."""
+    from dynamo_tpu_torch.engine.graphs import _pinned
+
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    total = 0.0
+    for _ in range(reps + 1):
+        host = _pinned(src, True)
+        torch.cuda.synchronize()
+        start.record()
+        dst.copy_(host, non_blocking=True)
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / (reps + 1)
+
+
+def masked_graph_check(spec, params, prompts, masks, kv_dtype="bf16",
+                       unfused=False) -> None:
+    """Phase 14 (a): the masked decode graph against eager decode_steps(
+    allowed=...) on copies of the same pools after a prefill of ``prompts``
+    (8 slots: rows 0-3 under the masks of distinct grammar states, rows 4-7
+    all-True; rows 2, 3, 6, 7 at temperature 0.8 in the sampled variant).
+    Greedy and sampled-with-logprobs replays (unfused: greedy only): records
+    bitwise equal, every masked row's token allowed, the all-True rows'
+    records bitwise equal to the unmasked graph's on the same inputs, pools
+    bitwise equal outside page 0, one attention launch per layer (unfused:
+    paged_attention_v3 and kv_write each)."""
+    from dynamo_tpu_torch.engine.graphs import DecodeGraphs
+    from dynamo_tpu_torch.models import llama
+
+    L, B, V = spec.num_layers, len(prompts), spec.vocab_size
+    n_lp = min(20, V - 1)
+    form = kv_dtype + (" unfused" if unfused else "")
+    base, bts, first, seq_lens = own_pools(spec, params, prompts, kv_dtype, room=1)
+    allowed = np.ones((B, V), bool)
+    allowed[: len(masks)] = masks
+    inputs = {"tokens": first, "block_tables": bts, "seq_lens": seq_lens,
+              "active": np.ones(B, bool),
+              "temperature": np.asarray([0.0, 0.0, 0.8, 0.8] * (B // 4), np.float32),
+              "top_k": np.zeros(B, np.int32), "top_p": np.ones(B, np.float32),
+              "seeds": (np.arange(B, dtype=np.uint32) * 7919 + 11).astype(np.uint32),
+              "steps": np.zeros(B, np.int32)}
+    want_counts = ({"paged_attention_v3": L, "kv_write": L} if unfused
+                   else {"fused_decode": L})
+    if kv_dtype == "fp8":
+        want_counts.update({k + "/fp8": v for k, v in want_counts.items()})
+    if unfused:
+        os.environ["DYNAMO_FUSED_DECODE"] = "0"
+    variants = ((False, 0),) if unfused else ((False, 0), (True, n_lp))
+    try:
+        for sampled, lp_width in variants:
+            inp = dict(inputs, temperature=inputs["temperature"] * sampled)
+            eager = tuple(clone_pool(p) for p in base)
+            graph = tuple(clone_pool(p) for p in base)
+            free = tuple(clone_pool(p) for p in base)
+            with torch.no_grad():
+                want = llama.decode_steps(
+                    spec, params, *(torch.from_numpy(inp[k]) for k in
+                                    ("tokens", "block_tables", "seq_lens")),
+                    *eager, torch.from_numpy(inp["active"]),
+                    *(torch.from_numpy(inp[k]) for k in ("temperature", "top_k", "top_p")),
+                    torch.from_numpy(inp["seeds"].astype(np.int64)),
+                    torch.from_numpy(inp["steps"]), n_steps=1, n_logprobs=lp_width,
+                    allowed=torch.from_numpy(allowed))
+            want = [x.cpu().numpy() for x in (want if lp_width else (want,))]
+            runners = {}
+            for name, pools, vocab in (("masked", graph, V), ("free", free, None)):
+                def step(t, s, k, pools=pools):
+                    llama.decode_step_(spec, params, *pools, t, sampled=s, n_logprobs=k)
+                runners[name] = DecodeGraphs(
+                    step, batch=B, pages_per_seq=bts.shape[1], max_steps=1,
+                    n_logprobs=n_lp, device=torch.device(DEVICE), vocab_size=vocab)
+            variant = f"{'sampled' if sampled else 'greedy'}, n_logprobs {lp_width}"
+            with torch.no_grad():
+                runners["masked"].precompile([(sampled, lp_width, True)])
+                runners["free"].precompile([(sampled, lp_width, False)])
+                zero_counts()
+                got = runners["masked"].dispatch(inp, 1, sampled=sampled,
+                                                 n_logprobs=lp_width,
+                                                 allowed=allowed).result()
+                counts = {k: v for k, v in read_counts().items() if v}
+                plain = runners["free"].dispatch(inp, 1, sampled=sampled,
+                                                 n_logprobs=lp_width).result()
+            require(counts == want_counts,
+                    f"masked graph {form} ({variant}): launches {counts} in one replay")
+            rec_ok = all(np.array_equal(g, w) for g, w in zip(got[1:], want))
+            toks = got[1][:, 0]
+            allowed_ok = all(allowed[i, toks[i]] for i in range(B))
+            free_rows = slice(len(masks), B)
+            free_ok = all(np.array_equal(g[free_rows], p[free_rows])
+                          for g, p in zip(got[1:], plain[1:]) if g is not None)
+            pools_ok = all(pools_equal(a, b) for a, b in zip(graph, eager))
+            print(f"masked graph {form} ({variant}): replay vs eager decode_steps(allowed): "
+                  f"records {'identical' if rec_ok else 'DIFFER'}, masked rows' tokens "
+                  f"{'allowed' if allowed_ok else 'NOT ALLOWED'}, all-True rows "
+                  f"{'equal' if free_ok else 'DIFFER from'} the unmasked graph's, pools "
+                  f"{'bitwise equal' if pools_ok else 'DIFFER'}; launches {counts}")
+            require(rec_ok and allowed_ok and free_ok and pools_ok,
+                    f"masked graph {form} ({variant}) differs")
+            if not unfused and not sampled and kv_dtype == "bf16":
+                m_ms = host_ms(lambda: runners["masked"].dispatch(
+                    inp, 1, sampled=False, n_logprobs=0, allowed=allowed).result())
+                f_ms = host_ms(lambda: runners["free"].dispatch(
+                    inp, 1, sampled=False, n_logprobs=0).result())
+                s_ms = staging_ms(runners["masked"].allowed, allowed)
+                print(f"masked graph step B={B}: host wall {m_ms:.2f} ms masked vs "
+                      f"{f_ms:.2f} ms unmasked; mask staging {allowed.nbytes / 1e6:.2f} MB "
+                      f"per dispatch, {s_ms:.4f} ms device")
+            for r in runners.values():
+                r.release()
+            del eager, graph, free, runners
+            torch.cuda.empty_cache()
+    finally:
+        os.environ.pop("DYNAMO_FUSED_DECODE", None)
+        del base
+        torch.cuda.empty_cache()
+
+
+def masked_verify_check(spec, params, prompts, masks) -> None:
+    """Phase 14 (c): the masked verify captured per row count against an
+    eager verify_forward(allowed=...) on copies of the same pools: rows of
+    the first token plus the prompts' next tokens (1..SPEC_W of them), rows
+    0-3 under the masks of distinct grammar states (position j of row r
+    under state (r + j) mod 4), the others all-True. Targets identical and
+    allowed at each valid position, pools bitwise equal outside page 0,
+    kv_write 32 launches per replay."""
+    from dynamo_tpu_torch.engine.graphs import VerifyGraphs, verify_row_counts
+    from dynamo_tpu_torch.models import llama
+
+    L, B, W, V = spec.num_layers, len(prompts), SPEC_W, spec.vocab_size
+    base, bts, first, seq_lens = own_pools(spec, params, prompts, "bf16", room=W)
+    tokens = np.zeros((B, W), np.int32)
+    nts = np.asarray([W, W - 2, 1, W, 5, W, 3, W][:B], np.int32)
+    for i, p in enumerate(prompts):
+        tokens[i, 0] = first[i]
+        tokens[i, 1:nts[i]] = p[: nts[i] - 1]
+    starts = (seq_lens - 1).astype(np.int32)
+    allowed = np.ones((B, W, V), bool)
+    for r in range(len(masks)):
+        for j in range(W):
+            allowed[r, j] = masks[(r + j) % len(masks)]
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)  # noqa: E731
+    eager = tuple(clone_pool(p) for p in base)
+    graph = tuple(clone_pool(p) for p in base)
+    runner = VerifyGraphs(
+        lambda t, b, s, n, a=None: llama.verify_forward(spec, params, t, b, s, *graph, n, a),
+        batch=B, width=W, pages_per_seq=bts.shape[1], device=torch.device(DEVICE),
+        vocab_size=V)
+    try:
+        with torch.no_grad():
+            runner.precompile()
+            for n in verify_row_counts(B):
+                for pools in (eager, graph):
+                    for dst, src in zip(pools, base):
+                        copy_pool_(dst, src)
+                want = llama.verify_forward(spec, params, dev(tokens[:n]), dev(bts[:n]),
+                                            dev(starts[:n]), *eager, dev(nts[:n]),
+                                            dev(allowed[:n])).cpu().numpy()
+                zero_counts()
+                got = runner.dispatch(tokens[:n], bts[:n], starts[:n], nts[:n],
+                                      allowed[:n]).wait().numpy()
+                counts = read_counts()
+                pools_ok = all(pools_equal(a, b) for a, b in zip(graph, eager))
+                ok_allowed = all(allowed[r, j, got[r, j]] for r in range(n)
+                                 for j in range(nts[r]))
+                print(f"masked verify graph bf16 ({n} rows x {W}): replay vs eager "
+                      f"verify_forward(allowed): targets "
+                      f"{'identical' if np.array_equal(got, want) else 'DIFFER'} and "
+                      f"{'allowed' if ok_allowed else 'NOT ALLOWED'}, pools "
+                      f"{'bitwise equal' if pools_ok else 'DIFFER'}; kv_write launches "
+                      f"{counts['kv_write']}")
+                require(np.array_equal(got, want) and pools_ok and ok_allowed,
+                        f"masked verify graph ({n} rows) differs from eager verify_forward")
+                require(counts["kv_write"] == L,
+                        f"masked verify graph: kv_write launched {counts['kv_write']} "
+                        "times in one replay")
+            s_ms = staging_ms(runner.allowed, allowed)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+            def span(mask, reps=5):
+                total = 0.0
+                for _ in range(reps + 1):
+                    torch.cuda.synchronize()
+                    start.record()
+                    out = runner.dispatch(tokens, bts, starts, nts, mask)
+                    end.record()
+                    out.wait()
+                    total += start.elapsed_time(end)
+                return total / (reps + 1)
+
+            m_ms, u_ms = span(allowed), span(None)
+        print(f"masked verify: mask staging {allowed.nbytes / 1e6:.2f} MB per dispatch "
+              f"({B} x {W} x {V}), {s_ms:.4f} ms device; device span of a {B} x {W} "
+              f"replay {m_ms:.3f} ms masked vs {u_ms:.3f} ms unmasked")
+    finally:
+        runner.release()
+        del base, eager, graph, runner
+        torch.cuda.empty_cache()
+
+
+def guided_engine(spec, cfg, params, vocab, label):
+    """An engine with a guided vocabulary whose decode (and verify) graphs
+    are captured in two rounds, the unmasked variants then the masked ones:
+    prints the seconds and graph-pool memory of each."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.core import InferenceEngine
+
+    engine = InferenceEngine(spec, EngineConfig(**cfg), params=params, device=DEVICE,
+                             guided_vocab=vocab)
+    rounds = []
+    for masked in (False, True):
+        # a capture empties the allocator's cache first: start each round
+        # from an empty cache, so the reserved delta is the graphs' pool
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t0, m0 = time.perf_counter(), torch.cuda.memory_reserved()
+        engine._graphs.precompile([v for v in engine._graphs.variants() if v[2] == masked])
+        if engine._verify is not None and engine._verify.cuda:
+            for key in engine._verify.variants():
+                if key[1] == masked:
+                    engine._verify._graph(key)
+        torch.cuda.synchronize()
+        rounds.append((time.perf_counter() - t0, torch.cuda.memory_reserved() - m0))
+    verify = (f" + {len(engine._verify._graphs)} verify graphs"
+              if engine._verify is not None else "")
+    print(f"precompile {label}: {len(engine._graphs._graphs)} decode graph variants{verify}; "
+          f"unmasked {rounds[0][0]:.2f} s, {rounds[0][1] / 2**20:.0f} MiB reserved; masked "
+          f"{rounds[1][0]:.2f} s, {rounds[1][1] / 2**20:.0f} MiB reserved more")
+    return engine
+
+
+def guided_requests(prompts, grammars, kinds, n=GUIDED_TOKENS):
+    """One request per prompt: kind i of ``kinds`` ("free" or a grammar),
+    even indices greedy, odd ones seeded at temperature 0.8; free ones
+    ignore EOS."""
+    reqs = []
+    for i, (p, kind) in enumerate(zip(prompts, kinds)):
+        sampling = ({"temperature": 0.0} if i % 2 == 0
+                    else {"temperature": 0.8, "seed": GUIDED_SEED + i})
+        req = {"token_ids": p, "sampling": sampling,
+               "stop_conditions": {"max_tokens": n, "ignore_eos": kind == "free"}}
+        if kind != "free":
+            req["guided"] = {**grammars[kind], "prompt_len": len(p)}
+        reqs.append(req)
+    return reqs
+
+
+def guided_outcomes() -> dict:
+    from dynamo_tpu_torch.guided import GUIDED_REQUESTS
+
+    return {o: GUIDED_REQUESTS.labels(outcome=o).value
+            for o in ("ok", "truncated", "violation", "aborted")}
+
+
+def masked_reference(spec, params, prompt, tokens, comp=None, grammar=None):
+    """The unpaged reference forward over prompt + served tokens, its
+    logits masked by the grammar cursor along the stream when a grammar is
+    given: (gap of each served token to the (masked) maximum, top-2 gap per
+    position)."""
+    from dynamo_tpu_torch.models import llama
+
+    seq = torch.tensor(prompt + tokens[:-1], device=DEVICE)
+    with torch.no_grad():
+        logits = llama.reference_forward(spec, params, seq)[len(prompt) - 1:]
+    if grammar is not None:
+        st = comp.state_for(grammar, eos_ids=(2,))
+        masks = []
+        for t in tokens:
+            masks.append(st.mask())
+            st.advance(int(t))
+        logits = torch.where(torch.from_numpy(np.stack(masks)).to(DEVICE), logits, -1e30)
+    served = torch.tensor(tokens, device=DEVICE)
+    top2 = logits.topk(2, dim=-1).values
+    gap = (top2[:, 0] - logits.gather(1, served[:, None])[:, 0]).cpu().numpy()
+    return gap, (top2[:, 0] - top2[:, 1]).cpu().numpy()
+
+
+def near_draw(spec, params, prompt, tokens, seed, temperature):
+    """A seeded stream against the reference: its draw scores (reference
+    logits / T plus the request's Gumbel noise at each step) give (gap of
+    each served token to the maximum score, top-2 score gap per
+    position)."""
+    from dynamo_tpu_torch.engine.sampling import gumbel_noise
+    from dynamo_tpu_torch.models import llama
+
+    n = len(tokens)
+    seq = torch.tensor(prompt + tokens[:-1], device=DEVICE)
+    with torch.no_grad():
+        logits = llama.reference_forward(spec, params, seq)[len(prompt) - 1:]
+        noise = gumbel_noise(torch.full((n,), seed, device=DEVICE),
+                             torch.arange(n, device=DEVICE), logits.shape[-1])
+    score = logits / temperature + noise
+    served = torch.tensor(tokens, device=DEVICE)
+    top2 = score.topk(2, dim=-1).values
+    gap = (top2[:, 0] - score.gather(1, served[:, None])[:, 0]).cpu().numpy()
+    return gap, (top2[:, 0] - top2[:, 1]).cpu().numpy()
+
+
+def first_tie(ties: np.ndarray, bound: float) -> int:
+    low = ties < bound
+    return int(np.argmax(low)) if low.any() else len(ties)
+
+
+def first_diff(a, b) -> int:
+    return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+
+
+def guided_phase(spec, cfg, params, prompts) -> tuple[int, int]:
+    """Phase 14: guided decoding. Returns (fused_decode launches of its
+    serves, kv_write launches of its masked verifies)."""
+    from dynamo_tpu_torch.frontend.tokenizer import MockTokenizer
+    from dynamo_tpu_torch.guided import GrammarCompiler, TokenVocab
+
+    L, V = spec.num_layers, spec.vocab_size
+    t_phase = t0 = time.perf_counter()
+    vocab = TokenVocab.from_tokenizer(MockTokenizer(), V)
+    vocab_s = time.perf_counter() - t0
+    grammars = guided_grammars(vocab)
+    comp = GrammarCompiler(vocab, vocab_size=V)
+    # compile every grammar here, timed one by one: the engines below find
+    # them in the process-wide cache, so their serves time decoding alone
+    compile_ms = {}
+    for kind, g in grammars.items():
+        t1 = time.perf_counter()
+        comp.compile(g)
+        compile_ms[kind] = round(1e3 * (time.perf_counter() - t1), 1)
+    t0 = time.perf_counter()
+    states = guided_states(comp, grammars["json_schema"], GUIDED_SAMPLE_TEXT)
+    tdfa = comp.compile(grammars["json_schema"]).tdfa
+    fresh = [s for s in states if s not in tdfa._masks]
+    mask_ms = "not measured (every state's mask cached)"
+    if fresh:
+        t1 = time.perf_counter()
+        tdfa.mask(fresh[0])
+        mask_ms = f"{1e3 * (time.perf_counter() - t1):.1f} ms"
+    cursor = comp.state_for(grammars["json_schema"], eos_ids=(2,))
+    masks = np.stack([cursor.mask_for(s) for s in states])
+    print(f"guided: vocab of {V} ids from the mock tokenizer in {vocab_s:.2f} s "
+          f"({sum(1 for t in vocab.tokens if t)} non-empty); compile ms {compile_ms}; "
+          f"one new state's mask "
+          f"(the O(V) walk) {mask_ms}; {len(states)} states' masks in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # (a) the masked step graphs, bf16, fp8 and unfused bf16
+    for kv_dtype, unfused in (("bf16", False), ("fp8", False), ("bf16", True)):
+        masked_graph_check(spec, params, prompts, masks, kv_dtype, unfused)
+
+    # (b) the mixed serve on one pipelined engine
+    kinds = ["json_schema", "json_schema", "json_object", "json_object", "regex", "regex",
+             "free", "free"]
+    reqs = guided_requests(prompts, grammars, kinds)
+    free_reqs = guided_requests(prompts, grammars, ["free"] * len(prompts))
+    pipelined = dict(cfg, pipeline_decode=True, pipeline_depth=2,
+                     decode_steps_per_dispatch=4)
+    engine = guided_engine(spec, pipelined, params, vocab, "guided pipelined")
+    seen: list[tuple] = []
+    dispatch = engine._graphs.dispatch
+
+    def spy(inputs, n_steps, **kw):
+        seen.append((engine._guided_live(), n_steps, kw.get("allowed") is not None,
+                     len(engine._pipeline)))
+        return dispatch(inputs, n_steps, **kw)
+
+    engine._graphs.dispatch = spy
+    marks = {}
+
+    async def mixed(e):
+        n0, o0 = len(e.decode_step_times), guided_outcomes()
+        out = await requests(e, reqs)
+        marks.update(times=list(e.decode_step_times)[n0:], n_seen=len(seen),
+                     active=e.allocator.active_pages,
+                     outcomes={k: v - o0[k] for k, v in guided_outcomes().items()},
+                     snap=e.guided_snapshot())
+        return out
+
+    async def all_free(e):
+        e.request_clear_cache()
+        while e.allocator.evictable_pages:
+            await asyncio.sleep(0.01)
+        n0, k0 = len(e.decode_step_times), len(seen)
+        res = await requests(e, free_reqs)
+        marks.update(free_times=list(e.decode_step_times)[n0:], free_seen=seen[k0:])
+        return res
+
+    out = serve_phases(engine, [("mixed", mixed), ("free", all_free)])
+    kinds_seen = list(seen)
+    drop_engine(engine)
+    del engine
+    (items, _ttft, wall), counts = out["mixed"]["res"], out["mixed"]["counts"]
+    streams = [[t for x in it for t in x["token_ids"]] for it in items]
+    finish = [it[-1]["finish_reason"] for it in items]
+    free_items, _f, free_wall = out["free"]["res"]
+    free_streams = [[t for x in it for t in x["token_ids"]] for it in free_items]
+    require(marks["outcomes"]["violation"] == 0, f"guided serve: violations {marks}")
+    require(marks["active"] == 0, f"guided serve: {marks['active']} pages held after")
+    steps = out["mixed"]["steps"]
+    require(counts["fused_decode"] == L * steps == L * out["mixed"]["replays"],
+            f"guided serve: fused_decode {counts['fused_decode']} over {steps} steps")
+    live = [s for s in kinds_seen[: marks["n_seen"]] if s[0]]
+    require(live and all(n == 1 and m and depth == 0 for _l, n, m, depth in live),
+            f"guided serve: a multi-step or pipelined burst while a guided slot was live "
+            f"{[s for s in live if s[1] != 1 or not s[2] or s[3]][:4]}")
+    ok = 0
+    for i, kind in enumerate(kinds):
+        if kind == "free":
+            continue
+        toks = [t for t in streams[i] if t != 2]
+        st = comp.state_for(grammars[kind], eos_ids=(2,))
+        walks = all(st.advance(t) for t in streams[i])
+        require(walks, f"guided {kind} {i}: the stream leaves the grammar")
+        text = vocab.text(toks)
+        ok += st.conformant and finish[i] in ("stop", "length")
+        if kind in ("json_schema", "regex"):
+            require(finish[i] == "stop" and st.conformant,
+                    f"guided {kind} {i}: finish {finish[i]}, text {text!r}")
+        if kind == "json_schema":
+            doc = json.loads(text)
+            require(set(doc) == {"color", "name"} and doc["color"] in ("red", "green", "blue")
+                    and isinstance(doc["name"], str) and len(doc["name"]) <= 8,
+                    f"guided json_schema {i}: {doc}")
+        elif kind == "regex":
+            require(re.fullmatch(r"[ \n\t\r]{0,3}" + GUIDED_REGEX + r"[ \n\t\r]{0,3}", text),
+                    f"guided regex {i}: {text!r}")
+        elif st.conformant:
+            json.loads(text)
+        if i % 2 == 0:
+            gap, _ = masked_reference(spec, params, prompts[i], streams[i], comp,
+                                      grammars[kind])
+            require(gap.max() <= NEAR_ARGMAX,
+                    f"guided {kind} {i}: served token {gap.max():.3f} below the masked "
+                    "reference max")
+        print(f"guided {kind} {i} ({'greedy' if i % 2 == 0 else 'sampled'}): "
+              f"{len(streams[i])} tokens, finish {finish[i]}, conformant {st.conformant}: "
+              f"{text[:80]!r}")
+    require(marks["outcomes"]["ok"] == ok,
+            f"guided serve: outcomes {marks['outcomes']}, {ok} conformant finishes")
+    # the free streams: near the reference (argmax, or the seeded draw) and
+    # equal to the all-free serve's up to their first reference near-tie
+    for i in (6, 7):
+        greedy = i % 2 == 0
+        temp = reqs[i]["sampling"]["temperature"]
+        bound = NEAR_ARGMAX if greedy else NEAR_ARGMAX / temp
+        ties = []
+        for s in (streams[i], free_streams[i]):
+            gap, tie_gaps = (masked_reference(spec, params, prompts[i], s) if greedy
+                             else near_draw(spec, params, prompts[i], s, GUIDED_SEED + i,
+                                            temp))
+            require(gap.max() <= bound, f"guided serve free {i}: served token "
+                                        f"{gap.max():.3f} below the reference")
+            ties.append(tie_gaps)
+        tie = first_tie(ties[0], bound)
+        same = first_diff(streams[i], free_streams[i])
+        require(same >= tie, f"guided serve free {i}: differs from the all-free serve at "
+                             f"{same}, before its first near-tie {tie}")
+        print(f"guided free {i} ({'greedy' if greedy else 'sampled'}): equal to the "
+              f"all-free serve for {same} of {len(streams[i])} tokens (first reference "
+              f"near-tie at {tie})")
+    n_tok, n_free = sum(map(len, streams)), sum(map(len, free_streams))
+    masked_states = {k: len(comp.compile(grammars[k]).tdfa._masks)
+                     for k in ("json_schema", "json_object", "regex")}
+    d_mask = [t for t, s in zip(marks["times"], kinds_seen) if s[2]]
+    d_free = [(t, s[1]) for t, s in zip(marks["free_times"], marks["free_seen"])]
+    print(f"guided serve: {n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} tok/s mixed "
+          f"vs {n_free / free_wall:.1f} tok/s all-free ({n_free} tokens in "
+          f"{free_wall:.3f} s); {len(d_mask)} masked single steps, dispatch to host "
+          f"{1e3 * sum(d_mask) / max(len(d_mask), 1):.2f} ms each; the all-free serve's "
+          f"{len(d_free)} pipelined bursts, "
+          f"{1e3 * sum(t for t, _ in d_free) / max(len(d_free), 1):.2f} ms each "
+          f"({sum(n for _, n in d_free)} steps, depth 2 in flight); states masked by the "
+          f"grammars' O(V) walk in all {masked_states}; outcomes {marks['outcomes']}; compiler "
+          f"{marks['snap']}; fused_decode {counts['fused_decode']} = {L} x {steps}")
+    launches = counts["fused_decode"]
+
+    # (c) guided x spec: the masked verify graph, then the greedy guided
+    # requests of (b) plus a repeating grammar, spec ngram against spec off
+    masked_verify_check(spec, params, prompts, masks)
+    spec_kinds = [(0, "json_schema"), (2, "json_object"), (4, "regex"), (6, "repeat")]
+    spec_reqs_ = [guided_requests([prompts[i]], grammars, [k])[0] for i, k in spec_kinds]
+    res = {}
+    for mode in ("ngram", "off"):
+        engine = guided_engine(spec, dict(cfg, spec_mode=mode, spec_k_max=8), params,
+                               vocab, f"guided spec {mode}")
+        verifies: list[bool] = []
+        if mode == "ngram":
+            vdispatch = engine._verify.dispatch
+
+            def vspy(*a, _d=vdispatch):
+                verifies.append(a[4] is not None if len(a) > 4 else False)
+                return _d(*a)
+
+            engine._verify.dispatch = vspy
+        o = serve_phases(engine, [("serve", lambda e: requests(e, spec_reqs_))])
+        res[mode] = (o["serve"], list(verifies))
+        drop_engine(engine)
+        del engine
+    on, vmasked = res["ngram"]
+    off, _ = res["off"]
+    require(sum(vmasked) >= 1 and on["counts"]["kv_write"] == L * len(vmasked),
+            f"guided spec: {sum(vmasked)} masked of {len(vmasked)} verify dispatches, "
+            f"kv_write {on['counts']['kv_write']}")
+    for mode, o in (("on", on), ("off", off)):
+        require(o["counts"]["fused_decode"] == L * o["steps"],
+                f"guided spec {mode}: fused_decode {o['counts']['fused_decode']} over "
+                f"{o['steps']} steps")
+    for k, (i, kind) in enumerate(spec_kinds):
+        got = [t for x in on["res"][0][k] for t in x["token_ids"]]
+        want = [t for x in off["res"][0][k] for t in x["token_ids"]]
+        gaps = []
+        for s in (got, want):
+            gap, ties = masked_reference(spec, params, prompts[i], s, comp, grammars[kind])
+            require(gap.max() <= NEAR_ARGMAX, f"guided spec {kind}: served token "
+                                              f"{gap.max():.3f} below the masked max")
+            gaps.append(ties)
+        tie = first_tie(gaps[0], NEAR_ARGMAX)
+        same = first_diff(got, want)
+        require(same >= tie or (got == want),
+                f"guided spec {kind}: spec on differs from off at {same}, before the first "
+                f"near-tie {tie}")
+        print(f"guided spec {kind}: on equals off for {same} of {len(got)} tokens "
+              f"(first near-tie {tie}); {vocab.text(got)[:60]!r}")
+    wall_on, wall_off = on["res"][2], off["res"][2]
+    print(f"guided spec: {len(vmasked)} verify dispatches ({sum(vmasked)} masked), kv_write "
+          f"{on['counts']['kv_write']} = {L} x {len(vmasked)}; wall {wall_on:.3f} s on vs "
+          f"{wall_off:.3f} s off; fused_decode on {on['counts']['fused_decode']}, off "
+          f"{off['counts']['fused_decode']}")
+    launches += on["counts"]["fused_decode"] + off["counts"]["fused_decode"]
+    print(f"guided phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches, on["counts"]["kv_write"]
+
+
 async def http_call(port, method, path, body=None, raw=None, drop_after=None,
                     on_chunk=None):
     """One HTTP/1.1 request on a connection of its own (stdlib only).
@@ -2345,6 +3042,23 @@ async def serve_features(drt, port, engine, spec, cfg, prompts, watcher, clear) 
     out["parsed_stream"] = await post("/v1/chat/completions", {
         "model": parsed, "messages": messages, "max_tokens": FEATURE_TOKENS, "tools": tools,
         "stream": True})
+    # guided decoding: a json_schema chat on the plain card, and a forced
+    # tool call through a card with the hermes parser alone (deepseek_r1
+    # would take the call for reasoning)
+    tooled = f"{name}-tools"
+    await register_llm(
+        drt, drt.namespace("dynamo").component("tools").endpoint("generate"),
+        engine.generate, model_name=tooled, context_length=engine.config.max_context,
+        kv_block_size=cfg["page_size"], router_mode="round_robin",
+        tool_call_parser="hermes")
+    await watcher.wait_for_model(tooled, timeout=30)
+    out["guided_schema"] = await post("/v1/chat/completions", {
+        "model": name, "messages": messages, "max_tokens": GUIDED_TOKENS,
+        "response_format": {"type": "json_schema",
+                            "json_schema": {"name": "smoke", "schema": GUIDED_SCHEMA}}})
+    out["guided_tool"] = await post("/v1/chat/completions", {
+        "model": tooled, "messages": messages, "max_tokens": GUIDED_TOOL_TOKENS,
+        "tools": [GUIDED_TOOL], "tool_choice": "required"})
     return out
 
 
@@ -2438,10 +3152,27 @@ def features_check(f: dict, L: int) -> int:
             and chunks[-1]["choices"][0]["finish_reason"]
             == plain["choices"][0]["finish_reason"],
             f"parsed chat stream: status {ss}, text equal {streamed == want}")
+    (gs, schema), (ts, tool) = f["guided_schema"], f["guided_tool"]
+    require(gs == ts == 200, f"guided chats: statuses {gs}, {ts}: {schema} {tool}")
+    content = schema["choices"][0]["message"]["content"]
+    doc = json.loads(content)
+    require(schema["choices"][0]["finish_reason"] == "stop"
+            and set(doc) == {"color", "name"} and doc["color"] in ("red", "green", "blue")
+            and isinstance(doc["name"], str) and len(doc["name"]) <= 8,
+            f"guided json_schema chat: {schema}")
+    calls = tool["choices"][0]["message"].get("tool_calls") or []
+    require(tool["choices"][0]["finish_reason"] == "tool_calls" and len(calls) == 1
+            and calls[0]["function"]["name"] == "get_weather"
+            and json.loads(calls[0]["function"]["arguments"])["city"] in ("Paris", "Oslo"),
+            f"guided forced tool call: {tool}")
     counts, steps = f["counts"], f["steps"]
     require(counts["fused_decode"] == L * steps and steps > 0 and f["replays"] == steps,
             f"features: fused_decode launched {counts['fused_decode']} times over "
             f"{steps} decode steps ({f['replays']} graph replays)")
+    print(f"serve http guided: json_schema chat {content!r} "
+          f"({schema['usage']['completion_tokens']} tokens, stop); forced tool call "
+          f"{calls[0]['function']['name']}({calls[0]['function']['arguments']}) "
+          f"({tool['usage']['completion_tokens']} tokens, tool_calls)")
     us, n_chunks = jail_us_per_chunk()
     print(f"serve http features: /v1/responses non-streamed and streamed equal the chat "
           f"completion (text, output tokens) at (prompt tokens, output tokens, deltas) "
@@ -2595,7 +3326,6 @@ def process_phase(spec, cfg, prompts, default_tokens, http_stats, device=None) -
     survivor alone; then every child
     SIGTERM'd within its deadline. Returns the workers'
     fused_decode launches, which must be 32 per logged step."""
-    import re
 
     from dynamo_tpu_torch.frontend.tokenizer import MockTokenizer
     from dynamo_tpu_torch.models.family import get_family
@@ -2671,6 +3401,15 @@ def process_phase(spec, cfg, prompts, default_tokens, http_stats, device=None) -
     require(all(x["launches"].get(k, 0) == 0 for x in logs for k in (
         "kv_write", "paged_decode_attention_v3", "fused_decode_attention/fp8")),
         f"processes: a worker launched another kernel form: {logs}")
+
+    status, body, _ = out["guided"]
+    guided = json.loads(body) if status == 200 else {}
+    text = guided["choices"][0]["text"] if guided else ""
+    require(status == 200 and guided["choices"][0]["finish_reason"] == "stop"
+            and re.fullmatch(r"[ \n\t\r]{0,3}" + GUIDED_REGEX + r"[ \n\t\r]{0,3}", text),
+            f"processes: guided completion {status} {body[:300]!r}")
+    print(f"processes: guided regex completion through the frontend process: {text!r} "
+          f"({guided['usage']['completion_tokens']} tokens, stop)")
 
     # every stream through the frontend: both workers, then the survivor
     tok = MockTokenizer()
@@ -2788,7 +3527,6 @@ def process_phase(spec, cfg, prompts, default_tokens, http_stats, device=None) -
 
 async def _drive_processes(spec, prompts, hub, port, workers, front):
     """Phase 11's traffic, on this process's own loop."""
-    import re
     import signal
 
     from dynamo_tpu_torch.runtime.config import RuntimeConfig
@@ -2874,6 +3612,11 @@ async def _drive_processes(spec, prompts, hub, port, workers, front):
         # the frontend set again, now that both workers have served traffic
         await clear_caches()
         out["again"], out["again_wall"] = await frontend_streams()
+        # one guided completion: the frontend lowers the regex, the wire
+        # carries it, a worker process compiles it against its vocabulary
+        out["guided"] = await http_call(port, "POST", "/v1/completions", {
+            "model": name, "prompt": "code:", "max_tokens": GUIDED_TOKENS,
+            "nvext": {"guided_regex": GUIDED_REGEX}})
         # prefix families through this process's own KV router, then the
         # same waves round robin, each on cleared caches
         out["prefix"] = await _prefix_family_set(drt, spec, clear_caches)
@@ -3383,6 +4126,10 @@ def main() -> int:
     # the overload plane on the same weights: priority, preemption, quotas
     overload_launches = overload_phase(spec, cfg, params, prompts)
 
+    # guided decoding on the same weights: masked graphs, a mixed serve,
+    # guided x spec
+    guided_launches, guided_kv_launches = guided_phase(spec, cfg, params, prompts)
+
     # the same weights served over HTTP by the one-process stack
     http_launches, http_stats = http_serve(spec, dict(cfg, kv_dtype="bf16"), params,
                                            prompts, default_out, bf16_tokens)
@@ -3394,9 +4141,9 @@ def main() -> int:
     process_launches = process_phase(spec, cfg, prompts, bf16_tokens, http_stats)
 
     launches = {"fused_decode": serve_launches["fused_decode"] + http_launches
-                + process_launches + overload_launches,
+                + process_launches + overload_launches + guided_launches,
                 "paged_attention_v3": unfused[0], "kv_write": unfused[2],
-                "kv_write/verify": spec_kv_launches,
+                "kv_write/verify": spec_kv_launches + guided_kv_launches,
                 "fused_decode/fp8": serve_fp8["fused_decode/fp8"],
                 "paged_attention_v3/fp8": unfused_fp8[1],
                 "kv_write/fp8": unfused_fp8[3],

@@ -324,14 +324,18 @@ class EngineConfig:
     # re-prefill. False = interactive waits like everyone else.
     preemption: bool = True
 
+    # -- guided decoding (guided/): "off" refuses guided requests; "auto"
+    # serves them when the engine has a token vocabulary. The compiler keeps
+    # guided_cache_entries compiled grammars in its LRU
+    guided_mode: str = "auto"  # "auto" | "off"
+    guided_cache_entries: int = 32
+
     # -- JAX engine only, until their slices are ported (see UNPORTED) ------
     tp: int = 1
     dp: int = 1
     sp: int = 1
     ep: int = 1
     pp: int = 1
-    guided_mode: str = "auto"  # "auto" | "off"
-    guided_cache_entries: int = 32
     profile: bool = False
 
     def __post_init__(self) -> None:
@@ -372,12 +376,9 @@ class EngineConfig:
 
 
 _PARALLEL = "parallelism (ROADMAP Queue A item 11)"
-# fields of features the port's engine lacks -> what is missing. guided_mode
-# is not here: the engine refuses guided requests itself, as the reference
-# engine with guided_mode="off" does, so "auto" and "off" serve alike
+# fields of features the port's engine lacks -> what is missing
 UNPORTED = {
     "tp": _PARALLEL, "dp": _PARALLEL, "sp": _PARALLEL, "ep": _PARALLEL, "pp": _PARALLEL,
-    "guided_cache_entries": "guided decoding (ROADMAP Queue A item 7)",
     "profile": "the step-phase profiler (ROADMAP Queue A item 13)",
 }
 _UNPORTED_DEFAULTS = {f.name: f.default for f in fields(EngineConfig) if f.name in UNPORTED}

@@ -60,9 +60,25 @@ ignore_eos, stop_token_ids, min_tokens); ``eos_token_ids``;
 ``output_options.logprobs`` (the sampled token's logprob plus the top N,
 N clamped to 20).
 
-Not in this engine yet (see ROADMAP): guided decoding (a request marked
-``guided`` is refused with a typed ``invalid_request`` error item, as the
-reference engine with guided decoding off does), KVBM and disagg,
+Guided decoding (guided/): with a token vocabulary (``guided_vocab``, which
+the worker builds from its tokenizer) a request carrying a grammar
+(``guided``: the frontend's ``{regex, key, kind, prompt_len}``) compiles it
+at intake, off the step thread, and a bad grammar or the armed
+``engine.guided_compile`` fault site is a typed ``invalid_request`` error
+item (HTTP 400) with no page, no slot and no quota charge kept; without a
+vocabulary (or ``guided_mode="off"``) every guided request is refused so.
+Its slot carries a ``GuidedState`` cursor advanced on the host as tokens
+land. Its first token is sampled synchronously under the start state's
+mask; while a constrained slot is live the engine leaves pipelining and
+dispatches single masked steps (a pipelined burst's mask would predate
+the in-flight tokens), free slots riding the same step with all-True rows;
+with speculation a greedy guided slot walks its draft on a scratch cursor
+and verifies under [n, W, V] masks. It is never a preemption victim.
+``dynamo_guided_requests_total{outcome}`` counts each finish (ok,
+truncated, violation, aborted) and each refusal (compile_error,
+unavailable).
+
+Not in this engine yet (see ROADMAP): KVBM and disagg,
 SPMD/meshes, multimodal, embeddings, telemetry and tracing, the fault
 sites other than ``engine.spec_verify``, ``engine.preempt`` and the
 ``migration.resume`` corrupt site, the MoE dropped-slot count
@@ -88,11 +104,13 @@ from dynamo_tpu_torch.engine.config import EngineConfig, ModelSpec
 from dynamo_tpu_torch.engine.graphs import DecodeGraphs, HostCopy, VerifyGraphs
 from dynamo_tpu_torch.engine.sampling import (
     greedy_tokens,
+    mask_logits,
     sample_tokens,
     token_logprobs,
 )
 from dynamo_tpu_torch.engine.spec import SPEC_TOKENS, SlotSpec
 from dynamo_tpu_torch.engine.tenancy import TenantScheduler
+from dynamo_tpu_torch.guided.runtime import GUIDED_REQUESTS, GrammarCompiler
 from dynamo_tpu_torch.kv_router.protocols import ForwardPassMetrics
 from dynamo_tpu_torch.models.family import get_family
 from dynamo_tpu_torch.models.llama import resolve_device
@@ -146,6 +164,9 @@ class _Slot:
     priority: str = "interactive"
     request: dict[str, Any] | None = None
     admitted_seq: int = 0  # monotonic admission order (preempt newest first)
+    # guided decoding (guided/runtime.py): the grammar cursor the host
+    # advances as tokens land, None for a free slot
+    guided: Any | None = None
 
 
 @dataclass
@@ -213,6 +234,7 @@ class InferenceEngine:
         device: str | torch.device | None = None,
         event_publisher=None,
         metrics_publisher=None,
+        guided_vocab=None,
     ):
         self.spec = spec
         self.config = config or EngineConfig()
@@ -283,11 +305,21 @@ class InferenceEngine:
         # variant), as the JAX engine's static n_logprobs
         self._n_lp = (min(20, spec.vocab_size - 1)
                       if self.fam.supports_logprobs else 0)
+        # guided decoding (guided/): the grammar compiler and its per-
+        # (grammar, vocab) mask cache; needs a token vocabulary (the worker
+        # builds one from its tokenizer, tests pass one)
+        self._guided = None
+        if guided_vocab is not None and cfg.guided_mode != "off":
+            self._guided = GrammarCompiler(
+                guided_vocab, vocab_size=spec.vocab_size,
+                cache_entries=cfg.guided_cache_entries)
+        # with a compiler, the decode and verify graphs get masked variants
+        mask_width = spec.vocab_size if self._guided is not None else None
         self._graphs = DecodeGraphs(
             self._graph_step, batch=len(self._slots),
             pages_per_seq=cfg.max_pages_per_seq,
             max_steps=max(1, cfg.decode_steps_per_dispatch),
-            n_logprobs=self._n_lp, device=self.device,
+            n_logprobs=self._n_lp, device=self.device, vocab_size=mask_width,
         )
         # speculative decoding (engine/spec.py): the verify grid, one
         # captured graph per power-of-two row count at width k_max + 1
@@ -296,6 +328,7 @@ class InferenceEngine:
         self._verify = VerifyGraphs(
             self._verify_fn, batch=len(self._slots), width=cfg.spec_k_max + 1,
             pages_per_seq=cfg.max_pages_per_seq, device=self.device,
+            vocab_size=mask_width,
         ) if self._spec_on else None
         self.spec_verifies = 0  # verify dispatches issued
         self.spec_drafted = 0  # draft tokens proposed into verifies
@@ -360,7 +393,8 @@ class InferenceEngine:
 
     def precompile(self) -> None:
         """Capture every decode graph variant, and with spec on the verify
-        grid, now, before traffic (the JAX engine's precompile()). Call
+        grid, now, before traffic (the JAX engine's precompile()); the
+        masked variants too when the engine serves guided requests. Call
         before start() or while idle; a no-op on the CPU."""
         self._graphs.precompile()
         if self._verify is not None:
@@ -497,15 +531,29 @@ class InferenceEngine:
                 retry_after_s=quota_retry,
             )
         if request.get("guided"):
-            # no guided decoding here yet: refuse as the reference engine
-            # does with guided_mode=off (a typed invalid_request -> HTTP
-            # 400); zero service rendered, so the charge comes back
-            self._waiting.refund(tenant, cost)
-            yield {"token_ids": [], "finish_reason": "error",
-                   "error": "invalid_request: guided decoding unavailable on this "
-                            "worker (guided_mode=off, multi-host SPMD, or no "
-                            "tokenizer vocabulary)"}
-            return
+            # compile (or fetch) the grammar before admission, off the step
+            # thread: a bad grammar bounces here as a typed invalid_request
+            # (HTTP 400) with no slot or page touched, and a good one is a
+            # cache hit when _make_slot builds the slot's cursor
+            err = outcome = None
+            if self._guided is None:
+                outcome = "unavailable"
+                err = ("guided decoding unavailable on this worker "
+                       "(guided_mode=off, multi-host SPMD, or no tokenizer "
+                       "vocabulary)")
+            else:
+                try:
+                    await asyncio.to_thread(self._guided.compile, request["guided"])
+                except Exception as e:  # noqa: BLE001
+                    outcome = "compile_error"
+                    err = f"guided grammar rejected: {e}"
+            if err is not None:
+                GUIDED_REQUESTS.labels(outcome=outcome).inc()
+                # zero service rendered: the quota charge comes back
+                self._waiting.refund(tenant, cost)
+                yield {"token_ids": [], "finish_reason": "error",
+                       "error": f"invalid_request: {err}"}
+                return
         if max_waiting and self._waiting.qsize() >= max_waiting:
             # re-check at the enqueue (arrivals that passed the early check
             # together must not blow past the bound): shed the lowest-
@@ -783,12 +831,15 @@ class InferenceEngine:
         """Preemption victim policy: batch-class slots only, over-quota
         tenants first, newest admission first (the oldest batch stream
         keeps its progress). Slots whose first token is still on the device
-        are not eligible."""
+        are not eligible, nor are guided slots (a resume would have to carry
+        the grammar cursor, which a plain text re-prefill does not)."""
         best: tuple[tuple[int, int], int, _Slot] | None = None
         for i, slot in enumerate(self._slots):
             if slot is None or slot.priority != "batch":
                 continue
             if slot.first_pending or slot.context.is_stopped or slot.remaining < 1:
+                continue
+            if slot.guided is not None:
                 continue
             over = self._waiting.tenant_over_quota(slot.tenant)
             key = (0 if over else 1, -slot.admitted_seq)
@@ -1177,6 +1228,21 @@ class InferenceEngine:
         slot_spec = None
         if self._spec_on and temperature <= 0.0 and logprobs is None:
             slot_spec = SlotSpec.for_config(self.config)
+        guided_state = None
+        g = req.get("guided")
+        if g and self._guided is not None:
+            # the slot's grammar cursor (a cache hit: generate() compiled
+            # it). End-of-stream and stop ids join the mask at accepting
+            # states only. Tokens past prompt_len are completions a
+            # migration folded into the prompt: the cursor walks them, so a
+            # resumed stream continues mid-grammar
+            token_ids = req.get("token_ids") or []
+            guided_state = self._guided.state_for(
+                g,
+                eos_ids=(frozenset(req.get("eos_token_ids") or (2,))
+                         | frozenset(stop.get("stop_token_ids") or ())),
+                prefix_tokens=token_ids[int(g.get("prompt_len") or len(token_ids)):],
+            )
         self._admit_seq += 1
         return _Slot(
             request_id=waiting.context.id,
@@ -1202,13 +1268,18 @@ class InferenceEngine:
             priority=waiting.priority,
             request=req,
             admitted_seq=self._admit_seq,
+            guided=guided_state,
         )
 
     @staticmethod
-    def _sample(logits: torch.Tensor, temps, topk, topp, seeds) -> torch.Tensor:
+    def _sample(logits: torch.Tensor, temps, topk, topp, seeds,
+                allowed: np.ndarray | None = None) -> torch.Tensor:
         """First tokens [n] on the device (RNG step 0): the argmax for an
         all-greedy batch, the full sampler otherwise (decided on the host
-        from its own arrays)."""
+        from its own arrays). ``allowed`` [n, V] masks the logits first
+        (``sample_tokens_masked``)."""
+        if allowed is not None:
+            logits = mask_logits(logits, torch.from_numpy(allowed))
         if not any(t > 0.0 for t in temps):
             return greedy_tokens(logits)
         n = logits.shape[0]
@@ -1220,14 +1291,20 @@ class InferenceEngine:
             torch.zeros(n, dtype=torch.int64),
         )
 
-    def _sample_slots(self, logits: torch.Tensor, slots: list[_Slot]) -> torch.Tensor:
+    def _sample_slots(self, logits: torch.Tensor, slots: list[_Slot],
+                      allowed: np.ndarray | None = None) -> torch.Tensor:
         return self._sample(logits, [s.temperature for s in slots],
                             [s.top_k for s in slots], [s.top_p for s in slots],
-                            [s.sample_seed for s in slots])
+                            [s.sample_seed for s in slots], allowed)
 
     def _needs_sync_admission(self, req: dict) -> bool:
         """True when the admission must read its first token and logits on
-        the host at once (logprob entries)."""
+        the host at once: logprob entries, and guided requests (the first
+        token must respect the grammar's start state, and the cursor must
+        advance on its host value before the next mask is built, which the
+        async path's deferred landing breaks)."""
+        if req.get("guided"):
+            return True
         return ((req.get("output_options") or {}).get("logprobs") is not None
                 and self.fam.supports_logprobs)
 
@@ -1266,7 +1343,8 @@ class InferenceEngine:
                 sample_seed=r.pre[2] if r.pre is not None else None)
                 for r in records]
             stacked = torch.stack([r.logits for r in records])
-            sampled = self._sample_slots(stacked, slots)
+            sampled = self._sample_slots(
+                stacked, slots, self._admission_guided_mask(slots))
             lp = top_i = top_v = None
             if any(s.logprobs is not None for s in slots):
                 picked, ti, tv = token_logprobs(stacked, sampled, self._n_lp)
@@ -1288,6 +1366,18 @@ class InferenceEngine:
                                   "logprob": float(top_v[i, t])}
                                  for t in range(slot.logprobs)]}
             self._emit_token(r.slot_idx, slot, tok, logprob_entry=entry)
+
+    def _admission_guided_mask(self, slots: list[_Slot]) -> np.ndarray | None:
+        """[n, V] allowed mask for a first-token sample, or None when no
+        slot is constrained (the all-free batch samples unmasked). Free
+        rows are all-True, the identity under the mask."""
+        if not any(s.guided is not None and s.guided.constraining for s in slots):
+            return None
+        allowed = np.ones((len(slots), self.spec.vocab_size), bool)
+        for i, slot in enumerate(slots):
+            if slot.guided is not None and slot.guided.constraining:
+                allowed[i] = slot.guided.mask()
+        return allowed
 
     def _complete_admissions_async(self, records: list[_Admitted]) -> None:
         """Async admission: slots installed with ``first_pending`` and
@@ -1446,11 +1536,17 @@ class InferenceEngine:
                 round(self.spec_accepted / judged, 4) if judged else None),
         }
 
-    def _verify_fn(self, tokens, block_tables, start_pos, num_tokens):
+    def guided_snapshot(self) -> dict[str, Any] | None:
+        """The grammar compiler's cache counters (compiles, hits, compile
+        ms); None when this engine serves no guided request."""
+        return self._guided.snapshot() if self._guided is not None else None
+
+    def _verify_fn(self, tokens, block_tables, start_pos, num_tokens, allowed=None):
         """The verify VerifyGraphs captures (bound to the engine's weights
-        and pools)."""
+        and pools); ``allowed`` [n, W, V] in its masked captures."""
         return self.fam.verify(self.spec, self.params, tokens, block_tables,
-                               start_pos, self.k_pages, self.v_pages, num_tokens)
+                               start_pos, self.k_pages, self.v_pages, num_tokens,
+                               allowed)
 
     def _spec_managed(self, slot: _Slot) -> bool:
         """True while the slot takes the verify path INSTEAD of decode
@@ -1478,7 +1574,7 @@ class InferenceEngine:
             for i in range(B):
                 if pb["batch"]["active"][i] and self._slot_matches(i, pb["batch"]):
                     covered[i] = True
-        cands: list[tuple[int, _Slot, list[int]]] = []
+        cands: list[tuple[int, _Slot, list[int], list | None]] = []
         for i, slot in enumerate(self._slots):
             if slot is None or not self._spec_managed(slot):
                 continue
@@ -1492,14 +1588,21 @@ class InferenceEngine:
                         cfg.spec_k_max)
             slot.spec.sync_from_seq(slot.seq)
             draft = [int(t) for t in slot.spec.propose(k_cap)] if k_cap > 0 else []
-            cands.append((i, slot, draft))
+            masks = None
+            if slot.guided is not None and slot.guided.constraining:
+                # guided x spec: the draft's grammar-legal prefix, walked on
+                # a scratch cursor, with the mask of every verify position;
+                # the real cursor advances only over emitted tokens, so a
+                # rejected tail needs no rollback
+                draft, masks = slot.guided.lookahead(draft)
+            cands.append((i, slot, draft, masks))
         if not cands:
             return False
 
         # page room for the fed token + drafts: OutOfPages trims the draft
         # to the pages held; a slot that cannot hold its fed token stalls
-        ready: list[tuple[int, _Slot, list[int], int]] = []
-        for i, slot, draft in cands:
+        ready: list[tuple[int, _Slot, list[int], int, list | None]] = []
+        for i, slot, draft, masks in cands:
             m = 1 + len(draft)
             base_pages = slot.pages.num_pages
             while (slot.seq_len + m - 1) // cfg.page_size >= slot.pages.num_pages:
@@ -1517,7 +1620,7 @@ class InferenceEngine:
                     slot.spec.disable()
                 continue
             slot.stalled_steps = 0
-            ready.append((i, slot, draft[: m - 1], base_pages))
+            ready.append((i, slot, draft[: m - 1], base_pages, masks))
         if not ready:
             return False
 
@@ -1528,7 +1631,7 @@ class InferenceEngine:
                 # request decodes on untouched state
                 FAULTS.fire_sync("engine.spec_verify")
             except (FaultInjected, FaultDrop) as e:
-                for _i, slot, _draft, base_pages in ready:
+                for _i, slot, _draft, base_pages, _masks in ready:
                     self.allocator.release(slot.pages.truncate(base_pages))
                     slot.spec.disable()
                 log.warning("spec verify fault (%s): %d slot(s) fall back to "
@@ -1543,18 +1646,29 @@ class InferenceEngine:
         bts = np.zeros((n, cfg.max_pages_per_seq), np.int32)
         starts = np.zeros((n,), np.int32)
         nts = np.zeros((n,), np.int32)
-        for r, (_i, slot, draft, _bp) in enumerate(ready):
+        allowed = None
+        if any(masks is not None for *_r, masks in ready):
+            # [n, W, V] guided masks: row r position j constrains the
+            # target's choice after draft[:j], so a rejected draft's
+            # correction is itself grammar-legal; free and padded rows stay
+            # all-True
+            allowed = np.ones((n, W, self.spec.vocab_size), bool)
+        for r, (_i, slot, draft, _bp, masks) in enumerate(ready):
             row = [slot.last_token, *draft]
             tokens[r, : len(row)] = row
             bts[r, : slot.pages.num_pages] = slot.pages.pages
             starts[r] = slot.seq_len
             nts[r] = len(row)
+            if allowed is not None and masks is not None:
+                for j in range(min(len(row), len(masks))):
+                    allowed[r, j] = masks[j]
         t0 = time.perf_counter()
-        targets = self._verify.dispatch(tokens, bts, starts, nts).wait().numpy()
+        targets = self._verify.dispatch(tokens, bts, starts, nts,
+                                        allowed).wait().numpy()
         self.verify_times.append(time.perf_counter() - t0)
         self.spec_verifies += 1
         self.spec_rows += len(ready)
-        for r, (i, slot, draft, _bp) in enumerate(ready):
+        for r, (i, slot, draft, _bp, _masks) in enumerate(ready):
             if self._slots[i] is slot:
                 self._process_verify(i, slot, draft, targets[r])
         self._publish_metrics()
@@ -1624,9 +1738,18 @@ class InferenceEngine:
         detected up to depth bursts late (discarded, as a mid-burst stop);
         cancels flush the pipeline first (_step).
 
+        While a grammar-constrained slot is live the engine leaves
+        pipelining: it flushes the in-flight bursts, then dispatches
+        synchronous single masked steps (a pipelined burst would carry a
+        mask computed before the in-flight tokens advanced the cursor).
+        Free-only batches keep the pipeline.
+
         Returns False when nothing could be built (every live slot
         page-stalled), so the loop paces on the idle wait."""
-        if self.config.pipeline_decode:
+        if self.config.pipeline_decode and self._guided_live():
+            # flush, then fall through to the synchronous schedule below
+            self._flush_pipeline()
+        elif self.config.pipeline_decode:
             batch = self._build_batch(self._pipeline)
             if batch is None:
                 if self._pipeline:
@@ -1650,6 +1773,12 @@ class InferenceEngine:
         self._process_burst(self._dispatch_burst(batch, chain=None))
         self._eager_readmit(before - sum(s is not None for s in self._slots))
         return True
+
+    def _guided_live(self) -> bool:
+        """True while any live slot is grammar-constrained (those cycles run
+        the synchronous dispatch-process schedule)."""
+        return any(s is not None and s.guided is not None and s.guided.constraining
+                   and not s.context.is_stopped for s in self._slots)
 
     def _flush_pipeline(self) -> None:
         """Process every in-flight burst, so slot state is exact."""
@@ -1698,6 +1827,11 @@ class InferenceEngine:
                 # an overshooting position would index past the table
                 n_burst = max(1, min(n_burst, cfg.max_context - slot.seq_len
                                      - int(extra[i])))
+                if slot.guided is not None and slot.guided.constraining:
+                    # a constrained slot's mask holds for one token (the
+                    # cursor advances as tokens land): the whole batch runs
+                    # single steps, free slots in the same dispatch
+                    n_burst = 1
 
         for i, slot in enumerate(self._slots):
             if slot is None:
@@ -1749,8 +1883,19 @@ class InferenceEngine:
         # one logprob width whenever any slot asks: a graph variant, as
         # n_logprobs is a static argument of the JAX engine's program
         wants_lp = any(s is not None and s.logprobs is not None for s in self._slots)
+        # the burst's guided mask: None unless an active slot is constrained
+        # (an all-free batch runs the unmasked graph)
+        allowed = None
+        if any(active[i] and self._slots[i].guided is not None
+               and self._slots[i].guided.constraining for i in range(B)):
+            allowed = np.ones((B, self.spec.vocab_size), bool)
+            for i in range(B):
+                slot = self._slots[i]
+                if active[i] and slot.guided is not None and slot.guided.constraining:
+                    allowed[i] = slot.guided.mask()
         return {
             "n_burst": n_burst, "n_lp": self._n_lp if wants_lp else 0,
+            "allowed": allowed,
             "active": active,
             "participants": {i: self._slots[i].request_id
                              for i in range(B) if active[i]},
@@ -1797,7 +1942,8 @@ class InferenceEngine:
         t0 = time.perf_counter()
         burst = self._graphs.dispatch(
             inputs, batch["n_burst"], sampled=sampled, n_logprobs=batch["n_lp"],
-            feeds=feeds, feed_src=feed_src, feed_idx=feed_idx)
+            feeds=feeds, feed_src=feed_src, feed_idx=feed_idx,
+            allowed=batch["allowed"])
         self.steps += batch["n_burst"]
         return {"batch": batch, "burst": burst, "t0": t0}
 
@@ -1872,10 +2018,20 @@ class InferenceEngine:
         slot.generated += 1
         slot.remaining -= 1
         slot.last_token = tok
+        if slot.guided is not None and not slot.guided.advance(tok):
+            # every path a constrained slot samples on is masked, so an
+            # off-grammar token marks an unmasked escape: the slot decodes
+            # free from here and counts as a violation at its finish
+            log.warning("guided slot %s emitted off-grammar token %d; "
+                        "constraint released", slot.request_id, tok)
+        # a completed grammar leaves only its end ids legal (eos and stop
+        # ids join its cursor): min_tokens must not pad past it
+        done = (slot.guided is not None and slot.guided.done
+                and not slot.guided.violated)
         if (not slot.ignore_eos and tok in slot.eos_ids
-                and slot.generated >= slot.min_tokens):
+                and (slot.generated >= slot.min_tokens or done)):
             return "stop"
-        if tok in slot.stop_token_ids and slot.generated >= slot.min_tokens:
+        if tok in slot.stop_token_ids and (slot.generated >= slot.min_tokens or done):
             return "stop"
         if slot.remaining <= 0:
             return "length"
@@ -1898,6 +2054,17 @@ class InferenceEngine:
         self, slot_idx: int, slot: _Slot, reason: str,
         *, error: str | None = None, emit: bool = True,
     ) -> None:
+        if slot.guided is not None:
+            # ok only when the grammar reached acceptance: max_tokens or a
+            # stop sequence cutting it mid-grammar is truncated (the client
+            # got a prefix, not a document); a cancel or an error is aborted
+            if slot.guided.violated:
+                outcome = "violation"
+            elif reason in ("stop", "length"):
+                outcome = "ok" if slot.guided.conformant else "truncated"
+            else:
+                outcome = "aborted"
+            GUIDED_REQUESTS.labels(outcome=outcome).inc()
         # release BEFORE posting the finish item, so a client seeing the
         # end of its stream sees the pages freed
         pages, slot.pages.pages = slot.pages.pages, []

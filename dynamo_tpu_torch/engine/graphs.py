@@ -29,11 +29,21 @@ Launch counts: a kernel wrapper counts a launch made under capture as
 kernel's captured launches, and every replay adds them to the wrapper's
 ``launches``, so the counters stay true under graphs.
 
+Guided decoding adds a masked variant of each (``vocab_size`` given): a
+static [B, V] bool mask the captured step applies to its logits before
+the sample and the logprobs (``models/llama.decode_step_``), filled per
+dispatch by one more host-to-device copy from a pinned [B, V] staging
+buffer. A masked burst is one step (a mask holds for one position: the
+host advances each slot's grammar cursor as its token lands), as the JAX
+engine dispatches its masked bursts. The mask tensor keeps its address:
+every dispatch copies into it, nothing rebinds it.
+
 ``VerifyGraphs`` does the same for the speculative verify
 (``models/llama.verify_forward``): one graph per power-of-two row count at
 the static width ``spec_k_max + 1``, the counterpart of the JAX engine's
 verify programs, with one staged copy in and one targets copy out per
-dispatch.
+dispatch; with ``vocab_size`` a masked capture per row count reads a
+static [R, W, V] bool mask (guided x spec), staged as the decode mask is.
 
 Graphs hold raw pointers to the KV pools and the weights: ``release()``
 drops them before either is freed.
@@ -126,6 +136,7 @@ class DecodeGraphs:
         max_steps: int,
         n_logprobs: int,
         device: torch.device,
+        vocab_size: int | None = None,
     ):
         self.step = step
         self.batch, self.max_steps = batch, max_steps
@@ -150,24 +161,34 @@ class DecodeGraphs:
             (1 + max_steps) * record_width(B, n_logprobs), dtype=torch.int32,
             device=device)
         self.t = StepTensors(**views, out=self.out_flat[:0])
-        self._graphs: dict[tuple[bool, int], tuple] = {}
+        # the masked variants' static [B, V] mask (None: no masked variant)
+        self.allowed = (None if vocab_size is None else
+                        torch.ones((B, vocab_size), dtype=torch.bool, device=device))
+        self._graphs: dict[tuple[bool, int, bool], tuple] = {}
         self._pool = None
         self.replays = 0
 
     # -- variants ----------------------------------------------------------
 
-    def _tensors(self, n_logprobs: int) -> StepTensors:
+    def _tensors(self, n_logprobs: int, masked: bool = False) -> StepTensors:
         R = record_width(self.batch, n_logprobs)
         out = self.out_flat[: (1 + self.max_steps) * R].view(1 + self.max_steps, R)
-        return dataclasses.replace(self.t, out=out)
+        return dataclasses.replace(self.t, out=out,
+                                   allowed=self.allowed if masked else None)
+
+    def variants(self) -> list[tuple[bool, int, bool]]:
+        """Every (sampled, n_logprobs, masked) variant: four, or eight with
+        the masked ones."""
+        masks = (False, True) if self.allowed is not None else (False,)
+        return [(s, n, m) for m in masks for s in (False, True)
+                for n in (0, self.n_logprobs)]
 
     def precompile(self, variants=None) -> None:
-        """Capture ``variants`` ((sampled, n_logprobs) pairs; default all
-        four) now, as the JAX engine's precompile() compiles each burst
-        shape before traffic. A no-op on the CPU."""
+        """Capture ``variants`` ((sampled, n_logprobs, masked) triples;
+        default all of them) now, as the JAX engine's precompile() compiles
+        each burst shape before traffic. A no-op on the CPU."""
         if self.cuda:
-            for key in variants or [(s, n) for s in (False, True)
-                                    for n in (0, self.n_logprobs)]:
+            for key in variants or self.variants():
                 self._graph(key)
 
     def release(self) -> None:
@@ -176,21 +197,23 @@ class DecodeGraphs:
         self._graphs.clear()
         self._pool = None
 
-    def _graph(self, key: tuple[bool, int]):
+    def _graph(self, key: tuple[bool, int, bool]):
         if key not in self._graphs:
             self._graphs[key] = self._capture(*key)
         return self._graphs[key]
 
-    def _capture(self, sampled: bool, n_logprobs: int):
+    def _capture(self, sampled: bool, n_logprobs: int, masked: bool):
         """Warm up on a side stream (cuBLAS picks its algorithms and
         workspace outside the graph), then capture one step. Both run over
         blank inputs: every slot inactive, so the step only writes trash
-        page 0. Returns (graph, {kernel wrapper: (launches, fp8 launches)
-        per replay})."""
+        page 0 (and an all-True mask). Returns (graph, {kernel wrapper:
+        (launches, fp8 launches) per replay})."""
         from dynamo_tpu_torch.ops.cuda.build import KERNELS
 
-        t = self._tensors(n_logprobs)
+        t = self._tensors(n_logprobs, masked)
         self.flat.zero_()
+        if masked:
+            self.allowed.fill_(True)
         self.t.seq_lens.fill_(1)
         cur = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
@@ -223,20 +246,29 @@ class DecodeGraphs:
         feeds: list[torch.Tensor] = (),
         feed_src: np.ndarray | None = None,
         feed_idx: np.ndarray | None = None,
+        allowed: np.ndarray | None = None,
     ) -> Burst:
         """One burst of ``n_steps`` model steps. ``inputs`` holds the host
         arrays of the step tensors (tokens, block_tables, seq_lens, active,
         temperature, top_k, top_p, seeds, steps). Row i's token is then
         replaced on the device by ``feeds[feed_src[i]][feed_idx[i]]`` where
-        ``feed_src[i] >= 0``. ``n_logprobs`` is 0 or the object's width."""
+        ``feed_src[i] >= 0``. ``n_logprobs`` is 0 or the object's width.
+        ``allowed`` ([B, V] bool, host) runs the masked variant, one step."""
         if not 1 <= n_steps <= self.max_steps:
             raise ValueError(f"burst of {n_steps} steps (1..{self.max_steps})")
         if n_logprobs not in (0, self.n_logprobs):
             raise ValueError(f"n_logprobs {n_logprobs} is not 0 or {self.n_logprobs}")
-        key = (bool(sampled), n_logprobs)
+        masked = allowed is not None
+        if masked and (self.allowed is None or n_steps != 1
+                       or tuple(allowed.shape) != tuple(self.allowed.shape)):
+            raise ValueError(
+                f"masked burst of {n_steps} steps, mask {tuple(allowed.shape)}: "
+                "one step over a [batch, vocab_size] mask of a DecodeGraphs "
+                "built with vocab_size")
+        key = (bool(sampled), n_logprobs, masked)
         if self.cuda:
             graph, per_replay = self._graph(key)
-        t = self._tensors(n_logprobs)
+        t = self._tensors(n_logprobs, masked)
         B = self.batch
         staging = torch.empty(self.flat.numel(), dtype=torch.int32,
                               pin_memory=self.cuda)
@@ -251,6 +283,8 @@ class DecodeGraphs:
             else:  # ints and bools; a uint32 seed keeps its bits
                 host[s] = arr.astype(np.int64).astype(np.int32).reshape(-1)
         self.flat.copy_(staging, non_blocking=True)
+        if masked:
+            self.allowed.copy_(_pinned(allowed, self.cuda), non_blocking=True)
         for j, src in enumerate(feeds):
             pick = self.feed_src == j
             fed = src[self.feed_idx.long().clamp(0, src.shape[0] - 1)]
@@ -263,10 +297,18 @@ class DecodeGraphs:
                     fn.launches += n
                     fn.fp8_launches += n8
             else:
-                self.step(t, key[0], n_logprobs)
+                self.step(t, sampled, n_logprobs)
         if self.cuda:
             self.replays += n_steps
         return Burst(t.out[: 1 + n_steps].clone(), B, n_steps, n_logprobs)
+
+
+def _pinned(arr: np.ndarray, pin: bool) -> torch.Tensor:
+    """A host bool array in pinned staging memory (the caching host
+    allocator's: a block returns to it only once its copy has run)."""
+    staging = torch.empty(arr.shape, dtype=torch.bool, pin_memory=pin)
+    staging.numpy()[...] = arr
+    return staging
 
 
 def verify_row_counts(batch: int) -> list[int]:
@@ -283,8 +325,8 @@ class VerifyGraphs:
     """The speculative-verify grid: static device inputs for up to
     ``verify_row_counts(batch)[-1]`` rows of ``width`` tokens (tokens
     [R, W], block tables [R, P], start positions [R], token counts [R],
-    int32) and ``verify(tokens, block_tables, start_pos, num_tokens) ->
-    targets [n, W]`` (the family's verify bound to the model and pools)
+    int32) and ``verify(tokens, block_tables, start_pos, num_tokens[,
+    allowed]) -> targets [n, W]`` (the family's verify bound to the model and pools)
     captured once per row count n over the first n rows: the counterpart
     of the JAX engine's verify programs, one per power-of-two row count at
     the static width ``spec_k_max + 1``.
@@ -303,6 +345,7 @@ class VerifyGraphs:
         width: int,
         pages_per_seq: int,
         device: torch.device,
+        vocab_size: int | None = None,
     ):
         self.verify = verify
         self.row_counts = verify_row_counts(batch)
@@ -321,7 +364,10 @@ class VerifyGraphs:
         self._shapes = {"tokens": (R, W), "block_tables": (R, P),
                         "start_pos": (R,), "num_tokens": (R,)}
         self.targets = torch.zeros((R, W), dtype=torch.int32, device=device)
-        self._graphs: dict[int, tuple] = {}
+        # the masked captures' static [R, W, V] mask (None: none)
+        self.allowed = (None if vocab_size is None else
+                        torch.ones((R, W, vocab_size), dtype=torch.bool, device=device))
+        self._graphs: dict[tuple[int, bool], tuple] = {}
         self._pool = None
         self.replays = 0
 
@@ -330,60 +376,76 @@ class VerifyGraphs:
         return [self.flat[s].view(self._shapes[name])[:n]
                 for name, s in self._slices.items()]
 
-    def _run(self, n: int) -> None:
-        self.targets[:n].copy_(self.verify(*self._inputs(n)))
+    def _run(self, n: int, masked: bool = False) -> None:
+        args = self._inputs(n) + ([self.allowed[:n]] if masked else [])
+        self.targets[:n].copy_(self.verify(*args))
+
+    def variants(self) -> list[tuple[int, bool]]:
+        """Every (row count, masked) capture."""
+        masks = (False, True) if self.allowed is not None else (False,)
+        return [(n, m) for m in masks for n in self.row_counts]
 
     def precompile(self) -> None:
-        """Capture every row count now (a no-op on the CPU)."""
+        """Capture every row count, masked too when the object has a mask,
+        now (a no-op on the CPU)."""
         if self.cuda:
-            for n in self.row_counts:
-                self._graph(n)
+            for key in self.variants():
+                self._graph(key)
 
     def release(self) -> None:
         """Drop every graph and their memory pool."""
         self._graphs.clear()
         self._pool = None
 
-    def _graph(self, n: int):
-        if n not in self._graphs:
-            self._graphs[n] = self._capture(n)
-        return self._graphs[n]
+    def _graph(self, key: tuple[int, bool]):
+        if key not in self._graphs:
+            self._graphs[key] = self._capture(*key)
+        return self._graphs[key]
 
-    def _capture(self, n: int):
+    def _capture(self, n: int, masked: bool):
         """Warm up on a side stream, then capture, both over blank inputs:
         every row has 0 tokens, so only trash page 0 is written. Returns
         (graph, {kernel wrapper: (launches, fp8 launches) per replay})."""
         from dynamo_tpu_torch.ops.cuda.build import KERNELS
 
         self.flat.zero_()
+        if masked:
+            self.allowed.fill_(True)
         cur = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
             for _ in range(WARMUP_STEPS):
-                self._run(n)
+                self._run(n, masked)
         cur.wait_stream(side)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         before = {fn: (fn.captured, fn.fp8_captured) for fn in KERNELS}
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self._pool):
-            self._run(n)
+            self._run(n, masked)
         counts = {fn: (fn.captured - c, fn.fp8_captured - c8)
                   for fn, (c, c8) in before.items()}
         return graph, {fn: c for fn, c in counts.items() if c != (0, 0)}
 
     def dispatch(self, tokens: np.ndarray, block_tables: np.ndarray,
-                 start_pos: np.ndarray, num_tokens: np.ndarray) -> HostCopy:
+                 start_pos: np.ndarray, num_tokens: np.ndarray,
+                 allowed: np.ndarray | None = None) -> HostCopy:
         """One verify of ``n`` rows (a captured row count): host arrays
-        tokens [n, W], block_tables [n, P], start_pos [n], num_tokens [n].
-        Returns the targets' copy to the host ([n, W] int32)."""
+        tokens [n, W], block_tables [n, P], start_pos [n], num_tokens [n],
+        and for a masked verify ``allowed`` [n, W, V] bool. Returns the
+        targets' copy to the host ([n, W] int32)."""
         n = tokens.shape[0]
         if n not in self.row_counts or tokens.shape[1] != self.width:
             raise ValueError(f"verify of {tuple(tokens.shape)}: rows must be one of "
                              f"{self.row_counts}, width {self.width}")
+        masked = allowed is not None
+        if masked and (self.allowed is None
+                       or tuple(allowed.shape) != (n,) + tuple(self.allowed.shape[1:])):
+            raise ValueError(f"masked verify with mask {tuple(allowed.shape)}: a "
+                             "VerifyGraphs built with vocab_size takes [n, W, V]")
         if self.cuda:
-            graph, per_replay = self._graph(n)
+            graph, per_replay = self._graph((n, masked))
         staging = torch.zeros(self.flat.numel(), dtype=torch.int32,
                               pin_memory=self.cuda)
         host = staging.numpy()
@@ -391,6 +453,8 @@ class VerifyGraphs:
                                   (tokens, block_tables, start_pos, num_tokens)):
             host[s].reshape(self._shapes[name])[:n] = arr
         self.flat.copy_(staging, non_blocking=True)
+        if masked:
+            self.allowed[:n].copy_(_pinned(allowed, self.cuda), non_blocking=True)
         if self.cuda:
             graph.replay()
             self.replays += 1
@@ -398,5 +462,5 @@ class VerifyGraphs:
                 fn.launches += c
                 fn.fp8_launches += c8
         else:
-            self._run(n)
+            self._run(n, masked)
         return HostCopy(self.targets[:n].clone())

@@ -139,6 +139,31 @@ def sample_tokens(
     return torch.where(temperature <= 0.0, greedy, drawn).to(torch.int32)
 
 
+def sample_tokens_masked(
+    logits: torch.Tensor,  # [B, V] f32
+    allowed: torch.Tensor,  # [B, V] bool: per-slot grammar-allowed tokens
+    temperature: torch.Tensor,  # [B] f32
+    top_k: torch.Tensor,  # [B] int
+    top_p: torch.Tensor,  # [B] f32
+    seeds: torch.Tensor,  # [B] int
+    steps: torch.Tensor,  # [B] int
+) -> torch.Tensor:
+    """``sample_tokens`` under a guided-decoding mask: disallowed tokens
+    drop to NEG_INF before the greedy argmax and before the temperature /
+    top-k / top-p pipeline, so every draw lands on a grammar-legal token
+    (guided/runtime.py keeps at least one True per constrained row). Free
+    slots ride the same batch with all-True rows, for which the mask is
+    the identity. NEG_INF, not -inf: an all-False row stays finite in the
+    sampler's softmax."""
+    return sample_tokens(mask_logits(logits, allowed), temperature, top_k,
+                         top_p, seeds, steps)
+
+
+def mask_logits(logits: torch.Tensor, allowed: torch.Tensor) -> torch.Tensor:
+    """``logits`` with every position ``allowed`` leaves False at NEG_INF."""
+    return torch.where(allowed.to(logits.device), logits, NEG_INF)
+
+
 def token_logprobs(
     logits: torch.Tensor,  # [B, V] f32
     sampled: torch.Tensor,  # [B] int
@@ -146,8 +171,12 @@ def token_logprobs(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Log-probabilities of the sampled tokens plus the top-n alternatives,
     on the device: (sampled_logprob [B] f32, top_ids [B, n] int32,
-    top_logprobs [B, n] f32), n = max(n_top, 1) (callers slice)."""
+    top_logprobs [B, n] f32), n = max(n_top, 1) (callers slice). Equal
+    values keep the lower id first, as ``jax.lax.top_k`` does (a stable
+    sort: a guided mask leaves most of a row tied at NEG_INF, where
+    ``torch.topk``'s order is unspecified)."""
     logprobs = logits - torch.logsumexp(logits, dim=-1, keepdim=True)
     picked = logprobs.gather(1, sampled.long()[:, None])[:, 0]
-    top_v, top_i = torch.topk(logprobs, max(n_top, 1), dim=-1)
-    return picked, top_i.to(torch.int32), top_v
+    top_v, top_i = torch.sort(logprobs, dim=-1, descending=True, stable=True)
+    n = max(n_top, 1)
+    return picked, top_i[:, :n].to(torch.int32), top_v[:, :n]

@@ -44,6 +44,7 @@ from dynamo_tpu_torch.engine.config import EngineConfig, ModelSpec
 from dynamo_tpu_torch.engine.core import InferenceEngine
 from dynamo_tpu_torch.frontend.model_card import register_llm
 from dynamo_tpu_torch.frontend.tokenizer import load_tokenizer
+from dynamo_tpu_torch.guided.vocab import TokenVocab
 from dynamo_tpu_torch.kv_router.publisher import KvEventPublisher, WorkerMetricsPublisher
 from dynamo_tpu_torch.parsers import make_reasoning_parser, make_tool_config
 from dynamo_tpu_torch.runtime.config import RuntimeConfig
@@ -99,7 +100,18 @@ async def launch_engine_worker(
     load_tokenizer(tokenizer)  # a tokenizer the frontend cannot load fails here
     cfg = engine_config or EngineConfig()
     spec = spec or ModelSpec.preset(model)
-    engine = InferenceEngine(spec, cfg, params=params, device=device)
+    guided_vocab = None
+    if cfg.guided_mode != "off":
+        # guided decoding needs the token -> surface-string table, built
+        # once from the tokenizer the frontend registers for this model, so
+        # the mask automaton and the detokenizer agree
+        try:
+            guided_vocab = TokenVocab.from_tokenizer(
+                load_tokenizer(tokenizer), spec.vocab_size)
+        except Exception as e:  # noqa: BLE001
+            log.warning("guided decoding disabled: vocab build failed (%s)", e)
+    engine = InferenceEngine(spec, cfg, params=params, device=device,
+                             guided_vocab=guided_vocab)
     if precompile:
         # capture every decode graph variant before registration, off the
         # event loop: no request waits for a capture
@@ -436,8 +448,12 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--max-waiting", type=int, default=0)
     p.add_argument("--preemption", action=argparse.BooleanOptionalAction, default=True)
     p.add_argument("--guided", default=None, choices=["auto", "off"],
-                   help="guided requests are refused either way (no guided "
-                        "decoding in the port's engine yet)")
+                   help="guided decoding: 'auto' (default) serves "
+                        "response_format / forced tool_choice with "
+                        "on-device grammar masks (schema-conformant "
+                        "output guaranteed at any temperature); 'off' "
+                        "rejects guided requests. Default from "
+                        "DYN_GUIDED_MODE, else auto")
     p.add_argument("--precompile", action=argparse.BooleanOptionalAction, default=False,
                    help="capture every decode graph variant before registering")
     p.add_argument("--health-port", type=int, default=-1)

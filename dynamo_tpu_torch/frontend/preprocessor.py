@@ -11,14 +11,16 @@ responses. A card's tool-call parser jails call regions out of the chat
 stream (parsers/jail.py) and its reasoning parser splits think segments
 into ``reasoning_content``, as the reference's preprocessor does.
 
-Left out until their slices (ROADMAP Queue A): grammar compilation for
-guided decoding (item 7) and multimodal content parts (item 12). A request
-that asks for constrained generation (``response_format`` json_object /
-json_schema, a forced ``tool_choice``, ``nvext.guided_regex``) is marked
-``guided`` on the reference's triggers and no grammar is built: the port's
-engine refuses it as an engine with guided decoding off does. A forced
-tool call on a model whose parser cannot be forced fails here first, with
-the reference's grammar errors.
+A request that asks for constrained generation (``response_format``
+json_object / json_schema, a forced ``tool_choice``, ``nvext.guided_regex``)
+has its grammar lowered here (guided/schema.py ``grammar_from_request``),
+and the wire carries ``guided: {kind, regex, key, prompt_len}`` as the
+reference's frontend sends it: a worker of either package compiles that
+regex. An unsupported or malformed grammar is a ``GrammarError`` (a
+ValueError, so a typed 400 at the edge) with the reference's text.
+
+Left out until its slice (ROADMAP Queue A item 12): multimodal content
+parts.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from dynamo_tpu_torch.frontend.protocols import (
 )
 from dynamo_tpu_torch.frontend.tokenizer import Tokenizer
 from dynamo_tpu_torch.frontend.validation import is_token_prompt
+from dynamo_tpu_torch.guided.schema import grammar_from_request
 from dynamo_tpu_torch.parsers import (
     JailedStream,
     make_reasoning_parser,
@@ -71,9 +74,9 @@ class OpenAIPreprocessor:
     def _tool_config(self, request: dict[str, Any] | None):
         """Jail only when the model has a parser AND the request brought
         tools. Every tool_choice shape except "none" flows through: "auto"
-        (parse if the model calls), "required" and named functions (a
-        guided request, which the engine refuses until guided decoding is
-        ported)."""
+        (parse if the model calls), "required" and named functions
+        (generation is grammar-forced into a call, ``_guided_spec``, and the
+        jail and parser consume the guaranteed output)."""
         if self._tool_cfg is None or not request or not request.get("tools"):
             return None
         if request.get("tool_choice") == "none":
@@ -83,34 +86,13 @@ class OpenAIPreprocessor:
     def _reasoning(self):
         return make_reasoning_parser(self.reasoning_parser)
 
-    def _guided_kind(self, request: dict[str, Any]) -> str | None:
-        """Which constrained generation a request asks for, on the
-        reference's triggers and in its order (``_guided_spec``): a forced
-        tool call, then ``response_format``, then ``nvext.guided_regex``;
-        None when nothing constrains generation. A forced tool call raises
-        the reference's grammar errors (``tool_call_regex``) when the
-        model's parser cannot carry one."""
-        tc = request.get("tool_choice")
-        if tc is not None and tc not in ("none", "auto"):
-            if self._tool_cfg is None:
-                raise ValueError(
-                    "this model has no tool-call parser configured; forced "
-                    "tool_choice needs one (worker --tool-call-parser)"
-                )
-            if getattr(self._tool_cfg, "format", "json") != "json":
-                raise ValueError(
-                    f"guided tool calls are unsupported for the "
-                    f"{self._tool_cfg.format!r} tool-parser format (json-format "
-                    "parsers only)"
-                )
-            return "tool_call"
-        rf = request.get("response_format")
-        if isinstance(rf, dict) and rf.get("type") in ("json_object", "json_schema"):
-            return rf["type"]
-        nvext = request.get("nvext")
-        if isinstance(nvext, dict) and nvext.get("guided_regex"):
-            return "regex"
-        return None
+    def _guided_spec(self, request: dict[str, Any]) -> dict[str, Any] | None:
+        """Grammar selection for guided decoding (guided/schema.py): a
+        forced tool call wins over response_format over nvext.guided_regex;
+        None when nothing constrains generation. Raises GrammarError (a
+        ValueError, a typed 400 at the edge): an unsupported schema must
+        never become a mid-stream 500."""
+        return grammar_from_request(request, tool_cfg=self._tool_cfg)
 
     # -- forward: OpenAI request -> PreprocessedRequest --------------------
 
@@ -165,7 +147,7 @@ class OpenAIPreprocessor:
 
     def preprocess(self, request: dict[str, Any]) -> dict[str, Any]:
         """OpenAI chat/completions request (dict) -> PreprocessedRequest."""
-        guided = self._guided_kind(request)
+        guided = self._guided_spec(request)
         request = self._flatten_content(request)
         if "messages" not in request and is_token_prompt(request.get("prompt")):
             token_ids = list(request["prompt"])
@@ -214,7 +196,7 @@ class OpenAIPreprocessor:
             else [],
             logprobs=logprobs,
             guided=(
-                {"kind": guided, "prompt_len": len(token_ids)}
+                {**guided, "prompt_len": len(token_ids)}
                 if guided is not None else None
             ),
         )

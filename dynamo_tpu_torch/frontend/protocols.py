@@ -23,7 +23,8 @@ from typing import Any
 #   estimated_prefix_hit_num_blocks: int | None
 #   annotations: list[str]
 #   disagg: None
-#   guided: None | {"kind", "prompt_len"} - a constrained-generation request
+#   guided: None | {"kind", "regex", "key", "prompt_len"} - the grammar of a
+#     constrained-generation request (guided/schema.py)
 
 
 def make_preprocessed_request(

@@ -45,13 +45,14 @@ class GqaFamily:
     def verify(self, spec, params, tokens, bts, starts, k, v, ntoks,
                allowed=None):
         """Speculative verify: targets [N, W] int32 on the device
-        (engine/graphs.py VerifyGraphs captures it)."""
+        (engine/graphs.py VerifyGraphs captures it), argmax under the
+        guided [N, W, V] ``allowed`` masks when given."""
         return self.m.verify_forward(spec, params, tokens, bts, starts, k, v,
                                      ntoks, allowed)
 
     def decode_step(self, spec, params, k, v, t, *, sampled, n_logprobs):
         """One model step over fixed tensors (engine/graphs.py captures
-        it)."""
+        it); ``t.allowed``, when set, is the guided [B, V] mask."""
         self.m.decode_step_(spec, params, k, v, t, sampled=sampled,
                             n_logprobs=n_logprobs)
 

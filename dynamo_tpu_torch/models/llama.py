@@ -33,7 +33,6 @@ from torch import nn
 
 from dynamo_tpu_torch.engine.config import ModelSpec
 from dynamo_tpu_torch.ops.attention import (
-    NEG_INF,
     causal_attention,
     decode_update_attention,
     gather_ctx,
@@ -438,12 +437,12 @@ def verify_forward(
     argmax is taken there (over ``verify_logits``, masked by ``allowed``),
     so no [N, W, V] tensor reaches the host. Reads no device value on the
     host, so a CUDA graph can capture it (engine/graphs.VerifyGraphs)."""
-    from dynamo_tpu_torch.engine.sampling import greedy_tokens
+    from dynamo_tpu_torch.engine.sampling import greedy_tokens, mask_logits
 
     logits = verify_logits(spec, params, tokens, block_tables, start_pos,
                            k_pages, v_pages, num_tokens)
     if allowed is not None:
-        logits = torch.where(allowed, logits, NEG_INF)
+        logits = mask_logits(logits, allowed)
     return greedy_tokens(logits)
 
 
@@ -580,6 +579,8 @@ class StepTensors:
     steps: torch.Tensor  # [B] int32 tokens generated so far (advanced)
     step_idx: torch.Tensor  # [1] int32 step within the burst (advanced)
     out: torch.Tensor  # [1 + n_max, record_width] int32
+    # [B, V] bool guided-decoding mask, or None (an unmasked step)
+    allowed: torch.Tensor | None = None
 
 
 def record_width(B: int, n_logprobs: int) -> int:
@@ -596,9 +597,14 @@ def decode_step_(
     greedy argmax, which the host picks for an all-greedy batch), optional
     logprobs, the record row ``1 + step_idx``, then tokens, seq_lens (by
     active), steps and step_idx advance. Reads no device value on the
-    host, so a CUDA graph can capture it."""
+    host, so a CUDA graph can capture it. With ``t.allowed`` (guided
+    decoding) the logits drop to NEG_INF where it is False before the
+    sample and before the logprobs, as the JAX package's masked
+    ``decode_steps``: a masked step's logprobs are those of the masked
+    logits."""
     from dynamo_tpu_torch.engine.sampling import (
         greedy_tokens,
+        mask_logits,
         sample_tokens,
         token_logprobs,
     )
@@ -606,6 +612,8 @@ def decode_step_(
     active = t.active != 0
     logits = decode_forward(spec, params, t.tokens, t.block_tables, t.seq_lens,
                             k_pages, v_pages, active)
+    if t.allowed is not None:
+        logits = mask_logits(logits, t.allowed)
     if sampled:
         nxt = sample_tokens(logits, t.temperature, t.top_k, t.top_p, t.seeds,
                             t.steps)
@@ -655,6 +663,7 @@ def decode_steps(
     steps: torch.Tensor,  # [B] int: tokens generated so far per slot
     n_steps: int = 1,
     n_logprobs: int = 0,
+    allowed: torch.Tensor | None = None,  # [B, V] bool: guided token masks
 ):
     """``n_steps`` decode iterations + sampling, eagerly, through
     ``decode_step_``. Returns sampled [B, n_steps] int32 on the pools'
@@ -665,7 +674,9 @@ def decode_steps(
     burst is handled by the caller discarding the tail. Sampling folds in
     the per-slot generated count, so bursts reproduce the per-request
     stream. Whether any row samples is read from ``temperature``, a host
-    tensor (no device sync)."""
+    tensor (no device sync). ``allowed`` masks every step's logits (the
+    engine dispatches masked bursts at ``n_steps`` 1: a mask holds for one
+    position)."""
     dev = k_pages.device
     B = tokens.shape[0]
 
@@ -682,6 +693,7 @@ def decode_steps(
         step_idx=torch.zeros(1, dtype=torch.int32, device=dev),
         out=torch.zeros((1 + n_steps, record_width(B, n_logprobs)), dtype=torch.int32,
                         device=dev),
+        allowed=None if allowed is None else dev_t(allowed, torch.bool),
     )
     t.out[0, :B] = t.tokens
     sampled = bool((temperature > 0).any())

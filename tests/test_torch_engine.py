@@ -313,10 +313,11 @@ _UNPORTED_VALUES = {
 
 
 # fields that were refused until their feature was ported: they now build
-# with the value (speculative decoding: Queue A item 6; overload: item 5)
+# with the value (speculative decoding: Queue A item 6; overload: item 5;
+# guided decoding: item 7)
 _PORTED_SINCE = ("spec_mode", "spec_k_max", "spec_ngram_min", "spec_ngram_max",
                  "spec_ewma_alpha", "spec_reprobe_tokens", "max_waiting", "tenants",
-                 "preemption")
+                 "preemption", "guided_cache_entries")
 
 
 @pytest.mark.parametrize("field", list(_UNPORTED_VALUES))

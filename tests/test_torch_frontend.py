@@ -95,13 +95,12 @@ def test_preprocess_refusals_match_jax(body):
     {"prompt": "x", "nvext": {"guided_regex": "[ab]+"}},
 ])
 def test_guided_requests_marked_on_jax_triggers(body):
-    """Guided requests are marked with the reference's kind and prompt end;
-    no grammar is compiled (the port's engine refuses them)."""
+    """Guided requests carry the reference's wire grammar: kind, regex,
+    cache key and prompt end, the whole preprocessed request equal."""
     jp, tp = _preprocessors()
     want, got = jp.preprocess(body), tp.preprocess(body)
-    assert got["guided"] == {"kind": want["guided"]["kind"],
-                             "prompt_len": want["guided"]["prompt_len"]}
-    assert {**got, "guided": None} == {**want, "guided": None}
+    assert set(got["guided"]) == {"kind", "regex", "key", "prompt_len"}
+    assert got == want
     forced = {"messages": MSG, "tools": [{"type": "function", "function": {"name": "f"}}],
               "tool_choice": "required"}
     # a forced tool call needs a tool-call parser, in both packages
@@ -111,7 +110,9 @@ def test_guided_requests_marked_on_jax_triggers(body):
         jp.preprocess(forced)
     assert str(e.value) == str(je.value)
     hermes = OpenAIPreprocessor(MockTokenizer(), model_name="m", tool_call_parser="hermes")
+    jhermes = JaxPreprocessor(JaxTokenizer(), model_name="m", tool_call_parser="hermes")
     assert hermes.preprocess(forced)["guided"]["kind"] == "tool_call"
+    assert hermes.preprocess(forced) == jhermes.preprocess(forced)
 
 
 def test_token_id_prompt_equals_its_text_prompt():

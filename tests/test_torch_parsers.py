@@ -267,10 +267,10 @@ def test_preprocessor_streams_and_aggregates_match(case, finish):
                                     {"type": "function",
                                      "function": {"name": "get_weather"}}])
 def test_forced_tool_choice_is_guided_or_refused_like_jax(choice):
-    """A forced tool call is a guided request (the engine refuses it with
-    the reference's 400 until guided decoding is ported); without a
-    tool-call parser, or with a parser of another format, both packages
-    raise the same grammar error at preprocessing."""
+    """A forced tool call is a guided request whose wire grammar equals
+    the reference's; without a tool-call parser, or with a parser of
+    another format, both packages raise the same grammar error at
+    preprocessing."""
     body = {"messages": [{"role": "user", "content": "hi"}], "tools": TOOLS,
             "tool_choice": choice}
     for tool in (None, "pythonic"):
@@ -285,6 +285,5 @@ def test_forced_tool_choice_is_guided_or_refused_like_jax(choice):
     want = JaxPre(JaxTok(), model_name="m", tool_call_parser="hermes").preprocess(body)
     got = OpenAIPreprocessor(MockTokenizer(), model_name="m",
                              tool_call_parser="hermes").preprocess(body)
-    assert got["guided"] == {"kind": "tool_call",
-                             "prompt_len": want["guided"]["prompt_len"]}
-    assert want["guided"]["kind"] == "tool_call"
+    assert got["guided"] == want["guided"]
+    assert want["guided"]["kind"] == "tool_call" and "get_weather" in got["guided"]["regex"]

@@ -1,8 +1,9 @@
 """The port's one-process serving stack against the JAX package's, over HTTP.
 
-JAX side: ``InferenceEngine(params=..., guided_mode="off")``, ``register_llm``
-with round-robin routing and the hermes tool-call parser, ``ModelWatcher``
-and the aiohttp ``HttpFrontend``.
+JAX side: ``InferenceEngine(params=..., guided_vocab=...)`` (guided decoding
+on, the vocabulary its worker would build from the mock tokenizer),
+``register_llm`` with round-robin routing and the hermes tool-call parser,
+``ModelWatcher`` and the aiohttp ``HttpFrontend``.
 Port side: ``launch_engine_worker`` on the same weights (``device="cpu"``),
 its ``ModelWatcher`` and its asyncio ``HttpFrontend``. Both stacks live on
 one background event loop for the module; each test sends the same
@@ -36,9 +37,11 @@ from dynamo_tpu.engine.config import EngineConfig as JaxEngineConfig
 from dynamo_tpu.engine.config import ModelSpec as JaxSpec
 from dynamo_tpu.engine.core import InferenceEngine as JaxEngine
 from dynamo_tpu.frontend.http import HttpFrontend as JaxHttpFrontend
+from dynamo_tpu.frontend.tokenizer import MockTokenizer as JaxMockTokenizer
 from dynamo_tpu.frontend.model_card import register_llm as jax_register_llm
 from dynamo_tpu.frontend.watcher import ModelManager as JaxModelManager
 from dynamo_tpu.frontend.watcher import ModelWatcher as JaxModelWatcher
+from dynamo_tpu.guided import TokenVocab as JaxTokenVocab
 from dynamo_tpu.models import llama as jllama
 from dynamo_tpu.runtime.context import Context as JaxContext
 from dynamo_tpu.runtime.distributed import DistributedRuntime as JaxRuntime
@@ -71,6 +74,11 @@ EMBED_SCALE = 8.0
 TIMEOUT = 120
 
 
+def jax_guided_vocab():
+    """The vocabulary a JAX worker builds from the mock tokenizer."""
+    return JaxTokenVocab.from_tokenizer(JaxMockTokenizer(), SPEC_KW["vocab_size"])
+
+
 def _weights(seed=3):
     jp = dict(jllama.init_params(JaxSpec(**SPEC_KW), jax.random.PRNGKey(seed)))
     jp["embed"] = jp["embed"] * EMBED_SCALE
@@ -91,9 +99,9 @@ class _Stacks:
 
     async def start(self):
         jp, tp = _weights()
-        # JAX: engine with guided decoding off, registered by hand
-        self.jeng = JaxEngine(JaxSpec(**SPEC_KW),
-                              JaxEngineConfig(**CFG_KW, guided_mode="off"), params=jp)
+        # JAX: engine with its worker's guided vocabulary, registered by hand
+        self.jeng = JaxEngine(JaxSpec(**SPEC_KW), JaxEngineConfig(**CFG_KW), params=jp,
+                              guided_vocab=jax_guided_vocab())
         self.jdrt = JaxRuntime(JaxHub())
         ep = self.jdrt.namespace("dynamo").component("backend").endpoint("generate")
         await jax_register_llm(self.jdrt, ep, self.jeng.generate, model_name=MODEL,
@@ -323,29 +331,29 @@ _ERRORS = {
                    {"x-dyn-tenant": "not ok!"}),
     "prompt-over-context": ("/v1/completions",
                             {"model": MODEL, "prompt": "x" * 300}, None, None),
+    # guided requests whose grammar cannot be built: the edge's 400 (both
+    # engines serve the buildable ones: _GUIDED below)
     "guided-json-schema": ("/v1/chat/completions",
                            {"model": MODEL, "messages": CHAT, "max_tokens": 8,
                             "response_format": {
                                 "type": "json_schema",
                                 "json_schema": {"name": "t", "schema": {
                                     "type": "object",
-                                    "properties": {"ok": {"type": "boolean"}},
+                                    "properties": {"ok": {"$ref": "#/defs/b"}},
                                     "required": ["ok"]}}}},
                            None, None),
-    # a forced tool call is guided decoding: refused by both engines
     "forced-tool-call": ("/v1/chat/completions",
                          {"model": MODEL, "messages": CHAT, "max_tokens": 8,
                           "tools": [{"type": "function", "function": {"name": "f"}}],
-                          "tool_choice": "required"},
+                          "tool_choice": {"type": "function"}},
                          None, None),
     "named-tool-call": ("/v1/chat/completions",
                         {"model": MODEL, "messages": CHAT, "max_tokens": 8,
                          "tools": [{"type": "function", "function": {"name": "f"}}],
-                         "tool_choice": {"type": "function", "function": {"name": "f"}},
+                         "tool_choice": {"type": "function", "function": {"name": "g"}},
                          "stream": True},
                         None, None),
 }
-
 
 @pytest.mark.parametrize("case", list(_ERRORS))
 def test_error_contract_matches(stacks, case):
@@ -794,3 +802,104 @@ def test_cli_without_gpu_refuses_the_cpu():
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["run", "--in", "http", "--out", "engine", "--port", "0"])
+
+
+# after test_disconnect_mid_stream_frees_pages, which bounds the engine's
+# step count since the module's stacks started
+_BOUNDED = {"type": "object",
+            "properties": {"ok": {"type": "boolean"},
+                           "tag": {"type": "string", "maxLength": 4}},
+            "required": ["ok", "tag"]}
+_TOOLS = [{"type": "function", "function": {
+    "name": "f", "parameters": {"type": "object",
+                                "properties": {"q": {"enum": ["a", "b"]}},
+                                "required": ["q"]}}}]
+# guided requests both engines serve (the JAX one at guided_mode "auto" with
+# its worker's vocabulary): (route, body)
+_GUIDED = {
+    "guided-json-schema": ("/v1/chat/completions", {
+        "model": MODEL, "messages": CHAT, "max_tokens": 60,
+        "response_format": {"type": "json_schema",
+                            "json_schema": {"name": "t", "schema": _BOUNDED}}}),
+    "guided-json-schema-sampled": ("/v1/chat/completions", {
+        "model": MODEL, "messages": CHAT, "max_tokens": 60, "temperature": 0.8,
+        "seed": 7, "logprobs": True, "top_logprobs": 2,
+        "response_format": {"type": "json_schema",
+                            "json_schema": {"name": "t", "schema": _BOUNDED}}}),
+    "json-object-stream": ("/v1/chat/completions", {
+        "model": MODEL, "messages": CHAT, "max_tokens": 24, "stream": True,
+        "response_format": {"type": "json_object"}}),
+    "regex-completion": ("/v1/completions", {
+        "model": MODEL, "prompt": "code:", "max_tokens": 24,
+        "nvext": {"guided_regex": "[0-9]{3}-[a-z]{4}"}}),
+    "forced-tool-call": ("/v1/chat/completions", {
+        "model": MODEL, "messages": CHAT, "max_tokens": 200, "tools": _TOOLS,
+        "tool_choice": "required"}),
+    "named-tool-call": ("/v1/chat/completions", {
+        "model": MODEL, "messages": CHAT, "max_tokens": 200, "tools": _TOOLS,
+        "tool_choice": {"type": "function", "function": {"name": "f"}},
+        "stream": True}),
+}
+
+
+@pytest.mark.parametrize("case", list(_GUIDED))
+def test_guided_requests_served_like_jax(stacks, case):
+    """Guided requests through both stacks: 200, bodies (or SSE chunks)
+    equal minus ids and times, logprobs within LP_TOL. The bounded grammars
+    end "stop" with conformant output; forced tool calls come back as the
+    forced function's tool_calls."""
+    route, body = _GUIDED[case]
+    (ws, want), (gs, got) = stacks.run(_gather(
+        stacks.post("jax", route, body), stacks.post("port", route, body)))
+    assert gs == ws == 200, (got, want)
+    _assert_same(_strip(got), _strip(want))
+    if isinstance(got, list):
+        finish = [c["choices"][0]["finish_reason"] for c in got[:-1] if c["choices"]]
+        assert finish[-1] in ("stop", "tool_calls", "length")
+        return
+    choice = got["choices"][0]
+    if case.startswith("guided-json-schema"):
+        parsed = json.loads(choice["message"]["content"])
+        assert choice["finish_reason"] == "stop" and set(parsed) == {"ok", "tag"}
+    elif case == "regex-completion":
+        assert re.fullmatch(r"\s*[0-9]{3}-[a-z]{4}\s*", choice["text"])
+    else:
+        calls = choice["message"]["tool_calls"]
+        assert choice["finish_reason"] == "tool_calls" and len(calls) == 1
+        assert calls[0]["function"]["name"] == "f"
+        assert json.loads(calls[0]["function"]["arguments"])["q"] in ("a", "b")
+
+
+@pytest.mark.parametrize("refusal", ["compile-fault", "unavailable"])
+def test_guided_engine_refusals_are_the_jax_400(stacks, refusal):
+    """An engine-side refusal of a guided request (the armed
+    engine.guided_compile site, or an engine with no grammar compiler)
+    reaches the client as the JAX stack's 400 body, and the engine keeps
+    no page."""
+    from dynamo_tpu.runtime.faults import FAULTS as JAX_FAULTS
+    from dynamo_tpu_torch.runtime.faults import FAULTS
+
+    schema = {"type": "object", "properties": {f"serve_{refusal}": {"enum": [1, 2]}},
+              "required": [f"serve_{refusal}"]}
+    body = {"model": MODEL, "messages": CHAT, "max_tokens": 8, "response_format": {
+        "type": "json_schema", "json_schema": {"name": "r", "schema": schema}}}
+    compilers = (stacks.jeng._guided, stacks.eng._guided)
+    try:
+        if refusal == "compile-fault":
+            for faults in (JAX_FAULTS, FAULTS):
+                faults.configure("engine.guided_compile:error@1.0x1", seed=3)
+        else:
+            stacks.jeng._guided = stacks.eng._guided = None
+        (ws, want), (gs, got) = stacks.run(_gather(
+            stacks.post("jax", "/v1/chat/completions", body),
+            stacks.post("port", "/v1/chat/completions", body)))
+    finally:
+        for faults in (JAX_FAULTS, FAULTS):
+            faults.configure("")
+        stacks.jeng._guided, stacks.eng._guided = compilers
+    assert (gs, got) == (ws, want)
+    assert gs == 400 and got["error"]["type"] == "invalid_request_error"
+    assert got["error"]["message"].startswith(
+        "guided grammar rejected" if refusal == "compile-fault"
+        else "guided decoding unavailable on this worker")
+    assert stacks.eng.allocator.active_pages == 0

@@ -4,13 +4,14 @@ loopback: requests cross the TCP hub (discovery, leases) and the TCP
 endpoint transport (token streams), msgpack bytes on both sides.
 
 - JAX: its HubServer; a worker runtime with the JAX engine registered by
-  hand (guided decoding off, round-robin); a frontend runtime with its
-  ModelWatcher and aiohttp HttpFrontend.
+  hand (with its worker's guided vocabulary, round-robin); a frontend
+  runtime with its ModelWatcher and aiohttp HttpFrontend.
 - Port: the same cut with the port's HubServer, ``launch_engine_worker``
   on the same weights (``device="cpu"``) and its HttpFrontend.
 - Mixed: a second port worker on the JAX hub, served under another model
   name and component, so the JAX frontend routes to a port worker over the
-  JAX wire.
+  JAX wire. The reverse, a JAX worker behind the port's hub and frontend,
+  is built by the guided cross-wire test alone.
 
 Each test sends the same requests to the stacks and compares the answers
 minus ``id``/``created`` (and the model name, for the mixed stack):
@@ -18,6 +19,7 @@ bodies equal, logprobs within LP_TOL, SSE chunks in order.
 """
 
 import asyncio
+import json
 import threading
 
 import aiohttp
@@ -52,6 +54,7 @@ from test_torch_serve import (
     _sse_chunks,
     _strip,
     _weights,
+    jax_guided_vocab,
 )
 
 pytestmark = pytest.mark.integration
@@ -77,8 +80,8 @@ class _TcpStacks:
         jaddr = f"127.0.0.1:{self.jhub.port}"
         jcfg = JaxRuntimeConfig(hub_address=jaddr)
         self.jworker = JaxRuntime(await JaxRemoteHub.connect(jaddr), jcfg)
-        self.jeng = JaxEngine(JaxSpec(**SPEC_KW),
-                              JaxEngineConfig(**CFG_KW, guided_mode="off"), params=jp)
+        self.jeng = JaxEngine(JaxSpec(**SPEC_KW), JaxEngineConfig(**CFG_KW), params=jp,
+                              guided_vocab=jax_guided_vocab())
         await jax_register_llm(
             self.jworker, self.jworker.namespace("dynamo").component("backend").endpoint(
                 "generate"), self.jeng.generate, model_name=MODEL,
@@ -320,3 +323,71 @@ def test_admin_drain_op_matches_the_reference():
     assert "worker draining" in want[3]
     for answer in (want, got):
         assert 0 < answer[4] <= answer[5], answer
+
+
+_GUIDED_BODY = {"model": MODEL, "messages": [{"role": "user", "content": "Answer."}],
+                "max_tokens": 60, "response_format": {"type": "json_schema", "json_schema": {
+                    "name": "t", "schema": {
+                        "type": "object",
+                        "properties": {"ok": {"type": "boolean"},
+                                       "tag": {"type": "string", "maxLength": 4}},
+                        "required": ["ok", "tag"]}}}}
+
+
+async def _port_front_jax_worker(jp):
+    """The port's HubServer and frontend with a JAX worker (guided vocabulary
+    on) behind them. Returns (HTTP base, closer)."""
+    hub = HubServer(port=0)
+    await hub.start()
+    addr = f"127.0.0.1:{hub.port}"
+    worker = JaxRuntime(await JaxRemoteHub.connect(addr), JaxRuntimeConfig(hub_address=addr))
+    eng = JaxEngine(JaxSpec(**SPEC_KW), JaxEngineConfig(**CFG_KW), params=jp,
+                    guided_vocab=jax_guided_vocab())
+    await jax_register_llm(
+        worker, worker.namespace("dynamo").component("backend").endpoint("generate"),
+        eng.generate, model_name=MODEL, router_mode="round_robin",
+        context_length=eng.config.max_context, kv_block_size=CFG_KW["page_size"])
+    await eng.start()
+    front = DistributedRuntime(await RemoteHub.connect(addr), RuntimeConfig(hub_address=addr))
+    watch = await ModelWatcher(front, ModelManager()).start()
+    await watch.wait_for_model(MODEL, timeout=10)
+    http = HttpFrontend(watch.manager, host="127.0.0.1", port=0, drt=front)
+    await http.start()
+
+    async def close():
+        await http.stop()
+        await watch.close()
+        await front.close()
+        await eng.close()
+        await worker.close()
+        await hub.stop()
+
+    return f"http://127.0.0.1:{http.port}", close
+
+
+def test_guided_request_crosses_the_wire_both_ways(tcp_stacks):
+    """A json_schema chat through a port frontend in front of a JAX worker,
+    and through a JAX frontend in front of a port worker (the mixed
+    stack): 200, and each body equals the all-JAX and the all-port
+    stack's. The wire carries the frontend's grammar to either engine."""
+    async def run():
+        base, close = await _port_front_jax_worker(_weights()[0])
+        try:
+            async with tcp_stacks.session.post(base + "/v1/chat/completions",
+                                               json=_GUIDED_BODY) as r:
+                cross = (r.status, await r.json())
+        finally:
+            await close()
+        sides = await asyncio.gather(*(
+            tcp_stacks.post(side, "/v1/chat/completions", _GUIDED_BODY)
+            for side in ("jax", "port", "mixed")))
+        return [cross, *sides]
+
+    (cs, cross), (ws, want), (gs, got), (ms, mixed) = tcp_stacks.run(run())
+    assert cs == ws == gs == ms == 200, (cross, want, got, mixed)
+    _assert_same(_strip(cross), _strip(want))
+    _assert_same(_strip(got), _strip(want))
+    _assert_same(_unname(_strip(mixed)), _strip(want))
+    choice = want["choices"][0]
+    assert choice["finish_reason"] == "stop"
+    assert set(json.loads(choice["message"]["content"])) == {"ok", "tag"}
