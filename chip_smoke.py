@@ -268,6 +268,32 @@ Phases, each of which must pass (any failure exits non-zero):
    masked single steps against the free pipelined bursts, tok/s mixed
    against all-free, and the spec cell's walls.
 
+15. MoE and checkpoints (run last, once every llama engine is freed): (a)
+   gpt-oss-120b at full width (d 2880, 64/8 heads, D 64, 128 experts
+   top-4, vocab 201088, YaRN, sinks, window 128 on its sliding layers) cut
+   to MOE_LAYERS layers (two sliding, two full; ~28 GB of bf16 weights,
+   random from seed 0, the input embedding scaled by MOE_EMBED_SCALE),
+   decode graphs captured first: the 8 default prompts, 32 greedy tokens
+   each, with phase 4's checks (4 fused_decode launches per step, every
+   request "length", the prefix hit), moe_dropped_slots printed; a
+   MOE_PROMPT-token prompt served alone, whose prefill must drop 0 slots,
+   near-argmax under reference_forward at capacity T (drop-free: what the
+   engine's drop-free run computed); phase 5's step graphs on this engine
+   (greedy and sampled with logprobs, bitwise); the graph step's split into
+   experts (moe_mlp per layer, CUDA events), attention and the rest, and
+   the experts one step's routing touches; (c) fused_decode at gpt-oss's
+   shape (KH 8, G 8, D 64, window 128 + sinks) checked, timed beside its
+   plain version and SDPA with the same mask and sinks (row
+   "fused_decode/gpt-oss", its launches those of (a)'s serves); (b)
+   llama-3-8b at full width, CKPT_LAYERS layers, written by save_params
+   under build/checkpoints/ and read back by load_model_dir: weights and one
+   prefill's logits bitwise equal; CKPT_REQUESTS greedy requests through an
+   in-process engine on the loaded weights and through `cli run
+   --model-path` over HTTP, texts equal (the head zeroed outside printable
+   ASCII ids, so each token has its character); a directory with a
+   tokenizer.json refused naming the departure; write and load seconds and
+   GB/s printed.
+
 Prints, before the last line, the card line and one JSON object with every
 kernel's measurements; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -276,6 +302,7 @@ kernel's measurements; the last line is
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import json
 import os
 import re
@@ -393,6 +420,28 @@ GUIDED_TOOL = {"type": "function", "function": {
         "type": "object", "properties": {"city": {"enum": ["Paris", "Oslo"]}},
         "required": ["city"]}}}
 GUIDED_TOOL_TOKENS = 160
+# phase 15 (MoE and checkpoints): gpt-oss-120b at full width cut to
+# MOE_LAYERS layers (the preset's alternation: two sliding, two full), its
+# drop-free prompt MOE_PROMPT tokens (a whole prefill bucket: no padding
+# rows), its attention window MOE_WINDOW; llama-3-8b cut to CKPT_LAYERS
+# layers for the checkpoint round trip, CKPT_REQUESTS greedy requests of
+# CKPT_TOKENS tokens served one at a time, the head's columns outside the
+# mock tokenizer's printable ASCII ids (CKPT_IDS) zeroed so every served
+# token has its own character in the HTTP text
+MOE_LAYERS = 4
+MOE_PROMPT = 128
+# gpt-oss's input embedding scaled by this after the random init: at the
+# init's 0.02 the residual stream is the attention's running average over
+# the causal prefix, the same for neighbouring tokens, so routing piles onto
+# a few experts (a 128-token prompt dropped 61 slots at C = 16); scaled, each
+# token's own embedding dominates, as in a trained model's routing
+MOE_EMBED_SCALE = 64.0
+MOE_WINDOW = 128
+MOE_SEED = 1515
+CKPT_LAYERS = 2
+CKPT_REQUESTS = 4
+CKPT_TOKENS = 16
+CKPT_IDS = (16 + 32, 16 + 127)
 
 
 class SmokeError(RuntimeError):
@@ -553,10 +602,14 @@ def attention_bound(fused: bool, window: int, seq_lens=SEQ_LENS, fp8=False,
     return bound_ms(nbytes, flops)
 
 
-def sdpa_call(t, layer):
+def sdpa_call(t, layer, window: int = 0, sinks=None):
     """One scaled_dot_product_attention call over the gathered context
     (the library yardstick; the port never calls it). Gather, fp8 dequant
-    (to q's dtype) and GQA expansion are set-up, outside the timed call."""
+    (to q's dtype) and GQA expansion are set-up, outside the timed call.
+    A window masks keys at or before seq_len - 1 - window; sinks join as
+    one more key with zero K and V whose logit is the sink (a float mask
+    adds it), so the softmax's denominator gains exp(sink) as the
+    kernels'."""
     from dynamo_tpu_torch.ops.attention import gather_ctx, pool_layer
 
     q = t["q"]
@@ -568,7 +621,16 @@ def sdpa_call(t, layer):
     k = k.transpose(1, 2).repeat_interleave(H // KH, dim=1).contiguous()
     v = v.transpose(1, 2).repeat_interleave(H // KH, dim=1).contiguous()
     pos = torch.arange(S, device=q.device)[None]
-    mask = (pos < t["sl"].long()[:, None])[:, None, None, :]
+    sl = t["sl"].long()[:, None]
+    mask = (pos < sl)[:, None, None, :]
+    if window:
+        mask = mask & (pos > sl - 1 - window)[:, None, None, :]
+    if sinks is not None:
+        k = torch.cat([k, k.new_zeros(B, H, 1, D)], dim=2)
+        v = torch.cat([v, v.new_zeros(B, H, 1, D)], dim=2)
+        bias = torch.where(mask, 0.0, float("-inf")).to(q.dtype)
+        sink = sinks.to(q.dtype)[None, :, None, None].expand(B, H, 1, 1)
+        mask = torch.cat([bias.expand(B, H, 1, S), sink], dim=-1)
     qq = q[:, :, None, :]
     return lambda: torch.nn.functional.scaled_dot_product_attention(
         qq, k, v, attn_mask=mask)
@@ -1014,11 +1076,12 @@ def near_argmax_check(spec, params, prompt, tokens) -> tuple[float, float]:
     return agree, gap
 
 
-def profile_decode_step(step, form: str) -> None:
+def profile_decode_step(step, form: str) -> dict | None:
     """One traced decode step (B=8, fused path) or verify replay: wall
     time, device-busy time (sum of kernel self times, kernels replayed from
     a CUDA graph included), idle share, the fused kernel's device time and
-    the top kernels."""
+    the top kernels. Returns {"wall_ms", "busy_ms", "attn_ms"} (None when
+    the trace holds no device kernels)."""
     from torch.profiler import ProfilerActivity, profile
 
     step()
@@ -1041,7 +1104,7 @@ def profile_decode_step(step, form: str) -> None:
     if not busy:
         print(f"profile {form}: wall {wall * 1e3:.2f} ms; device busy not measured "
               "(the trace holds no device kernels)")
-        return
+        return None
     fused = (f", fused_decode {sum(dev_us(e) for e in attn) / 1e3:.3f} ms over "
              f"{sum(e.count for e in attn)} launches" if attn else "")
     print(f"profile {form}: wall {wall * 1e3:.2f} ms, device busy "
@@ -1049,6 +1112,8 @@ def profile_decode_step(step, form: str) -> None:
           f"{fused}")
     for e in sorted(kernels, key=dev_us, reverse=True)[:10]:
         print(f"  {dev_us(e) / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    return {"wall_ms": wall * 1e3, "busy_ms": busy / 1e3,
+            "attn_ms": sum(dev_us(e) for e in attn) / 1e3}
 
 
 def prefill_slots(engine, prompts, room: int = 1):
@@ -1069,7 +1134,7 @@ def prefill_slots(engine, prompts, room: int = 1):
         tokens[i, : len(p)] = p
     lens = torch.tensor([len(p) for p in prompts])
     with torch.no_grad():
-        logits = llama.prefill_forward_batch(
+        logits, _ = llama.prefill_forward_batch(
             spec, engine.params, torch.from_numpy(tokens).to(DEVICE),
             torch.from_numpy(bts).to(DEVICE), torch.zeros(B, dtype=torch.int64),
             engine.k_pages, engine.v_pages, lens)
@@ -1088,7 +1153,7 @@ def host_ms(fn, reps: int = 10) -> float:
     return 1e3 * (time.perf_counter() - t0) / reps
 
 
-def step_graph_check(engine, prompts, unfused: bool = False) -> None:
+def step_graph_check(engine, prompts, unfused: bool = False) -> dict | None:
     """The engine's one-step function captured in a CUDA graph
     (engine/graphs.DecodeGraphs) against eager decode_steps, on copies of
     the same pools after a prefill of ``prompts``: a GRAPH_STEPS burst in
@@ -1097,7 +1162,8 @@ def step_graph_check(engine, prompts, unfused: bool = False) -> None:
     logprobs must be identical and the pools bitwise equal outside page 0;
     each replay must run one attention launch per layer (unfused: v3 and
     kv_write each). Then, fused, the host wall of one B=8 step of each
-    variant, eager against graph, and one traced greedy graph step."""
+    variant, eager against graph, and one traced greedy graph step, whose
+    reading (profile_decode_step's) it returns."""
     from dynamo_tpu_torch.engine.graphs import DecodeGraphs
     from dynamo_tpu_torch.models import llama
 
@@ -1120,6 +1186,7 @@ def step_graph_check(engine, prompts, unfused: bool = False) -> None:
         os.environ["DYNAMO_FUSED_DECODE"] = "0"
     want_counts = ({"paged_attention_v3": L * n, "kv_write": L * n} if unfused
                    else {"fused_decode": L * n})
+    traced = None
     try:
         for sampled, lp_width in ((False, 0), (True, n_lp)):
             inp = dict(inputs, temperature=inputs["temperature"] * sampled)
@@ -1193,12 +1260,14 @@ def step_graph_check(engine, prompts, unfused: bool = False) -> None:
                       f"{e_ms:.2f} ms, graph replay {g_ms:.2f} ms ({e_ms / g_ms:.1f}x); "
                       f"graph step device span {start.elapsed_time(end):.3f} ms")
                 if not sampled:
-                    profile_decode_step(graph_step, f"{engine.kv_dtype} graph step")
+                    traced = profile_decode_step(graph_step,
+                                                 f"{engine.kv_dtype} graph step")
             runner.release()
             del eager_pools, graph_pools, runner
             torch.cuda.empty_cache()
     finally:
         os.environ.pop("DYNAMO_FUSED_DECODE", None)
+    return traced
 
 
 def unfused_check(engine, prompts):
@@ -1423,12 +1492,12 @@ def logprob_check(engine, prompt, out) -> None:
           f"(tol {LOGPROB_TOL})")
 
 
-def serve_check(engine, prompts, out, label, bf16_tokens=None):
+def serve_check(engine, prompts, out, label, bf16_tokens=None, reference=True):
     """Check a serve of ``prompts``: the streams, the prefix-cache hit, the
-    launch counts (all in fp8 form for an fp8 engine) and one stream
-    against the reference forward. Returns (launches, served tokens per
-    request); with ``bf16_tokens`` also prints the share of tokens equal
-    to them."""
+    launch counts (all in fp8 form for an fp8 engine) and, with
+    ``reference``, one stream against the reference forward. Returns
+    (launches, served tokens per request); with ``bf16_tokens`` also
+    prints the share of tokens equal to them."""
     results, ttft, wall, hit = out["res"]
     serve_launches, steps, times = out["counts"], out["steps"], out["times"]
     spec = engine.spec
@@ -1467,10 +1536,12 @@ def serve_check(engine, prompts, out, label, bf16_tokens=None):
         same = sum(a == b for i in tokens for a, b in zip(tokens[i], bf16_tokens[i]))
         print(f"serve {label}: {same / n_out:.4f} of the tokens equal to the "
               f"default bf16 serve's ({same} of {n_out})")
-    longest = max(range(len(prompts)), key=lambda i: len(prompts[i]))
-    agree, gap = near_argmax_check(spec, engine.params, prompts[longest], tokens[longest])
-    print(f"reference {label}: request {longest} exact greedy agreement "
-          f"{agree:.3f}, worst gap to the reference max {gap:.3f} (tol {NEAR_ARGMAX})")
+    if reference:
+        longest = max(range(len(prompts)), key=lambda i: len(prompts[i]))
+        agree, gap = near_argmax_check(spec, engine.params, prompts[longest],
+                                       tokens[longest])
+        print(f"reference {label}: request {longest} exact greedy agreement "
+              f"{agree:.3f}, worst gap to the reference max {gap:.3f} (tol {NEAR_ARGMAX})")
     return serve_launches, tokens
 
 
@@ -1640,7 +1711,7 @@ def verify_graph_check(engine, prompts, bf16_verify_ms=None) -> float:
                         copy_pool_(dst, src)
                 want = llama.verify_forward(spec, engine.params, dev(tokens[:n]),
                                             dev(bts[:n]), dev(starts[:n]), *eager,
-                                            dev(nts[:n])).cpu().numpy()
+                                            dev(nts[:n]))[0].cpu().numpy()
                 zero_counts()
                 got = runner.dispatch(tokens[:n], bts[:n], starts[:n], nts[:n]).wait().numpy()
                 counts = read_counts()
@@ -1678,7 +1749,7 @@ def verify_graph_check(engine, prompts, bf16_verify_ms=None) -> float:
                                                        n_logprobs=0))
             e_ms = host_ms(lambda: llama.verify_forward(
                 spec, engine.params, dev(tokens), dev(bts), dev(starts), *eager,
-                dev(nts)).cpu(), reps=5)
+                dev(nts))[0].cpu(), reps=5)
             profile_decode_step(lambda: runner.dispatch(tokens, bts, starts, nts).wait(),
                                 f"{form} verify replay ({B} x {W})")
         vs_bf16 = (f", {v_ms / bf16_verify_ms:.2f}x the bf16 verify's "
@@ -2207,7 +2278,7 @@ def own_pools(spec, params, prompts, kv_dtype: str, room: int):
         tokens[i, : len(p)] = p
     lens = torch.tensor([len(p) for p in prompts])
     with torch.no_grad():
-        logits = llama.prefill_forward_batch(
+        logits, _ = llama.prefill_forward_batch(
             spec, params, torch.from_numpy(tokens).to(DEVICE),
             torch.from_numpy(bts).to(DEVICE), torch.zeros(B, dtype=torch.int64),
             *pools, lens)
@@ -2374,7 +2445,7 @@ def masked_verify_check(spec, params, prompts, masks) -> None:
                         copy_pool_(dst, src)
                 want = llama.verify_forward(spec, params, dev(tokens[:n]), dev(bts[:n]),
                                             dev(starts[:n]), *eager, dev(nts[:n]),
-                                            dev(allowed[:n])).cpu().numpy()
+                                            dev(allowed[:n]))[0].cpu().numpy()
                 zero_counts()
                 got = runner.dispatch(tokens[:n], bts[:n], starts[:n], nts[:n],
                                       allowed[:n]).wait().numpy()
@@ -3193,13 +3264,35 @@ def cli_check(model: str, device: str | None = None) -> None:
     first) must print DYNAMO_HTTP=host:port and stream a chat completion
     of CLI_TOKENS tokens ending with data: [DONE]. The process is ended
     before this returns."""
-    import queue
-    import threading
-
     cmd = [sys.executable, "-m", "dynamo_tpu_torch.cli", "run", "--in", "http", "--out",
            "engine", "--model", model, "--port", "0", "--precompile"]
     if device:
         cmd += ["--device", device]
+    with cli_process(cmd) as (port, t_ready):
+        status, body, times = asyncio.run(http_call(port, "POST", "/v1/chat/completions", {
+            "model": model, "messages": [{"role": "user", "content": "Hello there"}],
+            "max_tokens": CLI_TOKENS, "ignore_eos": True, "stream": True,
+            "stream_options": {"include_usage": True}}))
+        ev = sse_events(body) if status == 200 else []
+        chunks = [e for e in ev[:-1] if e.get("choices")]
+        usage = ev[-2].get("usage") if len(ev) >= 2 else None
+        require(status == 200 and ev[-1] == "[DONE]" and chunks
+                and chunks[-1]["choices"][0]["finish_reason"] == "length"
+                and usage and usage["completion_tokens"] == CLI_TOKENS,
+                f"cli: status {status}, last events {ev[-3:]}")
+        print(f"cli: {' '.join(cmd[1:])}: DYNAMO_HTTP after {t_ready:.1f} s; a streamed chat "
+              f"completion of {CLI_TOKENS} tokens in {times[-1]:.3f} s ({len(chunks)} "
+              f"chunks, client TTFT {1e3 * times[0]:.1f} ms), usage {usage}")
+
+
+@contextlib.contextmanager
+def cli_process(cmd):
+    """Run ``cmd`` (a ``cli run --in http`` command) in a process of its
+    own until it prints DYNAMO_HTTP=host:port (within CLI_START_S); yields
+    (port, seconds to ready) and ends the process on exit."""
+    import queue
+    import threading
+
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
@@ -3217,21 +3310,7 @@ def cli_check(model: str, device: str | None = None) -> None:
             seen.append(line)
             if line.startswith("DYNAMO_HTTP="):
                 port = int(line.strip().rsplit(":", 1)[1])
-        t_ready = time.perf_counter() - t0
-        status, body, times = asyncio.run(http_call(port, "POST", "/v1/chat/completions", {
-            "model": model, "messages": [{"role": "user", "content": "Hello there"}],
-            "max_tokens": CLI_TOKENS, "ignore_eos": True, "stream": True,
-            "stream_options": {"include_usage": True}}))
-        ev = sse_events(body) if status == 200 else []
-        chunks = [e for e in ev[:-1] if e.get("choices")]
-        usage = ev[-2].get("usage") if len(ev) >= 2 else None
-        require(status == 200 and ev[-1] == "[DONE]" and chunks
-                and chunks[-1]["choices"][0]["finish_reason"] == "length"
-                and usage and usage["completion_tokens"] == CLI_TOKENS,
-                f"cli: status {status}, last events {ev[-3:]}")
-        print(f"cli: {' '.join(cmd[1:])}: DYNAMO_HTTP after {t_ready:.1f} s; a streamed chat "
-              f"completion of {CLI_TOKENS} tokens in {times[-1]:.3f} s ({len(chunks)} "
-              f"chunks, client TTFT {1e3 * times[0]:.1f} ms), usage {usage}")
+        yield port, time.perf_counter() - t0
     finally:
         proc.terminate()
         try:
@@ -4043,6 +4122,340 @@ def prefix_family_report(res: dict, fused_check) -> None:
           f"{ms(res['rr_head_ttft'])}, followers {ms(res['rr_follower_ttft'])}")
 
 
+# ------------------------------------------------ MoE and checkpoints
+
+
+def gpt_oss_spec():
+    """gpt-oss-120b at full width, MOE_LAYERS layers deep."""
+    import dataclasses
+
+    from dynamo_tpu_torch.engine.config import ModelSpec
+
+    full = ModelSpec.gpt_oss_120b()
+    return dataclasses.replace(full, num_layers=MOE_LAYERS,
+                               layer_types=full.layer_types[:MOE_LAYERS])
+
+
+def dropped_total(engine) -> int:
+    """The engine's running MoE dropped-slot total (what its next metrics
+    fetch publishes as moe_dropped_slots)."""
+    d = engine._moe_dropped_dev
+    return 0 if d is None else int(d)
+
+
+def dropfree_reference_check(spec, params, prompt, tokens):
+    """near_argmax_check against the drop-free MoE: the reference forward
+    with every expert's capacity at T (capacity_factor E / k), so no slot
+    can drop, which is what an engine run that dropped nothing computed.
+    Returns (agreement, worst gap, the reference's dropped slots: 0 by
+    construction, counted all the same)."""
+    from dynamo_tpu_torch.models import moe
+
+    real, drops = moe.moe_mlp, []
+    no_drop = spec.num_experts / spec.num_experts_per_token
+
+    def counted(spec_, lp, x, *, capacity_factor=1.25, return_dropped=False):
+        out, d = real(spec_, lp, x, capacity_factor=no_drop, return_dropped=True)
+        drops.append(d)
+        return (out, d) if return_dropped else out
+
+    moe.moe_mlp = counted
+    try:
+        agree, gap = near_argmax_check(spec, params, prompt, tokens)
+    finally:
+        moe.moe_mlp = real
+    return agree, gap, sum(int(d) for d in drops)
+
+
+def expert_split(engine, prompts, traced, flush) -> None:
+    """Phase 15's split of a B=8 graph step: the experts of every layer
+    (moe_mlp at its decode shape, T = 8, C = 8, CUDA events, L2 flushed)
+    and their three batched products alone, against the traced graph
+    step's busy time and its fused_decode time; and the experts that one
+    eager step's routing touches per layer, against all E (the bytes of a
+    routed-only product)."""
+    from dynamo_tpu_torch.models import llama, moe
+
+    spec = engine.spec
+    E, d, f = spec.num_experts, spec.hidden_size, spec.moe_intermediate_size
+    B = len(prompts)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(MOE_SEED)
+    x = (torch.randn(B, d, generator=gen, device=DEVICE)).to(torch.bfloat16)
+    layers = [lp.moe for lp in engine.params.layers]
+    C = moe.expert_capacity(B, E, spec.num_experts_per_token)
+    xe = torch.randn(E, C, d, generator=gen, device=DEVICE).to(torch.bfloat16)
+    h = torch.randn(E, C, f, generator=gen, device=DEVICE).to(torch.bfloat16)
+    with torch.no_grad():
+        moe_ms = time_ms(lambda: [moe.moe_mlp(spec, lp, x) for lp in layers], flush)
+        bmm_ms = time_ms(lambda: [(torch.bmm(xe, lp.w_gate), torch.bmm(xe, lp.w_up),
+                                   torch.bmm(h, lp.w_down)) for lp in layers], flush)
+    w_bytes = 3 * E * d * f * 2  # bf16 gate, up, down of every expert, one layer
+    bound, _ = bound_ms(w_bytes * len(layers), 0.0)
+    line = (f"gpt-oss step split: experts (moe_mlp x {len(layers)} layers at T={B}, C={C}) "
+            f"{moe_ms:.3f} ms, their batched products alone {bmm_ms:.3f} ms, bound "
+            f"{bound:.3f} ms ({w_bytes * len(layers) / 1e9:.2f} GB of expert weights)")
+    if traced is not None:
+        rest = traced["busy_ms"] - moe_ms - traced["attn_ms"]
+        line += (f"; traced graph step busy {traced['busy_ms']:.3f} ms: experts "
+                 f"{moe_ms / traced['busy_ms']:.3f}, attention (fused_decode) "
+                 f"{traced['attn_ms']:.3f} ms, the rest {rest:.3f} ms")
+    print(line)
+    # routed-only work: the experts one eager step's tokens pick per layer
+    touched = []
+    real = moe.route
+
+    def spy(spec_, lp, xx):
+        w, i = real(spec_, lp, xx)
+        touched.append(int(torch.unique(i).numel()))
+        return w, i
+
+    bts, first, lens = prefill_slots(engine, prompts)
+    moe.route = spy
+    try:
+        with torch.no_grad():
+            llama.decode_forward(spec, engine.params, torch.from_numpy(first).to(DEVICE),
+                                 torch.from_numpy(bts).to(DEVICE),
+                                 torch.from_numpy(lens).to(DEVICE), engine.k_pages,
+                                 engine.v_pages, torch.ones(B, dtype=torch.bool,
+                                                            device=DEVICE))
+    finally:
+        moe.route = real
+    per = 3 * d * f * 2
+    print(f"gpt-oss routed experts per layer in one B={B} step: {touched} of {E} "
+          f"(routed-only weight bytes {[round(n * per / 1e9, 3) for n in touched]} GB "
+          f"against {w_bytes / 1e9:.2f} GB read by the all-experts product)")
+
+
+def gpt_oss_kernel_row(flush) -> dict:
+    """fused_decode at gpt-oss's shape (B 8, KH 8, G 8, D 64, window
+    MOE_WINDOW + sinks, SEQ_LENS), bf16: checked against its plain version,
+    timed beside it and SDPA with the same window and sinks."""
+    from dynamo_tpu_torch.ops.cuda import fused_decode
+
+    over = dict(G=8, D=64)
+    layer = 1
+    t = kernel_inputs(torch.bfloat16, seed=15, **over)
+    err, _ = check_attention(t, "bfloat16/gpt-oss", MOE_WINDOW, t["sinks"], layer)
+    q, kn, vn, bt, sl, dp, do = (t[k] for k in
+                                 ("q", "k_new", "v_new", "bt", "sl", "dst_page", "dst_off"))
+    kp, vp, sinks = t["k_pages"], t["v_pages"], t["sinks"]
+    kw = dict(layer=layer, window=MOE_WINDOW, sinks=sinks)
+    r = {"max_abs_err": err}
+    r["ms"] = time_ms(lambda: fused_decode.fused_decode_attention(
+        q, kp, vp, kn, vn, bt, sl, dp, do, **kw), flush)
+    r["plain_ms"] = time_ms(lambda: fused_decode.fused_decode_plain(
+        q, kp, vp, kn, vn, bt, sl, dp, do, **kw), flush)
+    r["library_ms"] = time_ms(sdpa_call(t, layer, MOE_WINDOW, sinks), flush)
+    r["bound_ms"], r["bound_by"] = attention_bound(True, MOE_WINDOW, **over)
+    print_times({"fused_decode/gpt-oss": r})
+    return r
+
+
+def moe_phase(cfg, flush) -> tuple[int, dict]:
+    """Phase 15 (a) and (c): gpt-oss-120b at full width, MOE_LAYERS deep,
+    random bf16 weights from a seeded generator (the input embedding
+    scaled by MOE_EMBED_SCALE), decode graphs captured first; the default
+    serve (phase 4's checks, 4 fused_decode launches per step, no
+    reference: packed prefills route padding rows too), one
+    MOE_PROMPT-token prompt served alone, whose prefill must drop 0 slots,
+    near-argmax under the reference forward made drop-free (an unpadded
+    forward over prompt + tokens sees another T, so another capacity; at
+    capacity T both sides compute the drop-free MoE), phase 5's step graphs,
+    the step's split; then fused_decode at this shape. Returns (the serves'
+    fused_decode launches, the kernel row)."""
+    spec = gpt_oss_spec()
+    require(spec.layer_types == ("sliding_attention", "full_attention") * 2
+            and spec.num_experts == 128 and spec.hidden_size == 2880,
+            f"gpt-oss spec: {spec}")
+    prompts = make_prompts(spec.vocab_size)
+    alone = np.random.default_rng(MOE_SEED).integers(3, spec.vocab_size,
+                                                     MOE_PROMPT).tolist()
+    from dynamo_tpu_torch.models import llama
+
+    t0 = time.perf_counter()
+    params = llama.init_params(spec, 0, device=DEVICE)
+    with torch.no_grad():
+        params.embed.mul_(MOE_EMBED_SCALE)
+    engine = new_engine(spec, dict(cfg, kv_dtype="bf16"), "gpt-oss-120b", params=params)
+    del params
+    print(f"engine gpt-oss-120b: {MOE_LAYERS} of 36 layers, {spec.num_experts} experts "
+          f"top-{spec.num_experts_per_token}, built and captured in "
+          f"{time.perf_counter() - t0:.1f} s")
+    drops: dict[str, int] = {}
+
+    def counted(name, fn):
+        async def run(e):
+            d0 = dropped_total(e)
+            res = await fn(e)
+            drops[name] = dropped_total(e) - d0
+            return res
+        return name, run
+
+    out = serve_phases(engine, [
+        counted("default", lambda e: serve(e, prompts)),
+        counted("alone", lambda e: requests(e, [make_request(alone)])),
+    ])
+    launches, _tokens = serve_check(engine, prompts, out["default"], "gpt-oss-120b",
+                                    reference=False)
+    print(f"serve gpt-oss-120b: moe_dropped_slots {dropped_total(engine)} after the serves "
+          f"({drops['default']} in the default serve's prefills)")
+    (items, ttft, wall), counts, steps = (out["alone"]["res"], out["alone"]["counts"],
+                                          out["alone"]["steps"])
+    toks = [t for x in items[0] for t in x["token_ids"]]
+    require(items[0][-1]["finish_reason"] == "length" and len(toks) == SERVE_TOKENS,
+            f"gpt-oss alone: {len(toks)} tokens, finish {items[0][-1]['finish_reason']}")
+    require(counts["fused_decode"] == spec.num_layers * steps == spec.num_layers
+            * out["alone"]["replays"],
+            f"gpt-oss alone: fused_decode {counts['fused_decode']} over {steps} steps")
+    require(drops["alone"] == 0, f"gpt-oss alone: its prefill dropped {drops['alone']} slots")
+    agree, gap, ref_drop = dropfree_reference_check(spec, engine.params, alone, toks)
+    require(ref_drop == 0, f"gpt-oss alone: the drop-free reference dropped {ref_drop} slots")
+    print(f"reference gpt-oss-120b: a {MOE_PROMPT}-token prompt served alone (TTFT "
+          f"{1e3 * ttft[0]:.1f} ms), 0 slots dropped by its prefill; against the "
+          f"drop-free reference forward (capacity T) exact greedy agreement {agree:.3f}, "
+          f"worst gap {gap:.3f} (tol {NEAR_ARGMAX})")
+    traced = step_graph_check(engine, prompts)
+    expert_split(engine, prompts, traced, flush)
+    drop_engine(engine)
+    del engine
+    torch.cuda.empty_cache()
+    row = gpt_oss_kernel_row(flush)
+    return launches["fused_decode"] + counts["fused_decode"], row
+
+
+def checkpoint_phase() -> None:
+    """Phase 15 (b): llama-3-8b at full width, CKPT_LAYERS deep, written by
+    the port's save_params and read back by load_model_dir onto the card:
+    every weight and one prefill's logits bitwise equal; the same
+    CKPT_REQUESTS greedy requests (one at a time) through an engine on the
+    loaded weights and through ``cli run --model-path`` over HTTP, texts
+    equal; a directory with a tokenizer.json refused naming the departure.
+    Prints the write and load seconds and GB/s (the load reads files the
+    write just left in the page cache)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelSpec
+    from dynamo_tpu_torch.engine.core import InferenceEngine
+    from dynamo_tpu_torch.frontend.tokenizer import MockTokenizer
+    from dynamo_tpu_torch.models import llama, loader
+
+    spec = dataclasses.replace(ModelSpec.llama3_8b(), num_layers=CKPT_LAYERS)
+    params = llama.init_params(spec, 15, device=DEVICE)
+    with torch.no_grad():
+        params.lm_head[:, : CKPT_IDS[0]] = 0
+        params.lm_head[:, CKPT_IDS[1]:] = 0
+    parent = ROOT / "build" / "checkpoints"  # git-ignored
+    parent.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="ckpt-", dir=parent))
+    ckpt = tmp / "llama-3-8b-2l"
+    try:
+        t0 = time.perf_counter()
+        loader.save_params(spec, params, str(ckpt))
+        write_s = time.perf_counter() - t0
+        files = sorted(ckpt.glob("*.safetensors"))
+        disk = sum(f.stat().st_size for f in files)
+        t0 = time.perf_counter()
+        spec2, loaded = loader.load_model_dir(str(ckpt), device=DEVICE)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        require(dataclasses.replace(spec2, name=spec.name) == spec,
+                f"checkpoint spec differs: {spec2}")
+        a, b = dict(params.named_parameters()), dict(loaded.named_parameters())
+        require(sorted(a) == sorted(b) and all(
+            a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]) for k in a),
+            "checkpoint weights differ after the round trip")
+        prompts = [p[:64 + 48 * i] for i, p in enumerate(make_prompts(spec.vocab_size)
+                                                          [2:2 + CKPT_REQUESTS])]
+        T = 64
+        tok = torch.tensor(prompts[0][:T], dtype=torch.int32, device=DEVICE)
+        bt = torch.arange(1, 9, dtype=torch.int32, device=DEVICE)
+        with torch.no_grad():
+            la, _ = llama.prefill_forward(spec, params, tok, bt, 0,
+                                          *llama.init_cache(spec, 9, 16, device=DEVICE), T)
+            lb, _ = llama.prefill_forward(spec2, loaded, tok, bt, 0,
+                                          *llama.init_cache(spec, 9, 16, device=DEVICE), T)
+        require(torch.equal(la, lb), "prefill logits on the loaded weights differ")
+        print(f"checkpoint {spec.name} x {CKPT_LAYERS} layers: save_params {disk / 1e9:.3f} GB "
+              f"in {len(files)} files, {write_s:.2f} s = {disk / 1e9 / write_s:.2f} GB/s; "
+              f"load_model_dir to the card {load_s:.2f} s = {disk / 1e9 / load_s:.2f} GB/s "
+              f"(page cache); {len(a)} weights and one {T}-token prefill's logits bitwise "
+              f"equal")
+        del params, la, lb
+
+        reqs = [make_request(p, CKPT_TOKENS) for p in prompts]
+        engine = InferenceEngine(spec2, EngineConfig(pipeline_decode=True), params=loaded,
+                                 device=DEVICE)
+        engine.precompile()
+
+        async def one_by_one(e):
+            return [(await requests(e, [r]))[0][0] for r in reqs]
+
+        served = serve_phases(engine, [("ckpt", one_by_one)])["ckpt"]
+        drop_engine(engine)
+        del engine, loaded
+        torch.cuda.empty_cache()
+        want = [[t for x in items for t in x["token_ids"]] for items in served["res"]]
+        require(all(len(w) == CKPT_TOKENS and all(CKPT_IDS[0] <= t < CKPT_IDS[1] for t in w)
+                    for w in want), f"checkpoint serve: tokens {want}")
+        tok_ = MockTokenizer()
+        name = ckpt.name
+        cmd = [sys.executable, "-m", "dynamo_tpu_torch.cli", "run", "--in", "http",
+               "--out", "engine", "--model-path", str(ckpt), "--port", "0", "--precompile"]
+        with cli_process(cmd) as (port, t_ready):
+
+            async def post_all():
+                res = []
+                for p in prompts:
+                    res.append(await http_call(port, "POST", "/v1/completions", {
+                        "model": name, "prompt": p, "max_tokens": CKPT_TOKENS,
+                        "temperature": 0.0, "ignore_eos": True}))
+                return res
+
+            got = asyncio.run(post_all())
+        texts = []
+        for status, body, _times in got:
+            js = json.loads(body) if status == 200 else {}
+            require(status == 200 and js["usage"]["completion_tokens"] == CKPT_TOKENS,
+                    f"cli --model-path: status {status}, {body[:300]!r}")
+            texts.append(js["choices"][0]["text"])
+        same = [t == tok_.decode(w) for t, w in zip(texts, want)]
+        require(all(same), f"cli --model-path streams differ from the in-process engine's: "
+                           f"{texts} vs {[tok_.decode(w) for w in want]}")
+        print(f"checkpoint cli: {' '.join(cmd[1:])}: DYNAMO_HTTP after {t_ready:.1f} s; "
+              f"{CKPT_REQUESTS} greedy completions x {CKPT_TOKENS} tokens, one at a time, "
+              f"equal to the in-process engine's on the loaded weights "
+              f"({sum(same)}/{len(same)}), e.g. {texts[0]!r}")
+
+        with_tok = tmp / "with-tokenizer"
+        with_tok.mkdir()
+        shutil.copy(ckpt / "config.json", with_tok / "config.json")
+        (with_tok / "tokenizer.json").write_text("{}")
+
+        async def refused():
+            from dynamo_tpu_torch.engine.worker import launch_engine_worker
+            from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+            from dynamo_tpu_torch.runtime.hub import InMemoryHub
+
+            drt = DistributedRuntime(InMemoryHub())
+            try:
+                await launch_engine_worker(drt, model_path=str(with_tok), device=DEVICE)
+            except NotImplementedError as e:
+                return str(e)
+            finally:
+                await drt.close()
+            return None
+
+        msg = asyncio.run(refused())
+        require(msg is not None and "transformers" in msg,
+                f"a checkpoint with tokenizer files was not refused: {msg}")
+        print(f"checkpoint with tokenizer.json refused: {msg}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the GPU",
@@ -4140,6 +4553,15 @@ def main() -> int:
     # hub, two workers and frontend, each a process of its own
     process_launches = process_phase(spec, cfg, prompts, bf16_tokens, http_stats)
 
+    # MoE and checkpoints: gpt-oss-120b at full width, the llama checkpoint
+    # round trip (every llama engine is freed by now)
+    t15 = time.perf_counter()
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+    moe_launches, kernels["fused_decode/gpt-oss"] = moe_phase(cfg, flush)
+    del flush
+    checkpoint_phase()
+    print(f"phase 15: {time.perf_counter() - t15:.1f} s")
+
     launches = {"fused_decode": serve_launches["fused_decode"] + http_launches
                 + process_launches + overload_launches + guided_launches,
                 "paged_attention_v3": unfused[0], "kv_write": unfused[2],
@@ -4147,7 +4569,8 @@ def main() -> int:
                 "fused_decode/fp8": serve_fp8["fused_decode/fp8"],
                 "paged_attention_v3/fp8": unfused_fp8[1],
                 "kv_write/fp8": unfused_fp8[3],
-                "kv_write/fp8-verify": spec_kv_fp8_launches}
+                "kv_write/fp8-verify": spec_kv_fp8_launches,
+                "fused_decode/gpt-oss": moe_launches}
     sources = {
         "fused_decode": ("dynamo_tpu_torch/csrc/fused_decode.cu",
                          "dynamo_tpu/ops/pallas/fused_decode.py:58"),
@@ -4174,6 +4597,10 @@ def main() -> int:
                          "dynamo_tpu/ops/pallas/kv_write.py:219"),
         "kv_write/fp8-verify": ("dynamo_tpu_torch/csrc/kv_write.cu",
                                 "dynamo_tpu/ops/pallas/kv_write.py:219"),
+        # the same kernel at gpt-oss-120b's shape (KH 8, G 8, D 64, window
+        # 128 on its sliding layers, sinks), launched by phase 15's serves
+        "fused_decode/gpt-oss": ("dynamo_tpu_torch/csrc/fused_decode.cu",
+                                 "dynamo_tpu/ops/pallas/fused_decode.py:58"),
     }
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],

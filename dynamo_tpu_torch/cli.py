@@ -3,6 +3,9 @@
     python -m dynamo_tpu_torch.cli run --in http --out engine --model llama-3-8b
         in-memory hub + torch engine worker + OpenAI HTTP frontend on one
         event loop; prints DYNAMO_HTTP=host:port once serving
+    python -m dynamo_tpu_torch.cli run --in http --model-path DIR
+        the same, serving the HF-format checkpoint in DIR (config.json +
+        *.safetensors; models/loader.py)
     python -m dynamo_tpu_torch.cli run --in batch:reqs.jsonl --out engine
         offline batch: one JSON result line per input line
     python -m dynamo_tpu_torch.cli run --in text --out echo
@@ -89,7 +92,7 @@ async def _arun(args: argparse.Namespace) -> None:
         # worker)
         engine, _ = await launch_engine_worker(
             drt, namespace=args.namespace, model=args.model,
-            model_name=args.model_name,
+            model_path=args.model_path, model_name=args.model_name,
             engine_config=EngineConfig(pipeline_decode=True),
             precompile=args.precompile, device=args.device,
         )
@@ -199,6 +202,8 @@ def _run_command(rest: list[str]) -> int:
                    choices=["engine", "mocker", "echo"])
     p.add_argument("--model", default="tiny-test",
                    help="model preset (out=engine)")
+    p.add_argument("--model-path", default=None,
+                   help="local HF-format checkpoint dir (out=engine)")
     p.add_argument("--model-name", default=None)
     p.add_argument("--device", default=None,
                    help="torch device of the engine (default: the GPU)")

@@ -81,8 +81,16 @@ unavailable).
 Not in this engine yet (see ROADMAP): KVBM and disagg,
 SPMD/meshes, multimodal, embeddings, telemetry and tracing, the fault
 sites other than ``engine.spec_verify``, ``engine.preempt`` and the
-``migration.resume`` corrupt site, the MoE dropped-slot count
-(``moe_dropped_slots`` publishes 0: no MoE family yet).
+``migration.resume`` corrupt site.
+
+MoE specs (models/moe.py): every prefill, packed prefill, chunk and verify
+returns its capacity-dropped slot count as a device scalar, which the
+engine sums on the device (``_note_moe_dropped``, no host read on the hot
+path); every 64th metrics publish fetches the total into
+``moe_dropped_slots`` and publishes it in ``ForwardPassMetrics``, as the
+reference does. A packed prefill of a MoE spec pads its group to
+``prefill_pack_size`` rows, as the reference's always does: the experts'
+capacity, and so the drops, depend on the rows routed.
 """
 
 from __future__ import annotations
@@ -265,6 +273,9 @@ class InferenceEngine:
         # worker attaches its publishers
         self.events = event_publisher
         self.metrics = metrics_publisher
+        self._metrics_publishes = 0
+        self._moe_dropped_dev = None  # device-side running drop count
+        self.moe_dropped_slots = 0  # last fetched total (metrics surface)
         self.allocator = PageAllocator(
             cfg.num_pages + 1, cfg.page_size,
             on_store=self._on_store, on_evict=self._on_evict,
@@ -618,13 +629,30 @@ class InferenceEngine:
         if self.events is not None and shs:
             self.events.blocks_removed(shs)
 
+    def _note_moe_dropped(self, dropped: torch.Tensor) -> None:
+        """Add a forward's MoE capacity-dropped slot count to the running
+        total ON THE DEVICE (no sync on the hot path); _publish_metrics
+        fetches the total at a low duty cycle."""
+        if not self.spec.num_experts:
+            return
+        # the first count is copied: a verify's is the graph's static output
+        self._moe_dropped_dev = (
+            dropped.clone() if self._moe_dropped_dev is None
+            else self._moe_dropped_dev + dropped
+        )
+
     def _publish_metrics(self) -> None:
         if self.metrics is not None:
+            self._metrics_publishes += 1
+            if (self._moe_dropped_dev is not None
+                    and self._metrics_publishes % 64 == 1):
+                self.moe_dropped_slots = int(self._moe_dropped_dev)
             self.metrics.publish(ForwardPassMetrics(
                 active_kv_blocks=self.allocator.active_pages,
                 total_kv_blocks=self.allocator.num_pages - 1,
                 waiting_requests=self._waiting.qsize(),
                 running_requests=sum(s is not None for s in self._slots),
+                moe_dropped_slots=self.moe_dropped_slots,
                 step_time_ms=self.step_time_ewma_ms,
             ))
 
@@ -1080,11 +1108,13 @@ class InferenceEngine:
         block_table[: sp.num_pages] = sp.pages
         dev = self.device
         self.prefill_chunks += 1
-        return self.fam.prefill(
+        logits, dropped = self.fam.prefill(
             self.spec, self.params, torch.from_numpy(padded).to(dev),
             torch.from_numpy(block_table).to(dev), start, self.k_pages,
             self.v_pages, len(new_tokens),
         )
+        self._note_moe_dropped(dropped)
+        return logits
 
     def _advance_partial_safe(self) -> None:
         p = self._partial
@@ -1157,9 +1187,15 @@ class InferenceEngine:
 
     def _prefill_dispatch(self, bucket: int, group: list[dict]) -> torch.Tensor:
         """One prefill forward for ``group``; returns last-position logits
-        [len(group), V] on the device."""
+        [len(group), V] on the device. A packed group of a MoE spec pads to
+        ``prefill_pack_size`` rows of token 0 (no tokens: they write the
+        trash page), as the reference's packed prefill does: the experts
+        route the same N*T rows, so capacity and drops are the
+        reference's."""
         cfg = self.config
         nb = len(group)
+        if nb > 1 and self.spec.num_experts:
+            nb = max(nb, cfg.prefill_pack_size)
         tokens = np.zeros((nb, bucket), np.int32)
         bts = np.zeros((nb, cfg.max_pages_per_seq), np.int32)
         starts = np.zeros((nb,), np.int64)
@@ -1174,15 +1210,18 @@ class InferenceEngine:
         tok_d = torch.from_numpy(tokens).to(dev)
         bts_d = torch.from_numpy(bts).to(dev)
         if nb == 1:
-            logits = self.fam.prefill(
+            logits, dropped = self.fam.prefill(
                 self.spec, self.params, tok_d[0], bts_d[0], int(starts[0]),
                 self.k_pages, self.v_pages, int(nts[0]),
             )
-            return logits[None]
-        return self.fam.prefill_batch(
-            self.spec, self.params, tok_d, bts_d, torch.from_numpy(starts),
-            self.k_pages, self.v_pages, torch.from_numpy(nts),
-        )
+            logits = logits[None]
+        else:
+            logits, dropped = self.fam.prefill_batch(
+                self.spec, self.params, tok_d, bts_d, torch.from_numpy(starts),
+                self.k_pages, self.v_pages, torch.from_numpy(nts),
+            )
+        self._note_moe_dropped(dropped)
+        return logits[: len(group)]
 
     def _seal_prompt_blocks(self, sp: SeqPages, seq: TokenBlockSequence) -> None:
         """Seal the prompt's complete, newly computed blocks into the
@@ -1543,7 +1582,8 @@ class InferenceEngine:
 
     def _verify_fn(self, tokens, block_tables, start_pos, num_tokens, allowed=None):
         """The verify VerifyGraphs captures (bound to the engine's weights
-        and pools); ``allowed`` [n, W, V] in its masked captures."""
+        and pools): (targets, moe_dropped); ``allowed`` [n, W, V] in its
+        masked captures."""
         return self.fam.verify(self.spec, self.params, tokens, block_tables,
                                start_pos, self.k_pages, self.v_pages, num_tokens,
                                allowed)
@@ -1663,8 +1703,9 @@ class InferenceEngine:
                 for j in range(min(len(row), len(masks))):
                     allowed[r, j] = masks[j]
         t0 = time.perf_counter()
-        targets = self._verify.dispatch(tokens, bts, starts, nts,
-                                        allowed).wait().numpy()
+        targets = self._verify.dispatch(tokens, bts, starts, nts, allowed)
+        self._note_moe_dropped(self._verify.dropped)
+        targets = targets.wait().numpy()
         self.verify_times.append(time.perf_counter() - t0)
         self.spec_verifies += 1
         self.spec_rows += len(ready)

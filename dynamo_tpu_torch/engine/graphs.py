@@ -326,14 +326,17 @@ class VerifyGraphs:
     ``verify_row_counts(batch)[-1]`` rows of ``width`` tokens (tokens
     [R, W], block tables [R, P], start positions [R], token counts [R],
     int32) and ``verify(tokens, block_tables, start_pos, num_tokens[,
-    allowed]) -> targets [n, W]`` (the family's verify bound to the model and pools)
+    allowed]) -> (targets [n, W], moe_dropped)`` (the family's verify
+    bound to the model and pools)
     captured once per row count n over the first n rows: the counterpart
     of the JAX engine's verify programs, one per power-of-two row count at
     the static width ``spec_k_max + 1``.
 
     A dispatch makes one host-to-device copy from a pinned staging buffer
     and, after the replay, one device-to-host copy of the targets into
-    pinned memory. On a CPU device the same buffers run ``verify``
+    pinned memory. The MoE dropped-slot count of the last dispatch stays on
+    the device in ``dropped`` (an int32 scalar the engine adds to its
+    running total). On a CPU device the same buffers run ``verify``
     eagerly; on a CUDA device a capture or a replay that fails raises.
     Launch counters stay true under replay, as for ``DecodeGraphs``."""
 
@@ -364,6 +367,7 @@ class VerifyGraphs:
         self._shapes = {"tokens": (R, W), "block_tables": (R, P),
                         "start_pos": (R,), "num_tokens": (R,)}
         self.targets = torch.zeros((R, W), dtype=torch.int32, device=device)
+        self.dropped = torch.zeros((), dtype=torch.int32, device=device)
         # the masked captures' static [R, W, V] mask (None: none)
         self.allowed = (None if vocab_size is None else
                         torch.ones((R, W, vocab_size), dtype=torch.bool, device=device))
@@ -378,7 +382,9 @@ class VerifyGraphs:
 
     def _run(self, n: int, masked: bool = False) -> None:
         args = self._inputs(n) + ([self.allowed[:n]] if masked else [])
-        self.targets[:n].copy_(self.verify(*args))
+        targets, dropped = self.verify(*args)
+        self.targets[:n].copy_(targets)
+        self.dropped.copy_(dropped)
 
     def variants(self) -> list[tuple[int, bool]]:
         """Every (row count, masked) capture."""

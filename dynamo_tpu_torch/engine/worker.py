@@ -22,6 +22,13 @@ and exits. The engine runs on the GPU; ``--device cpu`` runs it on the CPU.
 ``/health`` and ``/metrics`` there (prints ``SYSTEM_STATUS_PORT=``) and
 canary-probes the worker every ``--health-interval`` seconds.
 
+``--model-path DIR`` serves an HF-format checkpoint (``config.json`` and
+``*.safetensors``, models/loader.py): the spec comes from its config and
+the weights stream to the device. A directory that also holds tokenizer
+files raises: the reference would serve it with the HF tokenizer, which
+the port does not have (no ``transformers`` on the GPU machine), and
+serving the mock tokenizer over real weights would answer garbage.
+
 The default router mode is "kv", as the reference's: frontends route by
 prefix overlap from this worker's KV events (kv_router/). The reference's
 flags for features the port lacks raise NotImplementedError naming their
@@ -84,11 +91,13 @@ async def launch_engine_worker(
     precompile: bool = False,
     device: str | torch.device | None = None,
     params=None,
+    model_path: str | None = None,
 ) -> tuple[InferenceEngine, object]:
     """Build + register one aggregated engine worker in this process, on
     ``device`` (None = the GPU; no GPU raises), serving ``params`` (default:
-    the seeded random init of ``engine_config.seed``). Returns (engine,
-    served generate endpoint)."""
+    the seeded random init of ``engine_config.seed``), or the checkpoint in
+    ``model_path`` (its spec from its config.json). Returns (engine, served
+    generate endpoint)."""
     # an unknown parser name fails here, before the engine is built
     make_tool_config(tool_call_parser)
     make_reasoning_parser(reasoning_parser)
@@ -99,6 +108,21 @@ async def launch_engine_worker(
         )
     load_tokenizer(tokenizer)  # a tokenizer the frontend cannot load fails here
     cfg = engine_config or EngineConfig()
+    if model_path:
+        if spec is not None or params is not None:
+            raise ValueError(
+                "pass either spec=/params= or model_path=, not both: with a "
+                "checkpoint the spec comes from its config.json")
+        if tokenizer == "mock" and _has_tokenizer_files(model_path):
+            raise NotImplementedError(
+                f"{model_path} holds tokenizer files: the reference serves it "
+                "with its HF tokenizer, which the port does not have (no "
+                "transformers on the GPU machine); remove them to serve the "
+                "weights with the mock tokenizer")
+        from dynamo_tpu_torch.models.loader import load_model_dir
+
+        spec, params = await asyncio.to_thread(load_model_dir, model_path,
+                                               device=device)
     spec = spec or ModelSpec.preset(model)
     guided_vocab = None
     if cfg.guided_mode != "off":
@@ -191,6 +215,15 @@ async def launch_engine_worker(
     return engine, served
 
 
+def _has_tokenizer_files(model_path: str) -> bool:
+    import os
+
+    return any(
+        os.path.exists(os.path.join(model_path, f))
+        for f in ("tokenizer.json", "tokenizer_config.json", "tokenizer.model")
+    )
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches in this process so far, by kernel and fp8 form
     (ops/cuda/build.py counters; graph replays included)."""
@@ -208,7 +241,6 @@ def _engine_config(args: argparse.Namespace) -> EngineConfig:
     DYN_* env / DYN_CONFIG layer); flags of unported features raise here or
     in EngineConfig."""
     refused = [
-        (args.model_path, "--model-path: checkpoint loading (ROADMAP Queue A item 4)"),
         (args.mode != "aggregated", f"--mode {args.mode}: disaggregated serving "
          "(ROADMAP Queue A item 10)"),
         (args.kvbm_host_mb or args.kvbm_disk_mb or args.kvbm_disk_dir
@@ -281,6 +313,7 @@ async def _amain(args: argparse.Namespace, ecfg: EngineConfig) -> None:
             component=args.component,
             endpoint=args.endpoint,
             model=args.model,
+            model_path=args.model_path,
             model_name=args.model_name,
             model_type=args.model_type,
             tokenizer=args.tokenizer,
@@ -406,7 +439,8 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--endpoint", default="generate")
     p.add_argument("--model", default="tiny-test", help="model preset name")
     p.add_argument("--model-path", default=None,
-                   help="local checkpoint dir (not ported: raises)")
+                   help="local HF-format checkpoint dir (config.json + "
+                        "*.safetensors); the spec comes from its config")
     p.add_argument("--model-name", default=None, help="served model name")
     p.add_argument("--model-type", default="chat",
                    choices=["chat", "completions", "embeddings"])

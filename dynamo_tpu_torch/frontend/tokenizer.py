@@ -4,7 +4,8 @@ dynamo_tpu/frontend/tokenizer.py).
 ``MockTokenizer`` is the deterministic byte-level tokenizer of the
 reference (no model files). The reference's ``HFTokenizer`` needs
 ``transformers``, which the GPU machine lacks: ``load_tokenizer`` with a
-path raises until checkpoint loading is ported (ROADMAP Queue A item 4).
+path raises, a kept departure (a checkpoint's weights load without it:
+models/loader.py).
 
 ``IncrementalDecoder`` converts a stream of token ids into clean UTF-8 text
 deltas: it withholds bytes until they form complete codepoints, so
@@ -82,7 +83,7 @@ def load_tokenizer(spec: str | None) -> Tokenizer:
     raise ValueError(
         f"tokenizer {spec!r}: the port serves the mock tokenizer only; a "
         "HuggingFace tokenizer needs transformers, which the GPU machine "
-        "lacks (checkpoint loading is ROADMAP Queue A item 4)"
+        "lacks"
     )
 
 

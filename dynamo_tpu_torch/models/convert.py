@@ -18,6 +18,10 @@ import torch
 from dynamo_tpu_torch.engine.config import ModelSpec
 from dynamo_tpu_torch.models.llama import LlamaParams, resolve_device, torch_dtype
 
+# a MoE layer's leaves kept in f32 whatever the model dtype (the reference's
+# init and loader keep them so)
+F32_MOE_LEAVES = ("router", "router_bias", "score_bias")
+
 
 def tensor_from_numpy(arr: Any, device: torch.device) -> torch.Tensor:
     """A writable copy of ``arr`` as a tensor on ``device`` (JAX hands out
@@ -32,15 +36,23 @@ def params_from_numpy(
     spec: ModelSpec, tree: dict[str, Any], device: str | torch.device | None = None
 ) -> LlamaParams:
     """The JAX pytree ``{"embed", "final_norm", ["lm_head"], "layers": [...]}``
-    as the port's modules, in the spec's dtype."""
+    as the port's modules, in the spec's dtype (a layer's ``moe`` dict
+    nested, its router leaves f32)."""
     dev = resolve_device(device)
     dtype = torch_dtype(spec.dtype)
 
-    def conv(a):
-        return tensor_from_numpy(a, dev).to(dtype)
+    def conv(a, dt=dtype):
+        return tensor_from_numpy(a, dev).to(dt)
+
+    def conv_moe(moe):
+        # the router and its biases stay f32: rounded to bf16 they would
+        # pick other experts
+        return {name: conv(a, torch.float32 if name in F32_MOE_LEAVES else dtype)
+                for name, a in moe.items()}
 
     layers = [
-        {name: conv(a) for name, a in lp.items()} for lp in tree["layers"]
+        {name: conv_moe(a) if name == "moe" else conv(a) for name, a in lp.items()}
+        for lp in tree["layers"]
     ]
     lm_head = None if spec.tie_embeddings else conv(tree["lm_head"])
     return LlamaParams(conv(tree["embed"]), conv(tree["final_norm"]), layers,

@@ -3,7 +3,14 @@
 The engine drives a small adapter surface (params/cache init, prefill,
 packed prefill, the one decode step its bursts run and the speculative
 verify, both of which its CUDA graphs capture) and the adapter maps it
-onto the family's functional core. This slice ports the dense GQA family only.
+onto the family's functional core. The port has the GQA family (llama,
+mistral, mixtral, qwen-moe, gpt-oss: dense or routed-expert MLPs); the MLA
+family (DeepSeek) is ROADMAP Queue A item 9.
+
+Engine contract, as the reference's (dynamo_tpu/models/family.py): prefill,
+packed prefill and verify return ``(result, moe_dropped)``, the second an
+int32 device scalar the engine sums without a host read; the pools update
+in place.
 """
 
 from __future__ import annotations
@@ -35,18 +42,20 @@ class GqaFamily:
                                  kv_dtype=kv_dtype)
 
     def prefill(self, spec, params, tokens, bt, start, k, v, n):
+        """(last logits [V], moe_dropped)."""
         return self.m.prefill_forward(spec, params, tokens, bt, start, k, v, n)
 
     def prefill_batch(self, spec, params, tokens, bts, starts, k, v, ns):
+        """(last logits [N, V], moe_dropped)."""
         return self.m.prefill_forward_batch(
             spec, params, tokens, bts, starts, k, v, ns
         )
 
     def verify(self, spec, params, tokens, bts, starts, k, v, ntoks,
                allowed=None):
-        """Speculative verify: targets [N, W] int32 on the device
-        (engine/graphs.py VerifyGraphs captures it), argmax under the
-        guided [N, W, V] ``allowed`` masks when given."""
+        """Speculative verify: (targets [N, W] int32, moe_dropped), both on
+        the device (engine/graphs.py VerifyGraphs captures it), argmax
+        under the guided [N, W, V] ``allowed`` masks when given."""
         return self.m.verify_forward(spec, params, tokens, bts, starts, k, v,
                                      ntoks, allowed)
 
@@ -60,12 +69,7 @@ class GqaFamily:
 def get_family(spec: ModelSpec) -> Any:
     if spec.is_mla:
         raise NotImplementedError(
-            f"{spec.name}: MLA latent attention arrives with the port's MLA "
-            "slice (models/mla.py + MlaFamily)"
-        )
-    if spec.num_experts:
-        raise NotImplementedError(
-            f"{spec.name}: mixture-of-experts layers arrive with the port's "
-            "gpt-oss/MoE slice (models/moe.py)"
+            f"{spec.name}: MLA latent attention is not ported (ROADMAP Queue A "
+            "item 9: models/mla.py + MlaFamily)"
         )
     return GqaFamily()

@@ -1,6 +1,7 @@
 """Llama-family transformer in PyTorch over the paged KV cache.
 
-The counterpart of dynamo_tpu/models/llama.py for the dense GQA path.
+The counterpart of dynamo_tpu/models/llama.py: GQA attention with a dense
+MLP, or with routed experts (models/moe.py) when the spec has experts.
 ``nn.Module``s hold the weights (``LlamaParams``, names and ``[in, out]``
 orientation as in the JAX pytree, so ``x @ w``); plain functions on tensors
 mirror the JAX entry points: ``prefill_forward``, ``prefill_forward_batch``,
@@ -24,6 +25,7 @@ GPU is present unless the caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
@@ -75,12 +77,14 @@ def _param(t: torch.Tensor) -> nn.Parameter:
 
 
 class LlamaLayer(nn.Module):
-    """One decoder layer's weights (JAX names, [in, out] orientation)."""
+    """One decoder layer's weights (JAX names, [in, out] orientation). A
+    nested dict (a MoE layer's ``moe``: router and stacked experts, see
+    models/moe.py) becomes a sub-module of the same kind."""
 
-    def __init__(self, tensors: dict[str, torch.Tensor]):
+    def __init__(self, tensors: dict[str, torch.Tensor | dict]):
         super().__init__()
         for name, t in tensors.items():
-            setattr(self, name, _param(t))
+            setattr(self, name, LlamaLayer(t) if isinstance(t, dict) else _param(t))
 
     def get(self, name: str) -> torch.Tensor | None:
         return getattr(self, name, None)
@@ -102,9 +106,12 @@ def init_params(
     spec: ModelSpec, seed: int = 0, device: str | torch.device | None = None
 ) -> LlamaParams:
     """Random init from a seeded generator on the device (serving weights
-    would come from a checkpoint). Same scheme as the JAX init: normal draws
-    in f32 times 1/sqrt(fan_in) (0.02 for the embedding), cast to the model
-    dtype; norms are ones, biases and sinks zeros. The draws differ from
+    come from a checkpoint: models/loader.py). Same scheme as the JAX init:
+    normal draws in f32 times 1/sqrt(fan_in) (``shape[-2]``, the input axis
+    of a 2-D or a stacked-expert 3-D weight; 0.02 for the embedding and the
+    router), cast to the model dtype; norms are ones, biases and sinks
+    zeros; a MoE spec gets a ``moe`` block (models/moe.py) in place of the
+    dense MLP, its router f32. The draws differ from
     jax.random's; parity tests bridge the JAX weights with
     models/convert.params_from_numpy instead."""
     dev = resolve_device(device)
@@ -115,7 +122,7 @@ def init_params(
     nh, nkv = spec.num_heads, spec.num_kv_heads
 
     def dense(shape, scale=None):
-        scale = scale or 1.0 / math.sqrt(shape[0])
+        scale = scale or 1.0 / math.sqrt(shape[-2])
         w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
         return (w * scale).to(dtype)
 
@@ -142,11 +149,16 @@ def init_params(
                       bv=zeros(nkv * hd), bo=zeros(d))
         if spec.attn_sinks:
             lp["sinks"] = zeros(nh)
-        lp.update(
-            w_gate=dense((d, spec.intermediate_size)),
-            w_up=dense((d, spec.intermediate_size)),
-            w_down=dense((spec.intermediate_size, d)),
-        )
+        if spec.num_experts:
+            from dynamo_tpu_torch.models import moe
+
+            lp["moe"] = moe.init_moe_layer(spec, dense, dtype, dev)
+        else:
+            lp.update(
+                w_gate=dense((d, spec.intermediate_size)),
+                w_up=dense((d, spec.intermediate_size)),
+                w_down=dense((spec.intermediate_size, d)),
+            )
         layers.append(lp)
     return LlamaParams(embed, ones(d), layers, lm_head)
 
@@ -256,11 +268,23 @@ def rope(
     return apply_rope(x, cos, sin)
 
 
+@functools.lru_cache(maxsize=32)
+def _yarn_table(spec: ModelSpec, device: torch.device):
+    """``yarn_freqs`` at the head dim with the frequencies on ``device``,
+    made once per (spec, device): a CUDA graph cannot capture the
+    host-to-device copy of a numpy table (the first forward, eager, fills
+    the cache before any capture)."""
+    inv, att = yarn_freqs(spec, spec.head_dim)
+    if inv is not None:
+        inv = torch.as_tensor(inv, dtype=torch.float32, device=device)
+    return inv, att
+
+
 def rope_tables(spec: ModelSpec, positions: torch.Tensor):
     """spec-driven (cos, sin) tables for ``positions`` [..., T]: the plain
     theta schedule, or YaRN when configured. Every layer rotates at the same
     positions, so a forward builds them once."""
-    inv, att = yarn_freqs(spec, spec.head_dim)
+    inv, att = _yarn_table(spec, positions.device)
     return _rope_tables(positions, spec.head_dim // 2, spec.rope_theta, inv,
                         att, positions.device)
 
@@ -293,6 +317,25 @@ def _o_proj(spec: ModelSpec, lp: LlamaLayer, attn: torch.Tensor) -> torch.Tensor
 
 def _mlp(lp: LlamaLayer, x: torch.Tensor) -> torch.Tensor:
     return (torch.nn.functional.silu(x @ lp.w_gate) * (x @ lp.w_up)) @ lp.w_down
+
+
+def _ffn(spec: ModelSpec, lp: LlamaLayer, x: torch.Tensor) -> torch.Tensor:
+    """Dense MLP or routed MoE depending on the spec (x [T, d])."""
+    if spec.num_experts:
+        from dynamo_tpu_torch.models import moe
+
+        return moe.moe_mlp(spec, lp.moe, x)
+    return _mlp(lp, x)
+
+
+def _ffn_counted(spec: ModelSpec, lp: LlamaLayer, x: torch.Tensor):
+    """_ffn + its dropped-slot count, an int32 device scalar (0 for dense
+    layers)."""
+    if spec.num_experts:
+        from dynamo_tpu_torch.models import moe
+
+        return moe.moe_mlp(spec, lp.moe, x, return_dropped=True)
+    return _mlp(lp, x), torch.zeros((), dtype=torch.int32, device=x.device)
 
 
 def _logits(spec: ModelSpec, params: LlamaParams, x: torch.Tensor) -> torch.Tensor:
@@ -342,16 +385,18 @@ def prefill_forward(
     k_pages: torch.Tensor,  # [L, num_pages, kvh, page, D] (updated in place)
     v_pages: torch.Tensor,
     num_tokens: int,  # real token count in ``tokens``
-) -> torch.Tensor:
-    """Process one prompt; writes its KV pages; returns the last real
-    position's logits [V] f32. Attention runs over the gathered paged
-    context, so prefix-cache hits skip recompute of cached tokens."""
-    logits = prefill_forward_batch(
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Process one prompt; writes its KV pages; returns (the last real
+    position's logits [V] f32, MoE dropped slots: an int32 device scalar).
+    Attention runs over the gathered paged context, so prefix-cache hits
+    skip recompute of cached tokens. The experts route all ``T_pad`` rows,
+    padding included, as the reference's."""
+    logits, dropped = prefill_forward_batch(
         spec, params, tokens[None], block_table[None],
         torch.tensor([start_pos]), k_pages, v_pages,
         torch.tensor([num_tokens]),
     )
-    return logits[0]
+    return logits[0], dropped
 
 
 def prefill_forward_batch(
@@ -363,14 +408,18 @@ def prefill_forward_batch(
     k_pages: torch.Tensor,  # updated in place
     v_pages: torch.Tensor,
     num_tokens: torch.Tensor,  # [N] host ints: real token counts
-) -> torch.Tensor:
+) -> tuple[torch.Tensor, torch.Tensor]:
     """N prompts in one forward (the packed-prefill admission path):
     matmuls batch over [N, T, d], the per-layer KV write is one page-tile
     write over all N*T/page tiles, and attention runs per prompt over its
     own table. Padded rows (num_tokens 0) write only the trash page.
     Over fp8 pools each prompt attends to its own rows exactly: they are
     overlaid on the dequantized read-back, so only a cached prefix pays
-    fp8. Returns the last real position's logits [N, V] f32."""
+    fp8. The experts of a MoE layer route the N*T rows flattened in
+    prompt-major order, padding included, as the reference's (capacity
+    and drops depend on N*T). Returns (the last real position's logits
+    [N, V] f32, MoE dropped slots summed over the layers: an int32 device
+    scalar, never read on the host here)."""
     dev = k_pages.device
     N, T = tokens.shape
     page_size = k_pages.shape[3]
@@ -390,6 +439,7 @@ def prefill_forward_batch(
 
     x = params.embed[tokens]  # [N, T, d]
     rot = rope_tables(spec, positions)
+    dropped = torch.zeros((), dtype=torch.int32, device=dev)
     for li, lp in enumerate(params.layers):
         h = rms_norm(x, lp.attn_norm, spec.rms_eps)
         q, k, v = _attn_qkv(spec, lp, h, rot)
@@ -410,11 +460,13 @@ def prefill_forward_batch(
         ])
         x = x + _o_proj(spec, lp, attn.reshape(N, T, -1))
         h = rms_norm(x, lp.mlp_norm, spec.rms_eps)
-        x = x + _mlp(lp, h)
+        f, d = _ffn_counted(spec, lp, h.reshape(N * T, -1))
+        x = x + f.reshape(N, T, -1)
+        dropped = dropped + d
 
     last = (ntok - 1).clamp(0, T - 1)
     x_last = x[torch.arange(N, device=dev), last]
-    return _logits(spec, params, x_last)
+    return _logits(spec, params, x_last), dropped
 
 
 # ----------------------------------------------------------------- verify
@@ -430,26 +482,35 @@ def verify_forward(
     v_pages,
     num_tokens: torch.Tensor,  # [N] int32 valid tokens per row (0 = padded row)
     allowed: torch.Tensor | None = None,  # [N, W, V] bool: guided masks
-) -> torch.Tensor:
+) -> tuple[torch.Tensor, torch.Tensor]:
     """Speculative-verify forward: N slots' fed token + drafts in one
     forward, with the target's greedy choice at EVERY position (the
-    engine's _spec_phase). Returns targets [N, W] int32 on the device: the
-    argmax is taken there (over ``verify_logits``, masked by ``allowed``),
-    so no [N, W, V] tensor reaches the host. Reads no device value on the
-    host, so a CUDA graph can capture it (engine/graphs.VerifyGraphs)."""
+    engine's _spec_phase). Returns (targets [N, W] int32, MoE dropped slots
+    as an int32 scalar), both on the device: the argmax is taken there
+    (over ``verify_logits``, masked by ``allowed``), so no [N, W, V] tensor
+    reaches the host. Reads no device value on the host, so a CUDA graph
+    can capture it (engine/graphs.VerifyGraphs)."""
     from dynamo_tpu_torch.engine.sampling import greedy_tokens, mask_logits
 
-    logits = verify_logits(spec, params, tokens, block_tables, start_pos,
-                           k_pages, v_pages, num_tokens)
+    logits, dropped = _verify_logits_counted(
+        spec, params, tokens, block_tables, start_pos, k_pages, v_pages,
+        num_tokens)
     if allowed is not None:
         logits = mask_logits(logits, allowed)
-    return greedy_tokens(logits)
+    return greedy_tokens(logits), dropped
 
 
 def verify_logits(spec, params, tokens, block_tables, start_pos, k_pages,
                   v_pages, num_tokens) -> torch.Tensor:
     """The verify forward's logits [N, W, V] f32 at every position
-    (arguments as ``verify_forward``'s); writes the rows' KV in place.
+    (arguments as ``verify_forward``'s); writes the rows' KV in place."""
+    return _verify_logits_counted(spec, params, tokens, block_tables,
+                                  start_pos, k_pages, v_pages, num_tokens)[0]
+
+
+def _verify_logits_counted(spec, params, tokens, block_tables, start_pos,
+                           k_pages, v_pages, num_tokens):
+    """``verify_logits`` and the MoE dropped-slot count of its N*W rows.
 
     It differs from prefill in two ways. KV writes are token-granular: a
     verify starts wherever decode left off, mid-page, so each layer's N*W
@@ -464,7 +525,9 @@ def verify_logits(spec, params, tokens, block_tables, start_pos, k_pages,
     by ``allowed`` when given.
 
     Rejected drafts' rows stay past the slot's post-verify length, masked
-    from attention and overwritten by the next write there."""
+    from attention and overwritten by the next write there. A MoE layer
+    routes the N*W rows flattened, padded rows included, as the
+    reference's."""
     from dynamo_tpu_torch.ops.attention import batched_causal_attention
     from dynamo_tpu_torch.ops.cuda.kv_write import kv_write
 
@@ -489,6 +552,7 @@ def verify_logits(spec, params, tokens, block_tables, start_pos, k_pages,
     x = params.embed[tokens.long()]  # [N, W, d]
     rot = rope_tables(spec, positions)
     KH, D = spec.num_kv_heads, spec.head_dim
+    dropped = torch.zeros((), dtype=torch.int32, device=dev)
     for li, lp in enumerate(params.layers):
         h = rms_norm(x, lp.attn_norm, spec.rms_eps)
         q, k, v = _attn_qkv(spec, lp, h, rot)  # [N, W, heads, D]
@@ -507,9 +571,11 @@ def verify_logits(spec, params, tokens, block_tables, start_pos, k_pages,
         )
         x = x + _o_proj(spec, lp, attn.reshape(N, W, -1))
         h = rms_norm(x, lp.mlp_norm, spec.rms_eps)
-        x = x + _mlp(lp, h)
+        f, d = _ffn_counted(spec, lp, h.reshape(N * W, -1))
+        x = x + f.reshape(N, W, -1)
+        dropped = dropped + d
 
-    return _logits(spec, params, x)
+    return _logits(spec, params, x), dropped
 
 
 # ---------------------------------------------------------------- decode
@@ -549,7 +615,7 @@ def decode_forward(
         )
         x = x + _o_proj(spec, lp, attn.reshape(B, spec.num_heads * spec.head_dim))
         h = rms_norm(x, lp.mlp_norm, spec.rms_eps)
-        x = x + _mlp(lp, h)
+        x = x + _ffn(spec, lp, h)
     return _logits(spec, params, x)
 
 
@@ -724,5 +790,5 @@ def reference_forward(
         )
         x = x + _o_proj(spec, lp, attn.reshape(T, -1))
         h = rms_norm(x, lp.mlp_norm, spec.rms_eps)
-        x = x + _mlp(lp, h)
+        x = x + _ffn(spec, lp, h)
     return _logits(spec, params, x)

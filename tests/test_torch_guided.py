@@ -405,7 +405,7 @@ def test_masked_verify_graphs_eager_route_equals_verify_forward():
     allowed[:, :, 0] = True
     dev = [torch.from_numpy(a) for a in (tokens, bts, starts)]
     k2, v2 = tk.clone(), tv.clone()
-    want = llama.verify_forward(tspec, tp, *dev, k2, v2, torch.from_numpy(nts),
+    want, _ = llama.verify_forward(tspec, tp, *dev, k2, v2, torch.from_numpy(nts),
                                 torch.from_numpy(allowed))
     runner = VerifyGraphs(
         lambda t, b, s, nt, a=None: llama.verify_forward(tspec, tp, t, b, s, tk, tv, nt, a),

@@ -123,7 +123,7 @@ def test_prefill_matches(start):
         jspec, jp, jnp.asarray(padded), jnp.asarray(bt),
         jnp.asarray(start, jnp.int32), jk, jv,
         jnp.asarray(len(tail), jnp.int32))
-    got = llama.prefill_forward(tspec, tp, torch.from_numpy(padded),
+    got, _ = llama.prefill_forward(tspec, tp, torch.from_numpy(padded),
                                 torch.from_numpy(bt), start, tk, tv, len(tail))
     _close(got, want)
     live = [4, 9, 2]
@@ -150,7 +150,7 @@ def test_prefill_batch_matches():
     want, jk, jv, _ = jllama.prefill_forward_batch(
         jspec, jp, jnp.asarray(tokens), jnp.asarray(bts),
         jnp.asarray(starts, jnp.int32), jk, jv, jnp.asarray(lens, jnp.int32))
-    got = llama.prefill_forward_batch(
+    got, _ = llama.prefill_forward_batch(
         tspec, tp, torch.from_numpy(tokens), torch.from_numpy(bts),
         torch.tensor(starts), tk, tv, torch.tensor(lens))
     _close(got[:3], np.asarray(want)[:3])
@@ -329,7 +329,7 @@ def test_fp8_prefill_and_decode_match(fused, monkeypatch):
     want, jk, jv, _ = jllama.prefill_forward_batch(
         jspec, jp, jnp.asarray(tokens), jnp.asarray(bts),
         jnp.asarray(starts, jnp.int32), jk, jv, jnp.asarray(lens, jnp.int32))
-    got = llama.prefill_forward_batch(
+    got, _ = llama.prefill_forward_batch(
         tspec, tp, torch.from_numpy(tokens), torch.from_numpy(bts),
         torch.tensor(starts), tk, tv, torch.tensor(lens))
     _close(got[:3], np.asarray(want)[:3])

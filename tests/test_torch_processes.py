@@ -386,7 +386,6 @@ async def test_sigkill_mid_stream_migrates_to_the_survivor(deployment):
 
 
 _REFUSED_FLAGS = {
-    "model-path": (["--model-path", "/ckpt"], "item 4"),
     "mode-prefill": (["--mode", "prefill"], "item 10"),
     "mode-decode": (["--mode", "decode"], "item 10"),
     "kvbm": (["--kvbm-host-mb", "64"], "item 10"),
@@ -397,7 +396,9 @@ _REFUSED_FLAGS = {
     "ep": (["--ep", "2"], "item 11"),
     "mirror": (["--mirror", "leader"], "item 11"),
     "coordinator": (["--coordinator-address", "h:1"], "item 11"),
-    # ported since (speculative decoding, overload): these build their config
+    # ported since (speculative decoding, overload, checkpoint loading):
+    # these build their config
+    "model-path": (["--model-path", "/ckpt"], None),
     "spec": (["--spec", "ngram"], None),
     "spec-k-max": (["--spec-k-max", "4"], None),
     "tenant-quotas": (["--tenant-quotas", "a:weight=2"], None),

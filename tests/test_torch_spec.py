@@ -342,7 +342,7 @@ def test_verify_allowed_mask_matches_reference():
         jk, jv, jnp.asarray(nts), allowed=jnp.asarray(allowed))
     got = llama.verify_forward(
         tspec, tp, *(torch.from_numpy(a) for a in (tokens, bts, starts)), tk, tv,
-        torch.from_numpy(nts), torch.from_numpy(allowed)).numpy()
+        torch.from_numpy(nts), torch.from_numpy(allowed))[0].numpy()
     want = np.asarray(want)
     for r, n in enumerate(nts):
         assert got[r, :n].tolist() == want[r, :n].tolist()
@@ -360,7 +360,7 @@ def test_verify_graphs_eager_route_equals_verify_forward(kv):
     clone = (lambda p: QuantPool(p.vals.clone(), p.scale.clone())
              if isinstance(p, QuantPool) else p.clone())
     k2, v2 = clone(tk), clone(tv)
-    want = llama.verify_forward(
+    want, _ = llama.verify_forward(
         tspec, tp, *(torch.from_numpy(a) for a in (tokens, bts, starts)), k2, v2,
         torch.from_numpy(nts))
     runner = VerifyGraphs(
