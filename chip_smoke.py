@@ -293,6 +293,37 @@ Phases, each of which must pass (any failure exits non-zero):
    ASCII ids, so each token has its character); a directory with a
    tokenizer.json refused naming the departure; write and load seconds and
    GB/s printed.
+16. MLA (run last, once phase 15's engines and checkpoint are freed): (a)
+   deepseek-r1 at full width (d 7168, 128 heads, q-LoRA 1536, kv-LoRA 512,
+   rope 64, v 128, 256 experts top-8 in 8 groups with 4 taken, 1 shared
+   expert, vocab 129280, YaRN x40) cut from 61 to MLA_LAYERS layers with
+   first_k_dense 3 kept (three dense layers, one MoE layer; ~30.2 GB of
+   bf16 weights, random from seed 0, the input embedding scaled by
+   MOE_EMBED_SCALE), on a bf16 latent pool and then an fp8 one (one scale
+   per row) on the same weights, decode graphs captured first: the 8
+   default prompts, 32 greedy tokens each, with phase 4's checks (every
+   request "length", the prefix hit) and no kernel launched (MLA's path
+   has none: DYNAMO_FUSED_DECODE does not apply); a MLA_PROMPT-token
+   prompt served alone, a whole prefill bucket, near-argmax under
+   mla.reference_forward with the prompt's rows routed as the prefill
+   routed them (its dropped slots, counted by wrapping moe.moe_mlp, equal
+   to the reference's) and each served token's row drop-free, as decode's;
+   phase 5's step graphs (greedy and sampled with logprobs, bitwise,
+   values and scales on fp8) and phase 12's verify graphs (1, 2, 4, 8 rows
+   x 9 against eager verify_forward, targets and pools bitwise; the span
+   of an 8-row replay against a decode step); (b) on bf16, a B=8 step's parts per layer
+   with CUDA events (absorbed attention, experts with the shared expert,
+   dense MLPs, the head) against the traced graph step's busy time, and
+   the experts one step's routing touches; the latent pools' bytes, bf16
+   against fp8; (c) the latent attention of one layer, plain (what decode
+   runs) against one scaled_dot_product_attention call on the same
+   inputs, at B=8 over SEQ_LENS and B=1 x LONG_SEQ_LEN, beside its byte
+   bound; (d) deepseek-r1 at full width, MLA_CKPT_LAYERS layer (dense,
+   ~4.9 GB), written by save_params under build/checkpoints/ and read back
+   by load_model_dir: weights and one prefill's logits bitwise equal,
+   write and load GB/s printed. Phase 16 adds ~25 s of command time.
+
+Phases run in the order 1-8, 12, 13, 14, 9, 10, 11, 15, 16.
 
 Prints, before the last line, the card line and one JSON object with every
 kernel's measurements; the last line is
@@ -438,6 +469,14 @@ MOE_PROMPT = 128
 MOE_EMBED_SCALE = 64.0
 MOE_WINDOW = 128
 MOE_SEED = 1515
+# phase 16 (MLA): deepseek-r1 at full width cut to MLA_LAYERS layers (its
+# first_k_dense of 3 kept: three dense layers and one MoE layer), its input
+# embedding scaled by MOE_EMBED_SCALE for phase 15's routing reason; a
+# MLA_PROMPT-token prompt served alone; a MLA_CKPT_LAYERS-layer checkpoint
+MLA_LAYERS = 4
+MLA_PROMPT = 128
+MLA_SEED = 1616
+MLA_CKPT_LAYERS = 1
 CKPT_LAYERS = 2
 CKPT_REQUESTS = 4
 CKPT_TOKENS = 16
@@ -551,6 +590,8 @@ def pools_equal(a, b) -> bool:
     if is_quant(a):
         return (torch.equal(a.vals[:, 1:].view(torch.uint8), b.vals[:, 1:].view(torch.uint8))
                 and torch.equal(a.scale[:, 1:], b.scale[:, 1:]))
+    if a.ndim < 2:  # the MLA family's empty v_pages placeholder
+        return torch.equal(a, b)
     return torch.equal(a[:, 1:], b[:, 1:])
 
 
@@ -1057,15 +1098,22 @@ async def serve(engine, prompts):
     return results, ttft, wall, engine.cached_prompt_tokens - cached_before
 
 
-def near_argmax_check(spec, params, prompt, tokens) -> tuple[float, float]:
-    """Teacher-forced unpaged reference forward over prompt + served
-    tokens: each served token's reference logit must lie within NEAR_ARGMAX
-    of the reference maximum. Returns (exact agreement, worst gap)."""
-    from dynamo_tpu_torch.models import llama
+def model_module(spec):
+    """The spec's family module: models/llama.py, or models/mla.py for an
+    MLA spec."""
+    from dynamo_tpu_torch.models.family import get_family
 
+    return get_family(spec).m
+
+
+def near_argmax_check(spec, params, prompt, tokens) -> tuple[float, float]:
+    """Teacher-forced unpaged reference forward (the spec family's) over
+    prompt + served tokens: each served token's reference logit must lie
+    within NEAR_ARGMAX of the reference maximum. Returns (exact agreement,
+    worst gap)."""
     seq = torch.tensor(prompt + tokens[:-1], device=DEVICE)
     with torch.no_grad():
-        logits = llama.reference_forward(spec, params, seq)[len(prompt) - 1:]
+        logits = model_module(spec).reference_forward(spec, params, seq)[len(prompt) - 1:]
     served = torch.tensor(tokens, device=DEVICE)
     top = logits.max(dim=-1).values
     picked = logits.gather(1, served[:, None])[:, 0]
@@ -1121,8 +1169,6 @@ def prefill_slots(engine, prompts, room: int = 1):
     packed prefill, beside the engine); returns host arrays: block tables
     [B, P] with page room for ``room`` decode tokens, the first tokens
     (argmax) [B] and seq_lens [B] counting them, int32."""
-    from dynamo_tpu_torch.models import llama
-
     spec, cfg = engine.spec, engine.config
     B = len(prompts)
     bts = np.zeros((B, cfg.max_pages_per_seq), np.int32)
@@ -1134,7 +1180,7 @@ def prefill_slots(engine, prompts, room: int = 1):
         tokens[i, : len(p)] = p
     lens = torch.tensor([len(p) for p in prompts])
     with torch.no_grad():
-        logits, _ = llama.prefill_forward_batch(
+        logits, _ = engine.fam.prefill_batch(
             spec, engine.params, torch.from_numpy(tokens).to(DEVICE),
             torch.from_numpy(bts).to(DEVICE), torch.zeros(B, dtype=torch.int64),
             engine.k_pages, engine.v_pages, lens)
@@ -1161,13 +1207,13 @@ def step_graph_check(engine, prompts, unfused: bool = False) -> dict | None:
     rows at temperature 0.8, with top-k / top-p on some). Tokens and
     logprobs must be identical and the pools bitwise equal outside page 0;
     each replay must run one attention launch per layer (unfused: v3 and
-    kv_write each). Then, fused, the host wall of one B=8 step of each
-    variant, eager against graph, and one traced greedy graph step, whose
-    reading (profile_decode_step's) it returns."""
+    kv_write each; an MLA engine none: its path has no kernel). Then,
+    fused, the host wall of one B=8 step of each variant, eager against
+    graph, and one traced greedy graph step, whose reading
+    (profile_decode_step's) it returns."""
     from dynamo_tpu_torch.engine.graphs import DecodeGraphs
-    from dynamo_tpu_torch.models import llama
 
-    spec, cfg = engine.spec, engine.config
+    spec, cfg, fam = engine.spec, engine.config, engine.fam
     form = engine.kv_dtype + (" unfused" if unfused else "")
     L, B, n = spec.num_layers, len(prompts), GRAPH_STEPS
     n_lp = min(20, spec.vocab_size - 1)
@@ -1184,7 +1230,8 @@ def step_graph_check(engine, prompts, unfused: bool = False) -> dict | None:
     }
     if unfused:
         os.environ["DYNAMO_FUSED_DECODE"] = "0"
-    want_counts = ({"paged_attention_v3": L * n, "kv_write": L * n} if unfused
+    want_counts = ({} if spec.is_mla
+                   else {"paged_attention_v3": L * n, "kv_write": L * n} if unfused
                    else {"fused_decode": L * n})
     traced = None
     try:
@@ -1193,7 +1240,7 @@ def step_graph_check(engine, prompts, unfused: bool = False) -> dict | None:
             eager_pools = (clone_pool(engine.k_pages), clone_pool(engine.v_pages))
             graph_pools = (clone_pool(engine.k_pages), clone_pool(engine.v_pages))
             with torch.no_grad():
-                want = llama.decode_steps(
+                want = fam.decode_steps(
                     spec, engine.params, *(torch.from_numpy(inp[k]) for k in
                                            ("tokens", "block_tables", "seq_lens")),
                     *eager_pools, torch.from_numpy(inp["active"]),
@@ -1203,7 +1250,7 @@ def step_graph_check(engine, prompts, unfused: bool = False) -> dict | None:
             want = [x.cpu().numpy() for x in (want if lp_width else (want,))]
 
             def step(t, s, k, pools=graph_pools):
-                llama.decode_step_(spec, engine.params, *pools, t, sampled=s, n_logprobs=k)
+                fam.decode_step(spec, engine.params, *pools, t, sampled=s, n_logprobs=k)
 
             runner = DecodeGraphs(step, batch=B, pages_per_seq=cfg.max_pages_per_seq,
                                   max_steps=n, n_logprobs=n_lp, device=torch.device(DEVICE))
@@ -1238,7 +1285,7 @@ def step_graph_check(engine, prompts, unfused: bool = False) -> dict | None:
 
                 def eager_step():
                     with torch.no_grad():
-                        out = llama.decode_steps(
+                        out = fam.decode_steps(
                             spec, engine.params, *(torch.from_numpy(inp[k]) for k in
                                                    ("tokens", "block_tables", "seq_lens")),
                             *eager_pools, torch.from_numpy(inp["active"]),
@@ -1502,6 +1549,9 @@ def serve_check(engine, prompts, out, label, bf16_tokens=None, reference=True):
     serve_launches, steps, times = out["counts"], out["steps"], out["times"]
     spec = engine.spec
     fp8 = engine.kv_dtype == "fp8"
+    # fused_decode launches per decode step: one per layer, none on MLA's
+    # path (no kernel there; DYNAMO_FUSED_DECODE does not apply)
+    per_step = 0 if spec.is_mla else spec.num_layers
     tokens = {}
     for i, items in results.items():
         toks = [t for x in items for t in x["token_ids"]]
@@ -1510,7 +1560,7 @@ def serve_check(engine, prompts, out, label, bf16_tokens=None, reference=True):
         require(all(0 <= t < spec.vocab_size for t in toks), f"request {i}: bad ids")
         tokens[i] = toks
     require(hit >= 256, f"second sharer's prefix-cache hit was {hit} tokens")
-    require(serve_launches["fused_decode"] == spec.num_layers * steps,
+    require(serve_launches["fused_decode"] == per_step * steps,
             f"fused_decode launched {serve_launches['fused_decode']} times "
             f"over {steps} decode steps")
     require(serve_launches["fused_decode/fp8"] == (serve_launches["fused_decode"] if fp8 else 0),
@@ -1528,7 +1578,7 @@ def serve_check(engine, prompts, out, label, bf16_tokens=None, reference=True):
           f"{1e3 * max(ttft.values()):.1f} ms; decode dispatch-to-host mean {disp_ms:.2f} ms "
           f"over {len(times)} dispatches of {steps} steps ({1e3 * wall / steps:.2f} ms of "
           f"wall per step); prefix-cache hit {hit} tokens; fused_decode launches "
-          f"{serve_launches['fused_decode']} = {spec.num_layers} x {steps} "
+          f"{serve_launches['fused_decode']} = {per_step} x {steps} "
           f"({serve_launches['fused_decode/fp8']} in fp8 form); graph replays "
           f"{out['replays']}; eager re-admissions {out['readmits']}; KV pools "
           f"{engine.pool_bytes} bytes ({engine.pool_bytes / 1e9:.3f} GB)")
@@ -1561,11 +1611,16 @@ def new_engine(spec, cfg, label, params=None):
 
 
 def drop_engine(engine):
-    """Free an engine's pools, its graphs first (they point at the pools);
-    returns its weights."""
-    params = engine.params
+    """Free an engine's pools, its graphs first (they point at the pools),
+    and let go of its weights, which it returns: the engine sits in a
+    reference cycle (its graphs hold its bound step function), so the
+    caller's ``del`` alone would keep them until the next collection."""
+    import gc
+
+    params, engine.params = engine.params, None
     engine.release_graphs()
     engine.k_pages = engine.v_pages = None
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return params
@@ -1677,15 +1732,16 @@ def verify_graph_check(engine, prompts, bf16_verify_ms=None) -> float:
     ``prompts``: each row is the first token plus the next segment tokens,
     rows of 1..SPEC_W tokens at mid-page starts. Targets identical, pools
     bitwise equal outside page 0 (fp8 values and scales), kv_write 32
-    launches per replay (in its fp8 form on fp8 pools). Then the device
+    launches per replay (in its fp8 form on fp8 pools; none on an MLA
+    engine, whose latent rows are plain stores). Then the device
     span of a verify replay of 8 rows against a decode graph step of 8
     slots (and against ``bf16_verify_ms``, a bf16 verify's span, when
     given), and the host wall of an eager verify. Returns the span."""
     from dynamo_tpu_torch.engine.graphs import VerifyGraphs, verify_row_counts
-    from dynamo_tpu_torch.models import llama
 
-    spec, cfg = engine.spec, engine.config
-    L, B, W, fp8 = spec.num_layers, len(prompts), cfg.spec_k_max + 1, engine.kv_dtype == "fp8"
+    spec, cfg, fam = engine.spec, engine.config, engine.fam
+    B, W, fp8 = len(prompts), cfg.spec_k_max + 1, engine.kv_dtype == "fp8"
+    L = 0 if spec.is_mla else spec.num_layers  # kv_write launches per verify
     bts, first, seq_lens = prefill_slots(engine, prompts, room=W)
     tokens = np.zeros((B, W), np.int32)
     nts = np.asarray([W, W - 2, 1, W, 5, W, 3, W][:B], np.int32)
@@ -1699,7 +1755,7 @@ def verify_graph_check(engine, prompts, bf16_verify_ms=None) -> float:
     eager = (clone_pool(engine.k_pages), clone_pool(engine.v_pages))
     graph = (clone_pool(engine.k_pages), clone_pool(engine.v_pages))
     runner = VerifyGraphs(
-        lambda t, b, s, n: llama.verify_forward(spec, engine.params, t, b, s, *graph, n),
+        lambda t, b, s, n: fam.verify(spec, engine.params, t, b, s, *graph, n),
         batch=B, width=W, pages_per_seq=cfg.max_pages_per_seq, device=torch.device(DEVICE))
     form = engine.kv_dtype
     try:
@@ -1709,7 +1765,7 @@ def verify_graph_check(engine, prompts, bf16_verify_ms=None) -> float:
                 for pools in (eager, graph):
                     for dst, src in zip(pools, base):
                         copy_pool_(dst, src)
-                want = llama.verify_forward(spec, engine.params, dev(tokens[:n]),
+                want = fam.verify(spec, engine.params, dev(tokens[:n]),
                                             dev(bts[:n]), dev(starts[:n]), *eager,
                                             dev(nts[:n]))[0].cpu().numpy()
                 zero_counts()
@@ -1747,7 +1803,7 @@ def verify_graph_check(engine, prompts, bf16_verify_ms=None) -> float:
                       "seeds": np.zeros(B, np.uint32), "steps": np.zeros(B, np.int32)}
             d_ms = span(lambda: engine._graphs.dispatch(inputs, 1, sampled=False,
                                                        n_logprobs=0))
-            e_ms = host_ms(lambda: llama.verify_forward(
+            e_ms = host_ms(lambda: fam.verify(
                 spec, engine.params, dev(tokens), dev(bts), dev(starts), *eager,
                 dev(nts))[0].cpu(), reps=5)
             profile_decode_step(lambda: runner.dispatch(tokens, bts, starts, nts).wait(),
@@ -4456,6 +4512,373 @@ def checkpoint_phase() -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ------------------------------------------------------------------ MLA
+
+
+def deepseek_spec(layers: int = MLA_LAYERS):
+    """deepseek-r1 at full width, ``layers`` deep."""
+    import dataclasses
+
+    from dynamo_tpu_torch.engine.config import ModelSpec
+
+    return dataclasses.replace(ModelSpec.deepseek_r1(), num_layers=layers)
+
+
+def prefill_capacity_reference_check(spec, params, prompt, tokens):
+    """near_argmax_check against the function the engine computed for a
+    prompt that filled its prefill bucket and was served alone: the
+    reference forward with every MoE layer routing the prompt's rows as
+    the engine's prefill did (the same rows, so the same capacity and the
+    same dropped slots) and each served token's row drop-free, as a decode
+    step's (C = min(T, 16) of at most 16 rows never drops). Returns
+    (agreement, worst gap, the prompt rows' dropped slots)."""
+    from dynamo_tpu_torch.models import moe
+
+    real, drops, n = moe.moe_mlp, [], len(prompt)
+    no_drop = spec.num_experts / spec.num_experts_per_token
+
+    def split(spec_, lp, x, *, capacity_factor=1.25, return_dropped=False):
+        a, d = real(spec_, lp, x[:n], capacity_factor=capacity_factor, return_dropped=True)
+        b, db = real(spec_, lp, x[n:], capacity_factor=no_drop, return_dropped=True)
+        drops.append(d)
+        require(int(db) == 0, f"served rows dropped {int(db)} slots at capacity T")
+        out = torch.cat([a, b])
+        return (out, d + db) if return_dropped else out
+
+    moe.moe_mlp = split
+    try:
+        agree, gap = near_argmax_check(spec, params, prompt, tokens)
+    finally:
+        moe.moe_mlp = real
+    return agree, gap, sum(int(d) for d in drops)
+
+
+@contextlib.contextmanager
+def counted_drops():
+    """moe.moe_mlp wrapped to keep every eager call's dropped-slot count
+    (the MLA family reports 0, as the reference's; graph replays run no
+    Python, and a call under capture is not kept). Yields the list."""
+    from dynamo_tpu_torch.models import moe
+
+    real, drops = moe.moe_mlp, []
+
+    def counted(spec_, lp, x, *, capacity_factor=1.25, return_dropped=False):
+        out, d = real(spec_, lp, x, capacity_factor=capacity_factor, return_dropped=True)
+        if not torch.cuda.is_current_stream_capturing():
+            drops.append(d)
+        return (out, d) if return_dropped else out
+
+    moe.moe_mlp = counted
+    try:
+        yield drops
+    finally:
+        moe.moe_mlp = real
+
+
+def mla_split(engine, prompts, traced, flush) -> None:
+    """Phase 16 (b): a B=8 decode step's parts, each per layer with CUDA
+    events (L2 flushed) on the engine's pools after a prefill of
+    ``prompts``: the absorbed attention (q and latent projections, the
+    latent append, the gather, the absorbed product, the output
+    projection), the experts (moe_mlp + the shared expert) and the dense
+    MLPs, against the traced graph step's busy time (the rest: embedding,
+    norms, the head, sampling); and the experts one eager step's routing
+    touches."""
+    from dynamo_tpu_torch.models import mla, moe
+
+    spec, B = engine.spec, len(prompts)
+    bts, first, lens = prefill_slots(engine, prompts)
+    bt = torch.from_numpy(bts).to(DEVICE)
+    sl = torch.from_numpy(lens).to(DEVICE)
+    active = torch.ones(B, dtype=torch.bool, device=DEVICE)
+    where = mla.decode_where(bt, sl, active, engine.config.page_size)
+    rot = mla._rot(spec, where[0][:, None])
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(MLA_SEED)
+    x = torch.randn(B, 1, spec.hidden_size, generator=gen, device=DEVICE).to(torch.bfloat16)
+    parts = {"attention": 0.0, "experts": 0.0, "dense": 0.0}
+    per_layer = []
+    with torch.no_grad():
+        for li, lp in enumerate(engine.params.layers):
+            a_ms = time_ms(lambda: mla.decode_attention(
+                spec, lp, li, x, rot, engine.k_pages, bt, where).reshape(B, -1).to(x.dtype)
+                @ lp.wo, flush)
+            f_ms = time_ms(lambda: mla._ffn(spec, lp, x[:, 0]), flush)
+            kind = "dense" if lp.get("moe") is None else "experts"
+            parts["attention"] += a_ms
+            parts[kind] += f_ms
+            per_layer.append(f"L{li} attention {a_ms:.3f} + {kind} {f_ms:.3f}")
+        head_ms = time_ms(lambda: mla._logits(spec, engine.params, x[:, 0]), flush)
+    line = (f"deepseek-r1 step split (B={B}, ms): {'; '.join(per_layer)}; sums: attention "
+            f"{parts['attention']:.3f}, experts (moe_mlp + shared) {parts['experts']:.3f}, "
+            f"dense MLPs {parts['dense']:.3f}; the head {head_ms:.3f}")
+    if traced is not None:
+        busy = traced["busy_ms"]
+        rest = busy - sum(parts.values())
+        line += (f"; traced graph step busy {busy:.3f} ms: attention "
+                 f"{parts['attention'] / busy:.3f}, experts {parts['experts'] / busy:.3f}, "
+                 f"dense {parts['dense'] / busy:.3f}, the rest {rest:.3f} ms "
+                 f"({rest / busy:.3f})")
+    print(line)
+    touched, real = [], moe.route
+
+    def spy(spec_, lp, xx):
+        w, i = real(spec_, lp, xx)
+        touched.append(int(torch.unique(i).numel()))
+        return w, i
+
+    moe.route = spy
+    try:
+        with torch.no_grad():
+            mla.decode_forward(spec, engine.params, torch.from_numpy(first).to(DEVICE),
+                               torch.from_numpy(bts).to(DEVICE),
+                               torch.from_numpy(lens).to(DEVICE), engine.k_pages, active)
+    finally:
+        moe.route = real
+    per = 3 * spec.hidden_size * spec.moe_intermediate_size * 2
+    print(f"deepseek-r1 routed experts in one B={B} step: {touched} of {spec.num_experts} "
+          f"(routed-only weight bytes {[round(n * per / 1e9, 3) for n in touched]} GB "
+          f"against {spec.num_experts * per / 1e9:.2f} GB read by the all-experts product)")
+
+
+def mla_attention_times(flush, B: int, P: int, seq_lens) -> dict:
+    """Phase 16 (c) at one shape: deepseek-r1's latent attention of one
+    layer (H 128, dc 512, dr 64, page 16, P pages per sequence, bf16
+    latent pool) as the decode step runs it (``mla._absorbed_attention``
+    over ``mla._gather_rows_any``: w_uk / w_uv cast to f32, every table
+    page gathered), timed beside one scaled_dot_product_attention call on
+    the same inputs: the absorbed query [q_lat, q_rope] (576) against the
+    gathered rows as one shared KV head (the H heads' queries as H query
+    rows of it) and the latent (512) as the value, its output re-expanded
+    by w_uv for the check. The bound: the live
+    latent rows at 576 x 2 B per token, q and out, or the flops at the
+    bf16 peak."""
+    from dynamo_tpu_torch.models import mla
+
+    spec = deepseek_spec(1)
+    H, dn, dr, dc, page = (spec.num_heads, spec.qk_nope_head_dim, spec.qk_rope_head_dim,
+                           spec.kv_lora_rank, 16)
+    seq_lens = (tuple(seq_lens) * B)[:B]
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(MLA_SEED + B)
+    rng = np.random.default_rng(MLA_SEED)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=DEVICE) * scale).to(torch.bfloat16)
+
+    cache = randn(1, 1 + B * P, page, dc + dr)
+    bts = np.stack([rng.permutation(np.arange(1 + i * P, 1 + (i + 1) * P)) for i in range(B)])
+    bt = torch.from_numpy(bts.astype(np.int32)).to(DEVICE)
+    sl = torch.tensor(seq_lens, dtype=torch.int32, device=DEVICE)
+    mask = (torch.arange(P * page, device=DEVICE)[None, :] < sl[:, None])[:, None]
+    from dynamo_tpu_torch.models.mla import MlaLayer
+
+    lp = MlaLayer({"w_uk": randn(H, dc, dn, scale=dc ** -0.5),
+                   "w_uv": randn(H, dc, spec.v_head_dim, scale=dc ** -0.5)})
+    q_nope, q_rope = randn(B, 1, H, dn), randn(B, 1, H, dr)
+    scale = mla.softmax_scale(spec)
+
+    def plain():
+        return mla._absorbed_attention(spec, lp, q_nope, q_rope,
+                                       mla._gather_rows_any(cache, 0, bt), mask)
+
+    with torch.no_grad():
+        rows = mla._gather_rows_any(cache, 0, bt)  # [B, S, 576]
+        q_lat = torch.einsum("bthn,hcn->bthc", q_nope.float(), lp.w_uk.float())
+        # the H heads' absorbed queries as H query rows of one shared head
+        q = torch.cat([q_lat.to(torch.bfloat16), q_rope], dim=-1).transpose(1, 2)
+        k, v, m = rows[:, None], rows[:, None, :, :dc], mask[:, None]
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=m, scale=scale)  # [B, 1, H, dc]
+
+        want = plain()
+        got = torch.einsum("bthc,hcv->bthv", library().transpose(1, 2).float(),
+                           lp.w_uv.float())
+        err = (got - want).abs().max().item()
+        r = {"plain_ms": time_ms(plain, flush), "library_ms": time_ms(library, flush),
+             "max_abs_err": err, "max_abs": want.abs().max().item(), "backends": {}}
+        # the same call under each SDPA backend that takes it (D 576 is past
+        # the flash kernels' head dim)
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+
+        for b in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+            try:
+                with sdpa_kernel([b]):
+                    r["backends"][b.name] = time_ms(library, flush)
+            except RuntimeError:
+                r["backends"][b.name] = None
+    live = sum(seq_lens)
+    nbytes = live * (dc + dr) * 2 + B * H * (dc + dr) * 2 + B * H * dc * 2
+    r["bound_ms"], r["bound_by"] = bound_ms(nbytes, 2 * H * live * (dc + dr + dc))
+    r["weights_gb"] = 2 * H * dc * dn * 2 / 1e9
+    return r
+
+
+def mla_yardstick(flush, card: str) -> None:
+    """Phase 16 (c): the latent attention at B=8 over SEQ_LENS and at
+    B=1 x LONG_SEQ_LEN (no TPU kernel: the reference computes it in
+    XLA)."""
+    for label, B, P, sls in (("B8", 8, 64, SEQ_LENS),
+                             (f"B1/{LONG_SEQ_LEN}", 1, LONG_SEQ_LEN // 16, (LONG_SEQ_LEN,))):
+        r = mla_attention_times(flush, B, P, sls)
+        print(f"mla attention {label} (one layer, deepseek-r1): plain {r['plain_ms']:.4f} ms, "
+              f"sdpa {r['library_ms']:.4f} ms (by backend {r['backends']}), bound "
+              f"{r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}; w_uk + w_uv add {r['weights_gb']:.4f} GB read as bf16); "
+              f"sdpa re-expanded vs plain max |diff| {r['max_abs_err']:.3e} of "
+              f"max |out| {r['max_abs']:.3e} [{card}]")
+        require(r["max_abs_err"] <= 2e-2 * max(r["max_abs"], 1e-3),
+                f"sdpa's latent attention differs from the plain one: {r}")
+
+
+def mla_phase(cfg, flush, card: str) -> None:
+    """Phase 16 (a)-(c): deepseek-r1 at full width, MLA_LAYERS deep, random
+    bf16 weights from a seeded generator (input embedding scaled by
+    MOE_EMBED_SCALE); per latent pool form (bf16, then fp8 on the same
+    weights): decode graphs captured first, the default serve (phase 4's
+    checks, no kernel launched: MLA's path has none), one MLA_PROMPT-token
+    prompt served alone (a whole prefill bucket: its stream near-argmax
+    under mla.reference_forward routing the prompt's rows as the prefill
+    did, the counting wrapper's dropped slots equal to the reference's,
+    the served rows drop-free as decode's),
+    phase 5's step graphs (bitwise, values and scales on fp8), phase 12's
+    verify graphs (every row count against eager verify_forward, targets
+    and pools bitwise); on bf16 the step's split; then the latent
+    attention's yardstick."""
+    from dynamo_tpu_torch.models import mla
+
+    spec = deepseek_spec()
+    require((spec.hidden_size, spec.num_heads, spec.q_lora_rank, spec.kv_lora_rank,
+             spec.qk_rope_head_dim, spec.v_head_dim, spec.num_experts,
+             spec.num_experts_per_token, spec.n_group, spec.topk_group,
+             spec.n_shared_experts, spec.vocab_size, spec.rope_scaling_factor,
+             spec.first_k_dense) == (7168, 128, 1536, 512, 64, 128, 256, 8, 8, 4, 1, 129280,
+                                     40.0, 3), f"deepseek-r1 spec: {spec}")
+    prompts = make_prompts(spec.vocab_size)
+    alone = np.random.default_rng(MLA_SEED).integers(3, spec.vocab_size, MLA_PROMPT).tolist()
+    require(cfg.get("prefill_buckets", (64, 128, 256)).count(MLA_PROMPT) == 1,
+            "the prompt served alone must fill a prefill bucket")
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = mla.init_params(spec, 0, device=DEVICE)
+    with torch.no_grad():
+        params.embed.mul_(MOE_EMBED_SCALE)
+    torch.cuda.synchronize()
+    w_bytes = sum(p.nbytes for p in params.parameters())
+    print(f"deepseek-r1 weights: {MLA_LAYERS} of 61 layers ({spec.first_k_dense} dense, "
+          f"{MLA_LAYERS - spec.first_k_dense} MoE of {spec.num_experts} experts + "
+          f"{spec.n_shared_experts} shared), {w_bytes / 1e9:.2f} GB bf16 drawn in "
+          f"{time.perf_counter() - t0:.1f} s; allocated {before / 2**30:.1f} GiB before "
+          f"the draw, peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    pool_bytes, verify_ms = {}, {}
+    for kv in ("bf16", "fp8"):
+        label = f"deepseek-r1 {kv}"
+        engine = new_engine(spec, dict(cfg, kv_dtype=kv), label, params=params)
+        pool_bytes[kv] = engine.pool_bytes
+        drops: dict[str, int] = {}
+        with counted_drops() as kept:
+
+            def counted(name, fn):
+                async def run(e):
+                    n0 = len(kept)
+                    res = await fn(e)
+                    drops[name] = sum(int(d) for d in kept[n0:])
+                    return res
+                return name, run
+
+            out = serve_phases(engine, [
+                counted("default", lambda e: serve(e, prompts)),
+                counted("alone", lambda e: requests(e, [make_request(alone)])),
+            ])
+        serve_check(engine, prompts, out["default"], label, reference=False)
+        (items, ttft, wall), counts = out["alone"]["res"], out["alone"]["counts"]
+        toks = [t for x in items[0] for t in x["token_ids"]]
+        require(items[0][-1]["finish_reason"] == "length" and len(toks) == SERVE_TOKENS,
+                f"{label} alone: {len(toks)} tokens, finish {items[0][-1]['finish_reason']}")
+        require(not any(counts.values()), f"{label} alone launched kernels: {counts}")
+        agree, gap, ref_drop = prefill_capacity_reference_check(spec, engine.params, alone,
+                                                                toks)
+        require(ref_drop == drops["alone"],
+                f"{label} alone: the prefill dropped {drops['alone']} slots, the reference's "
+                f"prompt rows {ref_drop}")
+        print(f"serve {label}: {drops['default']} slots dropped by the default serve's "
+              f"prefills (counted by the wrapper); a {MLA_PROMPT}-token prompt alone (TTFT "
+              f"{1e3 * ttft[0]:.1f} ms), {drops['alone']} slots dropped by its prefill, as "
+              f"many by mla.reference_forward's prompt rows at the prefill's capacity (served "
+              f"rows drop-free, as decode's): exact greedy agreement {agree:.3f}, worst gap "
+              f"{gap:.3f} (tol {NEAR_ARGMAX}) [{card}]")
+        traced = step_graph_check(engine, prompts)
+        verify_ms[kv] = verify_graph_check(engine, prompts, verify_ms.get("bf16"))
+        if kv == "bf16":
+            mla_split(engine, prompts, traced, flush)
+        drop_engine(engine)
+        del engine
+        torch.cuda.empty_cache()
+    print(f"deepseek-r1 latent pools ({cfg['num_pages'] + 1} pages x {cfg['page_size']} "
+          f"tokens x {MLA_LAYERS} layers): bf16 {pool_bytes['bf16']} bytes "
+          f"({pool_bytes['bf16'] / 1e9:.4f} GB), fp8 {pool_bytes['fp8']} bytes "
+          f"({pool_bytes['fp8'] / 1e9:.4f} GB) = {pool_bytes['fp8'] / pool_bytes['bf16']:.3f} "
+          f"of bf16 [{card}]")
+    del params
+    torch.cuda.empty_cache()
+    mla_yardstick(flush, card)
+
+
+def mla_checkpoint_check(card: str) -> None:
+    """Phase 16 (d): deepseek-r1 at full width, MLA_CKPT_LAYERS deep (a
+    dense layer), written by save_params (kv_b_proj re-fused, rope
+    columns re-interleaved) under build/checkpoints/ and read back by
+    load_model_dir onto the card: the same spec, every weight and one
+    prefill's logits bitwise equal; write and load GB/s printed."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from dynamo_tpu_torch.models import loader, mla
+
+    spec = deepseek_spec(MLA_CKPT_LAYERS)
+    params = mla.init_params(spec, 16, device=DEVICE)
+    parent = ROOT / "build" / "checkpoints"  # git-ignored
+    parent.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="ckpt-", dir=parent))
+    ckpt = tmp / "deepseek-r1-1l"
+    try:
+        t0 = time.perf_counter()
+        loader.save_params(spec, params, str(ckpt))
+        write_s = time.perf_counter() - t0
+        disk = sum(f.stat().st_size for f in ckpt.glob("*.safetensors"))
+        t0 = time.perf_counter()
+        spec2, loaded = loader.load_model_dir(str(ckpt), device=DEVICE)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        require(dataclasses.replace(spec2, name=spec.name) == spec,
+                f"deepseek checkpoint spec differs: {spec2}")
+        a, b = dict(params.named_parameters()), dict(loaded.named_parameters())
+        require(sorted(a) == sorted(b) and all(
+            a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]) for k in a),
+            "deepseek checkpoint weights differ after the round trip")
+        T = 64
+        tok = torch.tensor(make_prompts(spec.vocab_size)[3][:T], dtype=torch.int32,
+                           device=DEVICE)
+        bt = torch.arange(1, 9, dtype=torch.int32, device=DEVICE)
+        with torch.no_grad():
+            la, _ = mla.prefill_forward(spec, params, tok, bt, 0,
+                                        mla.init_cache(spec, 9, 16, device=DEVICE), T)
+            lb, _ = mla.prefill_forward(spec2, loaded, tok, bt, 0,
+                                        mla.init_cache(spec2, 9, 16, device=DEVICE), T)
+        require(torch.equal(la, lb), "deepseek prefill logits on the loaded weights differ")
+        print(f"checkpoint {spec.name} x {MLA_CKPT_LAYERS} layer: save_params "
+              f"{disk / 1e9:.3f} GB in {write_s:.2f} s = {disk / 1e9 / write_s:.2f} GB/s; "
+              f"load_model_dir to the card {load_s:.2f} s = {disk / 1e9 / load_s:.2f} GB/s "
+              f"(page cache); {len(a)} weights and one {T}-token prefill's logits bitwise "
+              f"equal [{card}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the GPU",
@@ -4561,6 +4984,15 @@ def main() -> int:
     del flush
     checkpoint_phase()
     print(f"phase 15: {time.perf_counter() - t15:.1f} s")
+
+    # MLA: deepseek-r1 at full width on bf16 and fp8 latent pools, the
+    # latent attention's yardstick, the DeepSeek checkpoint round trip
+    t16 = time.perf_counter()
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+    mla_phase(cfg, flush, card)
+    del flush
+    mla_checkpoint_check(card)
+    print(f"phase 16: {time.perf_counter() - t16:.1f} s")
 
     launches = {"fused_decode": serve_launches["fused_decode"] + http_launches
                 + process_launches + overload_launches + guided_launches,

@@ -83,6 +83,13 @@ SPMD/meshes, multimodal, embeddings, telemetry and tracing, the fault
 sites other than ``engine.spec_verify``, ``engine.preempt`` and the
 ``migration.resume`` corrupt site.
 
+The engine is family-blind (models/family.py): a DeepSeek spec runs MLA
+(models/mla.py) through the same scheduler, prefix cache, KV events,
+decode graphs, verify graphs and guided masks, its latent cache in the
+``k_pages`` slot and an empty placeholder in ``v_pages`` (``pool_bytes``
+is the latent cache's); its forwards report 0 dropped slots, as the
+reference's MLA family does.
+
 MoE specs (models/moe.py): every prefill, packed prefill, chunk and verify
 returns its capacity-dropped slot count as a device scalar, which the
 engine sums on the device (``_note_moe_dropped``, no host read on the hot

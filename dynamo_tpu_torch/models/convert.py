@@ -1,8 +1,10 @@
 """Weights from the JAX parameter pytree, given as numpy arrays.
 
 ``params_from_numpy(spec, tree, device)`` builds the port's ``LlamaParams``
-from the tree ``dynamo_tpu.models.llama.init_params`` returns (or a
-checkpoint loader would), after ``np.asarray`` on every leaf. That is how
+from the tree ``dynamo_tpu.models.llama.init_params`` returns, or its
+``MlaParams`` from ``dynamo_tpu.models.mla.init_params``' (an MLA spec), or
+from what a checkpoint loader would return, after ``np.asarray`` on every
+leaf. That is how
 every parity test gives both packages the same weights. bf16 leaves arrive
 as ``ml_dtypes.bfloat16`` arrays; their bits pass through ``uint16`` so this
 module never imports ml_dtypes.
@@ -36,8 +38,8 @@ def params_from_numpy(
     spec: ModelSpec, tree: dict[str, Any], device: str | torch.device | None = None
 ) -> LlamaParams:
     """The JAX pytree ``{"embed", "final_norm", ["lm_head"], "layers": [...]}``
-    as the port's modules, in the spec's dtype (a layer's ``moe`` dict
-    nested, its router leaves f32)."""
+    as the port's modules, in the spec's dtype (a layer's ``moe`` and, for
+    DeepSeek, ``shared`` dicts nested, the router leaves f32)."""
     dev = resolve_device(device)
     dtype = torch_dtype(spec.dtype)
 
@@ -50,10 +52,18 @@ def params_from_numpy(
         return {name: conv(a, torch.float32 if name in F32_MOE_LEAVES else dtype)
                 for name, a in moe.items()}
 
-    layers = [
-        {name: conv_moe(a) if name == "moe" else conv(a) for name, a in lp.items()}
-        for lp in tree["layers"]
-    ]
+    def conv_leaf(name, a):
+        if name == "moe":
+            return conv_moe(a)
+        if isinstance(a, dict):  # MLA's shared experts
+            return {k: conv(v) for k, v in a.items()}
+        return conv(a)
+
+    layers = [{name: conv_leaf(name, a) for name, a in lp.items()}
+              for lp in tree["layers"]]
     lm_head = None if spec.tie_embeddings else conv(tree["lm_head"])
-    return LlamaParams(conv(tree["embed"]), conv(tree["final_norm"]), layers,
-                       lm_head)
+    if spec.is_mla:
+        from dynamo_tpu_torch.models.mla import MlaParams as cls
+    else:
+        cls = LlamaParams
+    return cls(conv(tree["embed"]), conv(tree["final_norm"]), layers, lm_head)

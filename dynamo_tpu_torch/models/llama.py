@@ -92,14 +92,17 @@ class LlamaLayer(nn.Module):
 
 class LlamaParams(nn.Module):
     """All weights: embed [V, d], final_norm [d], lm_head [d, V] (absent
-    when tied), layers."""
+    when tied), layers (``layer_cls`` modules: models/mla.py's MlaParams
+    holds MlaLayers)."""
+
+    layer_cls = LlamaLayer
 
     def __init__(self, embed, final_norm, layers, lm_head=None):
         super().__init__()
         self.embed = _param(embed)
         self.final_norm = _param(final_norm)
         self.lm_head = _param(lm_head) if lm_head is not None else None
-        self.layers = nn.ModuleList(LlamaLayer(lp) for lp in layers)
+        self.layers = nn.ModuleList(self.layer_cls(lp) for lp in layers)
 
 
 def init_params(
@@ -256,43 +259,33 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     ).to(x.dtype)
 
 
-def rope(
-    x: torch.Tensor, positions: torch.Tensor, theta: float,
-    *, inv_freq=None, scale: float = 1.0,
-) -> torch.Tensor:
-    """Rotary embedding (half-split). x: [..., T, heads, D], positions:
-    [..., T]. ``inv_freq`` overrides the plain theta schedule (YaRN);
-    ``scale`` multiplies the rotated output (the YaRN attention factor)."""
-    cos, sin = _rope_tables(positions, x.shape[-1] // 2, theta, inv_freq,
-                            scale, x.device)
-    return apply_rope(x, cos, sin)
-
-
 @functools.lru_cache(maxsize=32)
-def _yarn_table(spec: ModelSpec, device: torch.device):
-    """``yarn_freqs`` at the head dim with the frequencies on ``device``,
-    made once per (spec, device): a CUDA graph cannot capture the
-    host-to-device copy of a numpy table (the first forward, eager, fills
-    the cache before any capture)."""
-    inv, att = yarn_freqs(spec, spec.head_dim)
+def _yarn_table(spec: ModelSpec, dim: int, device: torch.device):
+    """``yarn_freqs`` at rotary dim ``dim`` with the frequencies on
+    ``device``, made once per (spec, dim, device): a CUDA graph cannot
+    capture the host-to-device copy of a numpy table (the first forward,
+    eager, fills the cache before any capture). MLA rotates only its
+    ``qk_rope_head_dim`` columns, GQA the whole head."""
+    inv, att = yarn_freqs(spec, dim)
     if inv is not None:
         inv = torch.as_tensor(inv, dtype=torch.float32, device=device)
     return inv, att
 
 
-def rope_tables(spec: ModelSpec, positions: torch.Tensor):
-    """spec-driven (cos, sin) tables for ``positions`` [..., T]: the plain
-    theta schedule, or YaRN when configured. Every layer rotates at the same
-    positions, so a forward builds them once."""
-    inv, att = _yarn_table(spec, positions.device)
-    return _rope_tables(positions, spec.head_dim // 2, spec.rope_theta, inv,
-                        att, positions.device)
+def rope_tables(spec: ModelSpec, positions: torch.Tensor, dim: int | None = None):
+    """spec-driven (cos, sin) tables for ``positions`` [..., T] at rotary
+    dim ``dim`` (default the head dim): the plain theta schedule, or YaRN
+    when configured. Every layer rotates at the same positions, so a
+    forward builds them once."""
+    dim = dim or spec.head_dim
+    inv, att = _yarn_table(spec, dim, positions.device)
+    return _rope_tables(positions, dim // 2, spec.rope_theta, inv, att,
+                        positions.device)
 
 
 def rope_spec(spec: ModelSpec, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-    """spec-driven rope: plain theta schedule, or YaRN when configured."""
-    inv, att = yarn_freqs(spec, x.shape[-1])
-    return rope(x, positions, spec.rope_theta, inv_freq=inv, scale=att)
+    """spec-driven rope of x [..., T, heads, D] at its own last dim."""
+    return apply_rope(x, *rope_tables(spec, positions, x.shape[-1]))
 
 
 def _attn_qkv(spec: ModelSpec, lp: LlamaLayer, x: torch.Tensor, rot):
@@ -668,6 +661,18 @@ def decode_step_(
     sample and before the logprobs, as the JAX package's masked
     ``decode_steps``: a masked step's logprobs are those of the masked
     logits."""
+    logits = decode_forward(spec, params, t.tokens, t.block_tables, t.seq_lens,
+                            k_pages, v_pages, t.active != 0)
+    finish_step_(t, logits, sampled=sampled, n_logprobs=n_logprobs)
+
+
+def finish_step_(t: StepTensors, logits: torch.Tensor, *, sampled: bool,
+                 n_logprobs: int) -> None:
+    """The half of a decode step after the forward, shared by every
+    family's ``decode_step_``: the guided mask (``t.allowed``), the sample
+    (or the greedy argmax), the logprobs, the record row ``1 + step_idx``,
+    then tokens, seq_lens (by active), steps and step_idx advance. Reads no
+    device value on the host."""
     from dynamo_tpu_torch.engine.sampling import (
         greedy_tokens,
         mask_logits,
@@ -676,8 +681,6 @@ def decode_step_(
     )
 
     active = t.active != 0
-    logits = decode_forward(spec, params, t.tokens, t.block_tables, t.seq_lens,
-                            k_pages, v_pages, active)
     if t.allowed is not None:
         logits = mask_logits(logits, t.allowed)
     if sampled:
@@ -743,7 +746,19 @@ def decode_steps(
     tensor (no device sync). ``allowed`` masks every step's logits (the
     engine dispatches masked bursts at ``n_steps`` 1: a mask holds for one
     position)."""
-    dev = k_pages.device
+    return run_steps(
+        lambda t, sampled: decode_step_(spec, params, k_pages, v_pages, t,
+                                        sampled=sampled, n_logprobs=n_logprobs),
+        k_pages.device, tokens, block_tables, seq_lens, active, temperature,
+        top_k, top_p, seeds, steps, n_steps, n_logprobs, allowed)
+
+
+def run_steps(step, dev, tokens, block_tables, seq_lens, active, temperature,
+              top_k, top_p, seeds, steps, n_steps, n_logprobs, allowed):
+    """The eager burst of every family's ``decode_steps``: fresh
+    ``StepTensors`` on ``dev`` from the arguments (``decode_steps``'), row
+    0 of the records the fed tokens, then ``n_steps`` calls of
+    ``step(t, sampled)``; returns the unpacked records."""
     B = tokens.shape[0]
 
     def dev_t(x, dtype):
@@ -764,8 +779,7 @@ def decode_steps(
     t.out[0, :B] = t.tokens
     sampled = bool((temperature > 0).any())
     for _ in range(n_steps):
-        decode_step_(spec, params, k_pages, v_pages, t, sampled=sampled,
-                     n_logprobs=n_logprobs)
+        step(t, sampled)
     return unpack_records(t.out[1:], B, n_logprobs)
 
 

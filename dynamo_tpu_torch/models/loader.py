@@ -25,8 +25,17 @@ qwen's ``mlp.experts.E``, each expert copied into its row of the stacked
 ``down_proj`` with their biases, gate and up interleaved on the last axis.
 The router and its biases stay f32.
 
-Not ported: DeepSeek's MLA checkpoints (ROADMAP Queue A item 9) and
-loading onto a mesh (item 11) raise.
+DeepSeek (MLA) checkpoints map through ``_dest_map_mla`` onto the port's
+``MlaParams`` (models/mla.py): the fused per-head ``kv_b_proj [H * (dn +
+dv), dc]`` splits into ``w_uk [H, dc, dn]`` and ``w_uv [H, dc, dv]``, the
+shared experts land in ``shared``, the router's correction bias in
+``moe.score_bias``, and a ``rope_interleave`` checkpoint's pair-interleaved
+rope columns of the query and latent projections are permuted to the
+half-split order the forward rotates (exact: both sides of every rope dot
+product get the same permutation). ``save_params`` re-fuses ``kv_b_proj``
+and, for a ``rope_interleave`` spec, re-interleaves those columns.
+
+Not ported: loading onto a mesh (ROADMAP Queue A item 11) raises.
 """
 
 from __future__ import annotations
@@ -188,7 +197,7 @@ def save_file(tensors: dict[str, Any], path: str,
 
 def spec_from_hf_config(cfg: dict, name: str | None = None) -> ModelSpec:
     """Map an HF ``config.json`` dict to a ModelSpec (llama/mixtral/qwen-moe/
-    gpt-oss; DeepSeek's fields map too, but its weights do not load yet)."""
+    gpt-oss/deepseek)."""
     model_type = cfg.get("model_type", "llama")
     heads = int(cfg["num_attention_heads"])
     hidden = int(cfg["hidden_size"])
@@ -397,9 +406,79 @@ def _moe_scheme(names: set[str] | None) -> str:
 
 
 def _dest_map_mla(spec: ModelSpec) -> dict[str, Dest]:
-    raise NotImplementedError(
-        f"{spec.name}: DeepSeek MLA checkpoints are not ported (ROADMAP Queue A "
-        "item 9: models/mla.py)")
+    """DeepSeek-family (MLA) tensor names -> models/mla.py tree paths, as
+    the reference's. ``kv_b_proj`` (the fused per-head w_uk / w_uv) splits
+    in load_params."""
+    m: dict[str, Dest] = {
+        "model.embed_tokens.weight": (("embed",), False, None),
+        "model.norm.weight": (("final_norm",), False, None),
+    }
+    if not spec.tie_embeddings:
+        m["lm_head.weight"] = (("lm_head",), True, None)
+    for i in range(spec.num_layers):
+        p = f"model.layers.{i}."
+        li = ("layers", i)
+        m[p + "input_layernorm.weight"] = (li + ("attn_norm",), False, None)
+        m[p + "post_attention_layernorm.weight"] = (li + ("mlp_norm",), False, None)
+        m[p + "self_attn.o_proj.weight"] = (li + ("wo",), True, None)
+        m[p + "self_attn.kv_a_proj_with_mqa.weight"] = (li + ("w_kv_a",), True, None)
+        m[p + "self_attn.kv_a_layernorm.weight"] = (li + ("kv_norm",), False, None)
+        if spec.q_lora_rank:
+            m[p + "self_attn.q_a_proj.weight"] = (li + ("wq_a",), True, None)
+            m[p + "self_attn.q_a_layernorm.weight"] = (li + ("q_norm",), False, None)
+            m[p + "self_attn.q_b_proj.weight"] = (li + ("wq_b",), True, None)
+        else:
+            m[p + "self_attn.q_proj.weight"] = (li + ("wq",), True, None)
+        mlp = (("gate_proj", "w_gate"), ("up_proj", "w_up"), ("down_proj", "w_down"))
+        if spec.num_experts and i >= spec.first_k_dense:
+            mo = li + ("moe",)
+            m[p + "mlp.gate.weight"] = (mo + ("router",), True, "float32")
+            if spec.moe_scoring == "sigmoid":
+                m[p + "mlp.gate.e_score_correction_bias"] = (
+                    mo + ("score_bias",), False, "float32")
+            for e in range(spec.num_experts):
+                for hf, ours in mlp:
+                    m[p + f"mlp.experts.{e}.{hf}.weight"] = (mo + (ours, e), True, None)
+            if spec.n_shared_experts:
+                for hf, ours in mlp:
+                    m[p + f"mlp.shared_experts.{hf}.weight"] = (
+                        li + ("shared", ours), True, None)
+        else:
+            for hf, ours in mlp:
+                m[p + f"mlp.{hf}.weight"] = (li + (ours,), True, None)
+    return m
+
+
+def _rope_perm(spec: ModelSpec, inverse: bool = False) -> torch.Tensor:
+    """Column order that takes pair-interleaved rope dims ([x0, y0, x1, y1,
+    ...]) to half-split ([x0, x1, ..., y0, y1, ...]); ``inverse`` the way
+    back."""
+    dr = spec.qk_rope_head_dim
+    perm = torch.cat([torch.arange(0, dr, 2), torch.arange(1, dr, 2)])
+    return torch.argsort(perm) if inverse else perm
+
+
+# the projections whose output columns hold rope dims
+_ROPE_Q = ("self_attn.q_b_proj.weight", "self_attn.q_proj.weight")
+_ROPE_NAMES = _ROPE_Q + ("self_attn.kv_a_proj_with_mqa.weight",)
+
+
+def _rope_cols(spec: ModelSpec, name: str, t: torch.Tensor,
+               inverse: bool = False) -> torch.Tensor:
+    """A ``rope_interleave`` checkpoint's query and latent projections
+    ([in, out], as the forward holds them) with their rope columns
+    de-interleaved (``inverse``: re-interleaved); other tensors as they
+    are. The reference's ``_deinterleave_rope_cols``."""
+    if name.endswith(_ROPE_Q):
+        dn = spec.qk_nope_head_dim
+        q = t.reshape(t.shape[0], spec.num_heads, -1)
+        perm = _rope_perm(spec, inverse).to(t.device)
+        return torch.cat([q[..., :dn], q[..., dn:][..., perm]], dim=-1).reshape(t.shape)
+    if name.endswith("self_attn.kv_a_proj_with_mqa.weight"):
+        dc = spec.kv_lora_rank
+        perm = _rope_perm(spec, inverse).to(t.device)
+        return torch.cat([t[:, :dc], t[:, dc:][:, perm]], dim=1)
+    return t
 
 
 def _dest_map(spec: ModelSpec, names: set[str] | None = None) -> dict[str, Dest]:
@@ -490,8 +569,6 @@ def load_params(
     if mesh is not None:
         raise NotImplementedError(
             "load_params(mesh=...): meshes are not ported (ROADMAP Queue A item 11)")
-    if spec.kv_lora_rank:
-        _dest_map_mla(spec)
     dev = resolve_device(device)
     dtype = dtype or spec.dtype
     files = sorted(os.path.join(model_dir, f) for f in os.listdir(model_dir)
@@ -500,8 +577,9 @@ def load_params(
         raise FileNotFoundError(f"no .safetensors files in {model_dir}")
     readers = [SafetensorsFile(p) for p in files]
     all_names = {n for r in readers for n in r.keys()}
-    dest = _dest_map(spec, all_names)
-    fused = bool(spec.num_experts and _moe_scheme(all_names) == "gpt_oss")
+    mla = spec.is_mla
+    dest = _dest_map_mla(spec) if mla else _dest_map(spec, all_names)
+    fused = bool(not mla and spec.num_experts and _moe_scheme(all_names) == "gpt_oss")
 
     tree: dict[str, Any] = {}
     seen: set[str] = set()
@@ -518,6 +596,8 @@ def load_params(
                 t = read(r, name, dt_override or dtype)
                 if transpose:
                     t = t.T.contiguous()
+                if mla and spec.rope_interleave:
+                    t = _rope_cols(spec, name, t)
                 seen.add(name)
                 if isinstance(path[-1], int):
                     key, e = path[:-1], path[-1]
@@ -527,6 +607,14 @@ def load_params(
                     stacked[key][e].copy_(t)
                 else:
                     _tree_set(tree, path, t)
+            elif mla and name.endswith("self_attn.kv_b_proj.weight"):
+                # the fused per-head up-projections [H * (dn + dv), dc]
+                li = ("layers", int(name.split(".")[2]))
+                H, dn = spec.num_heads, spec.qk_nope_head_dim
+                t = read(r, name, dtype).reshape(H, dn + spec.v_head_dim, -1)
+                _tree_set(tree, li + ("w_uk",), t[:, :dn].transpose(1, 2).contiguous())
+                _tree_set(tree, li + ("w_uv",), t[:, dn:].transpose(1, 2).contiguous())
+                seen.add(name)
             elif fused and name.endswith(tuple(".mlp.experts." + t for t in _FUSED_TAILS)):
                 if name.endswith("_bias") and not spec.moe_bias:
                     skipped.append(name)
@@ -551,6 +639,9 @@ def load_params(
         _tree_set(tree, key, t)
 
     expected = set(dest)
+    if mla:
+        expected |= {f"model.layers.{i}.self_attn.kv_b_proj.weight"
+                     for i in range(spec.num_layers)}
     if fused:
         tails = _FUSED_TAILS if spec.moe_bias else _FUSED_TAILS[:2]
         expected |= {f"model.layers.{i}.mlp.experts.{t}"
@@ -563,8 +654,11 @@ def load_params(
     if missing:
         raise ValueError(f"checkpoint {model_dir} missing {len(missing)} tensors, "
                          f"e.g. {sorted(missing)[:4]}")
-    return LlamaParams(tree["embed"], tree["final_norm"], tree["layers"],
-                       tree.get("lm_head"))
+    if mla:
+        from dynamo_tpu_torch.models.mla import MlaParams as cls
+    else:
+        cls = LlamaParams
+    return cls(tree["embed"], tree["final_norm"], tree["layers"], tree.get("lm_head"))
 
 
 def _interleave(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -579,13 +673,15 @@ def save_params(
     """Write params as HF-format safetensors + config.json, split into
     ``model-0000i-of-0000n.safetensors`` shards of at most ``shard_bytes``
     (one ``model.safetensors`` when it fits). Tensors leave the device one
-    at a time."""
-    if spec.kv_lora_rank:
-        _dest_map_mla(spec)
+    at a time. A DeepSeek (MLA) spec writes HF's fused ``kv_b_proj`` and,
+    with ``rope_interleave``, pair-interleaved rope columns, which its
+    config.json declares."""
     os.makedirs(model_dir, exist_ok=True)
+    mla = spec.is_mla
     # gpt-oss exports use the fused expert naming (synthesized below)
-    dest = _dest_map(spec, {"model.layers.0.mlp.experts.gate_up_proj"}
-                     if spec.moe_bias else None)
+    dest = (_dest_map_mla(spec) if mla else
+            _dest_map(spec, {"model.layers.0.mlp.experts.gate_up_proj"}
+                      if spec.moe_bias else None))
     # name -> (dtype code, shape, produce): shapes are declared up front (the
     # header comes first), tensors made one at a time while writing
     entries: dict[str, tuple[str, list[int], Callable[[], torch.Tensor]]] = {}
@@ -595,9 +691,20 @@ def save_params(
 
     for name, (path, transpose, _dt) in dest.items():
         t = _params_get(params, path)
+        if mla and spec.rope_interleave and name.endswith(_ROPE_NAMES):
+            add(name, t, t.shape[::-1],
+                lambda t=t, name=name: _rope_cols(spec, name, t, inverse=True).T)
+            continue
         add(name, t, t.shape[::-1] if transpose else t.shape,
             (lambda t=t: t.T) if transpose else (lambda t=t: t))
-    if spec.moe_bias:
+    if mla:
+        H, dn, dv = spec.num_heads, spec.qk_nope_head_dim, spec.v_head_dim
+        for i, lp in enumerate(params.layers):
+            add(f"model.layers.{i}.self_attn.kv_b_proj.weight", lp.w_uk,
+                (H * (dn + dv), spec.kv_lora_rank),
+                lambda lp=lp: torch.cat([lp.w_uk.transpose(1, 2), lp.w_uv.transpose(1, 2)],
+                                        dim=1).reshape(H * (dn + dv), -1))
+    if spec.moe_bias and not mla:
         for i in range(spec.num_layers):
             m = params.layers[i].moe
             p = f"model.layers.{i}.mlp.experts."
@@ -623,8 +730,11 @@ def save_params(
         fname = ("model.safetensors" if n == 1
                  else f"model-{i + 1:05d}-of-{n:05d}.safetensors")
         _write_file(os.path.join(model_dir, fname), shard, {"format": "pt"})
+    cfg = hf_config_from_spec(spec)
+    if mla:
+        cfg["rope_interleave"] = spec.rope_interleave  # the columns as written
     with open(os.path.join(model_dir, "config.json"), "w") as f:
-        json.dump(hf_config_from_spec(spec), f, indent=2)
+        json.dump(cfg, f, indent=2)
 
 
 def load_model_dir(

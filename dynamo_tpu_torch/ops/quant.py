@@ -19,10 +19,16 @@ order, one full append each, so rows that share a page (a verify's
 siblings) land in one launch. chip_smoke.py holds both kernels' pool bits
 against ``quant_append_rows``.
 
+The MLA latent pool (models/mla.py) has no head axis: ``vals [L,
+num_pages, page, D]`` with ONE bf16 scale per row, ``scale [L, num_pages,
+page]``. A row owns its scale, so an append is a plain store of the row
+and its scale (``quant_append_rows`` on 2-D rows): no page
+read-modify-write, and rows that share a page never requantize each
+other. Prefill quantizes whole page tiles with ``head_axes=(2,)``.
+
 Values are read and written through ``uint8`` views: PyTorch has no
 gather or scatter kernel for ``float8_e4m3fn`` on every device.
-Not here yet: the MLA per-row scales (the MLA slice) and the KVBM block
-packing (the KVBM slice).
+Not here yet: the KVBM block packing (the KVBM slice).
 """
 
 from __future__ import annotations
@@ -58,7 +64,9 @@ def resolve_kv_dtype(value: str | None = None) -> str:
 
 class QuantPool(NamedTuple):
     """One quantized KV pool: fp8 ``vals [L, NP, KH, page, D]`` and bf16
-    ``scale [L, NP, KH]`` (or one layer's slices of both). ``shape``,
+    ``scale [L, NP, KH]`` (GQA), or ``vals [L, NP, page, D]`` and ``scale
+    [L, NP, page]`` (the MLA latent pool), or one layer's slices of both.
+    ``shape``,
     ``dtype`` and ``device`` are the values', so shape-reading call sites
     work on either pool form."""
 
@@ -145,13 +153,14 @@ def dequant(vals: torch.Tensor, scale_f32: torch.Tensor) -> torch.Tensor:
 
 
 def quant_page_tiles(
-    tiles: torch.Tensor,  # [n, KH, page, D], any float dtype
+    tiles: torch.Tensor,  # [n, KH, page, D] (or [n, page, D] for MLA), any float dtype
     valid_tok: torch.Tensor,  # bool, broadcastable over tiles (True = real)
     head_axes: tuple[int, ...],  # axes reduced per scale entry
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Page-granular prefill quantization: zero the padded rows FIRST (they
     would otherwise inflate the page amax), then one scale per (page,
-    head). Returns ``(vals fp8, scale bf16)``."""
+    head) with ``head_axes=(2, 3)``, or per (page, row) with ``(2,)`` on
+    MLA tiles. Returns ``(vals fp8, scale bf16)``."""
     t = torch.where(valid_tok, tiles.float(), 0.0)
     s = _over_fp8_max(t.abs().amax(dim=head_axes)).to(SCALE_DTYPE)
     sf = s.float()
@@ -160,23 +169,32 @@ def quant_page_tiles(
 
 
 def quant_append_rows(
-    pool: QuantPool,  # [L, NP, KH, page, D] (updated in place)
-    rows: torch.Tensor,  # [N, KH, D] new rows, unquantized
+    pool: QuantPool,  # [L, NP, KH, page, D] or MLA [L, NP, page, D] (in place)
+    rows: torch.Tensor,  # [N, KH, D] (MLA: [N, D]) new rows, unquantized
     dst_page: torch.Tensor,  # [N] pool pages (0 = trash)
     dst_off: torch.Tensor,  # [N] row offsets within the page
     layer: int,
 ) -> None:
-    """Quantized KV append, in place: gather the destination pages, grow
-    their scales by the new rows' amax (from 0 when ``dst_off == 0``: a
-    page just acquired does not inherit its last occupant's scale),
-    re-encode the old rows, splice the quantized rows in, scatter back.
-    Rows must target distinct pages (duplicates on trash page 0 leave
-    garbage there, by contract); ops/cuda/kv_write.py applies rows that
-    share a page in rounds of distinct pages."""
-    page_size = pool.vals.shape[-2]
+    """Quantized KV append, in place. GQA rows: gather the destination
+    pages, grow their scales by the new rows' amax (from 0 when
+    ``dst_off == 0``: a page just acquired does not inherit its last
+    occupant's scale), re-encode the old rows, splice the quantized rows
+    in, scatter back. Rows must target distinct pages (duplicates on trash
+    page 0 leave garbage there, by contract); ops/cuda/kv_write.py applies
+    rows that share a page in rounds of distinct pages. MLA rows (2-D):
+    each row's own scale ``append_scale(0, row)``, the row and its scale
+    stored at (page, offset), nothing else touched, so rows may share
+    pages."""
     pg = dst_page.long()
     off = dst_off.long()
     rows_f = rows.float()
+    if rows.ndim == 2:
+        ns = append_scale(torch.zeros_like(rows_f[:, 0]), rows_f)  # [N]
+        row_q = quant_values(rows_f, ns[:, None]).to(FP8_DTYPE)
+        pool.vals.view(torch.uint8)[layer, pg, off] = row_q.view(torch.uint8)
+        pool.scale[layer, pg, off] = ns.to(SCALE_DTYPE)
+        return
+    page_size = pool.vals.shape[-2]
     old_s = pool.scale[layer][pg].float()  # [N, KH]
     old_s = torch.where((off == 0)[:, None], 0.0, old_s)
     ns = append_scale(old_s, rows_f)  # [N, KH]
@@ -202,3 +220,16 @@ def gather_dequant_pages(
     toks = dequant(vals, pool_l.scale[bt].float()[..., None, None])
     *lead, P, KH, page, D = toks.shape
     return toks.transpose(-3, -2).reshape(*lead, P * page, KH, D)
+
+
+def gather_dequant_rows(
+    pool_l: QuantPool,  # one layer: vals [NP, page, D], scale [NP, page]
+    block_table: torch.Tensor,  # [..., P]
+) -> torch.Tensor:
+    """The MLA counterpart: the latent rows as f32 ``[..., P * page, D]``,
+    each under its own scale."""
+    bt = block_table.long()
+    vals = pool_l.vals.view(torch.uint8)[bt].view(FP8_DTYPE)  # [..., P, page, D]
+    rows = dequant(vals, pool_l.scale[bt].float()[..., None])
+    *lead, P, page, D = rows.shape
+    return rows.reshape(*lead, P * page, D)

@@ -13,8 +13,13 @@ against the ``safetensors`` library, the JAX package's loader and HF
 - A tiny ``GptOssForCausalLM`` that ``transformers`` writes loads to
   logits within the reference test's ``atol=3e-4, rtol=2e-4`` of HF's,
   and paged greedy decode equals HF's greedy tokens.
-- Refusals: a missing tensor, MLA (item 9), ``mesh=`` (item 11), tokenizer
-  files beside the weights; and the loader never needs ``safetensors``.
+- DeepSeek (MLA) checkpoints: tiny ``DeepseekV3ForCausalLM`` models that
+  ``transformers`` writes (dense and with live experts) load to logits
+  within the reference tests' tolerances of HF's; a checkpoint written by
+  either package loads in both, with and without ``rope_interleave``; a
+  bf16 save -> load round trip is bitwise.
+- Refusals: a missing tensor, ``mesh=`` (item 11), tokenizer files beside
+  the weights; and the loader never needs ``safetensors``.
 """
 
 import asyncio
@@ -35,10 +40,12 @@ from safetensors.numpy import save_file as st_save_file
 from dynamo_tpu.engine.config import ModelSpec as JaxSpec
 from dynamo_tpu.models import llama as jllama
 from dynamo_tpu.models import loader as jloader
+from dynamo_tpu.models import mla as jmla
 from dynamo_tpu_torch.engine.config import EngineConfig, ModelSpec
 from dynamo_tpu_torch.engine.core import InferenceEngine
-from dynamo_tpu_torch.models import llama, loader
+from dynamo_tpu_torch.models import llama, loader, mla
 from dynamo_tpu_torch.models.convert import params_from_numpy
+from dynamo_tpu_torch.models.family import MlaFamily, get_family
 from dynamo_tpu_torch.runtime.context import Context
 
 pytestmark = pytest.mark.unit
@@ -305,17 +312,18 @@ def test_refusals(tmp_path, caplog):
     loader.save_params(spec, p, str(tmp_path))
     with pytest.raises(NotImplementedError, match="item 11"):
         loader.load_model_dir(str(tmp_path), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        loader.load_params(ModelSpec.tiny_deepseek(), str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        loader.save_params(ModelSpec.tiny_deepseek(), p, str(tmp_path / "x"))
-    # a DeepSeek config.json: its spec maps, its weights are refused
+    # MLA is no longer refused: the family and the name map exist, and a
+    # DeepSeek directory without its tensors fails as any checkpoint does
+    assert isinstance(get_family(ModelSpec.tiny_deepseek()), MlaFamily)
+    ds_spec = ModelSpec.tiny_deepseek()
+    assert set(loader._dest_map_mla(ds_spec)) == set(
+        jloader._dest_map_mla(JaxSpec.tiny_deepseek()))
     cfg = jloader.hf_config_from_spec(JaxSpec.tiny_deepseek())
     ds = tmp_path / "ds"
     ds.mkdir()
     (ds / "config.json").write_text(json.dumps(cfg))
     loader.save_file({"x": np.zeros(1, np.float32)}, str(ds / "model.safetensors"))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="kv_b_proj|missing"):
         loader.load_model_dir(str(ds), device="cpu")
     # a missing tensor raises as the reference does; an extra bias logs
     r = loader.SafetensorsFile(str(tmp_path / "model.safetensors"))
@@ -394,3 +402,130 @@ def test_worker_flag_model_path_is_accepted():
 
     args = worker.parse_args(["--model-path", "/nonexistent", "--device", "cpu"])
     assert worker._engine_config(args).page_size == 16
+
+
+# ------------------------------------------------------------ DeepSeek (MLA)
+
+
+def _tiny_hf_deepseek(tmpdir: str, moe: bool):
+    """A real HF DeepseekV3ForCausalLM saved as safetensors, as
+    tests/test_mla.py builds it: all layers dense with YaRN and the
+    mscale^2 softmax scale (attention golden), or with live experts
+    (sigmoid routing, a non-zero correction bias, group-limited top-k,
+    routed scaling, a shared expert)."""
+    tfm = pytest.importorskip("transformers")
+    if not hasattr(tfm, "DeepseekV3ForCausalLM"):
+        pytest.skip("transformers too old for DeepseekV3")
+    from transformers import DeepseekV3Config, DeepseekV3ForCausalLM
+
+    common = dict(vocab_size=96, hidden_size=32, intermediate_size=48,
+                  moe_intermediate_size=32, num_hidden_layers=2,
+                  num_attention_heads=4, num_key_value_heads=4, n_shared_experts=1,
+                  kv_lora_rank=16, q_lora_rank=24, qk_nope_head_dim=16,
+                  qk_rope_head_dim=8, v_head_dim=16, rope_theta=10000.0,
+                  max_position_embeddings=4096, tie_word_embeddings=False,
+                  attention_bias=False)
+    if moe:
+        cfg = DeepseekV3Config(**common, n_routed_experts=8, num_experts_per_tok=3,
+                               n_group=2, topk_group=1, routed_scaling_factor=2.5,
+                               norm_topk_prob=True, first_k_dense_replace=1)
+    else:
+        cfg = DeepseekV3Config(
+            **common, n_routed_experts=4, num_experts_per_tok=2, first_k_dense_replace=2,
+            rope_scaling={"rope_type": "yarn", "factor": 40.0, "beta_fast": 32.0,
+                          "beta_slow": 1.0, "original_max_position_embeddings": 4096,
+                          "mscale": 1.0, "mscale_all_dim": 1.0})
+    cfg._attn_implementation = "eager"
+    torch.manual_seed(3 if moe else 2)
+    model = DeepseekV3ForCausalLM(cfg).to(torch.float32).eval()
+    if moe:
+        with torch.no_grad():
+            for n, b in model.named_buffers():
+                if "e_score_correction_bias" in n:
+                    b.copy_(torch.randn_like(b) * 0.2)
+    model.save_pretrained(tmpdir)
+    return model
+
+
+@pytest.mark.parametrize("moe", [False, True], ids=["dense", "moe"])
+def test_mla_golden_logits_vs_hf(tmp_path, moe):
+    """The HF DeepSeek checkpoint through the port's loader (interleaved
+    rope columns, the kv_b_proj split, the shared expert, the correction
+    bias): mla.reference_forward within the reference tests' tolerances
+    of HF's logits (atol 3e-4 / rtol 2e-4 dense, 5e-4 / 3e-4 with
+    experts), the paged prefill within 1e-4 of the reference forward."""
+    model = _tiny_hf_deepseek(str(tmp_path), moe)
+    tokens = np.arange(11) % 96
+    with torch.no_grad():
+        want = model(torch.tensor(tokens)[None]).logits[0].float().numpy()
+    spec, params = loader.load_model_dir(str(tmp_path), dtype="float32", device="cpu")
+    assert spec.is_mla and spec.rope_interleave and isinstance(params, mla.MlaParams)
+    if moe:
+        assert spec.moe_scoring == "sigmoid" and spec.n_group == 2
+        assert spec.routed_scaling_factor == 2.5
+    else:
+        assert spec.rope_scaling_factor == 40.0 and spec.rope_mscale_all_dim == 1.0
+    got = mla.reference_forward(spec, params, torch.tensor(tokens)).numpy()
+    atol, rtol = (5e-4, 3e-4) if moe else (3e-4, 2e-4)
+    np.testing.assert_allclose(got, want, atol=atol, rtol=rtol)
+    cache = mla.init_cache(spec, 8, 4, device="cpu")
+    padded = torch.zeros(12, dtype=torch.int32)
+    padded[:11] = torch.tensor(tokens)
+    bt = torch.tensor([1, 2, 3, 0], dtype=torch.int32)
+    last, _ = mla.prefill_forward(spec, params, padded, bt, 0, cache, 11)
+    np.testing.assert_allclose(last.numpy(), got[-1], atol=LOGIT_TOL, rtol=LOGIT_TOL)
+
+
+@pytest.mark.parametrize("interleave", [False, True])
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_mla_checkpoint_loads_in_both_packages(tmp_path, writer, interleave):
+    """A tiny_deepseek checkpoint written by either package (the port's
+    with its rope columns interleaved when the spec says so; small shards
+    force several files) loads in both: the same spec, reference_forward
+    logits within 1e-4, the saved weights back."""
+    jspec = dataclasses.replace(JaxSpec.tiny_deepseek(), rope_interleave=interleave)
+    tspec = dataclasses.replace(ModelSpec.tiny_deepseek(), rope_interleave=interleave)
+    jp = jax.tree.map(np.asarray, jmla.init_params(jspec, jax.random.PRNGKey(4)))
+    for lp in jp["layers"]:
+        if "moe" in lp:
+            lp["moe"]["score_bias"] = np.linspace(-0.3, 0.3, 4).astype(np.float32)
+    path = str(tmp_path / "ckpt")
+    if writer == "jax":
+        jloader.save_params(jspec, jax.tree.map(jnp.asarray, jp), path, shard_bytes=20_000)
+    else:
+        loader.save_params(tspec, params_from_numpy(tspec, jp, device="cpu"), path,
+                           shard_bytes=20_000)
+    assert len([f for f in os.listdir(path) if f.endswith(".safetensors")]) > 1
+    js, jparams = jloader.load_model_dir(path, dtype="float32")
+    ts, tparams = loader.load_model_dir(path, dtype="float32", device="cpu")
+    assert dataclasses.asdict(ts) == dataclasses.asdict(js)
+    assert ts.rope_interleave == (interleave and writer == "port")
+    assert tparams.layers[1].moe.router.dtype == torch.float32
+    tokens = np.random.default_rng(0).integers(0, ts.vocab_size, 17).astype(np.int32)
+    want = np.asarray(jmla.reference_forward(js, jparams, jnp.asarray(tokens)))
+    got = mla.reference_forward(ts, tparams, torch.from_numpy(tokens)).numpy()
+    np.testing.assert_allclose(got, want, atol=LOGIT_TOL, rtol=LOGIT_TOL)
+    np.testing.assert_array_equal(tparams.layers[0].w_uk.numpy(), jp["layers"][0]["w_uk"])
+    np.testing.assert_array_equal(tparams.layers[1].shared.w_down.numpy(),
+                                  jp["layers"][1]["shared"]["w_down"])
+    np.testing.assert_array_equal(tparams.layers[1].moe.score_bias.numpy(),
+                                  jp["layers"][1]["moe"]["score_bias"])
+
+
+def test_mla_bf16_round_trip_is_bitwise(tmp_path):
+    """deepseek's layout (interleaved rope, fused kv_b_proj, shared and
+    routed experts) in bf16, written by the port and read back: the same
+    spec and every weight's bits, the router f32."""
+    spec = dataclasses.replace(ModelSpec.tiny_deepseek(), dtype="bfloat16",
+                               rope_interleave=True)
+    p = mla.init_params(spec, 5, device="cpu")
+    loader.save_params(spec, p, str(tmp_path))
+    cfg = json.loads((tmp_path / "config.json").read_text())
+    assert cfg["model_type"] == "deepseek_v3" and cfg["rope_interleave"] is True
+    spec2, p2 = loader.load_model_dir(str(tmp_path), device="cpu")
+    assert dataclasses.replace(spec2, name=spec.name) == spec
+    a, b = dict(p.named_parameters()), dict(p2.named_parameters())
+    assert sorted(a) == sorted(b)
+    for k in a:
+        assert a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]), k
+    assert b["layers.1.moe.router"].dtype == torch.float32

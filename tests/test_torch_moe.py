@@ -151,9 +151,12 @@ def test_expert_capacity_matches_reference(T):
 
 
 def test_get_family_admits_experts_and_refuses_mla():
-    assert get_family(ModelSpec.tiny_gpt_oss()) is not None
-    with pytest.raises(NotImplementedError, match="item 9"):
-        get_family(ModelSpec.deepseek_r1())
+    """Experts ride the GQA family; an MLA spec (experts too) now gets the
+    MLA family instead of the refusal it got before it was ported."""
+    from dynamo_tpu_torch.models.family import GqaFamily, MlaFamily
+
+    assert type(get_family(ModelSpec.tiny_gpt_oss())) is GqaFamily
+    assert isinstance(get_family(ModelSpec.deepseek_r1()), MlaFamily)
 
 
 # ------------------------------------------------------------ whole models
