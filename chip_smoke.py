@@ -290,10 +290,9 @@ Phases, each of which must pass (any failure exits non-zero):
    prefill's logits bitwise equal; CKPT_REQUESTS greedy requests through an
    in-process engine on the loaded weights and through `cli run
    --model-path` over HTTP, texts equal (the head zeroed outside printable
-   ASCII ids, so each token has its character); a directory with a
-   tokenizer.json refused naming the departure; write and load seconds and
+   ASCII ids, so each token has its character); write and load seconds and
    GB/s printed.
-16. MLA (run last, once phase 15's engines and checkpoint are freed): (a)
+16. MLA (after phase 15, once phase 15's engines and checkpoint are freed): (a)
    deepseek-r1 at full width (d 7168, 128 heads, q-LoRA 1536, kv-LoRA 512,
    rope 64, v 128, 256 experts top-8 in 8 groups with 4 taken, 1 shared
    expert, vocab 129280, YaRN x40) cut from 61 to MLA_LAYERS layers with
@@ -323,7 +322,31 @@ Phases, each of which must pass (any failure exits non-zero):
    by load_model_dir: weights and one prefill's logits bitwise equal,
    write and load GB/s printed. Phase 16 adds ~25 s of command time.
 
-Phases run in the order 1-8, 12, 13, 14, 9, 10, 11, 15, 16.
+17. text (after 16): a llama-3-format tokenizer written by this script
+   (llama-3's Split pattern and ByteLevel, its 256 specials at 128000..,
+   its chat template and clean-up flag, 128,000 base entries: the 256 byte
+   symbols and 127,744 merges grown by a fixed rule from TEXT_CORPUS, then
+   systematic pairs, trigrams and four-letter strings) beside llama-3-8b at
+   full width, CKPT_LAYERS layers (seeded weights whose dim 0 is a constant
+   the head reads as a bias: every token holding "{" except "{}" at
+   TEXT_BRACE_BIAS, so a json_object answer closes). Host costs, each
+   beside the card line: HFTokenizer load, encode and decode us per token
+   (and IncrementalDecoder pushes), apply_chat_template ms,
+   TokenVocab.from_tokenizer at 128,256 ids, a json_schema compile and one
+   new state's mask, and the tokenizers library's encode as a yardstick
+   where it is installed. Then TEXT_CHATS (English, code, multilingual,
+   JSON-ish) served one at a time by an in-process engine with the config
+   ``cli run --spec ngram`` builds, and streamed by ``cli run --in http
+   --model-path DIR --spec ngram --precompile``: prompt_tokens equal to the
+   tokenizer's count of the rendered prompt, texts equal to the in-process
+   streams pushed through IncrementalDecoder, a json_object chat that ends
+   "stop" and parses, and (from the process's ENGINE_LAUNCHES line at
+   SIGTERM) verify dispatches and kv_write launches; then ``cli run
+   --guided off`` serves a free chat on fused_decode and refuses the
+   json_object chat. The mock tokenizer's prompt counts are printed beside
+   the BPE ones.
+
+Phases run in the order 1-8, 12, 13, 14, 9, 10, 11, 15, 16, 17.
 
 Prints, before the last line, the card line and one JSON object with every
 kernel's measurements; the last line is
@@ -3342,10 +3365,11 @@ def cli_check(model: str, device: str | None = None) -> None:
 
 
 @contextlib.contextmanager
-def cli_process(cmd):
+def cli_process(cmd, lines_out: list | None = None):
     """Run ``cmd`` (a ``cli run --in http`` command) in a process of its
     own until it prints DYNAMO_HTTP=host:port (within CLI_START_S); yields
-    (port, seconds to ready) and ends the process on exit."""
+    (port, seconds to ready) and ends the process (SIGTERM) on exit. With
+    ``lines_out``, every line the process printed lands there."""
     import queue
     import threading
 
@@ -3353,9 +3377,12 @@ def cli_process(cmd):
     proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     lines: queue.Queue = queue.Queue()
-    threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout], daemon=True).start()
+    reader = threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
+                              daemon=True)
+    reader.start()
+    seen: list[str] = []
     try:
-        seen, port = [], None
+        port = None
         while port is None:
             try:
                 line = lines.get(timeout=1.0)
@@ -3374,6 +3401,11 @@ def cli_process(cmd):
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.wait(30)
+        if lines_out is not None:
+            reader.join(10)
+            while not lines.empty():
+                seen.append(lines.get())
+            lines_out.extend(ln.rstrip("\n") for ln in seen)
 
 
 # ------------------------------------------------------- processes over TCP
@@ -4386,8 +4418,8 @@ def checkpoint_phase() -> None:
     every weight and one prefill's logits bitwise equal; the same
     CKPT_REQUESTS greedy requests (one at a time) through an engine on the
     loaded weights and through ``cli run --model-path`` over HTTP, texts
-    equal; a directory with a tokenizer.json refused naming the departure.
-    Prints the write and load seconds and GB/s (the load reads files the
+    equal (a directory that also holds a tokenizer is phase 17's). Prints
+    the write and load seconds and GB/s (the load reads files the
     write just left in the page cache)."""
     import dataclasses
     import shutil
@@ -4484,30 +4516,6 @@ def checkpoint_phase() -> None:
               f"{CKPT_REQUESTS} greedy completions x {CKPT_TOKENS} tokens, one at a time, "
               f"equal to the in-process engine's on the loaded weights "
               f"({sum(same)}/{len(same)}), e.g. {texts[0]!r}")
-
-        with_tok = tmp / "with-tokenizer"
-        with_tok.mkdir()
-        shutil.copy(ckpt / "config.json", with_tok / "config.json")
-        (with_tok / "tokenizer.json").write_text("{}")
-
-        async def refused():
-            from dynamo_tpu_torch.engine.worker import launch_engine_worker
-            from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
-            from dynamo_tpu_torch.runtime.hub import InMemoryHub
-
-            drt = DistributedRuntime(InMemoryHub())
-            try:
-                await launch_engine_worker(drt, model_path=str(with_tok), device=DEVICE)
-            except NotImplementedError as e:
-                return str(e)
-            finally:
-                await drt.close()
-            return None
-
-        msg = asyncio.run(refused())
-        require(msg is not None and "transformers" in msg,
-                f"a checkpoint with tokenizer files was not refused: {msg}")
-        print(f"checkpoint with tokenizer.json refused: {msg}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4879,6 +4887,479 @@ def mla_checkpoint_check(card: str) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ------------------------------------------------------------------ text
+
+# phase 17: llama-3-8b at full width, CKPT_LAYERS deep, served with a
+# llama-3-format tokenizer this script writes (TEXT_VOCAB base entries +
+# 256 specials); TEXT_REQUESTS chats of TEXT_TOKENS greedy tokens each
+TEXT_VOCAB = 128000
+TEXT_TOKENS = 16
+TEXT_JSON_TOKENS = 24
+TEXT_SEED = 1717
+# the text checkpoint's dim 0 is a constant no layer reads or writes, which
+# the head uses as a bias: TEXT_BRACE_BIAS on every token holding "{"
+# except "{}", so a json_object answer opens with "{}" and ends on EOS
+TEXT_CONST = 1.0
+TEXT_BRACE_BIAS = -30.0
+LLAMA3_PATTERN = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}{1,3}"
+                  r"| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
+# llama-3-8b-instruct's chat template
+LLAMA3_TEMPLATE = (
+    "{% set loop_messages = messages %}{% for message in loop_messages %}"
+    "{% set content = '<|start_header_id|>' + message['role'] + "
+    "'<|end_header_id|>\n\n'+ message['content'] | trim + '<|eot_id|>' %}"
+    "{% if loop.index0 == 0 %}{% set content = bos_token + content %}{% endif %}"
+    "{{ content }}{% endfor %}{% if add_generation_prompt %}"
+    "{{ '<|start_header_id|>assistant<|end_header_id|>\n\n' }}{% endif %}")
+# the merge rule's corpus, and the host-cost corpus (with TEXT_EXTRA)
+TEXT_CORPUS = """\
+The quick brown fox jumps over the lazy dog. A distributed inference server
+splits a model's work between a router, a frontend and many workers. Each
+worker keeps a paged cache of keys and values, and the router sends every
+request to the worker whose cache already holds the longest prefix of its
+prompt. When the cluster is busy, requests wait in a queue; when it is idle,
+the planner may scale the number of workers down. Latency, throughput and
+the time to the first token are what the users of such a system pay for.
+It isn't hard to see why they're tired of slow answers: we'll measure what
+you've built, and I'm sure she'd agree that it's the right thing to do.
+Please summarize the following document in three sentences, then list the
+main points as a bulleted list. Translate the answer into French and German.
+What is the capital of France? Paris is the capital and largest city of
+France, with a population of more than two million people in 2024.
+
+def generate(self, request: dict, context: Context) -> AsyncIterator[dict]:
+    \"\"\"Stream token deltas for one request.\"\"\"
+    prompt = request["token_ids"]
+    for step in range(self.max_tokens):
+        logits = self.model.forward(prompt, self.cache)
+        token = int(torch.argmax(logits[-1]))
+        yield {"token_ids": [token], "finish_reason": None}
+        if token == self.eos_token_id:
+            return
+
+class KvRouter:
+    def __init__(self, hub, component: str, config=None):
+        self.tree = RadixTree()
+        self.config = config or RouterConfig()
+
+for (int i = 0; i < n; ++i) {
+    sum += a[i] * b[i];
+}
+return std::max(0.0f, sum / static_cast<float>(n));
+
+const response = await fetch("/v1/chat/completions", {method: "POST"});
+{"model": "llama-3-8b", "messages": [{"role": "user", "content": "Hello"}],
+ "max_tokens": 128, "temperature": 0.7, "stream": true, "tools": []}
+SELECT name, count(*) FROM users WHERE created_at > '2024-01-01' GROUP BY name;
+import numpy as np
+import torch.nn.functional as F
+x = np.linspace(0.0, 1.0, 1024, dtype=np.float32)
+机器学习是人工智能的一个分支。日本語のテキストも処理できます。
+Les modèles de langue répondent en français. Die Antwort ist richtig.
+La respuesta está en español. Ответ на русском языке. مرحبا بالعالم
+"""
+TEXT_EXTRA = "😀 👍🏽 👩‍💻 🇯🇵 ✨ 한국어 텍스트 Ελληνικά κείμενα.\n"
+TEXT_CHATS = [
+    [{"role": "system", "content": "You are a concise assistant."},
+     {"role": "user", "content": "Explain in two sentences why a paged KV cache "
+                                 "lets a server batch requests of different lengths."}],
+    [{"role": "user", "content": "What does this function return?\n\n```python\n"
+                                 "def f(xs):\n    return sorted(set(xs))[-2:]\n```"}],
+    [{"role": "user", "content": "Traduis en français et en japonais : "
+                                 "« the cache is full » — 机器学习 👩‍💻"}],
+    [{"role": "system", "content": "Answer with a JSON object."},
+     {"role": "user", "content": "List three colours and their hex codes, e.g. "
+                                 "{\"red\": \"#ff0000\"}."}],
+]
+TEXT_JSON_CHAT = [{"role": "user", "content": "Return an empty JSON object."}]
+
+
+def _llama3_specials() -> list[str]:
+    named = {0: "<|begin_of_text|>", 1: "<|end_of_text|>", 6: "<|start_header_id|>",
+             7: "<|end_header_id|>", 9: "<|eot_id|>"}
+    out, r = [], 0
+    for i in range(256):
+        if i in named:
+            out.append(named[i])
+        else:
+            out.append(f"<|reserved_special_token_{r}|>")
+            r += 1
+    return out
+
+
+def write_llama3_tokenizer(path: Path) -> dict:
+    """A llama-3-format tokenizer with llama-3's pre-tokenizer, specials,
+    chat template and vocabulary size: the 256 byte-level symbols, then
+    TEXT_VOCAB - 256 merges made by a fixed rule. First every pre-token of
+    TEXT_CORPUS (by first appearance) grows left to right, one symbol per
+    merge; then every pair of printable ASCII and whitespace symbols,
+    space-led letter pairs, letter trigrams (lower, space-led, capitalised),
+    digit triples and space runs; then lower-case four-letter strings in
+    order until the count is reached. Each merge's parts exist before it.
+    Returns the vocabulary's merge count and the corpus's pre-token count."""
+    import itertools
+    import string
+
+    from dynamo_tpu_torch.frontend.hf_tokenizer import BYTE_CHAR
+    from dynamo_tpu_torch.frontend.unicode_regex import compile_pattern
+
+    vocab = {BYTE_CHAR[b]: b for b in range(256)}
+    merges: list[list[str]] = []
+
+    def add(a: str, b: str) -> bool:
+        if len(vocab) >= TEXT_VOCAB or a + b in vocab:
+            return False
+        require(a in vocab and b in vocab, f"merge ({a!r}, {b!r}) before its parts")
+        vocab[a + b] = len(vocab)
+        merges.append([a, b])
+        return True
+
+    def grow(word: str) -> None:
+        for k in range(2, len(word) + 1):
+            add(word[:k - 1], word[k - 1])
+
+    split = compile_pattern(LLAMA3_PATTERN)
+    seen = {}
+    for m in split.finditer(TEXT_CORPUS):
+        seen.setdefault("".join(BYTE_CHAR[b] for b in m.group().encode()), None)
+    for word in seen:
+        grow(word)
+    sp, nl = BYTE_CHAR[32], BYTE_CHAR[10]
+    lower, upper = string.ascii_lowercase, string.ascii_uppercase
+    syms = [chr(c) for c in range(0x21, 0x7F)] + [sp, nl, BYTE_CHAR[9]]
+    for a in syms:  # printable ASCII and whitespace pairs
+        for b in syms:
+            add(a, b)
+    for a in lower + upper:  # " ab", " Ab"
+        for b in lower:
+            add(sp + a, b)
+    for a in lower + upper:  # "abc", " abc", "Abc", " Abc"
+        for b in lower:
+            for c in lower:
+                add(a + b, c)
+                add(sp + a + b, c)
+    for a in string.digits:
+        for b in string.digits:
+            for c in string.digits:
+                add(a + b, c)
+    for n in range(1, 16):  # indentation: space runs, newline + spaces
+        add(sp * n, sp)
+        add(nl + sp * n, sp)
+    for w in itertools.product(lower, repeat=4):  # then four letters, in order
+        if len(vocab) >= TEXT_VOCAB:
+            break
+        add("".join(w[:3]), w[3])
+    require(len(vocab) == TEXT_VOCAB and len(merges) == TEXT_VOCAB - 256,
+            f"synthetic vocabulary: {len(vocab)} entries, {len(merges)} merges")
+    specials = _llama3_specials()
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [{"id": TEXT_VOCAB + i, "content": s, "single_word": False,
+                          "lstrip": False, "rstrip": False, "normalized": False,
+                          "special": True} for i, s in enumerate(specials)],
+        "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": LLAMA3_PATTERN},
+             "behavior": "Isolated", "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+             "use_regex": False}]},
+        "post_processor": None,
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": True,
+                    "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                  "fuse_unk": False, "byte_fallback": False, "ignore_merges": True,
+                  "vocab": vocab, "merges": merges},
+    }
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "tokenizer.json").write_text(json.dumps(spec, ensure_ascii=False))
+    (path / "tokenizer_config.json").write_text(json.dumps({
+        "tokenizer_class": "PreTrainedTokenizerFast", "bos_token": "<|begin_of_text|>",
+        "eos_token": "<|eot_id|>", "clean_up_tokenization_spaces": True,
+        "model_max_length": 8192, "chat_template": LLAMA3_TEMPLATE}))
+    return {"merges": len(merges), "corpus_pre_tokens": len(seen)}
+
+
+def text_weights(spec):
+    """Seeded weights for the text checkpoint: init_params, then dim 0
+    made a constant TEXT_CONST that no layer reads or writes (its input
+    rows and output columns zeroed), and the head's dim-0 row a bias of
+    TEXT_BRACE_BIAS on every token holding "{" except "{}"."""
+    from dynamo_tpu_torch.models import llama
+
+    params = llama.init_params(spec, TEXT_SEED, device=DEVICE)
+    with torch.no_grad():
+        params.embed[:, 0] = TEXT_CONST
+        for lp in params.layers:
+            for k in ("wq", "wk", "wv", "w_gate", "w_up"):
+                lp.get(k)[0, :] = 0
+            lp.wo[:, 0] = 0
+            lp.w_down[:, 0] = 0
+        params.lm_head[0, :] = 0
+    return params
+
+
+def brace_bias(params, tokenizer) -> int:
+    """Apply TEXT_BRACE_BIAS (text_weights); returns the biased count."""
+    vocab = tokenizer._tok.model.vocab
+    brace = [i for t, i in vocab.items() if "{" in tokenizer.decode([i]) and t != "{}"]
+    with torch.no_grad():
+        params.lm_head[0, torch.tensor(brace, device=params.lm_head.device)] = TEXT_BRACE_BIAS
+    return len(brace)
+
+
+def text_host_costs(tok_dir: Path, card: str, V: int):
+    """The tokenizer's host costs, each printed beside the card line;
+    returns the loaded HFTokenizer."""
+    import importlib.util
+
+    from dynamo_tpu_torch.frontend.tokenizer import HFTokenizer, IncrementalDecoder
+    from dynamo_tpu_torch.guided import GrammarCompiler, TokenVocab
+
+    t0 = time.perf_counter()
+    tok = HFTokenizer(str(tok_dir))
+    load_s = time.perf_counter() - t0
+    corpus = TEXT_CORPUS + TEXT_EXTRA
+    t0 = time.perf_counter()
+    ids = tok.encode(corpus)
+    enc_cold = (time.perf_counter() - t0) / len(ids)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        tok.encode(corpus)
+    enc_warm = (time.perf_counter() - t0) / (5 * len(ids))
+    t0 = time.perf_counter()
+    text = tok.decode(ids)
+    dec = (time.perf_counter() - t0) / len(ids)
+    require(text == corpus, "text: decode(encode(corpus)) is not the corpus")
+    t0 = time.perf_counter()
+    inc = IncrementalDecoder(tok)
+    for i in ids:
+        inc.push([i])
+    inc.flush()
+    stream = (time.perf_counter() - t0) / len(ids)
+    require(inc.text == corpus, "text: the incremental decode is not the corpus")
+    t0 = time.perf_counter()
+    tok.apply_chat_template(TEXT_CHATS[0])
+    tmpl_first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for chat in TEXT_CHATS:
+        tok.apply_chat_template(chat)
+    tmpl = (time.perf_counter() - t0) / len(TEXT_CHATS)
+    t0 = time.perf_counter()
+    vocab = TokenVocab.from_tokenizer(tok, V)
+    vocab_s = time.perf_counter() - t0
+    grammars = guided_grammars(vocab)
+    comp = GrammarCompiler(vocab, vocab_size=V)
+    g = grammars["json_schema"]
+    t0 = time.perf_counter()
+    comp.compile(g)
+    compile_ms = 1e3 * (time.perf_counter() - t0)
+    tdfa = comp.compile(g).tdfa
+    states = guided_states(comp, g, GUIDED_SAMPLE_TEXT)
+    fresh = [s for s in states if s not in tdfa._masks]
+    mask_ms = []
+    for s in fresh[:3]:
+        t0 = time.perf_counter()
+        tdfa.mask(s)
+        mask_ms.append(round(1e3 * (time.perf_counter() - t0), 1))
+    n = len(ids)
+    print(f"text host: HFTokenizer load {load_s:.3f} s ({tok.vocab_size} + "
+          f"{len(tok._tok.added)} added); encode {1e6 * enc_cold:.2f} us/token cold, "
+          f"{1e6 * enc_warm:.2f} warm; decode {1e6 * dec:.2f} us/token; "
+          f"IncrementalDecoder {1e6 * stream:.2f} us/token pushed one by one "
+          f"({n} tokens, {len(corpus.encode())} bytes: {n / len(corpus.encode()):.3f} "
+          f"tokens/byte); apply_chat_template {1e3 * tmpl_first:.2f} ms first, "
+          f"{1e3 * tmpl:.3f} ms after; [{card}]")
+    print(f"text host: TokenVocab.from_tokenizer {vocab_s:.2f} s at {V} ids "
+          f"({sum(1 for t in vocab.tokens if t)} non-empty); json_schema compile "
+          f"{compile_ms:.1f} ms; one new state's mask (the O(V) walk) {mask_ms} ms; "
+          f"[{card}]")
+    yard = "absent"
+    if importlib.util.find_spec("tokenizers") is not None:
+        # the yardstick runs in a child process: this script, like the port,
+        # imports no tokenizers
+        code = ("import json, sys, time\n"
+                "from tokenizers import Tokenizer\n"
+                "lib = Tokenizer.from_file(sys.argv[1])\n"
+                "text = sys.stdin.read()\n"
+                "t0 = time.perf_counter()\n"
+                "ids = lib.encode(text, add_special_tokens=False).ids\n"
+                "print(json.dumps({'s': time.perf_counter() - t0, 'ids': ids}))\n")
+        out = subprocess.run([sys.executable, "-c", code, str(tok_dir / "tokenizer.json")],
+                             input=corpus, capture_output=True, text=True, timeout=120)
+        require(out.returncode == 0, f"text: the tokenizers yardstick failed: {out.stderr}")
+        lib = json.loads(out.stdout)
+        yard = (f"{1e6 * lib['s'] / len(lib['ids']):.2f} us/token, ids equal: "
+                f"{lib['ids'] == ids}")
+    print(f"text host: the tokenizers library's encode on the same corpus: {yard}")
+    return tok
+
+
+def stream_text(items, tok) -> str:
+    """What the frontend streams for these engine items: each item's ids
+    pushed through IncrementalDecoder, as its Backend operator does."""
+    from dynamo_tpu_torch.frontend.tokenizer import IncrementalDecoder
+
+    inc = IncrementalDecoder(tok)
+    out = [inc.push(x["token_ids"]) for x in items]
+    return "".join(out) + inc.flush()
+
+
+def launches_line(lines: list[str]) -> dict:
+    got = [ln for ln in lines if ln.startswith("ENGINE_LAUNCHES ")]
+    require(len(got) == 1, f"cli: no ENGINE_LAUNCHES line at exit: {lines[-5:]}")
+    return json.loads(got[0][len("ENGINE_LAUNCHES "):])
+
+
+def text_phase(card: str) -> dict:
+    """Phase 17: real text. Returns this phase's launches by kernel."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelSpec
+    from dynamo_tpu_torch.engine.core import InferenceEngine
+    from dynamo_tpu_torch.frontend.tokenizer import MockTokenizer
+    from dynamo_tpu_torch.guided import TokenVocab
+    from dynamo_tpu_torch.models import loader
+
+    spec = dataclasses.replace(ModelSpec.llama3_8b(), num_layers=CKPT_LAYERS)
+    parent = ROOT / "build" / "checkpoints"  # git-ignored
+    parent.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="text-", dir=parent))
+    ckpt = tmp / "llama-3-8b-text"
+    try:
+        t0 = time.perf_counter()
+        info = write_llama3_tokenizer(ckpt)
+        write_s = time.perf_counter() - t0
+        tok = text_host_costs(ckpt, card, spec.vocab_size)
+        params = text_weights(spec)
+        biased = brace_bias(params, tok)
+        loader.save_params(spec, params, str(ckpt))
+        del params
+        print(f"text: tokenizer.json written in {write_s:.2f} s ({info['merges']} merges, "
+              f"{info['corpus_pre_tokens']} corpus pre-tokens grown first); checkpoint "
+              f"{spec.name} x {CKPT_LAYERS} layers beside it, {biased} tokens holding "
+              f"'{{' biased by {TEXT_BRACE_BIAS}")
+
+        prompts = [tok.encode(tok.apply_chat_template(c)) for c in TEXT_CHATS]
+        mock = MockTokenizer()
+        mock_n = [len(mock.encode(mock.apply_chat_template(c))) for c in TEXT_CHATS]
+        spec2, loaded = loader.load_model_dir(str(ckpt), device=DEVICE)
+        # the engine cli run --spec ngram builds: the same config and vocabulary
+        engine = InferenceEngine(
+            spec2, EngineConfig(pipeline_decode=True, spec_mode="ngram", spec_k_max=8),
+            params=loaded, device=DEVICE,
+            guided_vocab=TokenVocab.from_tokenizer(tok, spec2.vocab_size))
+        engine.precompile()
+
+        async def one_by_one(e):
+            return [(await requests(e, [make_request(p, TEXT_TOKENS)]))[0][0]
+                    for p in prompts]
+
+        served = serve_phases(engine, [("text", one_by_one)])["text"]
+        drop_engine(engine)
+        del engine, loaded
+        torch.cuda.empty_cache()
+        want = [stream_text(items, tok) for items in served["res"]]
+        want_ids = [[t for x in items for t in x["token_ids"]] for items in served["res"]]
+        require(all(len(w) == TEXT_TOKENS for w in want_ids),
+                f"text: in-process engine streams {list(map(len, want_ids))}")
+
+        lines: list[str] = []
+        cmd = [sys.executable, "-m", "dynamo_tpu_torch.cli", "run", "--in", "http",
+               "--out", "engine", "--model-path", str(ckpt), "--port", "0",
+               "--precompile", "--spec", "ngram"]
+        name = ckpt.name
+        with cli_process(cmd, lines) as (port, t_ready):
+
+            async def post_all():
+                res = []
+                for chat in TEXT_CHATS:
+                    res.append(await http_call(port, "POST", "/v1/chat/completions", {
+                        "model": name, "messages": chat, "max_tokens": TEXT_TOKENS,
+                        "temperature": 0.0, "ignore_eos": True, "stream": True,
+                        "stream_options": {"include_usage": True}}))
+                res.append(await http_call(port, "POST", "/v1/chat/completions", {
+                    "model": name, "messages": TEXT_JSON_CHAT, "temperature": 0.0,
+                    "max_tokens": TEXT_JSON_TOKENS,
+                    "response_format": {"type": "json_object"}}))
+                return res
+
+            t0 = time.perf_counter()
+            got = asyncio.run(post_all())
+            wall = time.perf_counter() - t0
+        texts, usage = [], []
+        for (status, body, _t), p in zip(got[:-1], prompts):
+            ev = sse_events(body) if status == 200 else []
+            require(status == 200 and ev[-1] == "[DONE]", f"text chat: status {status}, "
+                                                           f"{body[:300]!r}")
+            texts.append("".join(c["choices"][0]["delta"].get("content") or ""
+                                 for c in ev[:-1] if c.get("choices")))
+            usage.append(ev[-2]["usage"])
+        require([u["prompt_tokens"] for u in usage] == [len(p) for p in prompts],
+                f"text: prompt_tokens {[u['prompt_tokens'] for u in usage]} vs the "
+                f"tokenizer's {[len(p) for p in prompts]}")
+        require(all(u["completion_tokens"] == TEXT_TOKENS for u in usage),
+                f"text: completion tokens {usage}")
+        same = [t == w for t, w in zip(texts, want)]
+        require(all(same), f"text: served streams differ from the in-process engine's: "
+                           f"{texts} vs {want}")
+        status, body, _t = got[-1]
+        js = json.loads(body) if status == 200 else {}
+        content = js["choices"][0]["message"]["content"] if js else None
+        require(status == 200 and js["choices"][0]["finish_reason"] == "stop",
+                f"text json_object: status {status}, {body[:300]!r}")
+        try:
+            obj = json.loads(content)
+        except ValueError:
+            obj = None
+        require(isinstance(obj, dict), f"text json_object: {content!r} does not parse")
+        run1 = launches_line(lines)
+        spec_stats = run1["spec"] or {}
+        require(spec_stats.get("verifies", 0) > 0 and run1["launches"]["kv_write"] > 0,
+                f"text --spec ngram: no verify ran: {run1}")
+        print(f"text cli: {' '.join(cmd[1:])}: DYNAMO_HTTP after {t_ready:.1f} s; "
+              f"{len(TEXT_CHATS)} streamed chats x {TEXT_TOKENS} tokens and one json_object "
+              f"chat in {wall:.3f} s, one at a time; texts equal to the in-process spec "
+              f"engine's streamed through IncrementalDecoder ({sum(same)}/{len(same)}), "
+              f"e.g. {texts[0]!r}; json_object {content!r} parses ({js['usage']}); "
+              f"prompt tokens {[len(p) for p in prompts]} (BPE) vs "
+              f"{mock_n} under the mock tokenizer; ENGINE_LAUNCHES {run1}")
+
+        lines2: list[str] = []
+        cmd2 = [sys.executable, "-m", "dynamo_tpu_torch.cli", "run", "--in", "http",
+                "--out", "engine", "--model-path", str(ckpt), "--port", "0",
+                "--guided", "off"]
+        with cli_process(cmd2, lines2) as (port, t_ready2):
+
+            async def post_two():
+                return [await http_call(port, "POST", "/v1/chat/completions", {
+                    "model": name, "messages": TEXT_CHATS[0], "max_tokens": TEXT_TOKENS,
+                    "temperature": 0.0, "ignore_eos": True}),
+                    await http_call(port, "POST", "/v1/chat/completions", {
+                        "model": name, "messages": TEXT_JSON_CHAT,
+                        "max_tokens": TEXT_JSON_TOKENS,
+                        "response_format": {"type": "json_object"}})]
+
+            (s1, b1, _), (s2, b2, _) = asyncio.run(post_two())
+        run2 = launches_line(lines2)
+        require(s1 == 200 and json.loads(b1)["usage"]["completion_tokens"] == TEXT_TOKENS,
+                f"text --guided off: free chat {s1} {b1[:200]!r}")
+        require(s2 != 200 and b"guided" in b2,
+                f"text --guided off: the json_object request was served: {s2} {b2[:200]!r}")
+        require(run2["launches"]["fused_decode_attention"] > 0 and run2["spec"] is None,
+                f"text --guided off: {run2}")
+        print(f"text cli --guided off: DYNAMO_HTTP after {t_ready2:.1f} s; a free chat "
+              f"served, the json_object chat refused ({s2}: {b2[:120]!r}); spec off; "
+              f"ENGINE_LAUNCHES {run2}")
+        return {"kv_write/verify": run1["launches"]["kv_write"],
+                "fused_decode": run1["launches"]["fused_decode_attention"]
+                + run2["launches"]["fused_decode_attention"]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the GPU",
@@ -4994,10 +5475,18 @@ def main() -> int:
     mla_checkpoint_check(card)
     print(f"phase 16: {time.perf_counter() - t16:.1f} s")
 
+    # real text: a llama-3-format tokenizer beside a llama-3-8b checkpoint,
+    # served through cli run --model-path --spec ngram over HTTP
+    t17 = time.perf_counter()
+    text_launches = text_phase(card)
+    print(f"phase 17: {time.perf_counter() - t17:.1f} s")
+
     launches = {"fused_decode": serve_launches["fused_decode"] + http_launches
-                + process_launches + overload_launches + guided_launches,
+                + process_launches + overload_launches + guided_launches
+                + text_launches["fused_decode"],
                 "paged_attention_v3": unfused[0], "kv_write": unfused[2],
-                "kv_write/verify": spec_kv_launches + guided_kv_launches,
+                "kv_write/verify": spec_kv_launches + guided_kv_launches
+                + text_launches["kv_write/verify"],
                 "fused_decode/fp8": serve_fp8["fused_decode/fp8"],
                 "paged_attention_v3/fp8": unfused_fp8[1],
                 "kv_write/fp8": unfused_fp8[3],

@@ -3,9 +3,10 @@
     python -m dynamo_tpu_torch.cli run --in http --out engine --model llama-3-8b
         in-memory hub + torch engine worker + OpenAI HTTP frontend on one
         event loop; prints DYNAMO_HTTP=host:port once serving
-    python -m dynamo_tpu_torch.cli run --in http --model-path DIR
+    python -m dynamo_tpu_torch.cli run --in http --model-path DIR [--spec ngram]
         the same, serving the HF-format checkpoint in DIR (config.json +
-        *.safetensors; models/loader.py)
+        *.safetensors; models/loader.py) with the tokenizer it holds
+        (tokenizer.json; frontend/hf_tokenizer.py), else the mock one
     python -m dynamo_tpu_torch.cli run --in batch:reqs.jsonl --out engine
         offline batch: one JSON result line per input line
     python -m dynamo_tpu_torch.cli run --in text --out echo
@@ -24,6 +25,10 @@
         "router") and a fleet of mock workers (prints MOCKERS_READY N)
 
 The engine runs on the GPU; ``--device cpu`` runs it on the CPU (tests).
+``--spec``, ``--guided`` and ``--tp`` are the reference's, each beating its
+``DYN_*`` variable. With ``--in http``, SIGTERM ends the serve and the
+engine prints ``ENGINE_LAUNCHES {json}`` (kernel launches, steps, replays
+and speculation counters since it was ready), as a worker does.
 ``--out engine`` is the default (the reference's is ``mocker``): the port's
 main path is the card. The other service subcommands (planner, ...) are
 refused until their own slices.
@@ -86,18 +91,34 @@ async def _arun(args: argparse.Namespace) -> None:
                 await pub.close()
     else:
         from dynamo_tpu_torch.engine.config import EngineConfig
-        from dynamo_tpu_torch.engine.worker import launch_engine_worker
+        from dynamo_tpu_torch.engine.worker import (
+            engine_launches,
+            launch_base,
+            launch_engine_worker,
+        )
+        from dynamo_tpu_torch.runtime.config import RuntimeConfig
 
-        # serving always pipelines the decode bursts (as the reference's
-        # worker)
+        env_cfg = RuntimeConfig.from_env()
         engine, _ = await launch_engine_worker(
             drt, namespace=args.namespace, model=args.model,
             model_path=args.model_path, model_name=args.model_name,
-            engine_config=EngineConfig(pipeline_decode=True),
+            # serving always pipelines the decode bursts (as the reference's
+            # worker); a flag beats its DYN_* variable beats the default
+            engine_config=EngineConfig(
+                tp=args.tp, pipeline_decode=True,
+                spec_mode=args.spec or env_cfg.spec_mode or "off",
+                spec_k_max=env_cfg.spec_k_max or 8,
+                guided_mode=args.guided or env_cfg.guided_mode or "auto",
+            ),
             precompile=args.precompile, device=args.device,
         )
         model_name = args.model_name or engine.spec.name
-        close_engine = engine.close
+        base = launch_base(engine)
+
+        async def close_engine() -> None:
+            await engine.close()
+            print("ENGINE_LAUNCHES " + json.dumps(engine_launches(engine, base)),
+                  flush=True)
     manager = ModelManager()
     watcher = await ModelWatcher(drt, manager).start()
     try:
@@ -115,8 +136,13 @@ async def _arun(args: argparse.Namespace) -> None:
 
 
 async def _serve_http(args, drt, manager, model_name: str) -> None:
+    import signal
+
     from dynamo_tpu_torch.frontend.http import HttpFrontend
 
+    # SIGTERM ends the serve through the finally blocks: the engine closes
+    # and prints its ENGINE_LAUNCHES line
+    asyncio.get_running_loop().add_signal_handler(signal.SIGTERM, drt.runtime.shutdown)
     frontend = HttpFrontend(manager, host=args.host, port=args.port, drt=drt)
     host, port = await frontend.start()
     print(f"DYNAMO_HTTP={host}:{port}", flush=True)
@@ -210,9 +236,18 @@ def _run_command(rest: list[str]) -> int:
     p.add_argument("--namespace", default="dynamo")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor parallelism (only 1 is ported)")
     p.add_argument("--precompile", action=argparse.BooleanOptionalAction,
                    default=False,
                    help="capture every decode graph variant before serving")
+    p.add_argument("--guided", default=None, choices=["auto", "off"],
+                   help="guided decoding for response_format / forced "
+                        "tool_choice (default DYN_GUIDED_MODE, else auto)")
+    p.add_argument("--spec", default=None, choices=["off", "ngram"],
+                   help="out=engine: speculative decoding (prompt-lookup "
+                        "drafter + batched verify; default DYN_SPEC_MODE, "
+                        "else off)")
     p.add_argument("--max-tokens", type=int, default=128)
     p.add_argument("--speedup-ratio", type=float, default=1.0,
                    help="out=mocker|echo: divide the simulated step times")

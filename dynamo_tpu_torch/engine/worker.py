@@ -25,9 +25,9 @@ canary-probes the worker every ``--health-interval`` seconds.
 ``--model-path DIR`` serves an HF-format checkpoint (``config.json`` and
 ``*.safetensors``, models/loader.py): the spec comes from its config and
 the weights stream to the device. A directory that also holds tokenizer
-files raises: the reference would serve it with the HF tokenizer, which
-the port does not have (no ``transformers`` on the GPU machine), and
-serving the mock tokenizer over real weights would answer garbage.
+files is served with that tokenizer (frontend/hf_tokenizer.py, read
+without ``transformers``), as the reference does: its card names the
+directory, and the guided vocabulary is built from it.
 
 The default router mode is "kv", as the reference's: frontends route by
 prefix overlap from this worker's KV events (kv_router/). The reference's
@@ -50,6 +50,7 @@ import torch
 from dynamo_tpu_torch.engine.config import EngineConfig, ModelSpec
 from dynamo_tpu_torch.engine.core import InferenceEngine
 from dynamo_tpu_torch.frontend.model_card import register_llm
+from dynamo_tpu_torch.frontend.hf_tokenizer import has_tokenizer_files
 from dynamo_tpu_torch.frontend.tokenizer import load_tokenizer
 from dynamo_tpu_torch.guided.vocab import TokenVocab
 from dynamo_tpu_torch.kv_router.publisher import KvEventPublisher, WorkerMetricsPublisher
@@ -106,19 +107,17 @@ async def launch_engine_worker(
             f"model_type {model_type!r}: the port serves chat and completions "
             "models (embeddings are ROADMAP Queue A item 12)"
         )
-    load_tokenizer(tokenizer)  # a tokenizer the frontend cannot load fails here
     cfg = engine_config or EngineConfig()
     if model_path:
         if spec is not None or params is not None:
             raise ValueError(
                 "pass either spec=/params= or model_path=, not both: with a "
                 "checkpoint the spec comes from its config.json")
-        if tokenizer == "mock" and _has_tokenizer_files(model_path):
-            raise NotImplementedError(
-                f"{model_path} holds tokenizer files: the reference serves it "
-                "with its HF tokenizer, which the port does not have (no "
-                "transformers on the GPU machine); remove them to serve the "
-                "weights with the mock tokenizer")
+        if tokenizer == "mock" and has_tokenizer_files(model_path):
+            tokenizer = model_path
+    # a tokenizer the frontend cannot load fails here, before the weights
+    tok = await asyncio.to_thread(load_tokenizer, tokenizer)
+    if model_path:
         from dynamo_tpu_torch.models.loader import load_model_dir
 
         spec, params = await asyncio.to_thread(load_model_dir, model_path,
@@ -130,8 +129,8 @@ async def launch_engine_worker(
         # once from the tokenizer the frontend registers for this model, so
         # the mask automaton and the detokenizer agree
         try:
-            guided_vocab = TokenVocab.from_tokenizer(
-                load_tokenizer(tokenizer), spec.vocab_size)
+            guided_vocab = await asyncio.to_thread(
+                TokenVocab.from_tokenizer, tok, spec.vocab_size)
         except Exception as e:  # noqa: BLE001
             log.warning("guided decoding disabled: vocab build failed (%s)", e)
     engine = InferenceEngine(spec, cfg, params=params, device=device,
@@ -215,15 +214,6 @@ async def launch_engine_worker(
     return engine, served
 
 
-def _has_tokenizer_files(model_path: str) -> bool:
-    import os
-
-    return any(
-        os.path.exists(os.path.join(model_path, f))
-        for f in ("tokenizer.json", "tokenizer_config.json", "tokenizer.model")
-    )
-
-
 def launch_counts() -> dict[str, int]:
     """Kernel launches in this process so far, by kernel and fp8 form
     (ops/cuda/build.py counters; graph replays included)."""
@@ -234,6 +224,22 @@ def launch_counts() -> dict[str, int]:
         out[fn.__name__] = fn.launches
         out[fn.__name__ + "/fp8"] = fn.fp8_launches
     return out
+
+
+def launch_base(engine: InferenceEngine) -> tuple:
+    """The counters to report traffic from: taken after precompile, whose
+    warm-up steps launch kernels for real."""
+    return launch_counts(), engine.steps, engine._graphs.replays
+
+
+def engine_launches(engine: InferenceEngine, base: tuple | None) -> dict:
+    """Kernel launches, decode steps, graph replays and speculation counters
+    since ``base`` (the ENGINE_LAUNCHES line of a worker or ``cli run``)."""
+    counts, steps, replays = base or ({}, 0, 0)
+    return {
+        "launches": {k: v - counts.get(k, 0) for k, v in launch_counts().items()},
+        "steps": engine.steps - steps, "replays": engine._graphs.replays - replays,
+        "spec": engine.spec_snapshot() if engine._spec_on else None}
 
 
 def _engine_config(args: argparse.Namespace) -> EngineConfig:
@@ -326,7 +332,7 @@ async def _amain(args: argparse.Namespace, ecfg: EngineConfig) -> None:
             device=device,
         )
         # launches from here on: precompile's warm-up steps are not traffic
-        base = (launch_counts(), engine.steps, engine._graphs.replays)
+        base = launch_base(engine)
         print("ENGINE_READY", flush=True)
         drain = _install_drain_handler(drt, engine, served, base)
         await drt.runtime.wait_for_shutdown()
@@ -412,12 +418,7 @@ async def graceful_drain(
     # past the deadline the transport stop force-cancels at once
     await drt.shutdown(drain=True, drain_timeout=5.0 if leftover == 0 else 0.0)
     await engine.close()
-    counts, steps, replays = base or ({}, 0, 0)
-    launches = {k: v - counts.get(k, 0) for k, v in launch_counts().items()}
-    print("ENGINE_LAUNCHES " + json.dumps({
-        "launches": launches, "steps": engine.steps - steps,
-        "replays": engine._graphs.replays - replays,
-        "spec": engine.spec_snapshot() if engine._spec_on else None}), flush=True)
+    print("ENGINE_LAUNCHES " + json.dumps(engine_launches(engine, base)), flush=True)
     print(f"ENGINE_DRAINED leftover={leftover}", flush=True)
 
 

@@ -1,11 +1,13 @@
 """Tokenizer abstraction + incremental detokenization (the counterpart of
 dynamo_tpu/frontend/tokenizer.py).
 
-``MockTokenizer`` is the deterministic byte-level tokenizer of the
-reference (no model files). The reference's ``HFTokenizer`` needs
-``transformers``, which the GPU machine lacks: ``load_tokenizer`` with a
-path raises, a kept departure (a checkpoint's weights load without it:
-models/loader.py).
+Two implementations, as in the reference:
+  - ``HFTokenizer``: a checkpoint directory's HuggingFace tokenizer
+    (tokenizer.json + tokenizer_config.json), read without transformers
+    (frontend/hf_tokenizer.py): the same ids, text and chat prompts as the
+    reference's transformers-backed class.
+  - ``MockTokenizer``: the deterministic byte-level tokenizer for hermetic
+    tests and the mock engine (no model files).
 
 ``IncrementalDecoder`` converts a stream of token ids into clean UTF-8 text
 deltas: it withholds bytes until they form complete codepoints, so
@@ -16,7 +18,9 @@ from __future__ import annotations
 
 from typing import Protocol, Sequence
 
-__all__ = ["Tokenizer", "MockTokenizer", "IncrementalDecoder", "load_tokenizer"]
+from dynamo_tpu_torch.frontend.hf_tokenizer import HFTokenizer
+
+__all__ = ["Tokenizer", "MockTokenizer", "HFTokenizer", "IncrementalDecoder", "load_tokenizer"]
 
 
 class Tokenizer(Protocol):
@@ -75,16 +79,11 @@ class MockTokenizer:
 
 
 def load_tokenizer(spec: str | None) -> Tokenizer:
-    """Resolve a tokenizer spec from a model card: "mock" (or empty). A
-    local path needs ``transformers``, which the port does not use: it
-    raises ValueError."""
+    """Resolve a tokenizer spec from a model card: "mock" (or empty) or a
+    local directory holding tokenizer.json."""
     if not spec or spec == "mock":
         return MockTokenizer()
-    raise ValueError(
-        f"tokenizer {spec!r}: the port serves the mock tokenizer only; a "
-        "HuggingFace tokenizer needs transformers, which the GPU machine "
-        "lacks"
-    )
+    return HFTokenizer(spec)
 
 
 def _utf8_incomplete_tail(data: bytes) -> int:

@@ -363,7 +363,10 @@ def prefill_forward_batch(
     positions = start[:, None] + idx[None, :]  # [N, T]
     n_pg = T // page_size
     page_starts = start[:, None] + (torch.arange(n_pg, device=dev) * page_size)[None, :]
-    pg_idx_raw = torch.gather(block_tables.long(), 1, page_starts // page_size)
+    # a bucket padded past the table's end reads its last column: those
+    # pages are past the prompt, so they write the trash page
+    pg_col = (page_starts // page_size).clamp(max=block_tables.shape[1] - 1)
+    pg_idx_raw = torch.gather(block_tables.long(), 1, pg_col)
     valid_pg = page_starts < (start + ntok)[:, None]
     safe_pg = torch.where(valid_pg, pg_idx_raw, TRASH_PAGE).reshape(N * n_pg)
     valid_tok = (idx[None, :] < ntok[:, None]).reshape(N * n_pg, page_size)

@@ -344,7 +344,9 @@ async def test_migration_never_retries_a_stopped_request():
 
 
 async def test_refused_features_raise():
-    with pytest.raises(ValueError, match="transformers"):
+    # a path with no tokenizer files: the reference's AutoTokenizer raises
+    # OSError too
+    with pytest.raises(OSError):
         load_tokenizer("/models/llama")
     assert isinstance(load_tokenizer(None), MockTokenizer)
     # the parsers are ported: a known name builds, an unknown one raises

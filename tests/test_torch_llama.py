@@ -157,6 +157,26 @@ def test_prefill_batch_matches():
     _close(tk[:, 1:7], np.asarray(jk)[:, 1:7])
 
 
+def test_prefill_bucket_past_the_table_matches():
+    """A chunk whose padded bucket runs past the page table's end (start 24
+    + T 16 over P 8 pages of 4): the padded pages write the trash page, as
+    the reference's clamped gather does, and the logits and live pages
+    agree."""
+    tspec, jspec, jp, tp = _models(seed=4)
+    (jk, jv), (tk, tv) = _caches(tspec, jspec)
+    bt = np.arange(1, P + 1, dtype=np.int32)
+    tokens = np.zeros((16,), np.int32)
+    tokens[:8] = np.random.default_rng(1).integers(0, 97, 8)
+    want, jk, jv, _ = jllama.prefill_forward(
+        jspec, jp, jnp.asarray(tokens), jnp.asarray(bt), jnp.asarray(24, jnp.int32),
+        jk, jv, jnp.asarray(8, jnp.int32))
+    got, _ = llama.prefill_forward(tspec, tp, torch.from_numpy(tokens),
+                                   torch.from_numpy(bt), 24, tk, tv, 8)
+    _close(got, want)
+    _close(tk[:, 1:P + 1], np.asarray(jk)[:, 1:P + 1])
+    _close(tv[:, 1:P + 1], np.asarray(jv)[:, 1:P + 1])
+
+
 def _prefilled(tspec, jspec, jp, tp, prompts):
     """Both models' caches after prefilling ``prompts`` (slot i owns pages
     1 + 4i .. 4 + 4i)."""

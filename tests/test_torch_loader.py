@@ -357,7 +357,8 @@ def test_loader_needs_no_safetensors_package(tmp_path, monkeypatch):
 async def test_worker_serves_model_path(tmp_path):
     """launch_engine_worker(model_path=...) serves the checkpoint: the spec
     from its config, the streams of an engine on the same loaded weights;
-    spec= beside model_path= and tokenizer files beside the weights raise."""
+    spec= beside model_path= raises; tokenizer files beside the weights are
+    served (the card names the directory), and an unreadable one raises."""
     from dynamo_tpu_torch.engine.worker import launch_engine_worker
     from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
     from dynamo_tpu_torch.runtime.hub import InMemoryHub
@@ -388,9 +389,24 @@ async def test_worker_serves_model_path(tmp_path):
     await ref.close()
     assert got == want and len(got) == 5
 
-    (tmp_path / "tokenizer.json").write_text("{}")
+    from test_torch_tokenizer import build_tokenizer_dir
+
+    from dynamo_tpu_torch.frontend.model_card import ModelDeploymentCard
+
+    build_tokenizer_dir("llama3", tmp_path)
     drt = DistributedRuntime(InMemoryHub())
-    with pytest.raises(NotImplementedError, match="transformers"):
+    engine, _served = await launch_engine_worker(
+        drt, model_path=str(tmp_path), engine_config=cfg, device="cpu",
+        router_mode="round_robin")
+    cards = [ModelDeploymentCard.from_dict(v) for _k, v in
+             (await drt.hub.get_prefix("v1/mdc/")).items()]
+    assert [c.tokenizer for c in cards] == [str(tmp_path)]
+    await engine.close()
+    await drt.close()
+    (tmp_path / "tokenizer.json").write_text(json.dumps(
+        {"model": {"type": "Unigram", "vocab": [["a", 0.0]], "unk_id": 0}}))
+    drt = DistributedRuntime(InMemoryHub())
+    with pytest.raises(NotImplementedError, match="Unigram"):
         await launch_engine_worker(drt, model_path=str(tmp_path), engine_config=cfg,
                                    device="cpu")
     await drt.close()
