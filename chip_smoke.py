@@ -346,7 +346,29 @@ Phases, each of which must pass (any failure exits non-zero):
    json_object chat. The mock tokenizer's prompt counts are printed beside
    the BPE ones.
 
-Phases run in the order 1-8, 12, 13, 14, 9, 10, 11, 15, 16, 17.
+18. KVBM (after 14, on the phase-4 weights, before 9): an engine with
+   phase 4's config but KVBM_PAGES pages of G1 and a KvBlockManager whose
+   G2 holds wave 2 and 3/4 of wave 1 and whose G3 (under build/kvbm/,
+   removed at the end) holds the rest: (a) wave 1, phase 4's 8 prompts, 32
+   greedy tokens each, every G2 block bitwise equal to its device page; (b)
+   wave 2, KVBM_WAVE2 other prompts of 384..448 tokens, after which no
+   wave-1 block is left in G1; (c) wave 3, wave 1 again in reverse order:
+   hits in G2 and G3,
+   each request's onboarded tokens, the onboarded pages bitwise equal to
+   their tier blocks, every stream equal to its wave-1 stream up to the
+   first reference near-tie (near-argmax both); 32 fused_decode launches
+   per decode step and 0 dropped offload batches throughout; (d) a
+   KVBM_SINGLE-token prompt alone, TTFT onboarded from G2 against
+   recomputed; host ms per onboarded block split into tier get + checksum,
+   stack, H2D and insert; the drained batches' gather and D2H device times
+   and lag; (e) a new engine and manager on the same G3 (index reloaded)
+   serve one wave-1 prompt from G3; (f) the same waves on fp8 pools
+   (packed blocks bitwise, a NaN scale re-offered into G2 is a miss and the
+   prompt re-prefills); (g) deepseek-r1's latent blocks, bf16 and per-row
+   fp8, extract -> insert -> extract bitwise with the inert v slot. Each
+   measured line carries the card's name and power limit.
+
+Phases run in the order 1-8, 12, 13, 14, 18, 9, 10, 11, 15, 16, 17.
 
 Prints, before the last line, the card line and one JSON object with every
 kernel's measurements; the last line is
@@ -498,6 +520,15 @@ MOE_SEED = 1515
 # MLA_PROMPT-token prompt served alone; a MLA_CKPT_LAYERS-layer checkpoint
 MLA_LAYERS = 4
 MLA_PROMPT = 128
+# phase 18 (KVBM): G1 of KVBM_PAGES pages, so that wave 2's KVBM_WAVE2
+# prompts of 384..448 tokens evict every page of wave 1; G3 under KVBM_DIR
+# (removed at the end); a KVBM_SINGLE-token prompt served alone, onboarded
+# and recomputed KVBM_AB times each
+KVBM_PAGES = 256
+KVBM_WAVE2 = 12
+KVBM_SINGLE = 512
+KVBM_AB = 2
+KVBM_DIR = ROOT / "build" / "kvbm"
 MLA_SEED = 1616
 MLA_CKPT_LAYERS = 1
 CKPT_LAYERS = 2
@@ -1618,12 +1649,13 @@ def serve_check(engine, prompts, out, label, bf16_tokens=None, reference=True):
     return serve_launches, tokens
 
 
-def new_engine(spec, cfg, label, params=None):
+def new_engine(spec, cfg, label, params=None, kvbm=None):
     from dynamo_tpu_torch.engine.config import EngineConfig
     from dynamo_tpu_torch.engine.core import InferenceEngine
 
     t0 = time.perf_counter()
-    engine = InferenceEngine(spec, EngineConfig(**cfg), params=params, device=DEVICE)
+    engine = InferenceEngine(spec, EngineConfig(**cfg), params=params, device=DEVICE,
+                             kvbm=kvbm)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in engine.params.parameters())
     print(f"engine {label}: {spec.name} {n_params / 1e9:.2f}B params, KV pools "
@@ -2895,6 +2927,475 @@ def guided_phase(spec, cfg, params, prompts) -> tuple[int, int]:
     launches += on["counts"]["fused_decode"] + off["counts"]["fused_decode"]
     print(f"guided phase: {time.perf_counter() - t_phase:.1f} s")
     return launches, on["counts"]["kv_write"]
+
+
+# ------------------------------------------------------------ KVBM
+
+
+def kvbm_wave2_prompts(vocab: int):
+    """Wave 2 of phase 18: KVBM_WAVE2 prompts of 384..448 tokens, none
+    sharing a block with phase 4's prompts. Their pages (with 32 tokens
+    each) outnumber KVBM_PAGES, so every wave-1 page leaves G1, while the 8
+    that decode at once fit (8 streams that each hold ~31 pages and need 2
+    more stall one another in a 256-page pool)."""
+    rng = np.random.default_rng(1818)
+    lens = rng.integers(384, 449, size=KVBM_WAVE2)
+    return [rng.integers(3, vocab, int(n)).tolist() for n in lens]
+
+
+def kvbm_hashes(prompt, page: int = 16) -> list[int]:
+    from dynamo_tpu_torch.tokens import TokenBlockSequence
+
+    return TokenBlockSequence.from_tokens(prompt, page).sequence_hashes()
+
+
+def kvbm_budgets(waves, block_bytes: int) -> tuple[int, int, int, int]:
+    """(G2 bytes, G3 bytes, wave-1 blocks, wave-2 blocks): G2 holds wave 2
+    and three quarters of wave 1, so wave 3 finds wave 1's oldest quarter
+    in G3, and its newest blocks still in G2 after the G3 hits' promotions
+    have pushed a quarter more down.
+    Blocks per prompt: the distinct sealed blocks of prompt + 31 decoded
+    tokens (estimated by the prompt's own hashes plus its decode blocks)."""
+    counts = []
+    for prompts in waves:
+        seen = set()
+        extra = 0
+        for p in prompts:
+            seen.update(kvbm_hashes(p))
+            extra += (len(p) + SERVE_TOKENS - 1) // 16 - len(p) // 16
+        counts.append(len(seen) + extra)
+    w1, w2 = counts
+    return (w2 + 3 * w1 // 4) * block_bytes, 2 * (w1 + w2) * block_bytes, w1, w2
+
+
+def kvbm_manager(kv_dir: Path, g2: int, g3: int):
+    from dynamo_tpu_torch.kvbm import KvbmConfig, KvBlockManager
+
+    return KvBlockManager(KvbmConfig(host_bytes=g2, disk_bytes=g3, disk_dir=str(kv_dir)))
+
+
+async def kvbm_serve(engine, prompts, n=SERVE_TOKENS):
+    """All ``prompts`` at once, greedy, ``n`` tokens each; then the offload
+    flushed. Returns the streams, TTFTs (host clock from each submit), the
+    request ids, the wall, and the tiers' counters and bytes after."""
+    from dynamo_tpu_torch.runtime.context import Context
+
+    t0 = time.perf_counter()
+    ctxs = [Context() for _ in prompts]
+
+    async def one(i):
+        t_sub, first, toks, last = time.perf_counter(), None, [], None
+        async for item in engine.generate(make_request(prompts[i], n), ctxs[i]):
+            if item["token_ids"] and first is None:
+                first = time.perf_counter() - t_sub
+            toks += item["token_ids"]
+            last = item
+        require(last["finish_reason"] == "length" and len(toks) == n,
+                f"kvbm request {i}: {len(toks)} tokens, finish {last['finish_reason']} "
+                f"{last.get('error', '')}")
+        return toks, first
+
+    out = await asyncio.gather(*(one(i) for i in range(len(prompts))))
+    wall = time.perf_counter() - t0
+    await asyncio.to_thread(engine.offload.flush, 120.0)
+    return {"tokens": [o[0] for o in out], "ttft": [o[1] for o in out], "wall": wall,
+            "ids": [c.id for c in ctxs], "stats": engine.kvbm.stats.to_dict(),
+            "tier_bytes": engine.kvbm.tier_bytes(), "dropped": engine.offload.dropped,
+            "batches": len(engine.offload.batches)}
+
+
+def kvbm_tier_block(kvbm, sh: int):
+    """A block's bytes in G2, else G3, without touching the hit counters."""
+    blk = kvbm.host.get(sh)
+    if blk is None and kvbm.disk is not None:
+        blk = kvbm.disk.get(sh)
+    return blk
+
+
+def kvbm_device_equal(engine, kvbm, shs, pages) -> int:
+    """Each tier block of ``shs`` bitwise equal to ``extract_pages`` of its
+    device page (packed bytes on fp8). Returns the blocks compared."""
+    from dynamo_tpu_torch.kvbm.offload import block_numpy
+
+    ids = torch.tensor(pages, device=DEVICE)
+    kb, vb = engine.fam.extract_pages(engine.k_pages, engine.v_pages, ids)
+    kb, vb = block_numpy(kb.cpu()), block_numpy(vb.cpu())
+    n = 0
+    for i, sh in enumerate(shs):
+        blk = kvbm_tier_block(kvbm, sh)
+        require(blk is not None, f"kvbm: block {sh:016x} in no tier")
+        require(np.array_equal(blk[0], kb[:, i]) and np.array_equal(blk[1], vb[:, i]),
+                f"kvbm: tier block {sh:016x} differs from its device page")
+        n += 1
+    return n
+
+
+async def kvbm_clear_g1(engine) -> None:
+    """The admin cache clear, honoured by the step thread; returns once G1
+    holds no cached page."""
+    engine.request_clear_cache()
+    for _ in range(2000):
+        if not engine._clear_cache_requested and engine.allocator.evictable_pages == 0:
+            return
+        await asyncio.sleep(0.005)
+    raise SmokeError("kvbm: G1 clear not honoured")
+
+
+def kvbm_batches_line(batches, label, card) -> None:
+    """The offload's drained batches: gather and D2H device times (CUDA
+    events on the compute and the copy stream), bytes, and the lag from the
+    drain to the last offer (host clock)."""
+    if not (batches and all(b["gather_ms"] is not None for b in batches)):
+        require(False, f"kvbm {label}: no timed offload batch")
+        return
+    mib = [b["bytes"] / 2**20 for b in batches]
+    g = [b["gather_ms"] for b in batches]
+    c = [b["copy_ms"] for b in batches]
+    lag = [1e3 * b["lag_s"] for b in batches]
+    big = max(range(len(batches)), key=lambda i: mib[i])
+    rate = sum(b["bytes"] for b in batches) / (sum(g) + sum(c)) / 1e6
+    print(f"kvbm {label} offload: {len(batches)} drained batches, {sum(mib):.1f} MiB; "
+          f"extract (gather) mean {sum(g) / len(g):.3f} ms, D2H mean {sum(c) / len(c):.3f} ms, "
+          f"{rate:.2f} GB/s over both; largest batch {mib[big]:.1f} MiB in {g[big]:.3f} + "
+          f"{c[big]:.3f} ms = {batches[big]['bytes'] / (g[big] + c[big]) / 1e6:.2f} GB/s; "
+          f"lag drain-to-offer mean {sum(lag) / len(lag):.1f} ms, max {max(lag):.1f} ms "
+          f"(host) [{card}]")
+
+
+def kvbm_onboard_split(engine, kvbm, shs, g3, card, label) -> None:
+    """Host ms per onboarded block, split into the tier get with its
+    checksum verify (``shs`` from G2; ``g3``, other blocks, from G3), the
+    stack, the H2D copy and the in-place insert (host clock, synchronised),
+    on the engine's own pools; the inserted pages read back bitwise."""
+    from dynamo_tpu_torch.kvbm.offload import block_tensor
+
+    n = len(shs)
+    t = {"get": [], "get_g3": [], "stack": [], "h2d": [], "insert": []}
+    for _ in range(3):
+        t0 = time.perf_counter()
+        blocks = kvbm.get_consecutive(shs)
+        t1 = time.perf_counter()
+        require(len(blocks) == n, f"kvbm {label}: {len(blocks)} of {n} blocks in the tiers")
+        ks = np.stack([b[0] for b in blocks], axis=1)
+        vs = np.stack([b[1] for b in blocks], axis=1)
+        t2 = time.perf_counter()
+        kd, vd = block_tensor(ks).to(DEVICE), block_tensor(vs).to(DEVICE)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        pages = [engine.allocator.alloc_page() for _ in range(n)]
+        ids = torch.tensor(pages, device=DEVICE)
+        t4 = time.perf_counter()
+        engine.fam.insert_pages(engine.k_pages, engine.v_pages, ids, kd, vd)
+        torch.cuda.synchronize()
+        t5 = time.perf_counter()
+        back = engine.fam.extract_pages(engine.k_pages, engine.v_pages, ids)
+        require(all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                    for a, b in zip(back, (kd, vd))),
+                f"kvbm {label}: inserted pages differ from the tier blocks")
+        engine.allocator.release(pages)
+        t6 = time.perf_counter()
+        for sh in g3:
+            require(kvbm.disk.get(sh) is not None, f"kvbm {label}: G3 read failed")
+        t7 = time.perf_counter()
+        for k, v in (("get", t1 - t0), ("stack", t2 - t1), ("h2d", t3 - t2),
+                     ("insert", t5 - t4)):
+            t[k].append(1e3 * v / n)
+        if g3:
+            t["get_g3"].append(1e3 * (t7 - t6) / len(g3))
+    mib = (ks[:, 0].nbytes + vs[:, 0].nbytes) / 2**20
+    g3_ms = f"{min(t['get_g3']):.3f}" if t["get_g3"] else "not measured (no block in G3)"
+    total = sum(min(t[k]) for k in ("get", "stack", "h2d", "insert"))
+    print(f"kvbm {label} onboard, host ms per block ({n} blocks of {mib:.3f} MiB, best of 3): "
+          f"G2 get + checksum {min(t['get']):.3f}, stack {min(t['stack']):.3f}, H2D "
+          f"{min(t['h2d']):.3f}, insert {min(t['insert']):.3f}; {total:.3f} in all "
+          f"({mib / total * 1.048576:.2f} GB/s); G3 get + checksum {g3_ms} [{card}]")
+
+
+def kvbm_g3_blocks(kvbm, prompts, n: int = 32) -> list[int]:
+    """Up to ``n`` wave-1 blocks held in G3."""
+    return [sh for p in prompts for sh in kvbm_hashes(p) if sh in kvbm.disk][:n]
+
+
+def kvbm_mla_roundtrip(card) -> None:
+    """deepseek-r1's latent cache at full width (2 layers, page 16), bf16
+    and per-row fp8: extract -> insert into other pages -> extract is
+    bitwise, the pools keep their storage, the v slot is the reference's
+    inert int8 [1, n]."""
+    from dynamo_tpu_torch.models.family import MlaFamily
+
+    spec, fam = deepseek_spec(2), MlaFamily()
+    g = torch.Generator(device=DEVICE).manual_seed(18)
+    src, dst = [3, 9, 17, 30], [1, 2, 5, 31]
+    for kv in ("bf16", "fp8"):
+        cache, v = fam.init_cache(spec, 33, 16, device=DEVICE, kv_dtype=kv)
+        if kv == "fp8":
+            cache.vals.view(torch.uint8).copy_(torch.randint(
+                0, 0x7F, cache.vals.shape, generator=g, device=DEVICE, dtype=torch.uint8))
+            cache.scale.copy_(torch.rand(cache.scale.shape, generator=g, device=DEVICE))
+            ptr = cache.vals.data_ptr()
+        else:
+            cache.copy_(torch.randn(cache.shape, generator=g, device=DEVICE))
+            ptr = cache.data_ptr()
+        kb, vb = fam.extract_pages(cache, v, torch.tensor(src, device=DEVICE))
+        require(vb.dtype == torch.int8 and tuple(vb.shape) == (1, len(src)),
+                f"kvbm mla {kv}: v slot {tuple(vb.shape)} {vb.dtype}")
+        fam.insert_pages(cache, v, torch.tensor(dst, device=DEVICE), kb, vb)
+        again, _ = fam.extract_pages(cache, v, torch.tensor(dst, device=DEVICE))
+        require((cache.vals if kv == "fp8" else cache).data_ptr() == ptr,
+                f"kvbm mla {kv}: the insert moved the cache")
+        require(torch.equal(again.view(torch.uint8), kb.view(torch.uint8)),
+                f"kvbm mla {kv}: extract -> insert -> extract is not bitwise")
+        print(f"kvbm mla {kv}: deepseek-r1 latent blocks {tuple(kb.shape)} {kb.dtype} "
+              f"({kb[:, 0].nbytes} B per block), v slot {tuple(vb.shape)} int8; extract -> "
+              f"insert -> extract bitwise, in place [{card}]")
+
+
+def kvbm_engine(spec, cfg, params, kvbm, label):
+    return new_engine(spec, dict(cfg, num_pages=KVBM_PAGES), label, params=params, kvbm=kvbm)
+
+
+def kvbm_waves(spec, cfg, params, prompts, wave2, kv_dir, kv_dtype, card,
+               single=None) -> dict:
+    """Waves 1-3 (and, with ``single``, the prompt alone onboarded vs
+    recomputed) on one KVBM engine of ``kv_dtype``; the checks on the
+    tiers' bytes run between the waves, the engine idle."""
+    import shutil
+
+    shutil.rmtree(kv_dir, ignore_errors=True)
+    label = f"kvbm {kv_dtype}"
+    want = kvbm_block_bytes(spec, kv_dtype)
+    g2, g3, w1, w2 = kvbm_budgets((prompts, wave2), want)
+    kvbm = kvbm_manager(kv_dir, g2, g3)
+    engine = kvbm_engine(spec, dict(cfg, kv_dtype=kv_dtype), params, kvbm, label)
+    block_bytes = engine.pool_bytes // (KVBM_PAGES + 1)  # one page of both pools
+    require(block_bytes == want, f"{label}: block {block_bytes} B, expected {want}")
+    print(f"{label}: G1 {KVBM_PAGES} pages, block {block_bytes} B; G2 {g2 / 2**20:.0f} MiB "
+          f"({g2 // block_bytes} blocks = wave 2's ~{w2} + 3/4 of wave 1's ~{w1}), G3 "
+          f"{g3 / 2**20:.0f} MiB under {kv_dir.relative_to(ROOT)}")
+    res: dict = {"engine": engine, "kvbm": kvbm, "block_bytes": block_bytes}
+
+    async def wave1(engine):
+        out = await kvbm_serve(engine, prompts)
+        n = 0
+        for p in prompts:
+            shs = kvbm_hashes(p)
+            pages = engine.allocator.match_prefix(shs)
+            n += kvbm_device_equal(engine, kvbm, shs[:len(pages)], pages)
+        out["compared"] = n
+        return out
+
+    async def wave2_(engine):
+        out = await kvbm_serve(engine, wave2)
+        left = sum(len(engine.allocator.match_prefix(kvbm_hashes(p))) for p in prompts)
+        require(left == 0, f"{label}: {left} wave-1 blocks still in G1 after wave 2")
+        return out
+
+    async def wave3(engine):
+        # in reverse order: in wave 1's order each G3 hit's promotion would
+        # push the next prompt's blocks out of G2 (an LRU walked in its own
+        # order), and every hit would come from G3
+        out = await kvbm_serve(engine, prompts[::-1])
+        for k in ("tokens", "ttft", "ids"):
+            out[k] = out[k][::-1]
+        by_id = {rid: (first, n) for rid, first, n in engine.onboards}
+        out["onboarded"] = [by_id.get(rid, (0, 0)) for rid in out["ids"]]
+        n = 0
+        for p, (first, cnt) in zip(prompts, out["onboarded"]):
+            shs = kvbm_hashes(p)[first: first + cnt]
+            pages = engine.allocator.match_prefix(kvbm_hashes(p))[first: first + cnt]
+            require(len(pages) == cnt, f"{label}: onboarded pages left G1")
+            n += kvbm_device_equal(engine, kvbm, shs, pages)
+        out["compared"] = n
+        return out
+
+    phases = [("wave1", wave1), ("wave2", wave2_), ("wave3", wave3)]
+    if kv_dtype == "fp8":
+        phases.append(("corrupt", lambda e: kvbm_corrupt(e, kvbm, prompts)))
+    if single is not None:
+        phases.append(("single", lambda e: kvbm_single(e, kvbm, single)))
+    res["out"] = serve_phases(engine, phases)
+    return res
+
+
+def kvbm_block_bytes(spec, kv_dtype: str) -> int:
+    """Bytes of one page of both pools: K and V, values and (fp8) scales."""
+    elems = spec.num_layers * spec.num_kv_heads * 16 * spec.head_dim
+    if kv_dtype == "fp8":
+        return 2 * (elems + spec.num_layers * spec.num_kv_heads * 2)
+    return 2 * elems * 2
+
+
+async def kvbm_corrupt(engine, kvbm, prompts):
+    """A wave-1 block re-offered with NaN bits in its scale tail (its
+    checksum stamped, so only the scale check sees it): the onboard
+    evicts it, counts a miss and the prompt re-prefills."""
+    from dynamo_tpu_torch.ops.quant import packed_block_ok
+
+    i = next(i for i, p in enumerate(prompts) if kvbm_hashes(p)[0] in kvbm.host)
+    sh = kvbm_hashes(prompts[i])[0]
+    await kvbm_clear_g1(engine)
+    k, v = kvbm.host.get(sh)
+    bad = np.array(k, copy=True)
+    bad[0, -2:] = np.array([0xC0, 0x7F], np.uint8)  # bf16 NaN, little-endian
+    kvbm.host.remove(sh)
+    kvbm.offer(sh, bad, v)
+    misses = kvbm.stats.onboard_misses
+    out = await kvbm_serve(engine, [prompts[i]])
+    again = kvbm.host.get(sh)
+    n, tail = bad.shape[-1], 2 * engine.k_pages.scale.shape[-1]
+    out.update(prompt=i, misses=kvbm.stats.onboard_misses - misses,
+               resealed=again is not None and packed_block_ok(again, n, tail),
+               onboarded=[(f, c) for rid, f, c in engine.onboards if rid == out["ids"][0]])
+    return out
+
+
+async def kvbm_single(engine, kvbm, prompt):
+    """One KVBM_SINGLE-token prompt alone, 2 tokens: TTFT onboarded from G2
+    (G1 cleared) against TTFT recomputed (G1 cleared and its blocks
+    removed from G2 and G3), KVBM_AB times each, in turns."""
+    shs = kvbm_hashes(prompt)
+    await kvbm_serve(engine, [prompt], 2)  # its blocks into G2
+    ttft = {"onboard": [], "recompute": []}
+    for mode in ("onboard", "recompute", "recompute", "onboard")[: 2 * KVBM_AB]:
+        await kvbm_clear_g1(engine)
+        if mode == "recompute":
+            for sh in shs:
+                kvbm.host.remove(sh)
+                kvbm.disk.remove(sh)
+        else:
+            require(all(sh in kvbm.host for sh in shs[:(len(prompt) - 1) // 16]),
+                    "kvbm single: the prompt's blocks are not all in G2")
+        out = await kvbm_serve(engine, [prompt], 2)
+        ttft[mode].append(out["ttft"][0])
+    return ttft
+
+
+def kvbm_report(spec, params, prompts, r, kv_dtype, card, phase4_disp_ms) -> int:
+    """Checks and lines of one engine's waves. Returns its fused_decode
+    launches."""
+    out, L = r["out"], spec.num_layers
+    label = f"kvbm {kv_dtype}"
+    fp8 = kv_dtype == "fp8"
+    launches = 0
+    for name, o in out.items():
+        counts, steps = o["counts"], o["steps"]
+        require(counts["fused_decode"] == L * steps == L * o["replays"],
+                f"{label} {name}: fused_decode {counts['fused_decode']} over {steps} steps, "
+                f"{o['replays']} replays")
+        require(counts["fused_decode/fp8"] == (counts["fused_decode"] if fp8 else 0),
+                f"{label} {name}: fused_decode in fp8 form {counts['fused_decode/fp8']}")
+        launches += counts["fused_decode"]
+    w1, w2, w3 = (out[k]["res"] for k in ("wave1", "wave2", "wave3"))
+    d3 = {k: w3["stats"][k] - w2["stats"][k] for k in w3["stats"]}
+    require(d3["onboard_hits_host"] > 0 and d3["onboard_hits_disk"] > 0,
+            f"{label} wave 3: hits {d3}")
+    require(w3["dropped"] == 0, f"{label}: {w3['dropped']} offload batches dropped")
+    agree = []
+    for i, p in enumerate(prompts):
+        same, tie = equal_to_first_near_tie(spec, params, p, w3["tokens"][i], w1["tokens"][i])
+        require(same >= tie, f"{label} wave 3 request {i}: parts from wave 1 at token {same}, "
+                             f"before the first reference near-tie at {tie}")
+        agree.append((same, tie))
+    onboarded = [16 * c for _f, c in w3["onboarded"]]
+    require(sum(onboarded) > 0, f"{label} wave 3 onboarded nothing")
+    for w, name in ((w1, "wave 1"), (w2, "wave 2"), (w3, "wave 3")):
+        o = out[name.replace(" ", "")]
+        disp = 1e3 * sum(o["times"]) / max(len(o["times"]), 1)
+        print(f"{label} {name}: {len(w['tokens'])} requests x {SERVE_TOKENS} tokens in "
+              f"{w['wall']:.3f} s; TTFT mean {1e3 * sum(w['ttft']) / len(w['ttft']):.1f} ms, "
+              f"max {1e3 * max(w['ttft']):.1f} ms; dispatch-to-host mean {disp:.2f} ms over "
+              f"{len(o['times'])} dispatches; kvbm {w['stats']}; tier_bytes {w['tier_bytes']}; "
+              f"offload dropped {w['dropped']} [{card}]")
+    disp1 = 1e3 * sum(out["wave1"]["times"]) / len(out["wave1"]["times"])
+    print(f"{label}: wave 1 dispatch-to-host mean {disp1:.2f} ms with KVBM against phase 4's "
+          f"{phase4_disp_ms:.2f} ms without (the same 8 prompts) [{card}]")
+    print(f"{label} wave 3: onboarded tokens per request {onboarded} (G2 hits "
+          f"{d3['onboard_hits_host']}, G3 hits {d3['onboard_hits_disk']}, misses "
+          f"{d3['onboard_misses']}); streams equal to wave 1's up to (first difference, "
+          f"first near-tie) {agree}; tier blocks bitwise equal to their device pages: "
+          f"{w1['compared']} after wave 1, {w3['compared']} onboarded after wave 3 [{card}]")
+    engine = r["engine"]
+    kvbm_batches_line(list(engine.offload.batches)[: w1["batches"]], f"{kv_dtype} wave 1", card)
+    if fp8:
+        c = out["corrupt"]["res"]
+        require(c["misses"] >= 1 and c["resealed"] and not c["onboarded"],
+                f"{label} corrupt scale: misses {c['misses']}, resealed {c['resealed']}, "
+                f"onboarded {c['onboarded']}")
+        same, tie = equal_to_first_near_tie(spec, params, prompts[c["prompt"]],
+                                            c["tokens"][0], w1["tokens"][c["prompt"]])
+        require(same >= tie, f"{label} corrupt scale: the re-prefilled stream parts at {same}")
+        print(f"{label} corrupt scale: request {c['prompt']}'s first block re-offered with a NaN "
+              f"scale: 1 miss, evicted, re-prefilled (TTFT {1e3 * c['ttft'][0]:.1f} ms), "
+              f"re-offloaded finite; stream equal to wave 1's up to ({same}, {tie}) [{card}]")
+    if "single" in out:
+        s = out["single"]["res"]
+        print(f"kvbm single {KVBM_SINGLE}-token prompt alone: TTFT onboarded from G2 "
+              f"{', '.join(f'{1e3 * x:.1f}' for x in s['onboard'])} ms against recomputed "
+              f"(G1, G2 and G3 cleared of it) {', '.join(f'{1e3 * x:.1f}' for x in s['recompute'])}"
+              f" ms [{card}]")
+    return launches
+
+
+def kvbm_restart(spec, cfg, params, prompts, w1_tokens, kv_dir, g2, g3, card) -> int:
+    """A new engine and a new KvBlockManager on the same G3 directory (its
+    index reloaded) serve one wave-1 prompt alone: it must onboard from G3.
+    Returns its fused_decode launches."""
+    kvbm = kvbm_manager(kv_dir, g2, g3)
+    require(len(kvbm.disk) > 0, "kvbm restart: the G3 index reloaded empty")
+    i = max((i for i, p in enumerate(prompts) if kvbm_hashes(p)[0] in kvbm.disk),
+            key=lambda i: len(prompts[i]))
+    engine = kvbm_engine(spec, dict(cfg, kv_dtype="bf16"), params, kvbm, "kvbm restart")
+    out = serve_phases(engine, [("restart", lambda e: kvbm_serve(e, [prompts[i]]))])["restart"]
+    drop_engine(engine)
+    del engine
+    L, o = spec.num_layers, out["res"]
+    require(out["counts"]["fused_decode"] == L * out["steps"] == L * out["replays"],
+            f"kvbm restart: fused_decode {out['counts']['fused_decode']} over {out['steps']} steps")
+    require(o["stats"]["onboard_hits_disk"] > 0, f"kvbm restart: no G3 hit ({o['stats']})")
+    same, tie = equal_to_first_near_tie(spec, params, prompts[i], o["tokens"][0], w1_tokens[i])
+    require(same >= tie, f"kvbm restart: the stream parts from wave 1's at {same}")
+    print(f"kvbm restart: a new engine and manager on the same G3 ({len(kvbm.disk)} blocks "
+          f"reloaded from its index) served request {i} ({len(prompts[i])} tokens) alone: G3 "
+          f"hits {o['stats']['onboard_hits_disk']}, TTFT {1e3 * o['ttft'][0]:.1f} ms; stream "
+          f"equal to wave 1's up to ({same}, {tie}) [{card}]")
+    return out["counts"]["fused_decode"]
+
+
+def kvbm_phase(spec, cfg, params, prompts, card, phase4_disp_ms) -> tuple[int, int]:
+    """Phase 18: the KVBM tiers on the phase-4 weights. Returns (bf16
+    fused_decode launches, fp8-form launches)."""
+    import shutil
+
+    t0 = time.perf_counter()
+    wave2 = kvbm_wave2_prompts(spec.vocab_size)
+    rng = np.random.default_rng(1819)
+    single = rng.integers(3, spec.vocab_size, KVBM_SINGLE).tolist()
+    launches = {}
+    try:
+        bdir = KVBM_DIR / "bf16"
+        r = kvbm_waves(spec, cfg, params, prompts, wave2, bdir, "bf16", card, single=single)
+        launches["bf16"] = kvbm_report(spec, params, prompts, r, "bf16", card, phase4_disp_ms)
+        kvbm_onboard_split(r["engine"], r["kvbm"], kvbm_hashes(single)[:31],
+                           kvbm_g3_blocks(r["kvbm"], prompts), card, "bf16")
+        g2, g3 = r["kvbm"].host.capacity_bytes, r["kvbm"].disk.capacity_bytes
+        w1_tokens = r["out"]["wave1"]["res"]["tokens"]
+        drop_engine(r["engine"])
+        r = None
+        launches["bf16"] += kvbm_restart(spec, cfg, params, prompts, w1_tokens, bdir, g2, g3,
+                                         card)
+        r = kvbm_waves(spec, cfg, params, prompts, wave2, KVBM_DIR / "fp8", "fp8", card)
+        launches["fp8"] = kvbm_report(spec, params, prompts, r, "fp8", card, phase4_disp_ms)
+        c = r["out"]["corrupt"]["res"]["prompt"]  # its blocks: re-offloaded to G2 last
+        kvbm_onboard_split(r["engine"], r["kvbm"],
+                           kvbm_hashes(prompts[c])[: (len(prompts[c]) - 1) // 16],
+                           kvbm_g3_blocks(r["kvbm"], prompts), card, "fp8")
+        drop_engine(r["engine"])
+        r = None
+        kvbm_mla_roundtrip(card)
+    finally:
+        shutil.rmtree(KVBM_DIR, ignore_errors=True)
+    print(f"phase 18: {time.perf_counter() - t0:.1f} s")
+    return launches["bf16"], launches["fp8"]
 
 
 async def http_call(port, method, path, body=None, raw=None, drop_after=None,
@@ -5447,6 +5948,13 @@ def main() -> int:
     # guided x spec
     guided_launches, guided_kv_launches = guided_phase(spec, cfg, params, prompts)
 
+    # the KVBM tiers on the same weights: write-through offload to host and
+    # disk, onboard at admission, a restart on the same disk tier, fp8
+    # blocks, MLA's latent blocks
+    p4_disp_ms = 1e3 * sum(default_out["times"]) / len(default_out["times"])
+    kvbm_launches, kvbm_fp8_launches = kvbm_phase(spec, cfg, params, prompts, card,
+                                                  p4_disp_ms)
+
     # the same weights served over HTTP by the one-process stack
     http_launches, http_stats = http_serve(spec, dict(cfg, kv_dtype="bf16"), params,
                                            prompts, default_out, bf16_tokens)
@@ -5483,11 +5991,11 @@ def main() -> int:
 
     launches = {"fused_decode": serve_launches["fused_decode"] + http_launches
                 + process_launches + overload_launches + guided_launches
-                + text_launches["fused_decode"],
+                + kvbm_launches + text_launches["fused_decode"],
                 "paged_attention_v3": unfused[0], "kv_write": unfused[2],
                 "kv_write/verify": spec_kv_launches + guided_kv_launches
                 + text_launches["kv_write/verify"],
-                "fused_decode/fp8": serve_fp8["fused_decode/fp8"],
+                "fused_decode/fp8": serve_fp8["fused_decode/fp8"] + kvbm_fp8_launches,
                 "paged_attention_v3/fp8": unfused_fp8[1],
                 "kv_write/fp8": unfused_fp8[3],
                 "kv_write/fp8-verify": spec_kv_fp8_launches,

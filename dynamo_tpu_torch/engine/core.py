@@ -43,9 +43,10 @@ queue at ``max_waiting`` (shedding a lower-priority entry in a
 higher-priority arrival's favour, else ``ServiceUnavailable``), and, with
 ``preemption``, pauses the newest batch stream for an interactive request
 that finds no free slot or no free pages. A paused stream re-enqueues
-prompt + generated with its seed pinned and resumes by re-prefill through
-the prefix cache (the reference also offloads its blocks to the KVBM host
-tier, which this package does not have yet). Tenant and priority come from
+prompt + generated with its seed pinned and resumes through the prefix
+cache; with KVBM its sealed blocks are force-offloaded to the host tier
+first (the depth filter bypassed), so the resume onboards them even after
+G1 evicted them. Tenant and priority come from
 the ``x-dyn-tenant`` / ``x-dyn-priority`` headers of the Context, or the
 request's ``tenant`` / ``priority`` fields. A resume prompt stamped with
 ``token_checksum`` by the migration operator is verified at intake
@@ -78,10 +79,20 @@ and verifies under [n, W, V] masks. It is never a preemption victim.
 truncated, violation, aborted) and each refusal (compile_error,
 unavailable).
 
-Not in this engine yet (see ROADMAP): KVBM and disagg,
-SPMD/meshes, multimodal, embeddings, telemetry and tracing, the fault
-sites other than ``engine.spec_verify``, ``engine.preempt`` and the
-``migration.resume`` corrupt site.
+KVBM (kvbm/, ``kvbm=`` a KvBlockManager): every sealed block is queued for
+write-through offload and drained in one batch per step, before any queued
+page can be released (``_drain_offload``: a gather on the compute stream,
+the device-to-host copy on a copy stream, the offers on the offload
+thread). At admission, blocks beyond the G1 prefix hit that live in
+G2/G3/G4 are onboarded into fresh pages in place (``onboard_from_tiers``)
+and sealed without re-offload; on an fp8 engine each onboarded block is
+validated first (``_validate_quant_blocks``, the ``engine.quant`` fault
+site), a bad one a miss.
+
+Not in this engine yet (see ROADMAP): disagg, SPMD/meshes, multimodal,
+embeddings, telemetry and tracing, the fault sites other than
+``engine.spec_verify``, ``engine.preempt``, ``engine.quant`` and the
+``migration.resume`` and ``kvbm.onboard`` corrupt sites.
 
 The engine is family-blind (models/family.py): a DeepSeek spec runs MLA
 (models/mla.py) through the same scheduler, prefix cache, KV events,
@@ -126,6 +137,7 @@ from dynamo_tpu_torch.engine.sampling import (
 from dynamo_tpu_torch.engine.spec import SPEC_TOKENS, SlotSpec
 from dynamo_tpu_torch.engine.tenancy import TenantScheduler
 from dynamo_tpu_torch.guided.runtime import GUIDED_REQUESTS, GrammarCompiler
+from dynamo_tpu_torch.kvbm.offload import HostBatch, OffloadEngine, block_tensor
 from dynamo_tpu_torch.kv_router.protocols import ForwardPassMetrics
 from dynamo_tpu_torch.models.family import get_family
 from dynamo_tpu_torch.models.llama import resolve_device
@@ -249,9 +261,21 @@ class InferenceEngine:
         device: str | torch.device | None = None,
         event_publisher=None,
         metrics_publisher=None,
+        kvbm=None,
         guided_vocab=None,
     ):
         self.spec = spec
+        # KVBM tiers (kvbm/manager.KvBlockManager): write-through offload
+        # of sealed blocks, onboard at admission
+        self.kvbm = kvbm
+        self.offload = None
+        if kvbm is not None:
+            self.offload = OffloadEngine(kvbm).start()
+        # (sequence_hash, page, block_index) sealed since the last drain
+        self._pending_offload: list[tuple[int, int, int]] = []
+        self._copy_stream = None  # the offload's device-to-host stream (CUDA)
+        # (request id, first block, blocks) per admission that onboarded
+        self.onboards: collections.deque = collections.deque(maxlen=4096)
         self.config = config or EngineConfig()
         cfg = self.config
         if self._prefill_chunk_max() % cfg.page_size:
@@ -400,6 +424,9 @@ class InferenceEngine:
             await asyncio.to_thread(self._thread.join, 10.0)
         if self._thread is None or not self._thread.is_alive():
             self.release_graphs()
+        if self.offload is not None:
+            # a blocking join (it may wait on an in-flight copy): off the loop
+            await asyncio.to_thread(self.offload.close)
         # the step thread is gone: flush the last KV events (bounded: a hub
         # that went away first retries its reconnect window), stop publishing
         for pub in (self.events, self.metrics):
@@ -698,6 +725,8 @@ class InferenceEngine:
                 # fail every in-flight request, then KEEP SERVING: one bad
                 # step must not brick the engine
                 log.exception("engine step failed; failing in-flight requests")
+                # queued offloads may name pages about to be released
+                self._pending_offload.clear()
                 self._fail_all("engine step failure")
                 time.sleep(0.05)
         self._fail_all("engine closed")
@@ -895,13 +924,17 @@ class InferenceEngine:
         2. process every in-flight burst and land every admission wave, so
            slot state is exact and no replay still reads the victim's
            pages (the bursts' record copies are what synchronise);
-        3. seal the victim's complete blocks into the prefix cache;
+        3. seal the victim's complete blocks into the prefix cache and,
+           with KVBM, offload every one of them (the depth filter
+           bypassed: the resume must be able to onboard them after G1
+           evicts them);
         4. release its pages and slot as a finish does (the next replay's
            staged row for the slot reads inactive and writes only trash
            page 0), and re-enqueue ``prompt + generated`` with the shrunk
            budget and the seed pinned, uncharged, in its batch lane: the
            client's stream pauses, then resumes through the normal
-           prefix-cache admission (greedy streams continue as unpaused).
+           prefix-cache and KVBM admission (greedy streams continue as
+           unpaused).
 
         Returns the freed slot index (also when the flush alone freed one,
         unless ``free_slot_ok`` is False: a page-pressure caller's own empty
@@ -929,6 +962,14 @@ class InferenceEngine:
         if self._slots[i] is not slot or slot.context.is_stopped:
             return None  # finished or cancelled during the flush
         self._maybe_seal(slot)
+        if self.offload is not None:
+            # the victim's sealed blocks go to the host tier whatever their
+            # depth: the resume must onboard them even after G1 evicts them
+            queued = {(s, p) for s, p, _b in self._pending_offload}
+            for bi, (pg, h) in enumerate(zip(slot.pages.pages, slot.pages.hashes)):
+                if h is not None and (h, pg) not in queued:
+                    self._pending_offload.append((h, pg, bi))
+        self._drain_offload()
         resume = self._build_resume_request(slot)
         self.preemptions[reason] = self.preemptions.get(reason, 0) + 1
         self._finish(i, slot, "preempted", emit=False)
@@ -1009,18 +1050,41 @@ class InferenceEngine:
             self._error(waiting, f"prefill failed: {e}")
             return None
 
+    def prefix_hit_tokens(self, token_ids: list[int]) -> int:
+        """Leading prompt tokens cached locally: G1 pages plus the KVBM
+        host and disk tiers the admission can onboard from (a policy
+        probe). Advisory and unlocked: called from the event loop while the
+        step thread moves pages, so the answer may be stale when used; the
+        admission checks again."""
+        seq = TokenBlockSequence.from_tokens(token_ids, self.config.page_size)
+        hashes = seq.sequence_hashes()
+        n = len(self.allocator.match_prefix(hashes))
+        if self.kvbm is not None:
+            while n < len(hashes) and hashes[n] in self.kvbm:
+                n += 1
+        return n * self.config.page_size
+
     def _acquire_prompt_pages(
         self, request_id: str, seq: TokenBlockSequence, needed_pages: int,
         n_tokens: int,
     ) -> SeqPages:
-        """Prefix-cache take + allocation to cover the prompt. At least one
-        token stays uncached (prefill needs the last position's logits).
-        Raises OutOfPages, holding nothing, if the pool is exhausted."""
+        """Prefix-cache take (G1, then the KVBM tiers' consecutive blocks
+        onboarded into fresh pages) + allocation to cover the prompt. At
+        least one token stays uncached (prefill needs the last position's
+        logits). Raises OutOfPages, holding nothing, if the pool is
+        exhausted."""
         hashes = seq.sequence_hashes()
         page_size = self.config.page_size
         cached = self.allocator.take_prefix(hashes)
         while cached and len(cached) * page_size >= n_tokens:
             self.allocator.release([cached.pop()])
+        onboard: list = []
+        if self.kvbm is not None:
+            limit = (n_tokens - 1) // page_size
+            wanted = hashes[len(cached): min(limit, len(hashes))]
+            onboard = self.kvbm.get_consecutive(wanted)
+            if onboard and self.kv_dtype == "fp8":
+                onboard = self._validate_quant_blocks(onboard, wanted)
         sp = SeqPages(request_id=request_id)
         sp.pages = list(cached)
         sp.hashes = [hashes[i] for i in range(len(cached))]
@@ -1032,6 +1096,18 @@ class InferenceEngine:
         except OutOfPages:
             self.allocator.release(sp.pages)
             raise
+        if onboard:
+            idxs = range(len(cached), len(cached) + len(onboard))
+            try:
+                self.onboard_from_tiers([sp.pages[i] for i in idxs], onboard)
+            except Exception:
+                self.allocator.release(sp.pages)
+                raise
+            # the content came FROM the tiers: sealed without re-offload
+            self._seal_prompt_blocks(sp, seq, start=len(cached),
+                                     end=len(cached) + len(onboard), offload=False)
+            sp.cached_prefix_pages = len(cached) + len(onboard)
+            self.onboards.append((request_id, len(cached), len(onboard)))
         return sp
 
     def _prefill(self, slot_idx: int, waiting: _Waiting):
@@ -1152,6 +1228,7 @@ class InferenceEngine:
         if end == len(p.token_ids):
             self._partial = None
             self._seal_prompt_blocks(p.sp, p.seq)
+            self._drain_offload()
             self._complete_admissions([_Admitted(
                 p.slot_idx, p.waiting, p.seq, p.sp, p.token_ids, p.max_tokens,
                 logits)])
@@ -1190,6 +1267,7 @@ class InferenceEngine:
                         p["slot_idx"], p["waiting"], p["seq"], p["sp"],
                         p["token_ids"], p["max_tokens"], logits[j],
                         pres[j] if pres else None))
+        self._drain_offload()
         return records
 
     def _prefill_dispatch(self, bucket: int, group: list[dict]) -> torch.Tensor:
@@ -1230,15 +1308,113 @@ class InferenceEngine:
         self._note_moe_dropped(dropped)
         return logits[: len(group)]
 
-    def _seal_prompt_blocks(self, sp: SeqPages, seq: TokenBlockSequence) -> None:
-        """Seal the prompt's complete, newly computed blocks into the
-        prefix cache."""
-        for i in range(sp.cached_prefix_pages, len(seq.blocks)):
+    def _seal_prompt_blocks(
+        self, sp: SeqPages, seq: TokenBlockSequence, start: int | None = None,
+        end: int | None = None, *, offload: bool = True,
+    ) -> None:
+        """Seal complete prompt blocks [start, end) (default: the newly
+        computed ones) into the prefix cache, queueing each for offload
+        unless ``offload`` is False (onboarded blocks)."""
+        start = sp.cached_prefix_pages if start is None else start
+        end = len(seq.blocks) if end is None else end
+        for i in range(start, end):
             blk = seq.blocks[i]
             self.allocator.seal_page(
                 sp.pages[i], blk.sequence_hash, blk.parent_sequence_hash
             )
             sp.hashes[i] = blk.sequence_hash
+            if offload:
+                self._queue_offload(blk.sequence_hash, sp.pages[i], i)
+
+    def _validate_quant_blocks(self, blocks: list, hashes: list) -> list:
+        """The fp8 onboard guard: a tier block whose payload length is wrong
+        or whose scale bytes decode non-finite would dequantize a whole page
+        to NaN/inf, so it (and every later block: an onboard prefix is
+        consecutive) is a tier miss, logged, and evicted from G2 and G3 (G4
+        is shared and left alone: a refetch validates here again).
+        ``engine.quant`` is the injectable fault site. Only the parts whose
+        pool is quantized are judged: an MLA block's inert v slot is not a
+        payload."""
+        from dynamo_tpu_torch.ops.quant import (
+            is_quant,
+            packed_block_ok,
+            packed_bytes_per_page,
+            packed_scale_bytes,
+        )
+
+        checks = [(packed_bytes_per_page(pool), packed_scale_bytes(pool))
+                  if is_quant(pool) else None
+                  for pool in (self.k_pages, self.v_pages)]
+        for i, blk in enumerate(blocks):
+            bad = None
+            try:
+                if FAULTS.enabled:
+                    FAULTS.fire_sync("engine.quant")
+            except Exception as e:  # noqa: BLE001 - injected corruption
+                bad = f"injected dequant corruption: {e}"
+            if bad is None:
+                for part, chk in zip(blk, checks):
+                    if chk is not None and not packed_block_ok((part,), chk[0], chk[1]):
+                        bad = "payload length or scale bytes invalid"
+                        break
+            if bad is not None:
+                log.error("kvbm quantized onboard: block %d/%d corrupt (%s); "
+                          "treating the remaining prefix as a miss",
+                          i, len(blocks), bad)
+                sh = hashes[i] if i < len(hashes) else None
+                if sh is not None:
+                    self.kvbm.host.remove(sh)
+                    if self.kvbm.disk is not None:
+                        self.kvbm.disk.remove(sh)
+                with self.kvbm._lock:
+                    self.kvbm.stats.onboard_misses += 1
+                return blocks[:i]
+        return blocks
+
+    def onboard_from_tiers(self, page_ids: list[int], blocks: list) -> None:
+        """Install tier ``blocks`` into device pages ``page_ids``, in place:
+        the host blocks stacked page-major (``[L, n, ...]``), one
+        host-to-device copy, the family's insert, all on the compute stream
+        ahead of the prefill that reads them."""
+        log.debug("kvbm onboard n=%d pages=%s", len(blocks), page_ids[:4])
+        kb = block_tensor(np.stack([b[0] for b in blocks], axis=1)).to(self.device)
+        vb = block_tensor(np.stack([b[1] for b in blocks], axis=1)).to(self.device)
+        ids = torch.tensor(page_ids, dtype=torch.int64).to(self.device)
+        self.fam.insert_pages(self.k_pages, self.v_pages, ids, kb, vb)
+
+    # -- KVBM offload (device -> host tiers) -------------------------------
+
+    def _queue_offload(self, sh: int, page: int, block_index: int) -> None:
+        if self.kvbm is not None and self.kvbm.should_offload(block_index):
+            self._pending_offload.append((sh, page, block_index))
+
+    def _drain_offload(self) -> None:
+        """One gather of every page sealed since the last drain into a new
+        device tensor, on the compute stream; the copy to the host runs on
+        the copy stream and lands in the offload thread (kvbm/offload.py).
+
+        MUST run before any queued page can be released or re-allocated
+        (callers: right after sealing, before a finish): the gather reads
+        the live pools, and only its place on the compute stream orders it
+        before a later write to a re-allocated page. Exactly the queued
+        pages are gathered (no padding to a bucket: nothing here
+        compiles)."""
+        if not self._pending_offload:
+            return
+        batch, self._pending_offload = self._pending_offload, []
+        ids = torch.tensor([p for _s, p, _i in batch], dtype=torch.int64)
+        t0 = None
+        if self.device.type == "cuda":
+            # from pinned memory, non-blocking: a pageable copy would make
+            # the step thread wait for the bursts in flight
+            ids = ids.pin_memory().to(self.device, non_blocking=True)
+            if self._copy_stream is None:
+                self._copy_stream = torch.cuda.Stream(self.device)
+            t0 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+        kb, vb = self.fam.extract_pages(self.k_pages, self.v_pages, ids)
+        self.offload.submit([s for s, _p, _i in batch],
+                            HostBatch(kb, vb, self._copy_stream, t0))
 
     def _sampling_params(self, req: dict) -> tuple[float, int, float, int]:
         """(temperature, top_k, top_p, seed) for a request, allocating the
@@ -1760,6 +1936,7 @@ class InferenceEngine:
         if released:
             self.allocator.release(released)
         self._maybe_seal(slot)
+        self._drain_offload()
         item: dict[str, Any] = {"token_ids": toks, "finish_reason": finish}
         if finish is not None:
             self._finish(slot_idx, slot, finish, emit=False)
@@ -2021,8 +2198,9 @@ class InferenceEngine:
                 else:
                     keep.append(ap)
             self._admit_waves = keep
-        # phase 1: per-slot emit counts, cache state, seals; before any
-        # finish releases pages
+        # phase 1: per-slot emit counts, cache state, seals, then the offload
+        # drain; all before any finish releases a page (a neighbour's
+        # finish could free, and a later alloc re-use, a just-sealed page)
         burst: dict[int, tuple[list[int], str | None]] = {}
         for i, slot in enumerate(self._slots):
             if slot is None or not active[i] or not self._slot_matches(i, batch):
@@ -2040,6 +2218,7 @@ class InferenceEngine:
                 # a parked spec slot (k 0) counts down to its next reprobe
                 slot.spec.on_tokens(len(toks))
             self._maybe_seal(slot)
+        self._drain_offload()
         # phase 2: stream tokens, finish slots
         for i, (toks, finish) in burst.items():
             slot = self._slots[i]
@@ -2086,7 +2265,8 @@ class InferenceEngine:
         return None
 
     def _maybe_seal(self, slot: _Slot) -> None:
-        """Seal pages whose block just completed into the prefix cache."""
+        """Seal pages whose block just completed into the prefix cache (and
+        queue them for offload)."""
         n_complete = slot.seq_len // self.config.page_size
         for i in range(n_complete):
             if (i < len(slot.pages.hashes) and slot.pages.hashes[i] is None
@@ -2097,6 +2277,7 @@ class InferenceEngine:
                     blk.parent_sequence_hash,
                 )
                 slot.pages.hashes[i] = blk.sequence_hash
+                self._queue_offload(blk.sequence_hash, slot.pages.pages[i], i)
 
     def _finish(
         self, slot_idx: int, slot: _Slot, reason: str,

@@ -30,10 +30,14 @@ without ``transformers``), as the reference does: its card names the
 directory, and the guided vocabulary is built from it.
 
 The default router mode is "kv", as the reference's: frontends route by
-prefix overlap from this worker's KV events (kv_router/). The reference's
-flags for features the port lacks raise NotImplementedError naming their
-item: disagg (with its prefill router), KVBM, SPMD and meshes, tenancy,
-multimodal. ``--spec ngram`` (or ``DYN_SPEC_MODE``) turns on speculative
+prefix overlap from this worker's KV events (kv_router/). ``--kvbm-host-mb
+N`` (with ``--kvbm-disk-mb`` / ``--kvbm-disk-dir`` and
+``--kvbm-remote-blocks``, or ``launch_engine_worker(kvbm_config=)``) gives
+the engine the KVBM tiers (kvbm/): host DRAM, local disk, and the hub's
+object store under the worker's namespace; the admin ``cache_status``
+reports their counters. The reference's flags for features the port lacks
+raise NotImplementedError naming their item: disagg (with its prefill
+router), SPMD and meshes, multimodal. ``--spec ngram`` (or ``DYN_SPEC_MODE``) turns on speculative
 decoding, with ``--spec-k-max`` and ``--spec-ngram-min/max``. The admin
 ``timeline`` op, which reads the flight recorder, answers an error naming item 13.
 """
@@ -93,6 +97,7 @@ async def launch_engine_worker(
     device: str | torch.device | None = None,
     params=None,
     model_path: str | None = None,
+    kvbm_config=None,  # kvbm.KvbmConfig: the KVBM tiers, None = off
 ) -> tuple[InferenceEngine, object]:
     """Build + register one aggregated engine worker in this process, on
     ``device`` (None = the GPU; no GPU raises), serving ``params`` (default:
@@ -133,7 +138,15 @@ async def launch_engine_worker(
                 TokenVocab.from_tokenizer, tok, spec.vocab_size)
         except Exception as e:  # noqa: BLE001
             log.warning("guided decoding disabled: vocab build failed (%s)", e)
-    engine = InferenceEngine(spec, cfg, params=params, device=device,
+    kvbm = None
+    if kvbm_config is not None:
+        from dynamo_tpu_torch.kvbm import KvBlockManager
+
+        # G4 lives in the hub's object store under this namespace, shared
+        # with every worker (of either package) in it
+        kvbm = KvBlockManager(kvbm_config, hub=drt.hub,
+                              loop=asyncio.get_running_loop(), namespace=namespace)
+    engine = InferenceEngine(spec, cfg, params=params, device=device, kvbm=kvbm,
                              guided_vocab=guided_vocab)
     if precompile:
         # capture every decode graph variant before registration, off the
@@ -188,7 +201,8 @@ async def launch_engine_worker(
                 "active_pages": engine.allocator.active_pages,
                 "cached_pages": engine.allocator.evictable_pages,
                 "free_pages": engine.allocator.free_pages,
-                "kvbm": None,
+                "kvbm": (engine.kvbm.stats.to_dict()
+                         if engine.kvbm is not None else None),
             }
         else:
             yield {"ok": False, "error": f"unknown op {op!r}"}
@@ -248,13 +262,11 @@ def _engine_config(args: argparse.Namespace) -> EngineConfig:
     in EngineConfig."""
     refused = [
         (args.mode != "aggregated", f"--mode {args.mode}: disaggregated serving "
-         "(ROADMAP Queue A item 10)"),
-        (args.kvbm_host_mb or args.kvbm_disk_mb or args.kvbm_disk_dir
-         or args.kvbm_remote_blocks, "--kvbm-*: KVBM (ROADMAP Queue A item 10)"),
+         "(ROADMAP Queue A item 10b)"),
         (args.prefill_component != PREFILL_COMPONENT or args.prefill_router_mode != "kv"
          or args.max_local_prefill_length != 128 or args.always_remote_prefill,
          "--prefill-* / --max-local-prefill-length / --always-remote-prefill: "
-         "disaggregated serving (ROADMAP Queue A item 10)"),
+         "disaggregated serving (ROADMAP Queue A item 10b)"),
         (args.mirror or args.coordinator_address or args.num_processes is not None
          or args.process_id is not None,
          "--mirror / --coordinator-address: SPMD multi-host (ROADMAP Queue A item 11)"),
@@ -290,6 +302,20 @@ def _engine_config(args: argparse.Namespace) -> EngineConfig:
                  else (env_cfg.tenant_quotas or "")),
         max_waiting=args.max_waiting,
         preemption=args.preemption,
+    )
+
+
+def _kvbm_config_from_args(args: argparse.Namespace):
+    """The KVBM tiers the ``--kvbm-*`` flags ask for (None: KVBM off)."""
+    if args.kvbm_host_mb <= 0:
+        return None
+    from dynamo_tpu_torch.kvbm import KvbmConfig
+
+    return KvbmConfig(
+        host_bytes=args.kvbm_host_mb * 1024 * 1024,
+        disk_bytes=args.kvbm_disk_mb * 1024 * 1024,
+        disk_dir=args.kvbm_disk_dir,
+        remote_max_blocks=args.kvbm_remote_blocks,
     )
 
 
@@ -330,6 +356,7 @@ async def _amain(args: argparse.Namespace, ecfg: EngineConfig) -> None:
             health=health,
             precompile=args.precompile,
             device=device,
+            kvbm_config=_kvbm_config_from_args(args),
         )
         # launches from here on: precompile's warm-up steps are not traffic
         base = launch_base(engine)
@@ -471,10 +498,14 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                    choices=["kv", "round_robin", "random"])
     p.add_argument("--max-local-prefill-length", type=int, default=128)
     p.add_argument("--always-remote-prefill", action="store_true")
-    p.add_argument("--kvbm-host-mb", type=int, default=0)
-    p.add_argument("--kvbm-disk-mb", type=int, default=0)
+    p.add_argument("--kvbm-host-mb", type=int, default=0,
+                   help="host-DRAM KV tier budget in MiB (0 = KVBM off)")
+    p.add_argument("--kvbm-disk-mb", type=int, default=0,
+                   help="disk KV tier budget in MiB (0 = no disk tier)")
     p.add_argument("--kvbm-disk-dir", default=None)
-    p.add_argument("--kvbm-remote-blocks", type=int, default=0)
+    p.add_argument("--kvbm-remote-blocks", type=int, default=0,
+                   help="G4 block cap in the hub object store (0 = off); "
+                        "shared across workers")
     p.add_argument("--spec", default=None, choices=["off", "ngram"])
     p.add_argument("--spec-k-max", type=int, default=0)
     p.add_argument("--spec-ngram-min", type=int, default=1)
@@ -498,7 +529,14 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--coordinator-address", default=None)
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if (args.kvbm_disk_mb > 0 or args.kvbm_disk_dir) and args.kvbm_host_mb <= 0:
+        p.error("--kvbm-disk-* requires --kvbm-host-mb > 0 (KVBM is off)")
+    if args.kvbm_disk_mb > 0 and not args.kvbm_disk_dir:
+        p.error("--kvbm-disk-mb requires --kvbm-disk-dir")
+    if args.kvbm_disk_dir and args.kvbm_disk_mb <= 0:
+        p.error("--kvbm-disk-dir requires --kvbm-disk-mb > 0")
+    return args
 
 
 if __name__ == "__main__":

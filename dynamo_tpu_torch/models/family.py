@@ -13,6 +13,11 @@ packed prefill and verify return ``(result, moe_dropped)``, the second an
 int32 device scalar the engine sums without a host read; the pools update
 in place. The MLA family's ``moe_dropped`` is always 0, as the
 reference's.
+
+KVBM page movement: ``extract_pages`` gathers whole pages into new tensors
+(packed ``uint8`` payloads on fp8 pools) and ``insert_pages`` writes them
+back IN PLACE and returns nothing: the engine never rebinds its pools,
+which its captured graphs read at their captured addresses.
 """
 
 from __future__ import annotations
@@ -75,6 +80,18 @@ class GqaFamily:
                                    temps, topk, topp, seeds, steps, n_steps=n_steps,
                                    n_logprobs=n_logprobs, allowed=allowed)
 
+    def extract_pages(self, k, v, page_ids):
+        """Blocks ``[L, n, KH, page, D]`` x2 (packed ``uint8 [L, n, X]`` x2
+        on fp8 pools)."""
+        from dynamo_tpu_torch.models import llama
+
+        return llama.extract_kv_pages(k, v, page_ids)
+
+    def insert_pages(self, k, v, page_ids, kb, vb) -> None:
+        from dynamo_tpu_torch.models import llama
+
+        llama.insert_kv_pages(k, v, page_ids, kb, vb)
+
 
 class MlaFamily(GqaFamily):
     """DeepSeek MLA adapter: the latent cache rides the ``k_pages`` slot,
@@ -115,6 +132,23 @@ class MlaFamily(GqaFamily):
         return self.m.decode_steps(spec, params, tokens, bts, lens, k, active,
                                    temps, topk, topp, seeds, steps, n_steps=n_steps,
                                    n_logprobs=n_logprobs, allowed=allowed)
+
+    def extract_pages(self, k, v, page_ids):
+        """Latent blocks ``[L, n, page, dc + dr]`` (packed ``uint8 [L, n,
+        X]`` on an fp8 latent pool) and the reference's inert v slot, int8
+        zeros ``[1, n]``, which tier payloads carry as the reference's do."""
+        import torch
+
+        from dynamo_tpu_torch.models import llama
+
+        blocks = llama.extract_pool_pages(k, page_ids)
+        return blocks, torch.zeros((1, page_ids.numel()), dtype=torch.int8,
+                                   device=blocks.device)
+
+    def insert_pages(self, k, v, page_ids, kb, vb) -> None:
+        from dynamo_tpu_torch.models import llama
+
+        llama.insert_pool_pages_(k, page_ids, kb)
 
 
 def get_family(spec: ModelSpec) -> Any:

@@ -5,7 +5,8 @@ MLP, or with routed experts (models/moe.py) when the spec has experts.
 ``nn.Module``s hold the weights (``LlamaParams``, names and ``[in, out]``
 orientation as in the JAX pytree, so ``x @ w``); plain functions on tensors
 mirror the JAX entry points: ``prefill_forward``, ``prefill_forward_batch``,
-``verify_forward``, ``decode_forward``, ``decode_steps`` and
+``verify_forward``, ``decode_forward``, ``decode_steps``,
+``extract_kv_pages`` / ``insert_kv_pages`` (KVBM page movement) and
 ``reference_forward``.
 ``decode_steps`` loops ``decode_step_``, one model step over fixed tensors
 (``StepTensors``), which the engine's CUDA graphs capture
@@ -44,7 +45,9 @@ from dynamo_tpu_torch.ops.attention import (
 from dynamo_tpu_torch.ops.quant import (
     QuantPool,
     init_quant_pool,
+    insert_packed_,
     is_quant,
+    pack_pages,
     quant_page_tiles,
 )
 
@@ -784,6 +787,45 @@ def run_steps(step, dev, tokens, block_tables, seq_lens, active, temperature,
     for _ in range(n_steps):
         step(t, sampled)
     return unpack_records(t.out[1:], B, n_logprobs)
+
+
+# ------------------------------------------------------- kv page movement
+
+
+def extract_pool_pages(pool, page_ids: torch.Tensor) -> torch.Tensor:
+    """Whole pages ``page_ids [n]`` of one pool as a new tensor: ``[L, n,
+    ...]`` in the pool's dtype, or the packed ``uint8 [L, n, X]`` of a
+    QuantPool (ops/quant.pack_pages). A read-only gather: the pool keeps
+    serving."""
+    if is_quant(pool):
+        return pack_pages(pool, page_ids)
+    return pool[:, page_ids.long()]
+
+
+def insert_pool_pages_(pool, page_ids: torch.Tensor, blocks: torch.Tensor) -> None:
+    """Write page-major ``blocks`` (as ``extract_pool_pages`` returns them)
+    into pages ``page_ids`` of the live pool, IN PLACE: the pool keeps its
+    storage, so the captured decode and verify graphs, which read it at its
+    captured address, see the new pages."""
+    if is_quant(pool):
+        insert_packed_(pool, page_ids, blocks)
+    else:
+        pool[:, page_ids.long()] = blocks
+
+
+def extract_kv_pages(k_pages, v_pages, page_ids: torch.Tensor):
+    """Gather whole pages for the KV tiers: ``[L, n, KH, page, D]`` x2, or
+    the packed ``uint8 [L, n, X]`` x2 of QuantPools (fp8 value bytes then
+    bf16 scale bytes per (layer, page), the reference's payload)."""
+    return extract_pool_pages(k_pages, page_ids), extract_pool_pages(v_pages, page_ids)
+
+
+def insert_kv_pages(k_pages, v_pages, page_ids: torch.Tensor, k_blocks, v_blocks) -> None:
+    """Scatter page-major blocks into the live pools in place (the
+    reference returns new, donated pools; here the pools' storage never
+    changes)."""
+    insert_pool_pages_(k_pages, page_ids, k_blocks)
+    insert_pool_pages_(v_pages, page_ids, v_blocks)
 
 
 # -------------------------------------------------------------- reference

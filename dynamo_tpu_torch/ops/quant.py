@@ -28,7 +28,12 @@ other. Prefill quantizes whole page tiles with ``head_axes=(2,)``.
 
 Values are read and written through ``uint8`` views: PyTorch has no
 gather or scatter kernel for ``float8_e4m3fn`` on every device.
-Not here yet: the KVBM block packing (the KVBM slice).
+
+The KVBM block codec (``pack_pages`` / ``unpack_pages`` /
+``packed_block_ok``) carries whole quantized pages as ONE ``uint8 [L, n,
+X]`` payload per pool: per (layer, page) the fp8 value bytes, then the bf16
+scale bytes, for either scale layout. Packing and unpacking are pure byte
+reinterpretation: no page takes a dequantize-requantize round trip.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from __future__ import annotations
 import os
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 FP8_DTYPE = torch.float8_e4m3fn
@@ -233,3 +239,78 @@ def gather_dequant_rows(
     rows = dequant(vals, pool_l.scale[bt].float()[..., None])
     *lead, P, page, D = rows.shape
     return rows.reshape(*lead, P * page, D)
+
+
+# -------------------------------------------------------- KVBM block codec
+
+
+def packed_bytes_per_page(pool: QuantPool) -> int:
+    """Per-(layer, page) payload bytes of a packed tier block."""
+    vals_n = 1
+    for d in pool.vals.shape[2:]:
+        vals_n *= d
+    return vals_n * pool.vals.element_size() + packed_scale_bytes(pool)
+
+
+def packed_scale_bytes(pool: QuantPool) -> int:
+    """Per-(layer, page) scale-tail bytes of a packed tier block: the suffix
+    of ``packed_bytes_per_page`` that ``packed_block_ok`` decodes."""
+    scale_n = 1
+    for d in pool.scale.shape[2:]:
+        scale_n *= d
+    return scale_n * pool.scale.element_size()
+
+
+def pack_pages(pool: QuantPool, page_ids: torch.Tensor) -> torch.Tensor:
+    """Whole pages ``page_ids [n]`` of both tensors as ONE ``uint8 [L, n,
+    X]``: fp8 value bytes then bf16 scale bytes per (layer, page), the
+    reference's byte order."""
+    idx = page_ids.long()
+    L, n = pool.vals.shape[0], idx.numel()
+    vb = pool.vals.view(torch.uint8)[:, idx].reshape(L, n, -1)
+    sb = pool.scale[:, idx].reshape(L, n, -1).view(torch.uint8)
+    return torch.cat([vb, sb], dim=-1)
+
+
+def unpack_pages(
+    packed: torch.Tensor,  # [L, n, X] uint8
+    vals_tail: tuple[int, ...],  # pool.vals.shape[2:]
+    scale_tail: tuple[int, ...],  # pool.scale.shape[2:]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Inverse of ``pack_pages``: (values as ``uint8 [L, n, *vals_tail]``,
+    the fp8 bytes, and scales ``bf16 [L, n, *scale_tail]``)."""
+    L, n, _X = packed.shape
+    vn = 1
+    for d in vals_tail:
+        vn *= d
+    vals = packed[:, :, :vn].reshape((L, n) + tuple(vals_tail))
+    scale = packed[:, :, vn:].contiguous().view(SCALE_DTYPE)
+    return vals, scale.reshape((L, n) + tuple(scale_tail))
+
+
+def insert_packed_(pool: QuantPool, page_ids: torch.Tensor, packed: torch.Tensor) -> None:
+    """Write packed blocks into pages ``page_ids`` of both tensors, in
+    place (the pools keep their storage)."""
+    vals, scale = unpack_pages(packed, tuple(pool.vals.shape[2:]),
+                               tuple(pool.scale.shape[2:]))
+    idx = page_ids.long()
+    pool.vals.view(torch.uint8)[:, idx] = vals
+    pool.scale[:, idx] = scale
+
+
+def packed_block_ok(block: tuple, expect_nbytes: int, scale_tail_bytes: int) -> bool:
+    """Host-side check of ONE tier block's parts before onboard: ``uint8 [L,
+    X]`` with the expected length and FINITE scales (a corrupt scale would
+    dequantize a whole page to NaN/inf). The bf16 scale tail decodes as its
+    bits shifted into the top half of an f32."""
+    for part in block:
+        arr = np.asarray(part)
+        if arr.dtype != np.uint8 or arr.ndim != 2:
+            return False
+        if arr.shape[-1] != expect_nbytes:
+            return False
+        tail = np.ascontiguousarray(arr[:, expect_nbytes - scale_tail_bytes:])
+        f32 = (tail.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+        if not np.isfinite(f32).all():
+            return False
+    return True

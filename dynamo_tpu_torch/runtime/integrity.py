@@ -1,14 +1,20 @@
 """End-to-end integrity stamps: the part of dynamo_tpu/runtime/integrity.py
-the port uses (the migration operator's resume-prompt checksum, verified at
-the engine's intake; the ``corrupt`` chaos hook the SDC canary and the
-resume check run their tokens through; the failure counter and its
-exposition).
+the port uses (the KV block checksum every KVBM tier verifies on onboard;
+the migration operator's resume-prompt checksum, verified at the engine's
+intake; the ``corrupt`` chaos hook the SDC canary and the resume check run
+their tokens through; the failure counter and its exposition).
 
-A failed check raises :class:`IntegrityError`, a ``StreamError`` subclass,
-so it rides the migration operator's retry path: the operator re-drives
-from its pristine copy instead of an engine prefilling a poisoned prompt.
-Failures are counted per path and exported on every /metrics surface as
-``dynamo_integrity_failures_total{path}``.
+``kv_checksum`` is a chained ``zlib.crc32`` over byte-like parts, zero-copy
+over contiguous numpy blocks, so a block's value is the same in both
+packages for the same bytes (a bf16 block the port carries as its
+``uint16`` bits hashes like the reference's ``bfloat16`` array).
+
+A failed check raises :class:`IntegrityError`, a ``StreamError`` subclass:
+on a KVBM onboard the manager catches it and reports a tier miss (the
+engine re-prefills, never decodes the poisoned block); on a resume prompt
+it rides the migration operator's retry path, which re-drives from its
+pristine copy. Failures are counted per path and exported on every
+/metrics surface as ``dynamo_integrity_failures_total{path}``.
 """
 
 from __future__ import annotations
@@ -31,6 +37,41 @@ _lock = threading.Lock()
 _failures: dict[str, int] = {}
 
 
+def kv_checksum(*parts) -> int:
+    """Chained CRC-32 over byte-like parts (bytes, memoryview, numpy arrays
+    through their buffer). A contiguous array hashes through a flattened
+    memoryview without a copy; a strided view takes one materializing copy
+    (the same bytes as its contiguous layout). None parts are skipped."""
+    crc = 0
+    for p in parts:
+        if p is None:
+            continue
+        if isinstance(p, (bytes, bytearray, memoryview)):
+            mv = memoryview(p)
+        else:
+            try:
+                mv = memoryview(p).cast("B")
+            except TypeError:
+                mv = memoryview(p.tobytes())
+        crc = zlib.crc32(mv, crc)
+    return crc & 0xFFFFFFFF
+
+
+def verify_checksum(expected, *parts, path: str) -> None:
+    """Verify ``parts`` against ``expected``; raise IntegrityError (and
+    count the failure on ``path``) on a mismatch. ``expected`` None (an
+    unstamped payload) verifies trivially."""
+    if expected is None:
+        return
+    actual = kv_checksum(*parts)
+    if actual != int(expected):
+        integrity_failure(path)
+        raise IntegrityError(
+            f"KV payload checksum mismatch on {path}: "
+            f"expected {int(expected):#010x}, got {actual:#010x}"
+        )
+
+
 def token_checksum(token_ids) -> int:
     """Checksum over a token-id sequence (migration resume payloads).
     Order- and value-sensitive, independent of list/tuple container."""
@@ -41,7 +82,8 @@ def token_checksum(token_ids) -> int:
 
 
 def integrity_failure(path: str) -> None:
-    """Count one checksum failure on ``path`` (migration.resume here)."""
+    """Count one checksum failure on ``path`` (kvbm.host, kvbm.disk,
+    kvbm.remote, migration.resume)."""
     with _lock:
         _failures[path] = _failures.get(path, 0) + 1
 

@@ -386,11 +386,12 @@ async def test_sigkill_mid_stream_migrates_to_the_survivor(deployment):
 
 
 _REFUSED_FLAGS = {
-    "mode-prefill": (["--mode", "prefill"], "item 10"),
-    "mode-decode": (["--mode", "decode"], "item 10"),
-    "kvbm": (["--kvbm-host-mb", "64"], "item 10"),
-    "prefill-component": (["--prefill-component", "p2"], "item 10"),
-    "always-remote-prefill": (["--always-remote-prefill"], "item 10"),
+    "mode-prefill": (["--mode", "prefill"], "item 10b"),
+    "mode-decode": (["--mode", "decode"], "item 10b"),
+    # ported since (KVBM): builds its config
+    "kvbm": (["--kvbm-host-mb", "64"], None),
+    "prefill-component": (["--prefill-component", "p2"], "item 10b"),
+    "always-remote-prefill": (["--always-remote-prefill"], "item 10b"),
     "tp": (["--tp", "2"], "item 11"),
     "sp": (["--sp", "2"], "item 11"),
     "ep": (["--ep", "2"], "item 11"),
@@ -407,7 +408,7 @@ _REFUSED_FLAGS = {
     "mm-tokens": (["--mm-tokens-per-image", "4"], "item 12"),
     # --router-mode kv is ported (the default); the disagg prefill
     # router stays refused with disagg
-    "prefill-router-mode": (["--prefill-router-mode", "round_robin"], "item 10"),
+    "prefill-router-mode": (["--prefill-router-mode", "round_robin"], "item 10b"),
 }
 
 
@@ -417,11 +418,19 @@ def test_worker_flags_of_unported_features_raise(case):
     NotImplementedError naming their ROADMAP item, before any set-up. The
     flags of a feature ported since build the worker's engine config."""
     from dynamo_tpu_torch import cli
-    from dynamo_tpu_torch.engine.worker import _engine_config, parse_args
+    from dynamo_tpu_torch.engine.worker import (
+        _engine_config,
+        _kvbm_config_from_args,
+        parse_args,
+    )
 
     flags, item = _REFUSED_FLAGS[case]
     if item is None:
-        cfg = _engine_config(parse_args(["--device", "cpu", *flags]))
+        args = parse_args(["--device", "cpu", *flags])
+        kvbm = _kvbm_config_from_args(args)
+        assert (kvbm.host_bytes if kvbm else 0) == (
+            64 << 20 if "--kvbm-host-mb" in flags else 0)
+        cfg = _engine_config(args)
         assert cfg.spec_mode == ("ngram" if "--spec" in flags else "off")
         assert cfg.spec_k_max == (4 if "--spec-k-max" in flags else 8)
         assert {t: q.weight for t, q in cfg.tenants.items()} == (
