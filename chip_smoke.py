@@ -368,7 +368,37 @@ Phases, each of which must pass (any failure exits non-zero):
    fp8, extract -> insert -> extract bitwise with the inert v slot. Each
    measured line carries the card's name and power limit.
 
-Phases run in the order 1-8, 12, 13, 14, 18, 9, 10, 11, 15, 16, 17.
+19. disaggregation (after 11, once its workers are gone; phase 4's weights
+   drawn again): (a) a prefill and a decode worker in this process on the
+   in-memory hub, sharing the weights, the decode worker with
+   always_remote_prefill: phase 4's 8 prompts, 32 greedy tokens each,
+   through the decode worker's front door; every request ends "length"
+   after 32 tokens, the decode engine runs no prefill forward and the
+   prefill engine no decode step, the decode pool's sealed prompt pages
+   are bitwise equal to the exported blocks, fused_decode launches 32 times
+   per decode step, every stream equals phase 4's up to the first
+   reference near-tie (near-argmax both), every pull takes the in-process
+   route; TTFT against phase 4's, the gather ms per export, the step
+   thread's ms per resume and its split by piece, the bytes moved, the
+   decode dispatch-to-host while the prefill engine still ran and after;
+   (b) the same on fp8 pools
+   (packed blocks bitwise, against phase 8's streams); (c) ``cli hub``, a
+   ``--mode prefill`` and a ``--mode decode --always-remote-prefill``
+   worker (--precompile, phase 1's config) and ``cli frontend``: the 8
+   prompts as streamed completions ([DONE], "length", 32 tokens) and over
+   the TCP data plane (near-argmax), every pull on the CUDA IPC route with
+   0 route fallbacks; the decode worker again with
+   DYNAMO_DEVICE_TRANSFER=0, every pull on TCP; GB/s and TTFT by route
+   beside phase 11's, the resumes' split by piece, the decode workers'
+   dispatch-to-host (all bursts and those with a resume in between)
+   beside phase 11's workers'; the admin faults op's disagg.pull error and corrupt
+   rules each fall back to a local prefill whose stream equals the clean
+   one up to the first near-tie; the prefill worker ran 0 decode steps,
+   the decode workers 32 fused_decode launches per step; (d) deepseek-r1's
+   latent blocks (4 layers), bf16 and per-row fp8: extract -> export ->
+   TCP pull -> insert -> extract bitwise, the int8 v slot under v_dtype.
+
+Phases run in the order 1-8, 12, 13, 14, 18, 9, 10, 11, 19, 15, 16, 17.
 
 Prints, before the last line, the card line and one JSON object with every
 kernel's measurements; the last line is
@@ -3922,14 +3952,15 @@ class Child:
     """One ``python3 -m dynamo_tpu_torch.cli`` process (a fresh interpreter,
     never a fork of this CUDA process); its output lines land in a queue."""
 
-    def __init__(self, *args):
+    def __init__(self, *args, env=None):
         import queue
         import threading
 
         self.name = args[0]
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "dynamo_tpu_torch.cli", *args], cwd=ROOT,
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=None if env is None else {**os.environ, **env})
         self.lines: queue.Queue = queue.Queue()
         self.seen: list[str] = []
         threading.Thread(target=self._pump, daemon=True).start()
@@ -3993,7 +4024,8 @@ def process_phase(spec, cfg, prompts, default_tokens, http_stats, device=None) -
     8 prompts through the frontend again after the TCP set, and to the
     survivor alone; then every child
     SIGTERM'd within its deadline. Returns the workers'
-    fused_decode launches, which must be 32 per logged step."""
+    fused_decode launches, which must be 32 per logged step, and the
+    two-worker frontend set's client TTFT (mean, max; s)."""
 
     from dynamo_tpu_torch.frontend.tokenizer import MockTokenizer
     from dynamo_tpu_torch.models.family import get_family
@@ -4177,7 +4209,8 @@ def process_phase(spec, cfg, prompts, default_tokens, http_stats, device=None) -
           f"instance key left the hub ({out['left']} generate instance left), the next "
           f"completion went to the survivor; fused_decode launches {fused} = {L} x {steps} "
           f"steps over both workers ({[x['steps'] for x in logs]} steps, replays "
-          f"{[x['replays'] for x in logs]})")
+          f"{[x['replays'] for x in logs]}); decode dispatch-to-host per worker (pipelined, "
+          f"[dispatches, mean ms]) {[x['dispatch_ms'] for x in logs]}")
     h = out["health"]
     print(f"processes: health (--health-interval {HEALTH_INTERVAL_S:g} s, hermes + "
           f"deepseek_r1 cards): /ready 200 on both workers; canary latency (median of 5, "
@@ -4190,7 +4223,7 @@ def process_phase(spec, cfg, prompts, default_tokens, http_stats, device=None) -
           f"one-token prefill with no decode step (0 fused_decode launches)")
     print(f"processes: codec host time per coalesced frame of 8 token items "
           f"({len(body)} bytes): pack {pack_us:.2f} us, unpack {unpack_us:.2f} us")
-    return fused
+    return fused, (sum(ttft) / n, max(ttft), [x["dispatch_ms"] for x in logs])
 
 
 async def _drive_processes(spec, prompts, hub, port, workers, front):
@@ -5861,6 +5894,590 @@ def text_phase(card: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ----------------------------------------------------------- disaggregation
+
+def disagg_blocks_equal(dec, prompt, k, v) -> bool:
+    """The decode engine's sealed pages of ``prompt`` against the exported
+    blocks ``k``, ``v`` (their full blocks), bitwise."""
+    from dynamo_tpu_torch.tokens import TokenBlockSequence
+
+    pages = dec.allocator.match_prefix(
+        TokenBlockSequence.from_tokens(prompt, dec.config.page_size).sequence_hashes())
+    n = len(prompt) // dec.config.page_size
+    if len(pages) != n:
+        return False
+    kd, vd = dec.fam.extract_pages(dec.k_pages, dec.v_pages,
+                                   torch.tensor(pages, device=dec.device))
+    return torch.equal(kd, k[:, :n]) and torch.equal(vd, v[:, :n])
+
+
+def disagg_serve(spec, cfg, params, prompts, kv_dtype, want, base_ttft_ms, card) -> int:
+    """Phase 19 (a)/(b): a prefill and a decode worker in this process on
+    the in-memory hub, sharing ``params``, the decode worker with
+    ``always_remote_prefill`` and its graphs captured; the 8 prompts, 32
+    greedy tokens each, through the decode worker's front door. Returns the
+    fused_decode launches (all of the drive's: the prefill side launches
+    none)."""
+    from dynamo_tpu_torch.disagg.transfer import PULLS
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.worker import launch_engine_worker
+    from dynamo_tpu_torch.runtime.context import Context
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.runtime.hub import InMemoryHub
+
+    label = f"disagg {kv_dtype}"
+    L = spec.num_layers
+
+    async def drive():
+        drt = DistributedRuntime(InMemoryHub())
+        ecfg = EngineConfig(**cfg, kv_dtype=kv_dtype)
+        pre, _ = await launch_engine_worker(drt, model=spec.name, spec=spec, params=params,
+                                            device=DEVICE, engine_config=ecfg,
+                                            mode="prefill")
+        dec, _ = await launch_engine_worker(drt, model=spec.name, spec=spec, params=params,
+                                            device=DEVICE, engine_config=ecfg,
+                                            mode="decode", always_remote_prefill=True,
+                                            precompile=True)
+        exported = {}  # num_tokens -> (k, v) copies of the export
+        export = pre.transfer_source.export
+
+        def keep(kb, vb, **kw):
+            exported[kw["num_tokens"]] = (kb.clone(), vb.clone())
+            return export(kb, vb, **kw)
+
+        pre.transfer_source.export = keep
+        try:
+            await dec.frontdoor.wait_for_prefill_pool()
+            pulls0 = PULLS.snapshot()
+            marks0 = (dec.steps, dec._graphs.replays, dec.prefill_forwards,
+                      len(dec.decode_step_times), pre.steps)
+            # each decode burst's (dispatch, tokens on the host) on the
+            # host clock: the bursts that shared the card with a prefill
+            # forward of the prefill engine, and the others
+            spans = []
+            process = dec._process_burst
+
+            def timed(pending, _process=process):
+                _process(pending)
+                spans.append((pending["t0"], pending["t0"] + dec.decode_step_times[-1]))
+
+            dec._process_burst = timed
+            zero_counts()
+            t0 = time.perf_counter()
+
+            first_token = asyncio.Event()
+            handoffs = []  # host time of each relayed first token (its export done)
+
+            async def one(i):
+                t_sub, stamps, items = time.perf_counter(), [], []
+                async for item in dec.frontdoor.generate(make_request(prompts[i]), Context()):
+                    if item["token_ids"] and len(stamps) < 2:
+                        stamps.append(time.perf_counter() - t_sub)
+                        if len(stamps) == 1:
+                            handoffs.append(time.perf_counter())
+                        if i == 0:
+                            first_token.set()
+                    items.append(item)
+                return items, stamps
+
+            # as phase 4: the second sharer arrives once the first one's
+            # prompt is sealed (on both engines: its resume installs only
+            # the pages beyond the shared prefix)
+            tasks = {i: asyncio.ensure_future(one(i)) for i in range(len(prompts)) if i != 1}
+            await first_token.wait()
+            tasks[1] = asyncio.ensure_future(one(1))
+            res = [await tasks[i] for i in range(len(prompts))]
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            counts = read_counts()
+            pulls = PULLS.snapshot()
+            out = {"res": res, "wall": wall, "counts": counts,
+                   "steps": dec.steps - marks0[0], "replays": dec._graphs.replays - marks0[1],
+                   "prefills": dec.prefill_forwards - marks0[2],
+                   "times": list(dec.decode_step_times)[marks0[3]:],
+                   "pre_steps": pre.steps - marks0[4],
+                   "pulls": {r: pulls["pulls"][r] - pulls0["pulls"][r] for r in pulls["pulls"]},
+                   "route_fallbacks": pulls["route_fallbacks"] - pulls0["route_fallbacks"],
+                   "fallbacks": dec.disagg_fallbacks,
+                   "equal": [disagg_blocks_equal(dec, p, *exported[len(p)]) for p in prompts],
+                   "exports": list(pre.export_times), "resumes": list(dec.resume_times),
+                   "spans": spans, "last_handoff": max(handoffs),
+                   "active": (pre.allocator.active_pages, dec.allocator.active_pages)}
+            return out
+        finally:
+            await dec.close()
+            await pre.close()
+            await drt.close()
+            for eng in (dec, pre):
+                eng.release_graphs()
+                eng.params = eng.k_pages = eng.v_pages = None
+
+    o = asyncio.run(drive())
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    fp8 = kv_dtype == "fp8"
+    tokens, ttft, gaps = [], [], []
+    for i, (items, stamps) in enumerate(o["res"]):
+        toks = [t for x in items for t in x["token_ids"]]
+        require(items[-1]["finish_reason"] == "length" and len(toks) == SERVE_TOKENS,
+                f"{label} request {i}: {len(toks)} tokens, finish {items[-1]['finish_reason']}")
+        tokens.append(toks)
+        ttft.append(stamps[0])
+        gaps.append(stamps[1] - stamps[0])
+    require(o["prefills"] == 0, f"{label}: the decode engine ran {o['prefills']} prefills")
+    require(o["pre_steps"] == 0, f"{label}: the prefill engine ran {o['pre_steps']} steps")
+    require(o["pulls"] == {"local": len(prompts), "device": 0, "tcp": 0}
+            and o["route_fallbacks"] == 0 and o["fallbacks"] == 0,
+            f"{label}: pulls {o['pulls']}, route fallbacks {o['route_fallbacks']}, "
+            f"fallbacks {o['fallbacks']}")
+    require(all(o["equal"]), f"{label}: installed pages equal to the exports: {o['equal']}")
+    fused = o["counts"]["fused_decode"]
+    require(fused == L * o["steps"] and o["replays"] == o["steps"],
+            f"{label}: fused_decode {fused} over {o['steps']} steps, {o['replays']} replays")
+    require(o["counts"]["fused_decode/fp8"] == (fused if fp8 else 0),
+            f"{label}: {o['counts']['fused_decode/fp8']} fp8-form launches")
+    require(o["active"] == (0, 0), f"{label}: active pages after {o['active']}")
+    agree = []
+    for i, p in enumerate(prompts):
+        same, tie = equal_to_first_near_tie(spec, params, p, tokens[i], want[i])
+        require(same >= tie, f"{label} request {i}: parts from the aggregated stream at "
+                             f"token {same}, before the first reference near-tie at {tie}")
+        agree.append((same, tie))
+    gathers = [t[0].elapsed_time(t[1]) for t, _ms, _b in o["exports"] if t is not None]
+    export_host = [ms for _t, ms, _b in o["exports"]]
+    nbytes = sum(b for _t, _ms, b in o["exports"])
+    resumes = [ms for ms, _n, _split in o["resumes"]]
+    split = resume_split(o["resumes"])
+    disp = 1e3 * sum(o["times"]) / max(len(o["times"]), 1)
+    shared = [b - a for a, b in o["spans"] if a < o["last_handoff"]]
+    alone = [b - a for a, b in o["spans"] if a >= o["last_handoff"]]
+    n_tok = sum(len(t) for t in tokens)
+    print(f"{label}: {len(prompts)} requests through the decode worker's front door, "
+          f"{n_tok} tokens in {o['wall']:.3f} s = {n_tok / o['wall']:.1f} tok/s; TTFT mean "
+          f"{1e3 * sum(ttft) / len(ttft):.1f} ms, max {1e3 * max(ttft):.1f} ms (aggregated, "
+          f"the same prompts on one engine: mean {base_ttft_ms:.1f} ms); first to second token "
+          f"(pull, resume, first decode step) mean {1e3 * sum(gaps) / len(gaps):.1f} ms, max "
+          f"{1e3 * max(gaps):.1f} ms; decode "
+          f"dispatch-to-host mean {disp:.2f} ms over {len(o['times'])} dispatches; "
+          f"fused_decode {fused} = {L} x {o['steps']} steps, replays {o['replays']}; "
+          f"prefill forwards on the decode engine 0, decode steps on the prefill engine 0; "
+          f"pulls {o['pulls']} [{card}]")
+    print(f"{label}: per export the device span around the gather "
+          f"{sum(gathers) / max(len(gathers), 1):.3f} ms (max {max(gathers, default=0.0):.3f}; "
+          f"one process: the decode engine's work on the shared stream falls inside it), "
+          f"the step thread "
+          f"{sum(export_host) / len(export_host):.3f} ms of host time (gather enqueue + "
+          f"export); per resume the step thread {sum(resumes) / len(resumes):.3f} ms "
+          f"(max {max(resumes):.3f}; mean by piece {split}); {nbytes} bytes moved "
+          f"({nbytes / 2**20:.1f} MiB); installed pages bitwise equal to the exports "
+          f"({'packed fp8 blocks' if fp8 else 'bf16'}); streams equal to the aggregated "
+          f"ones up to (first difference, first near-tie) {agree} [{card}]")
+    print(f"{label}: decode dispatch-to-host (this engine is not pipelined: a resume runs "
+          f"between bursts) of the bursts dispatched before the last first token was "
+          f"relayed (the prefill engine's forwards on the same card) mean "
+          f"{1e3 * sum(shared) / max(len(shared), 1):.2f} ms over {len(shared)}, after it "
+          f"{1e3 * sum(alone) / max(len(alone), 1):.2f} ms over {len(alone)} [{card}]")
+    return fused
+
+
+def resume_split(resumes) -> dict:
+    """Mean host ms by piece of ``resume_times`` entries (total, pages,
+    {piece: ms})."""
+    if not resumes:
+        return {}
+    keys = resumes[0][2]
+    return {k: round(sum(r[2][k] for r in resumes) / len(resumes), 3) for k in keys}
+
+
+def disagg_pull_stats(status: dict, route: str) -> dict:
+    """A route's pulls from a worker's ``cache_status`` disagg records: the
+    bytes over the time some pull was in flight (the union of their
+    intervals: they overlap, and gaps between arrivals are not pull time),
+    and the mean split of one pull (ms)."""
+    recs = [r for r in status["records"] if r["route"] == route]
+    nbytes = sum(r["bytes"] for r in recs)
+    busy, end = 0.0, None
+    for r in sorted(recs, key=lambda r: r["start"]):
+        if end is None or r["start"] > end:
+            busy += r["end"] - r["start"]
+            end = r["end"]
+        elif r["end"] > end:
+            busy += r["end"] - end
+            end = r["end"]
+    keys = ("control", "open", "copy", "checksum", "total")
+    return {"n": len(recs), "bytes": nbytes, "span_ms": 1e3 * busy,
+            "gbs": nbytes / max(busy, 1e-9) / 1e9,
+            **{k: sum(r.get(k, 0.0) for r in recs) / max(len(recs), 1) for k in keys}}
+
+
+async def _disagg_drive(spec, prompts, hub, port, respawn):
+    """Phase 19 (c)'s traffic on this process's loop: the 8 prompts through
+    the frontend (device route), over the TCP data plane (their token ids),
+    then on a decode worker with DYNAMO_DEVICE_TRANSFER=0 (``respawn``), and
+    the faults on that worker."""
+    from dynamo_tpu_torch.runtime.config import RuntimeConfig
+    from dynamo_tpu_torch.runtime.context import Context
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.runtime.hub_client import RemoteHub
+    from dynamo_tpu_torch.runtime.push import PushRouter, RouterMode
+
+    drt = DistributedRuntime(await RemoteHub.connect(hub), RuntimeConfig(hub_address=hub))
+    out: dict = {}
+
+    async def admin(component, payload):
+        client = await drt.namespace("dynamo").component(component).endpoint(
+            "admin").client().start()
+        try:
+            (inst,) = await client.wait_for_instances(1, timeout=30)
+            async for item in client.call_instance(inst.instance_id, payload, Context()):
+                return item
+        finally:
+            await client.close()
+
+    async def clear():
+        for comp in ("prefill", "backend"):
+            await admin(comp, {"op": "clear_kv_blocks"})
+        t = time.perf_counter()
+        for comp in ("prefill", "backend"):
+            while (await admin(comp, {"op": "cache_status"}))["cached_pages"]:
+                require(time.perf_counter() - t < 10, "disagg processes: caches not cleared")
+                await asyncio.sleep(0.02)
+
+    async def until_model():
+        t = time.perf_counter()
+        while True:
+            status, body, _ = await http_call(port, "GET", "/v1/models")
+            keys = await drt.hub.get_prefix("v1/instances/dynamo/backend/generate/")
+            if status == 200 and [m["id"] for m in json.loads(body)["data"]] == [spec.name] \
+                    and len(keys) == 1:
+                return
+            require(time.perf_counter() - t < 60, "disagg processes: no decode worker listed")
+            await asyncio.sleep(0.1)
+
+    async def frontend_set():
+        t = time.perf_counter()
+        streams = await asyncio.gather(*(http_call(port, "POST", "/v1/completions", {
+            "model": spec.name, "prompt": p, "max_tokens": SERVE_TOKENS, "ignore_eos": True,
+            "stream": True, "stream_options": {"include_usage": True}}) for p in prompts))
+        return streams, (t, time.perf_counter())
+
+    async def tcp_tokens(ps):
+        router = await PushRouter.from_endpoint(
+            drt.namespace("dynamo").component("backend").endpoint("generate"),
+            RouterMode.ROUND_ROBIN)
+        try:
+            await router.client.wait_for_instances(1, timeout=30)
+
+            async def one(p):
+                return [t async for item in router.generate(make_request(p), Context())
+                        for t in item["token_ids"]]
+
+            return await asyncio.gather(*(one(p) for p in ps))
+        finally:
+            await router.client.close()
+
+    try:
+        await until_model()
+        # the token ids first: they also warm both workers before the timed
+        # sets (a worker's first traffic pays its first-use costs)
+        await clear()
+        out["tokens"] = await tcp_tokens(prompts)
+        await clear()
+        out["device"], out["device_span"] = await frontend_set()
+        out["device_status"] = (await admin("backend", {"op": "cache_status"}))["disagg"]
+        # the same decode worker again with DYNAMO_DEVICE_TRANSFER=0, warmed
+        # by one request
+        out["launches_a"] = await asyncio.to_thread(respawn)
+        await until_model()
+        await clear()
+        await tcp_tokens(prompts[:1])
+        await clear()
+        out["tcp"], out["tcp_span"] = await frontend_set()
+        out["tcp_status"] = (await admin("backend", {"op": "cache_status"}))["disagg"]
+        out["pre_status"] = (await admin("prefill", {"op": "cache_status"}))["disagg"]
+        k = 0
+        await clear()
+        (out["clean"],) = await tcp_tokens([prompts[k]])
+        for fault in ("disagg.pull:error@1x1", "disagg.pull:corrupt=1x1"):
+            await clear()
+            snap = await admin("backend", {"op": "faults", "spec": fault})
+            require(snap["ok"], f"disagg processes: faults op {snap}")
+            (out[fault],) = await tcp_tokens([prompts[k]])
+            out[fault + " trips"] = (await admin("backend", {"op": "faults"}))["trips"]
+            await admin("backend", {"op": "faults", "spec": ""})
+        out["fault_status"] = (await admin("backend", {"op": "cache_status"}))["disagg"]
+    finally:
+        await drt.close()
+    return out
+
+
+def disagg_processes(spec, cfg, prompts, p11_ttft, card, device=None) -> int:
+    """Phase 19 (c): ``cli hub``, ``cli worker --mode prefill --precompile``,
+    ``cli worker --mode decode --always-remote-prefill --precompile`` (phase
+    1's config, the seeded weights), ``cli frontend``; then the decode worker
+    again with DYNAMO_DEVICE_TRANSFER=0 and the disagg.pull faults. Returns
+    the decode workers' fused_decode launches."""
+    from dynamo_tpu_torch.models.family import get_family
+
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = ["--device", device] if device else []
+    flags = ["--page-size", str(cfg["page_size"]), "--num-pages", str(cfg["num_pages"]),
+             "--max-pages-per-seq", str(cfg["max_pages_per_seq"]),
+             "--max-decode-slots", str(cfg["max_decode_slots"]), "--precompile", *dev]
+    children: list[Child] = []
+    L, n = spec.num_layers, len(prompts)
+    t0 = time.perf_counter()
+
+    def decode_worker(env=None):
+        w = Child("worker", "--hub", hub, "--model", spec.name, "--mode", "decode",
+                  "--always-remote-prefill", *flags, env=env)
+        children.append(w)
+        w.wait_line("ENGINE_READY", PROC_START_S)
+        return w
+
+    logs = []
+
+    def respawn():
+        require(dec.stop() == 0, f"decode worker exited non-zero: {dec.seen[-8:]}")
+        logs.append(json.loads(dec.logged("ENGINE_LAUNCHES ").split(" ", 1)[1]))
+        return logs[-1]
+
+    try:
+        hub_proc = Child("hub", "--port", "0")
+        children.append(hub_proc)
+        hub = hub_proc.wait_line("DYNAMO_HUB=", 60).split("=", 1)[1]
+        pre = Child("worker", "--hub", hub, "--model", spec.name, "--mode", "prefill", *flags)
+        children.append(pre)
+        front = Child("frontend", "--hub", hub, "--port", "0", "--host", "127.0.0.1")
+        children.append(front)
+        port = int(front.wait_line("DYNAMO_HTTP=", 60).rsplit(":", 1)[1])
+        pre.wait_line("ENGINE_READY", PROC_START_S)
+        dec = decode_worker()
+        t_ready = time.perf_counter() - t0
+
+        def respawn_tcp():
+            nonlocal dec
+            launches = respawn()
+            dec = decode_worker({"DYNAMO_DEVICE_TRANSFER": "0"})
+            return launches
+
+        out = asyncio.run(_disagg_drive(spec, prompts, hub, port, respawn_tcp))
+        respawn()
+        require(pre.stop() == 0, f"prefill worker exited non-zero: {pre.seen[-8:]}")
+        pre_log = json.loads(pre.logged("ENGINE_LAUNCHES ").split(" ", 1)[1])
+        for child in (front, hub_proc):
+            require(child.stop() == 0, f"{child.name} exited non-zero: {child.seen[-8:]}")
+    finally:
+        for child in children:
+            if child.proc.poll() is None:
+                child.proc.kill()
+                child.proc.wait(30)
+
+    def frontend_ttft(streams, label):
+        """Client TTFT per stream, and the gap from the first chunk (the
+        relayed remote token) to the second (the pull, resume and first
+        decode step behind it)."""
+        ttft, gaps = [], []
+        for i, (status, body, times) in enumerate(streams):
+            ev = sse_events(body) if status == 200 else []
+            chunks = [e for e in ev[:-1] if e.get("choices")]
+            usage = ev[-2].get("usage") if len(ev) >= 2 else None
+            require(status == 200 and ev[-1] == "[DONE]" and chunks
+                    and chunks[-1]["choices"][0]["finish_reason"] == "length"
+                    and usage and usage["completion_tokens"] == SERVE_TOKENS,
+                    f"disagg processes {label} stream {i}: status {status}, last {ev[-3:]}")
+            ttft.append(times[0])
+            gaps.append(times[1] - times[0])
+        return ttft, gaps
+
+    dev_ttft, dev_gap = frontend_ttft(out["device"], "device")
+    tcp_ttft, tcp_gap = frontend_ttft(out["tcp"], "tcp")
+    ds, ts, fs = out["device_status"], out["tcp_status"], out["fault_status"]
+    require(ds["pulls"] == {"local": 0, "device": 2 * n, "tcp": 0}
+            and ds["route_fallbacks"] == 0 and ds["fallbacks"] == 0,
+            f"disagg processes: the device-route worker's pulls {ds['pulls']}, route "
+            f"fallbacks {ds['route_fallbacks']}, fallbacks {ds['fallbacks']}")
+    require(ts["pulls"] == {"local": 0, "device": 0, "tcp": n + 1}
+            and ts["route_fallbacks"] == 0 and ts["fallbacks"] == 0,
+            f"disagg processes: the DYNAMO_DEVICE_TRANSFER=0 worker's pulls {ts['pulls']}, "
+            f"route fallbacks {ts['route_fallbacks']}, fallbacks {ts['fallbacks']}")
+    require(fs["fallbacks"] == 2, f"disagg processes: {fs['fallbacks']} fallbacks after the "
+                                  "error and corrupt faults (want 2)")
+    require(out["disagg.pull:error@1x1 trips"].get("disagg.pull:error") == 1
+            and out["disagg.pull:corrupt=1x1 trips"].get("disagg.pull:corrupt") == 1,
+            f"disagg processes: fault trips {out['disagg.pull:error@1x1 trips']} "
+            f"{out['disagg.pull:corrupt=1x1 trips']}")
+    require(all(len(t) == SERVE_TOKENS for t in out["tokens"]),
+            f"disagg processes: data-plane streams of {[len(t) for t in out['tokens']]} tokens")
+    require(pre_log["steps"] == 0, f"disagg processes: the prefill worker ran "
+                                   f"{pre_log['steps']} decode steps")
+    fused = 0
+    for x in logs:
+        f = x["launches"].get("fused_decode_attention", 0)
+        require(x["steps"] > 0 and (DEVICE != "cuda" or (f == L * x["steps"]
+                                                          and x["replays"] == x["steps"])),
+                f"disagg processes: a decode worker's launches {x}")
+        fused += f
+    # the streams under the reference forward, on the same seeded weights,
+    # drawn here now that the workers are gone
+    params = get_family(spec).init_params(spec, 0, device=DEVICE)
+    checks = [near_argmax_check(spec, params, prompts[i], out["tokens"][i]) for i in range(n)]
+    faults = {}
+    for fault in ("disagg.pull:error@1x1", "disagg.pull:corrupt=1x1"):
+        same, tie = equal_to_first_near_tie(spec, params, prompts[0], out[fault],
+                                            out["clean"])
+        require(same >= tie, f"disagg processes {fault}: the fallback stream parts from the "
+                             f"clean one at token {same}, before the near-tie at {tie}")
+        faults[fault] = (same, tie)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the timed sets' pulls: the last n records of each route
+    ds["records"], ts["records"] = ds["records"][-n:], ts["records"][-n:]
+    dv, tc = disagg_pull_stats(ds, "device"), disagg_pull_stats(ts, "tcp")
+    ps = out["pre_status"]
+    stage = ps["stage_ms"][-n:]
+    resumes = [ms for ms, _pages, _split in (ds["resumes"] + ts["resumes"])]
+    split = resume_split(ds["resumes"] + ts["resumes"])
+
+    def ms(xs):
+        return f"mean {1e3 * sum(xs) / len(xs):.1f} ms, max {1e3 * max(xs):.1f} ms"
+
+    def wall(span):
+        return span[1] - span[0]
+
+    def set_bursts(status, span, ttft):
+        """The timed set's decode bursts (the worker's monotonic clock is
+        this process's ``perf_counter``), split at the set's last first
+        chunk: before it the prefill worker still ran forwards on the card;
+        and those with a resume between dispatch and read."""
+        last_first = span[0] + max(ttft)
+        inside = [(t0, t1, r) for t0, t1, r in status["spans"] if span[0] <= t0 <= span[1]]
+
+        def mean(xs):
+            return [len(xs), round(1e3 * sum(xs) / len(xs), 3) if xs else None]
+
+        return {"before": mean([t1 - t0 for t0, t1, _r in inside if t0 < last_first]),
+                "after": mean([t1 - t0 for t0, t1, _r in inside if t0 >= last_first]),
+                "resume": mean([t1 - t0 for t0, t1, r in inside if r])}
+
+    dev_b = set_bursts(ds, out["device_span"], dev_ttft)
+    tcp_b = set_bursts(ts, out["tcp_span"], tcp_ttft)
+
+    def ms_list(xs):
+        return (f"mean {sum(xs) / len(xs):.3f} ms, max {max(xs):.3f} ms over {len(xs)}"
+                if xs else "none")
+
+    print(f"disagg processes: hub, prefill worker, decode worker ({spec.name}, --precompile) "
+          f"and frontend ready in {t_ready:.1f} s; {n} concurrent streamed completions x "
+          f"{SERVE_TOKENS} tokens through the frontend, each set on cleared caches: client "
+          f"TTFT device route {ms(dev_ttft)} ({wall(out['device_span']):.3f} s), TCP route "
+          f"{ms(tcp_ttft)} ({wall(out['tcp_span']):.3f} s); first to second chunk device route "
+          f"{ms(dev_gap)}, TCP route {ms(tcp_gap)}; phase 11 aggregated (2 workers) "
+          f"mean {1e3 * p11_ttft[0]:.1f} ms, max {1e3 * p11_ttft[1]:.1f} ms [{card}]")
+    print(f"disagg processes: device route (CUDA IPC), the timed set's {dv['n']} pulls, "
+          f"{dv['bytes']} bytes over {dv['span_ms']:.1f} ms with a pull in flight, "
+          f"{dv['gbs']:.2f} GB/s; per "
+          f"pull control {dv['control']:.3f} ms, handle opens {dv['open']:.3f} ms, on-card copy "
+          f"{dv['copy']:.3f} ms, total {dv['total']:.3f} ms (the pulls overlap) [{card}]")
+    print(f"disagg processes: the prefill worker's exports: gather {ms_list(ps['gather_ms'])} "
+          f"of device time, step thread {ms_list(ps['export_ms'])} of host time; the decode "
+          f"workers' resumes (step-thread host time) {ms_list(resumes)}, mean by piece "
+          f"{split} [{card}]")
+    print(f"disagg processes: decode dispatch-to-host ([dispatches, mean ms]; pipelined, as "
+          f"every worker) per decode worker (device route, TCP route) "
+          f"{[x['dispatch_ms'] for x in logs]}, of those a resume ran on the step thread "
+          f"between dispatch and read {[x['resume_dispatch_ms'] for x in logs]}; phase 11's "
+          f"aggregated workers {p11_ttft[2]}; in the timed sets, bursts dispatched before the "
+          f"set's last first chunk (the prefill worker's forwards on the card), after it, and "
+          f"with a resume inside: device route {dev_b}, TCP route {tcp_b} [{card}]")
+    print(f"disagg processes: TCP route (DYNAMO_DEVICE_TRANSFER=0 on the decode worker), the "
+          f"timed set's {tc['n']} pulls, {tc['bytes']} bytes over {tc['span_ms']:.1f} ms with a "
+          f"pull in flight, "
+          f"{tc['gbs']:.2f} GB/s; per pull control "
+          f"(request + the source's D2H and stamp + header) {tc['control']:.3f} ms, body reads "
+          f"{tc['copy']:.3f} ms, checksum {tc['checksum']:.3f} ms, total {tc['total']:.3f} ms; "
+          f"of the control, the source's serve-time D2H + stamp (host clock) mean "
+          f"{sum(stage) / max(len(stage), 1):.3f} ms [{card}]")
+    print(f"disagg processes: 0 route fallbacks; decode workers' fused_decode {fused} over "
+          f"{[x['steps'] for x in logs]} steps ({L} per step), prefill worker 0 decode steps; "
+          f"the data-plane streams near-argmax (worst gap {max(g for _, g in checks):.3f}); "
+          f"faults on the TCP-route worker: disagg.pull error and corrupt each fell back to a "
+          f"local prefill (fallbacks {fs['fallbacks']}, the corrupt payload caught by its "
+          f"checksum), streams equal to the clean run up to (first difference, first "
+          f"near-tie) {faults} [{card}]")
+    return fused
+
+
+def disagg_latent_roundtrip(card) -> None:
+    """Phase 19 (d): deepseek-r1's latent blocks at full width (4 layers,
+    page 16), bf16 and per-row fp8: extract -> export (on the card) -> TCP
+    pull -> insert into other pages -> extract is bitwise, the inert int8 v
+    slot crossing under ``v_dtype``."""
+    from dynamo_tpu_torch.disagg import transfer
+    from dynamo_tpu_torch.kvbm.offload import block_tensor
+    from dynamo_tpu_torch.models.family import MlaFamily
+
+    spec, fam = deepseek_spec(MLA_LAYERS), MlaFamily()
+    g = torch.Generator(device=DEVICE).manual_seed(19)
+    src, dst = [3, 9, 17, 30], [1, 2, 5, 31]
+
+    async def roundtrip(kb, vb):
+        source = await transfer.KvTransferSource().start()
+        transfer._LOCAL_SOURCES.pop(source.uid)  # the socket route
+        try:
+            params = source.export(kb, vb, num_tokens=4 * 16, page_size=16)
+            params.pop("cuda_ipc", None)  # one process: the TCP route
+            return await asyncio.to_thread(transfer.pull_kv_blocks, params)
+        finally:
+            await source.close()
+
+    for kv in ("bf16", "fp8"):
+        cache, v = fam.init_cache(spec, 33, 16, device=DEVICE, kv_dtype=kv)
+        if kv == "fp8":
+            cache.vals.view(torch.uint8).copy_(torch.randint(
+                0, 0x7F, cache.vals.shape, generator=g, device=DEVICE, dtype=torch.uint8))
+            cache.scale.copy_(torch.rand(cache.scale.shape, generator=g, device=DEVICE))
+        else:
+            cache.copy_(torch.randn(cache.shape, generator=g, device=DEVICE))
+        kb, vb = fam.extract_pages(cache, v, torch.tensor(src, device=DEVICE))
+        k2, v2, _meta = asyncio.run(roundtrip(kb, vb))
+        require(v2.dtype == np.int8 and v2.shape == (1, len(src)),
+                f"disagg mla {kv}: v slot {v2.shape} {v2.dtype}")
+        fam.insert_pages(cache, v, torch.tensor(dst, device=DEVICE),
+                         block_tensor(k2).to(DEVICE), block_tensor(v2).to(DEVICE))
+        again, _ = fam.extract_pages(cache, v, torch.tensor(dst, device=DEVICE))
+        require(torch.equal(again.view(torch.uint8), kb.view(torch.uint8)),
+                f"disagg mla {kv}: extract -> export -> TCP -> insert -> extract not bitwise")
+        print(f"disagg mla {kv}: deepseek-r1 ({MLA_LAYERS} layers) latent blocks "
+              f"{tuple(kb.shape)} {kb.dtype} and the int8 v slot {tuple(vb.shape)} over TCP "
+              f"(k {k2.dtype}, v {v2.dtype}); extract -> export -> pull -> insert -> extract "
+              f"bitwise [{card}]")
+
+
+def disagg_phase(spec, cfg, prompts, base, p11_ttft, card, device=None) -> tuple[int, int]:
+    """Phase 19: disaggregated serving. ``base`` holds phase 4's and phase
+    8's aggregated streams and TTFT ({kv: (tokens, TTFT ms)}). Returns the
+    fused_decode launches in bf16 form (in process and processes) and in
+    fp8 form."""
+    from dynamo_tpu_torch.models.family import get_family
+
+    t0 = time.perf_counter()
+    params = get_family(spec).init_params(spec, 0, device=DEVICE)
+    bf16 = disagg_serve(spec, cfg, params, prompts, "bf16", *base["bf16"], card)
+    fp8 = disagg_serve(spec, cfg, params, prompts, "fp8", *base["fp8"], card)
+    del params
+    bf16 += disagg_processes(spec, cfg, prompts, p11_ttft, card, device=device)
+    disagg_latent_roundtrip(card)
+    print(f"phase 19: {time.perf_counter() - t0:.1f} s")
+    return bf16, fp8
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the GPU",
@@ -5928,7 +6545,9 @@ def main() -> int:
     # the same weights behind an fp8 KV cache
     engine = new_engine(spec, dict(cfg, kv_dtype="fp8"), "fp8", params=params)
     out = serve_phases(engine, [("default", default_serve)])
-    serve_fp8, _ = serve_check(engine, prompts, out["default"], "fp8", bf16_tokens=bf16_tokens)
+    serve_fp8, fp8_tokens = serve_check(engine, prompts, out["default"], "fp8",
+                                        bf16_tokens=bf16_tokens)
+    fp8_ttft = out["default"]["res"][1]
     step_graph_check(engine, prompts)
     step_graph_check(engine, prompts, unfused=True)
     unfused_fp8 = unfused_check(engine, prompts)
@@ -5963,7 +6582,15 @@ def main() -> int:
     # the same stack from the command line, in a process of its own
     cli_check(spec.name)
     # hub, two workers and frontend, each a process of its own
-    process_launches = process_phase(spec, cfg, prompts, bf16_tokens, http_stats)
+    process_launches, p11_ttft = process_phase(spec, cfg, prompts, bf16_tokens, http_stats)
+    # disaggregated serving on phase 4's weights: in process (bf16, fp8),
+    # as processes over the device and TCP routes, deepseek-r1's blocks
+    p4_ttft = default_out["res"][1]
+    disagg_launches, disagg_fp8_launches = disagg_phase(
+        spec, cfg, prompts, {
+            "bf16": (bf16_tokens, 1e3 * sum(p4_ttft.values()) / len(p4_ttft)),
+            "fp8": (fp8_tokens, 1e3 * sum(fp8_ttft.values()) / len(fp8_ttft))},
+        p11_ttft, card)
 
     # MoE and checkpoints: gpt-oss-120b at full width, the llama checkpoint
     # round trip (every llama engine is freed by now)
@@ -5991,11 +6618,12 @@ def main() -> int:
 
     launches = {"fused_decode": serve_launches["fused_decode"] + http_launches
                 + process_launches + overload_launches + guided_launches
-                + kvbm_launches + text_launches["fused_decode"],
+                + kvbm_launches + text_launches["fused_decode"] + disagg_launches,
                 "paged_attention_v3": unfused[0], "kv_write": unfused[2],
                 "kv_write/verify": spec_kv_launches + guided_kv_launches
                 + text_launches["kv_write/verify"],
-                "fused_decode/fp8": serve_fp8["fused_decode/fp8"] + kvbm_fp8_launches,
+                "fused_decode/fp8": serve_fp8["fused_decode/fp8"] + kvbm_fp8_launches
+                + disagg_fp8_launches,
                 "paged_attention_v3/fp8": unfused_fp8[1],
                 "kv_write/fp8": unfused_fp8[3],
                 "kv_write/fp8-verify": spec_kv_fp8_launches,

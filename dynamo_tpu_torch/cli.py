@@ -18,7 +18,8 @@
         one service process of a deployment (the same as python -m
         dynamo_tpu_torch.<module>): the TCP hub (prints DYNAMO_HUB=), an
         engine worker (prints ENGINE_READY; SIGTERM drains it; publishes
-        its KV events and load, router mode "kv" by default), the OpenAI
+        its KV events and load, router mode "kv" by default; ``--mode
+        prefill|decode`` splits prefill from decode, disagg/), the OpenAI
         frontend (prints DYNAMO_HTTP=; routes a "kv" card by prefix
         overlap) and the standalone KV router service (prints
         ROUTER_READY; serves "generate" and "best_worker" on component

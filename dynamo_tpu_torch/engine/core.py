@@ -89,10 +89,25 @@ and sealed without re-offload; on an fp8 engine each onboarded block is
 validated first (``_validate_quant_blocks``, the ``engine.quant`` fault
 site), a bad one a miss.
 
-Not in this engine yet (see ROADMAP): disagg, SPMD/meshes, multimodal,
+Disaggregated serving (disagg/, ``transfer_source=`` a KvTransferSource on
+a prefill worker): a request carrying ``disagg.kv_transfer.do_remote_decode``
+takes the synchronous admission, and its first token is emitted with the
+prompt's pages exported (``_export_and_finish``: one gather on the compute
+stream; the transfer plane copies and stamps later, off the step thread)
+and released. On a decode worker a request with ``disagg.mode == "decode"``
+has its blocks pulled at intake, off the step thread (host blocks go up to
+the card there too, on a copy stream, behind an event), and is admitted by
+``_resume_from_remote``: the pages beyond any G1 or KVBM prefix are
+installed in place, sealed, and the slot enters decode after the remote
+first token. A failed pull (``disagg.pull`` fault site) falls back to a
+full local prefill of prompt + first token with the budget cut by one
+(``disagg_fallbacks``); a bounced, shed or cancelled resume releases its
+export. Multimodal resumes (the image salt) wait for item 12.
+
+Not in this engine yet (see ROADMAP): SPMD/meshes, multimodal,
 embeddings, telemetry and tracing, the fault sites other than
-``engine.spec_verify``, ``engine.preempt``, ``engine.quant`` and the
-``migration.resume`` and ``kvbm.onboard`` corrupt sites.
+``engine.spec_verify``, ``engine.preempt``, ``engine.quant``, ``disagg.pull``
+and the ``migration.resume`` and ``kvbm.onboard`` corrupt sites.
 
 The engine is family-blind (models/family.py): a DeepSeek spec runs MLA
 (models/mla.py) through the same scheduler, prefix cache, KV events,
@@ -251,6 +266,12 @@ class _Admitted:
 _REQUEUED = object()  # _prefill sentinel: entry went back to its lane head
 
 
+def _transfer_params(disagg: dict) -> dict:
+    """A decode request's kv_transfer_params without the handler's
+    ``first_token`` (what the transfer plane's calls take)."""
+    return {k: v for k, v in disagg["kv_transfer"].items() if k != "first_token"}
+
+
 class InferenceEngine:
     def __init__(
         self,
@@ -261,10 +282,21 @@ class InferenceEngine:
         device: str | torch.device | None = None,
         event_publisher=None,
         metrics_publisher=None,
+        transfer_source=None,
         kvbm=None,
         guided_vocab=None,
     ):
         self.spec = spec
+        # disagg (disagg/transfer.py): a prefill worker's export table
+        self.transfer_source = transfer_source
+        self.disagg_fallbacks = 0  # failed KV pulls served by a local prefill
+        # per export: (timing events around the gather or None, host ms of
+        # the step thread's gather + export, bytes); per resume: host ms of
+        # the step thread's whole resume, pages installed, and that time
+        # split by piece ({"acquire", "install", "seal", "drain", "slot"})
+        self.export_times: collections.deque = collections.deque(maxlen=4096)
+        self.resume_times: collections.deque = collections.deque(maxlen=4096)
+        self.resumes = 0  # resumes installed (stamps each dispatched burst)
         # KVBM tiers (kvbm/manager.KvBlockManager): write-through offload
         # of sealed blocks, onboard at admission
         self.kvbm = kvbm
@@ -284,6 +316,9 @@ class InferenceEngine:
                 f"multiple of page_size {cfg.page_size}: chunks must start on "
                 "page boundaries")
         self.device = resolve_device(device)
+        # pulled host blocks go up to the card on this stream (disagg)
+        self._h2d_stream = (torch.cuda.Stream(self.device)
+                            if self.device.type == "cuda" else None)
         self.fam = get_family(spec)
         if params is None:
             params = self.fam.init_params(spec, cfg.seed, device=self.device)
@@ -384,9 +419,13 @@ class InferenceEngine:
         self.cached_prompt_tokens = 0  # prompt tokens served from the prefix cache
         self.eager_readmits = 0  # admission passes that refilled a freed slot at once
         self.prefill_chunks = 0  # chunked-prefill chunks run
+        self.prefill_forwards = 0  # prefill dispatches (packed groups and chunks)
         # wall seconds per decode dispatch, host clock from the dispatch to
-        # its sampled tokens on the host
+        # its sampled tokens on the host; and per dispatch (dispatch time,
+        # tokens-on-host time, whether a disagg resume ran on the step
+        # thread between the two), on the host's monotonic clock
         self.decode_step_times: collections.deque = collections.deque(maxlen=4096)
+        self.decode_spans: collections.deque = collections.deque(maxlen=4096)
         # wall seconds per step-loop cycle that did work: the saturation
         # Retry-After's step-time samples
         self.step_times: collections.deque = collections.deque(maxlen=4096)
@@ -427,6 +466,9 @@ class InferenceEngine:
         if self.offload is not None:
             # a blocking join (it may wait on an in-flight copy): off the loop
             await asyncio.to_thread(self.offload.close)
+        if self.transfer_source is not None:
+            # its server, its registry entry and every unpulled export
+            await self.transfer_source.close()
         # the step thread is gone: flush the last KV events (bounded: a hub
         # that went away first retries its reconnect window), stop publishing
         for pub in (self.events, self.metrics):
@@ -599,6 +641,62 @@ class InferenceEngine:
                 yield {"token_ids": [], "finish_reason": "error",
                        "error": f"invalid_request: {err}"}
                 return
+        disagg = request.get("disagg") or {}
+        if disagg.get("mode") == "decode" and disagg.get("kv_transfer"):
+            # stage the remote KV payload HERE (a thread of the loop), before
+            # admission: a slow or hung transfer on the step thread would
+            # stall decode for every active slot
+            from dynamo_tpu_torch.disagg.transfer import release_kv_blocks
+
+            kvp = _transfer_params(disagg)
+            if self._decode_budget(request, len(token_ids)) <= 1:
+                # the remote first token (emitted by the handler) was the
+                # whole budget: no pull, and this engine served nothing
+                self._waiting.refund(tenant, cost)
+                await asyncio.to_thread(release_kv_blocks, kvp)
+                yield {"token_ids": [], "finish_reason": "length"}
+                return
+            try:
+                disagg["_staged_kv"] = await asyncio.to_thread(self._stage_pull, kvp)
+            except Exception as e:  # noqa: BLE001
+                # transfer-plane failure (the prefill worker died between
+                # export and pull, a cut link, the disagg.pull fault): a
+                # FULL LOCAL prefill of prompt + the emitted first token,
+                # the budget cut by one, instead of an error
+                log.warning("kv transfer pull failed (%s); falling back to local "
+                            "prefill for %s", e, context.id)
+                self.disagg_fallbacks += 1
+                try:
+                    # unpin the export on a prefill worker still alive; the
+                    # TTL is the backstop
+                    await asyncio.to_thread(release_kv_blocks, kvp)
+                except Exception:  # noqa: BLE001
+                    pass
+                first = disagg["kv_transfer"].get("first_token")
+                request = dict(request)
+                request["disagg"] = None
+                disagg = {}  # nothing staged or exported is left to release
+                if first is not None:
+                    token_ids = token_ids + [int(first)]
+                    request["token_ids"] = token_ids
+                    stop = dict(request.get("stop_conditions") or {})
+                    if stop.get("max_tokens") is not None:
+                        stop["max_tokens"] = max(int(stop["max_tokens"]) - 1, 1)
+                    request["stop_conditions"] = stop
+                if len(token_ids) >= self.config.max_context:
+                    self._waiting.refund(tenant, cost)
+                    yield {"token_ids": [], "finish_reason": "error",
+                           "error": f"prompt exceeds max context "
+                                    f"{self.config.max_context}"}
+                    return
+            if self._closed:
+                # closed while the pull was parked: no step thread will read
+                # the queue
+                self._drop_staged_kv(request)
+                self._waiting.refund(tenant, cost)
+                yield {"token_ids": [], "finish_reason": "error",
+                       "error": "engine closed"}
+                return
         if max_waiting and self._waiting.qsize() >= max_waiting:
             # re-check at the enqueue (arrivals that passed the early check
             # together must not blow past the bound): shed the lowest-
@@ -606,6 +704,17 @@ class InferenceEngine:
             # request's favour when one ranks below it
             victim = self._waiting.shed_victim(priority)
             if victim is None:
+                if disagg.get("mode") == "decode" and disagg.get("kv_transfer"):
+                    # the bounce must not strand the pulled payload or leave
+                    # the prefill worker's export pinned to its TTL
+                    from dynamo_tpu_torch.disagg.transfer import release_kv_blocks
+
+                    self._drop_staged_kv(request)
+                    try:
+                        await asyncio.to_thread(release_kv_blocks,
+                                                _transfer_params(disagg))
+                    except Exception:  # noqa: BLE001 - the TTL is the backstop
+                        pass
                 self.admission_rejects["saturated"] += 1
                 self._waiting.refund(tenant, cost)
                 raise ServiceUnavailable(
@@ -615,6 +724,7 @@ class InferenceEngine:
             self.admission_rejects["shed"] += 1
             # zero service rendered: the victim's charge comes back
             self._refund_if_charged(victim)
+            self._release_waiting_disagg(victim)
             self._post(victim.out_q, {"_shed": self._saturation_retry_after()})
         out_q: asyncio.Queue = asyncio.Queue()
         self._waiting.put_nowait(_Waiting(
@@ -744,6 +854,7 @@ class InferenceEngine:
                 self._finish(i, slot, "error", error=error)
         for w in self._waiting.drain():
             self._refund_if_charged(w)
+            self._drop_staged_kv(w.request)
             self._error(w, error)
 
     def _step(self) -> bool:
@@ -838,6 +949,7 @@ class InferenceEngine:
             except queue.Empty:
                 break  # a concurrent shed emptied the queue since the peek
             if waiting.context.is_stopped:
+                self._drop_staged_kv(waiting.request)
                 self._post(waiting.out_q,
                            {"token_ids": [], "finish_reason": "cancelled"})
                 did = True
@@ -998,6 +1110,10 @@ class InferenceEngine:
         sampling = dict(req.get("sampling") or {})
         sampling["seed"] = slot.sample_seed
         req["sampling"] = sampling
+        # a resumed disagg stream comes back as a plain request: its sealed
+        # prompt pages rehit the prefix cache or KVBM, and the export it
+        # was pulled from is gone
+        req["disagg"] = None
         return req
 
     def _refund_if_charged(self, waiting: _Waiting) -> None:
@@ -1037,12 +1153,74 @@ class InferenceEngine:
         self._post(waiting.out_q,
                    {"token_ids": [], "finish_reason": "error", "error": msg})
 
+    # -- disagg (decode side) ----------------------------------------------
+
+    def _stage_pull(self, kvp: dict) -> tuple:
+        """Pull a remote export and put its blocks on this engine's device
+        (blocking: runs in a thread of the loop, never the step thread).
+        Returns (k, v, ready event or None, meta)."""
+        from dynamo_tpu_torch.disagg.transfer import pull_kv_blocks
+
+        k, v, meta = pull_kv_blocks(kvp)
+        return (*self._blocks_to_device(k, v), meta)
+
+    def _blocks_to_device(self, k, v) -> tuple:
+        """Pulled blocks as tensors on the engine's device. Host blocks
+        (numpy, bf16 as ``uint16`` bits) go up from pinned memory on the
+        H2D stream, behind an event the resume's stream waits on: a pageable
+        copy would make the step thread wait for the bursts in flight."""
+        if not isinstance(k, np.ndarray):
+            return k.to(self.device), v.to(self.device), None
+        kt, vt = block_tensor(k), block_tensor(v)
+        if self.device.type != "cuda":
+            return kt, vt, None
+        kt, vt = kt.pin_memory(), vt.pin_memory()
+        with torch.cuda.stream(self._h2d_stream):
+            kd = kt.to(self.device, non_blocking=True)
+            vd = vt.to(self.device, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(self._h2d_stream)
+        return kd, vd, ready
+
+    def _release_waiting_disagg(self, waiting: _Waiting) -> None:
+        """Shed victim (event-loop side): drop its staged blocks and unpin
+        the prefill worker's export in the background, the contract the
+        saturation bounce keeps for the incoming request."""
+        disagg = waiting.request.get("disagg") or {}
+        self._drop_staged_kv(waiting.request)
+        if disagg.get("mode") == "decode" and disagg.get("kv_transfer"):
+            from dynamo_tpu_torch.disagg.transfer import release_kv_blocks
+            from dynamo_tpu_torch.runtime.context import spawn
+
+            kvp = _transfer_params(disagg)
+
+            async def _release() -> None:
+                try:
+                    await asyncio.to_thread(release_kv_blocks, kvp)
+                except Exception as e:  # noqa: BLE001 - the TTL is the backstop
+                    log.debug("shed kv release failed (%s)", e)
+
+            spawn(_release(), name="shed-kv-release")
+
+    @staticmethod
+    def _drop_staged_kv(request: dict[str, Any]) -> None:
+        """Free the staged blocks of a request that will never be admitted
+        (cancel, bounce, step failure): the handler keeps the request dict
+        alive for the stream's lifetime."""
+        disagg = request.get("disagg")
+        if disagg:
+            disagg.pop("_staged_kv", None)
+
     def _prefill_safe(self, slot_idx: int, waiting: _Waiting):
         """Per-request error isolation: a bad request must not kill the
         loop. Returns a prep dict (forward deferred to the packed prefill),
-        ``_REQUEUED`` (page backpressure) or None (handled: an error, or a
-        chunked prefill started)."""
+        ``_REQUEUED`` (page backpressure) or None (handled: a disagg resume,
+        an error, or a chunked prefill started)."""
         try:
+            disagg = waiting.request.get("disagg") or {}
+            if disagg.get("mode") == "decode" and disagg.get("kv_transfer"):
+                self._resume_from_remote(slot_idx, waiting)
+                return None
             return self._prefill(slot_idx, waiting)
         except Exception as e:  # noqa: BLE001
             log.exception("prefill failed for %s", waiting.context.id)
@@ -1066,21 +1244,22 @@ class InferenceEngine:
 
     def _acquire_prompt_pages(
         self, request_id: str, seq: TokenBlockSequence, needed_pages: int,
-        n_tokens: int,
+        n_tokens: int, *, full_prefix_ok: bool = False,
     ) -> SeqPages:
         """Prefix-cache take (G1, then the KVBM tiers' consecutive blocks
-        onboarded into fresh pages) + allocation to cover the prompt. At
-        least one token stays uncached (prefill needs the last position's
-        logits). Raises OutOfPages, holding nothing, if the pool is
-        exhausted."""
+        onboarded into fresh pages) + allocation to cover the prompt. Unless
+        ``full_prefix_ok`` (a disagg resume computes nothing), at least one
+        token stays uncached: prefill needs the last position's logits.
+        Raises OutOfPages, holding nothing, if the pool is exhausted."""
         hashes = seq.sequence_hashes()
         page_size = self.config.page_size
         cached = self.allocator.take_prefix(hashes)
-        while cached and len(cached) * page_size >= n_tokens:
+        while (not full_prefix_ok and cached
+               and len(cached) * page_size >= n_tokens):
             self.allocator.release([cached.pop()])
         onboard: list = []
         if self.kvbm is not None:
-            limit = (n_tokens - 1) // page_size
+            limit = needed_pages if full_prefix_ok else (n_tokens - 1) // page_size
             wanted = hashes[len(cached): min(limit, len(hashes))]
             onboard = self.kvbm.get_consecutive(wanted)
             if onboard and self.kv_dtype == "fp8":
@@ -1191,6 +1370,7 @@ class InferenceEngine:
         block_table[: sp.num_pages] = sp.pages
         dev = self.device
         self.prefill_chunks += 1
+        self.prefill_forwards += 1
         logits, dropped = self.fam.prefill(
             self.spec, self.params, torch.from_numpy(padded).to(dev),
             torch.from_numpy(block_table).to(dev), start, self.k_pages,
@@ -1292,6 +1472,7 @@ class InferenceEngine:
             starts[i] = p["start_pos"]
             nts[i] = p["tail"]
         dev = self.device
+        self.prefill_forwards += 1
         tok_d = torch.from_numpy(tokens).to(dev)
         bts_d = torch.from_numpy(bts).to(dev)
         if nb == 1:
@@ -1402,12 +1583,9 @@ class InferenceEngine:
         if not self._pending_offload:
             return
         batch, self._pending_offload = self._pending_offload, []
-        ids = torch.tensor([p for _s, p, _i in batch], dtype=torch.int64)
+        ids = self._page_ids([p for _s, p, _i in batch])
         t0 = None
         if self.device.type == "cuda":
-            # from pinned memory, non-blocking: a pageable copy would make
-            # the step thread wait for the bursts in flight
-            ids = ids.pin_memory().to(self.device, non_blocking=True)
             if self._copy_stream is None:
                 self._copy_stream = torch.cuda.Stream(self.device)
             t0 = torch.cuda.Event(enable_timing=True)
@@ -1527,6 +1705,9 @@ class InferenceEngine:
         async path's deferred landing breaks)."""
         if req.get("guided"):
             return True
+        kvt = (req.get("disagg") or {}).get("kv_transfer") or {}
+        if kvt.get("do_remote_decode") and self.transfer_source is not None:
+            return True  # the first token leaves with the export
         return ((req.get("output_options") or {}).get("logprobs") is not None
                 and self.fam.supports_logprobs)
 
@@ -1587,6 +1768,16 @@ class InferenceEngine:
                          "top": [{"id": int(top_i[i, t]),
                                   "logprob": float(top_v[i, t])}
                                  for t in range(slot.logprobs)]}
+            kvt = (r.waiting.request.get("disagg") or {}).get("kv_transfer") or {}
+            if kvt.get("do_remote_decode") and self.transfer_source is not None:
+                try:
+                    self._export_and_finish(slot, r.sp, r.token_ids, tok, entry)
+                except Exception as e:  # noqa: BLE001
+                    log.exception("kv export failed for %s", r.waiting.context.id)
+                    self.allocator.release(r.sp.pages)
+                    r.sp.pages = []
+                    self._error(r.waiting, f"kv export failed: {e}")
+                continue
             self._emit_token(r.slot_idx, slot, tok, logprob_entry=entry)
 
     def _admission_guided_mask(self, slots: list[_Slot]) -> np.ndarray | None:
@@ -1742,6 +1933,148 @@ class InferenceEngine:
         if logprob_entry is not None:
             item["logprobs"] = [logprob_entry]
         self._post(slot.out_q, item)
+
+    # -- disagg: export (prefill side) and resume (decode side) -------------
+
+    def _page_ids(self, pages: list[int]) -> torch.Tensor:
+        """Page (or block) indices on the device; on CUDA from pinned
+        memory, non-blocking (a pageable copy would make the step thread
+        wait for the bursts in flight)."""
+        ids = torch.tensor(pages, dtype=torch.int64)
+        if self.device.type == "cuda":
+            return ids.pin_memory().to(self.device, non_blocking=True)
+        return ids
+
+    def _export_and_finish(self, slot: _Slot, sp: SeqPages, token_ids: list[int],
+                           tok: int, logprob_entry: dict | None = None) -> None:
+        """Prefill-worker handoff: gather the prompt's pages into fresh
+        blocks on the compute stream, export them (the transfer plane copies
+        and stamps later, off this thread), release the pages, and end the
+        stream with the first token and the kv_transfer_params."""
+        t0 = time.perf_counter()
+        timing = None
+        if self.device.type == "cuda":
+            timing = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            timing[0].record()
+        kb, vb = self.fam.extract_pages(self.k_pages, self.v_pages,
+                                        self._page_ids(sp.pages))
+        if timing is not None:
+            timing[1].record()
+        params = self.transfer_source.export(
+            kb, vb, num_tokens=len(token_ids), page_size=self.config.page_size)
+        # the decode side refuses a mismatched pool type before installing
+        # (packed fp8 and bf16 blocks do not convert in insert_pages)
+        params["kv_dtype"] = self.kv_dtype
+        # the pages go back now: the gather precedes any later write to a
+        # re-allocated page on the compute stream
+        pages, sp.pages = sp.pages, []
+        self.allocator.release(pages)
+        self.export_times.append((timing, 1e3 * (time.perf_counter() - t0),
+                                  kb.nbytes + vb.nbytes))
+        item: dict[str, Any] = {"token_ids": [tok], "finish_reason": "length",
+                                "kv_transfer_params": params}
+        if logprob_entry is not None:
+            # the decode handler relays this item to the client
+            item["logprobs"] = [logprob_entry]
+        self._post(slot.out_q, item)
+        self._publish_metrics()
+
+    def _resume_from_remote(self, slot_idx: int, waiting: _Waiting) -> None:
+        """Decode-worker resume: install the pulled blocks beyond the cached
+        prefix in place, seal the prompt, and enter decode after the remote
+        first token. A multimodal resume (the image salt of the sealed
+        blocks' hashes) waits for ROADMAP Queue A item 12."""
+        from dynamo_tpu_torch.disagg.transfer import release_kv_blocks
+
+        t0 = time.perf_counter()
+        cfg = self.config
+        req = waiting.request
+        disagg = req.get("disagg") or {}
+        kvp = dict(disagg.get("kv_transfer") or {})
+        first_token = int(kvp.pop("first_token"))
+        token_ids = list(req["token_ids"])
+        max_tokens = self._decode_budget(req, len(token_ids))
+        if max_tokens <= 1:
+            # the remote first token was the whole budget
+            self._drop_staged_kv(req)
+            release_kv_blocks(kvp)
+            self._post(waiting.out_q, {"token_ids": [], "finish_reason": "length"})
+            return
+        # pop: the handler holds the request dict for the whole decode; the
+        # staged blocks must not outlive their install
+        staged = disagg.pop("_staged_kv", None)
+        if staged is None:
+            # generate() stages every pull off this thread: no network I/O
+            # may run on the step thread
+            raise RuntimeError("disagg resume without a staged pull")
+        k_blocks, v_blocks, ready, meta = staged
+        if int(meta.get("page_size", cfg.page_size)) != cfg.page_size:
+            raise ValueError("page_size mismatch between prefill and decode")
+        export_dtype = str(kvp.get("kv_dtype", "bf16"))
+        if export_dtype != self.kv_dtype:
+            raise ValueError(
+                f"disagg kv_dtype mismatch: prefill exported {export_dtype} "
+                f"KV but this decode worker runs kv_dtype={self.kv_dtype} "
+                "(set DYN_KV_DTYPE / EngineConfig.kv_dtype identically on "
+                "both sides)")
+        if req.get("multimodal"):
+            raise NotImplementedError(
+                "disagg resume of a multimodal request is not ported "
+                "(ROADMAP Queue A item 12)")
+        seq = TokenBlockSequence.from_tokens(token_ids, cfg.page_size)
+        needed_pages = (len(token_ids) + cfg.page_size - 1) // cfg.page_size
+        try:
+            sp = self._acquire_prompt_pages(
+                waiting.context.id, seq, needed_pages, len(token_ids),
+                full_prefix_ok=True)
+        except OutOfPages:
+            self._refund_if_charged(waiting)
+            self._error(waiting, "kv pages exhausted")
+            return
+        marks = [time.perf_counter()]
+        install = list(range(sp.cached_prefix_pages, needed_pages))
+        try:
+            if install:
+                if k_blocks.is_cuda:
+                    # blocks staged on another stream (the H2D stream, the
+                    # device route's copy stream): ordered before, and kept
+                    # alive for, the install on this one
+                    cur = torch.cuda.current_stream(self.device)
+                    if ready is not None:
+                        cur.wait_event(ready)
+                    k_blocks.record_stream(cur)
+                    v_blocks.record_stream(cur)
+                # the install is the export's tail past the cached prefix:
+                # a view, no gather (a fresh block of the size would ask the
+                # caching allocator for memory on the step thread)
+                k_blocks = k_blocks[:, install[0]:]
+                v_blocks = v_blocks[:, install[0]:]
+                self.fam.insert_pages(self.k_pages, self.v_pages,
+                                      self._page_ids([sp.pages[i] for i in install]),
+                                      k_blocks, v_blocks)
+            marks.append(time.perf_counter())
+            self._seal_prompt_blocks(sp, seq)
+            marks.append(time.perf_counter())
+            self._drain_offload()
+            marks.append(time.perf_counter())
+        except Exception:
+            self._pending_offload.clear()
+            self.allocator.release(sp.pages)
+            raise
+        self.cached_prompt_tokens += sp.cached_prefix_pages * cfg.page_size
+        slot = self._make_slot(
+            waiting, seq, sp, seq_len=len(token_ids), remaining=max_tokens - 1,
+            generated=1,  # the remote first token, emitted by the handler
+            last_token=first_token)
+        slot.seq.append(first_token)
+        self._slots[slot_idx] = slot
+        self._publish_metrics()
+        marks.append(time.perf_counter())
+        self.resumes += 1
+        split = dict(zip(("acquire", "install", "seal", "drain", "slot"),
+                         (1e3 * (b - a) for a, b in zip([t0, *marks], marks))))
+        self.resume_times.append((1e3 * (marks[-1] - t0), len(install), split))
 
     # -- speculative decoding ----------------------------------------------
 
@@ -2170,7 +2503,7 @@ class InferenceEngine:
             feeds=feeds, feed_src=feed_src, feed_idx=feed_idx,
             allowed=batch["allowed"])
         self.steps += batch["n_burst"]
-        return {"batch": batch, "burst": burst, "t0": t0}
+        return {"batch": batch, "burst": burst, "t0": t0, "resumes": self.resumes}
 
     def _process_burst(self, pending: dict) -> None:
         """Take a dispatched burst's tokens to the host; land the first
@@ -2180,7 +2513,9 @@ class InferenceEngine:
         dispatch."""
         batch = pending["batch"]
         fed_col, sampled, lp, top_i, top_v = pending["burst"].result()
-        self.decode_step_times.append(time.perf_counter() - pending["t0"])
+        t1 = time.perf_counter()
+        self.decode_step_times.append(t1 - pending["t0"])
+        self.decode_spans.append((pending["t0"], t1, self.resumes != pending["resumes"]))
         n_burst = batch["n_burst"]
         active = batch["active"]
         if self._admit_waves:

@@ -1,5 +1,5 @@
 """Engine worker: build the torch engine and serve it (the counterpart of
-dynamo_tpu/engine/worker.py, aggregated mode).
+dynamo_tpu/engine/worker.py).
 
 ``launch_engine_worker`` builds ``InferenceEngine(spec, cfg, device=...)``,
 optionally captures its decode graphs (``precompile``) off the event loop,
@@ -35,9 +35,20 @@ N`` (with ``--kvbm-disk-mb`` / ``--kvbm-disk-dir`` and
 ``--kvbm-remote-blocks``, or ``launch_engine_worker(kvbm_config=)``) gives
 the engine the KVBM tiers (kvbm/): host DRAM, local disk, and the hub's
 object store under the worker's namespace; the admin ``cache_status``
-reports their counters. The reference's flags for features the port lacks
-raise NotImplementedError naming their item: disagg (with its prefill
-router), SPMD and meshes, multimodal. ``--spec ngram`` (or ``DYN_SPEC_MODE``) turns on speculative
+reports their counters.
+
+``--mode prefill|decode`` (``launch_engine_worker(mode=)``) splits serving
+as the reference does (disagg/). A prefill worker gives its engine a
+``KvTransferSource``, serves ``PrefillWorkerHandler`` on the prefill
+component (``--prefill-component``, no model card) and puts its admin
+endpoint there. A decode worker routes remote prefills over that component
+(``--prefill-router-mode``: kv by default, round_robin or random), follows
+the live policy key (``--max-local-prefill-length``,
+``--always-remote-prefill``) and registers its card with a
+``DecodeWorkerHandler`` as the front door (``engine.frontdoor``); its admin
+``cache_status`` reports the pulls by route and the fallbacks. The
+reference's flags for features the port lacks raise NotImplementedError
+naming their item: SPMD and meshes, multimodal. ``--spec ngram`` (or ``DYN_SPEC_MODE``) turns on speculative
 decoding, with ``--spec-k-max`` and ``--spec-ngram-min/max``. The admin
 ``timeline`` op, which reads the flight recorder, answers an error naming item 13.
 """
@@ -98,12 +109,23 @@ async def launch_engine_worker(
     params=None,
     model_path: str | None = None,
     kvbm_config=None,  # kvbm.KvbmConfig: the KVBM tiers, None = off
+    mode: str = "aggregated",
+    prefill_component: str = PREFILL_COMPONENT,
+    prefill_router_mode: str = "kv",
+    max_local_prefill_length: int = 128,
+    always_remote_prefill: bool = False,
 ) -> tuple[InferenceEngine, object]:
-    """Build + register one aggregated engine worker in this process, on
-    ``device`` (None = the GPU; no GPU raises), serving ``params`` (default:
-    the seeded random init of ``engine_config.seed``), or the checkpoint in
-    ``model_path`` (its spec from its config.json). Returns (engine, served
-    generate endpoint)."""
+    """Build + register one engine worker in this process, on ``device``
+    (None = the GPU; no GPU raises), serving ``params`` (default: the seeded
+    random init of ``engine_config.seed``), or the checkpoint in
+    ``model_path`` (its spec from its config.json), in ``mode`` aggregated,
+    prefill or decode. The serving front door (the engine or a disagg
+    handler) is ``engine.frontdoor``. Returns (engine, served generate
+    endpoint)."""
+    if mode not in ("aggregated", "prefill", "decode"):
+        raise ValueError(f"mode {mode!r}: aggregated, prefill or decode")
+    if prefill_router_mode not in ("kv", "round_robin", "random"):
+        raise ValueError(f"prefill_router_mode {prefill_router_mode!r}")
     # an unknown parser name fails here, before the engine is built
     make_tool_config(tool_call_parser)
     make_reasoning_parser(reasoning_parser)
@@ -146,27 +168,58 @@ async def launch_engine_worker(
         # with every worker (of either package) in it
         kvbm = KvBlockManager(kvbm_config, hub=drt.hub,
                               loop=asyncio.get_running_loop(), namespace=namespace)
+    transfer_source = None
+    if mode == "prefill":
+        from dynamo_tpu_torch.disagg.transfer import KvTransferSource
+
+        transfer_source = await KvTransferSource().start()
     engine = InferenceEngine(spec, cfg, params=params, device=device, kvbm=kvbm,
-                             guided_vocab=guided_vocab)
+                             guided_vocab=guided_vocab, transfer_source=transfer_source)
     if precompile:
         # capture every decode graph variant before registration, off the
         # event loop: no request waits for a capture
         await asyncio.to_thread(engine.precompile)
 
-    served, _card = await register_llm(
-        drt, drt.namespace(namespace).component(component).endpoint(endpoint),
-        engine.generate,
-        model_name=model_name or spec.name,
-        model_type=model_type,
-        tokenizer=tokenizer,
-        context_length=cfg.max_context,
-        kv_block_size=cfg.page_size,
-        router_mode=router_mode,
-        tool_call_parser=tool_call_parser,
-        reasoning_parser=reasoning_parser,
-        runtime_config={"engine": "torch", "device": str(engine.device)},
-        metadata={"engine": "torch", "role": "aggregated"},
-    )
+    if mode == "prefill":
+        from dynamo_tpu_torch.disagg.handlers import PrefillWorkerHandler
+
+        # no model card: only decode workers' prefill routers call it
+        handler = PrefillWorkerHandler(engine)
+        component = prefill_component
+        served = await drt.namespace(namespace).component(component).endpoint(
+            endpoint).serve(handler.generate,
+                            metadata={"model": model_name or spec.name, "role": "prefill"})
+    else:
+        handler = engine
+        if mode == "decode":
+            from dynamo_tpu_torch.disagg.handlers import DecodeWorkerHandler
+            from dynamo_tpu_torch.disagg.policy import DisaggPolicy
+
+            prefill_router = await _build_prefill_router(
+                drt, namespace, prefill_component, endpoint, prefill_router_mode,
+                cfg.page_size)
+            policy = await DisaggPolicy(
+                max_local_prefill_length=max_local_prefill_length,
+                always_remote=always_remote_prefill,
+            ).watch(drt.hub, namespace)
+            handler = DecodeWorkerHandler(engine, prefill_router=prefill_router,
+                                          policy=policy)
+        served, _card = await register_llm(
+            drt, drt.namespace(namespace).component(component).endpoint(endpoint),
+            handler.generate,
+            model_name=model_name or spec.name,
+            model_type=model_type,
+            tokenizer=tokenizer,
+            context_length=cfg.max_context,
+            kv_block_size=cfg.page_size,
+            router_mode=router_mode,
+            tool_call_parser=tool_call_parser,
+            reasoning_parser=reasoning_parser,
+            runtime_config={"engine": "torch", "device": str(engine.device),
+                            "mode": mode},
+            metadata={"engine": "torch", "role": mode},
+        )
+    engine.frontdoor = handler
 
     # admin endpoint: control-plane ops; endpoint-scoped instance keys keep
     # it invisible to generate-routing clients
@@ -203,10 +256,12 @@ async def launch_engine_worker(
                 "free_pages": engine.allocator.free_pages,
                 "kvbm": (engine.kvbm.stats.to_dict()
                          if engine.kvbm is not None else None),
+                "disagg": disagg_status(engine) if mode != "aggregated" else None,
             }
         else:
             yield {"ok": False, "error": f"unknown op {op!r}"}
 
+    # a prefill worker's admin endpoint is on the prefill component
     await drt.namespace(namespace).component(component).endpoint("admin").serve(
         admin_handler, metadata={"role": "admin"})
     # KV events + load metrics under the served instance id: the id every
@@ -221,11 +276,58 @@ async def launch_engine_worker(
         engine.monitor = EngineMonitor(drt, engine)
     engine._publish_metrics()
     log.info(
-        "engine worker %x up: model=%s device=%s pages=%d slots=%d",
-        served.instance.instance_id, spec.name, engine.device, cfg.num_pages,
+        "engine worker %x up: mode=%s model=%s device=%s pages=%d slots=%d",
+        served.instance.instance_id, mode, spec.name, engine.device, cfg.num_pages,
         cfg.max_decode_slots,
     )
     return engine, served
+
+
+async def _build_prefill_router(drt: DistributedRuntime, namespace: str,
+                                prefill_component: str, endpoint: str,
+                                router_mode: str, page_size: int):
+    """Router over the prefill pool: KV-aware by default (a long prompt with
+    a warm prefix lands on the prefill worker that has it cached), else
+    round robin or random."""
+    from dynamo_tpu_torch.runtime.push import PushRouter, RouterMode
+
+    ep = drt.namespace(namespace).component(prefill_component).endpoint(endpoint)
+    if router_mode == "kv":
+        from dynamo_tpu_torch.kv_router.protocols import RouterConfig
+        from dynamo_tpu_torch.kv_router.router import KvPushRouter, KvRouter
+
+        push = await PushRouter.from_endpoint(ep, RouterMode.DIRECT)
+        # the block size must be the engines' page size, or radix overlap
+        # never matches
+        kv = await KvRouter(drt.hub, f"{namespace}/{prefill_component}",
+                            RouterConfig(block_size=page_size)).start()
+        return KvPushRouter(push, kv)
+    mode = RouterMode.RANDOM if router_mode == "random" else RouterMode.ROUND_ROBIN
+    return await PushRouter.from_endpoint(ep, mode)
+
+
+def disagg_status(engine: InferenceEngine) -> dict:
+    """The admin ``cache_status`` disagg entry: this process's pulls by
+    route with their times, the device route's fallbacks to TCP, the
+    engine's pull fallbacks to a local prefill, its exports (the step
+    thread's host ms, the gather's device ms once its events are done, the
+    source's serve-time staging ms for TCP) and its resumes (the step
+    thread's host ms, pages installed, its split) and its decode bursts'
+    (dispatch, tokens on the host, a resume in between) on the monotonic
+    clock every process of the host shares."""
+    from dynamo_tpu_torch.disagg.transfer import PULLS
+
+    src = engine.transfer_source
+    exports = list(engine.export_times)
+    return {**PULLS.snapshot(), "fallbacks": engine.disagg_fallbacks,
+            "exported": src.exported if src is not None else 0,
+            "pending_exports": src.pending if src is not None else 0,
+            "stage_ms": list(src.stage_ms) if src is not None else [],
+            "export_ms": [ms for _t, ms, _b in exports],
+            "gather_ms": [t[0].elapsed_time(t[1]) for t, _ms, _b in exports
+                          if t is not None and t[1].query()],
+            "resumes": [list(r) for r in engine.resume_times],
+            "spans": [list(s) for s in engine.decode_spans]}
 
 
 def launch_counts() -> dict[str, int]:
@@ -248,12 +350,23 @@ def launch_base(engine: InferenceEngine) -> tuple:
 
 def engine_launches(engine: InferenceEngine, base: tuple | None) -> dict:
     """Kernel launches, decode steps, graph replays and speculation counters
-    since ``base`` (the ENGINE_LAUNCHES line of a worker or ``cli run``)."""
+    since ``base`` (the ENGINE_LAUNCHES line of a worker or ``cli run``);
+    the decode dispatch-to-host over the engine's last 4096 dispatches, and
+    over those with a disagg resume on the step thread in between."""
     counts, steps, replays = base or ({}, 0, 0)
     return {
         "launches": {k: v - counts.get(k, 0) for k, v in launch_counts().items()},
         "steps": engine.steps - steps, "replays": engine._graphs.replays - replays,
-        "spec": engine.spec_snapshot() if engine._spec_on else None}
+        "spec": engine.spec_snapshot() if engine._spec_on else None,
+        "dispatch_ms": _mean_ms(engine.decode_step_times),
+        "resume_dispatch_ms": _mean_ms([t1 - t0 for t0, t1, resumed in engine.decode_spans
+                                        if resumed])}
+
+
+def _mean_ms(times) -> list:
+    """[count, mean ms] of wall seconds."""
+    n = len(times)
+    return [n, 1e3 * sum(times) / n if n else None]
 
 
 def _engine_config(args: argparse.Namespace) -> EngineConfig:
@@ -261,12 +374,6 @@ def _engine_config(args: argparse.Namespace) -> EngineConfig:
     DYN_* env / DYN_CONFIG layer); flags of unported features raise here or
     in EngineConfig."""
     refused = [
-        (args.mode != "aggregated", f"--mode {args.mode}: disaggregated serving "
-         "(ROADMAP Queue A item 10b)"),
-        (args.prefill_component != PREFILL_COMPONENT or args.prefill_router_mode != "kv"
-         or args.max_local_prefill_length != 128 or args.always_remote_prefill,
-         "--prefill-* / --max-local-prefill-length / --always-remote-prefill: "
-         "disaggregated serving (ROADMAP Queue A item 10b)"),
         (args.mirror or args.coordinator_address or args.num_processes is not None
          or args.process_id is not None,
          "--mirror / --coordinator-address: SPMD multi-host (ROADMAP Queue A item 11)"),
@@ -357,6 +464,11 @@ async def _amain(args: argparse.Namespace, ecfg: EngineConfig) -> None:
             precompile=args.precompile,
             device=device,
             kvbm_config=_kvbm_config_from_args(args),
+            mode=args.mode,
+            prefill_component=args.prefill_component,
+            prefill_router_mode=args.prefill_router_mode,
+            max_local_prefill_length=args.max_local_prefill_length,
+            always_remote_prefill=args.always_remote_prefill,
         )
         # launches from here on: precompile's warm-up steps are not traffic
         base = launch_base(engine)

@@ -7,7 +7,8 @@ WorkerMetricsPublisher :684). The engine (real or mocker) calls
 flush to the hub pub/sub subject tagged with this worker's instance id.
 
 Threads: the engine's step thread records ops under a lock and signals the
-loop with ``call_soon_threadsafe``; only the loop publishes. Flushes run one
+loop with ``call_soon_threadsafe``, once until the loop has taken the
+signal; only the loop publishes. Flushes run one
 at a time (an asyncio lock), so a full batch's immediate flush cannot
 interleave its runs with the interval flush's and reorder stored/removed.
 """
@@ -53,6 +54,7 @@ class KvEventPublisher:
         # flush window must not be reordered into restore-then-remove.
         self._ops: list[tuple[str, Any]] = []
         self._ops_lock = threading.Lock()  # the step thread appends, the loop swaps
+        self._signal_pending = False  # a compute thread's wake-up is queued
         self._flush_lock = asyncio.Lock()
         self._event_id = 0
         self._task: asyncio.Task | None = None
@@ -85,20 +87,30 @@ class KvEventPublisher:
         self._mark_dirty()
 
     def _mark_dirty(self) -> None:
-        """Thread-safe: engines call block_stored from compute threads."""
+        """Thread-safe: engines call block_stored from compute threads. A
+        compute thread wakes the loop once per batch of ops, not once per
+        op: each ``call_soon_threadsafe`` writes the loop's self-pipe and
+        hands the GIL to the loop thread, and a prompt's seal of 32 blocks
+        paid that 32 times on the step thread."""
         if self._loop is None:
             return  # not started yet; ops accumulate until start()
-
-        def signal() -> None:
-            self._dirty.set()
-            if len(self._ops) >= self.max_batch:
-                # batch full: flush immediately rather than waiting the interval
-                spawn(self.flush(), name="kv-publisher-flush")
-
         if threading.get_ident() == self._loop_thread:
-            signal()
-        else:
-            self._loop.call_soon_threadsafe(signal)
+            self._signal()
+            return
+        with self._ops_lock:
+            if self._signal_pending:
+                return  # the pending signal runs after this op was queued
+            self._signal_pending = True
+        self._loop.call_soon_threadsafe(self._signal)
+
+    def _signal(self) -> None:
+        with self._ops_lock:
+            self._signal_pending = False
+            n = len(self._ops)
+        self._dirty.set()
+        if n >= self.max_batch:
+            # batch full: flush immediately rather than waiting the interval
+            spawn(self.flush(), name="kv-publisher-flush")
 
     def cache_cleared(self) -> None:
         with self._ops_lock:

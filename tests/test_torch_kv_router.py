@@ -454,6 +454,43 @@ async def test_publisher_from_a_thread_keeps_order_and_router_matches_reference(
     await jrouter.close()
 
 
+async def test_publisher_wakes_the_loop_once_per_batch_of_thread_ops():
+    """A step thread's 40 stores made while the loop is busy schedule one
+    wake-up, not 40; that wake-up still sees the full batch (max_batch 8)
+    and flushes at once, and every store is published in order."""
+    hub = InMemoryHub()
+    pub = KvEventPublisher(hub, "ns/w", 5, flush_interval_s=60.0, max_batch=8).start()
+    loop = asyncio.get_running_loop()
+    wakes = []
+    real = loop.call_soon_threadsafe
+
+    def counting(cb, *a, **kw):
+        wakes.append(cb)
+        return real(cb, *a, **kw)
+
+    loop.call_soon_threadsafe = counting
+    try:
+        t = threading.Thread(target=lambda: [pub.block_stored(h, h - 1)
+                                             for h in range(1, 41)])
+        t.start()
+        t.join()  # on the loop's thread: the loop is busy for the whole batch
+        assert len(wakes) == 1
+        subject = KV_EVENT_SUBJECT.format(component="ns/w")
+        # the full batch flushes without waiting out the 60 s interval
+        await _until(lambda: len(hub._retained.get(subject, ())) == 1)
+        (_seq, payload), = hub._retained[subject]
+        ev = tproto.RouterEvent.from_dict(payload)
+        assert [b.sequence_hash for b in ev.event.stored] == list(range(1, 41))
+        # the next op from a thread wakes the loop again
+        t = threading.Thread(target=lambda: pub.block_stored(41, 40))
+        t.start()
+        t.join()
+        assert len(wakes) == 2
+    finally:
+        loop.call_soon_threadsafe = real
+        await pub.close()
+
+
 async def test_metrics_publisher_feeds_scheduler():
     hub = InMemoryHub()
     router = await KvRouter(hub, "ns/w", tproto.RouterConfig(block_size=4)).start()

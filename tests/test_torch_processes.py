@@ -386,12 +386,13 @@ async def test_sigkill_mid_stream_migrates_to_the_survivor(deployment):
 
 
 _REFUSED_FLAGS = {
-    "mode-prefill": (["--mode", "prefill"], "item 10b"),
-    "mode-decode": (["--mode", "decode"], "item 10b"),
+    # ported since (disaggregation): these build their config
+    "mode-prefill": (["--mode", "prefill"], None),
+    "mode-decode": (["--mode", "decode"], None),
     # ported since (KVBM): builds its config
     "kvbm": (["--kvbm-host-mb", "64"], None),
-    "prefill-component": (["--prefill-component", "p2"], "item 10b"),
-    "always-remote-prefill": (["--always-remote-prefill"], "item 10b"),
+    "prefill-component": (["--prefill-component", "p2"], None),
+    "always-remote-prefill": (["--always-remote-prefill"], None),
     "tp": (["--tp", "2"], "item 11"),
     "sp": (["--sp", "2"], "item 11"),
     "ep": (["--ep", "2"], "item 11"),
@@ -406,9 +407,9 @@ _REFUSED_FLAGS = {
     "max-waiting": (["--max-waiting", "8"], None),
     "no-preemption": (["--no-preemption"], None),
     "mm-tokens": (["--mm-tokens-per-image", "4"], "item 12"),
-    # --router-mode kv is ported (the default); the disagg prefill
-    # router stays refused with disagg
-    "prefill-router-mode": (["--prefill-router-mode", "round_robin"], "item 10b"),
+    # --router-mode kv is ported (the default), and since disaggregation
+    # the prefill router's mode too
+    "prefill-router-mode": (["--prefill-router-mode", "round_robin"], None),
 }
 
 
@@ -437,9 +438,67 @@ def test_worker_flags_of_unported_features_raise(case):
             {"a": 2.0} if "--tenant-quotas" in flags else {})
         assert cfg.max_waiting == (8 if "--max-waiting" in flags else 0)
         assert cfg.preemption is ("--no-preemption" not in flags)
+        assert args.mode == (flags[1] if flags[0] == "--mode" else "aggregated")
+        assert args.prefill_component == ("p2" if "--prefill-component" in flags
+                                          else "prefill")
+        assert args.prefill_router_mode == ("round_robin" if "--prefill-router-mode"
+                                            in flags else "kv")
+        assert args.always_remote_prefill is ("--always-remote-prefill" in flags)
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue A {item}"):
         cli.main(["worker", "--hub", "127.0.0.1:1", "--device", "cpu", *flags])
+
+
+async def test_disagg_processes_stream_like_an_aggregated_worker():
+    """cli hub, a ``--mode prefill`` worker, a ``--mode decode
+    --always-remote-prefill`` worker and cli frontend, each a process: a
+    streamed completion equals generate() of an aggregated in-process
+    engine; the decode worker pulled the prompt's KV from the other process
+    over TCP with no fallback (its admin cache_status), and the prefill
+    worker ran no decode step (its ENGINE_LAUNCHES at SIGTERM)."""
+    children = []
+    try:
+        hub = _Child("hub", "--port", "0")
+        children.append(hub)
+        addr = hub.wait_line(r"^DYNAMO_HUB=").split("=", 1)[1]
+        common = ("worker", "--hub", addr, "--device", "cpu", "--model", MODEL)
+        pre = _Child(*common, "--mode", "prefill")
+        children.append(pre)
+        pre.wait_line(r"^ENGINE_READY$")
+        dec = _Child(*common, "--mode", "decode", "--always-remote-prefill")
+        children.append(dec)
+        front = _Child("frontend", "--hub", addr, "--port", "0", "--host", "127.0.0.1")
+        children.append(front)
+        http = "http://" + front.wait_line(r"^DYNAMO_HTTP=").split("=", 1)[1]
+        dec.wait_line(r"^ENGINE_READY$")
+        deadline = time.monotonic() + START_S
+        while True:
+            with urllib.request.urlopen(http + "/v1/models", timeout=10) as r:
+                if MODEL in [m["id"] for m in json.loads(r.read())["data"]]:
+                    break
+            assert time.monotonic() < deadline, "the frontend lists no model"
+            time.sleep(0.05)
+        prompt = PROMPTS[0] * 4  # 20 tokens
+        want = await _direct([prompt], 12)
+        async with aiohttp.ClientSession() as session:
+            text, lps, finish, done = await _stream(session, http, _body(prompt, 12))
+        assert finish == "length" and done
+        _same((text, lps), want[0])
+        drt = DistributedRuntime(await RemoteHub.connect(addr), RuntimeConfig(hub_address=addr))
+        try:
+            (status,) = (await _admin_all(drt)).values()
+        finally:
+            await drt.close()
+        disagg = status["disagg"]
+        assert disagg["pulls"] == {"local": 0, "device": 0, "tcp": 1}, disagg
+        assert disagg["fallbacks"] == 0 and disagg["route_fallbacks"] == 0
+        assert pre.stop() == 0
+        launches = json.loads(pre.wait_line(r"^ENGINE_LAUNCHES ", EXIT_S).split(" ", 1)[1])
+        assert launches["steps"] == 0
+    finally:
+        for child in reversed(children):
+            if child.proc.poll() is None:
+                child.stop()
 
 
 def test_service_refusals_and_the_cpu_default():
