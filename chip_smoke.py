@@ -397,8 +397,41 @@ Phases, each of which must pass (any failure exits non-zero):
    the decode workers 32 fused_decode launches per step; (d) deepseek-r1's
    latent blocks (4 layers), bf16 and per-row fp8: extract -> export ->
    TCP pull -> insert -> extract bitwise, the int8 v slot under v_dtype.
+20. observability (a, b and d after phase 9 on phase 4's weights; c after
+   phase 19): (a) a llama-3-8b engine (phase 4's config, profile=True, decode
+   graphs precompiled, then reset_profile_window()) serves phase 4's default
+   set with a trace file set (tracing.set_trace_file) and an
+   EngineCollector attached. Gates: every request's flight-recorder
+   timeline is admit -> first_token -> finish "length" with 32 tokens;
+   dispatch.compile counts 0 graph captures; dynamo_engine_dispatches_total
+   after sample() equals the profile's dispatch.dispatches;
+   dynamo_engine_burst_tokens' sum equals the decode tokens streamed (each
+   request's first token lands from its prefill's sample); fused_decode
+   launches 32 times per decode step; every worker-side span of a request
+   (worker.request, engine.queue_wait, engine.prefill, engine.decode)
+   carries its timeline's trace id. Prints the profile's phases (seconds,
+   calls, share of the serve's wall), packed_prefill beside the TTFT, the
+   spans' means, and one packed prefill of the 8 prompts under
+   torch.profiler (host wall against device busy); (b) the splits: phase
+   13's preempting overload cell (interactive TTFT as engine.queue_wait +
+   engine.prefill from the spans, the preempt phase) and phase 14's guided
+   mixed serve (guided.mask, build_batch, dispatch and process per step),
+   each profiled and gated only by its own stream and launch checks; (c)
+   ``cli hub``, one ``cli worker --precompile --health-port 0`` and ``cli
+   frontend``, each with DYN_TRACE_FILE of its own, the frontend with
+   DYN_AUDIT_PATH; a stdlib client streams the 8 prompts, each with a
+   traceparent of its own. Gates: every request's spans, across the files,
+   share its trace id, and worker.request's parent is the frontend's
+   transport.call; GET /debug/timeline?request_id= returns its events; the
+   worker's /metrics shows dynamo_engine_step_seconds_count and
+   dynamo_engine_dispatches_total above 0; the audit file holds 8 records of
+   32 output tokens; fused_decode 32 per logged step; (d) the default serve
+   on (a)'s engine with profiling and tracing off, on, on, off: TTFT, tok/s
+   and decode dispatch-to-host (no gate: serves move 25-50% between calls).
+   The span, audit and profile files land under build/observability/.
 
-Phases run in the order 1-8, 12, 13, 14, 18, 9, 10, 11, 19, 15, 16, 17.
+Phases run in the order 1-8, 12, 13, 14, 18, 9, 20 (a, b, d), 10, 11, 19,
+20 (c), 15, 16, 17.
 
 Prints, before the last line, the card line and one JSON object with every
 kernel's measurements; the last line is
@@ -3429,19 +3462,20 @@ def kvbm_phase(spec, cfg, params, prompts, card, phase4_disp_ms) -> tuple[int, i
 
 
 async def http_call(port, method, path, body=None, raw=None, drop_after=None,
-                    on_chunk=None):
+                    on_chunk=None, headers=None):
     """One HTTP/1.1 request on a connection of its own (stdlib only).
     Returns (status, body bytes, seconds from the send to each body chunk).
     A chunked (SSE) body is read chunk by chunk; with ``drop_after`` the
     client goes away after that many chunks; ``on_chunk(n)`` is awaited
-    after the n-th chunk."""
+    after the n-th chunk. ``headers`` adds request headers."""
     data = raw if raw is not None else b"" if body is None else json.dumps(body).encode()
+    extra = "".join(f"{k}: {v}\r\n" for k, v in (headers or {}).items())
     reader, writer = await asyncio.open_connection("127.0.0.1", port)
     try:
         t0 = time.perf_counter()
         writer.write(f"{method} {path} HTTP/1.1\r\nHost: localhost\r\nConnection: close\r\n"
                      f"Content-Type: application/json\r\nContent-Length: {len(data)}\r\n"
-                     "\r\n".encode() + data)
+                     f"{extra}\r\n".encode() + data)
         await writer.drain()
         lines = (await reader.readuntil(b"\r\n\r\n")).decode("latin-1").split("\r\n")
         status = int(lines[0].split(" ")[1])
@@ -6478,6 +6512,473 @@ def disagg_phase(spec, cfg, prompts, base, p11_ttft, card, device=None) -> tuple
     return bf16, fp8
 
 
+# ------------------------------------------------------------ observability
+
+# phase 20's span, audit and profile files (git-ignored)
+OBS_DIR = ROOT / "build" / "observability"
+OBS_CLIENT_SPAN = "b7ad6b7169203331"  # the stdlib client's span id (phase 20c)
+OBS_WAIT_S = 15.0  # a span, audit record or sampled metric must land within this
+
+
+def obs_spans(path: Path) -> list[dict]:
+    """The JSONL span records of a trace file."""
+    if not path.exists():
+        return []
+    return [json.loads(ln) for ln in path.read_text().splitlines() if ln.strip()]
+
+
+def obs_request_spans(spans: list[dict], request_id: str) -> dict[str, dict]:
+    """One request's worker-side spans by name: its worker.request and the
+    engine.* spans under it."""
+    wr = [s for s in spans if s["span"] == "worker.request"
+          and s.get("request_id") == request_id]
+    require(len(wr) == 1, f"observability: {len(wr)} worker.request spans for {request_id}")
+    out = {"worker.request": wr[0]}
+    for s in spans:
+        if s["parent_span_id"] == wr[0]["span_id"]:
+            out[s["span"]] = s
+    return out
+
+
+def obs_phase_lines(snap: dict, wall: float, label: str, card: str) -> None:
+    """The profile's phases: seconds, calls, and share of the step thread's
+    wall over ``wall`` (nested phases overlap their parents: process.d2h_sync
+    and dispatch.d2h_wait lie inside process, readmit.d2h_wait inside the
+    admission phases, the readmit.* spans cross cycles)."""
+    rows = [f"{name} {rec['secs']:.4f} s x{rec['calls']} ({rec['secs'] / wall:.3f})"
+            for name, rec in snap.items() if rec["secs"] or rec["calls"]]
+    print(f"{label}: step-thread phases over {wall:.3f} s of serve wall [{card}]: "
+          + "; ".join(rows))
+
+
+def obs_metric(text: str, name: str, label: str | None = None) -> float:
+    """One sample of a Prometheus text exposition (0 when absent), of the
+    collector ``label`` when given."""
+    sel = rf'\{{engine="{label}"\}}' if label is not None else r'\{engine="\d+"\}'
+    m = re.search(rf"^{name}{sel} (\S+)$", text, re.M)
+    return float(m.group(1)) if m else 0.0
+
+
+async def obs_stream(engine, req, tenant, priority, t0):
+    """tenant_stream with the request's id: (items, seconds to its first
+    token, seconds from ``t0`` to its end, request id)."""
+    from dynamo_tpu_torch.runtime.context import PRIORITY_HEADER, TENANT_HEADER, Context
+
+    t_sub = time.perf_counter()
+    items, first = [], None
+    ctx = Context(headers={TENANT_HEADER: tenant, PRIORITY_HEADER: priority})
+    async for item in engine.generate(req, ctx):
+        if item["token_ids"] and first is None:
+            first = time.perf_counter() - t_sub
+        items.append(item)
+    return items, first, time.perf_counter() - t0, ctx.id
+
+
+def obs_inprocess(spec, cfg, params, prompts, card) -> int:
+    """Phase 20 (a) and (d): the default serve traced and profiled on a
+    llama-3-8b engine, its gates, one packed prefill under torch.profiler,
+    then the tracing-and-profiling overhead in interleaved serves on the
+    same engine. Returns the fused_decode launches of its serves."""
+    from dynamo_tpu_torch.engine import telemetry
+    from dynamo_tpu_torch.runtime import tracing
+    from dynamo_tpu_torch.runtime.flight import FLIGHT
+
+    L, n = spec.num_layers, len(prompts)
+    OBS_DIR.mkdir(parents=True, exist_ok=True)
+    trace, scratch = OBS_DIR / "inprocess.jsonl", OBS_DIR / "overhead.jsonl"
+    for f in (trace, scratch):
+        f.unlink(missing_ok=True)
+    engine = new_engine(spec, dict(cfg, kv_dtype="bf16", profile=True), "observability",
+                        params=params)
+    engine.reset_profile_window()  # the window starts after precompile's captures
+
+    async def traced(e):
+        FLIGHT.clear()
+        tracing.set_trace_file(str(trace))
+        col = telemetry.EngineCollector(e)  # its counters start at the window's 0
+        t0 = time.perf_counter()
+        res = await serve(e, prompts)
+        wall = time.perf_counter() - t0
+        col.sample()
+        snap = e.profile_snapshot()
+        tracing.set_trace_file(None)
+        recent = FLIGHT.snapshot(n=n)["recent"]
+        return {"serve": res, "wall": wall, "snap": snap,
+                "render": telemetry.REGISTRY.render(), "label": col.label,
+                "timelines": [FLIGHT.snapshot(t["request_id"])["timeline"] for t in recent]}
+
+    def plain(on: bool):
+        async def run(e):
+            e._profiling = on
+            tracing.set_trace_file(str(scratch) if on else None)
+            try:
+                return await serve(e, prompts)
+            finally:
+                tracing.set_trace_file(None)
+                e._profiling = True
+        return run
+
+    order = [("off 1", False), ("on 1", True), ("on 2", True), ("off 2", False)]
+    out = serve_phases(engine, [("traced", traced)] + [(k, plain(on)) for k, on in order])
+    res, counts, steps = out["traced"]["res"], out["traced"]["counts"], out["traced"]["steps"]
+    results, ttft, wall, _hit = res["serve"]
+    snap = res["snap"]
+    n_tok = sum(len(x["token_ids"]) for items in results.values() for x in items)
+    # gates
+    require(counts["fused_decode"] == L * steps == L * out["traced"]["replays"],
+            f"observability: fused_decode {counts['fused_decode']} over {steps} steps")
+    tls = res["timelines"]
+    require(len(tls) == n, f"observability: {len(tls)} timelines for {n} requests")
+    for tl in tls:
+        names = [ev["name"] for ev in tl["events"]]
+        require(names == ["admit", "first_token"] and tl["finish_reason"] == "length"
+                and tl["generated"] == SERVE_TOKENS,
+                f"observability: timeline {names}, finish {tl['finish_reason']}, "
+                f"{tl['generated']} tokens")
+    require(snap["dispatch.compile"]["calls"] == 0,
+            f"observability: {snap['dispatch.compile']} graph captures after precompile()")
+    disp = obs_metric(res["render"], "dynamo_engine_dispatches_total", res["label"])
+    require(disp == snap["dispatch.dispatches"]["calls"] > 0,
+            f"observability: dynamo_engine_dispatches_total {disp}, profile "
+            f"{snap['dispatch.dispatches']}")
+    burst_sum = obs_metric(res["render"], "dynamo_engine_burst_tokens_sum", res["label"])
+    # each request's first token lands from its prefill's sample, not a burst
+    require(burst_sum == n_tok - n,
+            f"observability: burst tokens {burst_sum}, {n_tok - n} decode tokens streamed")
+    spans = obs_spans(trace)
+    for tl in tls:
+        mine = obs_request_spans(spans, tl["request_id"])
+        require(set(mine) == {"worker.request", "engine.queue_wait", "engine.prefill",
+                              "engine.decode"}
+                and all(s["trace_id"] == tl["trace_id"] for s in mine.values()),
+                f"observability: spans of {tl['request_id']}: "
+                f"{ {k: s['trace_id'] for k, s in mine.items()} }")
+    pp = snap.get("packed_prefill", {"secs": 0.0, "calls": 0})
+    ttft_ms = 1e3 * sum(ttft.values()) / len(ttft)
+    print(f"observability serve [{card}]: {n} requests, {n_tok} tokens in {wall:.3f} s; "
+          f"TTFT mean {ttft_ms:.1f} ms beside packed_prefill {1e3 * pp['secs']:.1f} ms over "
+          f"{pp['calls']} calls ({1e3 * pp['secs'] / max(pp['calls'], 1):.1f} ms each); "
+          f"dispatches {snap['dispatch.dispatches']['calls']} = "
+          f"dynamo_engine_dispatches_total; graph captures after precompile 0; burst "
+          f"tokens {burst_sum:.0f} + {n} first tokens = {n_tok} streamed; fused_decode "
+          f"{counts['fused_decode']} = {L} x {steps}; {len(spans)} spans, every request's "
+          f"worker.request, engine.queue_wait, engine.prefill and engine.decode on its "
+          f"trace")
+    obs_phase_lines(snap, res["wall"], "observability serve", card)
+    split = {k: [obs_request_spans(spans, tl["request_id"])[k]["duration_ms"] for tl in tls]
+             for k in ("engine.queue_wait", "engine.prefill", "engine.decode")}
+    print(f"observability serve spans [{card}]: " + "; ".join(
+        f"{k} mean {sum(v) / len(v):.1f} ms, max {max(v):.1f} ms" for k, v in split.items()))
+    (OBS_DIR / "profile.json").write_text(json.dumps({"card": card, "profile": snap}))
+    # one packed prefill of the 8 prompts (bucket of the longest), traced
+    bts, _first, _lens = prefill_slots(engine, prompts)
+    tokens = np.zeros((n, engine.config.bucket_for(max(len(p) for p in prompts))), np.int32)
+    for i, p in enumerate(prompts):
+        tokens[i, : len(p)] = p
+    tok_d = torch.from_numpy(tokens).to(DEVICE)
+    bts_d = torch.from_numpy(bts).to(DEVICE)
+    lens = torch.tensor([len(p) for p in prompts])
+
+    def packed():
+        with torch.no_grad():
+            engine.fam.prefill_batch(spec, engine.params, tok_d, bts_d,
+                                     torch.zeros(n, dtype=torch.int64), engine.k_pages,
+                                     engine.v_pages, lens)
+
+    prof = profile_decode_step(packed, f"packed prefill ({n} prompts, bucket "
+                                       f"{tokens.shape[1]}) [{card}]")
+    if prof is not None:
+        print(f"observability packed prefill [{card}]: host wall {prof['wall_ms']:.2f} ms "
+              f"against device busy {prof['busy_ms']:.2f} ms "
+              f"({prof['busy_ms'] / prof['wall_ms']:.3f} of the wall)")
+    # (d) the overhead: the default serve with profiling and tracing off and
+    # on, interleaved on the same engine
+    for k, _on in order:
+        o = out[k]
+        rs, tt, w, _h = o["res"]
+        nt = sum(len(x["token_ids"]) for items in rs.values() for x in items)
+        require(o["counts"]["fused_decode"] == L * o["steps"],
+                f"observability {k}: fused_decode {o['counts']['fused_decode']} over "
+                f"{o['steps']} steps")
+        print(f"observability overhead {k} (profiling and tracing {k.split()[0]}) [{card}]: "
+              f"TTFT mean {1e3 * sum(tt.values()) / len(tt):.1f} ms, {nt / w:.1f} tok/s, "
+              f"decode dispatch-to-host mean "
+              f"{1e3 * sum(o['times']) / max(len(o['times']), 1):.2f} ms")
+    drop_engine(engine)
+    return sum(out[k]["counts"]["fused_decode"] for k in out)
+
+
+def obs_overload(spec, cfg, params, prompts, card) -> int:
+    """Phase 20 (b), the preempting overload cell of phase 13 profiled and
+    traced: the interactive TTFT split into engine.queue_wait and
+    engine.prefill, and the preempt phase. Returns fused_decode launches."""
+    from dynamo_tpu_torch.runtime import tracing
+
+    L = spec.num_layers
+    inter, _pages = overload_prompts(spec.vocab_size)
+    trace = OBS_DIR / "overload.jsonl"
+    trace.unlink(missing_ok=True)
+
+    async def drive(engine):
+        tracing.set_trace_file(str(trace))
+        t0 = time.perf_counter()
+        batch = [asyncio.ensure_future(obs_stream(
+            engine, make_request(p, OVERLOAD_BATCH_TOKENS), "bt", "batch", t0))
+            for p in prompts]
+        while (sum(s is not None and not s.first_pending for s in engine._slots)
+               < len(prompts)):
+            require(not any(b.done() for b in batch), "observability overload: a batch "
+                                                      "stream ended before all held a slot")
+            await asyncio.sleep(0.002)
+        interactive = []
+        for p in inter:
+            interactive.append(asyncio.ensure_future(obs_stream(
+                engine, make_request(p, OVERLOAD_INTERACTIVE_TOKENS), "it", "interactive",
+                t0)))
+            await asyncio.sleep(OVERLOAD_GAP_S)
+        b_out = await asyncio.gather(*batch)
+        i_out = await asyncio.gather(*interactive)
+        tracing.set_trace_file(None)
+        return {"batch": b_out, "inter": i_out, "wall": time.perf_counter() - t0,
+                "snap": engine.profile_snapshot(), "preemptions": dict(engine.preemptions)}
+
+    engine = new_engine(spec, dict(cfg, kv_dtype="bf16", pipeline_decode=True,
+                                   pipeline_depth=2, decode_steps_per_dispatch=4,
+                                   preemption=True, profile=True),
+                        "observability overload", params=params)
+    engine.reset_profile_window()
+    out = serve_phases(engine, [("overload", drive)])["overload"]
+    drop_engine(engine)
+    counts, steps, res = out["counts"], out["steps"], out["res"]
+    require(counts["fused_decode"] == L * steps,
+            f"observability overload: fused_decode {counts['fused_decode']} over {steps}")
+    for i, (items, _f, _e, _rid) in enumerate(res["batch"]):
+        stream_tokens(items, OVERLOAD_BATCH_TOKENS, f"observability overload batch {i}")
+    spans = obs_spans(trace)
+    rows = []
+    for i, (items, first, _e, rid) in enumerate(res["inter"]):
+        stream_tokens(items, OVERLOAD_INTERACTIVE_TOKENS,
+                      f"observability overload interactive {i}")
+        mine = obs_request_spans(spans, rid)
+        rows.append((1e3 * first, mine["engine.queue_wait"]["duration_ms"],
+                     mine["engine.prefill"]["duration_ms"]))
+    snap = res["snap"]
+    pre = snap.get("preempt", {"secs": 0.0, "calls": 0})
+    mean = [sum(r[k] for r in rows) / len(rows) for k in range(3)]
+    print(f"observability overload [{card}]: interactive TTFT mean {mean[0]:.1f} ms = "
+          f"engine.queue_wait {mean[1]:.1f} ms + engine.prefill {mean[2]:.1f} ms (+ the "
+          f"stream's hops); per request (TTFT, queue_wait, prefill) ms "
+          f"{[tuple(round(x, 1) for x in r) for r in rows]}; preempt {pre['secs']:.4f} s "
+          f"over {pre['calls']} calls; preemptions {res['preemptions']}; {steps} decode "
+          f"steps, fused_decode {counts['fused_decode']}")
+    obs_phase_lines(snap, res["wall"], "observability overload", card)
+    return counts["fused_decode"]
+
+
+def obs_guided(spec, cfg, params, prompts, card) -> int:
+    """Phase 20 (b), phase 14's guided mixed serve profiled: guided.mask,
+    build_batch, dispatch and process per decode step. Returns fused_decode
+    launches."""
+    from dynamo_tpu_torch.frontend.tokenizer import MockTokenizer
+    from dynamo_tpu_torch.guided import TokenVocab
+
+    L = spec.num_layers
+    vocab = TokenVocab.from_tokenizer(MockTokenizer(), spec.vocab_size)
+    grammars = guided_grammars(vocab)
+    kinds = ["json_schema", "json_schema", "json_object", "json_object", "regex", "regex",
+             "free", "free"]
+    reqs = guided_requests(prompts, grammars, kinds)
+    engine = guided_engine(spec, dict(cfg, pipeline_decode=True, pipeline_depth=2,
+                                      decode_steps_per_dispatch=4, profile=True),
+                           params, vocab, "observability guided")
+    engine.reset_profile_window()
+
+    async def mixed(e):
+        t0 = time.perf_counter()
+        r = await requests(e, reqs)
+        return r, time.perf_counter() - t0, e.profile_snapshot()
+
+    out = serve_phases(engine, [("guided", mixed)])["guided"]
+    drop_engine(engine)
+    (items, _ttft, _w), wall, snap = out["res"]
+    counts, steps = out["counts"], out["steps"]
+    require(counts["fused_decode"] == L * steps,
+            f"observability guided: fused_decode {counts['fused_decode']} over {steps}")
+    require(all(it[-1]["finish_reason"] in ("stop", "length") for it in items),
+            f"observability guided: finishes {[it[-1]['finish_reason'] for it in items]}")
+    n_tok = sum(len(x["token_ids"]) for it in items for x in it)
+    per = []
+    for name in ("guided.mask", "build_batch", "dispatch", "process"):
+        rec = snap.get(name, {"secs": 0.0, "calls": 0})
+        per.append(f"{name} {rec['secs']:.4f} s x{rec['calls']} = "
+                   f"{1e3 * rec['secs'] / max(steps, 1):.3f} ms per step")
+    print(f"observability guided [{card}]: {n_tok} tokens in {wall:.3f} s over {steps} decode "
+          f"steps; " + "; ".join(per))
+    obs_phase_lines(snap, wall, "observability guided", card)
+    return counts["fused_decode"]
+
+
+async def _obs_drive(spec, prompts, port, worker, audit: Path, traces: dict) -> dict:
+    """Phase 20 (c)'s traffic: 8 streamed completions from a stdlib client,
+    each with a traceparent of its own, then the gates' reads."""
+    name = spec.name
+    t0 = time.perf_counter()
+    while True:
+        status, body, _ = await http_call(port, "GET", "/v1/models")
+        if status == 200 and [m["id"] for m in json.loads(body)["data"]] == [name]:
+            break
+        require(time.perf_counter() - t0 < 60, "observability processes: no model listed")
+        await asyncio.sleep(0.1)
+    tids = [f"{0xd00 + i:032x}" for i in range(len(prompts))]
+    t1 = time.perf_counter()
+    streams = await asyncio.gather(*(http_call(port, "POST", "/v1/completions", {
+        "model": name, "prompt": p, "max_tokens": SERVE_TOKENS, "ignore_eos": True,
+        "stream": True, "stream_options": {"include_usage": True}},
+        headers={"traceparent": f"00-{tid}-{OBS_CLIENT_SPAN}-01"})
+        for p, tid in zip(prompts, tids)))
+    wall = time.perf_counter() - t1
+    ttft = []
+    for i, (status, body, times) in enumerate(streams):
+        ev = sse_events(body)
+        usage = (ev[-2].get("usage") or {}) if len(ev) > 1 else {}
+        require(status == 200 and ev[-1] == "[DONE]"
+                and usage.get("completion_tokens") == SERVE_TOKENS,
+                f"observability processes: stream {i} status {status}, usage {usage}")
+        ttft.append(times[0])
+    # the spans, audit records and sampled series land asynchronously
+    deadline = time.perf_counter() + OBS_WAIT_S
+    while True:
+        wr = [s for s in obs_spans(traces["worker"]) if s["span"] == "worker.request"
+              and s["trace_id"] in tids]
+        recs = [json.loads(ln) for ln in audit.read_text().splitlines()] if audit.exists() else []
+        _st, mbody, _t = await http_call(worker.status_port, "GET", "/metrics")
+        text = mbody.decode()
+        steps_n = obs_metric(text, "dynamo_engine_step_seconds_count")
+        disp = obs_metric(text, "dynamo_engine_dispatches_total")
+        if (len(wr) == len(prompts) and len(recs) >= len(prompts) and steps_n > 0
+                and disp > 0):
+            break
+        require(time.perf_counter() < deadline,
+                f"observability processes: {len(wr)} worker.request spans, {len(recs)} "
+                f"audit records, step count {steps_n}, dispatches {disp}")
+        await asyncio.sleep(0.2)
+    rid = next(s for s in wr if s["trace_id"] == tids[0])["request_id"]
+    status, body, _ = await http_call(port, "GET", f"/debug/timeline?request_id={rid}")
+    require(status == 200, f"observability processes: /debug/timeline {status}")
+    tl = json.loads(body)
+    found = [w["timeline"] for comp in tl["results"].values() for w in comp.values()
+             if isinstance(w, dict) and w.get("found")]
+    return {"tids": tids, "ttft": ttft, "wall": wall, "audit": recs, "timeline": found,
+            "metrics": (steps_n, disp), "rid": rid}
+
+
+def obs_processes(spec, cfg, prompts, card, device=None) -> int:
+    """Phase 20 (c): ``cli hub``, one ``cli worker --precompile`` and ``cli
+    frontend`` over TCP, as phase 11 builds them, each with a trace file of
+    its own and the frontend with an audit file. Returns the worker's
+    fused_decode launches."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    L = spec.num_layers
+    OBS_DIR.mkdir(parents=True, exist_ok=True)
+    traces = {k: OBS_DIR / f"{k}.jsonl" for k in ("hub", "worker", "frontend")}
+    audit = OBS_DIR / "audit.jsonl"
+    for f in (*traces.values(), audit):
+        f.unlink(missing_ok=True)
+    dev = ["--device", device] if device else []
+    flags = ["--page-size", str(cfg["page_size"]), "--num-pages", str(cfg["num_pages"]),
+             "--max-pages-per-seq", str(cfg["max_pages_per_seq"]),
+             "--max-decode-slots", str(cfg["max_decode_slots"])]
+    children: list[Child] = []
+    t0 = time.perf_counter()
+    try:
+        hub_proc = Child("hub", "--port", "0", env={"DYN_TRACE_FILE": str(traces["hub"])})
+        children.append(hub_proc)
+        hub = hub_proc.wait_line("DYNAMO_HUB=", 60).split("=", 1)[1]
+        worker = Child("worker", "--hub", hub, "--model", spec.name, "--precompile",
+                       "--health-port", "0", *flags, *dev,
+                       env={"DYN_TRACE_FILE": str(traces["worker"])})
+        children.append(worker)
+        front = Child("frontend", "--hub", hub, "--port", "0", "--host", "127.0.0.1",
+                      env={"DYN_TRACE_FILE": str(traces["frontend"]),
+                           "DYN_AUDIT_PATH": str(audit)})
+        children.append(front)
+        port = int(front.wait_line("DYNAMO_HTTP=", 60).rsplit(":", 1)[1])
+        worker.status_port = int(worker.wait_line("SYSTEM_STATUS_PORT=", PROC_START_S)
+                                 .split("=", 1)[1])
+        worker.wait_line("ENGINE_READY", PROC_START_S)
+        t_ready = time.perf_counter() - t0
+        out = asyncio.run(_obs_drive(spec, prompts, port, worker, audit, traces))
+        for child in (worker, front, hub_proc):
+            require(child.stop() == 0, f"{child.name} exited non-zero: {child.seen[-8:]}")
+    finally:
+        for child in children:
+            if child.proc.poll() is None:
+                child.proc.kill()
+                child.proc.wait(30)
+    log = json.loads(worker.logged("ENGINE_LAUNCHES ").split(" ", 1)[1])
+    fused, steps = log["launches"].get("fused_decode_attention", 0), log["steps"]
+    require(DEVICE != "cuda" or (fused == L * steps and steps > 0),
+            f"observability processes: fused_decode {fused} over {steps} logged steps")
+    fspans, wspans = obs_spans(traces["frontend"]), obs_spans(traces["worker"])
+    splits = []
+    for tid in out["tids"]:
+        f = {s["span"]: s for s in fspans if s["trace_id"] == tid}
+        w = [s for s in wspans if s["trace_id"] == tid]
+        wr = [s for s in w if s["span"] == "worker.request"]
+        require({"http.request", "http.preprocess", "transport.call"} <= set(f)
+                and len(wr) == 1,
+                f"observability processes: trace {tid}: frontend {sorted(f)}, "
+                f"worker {sorted(s['span'] for s in w)}")
+        require(f["http.request"]["parent_span_id"] == OBS_CLIENT_SPAN
+                and f["transport.call"]["parent_span_id"] == f["http.request"]["span_id"]
+                and wr[0]["parent_span_id"] == f["transport.call"]["span_id"],
+                f"observability processes: trace {tid}: the worker.request is not the "
+                "frontend transport.call's child")
+        eng = {s["span"]: s for s in w if s["parent_span_id"] == wr[0]["span_id"]}
+        require({"engine.queue_wait", "engine.prefill", "engine.decode"} <= set(eng),
+                f"observability processes: trace {tid}: engine spans {sorted(eng)}")
+        splits.append((f["http.request"]["duration_ms"], f["transport.call"]["duration_ms"],
+                       wr[0]["duration_ms"], eng["engine.queue_wait"]["duration_ms"],
+                       eng["engine.prefill"]["duration_ms"],
+                       eng["engine.decode"]["duration_ms"]))
+    require(len(out["timeline"]) == 1
+            and [e["name"] for e in out["timeline"][0]["events"]] == ["admit", "first_token"]
+            and out["timeline"][0]["finish_reason"] == "length",
+            f"observability processes: /debug/timeline answered {out['timeline']}")
+    recs = out["audit"]
+    require(len(recs) == len(prompts) and all(
+        r["status"] == 200 and r["output_tokens"] == SERVE_TOKENS for r in recs),
+        f"observability processes: audit records {[(r['status'], r['output_tokens']) for r in recs]}")
+    mean = [sum(s[k] for s in splits) / len(splits) for k in range(6)]
+    hub_spans = len(obs_spans(traces["hub"]))
+    print(f"observability processes [{card}]: hub, worker, frontend ready in {t_ready:.1f} s; "
+          f"{len(prompts)} traced streams in {out['wall']:.3f} s, client TTFT mean "
+          f"{1e3 * sum(out['ttft']) / len(out['ttft']):.1f} ms; every request one trace "
+          f"across the files (frontend {len(fspans)} spans, worker {len(wspans)}, hub "
+          f"{hub_spans}), worker.request under the frontend's transport.call; span means "
+          f"ms: http.request {mean[0]:.1f}, transport.call {mean[1]:.1f}, worker.request "
+          f"{mean[2]:.1f} = queue_wait {mean[3]:.1f} + prefill {mean[4]:.1f} + decode "
+          f"{mean[5]:.1f}; /debug/timeline read {out['rid']}; worker /metrics "
+          f"dynamo_engine_step_seconds_count {out['metrics'][0]:.0f}, "
+          f"dynamo_engine_dispatches_total {out['metrics'][1]:.0f}; audit {len(recs)} "
+          f"records of {SERVE_TOKENS} tokens; fused_decode {fused} = {L} x {steps}")
+    return fused
+
+
+def observability_phase(spec, cfg, params, prompts, card) -> int:
+    """Phase 20 (a), (b) and (d) on phase 4's weights. Returns the
+    fused_decode launches of its serves."""
+    t0 = time.perf_counter()
+    launches = obs_inprocess(spec, cfg, params, prompts, card)
+    launches += obs_overload(spec, cfg, params, prompts, card)
+    launches += obs_guided(spec, cfg, params, prompts, card)
+    print(f"phase 20 (a, b, d): {time.perf_counter() - t0:.1f} s, fused_decode {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the GPU",
@@ -6577,6 +7078,9 @@ def main() -> int:
     # the same weights served over HTTP by the one-process stack
     http_launches, http_stats = http_serve(spec, dict(cfg, kv_dtype="bf16"), params,
                                            prompts, default_out, bf16_tokens)
+    # observability on the same weights: the default serve traced and
+    # profiled, the overload and guided splits, the instrumentation's cost
+    obs_launches = observability_phase(spec, cfg, params, prompts, card)
     del params
     torch.cuda.empty_cache()
     # the same stack from the command line, in a process of its own
@@ -6591,6 +7095,11 @@ def main() -> int:
             "bf16": (bf16_tokens, 1e3 * sum(p4_ttft.values()) / len(p4_ttft)),
             "fp8": (fp8_tokens, 1e3 * sum(fp8_ttft.values()) / len(fp8_ttft))},
         p11_ttft, card)
+    # observability across processes: hub, worker and frontend traced, the
+    # frontend audited
+    t20 = time.perf_counter()
+    obs_launches += obs_processes(spec, cfg, prompts, card)
+    print(f"phase 20 (c): {time.perf_counter() - t20:.1f} s")
 
     # MoE and checkpoints: gpt-oss-120b at full width, the llama checkpoint
     # round trip (every llama engine is freed by now)
@@ -6618,7 +7127,8 @@ def main() -> int:
 
     launches = {"fused_decode": serve_launches["fused_decode"] + http_launches
                 + process_launches + overload_launches + guided_launches
-                + kvbm_launches + text_launches["fused_decode"] + disagg_launches,
+                + kvbm_launches + text_launches["fused_decode"] + disagg_launches
+                + obs_launches,
                 "paged_attention_v3": unfused[0], "kv_write": unfused[2],
                 "kv_write/verify": spec_kv_launches + guided_kv_launches
                 + text_launches["kv_write/verify"],

@@ -330,13 +330,16 @@ class EngineConfig:
     guided_mode: str = "auto"  # "auto" | "off"
     guided_cache_entries: int = 32
 
+    # step-phase profiler (engine/core.py profile_snapshot); also
+    # DYNAMO_ENGINE_PROFILE=1
+    profile: bool = False
+
     # -- JAX engine only, until their slices are ported (see UNPORTED) ------
     tp: int = 1
     dp: int = 1
     sp: int = 1
     ep: int = 1
     pp: int = 1
-    profile: bool = False
 
     def __post_init__(self) -> None:
         if self.max_decode_slots is None:
@@ -379,6 +382,5 @@ _PARALLEL = "parallelism (ROADMAP Queue A item 11)"
 # fields of features the port's engine lacks -> what is missing
 UNPORTED = {
     "tp": _PARALLEL, "dp": _PARALLEL, "sp": _PARALLEL, "ep": _PARALLEL, "pp": _PARALLEL,
-    "profile": "the step-phase profiler (ROADMAP Queue A item 13)",
 }
 _UNPORTED_DEFAULTS = {f.name: f.default for f in fields(EngineConfig) if f.name in UNPORTED}

@@ -104,10 +104,26 @@ full local prefill of prompt + first token with the budget cut by one
 (``disagg_fallbacks``); a bounced, shed or cancelled resume releases its
 export. Multimodal resumes (the image salt) wait for item 12.
 
-Not in this engine yet (see ROADMAP): SPMD/meshes, multimodal,
-embeddings, telemetry and tracing, the fault sites other than
-``engine.spec_verify``, ``engine.preempt``, ``engine.quant``, ``disagg.pull``
-and the ``migration.resume`` and ``kvbm.onboard`` corrupt sites.
+Observability (runtime/flight.py, runtime/tracing.py, engine/telemetry.py):
+``generate()`` opens the request's flight-recorder timeline, bound to the
+caller's trace, and the step thread records its events (``admit``,
+``prefill_chunk``, ``first_token``, ``spec_verify``, ``disagg_resume``,
+``shed``, ``preempt``, ``fault``); at finish the timeline becomes the
+``worker.request`` span and its ``engine.*`` children. The step profiler
+(``EngineConfig.profile`` or ``DYNAMO_ENGINE_PROFILE=1``) accumulates wall
+seconds and calls per catalogued phase of the step thread
+(``profile_snapshot``); dispatch accounting (``dispatches``) and the CUDA
+graph captures since the engine was built (``dispatch.compile``, the
+counterpart of the reference's XLA compile events) are always on. The step
+thread feeds ``step_times`` and ``burst_fills``, which the worker's
+``EngineCollector`` drains onto /metrics. Fault sites: ``engine.step`` (a
+work cycle; an error fails the in-flight requests and the engine keeps
+serving), ``engine.admit`` (intake; a drop is a retryable refusal),
+``engine.compile`` (per precompiled variant), ``engine.spec_verify``,
+``engine.preempt``, ``engine.quant``, ``disagg.pull``, and the
+``migration.resume`` and ``kvbm.onboard`` corrupt sites.
+
+Not in this engine yet (see ROADMAP): SPMD/meshes, multimodal, embeddings.
 
 The engine is family-blind (models/family.py): a DeepSeek spec runs MLA
 (models/mla.py) through the same scheduler, prefix cache, KV events,
@@ -130,7 +146,9 @@ from __future__ import annotations
 
 import asyncio
 import collections
+import contextlib
 import logging
+import os
 import queue
 import threading
 import time
@@ -165,7 +183,9 @@ from dynamo_tpu_torch.runtime.context import (
     ServiceUnavailable,
     tenancy_from_headers,
 )
+from dynamo_tpu_torch.runtime import tracing
 from dynamo_tpu_torch.runtime.faults import FAULTS, FaultDrop, FaultInjected
+from dynamo_tpu_torch.runtime.flight import FLIGHT, emit_request_spans
 from dynamo_tpu_torch.runtime.integrity import verify_resume_tokens
 from dynamo_tpu_torch.tokens import TokenBlockSequence
 
@@ -209,6 +229,10 @@ class _Slot:
     # guided decoding (guided/runtime.py): the grammar cursor the host
     # advances as tokens land, None for a free slot
     guided: Any | None = None
+    # step profiler (perf_counter): the dequeue, and the end of the prefill
+    # dispatch; 0 when profiling is off or the span was recorded
+    admit_t: float = 0.0
+    prefill_done_t: float = 0.0
 
 
 @dataclass
@@ -216,9 +240,10 @@ class _Waiting:
     request: dict[str, Any]
     context: Context
     out_q: asyncio.Queue
-    # perf_counter at enqueue: the admit-wait start the reference's step
-    # profiler reads (ROADMAP Queue A item 13)
+    # perf_counter at enqueue and at the step thread's dequeue: the step
+    # profiler's readmit.admit_wait span
     enq_t: float = 0.0
+    admit_t: float = 0.0
     # the TenantScheduler's keys: the class picks the lane group, the
     # tenant the lane, the cost the weighted-fair vtime advance
     tenant: str = "default"
@@ -426,9 +451,21 @@ class InferenceEngine:
         # thread between the two), on the host's monotonic clock
         self.decode_step_times: collections.deque = collections.deque(maxlen=4096)
         self.decode_spans: collections.deque = collections.deque(maxlen=4096)
-        # wall seconds per step-loop cycle that did work: the saturation
-        # Retry-After's step-time samples
+        # wall seconds per step-loop cycle that did work (the saturation
+        # Retry-After's samples) and tokens landed per processed burst: the
+        # step thread appends, the telemetry collector drains
         self.step_times: collections.deque = collections.deque(maxlen=4096)
+        self.burst_fills: collections.deque = collections.deque(maxlen=4096)
+        self.telemetry = None  # EngineCollector, attached by the worker
+        # step-phase profiler (EngineConfig.profile or DYNAMO_ENGINE_PROFILE=1):
+        # wall seconds + calls per phase, read by profile_snapshot()
+        self._profiling = (cfg.profile
+                           or os.environ.get("DYNAMO_ENGINE_PROFILE") == "1")
+        self._prof: dict[str, list[float]] = {}
+        # dispatch accounting, always on: device programs the step thread
+        # issued, and the graph-capture baseline dispatch.compile counts from
+        self.dispatches = 0
+        self._capture_base = self._capture_totals()
         # rolling wall-clock latency of a step that did work, in ms (0 = not
         # measured yet): published in ForwardPassMetrics as the worker's
         # degradation fingerprint
@@ -469,6 +506,8 @@ class InferenceEngine:
         if self.transfer_source is not None:
             # its server, its registry entry and every unpulled export
             await self.transfer_source.close()
+        if self.telemetry is not None:
+            await self.telemetry.close()
         # the step thread is gone: flush the last KV events (bounded: a hub
         # that went away first retries its reconnect window), stop publishing
         for pub in (self.events, self.metrics):
@@ -478,14 +517,127 @@ class InferenceEngine:
                 except (asyncio.TimeoutError, ConnectionError):
                     log.warning("publisher close: last KV events not flushed")
 
-    def precompile(self) -> None:
+    def precompile(self) -> dict[str, dict]:
         """Capture every decode graph variant, and with spec on the verify
         grid, now, before traffic (the JAX engine's precompile()); the
         masked variants too when the engine serves guided requests. Call
-        before start() or while idle; a no-op on the CPU."""
-        self._graphs.precompile()
+        before start() or while idle. Returns the reference's report,
+        ``{variant: {"secs", "compiles"[, "error"]}}``, where ``compiles``
+        counts the variant's graph captures (0 on the CPU, where nothing is
+        captured). The ``engine.compile`` fault site fires per variant: on
+        an error the variant stays uncaptured, is reported with the error,
+        and its first use captures it lazily."""
+        report: dict[str, dict] = {}
+
+        def timed(name: str, capture) -> None:
+            c0 = self._capture_totals()[0]
+            t0 = time.perf_counter()
+            try:
+                if FAULTS.enabled:
+                    FAULTS.fire_sync("engine.compile")
+                capture()
+            except Exception as e:  # noqa: BLE001
+                log.warning("precompile %s failed (%s); its first use "
+                            "captures it instead", name, e)
+                report[name] = {"secs": round(time.perf_counter() - t0, 3),
+                                "compiles": self._capture_totals()[0] - c0,
+                                "error": str(e)}
+                return
+            dt = time.perf_counter() - t0
+            report[name] = {"secs": round(dt, 3),
+                            "compiles": self._capture_totals()[0] - c0}
+            log.info("precompile %s: %.0f ms (%d captures)", name, dt * 1e3,
+                     report[name]["compiles"])
+
+        B = len(self._slots)
+        for key in self._graphs.variants():
+            sampled, n_lp, masked = key
+            name = (f"decode[{B}x{'sampled' if sampled else 'greedy'}"
+                    f"{f',lp{n_lp}' if n_lp else ''}{',masked' if masked else ''}]")
+            timed(name, lambda k=key: self._graphs.precompile([k]))
         if self._verify is not None:
-            self._verify.precompile()
+            W = self._verify.width
+            for key in self._verify.variants():
+                n, masked = key
+                name = f"verify{'_masked' if masked else ''}[{n}x{W}]"
+                timed(name, lambda k=key: self._verify.precompile([k]))
+        return report
+
+    # -- step profiler -----------------------------------------------------
+
+    def _capture_totals(self) -> tuple[int, float]:
+        """(graph captures, seconds capturing) of the decode and verify
+        graphs since they were built: the counterpart of the reference's
+        XLA compile events."""
+        objs = [g for g in (self._graphs, self._verify) if g is not None]
+        return (sum(g.captures for g in objs),
+                sum(g.capture_secs for g in objs))
+
+    def _prof_add(self, name: str, dt: float) -> None:
+        """Accumulate one timed span into the phase profiler (a no-op
+        unless profiling): the re-admission spans ``readmit.admit_wait`` /
+        ``readmit.prefill_dispatch`` / ``readmit.first_token``, measured
+        across cycles."""
+        if not self._profiling:
+            return
+        rec = self._prof.setdefault(name, [0.0, 0])
+        rec[0] += dt
+        rec[1] += 1
+
+    @contextlib.contextmanager
+    def _phase(self, name: str):
+        """Time the enclosed step-thread work as phase ``name`` (a no-op
+        unless profiling)."""
+        if not self._profiling:
+            yield
+            return
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            rec = self._prof.setdefault(name, [0.0, 0])
+            rec[0] += time.perf_counter() - t0
+            rec[1] += 1
+
+    def profile_snapshot(self) -> dict[str, dict[str, float]]:
+        """Per-phase accumulated step-thread wall seconds and calls
+        (profiling mode), plus the always-on dispatch accounting:
+
+        - ``dispatch.dispatches``: device programs the step thread issued
+          (calls; secs stays 0). One per decode burst (its chained replays
+          of the captured one-step graph, or its eager steps on the CPU),
+          one per verify replay, and one per eager forward or sample: each
+          prefill, packed prefill and prefill chunk, each first-token
+          sample and each logprob pass over admission logits.
+        - ``dispatch.d2h_wait`` / ``readmit.d2h_wait``: wall seconds the
+          step thread spent blocked on a host read of a CUDA tensor (a
+          burst's or a verify's records, a first-token copy), outside and
+          inside the admission phases.
+        - ``dispatch.compile``: CUDA graph captures (and their seconds)
+          since the engine was built; nonzero in a steady window after
+          precompile() means a variant escaped the warm-up set.
+        """
+        snap = {
+            k: {"secs": round(v[0], 4), "calls": int(v[1])}
+            for k, v in sorted(self._prof.items(), key=lambda kv: -kv[1][0])
+        }
+        snap.setdefault("dispatch.d2h_wait", {"secs": 0.0, "calls": 0})
+        snap.setdefault("readmit.d2h_wait", {"secs": 0.0, "calls": 0})
+        snap["dispatch.dispatches"] = {"secs": 0.0, "calls": self.dispatches}
+        c, secs = self._capture_totals()
+        snap["dispatch.compile"] = {
+            "secs": round(secs - self._capture_base[1], 4),
+            "calls": c - self._capture_base[0],
+        }
+        return snap
+
+    def reset_profile_window(self) -> None:
+        """Zero the profiler and the dispatch accounting, so the next
+        profile_snapshot covers only work from here on (drop warm-up and
+        capture noise before a measured window)."""
+        self._prof.clear()
+        self.dispatches = 0
+        self._capture_base = self._capture_totals()
 
     def release_graphs(self) -> None:
         """Drop the captured decode and verify graphs. They hold raw
@@ -591,6 +743,13 @@ class InferenceEngine:
             raise DeadlineExceeded(
                 f"request {context.id} deadline passed before admission"
             )
+        if FAULTS.enabled:
+            try:
+                await FAULTS.fire("engine.admit")
+            except ConnectionError as e:
+                # a drop at intake: this worker vanished before taking the
+                # request, which stays retryable (migration re-drives it)
+                raise ServiceUnavailable(f"injected admit drop: {e}") from e
         await self.start()
         # a migration resume prompt arrives stamped with its checksum; a
         # mismatch raises IntegrityError, a StreamError, so the operator
@@ -630,7 +789,8 @@ class InferenceEngine:
                        "vocabulary)")
             else:
                 try:
-                    await asyncio.to_thread(self._guided.compile, request["guided"])
+                    with tracing.span("engine.guided_compile", request_id=context.id):
+                        await asyncio.to_thread(self._guided.compile, request["guided"])
                 except Exception as e:  # noqa: BLE001
                     outcome = "compile_error"
                     err = f"guided grammar rejected: {e}"
@@ -657,7 +817,11 @@ class InferenceEngine:
                 yield {"token_ids": [], "finish_reason": "length"}
                 return
             try:
-                disagg["_staged_kv"] = await asyncio.to_thread(self._stage_pull, kvp)
+                # one span per staging attempt: the disagg hop joins the
+                # request's trace, duration and failure
+                with tracing.span("disagg.pull", request_id=context.id):
+                    disagg["_staged_kv"] = await asyncio.to_thread(
+                        self._stage_pull, kvp)
             except Exception as e:  # noqa: BLE001
                 # transfer-plane failure (the prefill worker died between
                 # export and pull, a cut link, the disagg.pull fault): a
@@ -725,43 +889,79 @@ class InferenceEngine:
             # zero service rendered: the victim's charge comes back
             self._refund_if_charged(victim)
             self._release_waiting_disagg(victim)
+            FLIGHT.event(victim.context.id, "shed")
             self._post(victim.out_q, {"_shed": self._saturation_retry_after()})
+        # the flight-recorder timeline, joined to the caller's trace: the
+        # caller's span (bound by the transport, or live in this context
+        # for an in-process call) parents this request's worker.request
+        # span; the step thread records events, and the spans are derived
+        # and emitted at finish (runtime/flight.py)
+        caller_tc = tracing.current_trace() or tracing.parse_traceparent(
+            context.headers.get(tracing.TRACEPARENT))
+        FLIGHT.start(
+            context.id,
+            trace=caller_tc.child() if caller_tc else tracing.new_trace(),
+            parent_span_id=caller_tc.span_id if caller_tc else None,
+            model=self.spec.name, prompt_tokens=len(token_ids),
+        )
         out_q: asyncio.Queue = asyncio.Queue()
         self._waiting.put_nowait(_Waiting(
             request, context, out_q, enq_t=time.perf_counter(), tenant=tenant,
             priority=priority, cost=cost, charged=True))
         self._wake.set()
         deadline_hit = False
-        while True:
-            # after the deadline every wait is bounded: a stuck step must
-            # not turn a deadline into a hang
-            remaining = 2.0 if deadline_hit else context.remaining_s()
-            try:
-                if remaining is None:
-                    item = await out_q.get()
-                else:
-                    item = await asyncio.wait_for(out_q.get(), remaining)
-            except asyncio.TimeoutError:
-                if deadline_hit:
-                    yield {"token_ids": [], "finish_reason": "cancelled",
-                           "error": "deadline exceeded"}
+        finish_reason: str | None = None
+        finish_error: str | None = None
+        n_generated = 0
+        try:
+            while True:
+                # after the deadline every wait is bounded: a stuck step
+                # must not turn a deadline into a hang
+                remaining = 2.0 if deadline_hit else context.remaining_s()
+                try:
+                    if remaining is None:
+                        item = await out_q.get()
+                    else:
+                        item = await asyncio.wait_for(out_q.get(), remaining)
+                except asyncio.TimeoutError:
+                    if deadline_hit:
+                        finish_reason = "cancelled"
+                        finish_error = "deadline exceeded"
+                        yield {"token_ids": [], "finish_reason": "cancelled",
+                               "error": "deadline exceeded"}
+                        return
+                    # deadline passed mid-generation: the step loop
+                    # finishes the slot as 'cancelled'
+                    deadline_hit = True
+                    context.stop_generating()
+                    self._wake.set()
+                    continue
+                if "_shed" in item:
+                    # shed from the queue in a higher-priority arrival's
+                    # favour: the retryable typed refusal (another worker
+                    # may take it)
+                    finish_reason = "shed"
+                    raise ServiceUnavailable(
+                        "shed under overload (outranked while waiting)",
+                        retry_after_s=float(item["_shed"]),
+                    )
+                n_generated += len(item.get("token_ids") or ())
+                # recorded BEFORE the yield: a consumer that stops at the
+                # finish item never resumes this generator past it
+                if item.get("finish_reason") is not None:
+                    finish_reason = item["finish_reason"]
+                    finish_error = item.get("error")
+                yield item
+                if finish_reason is not None:
                     return
-                # deadline passed mid-generation: the step loop finishes
-                # the slot as 'cancelled'
-                deadline_hit = True
-                context.stop_generating()
-                self._wake.set()
-                continue
-            if "_shed" in item:
-                # shed from the queue in a higher-priority arrival's favour:
-                # the retryable typed refusal (another worker may take it)
-                raise ServiceUnavailable(
-                    "shed under overload (outranked while waiting)",
-                    retry_after_s=float(item["_shed"]),
-                )
-            yield item
-            if item.get("finish_reason") is not None:
-                return
+        finally:
+            tl = FLIGHT.finish(
+                context.id,
+                finish_reason or "abandoned",  # the consumer broke the stream
+                error=finish_error, generated=n_generated,
+            )
+            if tl is not None:
+                emit_request_spans(tl)
 
     # -- KV events and load ------------------------------------------------
 
@@ -790,7 +990,8 @@ class InferenceEngine:
             self._metrics_publishes += 1
             if (self._moe_dropped_dev is not None
                     and self._metrics_publishes % 64 == 1):
-                self.moe_dropped_slots = int(self._moe_dropped_dev)
+                with self._phase("dispatch.d2h_wait"):
+                    self.moe_dropped_slots = int(self._moe_dropped_dev)
             self.metrics.publish(ForwardPassMetrics(
                 active_kv_blocks=self.allocator.active_pages,
                 total_kv_blocks=self.allocator.num_pages - 1,
@@ -814,6 +1015,15 @@ class InferenceEngine:
         """The step thread: owns the device; blocking waits are fine here."""
         while not self._closed:
             try:
+                if FAULTS.enabled and (self._partial is not None
+                                       or not self._waiting.empty()
+                                       or any(s is not None for s in self._slots)):
+                    # inside the recovery try, on work cycles only: an error
+                    # fails every in-flight request and the engine keeps
+                    # serving; a delay is a stalled step. An idle cycle
+                    # fires nothing (it would use up an xN rule before any
+                    # request is in flight)
+                    FAULTS.fire_sync("engine.step")
                 step_t0 = time.perf_counter()
                 did_work = self._step()
                 if did_work:
@@ -828,9 +1038,11 @@ class InferenceEngine:
                     self._wake.clear()
                     if (self._waiting.empty() and not any(self._slots)
                             and not self._clear_cache_requested):
-                        self._wake.wait()
+                        with self._phase("idle"):
+                            self._wake.wait()
                     else:
-                        self._wake.wait(self.config.step_idle_sleep_s)
+                        with self._phase("idle"):
+                            self._wake.wait(self.config.step_idle_sleep_s)
             except Exception:  # noqa: BLE001
                 # fail every in-flight request, then KEEP SERVING: one bad
                 # step must not brick the engine
@@ -862,7 +1074,8 @@ class InferenceEngine:
         if self._admit_waves:
             # land admission waves lazily: each once its host copy is in
             # (or, aged, when no in-flight burst will land it)
-            did |= self._materialize_waves()
+            with self._phase("materialize"):
+                did |= self._materialize_waves()
         if self._pipeline:
             # cancels need exact slot state: land the in-flight bursts
             # first. Plain admissions do not (the device stream is in
@@ -872,7 +1085,8 @@ class InferenceEngine:
             stopped = any(s is not None and s.context.is_stopped
                           for s in self._slots)
             if self._partial is not None or stopped or self._clear_cache_requested:
-                self._flush_pipeline()
+                with self._phase("flush"):
+                    self._flush_pipeline()
                 did = True
         if self._clear_cache_requested:
             self._clear_cache_requested = False
@@ -923,6 +1137,7 @@ class InferenceEngine:
         did = False
         preps: list[dict] = []
         reserved: set[int] = set()
+        admit_t0 = time.perf_counter() if self._profiling else 0.0
         while self._partial is None:
             free_idx = next(
                 (i for i, s in enumerate(self._slots)
@@ -948,6 +1163,12 @@ class InferenceEngine:
                 waiting = self._waiting.get_nowait()
             except queue.Empty:
                 break  # a concurrent shed emptied the queue since the peek
+            FLIGHT.event(waiting.context.id, "admit")
+            if self._profiling:
+                waiting.admit_t = time.perf_counter()
+                if waiting.enq_t:
+                    self._prof_add("readmit.admit_wait",
+                                   waiting.admit_t - waiting.enq_t)
             if waiting.context.is_stopped:
                 self._drop_staged_kv(waiting.request)
                 self._post(waiting.out_q,
@@ -966,8 +1187,13 @@ class InferenceEngine:
                 reserved.add(free_idx)
             budget -= cost
             n_admitted += 1
+        if n_admitted:
+            self._prof_add("admit_loop", time.perf_counter() - admit_t0)
         if preps:
-            self._complete_admissions(self._run_packed_prefills(preps))
+            with self._phase("packed_prefill"):
+                records = self._run_packed_prefills(preps)
+            with self._phase("complete_admissions"):
+                self._complete_admissions(records)
         if did:
             self._publish_metrics()
         return did
@@ -983,10 +1209,14 @@ class InferenceEngine:
                 or self._closed):
             return
         if self._waiting.empty() and cfg.readmit_wait_s > 0 and self._pipeline:
-            self._wake.clear()
-            self._wake.wait(cfg.readmit_wait_s)
-        if not self._waiting.empty() and self._admit_phase():
-            self.eager_readmits += 1
+            with self._phase("readmit_wait"):
+                self._wake.clear()
+                self._wake.wait(cfg.readmit_wait_s)
+        if self._waiting.empty():
+            return
+        with self._phase("eager_readmit"):
+            if self._admit_phase():
+                self.eager_readmits += 1
 
     # -- priority preemption -----------------------------------------------
 
@@ -1059,37 +1289,43 @@ class InferenceEngine:
                 FAULTS.fire_sync("engine.preempt")
             except Exception as e:  # noqa: BLE001 - injected failure
                 log.warning("engine.preempt fault: skipping preemption (%s)", e)
+                FLIGHT.event(victim[1].context.id, "fault", site="engine.preempt")
                 return None
-        self._flush_pipeline()
-        self._materialize_waves(force=True)
-        if free_slot_ok:
-            free_idx = next(
-                (i for i, s in enumerate(self._slots)
-                 if s is None and i not in (reserved or ())),
-                None,
-            )
-            if free_idx is not None:
-                return free_idx  # the flush landed a finish
-        i, slot = victim
-        if self._slots[i] is not slot or slot.context.is_stopped:
-            return None  # finished or cancelled during the flush
-        self._maybe_seal(slot)
-        if self.offload is not None:
-            # the victim's sealed blocks go to the host tier whatever their
-            # depth: the resume must onboard them even after G1 evicts them
-            queued = {(s, p) for s, p, _b in self._pending_offload}
-            for bi, (pg, h) in enumerate(zip(slot.pages.pages, slot.pages.hashes)):
-                if h is not None and (h, pg) not in queued:
-                    self._pending_offload.append((h, pg, bi))
-        self._drain_offload()
-        resume = self._build_resume_request(slot)
-        self.preemptions[reason] = self.preemptions.get(reason, 0) + 1
-        self._finish(i, slot, "preempted", emit=False)
-        self._waiting.put_nowait(_Waiting(
-            resume, slot.context, slot.out_q, enq_t=time.perf_counter(),
-            tenant=slot.tenant, priority=slot.priority,
-            cost=float(len(resume["token_ids"]) + slot.remaining),
-        ))
+        with self._phase("preempt"):
+            self._flush_pipeline()
+            self._materialize_waves(force=True)
+            if free_slot_ok:
+                free_idx = next(
+                    (i for i, s in enumerate(self._slots)
+                     if s is None and i not in (reserved or ())),
+                    None,
+                )
+                if free_idx is not None:
+                    return free_idx  # the flush landed a finish
+            i, slot = victim
+            if self._slots[i] is not slot or slot.context.is_stopped:
+                return None  # finished or cancelled during the flush
+            self._maybe_seal(slot)
+            if self.offload is not None:
+                # the victim's sealed blocks go to the host tier whatever
+                # their depth: the resume must onboard them even after G1
+                # evicts them
+                queued = {(s, p) for s, p, _b in self._pending_offload}
+                for bi, (pg, h) in enumerate(zip(slot.pages.pages,
+                                                 slot.pages.hashes)):
+                    if h is not None and (h, pg) not in queued:
+                        self._pending_offload.append((h, pg, bi))
+            self._drain_offload()
+            resume = self._build_resume_request(slot)
+            FLIGHT.event(slot.context.id, "preempt", generated=slot.generated,
+                         reason=reason)
+            self.preemptions[reason] = self.preemptions.get(reason, 0) + 1
+            self._finish(i, slot, "preempted", emit=False)
+            self._waiting.put_nowait(_Waiting(
+                resume, slot.context, slot.out_q, enq_t=time.perf_counter(),
+                tenant=slot.tenant, priority=slot.priority,
+                cost=float(len(resume["token_ids"]) + slot.remaining),
+            ))
         log.info("preempted %s (tenant=%s, %d generated) for %s",
                  slot.request_id, slot.tenant, slot.generated, reason)
         return i
@@ -1346,6 +1582,7 @@ class InferenceEngine:
         # long prompt: the first chunk now, the rest on later steps,
         # interleaved with decode (_step)
         end = start_pos + chunk_max
+        FLIGHT.event(waiting.context.id, "prefill_chunk")
         try:
             self._run_prefill_chunk(sp, token_ids, start_pos, end)
         except Exception:
@@ -1371,6 +1608,7 @@ class InferenceEngine:
         dev = self.device
         self.prefill_chunks += 1
         self.prefill_forwards += 1
+        self.dispatches += 1
         logits, dropped = self.fam.prefill(
             self.spec, self.params, torch.from_numpy(padded).to(dev),
             torch.from_numpy(block_table).to(dev), start, self.k_pages,
@@ -1403,6 +1641,7 @@ class InferenceEngine:
             self._publish_metrics()
             return
         end = min(p.done + self._prefill_chunk_max(), len(p.token_ids))
+        FLIGHT.event(p.waiting.context.id, "prefill_chunk")
         logits = self._run_prefill_chunk(p.sp, p.token_ids, p.done, end)
         p.done = end
         if end == len(p.token_ids):
@@ -1473,6 +1712,7 @@ class InferenceEngine:
             nts[i] = p["tail"]
         dev = self.device
         self.prefill_forwards += 1
+        self.dispatches += 1
         tok_d = torch.from_numpy(tokens).to(dev)
         bts_d = torch.from_numpy(bts).to(dev)
         if nb == 1:
@@ -1723,6 +1963,7 @@ class InferenceEngine:
             return None
         params = [self._sampling_params(w.request) for w in waitings]
         samples = self._sample(logits, *zip(*params))
+        self.dispatches += 1
         return [(samples, i, params[i][3]) for i in range(len(waitings))]
 
     def _complete_admissions(self, records: list[_Admitted]) -> None:
@@ -1748,11 +1989,17 @@ class InferenceEngine:
             stacked = torch.stack([r.logits for r in records])
             sampled = self._sample_slots(
                 stacked, slots, self._admission_guided_mask(slots))
+            self.dispatches += 1
             lp = top_i = top_v = None
+            # readmit.d2h_wait, not dispatch.d2h_wait: these reads nest in
+            # the complete_admissions phase (one name per accounting bucket)
             if any(s.logprobs is not None for s in slots):
                 picked, ti, tv = token_logprobs(stacked, sampled, self._n_lp)
-                lp, top_i, top_v = (x.cpu().numpy() for x in (picked, ti, tv))
-            toks = sampled.cpu().numpy()
+                self.dispatches += 1
+                with self._phase("readmit.d2h_wait"):
+                    lp, top_i, top_v = (x.cpu().numpy() for x in (picked, ti, tv))
+            with self._phase("readmit.d2h_wait"):
+                toks = sampled.cpu().numpy()
         except Exception as e:  # noqa: BLE001
             log.exception("first-token sampling failed")
             for r in records:
@@ -1760,6 +2007,7 @@ class InferenceEngine:
                 r.sp.pages = []
                 self._error(r.waiting, f"prefill failed: {e}")
             return
+        self._note_prefill_done(records, slots)
         for i, (r, slot) in enumerate(zip(records, slots)):
             tok = int(toks[i])
             entry = None
@@ -1786,11 +2034,25 @@ class InferenceEngine:
         rows are all-True, the identity under the mask."""
         if not any(s.guided is not None and s.guided.constraining for s in slots):
             return None
-        allowed = np.ones((len(slots), self.spec.vocab_size), bool)
-        for i, slot in enumerate(slots):
-            if slot.guided is not None and slot.guided.constraining:
-                allowed[i] = slot.guided.mask()
+        with self._phase("guided.mask"):
+            allowed = np.ones((len(slots), self.spec.vocab_size), bool)
+            for i, slot in enumerate(slots):
+                if slot.guided is not None and slot.guided.constraining:
+                    allowed[i] = slot.guided.mask()
         return allowed
+
+    def _note_prefill_done(self, records: list[_Admitted],
+                           slots: list[_Slot]) -> None:
+        """Step profiler: each admission's dequeue -> prefill-and-sample
+        dispatched span (``readmit.prefill_dispatch``), and the start of
+        its ``readmit.first_token`` span."""
+        if not self._profiling:
+            return
+        now = time.perf_counter()
+        for r, slot in zip(records, slots):
+            if r.waiting.admit_t:
+                self._prof_add("readmit.prefill_dispatch", now - r.waiting.admit_t)
+            slot.prefill_done_t = now
 
     def _complete_admissions_async(self, records: list[_Admitted]) -> None:
         """Async admission: slots installed with ``first_pending`` and
@@ -1823,6 +2085,7 @@ class InferenceEngine:
                 samples = self._sample_slots(
                     torch.stack([lg for _, _, lg in unsampled]),
                     [s for _, s, _ in unsampled])
+                self.dispatches += 1
                 parts[id(samples)] = (samples, [
                     (si, s, i) for i, (si, s, _lg) in enumerate(unsampled)])
             devs, wave_recs, off = [], [], 0
@@ -1840,6 +2103,7 @@ class InferenceEngine:
                 r.sp.pages = []
                 self._error(r.waiting, f"prefill failed: {e}")
             return
+        self._note_prefill_done(records, [slot for _si, slot in recs])
         for slot_idx, slot in recs:
             self._slots[slot_idx] = slot
         self._admit_waves.append(wave)
@@ -1884,7 +2148,9 @@ class InferenceEngine:
         before this slot's admission may have the same index active under
         the previous request, whose chained token is not this wave's."""
         if fed_col is None:
-            toks = ap["copy"].wait().numpy()
+            # nests in the materialize phase: the readmit bucket
+            with self._phase("readmit.d2h_wait"):
+                toks = ap["copy"].wait().numpy()
             for slot_idx, slot, row in ap["recs"]:
                 if self._slots[slot_idx] is slot and slot.first_pending:
                     self._land_first_token(slot_idx, slot, int(toks[row]))
@@ -1903,6 +2169,7 @@ class InferenceEngine:
     def _land_first_token(self, slot_idx: int, slot: _Slot, tok: int) -> None:
         """Record + stream an async admission's first token (the stop
         rules of _accept_token, counters already advanced)."""
+        self._note_first_token(slot)
         slot.seq.append(tok)
         slot.last_token = tok
         slot.first_pending = False
@@ -1922,6 +2189,7 @@ class InferenceEngine:
                     logprob_entry: dict | None = None) -> None:
         """Record + stream a synchronous admission's first token; place the
         slot or finish."""
+        self._note_first_token(slot)
         finish = self._accept_token(slot, tok)
         if finish is not None:
             # release BEFORE posting the finish item, so a client seeing
@@ -1933,6 +2201,15 @@ class InferenceEngine:
         if logprob_entry is not None:
             item["logprobs"] = [logprob_entry]
         self._post(slot.out_q, item)
+
+    def _note_first_token(self, slot: _Slot) -> None:
+        """The first token reaches the host: its flight event, and the
+        profiler's prefill-dispatched -> first-token span."""
+        if slot.prefill_done_t:
+            self._prof_add("readmit.first_token",
+                           time.perf_counter() - slot.prefill_done_t)
+            slot.prefill_done_t = 0.0
+        FLIGHT.event(slot.context.id, "first_token")
 
     # -- disagg: export (prefill side) and resume (decode side) -------------
 
@@ -2069,6 +2346,9 @@ class InferenceEngine:
             last_token=first_token)
         slot.seq.append(first_token)
         self._slots[slot_idx] = slot
+        # the remote prefill made the first token: this is the request's
+        # decode start on its flight timeline and spans
+        FLIGHT.event(waiting.context.id, "disagg_resume")
         self._publish_metrics()
         marks.append(time.perf_counter())
         self.resumes += 1
@@ -2131,27 +2411,29 @@ class InferenceEngine:
                 if pb["batch"]["active"][i] and self._slot_matches(i, pb["batch"]):
                     covered[i] = True
         cands: list[tuple[int, _Slot, list[int], list | None]] = []
-        for i, slot in enumerate(self._slots):
-            if slot is None or not self._spec_managed(slot):
-                continue
-            if slot.context.is_stopped or covered[i]:
-                # stopped slots cancel through _build_batch; covered ones
-                # verify once their in-flight burst is processed
-                continue
-            if cfg.max_context - slot.seq_len < 2:
-                continue  # no room to write even the fed token safely
-            k_cap = min(slot.remaining - 1, cfg.max_context - slot.seq_len - 2,
-                        cfg.spec_k_max)
-            slot.spec.sync_from_seq(slot.seq)
-            draft = [int(t) for t in slot.spec.propose(k_cap)] if k_cap > 0 else []
-            masks = None
-            if slot.guided is not None and slot.guided.constraining:
-                # guided x spec: the draft's grammar-legal prefix, walked on
-                # a scratch cursor, with the mask of every verify position;
-                # the real cursor advances only over emitted tokens, so a
-                # rejected tail needs no rollback
-                draft, masks = slot.guided.lookahead(draft)
-            cands.append((i, slot, draft, masks))
+        with self._phase("spec.draft"):
+            for i, slot in enumerate(self._slots):
+                if slot is None or not self._spec_managed(slot):
+                    continue
+                if slot.context.is_stopped or covered[i]:
+                    # stopped slots cancel through _build_batch; covered
+                    # ones verify once their in-flight burst is processed
+                    continue
+                if cfg.max_context - slot.seq_len < 2:
+                    continue  # no room to write even the fed token safely
+                k_cap = min(slot.remaining - 1, cfg.max_context - slot.seq_len - 2,
+                            cfg.spec_k_max)
+                slot.spec.sync_from_seq(slot.seq)
+                draft = [int(t) for t in slot.spec.propose(k_cap)] if k_cap > 0 else []
+                masks = None
+                if slot.guided is not None and slot.guided.constraining:
+                    # guided x spec: the draft's grammar-legal prefix,
+                    # walked on a scratch cursor, with the mask of every
+                    # verify position; the real cursor advances only over
+                    # emitted tokens, so a rejected tail needs no rollback
+                    with self._phase("guided.lookahead"):
+                        draft, masks = slot.guided.lookahead(draft)
+                cands.append((i, slot, draft, masks))
         if not cands:
             return False
 
@@ -2187,9 +2469,13 @@ class InferenceEngine:
                 # request decodes on untouched state
                 FAULTS.fire_sync("engine.spec_verify")
             except (FaultInjected, FaultDrop) as e:
-                for _i, slot, _draft, base_pages, _masks in ready:
-                    self.allocator.release(slot.pages.truncate(base_pages))
-                    slot.spec.disable()
+                with self._phase("spec.rollback"):
+                    for _i, slot, _draft, base_pages, _masks in ready:
+                        self.allocator.release(slot.pages.truncate(base_pages))
+                        slot.spec.disable()
+                        # the timeline says why the request went non-spec
+                        FLIGHT.event(slot.context.id, "fault",
+                                     site="engine.spec_verify")
                 log.warning("spec verify fault (%s): %d slot(s) fall back to "
                             "non-spec decode", e, len(ready))
                 return True
@@ -2219,9 +2505,12 @@ class InferenceEngine:
                 for j in range(min(len(row), len(masks))):
                     allowed[r, j] = masks[j]
         t0 = time.perf_counter()
-        targets = self._verify.dispatch(tokens, bts, starts, nts, allowed)
-        self._note_moe_dropped(self._verify.dropped)
-        targets = targets.wait().numpy()
+        with self._phase("spec.verify"):
+            targets = self._verify.dispatch(tokens, bts, starts, nts, allowed)
+            self.dispatches += 1
+            self._note_moe_dropped(self._verify.dropped)
+            with self._phase("dispatch.d2h_wait"):
+                targets = targets.wait().numpy()
         self.verify_times.append(time.perf_counter() - t0)
         self.spec_verifies += 1
         self.spec_rows += len(ready)
@@ -2247,6 +2536,7 @@ class InferenceEngine:
         self.spec_drafted += drafted
         self.spec_accepted += n_acc
         self.spec_rejected += drafted - n_acc
+        FLIGHT.event(slot.context.id, "spec_verify", accepted=n_acc)
         if drafted:
             SPEC_TOKENS.labels(outcome="accepted").inc(n_acc)
             SPEC_TOKENS.labels(outcome="rejected").inc(drafted - n_acc)
@@ -2264,10 +2554,11 @@ class InferenceEngine:
         # release pages past the accepted prefix: the rejected tail sits
         # beyond seq_len (masked, overwritten later), its pages must not
         # stay pinned
-        keep = (slot.seq_len + self.config.page_size - 1) // self.config.page_size
-        released = slot.pages.truncate(max(keep, 1))
-        if released:
-            self.allocator.release(released)
+        with self._phase("spec.rollback"):
+            keep = (slot.seq_len + self.config.page_size - 1) // self.config.page_size
+            released = slot.pages.truncate(max(keep, 1))
+            if released:
+                self.allocator.release(released)
         self._maybe_seal(slot)
         self._drain_offload()
         item: dict[str, Any] = {"token_ids": toks, "finish_reason": finish}
@@ -2306,29 +2597,40 @@ class InferenceEngine:
         page-stalled), so the loop paces on the idle wait."""
         if self.config.pipeline_decode and self._guided_live():
             # flush, then fall through to the synchronous schedule below
-            self._flush_pipeline()
+            if self._pipeline:
+                with self._phase("flush"):
+                    self._flush_pipeline()
         elif self.config.pipeline_decode:
-            batch = self._build_batch(self._pipeline)
+            with self._phase("build_batch"):
+                batch = self._build_batch(self._pipeline)
             if batch is None:
                 if self._pipeline:
                     before = sum(s is not None for s in self._slots)
-                    self._process_burst(self._pipeline.pop(0))
+                    with self._phase("process"):
+                        self._process_burst(self._pipeline.pop(0))
                     self._eager_readmit(before - sum(s is not None for s in self._slots))
                     return True
                 return False
-            self._pipeline.append(self._dispatch_burst(batch, chain=self._pipeline))
+            with self._phase("dispatch"):
+                pending = self._dispatch_burst(batch, chain=self._pipeline)
+            self._pipeline.append(pending)
             if len(self._pipeline) > max(1, self.config.pipeline_depth):
                 before = sum(s is not None for s in self._slots)
-                self._process_burst(self._pipeline.pop(0))
+                with self._phase("process"):
+                    self._process_burst(self._pipeline.pop(0))
                 # freed slots refill now: their prefill dispatches behind
                 # the in-flight burst and their first tokens feed the next
                 self._eager_readmit(before - sum(s is not None for s in self._slots))
             return True
-        batch = self._build_batch(None)
+        with self._phase("build_batch"):
+            batch = self._build_batch(None)
         if batch is None:
             return False
         before = sum(s is not None for s in self._slots)
-        self._process_burst(self._dispatch_burst(batch, chain=None))
+        with self._phase("dispatch"):
+            pending = self._dispatch_burst(batch, chain=None)
+        with self._phase("process"):
+            self._process_burst(pending)
         self._eager_readmit(before - sum(s is not None for s in self._slots))
         return True
 
@@ -2446,11 +2748,13 @@ class InferenceEngine:
         allowed = None
         if any(active[i] and self._slots[i].guided is not None
                and self._slots[i].guided.constraining for i in range(B)):
-            allowed = np.ones((B, self.spec.vocab_size), bool)
-            for i in range(B):
-                slot = self._slots[i]
-                if active[i] and slot.guided is not None and slot.guided.constraining:
-                    allowed[i] = slot.guided.mask()
+            with self._phase("guided.mask"):
+                allowed = np.ones((B, self.spec.vocab_size), bool)
+                for i in range(B):
+                    slot = self._slots[i]
+                    if (active[i] and slot.guided is not None
+                            and slot.guided.constraining):
+                        allowed[i] = slot.guided.mask()
         return {
             "n_burst": n_burst, "n_lp": self._n_lp if wants_lp else 0,
             "allowed": allowed,
@@ -2502,6 +2806,7 @@ class InferenceEngine:
             inputs, batch["n_burst"], sampled=sampled, n_logprobs=batch["n_lp"],
             feeds=feeds, feed_src=feed_src, feed_idx=feed_idx,
             allowed=batch["allowed"])
+        self.dispatches += 1
         self.steps += batch["n_burst"]
         return {"batch": batch, "burst": burst, "t0": t0, "resumes": self.resumes}
 
@@ -2512,7 +2817,8 @@ class InferenceEngine:
         request ids guard against a slot finished and reused since the
         dispatch."""
         batch = pending["batch"]
-        fed_col, sampled, lp, top_i, top_v = pending["burst"].result()
+        with self._phase("process.d2h_sync"), self._phase("dispatch.d2h_wait"):
+            fed_col, sampled, lp, top_i, top_v = pending["burst"].result()
         t1 = time.perf_counter()
         self.decode_step_times.append(t1 - pending["t0"])
         self.decode_spans.append((pending["t0"], t1, self.resumes != pending["resumes"]))
@@ -2554,6 +2860,10 @@ class InferenceEngine:
                 slot.spec.on_tokens(len(toks))
             self._maybe_seal(slot)
         self._drain_offload()
+        if burst:
+            # telemetry feed: the tokens this dispatch landed over all its
+            # slots (stops cut bursts short)
+            self.burst_fills.append(sum(len(t) for t, _f in burst.values()))
         # phase 2: stream tokens, finish slots
         for i, (toks, finish) in burst.items():
             slot = self._slots[i]

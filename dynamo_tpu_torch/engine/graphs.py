@@ -47,11 +47,16 @@ static [R, W, V] bool mask (guided x spec), staged as the decode mask is.
 
 Graphs hold raw pointers to the KV pools and the weights: ``release()``
 drops them before either is freed.
+
+Both objects count their captures and the host seconds spent in them
+(``captures``, ``capture_secs``): the engine's ``dispatch.compile``, the
+counterpart of the JAX engine's compile events.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable
 
 import numpy as np
@@ -167,6 +172,8 @@ class DecodeGraphs:
         self._graphs: dict[tuple[bool, int, bool], tuple] = {}
         self._pool = None
         self.replays = 0
+        self.captures = 0
+        self.capture_secs = 0.0
 
     # -- variants ----------------------------------------------------------
 
@@ -199,7 +206,7 @@ class DecodeGraphs:
 
     def _graph(self, key: tuple[bool, int, bool]):
         if key not in self._graphs:
-            self._graphs[key] = self._capture(*key)
+            self._graphs[key] = _timed_capture(self, key)
         return self._graphs[key]
 
     def _capture(self, sampled: bool, n_logprobs: int, masked: bool):
@@ -303,6 +310,17 @@ class DecodeGraphs:
         return Burst(t.out[: 1 + n_steps].clone(), B, n_steps, n_logprobs)
 
 
+def _timed_capture(obj, key: tuple):
+    """``obj._capture(*key)``, counted in ``obj.captures`` and timed on the
+    host clock into ``obj.capture_secs``."""
+    t0 = time.perf_counter()
+    try:
+        return obj._capture(*key)
+    finally:
+        obj.captures += 1
+        obj.capture_secs += time.perf_counter() - t0
+
+
 def _pinned(arr: np.ndarray, pin: bool) -> torch.Tensor:
     """A host bool array in pinned staging memory (the caching host
     allocator's: a block returns to it only once its copy has run)."""
@@ -374,6 +392,8 @@ class VerifyGraphs:
         self._graphs: dict[tuple[int, bool], tuple] = {}
         self._pool = None
         self.replays = 0
+        self.captures = 0
+        self.capture_secs = 0.0
 
     def _inputs(self, n: int) -> list[torch.Tensor]:
         """The first ``n`` rows of each static input."""
@@ -391,11 +411,12 @@ class VerifyGraphs:
         masks = (False, True) if self.allowed is not None else (False,)
         return [(n, m) for m in masks for n in self.row_counts]
 
-    def precompile(self) -> None:
-        """Capture every row count, masked too when the object has a mask,
-        now (a no-op on the CPU)."""
+    def precompile(self, variants=None) -> None:
+        """Capture ``variants`` ((row count, masked) pairs; default every
+        row count, masked too when the object has a mask) now (a no-op on
+        the CPU)."""
         if self.cuda:
-            for key in self.variants():
+            for key in variants or self.variants():
                 self._graph(key)
 
     def release(self) -> None:
@@ -405,7 +426,7 @@ class VerifyGraphs:
 
     def _graph(self, key: tuple[int, bool]):
         if key not in self._graphs:
-            self._graphs[key] = self._capture(*key)
+            self._graphs[key] = _timed_capture(self, key)
         return self._graphs[key]
 
     def _capture(self, n: int, masked: bool):

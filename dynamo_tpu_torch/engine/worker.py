@@ -50,7 +50,12 @@ the live policy key (``--max-local-prefill-length``,
 reference's flags for features the port lacks raise NotImplementedError
 naming their item: SPMD and meshes, multimodal. ``--spec ngram`` (or ``DYN_SPEC_MODE``) turns on speculative
 decoding, with ``--spec-k-max`` and ``--spec-ngram-min/max``. The admin
-``timeline`` op, which reads the flight recorder, answers an error naming item 13.
+``timeline`` op answers from the flight recorder (runtime/flight.py): one
+request's timeline by ``request_id``, or the summary view (active, the
+recent ``n``, the retained errors and slowest). An ``EngineCollector``
+(engine/telemetry.py) starts with the worker and feeds the
+``dynamo_engine_*`` series on every /metrics surface of the process; the
+engine closes it.
 """
 
 from __future__ import annotations
@@ -64,6 +69,7 @@ import torch
 
 from dynamo_tpu_torch.engine.config import EngineConfig, ModelSpec
 from dynamo_tpu_torch.engine.core import InferenceEngine
+from dynamo_tpu_torch.engine.telemetry import EngineCollector
 from dynamo_tpu_torch.frontend.model_card import register_llm
 from dynamo_tpu_torch.frontend.hf_tokenizer import has_tokenizer_files
 from dynamo_tpu_torch.frontend.tokenizer import load_tokenizer
@@ -73,6 +79,7 @@ from dynamo_tpu_torch.parsers import make_reasoning_parser, make_tool_config
 from dynamo_tpu_torch.runtime.config import RuntimeConfig
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 from dynamo_tpu_torch.runtime.faults import FAULTS
+from dynamo_tpu_torch.runtime.flight import FLIGHT
 from dynamo_tpu_torch.runtime.health import (
     EngineMonitor,
     HealthCheckConfig,
@@ -246,8 +253,13 @@ async def launch_engine_worker(
                     return
             yield {"ok": True, **FAULTS.snapshot()}
         elif op == "timeline":
-            yield {"ok": False, "error": "op 'timeline' needs the flight recorder, "
-                                         "not ported (ROADMAP Queue A item 13)"}
+            # one request's event timeline by id, or the summary view; the
+            # frontend's GET /debug/timeline fans this out
+            try:
+                n = int(request.get("n") or 16)
+            except (TypeError, ValueError):
+                n = 16
+            yield {"ok": True, **FLIGHT.snapshot(request.get("request_id"), n=n)}
         elif op == "cache_status":
             yield {
                 "ok": True,
@@ -270,6 +282,9 @@ async def launch_engine_worker(
     comp_path = f"{namespace}/{component}"
     engine.events = KvEventPublisher(drt.hub, comp_path, wid).start()
     engine.metrics = WorkerMetricsPublisher(drt.hub, comp_path, wid).start()
+    # the dynamo_engine_* series on every /metrics surface; engine.close()
+    # closes the collector
+    engine.telemetry = EngineCollector(engine).start()
     await engine.start()
     if health is not None:
         health.register(served)

@@ -12,11 +12,21 @@ Routes:
   GET  /metrics               - Prometheus exposition (TTFT/ITL/duration
                                 histograms per model)
   GET  /openapi.json, /docs   - the served surface
+  GET  /debug/timeline        - flight-recorder timelines from every worker
+                                (``?request_id=`` for one, ``&n=`` for the
+                                summary tail)
 
-The statuses, JSON error bodies and metrics are the reference's. Not served
-until their slices (ROADMAP Queue A), so they answer 404: /v1/embeddings
-(item 12) and /debug/timeline (item 13). There is no audit bus and no
-tracing span yet (item 13).
+The statuses, JSON error bodies and metrics are the reference's.
+/v1/embeddings waits for its slice (ROADMAP Queue A item 12) and answers
+404.
+
+Tracing (runtime/tracing.py): each generation route binds the client's
+``traceparent`` and runs under an ``http.request`` span, with
+``http.preprocess`` around render + tokenize; the request's Context
+carries the trace, tenancy and deadline in one set of headers
+(``_traced_context``). Audit (runtime/audit.py): with a sink configured
+(``DYN_AUDIT_PATH``, or an ``AuditBus`` given), every completed request
+emits one record after its response, off the request path.
 
 Client disconnect mid-SSE stops the request's context, so the engine frees
 the slot and its pages.
@@ -45,6 +55,8 @@ from dynamo_tpu_torch.frontend.validation import (
     validate_tenancy,
 )
 from dynamo_tpu_torch.frontend.watcher import ModelManager, ModelPipeline
+from dynamo_tpu_torch.runtime import tracing
+from dynamo_tpu_torch.runtime.audit import AuditBus, AuditRecord
 from dynamo_tpu_torch.runtime.compute import ComputePool
 from dynamo_tpu_torch.runtime.context import (
     PRIORITY_HEADER,
@@ -97,8 +109,10 @@ class HttpFrontend:
         metrics: MetricsRegistry | None = None,
         drt=None,  # DistributedRuntime: enables admin routes
         request_timeout_s: float = 600.0,  # end-to-end deadline default
+        audit: AuditBus | None = None,  # default: configured from the env
     ):
         self.manager = manager
+        self.audit = audit if audit is not None else AuditBus()
         self.host = host
         self.port = port
         self.request_timeout_s = request_timeout_s
@@ -118,6 +132,7 @@ class HttpFrontend:
             ("GET", "/metrics", self.prometheus),
             ("GET", "/openapi.json", self.openapi),
             ("GET", "/docs", self.docs),
+            ("GET", "/debug/timeline", self.debug_timeline),
         ):
             self._server.add_route(method, path, handler)
         m = self.metrics
@@ -158,6 +173,9 @@ class HttpFrontend:
     async def stop(self) -> None:
         await self._server.stop()
         self._compute.shutdown()
+        # the file sink's writer thread drains its queue, then exits (a
+        # blocking join: off the loop)
+        await asyncio.to_thread(self.audit.close)
 
     # -- helpers -----------------------------------------------------------
 
@@ -174,14 +192,23 @@ class HttpFrontend:
             )
         return pipe, None
 
-    def _context(self, request: Request) -> Context:
-        """Per-request Context with the END-TO-END DEADLINE (default
-        ``request_timeout_s``; ``x-dyn-timeout-ms`` tightens it) and the
-        validated tenant id + priority class stamped into its baggage
-        headers. Raises RequestValidationError (-> 400) on malformed
+    def _traced_context(self, request: Request) -> Context:
+        """Per-request Context joined to the route's ``http.request`` span
+        (opened after ``bind_trace``, so its traceparent continues the
+        client's W3C trace or starts one); the traceparent rides
+        Context.headers, and the transport client re-stamps it with its own
+        ``transport.call`` span at send time. It carries the END-TO-END
+        DEADLINE (default ``request_timeout_s``; ``x-dyn-timeout-ms``
+        tightens it) and the validated tenant id + priority class in the
+        same headers. Raises RequestValidationError (-> 400) on malformed
         tenancy headers."""
         tenant, priority = validate_tenancy(request.headers)
         headers = {TENANT_HEADER: tenant, PRIORITY_HEADER: priority}
+        cur = tracing.current_trace()
+        if cur is None:
+            tracing.ensure_trace(headers)
+        else:
+            headers[tracing.TRACEPARENT] = cur.to_traceparent()
         timeout_s = self.request_timeout_s
         raw = request.headers.get(TIMEOUT_HEADER)
         if raw:
@@ -237,6 +264,9 @@ class HttpFrontend:
                                        "on every worker", "admin"),
                 "/health": op("Liveness", "ops", method="get"),
                 "/metrics": op("Prometheus exposition", "ops", method="get"),
+                "/debug/timeline": op(
+                    "Flight-recorder timelines from every worker", "ops",
+                    method="get"),
             },
         }
 
@@ -286,15 +316,21 @@ class HttpFrontend:
             self._m_requests.labels(str(body.get("model")), route, str(err.status)).inc()
             return err
         model = pipe.card.name
-        try:
-            ctx = self._context(request)
-        except RequestValidationError as e:
-            # malformed tenancy header: typed 400 naming the header
-            self._m_requests.labels(model, route, "400").inc()
-            return _error(400, str(e), param=e.param)
-        return await self._serve_completions(
-            request, body, pipe, route, chat=chat, ctx=ctx
-        )
+        # the server span of the whole route handling, admission through
+        # stream completion, child of the client's traceparent when one
+        # came in; bind_trace also CLEARS a binding a previous request left
+        # on this keep-alive connection's task
+        tracing.bind_trace(request.headers)
+        with tracing.span("http.request", route=route, model=model):
+            try:
+                ctx = self._traced_context(request)
+            except RequestValidationError as e:
+                # malformed tenancy header: typed 400 naming the header
+                self._m_requests.labels(model, route, "400").inc()
+                return _error(400, str(e), param=e.param)
+            return await self._serve_completions(
+                request, body, pipe, route, chat=chat, ctx=ctx
+            )
 
     async def _serve_completions(
         self, request: Request, body: dict, pipe: ModelPipeline,
@@ -307,9 +343,10 @@ class HttpFrontend:
             try:
                 # CPU-bound render+tokenize runs on the compute pool, not
                 # the serving event loop
-                preprocessed = await self._compute.run(
-                    pipe.preprocessor.preprocess, body
-                )
+                with tracing.span("http.preprocess"):
+                    preprocessed = await self._compute.run(
+                        pipe.preprocessor.preprocess, body
+                    )
             except ValueError as e:
                 self._m_requests.labels(model, route, "400").inc()
                 return _error(400, str(e))
@@ -335,8 +372,16 @@ class HttpFrontend:
                     await timed.aclose()
                     msg = err[len("invalid_request:"):].strip()
                     self._m_requests.labels(model, route, "400").inc()
+                    self._audit(route, model, ctx, body, 400, t_start, error=msg)
                     return _error(400, msg)
                 timed = self._rechain(first, timed)
+
+            # a streamed request's audit record carries the real output
+            # tokens and finish reason, and a mid-stream failure (an SSE
+            # error event on an already-200 response) as its error
+            audit_state = {"tokens": 0, "finish": None, "error": None}
+            if body.get("stream") and self.audit.enabled:
+                timed = self._observe_for_audit(timed, audit_state)
 
             if body.get("stream"):
                 include_usage = bool(
@@ -355,6 +400,10 @@ class HttpFrontend:
                 resp = await self._sse(request, pp, ctx)
                 self._m_requests.labels(model, route, "200").inc()
                 self._mark_completed(model, prompt_tokens)
+                self._audit(route, model, ctx, body, 200, t_start,
+                            finish_reason=audit_state["finish"],
+                            output_tokens=audit_state["tokens"],
+                            error=audit_state["error"])
                 return resp
             agg = (
                 await pipe.preprocessor.aggregate_chat(
@@ -368,10 +417,16 @@ class HttpFrontend:
             )
             self._m_requests.labels(model, route, "200").inc()
             self._mark_completed(model, prompt_tokens)
+            self._audit(route, model, ctx, body, 200, t_start,
+                        finish_reason=(agg.get("choices") or [{}])[0].get(
+                            "finish_reason"),
+                        output_tokens=(agg.get("usage") or {}).get(
+                            "completion_tokens", 0))
             return Response.json(agg)
         except OverQuota as e:
             ctx.stop_generating()
             self._m_requests.labels(model, route, "429").inc()
+            self._audit(route, model, ctx, body, 429, t_start, error=str(e))
             return _error(
                 429, f"over quota: {e}", code="over_quota",
                 headers={"Retry-After": _retry_after_header(e.retry_after_s)},
@@ -382,6 +437,7 @@ class HttpFrontend:
             ctx.stop_generating()
             retry_after = getattr(e, "retry_after_s", 1.0)
             self._m_requests.labels(model, route, "503").inc()
+            self._audit(route, model, ctx, body, 503, t_start, error=str(e))
             return _error(
                 503, f"service unavailable: {e}", code="service_unavailable",
                 headers={"Retry-After": _retry_after_header(retry_after)},
@@ -389,6 +445,7 @@ class HttpFrontend:
         except DeadlineExceeded as e:
             ctx.stop_generating()
             self._m_requests.labels(model, route, "504").inc()
+            self._audit(route, model, ctx, body, 504, t_start, error=str(e))
             return _error(504, f"deadline exceeded: {e}", code="deadline_exceeded")
         except (ConnectionError, asyncio.CancelledError):
             # the client went away mid-stream (_sse stopped the context)
@@ -397,6 +454,7 @@ class HttpFrontend:
             log.exception("request %s failed", ctx.id)
             ctx.stop_generating()
             self._m_requests.labels(model, route, "500").inc()
+            self._audit(route, model, ctx, body, 500, t_start, error=str(e))
             return _error(500, f"internal error: {e}")
         finally:
             self._m_inflight.labels(model).dec()
@@ -410,6 +468,39 @@ class HttpFrontend:
         async with aclosing(rest):
             async for d in rest:
                 yield d
+
+    @staticmethod
+    async def _observe_for_audit(stream, state: dict):
+        """Pass ``stream`` through, counting its output tokens, finish
+        reason and error into ``state`` for the audit record."""
+        try:
+            async with aclosing(stream):
+                async for d in stream:
+                    state["tokens"] += len(d.get("token_ids") or ())
+                    if d.get("finish_reason"):
+                        state["finish"] = d["finish_reason"]
+                    if d.get("error"):
+                        state["error"] = str(d["error"])
+                    yield d
+        except Exception as e:  # noqa: BLE001
+            state["error"] = str(e)
+            raise
+
+    def _audit(
+        self, route: str, model: str, ctx: Context, body: dict, status: int,
+        t_start: float, *, finish_reason: str | None = None,
+        output_tokens: int = 0, error: str | None = None,
+    ) -> None:
+        """Emit one audit record AFTER the response completes (the sinks
+        enqueue; nothing waits on them)."""
+        if not self.audit.enabled:
+            return
+        self.audit.emit(AuditRecord.make(
+            route=route, model=model, request_id=ctx.id, request=body,
+            status=status, finish_reason=finish_reason,
+            output_tokens=output_tokens,
+            duration_ms=(time.monotonic() - t_start) * 1e3, error=error,
+        ))
 
     def _mark_completed(self, model: str, prompt_tokens: int) -> None:
         """ISL/OSL accounting, counted only when the stream finished, so
@@ -492,21 +583,27 @@ class HttpFrontend:
             "top_p": body.get("top_p"),
         }
         chat_body = {k: v for k, v in chat_body.items() if v is not None}
-        try:
-            ctx = self._context(request)
-        except RequestValidationError as e:
-            self._m_requests.labels(model, "responses", "400").inc()
-            return _error(400, str(e), param=e.param)
-        try:
-            return await self._serve_responses(request, body, pipe, chat_body, ctx)
-        except OverQuota as e:
-            # the completions routes' 429 accounting
-            ctx.stop_generating()
-            self._m_requests.labels(model, "responses", "429").inc()
-            return _error(
-                429, f"over quota: {e}", code="over_quota",
-                headers={"Retry-After": _retry_after_header(e.retry_after_s)},
-            )
+        tracing.bind_trace(request.headers)
+        with tracing.span("http.request", route="responses", model=model):
+            try:
+                ctx = self._traced_context(request)
+            except RequestValidationError as e:
+                self._m_requests.labels(model, "responses", "400").inc()
+                return _error(400, str(e), param=e.param)
+            t_start = time.monotonic()
+            try:
+                return await self._serve_responses(request, body, pipe,
+                                                   chat_body, ctx)
+            except OverQuota as e:
+                # the completions routes' 429 accounting, audited too
+                ctx.stop_generating()
+                self._m_requests.labels(model, "responses", "429").inc()
+                self._audit("responses", model, ctx, body, 429, t_start,
+                            error=str(e))
+                return _error(
+                    429, f"over quota: {e}", code="over_quota",
+                    headers={"Retry-After": _retry_after_header(e.retry_after_s)},
+                )
 
     async def _serve_responses(
         self, request: Request, body: dict, pipe: ModelPipeline,
@@ -515,9 +612,10 @@ class HttpFrontend:
         model = pipe.card.name
         rid = f"resp_{ctx.id}"
         try:
-            preprocessed = await self._compute.run(
-                pipe.preprocessor.preprocess, chat_body
-            )
+            with tracing.span("http.preprocess"):
+                preprocessed = await self._compute.run(
+                    pipe.preprocessor.preprocess, chat_body
+                )
         except ValueError as e:
             return _error(400, str(e))
         prompt_tokens = len(preprocessed["token_ids"])
@@ -623,6 +721,31 @@ class HttpFrontend:
                        if isinstance(r, dict) and r.get("ok"))
             results[f"{ns}/{comp}"] = {"workers_cleared": acks}
         return Response.json({"results": results})
+
+    async def debug_timeline(self, request: Request) -> Response:
+        """Flight-recorder query: fan ``{"op": "timeline"}`` out to every
+        worker's admin endpoint and merge the answers: by request id
+        (``?request_id=``) one full per-request event timeline (admission,
+        phase transitions, finish, with its trace_id), or without it each
+        worker's summary view (active, the recent ``n``, the retained
+        errors and slowest). The HTTP face of runtime/flight.py."""
+        if self._drt is None:
+            return _error(501, "admin plane unavailable (no runtime handle)")
+        # the admin calls' spans join the caller's trace, never a binding a
+        # previous request left on this connection's task
+        tracing.bind_trace(request.headers)
+        request_id = request.query.get("request_id")
+        try:
+            n = int(request.query.get("n") or 16)
+        except ValueError:
+            return _error(400, "n must be an integer")
+        results: dict[str, Any] = {}
+        for ns, comp in await self._admin_components():
+            replies = await self._admin_call(
+                ns, comp, {"op": "timeline", "request_id": request_id, "n": n})
+            results[f"{ns}/{comp}"] = (
+                {"error": "no admin instances"} if replies is None else replies)
+        return Response.json({"request_id": request_id, "results": results})
 
     async def _admin_components(self) -> list[tuple[str, str]]:
         """Every component exposing an admin endpoint."""

@@ -1,5 +1,5 @@
 """Migration operator: fault-tolerant retry across workers (a copy of
-dynamo_tpu/frontend/migration.py, without its tracing span).
+dynamo_tpu/frontend/migration.py).
 
 If the response stream dies mid-generation (worker crash, connection loss ->
 StreamError from the transport; draining/saturated worker ->
@@ -23,6 +23,7 @@ Retry discipline (robustness PR):
     prompt+generated, so a crash-looping worker must not grow the resume
     prompt unboundedly (max_resume_tokens).
 
+Each backoff is a ``migration.resume`` span (runtime/tracing.py).
 Recovery counters are exported on every /metrics surface as
 ``dynamo_migrations_total`` / ``dynamo_migrations_exhausted_total``
 (runtime/metrics.py global providers).
@@ -37,6 +38,7 @@ import logging
 import random
 from typing import Any, AsyncIterator
 
+from dynamo_tpu_torch.runtime import tracing
 from dynamo_tpu_torch.runtime.context import (
     Context,
     DeadlineExceeded,
@@ -176,7 +178,14 @@ class Migration:
             if retry:
                 STATS["migrations"] += 1
                 STATS["resumed_tokens"] += len(generated)
-                await asyncio.sleep(delay)
+                # the backoff joins the request's trace: the re-driven
+                # attempt is the NEXT transport.call span in the same trace
+                # (this span's sibling), so it reads call -> resume -> call
+                with tracing.span(
+                    "migration.resume", attempt=attempt,
+                    resumed_tokens=len(generated),
+                ):
+                    await asyncio.sleep(delay)
                 # resume: prompt = original + generated so far; shrink budget
                 stop = dict(request.get("stop_conditions") or {})
                 max_tokens = stop.get("max_tokens")

@@ -19,6 +19,7 @@ from contextlib import aclosing
 from dataclasses import dataclass, field
 from typing import TYPE_CHECKING, Any, AsyncIterator
 
+from dynamo_tpu_torch.runtime import tracing
 from dynamo_tpu_torch.runtime.context import (
     Context,
     ServiceUnavailable,
@@ -236,41 +237,49 @@ class Client:
     async def call_instance(
         self, instance_id: int, payload: Any, context: Context
     ) -> AsyncIterator[Any]:
-        """Issue a streaming call to a specific instance."""
+        """Issue a streaming call to a specific instance. The whole stream
+        runs under a ``transport.call`` span, dispatch through end of
+        stream, whose context the wire hop propagates
+        (``Context.wire_headers``), so the worker's spans nest directly
+        beneath it (runtime/tracing.py)."""
         inst = self._instances.get(instance_id)
         if inst is None:
             raise StreamError(f"instance {instance_id:x} not found for {self.endpoint.path}")
-        if inst.transport == "local":
-            handler = self._drt.local_registry.get(inst.wire_path)
-            if handler is None:
-                raise StreamError(f"local instance {instance_id:x} has no handler")
-            local_stream = call_local(handler, payload, context)
-            async with aclosing(local_stream):
-                async for item in local_stream:
-                    yield item
-            return
-        ch = await self._channel(inst)
-        try:
-            stream = ch.call(inst.wire_path, payload, context)
-            async with aclosing(stream):
-                async for item in stream:
-                    yield item
-        except ServiceUnavailable:
-            # the worker answered (draining or saturated): the channel and
-            # the other streams on it are sound
-            raise
-        except StreamError:
-            # connection-level death: drop the channel so the next call
-            # redials
-            if self._channels.get(instance_id) is ch:
-                del self._channels[instance_id]
-            self._retiring.discard(ch)
-            await ch.close()
-            raise
-        finally:
-            if ch in self._retiring and not ch.busy:
+        with tracing.span(
+            "transport.call",
+            endpoint=self.endpoint.path, instance=f"{instance_id:x}",
+        ):
+            if inst.transport == "local":
+                handler = self._drt.local_registry.get(inst.wire_path)
+                if handler is None:
+                    raise StreamError(f"local instance {instance_id:x} has no handler")
+                local_stream = call_local(handler, payload, context)
+                async with aclosing(local_stream):
+                    async for item in local_stream:
+                        yield item
+                return
+            ch = await self._channel(inst)
+            try:
+                stream = ch.call(inst.wire_path, payload, context)
+                async with aclosing(stream):
+                    async for item in stream:
+                        yield item
+            except ServiceUnavailable:
+                # the worker answered (draining or saturated): the channel and
+                # the other streams on it are sound
+                raise
+            except StreamError:
+                # connection-level death: drop the channel so the next call
+                # redials
+                if self._channels.get(instance_id) is ch:
+                    del self._channels[instance_id]
                 self._retiring.discard(ch)
                 await ch.close()
+                raise
+            finally:
+                if ch in self._retiring and not ch.busy:
+                    self._retiring.discard(ch)
+                    await ch.close()
 
     async def _prewarm(self, inst: Instance) -> None:
         try:

@@ -20,6 +20,8 @@ import time
 import uuid
 from typing import Any, Coroutine
 
+from dynamo_tpu_torch.runtime import tracing
+
 _task_log = logging.getLogger("dynamo_tpu_torch.tasks")
 
 # Strong references for fire-and-forget tasks: the event loop holds tasks
@@ -241,12 +243,20 @@ class Context:
     def wire_headers(self) -> dict[str, str]:
         """Headers to send with this request: baggage plus the remaining
         deadline budget in ms (the receiver rebuilds an absolute deadline
-        via deadline_from_headers). No trace context yet (ROADMAP Queue A
-        item 15)."""
+        via deadline_from_headers), plus the LIVE trace context: the
+        sender's current span as ``traceparent``, not the one stashed at
+        admission, so the receiver binds the actual calling span as its
+        remote parent (runtime/tracing.py)."""
+        cur = tracing.current_trace()
         remaining = self.remaining_s()
-        if remaining is None:
+        if remaining is None and cur is None:
             return self.headers
-        return {**self.headers, DEADLINE_HEADER: str(int(remaining * 1000))}
+        headers = dict(self.headers)
+        if cur is not None:
+            headers[tracing.TRACEPARENT] = cur.to_traceparent()
+        if remaining is not None:
+            headers[DEADLINE_HEADER] = str(int(remaining * 1000))
+        return headers
 
     def child(self, request_id: str | None = None) -> "Context":
         """Derived context: cancelling the parent cancels the child."""

@@ -33,8 +33,12 @@ replica answered, and — because failover rides the same reconnect path —
 re-syncs watches (snapshot diff) and re-subscribes with seq dedup
 against the promoted follower exactly as it does across a restart (the
 cluster shares one boot_id, so seq baselines stay valid). The replicated
-hub server itself is ROADMAP Queue A item 14, as are the reference's fault-
-injection hooks (item 13).
+hub server itself is ROADMAP Queue A item 14.
+
+Fault sites (runtime/faults.py): ``hub.dial`` before each dial (a drop or
+an error fails it), ``hub.call`` before each request (a drop is a
+ConnectionError, which the reconnect-and-retry loop absorbs; a delay is a
+slow hub; an error reaches the caller).
 
 The wire is the JAX package's (framing.py over the port's stdlib msgpack
 codec): this client talks to a JAX hub server as well as to the port's.
@@ -50,6 +54,7 @@ import time
 from typing import Any, AsyncIterator
 
 from dynamo_tpu_torch.runtime import framing
+from dynamo_tpu_torch.runtime.faults import FAULTS
 from dynamo_tpu_torch.runtime.hub import Hub, KeyExists, WatchEvent
 from dynamo_tpu_torch.runtime.metrics import MetricsRegistry, register_registry
 
@@ -194,6 +199,8 @@ class RemoteHub(Hub):
             idx = (self._addr_idx + i) % len(self._addrs)
             host, port = self._split(self._addrs[idx])
             try:
+                if FAULTS.enabled:
+                    await FAULTS.fire("hub.dial")  # drop/error: the dial fails
                 self._reader, self._writer = await asyncio.wait_for(
                     asyncio.open_connection(host, port), timeout
                 )
@@ -297,6 +304,9 @@ class RemoteHub(Hub):
                     q.put_nowait(None)  # sentinel: stream closed
 
     async def _send_request(self, op: str, kwargs: dict[str, Any]) -> Any:
+        if FAULTS.enabled:
+            # drop: a ConnectionError, into _call's reconnect-and-retry loop
+            await FAULTS.fire("hub.call")
         mid = next(self._ids)
         fut: asyncio.Future = asyncio.get_running_loop().create_future()
         try:

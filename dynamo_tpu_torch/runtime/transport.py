@@ -25,9 +25,14 @@ backpressure; adjacent items of one stream coalesce into a single
 ``payloads`` frame (DYN_STREAM_COALESCE, default on).
 
 In-process instances short-circuit the wire entirely (LocalRegistry), which
-the one-process stack uses. Not here: the reference's fault-injection hooks
-(``FAULTS.fire``; runtime/faults.py is ROADMAP Queue A item 13) and trace
-binding (item 13).
+the one-process stack uses.
+
+Tracing: a served request binds the caller's ``traceparent`` from its open
+frame's headers (runtime/tracing.py ``bind_trace``), so the handler's spans
+nest beneath the caller's ``transport.call``. Fault sites
+(runtime/faults.py): ``transport.connect`` at dial, ``transport.send`` at
+the open frame, ``transport.recv`` per received frame (a drop or an error
+there cuts the connection, as a real death does).
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ import os
 import uuid
 from typing import Any, AsyncIterator, Awaitable, Callable
 
-from dynamo_tpu_torch.runtime import framing
+from dynamo_tpu_torch.runtime import framing, tracing
 from dynamo_tpu_torch.runtime.context import (
     Context,
     DeadlineExceeded,
@@ -49,6 +54,7 @@ from dynamo_tpu_torch.runtime.context import (
     deadline_from_headers,
     spawn,
 )
+from dynamo_tpu_torch.runtime.faults import FAULTS
 from dynamo_tpu_torch.runtime.metrics import MetricsRegistry, register_registry
 
 log = logging.getLogger("dynamo_tpu_torch.transport")
@@ -426,6 +432,9 @@ class EndpointServer:
                 request_id=msg["req"], headers=headers,
                 deadline=deadline_from_headers(headers),
             )
+            # join the caller's W3C trace: the handler task created below
+            # copies this binding
+            tracing.bind_trace(ctx.headers)
             contexts[key] = ctx
             task = asyncio.ensure_future(
                 self._serve_request(msg, ctx, fw, contexts, key)
@@ -602,6 +611,8 @@ class InstanceChannel:
         self.rx_max_bytes = _env_int("DYN_STREAM_RX_MAX_BYTES", 8 * 1024 * 1024)
 
     async def connect(self, timeout: float = 5.0) -> None:
+        if FAULTS.enabled:
+            await FAULTS.fire("transport.connect")  # drop/error: the dial fails
         if self.uds and os.path.exists(self.uds):
             # co-located worker advertised a unix socket; TCP remains the
             # fallback if it races the worker's shutdown/unlink
@@ -643,6 +654,18 @@ class InstanceChannel:
                     if not isinstance(msg, dict):
                         stop = True
                         break
+                    if FAULTS.enabled:
+                        try:
+                            await FAULTS.fire("transport.recv")
+                        except (ConnectionError, RuntimeError):
+                            # an injected drop or error dies exactly like a
+                            # cut connection: close the socket so both
+                            # sides see it; leaving the loop marks the
+                            # channel closed and delivers the sentinels
+                            if self._writer is not None:
+                                self._writer.close()
+                            stop = True
+                            break
                     key = msg["ch"] if "ch" in msg else msg.get("req")
                     q = self._queues.get(key)
                     if q is None:
@@ -676,6 +699,8 @@ class InstanceChannel:
         q = _BoundedRx(self.rx_max_items, self.rx_max_bytes)
         self._queues[ch_id] = q
         try:
+            if FAULTS.enabled:
+                await FAULTS.fire("transport.send")  # drop: StreamError
             # corked single-writer send path: feed() appends whole packed
             # frames, so concurrent opens/cancels on this channel cannot
             # interleave mid-frame (the old per-call write lock is gone)

@@ -314,10 +314,10 @@ _UNPORTED_VALUES = {
 
 # fields that were refused until their feature was ported: they now build
 # with the value (speculative decoding: Queue A item 6; overload: item 5;
-# guided decoding: item 7)
+# guided decoding: item 7; the step profiler: item 13)
 _PORTED_SINCE = ("spec_mode", "spec_k_max", "spec_ngram_min", "spec_ngram_max",
                  "spec_ewma_alpha", "spec_reprobe_tokens", "max_waiting", "tenants",
-                 "preemption", "guided_cache_entries")
+                 "preemption", "guided_cache_entries", "profile")
 
 
 @pytest.mark.parametrize("field", list(_UNPORTED_VALUES))

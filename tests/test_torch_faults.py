@@ -166,3 +166,156 @@ def test_corrupt_token_ids_and_cumulative_trips():
         jfaults.FAULTS.clear()
         tfaults.FAULTS.clear()
     assert corrupt_token_ids("health.canary", toks) is toks
+
+
+# ------------------------------------------------------------ wired sites
+
+
+def _tiny_engine(**cfg):
+    import torch
+
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelSpec
+    from dynamo_tpu_torch.engine.core import InferenceEngine
+
+    torch.set_num_threads(2)
+    spec = ModelSpec(vocab_size=128, hidden_size=32, intermediate_size=64, num_layers=2,
+                     num_heads=4, num_kv_heads=2, head_dim=8, dtype="float32")
+    return InferenceEngine(spec, EngineConfig(**{
+        "page_size": 4, "num_pages": 128, "max_pages_per_seq": 32,
+        "max_decode_slots": 2, "prefill_buckets": (16, 32), **cfg}), device="cpu")
+
+
+def _greedy(tokens, n):
+    return {"token_ids": list(tokens), "sampling": {"temperature": 0.0},
+            "stop_conditions": {"max_tokens": n, "ignore_eos": True}}
+
+
+@pytest.fixture
+def port_faults():
+    from dynamo_tpu_torch.runtime.flight import FLIGHT
+
+    FLIGHT.clear()
+    yield tfaults.FAULTS
+    tfaults.FAULTS.clear()
+    FLIGHT.clear()
+
+
+async def test_engine_step_error_fails_in_flight_and_keeps_serving(port_faults):
+    """``engine.step:error`` on a work cycle fails the in-flight request
+    (its timeline retained among the errors) and the engine serves the
+    next request."""
+    from dynamo_tpu_torch.runtime.context import Context
+    from dynamo_tpu_torch.runtime.flight import FLIGHT
+
+    eng = _tiny_engine()
+    ctx, items = Context(), []
+    async for item in eng.generate(_greedy(range(1, 9), 60), ctx):
+        items.append(item)
+        if len(items) == 2:
+            port_faults.configure("engine.step:error@1.0x1")
+    assert items[-1]["finish_reason"] == "error"
+    assert items[-1]["error"] == "engine step failure"
+    assert port_faults.trip_counts[("engine.step", "error")] == 1
+    errors = FLIGHT.snapshot()["errors"]
+    assert [t["request_id"] for t in errors] == [ctx.id]
+    tl = FLIGHT.snapshot(ctx.id)["timeline"]
+    assert tl["finish_reason"] == "error" and tl["error"] == "engine step failure"
+    out = [x async for x in eng.generate(_greedy(range(1, 9), 4), Context())]
+    assert out[-1]["finish_reason"] == "length"
+    assert sum(len(x["token_ids"]) for x in out) == 4
+    assert eng.allocator.active_pages == 0
+    await eng.close()
+
+
+async def test_engine_admit_drop_stays_retryable(port_faults):
+    """An ``engine.admit`` drop is the retryable ServiceUnavailable (a
+    StreamError: migration re-drives it); an error is not retryable; both
+    open no timeline, and the next request is served."""
+    from dynamo_tpu_torch.runtime.context import Context, ServiceUnavailable, StreamError
+    from dynamo_tpu_torch.runtime.flight import FLIGHT
+
+    eng = _tiny_engine()
+    port_faults.configure("engine.admit:drop@1.0x1")
+    ctx = Context()
+    with pytest.raises(ServiceUnavailable, match="injected admit drop") as e:
+        [x async for x in eng.generate(_greedy([1, 2, 3], 2), ctx)]
+    assert isinstance(e.value, StreamError)
+    port_faults.configure("engine.admit:error@1.0x1")
+    with pytest.raises(tfaults.FaultInjected):
+        [x async for x in eng.generate(_greedy([1, 2, 3], 2), Context())]
+    assert not FLIGHT.snapshot(ctx.id)["found"]
+    out = [x async for x in eng.generate(_greedy([1, 2, 3], 2), Context())]
+    assert out[-1]["finish_reason"] == "length"
+    await eng.close()
+
+
+async def test_engine_compile_error_is_reported_and_serving_works(port_faults):
+    """``engine.compile`` fires per precompiled variant: an error is in the
+    precompile() report (the variant captures at first use) and the engine
+    still serves."""
+    from dynamo_tpu_torch.runtime.context import Context
+
+    eng = _tiny_engine(spec_mode="ngram")
+    port_faults.configure("engine.compile:error@1.0x2")
+    report = eng.precompile()
+    names = list(report)
+    assert names[:2] == ["decode[2xgreedy]", "decode[2xgreedy,lp20]"]
+    assert names[4:] == ["verify[1x9]", "verify[2x9]"]  # spec_k_max 8: width 9
+    errored = [n for n, r in report.items() if "error" in r]
+    assert errored == names[:2]
+    assert all(r["compiles"] == 0 for r in report.values())  # nothing captures on the CPU
+    out = [x async for x in eng.generate(_greedy(range(1, 9), 6), Context())]
+    assert out[-1]["finish_reason"] == "length"
+    assert sum(len(x["token_ids"]) for x in out) == 6
+    await eng.close()
+
+
+async def test_transport_and_hub_sites_fire(port_faults):
+    """The transport.* and hub.* sites: a dial that fails, a request that
+    dies at send or on receipt, a hub dial that fails and a dropped hub call
+    the client retries."""
+    from dynamo_tpu_torch.runtime.context import Context, StreamError
+    from dynamo_tpu_torch.runtime.hub_client import RemoteHub
+    from dynamo_tpu_torch.runtime.hub_server import HubServer
+    from dynamo_tpu_torch.runtime.transport import EndpointServer, InstanceChannel
+
+    async def gen(request, context):
+        for i in range(4):
+            yield i
+
+    srv = EndpointServer()
+    srv.register("ep", gen)
+    host, port = await srv.start()
+    hub = HubServer(port=0)
+    await hub.start()
+    try:
+        port_faults.configure("transport.connect:error@1.0x1")
+        with pytest.raises(tfaults.FaultInjected):
+            await InstanceChannel(host, port).connect()
+        ch = InstanceChannel(host, port)
+        await ch.connect()
+        port_faults.configure("transport.send:drop@1.0x1")
+        with pytest.raises(StreamError, match="send failed"):
+            [x async for x in ch.call("ep", None, Context())]
+        assert [x async for x in ch.call("ep", None, Context())] == [0, 1, 2, 3]
+        port_faults.configure("transport.recv:drop@1.0x1")
+        with pytest.raises(StreamError):
+            [x async for x in ch.call("ep", None, Context())]
+        await ch.close()
+        addr = f"127.0.0.1:{hub.port}"
+        port_faults.configure("hub.dial:error@1.0x1")
+        with pytest.raises(tfaults.FaultInjected):
+            await RemoteHub.connect(addr)
+        client = await RemoteHub.connect(addr)
+        port_faults.configure("hub.call:drop@1.0x1")
+        await client.put("k", b"v")
+        assert await client.get("k") == b"v"
+        await client.close()
+        counts = port_faults.trip_counts
+        for site, action in (("transport.connect", "error"), ("transport.send", "drop"),
+                             ("transport.recv", "drop"), ("hub.dial", "error"),
+                             ("hub.call", "drop")):
+            assert counts[(site, action)] == 1, (site, counts)
+    finally:
+        await srv.stop(drain=False)
+        await hub.stop()

@@ -266,6 +266,37 @@ async def test_processes_stream_like_generate(deployment):
                for s in status.values()), status  # both workers served
 
 
+async def test_worker_processes_answer_the_timeline_op(deployment):
+    """Each worker process answers the admin ``timeline`` op from its flight
+    recorder: the summary lists the streams it served, and a request id
+    from it reads back the full timeline, trace id and events included."""
+    d = deployment
+    async with aiohttp.ClientSession() as session:
+        await asyncio.gather(*(_stream(session, d.http, _body(p, 4)) for p in PROMPTS[:2]))
+    drt = await _runtime(d)
+    try:
+        summaries = await _admin_all(drt, "timeline")
+        recent = [t for s in summaries.values() for t in s["recent"]]
+        assert len(summaries) == 2 and all(s["ok"] for s in summaries.values())
+        assert sum(t["finish_reason"] == "length" for t in recent) >= 2
+        rid = recent[-1]["request_id"]
+        client = await drt.namespace("dynamo").component("backend").endpoint(
+            "admin").client().start()
+        await asyncio.sleep(0.2)
+        found = []
+        for iid in client.instance_ids():
+            async for item in client.call_instance(
+                    iid, {"op": "timeline", "request_id": rid}, Context()):
+                if item.get("found"):
+                    found.append(item["timeline"])
+        await client.close()
+    finally:
+        await drt.close()
+    (tl,) = found
+    assert tl["request_id"] == rid and len(tl["trace_id"]) == 32
+    assert [e["name"] for e in tl["events"]] == ["admit", "first_token"]
+
+
 async def _serving_worker(drt) -> int:
     """The admin instance id of the worker holding active pages."""
     for _ in range(50):
@@ -554,18 +585,22 @@ def test_build_lock_builds_once_across_processes(tmp_path):
     assert (tmp_path / "build" / "libkernels.so").exists()
 
 
-async def _faults_op(hub: str, spec: str | None) -> dict:
+async def _admin_op(hub: str, payload: dict) -> dict:
     drt = DistributedRuntime(await RemoteHub.connect(hub), RuntimeConfig(hub_address=hub))
     try:
         client = await drt.namespace("dynamo").component("backend").endpoint(
             "admin").client().start()
         (inst,) = await client.wait_for_instances(1, timeout=10)
-        payload = {"op": "faults"} if spec is None else {"op": "faults", "spec": spec}
         async for item in client.call_instance(inst.instance_id, payload, Context()):
             await client.close()
             return item
     finally:
         await drt.close()
+
+
+async def _faults_op(hub: str, spec: str | None) -> dict:
+    return await _admin_op(
+        hub, {"op": "faults"} if spec is None else {"op": "faults", "spec": spec})
 
 
 def _status(port: int, path: str) -> tuple[int, str]:
@@ -581,8 +616,10 @@ def test_worker_health_server_parsers_and_faults_op():
     deepseek_r1 parsers: its status server answers /ready 200 once a clean
     canary has run; the admin faults op arms health.canary:corrupt scoped
     to this worker, which quarantines it (/ready 503, reason="sdc" on its
-    /metrics); clearing the spec readmits it. `cli mocker` serves a fleet
-    of mock workers on the same hub."""
+    /metrics); clearing the spec readmits it. Its /metrics carries the
+    dynamo_engine_* series of the canaries' work and its admin answers the
+    timeline op. `cli mocker` serves a fleet of mock workers on the same
+    hub."""
     children = []
     try:
         hub = _Child("hub", "--port", "0")
@@ -620,6 +657,17 @@ def test_worker_health_server_parsers_and_faults_op():
         assert bad["ok"] is False and "explode" in bad["error"]
         assert asyncio.run(_faults_op(addr, ""))["rules"] == []
         until("/ready", 200)
+        # the worker telemetry on the status server's /metrics: the canaries'
+        # work cycles and device programs, sampled every second
+        text = until("/metrics", 200, "dynamo_engine_dispatches_total")[1]
+        for name in ("dynamo_engine_step_seconds_count", "dynamo_engine_dispatches_total"):
+            assert float(re.search(rf'^{name}{{engine="\d+"}} (\S+)$', text,
+                                   re.M).group(1)) > 0, name
+        assert "dynamo_engine_pages{" in text and "dynamo_engine_burst_tokens" in text
+        # the admin timeline op: the canaries are this worker's requests
+        tl = asyncio.run(_admin_op(addr, {"op": "timeline", "n": 4}))
+        assert tl["ok"] and tl["recent"] and all(
+            t["finish_reason"] == "length" for t in tl["recent"])
         mocker = _Child("mocker", "--hub", addr, "--num-workers", "2",
                         "--model-name", "mock", "--speedup-ratio", "100")
         children.append(mocker)

@@ -477,18 +477,28 @@ def test_responses_errors_match(stacks, case):
 
 
 def test_unserved_routes_and_methods(stacks):
-    """/v1/embeddings and /debug/timeline wait for their slices (404);
-    /v1/responses is served (test_responses_parity) and listed in
-    openapi.json."""
+    """/v1/embeddings waits for its slice (404); /debug/timeline is served
+    in the JAX stack's shape (the JAX engine here is registered by hand,
+    with no admin endpoint, so its answer lists no component; the port's
+    worker answers with its flight recorder's summary); /v1/responses is
+    served (test_responses_parity) and listed in openapi.json, as
+    /debug/timeline is."""
     for route in ("/v1/embeddings", "/nope"):
         assert stacks.run(stacks.post("port", route, {"model": MODEL}))[0] == 404
-    assert stacks.run(stacks.get("port", "/debug/timeline"))[0] == 404
+    (js, jbody), (ps, pbody) = stacks.run(_gather(
+        stacks.get("jax", "/debug/timeline?n=2"), stacks.get("port", "/debug/timeline?n=2")))
+    assert js == ps == 200
+    assert jbody == {"request_id": None, "results": {}}
+    assert pbody["request_id"] is None and list(pbody["results"]) == ["dynamo/backend"]
+    (worker,) = pbody["results"]["dynamo/backend"].values()
+    assert worker["ok"] and set(worker) == {"ok", "active", "recent", "errors", "slowest"}
+    assert stacks.run(stacks.get("port", "/debug/timeline?n=x"))[0] == 400
     (ws, _), (gs, _) = stacks.run(_gather(
         stacks.get("jax", "/v1/completions"), stacks.get("port", "/v1/completions")))
     assert gs == ws == 405
     status, spec = stacks.run(stacks.get("port", "/openapi.json"))
     assert status == 200 and "/v1/chat/completions" in spec["paths"]
-    assert "/v1/responses" in spec["paths"]
+    assert "/v1/responses" in spec["paths"] and "/debug/timeline" in spec["paths"]
     status, html = stacks.run(stacks.get("port", "/docs"))
     assert status == 200 and "/v1/completions" in html
 
