@@ -429,9 +429,34 @@ Phases, each of which must pass (any failure exits non-zero):
    on (a)'s engine with profiling and tracing off, on, on, off: TTFT, tok/s
    and decode dispatch-to-host (no gate: serves move 25-50% between calls).
    The span, audit and profile files land under build/observability/.
+21. multimodal and embeddings (after phase 20 (a, b, d), on phase 4's
+   weights): (a) four PNGs the script writes with zlib (solid red and
+   blue, a gradient, seeded noise; 375-640 px, none 336) decoded and
+   CLIP-preprocessed on the host by multimodal/image.py: finite [3, 336,
+   336]; (b) the seeded CLIP ViT-L/14-336 tower in f32 (TF32 off) with the
+   encode worker's 1,024 -> 1,024 -> 4,096 projector: ms per image at
+   batch 1 and 4 (CUDA events), its rows on the card against the same
+   tower on the CPU within MM_TOWER_TOL of their largest magnitude; (c)
+   the EPD serve through the port's entry points on one event loop
+   (in-memory hub, launch_encode_worker on the tower, launch_engine_worker
+   with 576 placeholders per image, a 2,048-token chunk cap and 128 pages
+   per sequence, ModelWatcher, HttpFrontend): chats with one and two
+   images over HTTP, each TTFT split into frontend + encode hop (the
+   encoder's share), queue and prefill from the engine's timeline, beside
+   a completion of the same ids as text; 4 concurrent image chats' tok/s.
+   Gates: fused_decode 32 per decode step of the image-conditioned
+   streams, the same image twice gives the same stream (through the
+   frontend pipeline) and hits its cached pages while another image
+   misses, the placeholders sit at the card's positions, and the image
+   prompt's first-token logits (one prefill with the rows injected, on
+   scratch pools) differ from the same ids as text with the served first
+   token near-argmax; (d) a --model-type embeddings worker on the same
+   weights answers /v1/embeddings for 1 and 8 inputs: unit norms within
+   EMB_NORM_TOL, the batch equal to the inputs one by one within
+   EMB_EQ_TOL, ms per input.
 
-Phases run in the order 1-8, 12, 13, 14, 18, 9, 20 (a, b, d), 10, 11, 19,
-20 (c), 15, 16, 17.
+Phases run in the order 1-8, 12, 13, 14, 18, 9, 20 (a, b, d), 21, 10, 11,
+19, 20 (c), 15, 16, 17.
 
 Prints, before the last line, the card line and one JSON object with every
 kernel's measurements; the last line is
@@ -441,6 +466,7 @@ kernel's measurements; the last line is
 from __future__ import annotations
 
 import asyncio
+import base64
 import contextlib
 import json
 import os
@@ -6979,6 +7005,453 @@ def observability_phase(spec, cfg, params, prompts, card) -> int:
     return launches
 
 
+# ------------------------------------------------------------ multimodal
+
+MM_TOKENS = 576  # CLIP ViT-L/14-336: (336 / 14)^2 placeholder rows per image
+MM_IMAGE_TOKEN = 128011  # a reserved id of llama-3's vocabulary
+MM_SEED = 2121
+# (kind, width, height, filtered): solid colours, a gradient and seeded
+# noise, none 336; filtered rows rotate the five filter types (an RGB
+# encoder's adaptive filtering mixes them), the others use None on every
+# row (as libpng writes palette and low-depth images): the decoder's two
+# paths
+MM_PNGS = (("red", 500, 375, True), ("noise", 400, 300, True),
+           ("gradient", 640, 480, True), ("blue", 375, 500, False))
+# the tower's rows on the card against the same tower on the CPU (both f32,
+# TF32 off): at most this share of the rows' largest magnitude
+MM_TOWER_TOL = 1e-4
+MM_REPS = 5
+MM_TEXT = "Describe the picture in one sentence."
+EMB_MODEL = "llama-3-8b-embed"
+EMB_INPUTS = 8
+EMB_NORM_TOL = 1e-3
+# a batch's vectors against the same inputs one by one (the same forward at
+# the same bucket on the same card)
+EMB_EQ_TOL = 1e-5
+# embed_forward and the injected prefill's logits on the card against the
+# same calls on the CPU, both f32 (TF32 off), on llama-3-8b's first
+# MM_CUT_LAYERS layers at full width: at most this share of the largest
+# magnitude of the CPU's values
+MM_CUT_LAYERS = 2
+MM_CUT_TOL = 1e-4
+
+
+def mm_png(kind: str, w: int, h: int, filtered: bool) -> bytes:
+    """An RGB PNG written here with zlib, its rows filtered with the five
+    filter types in turn (None, Sub, Up, Average, Paeth) when ``filtered``,
+    else None on every row."""
+    import struct
+    import zlib
+
+    if kind == "noise":
+        px = np.random.default_rng(MM_SEED).integers(0, 256, (h, w, 3), dtype=np.uint8)
+    elif kind == "gradient":
+        gx, gy = np.meshgrid(np.linspace(0, 255, w), np.linspace(0, 255, h))
+        px = np.stack([gx, gy, np.full_like(gx, 128)], axis=-1).astype(np.uint8)
+    else:
+        px = np.zeros((h, w, 3), np.uint8)
+        px[..., 0 if kind == "red" else 2] = 255
+
+    def chunk(name: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + name + body
+                + struct.pack(">I", zlib.crc32(name + body)))
+
+    cur = px.reshape(h, w * 3).astype(np.int16)
+    up = np.concatenate([np.zeros((1, w * 3), np.int16), cur[:-1]])
+    left = np.pad(cur, ((0, 0), (3, 0)))[:, :-3]
+    upleft = np.pad(up, ((0, 0), (3, 0)))[:, :-3]
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    preds = (np.zeros_like(cur), left, up, (left + up) >> 1, paeth)
+    ftype = np.arange(h) % 5 if filtered else np.zeros(h, np.int64)
+    pred = np.choose(ftype[:, None], preds)
+    rows = np.concatenate([ftype[:, None], (cur - pred) & 0xFF], axis=1).astype(np.uint8)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes())) + chunk(b"IEND", b""))
+
+
+def mm_tower(spec, pngs: dict, card: str):
+    """Phase 21 (a) and (b): each PNG decoded and preprocessed on the host;
+    the ViT-L/14-336 tower with its 1,024 -> 1,024 -> hidden projector (the
+    encode worker's ``_build_vit``), seeded, timed at batch 1 and 4, and held
+    against the same tower on the CPU. Returns the encoder."""
+    from dataclasses import replace
+
+    from dynamo_tpu_torch.multimodal import image, vit
+
+    vspec = vit.VitSpec()
+    vspec = replace(vspec, projector_hidden=vspec.hidden_size, llm_hidden=spec.hidden_size)
+    S = vspec.image_size
+    filtered = {kind: f for kind, _, _, f in MM_PNGS}
+    pix = []
+    for kind, data in pngs.items():
+        t0 = time.perf_counter()
+        p = image.preprocess_image(data, S)
+        ms = 1e3 * (time.perf_counter() - t0)
+        require(p.shape == (3, S, S) and p.dtype == np.float32 and np.isfinite(p).all(),
+                f"multimodal: {kind} preprocessed to {p.shape} {p.dtype}")
+        pix.append(p)
+        rows = "filter types rotated" if filtered[kind] else "filter None"
+        print(f"multimodal decode [{card}]: {kind} PNG of {len(data)} bytes ({rows}) -> "
+              f"[3, {S}, {S}] in {ms:.1f} ms host")
+    enc = vit.VitEncoder(vspec, device=DEVICE, generator=torch.Generator().manual_seed(MM_SEED))
+    require(enc.tokens_per_image == MM_TOKENS and enc.hidden_size == spec.hidden_size,
+            f"multimodal: tower gives {enc.tokens_per_image} x {enc.hidden_size} rows")
+    batch = torch.from_numpy(np.stack(pix)).to(DEVICE)
+    for n in (1, 4):
+        x = batch[:n]
+        enc.forward_pixels(x)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(MM_REPS):
+            rows = enc.forward_pixels(x)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / MM_REPS
+        require(rows.shape == (n * MM_TOKENS, spec.hidden_size)
+                and torch.isfinite(rows).all().item(), f"multimodal: tower rows {rows.shape}")
+        print(f"multimodal tower [{card}]: ViT-L/14-336 f32 + projector to {spec.hidden_size}, "
+              f"batch {n}: {ms:.2f} ms ({ms / n:.2f} ms per image, device)")
+    got = enc.forward_pixels(batch[:1]).cpu()
+    cpu = vit.params_to(enc.params, "cpu")
+    with torch.inference_mode():
+        want = vit.project(cpu["projector"], vit.VisionTower(vspec, cpu)(batch[:1].cpu()))
+    want = want.reshape(-1, want.shape[-1])
+    err, scale = (got - want).abs().max().item(), want.abs().max().item()
+    require(err <= MM_TOWER_TOL * scale,
+            f"multimodal: card tower vs CPU tower max abs err {err:.3e} (rows up to {scale:.3e})")
+    print(f"multimodal tower [{card}]: card vs CPU max abs err {err:.3e} of rows up to "
+          f"{scale:.3e} (tolerance {MM_TOWER_TOL} of it)")
+    return enc
+
+
+def mm_logits_check(spec, params, prompt: list[int], positions: list[int], rows: np.ndarray,
+                    first_token: int) -> float:
+    """The image prompt's first-token logits (one prefill with the rows
+    injected, on scratch pools) differ from the same ids with the
+    placeholders left as text, and the served first token is near-argmax
+    of them. Returns the largest logit difference."""
+    from dynamo_tpu_torch.models import llama
+
+    page = 16
+    T = 1 << (len(prompt) - 1).bit_length()
+    n_pages = T // page
+    k, v = llama.init_cache(spec, n_pages + 1, page, device=DEVICE)
+    bt = torch.arange(1, n_pages + 1, dtype=torch.int32, device=DEVICE)
+    tokens = torch.zeros(T, dtype=torch.int64, device=DEVICE)
+    tokens[: len(prompt)] = torch.tensor(prompt, device=DEVICE)
+    with torch.inference_mode():
+        mm, _ = llama.prefill_forward(
+            spec, params, tokens, bt, 0, k, v, len(prompt),
+            mm_embeds=torch.from_numpy(rows).to(DEVICE),
+            mm_pos=torch.tensor(positions, device=DEVICE))
+        text, _ = llama.prefill_forward(spec, params, tokens, bt, 0, k, v, len(prompt))
+    del k, v
+    require(torch.isfinite(mm).all().item() and torch.isfinite(text).all().item(),
+            "multimodal: non-finite first-token logits")
+    diff = (mm - text).abs().max().item()
+    require(diff > 0.0, "multimodal: the injected rows left the first-token logits unchanged")
+    gap = (mm.max() - mm[first_token]).item()
+    require(gap <= NEAR_ARGMAX, f"multimodal: served first token {gap:.3f} below the max")
+    return diff
+
+
+def mm_cut_check(spec, params, prompt: list[int], positions: list[int], rows: np.ndarray,
+                 card: str) -> None:
+    """The values of ``embed_forward`` and of the multimodal injection on
+    the card: llama-3-8b's first MM_CUT_LAYERS layers, its embedding, final
+    norm and head at full width, in f32 on the card and on the CPU, run
+    through the same calls on the same inputs (the image prompt with the
+    red image's rows injected; its first 37 ids as an embedding input)."""
+    from dataclasses import replace
+
+    from dynamo_tpu_torch.models import llama
+
+    cut = replace(spec, num_layers=MM_CUT_LAYERS, dtype="float32")
+    page = 16
+    T = -(-len(prompt) // page) * page
+    n_emb = 37
+    emb_ids = np.zeros(64, np.int64)
+    emb_ids[:n_emb] = prompt[:n_emb]
+    outs = {}
+    for dev in (DEVICE, "cpu"):
+        f32 = {"device": dev, "dtype": torch.float32}
+        p = llama.LlamaParams(
+            params.embed.to(**f32), params.final_norm.to(**f32),
+            [{n: t.detach().to(**f32) for n, t in lp.named_parameters()}
+             for lp in params.layers[:MM_CUT_LAYERS]],
+            None if params.lm_head is None else params.lm_head.to(**f32))
+        k, v = llama.init_cache(cut, T // page + 1, page, device=dev)
+        bt = torch.arange(1, T // page + 1, dtype=torch.int32, device=dev)
+        tokens = torch.zeros(T, dtype=torch.int64, device=dev)
+        tokens[: len(prompt)] = torch.tensor(prompt, device=dev)
+        with torch.inference_mode():
+            logits, _ = llama.prefill_forward(
+                cut, p, tokens, bt, 0, k, v, len(prompt),
+                mm_embeds=torch.from_numpy(rows).to(dev),
+                mm_pos=torch.tensor(positions, device=dev))
+            emb = llama.embed_forward(cut, p, torch.from_numpy(emb_ids).to(dev), n_emb)
+            if dev == DEVICE:  # the placeholders left as text
+                text, _ = llama.prefill_forward(cut, p, tokens, bt, 0, k, v, len(prompt))
+                outs["text"] = text.float().cpu()
+        outs[dev] = [x.float().cpu() for x in (logits, emb)]
+        del p, k, v
+        torch.cuda.empty_cache()
+    (got, got_emb), (want, want_emb) = outs[DEVICE], outs["cpu"]
+    for name, g, w in (("injected prefill logits", got, want),
+                       ("embed_forward", got_emb, want_emb)):
+        err, scale = (g - w).abs().max().item(), w.abs().max().item()
+        require(torch.isfinite(g).all().item() and err <= MM_CUT_TOL * scale,
+                f"multimodal: card vs CPU {name} max abs err {err:.3e} (values up to "
+                f"{scale:.3e})")
+        print(f"multimodal values [{card}]: {name}, llama-3-8b's first {MM_CUT_LAYERS} "
+              f"layers in f32, card vs CPU max abs err {err:.3e} of values up to {scale:.3e} "
+              f"(tolerance {MM_CUT_TOL} of it)")
+    # the check has teeth: the rows move the logits far past its tolerance
+    moved = (got - outs["text"]).abs().max().item()
+    require(moved > 100 * MM_CUT_TOL * want.abs().max().item(),
+            f"multimodal: the rows moved the cut's logits by only {moved:.3e}")
+    require(abs(torch.linalg.vector_norm(got_emb).item() - 1.0) <= EMB_NORM_TOL,
+            "multimodal: the card's embedding is not of unit norm")
+    print(f"multimodal values [{card}]: the rows moved the cut's logits by up to {moved:.3e}")
+
+
+def multimodal_phase(spec, cfg, params, card) -> int:
+    """Phase 21 at full width on phase 4's llama-3-8b weights: (a) the
+    PNGs decoded on the host, (b) the ViT-L/14-336 tower on the card, (c)
+    the EPD serve through the HTTP frontend (in-memory hub, the port's
+    encode worker on the tower, an engine worker with 576 placeholders per
+    image), (d) a --model-type embeddings worker on /v1/embeddings. Returns
+    the fused_decode launches of the image-conditioned streams."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.worker import launch_engine_worker
+    from dynamo_tpu_torch.frontend.http import HttpFrontend
+    from dynamo_tpu_torch.frontend.watcher import ModelManager, ModelWatcher
+    from dynamo_tpu_torch.multimodal.worker import launch_encode_worker
+    from dynamo_tpu_torch.runtime.context import Context
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.runtime.flight import FLIGHT
+    from dynamo_tpu_torch.runtime.hub import InMemoryHub
+
+    t21 = time.perf_counter()
+    torch.cuda.empty_cache()
+    name, L = spec.name, spec.num_layers
+    pngs = {kind: mm_png(kind, w, h, f) for kind, w, h, f in MM_PNGS}
+    enc = mm_tower(spec, pngs, card)
+    urls = {k: "data:image/png;base64," + base64.b64encode(v).decode() for k, v in pngs.items()}
+    encode_s: list[float] = []
+    decode_s: list[float] = []  # the engine's decode of the rows' payload
+    tower_encode = enc.encode
+
+    def timed_encode(images):
+        t0 = time.perf_counter()
+        try:
+            return tower_encode(images)
+        finally:
+            encode_s.append(time.perf_counter() - t0)
+
+    enc.encode = timed_encode
+
+    def chat_body(*kinds, stream=False):
+        parts = [{"type": "text", "text": MM_TEXT}] + [
+            {"type": "image_url", "image_url": {"url": urls[k]}} for k in kinds]
+        return {"model": name, "max_tokens": SERVE_TOKENS, "ignore_eos": True,
+                "temperature": 0.0, "stream": stream,
+                "messages": [{"role": "user", "content": parts}]}
+
+    async def drive():
+        drt = DistributedRuntime(InMemoryHub())
+        await launch_encode_worker(drt, hidden_size=spec.hidden_size, encoder=enc)
+        # one dispatch per image prompt: the chunk cap and the top bucket
+        # hold two images' 1,152 placeholders and the text
+        engine, _ = await launch_engine_worker(
+            drt, model=name, spec=spec, params=params, device=DEVICE,
+            engine_config=EngineConfig(**dict(cfg, max_pages_per_seq=128,
+                                              max_prefill_chunk_tokens=2048),
+                                       pipeline_decode=True),
+            mm_tokens_per_image=MM_TOKENS, image_token_id=MM_IMAGE_TOKEN)
+        engine_decode = engine._decode_multimodal
+
+        def timed_decode(req):
+            t0 = time.perf_counter()
+            try:
+                return engine_decode(req)
+            finally:
+                decode_s.append(time.perf_counter() - t0)
+
+        engine._decode_multimodal = timed_decode
+        emb, _ = await launch_engine_worker(
+            drt, component="embed", model_name=EMB_MODEL, model_type="embeddings",
+            spec=spec, params=params, device=DEVICE,
+            engine_config=EngineConfig(**dict(cfg, num_pages=128, max_decode_slots=1)))
+        watcher = await ModelWatcher(drt, ModelManager()).start()
+        frontend = HttpFrontend(watcher.manager, host="127.0.0.1", port=0)
+        out: dict = {"engine": engine}
+        try:
+            for model in (name, EMB_MODEL):
+                await watcher.wait_for_model(model, timeout=30)
+            _, port = await frontend.start()
+            pipe = watcher.manager.get(name)
+
+            async def post(path, body, timeline=True):
+                """(status, body, client wall, the engine's timeline of the
+                request when ``timeline``, the send time)."""
+                t_send = time.time_ns()
+                if timeline:
+                    FLIGHT.clear()
+                status, raw, times = await http_call(port, "POST", path, body)
+                tl = None
+                for _ in range(100 if timeline and status == 200 else 0):
+                    recent = FLIGHT.snapshot(n=1)["recent"]
+                    if recent:
+                        tl = FLIGHT.snapshot(recent[0]["request_id"])["timeline"]
+                        break
+                    await asyncio.sleep(0.01)
+                return status, json.loads(raw), times[-1], tl, t_send
+
+            async def tokens(body):
+                items = [x async for x in pipe.generate(pipe.preprocessor.preprocess(body),
+                                                        Context())]
+                return [t for x in items for t in x.get("token_ids") or ()]
+
+            # warm-up: a text chat and an image chat (the decode graph's
+            # lazy capture and the tower's first launches)
+            for body in ({**chat_body(), "messages": [{"role": "user", "content": MM_TEXT}]},
+                         chat_body("gradient")):
+                status, resp, *_ = await post("/v1/chat/completions", body)
+                require(status == 200, f"multimodal warm-up: {status} {resp}")
+            zero_counts()
+            s0, r0 = engine.steps, engine._graphs.replays
+            single = {}
+            for label, kinds in (("red", ("red",)), ("red again", ("red",)),
+                                 ("noise", ("noise",)), ("two images", ("gradient", "blue"))):
+                c0, e0, d0 = engine.cached_prompt_tokens, len(encode_s), len(decode_s)
+                status, resp, wall, tl, t_send = await post("/v1/chat/completions",
+                                                            chat_body(*kinds))
+                require(status == 200 and resp["usage"]["completion_tokens"] == SERVE_TOKENS
+                        and resp["choices"][0]["finish_reason"] == "length",
+                        f"multimodal chat {label}: {status} {resp}")
+                single[label] = {"wall": wall, "tl": tl, "t_send": t_send,
+                                 "hit": engine.cached_prompt_tokens - c0,
+                                 "encode": sum(encode_s[e0:]),
+                                 "rows decode": sum(decode_s[d0:]),
+                                 "prompt": resp["usage"]["prompt_tokens"]}
+            out["single"] = single
+            out["streams"] = [await tokens(chat_body("red")), await tokens(chat_body("red")),
+                              await tokens(chat_body("noise"))]
+            t0 = time.perf_counter()
+            conc = await asyncio.gather(*(post("/v1/chat/completions", chat_body(k), False)
+                                          for k in ("noise", "gradient", "blue", "red")))
+            out["concurrent"] = (time.perf_counter() - t0, conc)
+            out["steps"], out["replays"] = engine.steps - s0, engine._graphs.replays - r0
+            out["counts"] = read_counts()
+            # the same token count as text (the placeholders left as ids)
+            pre = pipe.preprocessor.preprocess(chat_body("red"))
+            out["pre"] = pre
+            status, resp, wall, tl, t_send = await post("/v1/completions", {
+                "model": name, "prompt": pre["token_ids"], "max_tokens": SERVE_TOKENS,
+                "ignore_eos": True, "temperature": 0.0})
+            require(status == 200, f"multimodal text baseline: {status} {resp}")
+            out["text"] = {"wall": wall, "tl": tl, "t_send": t_send}
+            # (d) embeddings: one input, then a batch of eight, then the
+            # eight one by one
+            texts = [f"{MM_TEXT} Input {i}: " + "lorem ipsum " * (4 + 3 * i)
+                     for i in range(EMB_INPUTS)]
+            emb_out = {}
+            for label, inp in (("one", texts[0]), ("batch", texts)):
+                t0 = time.perf_counter()
+                status, resp, *_ = await post("/v1/embeddings", {"model": EMB_MODEL,
+                                                                 "input": inp}, False)
+                emb_out[label] = (time.perf_counter() - t0, status, resp)
+            ones = []
+            for t in texts:
+                status, resp, *_ = await post("/v1/embeddings", {"model": EMB_MODEL,
+                                                                 "input": t}, False)
+                require(status == 200, f"embeddings: {status} {resp}")
+                ones.append(resp["data"][0]["embedding"])
+            out["emb"], out["emb_ones"] = emb_out, ones
+            out["emb_steps"] = emb.steps
+        finally:
+            await frontend.stop()
+            await watcher.close()
+            await emb.close()
+            await engine.close()
+            await drt.close()
+        return out
+
+    out = asyncio.run(drive())
+    engine = out.pop("engine")
+    steps, counts = out["steps"], out["counts"]
+    # gates
+    require(counts["fused_decode"] == L * steps and steps > 0 and out["replays"] == steps,
+            f"multimodal: fused_decode {counts['fused_decode']} over {steps} steps, "
+            f"{out['replays']} replays")
+    s = out["single"]
+    require(s["red again"]["hit"] > 0 and s["noise"]["hit"] == 0 and s["red"]["hit"] == 0,
+            f"multimodal: cached prompt tokens {[(k, v['hit']) for k, v in s.items()]}")
+    a, a2, b = out["streams"]
+    require(len(a) == SERVE_TOKENS and a == a2, "multimodal: the same image gave another stream")
+    require(s["two images"]["prompt"] - s["red"]["prompt"] == MM_TOKENS,
+            f"multimodal: prompt tokens {s['two images']['prompt']} vs {s['red']['prompt']}")
+    pre = out["pre"]
+    pos = pre["multimodal"]["positions"]
+    require(len(pos) == MM_TOKENS and all(pre["token_ids"][p] == MM_IMAGE_TOKEN for p in pos),
+            "multimodal: placeholder positions")
+    rows = enc.forward_pixels(enc.pixels([pngs["red"]])).float().cpu().numpy()
+    diff = mm_logits_check(spec, params, pre["token_ids"], pos, rows, a[0])
+    mm_cut_check(spec, params, pre["token_ids"], pos, rows, card)
+    print(f"multimodal logits [{card}]: first-token logits with the red image's rows vs the "
+          f"placeholders as text differ by up to {diff:.3f}; the served first token is "
+          f"near-argmax; a different image {'changed' if b != a else 'kept'} the greedy stream")
+
+    def split(x):
+        tl = x["tl"]
+        ev = {e["name"]: e["t"] for e in tl["events"]}
+        arrive = (tl["started_unix_ns"] - x["t_send"]) / 1e9
+        return 1e3 * (arrive + ev["first_token"]), 1e3 * arrive, 1e3 * ev["admit"], \
+            1e3 * (ev["first_token"] - ev["admit"])
+
+    for label, x in list(s.items()) + [("text, same ids", out["text"])]:
+        ttft, arrive, queue, prefill = split(x)
+        enc_ms, dec_ms = 1e3 * x.get("encode", 0.0), 1e3 * x.get("rows decode", 0.0)
+        print(f"multimodal TTFT [{card}]: {label} ({x.get('prompt', len(pre['token_ids']))} "
+              f"prompt tokens): {ttft:.1f} ms = frontend + encode hop + the engine's rows "
+              f"decode {arrive:.1f} ms (encode {enc_ms:.1f} ms, {100 * enc_ms / ttft:.1f}% of "
+              f"TTFT; rows decode {dec_ms:.1f} ms) + queue {queue:.1f} ms + prefill and first "
+              f"token {prefill:.1f} ms; cached prompt tokens {x.get('hit', 0)}")
+    wall, conc = out["concurrent"]
+    n_tok = sum(r[1]["usage"]["completion_tokens"] for r in conc)
+    require(all(r[0] == 200 for r in conc) and n_tok == 4 * SERVE_TOKENS,
+            f"multimodal: concurrent chats {[r[0] for r in conc]}, {n_tok} tokens")
+    print(f"multimodal serve [{card}]: 4 concurrent one-image chats, {n_tok} tokens in "
+          f"{wall:.3f} s ({n_tok / wall:.1f} tok/s); {steps} decode steps, fused_decode "
+          f"{counts['fused_decode']} ({L} per step)")
+    emb_wall = {}
+    for label, (w, status, resp) in out["emb"].items():
+        vecs = np.array([d["embedding"] for d in resp["data"]], np.float64)
+        n = 1 if label == "one" else EMB_INPUTS
+        require(status == 200 and vecs.shape == (n, spec.hidden_size),
+                f"embeddings {label}: {status} {vecs.shape}")
+        norms = np.linalg.norm(vecs, axis=1)
+        require(np.abs(norms - 1.0).max() <= EMB_NORM_TOL, f"embeddings {label}: norms {norms}")
+        emb_wall[label] = (w, n, vecs)
+    batch = emb_wall["batch"][2]
+    eq = np.abs(batch - np.array(out["emb_ones"], np.float64)).max()
+    require(eq <= EMB_EQ_TOL and out["emb_steps"] == 0,
+            f"embeddings: batch vs one by one max abs diff {eq:.3e}")
+    print(f"embeddings [{card}]: /v1/embeddings 1 input {1e3 * emb_wall['one'][0]:.1f} ms, "
+          f"8 inputs {1e3 * emb_wall['batch'][0]:.1f} ms "
+          f"({1e3 * emb_wall['batch'][0] / EMB_INPUTS:.1f} ms per input, client wall); unit "
+          f"norm within {EMB_NORM_TOL}; batch vs one by one max abs diff {eq:.3e}")
+    del engine, enc
+    torch.cuda.empty_cache()
+    launches = counts["fused_decode"]
+    print(f"phase 21: {time.perf_counter() - t21:.1f} s, fused_decode {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the GPU",
@@ -7081,6 +7554,9 @@ def main() -> int:
     # observability on the same weights: the default serve traced and
     # profiled, the overload and guided splits, the instrumentation's cost
     obs_launches = observability_phase(spec, cfg, params, prompts, card)
+    # multimodal and embeddings on the same weights: the ViT tower, the EPD
+    # serve over HTTP, /v1/embeddings
+    mm_launches = multimodal_phase(spec, cfg, params, card)
     del params
     torch.cuda.empty_cache()
     # the same stack from the command line, in a process of its own
@@ -7128,7 +7604,7 @@ def main() -> int:
     launches = {"fused_decode": serve_launches["fused_decode"] + http_launches
                 + process_launches + overload_launches + guided_launches
                 + kvbm_launches + text_launches["fused_decode"] + disagg_launches
-                + obs_launches,
+                + obs_launches + mm_launches,
                 "paged_attention_v3": unfused[0], "kv_write": unfused[2],
                 "kv_write/verify": spec_kv_launches + guided_kv_launches
                 + text_launches["kv_write/verify"],

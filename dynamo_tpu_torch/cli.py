@@ -24,6 +24,12 @@
         overlap) and the standalone KV router service (prints
         ROUTER_READY; serves "generate" and "best_worker" on component
         "router") and a fleet of mock workers (prints MOCKERS_READY N)
+    python -m dynamo_tpu_torch.cli encoder --hub H --hidden-size 4096 --encoder vit
+        the multimodal encode worker (multimodal/worker.py; prints
+        ENCODER_READY): a CLIP ViT-L/14-336 tower plus a projector to the
+        LLM's hidden (``--vit-size tiny`` for tests), or the mock encoder;
+        pair it with a worker given ``--mm-tokens-per-image`` and
+        ``--image-token-id``
 
 The engine runs on the GPU; ``--device cpu`` runs it on the CPU (tests).
 ``--spec``, ``--guided`` and ``--tp`` are the reference's, each beating its
@@ -46,13 +52,14 @@ SUBCOMMAND_MODULES = {
     "hub": "dynamo_tpu_torch.runtime.hub_server",
     "frontend": "dynamo_tpu_torch.frontend.__main__",
     "worker": "dynamo_tpu_torch.engine.worker",
+    "encoder": "dynamo_tpu_torch.multimodal.worker",
     "router": "dynamo_tpu_torch.kv_router.service",
     "mocker": "dynamo_tpu_torch.mocker.__main__",
 }
 # the reference's other service commands -> the ROADMAP Queue A item that
 # ports them
 REFUSED_COMMANDS = {
-    "hub-replica": "item 14", "encoder": "item 12", "operator": "item 14", "planner": "item 14",
+    "hub-replica": "item 14", "operator": "item 14", "planner": "item 14",
     "bench": "item 14", "profile": "item 14",
 }
 

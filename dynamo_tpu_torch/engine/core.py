@@ -102,7 +102,18 @@ installed in place, sealed, and the slot enters decode after the remote
 first token. A failed pull (``disagg.pull`` fault site) falls back to a
 full local prefill of prompt + first token with the budget cut by one
 (``disagg_fallbacks``); a bounced, shed or cancelled resume releases its
-export. Multimodal resumes (the image salt) wait for item 12.
+export. A multimodal resume seals its blocks under the image salt.
+
+Multimodal and embeddings: a request whose ``multimodal`` carries the encode
+worker's rows (``embeds_b64``) and the placeholder ``positions`` has them
+decoded and validated once in ``generate()``, off the step thread, and is
+prefilled in ONE dispatch of its own (no packing, no chunking: a prompt past
+``_prefill_chunk_max()`` errors), the rows overwriting the placeholder
+embeddings (padded to a power-of-two row count, at least 8; rows under a
+cached prefix skipped), and its prompt blocks are hashed under the image
+salt (the embedding digest), so the same prompt with the same image rehits
+the cache and another image misses. An ``embedding_request`` is answered off
+the step thread by one pooled forward at its bucketed pad (``_embed``).
 
 Observability (runtime/flight.py, runtime/tracing.py, engine/telemetry.py):
 ``generate()`` opens the request's flight-recorder timeline, bound to the
@@ -123,7 +134,7 @@ serving), ``engine.admit`` (intake; a drop is a retryable refusal),
 ``engine.preempt``, ``engine.quant``, ``disagg.pull``, and the
 ``migration.resume`` and ``kvbm.onboard`` corrupt sites.
 
-Not in this engine yet (see ROADMAP): SPMD/meshes, multimodal, embeddings.
+Not in this engine yet (see ROADMAP): SPMD/meshes.
 
 The engine is family-blind (models/family.py): a DeepSeek spec runs MLA
 (models/mla.py) through the same scheduler, prefix cache, KV events,
@@ -254,6 +265,9 @@ class _Waiting:
     # uncharged)
     charged: bool = False
     page_stalls: int = 0  # admission passes bounced on OutOfPages
+    # the decoded multimodal payload (``_decode_multimodal``), made once in
+    # generate(): a page-stall requeue does not decode it again
+    mm: dict[str, Any] | None = None
 
 
 @dataclass
@@ -760,10 +774,37 @@ class InferenceEngine:
             yield {"token_ids": [], "finish_reason": "error",
                    "error": "empty token_ids"}
             return
+        if request.get("embedding_request"):
+            if not self.fam.supports_embeddings:
+                yield {"token_ids": [], "finish_reason": "error",
+                       "error": f"embeddings unsupported for {self.spec.name}"}
+                return
+            # a standalone forward that touches no KV page: it runs off the
+            # step thread, beside the decode bursts
+            try:
+                emb = await asyncio.to_thread(self._embed, token_ids)
+            except Exception as e:  # noqa: BLE001
+                yield {"token_ids": [], "finish_reason": "error",
+                       "error": f"embedding failed: {e}"}
+                return
+            yield {"token_ids": [], "embedding": emb, "finish_reason": "stop"}
+            return
         if len(token_ids) >= self.config.max_context:
             yield {"token_ids": [], "finish_reason": "error",
                    "error": f"prompt exceeds max context {self.config.max_context}"}
             return
+        mm = None
+        if request.get("multimodal"):
+            # the encoder's rows (an MB-scale base64 payload) decoded and
+            # validated once, in a thread of the loop: never on the step
+            # thread, where every decode slot would wait on it. A refusal is
+            # the item the step thread's prefill would post
+            try:
+                mm = await asyncio.to_thread(self._decode_multimodal, request)
+            except Exception as e:  # noqa: BLE001
+                yield {"token_ids": [], "finish_reason": "error",
+                       "error": f"prefill failed: {e}"}
+                return
         # token-bucket quota: the request's full token cost (prompt + decode
         # budget) before any staging; over quota is a typed, non-retryable
         # bounce whose Retry-After comes from bucket state (HTTP 429).
@@ -907,7 +948,7 @@ class InferenceEngine:
         out_q: asyncio.Queue = asyncio.Queue()
         self._waiting.put_nowait(_Waiting(
             request, context, out_q, enq_t=time.perf_counter(), tenant=tenant,
-            priority=priority, cost=cost, charged=True))
+            priority=priority, cost=cost, charged=True, mm=mm))
         self._wake.set()
         deadline_hit = False
         finish_reason: str | None = None
@@ -1054,8 +1095,17 @@ class InferenceEngine:
         self._fail_all("engine closed")
 
     def _fail_all(self, error: str) -> None:
+        """Fail every request the failed step held: the waiting queue
+        first, then the partial prefill, then the slots. A slot's error
+        item is what tells a client the step failed, so by the time any
+        client can react the queue is already drained: a request it sends
+        then is served, not failed by a step it never took part in."""
         self._pipeline.clear()
         self._admit_waves.clear()
+        for w in self._waiting.drain():
+            self._refund_if_charged(w)
+            self._drop_staged_kv(w.request)
+            self._error(w, error)
         p, self._partial = self._partial, None
         if p is not None:
             self.allocator.release(p.sp.pages)
@@ -1064,10 +1114,6 @@ class InferenceEngine:
         for i, slot in enumerate(self._slots):
             if slot is not None:
                 self._finish(i, slot, "error", error=error)
-        for w in self._waiting.drain():
-            self._refund_if_charged(w)
-            self._drop_staged_kv(w.request)
-            self._error(w, error)
 
     def _step(self) -> bool:
         did = False
@@ -1238,14 +1284,15 @@ class InferenceEngine:
         tenants first, newest admission first (the oldest batch stream
         keeps its progress). Slots whose first token is still on the device
         are not eligible, nor are guided slots (a resume would have to carry
-        the grammar cursor, which a plain text re-prefill does not)."""
+        the grammar cursor, which a plain text re-prefill does not), nor
+        multimodal ones (a text re-prefill would drop the image rows)."""
         best: tuple[tuple[int, int], int, _Slot] | None = None
         for i, slot in enumerate(self._slots):
             if slot is None or slot.priority != "batch":
                 continue
             if slot.first_pending or slot.context.is_stopped or slot.remaining < 1:
                 continue
-            if slot.guided is not None:
+            if slot.guided is not None or slot.request.get("multimodal"):
                 continue
             over = self._waiting.tenant_over_quota(slot.tenant)
             key = (0 if over else 1, -slot.admitted_seq)
@@ -1525,11 +1572,58 @@ class InferenceEngine:
             self.onboards.append((request_id, len(cached), len(onboard)))
         return sp
 
+    def _embed(self, token_ids: list[int]) -> list[float]:
+        """Pooled sequence embedding of ``token_ids`` (padded to its prefill
+        bucket, as the reference's)."""
+        padded = np.zeros((self.config.bucket_for(len(token_ids)),), np.int32)
+        padded[: len(token_ids)] = token_ids
+        with torch.inference_mode():
+            emb = self.fam.embed_forward(
+                self.spec, self.params, torch.from_numpy(padded).to(self.device),
+                len(token_ids))
+        return emb.float().cpu().numpy().tolist()
+
+    def _decode_multimodal(self, req: dict) -> dict | None:
+        """Validate and decode the request's multimodal payload (the encoder's
+        rows and the placeholder positions). None for a text request."""
+        mm = req.get("multimodal")
+        if not mm:
+            return None
+        if "embeds_b64" not in mm:
+            raise ValueError(
+                "multimodal request reached the engine without embeddings "
+                "(is an encode worker registered?)"
+            )
+        if not self.fam.supports_multimodal:
+            raise ValueError(f"{type(self.fam).__name__} does not support image input")
+        from dynamo_tpu_torch.multimodal.worker import embeds_from_wire, salt_from_wire
+
+        embeds = embeds_from_wire(mm).astype(np.float32, copy=False)
+        positions = np.asarray(mm.get("positions") or (), np.int32)
+        if embeds.ndim != 2 or embeds.shape[0] != positions.shape[0]:
+            raise ValueError(
+                f"multimodal rows {embeds.shape} do not match "
+                f"{positions.shape[0]} placeholder positions"
+            )
+        if embeds.shape[1] != self.spec.hidden_size:
+            raise ValueError(
+                f"multimodal embedding width {embeds.shape[1]} != model "
+                f"hidden size {self.spec.hidden_size}"
+            )
+        # the cache-partitioning salt: prompts with different images share
+        # placeholder ids, so unsalted block hashes would alias across
+        # images (and with text prompts). Salted by the embedding digest,
+        # the same prompt and image rehit, anything else misses
+        return {"embeds": embeds, "positions": positions,
+                "salt": mm.get("salt") or salt_from_wire(mm)}
+
     def _prefill(self, slot_idx: int, waiting: _Waiting):
         cfg = self.config
         req = waiting.request
         token_ids = list(req["token_ids"])
-        seq = TokenBlockSequence.from_tokens(token_ids, cfg.page_size)
+        mm = waiting.mm
+        seq = TokenBlockSequence.from_tokens(token_ids, cfg.page_size,
+                                             salt=mm["salt"] if mm else None)
         needed_pages = (len(token_ids) + cfg.page_size - 1) // cfg.page_size
         sp = None
         try:
@@ -1573,16 +1667,28 @@ class InferenceEngine:
         max_tokens = self._decode_budget(req, len(token_ids))
         chunk_max = self._prefill_chunk_max()
         if start_pos + chunk_max >= len(token_ids):
-            # fits one dispatch: the packed prefill stage runs it
+            # fits one dispatch: the packed prefill stage runs it (a
+            # multimodal prompt in a dispatch of its own, with injection)
             return {
                 "slot_idx": slot_idx, "waiting": waiting, "seq": seq, "sp": sp,
                 "token_ids": token_ids, "max_tokens": max_tokens,
                 "start_pos": start_pos, "tail": len(token_ids) - start_pos,
+                "mm": mm,
             }
+        if mm is not None:
+            # chunking would split the placeholder span across dispatches
+            self.allocator.release(sp.pages)
+            sp.pages = []
+            raise ValueError(
+                "multimodal prompt exceeds a single prefill dispatch "
+                f"({len(token_ids) - start_pos} uncached tokens > "
+                f"max_prefill_chunk_tokens {chunk_max})"
+            )
         # long prompt: the first chunk now, the rest on later steps,
         # interleaved with decode (_step)
         end = start_pos + chunk_max
         FLIGHT.event(waiting.context.id, "prefill_chunk")
+        self.prefill_chunks += 1
         try:
             self._run_prefill_chunk(sp, token_ids, start_pos, end)
         except Exception:
@@ -1595,24 +1701,43 @@ class InferenceEngine:
         return None
 
     def _run_prefill_chunk(
-        self, sp: SeqPages, token_ids: list[int], start: int, end: int
+        self, sp: SeqPages, token_ids: list[int], start: int, end: int,
+        mm: dict | None = None,
     ) -> torch.Tensor:
         """One bucketed prefill forward over positions [start, end) (start
-        on a page boundary); returns the last position's logits [V]."""
+        on a page boundary); returns the last position's logits [V]. ``mm``:
+        the multimodal rows injected at their window-relative placeholder
+        positions; rows under the cached prefix are skipped (the salted
+        cache already holds their KV)."""
         cfg = self.config
         new_tokens = token_ids[start:end]
-        padded = np.zeros((cfg.bucket_for(len(new_tokens)),), np.int32)
+        bucket = cfg.bucket_for(len(new_tokens))
+        padded = np.zeros((bucket,), np.int32)
         padded[: len(new_tokens)] = new_tokens
         block_table = np.zeros((cfg.max_pages_per_seq,), np.int32)
         block_table[: sp.num_pages] = sp.pages
         dev = self.device
-        self.prefill_chunks += 1
+        mm_kw: dict[str, torch.Tensor] = {}
+        if mm is not None:
+            rel = mm["positions"] - start
+            keep = rel >= 0
+            rel, rows = rel[keep], mm["embeds"][keep]
+            # padded to a power-of-two row count (at least 8), as the
+            # reference's compiled shapes; padded positions point past the
+            # bucket, so the injection drops them
+            m = max(8, 1 << max(0, int(rel.shape[0]) - 1).bit_length())
+            pos_pad = np.full((m,), bucket, np.int32)
+            pos_pad[: rel.shape[0]] = rel
+            emb_pad = np.zeros((m, self.spec.hidden_size), np.float32)
+            emb_pad[: rows.shape[0]] = rows
+            mm_kw = {"mm_embeds": torch.from_numpy(emb_pad).to(dev),
+                     "mm_pos": torch.from_numpy(pos_pad).to(dev)}
         self.prefill_forwards += 1
         self.dispatches += 1
         logits, dropped = self.fam.prefill(
             self.spec, self.params, torch.from_numpy(padded).to(dev),
             torch.from_numpy(block_table).to(dev), start, self.k_pages,
-            self.v_pages, len(new_tokens),
+            self.v_pages, len(new_tokens), **mm_kw,
         )
         self._note_moe_dropped(dropped)
         return logits
@@ -1642,6 +1767,7 @@ class InferenceEngine:
             return
         end = min(p.done + self._prefill_chunk_max(), len(p.token_ids))
         FLIGHT.event(p.waiting.context.id, "prefill_chunk")
+        self.prefill_chunks += 1
         logits = self._run_prefill_chunk(p.sp, p.token_ids, p.done, end)
         p.done = end
         if end == len(p.token_ids):
@@ -1658,34 +1784,47 @@ class InferenceEngine:
         forward. Groups are not padded to the pack size: PyTorch runs
         eagerly, so a new row count costs no compile. The first tokens are
         sampled on the same logits right away when the admission is async
-        (``_fused_first_tokens``). Seals each prompt's complete blocks into
-        the prefix cache."""
+        (``_fused_first_tokens``). A multimodal prompt takes a dispatch of
+        its own, its rows injected (``_run_prefill_chunk``). Seals each
+        prompt's complete blocks into the prefix cache."""
         cfg = self.config
         groups: dict[int, list[dict]] = {}
+        dispatches: list[tuple[int, list[dict]]] = []
         for p in preps:
-            groups.setdefault(cfg.bucket_for(p["tail"]), []).append(p)
+            if p["mm"] is not None:
+                # one dispatch of its own with the rows injected: no packing
+                dispatches.append((cfg.bucket_for(p["tail"]), [p]))
+            else:
+                groups.setdefault(cfg.bucket_for(p["tail"]), []).append(p)
         pack = max(1, cfg.prefill_pack_size)
-        records: list[_Admitted] = []
         for bucket, group in sorted(groups.items()):
-            for i in range(0, len(group), pack):
-                chunk = group[i: i + pack]
-                try:
+            dispatches.extend((bucket, group[i: i + pack])
+                              for i in range(0, len(group), pack))
+        records: list[_Admitted] = []
+        for bucket, chunk in dispatches:
+            try:
+                if chunk[0]["mm"] is None:
                     logits = self._prefill_dispatch(bucket, chunk)
-                except Exception as e:  # noqa: BLE001
-                    log.exception("prefill failed (%d prompts)", len(chunk))
-                    for p in chunk:
-                        self.allocator.release(p["sp"].pages)
-                        p["sp"].pages = []
-                        self._refund_if_charged(p["waiting"])
-                        self._error(p["waiting"], f"prefill failed: {e}")
-                    continue
-                pres = self._fused_first_tokens(logits, [p["waiting"] for p in chunk])
-                for j, p in enumerate(chunk):
-                    self._seal_prompt_blocks(p["sp"], p["seq"])
-                    records.append(_Admitted(
-                        p["slot_idx"], p["waiting"], p["seq"], p["sp"],
-                        p["token_ids"], p["max_tokens"], logits[j],
-                        pres[j] if pres else None))
+                else:
+                    (p,) = chunk
+                    logits = self._run_prefill_chunk(
+                        p["sp"], p["token_ids"], p["start_pos"],
+                        len(p["token_ids"]), mm=p["mm"])[None]
+            except Exception as e:  # noqa: BLE001
+                log.exception("prefill failed (%d prompts)", len(chunk))
+                for p in chunk:
+                    self.allocator.release(p["sp"].pages)
+                    p["sp"].pages = []
+                    self._refund_if_charged(p["waiting"])
+                    self._error(p["waiting"], f"prefill failed: {e}")
+                continue
+            pres = self._fused_first_tokens(logits, [p["waiting"] for p in chunk])
+            for j, p in enumerate(chunk):
+                self._seal_prompt_blocks(p["sp"], p["seq"])
+                records.append(_Admitted(
+                    p["slot_idx"], p["waiting"], p["seq"], p["sp"],
+                    p["token_ids"], p["max_tokens"], logits[j],
+                    pres[j] if pres else None))
         self._drain_offload()
         return records
 
@@ -2260,8 +2399,8 @@ class InferenceEngine:
     def _resume_from_remote(self, slot_idx: int, waiting: _Waiting) -> None:
         """Decode-worker resume: install the pulled blocks beyond the cached
         prefix in place, seal the prompt, and enter decode after the remote
-        first token. A multimodal resume (the image salt of the sealed
-        blocks' hashes) waits for ROADMAP Queue A item 12."""
+        first token. A multimodal resume seals its blocks under the image
+        salt the prefill side hashed them with."""
         from dynamo_tpu_torch.disagg.transfer import release_kv_blocks
 
         t0 = time.perf_counter()
@@ -2295,11 +2434,11 @@ class InferenceEngine:
                 f"KV but this decode worker runs kv_dtype={self.kv_dtype} "
                 "(set DYN_KV_DTYPE / EngineConfig.kv_dtype identically on "
                 "both sides)")
-        if req.get("multimodal"):
-            raise NotImplementedError(
-                "disagg resume of a multimodal request is not ported "
-                "(ROADMAP Queue A item 12)")
-        seq = TokenBlockSequence.from_tokens(token_ids, cfg.page_size)
+        # the sealed blocks hold IMAGE-conditioned KV: hashed under the image
+        # salt (generate() decoded it), or identical placeholder ids would
+        # alias across images
+        mm_salt = waiting.mm["salt"] if waiting.mm else None
+        seq = TokenBlockSequence.from_tokens(token_ids, cfg.page_size, salt=mm_salt)
         needed_pages = (len(token_ids) + cfg.page_size - 1) // cfg.page_size
         try:
             sp = self._acquire_prompt_pages(

@@ -48,7 +48,13 @@ the live policy key (``--max-local-prefill-length``,
 ``DecodeWorkerHandler`` as the front door (``engine.frontdoor``); its admin
 ``cache_status`` reports the pulls by route and the fallbacks. The
 reference's flags for features the port lacks raise NotImplementedError
-naming their item: SPMD and meshes, multimodal. ``--spec ngram`` (or ``DYN_SPEC_MODE``) turns on speculative
+naming their item: SPMD and meshes. ``--model-type embeddings`` registers an
+embeddings card (the frontend's /v1/embeddings). ``--mm-tokens-per-image``,
+``--image-token-id`` and ``--mm-video-frames`` register a multimodal card:
+the frontend splices that many placeholder ids per image and resolves the
+images at an encode worker (multimodal/worker.py) before routing; an image
+prompt must fit one prefill dispatch (``--max-prefill-chunk-tokens`` and the
+top prefill bucket at least its length). ``--spec ngram`` (or ``DYN_SPEC_MODE``) turns on speculative
 decoding, with ``--spec-k-max`` and ``--spec-ngram-min/max``. The admin
 ``timeline`` op answers from the flight recorder (runtime/flight.py): one
 request's timeline by ``request_id``, or the summary view (active, the
@@ -121,6 +127,9 @@ async def launch_engine_worker(
     prefill_router_mode: str = "kv",
     max_local_prefill_length: int = 128,
     always_remote_prefill: bool = False,
+    mm_tokens_per_image: int = 0,
+    image_token_id: int = 0,
+    mm_video_frames: int = 8,
 ) -> tuple[InferenceEngine, object]:
     """Build + register one engine worker in this process, on ``device``
     (None = the GPU; no GPU raises), serving ``params`` (default: the seeded
@@ -136,11 +145,6 @@ async def launch_engine_worker(
     # an unknown parser name fails here, before the engine is built
     make_tool_config(tool_call_parser)
     make_reasoning_parser(reasoning_parser)
-    if model_type not in ("chat", "completions"):
-        raise NotImplementedError(
-            f"model_type {model_type!r}: the port serves chat and completions "
-            "models (embeddings are ROADMAP Queue A item 12)"
-        )
     cfg = engine_config or EngineConfig()
     if model_path:
         if spec is not None or params is not None:
@@ -222,6 +226,9 @@ async def launch_engine_worker(
             router_mode=router_mode,
             tool_call_parser=tool_call_parser,
             reasoning_parser=reasoning_parser,
+            mm_tokens_per_image=mm_tokens_per_image,
+            image_token_id=image_token_id,
+            mm_video_frames=(mm_video_frames if mm_tokens_per_image else 0),
             runtime_config={"engine": "torch", "device": str(engine.device),
                             "mode": mode},
             metadata={"engine": "torch", "role": mode},
@@ -392,8 +399,6 @@ def _engine_config(args: argparse.Namespace) -> EngineConfig:
         (args.mirror or args.coordinator_address or args.num_processes is not None
          or args.process_id is not None,
          "--mirror / --coordinator-address: SPMD multi-host (ROADMAP Queue A item 11)"),
-        (args.mm_tokens_per_image or args.image_token_id or args.mm_video_frames != 8,
-         "--mm-*: multimodal (ROADMAP Queue A item 12)"),
     ]
     for hit, what in refused:
         if hit:
@@ -484,6 +489,9 @@ async def _amain(args: argparse.Namespace, ecfg: EngineConfig) -> None:
             prefill_router_mode=args.prefill_router_mode,
             max_local_prefill_length=args.max_local_prefill_length,
             always_remote_prefill=args.always_remote_prefill,
+            mm_tokens_per_image=args.mm_tokens_per_image,
+            image_token_id=args.image_token_id,
+            mm_video_frames=args.mm_video_frames,
         )
         # launches from here on: precompile's warm-up steps are not traffic
         base = launch_base(engine)
@@ -615,9 +623,13 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                    choices=["kv", "round_robin", "random"])
     p.add_argument("--tool-call-parser", default=None)
     p.add_argument("--reasoning-parser", default=None)
-    p.add_argument("--mm-tokens-per-image", type=int, default=0)
+    p.add_argument("--mm-tokens-per-image", type=int, default=0,
+                   help="placeholder tokens per image (0 = text-only); "
+                        "requires an encode worker on the namespace")
     p.add_argument("--image-token-id", type=int, default=0)
-    p.add_argument("--mm-video-frames", type=int, default=8)
+    p.add_argument("--mm-video-frames", type=int, default=8,
+                   help="frames sampled per video attachment (matches the "
+                        "encode worker's --video-frames)")
     p.add_argument("--mode", default="aggregated",
                    choices=["aggregated", "prefill", "decode"])
     p.add_argument("--prefill-component", default=PREFILL_COMPONENT)

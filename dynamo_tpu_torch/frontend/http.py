@@ -6,6 +6,8 @@ Routes:
   POST /v1/completions        - streaming (SSE) + aggregated
   POST /v1/responses          - OpenAI Responses API on the chat pipeline
                                 (SSE events or one response object)
+  POST /v1/embeddings         - embeddings models (one pooled vector per
+                                input, one engine request each)
   GET  /v1/models             - discovered model cards
   POST /clear_kv_blocks       - evict every worker's inactive prefix-cache pages
   GET  /health, /live, /ready - liveness/readiness
@@ -17,8 +19,6 @@ Routes:
                                 summary tail)
 
 The statuses, JSON error bodies and metrics are the reference's.
-/v1/embeddings waits for its slice (ROADMAP Queue A item 12) and answers
-404.
 
 Tracing (runtime/tracing.py): each generation route binds the client's
 ``traceparent`` and runs under an ``http.request`` span, with
@@ -48,7 +48,11 @@ from dynamo_tpu_torch.frontend.http_server import (
     Response,
     StreamResponse,
 )
-from dynamo_tpu_torch.frontend.protocols import new_request_id
+from dynamo_tpu_torch.frontend.protocols import (
+    embeddings_response,
+    make_embedding_request,
+    new_request_id,
+)
 from dynamo_tpu_torch.frontend.validation import (
     RequestValidationError,
     validate_request,
@@ -124,6 +128,7 @@ class HttpFrontend:
             ("POST", "/v1/chat/completions", self.chat_completions),
             ("POST", "/v1/completions", self.completions),
             ("POST", "/v1/responses", self.responses),
+            ("POST", "/v1/embeddings", self.embeddings),
             ("GET", "/v1/models", self.models),
             ("POST", "/clear_kv_blocks", self.clear_kv_blocks),
             ("GET", "/health", self.health),
@@ -258,6 +263,7 @@ class HttpFrontend:
                 "/v1/completions": op("Text completion", "openai",
                                       stream=True),
                 "/v1/responses": op("Responses API", "openai"),
+                "/v1/embeddings": op("Embeddings", "openai"),
                 "/v1/models": op("Discovered models", "openai",
                                  method="get"),
                 "/clear_kv_blocks": op("Evict inactive prefix-cache pages "
@@ -704,6 +710,58 @@ class HttpFrontend:
                 "total_tokens": agg["usage"]["total_tokens"],
             },
         })
+
+    async def embeddings(self, request: Request) -> Response:
+        try:
+            body = request.json()
+        except ValueError:
+            return _error(400, "invalid JSON body")
+        try:
+            validate_request(body, "embeddings")
+        except RequestValidationError as e:
+            return _error(400, str(e), param=e.param)
+        pipe, err = self._pipeline_or_error(body)
+        if err is not None:
+            return err
+        if pipe.card.model_type != "embeddings":
+            return _error(400, f"model {pipe.card.name!r} is not an embeddings model")
+        # the shape was validated at the edge
+        inputs = body.get("input")
+        if isinstance(inputs, str):
+            inputs = [inputs]
+        # the generation routes' trace and end-to-end deadline contract
+        tracing.bind_trace(request.headers)
+        with tracing.span("http.request", route="embeddings", model=pipe.card.name):
+            try:
+                ctx = self._traced_context(request)
+            except RequestValidationError as e:
+                return _error(400, str(e), param=e.param)
+            t_start = time.monotonic()
+            resp = await self._serve_embeddings(pipe, inputs, ctx)
+            self._audit("embeddings", pipe.card.name, ctx, body, resp.status, t_start,
+                        error=None if resp.status == 200 else "embeddings failed")
+            return resp
+
+    async def _serve_embeddings(
+        self, pipe: ModelPipeline, inputs: list, ctx: Context
+    ) -> Response:
+        vectors = []
+        for i, text in enumerate(inputs):
+            out = None
+            try:
+                async for item in pipe.generate(
+                    make_embedding_request(pipe.preprocessor.tokenizer.encode(text)),
+                    ctx.child(f"{ctx.id}-{i}"),
+                ):
+                    if isinstance(item, dict) and "embedding" in item:
+                        out = item["embedding"]
+            except DeadlineExceeded as e:
+                # expiry mid-batch is the generation routes' 504
+                return _error(504, f"deadline exceeded: {e}", code="deadline_exceeded")
+            if out is None:
+                return _error(502, "worker returned no embedding")
+            vectors.append(out)
+        return Response.json(embeddings_response(pipe.card.name, vectors))
 
     async def clear_kv_blocks(self, request: Request) -> Response:
         """Admin: evict every worker's inactive prefix-cache pages through

@@ -19,8 +19,13 @@ reference's frontend sends it: a worker of either package compiles that
 regex. An unsupported or malformed grammar is a ``GrammarError`` (a
 ValueError, so a typed 400 at the edge) with the reference's text.
 
-Left out until its slice (ROADMAP Queue A item 12): multimodal content
-parts.
+Multimodal content parts: each ``image_url`` / ``video_url`` part becomes an
+inline marker (``IMAGE_MARKER``, stripped from user text while media are
+present) that is spliced into the card's placeholder ids after rendering;
+the wire carries ``multimodal: {images, positions}`` for the encode hop
+(multimodal/operator.py), as the reference's. A video counts
+``mm_tokens_per_image * mm_video_frames`` placeholders here; the encode
+worker refuses it. A text-only card refuses media.
 """
 
 from __future__ import annotations
@@ -56,6 +61,9 @@ class OpenAIPreprocessor:
         default_max_tokens: int = 256,
         tool_call_parser: str | None = None,
         reasoning_parser: str | None = None,
+        mm_tokens_per_image: int = 0,
+        image_token_id: int = 0,
+        mm_video_frames: int = 0,
     ):
         self.tokenizer = tokenizer
         self.model_name = model_name
@@ -63,6 +71,11 @@ class OpenAIPreprocessor:
         self.default_max_tokens = default_max_tokens
         self.tool_call_parser = tool_call_parser
         self.reasoning_parser = reasoning_parser
+        # multimodal: 0 = a text-only model (media parts refused); a video
+        # part takes mm_video_frames frames of mm_tokens_per_image rows
+        self.mm_tokens_per_image = mm_tokens_per_image
+        self.image_token_id = image_token_id
+        self.mm_video_frames = mm_video_frames
         # fail fast on unknown parser names: a typo must break worker
         # startup, not every subsequent chat request
         self._tool_cfg = make_tool_config(tool_call_parser)
@@ -96,12 +109,30 @@ class OpenAIPreprocessor:
 
     # -- forward: OpenAI request -> PreprocessedRequest --------------------
 
-    def _flatten_content(self, request: dict[str, Any]) -> dict[str, Any]:
-        """OpenAI content-part lists -> string contents. Text parts
-        concatenate; a media part raises (the port serves text-only models,
-        so it answers as the reference does for one)."""
+    IMAGE_MARKER = "<|mm_image|>"
+
+    def _flatten_content(
+        self, request: dict[str, Any]
+    ) -> tuple[dict[str, Any], list[str | dict[str, Any]]]:
+        """OpenAI content-part lists -> string contents + media refs. Text
+        parts concatenate; each image_url / video_url part becomes an inline
+        marker and its ref collects in order: a URL string for an image, a
+        ``{"url": ..., "kind": "video"}`` dict for a video."""
         if "messages" not in request:
-            return request
+            return request, []
+        has_media = any(
+            isinstance(m.get("content"), list)
+            and any(isinstance(p, dict) and p.get("type") in ("image_url", "video_url")
+                    for p in m["content"])
+            for m in request["messages"]
+        )
+
+        def clean(text: str) -> str:
+            # the marker is reserved while media are present: a literal one
+            # in user text would desync the marker and media counts
+            return text.replace(self.IMAGE_MARKER, "") if has_media else text
+
+        images: list[str | dict[str, Any]] = []
         msgs = []
         changed = False
         for m in request["messages"]:
@@ -111,17 +142,55 @@ class OpenAIPreprocessor:
                 for part in c:
                     ptype = part.get("type") if isinstance(part, dict) else None
                     if ptype == "text":
-                        parts.append(str(part.get("text") or ""))
+                        parts.append(clean(str(part.get("text") or "")))
                     elif ptype in ("image_url", "video_url"):
-                        raise ValueError(
-                            f"model {self.model_name!r} does not accept image input"
-                        )
+                        iu = part.get(ptype)
+                        url = iu.get("url") if isinstance(iu, dict) else iu
+                        if not url:
+                            raise ValueError(f"{ptype} part without url")
+                        images.append(url if ptype == "image_url"
+                                      else {"url": url, "kind": "video"})
+                        parts.append(self.IMAGE_MARKER)
                     else:
                         raise ValueError(f"unsupported content part type {ptype!r}")
                 m = {**m, "content": "".join(parts)}
                 changed = True
+            elif has_media and isinstance(c, str) and self.IMAGE_MARKER in c:
+                m = {**m, "content": clean(c)}
+                changed = True
             msgs.append(m)
-        return {**request, "messages": msgs} if changed else request
+        return ({**request, "messages": msgs} if changed else request), images
+
+    def _attachment_tokens(self, att) -> int:
+        """Placeholder rows one attachment occupies: an image is
+        mm_tokens_per_image; a video is that per sampled frame."""
+        if isinstance(att, dict) and att.get("kind") == "video":
+            return self.mm_tokens_per_image * self.mm_video_frames
+        return self.mm_tokens_per_image
+
+    def _tokenize_with_images(
+        self, prompt: str, attachments: list
+    ) -> tuple[list[int], list[int]]:
+        """Tokenize around the media markers, splicing each attachment's
+        placeholder ids. Returns (token_ids, the placeholder positions: the
+        absolute prompt positions the engine overwrites with the encoder's
+        rows)."""
+        segs = prompt.split(self.IMAGE_MARKER)
+        if len(segs) - 1 != len(attachments):
+            raise ValueError(
+                "media markers and media parts diverged (chat template "
+                "dropped message content?)"
+            )
+        token_ids: list[int] = []
+        positions: list[int] = []
+        for i, seg in enumerate(segs):
+            if seg:
+                token_ids.extend(self.tokenizer.encode(seg))
+            if i < len(attachments):
+                n = self._attachment_tokens(attachments[i])
+                positions.extend(range(len(token_ids), len(token_ids) + n))
+                token_ids.extend([self.image_token_id] * n)
+        return token_ids, positions
 
     def render_prompt(self, request: dict[str, Any]) -> str:
         if "messages" in request:
@@ -148,8 +217,17 @@ class OpenAIPreprocessor:
     def preprocess(self, request: dict[str, Any]) -> dict[str, Any]:
         """OpenAI chat/completions request (dict) -> PreprocessedRequest."""
         guided = self._guided_spec(request)
-        request = self._flatten_content(request)
-        if "messages" not in request and is_token_prompt(request.get("prompt")):
+        request, images = self._flatten_content(request)
+        if images and not self.mm_tokens_per_image:
+            raise ValueError(f"model {self.model_name!r} does not accept image input")
+        if any(isinstance(a, dict) and a.get("kind") == "video" for a in images) \
+                and not self.mm_video_frames:
+            raise ValueError(f"model {self.model_name!r} does not accept video input")
+        mm_positions: list[int] = []
+        if images:
+            token_ids, mm_positions = self._tokenize_with_images(
+                self.render_prompt(request), images)
+        elif "messages" not in request and is_token_prompt(request.get("prompt")):
             token_ids = list(request["prompt"])
         else:
             token_ids = self.tokenizer.encode(self.render_prompt(request))
@@ -180,7 +258,7 @@ class OpenAIPreprocessor:
             logprobs = None
         if logprobs is not None and not (0 <= logprobs <= 20):
             raise ValueError("logprobs/top_logprobs must be between 0 and 20")
-        return make_preprocessed_request(
+        pre = make_preprocessed_request(
             token_ids,
             max_tokens=max_tokens,
             temperature=request.get("temperature"),
@@ -200,6 +278,11 @@ class OpenAIPreprocessor:
                 if guided is not None else None
             ),
         )
+        if images:
+            # the image refs ride to the MultimodalEncode operator, which
+            # swaps them for embeddings before routing (the encode hop)
+            pre["multimodal"] = {"images": images, "positions": mm_positions}
+        return pre
 
     @staticmethod
     def _chat_logprob_content(entries: list[dict]) -> list[dict]:

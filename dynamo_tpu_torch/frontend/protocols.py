@@ -73,11 +73,32 @@ def make_preprocessed_request(
     }
 
 
+def make_embedding_request(token_ids: list[int]) -> dict[str, Any]:
+    """The engine request of one /v1/embeddings input: its token ids, a
+    budget of one, and the ``embedding_request`` flag (the engine answers
+    one item carrying ``embedding``, no tokens)."""
+    return {"token_ids": list(token_ids), "stop_conditions": {"max_tokens": 1},
+            "embedding_request": True}
+
+
+def embeddings_response(model: str, vectors: list[list[float]]) -> dict[str, Any]:
+    """The OpenAI embeddings body for ``vectors`` in input order (usage
+    reads 0, as the reference's)."""
+    return {
+        "object": "list",
+        "data": [{"object": "embedding", "index": i, "embedding": v}
+                 for i, v in enumerate(vectors)],
+        "model": model,
+        "usage": {"prompt_tokens": 0, "total_tokens": 0},
+    }
+
+
 # Engine output (dict keys), per stream item:
 #   token_ids: list[int]      - newly generated tokens (usually 1)
 #   finish_reason: None | "stop" | "length" | "cancelled" | "error"
 #   logprobs                  - optional entries, one per token
 #   error: str                - when finish_reason == "error"
+#   embedding: list[float]    - the answer to an embedding_request
 
 
 def new_request_id() -> str:

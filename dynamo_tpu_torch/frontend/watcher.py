@@ -9,9 +9,12 @@ card, a KvPushRouter over a direct-mode PushRouter: a KvRouter fed by the
 workers' KV events and load picks each request's instance. Cards
 disappearing (lease expiry / deregistration) tear the pipeline down.
 
-A card asking for multimodal input raises at pipeline build (ROADMAP Queue
-A item 12); the watcher logs it and keeps watching, as the reference does
-for a card it cannot build.
+A multimodal card (``mm_tokens_per_image``) gets the encode hop: a
+round-robin PushRouter over the namespace's encoder component and the
+``mm_encode`` operator (multimodal/operator.py) between the backend and
+migration, so image refs resolve to embeddings before routing; the pipeline
+closes the encode router with the rest. A card the watcher cannot build is
+logged and the watch goes on, as the reference's.
 """
 
 from __future__ import annotations
@@ -41,10 +44,13 @@ class ModelPipeline:
     engine: Any  # Backend(Migration(router))
     push_router: PushRouter
     kv_router: KvRouter | None = None
+    encode_router: PushRouter | None = None  # the multimodal encode hop
 
     async def close(self) -> None:
         if self.kv_router is not None:
             await self.kv_router.close()
+        if self.encode_router is not None:
+            await self.encode_router.client.close()
         await self.push_router.client.close()
 
     def generate(self, preprocessed: dict, context: Context) -> AsyncIterator[dict]:
@@ -76,10 +82,6 @@ class ModelManager:
 async def build_pipeline(
     drt: DistributedRuntime, card: ModelDeploymentCard
 ) -> ModelPipeline:
-    if card.mm_tokens_per_image or card.mm_video_frames:
-        raise NotImplementedError(
-            f"model {card.name!r}: multimodal input is ROADMAP Queue A item 12"
-        )
     tokenizer = load_tokenizer(card.tokenizer)
     preprocessor = OpenAIPreprocessor(
         tokenizer,
@@ -88,6 +90,9 @@ async def build_pipeline(
         chat_template=card.chat_template,
         tool_call_parser=card.tool_call_parser,
         reasoning_parser=card.reasoning_parser,
+        mm_tokens_per_image=card.mm_tokens_per_image,
+        image_token_id=card.image_token_id,
+        mm_video_frames=card.mm_video_frames,
     )
     endpoint = (
         drt.namespace(card.namespace)
@@ -116,9 +121,21 @@ async def build_pipeline(
     # chains are data through the operator registry: cards may splice extra
     # operators via runtime_config["operators"] between backend and router
     extra = list(card.runtime_config.get("operators") or [])
+    # a multimodal card gets the encode hop: image refs resolve to embeddings
+    # at the encoder component before migration and routing
+    encode_router: PushRouter | None = None
+    mm_ops: list = []
+    if card.mm_tokens_per_image:
+        from dynamo_tpu_torch.multimodal.worker import ENCODER_COMPONENT, ENCODER_ENDPOINT
+
+        encode_router = await PushRouter.from_endpoint(
+            drt.namespace(card.namespace).component(ENCODER_COMPONENT)
+            .endpoint(ENCODER_ENDPOINT), RouterMode.ROUND_ROBIN)
+        mm_ops = [("mm_encode", {"encode_router": encode_router})]
     backend = build_chain(
         [
             ("backend", {"tokenizer": tokenizer}),
+            *mm_ops,
             *extra,
             ("migration", {"migration_limit": card.migration_limit}),
         ],
@@ -126,7 +143,7 @@ async def build_pipeline(
     )
     return ModelPipeline(
         card=card, preprocessor=preprocessor, engine=backend, push_router=push,
-        kv_router=kv_router,
+        kv_router=kv_router, encode_router=encode_router,
     )
 
 

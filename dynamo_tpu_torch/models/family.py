@@ -34,6 +34,8 @@ class GqaFamily:
 
     supports_logprobs = True
     supports_spec_decode = True
+    supports_embeddings = True
+    supports_multimodal = True  # prefill embedding injection (EPD)
 
     def __init__(self):
         from dynamo_tpu_torch.models import llama
@@ -48,9 +50,12 @@ class GqaFamily:
         return self.m.init_cache(spec, num_pages, page_size, device=device,
                                  kv_dtype=kv_dtype)
 
-    def prefill(self, spec, params, tokens, bt, start, k, v, n):
-        """(last logits [V], moe_dropped)."""
-        return self.m.prefill_forward(spec, params, tokens, bt, start, k, v, n)
+    def prefill(self, spec, params, tokens, bt, start, k, v, n,
+                mm_embeds=None, mm_pos=None):
+        """(last logits [V], moe_dropped); ``mm_embeds [M, d]`` overwrite
+        the embedded rows at ``mm_pos [M]``."""
+        return self.m.prefill_forward(spec, params, tokens, bt, start, k, v, n,
+                                      mm_embeds=mm_embeds, mm_pos=mm_pos)
 
     def prefill_batch(self, spec, params, tokens, bts, starts, k, v, ns):
         """(last logits [N, V], moe_dropped)."""
@@ -80,6 +85,10 @@ class GqaFamily:
                                    temps, topk, topp, seeds, steps, n_steps=n_steps,
                                    n_logprobs=n_logprobs, allowed=allowed)
 
+    def embed_forward(self, spec, params, tokens, num_tokens):
+        """Pooled, L2-normalized sequence embedding [hidden] f32."""
+        return self.m.embed_forward(spec, params, tokens, num_tokens)
+
     def extract_pages(self, k, v, page_ids):
         """Blocks ``[L, n, KH, page, D]`` x2 (packed ``uint8 [L, n, X]`` x2
         on fp8 pools)."""
@@ -98,9 +107,12 @@ class MlaFamily(GqaFamily):
     and ``v_pages`` carries an inert empty placeholder (no bytes, so the
     engine's ``pool_bytes`` is the latent cache's). Prefill, packed
     prefill and verify report 0 dropped MoE slots, as the reference's MLA
-    family does. Not here, as in the reference or the port: ring prefill
-    (off in the reference's MLA family), embeddings (ROADMAP Queue A item
-    12) and meshes (item 11)."""
+    family does. It serves embeddings but takes no image input, as the
+    reference's. Not here, as in the reference or the port: ring prefill
+    (off in the reference's MLA family) and meshes (ROADMAP Queue A item
+    11)."""
+
+    supports_multimodal = False
 
     def __init__(self):
         from dynamo_tpu_torch.models import mla

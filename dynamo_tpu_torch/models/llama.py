@@ -361,9 +361,11 @@ def _write_prefill_pages(pool, li, safe_pg, arr, page_size, valid_tok):
 
 
 def _overlay_rows(ctx, rows, positions):
-    """ctx [N, max_ctx, KH, D] f32 with this prompt's exact rows [N, T, KH,
-    D] written at ``positions [N, T]``; positions past the context are
-    dropped (the reference's ``mode="drop"``: they go to a spare row)."""
+    """ctx [N, max_ctx, ...] with ``rows [N, T, ...]`` written at
+    ``positions [N, T]`` in one scatter (a prompt's exact K/V rows over its
+    dequantized context, or the multimodal rows over the embedded tokens);
+    positions past the context are dropped (the reference's
+    ``mode="drop"``: they go to a spare row)."""
     N, max_ctx = ctx.shape[:2]
     ext = torch.cat([ctx, ctx.new_zeros((N, 1) + ctx.shape[2:])], dim=1)
     pos = torch.where(positions < max_ctx, positions, max_ctx)
@@ -381,16 +383,22 @@ def prefill_forward(
     k_pages: torch.Tensor,  # [L, num_pages, kvh, page, D] (updated in place)
     v_pages: torch.Tensor,
     num_tokens: int,  # real token count in ``tokens``
+    mm_embeds: torch.Tensor | None = None,  # [M, d] multimodal embedding rows
+    mm_pos: torch.Tensor | None = None,  # [M] window-relative positions (pad >= T)
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Process one prompt; writes its KV pages; returns (the last real
     position's logits [V] f32, MoE dropped slots: an int32 device scalar).
     Attention runs over the gathered paged context, so prefix-cache hits
     skip recompute of cached tokens. The experts route all ``T_pad`` rows,
-    padding included, as the reference's."""
+    padding included, as the reference's. ``mm_embeds`` / ``mm_pos``: the
+    encoder's rows overwrite the placeholder tokens' embeddings (the
+    multimodal injection; positions at or past the bucket are dropped)."""
     logits, dropped = prefill_forward_batch(
         spec, params, tokens[None], block_table[None],
         torch.tensor([start_pos]), k_pages, v_pages,
         torch.tensor([num_tokens]),
+        mm_embeds=None if mm_embeds is None else mm_embeds[None],
+        mm_pos=None if mm_pos is None else mm_pos[None],
     )
     return logits[0], dropped
 
@@ -404,6 +412,8 @@ def prefill_forward_batch(
     k_pages: torch.Tensor,  # updated in place
     v_pages: torch.Tensor,
     num_tokens: torch.Tensor,  # [N] host ints: real token counts
+    mm_embeds: torch.Tensor | None = None,  # [N, M, d] multimodal rows
+    mm_pos: torch.Tensor | None = None,  # [N, M] window-relative (pad >= T)
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """N prompts in one forward (the packed-prefill admission path):
     matmuls batch over [N, T, d], the per-layer KV write is one page-tile
@@ -415,7 +425,9 @@ def prefill_forward_batch(
     prompt-major order, padding included, as the reference's (capacity
     and drops depend on N*T). Returns (the last real position's logits
     [N, V] f32, MoE dropped slots summed over the layers: an int32 device
-    scalar, never read on the host here)."""
+    scalar, never read on the host here). ``mm_embeds`` / ``mm_pos``
+    overwrite each prompt's placeholder rows after the embedding lookup,
+    as in ``prefill_forward``."""
     dev = k_pages.device
     N, T = tokens.shape
     page_size = k_pages.shape[3]
@@ -437,6 +449,8 @@ def prefill_forward_batch(
     valid_tok = (idx[None, :] < ntok[:, None]).reshape(N * n_pg, page_size)
 
     x = params.embed[tokens]  # [N, T, d]
+    if mm_embeds is not None:
+        x = _overlay_rows(x, mm_embeds.to(dev), mm_pos.to(dev).long())
     rot = rope_tables(spec, positions)
     dropped = torch.zeros((), dtype=torch.int32, device=dev)
     for li, lp in enumerate(params.layers):
@@ -790,6 +804,40 @@ def run_steps(step, dev, tokens, block_tables, seq_lens, active, temperature,
 
 
 # ------------------------------------------------------- kv page movement
+
+
+def embed_forward(
+    spec: ModelSpec,
+    params: LlamaParams,
+    tokens: torch.Tensor,  # [T_pad] int (padded)
+    num_tokens: int,  # real token count
+) -> torch.Tensor:
+    """Sequence embedding: the final-norm hidden states mean-pooled over the
+    real tokens, L2-normalized, in f32 (the /v1/embeddings surface). No KV
+    page is touched: the causal attention runs over the prompt's own rows.
+    Returns [hidden_size] f32."""
+    T = tokens.shape[0]
+    positions = torch.arange(T, device=tokens.device)
+    rot = rope_tables(spec, positions)
+    x = params.embed[tokens.long()]
+    for li, lp in enumerate(params.layers):
+        h = rms_norm(x, lp.attn_norm, spec.rms_eps)
+        q, k, v = _attn_qkv(spec, lp, h, rot)
+        attn = causal_attention(q, k, v, positions, num_tokens,
+                                window=spec.attn_window(li), sinks=lp.get("sinks"))
+        x = x + _o_proj(spec, lp, attn.reshape(T, -1))
+        h = rms_norm(x, lp.mlp_norm, spec.rms_eps)
+        x = x + _ffn(spec, lp, h)
+    return pool_embedding(rms_norm(x, params.final_norm, spec.rms_eps), num_tokens)
+
+
+def pool_embedding(xn: torch.Tensor, num_tokens: int) -> torch.Tensor:
+    """Mean of ``xn [T, d]`` over its first ``num_tokens`` rows, in f32,
+    L2-normalized (norms below 1e-9 divide by 1e-9)."""
+    xn = xn.float()
+    mask = (torch.arange(xn.shape[0], device=xn.device) < num_tokens)[:, None].float()
+    pooled = (xn * mask).sum(dim=0) / mask.sum().clamp(min=1.0)
+    return pooled / torch.linalg.vector_norm(pooled).clamp(min=1e-9)
 
 
 def extract_pool_pages(pool, page_ids: torch.Tensor) -> torch.Tensor:

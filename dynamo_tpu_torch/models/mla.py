@@ -52,6 +52,7 @@ from dynamo_tpu_torch.models.llama import (
     _overlay_rows,
     apply_rope,
     finish_step_,
+    pool_embedding,
     resolve_device,
     rms_norm,
     rope_tables,
@@ -313,6 +314,30 @@ def reference_forward(
         attn = torch.einsum("ths,shv->thv", torch.softmax(scores, dim=-1), v)
         x = _layer_tail(spec, lp, x, attn)
     return _logits(spec, params, x)
+
+
+# ------------------------------------------------------------- embeddings
+
+
+def embed_forward(
+    spec: ModelSpec, params: MlaParams, tokens: torch.Tensor, num_tokens: int
+) -> torch.Tensor:
+    """Sequence embedding for the MLA family: the final-norm hidden states
+    mean-pooled over the real tokens, L2-normalized, in f32 (as
+    ``llama.embed_forward``). The absorbed attention runs over the prompt's
+    own latent rows; no page is touched. tokens: [T_pad] -> [hidden] f32."""
+    T = tokens.shape[0]
+    positions = torch.arange(T, device=tokens.device)
+    rot = _rot(spec, positions)
+    mask = (positions[:, None] >= positions[None, :]) & (positions[None, :] < num_tokens)
+    x = params.embed[tokens.long()]
+    for lp in params.layers:
+        h = rms_norm(x, lp.attn_norm, spec.rms_eps)
+        q_nope, q_rope = _q_heads(spec, lp, h, rot)
+        attn = _absorbed_attention(spec, lp, q_nope, q_rope, _latent_row(spec, lp, h, rot),
+                                   mask)
+        x = _layer_tail(spec, lp, x, attn)
+    return pool_embedding(rms_norm(x, params.final_norm, spec.rms_eps), num_tokens)
 
 
 # ---------------------------------------------------------------- prefill

@@ -64,6 +64,9 @@ registry.register_lazy(
 registry.register_lazy(
     "backend", "dynamo_tpu_torch.frontend.backend_op", "make_operator"
 )
+registry.register_lazy(
+    "mm_encode", "dynamo_tpu_torch.multimodal.operator", "make_operator"
+)
 
 
 def build_chain(ops: list, sink: Any, *, reg: OperatorRegistry | None = None):

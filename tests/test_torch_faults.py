@@ -227,6 +227,49 @@ async def test_engine_step_error_fails_in_flight_and_keeps_serving(port_faults):
     await eng.close()
 
 
+async def test_engine_step_error_spares_a_request_sent_after_the_error(port_faults):
+    """The step-failure sweep drains the waiting queue before it fails the
+    slots: a request sent once an in-flight stream has seen its error is
+    served. The step thread is held inside the sweep, right after the
+    slot's error item is posted, until the next request is queued, which
+    makes the old order (slots first, queue second) fail it every time."""
+    import threading
+
+    from dynamo_tpu_torch.runtime.context import Context
+
+    eng = _tiny_engine()
+    finish, gate = eng._finish, threading.Event()
+
+    def held_finish(slot_idx, slot, reason, **kw):
+        finish(slot_idx, slot, reason, **kw)
+        if reason == "error" and not gate.is_set():
+            gate.wait(10.0)
+
+    eng._finish = held_finish
+    items = []
+    async for item in eng.generate(_greedy(range(1, 9), 60), Context()):
+        items.append(item)
+        if len(items) == 2:
+            port_faults.configure("engine.step:error@1.0x1")
+    assert items[-1]["error"] == "engine step failure"
+
+    async def second():
+        return [x async for x in eng.generate(_greedy(range(1, 9), 4), Context())]
+
+    task = asyncio.ensure_future(second())
+    for _ in range(1000):
+        if eng._waiting.qsize():
+            break
+        await asyncio.sleep(0.005)
+    assert eng._waiting.qsize() == 1
+    gate.set()
+    out = await task
+    assert out[-1]["finish_reason"] == "length", out[-1]
+    assert sum(len(x["token_ids"]) for x in out) == 4
+    assert eng.allocator.active_pages == 0
+    await eng.close()
+
+
 async def test_engine_admit_drop_stays_retryable(port_faults):
     """An ``engine.admit`` drop is the retryable ServiceUnavailable (a
     StreamError: migration re-drives it); an error is not retryable; both

@@ -367,8 +367,16 @@ async def test_refused_features_raise():
     parsed = await build_pipeline(drt, ModelDeploymentCard(**base, reasoning_parser="basic"))
     assert parsed.preprocessor.reasoning_parser == "basic"
     await parsed.close()
-    with pytest.raises(NotImplementedError, match="multimodal"):
-        await build_pipeline(drt, ModelDeploymentCard(**base, mm_tokens_per_image=4))
+    # a multimodal card gets the encode hop before migration, over a
+    # round-robin router of the namespace's encoder component
+    mm = await build_pipeline(drt, ModelDeploymentCard(**base, mm_tokens_per_image=4,
+                                                       image_token_id=5))
+    assert type(mm.engine.downstream).__name__ == "MultimodalEncode"
+    assert mm.engine.downstream.encode_router is mm.encode_router
+    assert mm.encode_router.mode.value == "round_robin"
+    assert type(mm.engine.downstream.downstream).__name__ == "Migration"
+    assert (mm.preprocessor.mm_tokens_per_image, mm.preprocessor.image_token_id) == (4, 5)
+    await mm.close()
     pipe = await build_pipeline(drt, ModelDeploymentCard(**base))
     assert type(pipe.engine).__name__ == "Backend"
     assert type(pipe.engine.downstream).__name__ == "Migration"

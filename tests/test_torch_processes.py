@@ -437,7 +437,8 @@ _REFUSED_FLAGS = {
     "tenant-quotas": (["--tenant-quotas", "a:weight=2"], None),
     "max-waiting": (["--max-waiting", "8"], None),
     "no-preemption": (["--no-preemption"], None),
-    "mm-tokens": (["--mm-tokens-per-image", "4"], "item 12"),
+    # multimodal: the flags go on the model card
+    "mm-tokens": (["--mm-tokens-per-image", "4"], None),
     # --router-mode kv is ported (the default), and since disaggregation
     # the prefill router's mode too
     "prefill-router-mode": (["--prefill-router-mode", "round_robin"], None),

@@ -477,14 +477,19 @@ def test_responses_errors_match(stacks, case):
 
 
 def test_unserved_routes_and_methods(stacks):
-    """/v1/embeddings waits for its slice (404); /debug/timeline is served
+    """/v1/embeddings answers a chat model 400 as the reference's does (an
+    unknown route 404); /debug/timeline is served
     in the JAX stack's shape (the JAX engine here is registered by hand,
     with no admin endpoint, so its answer lists no component; the port's
     worker answers with its flight recorder's summary); /v1/responses is
     served (test_responses_parity) and listed in openapi.json, as
     /debug/timeline is."""
-    for route in ("/v1/embeddings", "/nope"):
-        assert stacks.run(stacks.post("port", route, {"model": MODEL}))[0] == 404
+    assert stacks.run(stacks.post("port", "/nope", {"model": MODEL}))[0] == 404
+    body = {"model": MODEL, "input": "hi"}
+    (js, jbody), (ps, pbody) = stacks.run(_gather(
+        stacks.post("jax", "/v1/embeddings", body), stacks.post("port", "/v1/embeddings", body)))
+    assert js == ps == 400 and jbody == pbody
+    assert "is not an embeddings model" in pbody["error"]["message"]
     (js, jbody), (ps, pbody) = stacks.run(_gather(
         stacks.get("jax", "/debug/timeline?n=2"), stacks.get("port", "/debug/timeline?n=2")))
     assert js == ps == 200
