@@ -454,9 +454,42 @@ Phases, each of which must pass (any failure exits non-zero):
    weights answers /v1/embeddings for 1 and 8 inputs: unit norms within
    EMB_NORM_TOL, the batch equal to the inputs one by one within
    EMB_EQ_TOL, ms per input.
+22. tensor parallelism (after phase 17, every engine freed): fused_decode
+   at a tp rank's shapes (KH 4 / G 4 and KH 2 / G 8, bf16 and fp8 pools)
+   against its plain version, timed beside SDPA and its bound, kv_write
+   timed at the same KV heads; (a) llama-3-8b at full width and depth over
+   2 gloo ranks on this card (spawned processes: the group's bootstrap,
+   make_mesh, the rank's shard of the seeded init, the engine behind an
+   SPMD leader, a follower shell replaying its descriptors; graphs off by
+   its config, as gloo's collectives go through host memory), serving
+   phase 4's prompts: the prefill logits within TP_LOGIT_TOL of a one-rank
+   engine's on the same weights, the greedy streams equal to its up to
+   the first near-tie, each rank's sealed pages within TP_POOL_TOL of the
+   matching KV-head slice of its pools (and each gate above its
+   tolerance on a planted fault: the prefill with layer 0's w_down
+   all-reduce skipped on every rank, each rank's pages against its
+   neighbour's heads), fused_decode once per layer per step on every
+   rank; per-rank memory, step times and the collectives'
+   share (two processes time-slice one card: not tp timings); (b) the
+   same at llama-3-70b's width (d 8192, 64/8 heads, FFN 28,672, vocab
+   128,256) cut to TP70_LAYERS layers over 4 gloo ranks; (c) tp=1 through
+   the distributed path on NCCL (a group of one): the collectives captured
+   in the decode and verify graphs, phase 5's and phase 12's graph checks
+   (replay bitwise equal to eager), a serve equal to phase 4's streams;
+   (d) ``cli hub`` with a ``--mirror leader`` and a ``--mirror follower``
+   worker serving phase 4's prompts over TCP: the follower's pages
+   bitwise equal to the leader's (kv_digest); a SIGKILLed follower's
+   replacement rejoins through ``__sync__`` and equals the leader again
+   after the next serve; descriptor bytes and host us per publish; (e)
+   with two cards, (a) under NCCL across them with graphs on, else a line
+   saying it was not possible; (f) ``cli worker --tp 2`` (gloo, both ranks
+   on this card, graphs off by ``--no-cuda-graphs``) starting its rank 1
+   itself, serving phase 4's prompts over TCP, both ranks answering
+   kv_digest over the same pages, and draining with its rank on SIGTERM. Every rank's launches join the kernels
+   line (fused_decode/tp2, fused_decode/tp4 at the ranks' shapes).
 
 Phases run in the order 1-8, 12, 13, 14, 18, 9, 20 (a, b, d), 21, 10, 11,
-19, 20 (c), 15, 16, 17.
+19, 20 (c), 15, 16, 17, 22.
 
 Prints, before the last line, the card line and one JSON object with every
 kernel's measurements; the last line is
@@ -7452,6 +7485,680 @@ def multimodal_phase(spec, cfg, params, card) -> int:
     return launches
 
 
+# ---------------------------------------------------- tensor parallelism
+
+TP70_LAYERS = 4  # llama-3-70b at full width, cut to this many layers (phase 22 b)
+TP_POOL_PAGES = 64  # sealed pages per rank held against the one-rank pools
+# a rank's pages against the matching KV-head slice of the one-rank pools:
+# max |diff| / max |value| over those pages, per pool (bf16 rows whose
+# inputs passed through all-reduced f32 sums in another order, rounded
+# once more per layer)
+TP_POOL_TOL = 5e-2
+# prefill logits, max |diff| / max |logit|: llama-3-8b at tp=2 read
+# 2.046e-2 on an H100 80GB HBM3 at 700 W (fused vs unfused reads 1.45e-2
+# for one rounding moved per layer; tp moves two), so 5e-2 leaves room.
+# Both gates hold a planted fault against their tolerance every run
+# (tp_fault_logits, tp_check): it must read above it. On that card layer
+# 0's w_down all-reduce skipped read 1.068 (tp=2) / 1.224 (tp=4), a rank's
+# pages against its neighbour's heads >= 1.309, the sound pages <= 2.089e-2
+TP_LOGIT_TOL = 5e-2
+TP_TIMEOUT_S = 600  # a rank's limit on any collective wait
+
+
+def tp70_spec():
+    import dataclasses
+
+    from dynamo_tpu_torch.engine.config import ModelSpec
+
+    return dataclasses.replace(ModelSpec.llama3_70b(), num_layers=TP70_LAYERS,
+                               name=f"llama-3-70b[{TP70_LAYERS} layers]")
+
+
+def tp_prefill_logits(spec, params, prompt, device):
+    """One prefill of ``prompt`` on scratch pools of this rank's heads: its
+    last position's logits (every rank of a group gets the same)."""
+    from dynamo_tpu_torch.models import llama
+
+    mesh = getattr(params, "mesh", None)
+    bucket = -(-len(prompt) // 16) * 16
+    n_pages = bucket // 16
+    k, v = llama.init_cache(spec, n_pages + 1, 16, device=device,
+                            tp=mesh.tp if mesh is not None else 1)
+    tok = torch.zeros(bucket, dtype=torch.int32, device=device)
+    tok[: len(prompt)] = torch.tensor(prompt, dtype=torch.int32)
+    bt = torch.arange(1, n_pages + 1, dtype=torch.int32, device=device)
+    with torch.no_grad():
+        logits, _ = llama.prefill_forward(spec, params, tok, bt, 0, k, v, len(prompt))
+    out = logits.float().cpu()
+    del k, v
+    return out
+
+
+def tp_fault_logits(spec, params, prompt, device):
+    """``tp_prefill_logits`` with a planted fault, the same on every rank
+    (so the collectives still line up): layer 0's ``w_down`` partial goes
+    on unreduced. The logits gate must reject it."""
+    from dynamo_tpu_torch.models import llama
+
+    real, calls = llama._mlp, []
+
+    def unreduced(lp, x, mesh=None):
+        calls.append(mesh)
+        return real(lp, x, None if len(calls) == 1 else mesh)
+
+    llama._mlp = unreduced
+    try:
+        return tp_prefill_logits(spec, params, prompt, device)
+    finally:
+        llama._mlp = real
+
+
+def tp_pages(engine, ids):
+    """Pages ``ids`` of the engine's pools, on the host as numpy (bf16 as
+    uint16 bits: a queue between processes carries them by value): (ids,
+    k, v)."""
+    from dynamo_tpu_torch.kvbm.offload import block_numpy
+
+    kb, vb = engine.fam.extract_pages(engine.k_pages, engine.v_pages,
+                                      torch.tensor(ids, dtype=torch.int64, device=engine.device))
+    return ids, block_numpy(kb.cpu()), block_numpy(vb.cpu())
+
+
+async def tp_rank_serve(rank, n, job):
+    """One rank of a phase-22 group: the port's entry points (the group's
+    bootstrap, the mesh, this rank's shard of the seeded init, the engine
+    and the SPMD plane); rank 0 serves the prompts, the others replay."""
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelSpec
+    from dynamo_tpu_torch.engine.core import InferenceEngine
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.parallel.mesh import make_mesh
+    from dynamo_tpu_torch.parallel.spmd import SpmdFollower, SpmdLeader, StoreHub
+
+    mesh = make_mesh(tp=n)
+    dev = mesh.device
+    spec = ModelSpec(**job["spec"])
+    t0 = time.perf_counter()
+    params = llama.init_params(spec, 0, device=dev, mesh=mesh)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    out = {"rank": rank, "device": str(dev), "init_s": time.perf_counter() - t0,
+           "params_bytes": _allocated(dev)}
+    prompt = job["prompts"][job["logit_prompt"]]
+    logits = tp_prefill_logits(spec, params, prompt, dev)
+    fault = tp_fault_logits(spec, params, prompt, dev)
+    if rank == 0:
+        out["logits"] = logits.numpy()
+        out["fault_logits"] = fault.numpy()
+    cfg = EngineConfig(**job["cfg"], tp=n, cuda_graphs=job["graphs"])
+    group = f"phase22/{job['label']}"
+    if rank == 0:
+        leader = await SpmdLeader(StoreHub(), asyncio.get_running_loop(), group,
+                                  strict=True).start()
+        engine = InferenceEngine(spec, cfg, params=params, device=dev, mesh=mesh,
+                                 spmd=leader)
+        if job["graphs"]:
+            engine.precompile()
+        out["mem_bytes"] = _allocated(dev)
+        out["pool_bytes"] = engine.pool_bytes
+        zero_counts()
+        stats0 = dict(mesh.stats)
+        p0 = (leader.publish_count, leader.publish_bytes, leader.publish_secs)
+        await engine.start()
+        results, ttft, wall, hit = await serve(engine, job["prompts"])
+        out["counts"] = read_counts()
+        out["coll"] = {k: mesh.stats[k] - stats0[k] for k in stats0}
+        out["publish"] = [a - b for a, b in zip(
+            (leader.publish_count, leader.publish_bytes, leader.publish_secs), p0)]
+        out.update(tokens={i: [t for x in items for t in x["token_ids"]]
+                           for i, items in results.items()},
+                   ttft=ttft, wall=wall, hit=hit, steps=engine.steps,
+                   replays=engine._graphs.replays,
+                   step_times=list(engine.decode_step_times))
+        await engine.kv_digest()  # the followers record the same pages
+        ids = engine.allocator.used_page_ids()[:TP_POOL_PAGES]
+        out["hashes"] = [engine.allocator._page_hash.get(p) for p in ids]
+        out["pages"] = tp_pages(engine, ids)
+        await engine.close()
+    else:
+        engine = InferenceEngine(spec, cfg, params=params, device=dev, mesh=mesh)
+        out["mem_bytes"] = _allocated(dev)
+        zero_counts()
+        stats0 = dict(mesh.stats)
+        f = SpmdFollower(StoreHub(), group, engine, rejoin=False)
+        await f.run()
+        out["counts"] = read_counts()
+        out["coll"] = {k: mesh.stats[k] - stats0[k] for k in stats0}
+        out["ops"] = dict(f.ops)
+        out["pages"] = tp_pages(engine, f.digest_pages[:TP_POOL_PAGES])
+        engine.release_graphs()
+    return out
+
+
+def _allocated(dev) -> int:
+    return torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+
+
+def tp_rank(rank, n, port, job, q):
+    """A spawned rank: join the group (the job's backend and device), run
+    ``tp_rank_serve``, put its result (or the traceback) on ``q``."""
+    import traceback
+
+    try:
+        sys.path.insert(0, str(ROOT))
+        from dynamo_tpu_torch.ops.cuda import build
+        from dynamo_tpu_torch.parallel.multihost import initialize_multihost, shutdown
+
+        if torch.cuda.is_available():
+            build.load_library()  # built by the parent
+        initialize_multihost(f"127.0.0.1:{port}", n, rank, device=job["device"],
+                             backend=job["backend"], timeout_s=TP_TIMEOUT_S)
+        try:
+            q.put((rank, asyncio.run(tp_rank_serve(rank, n, job))))
+        finally:
+            shutdown()
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        q.put((rank, {"error": traceback.format_exc()}))
+    finally:
+        q.close()
+        q.join_thread()
+
+
+def run_ranks(n: int, target, job, timeout: float = 900.0) -> list[dict]:
+    """``target(rank, n, port, job, q)`` on ``n`` spawned processes (fresh
+    interpreters, never forks of this CUDA process); results in rank
+    order. Every process is joined or killed before this returns."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [ctx.Process(target=target, args=(r, n, port, job, q)) for r in range(n)]
+    for p in procs:
+        p.start()
+    got: dict[int, dict] = {}
+    try:
+        deadline = time.perf_counter() + timeout
+        while len(got) < n:
+            import queue as _queue
+
+            try:
+                r, res = q.get(timeout=5.0)
+            except _queue.Empty:
+                dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                require(not dead and time.perf_counter() < deadline,
+                        f"phase 22 ranks: exit codes {[p.exitcode for p in procs]}, "
+                        f"{len(got)}/{n} results")
+                continue
+            require("error" not in res, f"phase 22 rank {r} failed:\n{res.get('error')}")
+            got[r] = res
+    finally:
+        for p in procs:
+            p.join(60)
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    return [got[r] for r in range(n)]
+
+
+def tp_reference(spec, cfg, prompts, label):
+    """The one-rank engine on the same seeded weights: its streams, its
+    prefill logits, its sealed pages by block hash, and the weights for the
+    near-tie check. The engine's pools stay until ``drop_engine``."""
+    from dynamo_tpu_torch.models import llama
+
+    params = llama.init_params(spec, 0, device=DEVICE)
+    engine = new_engine(spec, dict(cfg), f"{label} tp=1", params=params)
+    out = serve_phases(engine, [("default", lambda e: serve(e, prompts))])
+    results = out["default"]["res"][0]
+    tokens = {i: [t for x in items for t in x["token_ids"]] for i, items in results.items()}
+    logits = tp_prefill_logits(spec, params, prompts[0], DEVICE)
+    return engine, params, tokens, logits
+
+
+def tp_check(spec, prompts, ref, ranks, label, card) -> int:
+    """Hold a group's serve against the one-rank reference: prefill logits
+    within TP_LOGIT_TOL, streams equal up to the first near-tie, each
+    rank's pages within TP_POOL_TOL of the one-rank pools' matching KV-head
+    slice, fused_decode once per layer per decode step on every rank (no
+    other kernel). Prints per-rank memory, step times and the collectives'
+    share. Returns every rank's fused_decode launches."""
+    from dynamo_tpu_torch.kvbm.offload import block_tensor
+
+    engine, params, tokens, logits = ref
+    lead = ranks[0]
+    n, L = len(ranks), spec.num_layers
+    scale = logits.abs().max().item()
+    lerr = (torch.from_numpy(lead["logits"]) - logits).abs().max().item() / scale
+    ferr = (torch.from_numpy(lead["fault_logits"]) - logits).abs().max().item() / scale
+    require(lerr <= TP_LOGIT_TOL, f"{label}: prefill logits differ by {lerr:.3e} of the max")
+    require(ferr > TP_LOGIT_TOL, f"{label}: logits with layer 0's w_down all-reduce "
+            f"skipped differ by only {ferr:.3e}: the gate cannot see a wrong shard")
+    print(f"{label}: prefill logits vs tp=1 max |diff| / max |logit| {lerr:.3e} "
+          f"(tol {TP_LOGIT_TOL}); planted fault (layer 0's w_down all-reduce skipped) "
+          f"{ferr:.3e}")
+    same_all, parts = 0, []
+    for i, want in tokens.items():
+        got = lead["tokens"][i]
+        require(len(got) == SERVE_TOKENS, f"{label}: request {i} {len(got)} tokens")
+        if got != want:
+            same, tie = equal_to_first_near_tie(spec, params, prompts[i], got, want)
+            require(same >= tie, f"{label}: request {i} parts from tp=1 at {same} before "
+                    f"its first near-tie at {tie}")
+            parts.append((i, same, tie))
+        else:
+            same_all += 1
+    n_tok = sum(len(t) for t in tokens.values())
+    eq = sum(a == b for i in tokens for a, b in zip(tokens[i], lead["tokens"][i]))
+    print(f"{label}: {same_all} of {len(tokens)} greedy streams equal to tp=1's "
+          f"({eq} of {n_tok} tokens); the others part at or after a near-tie "
+          f"(request, first difference, first near-tie): {parts}")
+    # pages: by the leader's block hash, the one-rank page holding that block
+    ids, _k, _v = lead["pages"]
+    pairs = [(j, engine.allocator._hash_page[h]) for j, h in enumerate(lead["hashes"])
+             if h is not None and h in engine.allocator._hash_page]
+    require(len(pairs) >= 16, f"{label}: {len(pairs)} sealed blocks in common with tp=1")
+    rows = [j for j, _p in pairs]
+    ref_pages = torch.tensor([p for _j, p in pairs], device=engine.device)
+    rk, rv = engine.fam.extract_pages(engine.k_pages, engine.v_pages, ref_pages)
+    worst, swapped = 0.0, float("inf")
+    for r, res in enumerate(ranks):
+        rids, kb, vb = res["pages"]
+        kb, vb = block_tensor(kb), block_tensor(vb)
+        require(list(rids) == list(ids), f"{label}: rank {r} holds other pages")
+        kh = kb.shape[2]
+        for got, want in ((kb[:, rows], rk), (vb[:, rows], rv)):
+            got = got.float()
+            for q in (r, (r + 1) % n):
+                cut = want[:, :, q * kh:(q + 1) * kh].float().cpu()
+                err = (got - cut).abs().max().item() / cut.abs().max().item()
+                if q == r:
+                    worst = max(worst, err)
+                else:  # the planted fault: this rank holding its neighbour's heads
+                    swapped = min(swapped, err)
+    require(worst <= TP_POOL_TOL, f"{label}: rank pages differ by {worst:.3e} of the max")
+    require(swapped > TP_POOL_TOL, f"{label}: pages against a neighbour's KV heads differ "
+            f"by only {swapped:.3e}: the gate cannot see a wrong shard")
+    print(f"{label}: {len(pairs)} sealed pages on every rank vs the matching KV-head slice "
+          f"of tp=1's pools: max |diff| / max |value| {worst:.3e} (tol {TP_POOL_TOL}); "
+          f"planted fault (each rank against its neighbour's heads) at least {swapped:.3e}")
+    steps = lead["steps"]
+    total = 0
+    for r, res in enumerate(ranks):
+        c = res["counts"]
+        require(c["fused_decode"] == L * steps and c["kv_write"] == 0
+                and c["paged_attention_v3"] == 0,
+                f"{label}: rank {r} launches {c} over {steps} decode steps")
+        total += c["fused_decode"]
+        co = res["coll"]
+        print(f"{label}: rank {r} on {res['device']}: fused_decode {c['fused_decode']} "
+              f"launches ({L} x {steps} steps); weights {res['params_bytes'] / 1e9:.3f} GB, "
+              f"allocated after the pools {res['mem_bytes'] / 1e9:.3f} GB, init "
+              f"{res['init_s']:.1f} s; {co['calls']} collectives, "
+              f"{co['bytes'] / 1e6:.1f} MB sent, {co['secs']:.2f} s in them"
+              + (f"; replayed {res['ops']}" if "ops" in res else ""))
+    times = lead["step_times"]
+    disp = 1e3 * sum(times) / max(len(times), 1)
+    share = lead["coll"]["secs"] / lead["wall"]
+    cnt, nbytes, secs = lead["publish"]
+    print(f"{label} [{card}]: NOT tp timings ({n} processes time-slice one card): serve "
+          f"{n_tok} tokens in {lead['wall']:.2f} s, decode dispatch-to-host mean "
+          f"{disp:.2f} ms over {len(times)} dispatches of {steps} steps, TTFT mean "
+          f"{1e3 * sum(lead['ttft'].values()) / len(lead['ttft']):.1f} ms; the leader's "
+          f"collectives {lead['coll']['calls']} calls, {share:.3f} of the serve's wall "
+          f"(staged through host memory); {cnt} descriptors, {nbytes / max(cnt, 1):.0f} "
+          f"bytes and {1e6 * secs / max(cnt, 1):.1f} us of host time each; pools "
+          f"{lead['pool_bytes'] / 1e9:.3f} GB per rank")
+    return total
+
+
+def tp_group_serve(spec, cfg, prompts, n, label, card, backend="gloo", device=DEVICE,
+                   graphs=False) -> int:
+    """Phase 22 (a), (b), (e): the one-rank reference in this process, then
+    ``n`` ranks of the same seeded weights serving the same prompts."""
+    import dataclasses
+    import gc
+
+    t0 = time.perf_counter()
+    ref = tp_reference(spec, cfg, prompts, label)
+    job = {"spec": dataclasses.asdict(spec), "cfg": dict(cfg), "prompts": prompts,
+           "logit_prompt": 0, "graphs": graphs, "backend": backend, "device": device,
+           "label": label}
+    try:
+        ranks = run_ranks(n, tp_rank, job)
+        launches = tp_check(spec, prompts, ref, ranks, label, card)
+    finally:
+        drop_engine(ref[0])
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"{label}: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def tp_one_rank_nccl(rank, n, port, job, q):
+    """Phase 22 (c): a group of one on NCCL, graphs on: the collectives are
+    captured in the decode and verify graphs, a replay equals an eager
+    step bitwise, and a serve equals phase 4's streams."""
+    import traceback
+
+    try:
+        sys.path.insert(0, str(ROOT))
+        import torch.distributed as dist
+
+        from dynamo_tpu_torch.engine.config import EngineConfig, ModelSpec
+        from dynamo_tpu_torch.engine.core import InferenceEngine
+        from dynamo_tpu_torch.models import llama
+        from dynamo_tpu_torch.ops.cuda import build
+        from dynamo_tpu_torch.parallel.mesh import make_mesh
+
+        if torch.cuda.is_available():
+            build.load_library()  # built by the parent
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=1, rank=0)
+        try:
+            mesh = make_mesh(tp=1, devices=[DEVICE])
+            require(mesh.group is not None and mesh.backend == "nccl",
+                    f"tp=1 group: {mesh.backend}")
+            spec = ModelSpec(**job["spec"])
+            params = llama.init_params(spec, 0, device=DEVICE, mesh=mesh)
+            engine = InferenceEngine(spec, EngineConfig(**job["cfg"]), params=params,
+                                     device=DEVICE, mesh=mesh)
+            c0 = mesh.stats["captured"]
+            precompile(engine, "tp=1 nccl")
+            captured = mesh.stats["captured"] - c0
+            require(captured > 0, "no collective captured in the decode graphs")
+            step_graph_check(engine, job["prompts"])
+            c1 = mesh.stats["captured"]
+            verify_graph_check(engine, job["prompts"])
+            out = serve_phases(engine, [("default", lambda e: serve(e, job["prompts"]))])
+            res = out["default"]
+            tokens = {i: [t for x in items for t in x["token_ids"]]
+                      for i, items in res["res"][0].items()}
+            # against phase 4's streams up to the first near-tie (another
+            # admission grouping runs other GEMM shapes in the prefill)
+            parts = {i: equal_to_first_near_tie(spec, params, job["prompts"][i], got,
+                                                job["tokens"][i])
+                     for i, got in tokens.items() if got != job["tokens"][i]}
+            q.put((rank, {"captured": captured, "verify_captured": mesh.stats["captured"] - c1,
+                          "tokens": tokens, "parts": parts, "counts": res["counts"],
+                          "steps": res["steps"], "replays": res["replays"]}))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:  # noqa: BLE001
+        q.put((rank, {"error": traceback.format_exc()}))
+    finally:
+        q.close()
+        q.join_thread()
+
+
+def tp_nccl_one(spec, cfg, prompts, bf16_tokens, card) -> int:
+    import dataclasses
+
+    t0 = time.perf_counter()
+    job = {"spec": dataclasses.asdict(spec), "cfg": dict(cfg), "prompts": prompts,
+           "tokens": bf16_tokens}
+    (res,) = run_ranks(1, tp_one_rank_nccl, job)
+    L = spec.num_layers
+    bad = {i: p for i, p in res["parts"].items() if p[0] < p[1]}
+    require(not bad, f"tp=1 over NCCL: streams part from phase 4's before a near-tie "
+            f"(request: first difference, first near-tie): {bad}")
+    require(res["counts"]["fused_decode"] == L * res["steps"]
+            and res["replays"] == res["steps"],
+            f"tp=1 over NCCL: {res['counts']} over {res['steps']} steps, "
+            f"{res['replays']} replays")
+    print(f"phase 22 (c) [{card}]: tp=1 through the distributed path on NCCL: "
+          f"{res['captured']} collectives captured in the decode graphs, "
+          f"{res['verify_captured']} in the verify graphs; replays bitwise equal to eager "
+          f"steps (graph lines above); {len(bf16_tokens) - len(res['parts'])} of "
+          f"{len(bf16_tokens)} streams equal phase 4's, the others part at or after a "
+          f"near-tie {res['parts']}; "
+          f"{res['steps']} steps, {res['replays']} replays, fused_decode "
+          f"{res['counts']['fused_decode']}; {time.perf_counter() - t0:.1f} s")
+    return res["counts"]["fused_decode"]
+
+
+async def _mirror_serve(hub, prompts) -> tuple[dict, float]:
+    from dynamo_tpu_torch.runtime.config import RuntimeConfig
+    from dynamo_tpu_torch.runtime.context import Context
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.runtime.hub_client import RemoteHub
+    from dynamo_tpu_torch.runtime.push import PushRouter, RouterMode
+
+    drt = DistributedRuntime(await RemoteHub.connect(hub), RuntimeConfig(hub_address=hub))
+    try:
+        router = await PushRouter.from_endpoint(
+            drt.namespace("dynamo").component("backend").endpoint("generate"),
+            RouterMode.ROUND_ROBIN)
+        await router.client.wait_for_instances(1, timeout=30)
+
+        async def one(p):
+            toks = []
+            async for item in router.generate(make_request(p), Context()):
+                toks += item["token_ids"]
+            return toks
+
+        t0 = time.perf_counter()
+        got = await asyncio.gather(*(one(p) for p in prompts))
+        wall = time.perf_counter() - t0
+        await router.client.close()
+        digest = await admin_call(drt, {"op": "kv_digest"})
+        status = await admin_call(drt, {"op": "cache_status"})
+        return {"tokens": dict(enumerate(got)), "digest": digest,
+                "spmd": status["spmd"]}, wall
+    finally:
+        await drt.close()
+
+
+def mirror_phase(spec, cfg, prompts, bf16_tokens, card) -> int:
+    """Phase 22 (d): ``cli hub``, a ``--mirror leader`` worker and a
+    ``--mirror follower`` worker (each the whole llama-3-8b on this card)
+    serve phase 4's prompts over TCP; the follower's pages equal the
+    leader's bitwise (their kv_digest); the follower is SIGKILLed and a new
+    one rejoins through __sync__; after the next serve its pages equal the
+    leader's again. Prints the descriptors' bytes and host time."""
+    t0 = time.perf_counter()
+    flags = ["--model", spec.name, "--page-size", str(cfg["page_size"]), "--num-pages",
+             str(cfg["num_pages"]), "--max-pages-per-seq", str(cfg["max_pages_per_seq"]),
+             "--max-decode-slots", str(cfg["max_decode_slots"])]
+    children: list[Child] = []
+    try:
+        hub_proc = Child("hub", "--port", "0")
+        children.append(hub_proc)
+        hub = hub_proc.wait_line("DYNAMO_HUB=", 60).split("=", 1)[1]
+        leader = Child("worker", "--hub", hub, "--mirror", "leader", "--precompile", *flags)
+        follower = Child("worker", "--hub", hub, "--mirror", "follower", *flags)
+        children += [leader, follower]
+        follower.wait_line("MIRROR_FOLLOWER_READY", PROC_START_S)
+        leader.wait_line("ENGINE_READY", PROC_START_S)
+        first, wall1 = asyncio.run(_mirror_serve(hub, prompts))
+        require(all(len(t) == SERVE_TOKENS for t in first["tokens"].values()),
+                f"mirror: the first serve's streams: {first['tokens']}")
+        fd = json.loads(follower.wait_line("SPMD_KV_DIGEST ", 120).split(" ", 1)[1])
+        ld = first["digest"]
+        require(ld["pages"] > 0 and (fd["k"], fd["v"], fd["pages"]) ==
+                (ld["k"], ld["v"], ld["pages"]),
+                f"mirror: follower digest {fd} != leader's {ld}")
+        eq = sum(a == b for i in bf16_tokens for a, b in zip(bf16_tokens[i],
+                                                             first["tokens"][i]))
+        follower.proc.kill()  # lost: the mirror leader serves on
+        follower.proc.wait(30)
+        rejoined = Child("worker", "--hub", hub, "--mirror", "follower", *flags,
+                         env={"DYNAMO_SPMD_SYNC_JOIN": "1"})
+        children.append(rejoined)
+        rejoined.wait_line("MIRROR_FOLLOWER_READY", PROC_START_S)
+        second, wall2 = asyncio.run(_mirror_serve(hub, prompts))
+        rd = json.loads(rejoined.wait_line("SPMD_KV_DIGEST ", 120).split(" ", 1)[1])
+        ld2 = second["digest"]
+        require((rd["k"], rd["v"], rd["pages"]) == (ld2["k"], ld2["v"], ld2["pages"]),
+                f"mirror: rejoined follower digest {rd} != leader's {ld2}")
+        synced = next((ln for ln in rejoined.seen if "rejoin complete" in ln), "")
+        require(bool(synced), f"mirror: no rejoin sync logged: {rejoined.seen[-10:]}")
+        require(all(len(t) == SERVE_TOKENS for t in second["tokens"].values()),
+                f"mirror: the second serve's streams: {second['tokens']}")
+        st = second["spmd"]
+        require(st["healthy"] and st["followers"] == 1, f"mirror leader plane: {st}")
+        for child in (leader, rejoined, hub_proc):
+            require(child.stop() == 0, f"{child.name} exited non-zero: {child.seen[-8:]}")
+        logs = json.loads(leader.logged("ENGINE_LAUNCHES ").split(" ", 1)[1])
+    finally:
+        for child in children:
+            if child.proc.poll() is None:
+                child.proc.kill()
+                child.proc.wait(30)
+    n_tok = sum(len(t) for t in first["tokens"].values())
+    print(f"phase 22 (d) [{card}]: mirror leader + follower (each the whole {spec.name}) "
+          f"served {n_tok} tokens in {wall1:.2f} s ({eq} of {n_tok} equal to phase 4's); "
+          f"follower pages bitwise equal to the leader's ({ld['pages']} pages, sha256 "
+          f"{ld['k'][:12]}/{ld['v'][:12]}); after a SIGKILL the new follower rejoined "
+          f"through __sync__ ({synced.strip()[-80:]!r}) and after the next serve "
+          f"({wall2:.2f} s) its {ld2['pages']} pages equal the leader's bitwise")
+    print(f"phase 22 (d) [{card}]: {st['publishes']} descriptors, {st['bytes']} bytes "
+          f"({st['bytes'] / st['publishes']:.0f} per descriptor), "
+          f"{1e6 * st['secs'] / st['publishes']:.1f} us of the leader's host time per "
+          f"publish; {time.perf_counter() - t0:.1f} s")
+    return logs["launches"].get("fused_decode_attention", 0)
+
+
+def tp_worker_phase(spec, cfg, prompts, card) -> int:
+    """Phase 22 (f): ``cli worker --tp 2`` as a user starts it, both ranks
+    on this card (``--device cuda:0``, ``DYN_TP_BACKEND=gloo``,
+    ``--no-cuda-graphs``): the worker starts its rank 1 itself, which
+    prints MULTIHOST_FOLLOWER_READY; phase 4's prompts over TCP; the admin
+    kv_digest (rank 1 prints its own, over the same pages); SIGTERM drains
+    the worker and its rank 1 stops with it. Returns rank 0's fused_decode
+    launches (its ENGINE_LAUNCHES)."""
+    t0 = time.perf_counter()
+    flags = ["--model", spec.name, "--page-size", str(cfg["page_size"]), "--num-pages",
+             str(cfg["num_pages"]), "--max-pages-per-seq", str(cfg["max_pages_per_seq"]),
+             "--max-decode-slots", str(cfg["max_decode_slots"])]
+    children: list[Child] = []
+    try:
+        hub_proc = Child("hub", "--port", "0")
+        children.append(hub_proc)
+        hub = hub_proc.wait_line("DYNAMO_HUB=", 60).split("=", 1)[1]
+        worker = Child("worker", "--hub", hub, "--tp", "2", "--no-cuda-graphs",
+                       "--device", "cuda:0", *flags, env={"DYN_TP_BACKEND": "gloo"})
+        children.append(worker)
+        # the two ranks print in either order
+        worker.wait_line("ENGINE_READY", PROC_START_S)
+        if not worker.logged("MULTIHOST_FOLLOWER_READY"):
+            worker.wait_line("MULTIHOST_FOLLOWER_READY", PROC_START_S)
+        res, wall = asyncio.run(_mirror_serve(hub, prompts))
+        require(all(len(t) == SERVE_TOKENS for t in res["tokens"].values()),
+                f"tp worker: streams {res['tokens']}")
+        fd = json.loads(worker.wait_line("SPMD_KV_DIGEST ", 120).split(" ", 1)[1])
+        ld = res["digest"]
+        require(fd["tp_rank"] == 1 and fd["pages"] == ld["pages"] > 0
+                and ld["tp_rank"] == 0, f"tp worker: digests {ld} {fd}")
+        st = res["spmd"]
+        require(st["healthy"] and st["followers"] == 1, f"tp worker plane: {st}")
+        for child in (worker, hub_proc):
+            require(child.stop() == 0, f"{child.name} exited non-zero: {child.seen[-8:]}")
+        logs = json.loads(worker.logged("ENGINE_LAUNCHES ").split(" ", 1)[1])
+    finally:
+        for child in children:
+            if child.proc.poll() is None:
+                child.proc.kill()
+                child.proc.wait(30)
+    fused, steps = logs["launches"].get("fused_decode_attention", 0), logs["steps"]
+    require(DEVICE != "cuda" or fused == spec.num_layers * steps,
+            f"tp worker: fused_decode {fused} over {steps} steps")
+    n_tok = sum(len(t) for t in res["tokens"].values())
+    print(f"phase 22 (f) [{card}]: cli worker --tp 2 (gloo, both ranks on cuda:0, rank 1 "
+          f"started by the worker): {n_tok} tokens over TCP in {wall:.2f} s (NOT a tp "
+          f"timing), rank 0 fused_decode {fused} ({spec.num_layers} x {steps} steps); both "
+          f"ranks digested the same {ld['pages']} pages; {st['publishes']} descriptors; "
+          f"drained on SIGTERM with its rank 1; {time.perf_counter() - t0:.1f} s")
+    return fused
+
+
+def tp_kernel_rows(flush, card) -> dict[str, dict]:
+    """fused_decode at a tp rank's shapes, bf16 and fp8 pools: KH 4 / G 4
+    (llama-3-8b at tp=2) and KH 2 / G 8 (llama-3-70b at tp=4), held against
+    the plain version, timed beside it, SDPA and the bound; kv_write at the
+    same KV heads. Returns the bf16 fused_decode rows of the kernels line."""
+    from dynamo_tpu_torch.ops.cuda import kv_write
+
+    rows: dict[str, dict] = {}
+    layer = 1
+    for name, kh, g in (("fused_decode/tp2", 4, 4), ("fused_decode/tp4", 2, 8)):
+        for fp8 in (False, True):
+            t = kernel_inputs(torch.bfloat16, KH=kh, G=g)
+            if fp8:
+                fp8_pools(t)
+            form = f"KH {kh} G {g} {'fp8' if fp8 else 'bf16'}"
+            err_f, _err_v = check_attention(t, f"tp {form}", 0, None, layer)
+            times = time_attention_at(t, flush, fp8, KH=kh, G=g)
+            q, kn, vn, dp, do = (t[k] for k in ("q", "k_new", "v_new", "dst_page", "dst_off"))
+            kp, vp = t["k_pages"], t["v_pages"]
+            kw_ms = time_ms(lambda: kv_write.kv_write(kp, vp, kn, vn, dp, do, layer=layer),
+                            flush)
+            B, D = q.shape[0], q.shape[2]
+            kw_bound, _ = (fp8_append_bound(dp, kh, kp.vals.shape[3], D) if fp8
+                           else bound_ms(4 * B * kh * D * 2 + 2 * B * 4, 0.0))
+            print(f"time tp {form} [{card}]: fused_decode {times['ms']:.4f} ms, plain "
+                  f"{times['plain_ms']:.4f} ms, SDPA {times['library_ms']:.4f} ms, bound "
+                  f"{times['bound_ms']:.6f} ms ({times['bound_by']}); kv_write "
+                  f"{kw_ms:.4f} ms, bound {kw_bound:.6f} ms")
+            if not fp8:
+                rows[name] = {"max_abs_err": err_f, **times}
+            del t, kp, vp
+    return rows
+
+
+def time_attention_at(t, flush, fp8, **over) -> dict:
+    """fused_decode, its plain version and SDPA timed on inputs ``t`` (the
+    serving seq_lens at the shape ``over``), with the bound."""
+    from dynamo_tpu_torch.ops.cuda import fused_decode
+
+    q, kn, vn, bt, sl, dp, do = (t[k] for k in
+                                 ("q", "k_new", "v_new", "bt", "sl", "dst_page", "dst_off"))
+    kp, vp = t["k_pages"], t["v_pages"]
+    layer = 1
+    r = {"ms": time_ms(lambda: fused_decode.fused_decode_attention(
+        q, kp, vp, kn, vn, bt, sl, dp, do, layer=layer), flush),
+         "plain_ms": time_ms(lambda: fused_decode.fused_decode_plain(
+             q, kp, vp, kn, vn, bt, sl, dp, do, layer=layer), flush),
+         "library_ms": time_ms(sdpa_call(t, layer), flush)}
+    r["bound_ms"], r["bound_by"] = attention_bound(True, 0, fp8=fp8, **over)
+    return r
+
+
+def tp_phase(cfg, prompts, bf16_tokens, card, flush) -> tuple[dict, dict[str, int]]:
+    """Phase 22: tensor parallelism on the card (see the module docstring).
+    Returns the kernel rows at the ranks' shapes and the phase's
+    fused_decode launches: every rank of (a), (b), (c), (d) and (e), and
+    (f)'s rank 0."""
+    from dynamo_tpu_torch.engine.config import ModelSpec
+
+    t22 = time.perf_counter()
+    rows = tp_kernel_rows(flush, card)
+    spec8 = ModelSpec.llama3_8b()
+    a = tp_group_serve(spec8, cfg, prompts, 2, "phase 22 (a) llama-3-8b tp=2 gloo", card)
+    b = tp_group_serve(tp70_spec(), cfg, prompts, 4,
+                       f"phase 22 (b) llama-3-70b (d 8192, 64/8 heads, FFN 28672, "
+                       f"vocab 128256; cut to {TP70_LAYERS} layers) tp=4 gloo", card)
+    c = tp_nccl_one(spec8, cfg, prompts, bf16_tokens, card)
+    d = mirror_phase(spec8, cfg, prompts, bf16_tokens, card)
+    f = tp_worker_phase(spec8, cfg, prompts, card)
+    e = 0
+    if torch.cuda.device_count() >= 2:
+        e = tp_group_serve(spec8, cfg, prompts, 2, "phase 22 (e) llama-3-8b tp=2 nccl",
+                           card, backend="nccl", device=None, graphs=True)
+    else:
+        print(f"phase 22 (e): {torch.cuda.device_count()} card: tp=2 under NCCL across two "
+              "cards was not possible (it needs two)")
+    print(f"phase 22: {time.perf_counter() - t22:.1f} s, fused_decode launches (a) {a} "
+          f"(b) {b} (c) {c} (d) {d} (e) {e} (f, rank 0) {f}")
+    return rows, {"fused_decode": c + d, "fused_decode/tp2": a + e + f,
+                  "fused_decode/tp4": b}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the GPU",
@@ -7601,10 +8308,18 @@ def main() -> int:
     text_launches = text_phase(card)
     print(f"phase 17: {time.perf_counter() - t17:.1f} s")
 
+    # tensor parallelism: gloo groups on this card (llama-3-8b at tp=2,
+    # llama-3-70b's width cut to 4 layers at tp=4), tp=1 on NCCL with
+    # graphs, the mirror topology, NCCL across two cards where there are two
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+    tp_rows, tp_launches = tp_phase(cfg, prompts, bf16_tokens, card, flush)
+    del flush
+    kernels.update(tp_rows)
+
     launches = {"fused_decode": serve_launches["fused_decode"] + http_launches
                 + process_launches + overload_launches + guided_launches
                 + kvbm_launches + text_launches["fused_decode"] + disagg_launches
-                + obs_launches + mm_launches,
+                + obs_launches + mm_launches + tp_launches["fused_decode"],
                 "paged_attention_v3": unfused[0], "kv_write": unfused[2],
                 "kv_write/verify": spec_kv_launches + guided_kv_launches
                 + text_launches["kv_write/verify"],
@@ -7613,7 +8328,9 @@ def main() -> int:
                 "paged_attention_v3/fp8": unfused_fp8[1],
                 "kv_write/fp8": unfused_fp8[3],
                 "kv_write/fp8-verify": spec_kv_fp8_launches,
-                "fused_decode/gpt-oss": moe_launches}
+                "fused_decode/gpt-oss": moe_launches,
+                "fused_decode/tp2": tp_launches["fused_decode/tp2"],
+                "fused_decode/tp4": tp_launches["fused_decode/tp4"]}
     sources = {
         "fused_decode": ("dynamo_tpu_torch/csrc/fused_decode.cu",
                          "dynamo_tpu/ops/pallas/fused_decode.py:58"),
@@ -7644,6 +8361,14 @@ def main() -> int:
         # 128 on its sliding layers, sinks), launched by phase 15's serves
         "fused_decode/gpt-oss": ("dynamo_tpu_torch/csrc/fused_decode.cu",
                                  "dynamo_tpu/ops/pallas/fused_decode.py:58"),
+        # the same kernel on a tp rank's KV heads (KH 4 / G 4: llama-3-8b at
+        # tp=2; KH 2 / G 8: llama-3-70b at tp=4), launched by every rank of
+        # phase 22 (the reference runs it under shard_map over tp,
+        # dynamo_tpu/ops/attention.py:489)
+        "fused_decode/tp2": ("dynamo_tpu_torch/csrc/fused_decode.cu",
+                             "dynamo_tpu/ops/pallas/fused_decode.py:58"),
+        "fused_decode/tp4": ("dynamo_tpu_torch/csrc/fused_decode.cu",
+                             "dynamo_tpu/ops/pallas/fused_decode.py:58"),
     }
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],

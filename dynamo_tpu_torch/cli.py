@@ -33,7 +33,8 @@
 
 The engine runs on the GPU; ``--device cpu`` runs it on the CPU (tests).
 ``--spec``, ``--guided`` and ``--tp`` are the reference's, each beating its
-``DYN_*`` variable. With ``--in http``, SIGTERM ends the serve and the
+``DYN_*`` variable; ``--tp N`` goes through the worker's launcher
+(engine/worker.start_tp_group: ranks 1..N-1 start on this host). With ``--in http``, SIGTERM ends the serve and the
 engine prints ``ENGINE_LAUNCHES {json}`` (kernel launches, steps, replays
 and speculation counters since it was ready), as a worker does.
 ``--out engine`` is the default (the reference's is ``mocker``): the port's
@@ -81,6 +82,7 @@ async def _arun(args: argparse.Namespace) -> None:
     from dynamo_tpu_torch.runtime.hub import InMemoryHub
 
     drt = DistributedRuntime(InMemoryHub())
+    group = None
     if args.out in ("mocker", "echo"):
         from dynamo_tpu_torch.mocker.__main__ import launch_mock_worker
         from dynamo_tpu_torch.mocker.engine import MockEngineConfig
@@ -103,23 +105,36 @@ async def _arun(args: argparse.Namespace) -> None:
             engine_launches,
             launch_base,
             launch_engine_worker,
+            start_tp_group,
         )
         from dynamo_tpu_torch.runtime.config import RuntimeConfig
 
         env_cfg = RuntimeConfig.from_env()
-        engine, _ = await launch_engine_worker(
-            drt, namespace=args.namespace, model=args.model,
-            model_path=args.model_path, model_name=args.model_name,
-            # serving always pipelines the decode bursts (as the reference's
-            # worker); a flag beats its DYN_* variable beats the default
-            engine_config=EngineConfig(
-                tp=args.tp, pipeline_decode=True,
-                spec_mode=args.spec or env_cfg.spec_mode or "off",
-                spec_k_max=env_cfg.spec_k_max or 8,
-                guided_mode=args.guided or env_cfg.guided_mode or "auto",
-            ),
-            precompile=args.precompile, device=args.device,
+        # serving always pipelines the decode bursts (as the reference's
+        # worker); a flag beats its DYN_* variable beats the default
+        ecfg = EngineConfig(
+            tp=args.tp, pipeline_decode=True,
+            spec_mode=args.spec or env_cfg.spec_mode or "off",
+            spec_k_max=env_cfg.spec_k_max or 8,
+            guided_mode=args.guided or env_cfg.guided_mode or "auto",
         )
+        # --tp N: the worker's launcher starts ranks 1..N-1 on this host
+        group = await start_tp_group(
+            ecfg, model=args.model, model_path=args.model_path, device=args.device,
+            group=f"{args.namespace}/backend/generate", host=env_cfg.host)
+        try:
+            engine, _ = await launch_engine_worker(
+                drt, namespace=args.namespace, model=args.model,
+                model_path=args.model_path, model_name=args.model_name,
+                engine_config=ecfg, precompile=args.precompile, device=args.device,
+                mesh=group.mesh if group is not None else None,
+                spmd=group.spmd if group is not None else None,
+            )
+        except BaseException:
+            if group is not None:
+                group.spmd.stop()
+                await group.close(timeout=10.0)
+            raise
         model_name = args.model_name or engine.spec.name
         base = launch_base(engine)
 
@@ -141,6 +156,8 @@ async def _arun(args: argparse.Namespace) -> None:
         await watcher.close()
         await close_engine()
         await drt.close()
+        if group is not None:
+            await group.close()
 
 
 async def _serve_http(args, drt, manager, model_name: str) -> None:
@@ -245,7 +262,8 @@ def _run_command(rest: list[str]) -> int:
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor parallelism (only 1 is ported)")
+                   help="tensor parallelism: N ranks, one per card, started "
+                        "here (rank 0 serves)")
     p.add_argument("--precompile", action=argparse.BooleanOptionalAction,
                    default=False,
                    help="capture every decode graph variant before serving")

@@ -334,8 +334,15 @@ class EngineConfig:
     # DYNAMO_ENGINE_PROFILE=1
     profile: bool = False
 
-    # -- JAX engine only, until their slices are ported (see UNPORTED) ------
+    # capture the decode and verify steps as CUDA graphs on a card; False
+    # runs them eagerly (a gloo tp group, whose collectives no graph can
+    # capture, needs it)
+    cuda_graphs: bool = True
+
+    # tensor parallelism: the engine's ranks (parallel/); num_pages is per
+    # shard, as the reference's
     tp: int = 1
+    # -- JAX engine only, until their slices are ported (see UNPORTED) ------
     dp: int = 1
     sp: int = 1
     ep: int = 1
@@ -378,9 +385,11 @@ class EngineConfig:
         )
 
 
-_PARALLEL = "parallelism (ROADMAP Queue A item 11)"
 # fields of features the port's engine lacks -> what is missing
 UNPORTED = {
-    "tp": _PARALLEL, "dp": _PARALLEL, "sp": _PARALLEL, "ep": _PARALLEL, "pp": _PARALLEL,
+    "ep": "expert parallelism (ROADMAP Queue A item 11b)",
+    "pp": "pipeline parallelism (ROADMAP Queue A item 11c)",
+    "sp": "sequence-parallel ring prefill (ROADMAP Queue A item 11d)",
+    "dp": "data parallelism (ROADMAP Queue A item 11d)",
 }
 _UNPORTED_DEFAULTS = {f.name: f.default for f in fields(EngineConfig) if f.name in UNPORTED}

@@ -183,6 +183,7 @@ from dynamo_tpu_torch.engine.tenancy import TenantScheduler
 from dynamo_tpu_torch.guided.runtime import GUIDED_REQUESTS, GrammarCompiler
 from dynamo_tpu_torch.kvbm.offload import HostBatch, OffloadEngine, block_tensor
 from dynamo_tpu_torch.kv_router.protocols import ForwardPassMetrics
+from dynamo_tpu_torch.models.convert import check_shardable
 from dynamo_tpu_torch.models.family import get_family
 from dynamo_tpu_torch.models.llama import resolve_device
 from dynamo_tpu_torch.runtime.context import (
@@ -204,6 +205,14 @@ log = logging.getLogger("dynamo_tpu_torch.engine")
 
 MAX_PAGE_STALLS = 2000  # admission passes / decode steps a request may wait for pages
 MAX_SPEC_STALLS = 200  # verify cycles a spec slot may wait for its fed token's page
+
+
+class TierMiss(LookupError):
+    """An SPMD follower's tiers lack blocks the leader onboarded."""
+
+    def __init__(self, hashes: list[int]):
+        super().__init__(f"{len(hashes)} onboarded blocks not in this rank's tiers")
+        self.hashes = hashes
 
 
 @dataclass
@@ -324,6 +333,8 @@ class InferenceEngine:
         transfer_source=None,
         kvbm=None,
         guided_vocab=None,
+        mesh=None,
+        spmd=None,
     ):
         self.spec = spec
         # disagg (disagg/transfer.py): a prefill worker's export table
@@ -359,15 +370,32 @@ class InferenceEngine:
         self._h2d_stream = (torch.cuda.Stream(self.device)
                             if self.device.type == "cuda" else None)
         self.fam = get_family(spec)
+        # tensor parallelism (parallel/): this rank's mesh, its shard of the
+        # weights and of the KV heads; the collectives run in the forwards
+        self.mesh = mesh
+        self._check_mesh(mesh, transfer_source)
         if params is None:
-            params = self.fam.init_params(spec, cfg.seed, device=self.device)
+            params = self.fam.init_params(spec, cfg.seed, device=self.device, mesh=mesh)
+        elif mesh is not None and getattr(params, "mesh", None) is None:
+            params = self.fam.shard_params(spec, params, mesh)
         self.params = params
+        # SPMD replay (parallel/spmd.py): the leader publishes a descriptor
+        # before each device dispatch and the followers replay it. As in the
+        # reference, admissions take the synchronous first-token path under
+        # it (their first tokens reach the followers in the next burst's
+        # host token array) and guided decoding is off (its masks are not
+        # in the replay protocol)
+        self.spmd = spmd
+        self._burst_id = 0  # decode bursts dispatched (descriptor ids)
+        self._digest_reqs: list = []  # kv_digest() calls for the step thread
+        self._async_admissions = cfg.async_admissions and spmd is None
         # +1 page: index 0 is the trash page. kv_dtype "fp8" makes both
         # pools QuantPools (ops/quant.py): e4m3 values + bf16 scales
         self.kv_dtype = cfg.kv_dtype
         self.k_pages, self.v_pages = self.fam.init_cache(
             spec, cfg.num_pages + 1, cfg.page_size,
             device=self.device, kv_dtype=self.kv_dtype,
+            tp=mesh.tp if mesh is not None else 1,
         )
         # device bytes of both pools (values and, for fp8, scales)
         self.pool_bytes = sum(p.nbytes for p in (self.k_pages, self.v_pages))
@@ -404,6 +432,10 @@ class InferenceEngine:
         self._loop: asyncio.AbstractEventLoop | None = None
         self._loop_thread: int | None = None
         self._wake = threading.Event()
+        if spmd is not None:
+            # a rejoining mirror follower waits for a step boundary: wake an
+            # idle step loop the moment one asks
+            spmd.on_sync_request = self._wake.set
         self._closed = False
         # graceful drain (worker SIGTERM): refuse new requests, finish the
         # admitted ones; the deadline prices the refusals' Retry-After
@@ -425,7 +457,7 @@ class InferenceEngine:
         # (grammar, vocab) mask cache; needs a token vocabulary (the worker
         # builds one from its tokenizer, tests pass one)
         self._guided = None
-        if guided_vocab is not None and cfg.guided_mode != "off":
+        if guided_vocab is not None and cfg.guided_mode != "off" and spmd is None:
             self._guided = GrammarCompiler(
                 guided_vocab, vocab_size=spec.vocab_size,
                 cache_entries=cfg.guided_cache_entries)
@@ -436,6 +468,7 @@ class InferenceEngine:
             pages_per_seq=cfg.max_pages_per_seq,
             max_steps=max(1, cfg.decode_steps_per_dispatch),
             n_logprobs=self._n_lp, device=self.device, vocab_size=mask_width,
+            capture=cfg.cuda_graphs,
         )
         # speculative decoding (engine/spec.py): the verify grid, one
         # captured graph per power-of-two row count at width k_max + 1
@@ -444,7 +477,7 @@ class InferenceEngine:
         self._verify = VerifyGraphs(
             self._verify_fn, batch=len(self._slots), width=cfg.spec_k_max + 1,
             pages_per_seq=cfg.max_pages_per_seq, device=self.device,
-            vocab_size=mask_width,
+            vocab_size=mask_width, capture=cfg.cuda_graphs,
         ) if self._spec_on else None
         self.spec_verifies = 0  # verify dispatches issued
         self.spec_drafted = 0  # draft tokens proposed into verifies
@@ -485,6 +518,98 @@ class InferenceEngine:
         # degradation fingerprint
         self.step_time_ewma_ms = 0.0
 
+    def _check_mesh(self, mesh, transfer_source) -> None:
+        """Refuse what tensor parallelism does not cover: a config whose tp
+        is not the mesh's, a family or spec that does not shard, disagg
+        exports, and graph capture over collectives no graph can capture."""
+        cfg = self.config
+        tp = mesh.tp if mesh is not None else 1
+        if cfg.tp != tp:
+            raise ValueError(
+                f"EngineConfig.tp={cfg.tp} but the mesh has tp={tp}: a tp group "
+                "needs its mesh (parallel.make_mesh over an initialised group)")
+        if mesh is None:
+            return
+        if not self.fam.supports_mesh:
+            raise NotImplementedError(
+                f"{type(self.fam).__name__} under tensor parallelism is ROADMAP "
+                "Queue A item 11b (the MoE and MLA shardings)")
+        check_shardable(self.spec, mesh)  # MoE layers, and the head counts
+        if transfer_source is not None:
+            raise NotImplementedError(
+                "disaggregated prefill under tensor parallelism is ROADMAP Queue A "
+                "item 11e (per-shard KV exports)")
+        if (self.device.type == "cuda" and cfg.cuda_graphs
+                and mesh.group is not None and not mesh.capturable):
+            raise ValueError(
+                f"a {mesh.backend} group's collectives cannot be captured in a "
+                "CUDA graph: set EngineConfig(cuda_graphs=False) to run its "
+                "steps eagerly")
+
+    async def kv_digest(self) -> dict:
+        """sha256 digests of the K and V pools over the pages in use, taken
+        by the step thread at a step boundary (no burst in flight). Under
+        SPMD each follower takes its own at the same point of the replay
+        and prints it (``SPMD_KV_DIGEST``): a mirror's must equal the
+        leader's, bit for bit."""
+        import concurrent.futures
+
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        self._digest_reqs.append(fut)
+        self._wake.set()
+        return await asyncio.wrap_future(fut)
+
+    def pool_digest(self, page_ids: list[int]) -> dict:
+        """sha256 of pages ``page_ids`` of each pool (values, and an fp8
+        pool's scales, as extract_pages packs them)."""
+        import hashlib
+
+        from dynamo_tpu_torch.kvbm.offload import block_numpy
+
+        out = {"pages": len(page_ids), "tp_rank": self.mesh.tp_rank if self.mesh else 0}
+        if not page_ids:
+            return {**out, "k": "", "v": ""}
+        kb, vb = self.fam.extract_pages(self.k_pages, self.v_pages,
+                                        self._page_ids(page_ids))
+        for name, b in (("k", kb), ("v", vb)):
+            out[name] = hashlib.sha256(block_numpy(b.cpu()).tobytes()).hexdigest()
+        return out
+
+    def _serve_digests(self) -> None:
+        reqs, self._digest_reqs = self._digest_reqs, []
+        try:
+            self._flush_pipeline()
+            self._materialize_waves(force=True)
+            ids = [int(p) for p in self.allocator.used_page_ids()]
+            self._publish("kv_digest", None, {"page_ids": np.asarray(ids, np.int32)})
+            got = self.pool_digest(ids)
+        except Exception as e:  # noqa: BLE001
+            for f in reqs:
+                f.set_exception(e)
+            return
+        for f in reqs:
+            f.set_result(got)
+
+    def _publish(self, op: str, scalars: dict | None = None,
+                 arrays: dict | None = None) -> None:
+        """Publish one step descriptor ahead of a device dispatch (a no-op
+        without an SPMD leader)."""
+        if self.spmd is not None:
+            self.spmd.publish(op, scalars, arrays)
+
+    def _spmd_mark(self) -> int:
+        """Publish-count watermark that scopes a failure to actual sends."""
+        return self.spmd.publish_count if self.spmd is not None else 0
+
+    def _spmd_broken(self, reason: str, since: int) -> None:
+        """A dispatch failed after its descriptor went out (something was
+        published since the ``since`` watermark): the followers replayed
+        what the leader abandoned, so lockstep is gone. Latch the plane
+        broken (``is_dead``) instead of deadlocking the next collective; a
+        failure before any publish is the request's alone."""
+        if self.spmd is not None and self.spmd.publish_count != since:
+            self.spmd.mark_broken(reason)
+
     # -- public API --------------------------------------------------------
 
     async def start(self) -> "InferenceEngine":
@@ -501,6 +626,9 @@ class InferenceEngine:
     def is_dead(self) -> bool:
         """True when the step thread exited WITHOUT an orderly close: the
         engine monitor's signal (runtime/health.py ``EngineMonitor``)."""
+        if (self.spmd is not None and not self.spmd.healthy
+                and not self._closed):
+            return True  # followers out of lockstep: nothing more can run
         return (
             self._thread is not None
             and not self._thread.is_alive()
@@ -522,6 +650,10 @@ class InferenceEngine:
             await self.transfer_source.close()
         if self.telemetry is not None:
             await self.telemetry.close()
+        if self.spmd is not None:
+            # the followers' replay ends at this descriptor
+            self.spmd.stop()
+            await self.spmd.close()
         # the step thread is gone: flush the last KV events (bounded: a hub
         # that went away first retries its reconnect window), stop publishing
         for pub in (self.events, self.metrics):
@@ -543,12 +675,15 @@ class InferenceEngine:
         and its first use captures it lazily."""
         report: dict[str, dict] = {}
 
-        def timed(name: str, capture) -> None:
+        def timed(name: str, capture, graphs: str, key: tuple) -> None:
             c0 = self._capture_totals()[0]
             t0 = time.perf_counter()
             try:
                 if FAULTS.enabled:
                     FAULTS.fire_sync("engine.compile")
+                # a capture's warm-up steps run the collectives: the
+                # followers capture the same graph in step
+                self._publish("precompile", {"graphs": graphs, "key": list(key)})
                 capture()
             except Exception as e:  # noqa: BLE001
                 log.warning("precompile %s failed (%s); its first use "
@@ -568,13 +703,13 @@ class InferenceEngine:
             sampled, n_lp, masked = key
             name = (f"decode[{B}x{'sampled' if sampled else 'greedy'}"
                     f"{f',lp{n_lp}' if n_lp else ''}{',masked' if masked else ''}]")
-            timed(name, lambda k=key: self._graphs.precompile([k]))
+            timed(name, lambda k=key: self._graphs.precompile([k]), "decode", key)
         if self._verify is not None:
             W = self._verify.width
             for key in self._verify.variants():
                 n, masked = key
                 name = f"verify{'_masked' if masked else ''}[{n}x{W}]"
-                timed(name, lambda k=key: self._verify.precompile([k]))
+                timed(name, lambda k=key: self._verify.precompile([k]), "verify", key)
         return report
 
     # -- step profiler -----------------------------------------------------
@@ -733,6 +868,10 @@ class InferenceEngine:
         if self._closed:
             yield {"token_ids": [], "finish_reason": "error",
                    "error": "engine closed"}
+            return
+        if self.spmd is not None and not self.spmd.healthy:
+            yield {"token_ids": [], "finish_reason": "error",
+                   "error": f"spmd plane broken: {self.spmd.broken_reason}"}
             return
         tenant, priority = self._request_tenancy(request, context)
         if self._draining:
@@ -1055,6 +1194,11 @@ class InferenceEngine:
     def _thread_loop(self) -> None:
         """The step thread: owns the device; blocking waits are fine here."""
         while not self._closed:
+            if self.spmd is not None and not self.spmd.healthy:
+                # a follower is out of lockstep: the next collective would
+                # never complete. Fail loudly; the engine reports itself dead
+                self._fail_all(f"spmd plane broken: {self.spmd.broken_reason}")
+                return
             try:
                 if FAULTS.enabled and (self._partial is not None
                                        or not self._waiting.empty()
@@ -1088,6 +1232,10 @@ class InferenceEngine:
                 # fail every in-flight request, then KEEP SERVING: one bad
                 # step must not brick the engine
                 log.exception("engine step failed; failing in-flight requests")
+                if self.spmd is not None and self.spmd.strict:
+                    # the followers replayed what failed here, or wait in
+                    # a collective it never reached: lockstep is lost
+                    self.spmd.mark_broken("a step failed on the leader")
                 # queued offloads may name pages about to be released
                 self._pending_offload.clear()
                 self._fail_all("engine step failure")
@@ -1117,6 +1265,18 @@ class InferenceEngine:
 
     def _step(self) -> bool:
         did = False
+        if self._digest_reqs:
+            self._serve_digests()
+            did = True
+        if self.spmd is not None and self.spmd.sync_pending:
+            # a mirror follower rejoins: quiesce (no burst in flight), then
+            # snapshot the pages in use; it replays from the next descriptor
+            with self._phase("spmd_sync"):
+                self._flush_pipeline()
+                self._materialize_waves(force=True)
+                self._drain_offload()
+                self.spmd.serve_sync(self._spmd_sync_state())
+            did = True
         if self._admit_waves:
             # land admission waves lazily: each once its host copy is in
             # (or, aged, when no in-flight burst will land it)
@@ -1499,6 +1659,7 @@ class InferenceEngine:
         loop. Returns a prep dict (forward deferred to the packed prefill),
         ``_REQUEUED`` (page backpressure) or None (handled: a disagg resume,
         an error, or a chunked prefill started)."""
+        mark = self._spmd_mark()
         try:
             disagg = waiting.request.get("disagg") or {}
             if disagg.get("mode") == "decode" and disagg.get("kv_transfer"):
@@ -1507,6 +1668,7 @@ class InferenceEngine:
             return self._prefill(slot_idx, waiting)
         except Exception as e:  # noqa: BLE001
             log.exception("prefill failed for %s", waiting.context.id)
+            self._spmd_broken("prefill failed after publish", mark)
             self._refund_if_charged(waiting)
             self._error(waiting, f"prefill failed: {e}")
             return None
@@ -1561,7 +1723,8 @@ class InferenceEngine:
         if onboard:
             idxs = range(len(cached), len(cached) + len(onboard))
             try:
-                self.onboard_from_tiers([sp.pages[i] for i in idxs], onboard)
+                self.onboard_from_tiers([sp.pages[i] for i in idxs], onboard,
+                                        hashes=list(wanted[: len(onboard)]))
             except Exception:
                 self.allocator.release(sp.pages)
                 raise
@@ -1575,6 +1738,10 @@ class InferenceEngine:
     def _embed(self, token_ids: list[int]) -> list[float]:
         """Pooled sequence embedding of ``token_ids`` (padded to its prefill
         bucket, as the reference's)."""
+        if self.spmd is not None:
+            raise NotImplementedError(
+                "embeddings under SPMD replay: the embedding forward runs off the "
+                "step thread, outside the descriptor order (ROADMAP Queue A item 11e)")
         padded = np.zeros((self.config.bucket_for(len(token_ids)),), np.int32)
         padded[: len(token_ids)] = token_ids
         with torch.inference_mode():
@@ -1732,6 +1899,9 @@ class InferenceEngine:
             emb_pad[: rows.shape[0]] = rows
             mm_kw = {"mm_embeds": torch.from_numpy(emb_pad).to(dev),
                      "mm_pos": torch.from_numpy(pos_pad).to(dev)}
+        self._publish("prefill", {"start": start, "num_tokens": len(new_tokens)},
+                      {"tokens": padded, "block_table": block_table,
+                       **({"mm_embeds": emb_pad, "mm_pos": pos_pad} if mm_kw else {})})
         self.prefill_forwards += 1
         self.dispatches += 1
         logits, dropped = self.fam.prefill(
@@ -1744,10 +1914,12 @@ class InferenceEngine:
 
     def _advance_partial_safe(self) -> None:
         p = self._partial
+        mark = self._spmd_mark()
         try:
             self._advance_partial()
         except Exception as e:  # noqa: BLE001
             log.exception("chunked prefill failed for %s", p.waiting.context.id)
+            self._spmd_broken("chunked prefill failed after publish", mark)
             self._partial = None
             self.allocator.release(p.sp.pages)
             p.sp.pages = []
@@ -1802,6 +1974,7 @@ class InferenceEngine:
                               for i in range(0, len(group), pack))
         records: list[_Admitted] = []
         for bucket, chunk in dispatches:
+            mark = self._spmd_mark()
             try:
                 if chunk[0]["mm"] is None:
                     logits = self._prefill_dispatch(bucket, chunk)
@@ -1812,6 +1985,7 @@ class InferenceEngine:
                         len(p["token_ids"]), mm=p["mm"])[None]
             except Exception as e:  # noqa: BLE001
                 log.exception("prefill failed (%d prompts)", len(chunk))
+                self._spmd_broken("packed prefill failed after publish", mark)
                 for p in chunk:
                     self.allocator.release(p["sp"].pages)
                     p["sp"].pages = []
@@ -1855,12 +2029,17 @@ class InferenceEngine:
         tok_d = torch.from_numpy(tokens).to(dev)
         bts_d = torch.from_numpy(bts).to(dev)
         if nb == 1:
+            self._publish("prefill", {"start": int(starts[0]), "num_tokens": int(nts[0])},
+                          {"tokens": tokens[0], "block_table": bts[0]})
             logits, dropped = self.fam.prefill(
                 self.spec, self.params, tok_d[0], bts_d[0], int(starts[0]),
                 self.k_pages, self.v_pages, int(nts[0]),
             )
             logits = logits[None]
         else:
+            self._publish("prefill_batch", None,
+                          {"tokens": tokens, "block_tables": bts, "start": starts,
+                           "num_tokens": nts})
             logits, dropped = self.fam.prefill_batch(
                 self.spec, self.params, tok_d, bts_d, torch.from_numpy(starts),
                 self.k_pages, self.v_pages, torch.from_numpy(nts),
@@ -1931,11 +2110,22 @@ class InferenceEngine:
                 return blocks[:i]
         return blocks
 
-    def onboard_from_tiers(self, page_ids: list[int], blocks: list) -> None:
+    def onboard_from_tiers(self, page_ids: list[int], blocks: list | None,
+                           hashes: list[int] | None = None,
+                           zero_fill: bool = False) -> None:
         """Install tier ``blocks`` into device pages ``page_ids``, in place:
         the host blocks stacked page-major (``[L, n, ...]``), one
         host-to-device copy, the family's insert, all on the compute stream
-        ahead of the prefill that reads them."""
+        ahead of the prefill that reads them. ``blocks=None`` (an SPMD
+        follower replaying the leader's onboard) fetches this rank's own
+        shard of each block of ``hashes`` from its own tiers
+        (``_follower_blocks``: a block they lack raises ``TierMiss``, or
+        with ``zero_fill`` zero-fills its page, loudly)."""
+        if blocks is None:
+            blocks = self._follower_blocks(page_ids, hashes, zero_fill)
+        elif self.spmd is not None:
+            self._publish("kv_onboard", {"hashes": [int(h) for h in hashes or []]},
+                          {"page_ids": np.asarray(page_ids, np.int32)})
         log.debug("kvbm onboard n=%d pages=%s", len(blocks), page_ids[:4])
         kb = block_tensor(np.stack([b[0] for b in blocks], axis=1)).to(self.device)
         vb = block_tensor(np.stack([b[1] for b in blocks], axis=1)).to(self.device)
@@ -1962,7 +2152,53 @@ class InferenceEngine:
         if not self._pending_offload:
             return
         batch, self._pending_offload = self._pending_offload, []
-        ids = self._page_ids([p for _s, p, _i in batch])
+        hashes, pages = [s for s, _p, _i in batch], [p for _s, p, _i in batch]
+        # published only once this rank's queue took the batch: a
+        # follower's tiers then hold exactly the blocks the leader's do
+        if self.offload_pages(hashes, pages):
+            self._publish("kv_offload", {"hashes": hashes},
+                          {"page_ids": np.asarray(pages, np.int32)})
+
+    def _follower_blocks(self, page_ids: list[int], hashes: list[int],
+                         zero_fill: bool) -> list:
+        """A follower's own tier copies of the leader's onboarded blocks.
+        A block not landed yet is waited for (this rank's offload queue is
+        flushed). A block still missing raises ``TierMiss``: a tp rank's
+        zero K/V would enter the all-reduce and change the leader's tokens.
+        ``zero_fill`` (a mirror follower whose tier copy died with its old
+        process) fills it with zeros instead, loudly: the mirror is
+        degraded until the page cycles out."""
+        from dynamo_tpu_torch.kvbm.offload import block_numpy
+
+        if self.kvbm is None:
+            raise TierMiss(list(hashes))
+        got = [self.kvbm.get(h) for h in hashes]
+        if any(g is None for g in got) and self.offload is not None:
+            self.offload.flush()
+            got = [g if g is not None else self.kvbm.get(h) for g, h in zip(got, hashes)]
+        missing = [h for g, h in zip(got, hashes) if g is None]
+        if not missing:
+            return got
+        if not zero_fill:
+            raise TierMiss(missing)
+        log.error("kvbm onboard replay: %d/%d blocks not in this rank's tiers; "
+                  "their pages zero-fill", len(missing), len(hashes))
+        kb, vb = self.fam.extract_pages(self.k_pages, self.v_pages,
+                                        self._page_ids(page_ids[:1]))
+        zero = (np.zeros_like(block_numpy(kb[:, 0].cpu())),
+                np.zeros_like(block_numpy(vb[:, 0].cpu())))
+        return [g if g is not None else zero for g in got]
+
+    def offload_pages(self, hashes: list[int], pages: list[int],
+                      wait: bool = False) -> bool:
+        """Gather ``pages`` and hand them to the offload thread under
+        ``hashes`` (each rank offloads its own shard of the blocks). False
+        when the thread's full queue dropped the batch; ``wait`` (an SPMD
+        follower: its tiers must hold what the leader's hold) waits for
+        room instead."""
+        if self.offload is None:
+            return False
+        ids = self._page_ids(pages)
         t0 = None
         if self.device.type == "cuda":
             if self._copy_stream is None:
@@ -1970,8 +2206,8 @@ class InferenceEngine:
             t0 = torch.cuda.Event(enable_timing=True)
             t0.record()
         kb, vb = self.fam.extract_pages(self.k_pages, self.v_pages, ids)
-        self.offload.submit([s for s, _p, _i in batch],
-                            HostBatch(kb, vb, self._copy_stream, t0))
+        return self.offload.submit(hashes, HostBatch(kb, vb, self._copy_stream, t0),
+                                   wait=wait)
 
     def _sampling_params(self, req: dict) -> tuple[float, int, float, int]:
         """(temperature, top_k, top_p, seed) for a request, allocating the
@@ -2097,7 +2333,7 @@ class InferenceEngine:
         [nb, V] logits, with no host copy. Returns per-row ``(samples, row,
         seed)`` for the async admission path, or None when these records
         take the synchronous path."""
-        if (not self.config.async_admissions
+        if (not self._async_admissions
                 or any(self._needs_sync_admission(w.request) for w in waitings)):
             return None
         params = [self._sampling_params(w.request) for w in waitings]
@@ -2113,7 +2349,7 @@ class InferenceEngine:
         host, emitted now."""
         if not records:
             return
-        if self.config.async_admissions and not any(
+        if self._async_admissions and not any(
                 self._needs_sync_admission(r.waiting.request) for r in records):
             self._complete_admissions_async(records)
             return
@@ -2351,6 +2587,28 @@ class InferenceEngine:
         FLIGHT.event(slot.context.id, "first_token")
 
     # -- disagg: export (prefill side) and resume (decode side) -------------
+
+    def _spmd_sync_state(self) -> list[tuple]:
+        """A rejoining follower's snapshot: the pages in use, as ``(page_ids,
+        k, v)`` numpy chunks of at most SYNC_CHUNK_BYTES each, gathered one
+        chunk at a time (the weights are not shipped: the follower builds
+        them from the same seed or checkpoint)."""
+        from dynamo_tpu_torch.kvbm.offload import block_numpy
+        from dynamo_tpu_torch.parallel.spmd import SYNC_CHUNK_BYTES
+
+        ids = [int(p) for p in self.allocator.used_page_ids()]
+        if not ids:
+            return []
+        per_page = max(1, self.pool_bytes // (self.config.num_pages + 1))
+        step = max(1, SYNC_CHUNK_BYTES // per_page)
+        chunks = []
+        for i in range(0, len(ids), step):
+            sub = ids[i: i + step]
+            kb, vb = self.fam.extract_pages(self.k_pages, self.v_pages,
+                                            self._page_ids(sub))
+            chunks.append((np.asarray(sub, np.int32), block_numpy(kb.cpu()),
+                           block_numpy(vb.cpu())))
+        return chunks
 
     def _page_ids(self, pages: list[int]) -> torch.Tensor:
         """Page (or block) indices on the device; on CUDA from pinned
@@ -2645,6 +2903,8 @@ class InferenceEngine:
                     allowed[r, j] = masks[j]
         t0 = time.perf_counter()
         with self._phase("spec.verify"):
+            self._publish("verify", None, {"tokens": tokens, "block_tables": bts,
+                                           "start_pos": starts, "num_tokens": nts})
             targets = self._verify.dispatch(tokens, bts, starts, nts, allowed)
             self.dispatches += 1
             self._note_moe_dropped(self._verify.dropped)
@@ -2914,6 +3174,7 @@ class InferenceEngine:
         take the dead request's in-flight token."""
         B = len(self._slots)
         feeds: list[torch.Tensor] = []
+        feed_ids: list[int] = []  # the chained bursts' ids (SPMD descriptors)
         feed_src = np.full((B,), -1, np.int32)
         feed_idx = np.zeros((B,), np.int32)
         for prev in chain or ():
@@ -2924,6 +3185,7 @@ class InferenceEngine:
                 feed_src[valid] = len(feeds)
                 feed_idx[valid] = np.arange(B, dtype=np.int32)[valid]
                 feeds.append(prev["burst"].last_tokens())
+                feed_ids.append(prev["id"])
         for ap in self._admit_waves:
             # freshly admitted slots: their first token from the wave's
             # device sample, fed into each slot's FIRST burst only (later
@@ -2940,6 +3202,17 @@ class InferenceEngine:
                 feeds.append(ap["dev"])
         inputs = batch["inputs"]
         sampled = bool((inputs["temperature"][batch["active"]] > 0).any())
+        self._burst_id += 1
+        if self.spmd is not None:
+            # admissions are synchronous under SPMD: every feed is a chained
+            # burst, which each follower holds from its own replay
+            if len(feed_ids) != len(feeds):
+                raise RuntimeError("an admission wave's device feed under SPMD replay")
+            self._publish("decode", {
+                "id": self._burst_id, "chain": feed_ids, "n_steps": batch["n_burst"],
+                "n_lp": batch["n_lp"], "sampled": sampled,
+            }, {**{f"in_{k}": v for k, v in inputs.items()},
+                "feed_src": feed_src, "feed_idx": feed_idx})
         t0 = time.perf_counter()
         burst = self._graphs.dispatch(
             inputs, batch["n_burst"], sampled=sampled, n_logprobs=batch["n_lp"],
@@ -2947,7 +3220,8 @@ class InferenceEngine:
             allowed=batch["allowed"])
         self.dispatches += 1
         self.steps += batch["n_burst"]
-        return {"batch": batch, "burst": burst, "t0": t0, "resumes": self.resumes}
+        return {"batch": batch, "burst": burst, "t0": t0, "resumes": self.resumes,
+                "id": self._burst_id}
 
     def _process_burst(self, pending: dict) -> None:
         """Take a dispatched burst's tokens to the host; land the first

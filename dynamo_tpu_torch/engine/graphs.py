@@ -22,7 +22,11 @@ tokens.
 On a CPU device the same object runs the step function eagerly: that is
 the route the CPU tests take, with the same buffers, copies and feeds. On
 a CUDA device a capture or a replay that fails raises; nothing falls back
-to eager steps.
+to eager steps. ``capture=False`` runs a CUDA device's steps eagerly too,
+as asked (``EngineConfig.cuda_graphs``: a gloo tp group's collectives
+cannot be captured). A tp rank's step runs its NCCL collectives inside the
+graph: every rank captures the same variants in the same order (the
+followers replay the leader's captures, parallel/spmd.py).
 
 Launch counts: a kernel wrapper counts a launch made under capture as
 ``captured`` (ops/cuda/build.py). At capture this object records each
@@ -142,12 +146,14 @@ class DecodeGraphs:
         n_logprobs: int,
         device: torch.device,
         vocab_size: int | None = None,
+        capture: bool = True,
     ):
         self.step = step
         self.batch, self.max_steps = batch, max_steps
         self.n_logprobs = n_logprobs
         self.device = device
-        self.cuda = device.type == "cuda"
+        self.pinned = device.type == "cuda"  # pinned host staging
+        self.cuda = self.pinned and capture  # captured graphs
         B, P = batch, pages_per_seq
         sizes = dict.fromkeys(_FIELDS, B)
         sizes.update(block_tables=B * P, step_idx=1)
@@ -278,7 +284,7 @@ class DecodeGraphs:
         t = self._tensors(n_logprobs, masked)
         B = self.batch
         staging = torch.empty(self.flat.numel(), dtype=torch.int32,
-                              pin_memory=self.cuda)
+                              pin_memory=self.pinned)
         host = staging.numpy()
         fill = dict(inputs, step_idx=np.zeros(1, np.int32),
                     feed_src=np.full(B, -1, np.int32) if feed_src is None else feed_src,
@@ -291,7 +297,7 @@ class DecodeGraphs:
                 host[s] = arr.astype(np.int64).astype(np.int32).reshape(-1)
         self.flat.copy_(staging, non_blocking=True)
         if masked:
-            self.allowed.copy_(_pinned(allowed, self.cuda), non_blocking=True)
+            self.allowed.copy_(_pinned(allowed, self.pinned), non_blocking=True)
         for j, src in enumerate(feeds):
             pick = self.feed_src == j
             fed = src[self.feed_idx.long().clamp(0, src.shape[0] - 1)]
@@ -367,12 +373,14 @@ class VerifyGraphs:
         pages_per_seq: int,
         device: torch.device,
         vocab_size: int | None = None,
+        capture: bool = True,
     ):
         self.verify = verify
         self.row_counts = verify_row_counts(batch)
         self.width = width
         self.device = device
-        self.cuda = device.type == "cuda"
+        self.pinned = device.type == "cuda"
+        self.cuda = self.pinned and capture
         R, W, P = self.row_counts[-1], width, pages_per_seq
         sizes = {"tokens": R * W, "block_tables": R * P, "start_pos": R,
                  "num_tokens": R}
@@ -474,14 +482,14 @@ class VerifyGraphs:
         if self.cuda:
             graph, per_replay = self._graph((n, masked))
         staging = torch.zeros(self.flat.numel(), dtype=torch.int32,
-                              pin_memory=self.cuda)
+                              pin_memory=self.pinned)
         host = staging.numpy()
         for (name, s), arr in zip(self._slices.items(),
                                   (tokens, block_tables, start_pos, num_tokens)):
             host[s].reshape(self._shapes[name])[:n] = arr
         self.flat.copy_(staging, non_blocking=True)
         if masked:
-            self.allowed[:n].copy_(_pinned(allowed, self.cuda), non_blocking=True)
+            self.allowed[:n].copy_(_pinned(allowed, self.pinned), non_blocking=True)
         if self.cuda:
             graph.replay()
             self.replays += 1

@@ -48,7 +48,29 @@ the live policy key (``--max-local-prefill-length``,
 ``DecodeWorkerHandler`` as the front door (``engine.frontdoor``); its admin
 ``cache_status`` reports the pulls by route and the fallbacks. The
 reference's flags for features the port lacks raise NotImplementedError
-naming their item: SPMD and meshes. ``--model-type embeddings`` registers an
+naming their item.
+
+Tensor parallelism (parallel/): PyTorch drives one card per process, so a
+tp group of N is N processes. ``--tp N`` with no coordinator starts ranks
+1..N-1 on this host (one per ``cuda:<rank>``; ``spawn_local_followers``)
+and makes this process rank 0: PyTorch's counterpart of the reference's
+one-process mesh over local devices. Across hosts every rank runs this
+module with the reference's ``--coordinator-address``, ``--num-processes``
+and ``--process-id`` (or ``DYN_COORDINATOR`` / ``DYN_NUM_PROCESSES`` /
+``DYN_PROCESS_ID``). Rank 0 serves; every other rank builds an engine
+shell (its shard of the weights and of the KV heads, the leader's
+EngineConfig) that never registers, serves or samples, prints
+``MULTIHOST_FOLLOWER_READY`` and replays the leader's step descriptors
+(parallel/spmd.py, strict: a lost rank fails the engine loudly).
+``DYN_TP_BACKEND=gloo`` runs the group on gloo (two ranks on one card, as
+NCCL refuses a card twice; ``--no-cuda-graphs`` runs its steps eagerly,
+as a capture over gloo raises).
+``--mirror leader`` / ``--mirror follower`` is the reference's mirror
+topology: each process holds the whole model, the follower
+(``MIRROR_FOLLOWER_READY``) replays the leader's descriptors found through
+the hub and rejoins through a state sync after a restart. Disaggregated
+modes under tp > 1 raise NotImplementedError (ROADMAP Queue A item 11e), as
+the reference refuses multi-host disagg. ``--model-type embeddings`` registers an
 embeddings card (the frontend's /v1/embeddings). ``--mm-tokens-per-image``,
 ``--image-token-id`` and ``--mm-video-frames`` register a multimodal card:
 the frontend splices that many placeholder ids per image and resolves the
@@ -70,6 +92,7 @@ import argparse
 import asyncio
 import json
 import logging
+import os
 
 import torch
 
@@ -130,16 +153,24 @@ async def launch_engine_worker(
     mm_tokens_per_image: int = 0,
     image_token_id: int = 0,
     mm_video_frames: int = 8,
+    mesh=None,
+    spmd=None,
 ) -> tuple[InferenceEngine, object]:
     """Build + register one engine worker in this process, on ``device``
     (None = the GPU; no GPU raises), serving ``params`` (default: the seeded
     random init of ``engine_config.seed``), or the checkpoint in
     ``model_path`` (its spec from its config.json), in ``mode`` aggregated,
     prefill or decode. The serving front door (the engine or a disagg
-    handler) is ``engine.frontdoor``. Returns (engine, served generate
-    endpoint)."""
+    handler) is ``engine.frontdoor``. ``mesh`` / ``spmd``: this process is
+    rank 0 of a tp group (``start_tp_group``) or a mirror leader. Returns
+    (engine, served generate endpoint)."""
     if mode not in ("aggregated", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}: aggregated, prefill or decode")
+    if mode != "aggregated" and ((engine_config or EngineConfig()).tp > 1
+                                 or spmd is not None):
+        raise NotImplementedError(
+            f"--mode {mode} under tensor parallelism or SPMD replay is ROADMAP "
+            "Queue A item 11e (per-shard KV exports)")
     if prefill_router_mode not in ("kv", "round_robin", "random"):
         raise ValueError(f"prefill_router_mode {prefill_router_mode!r}")
     # an unknown parser name fails here, before the engine is built
@@ -158,8 +189,9 @@ async def launch_engine_worker(
     if model_path:
         from dynamo_tpu_torch.models.loader import load_model_dir
 
-        spec, params = await asyncio.to_thread(load_model_dir, model_path,
-                                               device=device)
+        spec, params = await asyncio.to_thread(
+            load_model_dir, model_path, mesh=mesh,
+            device=mesh.device if mesh is not None else device)
     spec = spec or ModelSpec.preset(model)
     guided_vocab = None
     if cfg.guided_mode != "off":
@@ -184,8 +216,10 @@ async def launch_engine_worker(
         from dynamo_tpu_torch.disagg.transfer import KvTransferSource
 
         transfer_source = await KvTransferSource().start()
-    engine = InferenceEngine(spec, cfg, params=params, device=device, kvbm=kvbm,
-                             guided_vocab=guided_vocab, transfer_source=transfer_source)
+    engine = InferenceEngine(spec, cfg, params=params,
+                             device=mesh.device if mesh is not None else device,
+                             kvbm=kvbm, guided_vocab=guided_vocab,
+                             transfer_source=transfer_source, mesh=mesh, spmd=spmd)
     if precompile:
         # capture every decode graph variant before registration, off the
         # event loop: no request waits for a capture
@@ -230,7 +264,7 @@ async def launch_engine_worker(
             image_token_id=image_token_id,
             mm_video_frames=(mm_video_frames if mm_tokens_per_image else 0),
             runtime_config={"engine": "torch", "device": str(engine.device),
-                            "mode": mode},
+                            "mode": mode, "tp": cfg.tp},
             metadata={"engine": "torch", "role": mode},
         )
     engine.frontdoor = handler
@@ -267,6 +301,10 @@ async def launch_engine_worker(
             except (TypeError, ValueError):
                 n = 16
             yield {"ok": True, **FLIGHT.snapshot(request.get("request_id"), n=n)}
+        elif op == "kv_digest":
+            # every rank's digest of the pages in use: the leader's here,
+            # each follower's on its stdout (SPMD_KV_DIGEST)
+            yield {"ok": True, **(await engine.kv_digest())}
         elif op == "cache_status":
             yield {
                 "ok": True,
@@ -276,6 +314,12 @@ async def launch_engine_worker(
                 "kvbm": (engine.kvbm.stats.to_dict()
                          if engine.kvbm is not None else None),
                 "disagg": disagg_status(engine) if mode != "aggregated" else None,
+                "spmd": ({"publishes": engine.spmd.publish_count,
+                          "bytes": engine.spmd.publish_bytes,
+                          "secs": engine.spmd.publish_secs,
+                          "followers": engine.spmd.followers,
+                          "healthy": engine.spmd.healthy}
+                         if engine.spmd is not None else None),
             }
         else:
             yield {"ok": False, "error": f"unknown op {op!r}"}
@@ -394,15 +438,17 @@ def _mean_ms(times) -> list:
 def _engine_config(args: argparse.Namespace) -> EngineConfig:
     """The reference's EngineConfig from the worker's flags (CLI beats the
     DYN_* env / DYN_CONFIG layer); flags of unported features raise here or
-    in EngineConfig."""
-    refused = [
-        (args.mirror or args.coordinator_address or args.num_processes is not None
-         or args.process_id is not None,
-         "--mirror / --coordinator-address: SPMD multi-host (ROADMAP Queue A item 11)"),
-    ]
-    for hit, what in refused:
-        if hit:
-            raise NotImplementedError(f"{what} is not ported")
+    in EngineConfig. A rank that a leader started takes the leader's
+    EngineConfig whole (``--engine-config-json``)."""
+    if args.engine_config_json:
+        return config_from_json(EngineConfig, args.engine_config_json)
+    if args.mirror and args.tp > 1:
+        raise NotImplementedError(
+            "--mirror with --tp > 1: a mirror of a tp group is ROADMAP Queue A item 11e")
+    if args.mode != "aggregated" and (args.tp > 1 or args.mirror):
+        raise NotImplementedError(
+            f"--mode {args.mode} under tensor parallelism or SPMD replay is ROADMAP "
+            "Queue A item 11e (per-shard KV exports)")
     env_cfg = RuntimeConfig.from_env()
     return EngineConfig(
         page_size=args.page_size,
@@ -429,6 +475,7 @@ def _engine_config(args: argparse.Namespace) -> EngineConfig:
                  else (env_cfg.tenant_quotas or "")),
         max_waiting=args.max_waiting,
         preemption=args.preemption,
+        cuda_graphs=args.cuda_graphs,
     )
 
 
@@ -449,11 +496,30 @@ def _kvbm_config_from_args(args: argparse.Namespace):
 async def _amain(args: argparse.Namespace, ecfg: EngineConfig) -> None:
     from dynamo_tpu_torch.models.llama import resolve_device
 
-    device = resolve_device(args.device)  # no GPU and no --device cpu raises here
+    group_name = f"{args.namespace}/{args.component}/{args.endpoint}"
+    if args.mirror == "follower":
+        await _run_mirror_follower(args, ecfg, group_name)
+        return
     rcfg = RuntimeConfig.from_env()
     if args.hub:
         rcfg.override_hub(args.hub)
+    group = await start_tp_group(
+        ecfg, model=args.model, model_path=args.model_path, device=args.device,
+        group=group_name, coordinator=args.coordinator_address,
+        num_processes=args.num_processes, process_id=args.process_id,
+        spec_json=args.spec_json, kvbm_argv=_kvbm_argv(args), host=rcfg.host)
+    if group is not None and not group.leader:
+        await _run_tp_follower(args, ecfg, group)
+        return
+    device = (group.mesh.device if group is not None
+              else resolve_device(args.device))  # no GPU, no --device cpu: raises
     drt = DistributedRuntime(await connect_hub(rcfg.hub_target()), rcfg)
+    spmd = group.spmd if group is not None else None
+    if args.mirror == "leader":
+        from dynamo_tpu_torch.parallel.spmd import SpmdLeader
+
+        spmd = await SpmdLeader(drt.hub, asyncio.get_running_loop(), group_name,
+                                host=drt.config.host, strict=False).start()
     engine = health = status_server = None
     try:
         if args.health_port >= 0:
@@ -492,6 +558,9 @@ async def _amain(args: argparse.Namespace, ecfg: EngineConfig) -> None:
             mm_tokens_per_image=args.mm_tokens_per_image,
             image_token_id=args.image_token_id,
             mm_video_frames=args.mm_video_frames,
+            spec=_spec_from_args(args),
+            mesh=group.mesh if group is not None else None,
+            spmd=spmd,
         )
         # launches from here on: precompile's warm-up steps are not traffic
         base = launch_base(engine)
@@ -507,7 +576,212 @@ async def _amain(args: argparse.Namespace, ecfg: EngineConfig) -> None:
             await status_server.stop()
         if engine is not None:
             await engine.close()
+        elif spmd is not None:
+            spmd.stop()
+            await spmd.close()
         await drt.close()
+        if group is not None:
+            await group.close()
+
+
+# ------------------------------------------------------------ tp groups
+
+
+def config_from_json(cls, text: str):
+    """A config dataclass from its JSON (lists back to tuples)."""
+    d = json.loads(text)
+    return cls(**{k: tuple(v) if isinstance(v, list) else v for k, v in d.items()})
+
+
+def config_json(obj) -> str:
+    """A config dataclass as JSON (an EngineConfig without its tenants: a
+    follower schedules nothing)."""
+    import dataclasses
+
+    d = dataclasses.asdict(obj)
+    d.pop("tenants", None)
+    return json.dumps(d)
+
+
+def _spec_from_args(args: argparse.Namespace) -> ModelSpec | None:
+    if args.spec_json:
+        return config_from_json(ModelSpec, args.spec_json)
+    return None
+
+
+def _spec_json_or_preset(spec_json: str | None, model: str) -> ModelSpec:
+    return config_from_json(ModelSpec, spec_json) if spec_json else ModelSpec.preset(model)
+
+
+def _kvbm_argv(args: argparse.Namespace) -> list[str]:
+    if args.kvbm_host_mb <= 0:
+        return []
+    out = ["--kvbm-host-mb", str(args.kvbm_host_mb)]
+    if args.kvbm_disk_mb > 0:
+        out += ["--kvbm-disk-mb", str(args.kvbm_disk_mb), "--kvbm-disk-dir",
+                args.kvbm_disk_dir]
+    return out
+
+
+class TpGroup:
+    """This process's place in a tp group: its ``mesh``, and on rank 0 the
+    SPMD leader and the follower processes it started."""
+
+    def __init__(self, mesh, spmd=None, procs=()):
+        self.mesh = mesh
+        self.spmd = spmd
+        self.procs = list(procs)
+
+    @property
+    def leader(self) -> bool:
+        return self.mesh.rank == 0
+
+    async def close(self, timeout: float = 60.0) -> None:
+        """Wait for the started followers (the engine's close sent them
+        ``stop``), kill any that outlive ``timeout``, leave the group."""
+        import subprocess
+
+        from dynamo_tpu_torch.parallel.multihost import shutdown
+
+        for p in self.procs:
+            try:
+                await asyncio.to_thread(p.wait, timeout)
+            except subprocess.TimeoutExpired:
+                log.warning("tp follower pid %d did not stop; killing it", p.pid)
+                p.kill()
+                await asyncio.to_thread(p.wait)
+        shutdown()
+
+
+async def start_tp_group(
+    ecfg: EngineConfig, *, model: str = "tiny-test", model_path: str | None = None,
+    spec_json: str | None = None, device=None,
+    group: str = "dynamo/backend/generate", coordinator: str | None = None,
+    num_processes: int | None = None, process_id: int | None = None,
+    kvbm_argv: list[str] = (), host: str = "127.0.0.1",
+) -> TpGroup | None:
+    """Join (or, for ``ecfg.tp`` > 1 with no coordinator, start) the tp
+    group of this worker: None for a single process. With no coordinator
+    this process starts ranks 1..tp-1 here (``spawn_local_followers``:
+    worker processes given the model, the device, this EngineConfig and
+    the group's rendezvous) and becomes rank 0. Rank 0 gets the group's
+    strict ``SpmdLeader``, its address in the group's store
+    (``StoreHub``): ``host`` (the runtime config's) when it is routable,
+    else the coordinator's host (``multihost.leader_host``)."""
+    from dynamo_tpu_torch.parallel import multihost
+    from dynamo_tpu_torch.parallel.mesh import make_mesh
+
+    env_coord = coordinator or os.environ.get("DYN_COORDINATOR")
+    if ecfg.tp == 1 and not env_coord:
+        return None  # one process: no group, nothing started
+    procs = []
+    if ecfg.tp > 1:
+        # refuse a model that does not shard before any rank starts
+        from dynamo_tpu_torch.models.convert import check_shardable
+        from dynamo_tpu_torch.models.loader import spec_from_dir
+
+        check_shardable(spec_from_dir(model_path) if model_path
+                        else _spec_json_or_preset(spec_json, model), ecfg.tp)
+    if ecfg.tp > 1 and not env_coord and not num_processes:
+        coordinator = multihost.free_coordinator()
+        ns, comp, ep = group.split("/")
+        argv = ["--engine-config-json", config_json(ecfg), "--namespace", ns,
+                "--component", comp, "--endpoint", ep, *kvbm_argv]
+        if model_path:
+            argv += ["--model-path", model_path]
+        else:
+            argv += ["--model", model]
+            if spec_json:
+                argv += ["--spec-json", spec_json]
+        if device is not None:
+            argv += ["--device", str(device)]
+        procs = multihost.spawn_local_followers(ecfg.tp, argv, coordinator)
+        num_processes, process_id = ecfg.tp, 0
+        env_coord = coordinator
+    try:
+        joined = await asyncio.to_thread(
+            multihost.initialize_multihost, coordinator, num_processes, process_id,
+            device=device)
+        if not joined:
+            if ecfg.tp > 1:
+                raise ValueError(f"EngineConfig.tp={ecfg.tp} needs a group of "
+                                 f"{ecfg.tp} processes (--num-processes)")
+            return None
+        mesh = make_mesh(tp=ecfg.tp)
+        spmd = None
+        if mesh.rank == 0:
+            from dynamo_tpu_torch.parallel.spmd import SpmdLeader, StoreHub
+
+            spmd = await SpmdLeader(StoreHub(), asyncio.get_running_loop(), group,
+                                    host=multihost.leader_host(env_coord, host),
+                                    strict=True).start()
+        return TpGroup(mesh, spmd, procs)
+    except BaseException:
+        for p in procs:
+            p.kill()
+        raise
+
+
+def build_engine_shell(args: argparse.Namespace, ecfg: EngineConfig, mesh=None,
+                       hub=None, loop=None) -> InferenceEngine:
+    """A follower's engine: the leader's spec and EngineConfig, this rank's
+    shard of the same weights (the seeded init, or its slice of the
+    checkpoint), its pools; its step loop never starts. With KVBM on it
+    holds tiers of its own: the replayed offloads and onboards move this
+    rank's shard of each block (G4 under a per-rank namespace)."""
+    from dynamo_tpu_torch.models.llama import resolve_device
+
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
+    params = None
+    if args.model_path:
+        from dynamo_tpu_torch.models.loader import load_model_dir
+
+        spec, params = load_model_dir(args.model_path, mesh=mesh, device=dev)
+    else:
+        spec = _spec_from_args(args) or ModelSpec.preset(args.model)
+    kvbm = None
+    kvbm_cfg = _kvbm_config_from_args(args)
+    if kvbm_cfg is not None:
+        from dynamo_tpu_torch.kvbm import KvBlockManager
+
+        rank = mesh.rank if mesh is not None else 0
+        kvbm = KvBlockManager(kvbm_cfg, hub=hub, loop=loop,
+                              namespace=f"{args.namespace}.s{rank}")
+    return InferenceEngine(spec, ecfg, params=params, device=dev, kvbm=kvbm, mesh=mesh)
+
+
+async def _run_tp_follower(args, ecfg: EngineConfig, group: TpGroup) -> None:
+    """Rank r > 0 of a tp group: replay the leader until its ``stop``."""
+    from dynamo_tpu_torch.parallel.spmd import SpmdFollower, StoreHub
+
+    engine = await asyncio.to_thread(build_engine_shell, args, ecfg, group.mesh)
+    print("MULTIHOST_FOLLOWER_READY", flush=True)
+    name = f"{args.namespace}/{args.component}/{args.endpoint}"
+    try:
+        await SpmdFollower(StoreHub(), name, engine, rejoin=False).run()
+    finally:
+        await engine.close()
+        await group.close()
+
+
+async def _run_mirror_follower(args, ecfg: EngineConfig, name: str) -> None:
+    """A mirror follower: the whole model in this process, replaying the
+    leader's descriptors found through the hub, rejoining with a state
+    sync when the stream is lost."""
+    from dynamo_tpu_torch.parallel.spmd import SpmdFollower
+
+    rcfg = RuntimeConfig.from_env()
+    if args.hub:
+        rcfg.override_hub(args.hub)
+    hub = await connect_hub(rcfg.hub_target())
+    engine = await asyncio.to_thread(build_engine_shell, args, ecfg, None, hub,
+                                     asyncio.get_running_loop())
+    print("MIRROR_FOLLOWER_READY", flush=True)
+    try:
+        await SpmdFollower(hub, name, engine, rejoin=True).run()
+    finally:
+        await engine.close()
+        await hub.close()
 
 
 def _install_drain_handler(drt, engine, served, base) -> dict:
@@ -661,13 +935,26 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                         "DYN_GUIDED_MODE, else auto")
     p.add_argument("--precompile", action=argparse.BooleanOptionalAction, default=False,
                    help="capture every decode graph variant before registering")
+    p.add_argument("--cuda-graphs", action=argparse.BooleanOptionalAction, default=True,
+                   help="run decode and verify steps from captured CUDA graphs on a "
+                        "card; --no-cuda-graphs runs them eagerly (a gloo tp group "
+                        "needs it: its collectives cannot be captured)")
     p.add_argument("--health-port", type=int, default=-1)
     p.add_argument("--health-interval", type=float, default=5.0)
     p.add_argument("--health-timeout", type=float, default=5.0)
-    p.add_argument("--mirror", default=None, choices=["leader", "follower"])
-    p.add_argument("--coordinator-address", default=None)
+    p.add_argument("--mirror", default=None, choices=["leader", "follower"],
+                   help="mirror topology: each process holds the whole model; "
+                        "followers replay the leader's descriptors and rejoin "
+                        "with a state sync after a restart")
+    p.add_argument("--coordinator-address", default=None,
+                   help="tp group rendezvous host:port (or DYN_COORDINATOR); "
+                        "every rank of the group runs this module")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--engine-config-json", default=None,
+                   help="the leader's EngineConfig (set on the ranks it starts)")
+    p.add_argument("--spec-json", default=None,
+                   help="a ModelSpec as JSON instead of a --model preset")
     args = p.parse_args(argv)
     if (args.kvbm_disk_mb > 0 or args.kvbm_disk_dir) and args.kvbm_host_mb <= 0:
         p.error("--kvbm-disk-* requires --kvbm-host-mb > 0 (KVBM is off)")

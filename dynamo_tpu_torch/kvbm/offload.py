@@ -97,7 +97,8 @@ class HostBatch:
 class OffloadEngine:
     """The offload thread: a bounded queue of ``HostBatch``es (a full queue
     drops the batch and counts it in ``dropped``: offload is a cache fill,
-    never worth stalling decode for). ``batches`` keeps each offered
+    never worth stalling decode for; an SPMD follower's submit waits
+    instead, so its tiers hold what its leader's do). ``batches`` keeps each offered
     batch's blocks, bytes, device times and lag from submit to the last
     ``offer`` (host clock)."""
 
@@ -115,12 +116,18 @@ class OffloadEngine:
             self._thread.start()
         return self
 
-    def submit(self, hashes: list[int], batch: HostBatch) -> None:
-        """Non-blocking; a full queue drops the batch."""
+    def submit(self, hashes: list[int], batch: HostBatch, wait: bool = False) -> bool:
+        """Non-blocking unless ``wait``; a full queue drops the batch
+        (False)."""
+        if wait:
+            self._q.put((hashes, batch))
+            return True
         try:
             self._q.put_nowait((hashes, batch))
         except queue.Full:
             self.dropped += 1
+            return False
+        return True
 
     def flush(self, timeout: float = 10.0) -> None:
         """Wait until everything queued so far has been offered."""

@@ -30,8 +30,11 @@ __all__ = ["get_family", "GqaFamily", "MlaFamily"]
 
 
 class GqaFamily:
-    """llama-family adapter: thin passthrough to models/llama.py."""
+    """llama-family adapter: thin passthrough to models/llama.py. A dense
+    llama spec shards over a tp mesh (``supports_mesh``); a MoE spec under
+    tp > 1 raises (ROADMAP Queue A item 11b)."""
 
+    supports_mesh = True
     supports_logprobs = True
     supports_spec_decode = True
     supports_embeddings = True
@@ -42,13 +45,21 @@ class GqaFamily:
 
         self.m = llama
 
-    def init_params(self, spec, seed, device=None):
-        return self.m.init_params(spec, seed, device=device)
+    def init_params(self, spec, seed, device=None, mesh=None):
+        """The seeded init; with a tp ``mesh``, this rank's shard of it."""
+        return self.m.init_params(spec, seed, device=device, mesh=mesh)
+
+    def shard_params(self, spec, params, mesh):
+        """This rank's shard of full weights (models/convert.shard_params)."""
+        from dynamo_tpu_torch.models.convert import shard_params
+
+        return shard_params(spec, params, mesh, device=mesh.device)
 
     def init_cache(self, spec, num_pages, page_size, device=None,
-                   kv_dtype="bf16"):
+                   kv_dtype="bf16", tp=1):
+        """Pools of ``num_pages`` pages; under tp, of this rank's KV heads."""
         return self.m.init_cache(spec, num_pages, page_size, device=device,
-                                 kv_dtype=kv_dtype)
+                                 kv_dtype=kv_dtype, tp=tp)
 
     def prefill(self, spec, params, tokens, bt, start, k, v, n,
                 mm_embeds=None, mm_pos=None):
@@ -110,8 +121,9 @@ class MlaFamily(GqaFamily):
     family does. It serves embeddings but takes no image input, as the
     reference's. Not here, as in the reference or the port: ring prefill
     (off in the reference's MLA family) and meshes (ROADMAP Queue A item
-    11)."""
+    11b)."""
 
+    supports_mesh = False
     supports_multimodal = False
 
     def __init__(self):
@@ -119,8 +131,15 @@ class MlaFamily(GqaFamily):
 
         self.m = mla
 
+    def init_params(self, spec, seed, device=None, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                f"{spec.name}: tensor parallelism of MLA layers is ROADMAP Queue A "
+                "item 11b (the MoE and MLA shardings)")
+        return self.m.init_params(spec, seed, device=device)
+
     def init_cache(self, spec, num_pages, page_size, device=None,
-                   kv_dtype="bf16"):
+                   kv_dtype="bf16", tp=1):
         import torch
 
         cache = self.m.init_cache(spec, num_pages, page_size, device=device,

@@ -100,16 +100,28 @@ class LlamaParams(nn.Module):
 
     layer_cls = LlamaLayer
 
-    def __init__(self, embed, final_norm, layers, lm_head=None):
+    def __init__(self, embed, final_norm, layers, lm_head=None, mesh=None):
         super().__init__()
         self.embed = _param(embed)
         self.final_norm = _param(final_norm)
         self.lm_head = _param(lm_head) if lm_head is not None else None
         self.layers = nn.ModuleList(self.layer_cls(lp) for lp in layers)
+        # the tp mesh (parallel/mesh.py) these weights are this rank's shard
+        # of (models/convert.shard_params), or None: the whole model
+        self.mesh = mesh
+
+
+def param_mesh(params) -> object | None:
+    """The tp mesh ``params`` are sharded over, or None (no process group:
+    the whole model in this process, no collective runs). A group of one
+    rank still runs its collectives, as NCCL kernels a graph can capture."""
+    mesh = getattr(params, "mesh", None)
+    return mesh if mesh is not None and mesh.group is not None else None
 
 
 def init_params(
-    spec: ModelSpec, seed: int = 0, device: str | torch.device | None = None
+    spec: ModelSpec, seed: int = 0, device: str | torch.device | None = None,
+    mesh=None,
 ) -> LlamaParams:
     """Random init from a seeded generator on the device (serving weights
     come from a checkpoint: models/loader.py). Same scheme as the JAX init:
@@ -119,7 +131,10 @@ def init_params(
     zeros; a MoE spec gets a ``moe`` block (models/moe.py) in place of the
     dense MLP, its router f32. The draws differ from
     jax.random's; parity tests bridge the JAX weights with
-    models/convert.params_from_numpy instead."""
+    models/convert.params_from_numpy instead. With a tp ``mesh`` every
+    rank draws the same full tensors, one layer at a time, and keeps its
+    shard (models/convert.shard_params' layout): the weights are the
+    sharded copy of the ``mesh=None`` init."""
     dev = resolve_device(device)
     dtype = torch_dtype(spec.dtype)
     gen = torch.Generator(device=dev)
@@ -130,7 +145,7 @@ def init_params(
     def dense(shape, scale=None):
         scale = scale or 1.0 / math.sqrt(shape[-2])
         w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
-        return (w * scale).to(dtype)
+        return w.mul_(scale).to(dtype)  # in place: one f32 copy at a time
 
     def ones(n):
         return torch.ones(n, device=dev, dtype=dtype)
@@ -138,8 +153,16 @@ def init_params(
     def zeros(n):
         return torch.zeros(n, device=dev, dtype=dtype)
 
-    embed = dense((spec.vocab_size, d), scale=0.02)
-    lm_head = None if spec.tie_embeddings else dense((d, spec.vocab_size))
+    if mesh is not None:
+        from dynamo_tpu_torch.models.convert import check_shardable, shard_tensor
+
+        check_shardable(spec, mesh)
+
+    def cut(name, t):
+        return t if mesh is None else shard_tensor(name, t, mesh)
+
+    embed = cut("embed", dense((spec.vocab_size, d), scale=0.02))
+    lm_head = None if spec.tie_embeddings else cut("lm_head", dense((d, spec.vocab_size)))
     layers = []
     for _ in range(spec.num_layers):
         lp = {
@@ -165,20 +188,25 @@ def init_params(
                 w_up=dense((d, spec.intermediate_size)),
                 w_down=dense((spec.intermediate_size, d)),
             )
-        layers.append(lp)
-    return LlamaParams(embed, ones(d), layers, lm_head)
+        layers.append({name: cut(name, t) for name, t in lp.items()})
+    return LlamaParams(embed, ones(d), layers, lm_head, mesh=mesh)
 
 
 def init_cache(
     spec: ModelSpec, num_pages: int, page_size: int, dtype=None,
-    device: str | torch.device | None = None, kv_dtype: str = "bf16",
+    device: str | torch.device | None = None, kv_dtype: str = "bf16", tp: int = 1,
 ) -> tuple[torch.Tensor, torch.Tensor] | tuple[QuantPool, QuantPool]:
     """K and V page arrays [L, num_pages, kv_heads, page_size, head_dim],
     zeroed. ``num_pages`` must already include the trash page (index 0).
     ``kv_dtype="fp8"`` allocates QuantPools instead: fp8 values of that
-    shape and bf16 scales [L, num_pages, kv_heads], zeros (empty pages)."""
+    shape and bf16 scales [L, num_pages, kv_heads], zeros (empty pages).
+    Under tensor parallelism (``tp`` > 1) a rank's pools hold its
+    ``kv_heads / tp`` heads (the reference's ``cache_shardings``), and
+    ``num_pages`` is per shard, as the reference's."""
     dev = resolve_device(device)
-    shape = (spec.num_layers, num_pages, spec.num_kv_heads, page_size,
+    if spec.num_kv_heads % tp:
+        raise ValueError(f"{spec.num_kv_heads} KV heads do not divide over tp={tp}")
+    shape = (spec.num_layers, num_pages, spec.num_kv_heads // tp, page_size,
              spec.head_dim)
     if kv_dtype == "fp8":
         return init_quant_pool(shape, 3, dev), init_quant_pool(shape, 3, dev)
@@ -300,44 +328,71 @@ def _attn_qkv(spec: ModelSpec, lp: LlamaLayer, x: torch.Tensor, rot):
     if spec.attn_bias:
         q, k, v = q + lp.bq, k + lp.bk, v + lp.bv
     lead = x.shape[:-1]
-    q = q.reshape(*lead, spec.num_heads, spec.head_dim)
-    k = k.reshape(*lead, spec.num_kv_heads, spec.head_dim)
-    v = v.reshape(*lead, spec.num_kv_heads, spec.head_dim)
+    # heads from the weights: a tp rank holds nh/tp query and nkv/tp KV heads
+    q = q.reshape(*lead, -1, spec.head_dim)
+    k = k.reshape(*lead, -1, spec.head_dim)
+    v = v.reshape(*lead, -1, spec.head_dim)
     return apply_rope(q, *rot), apply_rope(k, *rot), v
 
 
-def _o_proj(spec: ModelSpec, lp: LlamaLayer, attn: torch.Tensor) -> torch.Tensor:
+def _o_proj(spec: ModelSpec, lp: LlamaLayer, attn: torch.Tensor,
+            mesh=None) -> torch.Tensor:
+    """attn [..., heads * hd] @ wo; a tp rank's partial (its heads' rows of
+    wo) is all-reduced before the bias."""
     out = attn @ lp.wo
+    if mesh is not None:
+        out = mesh.all_reduce(out)
     return out + lp.bo if spec.attn_bias else out
 
 
-def _mlp(lp: LlamaLayer, x: torch.Tensor) -> torch.Tensor:
-    return (torch.nn.functional.silu(x @ lp.w_gate) * (x @ lp.w_up)) @ lp.w_down
+def _mlp(lp: LlamaLayer, x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The gated MLP; a tp rank holds FFN columns of w_gate / w_up and the
+    rows of w_down, and all-reduces its partial."""
+    out = (torch.nn.functional.silu(x @ lp.w_gate) * (x @ lp.w_up)) @ lp.w_down
+    return out if mesh is None else mesh.all_reduce(out)
 
 
-def _ffn(spec: ModelSpec, lp: LlamaLayer, x: torch.Tensor) -> torch.Tensor:
+def _ffn(spec: ModelSpec, lp: LlamaLayer, x: torch.Tensor, mesh=None) -> torch.Tensor:
     """Dense MLP or routed MoE depending on the spec (x [T, d])."""
     if spec.num_experts:
         from dynamo_tpu_torch.models import moe
 
         return moe.moe_mlp(spec, lp.moe, x)
-    return _mlp(lp, x)
+    return _mlp(lp, x, mesh)
 
 
-def _ffn_counted(spec: ModelSpec, lp: LlamaLayer, x: torch.Tensor):
+def _ffn_counted(spec: ModelSpec, lp: LlamaLayer, x: torch.Tensor, mesh=None):
     """_ffn + its dropped-slot count, an int32 device scalar (0 for dense
     layers)."""
     if spec.num_experts:
         from dynamo_tpu_torch.models import moe
 
         return moe.moe_mlp(spec, lp.moe, x, return_dropped=True)
-    return _mlp(lp, x), torch.zeros((), dtype=torch.int32, device=x.device)
+    return _mlp(lp, x, mesh), torch.zeros((), dtype=torch.int32, device=x.device)
+
+
+def _embed(params: LlamaParams, tokens: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The embedding rows of ``tokens``; a tp rank holds a slice of the
+    hidden axis (the reference shards ``embed`` on d) and all-gathers it."""
+    x = params.embed[tokens]
+    return x if mesh is None else mesh.all_gather(x, -1)
 
 
 def _logits(spec: ModelSpec, params: LlamaParams, x: torch.Tensor) -> torch.Tensor:
+    """f32 logits of the final-normed ``x``. Under tp an untied lm head is
+    sharded on the vocabulary (the ranks' slices are all-gathered); a tied
+    one is the embedding, sharded on d (each rank's partial over its slice
+    of d is all-reduced). Every rank ends with the same logits, so every
+    rank samples the same token."""
+    mesh = param_mesh(params)
     x = rms_norm(x, params.final_norm, spec.rms_eps)
-    head = params.embed.T if spec.tie_embeddings else params.lm_head
-    return (x @ head).float()
+    if mesh is None:
+        head = params.embed.T if spec.tie_embeddings else params.lm_head
+        return (x @ head).float()
+    if spec.tie_embeddings:
+        d = mesh.shard(spec.hidden_size, "hidden size")
+        return mesh.all_reduce((x[..., d] @ params.embed.T).float())
+    return mesh.all_gather((x @ params.lm_head).float(), -1)
 
 
 # ---------------------------------------------------------------- prefill
@@ -448,7 +503,8 @@ def prefill_forward_batch(
     safe_pg = torch.where(valid_pg, pg_idx_raw, TRASH_PAGE).reshape(N * n_pg)
     valid_tok = (idx[None, :] < ntok[:, None]).reshape(N * n_pg, page_size)
 
-    x = params.embed[tokens]  # [N, T, d]
+    mesh = param_mesh(params)
+    x = _embed(params, tokens, mesh)  # [N, T, d]
     if mm_embeds is not None:
         x = _overlay_rows(x, mm_embeds.to(dev), mm_pos.to(dev).long())
     rot = rope_tables(spec, positions)
@@ -471,9 +527,9 @@ def prefill_forward_batch(
             )
             for i in range(N)
         ])
-        x = x + _o_proj(spec, lp, attn.reshape(N, T, -1))
+        x = x + _o_proj(spec, lp, attn.reshape(N, T, -1), mesh)
         h = rms_norm(x, lp.mlp_norm, spec.rms_eps)
-        f, d = _ffn_counted(spec, lp, h.reshape(N * T, -1))
+        f, d = _ffn_counted(spec, lp, h.reshape(N * T, -1), mesh)
         x = x + f.reshape(N, T, -1)
         dropped = dropped + d
 
@@ -562,9 +618,10 @@ def _verify_logits_counted(spec, params, tokens, block_tables, start_pos,
     kv_len = start + ntok
     quant = is_quant(k_pages)
 
-    x = params.embed[tokens.long()]  # [N, W, d]
+    mesh = param_mesh(params)
+    x = _embed(params, tokens.long(), mesh)  # [N, W, d]
     rot = rope_tables(spec, positions)
-    KH, D = spec.num_kv_heads, spec.head_dim
+    KH, D = k_pages.shape[2], spec.head_dim  # this rank's KV heads
     dropped = torch.zeros((), dtype=torch.int32, device=dev)
     for li, lp in enumerate(params.layers):
         h = rms_norm(x, lp.attn_norm, spec.rms_eps)
@@ -582,9 +639,9 @@ def _verify_logits_counted(spec, params, tokens, block_tables, start_pos,
             q, k_ctx, v_ctx, positions, kv_len,
             window=spec.attn_window(li), sinks=lp.get("sinks"),
         )
-        x = x + _o_proj(spec, lp, attn.reshape(N, W, -1))
+        x = x + _o_proj(spec, lp, attn.reshape(N, W, -1), mesh)
         h = rms_norm(x, lp.mlp_norm, spec.rms_eps)
-        f, d = _ffn_counted(spec, lp, h.reshape(N * W, -1))
+        f, d = _ffn_counted(spec, lp, h.reshape(N * W, -1), mesh)
         x = x + f.reshape(N, W, -1)
         dropped = dropped + d
 
@@ -616,7 +673,8 @@ def decode_forward(
     safe_page = torch.where(active, page_idx_raw, TRASH_PAGE).to(torch.int32)
     offset = (positions % page_size).to(torch.int32)
 
-    x = params.embed[tokens.long()]  # [B, d]
+    mesh = param_mesh(params)
+    x = _embed(params, tokens.long(), mesh)  # [B, d]
     rot = rope_tables(spec, positions)
     for li, lp in enumerate(params.layers):
         h = rms_norm(x, lp.attn_norm, spec.rms_eps)
@@ -626,9 +684,9 @@ def decode_forward(
             block_tables, seq_lens, safe_page, offset, layer=li,
             window=spec.attn_window(li), sinks=lp.get("sinks"),
         )
-        x = x + _o_proj(spec, lp, attn.reshape(B, spec.num_heads * spec.head_dim))
+        x = x + _o_proj(spec, lp, attn.reshape(B, -1), mesh)
         h = rms_norm(x, lp.mlp_norm, spec.rms_eps)
-        x = x + _ffn(spec, lp, h)
+        x = x + _ffn(spec, lp, h, mesh)
     return _logits(spec, params, x)
 
 
@@ -819,15 +877,16 @@ def embed_forward(
     T = tokens.shape[0]
     positions = torch.arange(T, device=tokens.device)
     rot = rope_tables(spec, positions)
-    x = params.embed[tokens.long()]
+    mesh = param_mesh(params)
+    x = _embed(params, tokens.long(), mesh)
     for li, lp in enumerate(params.layers):
         h = rms_norm(x, lp.attn_norm, spec.rms_eps)
         q, k, v = _attn_qkv(spec, lp, h, rot)
         attn = causal_attention(q, k, v, positions, num_tokens,
                                 window=spec.attn_window(li), sinks=lp.get("sinks"))
-        x = x + _o_proj(spec, lp, attn.reshape(T, -1))
+        x = x + _o_proj(spec, lp, attn.reshape(T, -1), mesh)
         h = rms_norm(x, lp.mlp_norm, spec.rms_eps)
-        x = x + _ffn(spec, lp, h)
+        x = x + _ffn(spec, lp, h, mesh)
     return pool_embedding(rms_norm(x, params.final_norm, spec.rms_eps), num_tokens)
 
 
@@ -886,7 +945,8 @@ def reference_forward(
     for tests. tokens: [T] -> logits [T, V] f32."""
     T = tokens.shape[0]
     positions = torch.arange(T, device=tokens.device)
-    x = params.embed[tokens.long()]
+    mesh = param_mesh(params)
+    x = _embed(params, tokens.long(), mesh)
     rot = rope_tables(spec, positions)
     for li, lp in enumerate(params.layers):
         h = rms_norm(x, lp.attn_norm, spec.rms_eps)
@@ -895,7 +955,7 @@ def reference_forward(
             q, k, v, positions, T,
             window=spec.attn_window(li), sinks=lp.get("sinks"),
         )
-        x = x + _o_proj(spec, lp, attn.reshape(T, -1))
+        x = x + _o_proj(spec, lp, attn.reshape(T, -1), mesh)
         h = rms_norm(x, lp.mlp_norm, spec.rms_eps)
-        x = x + _ffn(spec, lp, h)
+        x = x + _ffn(spec, lp, h, mesh)
     return _logits(spec, params, x)

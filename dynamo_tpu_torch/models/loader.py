@@ -35,7 +35,11 @@ half-split order the forward rotates (exact: both sides of every rope dot
 product get the same permutation). ``save_params`` re-fuses ``kv_b_proj``
 and, for a ``rope_interleave`` spec, re-interleaves those columns.
 
-Not ported: loading onto a mesh (ROADMAP Queue A item 11) raises.
+Tensor parallelism: ``load_params(..., mesh=)`` reads only this rank's
+slice of each sharded tensor (models/convert.SHARD_DIMS, on the stored
+axis that maps to it), by offset through the memmap: a rank reads about
+1/tp of the checkpoint's bytes, plus the replicated norms. MoE and MLA
+checkpoints under a mesh raise (ROADMAP Queue A item 11b).
 """
 
 from __future__ import annotations
@@ -106,6 +110,7 @@ class SafetensorsFile:
         self._data = (np.memmap(path, dtype=np.uint8, mode="r", offset=8 + n,
                                 shape=(size,))
                       if size else np.zeros(0, np.uint8))
+        self.bytes_read = 0  # tensor bytes copied out of the file
 
     def __enter__(self) -> "SafetensorsFile":
         return self
@@ -131,6 +136,16 @@ class SafetensorsFile:
         """The tensor in its stored dtype on ``device`` (default the CPU),
         through one host copy of it (the memmap is read-only)."""
         host = torch.from_numpy(np.array(self.get_numpy(name)))
+        self.bytes_read += host.nbytes
+        t = host.view(_ST_DTYPES[self.entries[name]["dtype"]][1])
+        return t if device is None else t.to(device)
+
+    def get_slice(self, name: str, dim: int, sl: slice, device=None) -> torch.Tensor:
+        """The slice ``sl`` of stored axis ``dim`` only, read by offset: a
+        contiguous block for axis 0, one run per row for axis 1."""
+        view = self.get_numpy(name)
+        host = torch.from_numpy(np.array(view[(slice(None),) * dim + (sl,)]))
+        self.bytes_read += host.nbytes
         t = host.view(_ST_DTYPES[self.entries[name]["dtype"]][1])
         return t if device is None else t.to(device)
 
@@ -565,10 +580,14 @@ def load_params(
     ``device`` (None = the GPU), in ``dtype`` (default the spec's; the
     router leaves f32). Each tensor streams on its own: memmap view, one
     host copy, to the device, cast, transpose there. Per-expert tensors land
-    in their row of the stacked ``[E, ...]`` device tensor."""
+    in their row of the stacked ``[E, ...]`` device tensor. With a tp
+    ``mesh`` (a dense llama spec) each sharded tensor is read as this
+    rank's slice only, and the params carry the mesh; ``bytes_read`` on
+    the result counts the tensor bytes read."""
+    from dynamo_tpu_torch.models.convert import SHARD_DIMS, check_shardable
+
     if mesh is not None:
-        raise NotImplementedError(
-            "load_params(mesh=...): meshes are not ported (ROADMAP Queue A item 11)")
+        check_shardable(spec, mesh)
     dev = resolve_device(device)
     dtype = dtype or spec.dtype
     files = sorted(os.path.join(model_dir, f) for f in os.listdir(model_dir)
@@ -589,11 +608,21 @@ def load_params(
     def read(r: SafetensorsFile, name: str, dt: str) -> torch.Tensor:
         return r.get_tensor(name, dev).to(torch_dtype(dt))
 
+    def read_shard(r: SafetensorsFile, name: str, leaf: str, transpose: bool,
+                   dt: str) -> torch.Tensor:
+        dim = SHARD_DIMS.get(leaf)
+        if mesh is None or dim is None:
+            return read(r, name, dt)
+        shape = r.entries[name]["shape"]
+        stored = 1 - dim if transpose and len(shape) == 2 else dim
+        sl = mesh.shard(shape[stored], leaf)
+        return r.get_slice(name, stored, sl, dev).to(torch_dtype(dt))
+
     for r in readers:
         for name in r.keys():
             if name in dest:
                 path, transpose, dt_override = dest[name]
-                t = read(r, name, dt_override or dtype)
+                t = read_shard(r, name, path[-1], transpose, dt_override or dtype)
                 if transpose:
                     t = t.T.contiguous()
                 if mla and spec.rope_interleave:
@@ -658,7 +687,10 @@ def load_params(
         from dynamo_tpu_torch.models.mla import MlaParams as cls
     else:
         cls = LlamaParams
-    return cls(tree["embed"], tree["final_norm"], tree["layers"], tree.get("lm_head"))
+    params = cls(tree["embed"], tree["final_norm"], tree["layers"], tree.get("lm_head"))
+    params.mesh = mesh
+    params.bytes_read = sum(r.bytes_read for r in readers)
+    return params
 
 
 def _interleave(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -737,13 +769,18 @@ def save_params(
         json.dump(cfg, f, indent=2)
 
 
+def spec_from_dir(model_dir: str, name: str | None = None) -> ModelSpec:
+    """The spec of the checkpoint in ``model_dir`` (its config.json)."""
+    with open(os.path.join(model_dir, "config.json")) as f:
+        cfg = json.load(f)
+    return spec_from_hf_config(cfg, name=name or os.path.basename(model_dir.rstrip("/")))
+
+
 def load_model_dir(
     model_dir: str, *, mesh=None, dtype: str | None = None,
     name: str | None = None, device: str | torch.device | None = None,
 ) -> tuple[ModelSpec, LlamaParams]:
-    """One call: config.json -> spec, safetensors -> params on ``device``."""
-    with open(os.path.join(model_dir, "config.json")) as f:
-        cfg = json.load(f)
-    spec = spec_from_hf_config(
-        cfg, name=name or os.path.basename(model_dir.rstrip("/")))
+    """One call: config.json -> spec, safetensors -> params on ``device``
+    (with a tp ``mesh``, this rank's slice of each sharded tensor)."""
+    spec = spec_from_dir(model_dir, name)
     return spec, load_params(spec, model_dir, mesh=mesh, dtype=dtype, device=device)

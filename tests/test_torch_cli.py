@@ -68,12 +68,15 @@ def test_run_builds_the_reference_engine_config(monkeypatch, argv, env):
 
 
 def test_run_tp_2_refuses_naming_item_11(monkeypatch):
+    """``--tp 2`` builds the reference's config; a model that does not
+    shard over it (MLA: item 11b) is refused before any rank starts."""
     for k in ENV:
         monkeypatch.delenv(k, raising=False)
     assert _run(monkeypatch, jax_worker, jax_cli._run_command, ["--tp", "2"]).tp == 2
     _capture(monkeypatch, worker)
     with pytest.raises(NotImplementedError, match="item 11"):
-        cli._run_command(["--out", "engine", "--port", "0", "--tp", "2"])
+        cli._run_command(["--out", "engine", "--port", "0", "--tp", "2",
+                          "--model", "tiny-deepseek"])
 
 
 @pytest.mark.parametrize("argv", [["--spec", "eagle"], ["--guided", "on"]])

@@ -67,7 +67,9 @@ CFG_KW = dict(page_size=4, num_pages=256, max_pages_per_seq=32,
 EMBED_SCALE = 4.0  # diverse greedy streams, equal across the packages
 
 # catalogued names that wait for slices the port lacks
-PHASES_NOT_PORTED = {"spmd_sync"}  # multi-host SPMD: ROADMAP Queue A item 11
+# every phase of the reference's catalog is ported (spmd_sync came with the
+# SPMD plane, ROADMAP Queue A item 11a)
+PHASES_NOT_PORTED: set[str] = set()
 SPANS_NOT_PORTED = {"epp.pick"}  # the gateway's EPP: ROADMAP Queue A item 14
 
 

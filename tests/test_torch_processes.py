@@ -424,11 +424,12 @@ _REFUSED_FLAGS = {
     "kvbm": (["--kvbm-host-mb", "64"], None),
     "prefill-component": (["--prefill-component", "p2"], None),
     "always-remote-prefill": (["--always-remote-prefill"], None),
-    "tp": (["--tp", "2"], "item 11"),
+    # ported since (tensor parallelism, item 11a): these build their config
+    "tp": (["--tp", "2"], None),
     "sp": (["--sp", "2"], "item 11"),
     "ep": (["--ep", "2"], "item 11"),
-    "mirror": (["--mirror", "leader"], "item 11"),
-    "coordinator": (["--coordinator-address", "h:1"], "item 11"),
+    "mirror": (["--mirror", "leader"], None),
+    "coordinator": (["--coordinator-address", "h:1"], None),
     # ported since (speculative decoding, overload, checkpoint loading):
     # these build their config
     "model-path": (["--model-path", "/ckpt"], None),
@@ -476,6 +477,7 @@ def test_worker_flags_of_unported_features_raise(case):
         assert args.prefill_router_mode == ("round_robin" if "--prefill-router-mode"
                                             in flags else "kv")
         assert args.always_remote_prefill is ("--always-remote-prefill" in flags)
+        assert cfg.tp == (2 if "--tp" in flags else 1)
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue A {item}"):
         cli.main(["worker", "--hub", "127.0.0.1:1", "--device", "cpu", *flags])

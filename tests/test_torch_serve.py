@@ -120,6 +120,9 @@ class _Stacks:
             self.drt, model_name=MODEL, spec=ModelSpec(**SPEC_KW),
             engine_config=EngineConfig(**CFG_KW), params=tp, device="cpu",
             router_mode="round_robin", tool_call_parser="hermes")
+        # the JAX side runs no telemetry collector: a tick of the port's
+        # between two /metrics scrapes would add series the JAX side lacks
+        await self.eng.telemetry.close()
         self.watch = await ModelWatcher(self.drt, ModelManager()).start()
         await self.watch.wait_for_model(MODEL, timeout=10)
         self.http = HttpFrontend(self.watch.manager, host="127.0.0.1", port=0,
