@@ -488,8 +488,35 @@ Phases, each of which must pass (any failure exits non-zero):
    kv_digest over the same pages, and draining with its rank on SIGTERM. Every rank's launches join the kernels
    line (fused_decode/tp2, fused_decode/tp4 at the ranks' shapes).
 
+23. expert parallelism (after phase 22, every engine freed): fused_decode
+   at gpt-oss-120b's tp=2 rank shape (KH 4, G 8, D 64, window 128 + sinks,
+   bf16 and fp8 pools) against its plain version, timed beside SDPA and
+   its bound; then three gloo groups on this card, each after a one-rank
+   reference on the same seeded weights (input embedding x 64, eager
+   steps; its results kept on the host and the card freed before the
+   ranks start): (a) gpt-oss-120b at full width, 4 layers, over ep=2 x
+   tp=2, (b) deepseek-r1 at full width, 4 layers (layer 3 holds all 256
+   experts), over ep=2 x tp=2, (c) gpt-oss-120b at full width, 2 layers,
+   over ep=4 x tp=1 (attention replicated). Each rank joins the group
+   (make_mesh(ep, tp)), draws its shard of the seeded init one rank at a
+   time, runs phase 15's (16's) prompt alone through a prefill, and serves
+   phase 4's first 4 prompts as an SPMD leader or follower. Gates: the
+   prefill logits within TP_LOGIT_TOL of one rank's, its dropped slots
+   equal to one rank's on every rank, the streams equal up to the
+   reference's first near-tie, each rank's pages within TP_POOL_TOL of one
+   rank's (its KV heads; MLA's whole latent rows): every layer of the
+   prompt alone, layer 0 of the serve's sealed pages (deeper layers follow
+   the routing, which a rounding can flip; their worst is printed), the ep
+   replicas of each tp coordinate bitwise equal (MLA: all four ranks), fused_decode
+   once per layer per step on every rank of (a) and (c) (MLA runs none);
+   for (a) and (b) two planted faults read above TP_LOGIT_TOL (the first
+   MoE layer's expert-group all-reduce skipped; each rank's experts fed
+   its neighbour ep rank's rows). Prints weights per rank, memory and the
+   collectives per group. The launches join the kernels line
+   (fused_decode/gpt-oss-tp2 for (a), fused_decode/gpt-oss for (c)).
+
 Phases run in the order 1-8, 12, 13, 14, 18, 9, 20 (a, b, d), 21, 10, 11,
-19, 20 (c), 15, 16, 17, 22.
+19, 20 (c), 15, 16, 17, 22, 23.
 
 Prints, before the last line, the card line and one JSON object with every
 kernel's measurements; the last line is
@@ -4840,15 +4867,14 @@ def prefix_family_report(res: dict, fused_check) -> None:
 # ------------------------------------------------ MoE and checkpoints
 
 
-def gpt_oss_spec():
-    """gpt-oss-120b at full width, MOE_LAYERS layers deep."""
+def gpt_oss_spec(layers: int = MOE_LAYERS):
+    """gpt-oss-120b at full width, ``layers`` deep."""
     import dataclasses
 
     from dynamo_tpu_torch.engine.config import ModelSpec
 
     full = ModelSpec.gpt_oss_120b()
-    return dataclasses.replace(full, num_layers=MOE_LAYERS,
-                               layer_types=full.layer_types[:MOE_LAYERS])
+    return dataclasses.replace(full, num_layers=layers, layer_types=full.layer_types[:layers])
 
 
 def dropped_total(engine) -> int:
@@ -4869,8 +4895,8 @@ def dropfree_reference_check(spec, params, prompt, tokens):
     real, drops = moe.moe_mlp, []
     no_drop = spec.num_experts / spec.num_experts_per_token
 
-    def counted(spec_, lp, x, *, capacity_factor=1.25, return_dropped=False):
-        out, d = real(spec_, lp, x, capacity_factor=no_drop, return_dropped=True)
+    def counted(spec_, lp, x, *, capacity_factor=1.25, return_dropped=False, **kw):
+        out, d = real(spec_, lp, x, capacity_factor=no_drop, return_dropped=True, **kw)
         drops.append(d)
         return (out, d) if return_dropped else out
 
@@ -5172,9 +5198,10 @@ def prefill_capacity_reference_check(spec, params, prompt, tokens):
     real, drops, n = moe.moe_mlp, [], len(prompt)
     no_drop = spec.num_experts / spec.num_experts_per_token
 
-    def split(spec_, lp, x, *, capacity_factor=1.25, return_dropped=False):
-        a, d = real(spec_, lp, x[:n], capacity_factor=capacity_factor, return_dropped=True)
-        b, db = real(spec_, lp, x[n:], capacity_factor=no_drop, return_dropped=True)
+    def split(spec_, lp, x, *, capacity_factor=1.25, return_dropped=False, **kw):
+        a, d = real(spec_, lp, x[:n], capacity_factor=capacity_factor, return_dropped=True,
+                    **kw)
+        b, db = real(spec_, lp, x[n:], capacity_factor=no_drop, return_dropped=True, **kw)
         drops.append(d)
         require(int(db) == 0, f"served rows dropped {int(db)} slots at capacity T")
         out = torch.cat([a, b])
@@ -5197,8 +5224,9 @@ def counted_drops():
 
     real, drops = moe.moe_mlp, []
 
-    def counted(spec_, lp, x, *, capacity_factor=1.25, return_dropped=False):
-        out, d = real(spec_, lp, x, capacity_factor=capacity_factor, return_dropped=True)
+    def counted(spec_, lp, x, *, capacity_factor=1.25, return_dropped=False, **kw):
+        out, d = real(spec_, lp, x, capacity_factor=capacity_factor, return_dropped=True,
+                      **kw)
         if not torch.cuda.is_current_stream_capturing():
             drops.append(d)
         return (out, d) if return_dropped else out
@@ -7640,7 +7668,8 @@ def _allocated(dev) -> int:
 
 def tp_rank(rank, n, port, job, q):
     """A spawned rank: join the group (the job's backend and device), run
-    ``tp_rank_serve``, put its result (or the traceback) on ``q``."""
+    ``tp_rank_serve`` (``ep_rank_serve`` for a job with an ``ep``), put its
+    result (or the traceback) on ``q``."""
     import traceback
 
     try:
@@ -7652,8 +7681,9 @@ def tp_rank(rank, n, port, job, q):
             build.load_library()  # built by the parent
         initialize_multihost(f"127.0.0.1:{port}", n, rank, device=job["device"],
                              backend=job["backend"], timeout_s=TP_TIMEOUT_S)
+        run = ep_rank_serve if "ep" in job else tp_rank_serve
         try:
-            q.put((rank, asyncio.run(tp_rank_serve(rank, n, job))))
+            q.put((rank, asyncio.run(run(rank, n, job))))
         finally:
             shutdown()
     except BaseException:  # noqa: BLE001 - reported to the parent
@@ -7690,10 +7720,10 @@ def run_ranks(n: int, target, job, timeout: float = 900.0) -> list[dict]:
             except _queue.Empty:
                 dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
                 require(not dead and time.perf_counter() < deadline,
-                        f"phase 22 ranks: exit codes {[p.exitcode for p in procs]}, "
+                        f"ranks: exit codes {[p.exitcode for p in procs]}, "
                         f"{len(got)}/{n} results")
                 continue
-            require("error" not in res, f"phase 22 rank {r} failed:\n{res.get('error')}")
+            require("error" not in res, f"rank {r} failed:\n{res.get('error')}")
             got[r] = res
     finally:
         for p in procs:
@@ -8098,13 +8128,30 @@ def tp_kernel_rows(flush, card) -> dict[str, dict]:
             kp, vp = t["k_pages"], t["v_pages"]
             kw_ms = time_ms(lambda: kv_write.kv_write(kp, vp, kn, vn, dp, do, layer=layer),
                             flush)
+            kw_plain = time_ms(lambda: kv_write.kv_write_plain(kp, vp, kn, vn, dp, do,
+                                                               layer=layer), flush)
             B, D = q.shape[0], q.shape[2]
             kw_bound, _ = (fp8_append_bound(dp, kh, kp.vals.shape[3], D) if fp8
                            else bound_ms(4 * B * kh * D * 2 + 2 * B * 4, 0.0))
+            kw_lib = "none (no single PyTorch call requantizes)"
+            if not fp8:  # one index_copy_ per pool, as check_kernels' library row
+                NP, page = kp.shape[1], kp.shape[3]
+                rows_ = (((layer * NP + dp.long()) * kh)[:, None]
+                         + torch.arange(kh, device=DEVICE)[None]) * page + do.long()[:, None]
+                rows_ = rows_.reshape(-1)
+                kflat, vflat = kp.view(-1, D), vp.view(-1, D)
+                kr, vr = kn.reshape(-1, D), vn.reshape(-1, D)
+
+                def library_copy():
+                    kflat.index_copy_(0, rows_, kr)
+                    vflat.index_copy_(0, rows_, vr)
+
+                kw_lib = f"{time_ms(library_copy, flush):.4f} ms (2x index_copy_)"
             print(f"time tp {form} [{card}]: fused_decode {times['ms']:.4f} ms, plain "
                   f"{times['plain_ms']:.4f} ms, SDPA {times['library_ms']:.4f} ms, bound "
                   f"{times['bound_ms']:.6f} ms ({times['bound_by']}); kv_write "
-                  f"{kw_ms:.4f} ms, bound {kw_bound:.6f} ms")
+                  f"{kw_ms:.4f} ms, plain {kw_plain:.4f} ms, library {kw_lib}, bound "
+                  f"{kw_bound:.6f} ms")
             if not fp8:
                 rows[name] = {"max_abs_err": err_f, **times}
             del t, kp, vp
@@ -8157,6 +8204,492 @@ def tp_phase(cfg, prompts, bf16_tokens, card, flush) -> tuple[dict, dict[str, in
           f"(b) {b} (c) {c} (d) {d} (e) {e} (f, rank 0) {f}")
     return rows, {"fused_decode": c + d, "fused_decode/tp2": a + e + f,
                   "fused_decode/tp4": b}
+
+
+# ---------------------------------------------------- expert parallelism
+
+EP_PROMPTS = 4  # phase 4's first prompts, served by every phase-23 group
+EP_WIDE_LAYERS = 2  # gpt-oss-120b's depth in (c), ep=4 x tp=1
+# (a)-(c) hold the ranks to phase 22's gates (TP_LOGIT_TOL on the prefill
+# logits, TP_POOL_TOL on the sealed pages); each planted fault must read
+# above TP_LOGIT_TOL in every run
+
+
+def ep_spec(kind: str, layers: int):
+    """gpt-oss-120b or deepseek-r1 at full width, ``layers`` deep."""
+    return gpt_oss_spec(layers) if kind == "gpt-oss" else deepseek_spec(layers)
+
+
+def ep_alone(spec) -> list[int]:
+    """Phase 15's (gpt-oss) or phase 16's (MLA) prompt served alone: its
+    prefill's logits and dropped slots are the groups' first gate."""
+    seed, n = (MLA_SEED, MLA_PROMPT) if spec.is_mla else (MOE_SEED, MOE_PROMPT)
+    return np.random.default_rng(seed).integers(3, spec.vocab_size, n).tolist()
+
+
+def ep_prefill(spec, params, prompt, device, pages: bool = False):
+    """One prefill of ``prompt`` on scratch pools (this rank's KV heads, or
+    MLA's whole latent pool) through the family's entry point: (its last
+    position's logits on the host, the slots its experts dropped), and with
+    ``pages`` its pages on the host (``tp_pages``' numpy blocks) and each
+    MoE layer's chosen experts [T, k] (``moe.route``, in layer order)."""
+    from dynamo_tpu_torch.models import moe
+    from dynamo_tpu_torch.models.family import get_family
+
+    fam = get_family(spec)
+    mesh = getattr(params, "mesh", None)
+    bucket = -(-len(prompt) // 16) * 16
+    n_pages = bucket // 16
+    k, v = fam.init_cache(spec, n_pages + 1, 16, device=device,
+                          tp=mesh.tp if mesh is not None else 1)
+    tok = torch.zeros(bucket, dtype=torch.int32, device=device)
+    tok[: len(prompt)] = torch.tensor(prompt, dtype=torch.int32)
+    bt = torch.arange(1, n_pages + 1, dtype=torch.int32, device=device)
+    real, routes = moe.route, []
+
+    def kept(spec_, lp, x):
+        w, i = real(spec_, lp, x)
+        routes.append(i)
+        return w, i
+
+    moe.route = kept
+    try:
+        with torch.no_grad(), counted_drops() as drops:
+            logits, _ = fam.prefill(spec, params, tok, bt, 0, k, v, len(prompt))
+    finally:
+        moe.route = real
+    out = (logits.float().cpu(), sum(int(d) for d in drops))
+    if pages:
+        from dynamo_tpu_torch.kvbm.offload import block_numpy
+
+        kb, vb = fam.extract_pages(k, v, bt.long())
+        out += ((block_numpy(kb.cpu()), block_numpy(vb.cpu())),
+                [i[: len(prompt)].sort(dim=-1).values.cpu().numpy() for i in routes])
+    del k, v
+    return out
+
+
+def ep_fault_logits(spec, params, prompt, device, kind: str):
+    """``ep_prefill`` with a planted fault, the same on every rank (so the
+    collectives still line up): ``reduce``, the first MoE layer's
+    expert-group all-reduce skipped (each rank goes on with its partial);
+    ``neighbour``, each rank's experts fed the rows routed to its
+    neighbour ep rank's experts. The logits gate must reject both."""
+    mesh = params.mesh
+    if kind == "reduce":
+        real, seen = mesh.all_reduce, []
+
+        def skip_first(x, over="tp"):
+            if over == "expert" and not seen:
+                seen.append(over)
+                return x
+            return real(x, over)
+
+        mesh.all_reduce = skip_first
+        try:
+            return ep_prefill(spec, params, prompt, device)[0]
+        finally:
+            del mesh.all_reduce
+    ep0 = mesh.coords["ep"]
+    mesh.coords["ep"] = (ep0 + 1) % mesh.ep
+    try:
+        return ep_prefill(spec, params, prompt, device)[0]
+    finally:
+        mesh.coords["ep"] = ep0
+
+
+async def ep_rank_serve(rank, n, job):
+    """One rank of a phase-23 group: the port's entry points (the group's
+    bootstrap, make_mesh(ep, tp), this rank's shard of the seeded init
+    drawn one rank at a time, the engine behind an SPMD leader or a
+    follower shell); rank 0 serves the prompts, the others replay."""
+    import torch.distributed as dist
+
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelSpec
+    from dynamo_tpu_torch.engine.core import InferenceEngine
+    from dynamo_tpu_torch.models.family import get_family
+    from dynamo_tpu_torch.parallel.mesh import make_mesh
+    from dynamo_tpu_torch.parallel.spmd import SpmdFollower, SpmdLeader, StoreHub
+
+    ep = job["ep"]
+    mesh = make_mesh(ep=ep, tp=n // ep)
+    dev = mesh.device
+    spec = ModelSpec(**job["spec"])
+    out = {"rank": rank, "device": str(dev), "coords": dict(mesh.coords)}
+    # one rank draws at a time: a full expert stack is drawn in f32 before
+    # it is cut (15 GB for deepseek-r1's), and every rank shares this card
+    for r in range(n):
+        if r == rank:
+            t0 = time.perf_counter()
+            params = get_family(spec).init_params(spec, 0, device=dev, mesh=mesh)
+            with torch.no_grad():
+                params.embed.mul_(MOE_EMBED_SCALE)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            out["init_s"] = time.perf_counter() - t0
+            out["params_bytes"] = sum(p.nbytes for p in params.parameters())
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()  # the f32 draws' blocks, for the next rank
+        dist.barrier()
+    logits, out["drops"], out["alone_pages"], out["routes"] = ep_prefill(
+        spec, params, job["alone"], dev, pages=True)
+    faults = {kind: ep_fault_logits(spec, params, job["alone"], dev, kind)
+              for kind in job["faults"]}
+    if rank == 0:
+        out["logits"] = logits.numpy()
+        out["faults"] = {k: v.numpy() for k, v in faults.items()}
+    cfg = EngineConfig(**job["cfg"], tp=mesh.tp, ep=ep, cuda_graphs=False)
+    group = f"phase23/{job['label']}"
+    stats0 = {k: dict(v) for k, v in mesh.group_stats.items()}
+    if rank == 0:
+        leader = await SpmdLeader(StoreHub(), asyncio.get_running_loop(), group,
+                                  strict=True).start()
+        engine = InferenceEngine(spec, cfg, params=params, device=dev, mesh=mesh,
+                                 spmd=leader)
+        out["mem_bytes"] = _allocated(dev)
+        out["pool_bytes"] = engine.pool_bytes
+        zero_counts()
+        with counted_drops() as kept:
+            await engine.start()
+            results, ttft, wall, hit = await serve(engine, job["prompts"])
+        out["counts"] = read_counts()
+        out["serve_drops"] = sum(int(d) for d in kept)
+        out.update(tokens={i: [t for x in items for t in x["token_ids"]]
+                           for i, items in results.items()},
+                   ttft=ttft, wall=wall, steps=engine.steps,
+                   publishes=leader.publish_count)
+        await engine.kv_digest()  # the followers record the same pages
+        ids = engine.allocator.used_page_ids()[:TP_POOL_PAGES]
+        out["hashes"] = [engine.allocator._page_hash.get(p) for p in ids]
+        out["pages"] = tp_pages(engine, ids)
+        await engine.close()
+    else:
+        engine = InferenceEngine(spec, cfg, params=params, device=dev, mesh=mesh)
+        out["mem_bytes"] = _allocated(dev)
+        zero_counts()
+        f = SpmdFollower(StoreHub(), group, engine, rejoin=False)
+        await f.run()
+        out["counts"] = read_counts()
+        out["ops"] = dict(f.ops)
+        out["pages"] = tp_pages(engine, f.digest_pages[:TP_POOL_PAGES])
+    out["coll"] = {g: {k: mesh.group_stats[g][k] - stats0[g][k] for k in stats0[g]}
+                   for g in stats0}
+    return out
+
+
+def ep_reference(spec, cfg, prompts, alone):
+    """The one-rank engine on the same seeded weights (eager steps, as the
+    gloo groups'): its prefill logits and drops for ``alone``, its greedy
+    streams with the first position of each whose reference top-2 gap is
+    under NEAR_ARGMAX, its sealed pages by block hash, its weight bytes.
+    Everything it returns is on the host: the card is freed for the
+    ranks."""
+    import gc
+
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.core import InferenceEngine
+    from dynamo_tpu_torch.kvbm.offload import block_tensor
+    from dynamo_tpu_torch.models import llama, mla
+    from dynamo_tpu_torch.models.family import get_family
+
+    params = get_family(spec).init_params(spec, 0, device=DEVICE)
+    with torch.no_grad():
+        params.embed.mul_(MOE_EMBED_SCALE)
+    out = {"params_bytes": sum(p.nbytes for p in params.parameters()),
+           "alone_len": len(alone)}
+    out["logits"], out["drops"], (kb, vb), out["routes"] = ep_prefill(
+        spec, params, alone, DEVICE, pages=True)
+    out["alone_pages"] = (block_tensor(kb).float(), block_tensor(vb).float())
+    engine = InferenceEngine(spec, EngineConfig(**cfg, cuda_graphs=False), params=params,
+                             device=DEVICE)
+    with counted_drops() as kept:
+        res = serve_phases(engine, [("default", lambda e: serve(e, prompts))])["default"]
+    out["serve_drops"] = sum(int(d) for d in kept)
+    out["tokens"] = {i: [t for x in items for t in x["token_ids"]]
+                     for i, items in res["res"][0].items()}
+    fwd = (mla if spec.is_mla else llama).reference_forward
+    ties = {}
+    for i, toks in out["tokens"].items():
+        seq = torch.tensor(prompts[i] + toks[:-1], device=DEVICE)
+        with torch.no_grad():
+            top2 = fwd(spec, params, seq)[len(prompts[i]) - 1:].topk(2, dim=-1).values
+        near = ((top2[:, 0] - top2[:, 1]) < NEAR_ARGMAX).cpu().numpy()
+        ties[i] = int(np.argmax(near)) if near.any() else len(toks)
+    out["ties"] = ties
+    hashes = dict(engine.allocator._hash_page)
+    kb, vb = engine.fam.extract_pages(
+        engine.k_pages, engine.v_pages,
+        torch.tensor(list(hashes.values()), dtype=torch.int64, device=DEVICE))
+    kb, vb = kb.float().cpu(), vb.float().cpu()
+    out["pages"] = {h: (kb[:, j], vb[:, j]) for j, h in enumerate(hashes)}
+    drop_engine(engine)
+    del engine, params, kb, vb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ep_check(spec, ref, ranks, label, card, faults) -> int:
+    """Hold a group against the one-rank reference: prefill logits within
+    TP_LOGIT_TOL and each planted fault above it, the prefill's dropped
+    slots equal on every rank, streams equal up to the reference's first
+    near-tie, each rank's pages (its tp coordinate's KV heads; MLA's whole
+    latent rows) within TP_POOL_TOL of the reference's: every layer of the
+    alone prompt's, layer 0 of the serve's; the ep replicas of each tp
+    coordinate bitwise equal (MLA: all ranks), fused_decode once per layer
+    per step on every rank of a GQA group. Prints per-rank
+    weights, memory and collectives per group. Returns every rank's
+    fused_decode launches."""
+    from dynamo_tpu_torch.kvbm.offload import block_tensor
+
+    lead = ranks[0]
+    n, L = len(ranks), spec.num_layers
+    tp = 1 + max(r["coords"]["tp"] for r in ranks)
+    want = ref["logits"]
+    scale = want.abs().max().item()
+    lerr = (torch.from_numpy(lead["logits"]) - want).abs().max().item() / scale
+    require(lerr <= TP_LOGIT_TOL, f"{label}: prefill logits differ by {lerr:.3e} of the max")
+    ferr = {k: (torch.from_numpy(v) - want).abs().max().item() / scale
+            for k, v in lead.get("faults", {}).items()}
+    for k in faults:
+        require(ferr[k] > TP_LOGIT_TOL, f"{label}: planted fault {k} differs by only "
+                f"{ferr[k]:.3e}: the gate cannot see it")
+    drops = [r["drops"] for r in ranks]
+    require(all(d == ref["drops"] for d in drops),
+            f"{label}: prefill dropped slots {drops} per rank, one rank {ref['drops']}")
+    print(f"{label}: prefill logits ({ref['alone_len']}-token prompt) vs one rank "
+          f"max |diff| / max |logit| {lerr:.3e} (tol {TP_LOGIT_TOL}); planted faults "
+          f"{ {k: f'{v:.3e}' for k, v in ferr.items()} }; dropped slots {drops[0]} on every "
+          f"rank, one rank {ref['drops']}")
+    same_all, parts = 0, []
+    for i, want_t in ref["tokens"].items():
+        got = lead["tokens"][i]
+        require(len(got) == SERVE_TOKENS, f"{label}: request {i} {len(got)} tokens")
+        same = next((j for j, (a, b) in enumerate(zip(got, want_t)) if a != b), len(got))
+        if same < len(got):
+            require(same >= ref["ties"][i], f"{label}: request {i} parts from one rank at "
+                    f"{same} before its first near-tie at {ref['ties'][i]}")
+            parts.append((i, same, ref["ties"][i]))
+        else:
+            same_all += 1
+    print(f"{label}: {same_all} of {len(ref['tokens'])} greedy streams equal to one rank's, "
+          f"the others part at or after a near-tie (request, first difference, first "
+          f"near-tie): {parts}; serve drops {lead['serve_drops']} (one rank "
+          f"{ref['serve_drops']}: a router near-tie decided otherwise moves capacity "
+          "positions)")
+    def rel(got, want):
+        return (got - want).abs().max().item() / want.abs().max().item()
+
+    def head_cut(want, t, kh):  # [L, (n,) KH, page, D]: tp coordinate t's heads
+        return want if spec.is_mla else want.narrow(-3, t * kh, kh)
+
+    # the prompt alone (the prefill of the logits gate): a token row of
+    # layer l whose experts matched one rank's in every MoE layer before l
+    # ("routed alike") within TP_POOL_TOL of its layer's max; a row past a
+    # router near-tie that the rounding of x decided otherwise moves by O(1)
+    # and is counted and printed
+    T = ref["alone_len"]
+    moe_layers = [l for l in range(L) if not spec.is_mla or l >= spec.first_k_dense]
+    alike = torch.ones(L, T, dtype=torch.bool)
+    for m, (a, b) in enumerate(zip(lead["routes"], ref["routes"])):
+        alike[moe_layers[m] + 1:] &= torch.from_numpy((a == b).all(-1))
+    for res in ranks:
+        require(all(np.array_equal(a, b) for a, b in zip(res["routes"], lead["routes"])),
+                f"{label}: rank {res['coords']} routed otherwise than rank 0")
+    flips = [int((~(a == b).all(-1)).sum()) for a, b in zip(lead["routes"], ref["routes"])]
+    def row_err(got, want):  # [L, T]: each token row's max |diff| / its layer's max
+        dims = tuple(range(2, got.dim() - 2)) + (got.dim() - 1,)  # heads and D
+        err = (got - want).abs().amax(dim=dims).reshape(L, -1)[:, :T]
+        return err / want.abs().reshape(L, -1).amax(dim=1)[:, None]
+
+    alone, other, swapped = 0.0, 0.0, float("inf")
+    for res in ranks:
+        t = res["coords"]["tp"]
+        for pool in (0,) if spec.is_mla else (0, 1):
+            got = block_tensor(res["alone_pages"][pool]).float()
+            kh = 0 if spec.is_mla else got.shape[2]
+            err = row_err(got, head_cut(ref["alone_pages"][pool], t, kh))
+            alone = max(alone, err[alike].max().item())
+            if (~alike).any():
+                other = max(other, err[~alike].max().item())
+            if kh and tp > 1:  # the planted fault: this rank against its neighbour's heads
+                wrong = row_err(got, head_cut(ref["alone_pages"][pool], (t + 1) % tp, kh))
+                swapped = min(swapped, wrong[alike].max().item())
+    require(alone <= TP_POOL_TOL, f"{label}: the alone prompt's routed-alike rows differ "
+            f"by {alone:.3e} of their layer's max")
+    require(swapped > TP_POOL_TOL, f"{label}: pages against a neighbour's KV heads differ "
+            f"by only {swapped:.3e}: the gate cannot see a wrong shard")
+    # the serve's sealed pages: layer 0 (upstream of every routing
+    # decision) within TP_POOL_TOL; deeper layers follow the routing, and a
+    # token that one side routes or drops otherwise (capacity positions
+    # move with the rounding of x) moves by O(1): their worst and the share
+    # of pages within TP_POOL_TOL are printed
+    ids, _k, _v = lead["pages"]
+    rows = [j for j, h in enumerate(lead["hashes"]) if h in ref["pages"]]
+    require(len(rows) >= 16, f"{label}: {len(rows)} sealed blocks in common with one rank")
+    first, deep, within, total_pages = 0.0, 0.0, 0, 0
+    blocks = []
+    for r, res in enumerate(ranks):
+        rids, kb, vb = res["pages"]
+        require(list(rids) == list(ids), f"{label}: rank {r} holds other pages")
+        blocks.append((kb, vb))
+        for pool, got in ((0, block_tensor(kb)), (1, block_tensor(vb))):
+            if spec.is_mla and pool == 1:
+                continue  # the inert v slot
+            for j in rows:
+                g = got[:, j].float()
+                w = head_cut(ref["pages"][lead["hashes"][j]][pool], res["coords"]["tp"],
+                             0 if spec.is_mla else g.shape[1])
+                first = max(first, rel(g[0], w[0]))
+                e = rel(g, w)
+                deep = max(deep, e)
+                within += e <= TP_POOL_TOL
+                total_pages += 1
+    require(first <= TP_POOL_TOL, f"{label}: layer 0 of the rank pages differs by "
+            f"{first:.3e} of the max")
+    groups = {}
+    for r, res in enumerate(ranks):
+        groups.setdefault(0 if spec.is_mla else res["coords"]["tp"], []).append(r)
+    for members in groups.values():
+        for r in members[1:]:
+            same = [np.array_equal(a, b) for a, b in zip(blocks[r], blocks[members[0]])]
+            same += [np.array_equal(a, b) for a, b in
+                     zip(ranks[r]["alone_pages"], ranks[members[0]]["alone_pages"])]
+            require(all(same), f"{label}: rank {r}'s pages differ from rank "
+                    f"{members[0]}'s (ep replicas must be bitwise equal)")
+    print(f"{label}: vs one rank's {'latent rows' if spec.is_mla else 'matching KV-head slice'}"
+          f" (max |diff| / max |value|, tol {TP_POOL_TOL}): the alone prompt's rows routed "
+          f"alike {alone:.3e} ({int(alike.sum())} of {L * T}; tokens routed otherwise per "
+          f"MoE layer {flips}, the rows after them {other:.3e}"
+          + (f"; planted fault, each rank against its neighbour's heads, at least "
+             f"{swapped:.3e}" if swapped < float("inf") else "")
+          + f"); the serve's {len(rows)} sealed pages per rank, layer 0 "
+          f"{first:.3e}, all layers worst {deep:.3e} ({within} of {total_pages} rank pages "
+          f"within the tolerance); pages bitwise equal within each replica set "
+          f"{list(groups.values())}, the serve's and the alone prompt's")
+    total = 0
+    steps = lead["steps"]
+    for r, res in enumerate(ranks):
+        c = res["counts"]
+        want_f = 0 if spec.is_mla else L * steps
+        require(DEVICE != "cuda" or (c["fused_decode"] == want_f
+                                     and (spec.is_mla or c["fused_decode"] > 0)
+                                     and c["kv_write"] == 0
+                                     and c["paged_attention_v3"] == 0),
+                f"{label}: rank {r} launches {c} over {steps} decode steps")
+        total += c["fused_decode"]
+        co = res["coll"]
+        print(f"{label}: rank {r} {res['coords']} on {res['device']}: fused_decode "
+              f"{c['fused_decode']} launches ({L} x {steps} steps); weights "
+              f"{res['params_bytes'] / 1e9:.3f} GB (one rank {ref['params_bytes'] / 1e9:.3f}), "
+              f"allocated after the pools {res['mem_bytes'] / 1e9:.3f} GB, init "
+              f"{res['init_s']:.1f} s; expert group {co['expert']['calls']} all-reduces "
+              f"{co['expert']['bytes'] / 1e6:.1f} MB {co['expert']['secs']:.2f} s, tp group "
+              f"{co['tp']['calls']} collectives {co['tp']['bytes'] / 1e6:.1f} MB "
+              f"{co['tp']['secs']:.2f} s" + (f"; replayed {res['ops']}" if "ops" in res else ""))
+    share = (lead["coll"]["expert"]["secs"] + lead["coll"]["tp"]["secs"]) / lead["wall"]
+    print(f"{label} [{card}]: NOT ep timings ({n} processes time-slice one card): serve "
+          f"{sum(len(t) for t in lead['tokens'].values())} tokens in {lead['wall']:.2f} s, "
+          f"TTFT mean {1e3 * sum(lead['ttft'].values()) / len(lead['ttft']):.1f} ms, "
+          f"{lead['publishes']} descriptors; the leader's collectives {share:.3f} of the "
+          f"serve's wall (staged through host memory); pools {lead['pool_bytes'] / 1e9:.3f} "
+          f"GB per rank")
+    return total
+
+
+def ep_group(kind, layers, ep, tp, cfg, label, card, faults) -> int:
+    """Phase 23 (a)-(c): the one-rank reference in this process (freed
+    before the ranks start), then ep x tp gloo ranks on this card."""
+    import dataclasses
+
+    t0 = time.perf_counter()
+    spec = ep_spec(kind, layers)
+    prompts = make_prompts(spec.vocab_size)[:EP_PROMPTS]
+    alone = ep_alone(spec)
+    ref = ep_reference(spec, cfg, prompts, alone)
+    free, total = torch.cuda.mem_get_info() if DEVICE == "cuda" else (0, 0)
+    print(f"{label}: one-rank reference done; this process holds "
+          f"{_allocated(torch.device(DEVICE)) / 1e9:.3f} GB, the card has {free / 1e9:.1f} of "
+          f"{total / 1e9:.1f} GB free")
+    job = {"spec": dataclasses.asdict(spec), "cfg": dict(cfg), "prompts": prompts,
+           "alone": alone, "ep": ep, "faults": faults, "backend": "gloo",
+           "device": DEVICE, "label": label}
+    # the ranks draw full expert stacks one at a time in a card they share:
+    # growable segments keep a freed f32 stack reusable after its cut
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ranks = run_ranks(ep * tp, tp_rank, job)
+    finally:
+        if conf is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+    launches = ep_check(spec, ref, ranks, label, card, faults)
+    print(f"{label}: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def ep_kernel_row(flush, card) -> dict:
+    """fused_decode at gpt-oss-120b's tp=2 rank shape (B 8, KH 4, G 8, D 64,
+    window MOE_WINDOW + sinks), bf16 and fp8 pools: held against its plain
+    version, timed beside it, SDPA with the same window and sinks, and the
+    bound. Returns the bf16 row of the kernels line."""
+    from dynamo_tpu_torch.ops.cuda import fused_decode
+
+    over = dict(KH=4, G=8, D=64)
+    layer = 1
+    row = {}
+    for fp8 in (False, True):
+        t = kernel_inputs(torch.bfloat16, seed=23, **over)
+        if fp8:
+            fp8_pools(t)
+        form = "fp8" if fp8 else "bf16"
+        err, _ = check_attention(t, f"gpt-oss tp=2 (KH 4 G 8) {form}", MOE_WINDOW,
+                                 t["sinks"], layer)
+        q, kn, vn, bt, sl, dp, do = (t[k] for k in
+                                     ("q", "k_new", "v_new", "bt", "sl", "dst_page", "dst_off"))
+        kp, vp, sinks = t["k_pages"], t["v_pages"], t["sinks"]
+        kw = dict(layer=layer, window=MOE_WINDOW, sinks=sinks)
+        r = {"max_abs_err": err}
+        r["ms"] = time_ms(lambda: fused_decode.fused_decode_attention(
+            q, kp, vp, kn, vn, bt, sl, dp, do, **kw), flush)
+        r["plain_ms"] = time_ms(lambda: fused_decode.fused_decode_plain(
+            q, kp, vp, kn, vn, bt, sl, dp, do, **kw), flush)
+        r["library_ms"] = time_ms(sdpa_call(t, layer, MOE_WINDOW, sinks), flush)
+        r["bound_ms"], r["bound_by"] = attention_bound(True, MOE_WINDOW, fp8=fp8, **over)
+        print(f"time gpt-oss tp=2 (KH 4 G 8 D 64, window {MOE_WINDOW} + sinks) {form} "
+              f"[{card}]: fused_decode {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
+        if not fp8:
+            row = r
+        del t, kp, vp
+    return {"fused_decode/gpt-oss-tp2": row}
+
+
+def ep_phase(cfg, card, flush) -> tuple[dict, dict[str, int]]:
+    """Phase 23: expert parallelism on the card (see the module docstring).
+    Returns the kernel row at gpt-oss's tp=2 rank shape and the phase's
+    fused_decode launches by shape."""
+    t23 = time.perf_counter()
+    rows = ep_kernel_row(flush, card)
+    # one prompt per prefill on both sides: a packed group's rows share the
+    # experts' capacity, and the one-rank engine (async admissions) and an
+    # SPMD leader (synchronous first tokens) group arrivals differently
+    cfg = dict(cfg, prefill_pack_size=1)
+    both = ["reduce", "neighbour"]
+    a = ep_group("gpt-oss", MOE_LAYERS, 2, 2, cfg,
+                 f"phase 23 (a) gpt-oss-120b (full width, {MOE_LAYERS} layers) ep=2 x tp=2 "
+                 "gloo", card, both)
+    b = ep_group("deepseek-r1", MLA_LAYERS, 2, 2, cfg,
+                 f"phase 23 (b) deepseek-r1 (full width, {MLA_LAYERS} layers) ep=2 x tp=2 "
+                 "gloo", card, both)
+    c = ep_group("gpt-oss", EP_WIDE_LAYERS, 4, 1, cfg,
+                 f"phase 23 (c) gpt-oss-120b (full width, {EP_WIDE_LAYERS} layers) ep=4 x "
+                 "tp=1 gloo", card, [])
+    print(f"phase 23: {time.perf_counter() - t23:.1f} s, fused_decode launches (a) {a} "
+          f"(b) {b} (c) {c}")
+    return rows, {"fused_decode/gpt-oss-tp2": a, "fused_decode/gpt-oss": c}
 
 
 def main() -> int:
@@ -8313,8 +8846,13 @@ def main() -> int:
     # graphs, the mirror topology, NCCL across two cards where there are two
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
     tp_rows, tp_launches = tp_phase(cfg, prompts, bf16_tokens, card, flush)
-    del flush
     kernels.update(tp_rows)
+
+    # expert parallelism: gloo groups on this card (gpt-oss-120b and
+    # deepseek-r1 at full width over ep=2 x tp=2, gpt-oss-120b over ep=4)
+    ep_rows, ep_launches = ep_phase(cfg, card, flush)
+    del flush
+    kernels.update(ep_rows)
 
     launches = {"fused_decode": serve_launches["fused_decode"] + http_launches
                 + process_launches + overload_launches + guided_launches
@@ -8328,7 +8866,8 @@ def main() -> int:
                 "paged_attention_v3/fp8": unfused_fp8[1],
                 "kv_write/fp8": unfused_fp8[3],
                 "kv_write/fp8-verify": spec_kv_fp8_launches,
-                "fused_decode/gpt-oss": moe_launches,
+                "fused_decode/gpt-oss": moe_launches + ep_launches["fused_decode/gpt-oss"],
+                "fused_decode/gpt-oss-tp2": ep_launches["fused_decode/gpt-oss-tp2"],
                 "fused_decode/tp2": tp_launches["fused_decode/tp2"],
                 "fused_decode/tp4": tp_launches["fused_decode/tp4"]}
     sources = {
@@ -8359,6 +8898,7 @@ def main() -> int:
                                 "dynamo_tpu/ops/pallas/kv_write.py:219"),
         # the same kernel at gpt-oss-120b's shape (KH 8, G 8, D 64, window
         # 128 on its sliding layers, sinks), launched by phase 15's serves
+        # and phase 23 (c)'s ep=4 ranks
         "fused_decode/gpt-oss": ("dynamo_tpu_torch/csrc/fused_decode.cu",
                                  "dynamo_tpu/ops/pallas/fused_decode.py:58"),
         # the same kernel on a tp rank's KV heads (KH 4 / G 4: llama-3-8b at
@@ -8367,6 +8907,10 @@ def main() -> int:
         # dynamo_tpu/ops/attention.py:489)
         "fused_decode/tp2": ("dynamo_tpu_torch/csrc/fused_decode.cu",
                              "dynamo_tpu/ops/pallas/fused_decode.py:58"),
+        # gpt-oss-120b's shape on a tp=2 rank of phase 23 (a): KH 4, G 8, D
+        # 64, window 128 on its sliding layers, sinks
+        "fused_decode/gpt-oss-tp2": ("dynamo_tpu_torch/csrc/fused_decode.cu",
+                                     "dynamo_tpu/ops/pallas/fused_decode.py:58"),
         "fused_decode/tp4": ("dynamo_tpu_torch/csrc/fused_decode.cu",
                              "dynamo_tpu/ops/pallas/fused_decode.py:58"),
     }

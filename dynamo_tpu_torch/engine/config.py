@@ -387,7 +387,6 @@ class EngineConfig:
 
 # fields of features the port's engine lacks -> what is missing
 UNPORTED = {
-    "ep": "expert parallelism (ROADMAP Queue A item 11b)",
     "pp": "pipeline parallelism (ROADMAP Queue A item 11c)",
     "sp": "sequence-parallel ring prefill (ROADMAP Queue A item 11d)",
     "dp": "data parallelism (ROADMAP Queue A item 11d)",

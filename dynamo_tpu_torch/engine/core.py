@@ -370,8 +370,9 @@ class InferenceEngine:
         self._h2d_stream = (torch.cuda.Stream(self.device)
                             if self.device.type == "cuda" else None)
         self.fam = get_family(spec)
-        # tensor parallelism (parallel/): this rank's mesh, its shard of the
-        # weights and of the KV heads; the collectives run in the forwards
+        # tensor and expert parallelism (parallel/): this rank's mesh, its
+        # shard of the weights (heads and FFN columns over tp, experts over
+        # ep x tp) and of the KV heads; the collectives run in the forwards
         self.mesh = mesh
         self._check_mesh(mesh, transfer_source)
         if params is None:
@@ -397,7 +398,8 @@ class InferenceEngine:
             device=self.device, kv_dtype=self.kv_dtype,
             tp=mesh.tp if mesh is not None else 1,
         )
-        # device bytes of both pools (values and, for fp8, scales)
+        # device bytes of this rank's pools (values and, for fp8, scales):
+        # its KV heads under tp; MLA's latent pool whole on every rank
         self.pool_bytes = sum(p.nbytes for p in (self.k_pages, self.v_pages))
         log.info("KV pools: kv_dtype %s, %d pages of %d tokens, %.3f GB",
                  self.kv_dtype, cfg.num_pages + 1, cfg.page_size,
@@ -519,28 +521,26 @@ class InferenceEngine:
         self.step_time_ewma_ms = 0.0
 
     def _check_mesh(self, mesh, transfer_source) -> None:
-        """Refuse what tensor parallelism does not cover: a config whose tp
-        is not the mesh's, a family or spec that does not shard, disagg
+        """Refuse what the mesh does not cover: a config whose tp or ep is
+        not the mesh's, a spec that does not divide over it, disagg
         exports, and graph capture over collectives no graph can capture."""
         cfg = self.config
-        tp = mesh.tp if mesh is not None else 1
-        if cfg.tp != tp:
-            raise ValueError(
-                f"EngineConfig.tp={cfg.tp} but the mesh has tp={tp}: a tp group "
-                "needs its mesh (parallel.make_mesh over an initialised group)")
+        for axis in ("tp", "ep"):
+            have = mesh.shape[axis] if mesh is not None else 1
+            if getattr(cfg, axis) != have:
+                raise ValueError(
+                    f"EngineConfig.{axis}={getattr(cfg, axis)} but the mesh has "
+                    f"{axis}={have}: a group needs its mesh (parallel.make_mesh over "
+                    "an initialised group)")
         if mesh is None:
             return
-        if not self.fam.supports_mesh:
-            raise NotImplementedError(
-                f"{type(self.fam).__name__} under tensor parallelism is ROADMAP "
-                "Queue A item 11b (the MoE and MLA shardings)")
-        check_shardable(self.spec, mesh)  # MoE layers, and the head counts
+        check_shardable(self.spec, mesh)  # heads, FFN widths, experts
         if transfer_source is not None:
             raise NotImplementedError(
                 "disaggregated prefill under tensor parallelism is ROADMAP Queue A "
                 "item 11e (per-shard KV exports)")
         if (self.device.type == "cuda" and cfg.cuda_graphs
-                and mesh.group is not None and not mesh.capturable):
+                and mesh.distributed and not mesh.capturable):
             raise ValueError(
                 f"a {mesh.backend} group's collectives cannot be captured in a "
                 "CUDA graph: set EngineConfig(cuda_graphs=False) to run its "

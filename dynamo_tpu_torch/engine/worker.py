@@ -50,11 +50,13 @@ the live policy key (``--max-local-prefill-length``,
 reference's flags for features the port lacks raise NotImplementedError
 naming their item.
 
-Tensor parallelism (parallel/): PyTorch drives one card per process, so a
-tp group of N is N processes. ``--tp N`` with no coordinator starts ranks
-1..N-1 on this host (one per ``cuda:<rank>``; ``spawn_local_followers``)
-and makes this process rank 0: PyTorch's counterpart of the reference's
-one-process mesh over local devices. Across hosts every rank runs this
+Tensor and expert parallelism (parallel/): PyTorch drives one card per
+process, so a mesh of ``--ep E --tp T`` is N = E x T processes (tp
+innermost: rank = e * T + t). ``--tp T`` and/or ``--ep E`` with no
+coordinator starts ranks 1..N-1 on this host (one per ``cuda:<rank>``;
+``spawn_local_followers``) and makes this process rank 0: PyTorch's
+counterpart of the reference's one-process mesh over local devices. Every
+rank but 0 replays, the ep replicas too. Across hosts every rank runs this
 module with the reference's ``--coordinator-address``, ``--num-processes``
 and ``--process-id`` (or ``DYN_COORDINATOR`` / ``DYN_NUM_PROCESSES`` /
 ``DYN_PROCESS_ID``). Rank 0 serves; every other rank builds an engine
@@ -166,8 +168,8 @@ async def launch_engine_worker(
     (engine, served generate endpoint)."""
     if mode not in ("aggregated", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}: aggregated, prefill or decode")
-    if mode != "aggregated" and ((engine_config or EngineConfig()).tp > 1
-                                 or spmd is not None):
+    ecfg0 = engine_config or EngineConfig()
+    if mode != "aggregated" and (ecfg0.tp * ecfg0.ep > 1 or spmd is not None):
         raise NotImplementedError(
             f"--mode {mode} under tensor parallelism or SPMD replay is ROADMAP "
             "Queue A item 11e (per-shard KV exports)")
@@ -442,10 +444,11 @@ def _engine_config(args: argparse.Namespace) -> EngineConfig:
     EngineConfig whole (``--engine-config-json``)."""
     if args.engine_config_json:
         return config_from_json(EngineConfig, args.engine_config_json)
-    if args.mirror and args.tp > 1:
+    if args.mirror and args.tp * args.ep > 1:
         raise NotImplementedError(
-            "--mirror with --tp > 1: a mirror of a tp group is ROADMAP Queue A item 11e")
-    if args.mode != "aggregated" and (args.tp > 1 or args.mirror):
+            "--mirror with --tp or --ep > 1: a mirror of a group is ROADMAP Queue A "
+            "item 11e")
+    if args.mode != "aggregated" and (args.tp * args.ep > 1 or args.mirror):
         raise NotImplementedError(
             f"--mode {args.mode} under tensor parallelism or SPMD replay is ROADMAP "
             "Queue A item 11e (per-shard KV exports)")
@@ -660,9 +663,10 @@ async def start_tp_group(
     num_processes: int | None = None, process_id: int | None = None,
     kvbm_argv: list[str] = (), host: str = "127.0.0.1",
 ) -> TpGroup | None:
-    """Join (or, for ``ecfg.tp`` > 1 with no coordinator, start) the tp
-    group of this worker: None for a single process. With no coordinator
-    this process starts ranks 1..tp-1 here (``spawn_local_followers``:
+    """Join (or, for ``ecfg.ep * ecfg.tp`` > 1 with no coordinator, start)
+    the group of this worker: None for a single process. With no
+    coordinator this process starts ranks 1..N-1 here
+    (``spawn_local_followers``:
     worker processes given the model, the device, this EngineConfig and
     the group's rendezvous) and becomes rank 0. Rank 0 gets the group's
     strict ``SpmdLeader``, its address in the group's store
@@ -672,17 +676,19 @@ async def start_tp_group(
     from dynamo_tpu_torch.parallel.mesh import make_mesh
 
     env_coord = coordinator or os.environ.get("DYN_COORDINATOR")
-    if ecfg.tp == 1 and not env_coord:
+    world = ecfg.tp * ecfg.ep
+    if world == 1 and not env_coord:
         return None  # one process: no group, nothing started
     procs = []
-    if ecfg.tp > 1:
+    if world > 1:
         # refuse a model that does not shard before any rank starts
         from dynamo_tpu_torch.models.convert import check_shardable
         from dynamo_tpu_torch.models.loader import spec_from_dir
 
         check_shardable(spec_from_dir(model_path) if model_path
-                        else _spec_json_or_preset(spec_json, model), ecfg.tp)
-    if ecfg.tp > 1 and not env_coord and not num_processes:
+                        else _spec_json_or_preset(spec_json, model),
+                        {"tp": ecfg.tp, "ep": ecfg.ep})
+    if world > 1 and not env_coord and not num_processes:
         coordinator = multihost.free_coordinator()
         ns, comp, ep = group.split("/")
         argv = ["--engine-config-json", config_json(ecfg), "--namespace", ns,
@@ -695,19 +701,19 @@ async def start_tp_group(
                 argv += ["--spec-json", spec_json]
         if device is not None:
             argv += ["--device", str(device)]
-        procs = multihost.spawn_local_followers(ecfg.tp, argv, coordinator)
-        num_processes, process_id = ecfg.tp, 0
+        procs = multihost.spawn_local_followers(world, argv, coordinator)
+        num_processes, process_id = world, 0
         env_coord = coordinator
     try:
         joined = await asyncio.to_thread(
             multihost.initialize_multihost, coordinator, num_processes, process_id,
             device=device)
         if not joined:
-            if ecfg.tp > 1:
-                raise ValueError(f"EngineConfig.tp={ecfg.tp} needs a group of "
-                                 f"{ecfg.tp} processes (--num-processes)")
+            if world > 1:
+                raise ValueError(f"EngineConfig tp={ecfg.tp} ep={ecfg.ep} needs a group "
+                                 f"of {world} processes (--num-processes)")
             return None
-        mesh = make_mesh(tp=ecfg.tp)
+        mesh = make_mesh(tp=ecfg.tp, ep=ecfg.ep)
         spmd = None
         if mesh.rank == 0:
             from dynamo_tpu_torch.parallel.spmd import SpmdLeader, StoreHub
@@ -892,7 +898,9 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--max-prefill-chunk-tokens", type=int, default=512)
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--sp", type=int, default=1)
-    p.add_argument("--ep", type=int, default=1)
+    p.add_argument("--ep", type=int, default=1,
+                   help="expert parallelism: the experts over E x --tp ranks, "
+                        "started here as --tp does")
     p.add_argument("--router-mode", default="kv",
                    choices=["kv", "round_robin", "random"])
     p.add_argument("--tool-call-parser", default=None)

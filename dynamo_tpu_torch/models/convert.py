@@ -69,61 +69,111 @@ def params_from_numpy(
     return cls(conv(tree["embed"]), conv(tree["final_norm"]), layers, lm_head)
 
 
-# -------------------------------------------------------------- tp shards
+# ----------------------------------------------------------- mesh shards
 
-# the axis each llama leaf is split on under tensor parallelism (the
-# reference's ``llama.param_shardings``: Megatron columns for the heads'
-# and FFN's input projections, rows for their output projections, the
+# the axis each llama / MLA leaf is split on over ``tp`` (the reference's
+# ``llama.param_shardings`` and ``mla.param_shardings``: Megatron columns
+# for the heads' and FFN's input projections, rows for their output
+# projections, the per-head up-projections on their head axis, the
 # embedding on d, an untied lm head on the vocabulary); absent: replicated
+# (norms, MLA's latent path ``w_kv_a`` / ``kv_norm`` and its q-LoRA
+# ``wq_a`` / ``q_norm``). A dense FFN's and the shared experts' leaves
+# follow ``w_gate`` / ``w_up`` / ``w_down``.
 SHARD_DIMS = {
     "wq": 1, "wk": 1, "wv": 1, "wo": 0,
     "bq": 0, "bk": 0, "bv": 0, "sinks": 0,
     "w_gate": 1, "w_up": 1, "w_down": 0,
+    "wq_b": 1, "w_uk": 0, "w_uv": 0,
     "embed": 1, "lm_head": 1,
 }
 
+# a MoE layer's leaves over the mesh (the reference's
+# ``moe.moe_layer_shardings``): experts on ``ep``, their FFN columns on
+# ``tp``; the router and its biases replicated
+MOE_SHARD_AXES = {
+    "w_gate": ("ep", None, "tp"), "w_up": ("ep", None, "tp"),
+    "w_down": ("ep", "tp", None),
+    "b_gate": ("ep", "tp"), "b_up": ("ep", "tp"), "b_down": ("ep", None),
+}
 
-def check_shardable(spec: ModelSpec, tp) -> None:
-    """Raise unless the spec's dense llama layout divides over ``tp``
-    ranks (a count, or a mesh): heads, KV heads, FFN width, hidden size and
-    an untied vocabulary. MoE and MLA specs are refused first (ROADMAP
-    Queue A item 11b)."""
-    if spec.is_mla or spec.num_experts:
-        raise NotImplementedError(
-            f"{spec.name}: tensor parallelism of MoE and MLA layers is ROADMAP "
-            "Queue A item 11b (expert parallelism and the MoE/MLA shardings)")
-    tp = tp if isinstance(tp, int) else tp.tp
-    sizes = {"num_heads": spec.num_heads, "num_kv_heads": spec.num_kv_heads,
-             "intermediate_size": spec.intermediate_size,
-             "hidden_size": spec.hidden_size}
+
+def _axis_sizes(mesh) -> dict[str, int]:
+    """Mesh axis sizes from a tp count, an axis-size dict or a Mesh."""
+    if isinstance(mesh, int):
+        return {"tp": mesh, "ep": 1}
+    sizes = mesh if isinstance(mesh, dict) else mesh.shape
+    return {"tp": sizes.get("tp", 1), "ep": sizes.get("ep", 1)}
+
+
+def check_shardable(spec: ModelSpec, mesh) -> None:
+    """Raise unless the spec divides over ``mesh`` (a tp count, a dict of
+    axis sizes or a Mesh): over tp the heads (and a GQA spec's KV heads),
+    the FFN widths (dense, experts', shared experts'), the hidden size and
+    an untied vocabulary; over ep the experts. A dense spec under ep runs
+    replicated along it, as in the reference."""
+    sz = _axis_sizes(mesh)
+    tp, ep = sz["tp"], sz["ep"]
+    sizes = {"num_heads": spec.num_heads, "hidden_size": spec.hidden_size}
+    if not spec.is_mla:
+        sizes["num_kv_heads"] = spec.num_kv_heads
     if not spec.tie_embeddings:
         sizes["vocab_size"] = spec.vocab_size
+    if not spec.num_experts or (spec.is_mla and spec.first_k_dense):
+        sizes["intermediate_size"] = spec.intermediate_size
+    if spec.num_experts:
+        sizes["moe_intermediate_size"] = spec.moe_intermediate_size
+        if spec.is_mla and spec.n_shared_experts:
+            sizes["shared expert width"] = spec.moe_intermediate_size * spec.n_shared_experts
     for name, n in sizes.items():
         if n % tp:
             raise ValueError(f"{spec.name}: {name} {n} does not divide over tp={tp}")
+    if spec.num_experts and spec.num_experts % ep:
+        raise ValueError(
+            f"{spec.name}: num_experts {spec.num_experts} does not divide over ep={ep}")
+
+
+def shard_axes(t, axes, mesh):
+    """A copy of ``t`` cut to this rank's slice along each dim whose
+    ``axes`` entry names a mesh axis (``t`` itself when none does)."""
+    if not axes or all(a is None for a in axes):
+        return t
+    sl = tuple(slice(None) if a is None else mesh.shard(t.shape[d], f"axis {d}", a)
+               for d, a in enumerate(axes))
+    part = t[sl]
+    return part.clone() if isinstance(part, torch.Tensor) else np.array(part, copy=True)
 
 
 def shard_tensor(name: str, t, mesh):
-    """Rank ``mesh.tp_rank``'s contiguous slice of leaf ``name`` (a tensor
-    or a numpy array), a copy; a replicated leaf comes back as it is."""
+    """Rank ``mesh``'s slice of leaf ``name`` (a tensor or a numpy array), a
+    copy: a ``moe`` dict cut by MOE_SHARD_AXES, a dict of shared experts'
+    leaves by SHARD_DIMS, a replicated leaf as it is."""
+    if name == "moe":
+        return {k: shard_axes(v, MOE_SHARD_AXES.get(k), mesh) for k, v in t.items()}
+    if isinstance(t, dict):
+        return {k: shard_tensor(k, v, mesh) for k, v in t.items()}
     dim = SHARD_DIMS.get(name)
     if dim is None:
         return t
-    sl = [slice(None)] * t.ndim
-    sl[dim] = mesh.shard(t.shape[dim], name)
-    part = t[tuple(sl)]
-    return part.clone() if isinstance(part, torch.Tensor) else np.array(part, copy=True)
+    return shard_axes(t, [None] * dim + ["tp"], mesh)
+
+
+def _layer_tree(module) -> dict:
+    """A layer module's leaves as a (nested) dict of tensors."""
+    out = {name: p.data for name, p in module._parameters.items() if p is not None}
+    out.update((name, _layer_tree(m)) for name, m in module._modules.items())
+    return out
 
 
 def shard_params(spec: ModelSpec, params, mesh,
                  device: str | torch.device | None = None) -> LlamaParams:
-    """This rank's shard of the full weights: the port's ``LlamaParams``,
-    or the JAX pytree as numpy (through ``params_from_numpy``, cut before
-    it reaches ``device``). Each leaf equals, bit for bit, the JAX array's
-    ``addressable_shards[rank]`` under ``llama.param_shardings(spec,
-    make_mesh(tp=N))``. The result carries ``mesh``: the forwards run
-    their collectives over it."""
-    check_shardable(spec, mesh.tp)
+    """This rank's shard of the full weights: the port's params (a
+    ``LlamaParams`` or MLA's ``MlaParams``), or the JAX pytree as numpy
+    (through ``params_from_numpy``, cut before it reaches ``device``).
+    Each leaf equals, bit for bit, the JAX array's
+    ``addressable_shards[rank]`` under the family's ``param_shardings(spec,
+    make_mesh(ep=E, tp=N))``. The result carries ``mesh``: the forwards
+    run their collectives over it."""
+    check_shardable(spec, mesh)
     if isinstance(params, dict):
         tree = {name: shard_tensor(name, a, mesh) for name, a in params.items()
                 if name != "layers"}
@@ -131,9 +181,9 @@ def shard_params(spec: ModelSpec, params, mesh,
                           for lp in params["layers"]]
         out = params_from_numpy(spec, tree, device)
     else:
-        layers = [{name: shard_tensor(name, p.data, mesh)
-                   for name, p in lp.named_parameters()} for lp in params.layers]
-        out = LlamaParams(
+        layers = [{name: shard_tensor(name, t, mesh) for name, t in _layer_tree(lp).items()}
+                  for lp in params.layers]
+        out = type(params)(
             shard_tensor("embed", params.embed.data, mesh), params.final_norm.data,
             layers, None if params.lm_head is None
             else shard_tensor("lm_head", params.lm_head.data, mesh))

@@ -30,9 +30,9 @@ __all__ = ["get_family", "GqaFamily", "MlaFamily"]
 
 
 class GqaFamily:
-    """llama-family adapter: thin passthrough to models/llama.py. A dense
-    llama spec shards over a tp mesh (``supports_mesh``); a MoE spec under
-    tp > 1 raises (ROADMAP Queue A item 11b)."""
+    """llama-family adapter: thin passthrough to models/llama.py. Its specs
+    shard over a mesh (``supports_mesh``): heads, KV heads and dense FFN
+    columns over tp whatever ep is, a MoE spec's experts over ep x tp."""
 
     supports_mesh = True
     supports_logprobs = True
@@ -46,7 +46,7 @@ class GqaFamily:
         self.m = llama
 
     def init_params(self, spec, seed, device=None, mesh=None):
-        """The seeded init; with a tp ``mesh``, this rank's shard of it."""
+        """The seeded init; with a ``mesh``, this rank's shard of it."""
         return self.m.init_params(spec, seed, device=device, mesh=mesh)
 
     def shard_params(self, spec, params, mesh):
@@ -57,7 +57,8 @@ class GqaFamily:
 
     def init_cache(self, spec, num_pages, page_size, device=None,
                    kv_dtype="bf16", tp=1):
-        """Pools of ``num_pages`` pages; under tp, of this rank's KV heads."""
+        """Pools of ``num_pages`` pages; under tp, of this rank's KV heads
+        (the reference's ``cache_shardings``)."""
         return self.m.init_cache(spec, num_pages, page_size, device=device,
                                  kv_dtype=kv_dtype, tp=tp)
 
@@ -119,11 +120,11 @@ class MlaFamily(GqaFamily):
     engine's ``pool_bytes`` is the latent cache's). Prefill, packed
     prefill and verify report 0 dropped MoE slots, as the reference's MLA
     family does. It serves embeddings but takes no image input, as the
-    reference's. Not here, as in the reference or the port: ring prefill
-    (off in the reference's MLA family) and meshes (ROADMAP Queue A item
-    11b)."""
+    reference's. Under a mesh the heads shard over tp, the routed experts
+    over ep x tp, and the latent pool stays whole on every rank (the
+    reference's ``mla.cache_shardings`` replicates it). Not here, as in the
+    reference: ring prefill (off in the reference's MLA family)."""
 
-    supports_mesh = False
     supports_multimodal = False
 
     def __init__(self):
@@ -131,15 +132,10 @@ class MlaFamily(GqaFamily):
 
         self.m = mla
 
-    def init_params(self, spec, seed, device=None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                f"{spec.name}: tensor parallelism of MLA layers is ROADMAP Queue A "
-                "item 11b (the MoE and MLA shardings)")
-        return self.m.init_params(spec, seed, device=device)
-
     def init_cache(self, spec, num_pages, page_size, device=None,
                    kv_dtype="bf16", tp=1):
+        """The whole latent pool (replicated over the mesh: ``tp`` is not
+        used) and the inert v placeholder."""
         import torch
 
         cache = self.m.init_cache(spec, num_pages, page_size, device=device,

@@ -106,17 +106,17 @@ class LlamaParams(nn.Module):
         self.final_norm = _param(final_norm)
         self.lm_head = _param(lm_head) if lm_head is not None else None
         self.layers = nn.ModuleList(self.layer_cls(lp) for lp in layers)
-        # the tp mesh (parallel/mesh.py) these weights are this rank's shard
+        # the mesh (parallel/mesh.py) these weights are this rank's shard
         # of (models/convert.shard_params), or None: the whole model
         self.mesh = mesh
 
 
 def param_mesh(params) -> object | None:
-    """The tp mesh ``params`` are sharded over, or None (no process group:
+    """The mesh ``params`` are sharded over, or None (no process group:
     the whole model in this process, no collective runs). A group of one
     rank still runs its collectives, as NCCL kernels a graph can capture."""
     mesh = getattr(params, "mesh", None)
-    return mesh if mesh is not None and mesh.group is not None else None
+    return mesh if mesh is not None and mesh.distributed else None
 
 
 def init_params(
@@ -131,10 +131,11 @@ def init_params(
     zeros; a MoE spec gets a ``moe`` block (models/moe.py) in place of the
     dense MLP, its router f32. The draws differ from
     jax.random's; parity tests bridge the JAX weights with
-    models/convert.params_from_numpy instead. With a tp ``mesh`` every
-    rank draws the same full tensors, one layer at a time, and keeps its
-    shard (models/convert.shard_params' layout): the weights are the
-    sharded copy of the ``mesh=None`` init."""
+    models/convert.params_from_numpy instead. With a ``mesh`` every rank
+    draws the same full tensors, one layer at a time, and keeps its shard
+    (models/convert.shard_params' layout: heads and FFN columns over tp,
+    experts over ep): the weights are the sharded copy of the ``mesh=None``
+    init."""
     dev = resolve_device(device)
     dtype = torch_dtype(spec.dtype)
     gen = torch.Generator(device=dev)
@@ -181,14 +182,16 @@ def init_params(
         if spec.num_experts:
             from dynamo_tpu_torch.models import moe
 
-            lp["moe"] = moe.init_moe_layer(spec, dense, dtype, dev)
+            lp["moe"] = moe.init_moe_layer(spec, dense, dtype, dev, mesh)
         else:
             lp.update(
                 w_gate=dense((d, spec.intermediate_size)),
                 w_up=dense((d, spec.intermediate_size)),
                 w_down=dense((spec.intermediate_size, d)),
             )
-        layers.append({name: cut(name, t) for name, t in lp.items()})
+        # the experts come cut (init_moe_layer)
+        layers.append({name: t if name == "moe" else cut(name, t)
+                       for name, t in lp.items()})
     return LlamaParams(embed, ones(d), layers, lm_head, mesh=mesh)
 
 
@@ -353,11 +356,12 @@ def _mlp(lp: LlamaLayer, x: torch.Tensor, mesh=None) -> torch.Tensor:
 
 
 def _ffn(spec: ModelSpec, lp: LlamaLayer, x: torch.Tensor, mesh=None) -> torch.Tensor:
-    """Dense MLP or routed MoE depending on the spec (x [T, d])."""
+    """Dense MLP or routed MoE depending on the spec (x [T, d]); under a
+    mesh the experts combine over the expert group, the MLP over tp."""
     if spec.num_experts:
         from dynamo_tpu_torch.models import moe
 
-        return moe.moe_mlp(spec, lp.moe, x)
+        return moe.moe_mlp(spec, lp.moe, x, mesh=mesh)
     return _mlp(lp, x, mesh)
 
 
@@ -367,7 +371,7 @@ def _ffn_counted(spec: ModelSpec, lp: LlamaLayer, x: torch.Tensor, mesh=None):
     if spec.num_experts:
         from dynamo_tpu_torch.models import moe
 
-        return moe.moe_mlp(spec, lp.moe, x, return_dropped=True)
+        return moe.moe_mlp(spec, lp.moe, x, return_dropped=True, mesh=mesh)
     return _mlp(lp, x, mesh), torch.zeros((), dtype=torch.int32, device=x.device)
 
 

@@ -35,11 +35,16 @@ half-split order the forward rotates (exact: both sides of every rope dot
 product get the same permutation). ``save_params`` re-fuses ``kv_b_proj``
 and, for a ``rope_interleave`` spec, re-interleaves those columns.
 
-Tensor parallelism: ``load_params(..., mesh=)`` reads only this rank's
-slice of each sharded tensor (models/convert.SHARD_DIMS, on the stored
-axis that maps to it), by offset through the memmap: a rank reads about
-1/tp of the checkpoint's bytes, plus the replicated norms. MoE and MLA
-checkpoints under a mesh raise (ROADMAP Queue A item 11b).
+Meshes: ``load_params(..., mesh=)`` reads only this rank's slice of each
+sharded tensor (models/convert.SHARD_DIMS and MOE_SHARD_AXES, on the
+stored axes that map to them), by offset through the memmap: of a dense
+or attention tensor 1/tp, of the experts only this rank's E/ep (a
+per-expert tensor outside them is not read at all) and of those its f/tp
+columns, so about 1/(ep x tp) of the expert bytes. gpt-oss's fused
+``gate_up_proj`` holds gate and up interleaved on its last axis: the tp
+columns j0..j1 of both are the one run 2*j0..2*j1 there, read whole and
+then de-interleaved. MLA's ``kv_b_proj`` is read for this rank's heads.
+The replicated leaves (norms, routers, MLA's latent path) are read whole.
 """
 
 from __future__ import annotations
@@ -143,8 +148,12 @@ class SafetensorsFile:
     def get_slice(self, name: str, dim: int, sl: slice, device=None) -> torch.Tensor:
         """The slice ``sl`` of stored axis ``dim`` only, read by offset: a
         contiguous block for axis 0, one run per row for axis 1."""
-        view = self.get_numpy(name)
-        host = torch.from_numpy(np.array(view[(slice(None),) * dim + (sl,)]))
+        return self.get_block(name, (slice(None),) * dim + (sl,), device)
+
+    def get_block(self, name: str, index: tuple, device=None) -> torch.Tensor:
+        """The block ``index`` (a slice per leading stored axis) only, read
+        by offset through the memmap."""
+        host = torch.from_numpy(np.array(self.get_numpy(name)[index]))
         self.bytes_read += host.nbytes
         t = host.view(_ST_DTYPES[self.entries[name]["dtype"]][1])
         return t if device is None else t.to(device)
@@ -486,7 +495,8 @@ def _rope_cols(spec: ModelSpec, name: str, t: torch.Tensor,
     are. The reference's ``_deinterleave_rope_cols``."""
     if name.endswith(_ROPE_Q):
         dn = spec.qk_nope_head_dim
-        q = t.reshape(t.shape[0], spec.num_heads, -1)
+        # a tp rank's shard holds H / tp heads
+        q = t.reshape(t.shape[0], -1, dn + spec.qk_rope_head_dim)
         perm = _rope_perm(spec, inverse).to(t.device)
         return torch.cat([q[..., :dn], q[..., dn:][..., perm]], dim=-1).reshape(t.shape)
     if name.endswith("self_attn.kv_a_proj_with_mqa.weight"):
@@ -580,10 +590,10 @@ def load_params(
     ``device`` (None = the GPU), in ``dtype`` (default the spec's; the
     router leaves f32). Each tensor streams on its own: memmap view, one
     host copy, to the device, cast, transpose there. Per-expert tensors land
-    in their row of the stacked ``[E, ...]`` device tensor. With a tp
-    ``mesh`` (a dense llama spec) each sharded tensor is read as this
-    rank's slice only, and the params carry the mesh; ``bytes_read`` on
-    the result counts the tensor bytes read."""
+    in their row of the stacked ``[E, ...]`` device tensor. With a
+    ``mesh`` each sharded tensor is read as this rank's slice only (its
+    heads and columns over tp, its experts over ep), and the params carry
+    the mesh; ``bytes_read`` on the result counts the tensor bytes read."""
     from dynamo_tpu_torch.models.convert import SHARD_DIMS, check_shardable
 
     if mesh is not None:
@@ -599,6 +609,11 @@ def load_params(
     mla = spec.is_mla
     dest = _dest_map_mla(spec) if mla else _dest_map(spec, all_names)
     fused = bool(not mla and spec.num_experts and _moe_scheme(all_names) == "gpt_oss")
+    # this rank's experts [e0, e0 + n_exp) and FFN columns (all without a mesh)
+    E = spec.num_experts
+    exp = mesh.shard(E, "experts", "ep") if mesh is not None and E else slice(0, E)
+    cols = (mesh.shard(spec.moe_intermediate_size, "expert FFN width")
+            if mesh is not None and E else slice(None))
 
     tree: dict[str, Any] = {}
     seen: set[str] = set()
@@ -622,7 +637,12 @@ def load_params(
         for name in r.keys():
             if name in dest:
                 path, transpose, dt_override = dest[name]
-                t = read_shard(r, name, path[-1], transpose, dt_override or dtype)
+                # a per-expert tensor's leaf is the name before its index
+                leaf = path[-2] if isinstance(path[-1], int) else path[-1]
+                if isinstance(path[-1], int) and not exp.start <= path[-1] < exp.stop:
+                    seen.add(name)  # another rank's expert: not read
+                    continue
+                t = read_shard(r, name, leaf, transpose, dt_override or dtype)
                 if transpose:
                     t = t.T.contiguous()
                 if mla and spec.rope_interleave:
@@ -632,15 +652,18 @@ def load_params(
                     key, e = path[:-1], path[-1]
                     if key not in stacked:
                         stacked[key] = torch.empty(
-                            (spec.num_experts, *t.shape), dtype=t.dtype, device=dev)
-                    stacked[key][e].copy_(t)
+                            (exp.stop - exp.start, *t.shape), dtype=t.dtype, device=dev)
+                    stacked[key][e - exp.start].copy_(t)
                 else:
                     _tree_set(tree, path, t)
             elif mla and name.endswith("self_attn.kv_b_proj.weight"):
                 # the fused per-head up-projections [H * (dn + dv), dc]
                 li = ("layers", int(name.split(".")[2]))
                 H, dn = spec.num_heads, spec.qk_nope_head_dim
-                t = read(r, name, dtype).reshape(H, dn + spec.v_head_dim, -1)
+                w = dn + spec.v_head_dim
+                heads = mesh.shard(H, "heads") if mesh is not None else slice(0, H)
+                t = r.get_block(name, (slice(heads.start * w, heads.stop * w),), dev)
+                t = t.to(torch_dtype(dtype)).reshape(heads.stop - heads.start, w, -1)
                 _tree_set(tree, li + ("w_uk",), t[:, :dn].transpose(1, 2).contiguous())
                 _tree_set(tree, li + ("w_uv",), t[:, dn:].transpose(1, 2).contiguous())
                 seen.add(name)
@@ -649,7 +672,19 @@ def load_params(
                     skipped.append(name)
                     continue
                 mo = ("layers", int(name.split(".")[2]), "moe")
-                t = read(r, name, dtype)
+                # this rank's experts, and its tp columns: of gate and up
+                # (interleaved) one run 2*j0..2*j1, of down_proj its rows
+                if name.endswith("down_proj_bias"):
+                    index = (exp,)
+                elif name.endswith("down_proj"):
+                    index = (exp, cols)
+                elif cols == slice(None):
+                    index = (exp,)
+                else:
+                    run = slice(2 * cols.start, 2 * cols.stop)
+                    index = (exp, slice(None), run) if name.endswith("gate_up_proj") \
+                        else (exp, run)
+                t = r.get_block(name, index, dev).to(torch_dtype(dtype))
                 if name.endswith("gate_up_proj"):
                     _tree_set(tree, mo + ("w_gate",), t[..., 0::2].contiguous())
                     _tree_set(tree, mo + ("w_up",), t[..., 1::2].contiguous())

@@ -48,10 +48,12 @@ from dynamo_tpu_torch.models.llama import (
     LlamaLayer,
     LlamaParams,
     StepTensors,
+    _embed,
     _logits,
     _overlay_rows,
     apply_rope,
     finish_step_,
+    param_mesh,
     pool_embedding,
     resolve_device,
     rms_norm,
@@ -102,14 +104,19 @@ class MlaParams(LlamaParams):
 
 
 def init_params(
-    spec: ModelSpec, seed: int = 0, device: str | torch.device | None = None
+    spec: ModelSpec, seed: int = 0, device: str | torch.device | None = None,
+    mesh=None,
 ) -> MlaParams:
     """Random init from a seeded generator on the device, in the JAX
     init's scheme: normal draws in f32 times 1/sqrt(fan in) (``shape[-2]``;
     1/sqrt(dc) for w_uk and w_uv, 0.02 for the embedding and the router),
     cast to the model dtype; norms are ones. The draws differ from
     jax.random's; parity tests bridge the JAX weights with
-    models/convert.params_from_numpy instead."""
+    models/convert.params_from_numpy instead. With a ``mesh`` every rank
+    draws the same full tensors, one layer at a time, and keeps its shard
+    (models/convert.shard_params' layout: heads, dense and shared FFN
+    columns over tp, routed experts over ep x tp, the latent path
+    replicated)."""
     assert spec.is_mla, "not an MLA spec"
     dev = resolve_device(device)
     dtype = torch_dtype(spec.dtype)
@@ -130,8 +137,16 @@ def init_params(
     def mlp(f):
         return {"w_gate": dense((d, f)), "w_up": dense((d, f)), "w_down": dense((f, d))}
 
-    embed = dense((spec.vocab_size, d), scale=0.02)
-    lm_head = None if spec.tie_embeddings else dense((d, spec.vocab_size))
+    if mesh is not None:
+        from dynamo_tpu_torch.models.convert import check_shardable, shard_tensor
+
+        check_shardable(spec, mesh)
+
+    def cut(name, t):
+        return t if mesh is None else shard_tensor(name, t, mesh)
+
+    embed = cut("embed", dense((spec.vocab_size, d), scale=0.02))
+    lm_head = None if spec.tie_embeddings else cut("lm_head", dense((d, spec.vocab_size)))
     layers = []
     for li in range(spec.num_layers):
         lp = {
@@ -149,13 +164,15 @@ def init_params(
         else:
             lp["wq"] = dense((d, H * (dn + dr)))
         if spec.num_experts and li >= spec.first_k_dense:
-            lp["moe"] = moe.init_moe_layer(spec, dense, dtype, dev)
+            lp["moe"] = moe.init_moe_layer(spec, dense, dtype, dev, mesh)
             if spec.n_shared_experts:
                 lp["shared"] = mlp(spec.moe_intermediate_size * spec.n_shared_experts)
         else:
             lp.update(mlp(spec.intermediate_size))
-        layers.append(lp)
-    return MlaParams(embed, ones(d), layers, lm_head)
+        # the experts come cut (init_moe_layer)
+        layers.append({name: t if name == "moe" else cut(name, t)
+                       for name, t in lp.items()})
+    return MlaParams(embed, ones(d), layers, lm_head, mesh=mesh)
 
 
 def init_cache(
@@ -215,13 +232,13 @@ def _rot(spec: ModelSpec, positions: torch.Tensor):
 
 def _q_heads(spec: ModelSpec, lp: MlaLayer, h: torch.Tensor, rot):
     """h [..., T, d] -> (q_nope [..., T, H, dn], q_rope [..., T, H, dr])
-    with rope applied."""
+    with rope applied; H from the weights (a tp rank's H / tp heads)."""
     dn, dr = spec.qk_nope_head_dim, spec.qk_rope_head_dim
     if spec.q_lora_rank:
         q = rms_norm(h @ lp.wq_a, lp.q_norm, spec.rms_eps) @ lp.wq_b
     else:
         q = h @ lp.wq
-    q = q.reshape(*h.shape[:-1], spec.num_heads, dn + dr)
+    q = q.reshape(*h.shape[:-1], -1, dn + dr)
     return q[..., :dn], apply_rope(q[..., dn:], *rot)
 
 
@@ -257,29 +274,35 @@ def _absorbed_attention(
     return torch.einsum("...thc,hcv->...thv", o_lat, lp.w_uv.float())
 
 
-def _mlp(w, x: torch.Tensor) -> torch.Tensor:
-    return (torch.nn.functional.silu(x @ w.w_gate) * (x @ w.w_up)) @ w.w_down
+def _mlp(w, x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """A gated MLP; a tp rank holds FFN columns of w_gate / w_up and the
+    rows of w_down, and all-reduces its partial."""
+    out = (torch.nn.functional.silu(x @ w.w_gate) * (x @ w.w_up)) @ w.w_down
+    return out if mesh is None else mesh.all_reduce(out)
 
 
-def _ffn(spec: ModelSpec, lp: MlaLayer, x: torch.Tensor) -> torch.Tensor:
+def _ffn(spec: ModelSpec, lp: MlaLayer, x: torch.Tensor, mesh=None) -> torch.Tensor:
     """x [T, d]: routed experts plus the shared experts, or the dense MLP
-    of the first ``first_k_dense`` layers. Drops are not counted (the
-    reference's MLA does not count them)."""
+    of the first ``first_k_dense`` layers; under a mesh the routed experts
+    combine over the expert group, the others over tp. Drops are not
+    counted (the reference's MLA does not count them)."""
     if lp.get("moe") is None:
-        return _mlp(lp, x)
-    out = moe.moe_mlp(spec, lp.moe, x)
+        return _mlp(lp, x, mesh)
+    out = moe.moe_mlp(spec, lp.moe, x, mesh=mesh)
     if lp.get("shared") is not None:
-        out = out + _mlp(lp.shared, x)
+        out = out + _mlp(lp.shared, x, mesh)
     return out
 
 
 def _layer_tail(spec: ModelSpec, lp: MlaLayer, x: torch.Tensor,
-                attn: torch.Tensor) -> torch.Tensor:
-    """x [..., T, d] + the output projection of ``attn [..., T, H, dv]``,
-    then the FFN's residual."""
-    x = x + attn.reshape(*attn.shape[:-2], -1).to(x.dtype) @ lp.wo
+                attn: torch.Tensor, mesh=None) -> torch.Tensor:
+    """x [..., T, d] + the output projection of ``attn [..., T, H, dv]`` (a
+    tp rank's heads: its rows of wo, the partial all-reduced), then the
+    FFN's residual."""
+    o = attn.reshape(*attn.shape[:-2], -1).to(x.dtype) @ lp.wo
+    x = x + (o if mesh is None else mesh.all_reduce(o))
     h = rms_norm(x, lp.mlp_norm, spec.rms_eps)
-    return x + _ffn(spec, lp, h.reshape(-1, h.shape[-1])).reshape(x.shape)
+    return x + _ffn(spec, lp, h.reshape(-1, h.shape[-1]), mesh).reshape(x.shape)
 
 
 def _dropped(device) -> torch.Tensor:
@@ -297,7 +320,8 @@ def reference_forward(
     T = tokens.shape[0]
     positions = torch.arange(T, device=tokens.device)
     rot = _rot(spec, positions)
-    x = params.embed[tokens.long()]
+    mesh = param_mesh(params)
+    x = _embed(params, tokens.long(), mesh)
     dc = spec.kv_lora_rank
     mask = positions[:, None] >= positions[None, :]
     for lp in params.layers:
@@ -312,7 +336,7 @@ def reference_forward(
         scores = scores * softmax_scale(spec)
         scores = torch.where(mask[:, None, :], scores, NEG_INF)
         attn = torch.einsum("ths,shv->thv", torch.softmax(scores, dim=-1), v)
-        x = _layer_tail(spec, lp, x, attn)
+        x = _layer_tail(spec, lp, x, attn, mesh)
     return _logits(spec, params, x)
 
 
@@ -330,13 +354,14 @@ def embed_forward(
     positions = torch.arange(T, device=tokens.device)
     rot = _rot(spec, positions)
     mask = (positions[:, None] >= positions[None, :]) & (positions[None, :] < num_tokens)
-    x = params.embed[tokens.long()]
+    mesh = param_mesh(params)
+    x = _embed(params, tokens.long(), mesh)
     for lp in params.layers:
         h = rms_norm(x, lp.attn_norm, spec.rms_eps)
         q_nope, q_rope = _q_heads(spec, lp, h, rot)
         attn = _absorbed_attention(spec, lp, q_nope, q_rope, _latent_row(spec, lp, h, rot),
                                    mask)
-        x = _layer_tail(spec, lp, x, attn)
+        x = _layer_tail(spec, lp, x, attn, mesh)
     return pool_embedding(rms_norm(x, params.final_norm, spec.rms_eps), num_tokens)
 
 
@@ -401,7 +426,8 @@ def prefill_forward_batch(
     mask = ((ctx_pos[None, None, :] <= positions[:, :, None])
             & (ctx_pos[None, None, :] < kv_len[:, None, None]))
 
-    x = params.embed[tokens.long()]  # [N, T, d]
+    mesh = param_mesh(params)
+    x = _embed(params, tokens.long(), mesh)  # [N, T, d]
     rot = _rot(spec, positions)
     for li, lp in enumerate(params.layers):
         h = rms_norm(x, lp.attn_norm, spec.rms_eps)
@@ -417,7 +443,7 @@ def prefill_forward_batch(
             _absorbed_attention(spec, lp, q_nope[i], q_rope[i], rows[i], mask[i])
             for i in range(N)
         ])
-        x = _layer_tail(spec, lp, x, attn)
+        x = _layer_tail(spec, lp, x, attn, mesh)
 
     last = (ntok - 1).clamp(0, T - 1)
     x_last = x[torch.arange(N, device=dev), last]
@@ -480,7 +506,8 @@ def verify_logits(spec, params, tokens, block_tables, start_pos, cache,
     mask = ((ctx_pos[None, None, :] <= positions[:, :, None])
             & (ctx_pos[None, None, :] < kv_len[:, None, None]))  # [N, W, S]
 
-    x = params.embed[tokens.long()]  # [N, W, d]
+    mesh = param_mesh(params)
+    x = _embed(params, tokens.long(), mesh)  # [N, W, d]
     rot = _rot(spec, positions)
     for li, lp in enumerate(params.layers):
         h = rms_norm(x, lp.attn_norm, spec.rms_eps)
@@ -493,7 +520,7 @@ def verify_logits(spec, params, tokens, block_tables, start_pos, cache,
             # precision over the dequantized context
             rows = _overlay_rows(rows, new_rows, positions)
         attn = _absorbed_attention(spec, lp, q_nope, q_rope, rows, mask)
-        x = _layer_tail(spec, lp, x, attn)
+        x = _layer_tail(spec, lp, x, attn, mesh)
     return _logits(spec, params, x)
 
 
@@ -514,11 +541,12 @@ def decode_forward(
     Over an fp8 cache each query attends to its own new row exactly."""
     where = decode_where(block_tables, seq_lens, active, cache.shape[2])
     rot = _rot(spec, where[0][:, None])  # one position per slot
-    x = params.embed[tokens.long()]  # [B, d]
+    mesh = param_mesh(params)
+    x = _embed(params, tokens.long(), mesh)  # [B, d]
     for li, lp in enumerate(params.layers):
         h = rms_norm(x, lp.attn_norm, spec.rms_eps)[:, None]  # [B, 1, d]
         attn = decode_attention(spec, lp, li, h, rot, cache, block_tables, where)
-        x = _layer_tail(spec, lp, x[:, None], attn)[:, 0]
+        x = _layer_tail(spec, lp, x[:, None], attn, mesh)[:, 0]
     return _logits(spec, params, x)
 
 

@@ -16,8 +16,16 @@ tensors, which at a packed prefill of 8 x 512 rows run to a GB. Nothing
 here reads a device value on the host, and every shape is fixed by ``T``,
 so a CUDA graph captures it (the engine's decode and verify graphs).
 
-The mesh shardings of the reference (``moe_layer_shardings``) arrive with
-meshes (ROADMAP Queue A item 11).
+Under a mesh (models/convert.MOE_SHARD_AXES, the reference's
+``moe_layer_shardings``) a rank holds ``E / ep`` experts and ``f / tp`` of
+each one's FFN columns. Every rank routes all T tokens itself (the same
+``route``, so the same capacity, slots and dropped count on every rank,
+with no collective), runs only its own experts' slots through its
+columns, adds ``b_down`` on tp rank 0 only, combines over its own slots
+(other experts read as zeros) and all-reduces the f32 combine over the
+expert group (ep x tp ranks) before the cast to the model dtype. With
+``dp`` = 1 every rank holds every token, so one all-reduce replaces the
+all-to-alls XLA's partitioner inserts in the reference.
 """
 
 from __future__ import annotations
@@ -30,23 +38,26 @@ from dynamo_tpu_torch.engine.config import ModelSpec
 
 
 def init_moe_layer(spec: ModelSpec, dense, dtype: torch.dtype,
-                   device: torch.device) -> dict[str, torch.Tensor]:
+                   device: torch.device, mesh=None) -> dict[str, torch.Tensor]:
     """Router + stacked expert weights for one layer, drawn by ``dense(shape,
     scale=None)`` (models/llama.init_params' seeded draw, fan-in
     ``shape[-2]``). The router and its biases are f32: a bf16 router would
-    round the logits that pick the experts."""
+    round the logits that pick the experts. With a ``mesh`` each expert
+    leaf is cut to this rank's shard as soon as it is drawn (one full stack
+    alive at a time)."""
+    from dynamo_tpu_torch.models.convert import MOE_SHARD_AXES, shard_axes
+
+    def cut(name, t):
+        return t if mesh is None else shard_axes(t, MOE_SHARD_AXES.get(name), mesh)
+
     d, e, f = spec.hidden_size, spec.num_experts, spec.moe_intermediate_size
-    out = {
-        "router": dense((d, e), scale=0.02).float(),
-        "w_gate": dense((e, d, f)),
-        "w_up": dense((e, d, f)),
-        "w_down": dense((e, f, d)),
-    }
+    out = {"router": dense((d, e), scale=0.02).float()}
+    for name, shape in (("w_gate", (e, d, f)), ("w_up", (e, d, f)), ("w_down", (e, f, d))):
+        out[name] = cut(name, dense(shape))
     if spec.moe_bias:  # gpt-oss: router + expert biases
         out["router_bias"] = torch.zeros(e, dtype=torch.float32, device=device)
-        out["b_gate"] = torch.zeros((e, f), dtype=dtype, device=device)
-        out["b_up"] = torch.zeros((e, f), dtype=dtype, device=device)
-        out["b_down"] = torch.zeros((e, d), dtype=dtype, device=device)
+        for name, shape in (("b_gate", (e, f)), ("b_up", (e, f)), ("b_down", (e, d))):
+            out[name] = cut(name, torch.zeros(shape, dtype=dtype, device=device))
     if spec.moe_scoring == "sigmoid":
         # DeepSeek-V3 aux-free balancing: shifts the selection only
         out["score_bias"] = torch.zeros(e, dtype=torch.float32, device=device)
@@ -107,10 +118,13 @@ def moe_mlp(
     spec: ModelSpec, lp, x: torch.Tensor, *,
     capacity_factor: float = 1.25,
     return_dropped: bool = False,
+    mesh=None,
 ):
     """x [T, d] -> [T, d] through the top-k routed experts; with
     ``return_dropped`` also the number of (token, choice) slots past their
-    expert's capacity, an int32 device scalar."""
+    expert's capacity, an int32 device scalar. With a ``mesh`` the layer
+    holds this rank's experts and columns, and the output is the expert
+    group's all-reduced sum (every rank the same)."""
     T, d = x.shape
     E, k = spec.num_experts, spec.num_experts_per_token
     C = expert_capacity(T, E, k, capacity_factor)
@@ -123,14 +137,19 @@ def moe_mlp(
     pos = torch.gather(torch.cumsum(oh, dim=0) - oh, 1, flat[:, None])
     pos = pos.reshape(T, k)
     keep = pos < C
-    # slot row e*C + pos; a dropped choice goes to the spare row E*C, which
-    # the experts never read and the combine reads as zeros
-    slot = torch.where(keep, topi * C + pos, E * C).reshape(T * k)
+    # this rank's experts: [e0, e0 + El) (all of them without a mesh)
+    El = lp.w_gate.shape[0]
+    e0 = mesh.ep_rank * El if mesh is not None else 0
+    local = keep & (topi >= e0) & (topi < e0 + El)
+    # slot row (e - e0)*C + pos; a dropped choice, or another rank's, goes to
+    # the spare row El*C, which the experts never read and the combine reads
+    # as zeros
+    slot = torch.where(local, (topi - e0) * C + pos, El * C).reshape(T * k)
 
-    xe = x.new_zeros((E * C + 1, d))
+    xe = x.new_zeros((El * C + 1, d))
     xe.index_copy_(0, slot, x[:, None, :].expand(T, k, d).reshape(T * k, d))
-    xe = xe[: E * C].view(E, C, d)
-    g = torch.bmm(xe, lp.w_gate)  # [E, C, f]
+    xe = xe[: El * C].view(El, C, d)
+    g = torch.bmm(xe, lp.w_gate)  # [El, C, f/tp]
     u = torch.bmm(xe, lp.w_up)
     if lp.get("b_gate") is not None:
         g = g + lp.b_gate[:, None, :]
@@ -143,14 +162,17 @@ def moe_mlp(
         h = g * torch.sigmoid(spec.swiglu_alpha * g) * (u + 1.0)
     else:
         h = torch.nn.functional.silu(g) * u
-    out_e = torch.bmm(h, lp.w_down)  # [E, C, d]
-    if lp.get("b_down") is not None:
+    out_e = torch.bmm(h, lp.w_down)  # [El, C, d]: a tp rank's partial
+    if lp.get("b_down") is not None and (mesh is None or mesh.tp_rank == 0):
         out_e = out_e + lp.b_down[:, None, :]
 
-    rows = torch.cat([out_e.reshape(E * C, d).float(),
+    rows = torch.cat([out_e.reshape(El * C, d).float(),
                       out_e.new_zeros((1, d), dtype=torch.float32)])
-    w = topv * keep
-    out = (rows[slot].view(T, k, d) * w[..., None]).sum(1).to(x.dtype)
+    w = topv * local
+    out = (rows[slot].view(T, k, d) * w[..., None]).sum(1)
+    if mesh is not None:
+        out = mesh.all_reduce(out, "expert")
+    out = out.to(x.dtype)
     if return_dropped:
         return out, (~keep).sum().to(torch.int32)
     return out

@@ -1,23 +1,32 @@
-"""The tensor-parallel mesh of one engine (the counterpart of
-dynamo_tpu/parallel/mesh.py).
+"""The mesh of one engine: its tensor- and expert-parallel groups (the
+counterpart of dynamo_tpu/parallel/mesh.py).
 
 The reference folds local devices into a ``jax.sharding.Mesh`` with axes
 ``("dp", "pp", "sp", "ep", "tp")`` and lets GSPMD insert the collectives.
 PyTorch runs one process per card: a mesh here is this rank's place in a
 ``torch.distributed`` world of ``dp * pp * sp * ep * tp`` ranks, its
-device and the ``tp`` process group, and the model calls the collectives
-itself (models/llama.py). The axis order stays the reference's, ``tp``
-innermost. Only ``tp`` is ported: every other axis above 1 raises, naming
-the ROADMAP item that ports it.
+device and its process groups, and the model calls the collectives itself
+(models/llama.py, models/mla.py, models/moe.py). The axis order stays the
+reference's, ``tp`` innermost. ``tp`` and ``ep`` are ported: every other
+axis above 1 raises, naming the ROADMAP item that ports it.
+
+Groups. ``tp``: the ``tp`` ranks of this rank's ep slice (attention
+heads, dense FFN columns, the embedding's d and an untied head's
+vocabulary); the whole world when ep is 1. ``expert``: the ``ep * tp``
+ranks that hold one copy of every expert (experts over ep, their FFN
+columns over tp); the whole world while dp, pp and sp are 1. Every rank
+creates every group, in the same order (``dist.new_group``).
 
 Collectives: the partial sums of the row-parallel matmuls (``wo``,
-``w_down``, a tied lm head) are all-reduced in f32, on NCCL and on gloo
-alike, and rounded to the model dtype once after the sum; gathers move the
-values as they are. gloo has no all-gather of CUDA tensors, and its CUDA
-all-reduce differs by build, so a gloo group over CUDA tensors (two ranks
-on one card, where NCCL refuses) stages every collective through pinned
-host memory: a host round trip per collective, and no CUDA graph can
-capture it (engine/graphs.py refuses the capture).
+``w_down``, a tied lm head, the experts' combine) are all-reduced in f32,
+on NCCL and on gloo alike, and rounded to the model dtype once after the
+sum; gathers move the values as they are. gloo has no all-gather of CUDA
+tensors, and its CUDA all-reduce differs by build, so a gloo group over
+CUDA tensors (several ranks on one card, where NCCL refuses) stages every
+collective through pinned host memory: a host round trip per collective,
+and no CUDA graph can capture it (engine/graphs.py refuses the capture).
+A tp group of one rank inside a wider world (tp=1 under ep) runs no
+collective.
 """
 
 from __future__ import annotations
@@ -30,21 +39,26 @@ import torch
 AXES = ("dp", "pp", "sp", "ep", "tp")
 # the ROADMAP items that port the other axes
 AXIS_ITEMS = {
-    "ep": "ROADMAP Queue A item 11b (expert parallelism)",
     "pp": "ROADMAP Queue A item 11c (pipeline parallelism)",
     "sp": "ROADMAP Queue A item 11d (sequence-parallel ring prefill)",
     "dp": "ROADMAP Queue A item 11d (data parallelism)",
 }
 
 
+def _zero_stats() -> dict:
+    return dict(calls=0, captured=0, bytes=0, secs=0.0)
+
+
 @dataclass
 class Mesh:
     """This rank's view of the mesh: axis sizes (``shape``, in ``AXES``
-    order), its coordinates, its device and the ``tp`` process group with
-    its backend. ``stats`` counts the collectives issued (``calls``, those
-    issued under CUDA-graph capture as ``captured``, the ``bytes`` each
-    rank contributed) and the host seconds spent in them (``secs``: the
-    whole collective when it is staged, the launch alone on NCCL)."""
+    order), its coordinates, its device, its ``tp`` process group
+    (``group``) and ``expert`` group with their backend. ``stats`` counts
+    the collectives issued over all groups (``calls``, those issued under
+    CUDA-graph capture as ``captured``, the ``bytes`` each rank
+    contributed) and the host seconds spent in them (``secs``: the whole
+    collective when it is staged, the launch alone on NCCL);
+    ``group_stats`` the same per group name."""
 
     shape: dict[str, int]
     coords: dict[str, int]
@@ -52,17 +66,20 @@ class Mesh:
     group: object = None
     backend: str = "gloo"
     rank: int = 0  # global rank
-    stats: dict = field(default_factory=lambda: dict(calls=0, captured=0, bytes=0,
-                                                     secs=0.0))
+    expert_group: object = None
+    stats: dict = field(default_factory=_zero_stats)
+    group_stats: dict = field(default_factory=lambda: {"tp": _zero_stats(),
+                                                       "expert": _zero_stats()})
     _pinned: dict = field(default_factory=dict, repr=False)
 
-    def _note(self, t: torch.Tensor, t0: float) -> None:
-        st = self.stats
-        st["calls"] += 1
-        st["bytes"] += t.nbytes
-        st["secs"] += time.perf_counter() - t0
-        if t.is_cuda and torch.cuda.is_current_stream_capturing():
-            st["captured"] += 1
+    def _note(self, over: str, t: torch.Tensor, t0: float) -> None:
+        secs = time.perf_counter() - t0
+        captured = t.is_cuda and torch.cuda.is_current_stream_capturing()
+        for st in (self.stats, self.group_stats[over]):
+            st["calls"] += 1
+            st["bytes"] += t.nbytes
+            st["secs"] += secs
+            st["captured"] += int(captured)
 
     @property
     def tp(self) -> int:
@@ -71,6 +88,21 @@ class Mesh:
     @property
     def tp_rank(self) -> int:
         return self.coords["tp"]
+
+    @property
+    def ep(self) -> int:
+        return self.shape["ep"]
+
+    @property
+    def ep_rank(self) -> int:
+        return self.coords["ep"]
+
+    @property
+    def distributed(self) -> bool:
+        """True when the forwards run collectives: a process group exists
+        (a group of one rank in a world of one still runs them, as NCCL
+        kernels a graph can capture)."""
+        return self.group is not None or self.expert_group is not None
 
     @property
     def staged(self) -> bool:
@@ -84,14 +116,21 @@ class Mesh:
         (NCCL's can; gloo's cannot)."""
         return self.backend == "nccl"
 
-    def shard(self, n: int, what: str = "axis") -> slice:
-        """This rank's contiguous slice of an axis of ``n`` along ``tp``."""
-        if n % self.tp:
-            raise ValueError(f"{what} of {n} does not divide over tp={self.tp}")
-        k = n // self.tp
-        return slice(self.tp_rank * k, (self.tp_rank + 1) * k)
+    def shard(self, n: int, what: str = "axis", axis: str = "tp") -> slice:
+        """This rank's contiguous slice of an axis of ``n`` along mesh axis
+        ``axis`` (``tp`` or ``ep``)."""
+        size = self.shape[axis]
+        if n % size:
+            raise ValueError(f"{what} of {n} does not divide over {axis}={size}")
+        k = n // size
+        return slice(self.coords[axis] * k, (self.coords[axis] + 1) * k)
 
     # -- collectives -------------------------------------------------------
+
+    def _group(self, over: str):
+        if over not in ("tp", "expert"):
+            raise ValueError(f"group {over!r}: tp or expert")
+        return self.group if over == "tp" else self.expert_group
 
     def _host(self, x: torch.Tensor) -> torch.Tensor:
         """A pinned host buffer holding ``x`` (gloo staging)."""
@@ -103,22 +142,24 @@ class Mesh:
         buf.copy_(x)
         return buf
 
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum of ``x`` over the tp ranks, reduced in f32 and returned
-        in ``x``'s dtype. Identical on every rank."""
+    def all_reduce(self, x: torch.Tensor, over: str = "tp") -> torch.Tensor:
+        """The sum of ``x`` over the ranks of group ``over`` (``tp`` or
+        ``expert``), reduced in f32 and returned in ``x``'s dtype.
+        Identical on every rank of the group."""
         import torch.distributed as dist
 
-        if self.group is None:
+        group = self._group(over)
+        if group is None:
             return x
         t0 = time.perf_counter()
         acc = x.float().contiguous()
         if self.staged:
             h = self._host(acc)
-            dist.all_reduce(h, group=self.group)
+            dist.all_reduce(h, group=group)
             acc = h.to(x.device)
         else:
-            dist.all_reduce(acc, group=self.group)
-        self._note(acc, t0)
+            dist.all_reduce(acc, group=group)
+        self._note(over, acc, t0)
         return acc.to(x.dtype)
 
     def all_gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -140,7 +181,7 @@ class Mesh:
             out.copy_(ho)
         else:
             dist.all_gather_into_tensor(out, src, group=self.group)
-        self._note(src, t0)
+        self._note("tp", src, t0)
         return out.movedim(0, dim)
 
 
@@ -155,17 +196,19 @@ def make_mesh(
     """This rank's mesh over the initialised ``torch.distributed`` world
     (parallel/multihost.py ``initialize_multihost``). ``devices`` lists
     the device of each local rank (default ``cuda:<local rank>`` on a GPU
-    host; the CPU under gloo). Raises when an axis other than ``tp``
-    exceeds 1, or when the world is not ``tp * dp * sp * ep * pp`` ranks."""
+    host; the CPU under gloo). Raises when dp, pp or sp exceeds 1, or when
+    the world is not ``tp * dp * sp * ep * pp`` ranks. Every rank must call
+    it, in the same order as its other group creations: it makes the tp
+    group of each ep slice."""
     import torch.distributed as dist
 
     sizes = {"dp": dp, "pp": pp, "sp": sp, "ep": ep, "tp": tp}
     for name, n in sizes.items():
         if n < 1:
             raise ValueError(f"mesh axis {name}={n} must be >= 1")
-        if name != "tp" and n > 1:
+        if name not in ("tp", "ep") and n > 1:
             raise NotImplementedError(
-                f"mesh axis {name}={n}: the port shards only tp; {name} is "
+                f"mesh axis {name}={n}: the port shards only tp and ep; {name} is "
                 f"{AXIS_ITEMS[name]}")
     need = tp * dp * sp * ep * pp
     if not dist.is_initialized():
@@ -190,5 +233,13 @@ def make_mesh(
 
     dev = (torch.device(devices[rank % len(devices)]) if devices
            else local_device())
-    return Mesh(sizes, coords, dev, group=dist.group.WORLD,
-                backend=dist.get_backend(), rank=rank)
+    # dp, pp and sp are 1: the world is one expert group of ep x tp ranks
+    tp_group = expert_group = dist.group.WORLD
+    if ep > 1:
+        tp_group = None
+        for e in range(ep if tp > 1 else 0):  # every rank makes every group, in order
+            g = dist.new_group(list(range(e * tp, (e + 1) * tp)))
+            if e == coords["ep"]:
+                tp_group = g
+    return Mesh(sizes, coords, dev, group=tp_group, backend=dist.get_backend(),
+                rank=rank, expert_group=expert_group)

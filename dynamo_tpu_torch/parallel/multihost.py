@@ -1,5 +1,5 @@
-"""Bootstrap of a tensor-parallel group: one logical worker over several
-processes, one per card (the counterpart of
+"""Bootstrap of a mesh's group (tensor and expert parallel): one logical
+worker over several processes, one per card (the counterpart of
 dynamo_tpu/parallel/multihost.py).
 
 The reference joins ``jax.distributed`` so that ``jax.devices()`` spans
@@ -20,8 +20,8 @@ gloo unasked.
 
 ``spawn_local_followers`` starts ranks 1..N-1 of a group on this host as
 worker processes (``python -m dynamo_tpu_torch.engine.worker ...
---process-id r``): ``--tp N`` with no coordinator does that, and the
-calling process becomes rank 0.
+--process-id r``): ``--tp T --ep E`` (N = E * T) with no coordinator does
+that, and the calling process becomes rank 0.
 """
 
 from __future__ import annotations
@@ -160,19 +160,20 @@ def free_coordinator(host: str = "127.0.0.1") -> str:
 
 
 def spawn_local_followers(
-    tp: int, worker_argv: list[str], coordinator: str, env: dict | None = None,
+    n: int, worker_argv: list[str], coordinator: str, env: dict | None = None,
 ) -> list[subprocess.Popen]:
-    """Ranks 1..tp-1 of a group on this host: worker processes given
-    ``worker_argv`` (the leader's model and engine flags) plus the group's
-    coordinator, size and their rank; ``DYN_LOCAL_RANK`` picks each one's
-    card. Each prints ``MULTIHOST_FOLLOWER_READY`` once its shell is
-    built. The caller becomes rank 0 and stops them at the end."""
+    """Ranks 1..n-1 of a group of ``n`` (ep x tp) on this host: worker
+    processes given ``worker_argv`` (the leader's model and engine flags,
+    its EngineConfig with tp and ep) plus the group's coordinator, size and
+    their rank; ``DYN_LOCAL_RANK`` picks each one's card. Each prints
+    ``MULTIHOST_FOLLOWER_READY`` once its shell is built. The caller
+    becomes rank 0 and stops them at the end."""
     procs = []
-    for r in range(1, tp):
+    for r in range(1, n):
         penv = dict(os.environ if env is None else env, DYN_LOCAL_RANK=str(r))
         procs.append(subprocess.Popen(
             [sys.executable, "-m", "dynamo_tpu_torch.engine.worker", *worker_argv,
-             "--tp", str(tp), "--coordinator-address", coordinator,
-             "--num-processes", str(tp), "--process-id", str(r)],
+             "--coordinator-address", coordinator,
+             "--num-processes", str(n), "--process-id", str(r)],
             env=penv))
     return procs

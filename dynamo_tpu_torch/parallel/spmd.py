@@ -1,8 +1,12 @@
 """Leader-driven SPMD replay: one logical worker over several processes
 (the counterpart of dynamo_tpu/parallel/spmd.py).
 
-Every rank of a tp group must run the same collectives in the same order,
-or the first one it waits in never completes. The LEADER (rank 0) runs the
+Every rank of a group (the ep x tp ranks of a mesh: the tp groups of
+every ep slice and the expert group over all of them) must run the same
+collectives in the same order, or the first one it waits in never
+completes. So every rank but the leader follows, the ep replicas of the
+leader's tp coordinate included: each replays the whole forward, and its
+tp and expert collectives line up with the leader's. The LEADER (rank 0) runs the
 whole engine: scheduler, page bookkeeping, sampling, streaming. Before
 each device dispatch on the serving path it publishes a step descriptor:
 an op tag, scalars, and the host arrays the dispatch consumes. Each
@@ -31,7 +35,7 @@ TRANSPORT: one TCP stream per follower, framed by runtime/framing.py
 ring (``RING_FRAMES`` descriptors, ``RING_BYTES`` of payload) replays the
 backlog to a follower that connects late.
 
-Two policies, as the reference's. STRICT (a tp group: the ranks share
+Two policies, as the reference's. STRICT (a mesh's group: the ranks share
 collectives): a follower lost, or one that stops draining, latches the
 plane broken and the engine reports itself dead; nothing rejoins.
 MIRROR (``--mirror``: each process runs its own whole model and no
@@ -87,7 +91,7 @@ def _default_strict() -> bool:
 
 class StoreHub:
     """The three hub calls the plane makes (``put``, ``get``, ``delete``)
-    over a ``torch.distributed`` store: a tp group's ranks find the
+    over a ``torch.distributed`` store: a group's ranks find the
     leader's address through the rendezvous they already share."""
 
     def __init__(self, store=None):

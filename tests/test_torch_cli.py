@@ -68,15 +68,29 @@ def test_run_builds_the_reference_engine_config(monkeypatch, argv, env):
 
 
 def test_run_tp_2_refuses_naming_item_11(monkeypatch):
-    """``--tp 2`` builds the reference's config; a model that does not
-    shard over it (MLA: item 11b) is refused before any rank starts."""
+    """``--tp 2`` builds the reference's config. MLA, refused here until
+    item 11b ported it, shards now: ``--ep 2 --tp 2`` reaches the launcher
+    as the port's config, and a model whose experts do not divide over
+    ``--ep`` is refused naming the axis before any rank starts."""
     for k in ENV:
         monkeypatch.delenv(k, raising=False)
     assert _run(monkeypatch, jax_worker, jax_cli._run_command, ["--tp", "2"]).tp == 2
-    _capture(monkeypatch, worker)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        cli._run_command(["--out", "engine", "--port", "0", "--tp", "2",
+    seen = {}
+
+    async def launcher(ecfg, **kw):
+        seen.update(ecfg=ecfg, model=kw["model"])
+        raise _Captured
+
+    monkeypatch.setattr(worker, "start_tp_group", launcher)
+    with pytest.raises(_Captured):
+        cli._run_command(["--out", "engine", "--port", "0", "--ep", "2", "--tp", "2",
                           "--model", "tiny-deepseek"])
+    assert (seen["ecfg"].ep, seen["ecfg"].tp, seen["model"]) == (2, 2, "tiny-deepseek")
+    monkeypatch.undo()
+    _capture(monkeypatch, worker)
+    with pytest.raises(ValueError, match="ep=3"):
+        cli._run_command(["--out", "engine", "--port", "0", "--ep", "3",
+                          "--model", "tiny-moe"])
 
 
 @pytest.mark.parametrize("argv", [["--spec", "eagle"], ["--guided", "on"]])

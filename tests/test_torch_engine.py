@@ -315,10 +315,10 @@ _UNPORTED_VALUES = {
 # fields that were refused until their feature was ported: they now build
 # with the value (speculative decoding: Queue A item 6; overload: item 5;
 # guided decoding: item 7; the step profiler: item 13; tensor parallelism:
-# item 11a)
+# item 11a; expert parallelism: item 11b)
 _PORTED_SINCE = ("spec_mode", "spec_k_max", "spec_ngram_min", "spec_ngram_max",
                  "spec_ewma_alpha", "spec_reprobe_tokens", "max_waiting", "tenants",
-                 "preemption", "guided_cache_entries", "profile", "tp")
+                 "preemption", "guided_cache_entries", "profile", "tp", "ep")
 
 
 @pytest.mark.parametrize("field", list(_UNPORTED_VALUES))

@@ -310,8 +310,14 @@ def test_refusals(tmp_path, caplog):
     spec = ModelSpec(**MOE_KW)
     p = llama.init_params(spec, 0, device="cpu")
     loader.save_params(spec, p, str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        loader.load_model_dir(str(tmp_path), mesh=object(), device="cpu")
+    # MoE checkpoints shard under a mesh since item 11b: one whose 4 experts
+    # do not divide over ep=3 is refused naming the axis
+    from dynamo_tpu_torch.parallel.mesh import AXES, Mesh
+
+    ep3 = Mesh(dict.fromkeys(AXES, 1) | {"ep": 3}, dict.fromkeys(AXES, 0),
+               torch.device("cpu"))
+    with pytest.raises(ValueError, match="ep=3"):
+        loader.load_model_dir(str(tmp_path), mesh=ep3, device="cpu")
     # MLA is no longer refused: the family and the name map exist, and a
     # DeepSeek directory without its tensors fails as any checkpoint does
     assert isinstance(get_family(ModelSpec.tiny_deepseek()), MlaFamily)

@@ -480,8 +480,15 @@ def test_sharded_load_reads_a_slice_of_the_checkpoint(tmp_path, tp):
 @pytest.mark.parametrize("axis,item", [("dp", "11d"), ("sp", "11d"), ("ep", "11b"),
                                        ("pp", "11c")])
 def test_other_axes_refuse_naming_their_item(axis, item):
+    """dp, sp and pp raise naming their item. ep, which item 11b ported,
+    builds its config, and make_mesh asks only for the group it needs."""
     from dynamo_tpu_torch.parallel import make_mesh
 
+    if axis == "ep":
+        assert EngineConfig(ep=2).ep == 2
+        with pytest.raises(RuntimeError, match="initialised"):
+            make_mesh(ep=2)
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         EngineConfig(**{axis: 2})
     with pytest.raises(NotImplementedError, match=f"item {item}"):
@@ -489,9 +496,11 @@ def test_other_axes_refuse_naming_their_item(axis, item):
 
 
 def test_tp_refusals_name_their_items():
-    """MLA and MoE specs under tp > 1 name item 11b, a disagg export under
-    tp names item 11e, a tp config without its mesh and a spec that does
-    not divide are refused, a tp mesh needs an initialised group."""
+    """MLA and MoE specs under tp > 1 shard (item 11b ported them: the
+    engine and the MLA family's init keep this rank's heads and expert
+    columns), a disagg export under tp names item 11e, a tp config without
+    its mesh and a spec that does not divide are refused, a tp mesh needs
+    an initialised group."""
     from dynamo_tpu_torch.disagg.transfer import KvTransferSource
     from dynamo_tpu_torch.engine.core import InferenceEngine
     from dynamo_tpu_torch.models.convert import check_shardable
@@ -500,13 +509,14 @@ def test_tp_refusals_name_their_items():
 
     mesh = local_mesh(2, 0)
     for spec in (ModelSpec.tiny_deepseek(), ModelSpec.tiny_moe()):
-        with pytest.raises(NotImplementedError, match="item 11b"):
-            check_shardable(spec, 2)
-        with pytest.raises(NotImplementedError, match="item 11b"):
-            InferenceEngine(spec, EngineConfig(tp=2), device="cpu", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        get_family(ModelSpec.tiny_deepseek()).init_params(
-            ModelSpec.tiny_deepseek(), 0, device="cpu", mesh=mesh)
+        check_shardable(spec, 2)
+        eng = InferenceEngine(spec, EngineConfig(tp=2), device="cpu", mesh=mesh)
+        assert eng.params.mesh is mesh
+        assert (eng.params.layers[-1].moe.w_gate.shape[-1]
+                == spec.moe_intermediate_size // 2)
+    ds = ModelSpec.tiny_deepseek()
+    params = get_family(ds).init_params(ds, 0, device="cpu", mesh=mesh)
+    assert params.layers[0].w_uk.shape[0] == ds.num_heads // 2
     with pytest.raises(NotImplementedError, match="item 11e"):
         InferenceEngine(ModelSpec.dryrun(), EngineConfig(tp=2), device="cpu", mesh=mesh,
                         transfer_source=KvTransferSource())
