@@ -515,8 +515,37 @@ Phases, each of which must pass (any failure exits non-zero):
    collectives per group. The launches join the kernels line
    (fused_decode/gpt-oss-tp2 for (a), fused_decode/gpt-oss for (c)).
 
+24. pipeline, sequence and data parallelism (after phase 23):
+   paged_attention_v3 and kv_write at a pipeline stage's shape (B 4, KH 4,
+   G 4, D 128) against their plain versions, timed beside SDPA / two
+   index_copy_ calls and their bounds; one-rank references on the same
+   seeded weights (llama-3-8b and llama-3-70b's width cut to 4 layers:
+   prefill_forward of phase 4's prompts, then greedy decode_forward steps;
+   one-rank engines for (d)); then one 4-rank gloo group on this card runs
+   (a) llama-3-8b at full width and depth over pp=2 x tp=2 (16 layers per
+   stage): pp_prefill of phase 4's 8 prompts one by one, 32 greedy
+   pp_decode_steps at B 8 (microbatches of 4), (b) the same over pp=2 x
+   dp=2, (c) llama-3-70b's width, 4 layers, over pp=4 (8 steps), each rank
+   drawing its stage of the seeded init; gates: prefill and first decode
+   step logits within TP_LOGIT_TOL of one rank's, streams equal up to the
+   first near-tie, prompt 0's pages within TP_POOL_TOL of the one-rank
+   pools' matching layers and KV heads, kv_write and paged_attention_v3
+   once per layer per tick (2 pp - 1 ticks) per step on every rank, (b)'s
+   dp replicas' pools bitwise equal; (d) llama-3-8b at full size over
+   sp=2 x tp=2 through InferenceEngine (leader and followers): the
+   2,048-token prompt's ring prefill logits within TP_LOGIT_TOL of one
+   rank's, then that prompt and phase 4's 8 (every cold one by ring
+   prefill) on bf16 and on fp8 pools, streams equal to one rank's engine up
+   to the first near-tie, bf16 pages by block hash within TP_POOL_TOL, the
+   sp replicas' pools bitwise equal; (e) ``cli worker`` with an EngineConfig
+   of dp=2 (llama-3-8b at full width, 4 layers): the replicas' pools
+   bitwise equal. Prints weights per rank, the collectives per step and
+   group with bytes, and its walls marked NOT pp/sp timings. The launches
+   join the kernels line (kv_write/pp, paged_attention_v3/pp for (a)-(c);
+   fused_decode/tp2 for (d); fused_decode for (e)).
+
 Phases run in the order 1-8, 12, 13, 14, 18, 9, 20 (a, b, d), 21, 10, 11,
-19, 20 (c), 15, 16, 17, 22, 23.
+19, 20 (c), 15, 16, 17, 22, 23, 24.
 
 Prints, before the last line, the card line and one JSON object with every
 kernel's measurements; the last line is
@@ -8692,6 +8721,637 @@ def ep_phase(cfg, card, flush) -> tuple[dict, dict[str, int]]:
     return rows, {"fused_decode/gpt-oss-tp2": a, "fused_decode/gpt-oss": c}
 
 
+# ------------------------------------------ pipeline and sequence parallelism
+
+PP_STEPS = 32  # greedy pp_decode_steps of (a) and (b)
+PP70_STEPS = 8  # of (c)
+PP70_LAYERS = 4  # llama-3-70b at full width, one layer per stage of (c)
+PP_PAGES = 40  # pages per slot: the longest prompt (512 tokens) and 32 steps need 34
+PP_CMP_PAGES = 8  # prompt 0's first pages, held against the one-rank pools
+SP_PROMPT = 2048  # (d)'s cold prompt
+SP_SEED = 2424
+# (d)'s engine: the 2,048-token prompt and its 32 tokens need 130 pages of
+# the table; graphs off (a gloo group's collectives cannot be captured)
+SP_CFG = dict(page_size=16, num_pages=512, max_pages_per_seq=160, max_decode_slots=8,
+              cuda_graphs=False)
+DP_LAYERS = 4  # (e): llama-3-8b at full width, cut to this many layers
+
+
+def pp_tables(B: int) -> np.ndarray:
+    """Slot i's block table: pages 1 + i * PP_PAGES onward (page 0 is trash)."""
+    return np.stack([np.arange(1 + i * PP_PAGES, 1 + (i + 1) * PP_PAGES)
+                     for i in range(B)]).astype(np.int32)
+
+
+def pp_padded(prompt, device) -> torch.Tensor:
+    tok = torch.zeros(-(-len(prompt) // 16) * 16, dtype=torch.int32, device=device)
+    tok[: len(prompt)] = torch.tensor(prompt, dtype=torch.int32)
+    return tok
+
+
+def pp_drive(prefill, decode, prompts, steps, device) -> dict:
+    """Each prompt's prefill in turn (``prefill(i, tokens, n)`` -> logits
+    [V]), then ``steps`` greedy decode steps of all slots (``decode(tokens,
+    seq_lens)`` -> logits [B, V]). Returns the prefill logits, the first
+    decode step's logits, the streams and, per slot and position, the gap
+    between the two largest logits (a stream may part from another only at
+    a near-tie)."""
+    B = len(prompts)
+    t0 = time.perf_counter()
+    first = torch.stack([prefill(i, pp_padded(p, device), len(p)).float()
+                         for i, p in enumerate(prompts)])
+    t1 = time.perf_counter()
+    lg, gaps, streams = first, [], [[] for _ in range(B)]
+    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device=device)
+    step0 = None
+    for s in range(steps + 1):
+        top2 = lg.topk(2, dim=-1).values
+        gaps.append((top2[:, 0] - top2[:, 1]).cpu())
+        tok = lg.argmax(-1).to(torch.int32)
+        for i, t in enumerate(tok.tolist()):
+            streams[i].append(t)
+        if s == steps:
+            break
+        lens = lens + 1
+        lg = decode(tok, lens).float()
+        if s == 0:
+            step0 = lg.cpu().numpy()
+    # numpy: a torch tensor crosses a process queue as a descriptor that dies
+    # with its process
+    return {"prefill": first.cpu().numpy(), "step0": step0, "streams": streams,
+            "gaps": torch.stack(gaps, 1).numpy(), "prefill_s": t1 - t0,
+            "decode_s": time.perf_counter() - t1}
+
+
+def pp_reference(spec, params, prompts, steps) -> dict:
+    """The one-rank path on the same seeded weights: prefill_forward of
+    each prompt, then decode_forward steps (the fused kernel); its pools
+    stay in the result (``pools``) for the page checks."""
+    from dynamo_tpu_torch.models import llama
+
+    B = len(prompts)
+    k, v = llama.init_cache(spec, 1 + B * PP_PAGES, 16, device=DEVICE)
+    bt = torch.from_numpy(pp_tables(B)).to(DEVICE)
+    active = torch.ones(B, dtype=torch.bool, device=DEVICE)
+    with torch.no_grad():
+        out = pp_drive(
+            lambda i, tok, n: llama.prefill_forward(spec, params, tok, bt[i], 0, k, v, n)[0],
+            lambda tok, lens: llama.decode_forward(spec, params, tok, bt, lens, k, v, active),
+            prompts, steps, DEVICE)
+    # prompt 0's first pages, for the stage checks
+    out["pools"] = (k[:, 1:1 + PP_CMP_PAGES].clone(), v[:, 1:1 + PP_CMP_PAGES].clone())
+    return out
+
+
+def pp_cell(spec, axes, prompts, steps, dev) -> dict:
+    """One pipeline cell on this rank: its stage of the seeded init
+    (init_params with the mesh, then stack_params), its stage pools, each
+    prompt through pp_prefill, ``steps`` pp_decode_steps. Counts the
+    kernels' launches and the collectives per group over the decode steps
+    alone (zeroed just before them)."""
+    import hashlib
+
+    from dynamo_tpu_torch.kvbm.offload import block_numpy
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.parallel.mesh import make_mesh
+    from dynamo_tpu_torch.parallel.pipeline import (
+        init_stage_cache,
+        pp_decode_step,
+        pp_prefill,
+        stack_params,
+    )
+
+    mesh = make_mesh(**axes)
+    t0 = time.perf_counter()
+    stage = stack_params(spec, llama.init_params(spec, 0, device=dev, mesh=mesh))
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wbytes = sum(t.nbytes for t in (stage.embed, stage.final_norm, *stage.layers.values()))
+    wbytes += stage.lm_head.nbytes if stage.lm_head is not None else 0
+    res = {"coords": dict(mesh.coords), "init_s": time.perf_counter() - t0,
+           "weights_bytes": wbytes, "n_local": stage.n_local}
+    B = len(prompts)
+    k, v = init_stage_cache(spec, 1 + B * PP_PAGES, 16, mesh, device=dev)
+    bt = torch.from_numpy(pp_tables(B)).to(dev)
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    marks = {}
+
+    def decode(tok, lens):
+        if not marks:  # the decode steps alone: counts and collectives from here
+            zero_counts()
+            marks.update({g: dict(st) for g, st in mesh.group_stats.items()})
+        return pp_decode_step(spec, stage, tok, bt, lens, k, v, active)
+
+    with torch.no_grad():
+        out = pp_drive(lambda i, tok, n: pp_prefill(spec, stage, tok, bt[i], k, v, n),
+                       decode, prompts, steps, dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    res["counts"] = read_counts()
+    res["coll"] = {g: {key: st[key] - marks[g][key] for key in ("calls", "bytes", "secs")}
+                   for g, st in mesh.group_stats.items()}
+    res.update(out)
+    res["pages"] = (block_numpy(k[:, 1:1 + PP_CMP_PAGES].cpu()),
+                    block_numpy(v[:, 1:1 + PP_CMP_PAGES].cpu()))
+    res["digest"] = hashlib.sha256(block_numpy(k[:, 1:].cpu()).tobytes()
+                                   + block_numpy(v[:, 1:].cpu()).tobytes()).hexdigest()
+    del stage, k, v
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+async def sp_engine_cell(spec, prompts, long_prompt, dev) -> dict:
+    """(d) on this rank: make_mesh(sp=2, tp=2), its shard of the seeded
+    init, the 2,048-token prompt's ring-prefill logits on scratch pools,
+    then an engine per pool type (rank 0 an SPMD leader serving the long
+    prompt and phase 4's prompts, the others followers)."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.core import InferenceEngine
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.parallel.mesh import make_mesh
+    from dynamo_tpu_torch.parallel.spmd import SpmdFollower, SpmdLeader, StoreHub
+
+    mesh = make_mesh(sp=2, tp=2)
+    params = llama.init_params(spec, 0, device=dev, mesh=mesh)
+    n_pg = SP_PROMPT // 16
+    k, v = llama.init_cache(spec, n_pg + 1, 16, device=dev, tp=2)
+    s0 = {g: dict(st) for g, st in mesh.group_stats.items()}
+    with torch.no_grad():
+        logits, _ = llama.prefill_forward_ring(
+            spec, params, pp_padded(long_prompt, dev),
+            torch.arange(1, n_pg + 1, dtype=torch.int32, device=dev), k, v, SP_PROMPT)
+    res = {"coords": dict(mesh.coords), "logits": logits.float().cpu().numpy(),
+           "ring_coll": {g: {key: st[key] - s0[g][key] for key in ("calls", "bytes")}
+                         for g, st in mesh.group_stats.items()}}
+    del k, v
+    for kv in ("bf16", "fp8"):
+        cfg = EngineConfig(**SP_CFG, sp=2, tp=2, kv_dtype=kv)
+        group = f"phase24/{kv}"
+        r: dict = {}
+        if mesh.rank == 0:
+            leader = await SpmdLeader(StoreHub(), asyncio.get_running_loop(), group,
+                                      strict=True).start()
+            engine = InferenceEngine(spec, cfg, params=params, device=dev, mesh=mesh,
+                                     spmd=leader)
+            zero_counts()
+            p0 = leader.publish_count
+            await engine.start()
+            t0 = time.perf_counter()
+            first = await requests(engine, [make_request(long_prompt)])
+            results, ttft, wall, hit = await serve(engine, prompts)
+            r["wall"] = time.perf_counter() - t0
+            r["counts"] = read_counts()
+            r["tokens"] = {i: [t for x in items for t in x["token_ids"]]
+                           for i, items in results.items()}
+            r["long"] = [t for x in first[0][0] for t in x["token_ids"]]
+            r.update(ring_prefills=engine.ring_prefills, prefills=engine.prefill_forwards,
+                     publishes=leader.publish_count - p0, steps=engine.steps)
+            r["digest"] = await engine.kv_digest()
+            if kv == "bf16":
+                ids = engine.allocator.used_page_ids()[:TP_POOL_PAGES]
+                r["hashes"] = [engine.allocator._page_hash.get(p) for p in ids]
+                r["pages"] = tp_pages(engine, ids)
+            await engine.close()
+        else:
+            engine = InferenceEngine(spec, cfg, params=params, device=dev, mesh=mesh)
+            zero_counts()
+            f = SpmdFollower(StoreHub(), group, engine, rejoin=False)
+            await f.run()
+            r["counts"] = read_counts()
+            r["ops"] = dict(f.ops)
+            r["digest"] = engine.pool_digest(f.digest_pages)
+            if kv == "bf16":
+                r["pages"] = tp_pages(engine, f.digest_pages[:TP_POOL_PAGES])
+        engine.k_pages = engine.v_pages = None
+        res[kv] = r
+    del params
+    return res
+
+
+def pp_sp_rank(rank, n, port, job, q):
+    """A spawned rank of phase 24: join the 4-rank gloo group on this card,
+    run (a), (b) and (c) through pp_cell (each cell's weights freed before
+    the next) and (d) through sp_engine_cell; put the results on ``q``."""
+    import traceback
+
+    try:
+        sys.path.insert(0, str(ROOT))
+        from dynamo_tpu_torch.engine.config import ModelSpec
+        from dynamo_tpu_torch.ops.cuda import build
+        from dynamo_tpu_torch.parallel.multihost import initialize_multihost, shutdown
+
+        if torch.cuda.is_available():
+            build.load_library()  # built by the parent
+        initialize_multihost(f"127.0.0.1:{port}", n, rank, device=job["device"],
+                             backend="gloo", timeout_s=TP_TIMEOUT_S)
+        from dynamo_tpu_torch.parallel.multihost import local_device
+
+        dev = local_device()
+        try:
+            spec8 = ModelSpec(**job["spec8"])
+            spec70 = ModelSpec(**job["spec70"])
+            out = {}
+            for cell, spec, axes, steps in (("a", spec8, dict(pp=2, tp=2), PP_STEPS),
+                                            ("b", spec8, dict(pp=2, dp=2), PP_STEPS),
+                                            ("c", spec70, dict(pp=4), PP70_STEPS)):
+                t0 = time.perf_counter()
+                out[cell] = r = pp_cell(spec, axes, job["prompts"], steps, dev)
+                if rank == 0:
+                    print(f"phase 24 ({cell}) rank 0: {time.perf_counter() - t0:.1f} s (init "
+                          f"{r['init_s']:.1f}, prefills {r['prefill_s']:.1f}, decode "
+                          f"{r['decode_s']:.1f})", flush=True)
+            t0 = time.perf_counter()
+            out["d"] = asyncio.run(sp_engine_cell(spec8, job["prompts"], job["long"], dev))
+            if rank == 0:
+                print(f"phase 24 (d) rank 0: {time.perf_counter() - t0:.1f} s", flush=True)
+            q.put((rank, out))
+        finally:
+            shutdown()
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        q.put((rank, {"error": traceback.format_exc()}))
+    finally:
+        q.close()
+        q.join_thread()
+
+
+def pp_streams_check(ref, got, label) -> str:
+    """Streams equal to the reference's up to its first near-tie (a top-2
+    gap under NEAR_ARGMAX); returns the count line."""
+    same_all, parts = 0, []
+    for i, want in enumerate(ref["streams"]):
+        mine = got["streams"][i]
+        same = next((j for j, (a, b) in enumerate(zip(mine, want)) if a != b), len(want))
+        near = np.flatnonzero(ref["gaps"][i] < NEAR_ARGMAX)
+        tie = int(near[0]) if len(near) else len(want)
+        require(same >= tie, f"{label}: slot {i} parts from one rank at {same} before its "
+                f"first near-tie at {tie}")
+        same_all += same == len(want)
+        if same < len(want):
+            parts.append((i, same, tie))
+    return (f"{same_all} of {len(ref['streams'])} greedy streams equal to one rank's, the "
+            f"others part at or after a near-tie (slot, first difference, first "
+            f"near-tie): {parts}")
+
+
+def pp_check(spec, ref, ranks, axes, label, card) -> dict[str, int]:
+    """(a)-(c) against the one-rank path: every rank's prefill and first
+    decode step logits within TP_LOGIT_TOL, streams equal up to the first
+    near-tie, each rank's pages of prompt 0 within TP_POOL_TOL of the
+    one-rank pools' matching layers and KV heads, kv_write and
+    paged_attention_v3 once per layer per tick (2 pp - 1 ticks) per decode
+    step on every rank and no fused_decode. Returns the ranks' launches."""
+    from dynamo_tpu_torch.kvbm.offload import block_tensor
+
+    S, tp = axes.get("pp", 1), axes.get("tp", 1)
+    n_local = spec.num_layers // S
+    steps = len(ref["streams"][0]) - 1
+    ticks = 2 * S - 1
+    scale = np.abs(ref["prefill"]).max()
+    rk, rv = ref["pools"]
+    launches = {"kv_write": 0, "paged_attention_v3": 0}
+    for r, res in enumerate(ranks):
+        lerr = float(np.abs(res["prefill"] - ref["prefill"]).max() / scale)
+        same0 = [i for i in range(len(ref["streams"]))
+                 if res["streams"][i][0] == ref["streams"][i][0]]
+        derr = float(np.abs(res["step0"][same0] - ref["step0"][same0]).max()
+                     / np.abs(ref["step0"][same0]).max())
+        require(lerr <= TP_LOGIT_TOL and derr <= TP_LOGIT_TOL,
+                f"{label}: rank {r} logits differ: prefill {lerr:.3e}, decode {derr:.3e}")
+        c = res["coords"]
+        ls = slice(c["pp"] * n_local, (c["pp"] + 1) * n_local)
+        kh = rk.shape[2] // tp
+        hs = slice(c["tp"] * kh, (c["tp"] + 1) * kh)
+        perr = 0.0
+        for got, want in zip(res["pages"], (rk, rv)):
+            want = want[ls, :, hs].float().cpu()
+            got = block_tensor(got).float()
+            perr = max(perr, (got - want).abs().max().item() / want.abs().max().item())
+        require(perr <= TP_POOL_TOL, f"{label}: rank {r} pages differ by {perr:.3e}")
+        cnt = res["counts"]
+        want_n = ticks * n_local * steps
+        require(cnt["kv_write"] == want_n and cnt["paged_attention_v3"] == want_n
+                and cnt["fused_decode"] == 0,
+                f"{label}: rank {r} launches {cnt}, want {want_n} kv_write and "
+                f"paged_attention_v3 ({ticks} ticks x {n_local} layers x {steps} steps)")
+        for name in launches:
+            launches[name] += cnt[name]
+        co = res["coll"]
+        per = {g: f"{co[g]['calls'] / steps:.0f} calls {co[g]['bytes'] / steps / 1e3:.1f} kB"
+               for g in ("pp", "tp", "dp") if co[g]["calls"]}
+        print(f"{label}: rank {r} (pp {c['pp']}, tp {c['tp']}, dp {c['dp']}): "
+              f"{res['n_local']} layers, weights {res['weights_bytes'] / 1e9:.3f} GB, init "
+              f"{res['init_s']:.1f} s; logits vs one rank (max |diff| / max |logit|) prefill "
+              f"{lerr:.3e}, decode step 0 {derr:.3e}; prompt 0's pages {perr:.3e} (tols "
+              f"{TP_LOGIT_TOL}, {TP_POOL_TOL}); per decode step kv_write "
+              f"{cnt['kv_write'] / steps:.0f} and paged_attention_v3 "
+              f"{cnt['paged_attention_v3'] / steps:.0f} launches (predicted {ticks} ticks x "
+              f"{n_local} layers = {ticks * n_local}); collectives per step: {per}")
+    print(f"{label}: {pp_streams_check(ref, ranks[0], label)}")
+    lead = ranks[0]
+    print(f"{label} [{card}]: NOT pp timings ({len(ranks)} processes time-slice one card, "
+          f"collectives staged through host memory): {len(ref['streams'])} pp_prefills in "
+          f"{lead['prefill_s']:.2f} s, {steps} decode steps of "
+          f"{len(ref['streams'])} slots in {lead['decode_s']:.2f} s on rank 0, "
+          f"{lead['coll']['pp']['secs'] + lead['coll']['tp']['secs'] + lead['coll']['dp']['secs']:.2f} s of it "
+          f"in collectives")
+    return launches
+
+
+def sp_check(spec, prompts, long_prompt, refs, ranks, label, card) -> int:
+    """(d) against one rank: the ring prefill's logits within TP_LOGIT_TOL
+    of prefill_forward's, every engine's streams equal to the one-rank
+    engine's up to the first near-tie, the bf16 pages by block hash within
+    TP_POOL_TOL of the one-rank pools' KV-head slice, the sp replicas'
+    pools bitwise equal (kv_digest of ranks 0 and 2, 1 and 3), every prompt
+    but the warm sharer by ring prefill, the followers replaying each.
+    Returns every rank's fused_decode launches."""
+    from dynamo_tpu_torch.kvbm.offload import block_tensor
+
+    params, logits, engines = refs
+    lerr = max((torch.from_numpy(r["logits"]) - logits).abs().max().item()
+               for r in ranks) / logits.abs().max().item()
+    require(lerr <= TP_LOGIT_TOL, f"{label}: ring prefill logits differ by {lerr:.3e}")
+    co = ranks[0]["ring_coll"]
+    L = spec.num_layers
+    print(f"{label}: the {SP_PROMPT}-token prompt's ring prefill logits vs one rank's "
+          f"prefill_forward, max |diff| / max |logit| over the 4 ranks {lerr:.3e} (tol "
+          f"{TP_LOGIT_TOL}); per layer {co['sp']['calls'] / L:.0f} sends over sp "
+          f"({co['sp']['bytes'] / L / 1e6:.3f} MB), {co['tp']['calls'] / L:.1f} all-reduces "
+          f"over tp ({co['tp']['bytes'] / L / 1e6:.3f} MB)")
+    total = 0
+    for kv in ("bf16", "fp8"):
+        lead = ranks[0][kv]
+        engine, tokens, long_tokens = engines[kv]
+        want = dict(tokens, long=long_tokens)
+        got = dict(lead["tokens"], long=lead["long"])
+        parts = []
+        for i, w in want.items():
+            g = got[i]
+            require(len(g) == SERVE_TOKENS, f"{label} {kv}: request {i}: {len(g)} tokens")
+            if g != w:
+                p = long_prompt if i == "long" else prompts[i]
+                same, tie = equal_to_first_near_tie(spec, params, p, g, w)
+                require(same >= tie, f"{label} {kv}: request {i} parts at {same} before "
+                        f"its first near-tie at {tie}")
+                parts.append((i, same, tie))
+        n_req = len(prompts) + 1
+        require(lead["ring_prefills"] == n_req - 1 and lead["prefills"] == n_req,
+                f"{label} {kv}: {lead['ring_prefills']} ring prefills of "
+                f"{lead['prefills']} prefills")
+        for r, res in enumerate(ranks[1:], 1):
+            require(res[kv]["ops"].get("ring_prefill") == n_req - 1,
+                    f"{label} {kv}: rank {r} replayed {res[kv]['ops']}")
+        for a, b in ((0, 2), (1, 3)):
+            da, db = ranks[a][kv]["digest"], ranks[b][kv]["digest"]
+            require(da == db and da["pages"] > 0,
+                    f"{label} {kv}: sp replicas {a} and {b} hold other pages: {da} {db}")
+        steps = lead["steps"]
+        for r, res in enumerate(ranks):
+            c = res[kv]["counts"]
+            name = "fused_decode/fp8" if kv == "fp8" else "fused_decode"
+            require(c[name] == L * steps, f"{label} {kv}: rank {r} launches {c} over "
+                    f"{steps} steps")
+            total += c[name] if kv == "bf16" else 0
+        if kv == "bf16":
+            ids, _k, _v = lead["pages"]
+            pairs = [(j, engine.allocator._hash_page[h]) for j, h in enumerate(lead["hashes"])
+                     if h is not None and h in engine.allocator._hash_page]
+            require(len(pairs) >= 16, f"{label}: {len(pairs)} sealed blocks in common")
+            rows = [j for j, _p in pairs]
+            ref_ids = torch.tensor([p for _j, p in pairs], device=engine.device)
+            rk, rv = engine.fam.extract_pages(engine.k_pages, engine.v_pages, ref_ids)
+            worst = 0.0
+            for r, res in enumerate(ranks):
+                _ids, kb, vb = res[kv]["pages"]
+                t = res["coords"]["tp"]
+                for gb, w in ((block_tensor(kb), rk), (block_tensor(vb), rv)):
+                    kh = gb.shape[2]
+                    cut = w[:, :, t * kh:(t + 1) * kh].float().cpu()
+                    worst = max(worst, (gb[:, rows].float() - cut).abs().max().item()
+                                / cut.abs().max().item())
+            require(worst <= TP_POOL_TOL, f"{label}: pages differ by {worst:.3e}")
+            print(f"{label} bf16: {len(pairs)} sealed pages on every rank vs the matching "
+                  f"KV-head slice of one rank's pools: max |diff| / max |value| {worst:.3e} "
+                  f"(tol {TP_POOL_TOL})")
+        print(f"{label} {kv} [{card}]: {n_req} requests, {lead['ring_prefills']} by ring "
+              f"prefill (the sharer of prompt 0's prefix takes the packed path), "
+              f"{lead['publishes']} descriptors published (ring_prefill "
+              f"{ranks[1][kv]['ops'].get('ring_prefill')}), sp replicas' pools bitwise "
+              f"equal ({ranks[0][kv]['digest']['pages']} pages); streams equal to one "
+              f"rank's but {parts} (request, first difference, first near-tie); "
+              f"fused_decode {L} x {steps} steps per rank; served in {lead['wall']:.2f} s "
+              f"(NOT an sp timing: 4 processes time-slice one card)")
+    return total
+
+
+def pp_kernel_rows(flush, card) -> dict[str, dict]:
+    """paged_attention_v3 and kv_write at (a)'s stage shape (a microbatch
+    of B 4 on a tp=2 rank: KH 4, G 4, D 128, phase 4's first seq_lens),
+    held against their plain versions and timed beside them, SDPA / two
+    index_copy_ calls and the bound."""
+    from dynamo_tpu_torch.ops.attention import pool_layer
+    from dynamo_tpu_torch.ops.cuda import kv_write, paged_attention_v3
+
+    over = dict(B=4, KH=4, G=4)
+    layer = 1
+    t = kernel_inputs(torch.bfloat16, seed=24, **over)
+    q, kn, vn, bt, sl, dp, do = (t[k] for k in
+                                 ("q", "k_new", "v_new", "bt", "sl", "dst_page", "dst_off"))
+    kp, vp = t["k_pages"], t["v_pages"]
+    kp2, vp2 = kp.clone(), vp.clone()
+    kv_write.kv_write(kp, vp, kn, vn, dp, do, layer=layer)
+    kv_write.kv_write_plain(kp2, vp2, kn, vn, dp, do, layer=layer)
+    torch.cuda.synchronize()
+    require(torch.equal(kp[:, 1:], kp2[:, 1:]) and torch.equal(vp[:, 1:], vp2[:, 1:]),
+            "kv_write at the pp stage shape: not bitwise equal to the plain version")
+    kl, vl = pool_layer(kp, layer), pool_layer(vp, layer)
+    got = paged_attention_v3.paged_decode_attention_v3(q, kl, vl, bt, sl)
+    want = paged_attention_v3.paged_attention_v3_plain(q, kl, vl, bt, sl)
+    torch.cuda.synchronize()
+    err, reading = attention_error(got, want, "paged_attention_v3 pp stage shape")
+    B, KH, D = q.shape[0], kp.shape[2], q.shape[2]
+    seq_lens = t["sl"].tolist()
+    v3 = {"max_abs_err": err,
+          "ms": time_ms(lambda: paged_attention_v3.paged_decode_attention_v3(
+              q, kl, vl, bt, sl), flush),
+          "plain_ms": time_ms(lambda: paged_attention_v3.paged_attention_v3_plain(
+              q, kl, vl, bt, sl), flush),
+          "library_ms": time_ms(sdpa_call(t, layer), flush)}
+    v3["bound_ms"], v3["bound_by"] = attention_bound(False, 0, seq_lens=seq_lens, **over)
+    page, NP = kp.shape[3], kp.shape[1]
+    rows = (((layer * NP + dp.long()) * KH)[:, None]
+            + torch.arange(KH, device=DEVICE)[None]) * page + do.long()[:, None]
+    rows = rows.reshape(-1)
+    kflat, vflat = kp.view(-1, D), vp.view(-1, D)
+    kr, vr = kn.reshape(-1, D), vn.reshape(-1, D)
+
+    def library_copy():  # one index_copy_ per pool
+        kflat.index_copy_(0, rows, kr)
+        vflat.index_copy_(0, rows, vr)
+
+    kw = {"max_abs_err": 0.0,
+          "ms": time_ms(lambda: kv_write.kv_write(kp, vp, kn, vn, dp, do, layer=layer), flush),
+          "plain_ms": time_ms(lambda: kv_write.kv_write_plain(kp, vp, kn, vn, dp, do,
+                                                              layer=layer), flush),
+          "library_ms": time_ms(library_copy, flush)}
+    kw["bound_ms"], kw["bound_by"] = bound_ms(4 * B * KH * D * 2 + 2 * B * 4, 0.0)
+    print(f"check pp stage shape (B 4, KH 4, G 4, D 128, seq_lens {seq_lens}): kv_write "
+          f"bitwise equal outside page 0, paged_attention_v3 max err {reading}")
+    for name, r in (("paged_attention_v3", v3), ("kv_write", kw)):
+        print(f"time {name} pp stage shape [{card}]: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.6f} ms ({r['bound_by']})")
+    del t, kp, vp, kp2, vp2, kflat, vflat
+    return {"paged_attention_v3/pp": v3, "kv_write/pp": kw}
+
+
+def dp_worker_phase(card) -> int:
+    """(e): ``cli worker`` with an EngineConfig of dp=2 (the reference's
+    dp has no flag: ``--engine-config-json``), llama-3-8b at full width cut
+    to DP_LAYERS layers (``--spec-json``), both ranks on this card (gloo,
+    graphs off): the worker starts its dp replica, phase 4's prompts go
+    over TCP, the admin kv_digest's pages equal the replica's bit for bit
+    (its SPMD_KV_DIGEST), SIGTERM drains both. Returns rank 0's
+    fused_decode launches."""
+    import dataclasses
+
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelSpec
+    from dynamo_tpu_torch.engine.worker import config_json
+
+    t0 = time.perf_counter()
+    spec = dataclasses.replace(ModelSpec.llama3_8b(), num_layers=DP_LAYERS,
+                               name=f"llama-3-8b[{DP_LAYERS} layers]")
+    ecfg = EngineConfig(page_size=16, num_pages=512, max_pages_per_seq=64,
+                        max_decode_slots=8, pipeline_decode=True, cuda_graphs=False,
+                        guided_mode="off", dp=2)
+    prompts = make_prompts(spec.vocab_size)
+    children: list[Child] = []
+    try:
+        hub_proc = Child("hub", "--port", "0")
+        children.append(hub_proc)
+        hub = hub_proc.wait_line("DYNAMO_HUB=", 60).split("=", 1)[1]
+        worker = Child("worker", "--hub", hub, "--device", "cuda:0", "--spec-json",
+                       json.dumps(dataclasses.asdict(spec)), "--engine-config-json",
+                       config_json(ecfg), env={"DYN_TP_BACKEND": "gloo"})
+        children.append(worker)
+        worker.wait_line("ENGINE_READY", PROC_START_S)
+        if not worker.logged("MULTIHOST_FOLLOWER_READY"):
+            worker.wait_line("MULTIHOST_FOLLOWER_READY", PROC_START_S)
+        res, wall = asyncio.run(_mirror_serve(hub, prompts))
+        require(all(len(t) == SERVE_TOKENS for t in res["tokens"].values()),
+                f"dp worker: streams {res['tokens']}")
+        fd = json.loads(worker.wait_line("SPMD_KV_DIGEST ", 120).split(" ", 1)[1])
+        ld = res["digest"]
+        require(all(fd[k] == ld[k] for k in ("pages", "tp_rank", "k", "v"))
+                and ld["pages"] > 0, f"dp worker: digests {ld} {fd}")
+        for child in (worker, hub_proc):
+            require(child.stop() == 0, f"{child.name} exited non-zero: {child.seen[-8:]}")
+        logs = json.loads(worker.logged("ENGINE_LAUNCHES ").split(" ", 1)[1])
+    finally:
+        for child in children:
+            if child.proc.poll() is None:
+                child.proc.kill()
+                child.proc.wait(30)
+    fused, steps = logs["launches"].get("fused_decode_attention", 0), logs["steps"]
+    require(fused == spec.num_layers * steps, f"dp worker: fused_decode {fused} over "
+            f"{steps} steps")
+    n_tok = sum(len(t) for t in res["tokens"].values())
+    print(f"phase 24 (e) [{card}]: cli worker with EngineConfig dp=2 ({spec.name}, gloo, "
+          f"both replicas on cuda:0, the replica started by the worker): {n_tok} tokens "
+          f"over TCP in {wall:.2f} s (NOT a dp timing), rank 0 fused_decode {fused} "
+          f"({spec.num_layers} x {steps} steps); the replicas' pools bitwise equal over "
+          f"{ld['pages']} pages (kv_digest); {time.perf_counter() - t0:.1f} s")
+    return fused
+
+
+def pp_sp_phase(cfg, prompts, card, flush) -> tuple[dict, dict[str, int]]:
+    """Phase 24: pipeline, sequence and data parallelism on the card (see
+    the module docstring). Returns the kernel rows at (a)'s stage shape and
+    the phase's launches by row."""
+    import dataclasses
+    import gc
+
+    from dynamo_tpu_torch.engine.config import ModelSpec
+    from dynamo_tpu_torch.models import llama
+
+    t24 = time.perf_counter()
+    rows = pp_kernel_rows(flush, card)
+    spec8 = ModelSpec.llama3_8b()
+    spec70 = dataclasses.replace(ModelSpec.llama3_70b(), num_layers=PP70_LAYERS,
+                                 name=f"llama-3-70b[{PP70_LAYERS} layers]")
+    long_prompt = np.random.default_rng(SP_SEED).integers(
+        3, spec8.vocab_size, SP_PROMPT).tolist()
+    # the one-rank references first, their results on the host or kept
+    params70 = llama.init_params(spec70, 0, device=DEVICE)
+    ref70 = pp_reference(spec70, params70, prompts, PP70_STEPS)
+    del params70
+    gc.collect()
+    torch.cuda.empty_cache()
+    params8 = llama.init_params(spec8, 0, device=DEVICE)
+    ref8 = pp_reference(spec8, params8, prompts, PP_STEPS)
+    engines = {}
+    for kv in ("bf16", "fp8"):
+        engine = new_engine(spec8, dict(SP_CFG, kv_dtype=kv), f"phase 24 (d) one rank {kv}",
+                            params=params8)
+        out = serve_phases(engine, [
+            ("long", lambda e: requests(e, [make_request(long_prompt)])),
+            ("default", lambda e: serve(e, prompts))])
+        engines[kv] = (engine, {i: [t for x in items for t in x["token_ids"]]
+                                for i, items in out["default"]["res"][0].items()},
+                       [t for x in out["long"]["res"][0][0] for t in x["token_ids"]])
+        if kv == "fp8":
+            drop_engine(engine)
+    logits = tp_prefill_logits(spec8, params8, long_prompt, DEVICE)
+    print(f"phase 24: kernel rows and one-rank references done in "
+          f"{time.perf_counter() - t24:.1f} s; "
+          f"this process holds {_allocated(torch.device(DEVICE)) / 1e9:.3f} GB")
+    job = {"spec8": dataclasses.asdict(spec8), "spec70": dataclasses.asdict(spec70),
+           "prompts": prompts, "long": long_prompt, "device": DEVICE}
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        t0 = time.perf_counter()
+        ranks = run_ranks(4, pp_sp_rank, job)
+        print(f"phase 24 (a)-(d): 4 gloo ranks on this card, {time.perf_counter() - t0:.1f} s")
+    finally:
+        if conf is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+    try:
+        a = pp_check(spec8, ref8, [r["a"] for r in ranks], dict(pp=2, tp=2),
+                     "phase 24 (a) llama-3-8b (full width, 32 layers) pp=2 x tp=2 gloo", card)
+        b = pp_check(spec8, ref8, [r["b"] for r in ranks], dict(pp=2, dp=2),
+                     "phase 24 (b) llama-3-8b pp=2 x dp=2 gloo", card)
+        for s in range(2):  # each stage's two dp replicas
+            pair = [r["b"] for r in ranks if r["b"]["coords"]["pp"] == s]
+            require(len(pair) == 2 and pair[0]["digest"] == pair[1]["digest"],
+                    f"phase 24 (b): stage {s}'s dp replicas hold other pools")
+        print("phase 24 (b): each stage's dp replicas' pools bitwise equal (sha256 of "
+              "every page but trash page 0)")
+        c = pp_check(spec70, ref70, [r["c"] for r in ranks], dict(pp=4),
+                     f"phase 24 (c) llama-3-70b (d 8192, 64/8 heads, FFN 28672, vocab "
+                     f"128256; cut to {PP70_LAYERS} layers) pp=4 gloo", card)
+        d = sp_check(spec8, prompts, long_prompt, (params8, logits, engines),
+                     [r["d"] for r in ranks],
+                     "phase 24 (d) llama-3-8b (full size) sp=2 x tp=2 gloo engine", card)
+    finally:
+        drop_engine(engines["bf16"][0])
+        del params8, engines
+        gc.collect()
+        torch.cuda.empty_cache()
+    e = dp_worker_phase(card)
+    kw = a["kv_write"] + b["kv_write"] + c["kv_write"]
+    v3 = a["paged_attention_v3"] + b["paged_attention_v3"] + c["paged_attention_v3"]
+    print(f"phase 24: {time.perf_counter() - t24:.1f} s, kv_write / paged_attention_v3 "
+          f"launches (a) {a['kv_write']} / {a['paged_attention_v3']} (b) {b['kv_write']} / "
+          f"{b['paged_attention_v3']} (c) {c['kv_write']} / {c['paged_attention_v3']}, "
+          f"fused_decode (d) {d} (e, rank 0) {e}")
+    return rows, {"kv_write/pp": kw, "paged_attention_v3/pp": v3, "fused_decode/tp2": d,
+                  "fused_decode": e}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the GPU",
@@ -8851,13 +9511,21 @@ def main() -> int:
     # expert parallelism: gloo groups on this card (gpt-oss-120b and
     # deepseek-r1 at full width over ep=2 x tp=2, gpt-oss-120b over ep=4)
     ep_rows, ep_launches = ep_phase(cfg, card, flush)
-    del flush
     kernels.update(ep_rows)
+
+    # pipeline, sequence and data parallelism: one 4-rank gloo group on this
+    # card through pp=2 x tp=2, pp=2 x dp=2 and pp=4 (pp_decode_step with
+    # kv_write and paged_attention_v3) and an sp=2 x tp=2 engine (ring
+    # prefill), then cli worker with dp=2
+    pp_rows, pp_launches = pp_sp_phase(cfg, prompts, card, flush)
+    del flush
+    kernels.update(pp_rows)
 
     launches = {"fused_decode": serve_launches["fused_decode"] + http_launches
                 + process_launches + overload_launches + guided_launches
                 + kvbm_launches + text_launches["fused_decode"] + disagg_launches
-                + obs_launches + mm_launches + tp_launches["fused_decode"],
+                + obs_launches + mm_launches + tp_launches["fused_decode"]
+                + pp_launches["fused_decode"],
                 "paged_attention_v3": unfused[0], "kv_write": unfused[2],
                 "kv_write/verify": spec_kv_launches + guided_kv_launches
                 + text_launches["kv_write/verify"],
@@ -8868,7 +9536,10 @@ def main() -> int:
                 "kv_write/fp8-verify": spec_kv_fp8_launches,
                 "fused_decode/gpt-oss": moe_launches + ep_launches["fused_decode/gpt-oss"],
                 "fused_decode/gpt-oss-tp2": ep_launches["fused_decode/gpt-oss-tp2"],
-                "fused_decode/tp2": tp_launches["fused_decode/tp2"],
+                "fused_decode/tp2": tp_launches["fused_decode/tp2"]
+                + pp_launches["fused_decode/tp2"],
+                "paged_attention_v3/pp": pp_launches["paged_attention_v3/pp"],
+                "kv_write/pp": pp_launches["kv_write/pp"],
                 "fused_decode/tp4": tp_launches["fused_decode/tp4"]}
     sources = {
         "fused_decode": ("dynamo_tpu_torch/csrc/fused_decode.cu",
@@ -8913,6 +9584,14 @@ def main() -> int:
                                      "dynamo_tpu/ops/pallas/fused_decode.py:58"),
         "fused_decode/tp4": ("dynamo_tpu_torch/csrc/fused_decode.cu",
                              "dynamo_tpu/ops/pallas/fused_decode.py:58"),
+        # the unfused pair at a pipeline stage's shape (a microbatch of 4 on a
+        # tp=2 rank: KH 4, G 4), launched by every pp_decode_step tick of
+        # phase 24 (a)-(c): the reference's write_new_kv then
+        # paged_decode_attention_auto (dynamo_tpu/parallel/pipeline.py:152-157)
+        "paged_attention_v3/pp": ("dynamo_tpu_torch/csrc/paged_attention_v3.cu",
+                                  "dynamo_tpu/ops/pallas/paged_attention_v3.py:76"),
+        "kv_write/pp": ("dynamo_tpu_torch/csrc/kv_write.cu",
+                        "dynamo_tpu/ops/pallas/kv_write.py:39"),
     }
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],

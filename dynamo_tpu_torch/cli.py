@@ -32,10 +32,10 @@
         ``--image-token-id``
 
 The engine runs on the GPU; ``--device cpu`` runs it on the CPU (tests).
-``--spec``, ``--guided`` and ``--tp`` are the reference's, each beating its
-``DYN_*`` variable; ``--tp T`` and the port's ``--ep E`` go through the
-worker's launcher (engine/worker.start_tp_group: ranks 1..E*T-1 start on
-this host). With ``--in http``, SIGTERM ends the serve and the
+``--spec``, ``--guided``, ``--tp`` and ``--sp`` are the reference's, each
+beating its ``DYN_*`` variable; ``--tp T``, ``--sp S`` and the port's ``--ep
+E`` go through the worker's launcher (engine/worker.start_tp_group: ranks
+1..S*E*T-1 start on this host). With ``--in http``, SIGTERM ends the serve and the
 engine prints ``ENGINE_LAUNCHES {json}`` (kernel launches, steps, replays
 and speculation counters since it was ready), as a worker does.
 ``--out engine`` is the default (the reference's is ``mocker``): the port's
@@ -114,12 +114,13 @@ async def _arun(args: argparse.Namespace) -> None:
         # serving always pipelines the decode bursts (as the reference's
         # worker); a flag beats its DYN_* variable beats the default
         ecfg = EngineConfig(
-            tp=args.tp, ep=args.ep, pipeline_decode=True,
+            tp=args.tp, ep=args.ep, sp=args.sp, pipeline_decode=True,
             spec_mode=args.spec or env_cfg.spec_mode or "off",
             spec_k_max=env_cfg.spec_k_max or 8,
             guided_mode=args.guided or env_cfg.guided_mode or "auto",
         )
-        # --tp T --ep E: the worker's launcher starts ranks 1..E*T-1 here
+        # --tp T --ep E --sp S: the worker's launcher starts ranks
+        # 1..S*E*T-1 here
         group = await start_tp_group(
             ecfg, model=args.model, model_path=args.model_path, device=args.device,
             group=f"{args.namespace}/backend/generate", host=env_cfg.host)
@@ -268,6 +269,9 @@ def _run_command(rest: list[str]) -> int:
     p.add_argument("--ep", type=int, default=1,
                    help="expert parallelism: the experts over E x --tp ranks, "
                         "started here as --tp does")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence parallelism: cold prompts prefill as a ring over "
+                        "S x --ep x --tp ranks, started here as --tp does")
     p.add_argument("--precompile", action=argparse.BooleanOptionalAction,
                    default=False,
                    help="capture every decode graph variant before serving")

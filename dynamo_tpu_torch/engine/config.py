@@ -237,10 +237,12 @@ class ModelSpec:
 
 @dataclass
 class EngineConfig:
-    """The JAX engine's config, field for field. The port's engine reads
-    the fields in the first group; the rest belong to features it has not
-    ported yet, and a value other than the default there raises
-    NotImplementedError naming its ROADMAP Queue A item (UNPORTED)."""
+    """The JAX engine's config, field for field, and every field is read by
+    the port's engine. A field of a feature the port lacks would be listed
+    in UNPORTED (none is now): a value other than the default there raises
+    NotImplementedError naming its ROADMAP Queue A item. ``pp`` > 1 raises
+    ValueError: pipeline stages are parallel/pipeline.py's, not the
+    engine's."""
 
     # -- read by the port's engine ------------------------------------------
     page_size: int = 16  # tokens per page (= router block_size granularity)
@@ -339,10 +341,11 @@ class EngineConfig:
     # capture, needs it)
     cuda_graphs: bool = True
 
-    # tensor parallelism: the engine's ranks (parallel/); num_pages is per
-    # shard, as the reference's
+    # the engine's mesh (parallel/): tensor, data, sequence (ring prefill)
+    # and expert parallelism; num_pages is per shard, as the reference's.
+    # Pipeline stages are a library path (parallel/pipeline.py): the engine
+    # refuses pp > 1, where the reference's engine ignores it
     tp: int = 1
-    # -- JAX engine only, until their slices are ported (see UNPORTED) ------
     dp: int = 1
     sp: int = 1
     ep: int = 1
@@ -356,6 +359,12 @@ class EngineConfig:
         from dynamo_tpu_torch.ops.quant import resolve_kv_dtype
 
         self.kv_dtype = resolve_kv_dtype(self.kv_dtype)
+        if self.pp != 1:
+            raise ValueError(
+                f"EngineConfig.pp={self.pp}: the engine does not stage layers (the "
+                "reference's worker builds its mesh without pp, dynamo_tpu/engine/"
+                "worker.py:76); pipeline stages run through parallel/pipeline.py "
+                "(stack_params, pp_prefill, pp_decode_step)")
         defaults = _UNPORTED_DEFAULTS
         for name, item in UNPORTED.items():
             value = getattr(self, name)
@@ -386,9 +395,5 @@ class EngineConfig:
 
 
 # fields of features the port's engine lacks -> what is missing
-UNPORTED = {
-    "pp": "pipeline parallelism (ROADMAP Queue A item 11c)",
-    "sp": "sequence-parallel ring prefill (ROADMAP Queue A item 11d)",
-    "dp": "data parallelism (ROADMAP Queue A item 11d)",
-}
+UNPORTED: dict[str, str] = {}
 _UNPORTED_DEFAULTS = {f.name: f.default for f in fields(EngineConfig) if f.name in UNPORTED}

@@ -134,7 +134,14 @@ serving), ``engine.admit`` (intake; a drop is a retryable refusal),
 ``engine.preempt``, ``engine.quant``, ``disagg.pull``, and the
 ``migration.resume`` and ``kvbm.onboard`` corrupt sites.
 
-Not in this engine yet (see ROADMAP): SPMD/meshes.
+Meshes (parallel/): the weights and KV heads shard over tp (experts over
+ep x tp) and replicate over sp and dp; every rank but the leader replays
+the leader's dispatches (parallel/spmd.py). Under sp > 1 a cold prompt
+that fits the largest bucket, with a bucket that divides by sp, takes a
+ring prefill of its own (``_ring_dispatch``; the reference's conditions);
+a cached prefix, a multimodal prompt or a bucket that does not divide
+takes the packed path. The engine stages no layers: ``pp`` > 1 is refused
+(parallel/pipeline.py is the pp path).
 
 The engine is family-blind (models/family.py): a DeepSeek spec runs MLA
 (models/mla.py) through the same scheduler, prefix cache, KV events,
@@ -494,6 +501,7 @@ class InferenceEngine:
         self.eager_readmits = 0  # admission passes that refilled a freed slot at once
         self.prefill_chunks = 0  # chunked-prefill chunks run
         self.prefill_forwards = 0  # prefill dispatches (packed groups and chunks)
+        self.ring_prefills = 0  # of them, sequence-parallel ring prefills
         # wall seconds per decode dispatch, host clock from the dispatch to
         # its sampled tokens on the host; and per dispatch (dispatch time,
         # tokens-on-host time, whether a disagg resume ran on the step
@@ -525,7 +533,7 @@ class InferenceEngine:
         not the mesh's, a spec that does not divide over it, disagg
         exports, and graph capture over collectives no graph can capture."""
         cfg = self.config
-        for axis in ("tp", "ep"):
+        for axis in ("tp", "ep", "sp", "dp", "pp"):
             have = mesh.shape[axis] if mesh is not None else 1
             if getattr(cfg, axis) != have:
                 raise ValueError(
@@ -1833,14 +1841,17 @@ class InferenceEngine:
         self.cached_prompt_tokens += start_pos
         max_tokens = self._decode_budget(req, len(token_ids))
         chunk_max = self._prefill_chunk_max()
-        if start_pos + chunk_max >= len(token_ids):
+        tail = len(token_ids) - start_pos
+        ring = self._takes_ring(start_pos, tail, mm)
+        if ring or start_pos + chunk_max >= len(token_ids):
             # fits one dispatch: the packed prefill stage runs it (a
-            # multimodal prompt in a dispatch of its own, with injection)
+            # multimodal prompt in a dispatch of its own, with injection;
+            # a cold prompt under sp > 1 in a ring prefill of its own,
+            # unchunked up to the largest bucket, as the reference's)
             return {
                 "slot_idx": slot_idx, "waiting": waiting, "seq": seq, "sp": sp,
                 "token_ids": token_ids, "max_tokens": max_tokens,
-                "start_pos": start_pos, "tail": len(token_ids) - start_pos,
-                "mm": mm,
+                "start_pos": start_pos, "tail": tail, "mm": mm, "ring": ring,
             }
         if mm is not None:
             # chunking would split the placeholder span across dispatches
@@ -1963,8 +1974,9 @@ class InferenceEngine:
         groups: dict[int, list[dict]] = {}
         dispatches: list[tuple[int, list[dict]]] = []
         for p in preps:
-            if p["mm"] is not None:
-                # one dispatch of its own with the rows injected: no packing
+            if p["mm"] is not None or p["ring"]:
+                # one dispatch of its own (the rows injected, or the ring
+                # over the sp ranks): no packing
                 dispatches.append((cfg.bucket_for(p["tail"]), [p]))
             else:
                 groups.setdefault(cfg.bucket_for(p["tail"]), []).append(p)
@@ -1976,7 +1988,9 @@ class InferenceEngine:
         for bucket, chunk in dispatches:
             mark = self._spmd_mark()
             try:
-                if chunk[0]["mm"] is None:
+                if chunk[0]["ring"]:
+                    logits = self._ring_dispatch(bucket, chunk[0])[None]
+                elif chunk[0]["mm"] is None:
                     logits = self._prefill_dispatch(bucket, chunk)
                 else:
                     (p,) = chunk
@@ -2001,6 +2015,43 @@ class InferenceEngine:
                     pres[j] if pres else None))
         self._drain_offload()
         return records
+
+    def _ring_sp(self) -> int:
+        """The sp ranks a cold prompt's ring prefill spreads over (1: no
+        ring)."""
+        if self.mesh is None or not self.fam.supports_ring_prefill:
+            return 1
+        return self.mesh.shape["sp"]
+
+    def _takes_ring(self, start_pos: int, tail: int, mm) -> bool:
+        """The reference's ring conditions: sp > 1 (and a family with ring
+        prefill), a cold text prompt (no cached prefix, no image rows) that
+        fits the largest bucket, whose bucket divides by sp."""
+        cfg, sp = self.config, self._ring_sp()
+        return (sp > 1 and mm is None and start_pos == 0
+                and tail <= cfg.prefill_buckets[-1] and cfg.bucket_for(tail) % sp == 0)
+
+    def _ring_dispatch(self, bucket: int, p: dict) -> torch.Tensor:
+        """A cold prompt's sequence-parallel prefill over the sp ranks
+        (``fam.prefill_ring``): the whole prompt in one dispatch, each rank
+        its ``bucket / sp`` tokens. Published as ``ring_prefill`` first, so
+        every follower joins the ring. Returns the last logits [V]."""
+        cfg = self.config
+        tokens = np.zeros((bucket,), np.int32)
+        tokens[: p["tail"]] = p["token_ids"]
+        bt = np.zeros((cfg.max_pages_per_seq,), np.int32)
+        bt[: p["sp"].num_pages] = p["sp"].pages
+        self._publish("ring_prefill", {"num_tokens": p["tail"]},
+                      {"tokens": tokens, "block_table": bt})
+        self.prefill_forwards += 1
+        self.dispatches += 1
+        self.ring_prefills += 1
+        dev = self.device
+        logits, dropped = self.fam.prefill_ring(
+            self.spec, self.params, torch.from_numpy(tokens).to(dev),
+            torch.from_numpy(bt).to(dev), self.k_pages, self.v_pages, p["tail"])
+        self._note_moe_dropped(dropped)
+        return logits
 
     def _prefill_dispatch(self, bucket: int, group: list[dict]) -> torch.Tensor:
         """One prefill forward for ``group``; returns last-position logits

@@ -50,13 +50,15 @@ the live policy key (``--max-local-prefill-length``,
 reference's flags for features the port lacks raise NotImplementedError
 naming their item.
 
-Tensor and expert parallelism (parallel/): PyTorch drives one card per
-process, so a mesh of ``--ep E --tp T`` is N = E x T processes (tp
-innermost: rank = e * T + t). ``--tp T`` and/or ``--ep E`` with no
+Tensor, expert, sequence and data parallelism (parallel/): PyTorch drives
+one card per process, so a mesh of ``--sp S --ep E --tp T`` (and the
+EngineConfig's ``dp``, which has no flag, as in the reference) is N = dp
+x S x E x T processes (the reference's reshape order, tp innermost: rank
+= (s * E + e) * T + t at dp 1). ``--tp``, ``--ep`` and/or ``--sp`` with no
 coordinator starts ranks 1..N-1 on this host (one per ``cuda:<rank>``;
 ``spawn_local_followers``) and makes this process rank 0: PyTorch's
 counterpart of the reference's one-process mesh over local devices. Every
-rank but 0 replays, the ep replicas too. Across hosts every rank runs this
+rank but 0 replays, the ep, sp and dp replicas too. Across hosts every rank runs this
 module with the reference's ``--coordinator-address``, ``--num-processes``
 and ``--process-id`` (or ``DYN_COORDINATOR`` / ``DYN_NUM_PROCESSES`` /
 ``DYN_PROCESS_ID``). Rank 0 serves; every other rank builds an engine
@@ -169,7 +171,8 @@ async def launch_engine_worker(
     if mode not in ("aggregated", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}: aggregated, prefill or decode")
     ecfg0 = engine_config or EngineConfig()
-    if mode != "aggregated" and (ecfg0.tp * ecfg0.ep > 1 or spmd is not None):
+    if mode != "aggregated" and (
+            ecfg0.tp * ecfg0.ep * ecfg0.sp * ecfg0.dp > 1 or spmd is not None):
         raise NotImplementedError(
             f"--mode {mode} under tensor parallelism or SPMD replay is ROADMAP "
             "Queue A item 11e (per-shard KV exports)")
@@ -444,11 +447,11 @@ def _engine_config(args: argparse.Namespace) -> EngineConfig:
     EngineConfig whole (``--engine-config-json``)."""
     if args.engine_config_json:
         return config_from_json(EngineConfig, args.engine_config_json)
-    if args.mirror and args.tp * args.ep > 1:
+    if args.mirror and args.tp * args.ep * args.sp > 1:
         raise NotImplementedError(
-            "--mirror with --tp or --ep > 1: a mirror of a group is ROADMAP Queue A "
+            "--mirror with --tp, --ep or --sp > 1: a mirror of a group is ROADMAP Queue A "
             "item 11e")
-    if args.mode != "aggregated" and (args.tp * args.ep > 1 or args.mirror):
+    if args.mode != "aggregated" and (args.tp * args.ep * args.sp > 1 or args.mirror):
         raise NotImplementedError(
             f"--mode {args.mode} under tensor parallelism or SPMD replay is ROADMAP "
             "Queue A item 11e (per-shard KV exports)")
@@ -663,8 +666,8 @@ async def start_tp_group(
     num_processes: int | None = None, process_id: int | None = None,
     kvbm_argv: list[str] = (), host: str = "127.0.0.1",
 ) -> TpGroup | None:
-    """Join (or, for ``ecfg.ep * ecfg.tp`` > 1 with no coordinator, start)
-    the group of this worker: None for a single process. With no
+    """Join (or, for ``ecfg.dp * ecfg.sp * ecfg.ep * ecfg.tp`` > 1 with no
+    coordinator, start) the group of this worker: None for a single process. With no
     coordinator this process starts ranks 1..N-1 here
     (``spawn_local_followers``:
     worker processes given the model, the device, this EngineConfig and
@@ -676,7 +679,7 @@ async def start_tp_group(
     from dynamo_tpu_torch.parallel.mesh import make_mesh
 
     env_coord = coordinator or os.environ.get("DYN_COORDINATOR")
-    world = ecfg.tp * ecfg.ep
+    world = ecfg.dp * ecfg.sp * ecfg.ep * ecfg.tp
     if world == 1 and not env_coord:
         return None  # one process: no group, nothing started
     procs = []
@@ -710,10 +713,11 @@ async def start_tp_group(
             device=device)
         if not joined:
             if world > 1:
-                raise ValueError(f"EngineConfig tp={ecfg.tp} ep={ecfg.ep} needs a group "
-                                 f"of {world} processes (--num-processes)")
+                raise ValueError(f"EngineConfig dp={ecfg.dp} sp={ecfg.sp} ep={ecfg.ep} "
+                                 f"tp={ecfg.tp} needs a group of {world} processes "
+                                 "(--num-processes)")
             return None
-        mesh = make_mesh(tp=ecfg.tp, ep=ecfg.ep)
+        mesh = make_mesh(tp=ecfg.tp, ep=ecfg.ep, sp=ecfg.sp, dp=ecfg.dp)
         spmd = None
         if mesh.rank == 0:
             from dynamo_tpu_torch.parallel.spmd import SpmdLeader, StoreHub
@@ -897,7 +901,9 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--decode-steps-per-dispatch", type=int, default=1)
     p.add_argument("--max-prefill-chunk-tokens", type=int, default=512)
     p.add_argument("--tp", type=int, default=1)
-    p.add_argument("--sp", type=int, default=1)
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence parallelism: cold prompts prefill as a ring over "
+                        "S x --ep x --tp ranks, started here as --tp does")
     p.add_argument("--ep", type=int, default=1,
                    help="expert parallelism: the experts over E x --tp ranks, "
                         "started here as --tp does")

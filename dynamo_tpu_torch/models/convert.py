@@ -100,9 +100,19 @@ MOE_SHARD_AXES = {
 def _axis_sizes(mesh) -> dict[str, int]:
     """Mesh axis sizes from a tp count, an axis-size dict or a Mesh."""
     if isinstance(mesh, int):
-        return {"tp": mesh, "ep": 1}
+        return {"tp": mesh, "ep": 1, "pp": 1}
     sizes = mesh if isinstance(mesh, dict) else mesh.shape
-    return {"tp": sizes.get("tp", 1), "ep": sizes.get("ep", 1)}
+    return {a: sizes.get(a, 1) for a in ("tp", "ep", "pp")}
+
+
+def stage_layers(spec: ModelSpec, mesh) -> range:
+    """The layers this rank holds: its pipeline stage's ``L / pp``
+    consecutive layers (all of them at pp 1; the reference's
+    ``pp_param_shardings`` puts the stacked layer axis on ``pp``)."""
+    if mesh is None or mesh.shape.get("pp", 1) == 1:
+        return range(spec.num_layers)
+    sl = mesh.shard(spec.num_layers, "layers", "pp")
+    return range(sl.start, sl.stop)
 
 
 def check_shardable(spec: ModelSpec, mesh) -> None:
@@ -113,6 +123,9 @@ def check_shardable(spec: ModelSpec, mesh) -> None:
     replicated along it, as in the reference."""
     sz = _axis_sizes(mesh)
     tp, ep = sz["tp"], sz["ep"]
+    if spec.num_layers % sz["pp"]:
+        raise ValueError(
+            f"{spec.name}: num_layers {spec.num_layers} does not divide over pp={sz['pp']}")
     sizes = {"num_heads": spec.num_heads, "hidden_size": spec.hidden_size}
     if not spec.is_mla:
         sizes["num_kv_heads"] = spec.num_kv_heads
@@ -152,8 +165,8 @@ def shard_tensor(name: str, t, mesh):
     if isinstance(t, dict):
         return {k: shard_tensor(k, v, mesh) for k, v in t.items()}
     dim = SHARD_DIMS.get(name)
-    if dim is None:
-        return t
+    if dim is None or (name == "embed" and mesh.shape.get("pp", 1) > 1):
+        return t  # pipeline stages hold the whole embedding (pp_param_shardings)
     return shard_axes(t, [None] * dim + ["tp"], mesh)
 
 
@@ -171,18 +184,21 @@ def shard_params(spec: ModelSpec, params, mesh,
     (through ``params_from_numpy``, cut before it reaches ``device``).
     Each leaf equals, bit for bit, the JAX array's
     ``addressable_shards[rank]`` under the family's ``param_shardings(spec,
-    make_mesh(ep=E, tp=N))``. The result carries ``mesh``: the forwards
-    run their collectives over it."""
+    make_mesh(ep=E, tp=N))``. Under pp > 1 the result holds the rank's
+    stage's layers only (``stage_layers``) and the whole embedding, as
+    the reference's ``pp_param_shardings``. The result carries ``mesh``:
+    the forwards run their collectives over it."""
     check_shardable(spec, mesh)
+    mine = stage_layers(spec, mesh)
     if isinstance(params, dict):
         tree = {name: shard_tensor(name, a, mesh) for name, a in params.items()
                 if name != "layers"}
         tree["layers"] = [{name: shard_tensor(name, a, mesh) for name, a in lp.items()}
-                          for lp in params["layers"]]
+                          for lp in (params["layers"][i] for i in mine)]
         out = params_from_numpy(spec, tree, device)
     else:
         layers = [{name: shard_tensor(name, t, mesh) for name, t in _layer_tree(lp).items()}
-                  for lp in params.layers]
+                  for lp in (params.layers[i] for i in mine)]
         out = type(params)(
             shard_tensor("embed", params.embed.data, mesh), params.final_norm.data,
             layers, None if params.lm_head is None

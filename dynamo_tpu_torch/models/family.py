@@ -32,18 +32,25 @@ __all__ = ["get_family", "GqaFamily", "MlaFamily"]
 class GqaFamily:
     """llama-family adapter: thin passthrough to models/llama.py. Its specs
     shard over a mesh (``supports_mesh``): heads, KV heads and dense FFN
-    columns over tp whatever ep is, a MoE spec's experts over ep x tp."""
+    columns over tp whatever ep is, a MoE spec's experts over ep x tp,
+    replicated over sp and dp. Ring prefill (``prefill_ring``) serves cold
+    prompts over the sp ranks, except for a spec with attention extras
+    (gpt-oss's sinks and sliding window: the ring has neither), as the
+    reference's family does."""
 
     supports_mesh = True
     supports_logprobs = True
     supports_spec_decode = True
     supports_embeddings = True
     supports_multimodal = True  # prefill embedding injection (EPD)
+    supports_ring_prefill = True
 
-    def __init__(self):
+    def __init__(self, spec: ModelSpec | None = None):
         from dynamo_tpu_torch.models import llama
 
         self.m = llama
+        if spec is not None and spec.has_attn_extras:
+            self.supports_ring_prefill = False
 
     def init_params(self, spec, seed, device=None, mesh=None):
         """The seeded init; with a ``mesh``, this rank's shard of it."""
@@ -74,6 +81,11 @@ class GqaFamily:
         return self.m.prefill_forward_batch(
             spec, params, tokens, bts, starts, k, v, ns
         )
+
+    def prefill_ring(self, spec, params, tokens, bt, k, v, n):
+        """Sequence-parallel cold prefill over the params' sp ranks: (last
+        logits [V], moe_dropped)."""
+        return self.m.prefill_forward_ring(spec, params, tokens, bt, k, v, n)
 
     def verify(self, spec, params, tokens, bts, starts, k, v, ntoks,
                allowed=None):
@@ -126,6 +138,7 @@ class MlaFamily(GqaFamily):
     reference: ring prefill (off in the reference's MLA family)."""
 
     supports_multimodal = False
+    supports_ring_prefill = False
 
     def __init__(self):
         from dynamo_tpu_torch.models import mla
@@ -179,4 +192,4 @@ class MlaFamily(GqaFamily):
 
 
 def get_family(spec: ModelSpec) -> Any:
-    return MlaFamily() if spec.is_mla else GqaFamily()
+    return MlaFamily() if spec.is_mla else GqaFamily(spec)

@@ -5,7 +5,7 @@ MLP, or with routed experts (models/moe.py) when the spec has experts.
 ``nn.Module``s hold the weights (``LlamaParams``, names and ``[in, out]``
 orientation as in the JAX pytree, so ``x @ w``); plain functions on tensors
 mirror the JAX entry points: ``prefill_forward``, ``prefill_forward_batch``,
-``verify_forward``, ``decode_forward``, ``decode_steps``,
+``prefill_forward_ring`` (sequence-parallel ring prefill), ``verify_forward``, ``decode_forward``, ``decode_steps``,
 ``extract_kv_pages`` / ``insert_kv_pages`` (KVBM page movement) and
 ``reference_forward``.
 ``decode_steps`` loops ``decode_step_``, one model step over fixed tensors
@@ -134,8 +134,8 @@ def init_params(
     models/convert.params_from_numpy instead. With a ``mesh`` every rank
     draws the same full tensors, one layer at a time, and keeps its shard
     (models/convert.shard_params' layout: heads and FFN columns over tp,
-    experts over ep): the weights are the sharded copy of the ``mesh=None``
-    init."""
+    experts over ep, under pp only its stage's layers): the weights are the
+    sharded copy of the ``mesh=None`` init."""
     dev = resolve_device(device)
     dtype = torch_dtype(spec.dtype)
     gen = torch.Generator(device=dev)
@@ -154,10 +154,16 @@ def init_params(
     def zeros(n):
         return torch.zeros(n, device=dev, dtype=dtype)
 
+    mine = range(spec.num_layers)
     if mesh is not None:
-        from dynamo_tpu_torch.models.convert import check_shardable, shard_tensor
+        from dynamo_tpu_torch.models.convert import (
+            check_shardable,
+            shard_tensor,
+            stage_layers,
+        )
 
         check_shardable(spec, mesh)
+        mine = stage_layers(spec, mesh)
 
     def cut(name, t):
         return t if mesh is None else shard_tensor(name, t, mesh)
@@ -165,7 +171,7 @@ def init_params(
     embed = cut("embed", dense((spec.vocab_size, d), scale=0.02))
     lm_head = None if spec.tie_embeddings else cut("lm_head", dense((d, spec.vocab_size)))
     layers = []
-    for _ in range(spec.num_layers):
+    for li in range(spec.num_layers):
         lp = {
             "attn_norm": ones(d),
             "wq": dense((d, nh * hd)),
@@ -189,6 +195,8 @@ def init_params(
                 w_up=dense((d, spec.intermediate_size)),
                 w_down=dense((spec.intermediate_size, d)),
             )
+        if li not in mine:
+            continue  # another pipeline stage's layer: drawn, not kept
         # the experts come cut (init_moe_layer)
         layers.append({name: t if name == "moe" else cut(name, t)
                        for name, t in lp.items()})
@@ -540,6 +548,83 @@ def prefill_forward_batch(
     last = (ntok - 1).clamp(0, T - 1)
     x_last = x[torch.arange(N, device=dev), last]
     return _logits(spec, params, x_last), dropped
+
+
+def prefill_forward_ring(
+    spec: ModelSpec,
+    params: LlamaParams,
+    tokens: torch.Tensor,  # [T_pad] int, T_pad divisible by the mesh's sp
+    block_table: torch.Tensor,  # [max_pages_per_seq] int32
+    k_pages,  # updated in place (replicated over sp: every rank writes every page)
+    v_pages,
+    num_tokens: int,  # real token count
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cold-prompt prefill with sequence-parallel ring attention
+    (parallel/ring.py) over the ``sp`` ranks of the params' mesh; the
+    counterpart of the reference's ``prefill_forward_ring``. Each sp rank
+    embeds and runs its own ``T/sp`` tokens at their absolute positions;
+    the heads are its tp heads. The ring hands every rank every chunk's
+    K/V, so each rank writes the whole prompt's page tiles into its
+    replicated pools (an fp8 pool through ``_write_prefill_pages``, as
+    prefill does). A MoE layer routes the whole prompt's ``T`` rows, as
+    GSPMD does in the reference (capacity and drops are the prompt's): its
+    input is all-gathered over sp and each rank keeps its chunk of the
+    output. No cached prefix: the prompt starts at position 0, page
+    aligned; padding at the tail is masked by causality and fully padded
+    pages go to the trash page. Returns (the last real token's logits [V]
+    f32, taken on the rank that holds it and broadcast over sp; MoE dropped
+    slots, an int32 device scalar equal on every rank)."""
+    from dynamo_tpu_torch.parallel.ring import ring_attention
+
+    dev = k_pages.device
+    mesh = param_mesh(params)
+    T = tokens.shape[0]
+    sp = mesh.shape["sp"] if mesh is not None else 1
+    c = mesh.coords["sp"] if mesh is not None else 0
+    page_size = k_pages.shape[3]
+    if T % sp or T % page_size:
+        raise ValueError(f"ring prefill: T={T} must divide over sp={sp} and pages "
+                         f"of {page_size}")
+    Tl = T // sp
+    n_pg = T // page_size
+    page_starts = torch.arange(n_pg, device=dev) * page_size
+    pg_col = (page_starts // page_size).clamp(max=block_table.shape[0] - 1)
+    pg_raw = block_table.to(dev).long()[pg_col]
+    safe_pg = torch.where(page_starts < num_tokens, pg_raw, TRASH_PAGE)
+    valid_tok = (torch.arange(T, device=dev) < num_tokens).reshape(n_pg, page_size)
+    mine = slice(c * Tl, (c + 1) * Tl)
+    positions = torch.arange(T, device=dev)[mine]
+    x = _embed(params, tokens.to(dev).long()[mine], mesh)  # [Tl, d]
+    rot = rope_tables(spec, positions)
+    dropped = torch.zeros((), dtype=torch.int32, device=dev)
+    for li, lp in enumerate(params.layers):
+        h = rms_norm(x, lp.attn_norm, spec.rms_eps)
+        q, k, v = _attn_qkv(spec, lp, h, rot)
+        ks, vs = [None] * sp, [None] * sp
+
+        def keep(src, kc, vc, ks=ks, vs=vs):
+            ks[src], vs[src] = kc, vc
+
+        attn = ring_attention(q, k, v, mesh, on_chunk=keep)
+        _write_prefill_pages(k_pages, li, safe_pg, torch.cat(ks), page_size, valid_tok)
+        _write_prefill_pages(v_pages, li, safe_pg, torch.cat(vs), page_size, valid_tok)
+        x = x + _o_proj(spec, lp, attn.reshape(Tl, -1), mesh)
+        h = rms_norm(x, lp.mlp_norm, spec.rms_eps)
+        if spec.num_experts and sp > 1:
+            f, d = _ffn_counted(spec, lp, mesh.all_gather(h, 0, over="sp"), mesh)
+            f = f[mine]
+        else:
+            f, d = _ffn_counted(spec, lp, h, mesh)
+        x = x + f
+        dropped = dropped + d
+
+    last = min(max(num_tokens - 1, 0), T - 1)
+    # every sp rank takes one row's logits (the same collectives on each);
+    # the holder's are the prompt's
+    logits = _logits(spec, params, x[last % Tl])
+    if sp > 1:
+        logits = mesh.broadcast(logits, "sp", last // Tl)
+    return logits, dropped
 
 
 # ----------------------------------------------------------------- verify

@@ -592,12 +592,15 @@ def load_params(
     host copy, to the device, cast, transpose there. Per-expert tensors land
     in their row of the stacked ``[E, ...]`` device tensor. With a
     ``mesh`` each sharded tensor is read as this rank's slice only (its
-    heads and columns over tp, its experts over ep), and the params carry
-    the mesh; ``bytes_read`` on the result counts the tensor bytes read."""
-    from dynamo_tpu_torch.models.convert import SHARD_DIMS, check_shardable
+    heads and columns over tp, its experts over ep, under pp its stage's
+    layers alone and the whole embedding), and the params carry the mesh;
+    ``bytes_read`` on the result counts the tensor bytes read."""
+    from dynamo_tpu_torch.models.convert import SHARD_DIMS, check_shardable, stage_layers
 
     if mesh is not None:
         check_shardable(spec, mesh)
+    mine = stage_layers(spec, mesh)
+    pp = mesh is not None and mesh.shape.get("pp", 1) > 1
     dev = resolve_device(device)
     dtype = dtype or spec.dtype
     files = sorted(os.path.join(model_dir, f) for f in os.listdir(model_dir)
@@ -620,13 +623,19 @@ def load_params(
     stacked: dict[tuple, torch.Tensor] = {}  # per-expert leaves, filled row by row
     skipped: list[str] = []
 
+    def put(path: tuple, t) -> None:
+        # a stage's layers are numbered from 0
+        if path[0] == "layers":
+            path = ("layers", path[1] - mine.start, *path[2:])
+        _tree_set(tree, path, t)
+
     def read(r: SafetensorsFile, name: str, dt: str) -> torch.Tensor:
         return r.get_tensor(name, dev).to(torch_dtype(dt))
 
     def read_shard(r: SafetensorsFile, name: str, leaf: str, transpose: bool,
                    dt: str) -> torch.Tensor:
         dim = SHARD_DIMS.get(leaf)
-        if mesh is None or dim is None:
+        if mesh is None or dim is None or (pp and leaf == "embed"):
             return read(r, name, dt)
         shape = r.entries[name]["shape"]
         stored = 1 - dim if transpose and len(shape) == 2 else dim
@@ -635,6 +644,11 @@ def load_params(
 
     for r in readers:
         for name in r.keys():
+            parts = name.split(".")
+            if (parts[:2] == ["model", "layers"] and parts[2].isdigit()
+                    and int(parts[2]) not in mine):
+                seen.add(name)  # another pipeline stage's layer: not read
+                continue
             if name in dest:
                 path, transpose, dt_override = dest[name]
                 # a per-expert tensor's leaf is the name before its index
@@ -655,7 +669,7 @@ def load_params(
                             (exp.stop - exp.start, *t.shape), dtype=t.dtype, device=dev)
                     stacked[key][e - exp.start].copy_(t)
                 else:
-                    _tree_set(tree, path, t)
+                    put(path, t)
             elif mla and name.endswith("self_attn.kv_b_proj.weight"):
                 # the fused per-head up-projections [H * (dn + dv), dc]
                 li = ("layers", int(name.split(".")[2]))
@@ -664,8 +678,8 @@ def load_params(
                 heads = mesh.shard(H, "heads") if mesh is not None else slice(0, H)
                 t = r.get_block(name, (slice(heads.start * w, heads.stop * w),), dev)
                 t = t.to(torch_dtype(dtype)).reshape(heads.stop - heads.start, w, -1)
-                _tree_set(tree, li + ("w_uk",), t[:, :dn].transpose(1, 2).contiguous())
-                _tree_set(tree, li + ("w_uv",), t[:, dn:].transpose(1, 2).contiguous())
+                put(li + ("w_uk",), t[:, :dn].transpose(1, 2).contiguous())
+                put(li + ("w_uv",), t[:, dn:].transpose(1, 2).contiguous())
                 seen.add(name)
             elif fused and name.endswith(tuple(".mlp.experts." + t for t in _FUSED_TAILS)):
                 if name.endswith("_bias") and not spec.moe_bias:
@@ -686,21 +700,21 @@ def load_params(
                         else (exp, run)
                 t = r.get_block(name, index, dev).to(torch_dtype(dtype))
                 if name.endswith("gate_up_proj"):
-                    _tree_set(tree, mo + ("w_gate",), t[..., 0::2].contiguous())
-                    _tree_set(tree, mo + ("w_up",), t[..., 1::2].contiguous())
+                    put(mo + ("w_gate",), t[..., 0::2].contiguous())
+                    put(mo + ("w_up",), t[..., 1::2].contiguous())
                 elif name.endswith("gate_up_proj_bias"):
-                    _tree_set(tree, mo + ("b_gate",), t[..., 0::2].contiguous())
-                    _tree_set(tree, mo + ("b_up",), t[..., 1::2].contiguous())
+                    put(mo + ("b_gate",), t[..., 0::2].contiguous())
+                    put(mo + ("b_up",), t[..., 1::2].contiguous())
                 elif name.endswith("down_proj_bias"):
-                    _tree_set(tree, mo + ("b_down",), t)
+                    put(mo + ("b_down",), t)
                 else:
-                    _tree_set(tree, mo + ("w_down",), t)
+                    put(mo + ("w_down",), t)
                 seen.add(name)
             elif name.endswith(("_bias", ".bias", ".sinks")):
                 skipped.append(name)
         r.close()
     for key, t in stacked.items():
-        _tree_set(tree, key, t)
+        put(key, t)
 
     expected = set(dest)
     if mla:

@@ -1,7 +1,8 @@
-"""Parallelism of the port: the tensor-parallel mesh (mesh.py), the group
-bootstrap (multihost.py) and the leader/follower descriptor plane
-(spmd.py). One process drives one card; a tp group of N is N processes,
-rank 0 the leader."""
+"""Parallelism of the port: the five-axis mesh and its collectives
+(mesh.py), the group bootstrap (multihost.py), the leader/follower
+descriptor plane (spmd.py), pipeline stages (pipeline.py) and ring
+attention over the sequence ranks (ring.py). One process drives one card;
+a group of N is N processes, rank 0 the leader."""
 
 from dynamo_tpu_torch.parallel.mesh import make_mesh
 

@@ -1,5 +1,5 @@
-"""Bootstrap of a mesh's group (tensor and expert parallel): one logical
-worker over several processes, one per card (the counterpart of
+"""Bootstrap of a mesh's group (tensor, expert, sequence and data
+parallel): one logical worker over several processes, one per card (the counterpart of
 dynamo_tpu/parallel/multihost.py).
 
 The reference joins ``jax.distributed`` so that ``jax.devices()`` spans
@@ -20,8 +20,9 @@ gloo unasked.
 
 ``spawn_local_followers`` starts ranks 1..N-1 of a group on this host as
 worker processes (``python -m dynamo_tpu_torch.engine.worker ...
---process-id r``): ``--tp T --ep E`` (N = E * T) with no coordinator does
-that, and the calling process becomes rank 0.
+--process-id r``): ``--tp T --ep E --sp S`` and the EngineConfig's ``dp``
+(N = dp * S * E * T) with no coordinator do that, and the calling process
+becomes rank 0.
 """
 
 from __future__ import annotations
@@ -162,9 +163,9 @@ def free_coordinator(host: str = "127.0.0.1") -> str:
 def spawn_local_followers(
     n: int, worker_argv: list[str], coordinator: str, env: dict | None = None,
 ) -> list[subprocess.Popen]:
-    """Ranks 1..n-1 of a group of ``n`` (ep x tp) on this host: worker
-    processes given ``worker_argv`` (the leader's model and engine flags,
-    its EngineConfig with tp and ep) plus the group's coordinator, size and
+    """Ranks 1..n-1 of a group of ``n`` (dp x sp x ep x tp) on this host:
+    worker processes given ``worker_argv`` (the leader's model and engine
+    flags, its EngineConfig with its axes) plus the group's coordinator, size and
     their rank; ``DYN_LOCAL_RANK`` picks each one's card. Each prints
     ``MULTIHOST_FOLLOWER_READY`` once its shell is built. The caller
     becomes rank 0 and stops them at the end."""

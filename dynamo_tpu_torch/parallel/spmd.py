@@ -1,11 +1,11 @@
 """Leader-driven SPMD replay: one logical worker over several processes
 (the counterpart of dynamo_tpu/parallel/spmd.py).
 
-Every rank of a group (the ep x tp ranks of a mesh: the tp groups of
-every ep slice and the expert group over all of them) must run the same
+Every rank of a group (the dp x sp x ep x tp ranks of an engine's mesh:
+the tp groups, the expert groups, the ring's sp groups) must run the same
 collectives in the same order, or the first one it waits in never
-completes. So every rank but the leader follows, the ep replicas of the
-leader's tp coordinate included: each replays the whole forward, and its
+completes. So every rank but the leader follows, the ep, sp and dp
+replicas of the leader's tp coordinate included: each replays the whole forward, and its
 tp and expert collectives line up with the leader's. The LEADER (rank 0) runs the
 whole engine: scheduler, page bookkeeping, sampling, streaming. Before
 each device dispatch on the serving path it publishes a step descriptor:
@@ -19,7 +19,8 @@ bursts, which it chains into the next burst as the leader does (the
 descriptor says which burst feeds which slot).
 
 Ops: ``prefill`` (one prompt, with multimodal rows when it carries them),
-``prefill_batch``, ``verify`` (the speculative verify; the port's own),
+``ring_prefill`` (a cold prompt over the sp ranks: every rank of the ring
+joins it), ``prefill_batch``, ``verify`` (the speculative verify; the port's own),
 ``decode`` (a burst and its chain feeds), ``kv_offload`` / ``kv_onboard``
 (each rank moves its own shard of a block between its pools and its own
 KVBM tiers; a block a strict follower's tiers lack breaks the plane, a
@@ -510,6 +511,9 @@ class SpmdFollower:
             fam.prefill(spec, eng.params, t("tokens"), t("block_table"),
                         int(sc["start"]), eng.k_pages, eng.v_pages,
                         int(sc["num_tokens"]), **mm)
+        elif op == "ring_prefill":
+            fam.prefill_ring(spec, eng.params, t("tokens"), t("block_table"),
+                             eng.k_pages, eng.v_pages, int(sc["num_tokens"]))
         elif op == "prefill_batch":
             fam.prefill_batch(spec, eng.params, t("tokens"), t("block_tables"),
                               torch.from_numpy(np.array(ar["start"])), eng.k_pages,

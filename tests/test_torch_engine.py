@@ -315,10 +315,15 @@ _UNPORTED_VALUES = {
 # fields that were refused until their feature was ported: they now build
 # with the value (speculative decoding: Queue A item 6; overload: item 5;
 # guided decoding: item 7; the step profiler: item 13; tensor parallelism:
-# item 11a; expert parallelism: item 11b)
+# item 11a; expert parallelism: item 11b; sequence and data parallelism:
+# item 11d)
 _PORTED_SINCE = ("spec_mode", "spec_k_max", "spec_ngram_min", "spec_ngram_max",
                  "spec_ewma_alpha", "spec_reprobe_tokens", "max_waiting", "tenants",
-                 "preemption", "guided_cache_entries", "profile", "tp", "ep")
+                 "preemption", "guided_cache_entries", "profile", "tp", "ep", "sp", "dp")
+# item 11c ported pipeline stages as a library path (parallel/pipeline.py):
+# the engine stages no layers and refuses the value, where the reference's
+# engine ignores it
+_REFUSED_BY_ENGINE = ("pp",)
 
 
 @pytest.mark.parametrize("field", list(_UNPORTED_VALUES))
@@ -330,9 +335,14 @@ def test_config_refuses_fields_of_unported_features(field):
     from dynamo_tpu_torch.engine.config import UNPORTED
 
     value = _UNPORTED_VALUES[field]
-    assert set(_UNPORTED_VALUES) == set(UNPORTED) | set(_PORTED_SINCE)
+    assert set(_UNPORTED_VALUES) == (set(UNPORTED) | set(_PORTED_SINCE)
+                                     | set(_REFUSED_BY_ENGINE))
     assert not set(UNPORTED) & set(_PORTED_SINCE)
     assert getattr(JaxEngineConfig(**{field: value}), field) is not None
+    if field in _REFUSED_BY_ENGINE:
+        with pytest.raises(ValueError, match=r"parallel/pipeline\.py"):
+            EngineConfig(**{field: value})
+        return
     if field in _PORTED_SINCE:
         # a quota spec string is parsed as the reference's config parses it
         want = getattr(JaxEngineConfig(**{field: value}), field)

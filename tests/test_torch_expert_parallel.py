@@ -627,7 +627,7 @@ async def test_worker_starts_ep_times_tp_local_ranks(monkeypatch):
     group = await worker.start_tp_group(EngineConfig(ep=2, tp=2), model="tiny-moe",
                                         device="cpu")
     assert group.leader
-    assert (seen["n"], seen["world"], seen["pid"], seen["mesh"]) == (4, 4, 0,
-                                                                     {"tp": 2, "ep": 2})
+    assert (seen["n"], seen["world"], seen["pid"], seen["mesh"]) == (
+        4, 4, 0, {"tp": 2, "ep": 2, "sp": 1, "dp": 1})
     cfg = json.loads(seen["argv"][seen["argv"].index("--engine-config-json") + 1])
     assert (cfg["ep"], cfg["tp"]) == (2, 2)

@@ -480,19 +480,19 @@ def test_sharded_load_reads_a_slice_of_the_checkpoint(tmp_path, tp):
 @pytest.mark.parametrize("axis,item", [("dp", "11d"), ("sp", "11d"), ("ep", "11b"),
                                        ("pp", "11c")])
 def test_other_axes_refuse_naming_their_item(axis, item):
-    """dp, sp and pp raise naming their item. ep, which item 11b ported,
-    builds its config, and make_mesh asks only for the group it needs."""
+    """Every axis is ported now. dp, sp and ep (items 11d, 11b) build their
+    config, and make_mesh asks only for the group it needs. pp (item 11c)
+    is a library path: make_mesh builds it, and EngineConfig refuses it,
+    naming parallel/pipeline.py (the engine stages no layers)."""
     from dynamo_tpu_torch.parallel import make_mesh
 
-    if axis == "ep":
-        assert EngineConfig(ep=2).ep == 2
-        with pytest.raises(RuntimeError, match="initialised"):
-            make_mesh(ep=2)
-        return
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        EngineConfig(**{axis: 2})
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+    with pytest.raises(RuntimeError, match="initialised"):
         make_mesh(**{axis: 2})
+    if axis == "pp":
+        with pytest.raises(ValueError, match=r"parallel/pipeline\.py"):
+            EngineConfig(pp=2)
+        return
+    assert getattr(EngineConfig(**{axis: 2}), axis) == 2
 
 
 def test_tp_refusals_name_their_items():

@@ -425,9 +425,9 @@ _REFUSED_FLAGS = {
     "prefill-component": (["--prefill-component", "p2"], None),
     "always-remote-prefill": (["--always-remote-prefill"], None),
     # ported since (tensor parallelism, item 11a; expert parallelism, item
-    # 11b): these build their config
+    # 11b; sequence parallelism, item 11d): these build their config
     "tp": (["--tp", "2"], None),
-    "sp": (["--sp", "2"], "item 11"),
+    "sp": (["--sp", "2"], None),
     "ep": (["--ep", "2"], None),
     "mirror": (["--mirror", "leader"], None),
     "coordinator": (["--coordinator-address", "h:1"], None),
@@ -480,6 +480,7 @@ def test_worker_flags_of_unported_features_raise(case):
         assert args.always_remote_prefill is ("--always-remote-prefill" in flags)
         assert cfg.tp == (2 if "--tp" in flags else 1)
         assert cfg.ep == (2 if "--ep" in flags else 1)
+        assert cfg.sp == (2 if "--sp" in flags else 1)
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue A {item}"):
         cli.main(["worker", "--hub", "127.0.0.1:1", "--device", "cpu", *flags])
