@@ -457,8 +457,8 @@ Phases, each of which must pass (any failure exits non-zero):
 22. tensor parallelism (after phase 17, every engine freed): fused_decode
    at a tp rank's shapes (KH 4 / G 4 and KH 2 / G 8, bf16 and fp8 pools)
    against its plain version, timed beside SDPA and its bound, kv_write
-   timed at the same KV heads; (a) llama-3-8b at full width and depth over
-   2 gloo ranks on this card (spawned processes: the group's bootstrap,
+   timed at the same KV heads; (a) llama-3-8b at full width, cut to
+   TP8_LAYERS layers, over 2 gloo ranks on this card (spawned processes: the group's bootstrap,
    make_mesh, the rank's shard of the seeded init, the engine behind an
    SPMD leader, a follower shell replaying its descriptors; graphs off by
    its config, as gloo's collectives go through host memory), serving
@@ -482,7 +482,8 @@ Phases, each of which must pass (any failure exits non-zero):
    replacement rejoins through ``__sync__`` and equals the leader again
    after the next serve; descriptor bytes and host us per publish; (e)
    with two cards, (a) under NCCL across them with graphs on, else a line
-   saying it was not possible; (f) ``cli worker --tp 2`` (gloo, both ranks
+   saying it was not possible; (f) ``cli worker --tp 2`` (the cut
+   llama-3-8b by ``--spec-json``; gloo, both ranks
    on this card, graphs off by ``--no-cuda-graphs``) starting its rank 1
    itself, serving phase 4's prompts over TCP, both ranks answering
    kv_digest over the same pages, and draining with its rank on SIGTERM. Every rank's launches join the kernels
@@ -522,8 +523,8 @@ Phases, each of which must pass (any failure exits non-zero):
    seeded weights (llama-3-8b and llama-3-70b's width cut to 4 layers:
    prefill_forward of phase 4's prompts, then greedy decode_forward steps;
    one-rank engines for (d)); then one 4-rank gloo group on this card runs
-   (a) llama-3-8b at full width and depth over pp=2 x tp=2 (16 layers per
-   stage): pp_prefill of phase 4's 8 prompts one by one, 32 greedy
+   (a) llama-3-8b at full width, cut to PP8_LAYERS layers, over pp=2 x
+   tp=2: pp_prefill of phase 4's 8 prompts one by one, 32 greedy
    pp_decode_steps at B 8 (microbatches of 4), (b) the same over pp=2 x
    dp=2, (c) llama-3-70b's width, 4 layers, over pp=4 (8 steps), each rank
    drawing its stage of the seeded init; gates: prefill and first decode
@@ -544,8 +545,44 @@ Phases, each of which must pass (any failure exits non-zero):
    join the kernels line (kv_write/pp, paged_attention_v3/pp for (a)-(c);
    fused_decode/tp2 for (d); fused_decode for (e)).
 
+25. disaggregated serving under tensor parallelism and the gateway (after
+   phase 24): llama-3-8b at full width, cut to TP8_LAYERS layers, phase 4's
+   config; a hub in this process and six spawned gloo ranks on this card: a
+   prefill worker group of tp=2 (``launch_engine_worker(mode="prefill")``
+   on rank 0, its rank 1 exporting from a transfer source of its own; the
+   leader also advertised for its mirror), a decode worker group of tp=2
+   (``mode="decode"``, every prompt prefilled remotely) and the prefill
+   group's mirror of tp=2 (rank 0 following the leader and relaying to its
+   rank 1); in this process a one-rank decode worker on the same seeded
+   weights. (a) phase 4's 8 prompts through the tp=2 decode worker's front
+   door: every resume by shard (rank 1 pulls its own at the leader's
+   intake, op kv_prefetch), each decode rank's installed pages bitwise
+   equal to its prefill twin's export (sha256 per page, hashed after the
+   serve, outside the timed spans), 0 route and pull fallbacks,
+   fused_decode once per layer per step on both decode ranks, streams
+   equal to phase 22 (a)'s aggregated tp=2 group up to the first
+   near-tie; prints the per-shard CUDA IPC pulls' ms and GB/s and the step
+   thread's kv_export and kv_resume ms per rank; (b) 3 prompts
+   through the one-rank decode worker: whole TCP pulls whose blocks are
+   bitwise the two shards joined on the heads axis, their ms and GB/s;
+   (c) an embedding request on the tp=2 group within EMB25_TOL of one
+   rank's vector; (d) the mirror ranks' pages bitwise equal to their
+   prefill-group twins' after the serve, and after the mirror's rank 0
+   lost its stream and rejoined through the sync and 2 more prompts; (e)
+   the EPP (gateway/epp.py) in front of both decode workers: a warm prompt
+   picked to its prefix's worker with the GIE header, the pickline pick
+   equal to the HTTP pick, pick p50 / p99 us for both over EPP_PICKS picks;
+   (f) a one-rank export of a P25_F_TOKENS-token prompt (a prefill engine
+   in this process) resumed by the tp=2 decode group in mode scatter: the
+   leader pulls the whole blocks and sends rank 1 its heads over the
+   group, each rank's install bitwise its heads of the export, the stream
+   equal to one rank's up to the first near-tie, kv_resume ms per rank.
+   Its timings are NOT tp timings (six processes time-slice one card). The
+   decode ranks' launches join fused_decode/tp2, the one-rank worker's
+   fused_decode.
+
 Phases run in the order 1-8, 12, 13, 14, 18, 9, 20 (a, b, d), 21, 10, 11,
-19, 20 (c), 15, 16, 17, 22, 23, 24.
+19, 20 (c), 15, 16, 17, 22, 23, 24, 25.
 
 Prints, before the last line, the card line and one JSON object with every
 kernel's measurements; the last line is
@@ -7545,6 +7582,10 @@ def multimodal_phase(spec, cfg, params, card) -> int:
 # ---------------------------------------------------- tensor parallelism
 
 TP70_LAYERS = 4  # llama-3-70b at full width, cut to this many layers (phase 22 b)
+# llama-3-8b at full width, cut to this many layers in phase 22 (a) and (e)
+# and phase 25: the gates (per-layer launches and collectives, logits and
+# pages against one rank) hold at any depth
+TP8_LAYERS = 4
 TP_POOL_PAGES = 64  # sealed pages per rank held against the one-rank pools
 # a rank's pages against the matching KV-head slice of the one-rank pools:
 # max |diff| / max |value| over those pages, per pool (bf16 rows whose
@@ -7560,6 +7601,16 @@ TP_POOL_TOL = 5e-2
 # pages against its neighbour's heads >= 1.309, the sound pages <= 2.089e-2
 TP_LOGIT_TOL = 5e-2
 TP_TIMEOUT_S = 600  # a rank's limit on any collective wait
+
+
+def tp8_spec():
+    """llama-3-8b at full width, TP8_LAYERS deep."""
+    import dataclasses
+
+    from dynamo_tpu_torch.engine.config import ModelSpec
+
+    return dataclasses.replace(ModelSpec.llama3_8b(), num_layers=TP8_LAYERS,
+                               name=f"llama-3-8b[{TP8_LAYERS} layers]")
 
 
 def tp70_spec():
@@ -7875,9 +7926,10 @@ def tp_check(spec, prompts, ref, ranks, label, card) -> int:
 
 
 def tp_group_serve(spec, cfg, prompts, n, label, card, backend="gloo", device=DEVICE,
-                   graphs=False) -> int:
+                   graphs=False) -> tuple[int, dict]:
     """Phase 22 (a), (b), (e): the one-rank reference in this process, then
-    ``n`` ranks of the same seeded weights serving the same prompts."""
+    ``n`` ranks of the same seeded weights serving the same prompts.
+    Returns the ranks' fused_decode launches and the leader's streams."""
     import dataclasses
     import gc
 
@@ -7895,7 +7947,7 @@ def tp_group_serve(spec, cfg, prompts, n, label, card, backend="gloo", device=DE
         gc.collect()
         torch.cuda.empty_cache()
     print(f"{label}: {time.perf_counter() - t0:.1f} s")
-    return launches
+    return launches, ranks[0]["tokens"]
 
 
 def tp_one_rank_nccl(rank, n, port, job, q):
@@ -8091,8 +8143,11 @@ def tp_worker_phase(spec, cfg, prompts, card) -> int:
     kv_digest (rank 1 prints its own, over the same pages); SIGTERM drains
     the worker and its rank 1 stops with it. Returns rank 0's fused_decode
     launches (its ENGINE_LAUNCHES)."""
+    import dataclasses
+
     t0 = time.perf_counter()
-    flags = ["--model", spec.name, "--page-size", str(cfg["page_size"]), "--num-pages",
+    flags = ["--spec-json", json.dumps(dataclasses.asdict(spec)), "--page-size",
+             str(cfg["page_size"]), "--num-pages",
              str(cfg["num_pages"]), "--max-pages-per-seq", str(cfg["max_pages_per_seq"]),
              "--max-decode-slots", str(cfg["max_decode_slots"])]
     children: list[Child] = []
@@ -8128,8 +8183,8 @@ def tp_worker_phase(spec, cfg, prompts, card) -> int:
     require(DEVICE != "cuda" or fused == spec.num_layers * steps,
             f"tp worker: fused_decode {fused} over {steps} steps")
     n_tok = sum(len(t) for t in res["tokens"].values())
-    print(f"phase 22 (f) [{card}]: cli worker --tp 2 (gloo, both ranks on cuda:0, rank 1 "
-          f"started by the worker): {n_tok} tokens over TCP in {wall:.2f} s (NOT a tp "
+    print(f"phase 22 (f) [{card}]: cli worker --tp 2 ({spec.name}, gloo, both ranks on "
+          f"cuda:0, rank 1 started by the worker): {n_tok} tokens over TCP in {wall:.2f} s (NOT a tp "
           f"timing), rank 0 fused_decode {fused} ({spec.num_layers} x {steps} steps); both "
           f"ranks digested the same {ld['pages']} pages; {st['publishes']} descriptors; "
           f"drained on SIGTERM with its rank 1; {time.perf_counter() - t0:.1f} s")
@@ -8205,34 +8260,38 @@ def time_attention_at(t, flush, fp8, **over) -> dict:
     return r
 
 
-def tp_phase(cfg, prompts, bf16_tokens, card, flush) -> tuple[dict, dict[str, int]]:
+def tp_phase(cfg, prompts, bf16_tokens, card, flush) -> tuple[dict, dict[str, int], dict]:
     """Phase 22: tensor parallelism on the card (see the module docstring).
-    Returns the kernel rows at the ranks' shapes and the phase's
-    fused_decode launches: every rank of (a), (b), (c), (d) and (e), and
-    (f)'s rank 0."""
+    Returns the kernel rows at the ranks' shapes, the phase's fused_decode
+    launches (every rank of (a), (b), (c), (d) and (e), and (f)'s rank 0)
+    and (a)'s streams (phase 25's aggregated tp=2 reference)."""
     from dynamo_tpu_torch.engine.config import ModelSpec
 
     t22 = time.perf_counter()
     rows = tp_kernel_rows(flush, card)
     spec8 = ModelSpec.llama3_8b()
-    a = tp_group_serve(spec8, cfg, prompts, 2, "phase 22 (a) llama-3-8b tp=2 gloo", card)
-    b = tp_group_serve(tp70_spec(), cfg, prompts, 4,
-                       f"phase 22 (b) llama-3-70b (d 8192, 64/8 heads, FFN 28672, "
-                       f"vocab 128256; cut to {TP70_LAYERS} layers) tp=4 gloo", card)
+    spec8a = tp8_spec()
+    a, a_tokens = tp_group_serve(spec8a, cfg, prompts, 2,
+                                 f"phase 22 (a) llama-3-8b (full width, cut to "
+                                 f"{TP8_LAYERS} layers) tp=2 gloo", card)
+    b, _ = tp_group_serve(tp70_spec(), cfg, prompts, 4,
+                          f"phase 22 (b) llama-3-70b (d 8192, 64/8 heads, FFN 28672, "
+                          f"vocab 128256; cut to {TP70_LAYERS} layers) tp=4 gloo", card)
     c = tp_nccl_one(spec8, cfg, prompts, bf16_tokens, card)
     d = mirror_phase(spec8, cfg, prompts, bf16_tokens, card)
-    f = tp_worker_phase(spec8, cfg, prompts, card)
+    f = tp_worker_phase(spec8a, cfg, prompts, card)
     e = 0
     if torch.cuda.device_count() >= 2:
-        e = tp_group_serve(spec8, cfg, prompts, 2, "phase 22 (e) llama-3-8b tp=2 nccl",
-                           card, backend="nccl", device=None, graphs=True)
+        e, _ = tp_group_serve(spec8a, cfg, prompts, 2,
+                              f"phase 22 (e) llama-3-8b ({TP8_LAYERS} layers) tp=2 nccl",
+                              card, backend="nccl", device=None, graphs=True)
     else:
         print(f"phase 22 (e): {torch.cuda.device_count()} card: tp=2 under NCCL across two "
               "cards was not possible (it needs two)")
     print(f"phase 22: {time.perf_counter() - t22:.1f} s, fused_decode launches (a) {a} "
           f"(b) {b} (c) {c} (d) {d} (e) {e} (f, rank 0) {f}")
     return rows, {"fused_decode": c + d, "fused_decode/tp2": a + e + f,
-                  "fused_decode/tp4": b}
+                  "fused_decode/tp4": b}, a_tokens
 
 
 # ---------------------------------------------------- expert parallelism
@@ -8724,6 +8783,7 @@ def ep_phase(cfg, card, flush) -> tuple[dict, dict[str, int]]:
 # ------------------------------------------ pipeline and sequence parallelism
 
 PP_STEPS = 32  # greedy pp_decode_steps of (a) and (b)
+PP8_LAYERS = 4  # llama-3-8b at full width, cut to this many layers in (a) and (b)
 PP70_STEPS = 8  # of (c)
 PP70_LAYERS = 4  # llama-3-70b at full width, one layer per stage of (c)
 PP_PAGES = 40  # pages per slot: the longest prompt (512 tokens) and 32 steps need 34
@@ -8950,10 +9010,11 @@ def pp_sp_rank(rank, n, port, job, q):
         dev = local_device()
         try:
             spec8 = ModelSpec(**job["spec8"])
+            specpp = ModelSpec(**job["specpp"])
             spec70 = ModelSpec(**job["spec70"])
             out = {}
-            for cell, spec, axes, steps in (("a", spec8, dict(pp=2, tp=2), PP_STEPS),
-                                            ("b", spec8, dict(pp=2, dp=2), PP_STEPS),
+            for cell, spec, axes, steps in (("a", specpp, dict(pp=2, tp=2), PP_STEPS),
+                                            ("b", specpp, dict(pp=2, dp=2), PP_STEPS),
                                             ("c", spec70, dict(pp=4), PP70_STEPS)):
                 t0 = time.perf_counter()
                 out[cell] = r = pp_cell(spec, axes, job["prompts"], steps, dev)
@@ -9278,6 +9339,8 @@ def pp_sp_phase(cfg, prompts, card, flush) -> tuple[dict, dict[str, int]]:
     t24 = time.perf_counter()
     rows = pp_kernel_rows(flush, card)
     spec8 = ModelSpec.llama3_8b()
+    specpp = dataclasses.replace(spec8, num_layers=PP8_LAYERS,
+                                 name=f"llama-3-8b[{PP8_LAYERS} layers]")
     spec70 = dataclasses.replace(ModelSpec.llama3_70b(), num_layers=PP70_LAYERS,
                                  name=f"llama-3-70b[{PP70_LAYERS} layers]")
     long_prompt = np.random.default_rng(SP_SEED).integers(
@@ -9288,8 +9351,12 @@ def pp_sp_phase(cfg, prompts, card, flush) -> tuple[dict, dict[str, int]]:
     del params70
     gc.collect()
     torch.cuda.empty_cache()
+    paramspp = llama.init_params(specpp, 0, device=DEVICE)
+    refpp = pp_reference(specpp, paramspp, prompts, PP_STEPS)
+    del paramspp
+    gc.collect()
+    torch.cuda.empty_cache()
     params8 = llama.init_params(spec8, 0, device=DEVICE)
-    ref8 = pp_reference(spec8, params8, prompts, PP_STEPS)
     engines = {}
     for kv in ("bf16", "fp8"):
         engine = new_engine(spec8, dict(SP_CFG, kv_dtype=kv), f"phase 24 (d) one rank {kv}",
@@ -9306,7 +9373,8 @@ def pp_sp_phase(cfg, prompts, card, flush) -> tuple[dict, dict[str, int]]:
     print(f"phase 24: kernel rows and one-rank references done in "
           f"{time.perf_counter() - t24:.1f} s; "
           f"this process holds {_allocated(torch.device(DEVICE)) / 1e9:.3f} GB")
-    job = {"spec8": dataclasses.asdict(spec8), "spec70": dataclasses.asdict(spec70),
+    job = {"spec8": dataclasses.asdict(spec8), "specpp": dataclasses.asdict(specpp),
+           "spec70": dataclasses.asdict(spec70),
            "prompts": prompts, "long": long_prompt, "device": DEVICE}
     conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
@@ -9320,10 +9388,11 @@ def pp_sp_phase(cfg, prompts, card, flush) -> tuple[dict, dict[str, int]]:
         else:
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
     try:
-        a = pp_check(spec8, ref8, [r["a"] for r in ranks], dict(pp=2, tp=2),
-                     "phase 24 (a) llama-3-8b (full width, 32 layers) pp=2 x tp=2 gloo", card)
-        b = pp_check(spec8, ref8, [r["b"] for r in ranks], dict(pp=2, dp=2),
-                     "phase 24 (b) llama-3-8b pp=2 x dp=2 gloo", card)
+        a = pp_check(specpp, refpp, [r["a"] for r in ranks], dict(pp=2, tp=2),
+                     f"phase 24 (a) llama-3-8b (full width, cut to {PP8_LAYERS} layers) "
+                     "pp=2 x tp=2 gloo", card)
+        b = pp_check(specpp, refpp, [r["b"] for r in ranks], dict(pp=2, dp=2),
+                     f"phase 24 (b) llama-3-8b ({PP8_LAYERS} layers) pp=2 x dp=2 gloo", card)
         for s in range(2):  # each stage's two dp replicas
             pair = [r["b"] for r in ranks if r["b"]["coords"]["pp"] == s]
             require(len(pair) == 2 and pair[0]["digest"] == pair[1]["digest"],
@@ -9350,6 +9419,687 @@ def pp_sp_phase(cfg, prompts, card, flush) -> tuple[dict, dict[str, int]]:
           f"fused_decode (d) {d} (e, rank 0) {e}")
     return rows, {"kv_write/pp": kw, "paged_attention_v3/pp": v3, "fused_decode/tp2": d,
                   "fused_decode": e}
+
+
+# ------------------------------- disaggregation under tp and the gateway
+
+P25_EXTRA = 2  # fresh prompts served after the mirror's rejoin
+P25_B = (2, 3)  # phase 4's prompts served by (b)'s one-rank decode worker
+P25_F_TOKENS = 960  # (f)'s prompt: 60 pages, under max context with its 32 tokens
+EPP_PICKS = 200  # picks per transport for (e)'s p50 / p99
+EMB25_TOL = 5e-2  # (c): max |diff| / max |value| of the tp=2 vector vs one rank's
+
+
+def page_hashes(k, v) -> list[str]:
+    """sha256 of each page's k and v bytes of blocks ``[L, n, ...]``."""
+    import hashlib
+
+    from dynamo_tpu_torch.kvbm.offload import block_numpy
+
+    kb, vb = (block_numpy(b.detach().contiguous().cpu()) if isinstance(b, torch.Tensor)
+              else np.asarray(b) for b in (k, v))
+    return [hashlib.sha256(np.ascontiguousarray(kb[:, j]).tobytes()
+                           + np.ascontiguousarray(vb[:, j]).tobytes()).hexdigest()
+            for j in range(kb.shape[1])]
+
+
+def p25_record(engine, out: dict) -> None:
+    """Wrap a rank's engine: keep every export's blocks by transfer id and
+    every install's tail blocks in order (references only: nothing is
+    copied or hashed inside the spans that time ``kv_export`` and
+    ``kv_resume``; ``p25_hashes`` hashes them after the serve), each
+    resume's mode, transfer id and first page, every pulled transfer id,
+    every kv_digest's pages."""
+    out.update(exports={}, installs=[], modes=[], digests=[], pulled=[])
+    held = engine.p25_held = {"exports": {}, "installs": []}
+    export, insert = engine.export_pages, engine._insert_blocks
+    install, digest = engine.install_remote, engine.pool_digest
+    stage = engine._stage_pull
+
+    def export_pages(pages, num_tokens, transfer_id=None):
+        res = export(pages, num_tokens, transfer_id=transfer_id)
+        held["exports"][res[0]["transfer_id"]] = (res[1], res[2])
+        return res
+
+    def insert_blocks(k, v, ready, page_ids, first):
+        held["installs"].append((k[:, first:], v[:, first:]))
+        return insert(k, v, ready, page_ids, first)
+
+    def stage_pull(kvp, mode):
+        out["pulled"].append(kvp["transfer_id"])
+        return stage(kvp, mode)
+
+    def install_remote(mode, info, page_ids, first, **kw):
+        out["modes"].append((mode, info.get("transfer_id"), first))
+        return install(mode, info, page_ids, first, **kw)
+
+    def pool_digest(ids):
+        kb, vb = engine.fam.extract_pages(engine.k_pages, engine.v_pages,
+                                          torch.tensor(ids, dtype=torch.int64,
+                                                       device=engine.device))
+        out["digests"].append((list(ids), page_hashes(kb, vb)))
+        return digest(ids)
+
+    engine.export_pages, engine._insert_blocks = export_pages, insert_blocks
+    engine.install_remote, engine.pool_digest = install_remote, pool_digest
+    engine._stage_pull = stage_pull
+
+
+def p25_hashes(engine, out: dict, split: int = 0) -> None:
+    """The page hashes of what ``p25_record`` kept, into ``out`` (with
+    ``split``, each install's as ``split`` KV-head shards), after the
+    serve: the installs' streams have finished by then."""
+    from dynamo_tpu_torch.disagg.transfer import split_heads
+
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize(engine.device)
+    held = engine.p25_held
+    kh, packed = engine.spec.num_kv_heads, engine._packed_blocks()
+    for tid, (k, v) in held["exports"].items():
+        out["exports"][tid] = page_hashes(k, v)
+    for k, v in held["installs"]:
+        out["installs"].append(
+            [page_hashes(split_heads(k, kh, split, r, packed),
+                         split_heads(v, kh, split, r, packed)) for r in range(split)]
+            if split else page_hashes(k, v))
+    held["exports"].clear()
+    held["installs"].clear()
+
+
+async def p25_until(cond, what: str, timeout: float = 300.0) -> None:
+    deadline = time.perf_counter() + timeout
+    while not cond():
+        require(time.perf_counter() < deadline, f"phase 25: no {what} in {timeout} s")
+        await asyncio.sleep(0.05)
+
+
+async def p25_rank_serve(role, rank, n, job, ev) -> dict:
+    """One rank of phase 25: ``prefill`` (a tp=2 prefill worker group, its
+    leader also serving its mirror group), ``decode`` (a tp=2 decode worker
+    group behind its front door) or ``mirror`` (the prefill group's mirror:
+    rank 0 follows the prefill leader and relays to rank 1)."""
+    from dynamo_tpu_torch.disagg.transfer import PULLS, KvTransferSource
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelSpec
+    from dynamo_tpu_torch.engine.core import InferenceEngine
+    from dynamo_tpu_torch.engine.worker import XFER_KEY_FMT, launch_engine_worker
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.parallel.mesh import make_mesh
+    from dynamo_tpu_torch.parallel.spmd import SpmdFollower, SpmdLeader, StoreHub
+    from dynamo_tpu_torch.runtime.config import RuntimeConfig
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.runtime.hub_client import RemoteHub
+
+    spec = ModelSpec(**job["spec"])
+    mesh = make_mesh(tp=n)
+    dev = mesh.device
+    params = llama.init_params(spec, 0, device=dev, mesh=mesh)
+    cfg = EngineConfig(**job["cfg"], tp=n, cuda_graphs=False)
+    comp = "backend" if role == "decode" else "p25"
+    group = f"dynamo/{comp}/generate"
+    out: dict = {"role": role, "rank": rank}
+    hub = job["hub"]
+    loop = asyncio.get_running_loop()
+    if rank == 0 and role != "mirror":
+        drt = DistributedRuntime(await RemoteHub.connect(hub), RuntimeConfig(hub_address=hub))
+        leader = await SpmdLeader(StoreHub(), loop, group, strict=True).start()
+        kw = dict(component=comp, spec=spec, params=params, engine_config=cfg, device=dev,
+                  mesh=mesh, spmd=leader)
+        if role == "prefill":
+            await leader.advertise(drt.hub)  # its mirror group finds it on the hub
+            engine, served = await launch_engine_worker(drt, mode="prefill", **kw)
+        else:
+            engine, served = await launch_engine_worker(drt, mode="decode",
+                                                        always_remote_prefill=True, **kw)
+            await engine.frontdoor.wait_for_prefill_pool(timeout=300)
+            # the engine's own surface: phase 25 (c)'s embedding request
+            await drt.namespace("dynamo").component("p25raw").endpoint("generate").serve(
+                engine.generate)
+        p25_record(engine, out)
+        out["instance"] = served.instance.instance_id
+        zero_counts()
+        steps0, stats0 = engine.steps, dict(mesh.stats)
+        print(f"P25_READY {role}", flush=True)
+        if role == "prefill":
+            await p25_until(lambda: leader.followers == 2, "mirror follower")
+            ev["ready"].set()
+            await asyncio.to_thread(ev["digest1"].wait, 600)
+            await engine.kv_digest()
+            await p25_until(lambda: leader.syncs_served == 1, "mirror rejoin")
+            ev["rejoined"].set()
+            await asyncio.to_thread(ev["digest2"].wait, 600)
+            await engine.kv_digest()
+        await asyncio.to_thread(ev["done"].wait, 900)
+        p25_hashes(engine, out)
+        out.update(counts=read_counts(), steps=engine.steps - steps0,
+                   coll={k: mesh.stats[k] - stats0[k] for k in stats0},
+                   fallbacks=engine.disagg_fallbacks, pulls=PULLS.snapshot(),
+                   export_ms=[ms for _t, ms, _b in engine.export_times],
+                   resume_ms=[list(r) for r in engine.resume_times],
+                   publish=[leader.publish_count, leader.publish_bytes, leader.publish_secs])
+        await engine.close()
+        await drt.close()
+        return out
+    src = rhub = relay = None
+    if role == "prefill":
+        src = await KvTransferSource().start()
+        await StoreHub().put(XFER_KEY_FMT.format(group=group, rank=rank),
+                             json.dumps({"addr": f"{src.host}:{src.port}", "uid": src.uid}))
+    engine = InferenceEngine(spec, cfg, params=params, device=dev, mesh=mesh,
+                             transfer_source=src)
+    p25_record(engine, out)
+    zero_counts()
+    if role == "mirror" and rank == 0:
+        rhub = await RemoteHub.connect(hub)
+        relay = await SpmdLeader(StoreHub(), loop, group, strict=True).start()
+        f = SpmdFollower(rhub, group, engine, rejoin=True, relay=relay)
+        real, seen = f.apply, []
+
+        def apply(op, sc, ar):
+            real(op, sc, ar)
+            if op == "kv_digest" and not seen:
+                seen.append(op)
+                # this mirror rank loses its stream: it rejoins through the
+                # leader's sync, its rank 1 through the relayed snapshot
+                raise ConnectionError("phase 25 (d): stream dropped")
+
+        f.apply = apply
+    else:
+        f = SpmdFollower(StoreHub(), group, engine, rejoin=False)
+        real_apply, out["replay_resume_ms"] = f.apply, []
+
+        def apply(op, sc, ar):
+            t0 = time.perf_counter()
+            real_apply(op, sc, ar)
+            if op == "kv_resume":
+                out["replay_resume_ms"].append((sc["mode"],
+                                                1e3 * (time.perf_counter() - t0)))
+
+        f.apply = apply
+    await f.run()
+    if relay is not None:
+        relay.stop()
+        await relay.close()
+    if rhub is not None:
+        await rhub.close()
+    p25_hashes(engine, out)
+    out.update(counts=read_counts(), ops=dict(f.ops), op_secs=dict(f.op_secs),
+               rejoins=f.rejoins, pulls=PULLS.snapshot(),
+               prefetch_wait_ms=1e3 * engine.prefetch_wait_secs)
+    await engine.close()
+    if src is not None:
+        await src.close()
+    return out
+
+
+def p25_rank(role, rank, n, port, job, q, ev):
+    """A spawned rank of phase 25: join its group's gloo world on this card,
+    run ``p25_rank_serve``, put its result (or the traceback) on ``q``."""
+    import traceback
+
+    try:
+        sys.path.insert(0, str(ROOT))
+        from dynamo_tpu_torch.ops.cuda import build
+        from dynamo_tpu_torch.parallel.multihost import initialize_multihost, shutdown
+
+        if torch.cuda.is_available():
+            build.load_library()  # built by the parent
+        initialize_multihost(f"127.0.0.1:{port}", n, rank, device=job["device"],
+                             backend="gloo", timeout_s=TP_TIMEOUT_S)
+        try:
+            q.put(((role, rank), asyncio.run(p25_rank_serve(role, rank, n, job, ev))))
+        finally:
+            shutdown()
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        q.put(((role, rank), {"error": traceback.format_exc()}))
+    finally:
+        q.close()
+        q.join_thread()
+
+
+async def http_picker(host: str, port: int):
+    """A keep-alive HTTP/1.1 client of ``POST /pick`` (the standard
+    library's streams): pick(body) -> (status, payload, headers)."""
+    reader, writer = await asyncio.open_connection(host, port)
+
+    async def pick(body):
+        data = json.dumps(body).encode()
+        writer.write(f"POST /pick HTTP/1.1\r\nHost: {host}\r\nContent-Type: "
+                     f"application/json\r\nContent-Length: {len(data)}\r\n\r\n".encode()
+                     + data)
+        await writer.drain()
+        status = int((await reader.readline()).split()[1])
+        headers = {}
+        while (line := await reader.readline()) not in (b"\r\n", b""):
+            k, v = line.decode().split(":", 1)
+            headers[k.strip().lower()] = v.strip()
+        return status, json.loads(await reader.readexactly(int(headers["content-length"]))), \
+            headers
+
+    return pick, writer
+
+
+async def p25_drive(spec, cfg, prompts, params, ev, start_ranks, collect_ranks) -> dict:
+    """This process's side of phase 25: the hub, a one-rank decode worker
+    ((b)), the requests, the embedding and the EPP. Returns the record."""
+    from dynamo_tpu_torch.disagg.transfer import PULLS, KvTransferSource, split_heads
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.core import InferenceEngine
+    from dynamo_tpu_torch.engine.worker import launch_engine_worker
+    from dynamo_tpu_torch.gateway.epp import EndpointPicker
+    from dynamo_tpu_torch.gateway.pickline import PickLineClient
+    from dynamo_tpu_torch.kv_router.protocols import RouterConfig
+    from dynamo_tpu_torch.runtime.config import RuntimeConfig
+    from dynamo_tpu_torch.runtime.context import Context
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.runtime.hub_client import RemoteHub
+    from dynamo_tpu_torch.runtime.hub_server import HubServer
+    from dynamo_tpu_torch.runtime.push import PushRouter, RouterMode
+
+    rec: dict = {}
+    server = HubServer()
+    host, port = await server.start()
+    hub = f"{host}:{port}"
+    start_ranks(hub)
+    drt = DistributedRuntime(await RemoteHub.connect(hub), RuntimeConfig(hub_address=hub))
+    epp = None
+    try:
+        engine, served = await launch_engine_worker(
+            drt, spec=spec, params=params, engine_config=EngineConfig(**cfg, cuda_graphs=False),
+            device=DEVICE, mode="decode", always_remote_prefill=True)
+        p25_record(engine, rec)
+        rec["instance1"] = served.instance.instance_id
+        router = await PushRouter.from_endpoint(
+            drt.namespace("dynamo").component("backend").endpoint("generate"),
+            RouterMode.ROUND_ROBIN)
+        await router.client.wait_for_instances(2, timeout=600)
+        await engine.frontdoor.wait_for_prefill_pool(timeout=600)
+        await asyncio.to_thread(ev["ready"].wait, 600)
+        dec = next(i for i in router.client.instance_ids() if i != rec["instance1"])
+        rec["instance_tp2"] = dec
+        zero_counts()
+        steps0 = engine.steps
+
+        async def one(p, target=None, sink=None):
+            t0 = time.perf_counter()
+            toks, ttft = [], None
+            agen = (router.generate(make_request(p), Context(), instance_id=target)
+                    if target is not None else engine.frontdoor.generate(make_request(p),
+                                                                          Context()))
+            async for item in agen:
+                require(item.get("finish_reason") != "error", f"phase 25: {item}")
+                if item.get("token_ids") and ttft is None:
+                    ttft = time.perf_counter() - t0
+                toks += item.get("token_ids") or []
+            if sink is not None:
+                sink.append(ttft)
+            return toks
+
+        # (a) phase 4's prompts through the tp=2 decode group's front door;
+        # the second sharer arrives once the first one has its first token
+        ttfts: list = []
+        t0 = time.perf_counter()
+        first = asyncio.ensure_future(one(prompts[0], dec, ttfts))
+        while not ttfts:
+            await asyncio.sleep(0.01)
+        rest = [asyncio.ensure_future(one(p, dec, ttfts)) for p in prompts[1:]]
+        rec["a_tokens"] = {0: await first, **{i + 1: await t for i, t in enumerate(rest)}}
+        rec["a_wall"], rec["a_ttft"] = time.perf_counter() - t0, ttfts
+        # (b) two of them through this process's one-rank decode worker: the
+        # export of a tp=2 group pulled whole over TCP
+        PULLS.reset()
+        rec["b_tokens"] = {i: await one(prompts[i]) for i in P25_B}
+        # and one only this worker serves: (e)'s warm prompt for it
+        b_warm = np.random.default_rng(26).integers(3, spec.vocab_size, 320).tolist()
+        await one(b_warm)
+        rec["b_pulls"] = PULLS.snapshot()
+        rec["counts"], rec["steps"] = read_counts(), engine.steps - steps0
+        rec["b_fallbacks"] = engine.disagg_fallbacks
+        # (d) the mirror group: a digest, its rank 0's lost stream and
+        # rejoin, fresh prompts, a digest
+        ev["digest1"].set()
+        await asyncio.to_thread(ev["rejoined"].wait, 600)
+        rng = np.random.default_rng(25)
+        extra = [rng.integers(3, spec.vocab_size, 200 + 40 * i).tolist()
+                 for i in range(P25_EXTRA)]
+        rec["extra_tokens"] = [await one(p, dec) for p in extra]
+        ev["digest2"].set()
+        raw = await PushRouter.from_endpoint(
+            drt.namespace("dynamo").component("p25raw").endpoint("generate"),
+            RouterMode.ROUND_ROBIN)
+        await raw.client.wait_for_instances(1, timeout=60)
+
+        async def stream(agen):
+            toks = []
+            async for item in agen:
+                require(item.get("finish_reason") != "error", f"phase 25: {item}")
+                toks += item.get("token_ids") or []
+            return toks
+
+        # (f) a one-rank export of a long prompt resumed by the tp=2 decode
+        # group: its leader pulls the whole blocks and sends rank 1 its
+        # heads over the group (mode scatter)
+        src1 = await KvTransferSource().start()
+        pre1 = InferenceEngine(spec, EngineConfig(**cfg, cuda_graphs=False), params=params,
+                               device=DEVICE, transfer_source=src1)
+        pre1_rec: dict = {}
+        p25_record(pre1, pre1_rec)
+        long = rng.integers(3, spec.vocab_size, P25_F_TOKENS).tolist()
+        try:
+            r = make_request(long, n=1, disagg={
+                "mode": "prefill", "kv_transfer": {"do_remote_decode": True}})
+            (item,) = [i async for i in pre1.generate(r, Context())]
+            kvp, first_tok = item["kv_transfer_params"], item["token_ids"][0]
+            rec["f_tid"], rec["f_long"] = kvp["transfer_id"], long
+            k, v = pre1.p25_held["exports"][kvp["transfer_id"]]
+            rec["f_bytes"] = k.nbytes + v.nbytes
+            kh = spec.num_kv_heads
+            rec["f_export"] = [page_hashes(split_heads(k, kh, 2, r, False),
+                                           split_heads(v, kh, 2, r, False)) for r in range(2)]
+            resume = make_request(long, disagg={
+                "mode": "decode", "kv_transfer": {**kvp, "first_token": first_tok}})
+            rec["f_tokens"] = [first_tok] + await stream(raw.generate(resume, Context()))
+            rec["f_want"] = await stream(pre1.generate(make_request(long), Context()))
+        finally:
+            await pre1.close()
+            await src1.close()
+        # (c) an embedding request on the tp=2 group (op embed), and one rank's
+        t0 = time.perf_counter()
+        items = [i async for i in raw.generate({"token_ids": prompts[0],
+                                                "embedding_request": True}, Context())]
+        rec["embed_ms"] = 1e3 * (time.perf_counter() - t0)
+        rec["embed"] = items[-1]["embedding"]
+        rec["embed1"] = engine._embed(prompts[0])
+        await raw.client.close()
+        # (e) the EPP in front of both decode workers
+        epp = await EndpointPicker(drt, namespace="dynamo", target_component="backend",
+                                   config=RouterConfig(block_size=cfg["page_size"]),
+                                   host="127.0.0.1", port=0, pick_port=0).start()
+        pick, writer = await http_picker("127.0.0.1", epp.port)
+        warm = {"phase 4 prompt 0": (prompts[0], dec),
+                "(b)'s own prompt": (b_warm, rec["instance1"])}
+        got = {}
+        deadline = time.perf_counter() + 60
+        while len(got) < len(warm):
+            require(time.perf_counter() < deadline, f"phase 25 (e): picks {got}")
+            for i, (p, _t) in warm.items():
+                status, body, headers = await pick({"token_ids": p})
+                if status == 200 and body["overlap_blocks"] > 0:
+                    got[i] = (body, headers)
+            await asyncio.sleep(0.05)
+        rec["picks"] = {i: (b["worker_id"], b["overlap_blocks"], b["endpoint"],
+                            h.get("x-gateway-destination-endpoint")) for i, (b, h) in got.items()}
+        rec["warm"] = {i: t for i, (_p, t) in warm.items()}
+        line = await PickLineClient("127.0.0.1", epp.pick_port).connect()
+        rec["pickline"] = {}
+        for i, (p, _t) in warm.items():
+            r = await line.pick({"token_ids": p})
+            rec["pickline"][i] = (r["worker_id"], r["overlap_blocks"], r["endpoint"])
+        times = {"http": [], "pickline": []}
+        for k in range(EPP_PICKS):
+            p = prompts[k % len(prompts)]
+            t0 = time.perf_counter()
+            await pick({"token_ids": p})
+            times["http"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            await line.pick({"token_ids": p})
+            times["pickline"].append(time.perf_counter() - t0)
+        rec["pick_us"] = {k: (1e6 * float(np.percentile(v, 50)), 1e6 * float(np.percentile(v, 99)))
+                          for k, v in times.items()}
+        await line.close()
+        writer.close()
+        await router.client.close()
+        p25_hashes(engine, rec, split=2)
+        await engine.close()
+    finally:
+        ev["digest1"].set()
+        ev["digest2"].set()
+        ev["done"].set()
+        if epp is not None:
+            await epp.close()
+        try:
+            # the ranks withdraw from the hub as they close: it stays up
+            rec["ranks"] = await asyncio.to_thread(collect_ranks)
+        finally:
+            await drt.close()
+            await server.stop()
+    return rec
+
+
+def disagg_tp_phase(cfg, prompts, tp2_tokens, card) -> dict[str, int]:
+    """Phase 25: disaggregated serving under tensor parallelism and the
+    gateway (see the module docstring). Returns the launches by row."""
+    import dataclasses
+    import gc
+    import queue as _queue
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from dynamo_tpu_torch.models import llama
+
+    t25 = time.perf_counter()
+    spec = tp8_spec()
+    L, KH = spec.num_layers, spec.num_kv_heads
+    params = llama.init_params(spec, 0, device=DEVICE)
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    ev = {k: ctx.Event() for k in ("ready", "digest1", "rejoined", "digest2", "done")}
+
+    procs: list = []
+
+    def start_ranks(hub):
+        job = {"spec": dataclasses.asdict(spec), "cfg": dict(cfg), "hub": hub,
+               "device": DEVICE}
+        for role in ("prefill", "decode", "mirror"):
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            for r in range(2):
+                p = ctx.Process(target=p25_rank, args=(role, r, 2, port, job, q, ev))
+                p.start()
+                procs.append(p)
+
+    def collect_ranks() -> dict:
+        ranks: dict = {}
+        try:
+            deadline = time.perf_counter() + 600
+            while len(ranks) < len(procs):
+                try:
+                    key, res = q.get(timeout=5.0)
+                except _queue.Empty:
+                    dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                    require(not dead and time.perf_counter() < deadline,
+                            f"phase 25: rank exit codes {[p.exitcode for p in procs]}")
+                    continue
+                require("error" not in res,
+                        f"phase 25 rank {key} failed:\n{res.get('error')}")
+                ranks[key] = res
+        finally:
+            for p in procs:
+                p.join(60)
+                if p.is_alive():
+                    p.kill()
+                    p.join(30)
+        return ranks
+
+    rec = asyncio.run(p25_drive(spec, cfg, prompts, params, ev, start_ranks, collect_ranks))
+    ranks = rec.pop("ranks")
+    P = [ranks[("prefill", r)] for r in range(2)]
+    D = [ranks[("decode", r)] for r in range(2)]
+    M = [ranks[("mirror", r)] for r in range(2)]
+    label = f"phase 25 (a) {spec.name} (full width) prefill tp=2 -> decode tp=2 gloo"
+    # (a) every resume by shard, each decode rank's pages its twin's export;
+    # then (f)'s, by scatter
+    shard = [(t, f) for m, t, f in D[0]["modes"] if m == "shard"]
+    require(len(shard) == len(prompts) + P25_EXTRA and len(D[0]["modes"]) == len(shard) + 1
+            and D[0]["modes"][-1][:2] == ("scatter", rec["f_tid"]),
+            f"{label}: resume modes {D[0]['modes']}")
+    pages = 0
+    for r in range(2):
+        require(len(D[r]["installs"]) == len(shard) + 1, f"{label}: rank {r} installs")
+        for (tid, first), got in zip(shard, D[r]["installs"]):
+            want = P[r]["exports"][tid][first:]
+            require(got == want, f"{label}: decode rank {r}'s install of {tid} is not its "
+                    f"prefill twin's export (pages from {first})")
+            pages += len(got)
+    fallbacks = (sum(d["pulls"]["route_fallbacks"] for d in D) + D[0]["fallbacks"]
+                 + rec["b_pulls"]["route_fallbacks"] + rec["b_fallbacks"])
+    require(fallbacks == 0, f"{label}: {fallbacks} route or pull fallbacks")
+    device_pulls = [[x for x in d["pulls"]["records"] if x["route"] == "device"] for d in D]
+    # the leader's last: (f)'s whole pull of a one-rank export
+    f_pull = device_pulls[0].pop() if DEVICE == "cuda" and device_pulls[0] else None
+    device_pulls = device_pulls[0] + device_pulls[1]
+    require(DEVICE != "cuda" or len(device_pulls) == 2 * len(shard),
+            f"{label}: {len(device_pulls)} CUDA IPC shard pulls for {len(shard)} resumes x 2 "
+            f"ranks")
+    steps = D[0]["steps"]
+    for r in range(2):
+        c = D[r]["counts"]
+        require(DEVICE != "cuda" or (c["fused_decode"] == L * steps and c["kv_write"] == 0
+                                     and c["paged_attention_v3"] == 0),
+                f"{label}: decode rank {r} launches {c} over {steps} steps")
+    same_all, parts = 0, []
+    for i, want in tp2_tokens.items():
+        got = rec["a_tokens"][i]
+        require(len(got) == SERVE_TOKENS, f"{label}: request {i} {len(got)} tokens")
+        if got != want:
+            same, tie = equal_to_first_near_tie(spec, params, prompts[i], got, want)
+            require(same >= tie, f"{label}: request {i} parts from the aggregated tp=2 "
+                    f"group at {same} before its first near-tie at {tie}")
+            parts.append((i, same, tie))
+        else:
+            same_all += 1
+    print(f"{label}: {len(shard)} resumes, every one by shard: each decode rank pulled its "
+          f"prefill twin's KV heads itself and installed {pages // 2} pages bitwise equal to "
+          f"its export (sha256 per page); 0 route and pull fallbacks; fused_decode "
+          f"{D[0]['counts']['fused_decode']} / {D[1]['counts']['fused_decode']} per rank "
+          f"({L} x {steps} steps); {same_all} of {len(tp2_tokens)} streams equal to phase 22 "
+          f"(a)'s aggregated tp=2 group, the others part at or after a near-tie {parts}")
+    gb = [(x["bytes"] / 1e9, x["total"]) for x in device_pulls]
+    split = {k: sum(x.get(k, 0.0) for x in device_pulls) / max(len(device_pulls), 1)
+             for k in ("control", "open", "copy")}
+    exp_ms = P[0]["export_ms"]
+    p1 = P[1]["op_secs"].get("kv_export", 0.0), P[1]["ops"].get("kv_export", 0)
+    res_ms = [x[0] for x in D[0]["resume_ms"][:len(shard)]]
+    res_install = [x[2]["install"] for x in D[0]["resume_ms"][:len(shard)]]
+    d1 = [ms for m, ms in D[1]["replay_resume_ms"] if m == "shard"]
+    if gb:
+        print(f"{label} [{card}]: per-shard CUDA IPC pulls ({len(gb)}): mean "
+              f"{sum(t for _b, t in gb) / len(gb):.2f} ms, "
+              f"{sum(b for b, _t in gb) / max(sum(t for _b, t in gb) / 1e3, 1e-9):.2f} GB/s "
+              f"over {sum(b for b, _t in gb):.3f} GB (control {split['control']:.2f}, handle "
+              f"opens {split['open']:.2f}, copy {split['copy']:.2f} ms each); the step "
+              f"thread's kv_export "
+              f"{sum(exp_ms) / max(len(exp_ms), 1):.2f} ms (leader) / "
+              f"{1e3 * p1[0] / max(p1[1], 1):.2f} ms (rank 1), kv_resume "
+              f"{sum(res_ms) / max(len(res_ms), 1):.2f} ms (leader; its install with the "
+              f"ok-flag all-reduce {sum(res_install) / max(len(res_install), 1):.2f} ms) / "
+              f"{sum(d1) / max(len(d1), 1):.2f} ms (rank 1: its shard pulled at the leader's "
+              f"intake, op kv_prefetch; of it, waiting for that pull "
+              f"{D[1]['prefetch_wait_ms'] / max(len(d1), 1):.2f} ms); serve "
+              f"{sum(len(t) for t in rec['a_tokens'].values())} tokens in "
+              f"{rec['a_wall']:.2f} s, TTFT mean "
+              f"{1e3 * sum(rec['a_ttft']) / len(rec['a_ttft']):.1f} ms (NOT tp timings: "
+              f"6 processes time-slice one card)")
+    # (b) the one-rank decode worker's whole pull: the two shards joined
+    lb = f"phase 25 (b) {spec.name} prefill tp=2 -> decode tp=1 over TCP"
+    tcp = [x for x in rec["b_pulls"]["records"] if x["route"] == "tcp"]
+    require(not rec["modes"] and len(tcp) == len(P25_B) + 1 == len(rec["installs"])
+            == len(rec["pulled"]), f"{lb}: modes {rec['modes']}, pulls {tcp}")
+    for tid, split in zip(rec["pulled"], rec["installs"]):
+        n, m = len(P[0]["exports"][tid]), len(split[0])
+        for r in range(2):
+            require(split[r] == P[r]["exports"][tid][n - m:],
+                    f"{lb}: the whole blocks' KV heads of rank {r} are not its export")
+    for i in P25_B:
+        got, want = rec["b_tokens"][i], tp2_tokens[i]
+        if got != want:
+            same, tie = equal_to_first_near_tie(spec, params, prompts[i], got, want)
+            require(same >= tie, f"{lb}: request {i} parts at {same} before a near-tie "
+                    f"at {tie}")
+    gbs = sum(x["bytes"] for x in tcp) / 1e9
+    ms = sum(x["total"] for x in tcp)
+    print(f"{lb} [{card}]: {len(tcp)} whole pulls (the prefill leader joins both shards on "
+          f"the heads axis under one checksum): the installed blocks bitwise equal to the two "
+          f"shards joined (sha256 per page and KV-head shard); mean {ms / len(tcp):.2f} ms, "
+          f"{gbs / max(ms / 1e3, 1e-9):.3f} GB/s over {gbs:.3f} GB (control "
+          f"{sum(x['control'] for x in tcp) / len(tcp):.2f}, body "
+          f"{sum(x['copy'] for x in tcp) / len(tcp):.2f}, checksum "
+          f"{sum(x['checksum'] for x in tcp) / len(tcp):.2f} ms each)")
+    # (f) a one-rank export scattered over the tp=2 decode group
+    lf = f"phase 25 (f) {spec.name} prefill tp=1 -> decode tp=2, mode scatter"
+    for r in range(2):
+        got, want = D[r]["installs"][-1], rec["f_export"][r]
+        require(len(got) > 0 and got == want[len(want) - len(got):],
+                f"{lf}: decode rank {r}'s install is not its heads of the export")
+    got, want = rec["f_tokens"], rec["f_want"]
+    require(len(got) == len(want) == SERVE_TOKENS, f"{lf}: {len(got)} / {len(want)} tokens")
+    same, tie = len(got), None
+    if got != want:
+        same, tie = equal_to_first_near_tie(spec, params, rec["f_long"], got, want)
+        require(same >= tie, f"{lf}: the stream parts from one rank's at {same} before its "
+                f"first near-tie at {tie}")
+    f_ms, _n, f_split = D[0]["resume_ms"][-1]
+    f1 = [ms for m, ms in D[1]["replay_resume_ms"] if m == "scatter"]
+    print(f"{lf} [{card}]: {len(D[0]['installs'][-1])} "
+          f"pages ({rec['f_bytes'] / 1e6:.1f} MB of KV, {P25_F_TOKENS} tokens) pulled whole "
+          f"by the decode leader, rank 1's heads sent over the group (gloo, through host "
+          f"memory; no descriptor carries them): each rank's install bitwise its heads of the "
+          f"export (sha256 per page); the whole pull "
+          f"{f_pull['total'] if f_pull else float('nan'):.2f} ms (CUDA IPC, at intake); the "
+          f"step thread's kv_resume {f_ms:.2f} ms (leader, its "
+          f"install and send {f_split['install']:.2f} ms) / {f1[-1] if f1 else float('nan'):.2f}"
+          f" ms (rank 1); the stream {'equal to' if tie is None else f'equal for {same} tokens, to its first near-tie at {tie}, to'}"
+          f" one rank's (NOT tp timings)")
+    # (c) the embedding forward on the tp=2 group
+    got = torch.tensor(rec["embed"])
+    want = torch.tensor(rec["embed1"])
+    err = (got - want).abs().max().item() / want.abs().max().item()
+    require(got.shape == want.shape and err <= EMB25_TOL,
+            f"phase 25 (c): the tp=2 embedding differs by {err:.3e} of the max")
+    require(D[1]["ops"].get("embed") == 1, f"phase 25 (c): rank 1 ops {D[1]['ops']}")
+    print(f"phase 25 (c) [{card}]: an embedding request on the tp=2 group (op embed on the "
+          f"leader's step thread, replayed by rank 1): {got.numel()} values within "
+          f"{err:.3e} of one rank's (max |diff| / max |value|, tol {EMB25_TOL}) in "
+          f"{rec['embed_ms']:.1f} ms")
+    # (d) the mirror group: each rank's pages its twin's, after the serve and
+    # after the rejoin
+    ld = "phase 25 (d) a mirror of the tp=2 prefill group (2 ranks, rank 0 relaying)"
+    require(len(P[0]["digests"]) == 2, f"{ld}: digests {len(P[0]['digests'])}")
+    for j, when in enumerate(("the serve", "the rejoin and the next serve")):
+        for r in range(2):
+            ids, want = P[r]["digests"][j]
+            ids2, got = M[r]["digests"][j]
+            require(ids == ids2 and got == want and len(ids) > 0,
+                    f"{ld}: mirror rank {r}'s pages after {when} are not its twin's")
+    require(M[0]["rejoins"] == 1 and M[1]["ops"].get("sync_install", 0) >= 1
+            and P[1]["ops"].get("kv_gather", 0) >= 1,
+            f"{ld}: rejoins {M[0]['rejoins']}, ops {M[1]['ops']} / {P[1]['ops']}")
+    print(f"{ld} [{card}]: each mirror rank's pages bitwise equal to its prefill-group twin's "
+          f"after the serve ({len(P[0]['digests'][0][0])} pages) and after its rank 0 lost "
+          f"its stream, rejoined (the snapshot gathered both ranks' KV heads: "
+          f"{P[1]['ops']['kv_gather']} kv_gather; rank 1 installed its heads from "
+          f"{M[1]['ops']['sync_install']} relayed chunks) and the leader served "
+          f"{P25_EXTRA} more prompts ({len(P[0]['digests'][1][0])} pages)")
+    # (e) the EPP
+    le = "phase 25 (e) the EPP in front of the tp=2 and the one-rank decode worker"
+    for i, target in rec["warm"].items():
+        wid, overlap, endpoint, header = rec["picks"][i]
+        require(wid == target and overlap > 0 and header == endpoint,
+                f"{le}: prompt {i} picked {rec['picks'][i]}, its prefix is on {target:x}")
+        require(rec["pickline"][i] == (wid, overlap, endpoint),
+                f"{le}: pickline {rec['pickline'][i]} != HTTP {rec['picks'][i][:3]}")
+    (h50, h99), (l50, l99) = rec["pick_us"]["http"], rec["pick_us"]["pickline"]
+    print(f"{le} [{card}]: each warm prompt picked to its prefix's worker with the GIE header "
+          f"({ {i: v[1] for i, v in rec['picks'].items()} } overlap blocks), the pickline "
+          f"pick equal to the HTTP pick; pick latency over {EPP_PICKS} picks each: HTTP p50 "
+          f"{h50:.1f} us p99 {h99:.1f} us, pickline p50 {l50:.1f} us p99 {l99:.1f} us")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 25: {time.perf_counter() - t25:.1f} s")
+    return {"fused_decode": rec["counts"]["fused_decode"],
+            "fused_decode/tp2": sum(d["counts"]["fused_decode"] for d in D)}
 
 
 def main() -> int:
@@ -9505,7 +10255,7 @@ def main() -> int:
     # llama-3-70b's width cut to 4 layers at tp=4), tp=1 on NCCL with
     # graphs, the mirror topology, NCCL across two cards where there are two
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
-    tp_rows, tp_launches = tp_phase(cfg, prompts, bf16_tokens, card, flush)
+    tp_rows, tp_launches, tp2_tokens = tp_phase(cfg, prompts, bf16_tokens, card, flush)
     kernels.update(tp_rows)
 
     # expert parallelism: gloo groups on this card (gpt-oss-120b and
@@ -9521,11 +10271,17 @@ def main() -> int:
     del flush
     kernels.update(pp_rows)
 
+    # disaggregated serving under tp: a prefill group and a decode group of
+    # tp=2 (per-shard CUDA IPC pulls), a one-rank decode worker pulling
+    # whole over TCP, embeddings on the tp=2 group, a mirror of the prefill
+    # group, the EPP in front of both decode workers
+    p25_launches = disagg_tp_phase(cfg, prompts, tp2_tokens, card)
+
     launches = {"fused_decode": serve_launches["fused_decode"] + http_launches
                 + process_launches + overload_launches + guided_launches
                 + kvbm_launches + text_launches["fused_decode"] + disagg_launches
                 + obs_launches + mm_launches + tp_launches["fused_decode"]
-                + pp_launches["fused_decode"],
+                + pp_launches["fused_decode"] + p25_launches["fused_decode"],
                 "paged_attention_v3": unfused[0], "kv_write": unfused[2],
                 "kv_write/verify": spec_kv_launches + guided_kv_launches
                 + text_launches["kv_write/verify"],
@@ -9537,7 +10293,7 @@ def main() -> int:
                 "fused_decode/gpt-oss": moe_launches + ep_launches["fused_decode/gpt-oss"],
                 "fused_decode/gpt-oss-tp2": ep_launches["fused_decode/gpt-oss-tp2"],
                 "fused_decode/tp2": tp_launches["fused_decode/tp2"]
-                + pp_launches["fused_decode/tp2"],
+                + pp_launches["fused_decode/tp2"] + p25_launches["fused_decode/tp2"],
                 "paged_attention_v3/pp": pp_launches["paged_attention_v3/pp"],
                 "kv_write/pp": pp_launches["kv_write/pp"],
                 "fused_decode/tp4": tp_launches["fused_decode/tp4"]}

@@ -14,7 +14,13 @@ PrefillWorkerHandler), around the in-process torch engine:
     else: fully local (aggregated path)
 
 Failures at any disagg step fall back to the local aggregated path, so
-disagg is strictly an optimization, never an availability risk.
+disagg is strictly an optimization, never an availability risk. Under
+tensor parallelism the prefill side's ``kv_transfer_params`` carry the
+shards (``shard_axis``, ``shards``: disagg/transfer.py); both handlers
+pass them through unchanged. A pull that fails (the leader's own shard
+at intake, or any rank's at the resume) ends in a local prefill of the
+prompt and the relayed first token (``engine.disagg_fallbacks``), never
+in a partial install.
 """
 
 from __future__ import annotations

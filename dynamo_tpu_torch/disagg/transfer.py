@@ -36,8 +36,25 @@ Three routes, chosen by locality:
   otherwise, so MLA's latent blocks (f32, bf16 or packed) cross with their
   int8 v slot.
 
-Not here: the reference's per-shard TP exports (``shard_layout``,
-``_dest_tp_devices``) come with meshes (ROADMAP Queue A item 11).
+Per-shard exports (a prefill group under tensor parallelism, the
+reference's ``shard_layout`` / ``_dest_tp_devices``): rank r of a tp group
+holds KV heads ``[r KH/N, (r+1) KH/N)`` and exports them from its own
+source under the leader's ``transfer_id``. The leader's params carry the
+reference's ``shard_axis`` (2, the KV-head axis) and ``shards``, a list of
+``{start, k_shape, v_shape}``, each with the port's own ``addr``,
+``transfer_id``, ``source_uid`` and ``cuda_ipc``. A decode group of the
+same width pulls shard r on rank r (``pull_kv_blocks(params, shard=r)``);
+any other puller (the JAX package's TCP ``pull``, a decode group of
+another width) pulls the whole export from the leader, whose server
+joins the shards on the heads axis (``join_heads``; a packed fp8 shard is
+unpacked, joined and repacked, so the whole block is the one a one-rank
+pool packs) under one checksum over the whole, as the reference's
+``np.asarray`` of a sharded array does. A shard's pull or release names
+only its own (``"shard": true`` on the control line). ``release_kv_blocks``
+of a sharded export's params releases every shard at its own source: the
+leader's entry is gone once shard 0 was pulled, so its cascade (a plain
+``release`` at the leader's server, what a JAX client sends) cannot be
+relied on.
 """
 
 from __future__ import annotations
@@ -113,6 +130,63 @@ def _byte_view(a: np.ndarray) -> memoryview:
     return memoryview(a).cast("B") if a.size else memoryview(b"")
 
 
+def _cat(parts, axis: int):
+    if isinstance(parts[0], torch.Tensor):
+        return torch.cat(parts, dim=axis)
+    return np.concatenate(parts, axis=axis)
+
+
+def _unpack_heads(block, heads: int):
+    """A packed fp8 block ``[L, n, X]`` of ``heads`` KV heads as (values
+    ``[L, n, heads, E]``, scale bytes ``[L, n, heads, 2]``):
+    ``quant.pack_pages``' byte order, values then bf16 scales."""
+    L, n, X = block.shape
+    e = (X - 2 * heads) // heads
+    return (block[:, :, : heads * e].reshape(L, n, heads, e),
+            block[:, :, heads * e:].reshape(L, n, heads, 2))
+
+
+def join_heads(parts, heads: list[int], packed: bool):
+    """Blocks of consecutive KV-head shards (``heads[i]`` heads each, in
+    head order) as one block of all the heads: ``[L, n, KH, page, D]``
+    joined on axis 2, or packed fp8 blocks unpacked, joined and repacked
+    (the bytes a one-rank pool packs). numpy or torch alike."""
+    if len(parts) == 1:
+        return parts[0]
+    if not packed:
+        return _cat(list(parts), 2)
+    vals, scales = zip(*(_unpack_heads(p, h) for p, h in zip(parts, heads)))
+    v, s = _cat(list(vals), 2), _cat(list(scales), 2)
+    L, n = v.shape[:2]
+    return _cat([v.reshape(L, n, -1), s.reshape(L, n, -1)], 2)
+
+
+def split_heads(block, kv_heads: int, n: int, r: int, packed: bool):
+    """Shard ``r`` of ``n`` of a block of ``kv_heads`` KV heads: heads
+    ``[r kv_heads/n, (r+1) kv_heads/n)`` (``join_heads``' inverse)."""
+    if n == 1:
+        return block
+    h = kv_heads // n
+    if not packed:
+        return block[:, :, r * h:(r + 1) * h]
+    v, s = _unpack_heads(block, kv_heads)
+    L, nb = v.shape[:2]
+    return _cat([v[:, :, r * h:(r + 1) * h].reshape(L, nb, -1),
+                 s[:, :, r * h:(r + 1) * h].reshape(L, nb, -1)], 2)
+
+
+def shard_params(params: dict, r: int) -> dict:
+    """The pull params of shard ``r`` of a sharded export: its own source
+    and transfer id, the export's token count, page size and pool type."""
+    s = params["shards"][r]
+    out = {k: params[k] for k in ("num_tokens", "page_size", "kv_dtype") if k in params}
+    out.update(transfer_id=s["transfer_id"], addr=s["addr"],
+               source_uid=s["source_uid"], shard=True)
+    if s.get("cuda_ipc"):
+        out["cuda_ipc"] = True
+    return out
+
+
 class PullStats:
     """Pulls by route, the device route's fallbacks to TCP, and each pull's
     bytes, start and end (host clock, s) and times (ms): ``control`` (the
@@ -161,6 +235,10 @@ class _Export:
     ready: Any = None  # CUDA event recorded behind a device export's gather
     created: float = field(default_factory=time.monotonic)
     on_done: Callable[[], None] | None = None
+    # a sharded export's leader: every shard's entry (this source's own
+    # among them) and whether the blocks are packed fp8
+    shards: list | None = None
+    packed: bool = False
 
     @property
     def on_device(self) -> bool:
@@ -176,6 +254,26 @@ class _Export:
         if not self.on_device:
             return self.k, self.v, self.meta["checksum"]
         k, v = _device_to_host((self.k, self.v), self.ready)
+        return k, v, kv_checksum(k, v)
+
+    def whole_blocks(self, own_uid: str) -> tuple[np.ndarray, np.ndarray, int]:
+        """(k, v, checksum) of every shard joined on the heads axis: this
+        source's own blocks, the others pulled over TCP from their sources
+        (blocking: call in a thread). The checksum is over the whole."""
+        if not self.shards:
+            return self.host_blocks()
+        ks, vs = [], []
+        for s in self.shards:
+            if s["source_uid"] == own_uid:
+                k, v, _crc = self.host_blocks()
+            else:
+                k, v, _meta = _pull_tcp({**s, "shard": True}, 30.0, note=False)
+            ks.append(k)
+            vs.append(v)
+        # shards are equal: each holds the heads between two starts
+        heads = [self.shards[1]["start"] - self.shards[0]["start"]] * len(ks)
+        k, v = join_heads(ks, heads, self.packed), join_heads(vs, heads, self.packed)
+        k, v = np.ascontiguousarray(k), np.ascontiguousarray(v)
         return k, v, kv_checksum(k, v)
 
     @property
@@ -256,6 +354,9 @@ class KvTransferSource:
         self._server: asyncio.AbstractServer | None = None
         self._gc_task: asyncio.Task | None = None
         self.exported = 0  # exports made
+        # a tp prefill group's leader: the other ranks' sources ({addr,
+        # uid}, ranks 1..tp-1), which its sharded exports name
+        self.peers: list[dict] = []
         # host ms of the serve-time device-to-host copy + stamp per TCP pull
         # of a device export
         self.stage_ms: collections.deque = collections.deque(maxlen=4096)
@@ -288,12 +389,14 @@ class KvTransferSource:
     # -- export (prefill side) --------------------------------------------
 
     def export(self, k_blocks, v_blocks, *, num_tokens: int, page_size: int,
-               on_done: Callable[[], None] | None = None) -> dict:
+               on_done: Callable[[], None] | None = None,
+               transfer_id: str | None = None) -> dict:
         """Register blocks (torch tensors or numpy arrays); returns the
         kv_transfer_params. CUDA tensors stay on the card, behind an event
         recorded on the current stream (the caller's gather); anything else
-        is staged to host numpy and stamped now."""
-        tid = uuid.uuid4().hex
+        is staged to host numpy and stamped now. ``transfer_id``: a tp
+        follower's shard registers under its leader's id."""
+        tid = transfer_id or uuid.uuid4().hex
         params = {
             "transfer_id": tid,
             "source_uid": self.uid,
@@ -320,14 +423,35 @@ class KvTransferSource:
             self.exported += 1
         return params
 
+    def shard(self, tid: str, shards: list[dict], packed: bool) -> None:
+        """Make export ``tid`` the leader of a sharded export: ``shards``
+        is every shard's entry (``shard_params``' source), this source's
+        among them. A whole pull joins them; a plain release releases them."""
+        with self._lock:
+            e = self._exports.get(tid)
+            if e is not None:
+                e.shards, e.packed = list(shards), packed
+
     def _take(self, tid: str) -> _Export | None:
         with self._lock:
             return self._exports.pop(tid, None)
 
-    def release(self, tid: str) -> None:
+    def release(self, tid: str, cascade: bool = True) -> None:
+        """Drop export ``tid``; a sharded export's leader also releases the
+        other shards (``cascade``), in the background."""
         e = self._take(tid)
-        if e is not None and e.on_done:
+        if e is None:
+            return
+        if e.on_done:
             e.on_done()
+        peers = [sh for sh in e.shards or () if sh["source_uid"] != self.uid]
+        if cascade and peers:
+            def _release_peers() -> None:
+                for sh in peers:
+                    release_kv_blocks({**sh, "shard": True})
+
+            threading.Thread(target=_release_peers, name="kv-release-shards",
+                             daemon=True).start()
 
     @property
     def pending(self) -> int:
@@ -363,8 +487,9 @@ class KvTransferSource:
         try:
             req = json.loads(await reader.readline())
             op, tid = req.get("op"), req.get("transfer_id", "")
+            own = bool(req.get("shard"))  # this source's shard only
             if op == "release":
-                self.release(tid)
+                self.release(tid, cascade=not own)
                 await self._reply(writer, {"ok": True})
                 return
             if op == "ipc":
@@ -378,9 +503,18 @@ class KvTransferSource:
                 await self._reply(writer, {"ok": False, "error": "unknown transfer_id"})
                 return
             # a device export's copy to the host and its stamp must not
-            # block the event loop of the serving process
+            # block the event loop of the serving process; a whole pull of
+            # a sharded export gathers the other shards too
             t0 = time.perf_counter()
-            k, v, crc = await asyncio.to_thread(e.host_blocks)
+            try:
+                if own or not e.shards:
+                    k, v, crc = await asyncio.to_thread(e.host_blocks)
+                else:
+                    k, v, crc = await asyncio.to_thread(e.whole_blocks, self.uid)
+            except (OSError, KeyError, ValueError) as err:
+                # a shard's source is gone: the puller falls back
+                await self._reply(writer, {"ok": False, "error": f"shard pull failed: {err}"})
+                return
             if e.on_device:
                 self.stage_ms.append(1e3 * (time.perf_counter() - t0))
             header = {"ok": True, "dtype": e.dtypes[0], "v_dtype": e.dtypes[1],
@@ -478,43 +612,17 @@ def _read_exact(f, n: int) -> bytearray:
     return buf
 
 
-def pull_kv_blocks(params: dict, timeout: float = 30.0) -> tuple[Any, Any, dict]:
-    """Pull exported KV blocks. Blocking: call from a worker thread.
-
-    Returns (k, v, meta): the exported tensors themselves in process (CUDA
-    tensors once their gather has finished, else numpy), fresh CUDA tensors
-    on the device route, numpy on TCP (bf16 as ``uint16`` bits). Exports
-    are one-shot: a second pull raises KeyError."""
-    if FAULTS.enabled:
-        # the transfer plane failing mid-handoff (the prefill worker died
-        # between export and pull): the engine falls back to a full local
-        # prefill, so disagg stays strictly an optimization
-        FAULTS.fire_sync("disagg.pull")
-    tid = params["transfer_id"]
+def _pull_tcp(params: dict, timeout: float, note: bool = True) -> tuple:
+    """The TCP pull: a control line, the header, then k and v as raw bytes;
+    the checksum is verified before the bytes become KV. ``params`` with
+    ``shard`` set asks for that source's own shard only."""
     t0 = time.perf_counter()
-    src = _LOCAL_SOURCES.get(params.get("source_uid", ""))
-    if src is not None:
-        e = src._take(tid)
-        if e is None:
-            raise KeyError(f"unknown transfer_id {tid}")
-        e.wait_ready()
-        if e.on_done:
-            e.on_done()
-        PULLS.note("local", e.nbytes, t0, total=1e3 * (time.perf_counter() - t0))
-        return e.k, e.v, e.meta
-
-    if params.get("cuda_ipc") and device_transfer_enabled():
-        try:
-            return _pull_device(params, timeout)
-        except Exception:  # noqa: BLE001 - any device failure takes TCP
-            log.warning("device KV pull failed; falling back to host staging",
-                        exc_info=True)
-            PULLS.fallback()
-            t0 = time.perf_counter()
-
     with _connect(params["addr"], timeout) as sock:
         f = sock.makefile("rwb")
-        f.write(json.dumps({"op": "pull", "transfer_id": tid}).encode() + b"\n")
+        req = {"op": "pull", "transfer_id": params["transfer_id"]}
+        if params.get("shard"):
+            req["shard"] = True
+        f.write(json.dumps(req).encode() + b"\n")
         f.flush()
         header = json.loads(f.readline())
         if not header.get("ok"):
@@ -534,21 +642,76 @@ def pull_kv_blocks(params: dict, timeout: float = 30.0) -> tuple[Any, Any, dict]
     k, v = (np.frombuffer(b, dtype=_np_dtype(dt)).reshape(header[shape])
             for b, dt, shape in zip(bufs, (k_dt, v_dt), ("k_shape", "v_shape")))
     meta = {n: header[n] for n in ("num_tokens", "page_size") if n in header}
-    PULLS.note("tcp", k.nbytes + v.nbytes, t0, control=1e3 * (t1 - t0),
-               copy=1e3 * (t2 - t1), checksum=1e3 * (t3 - t2),
-               total=1e3 * (time.perf_counter() - t0))
+    if note:
+        PULLS.note("tcp", k.nbytes + v.nbytes, t0, control=1e3 * (t1 - t0),
+                   copy=1e3 * (t2 - t1), checksum=1e3 * (t3 - t2),
+                   total=1e3 * (time.perf_counter() - t0))
     return k, v, meta
+
+
+def pull_kv_blocks(params: dict, timeout: float = 30.0,
+                   shard: int | None = None) -> tuple[Any, Any, dict]:
+    """Pull exported KV blocks. Blocking: call from a worker thread.
+
+    Returns (k, v, meta): the exported tensors themselves in process (CUDA
+    tensors once their gather has finished, else numpy), fresh CUDA tensors
+    on the device route, numpy on TCP (bf16 as ``uint16`` bits). Exports
+    are one-shot: a second pull raises KeyError. ``shard`` pulls shard r of
+    a sharded export from its own source; without it a sharded export is
+    pulled whole (the leader joins the shards; no device route)."""
+    if FAULTS.enabled:
+        # the transfer plane failing mid-handoff (the prefill worker died
+        # between export and pull): the engine falls back to a full local
+        # prefill, so disagg stays strictly an optimization
+        FAULTS.fire_sync("disagg.pull")
+    if shard is not None:
+        params = shard_params(params, shard)
+    tid = params["transfer_id"]
+    t0 = time.perf_counter()
+    src = _LOCAL_SOURCES.get(params.get("source_uid", ""))
+    if src is not None:
+        e = src._take(tid)
+        if e is None:
+            raise KeyError(f"unknown transfer_id {tid}")
+        e.wait_ready()
+        if e.on_done:
+            e.on_done()
+        if e.shards and not params.get("shard"):
+            k, v, _crc = e.whole_blocks(src.uid)
+            PULLS.note("local", k.nbytes + v.nbytes, t0,
+                       total=1e3 * (time.perf_counter() - t0))
+            return k, v, e.meta
+        PULLS.note("local", e.nbytes, t0, total=1e3 * (time.perf_counter() - t0))
+        return e.k, e.v, e.meta
+
+    whole_of_shards = params.get("shards") and not params.get("shard")
+    if params.get("cuda_ipc") and device_transfer_enabled() and not whole_of_shards:
+        try:
+            return _pull_device(params, timeout)
+        except Exception:  # noqa: BLE001 - any device failure takes TCP
+            log.warning("device KV pull failed; falling back to host staging",
+                        exc_info=True)
+            PULLS.fallback()
+    return _pull_tcp(params, timeout)
 
 
 def release_kv_blocks(params: dict, timeout: float = 5.0) -> None:
     """Tell the source an export will not be pulled (or was pulled over
-    the device route)."""
+    the device route). A sharded export's params release every shard at
+    its own source (a shard already pulled is a no-op there)."""
+    own = bool(params.get("shard"))
+    if params.get("shards") and not own:
+        for r in range(len(params["shards"])):
+            release_kv_blocks(shard_params(params, r), timeout)
+        return
     src = _LOCAL_SOURCES.get(params.get("source_uid", ""))
     if src is not None:
-        src.release(params["transfer_id"])
+        src.release(params["transfer_id"], cascade=not own)
         return
+    req = {"op": "release", "transfer_id": params["transfer_id"]}
+    if own:
+        req["shard"] = True
     try:
-        _tcp_request(params["addr"], {"op": "release",
-                                      "transfer_id": params["transfer_id"]}, timeout)
+        _tcp_request(params["addr"], req, timeout)
     except OSError:
         log.warning("kv transfer release failed (source will GC)", exc_info=True)

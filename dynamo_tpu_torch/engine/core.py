@@ -188,7 +188,7 @@ from dynamo_tpu_torch.engine.sampling import (
 from dynamo_tpu_torch.engine.spec import SPEC_TOKENS, SlotSpec
 from dynamo_tpu_torch.engine.tenancy import TenantScheduler
 from dynamo_tpu_torch.guided.runtime import GUIDED_REQUESTS, GrammarCompiler
-from dynamo_tpu_torch.kvbm.offload import HostBatch, OffloadEngine, block_tensor
+from dynamo_tpu_torch.kvbm.offload import HostBatch, OffloadEngine, block_numpy, block_tensor
 from dynamo_tpu_torch.kv_router.protocols import ForwardPassMetrics
 from dynamo_tpu_torch.models.convert import check_shardable
 from dynamo_tpu_torch.models.family import get_family
@@ -376,6 +376,11 @@ class InferenceEngine:
         # pulled host blocks go up to the card on this stream (disagg)
         self._h2d_stream = (torch.cuda.Stream(self.device)
                             if self.device.type == "cuda" else None)
+        # a follower's shards of sharded exports, pulled at the leader's
+        # intake (op kv_prefetch): futures by transfer id
+        self._prefetched: dict[str, Any] = {}
+        self._prefetch_pool = None
+        self.prefetch_wait_secs = 0.0  # a resume's wait for its prefetch
         self.fam = get_family(spec)
         # tensor and expert parallelism (parallel/): this rank's mesh, its
         # shard of the weights (heads and FFN columns over tp, experts over
@@ -396,6 +401,9 @@ class InferenceEngine:
         self.spmd = spmd
         self._burst_id = 0  # decode bursts dispatched (descriptor ids)
         self._digest_reqs: list = []  # kv_digest() calls for the step thread
+        # embedding requests under SPMD: (token ids, future), run by the step
+        # thread in descriptor order (op ``embed``)
+        self._embed_reqs: list = []
         self._async_admissions = cfg.async_admissions and spmd is None
         # +1 page: index 0 is the trash page. kv_dtype "fp8" makes both
         # pools QuantPools (ops/quant.py): e4m3 values + bf16 scales
@@ -530,8 +538,8 @@ class InferenceEngine:
 
     def _check_mesh(self, mesh, transfer_source) -> None:
         """Refuse what the mesh does not cover: a config whose tp or ep is
-        not the mesh's, a spec that does not divide over it, disagg
-        exports, and graph capture over collectives no graph can capture."""
+        not the mesh's, a spec that does not divide over it, and graph
+        capture over collectives no graph can capture."""
         cfg = self.config
         for axis in ("tp", "ep", "sp", "dp", "pp"):
             have = mesh.shape[axis] if mesh is not None else 1
@@ -543,10 +551,6 @@ class InferenceEngine:
         if mesh is None:
             return
         check_shardable(self.spec, mesh)  # heads, FFN widths, experts
-        if transfer_source is not None:
-            raise NotImplementedError(
-                "disaggregated prefill under tensor parallelism is ROADMAP Queue A "
-                "item 11e (per-shard KV exports)")
         if (self.device.type == "cuda" and cfg.cuda_graphs
                 and mesh.distributed and not mesh.capturable):
             raise ValueError(
@@ -599,15 +603,17 @@ class InferenceEngine:
             f.set_result(got)
 
     def _publish(self, op: str, scalars: dict | None = None,
-                 arrays: dict | None = None) -> None:
+                 arrays: dict | None = None, side: bool = False) -> None:
         """Publish one step descriptor ahead of a device dispatch (a no-op
-        without an SPMD leader)."""
+        without an SPMD leader); ``side``: one whose replay runs no
+        collective, from any thread."""
         if self.spmd is not None:
-            self.spmd.publish(op, scalars, arrays)
+            self.spmd.publish(op, scalars, arrays, side=side)
 
     def _spmd_mark(self) -> int:
-        """Publish-count watermark that scopes a failure to actual sends."""
-        return self.spmd.publish_count if self.spmd is not None else 0
+        """Publish-count watermark that scopes a failure to actual sends
+        (the step thread's: side descriptors do not count)."""
+        return self.spmd.lockstep_count if self.spmd is not None else 0
 
     def _spmd_broken(self, reason: str, since: int) -> None:
         """A dispatch failed after its descriptor went out (something was
@@ -615,7 +621,7 @@ class InferenceEngine:
         what the leader abandoned, so lockstep is gone. Latch the plane
         broken (``is_dead``) instead of deadlocking the next collective; a
         failure before any publish is the request's alone."""
-        if self.spmd is not None and self.spmd.publish_count != since:
+        if self.spmd is not None and self.spmd.lockstep_count != since:
             self.spmd.mark_broken(reason)
 
     # -- public API --------------------------------------------------------
@@ -656,6 +662,9 @@ class InferenceEngine:
         if self.transfer_source is not None:
             # its server, its registry entry and every unpulled export
             await self.transfer_source.close()
+        if self._prefetch_pool is not None:
+            self._prefetched.clear()
+            self._prefetch_pool.shutdown(wait=False, cancel_futures=True)
         if self.telemetry is not None:
             await self.telemetry.close()
         if self.spmd is not None:
@@ -927,9 +936,14 @@ class InferenceEngine:
                        "error": f"embeddings unsupported for {self.spec.name}"}
                 return
             # a standalone forward that touches no KV page: it runs off the
-            # step thread, beside the decode bursts
+            # step thread, beside the decode bursts; under SPMD replay its
+            # collectives must keep the descriptor order, so the step thread
+            # runs it (op ``embed``)
             try:
-                emb = await asyncio.to_thread(self._embed, token_ids)
+                if self.spmd is not None:
+                    emb = await self._embed_on_step_thread(token_ids)
+                else:
+                    emb = await asyncio.to_thread(self._embed, token_ids)
             except Exception as e:  # noqa: BLE001
                 yield {"token_ids": [], "finish_reason": "error",
                        "error": f"embedding failed: {e}"}
@@ -1004,12 +1018,17 @@ class InferenceEngine:
                 await asyncio.to_thread(release_kv_blocks, kvp)
                 yield {"token_ids": [], "finish_reason": "length"}
                 return
+            mode = self._resume_mode(kvp)
+            if mode == "shard":
+                # every other rank of the group pulls its own shard now, in
+                # the background, as this rank pulls its own below
+                self._publish("kv_prefetch", {"kvp": kvp}, side=True)
             try:
                 # one span per staging attempt: the disagg hop joins the
                 # request's trace, duration and failure
                 with tracing.span("disagg.pull", request_id=context.id):
                     disagg["_staged_kv"] = await asyncio.to_thread(
-                        self._stage_pull, kvp)
+                        self._stage_pull, kvp, mode)
             except Exception as e:  # noqa: BLE001
                 # transfer-plane failure (the prefill worker died between
                 # export and pull, a cut link, the disagg.pull fault): a
@@ -1018,9 +1037,12 @@ class InferenceEngine:
                 log.warning("kv transfer pull failed (%s); falling back to local "
                             "prefill for %s", e, context.id)
                 self.disagg_fallbacks += 1
+                if mode == "shard":
+                    self._publish("kv_unstage", {"transfer_id": kvp["transfer_id"]},
+                                  side=True)
                 try:
-                    # unpin the export on a prefill worker still alive; the
-                    # TTL is the backstop
+                    # unpin the export (every shard) on a prefill worker
+                    # still alive; the TTL is the backstop
                     await asyncio.to_thread(release_kv_blocks, kvp)
                 except Exception:  # noqa: BLE001
                     pass
@@ -1256,6 +1278,9 @@ class InferenceEngine:
         item is what tells a client the step failed, so by the time any
         client can react the queue is already drained: a request it sends
         then is served, not failed by a step it never took part in."""
+        reqs, self._embed_reqs = self._embed_reqs, []
+        for _ids, fut in reqs:
+            fut.set_exception(RuntimeError(error))
         self._pipeline.clear()
         self._admit_waves.clear()
         for w in self._waiting.drain():
@@ -1275,6 +1300,9 @@ class InferenceEngine:
         did = False
         if self._digest_reqs:
             self._serve_digests()
+            did = True
+        if self._embed_reqs:
+            self._serve_embeds()
             did = True
         if self.spmd is not None and self.spmd.sync_pending:
             # a mirror follower rejoins: quiesce (no burst in flight), then
@@ -1606,14 +1634,224 @@ class InferenceEngine:
 
     # -- disagg (decode side) ----------------------------------------------
 
-    def _stage_pull(self, kvp: dict) -> tuple:
+    def _stage_pull(self, kvp: dict, mode: str) -> tuple:
         """Pull a remote export and put its blocks on this engine's device
         (blocking: runs in a thread of the loop, never the step thread).
-        Returns (k, v, ready event or None, meta)."""
+        Returns (k, v, ready event or None, meta, resume mode): in mode
+        ``shard`` this rank's shard of a sharded export (each other rank of
+        the group prefetches its own: op ``kv_prefetch``), else the whole
+        blocks."""
         from dynamo_tpu_torch.disagg.transfer import pull_kv_blocks
 
-        k, v, meta = pull_kv_blocks(kvp)
-        return (*self._blocks_to_device(k, v), meta)
+        k, v, meta = pull_kv_blocks(kvp, shard=0 if mode == "shard" else None)
+        return (*self._blocks_to_device(k, v), meta, mode)
+
+    def _resume_mode(self, kvp: dict) -> str:
+        """How a resume installs under SPMD: ``shard`` when the export's
+        shards are this tp group's KV heads (one shard per rank, no other
+        mesh axis: the reference's ``_dest_tp_devices`` case); ``scatter``
+        when the leader pulls the whole blocks and sends each rank of its
+        group its heads (another width, replicas, MLA's latent rows);
+        ``inline`` when mirror links follow the stream (they share no
+        collective: the descriptors carry the tail in chunks); ``local``
+        with no followers."""
+        if self.spmd is None:
+            return "local"
+        m, shards = self.mesh, kvp.get("shards") or ()
+        if self.spmd.mirrored or m is None or not m.distributed:
+            return "inline"
+        if (len(shards) == m.tp > 1 and self.fam.shards_kv_heads
+                and all(m.shape[a] == 1 for a in m.shape if a != "tp")):
+            return "shard"
+        return "scatter"
+
+    def prefetch_shard(self, kvp: dict) -> None:
+        """A follower's op ``kv_prefetch``: pull this rank's shard of a
+        sharded export in the background (off the replay: the resume only
+        waits for it) and keep it, on the device, by transfer id."""
+        import concurrent.futures
+
+        from dynamo_tpu_torch.disagg.transfer import pull_kv_blocks
+
+        r = self.mesh.tp_rank
+
+        def pull() -> tuple:
+            k, v, _meta = pull_kv_blocks(kvp, shard=r)
+            return self._blocks_to_device(k, v)
+
+        if self._prefetch_pool is None:
+            self._prefetch_pool = concurrent.futures.ThreadPoolExecutor(
+                4, thread_name_prefix="kv-prefetch")
+        self._prefetched[kvp["transfer_id"]] = self._prefetch_pool.submit(pull)
+
+    def unstage_shard(self, transfer_id: str) -> None:
+        """A follower's op ``kv_unstage``: the leader will not resume this
+        export; drop the prefetched shard (a pull in flight lands, then
+        goes)."""
+        self._prefetched.pop(transfer_id, None)
+
+    def _release_export(self, kvp: dict) -> None:
+        """Release every shard of an export that will not be installed, in
+        the background (a round trip per shard: never on the step thread;
+        the TTL is the backstop)."""
+        from dynamo_tpu_torch.disagg.transfer import release_kv_blocks
+
+        def release() -> None:
+            try:
+                release_kv_blocks(kvp)
+            except Exception as e:  # noqa: BLE001
+                log.debug("kv release failed (%s)", e)
+
+        threading.Thread(target=release, name="kv-release", daemon=True).start()
+
+    @property
+    def kv_shards(self) -> int:
+        """KV-head shards of this engine's pools: the mesh's tp for a
+        family whose KV heads shard, else 1 (MLA's latent pool is whole)."""
+        if self.mesh is None or not self.fam.shards_kv_heads:
+            return 1
+        return self.mesh.tp
+
+    def _packed_blocks(self) -> bool:
+        return self.kv_dtype == "fp8" and self.fam.shards_kv_heads
+
+    def install_remote(self, mode: str, info: dict, page_ids: list[int], first: int,
+                       staged: tuple | None = None, inline: tuple | None = None) -> bool:
+        """Install a remote prefill's blocks past ``first`` into pages
+        ``page_ids``, on the leader and on every follower alike (op
+        ``kv_resume``). ``shard``: the leader staged its own shard at
+        intake and each follower prefetched its own (op ``kv_prefetch``,
+        ``info['transfer_id']``); the group agrees that every rank holds
+        its shard (one all-reduce over tp) before any rank installs, so a
+        failed pull installs nothing anywhere and the leader prefills
+        locally. ``scatter``: the leader (``staged``: the whole tail) sends
+        each rank of its group that rank's heads (``info``: their shapes
+        and types). ``inline``: the whole blocks ride the descriptor
+        (``inline``, host arrays, or the leader's own tensors), and each
+        rank installs its heads. Returns False when the group's pulls did
+        not all land."""
+        ready = None
+        if mode == "shard":
+            fut = None
+            if staged is None:
+                fut = self._prefetched.pop(info["transfer_id"], None)
+            if not page_ids:
+                return True  # every page was cached: nothing to install
+            ok = 1.0
+            if staged is None:
+                try:
+                    if fut is None:
+                        raise KeyError(f"no prefetched shard of {info['transfer_id']}")
+                    t0 = time.perf_counter()
+                    try:
+                        k, v, ready = fut.result()
+                    finally:
+                        self.prefetch_wait_secs += time.perf_counter() - t0
+                except Exception as e:  # noqa: BLE001
+                    log.warning("kv shard %d pull failed (%s)", self.mesh.tp_rank, e)
+                    ok = 0.0
+            else:
+                k, v, ready = staged
+            agreed = self.mesh.all_reduce(
+                torch.tensor([ok], device=self.device), over="tp")
+            if float(agreed.item()) < self.mesh.tp:
+                return False
+        elif mode == "scatter":
+            if not page_ids:
+                return True
+            if staged is not None:
+                k, v = self._scatter_heads(*staged)
+            else:
+                k, v = self._receive_heads(info)
+            first = 0  # the tail only
+        else:
+            k, v = inline
+            if not page_ids:
+                return True
+            k, v = (self._heads_of(b) for b in (k, v))
+            if isinstance(k, np.ndarray):
+                # a descriptor's arrays are read-only views of its frame
+                k, v, ready = self._blocks_to_device(
+                    *(np.require(b, requirements=["C", "W"]) for b in (k, v)))
+            else:
+                k, v = k.contiguous().to(self.device), v.contiguous().to(self.device)
+            first = 0  # the descriptor carries the install's tail only
+        self._insert_blocks(k, v, ready, page_ids, first)
+        return True
+
+    def _heads_of(self, block, tp_rank: int | None = None):
+        """This rank's (or tp rank ``tp_rank``'s) KV heads of a block of
+        every head: the whole block when the heads do not shard."""
+        from dynamo_tpu_torch.disagg.transfer import split_heads
+
+        n = self.kv_shards
+        if n == 1:
+            return block
+        r = self.mesh.tp_rank if tp_rank is None else tp_rank
+        return split_heads(block, self.spec.num_kv_heads, n, r, self._packed_blocks())
+
+    def _scatter_heads(self, k, v, ready) -> tuple:
+        """The leader's side of a ``scatter`` install: send every other
+        rank of the world its tp coordinate's heads of the whole tail
+        ``k``, ``v`` (as bytes, point to point; through host memory where
+        the collectives are staged), and return its own."""
+        import torch.distributed as dist
+
+        from dynamo_tpu_torch.parallel.mesh import AXES, rank_grid
+
+        if ready is not None:
+            torch.cuda.current_stream(self.device).wait_event(ready)
+        grid, tp_axis = rank_grid(self.mesh.shape), AXES.index("tp")
+        reqs, keep = [], []
+        for g in range(1, dist.get_world_size()):
+            c = int(np.argwhere(grid == g)[0][tp_axis])
+            for b in (k, v):
+                part = self._heads_of(b, c).contiguous()
+                if part.numel() == 0:
+                    continue
+                if self.mesh.staged:
+                    part = part.cpu()
+                keep.append(part.reshape(-1).view(torch.uint8))
+                reqs.append(dist.isend(keep[-1], dst=g))
+        for r in reqs:
+            r.wait()
+        return self._heads_of(k, 0), self._heads_of(v, 0)
+
+    def _receive_heads(self, info: dict) -> tuple:
+        """A follower's side of a ``scatter`` install: its heads of the
+        tail, from the leader (global rank 0), on this rank's device."""
+        import torch.distributed as dist
+
+        host = self.mesh.staged
+        out = []
+        for name in ("k", "v"):
+            dtype = getattr(torch, info[f"{name}_dtype"])
+            shape = [int(x) for x in info[f"{name}_shape"]]
+            buf = torch.empty(shape, dtype=dtype,
+                              device="cpu" if host else self.device)
+            if buf.numel():
+                dist.recv(buf.reshape(-1).view(torch.uint8), src=0)
+            out.append(buf.to(self.device) if host else buf)
+        return out[0], out[1]
+
+    def _insert_blocks(self, k_blocks, v_blocks, ready, page_ids: list[int],
+                       first: int) -> None:
+        if k_blocks.is_cuda:
+            # blocks staged on another stream (the H2D stream, the device
+            # route's copy stream): ordered before, and kept alive for, the
+            # install on this one
+            cur = torch.cuda.current_stream(self.device)
+            if ready is not None:
+                cur.wait_event(ready)
+            k_blocks.record_stream(cur)
+            v_blocks.record_stream(cur)
+        # the install is the export's tail past the cached prefix: a view,
+        # no gather (a fresh block of the size would ask the caching
+        # allocator for memory on the step thread)
+        k_blocks = k_blocks[:, first:]
+        v_blocks = v_blocks[:, first:]
+        self.fam.insert_pages(self.k_pages, self.v_pages, self._page_ids(page_ids),
+                              k_blocks, v_blocks)
 
     def _blocks_to_device(self, k, v) -> tuple:
         """Pulled blocks as tensors on the engine's device. Host blocks
@@ -1653,14 +1891,23 @@ class InferenceEngine:
 
             spawn(_release(), name="shed-kv-release")
 
-    @staticmethod
-    def _drop_staged_kv(request: dict[str, Any]) -> None:
+    def _drop_staged_kv(self, request: dict[str, Any]) -> bool:
         """Free the staged blocks of a request that will never be admitted
         (cancel, bounce, step failure): the handler keeps the request dict
-        alive for the stream's lifetime."""
+        alive for the stream's lifetime. A ``shard`` staging's followers
+        drop their prefetched shards (op ``kv_unstage``), and every shard
+        is released at its source (one whose prefetch failed is still
+        there). Returns True when it released the export."""
         disagg = request.get("disagg")
-        if disagg:
-            disagg.pop("_staged_kv", None)
+        if not disagg:
+            return False
+        staged = disagg.pop("_staged_kv", None)
+        if staged is None or staged[-1] != "shard":
+            return False
+        kvp = _transfer_params(disagg)
+        self._publish("kv_unstage", {"transfer_id": kvp["transfer_id"]}, side=True)
+        self._release_export(kvp)
+        return True
 
     def _prefill_safe(self, slot_idx: int, waiting: _Waiting):
         """Per-request error isolation: a bad request must not kill the
@@ -1671,8 +1918,7 @@ class InferenceEngine:
         try:
             disagg = waiting.request.get("disagg") or {}
             if disagg.get("mode") == "decode" and disagg.get("kv_transfer"):
-                self._resume_from_remote(slot_idx, waiting)
-                return None
+                return self._resume_from_remote(slot_idx, waiting)
             return self._prefill(slot_idx, waiting)
         except Exception as e:  # noqa: BLE001
             log.exception("prefill failed for %s", waiting.context.id)
@@ -1745,18 +1991,39 @@ class InferenceEngine:
 
     def _embed(self, token_ids: list[int]) -> list[float]:
         """Pooled sequence embedding of ``token_ids`` (padded to its prefill
-        bucket, as the reference's)."""
-        if self.spmd is not None:
-            raise NotImplementedError(
-                "embeddings under SPMD replay: the embedding forward runs off the "
-                "step thread, outside the descriptor order (ROADMAP Queue A item 11e)")
+        bucket, as the reference's). Under SPMD the step thread publishes
+        op ``embed`` first: the followers run the same forward and its tp
+        collectives."""
         padded = np.zeros((self.config.bucket_for(len(token_ids)),), np.int32)
         padded[: len(token_ids)] = token_ids
+        self._publish("embed", {"num_tokens": len(token_ids)}, {"tokens": padded})
+        return self.embed_padded(padded, len(token_ids)).float().cpu().numpy().tolist()
+
+    def embed_padded(self, padded: np.ndarray, num_tokens: int) -> torch.Tensor:
+        """The embedding forward of a bucket-padded prompt (a follower's
+        replay of op ``embed`` too)."""
         with torch.inference_mode():
-            emb = self.fam.embed_forward(
+            return self.fam.embed_forward(
                 self.spec, self.params, torch.from_numpy(padded).to(self.device),
-                len(token_ids))
-        return emb.float().cpu().numpy().tolist()
+                num_tokens)
+
+    async def _embed_on_step_thread(self, token_ids: list[int]) -> list[float]:
+        import concurrent.futures
+
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        self._embed_reqs.append((token_ids, fut))
+        self._wake.set()
+        return await asyncio.wrap_future(fut)
+
+    def _serve_embeds(self) -> None:
+        reqs, self._embed_reqs = self._embed_reqs, []
+        for token_ids, fut in reqs:
+            mark = self._spmd_mark()
+            try:
+                fut.set_result(self._embed(token_ids))
+            except Exception as e:  # noqa: BLE001
+                self._spmd_broken("embedding failed after publish", mark)
+                fut.set_exception(e)
 
     def _decode_multimodal(self, req: dict) -> dict | None:
         """Validate and decode the request's multimodal payload (the encoder's
@@ -2643,23 +2910,37 @@ class InferenceEngine:
         """A rejoining follower's snapshot: the pages in use, as ``(page_ids,
         k, v)`` numpy chunks of at most SYNC_CHUNK_BYTES each, gathered one
         chunk at a time (the weights are not shipped: the follower builds
-        them from the same seed or checkpoint)."""
-        from dynamo_tpu_torch.kvbm.offload import block_numpy
+        them from the same seed or checkpoint). Under tp each chunk holds
+        every rank's KV heads (op ``kv_gather``): a mirror rank installs
+        its own."""
         from dynamo_tpu_torch.parallel.spmd import SYNC_CHUNK_BYTES
 
         ids = [int(p) for p in self.allocator.used_page_ids()]
         if not ids:
             return []
-        per_page = max(1, self.pool_bytes // (self.config.num_pages + 1))
+        per_page = max(1, self.kv_shards * self.pool_bytes // (self.config.num_pages + 1))
         step = max(1, SYNC_CHUNK_BYTES // per_page)
         chunks = []
         for i in range(0, len(ids), step):
             sub = ids[i: i + step]
-            kb, vb = self.fam.extract_pages(self.k_pages, self.v_pages,
-                                            self._page_ids(sub))
-            chunks.append((np.asarray(sub, np.int32), block_numpy(kb.cpu()),
-                           block_numpy(vb.cpu())))
+            if self.kv_shards > 1:
+                self._publish("kv_gather", None, {"page_ids": np.asarray(sub, np.int32)})
+            chunks.append((np.asarray(sub, np.int32), *self.gather_pages(sub)))
         return chunks
+
+    def gather_pages(self, pages: list[int]) -> tuple[np.ndarray, np.ndarray]:
+        """Pages ``pages`` of the pools as host blocks of every KV head: this
+        rank's, all-gathered over tp when the heads are sharded (a
+        follower's replay of op ``kv_gather`` runs the same collectives)."""
+        from dynamo_tpu_torch.disagg.transfer import join_heads
+
+        kb, vb = self.fam.extract_pages(self.k_pages, self.v_pages, self._page_ids(pages))
+        n = self.kv_shards
+        if n > 1:
+            heads = [self.spec.num_kv_heads // n] * n
+            kb, vb = (join_heads(list(self.mesh.all_gather(b.unsqueeze(0), dim=0).unbind(0)),
+                                 heads, self._packed_blocks()) for b in (kb, vb))
+        return block_numpy(kb.contiguous().cpu()), block_numpy(vb.contiguous().cpu())
 
     def _page_ids(self, pages: list[int]) -> torch.Tensor:
         """Page (or block) indices on the device; on CUDA from pinned
@@ -2670,24 +2951,85 @@ class InferenceEngine:
             return ids.pin_memory().to(self.device, non_blocking=True)
         return ids
 
-    def _export_and_finish(self, slot: _Slot, sp: SeqPages, token_ids: list[int],
-                           tok: int, logprob_entry: dict | None = None) -> None:
-        """Prefill-worker handoff: gather the prompt's pages into fresh
-        blocks on the compute stream, export them (the transfer plane copies
-        and stamps later, off this thread), release the pages, and end the
-        stream with the first token and the kv_transfer_params."""
-        t0 = time.perf_counter()
+    def export_pages(self, pages: list[int], num_tokens: int,
+                     transfer_id: str | None = None) -> tuple:
+        """Gather ``pages`` of this rank's pools into fresh blocks on the
+        compute stream and export them from its transfer source (under
+        ``transfer_id`` on a tp follower: op ``kv_export``). Returns
+        (params, k blocks, v blocks, timing events or None)."""
         timing = None
         if self.device.type == "cuda":
             timing = (torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True))
             timing[0].record()
-        kb, vb = self.fam.extract_pages(self.k_pages, self.v_pages,
-                                        self._page_ids(sp.pages))
+        kb, vb = self.fam.extract_pages(self.k_pages, self.v_pages, self._page_ids(pages))
         if timing is not None:
             timing[1].record()
         params = self.transfer_source.export(
-            kb, vb, num_tokens=len(token_ids), page_size=self.config.page_size)
+            kb, vb, num_tokens=num_tokens, page_size=self.config.page_size,
+            transfer_id=transfer_id)
+        return params, kb, vb, timing
+
+    def _shard_entries(self, params: dict, kb, vb) -> list[dict]:
+        """Every rank's entry of a sharded export: rank r holds KV heads
+        from ``r * KH / tp`` in its own source (``transfer_source.peers``:
+        ranks 1..tp-1, found through the group's store), shaped as this
+        rank's shard."""
+        src, n = self.transfer_source, self.kv_shards
+        peers = src.peers
+        if len(peers) != n - 1:
+            raise RuntimeError(
+                f"sharded export over tp={n} needs the transfer sources of ranks "
+                f"1..{n - 1}; {len(peers)} known")
+        heads = self.spec.num_kv_heads // n
+        own = {"addr": params["addr"], "uid": src.uid}
+        out = []
+        for r, peer in enumerate([own] + peers):
+            e = {"start": r * heads, "k_shape": list(kb.shape),
+                 "v_shape": list(vb.shape), "addr": peer["addr"],
+                 "transfer_id": params["transfer_id"], "source_uid": peer["uid"]}
+            if params.get("cuda_ipc"):
+                e["cuda_ipc"] = True
+            out.append(e)
+        return out
+
+    def _prefill_after_failed_resume(self, slot_idx: int, waiting: _Waiting,
+                                     first_token: int):
+        """A rank of the group lost its shard pull: nothing was installed
+        anywhere, so this request prefills here, prompt plus the emitted
+        first token, its budget cut by one (the intake fallback's request,
+        on the step thread)."""
+        log.warning("kv shard pull failed on a rank; local prefill for %s",
+                    waiting.context.id)
+        self.disagg_fallbacks += 1
+        req = dict(waiting.request)
+        req["disagg"] = None
+        req["token_ids"] = list(req["token_ids"]) + [first_token]
+        stop = dict(req.get("stop_conditions") or {})
+        if stop.get("max_tokens") is not None:
+            stop["max_tokens"] = max(int(stop["max_tokens"]) - 1, 1)
+        req["stop_conditions"] = stop
+        waiting.request = req
+        return self._prefill(slot_idx, waiting)
+
+    def _export_and_finish(self, slot: _Slot, sp: SeqPages, token_ids: list[int],
+                           tok: int, logprob_entry: dict | None = None) -> None:
+        """Prefill-worker handoff: gather the prompt's pages into fresh
+        blocks on the compute stream, export them (the transfer plane copies
+        and stamps later, off this thread), release the pages, and end the
+        stream with the first token and the kv_transfer_params. Under tp
+        every rank exports its own KV heads (op ``kv_export``, before the
+        pages go back) and the params list the shards."""
+        t0 = time.perf_counter()
+        params, kb, vb, timing = self.export_pages(sp.pages, len(token_ids))
+        if self.kv_shards > 1:
+            self._publish("kv_export", {"transfer_id": params["transfer_id"],
+                                        "num_tokens": len(token_ids)},
+                          {"page_ids": np.asarray(sp.pages, np.int32)})
+            shards = self._shard_entries(params, kb, vb)
+            self.transfer_source.shard(params["transfer_id"], shards,
+                                       self._packed_blocks())
+            params.update(shard_axis=2, shards=shards)
         # the decode side refuses a mismatched pool type before installing
         # (packed fp8 and bf16 blocks do not convert in insert_pages)
         params["kv_dtype"] = self.kv_dtype
@@ -2705,12 +3047,15 @@ class InferenceEngine:
         self._post(slot.out_q, item)
         self._publish_metrics()
 
-    def _resume_from_remote(self, slot_idx: int, waiting: _Waiting) -> None:
+    def _resume_from_remote(self, slot_idx: int, waiting: _Waiting):
         """Decode-worker resume: install the pulled blocks beyond the cached
         prefix in place, seal the prompt, and enter decode after the remote
         first token. A multimodal resume seals its blocks under the image
-        salt the prefill side hashed them with."""
-        from dynamo_tpu_torch.disagg.transfer import release_kv_blocks
+        salt the prefill side hashed them with. Under SPMD every rank
+        installs its heads (op ``kv_resume``); when a rank's shard pull
+        failed, nothing is installed and the request prefills here
+        (returns ``_prefill``'s result, else None)."""
+        from dynamo_tpu_torch.parallel.spmd import RESUME_CHUNK_BYTES
 
         t0 = time.perf_counter()
         cfg = self.config
@@ -2722,10 +3067,10 @@ class InferenceEngine:
         max_tokens = self._decode_budget(req, len(token_ids))
         if max_tokens <= 1:
             # the remote first token was the whole budget
-            self._drop_staged_kv(req)
-            release_kv_blocks(kvp)
+            if not self._drop_staged_kv(req):
+                self._release_export(kvp)
             self._post(waiting.out_q, {"token_ids": [], "finish_reason": "length"})
-            return
+            return None
         # pop: the handler holds the request dict for the whole decode; the
         # staged blocks must not outlive their install
         staged = disagg.pop("_staged_kv", None)
@@ -2733,7 +3078,7 @@ class InferenceEngine:
             # generate() stages every pull off this thread: no network I/O
             # may run on the step thread
             raise RuntimeError("disagg resume without a staged pull")
-        k_blocks, v_blocks, ready, meta = staged
+        k_blocks, v_blocks, ready, meta, mode = staged
         if int(meta.get("page_size", cfg.page_size)) != cfg.page_size:
             raise ValueError("page_size mismatch between prefill and decode")
         export_dtype = str(kvp.get("kv_dtype", "bf16"))
@@ -2759,25 +3104,53 @@ class InferenceEngine:
             return
         marks = [time.perf_counter()]
         install = list(range(sp.cached_prefix_pages, needed_pages))
+        page_ids = [sp.pages[i] for i in install]
+        first = install[0] if install else 0
         try:
-            if install:
-                if k_blocks.is_cuda:
-                    # blocks staged on another stream (the H2D stream, the
-                    # device route's copy stream): ordered before, and kept
-                    # alive for, the install on this one
-                    cur = torch.cuda.current_stream(self.device)
-                    if ready is not None:
-                        cur.wait_event(ready)
-                    k_blocks.record_stream(cur)
-                    v_blocks.record_stream(cur)
-                # the install is the export's tail past the cached prefix:
-                # a view, no gather (a fresh block of the size would ask the
-                # caching allocator for memory on the step thread)
-                k_blocks = k_blocks[:, install[0]:]
-                v_blocks = v_blocks[:, install[0]:]
-                self.fam.insert_pages(self.k_pages, self.v_pages,
-                                      self._page_ids([sp.pages[i] for i in install]),
-                                      k_blocks, v_blocks)
+            if mode == "local":
+                if install:
+                    self._insert_blocks(k_blocks, v_blocks, ready, page_ids, first)
+                landed = True
+            elif mode == "shard":
+                self._publish("kv_resume", {"mode": mode, "first": first,
+                                            "transfer_id": kvp["transfer_id"]},
+                              {"page_ids": np.asarray(page_ids, np.int32)})
+                landed = self.install_remote(mode, kvp, page_ids, first,
+                                             staged=(k_blocks, v_blocks, ready))
+            elif mode == "scatter":
+                # the leader sends each rank its heads of the tail over the
+                # group (no host copy of the whole on this thread)
+                tail = (k_blocks[:, first:], v_blocks[:, first:])
+                info = {"mode": mode, "first": 0, "transfer_id": kvp.get("transfer_id")}
+                for name, b in zip("kv", tail):
+                    part = self._heads_of(b, 0)
+                    info[f"{name}_shape"] = list(part.shape)
+                    info[f"{name}_dtype"] = str(part.dtype).removeprefix("torch.")
+                self._publish("kv_resume", info,
+                              {"page_ids": np.asarray(page_ids, np.int32)})
+                landed = self.install_remote(mode, info, page_ids, 0,
+                                             staged=(*tail, ready))
+            else:
+                # mirror links share no collective: the whole tail rides
+                # the descriptors, RESUME_CHUNK_BYTES at most each, and
+                # every rank installs its heads of each chunk
+                if ready is not None:
+                    torch.cuda.current_stream(self.device).wait_event(ready)
+                tail = (k_blocks[:, first:], v_blocks[:, first:])
+                per_page = max(1, (tail[0].nbytes + tail[1].nbytes) // max(len(page_ids), 1))
+                step = max(1, RESUME_CHUNK_BYTES // per_page)
+                for i in range(0, len(page_ids), step):
+                    self._publish("kv_resume", {"mode": mode},
+                                  {"page_ids": np.asarray(page_ids[i:i + step], np.int32),
+                                   "k": block_numpy(tail[0][:, i:i + step].cpu()),
+                                   "v": block_numpy(tail[1][:, i:i + step].cpu())})
+                landed = self.install_remote(mode, {}, page_ids, first,
+                                             inline=tail)
+            if not landed:
+                self.allocator.release(sp.pages)
+                # a shard whose pull failed is still at its source
+                self._release_export(kvp)
+                return self._prefill_after_failed_resume(slot_idx, waiting, first_token)
             marks.append(time.perf_counter())
             self._seal_prompt_blocks(sp, seq)
             marks.append(time.perf_counter())

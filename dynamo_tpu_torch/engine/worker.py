@@ -72,9 +72,15 @@ as a capture over gloo raises).
 ``--mirror leader`` / ``--mirror follower`` is the reference's mirror
 topology: each process holds the whole model, the follower
 (``MIRROR_FOLLOWER_READY``) replays the leader's descriptors found through
-the hub and rejoins through a state sync after a restart. Disaggregated
-modes under tp > 1 raise NotImplementedError (ROADMAP Queue A item 11e), as
-the reference refuses multi-host disagg. ``--model-type embeddings`` registers an
+the hub and rejoins through a state sync after a restart. With ``--tp N``
+(or ``--ep`` / ``--sp``) each side is a group of N ranks: the mirror
+group's rank 0 follows the leader's stream and relays it to its own ranks
+(parallel/spmd.py). ``--mode prefill|decode`` runs under every mesh and
+under a mirror: each rank of a prefill group exports its KV heads from a
+transfer source of its own (its address in the group's store), and a
+decode group installs every rank's heads (op ``kv_resume``); the
+reference refuses disaggregation on its multi-host path, whose followers
+do not replay exports. ``--model-type embeddings`` registers an
 embeddings card (the frontend's /v1/embeddings). ``--mm-tokens-per-image``,
 ``--image-token-id`` and ``--mm-video-frames`` register a multimodal card:
 the frontend splices that many placeholder ids per image and resolves the
@@ -170,12 +176,6 @@ async def launch_engine_worker(
     (engine, served generate endpoint)."""
     if mode not in ("aggregated", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}: aggregated, prefill or decode")
-    ecfg0 = engine_config or EngineConfig()
-    if mode != "aggregated" and (
-            ecfg0.tp * ecfg0.ep * ecfg0.sp * ecfg0.dp > 1 or spmd is not None):
-        raise NotImplementedError(
-            f"--mode {mode} under tensor parallelism or SPMD replay is ROADMAP "
-            "Queue A item 11e (per-shard KV exports)")
     if prefill_router_mode not in ("kv", "round_robin", "random"):
         raise ValueError(f"prefill_router_mode {prefill_router_mode!r}")
     # an unknown parser name fails here, before the engine is built
@@ -220,11 +220,16 @@ async def launch_engine_worker(
     if mode == "prefill":
         from dynamo_tpu_torch.disagg.transfer import KvTransferSource
 
-        transfer_source = await KvTransferSource().start()
+        transfer_source = await KvTransferSource(host=drt.config.host).start()
     engine = InferenceEngine(spec, cfg, params=params,
                              device=mesh.device if mesh is not None else device,
                              kvbm=kvbm, guided_vocab=guided_vocab,
                              transfer_source=transfer_source, mesh=mesh, spmd=spmd)
+    if transfer_source is not None and engine.kv_shards > 1:
+        # the ranks of this tp group export their KV heads from sources of
+        # their own: their addresses are in the group's store
+        transfer_source.peers = await shard_sources(
+            engine.kv_shards, f"{namespace}/{component}/{endpoint}")
     if precompile:
         # capture every decode graph variant before registration, off the
         # event loop: no request waits for a capture
@@ -447,14 +452,6 @@ def _engine_config(args: argparse.Namespace) -> EngineConfig:
     EngineConfig whole (``--engine-config-json``)."""
     if args.engine_config_json:
         return config_from_json(EngineConfig, args.engine_config_json)
-    if args.mirror and args.tp * args.ep * args.sp > 1:
-        raise NotImplementedError(
-            "--mirror with --tp, --ep or --sp > 1: a mirror of a group is ROADMAP Queue A "
-            "item 11e")
-    if args.mode != "aggregated" and (args.tp * args.ep * args.sp > 1 or args.mirror):
-        raise NotImplementedError(
-            f"--mode {args.mode} under tensor parallelism or SPMD replay is ROADMAP "
-            "Queue A item 11e (per-shard KV exports)")
     env_cfg = RuntimeConfig.from_env()
     return EngineConfig(
         page_size=args.page_size,
@@ -503,25 +500,34 @@ async def _amain(args: argparse.Namespace, ecfg: EngineConfig) -> None:
     from dynamo_tpu_torch.models.llama import resolve_device
 
     group_name = f"{args.namespace}/{args.component}/{args.endpoint}"
-    if args.mirror == "follower":
-        await _run_mirror_follower(args, ecfg, group_name)
-        return
     rcfg = RuntimeConfig.from_env()
     if args.hub:
         rcfg.override_hub(args.hub)
+    if args.mirror == "follower" and ecfg.dp * ecfg.sp * ecfg.ep * ecfg.tp == 1:
+        await _run_mirror_follower(args, ecfg, group_name)
+        return
     group = await start_tp_group(
         ecfg, model=args.model, model_path=args.model_path, device=args.device,
         group=group_name, coordinator=args.coordinator_address,
         num_processes=args.num_processes, process_id=args.process_id,
-        spec_json=args.spec_json, kvbm_argv=_kvbm_argv(args), host=rcfg.host)
+        spec_json=args.spec_json, kvbm_argv=_kvbm_argv(args), host=rcfg.host,
+        mode=args.mode)
     if group is not None and not group.leader:
-        await _run_tp_follower(args, ecfg, group)
+        await _run_tp_follower(args, ecfg, group, rcfg.host)
+        return
+    if args.mirror == "follower":
+        # rank 0 of a mirror group: it follows the leader's stream and
+        # relays it to its own ranks
+        await _run_mirror_follower(args, ecfg, group_name, group)
         return
     device = (group.mesh.device if group is not None
               else resolve_device(args.device))  # no GPU, no --device cpu: raises
     drt = DistributedRuntime(await connect_hub(rcfg.hub_target()), rcfg)
     spmd = group.spmd if group is not None else None
-    if args.mirror == "leader":
+    if args.mirror == "leader" and spmd is not None:
+        # a tp group's leader serves its mirror group over the worker's hub
+        await spmd.advertise(drt.hub)
+    elif args.mirror == "leader":
         from dynamo_tpu_torch.parallel.spmd import SpmdLeader
 
         spmd = await SpmdLeader(drt.hub, asyncio.get_running_loop(), group_name,
@@ -664,7 +670,7 @@ async def start_tp_group(
     spec_json: str | None = None, device=None,
     group: str = "dynamo/backend/generate", coordinator: str | None = None,
     num_processes: int | None = None, process_id: int | None = None,
-    kvbm_argv: list[str] = (), host: str = "127.0.0.1",
+    kvbm_argv: list[str] = (), host: str = "127.0.0.1", mode: str = "aggregated",
 ) -> TpGroup | None:
     """Join (or, for ``ecfg.dp * ecfg.sp * ecfg.ep * ecfg.tp`` > 1 with no
     coordinator, start) the group of this worker: None for a single process. With no
@@ -695,7 +701,7 @@ async def start_tp_group(
         coordinator = multihost.free_coordinator()
         ns, comp, ep = group.split("/")
         argv = ["--engine-config-json", config_json(ecfg), "--namespace", ns,
-                "--component", comp, "--endpoint", ep, *kvbm_argv]
+                "--component", comp, "--endpoint", ep, "--mode", mode, *kvbm_argv]
         if model_path:
             argv += ["--model-path", model_path]
         else:
@@ -732,8 +738,28 @@ async def start_tp_group(
         raise
 
 
+XFER_KEY_FMT = "spmd/{group}/xfer/{rank}"
+
+
+async def shard_sources(tp: int, group: str, timeout: float = 120.0) -> list[dict]:
+    """The transfer sources of ranks 1..tp-1 of this prefill group, as
+    each published it in the group's store (``{addr, uid}``)."""
+    from dynamo_tpu_torch.parallel.spmd import StoreHub
+
+    hub, out = StoreHub(), []
+    deadline = asyncio.get_running_loop().time() + timeout
+    for r in range(1, tp):
+        key = XFER_KEY_FMT.format(group=group, rank=r)
+        while (raw := await hub.get(key)) is None:
+            if asyncio.get_running_loop().time() > deadline:
+                raise TimeoutError(f"no transfer source at {key}")
+            await asyncio.sleep(0.1)
+        out.append(json.loads(raw))
+    return out
+
+
 def build_engine_shell(args: argparse.Namespace, ecfg: EngineConfig, mesh=None,
-                       hub=None, loop=None) -> InferenceEngine:
+                       hub=None, loop=None, transfer_source=None) -> InferenceEngine:
     """A follower's engine: the leader's spec and EngineConfig, this rank's
     shard of the same weights (the seeded init, or its slice of the
     checkpoint), its pools; its step loop never starts. With KVBM on it
@@ -757,16 +783,29 @@ def build_engine_shell(args: argparse.Namespace, ecfg: EngineConfig, mesh=None,
         rank = mesh.rank if mesh is not None else 0
         kvbm = KvBlockManager(kvbm_cfg, hub=hub, loop=loop,
                               namespace=f"{args.namespace}.s{rank}")
-    return InferenceEngine(spec, ecfg, params=params, device=dev, kvbm=kvbm, mesh=mesh)
+    return InferenceEngine(spec, ecfg, params=params, device=dev, kvbm=kvbm, mesh=mesh,
+                           transfer_source=transfer_source)
 
 
-async def _run_tp_follower(args, ecfg: EngineConfig, group: TpGroup) -> None:
-    """Rank r > 0 of a tp group: replay the leader until its ``stop``."""
+async def _run_tp_follower(args, ecfg: EngineConfig, group: TpGroup,
+                           host: str = "127.0.0.1") -> None:
+    """Rank r > 0 of a tp group: replay the leader until its ``stop``. In a
+    prefill group, rank r of the leader's tp coordinates exports its KV
+    heads from a transfer source of its own, published in the group's
+    store for the leader's params."""
     from dynamo_tpu_torch.parallel.spmd import SpmdFollower, StoreHub
 
-    engine = await asyncio.to_thread(build_engine_shell, args, ecfg, group.mesh)
-    print("MULTIHOST_FOLLOWER_READY", flush=True)
     name = f"{args.namespace}/{args.component}/{args.endpoint}"
+    src = None
+    m = group.mesh
+    if args.mode == "prefill" and not any(c for a, c in m.coords.items() if a != "tp"):
+        from dynamo_tpu_torch.disagg.transfer import KvTransferSource
+
+        src = await KvTransferSource(host=host).start()
+        await StoreHub().put(XFER_KEY_FMT.format(group=name, rank=m.tp_rank),
+                             json.dumps({"addr": f"{src.host}:{src.port}", "uid": src.uid}))
+    engine = await asyncio.to_thread(build_engine_shell, args, ecfg, m, None, None, src)
+    print("MULTIHOST_FOLLOWER_READY", flush=True)
     try:
         await SpmdFollower(StoreHub(), name, engine, rejoin=False).run()
     finally:
@@ -774,23 +813,32 @@ async def _run_tp_follower(args, ecfg: EngineConfig, group: TpGroup) -> None:
         await group.close()
 
 
-async def _run_mirror_follower(args, ecfg: EngineConfig, name: str) -> None:
-    """A mirror follower: the whole model in this process, replaying the
-    leader's descriptors found through the hub, rejoining with a state
-    sync when the stream is lost."""
+async def _run_mirror_follower(args, ecfg: EngineConfig, name: str,
+                               group: TpGroup | None = None) -> None:
+    """A mirror follower: the leader's model in this process (or, as rank
+    0 of a mirror group, this rank's shard of it), replaying the leader's
+    descriptors found through the hub, rejoining with a state sync when
+    the stream is lost. A mirror group's rank 0 relays every descriptor to
+    its ranks through its group's leader."""
     from dynamo_tpu_torch.parallel.spmd import SpmdFollower
 
     rcfg = RuntimeConfig.from_env()
     if args.hub:
         rcfg.override_hub(args.hub)
     hub = await connect_hub(rcfg.hub_target())
-    engine = await asyncio.to_thread(build_engine_shell, args, ecfg, None, hub,
+    mesh = group.mesh if group is not None else None
+    engine = await asyncio.to_thread(build_engine_shell, args, ecfg, mesh, hub,
                                      asyncio.get_running_loop())
     print("MIRROR_FOLLOWER_READY", flush=True)
+    relay = group.spmd if group is not None else None
     try:
-        await SpmdFollower(hub, name, engine, rejoin=True).run()
+        await SpmdFollower(hub, name, engine, rejoin=True, relay=relay).run()
     finally:
         await engine.close()
+        if relay is not None:
+            relay.stop()
+            await relay.close()
+            await group.close()
         await hub.close()
 
 

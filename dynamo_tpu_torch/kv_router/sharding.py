@@ -17,9 +17,9 @@ through Lamport's jump consistent hash: growing N -> N+1 shards remaps
 only ~1/(N+1) of prefixes, so a resharding event invalidates a bounded
 slice of optimistic state rather than all of it.
 
-Deployment (the reference's gateway; this package has no gateway yet):
-run ``DYN_ROUTER_SHARDS`` picker processes and dispatch each pick by
-``ShardMap.shard_for`` at the caller. The map is an AFFINITY
+Deployment (gateway/epp.py): ``python -m dynamo_tpu_torch.gateway
+--shards N`` runs ``DYN_ROUTER_SHARDS`` picker processes, and the caller
+dispatches each pick by ``ShardMap.shard_for``. The map is an AFFINITY
 optimization, not a correctness gate — a pick landing on the "wrong"
 shard still routes correctly off that shard's converged radix state.
 """

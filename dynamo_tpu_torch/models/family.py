@@ -44,6 +44,9 @@ class GqaFamily:
     supports_embeddings = True
     supports_multimodal = True  # prefill embedding injection (EPD)
     supports_ring_prefill = True
+    # under tp a rank's pools hold its KV heads: disagg exports, resumes and
+    # mirror syncs split and join blocks on the heads axis
+    shards_kv_heads = True
 
     def __init__(self, spec: ModelSpec | None = None):
         from dynamo_tpu_torch.models import llama
@@ -139,6 +142,7 @@ class MlaFamily(GqaFamily):
 
     supports_multimodal = False
     supports_ring_prefill = False
+    shards_kv_heads = False  # the latent pool is whole on every rank
 
     def __init__(self):
         from dynamo_tpu_torch.models import mla

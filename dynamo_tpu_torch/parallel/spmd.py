@@ -26,8 +26,22 @@ joins it), ``prefill_batch``, ``verify`` (the speculative verify; the port's own
 KVBM tiers; a block a strict follower's tiers lack breaks the plane, a
 mirror re-syncs), ``precompile`` (one graph capture: its warm-up steps run the
 collectives), ``kv_digest`` (each rank prints a digest of its pages in
-use: a mirror's equals the leader's), ``stop``; and the plane's own ``__sync__`` (a rejoin's
-state snapshot) and ``__reject__`` (a join past the catch-up window).
+use: a mirror's equals the leader's), ``kv_export`` (a prefill group's
+ranks each gather and export their KV heads of a finished prompt under
+the leader's transfer id, before its pages are released),
+``kv_prefetch`` / ``kv_unstage`` (a decode rank starts pulling its own
+shard of a sharded export in the background at the leader's intake, or
+drops it: no collectives, so the leader may publish them from any thread),
+``kv_resume`` (a decode group's ranks each install their heads of a remote
+prefill: rank r its prefetched shard r; or the leader sends each rank its
+heads of the whole blocks over the group; or, with mirror links, the
+descriptors carry the tail in chunks of ``RESUME_CHUNK_BYTES``),
+``embed`` (an embedding forward and its tp collectives), ``kv_gather``
+(a rejoin snapshot of a tp group gathers every rank's heads) and
+``sync_install`` (a relayed snapshot chunk: a mirror group's rank 0 hands
+its followers the leader's snapshot), ``stop``; and the plane's own
+``__sync__`` (a rejoin's state snapshot) and ``__reject__`` (a join past
+the catch-up window). The ops after ``kv_digest`` are the port's.
 
 TRANSPORT: one TCP stream per follower, framed by runtime/framing.py
 (arrays as raw bytes). The leader's address sits under
@@ -42,7 +56,14 @@ plane broken and the engine reports itself dead; nothing rejoins.
 MIRROR (``--mirror``: each process runs its own whole model and no
 collective spans them): the leader keeps serving, and a follower that
 comes back rejoins through a quiesced ``__sync__`` snapshot of the
-leader's pages in chunks of ``SYNC_CHUNK_BYTES``.
+leader's pages in chunks of ``SYNC_CHUNK_BYTES``. A strict group's leader
+can serve mirror links too (``advertise``: its address on a second hub;
+a link whose hello says ``mirror`` never breaks the plane). A mirror of a
+tp group of N is a second group of N ranks: its rank 0 follows the
+leader's stream as a mirror and RELAYS every descriptor to its own ranks
+(``SpmdFollower(relay=)``, its group's strict leader) before it applies
+it, so every rank of the mirror replays the leader's stream with its own
+collectives; its followers get the rejoin snapshot as ``sync_install``.
 """
 
 from __future__ import annotations
@@ -51,6 +72,7 @@ import asyncio
 import json
 import logging
 import os
+import threading
 import time
 from collections import OrderedDict, deque
 from typing import Any
@@ -66,6 +88,9 @@ ADDR_KEY_FMT = "spmd/{group}/addr"
 RING_FRAMES = 1024  # catch-up window cap (descriptors)
 RING_BYTES = 64 * 1024 * 1024  # catch-up window cap (payload bytes)
 SYNC_CHUNK_BYTES = 64 * 1024 * 1024  # rejoin snapshot chunk (< MAX_FRAME)
+# a mirrored resume's tail per descriptor: well under RING_BYTES, so one
+# resume does not flush the catch-up ring
+RESUME_CHUNK_BYTES = 16 * 1024 * 1024
 # how long a rejoiner may overflow its (bounded) sync queue without
 # latching the strict-mode plane broken
 SYNC_DRAIN_GRACE_S = 300.0
@@ -122,9 +147,11 @@ class SpmdLeader:
 
     ``publish`` is called from the engine's step thread and never blocks:
     it appends to the ring and hands the frame to each connection's writer
-    queue on the event loop. It counts the descriptors, their payload bytes
-    and the host seconds spent encoding them (``publish_count``,
-    ``publish_bytes``, ``publish_secs``)."""
+    queue on the event loop. A ``side`` descriptor (one whose replay runs
+    no collective) may come from any thread. It counts the descriptors,
+    their payload bytes and the host seconds spent encoding them
+    (``publish_count``, ``publish_bytes``, ``publish_secs``), and the step
+    thread's own (``lockstep_count``)."""
 
     def __init__(self, hub, loop: asyncio.AbstractEventLoop, group: str,
                  host: str = "127.0.0.1", strict: bool | None = None):
@@ -134,6 +161,8 @@ class SpmdLeader:
         self.host = host
         self.publish_failures = 0
         self.publish_count = 0
+        self.lockstep_count = 0
+        self._lock = threading.Lock()  # sequence numbers across threads
         self.publish_bytes = 0
         self.publish_secs = 0.0
         self._broken = False
@@ -141,6 +170,7 @@ class SpmdLeader:
         self.strict = _default_strict() if strict is None else strict
         self._sync_waiting: list[tuple[asyncio.Future, Any]] = []
         self._sync_pending = 0
+        self.syncs_served = 0  # rejoin snapshots served
         self.on_sync_request = None  # engine wake hook (set by the engine)
         self._ring: deque[tuple[int, dict, int]] = deque()
         self._ring_bytes = 0
@@ -150,13 +180,30 @@ class SpmdLeader:
         self._conns: list[asyncio.Queue] = []
         self._streams: set[asyncio.Task] = set()  # live connection handlers
         self._server: asyncio.AbstractServer | None = None
+        self._addr = ""
+        self._advertised: list = []  # second hubs holding the address
 
     async def start(self) -> "SpmdLeader":
         self._server = await asyncio.start_server(self._serve_conn, self.host, 0)
         port = self._server.sockets[0].getsockname()[1]
-        await self.hub.put(ADDR_KEY_FMT.format(group=self.group), f"{self.host}:{port}")
+        self._addr = f"{self.host}:{port}"
+        await self.hub.put(ADDR_KEY_FMT.format(group=self.group), self._addr)
         log.info("spmd leader descriptor plane on %s:%d", self.host, port)
         return self
+
+    async def advertise(self, hub) -> None:
+        """Also publish the address on ``hub`` (a tp group's leader under
+        ``--mirror leader``: mirror followers look for it on the worker's
+        hub)."""
+        await hub.put(ADDR_KEY_FMT.format(group=self.group), self._addr)
+        self._advertised.append(hub)
+
+    @property
+    def mirrored(self) -> bool:
+        """True when followers outside this group's collectives may
+        replay the stream (a mirror leader, or an advertised one): what
+        they install must ride the descriptors."""
+        return not self.strict or bool(self._advertised)
 
     @property
     def followers(self) -> int:
@@ -189,6 +236,9 @@ class SpmdLeader:
         if hello is None:
             writer.close()
             return
+        # a mirror link (a follower outside this group's collectives)
+        # never breaks a strict plane
+        mirror = bool(hello.get("mirror"))
         if hello.get("sync"):
             # REJOIN: park until the engine reaches a step boundary and
             # calls serve_sync, then stream the snapshot and live frames
@@ -203,6 +253,7 @@ class SpmdLeader:
             except asyncio.CancelledError:
                 writer.close()
                 raise
+            q.mirror = mirror
             await self._stream_to(peer, writer, q, sync_frames)
             return
         from_seq = int(hello.get("from_seq", 0))
@@ -215,10 +266,11 @@ class SpmdLeader:
                 "arrays": {},
             })
             writer.close()
-            if self.strict:
+            if self.strict and not mirror:
                 self.mark_broken(f"follower {peer} beyond catch-up window")
             return
         q: asyncio.Queue = asyncio.Queue(maxsize=RING_FRAMES)
+        q.mirror = mirror
         # backlog + live, no gap: one loop turn between the ring snapshot
         # and the queue registration
         backlog = [f for s, f, _n in self._ring if s > from_seq]
@@ -240,14 +292,14 @@ class SpmdLeader:
         except asyncio.CancelledError:
             raise
         except (ConnectionError, OSError) as e:
-            self._follower_lost(peer, e)
+            self._follower_lost(peer, e, getattr(q, "mirror", False))
         finally:
             if q in self._conns:
                 self._conns.remove(q)
             writer.close()
 
-    def _follower_lost(self, peer, err) -> None:
-        if self.strict:
+    def _follower_lost(self, peer, err, mirror: bool = False) -> None:
+        if self.strict and not mirror:
             self.mark_broken(f"follower {peer} connection lost: {err}")
         else:
             log.warning("spmd follower %s lost (%s); serving continues, "
@@ -276,6 +328,7 @@ class SpmdLeader:
                            "arrays": {"page_ids": _enc(ids), "k": _enc(k),
                                       "v": _enc(v)}})
         self._sync_pending = 0
+        self.syncs_served += 1
 
         def _resolve() -> None:
             waiting, self._sync_waiting = self._sync_waiting, []
@@ -296,15 +349,26 @@ class SpmdLeader:
             pass  # loop closed during shutdown
 
     def publish(self, op: str, scalars: dict[str, Any] | None = None,
-                arrays: dict[str, np.ndarray] | None = None) -> int:
-        """Send one descriptor; returns its sequence number (1, 2, ...)."""
+                arrays: dict[str, np.ndarray] | None = None, side: bool = False) -> int:
+        """Send one descriptor; returns its sequence number (1, 2, ...).
+        ``side``: its replay runs no collective (any thread may send it)."""
         t0 = time.perf_counter()
         msg = {"op": op, "scalars": scalars or {},
                "arrays": {k: _enc(np.asarray(v)) for k, v in (arrays or {}).items()}}
-        self.publish_count += 1
-        seq = self.publish_count
         nbytes = sum(len(v["data"]) for v in msg["arrays"].values()) + 256
-        self.publish_bytes += nbytes
+        with self._lock:
+            self.publish_count += 1
+            seq = self.publish_count
+            if not side:
+                self.lockstep_count += 1
+            self.publish_bytes += nbytes
+            self._send(msg, seq, nbytes)
+        self.publish_secs += time.perf_counter() - t0
+        return seq
+
+    def _send(self, msg: dict, seq: int, nbytes: int) -> None:
+        """Hand ``msg`` to the ring and the connections on the event loop
+        (under the publish lock: the loop sees the sequence in order)."""
 
         def _enqueue() -> None:
             self._loop_seq = seq
@@ -329,7 +393,7 @@ class SpmdLeader:
                         pass
                     q.put_nowait(_DROPPED)
                     in_grace = getattr(q, "sync_grace_until", 0.0) > time.monotonic()
-                    if self.strict and not in_grace:
+                    if self.strict and not in_grace and not getattr(q, "mirror", False):
                         self.mark_broken("follower stopped draining descriptors "
                                          f"({backlog} backlogged)")
                     else:
@@ -341,8 +405,6 @@ class SpmdLeader:
         except RuntimeError as e:  # loop closed
             self.publish_failures += 1
             self.mark_broken(f"descriptor publish failed: {e}")
-        self.publish_secs += time.perf_counter() - t0
-        return seq
 
     def stop(self) -> None:
         self.publish("stop")
@@ -355,11 +417,12 @@ class SpmdLeader:
             await asyncio.wait(list(self._streams), timeout=timeout)
         if self._server is not None:
             self._server.close()
-        try:
-            # a follower of a later run must not find this dead leader
-            await self.hub.delete(ADDR_KEY_FMT.format(group=self.group))
-        except Exception:  # noqa: BLE001 - the hub may already be gone
-            log.debug("spmd leader: address withdrawal failed", exc_info=True)
+        for hub in [self.hub, *self._advertised]:
+            try:
+                # a follower of a later run must not find this dead leader
+                await hub.delete(ADDR_KEY_FMT.format(group=self.group))
+            except Exception:  # noqa: BLE001 - the hub may already be gone
+                log.debug("spmd leader: address withdrawal failed", exc_info=True)
 
 
 class SpmdFollower:
@@ -367,12 +430,18 @@ class SpmdFollower:
     built exactly as the leader's engine (spec, EngineConfig, mesh, its
     shard of the weights): any other shape would issue other collectives.
     ``rejoin`` (mirror topologies) reconnects with a state sync when the
-    stream is lost; strict followers raise."""
+    stream is lost; strict followers raise. ``relay``: this follower is
+    rank 0 of a mirror group, and ``relay`` (its group's strict leader)
+    gets every descriptor before this rank applies it."""
 
-    def __init__(self, hub, group: str, engine, rejoin: bool | None = None):
+    def __init__(self, hub, group: str, engine, rejoin: bool | None = None,
+                 relay: SpmdLeader | None = None):
         self.hub = hub
         self.group = group
         self.engine = engine
+        self.relay = relay
+        self._apply_pool = None  # the apply thread
+        self.op_secs: dict[str, float] = {}  # host seconds per op
         depth = int(getattr(engine.config, "pipeline_depth", 2) or 2)
         # this process's in-flight decode bursts by the leader's descriptor
         # sequence number: the chain feeds of later bursts
@@ -402,6 +471,13 @@ class SpmdFollower:
         reconnects with a state-sync join (``DYNAMO_SPMD_SYNC_JOIN=1``
         makes the first join a sync join too)."""
         sync_join = os.environ.get("DYNAMO_SPMD_SYNC_JOIN") == "1"
+        try:
+            await self._run_rejoining(sync_join)
+        finally:
+            if self._apply_pool is not None:
+                self._apply_pool.shutdown(wait=False)
+
+    async def _run_rejoining(self, sync_join: bool) -> None:
         while True:
             try:
                 await self._run_once(sync_join)
@@ -426,7 +502,8 @@ class SpmdFollower:
                 if asyncio.get_running_loop().time() > deadline:
                     raise ConnectionError(f"spmd leader at {addr} unreachable: {e}") from e
                 await asyncio.sleep(0.3)
-        await write_frame(writer, {"from_seq": 0, "sync": sync_join})
+        await write_frame(writer, {"from_seq": 0, "sync": sync_join,
+                                   "mirror": self.rejoin})
         log.info("spmd follower replaying from %s%s", addr,
                  " (sync join)" if sync_join else "")
         try:
@@ -450,21 +527,44 @@ class SpmdFollower:
                     raise ConnectionError(f"join rejected ({sc.get('reason')})")
                 raise RuntimeError(f"spmd leader rejected join: {sc.get('reason')}")
             if op == "__sync__":
+                if self.relay is not None:
+                    self.relay.publish("sync_install", sc, ar)
                 self._install_sync(sc, ar)
                 continue
-            self.apply(op, sc, ar)
+            # on a thread of its own, one descriptor at a time, while the
+            # loop stays free: a mirror group's ranks get the descriptor
+            # first (this rank's collectives wait for theirs, and the loop
+            # writes the frame out), and a prefill rank's transfer source
+            # answers its pullers during a replayed forward
+            import concurrent.futures
+
+            if self.relay is not None:
+                self.relay.publish(op, sc, ar)
+            if self._apply_pool is None:
+                self._apply_pool = concurrent.futures.ThreadPoolExecutor(
+                    1, thread_name_prefix="spmd-apply")
+            await asyncio.get_running_loop().run_in_executor(
+                self._apply_pool, self.apply, op, sc, ar)
 
     def _install_sync(self, sc: dict, ar: dict) -> None:
         """One chunk of a rejoin snapshot: the leader's quiesced pages."""
         from dynamo_tpu_torch.kvbm.offload import block_tensor
 
+        from dynamo_tpu_torch.disagg.transfer import split_heads
+
         eng = self.engine
         ids = ar["page_ids"].astype(np.int64)
         if ids.size:
-            dev = eng.device
+            dev, n = eng.device, eng.kv_shards
+            blocks = []
+            for name in ("k", "v"):
+                b = ar[name]
+                if n > 1:  # the snapshot holds every head: install this rank's
+                    b = split_heads(b, eng.spec.num_kv_heads, n, eng.mesh.tp_rank,
+                                    eng._packed_blocks())
+                blocks.append(block_tensor(np.array(b)).to(dev))
             eng.fam.insert_pages(eng.k_pages, eng.v_pages, torch.from_numpy(ids).to(dev),
-                                 block_tensor(np.array(ar["k"])).to(dev),
-                                 block_tensor(np.array(ar["v"])).to(dev))
+                                 *blocks)
         self._sync_pages += int(ids.size)
         if sc.get("last", True):
             self._bursts.clear()
@@ -504,6 +604,7 @@ class SpmdFollower:
         def t(name, dtype=torch.int32):
             return torch.from_numpy(np.array(ar[name])).to(dev, dtype)
 
+        t0 = time.perf_counter()
         if op == "prefill":
             mm = {}
             if "mm_embeds" in ar:
@@ -548,7 +649,31 @@ class SpmdFollower:
         elif op == "precompile":
             graphs = eng._graphs if sc["graphs"] == "decode" else eng._verify
             graphs.precompile([tuple(sc["key"])])
+        elif op == "kv_export":
+            # only the ranks of the leader's tp group hold a transfer source
+            # (the shards the params name); replicas and mirrors have none
+            if eng.transfer_source is not None:
+                eng.export_pages([int(p) for p in ar["page_ids"]], int(sc["num_tokens"]),
+                                 transfer_id=sc["transfer_id"])
+        elif op == "kv_prefetch":
+            eng.prefetch_shard(sc["kvp"])
+        elif op == "kv_unstage":
+            eng.unstage_shard(sc["transfer_id"])
+        elif op == "kv_resume":
+            pages = [int(p) for p in ar["page_ids"]]
+            if sc["mode"] == "inline":
+                eng.install_remote("inline", sc, pages, 0, inline=(ar["k"], ar["v"]))
+            else:  # shard, scatter
+                eng.install_remote(sc["mode"], sc, pages, int(sc["first"]))
+        elif op == "embed":
+            eng.embed_padded(np.array(ar["tokens"]), int(sc["num_tokens"]))
+        elif op == "kv_gather":
+            eng.gather_pages([int(p) for p in ar["page_ids"]])
+        elif op == "sync_install":
+            self._install_sync(sc, ar)
         else:
             raise RuntimeError(f"unknown spmd op {op!r}")
         self.replayed += 1
         self.ops[op] = self.ops.get(op, 0) + 1
+        self.op_secs[op] = self.op_secs.get(op, 0.0) + time.perf_counter() - t0
+

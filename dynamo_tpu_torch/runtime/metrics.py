@@ -150,6 +150,13 @@ class _Metric:
                 child = self._children[key] = self._new_child()
         return child
 
+    def remove(self, *values) -> None:
+        """Drop one child series (prometheus_client's ``remove``); a
+        series that was never made raises KeyError."""
+        key = tuple(str(v) for v in values)
+        with self._lock:
+            del self._children[key]
+
     def _only(self):
         if self.labelnames:
             raise ValueError(f"{self.name} has labels {self.labelnames}: use .labels()")

@@ -498,9 +498,10 @@ def test_other_axes_refuse_naming_their_item(axis, item):
 def test_tp_refusals_name_their_items():
     """MLA and MoE specs under tp > 1 shard (item 11b ported them: the
     engine and the MLA family's init keep this rank's heads and expert
-    columns), a disagg export under tp names item 11e, a tp config without
-    its mesh and a spec that does not divide are refused, a tp mesh needs
-    an initialised group."""
+    columns), a disagg export under tp builds (item 11e: a GQA rank
+    exports its KV-head shard, MLA's latent pool is whole), a tp config
+    without its mesh and a spec that does not divide are refused, a tp
+    mesh needs an initialised group."""
     from dynamo_tpu_torch.disagg.transfer import KvTransferSource
     from dynamo_tpu_torch.engine.core import InferenceEngine
     from dynamo_tpu_torch.models.convert import check_shardable
@@ -517,9 +518,12 @@ def test_tp_refusals_name_their_items():
     ds = ModelSpec.tiny_deepseek()
     params = get_family(ds).init_params(ds, 0, device="cpu", mesh=mesh)
     assert params.layers[0].w_uk.shape[0] == ds.num_heads // 2
-    with pytest.raises(NotImplementedError, match="item 11e"):
-        InferenceEngine(ModelSpec.dryrun(), EngineConfig(tp=2), device="cpu", mesh=mesh,
-                        transfer_source=KvTransferSource())
+    src = KvTransferSource()
+    eng = InferenceEngine(ModelSpec.dryrun(), EngineConfig(tp=2), device="cpu", mesh=mesh,
+                          transfer_source=src)
+    assert eng.transfer_source is src and eng.kv_shards == 2
+    assert InferenceEngine(ds, EngineConfig(tp=2), device="cpu", mesh=mesh,
+                           transfer_source=KvTransferSource()).kv_shards == 1
     with pytest.raises(ValueError, match="mesh"):
         InferenceEngine(ModelSpec.dryrun(), EngineConfig(tp=2), device="cpu")
     with pytest.raises(ValueError, match="divide"):
@@ -529,17 +533,36 @@ def test_tp_refusals_name_their_items():
     assert make_mesh(tp=1).group is None  # one process, no group: no collective
 
 
-async def test_worker_refuses_disagg_under_tp():
-    from dynamo_tpu_torch.engine.worker import launch_engine_worker
+async def test_worker_refuses_disagg_under_tp(monkeypatch):
+    """Item 11e: a prefill and a decode worker build on rank 0 of a tp=2
+    mesh. The prefill worker's source learns the other rank's transfer
+    source from the group's store (``shard_sources``), the decode worker
+    serves its front door over the tp engine."""
+    from dynamo_tpu_torch.disagg.handlers import DecodeWorkerHandler, PrefillWorkerHandler
+    from dynamo_tpu_torch.engine import worker
     from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
     from dynamo_tpu_torch.runtime.hub import InMemoryHub
 
+    peers = [{"addr": "127.0.0.1:1", "uid": "rank1"}]
+    asked = []
+
+    async def shard_sources(tp, group, timeout=120.0):
+        asked.append((tp, group))
+        return peers
+
+    monkeypatch.setattr(worker, "shard_sources", shard_sources)
     drt = DistributedRuntime(InMemoryHub())
     try:
-        for mode in ("prefill", "decode"):
-            with pytest.raises(NotImplementedError, match="item 11e"):
-                await launch_engine_worker(drt, engine_config=EngineConfig(tp=2),
-                                           mode=mode, device="cpu")
+        for mode, handler in (("prefill", PrefillWorkerHandler),
+                              ("decode", DecodeWorkerHandler)):
+            eng, _ = await worker.launch_engine_worker(
+                drt, engine_config=EngineConfig(tp=2), mode=mode, device="cpu",
+                mesh=local_mesh(2, 0), spec=ModelSpec.dryrun())
+            assert isinstance(eng.frontdoor, handler) and eng.kv_shards == 2
+            if mode == "prefill":
+                assert eng.transfer_source.peers == peers
+            await eng.close()
+        assert asked == [(2, "dynamo/backend/generate")]
     finally:
         await drt.close()
 
@@ -548,12 +571,13 @@ async def test_worker_refuses_disagg_under_tp():
                                   ["--mode", "decode", "--mirror", "leader"],
                                   ["--mirror", "follower", "--tp", "2"]])
 def test_worker_flags_refuse_disagg_and_mirror_under_tp(argv):
-    """The worker's flags refuse disagg under tp or a mirror, and a mirror
-    of a tp group, before any rank starts (item 11e)."""
+    """Item 11e: the worker's flags build the config of disagg under tp or
+    a mirror, and of a mirror of a tp group."""
     from dynamo_tpu_torch.engine.worker import _engine_config, parse_args
 
-    with pytest.raises(NotImplementedError, match="item 11e"):
-        _engine_config(parse_args(["--device", "cpu", *argv]))
+    args = parse_args(["--device", "cpu", *argv])
+    cfg = _engine_config(args)
+    assert cfg.tp == args.tp and (args.mode, args.mirror) != ("aggregated", None)
 
 
 @pytest.mark.parametrize("kh", [4, 2, 1])
