@@ -581,8 +581,40 @@ Phases, each of which must pass (any failure exits non-zero):
    decode ranks' launches join fused_decode/tp2, the one-rank worker's
    fused_decode.
 
+26. the scaling plane (after phase 25): ``cli hub``, ``cli frontend``,
+   ``cli operator --backend process`` (its workers' output under the
+   git-ignored build/scaling/workers/) and ``cli planner``, each a process;
+   a DynamoGraphDeployment with one ``decode`` service whose command is
+   ``-m dynamo_tpu_torch.engine.worker`` serving llama-3-8b at full width
+   cut to TP8_LAYERS layers (``--spec-json``, ``--precompile``, on this
+   card), 1 replica; the planner with ``--load-predictor constant
+   --no-correction``, a SCALE_INTERVAL_S interval, ``--min-endpoint 1``,
+   ``--max-chip-budget`` SCALE_BUDGET (its prefill replica holds one chip
+   of the budget, so 2 would cap decode at 1) and a profile written from
+   phase 4's readings (tok/s per chip, dispatch-to-host as the ITL, TTFT,
+   the packed prefill's tok/s). Streamed token-id completions through the
+   frontend in groups of SCALE_GROUP at SCALE_LOAD x the profile's tok/s:
+   burst 1 until the planner writes decode 2 and the operator's second
+   worker registers, burst 2 for SCALE_BURST2_INTERVALS intervals, then a
+   trickle of one request per interval (the planner skips an interval with
+   no completed request, as the reference's) until it writes decode 1 and
+   the operator SIGTERMs the second worker, which drains. Gates: every
+   stream of every set ends "length" with its full token count; the
+   desired key's revisions and the operator's status go 1 -> 2 -> 1; each
+   worker's own ForwardPassMetrics (kv_metrics.dynamo/backend) show
+   running requests with step_time_ms > 0, the scaled-up worker's during
+   burst 2; each worker's ENGINE_LAUNCHES has fused_decode once per layer
+   per step. Then ``AutoscaleController`` in this process, FleetTelemetry on
+   the same hub and K8sBackend on the same DGD: SCALE_AS_STREAMS concurrent
+   streams make its signal from the worker's metrics, its plan (2 workers)
+   goes to the planner key, the operator converges it and the new worker
+   registers. Prints the decisions and their intervals, desired-to-ready
+   and drain times, each worker's peak running requests and step ms, TTFT
+   and ITL per set; two workers time-slice the card, so not a capacity
+   gain. The workers' launches join fused_decode.
+
 Phases run in the order 1-8, 12, 13, 14, 18, 9, 20 (a, b, d), 21, 10, 11,
-19, 20 (c), 15, 16, 17, 22, 23, 24, 25.
+19, 20 (c), 15, 16, 17, 22, 23, 24, 25, 26.
 
 Prints, before the last line, the card line and one JSON object with every
 kernel's measurements; the last line is
@@ -4186,6 +4218,15 @@ class Child:
             self.proc.kill()
             self.proc.wait(30)
             require(False, f"{self.name} did not exit within {timeout} s of SIGTERM")
+
+    def pump(self) -> list[str]:
+        """Every line read so far (the queued ones moved to ``seen``)."""
+        while not self.lines.empty():
+            line = self.lines.get_nowait()
+            if line is None:
+                break
+            self.seen.append(line)
+        return self.seen
 
     def logged(self, prefix: str) -> str | None:
         """A line already read, or still queued, that starts with ``prefix``."""
@@ -10102,6 +10143,381 @@ def disagg_tp_phase(cfg, prompts, tp2_tokens, card) -> dict[str, int]:
             "fused_decode/tp2": sum(d["counts"]["fused_decode"] for d in D)}
 
 
+# ------------------------------------------------------------ phase 26
+
+SCALE_DIR = ROOT / "build" / "scaling"
+SCALE_INTERVAL_S = 2.0  # the planner's --adjustment-interval
+# the bursts' output tok/s over one replica's profiled tok/s: two replicas'
+# worth (ceil), with room for an interval whose completions bunch; a reading
+# above 2 plans 3, which the chip budget (one prefill replica in it) caps at 2
+SCALE_LOAD = 1.75
+SCALE_GROUP = 2  # requests sent at once: the router tells idle workers apart by load
+SCALE_BURST2_INTERVALS = 3  # the second burst's length, in planner intervals
+SCALE_BUDGET = 3  # chips: the planner keeps its min-endpoint prefill replica in it
+SCALE_SEED = 2626
+SCALE_AS_STREAMS = 16  # the autoscaler's burst: 8 slots running, 8 waiting
+SCALE_AS_TOKENS = 192
+
+
+def scaling_profile(p4: dict, path: Path) -> dict:
+    """The planner's profile (its npz format) from phase 4's readings on this
+    card: the full-depth llama-3-8b's decode tok/s at B 8 as the throughput
+    per chip at every context (ITL constant at phase 4's dispatch-to-host
+    mean, so any SLA above it selects that reading), its mean TTFT and its
+    packed prefill's tokens/s for the prefill side."""
+    from dynamo_tpu_torch.planner.interpolation import synthetic_profile
+
+    prof = synthetic_profile(
+        base_ttft_s=p4["ttft_s"], ttft_per_token_s=0.0,
+        prefill_thpt_per_chip=p4["prefill_tok_s"], base_itl_s=p4["itl_s"],
+        itl_per_kv_usage_s=0.0, itl_per_context_s=0.0,
+        decode_thpt_at_full_kv=p4["tok_s"], max_kv_tokens=p4["kv_tokens"],
+        max_context=p4["max_context"])
+    path.mkdir(parents=True, exist_ok=True)
+    for name in ("prefill.npz", "decode.npz"):
+        np.savez(path / name, **prof)
+    return prof
+
+
+async def scale_stream(port, model, text, n) -> dict:
+    """One streamed chat completion through the frontend: status, the final
+    usage and finish, TTFT (send to the first chunk) and ITL (first to last
+    chunk over tokens - 1)."""
+    status, body, times = await http_call(port, "POST", "/v1/chat/completions", {
+        "model": model, "messages": [{"role": "user", "content": text}], "max_tokens": n,
+        "ignore_eos": True, "stream": True, "stream_options": {"include_usage": True}})
+    events = sse_events(body) if status == 200 else []
+    usage = next((e["usage"] for e in events if isinstance(e, dict) and e.get("usage")), {})
+    finish = [c.get("finish_reason") for e in events if isinstance(e, dict)
+              for c in e.get("choices", []) if c.get("finish_reason")]
+    tokens = usage.get("completion_tokens", 0)
+    return {"ok": status == 200 and events[-1:] == ["[DONE]"] and finish == ["length"]
+            and tokens == n, "tokens": tokens, "ttft": times[0] if times else None,
+            "itl": (times[-1] - times[0]) / (n - 1) if len(times) > 1 and n > 1 else None,
+            "status": status}
+
+
+async def _scaling_drive(spec, hub_addr, port, op, planner, worker_cmd, prompts,
+                         rate) -> dict:
+    """Phase 26's traffic and observation, on this process's own loop."""
+    from dynamo_tpu_torch.autoscaler import (AutoscaleController, AutoscalerConfig,
+                                             FleetTelemetry, K8sBackend)
+    from dynamo_tpu_torch.operator.graph import DynamoGraphDeployment, ServiceSpec
+    from dynamo_tpu_torch.runtime.hub_client import RemoteHub
+
+    hub = await RemoteHub.connect(hub_addr)
+    t0 = time.monotonic()
+    clock = lambda: time.monotonic() - t0  # noqa: E731
+    out: dict = {"desired": [], "status": [], "instances": {}, "metrics": {},
+                 "results": {"burst1": [], "burst2": [], "trickle": [], "autoscale": []}}
+    inst = out["instances"]  # instance key -> [put time, delete time]
+
+    async def watch(prefix, fn):
+        async for ev in hub.watch_prefix(prefix):
+            fn(ev)
+
+    def on_desired(ev):
+        if ev.kind == "put":
+            v = ev.value
+            out["desired"].append((clock(), v["revision"], v["prefill"], v["decode"]))
+
+    def on_status(ev):
+        if ev.kind == "put" and "decode" in ev.value["services"]:
+            s = ev.value["services"]["decode"]
+            if not out["status"] or out["status"][-1][1:] != (s["desired"], s["ready"]):
+                out["status"].append((clock(), s["desired"], s["ready"]))
+
+    def on_instance(ev):
+        if ev.kind == "put":
+            inst.setdefault(ev.key, [clock(), None])
+        elif ev.kind == "delete" and ev.key in inst:
+            inst[ev.key][1] = clock()
+
+    async def on_metrics():
+        async for _s, m in hub.subscribe("kv_metrics.dynamo/backend"):
+            w = out["metrics"].setdefault(m["worker_id"], {"running": 0, "step_ms": 0.0,
+                                                           "reports": 0})
+            w["reports"] += 1
+            if m["running_requests"] > 0:
+                w["running"] = max(w["running"], m["running_requests"])
+                w["step_ms"] = max(w["step_ms"], m["step_time_ms"])
+                w.setdefault("busy", []).append(clock())
+
+    def live() -> int:
+        return sum(1 for a, d in inst.values() if d is None)
+
+    async def until(cond, what, timeout):
+        t = time.monotonic()
+        while not cond():
+            require(time.monotonic() - t < timeout,
+                    f"phase 26: {what} within {timeout} s (desired {out['desired']}, "
+                    f"status {out['status']}, instances {inst}, operator "
+                    f"{op.seen[-6:]})")
+            await asyncio.sleep(0.05)
+
+    tasks = [asyncio.create_task(c) for c in (
+        watch("v1/planner/dynamo/desired", on_desired), watch("v1/dgd-status/scale", on_status),
+        watch("v1/instances/dynamo/backend/generate/", on_instance), on_metrics())]
+    pending: list[asyncio.Task] = []
+    rng = np.random.default_rng(SCALE_SEED)
+
+    async def paced(label, per_s, stop, group=1):
+        """``group`` requests at a time, ``per_s`` in all, until ``stop()``."""
+        i, t = 0, time.monotonic()
+        while not stop():
+            for _ in range(group):
+                p = prompts[int(rng.integers(0, len(prompts)))]
+                task = asyncio.create_task(scale_stream(port, spec.name, p, SERVE_TOKENS))
+                task.add_done_callback(lambda f, lab=label: out["results"][lab].append(
+                    f.result()))
+                pending.append(task)
+                i += 1
+            await asyncio.sleep(max(0.0, t + i / per_s - time.monotonic()))
+
+    try:
+        dgd = DynamoGraphDeployment(name="scale", services=[ServiceSpec(
+            name="decode", replicas=1, role="decode", command=worker_cmd)])
+        await dgd.apply(hub)
+        out["t_dgd"] = clock()
+        await until(lambda: live() == 1, "the first worker registered", PROC_START_S)
+        out["t_first"] = clock()
+        while True:  # the frontend has discovered the model's card
+            status, body, _ = await http_call(port, "GET", "/v1/models")
+            if status == 200 and spec.name in [m["id"] for m in json.loads(body)["data"]]:
+                break
+            require(clock() - out["t_first"] < 30, f"phase 26: /v1/models {body[:200]}")
+            await asyncio.sleep(0.05)
+        # the bursts: SCALE_LOAD x one replica's profiled tok/s, in groups
+        await paced("burst1", rate, lambda: live() == 2, SCALE_GROUP)
+        out["t_burst2"] = clock()
+        await paced("burst2", rate, lambda: clock() - out["t_burst2"] >
+                    SCALE_BURST2_INTERVALS * SCALE_INTERVAL_S, SCALE_GROUP)
+        out["t_trickle"] = clock()
+        await paced("trickle", 1.0 / SCALE_INTERVAL_S,
+                    lambda: live() == 1 and out["desired"][-1][3] == 1)
+        await asyncio.gather(*pending)
+        pending.clear()
+        out["t_quiet"] = clock()
+        await until(lambda: any("decode[1]" in ln and "after SIGTERM" in ln
+                                for ln in op.pump()), "the second worker exited", 60)
+        out["t_exited"] = clock()
+        out["planner_rc"] = await asyncio.to_thread(planner.stop)
+        # the load-based autoscaler on the same hub and graph: its signal from
+        # the worker's own ForwardPassMetrics, its plan through K8sBackend
+        tel = FleetTelemetry(hub, "dynamo/backend", stale_after_s=2.0).start()
+        cfg = AutoscalerConfig(slots_per_worker=8, target_occupancy=0.75, min_workers=1,
+                               max_workers=2, up_cooldown_s=0.0, tick_interval_s=0.1)
+        ctl = AutoscaleController(cfg, tel, K8sBackend(hub, "dynamo", dgd_name="scale"),
+                                  initial_workers=1)
+        n_before = len(inst)
+        out["t_as"] = clock()
+        burst = [asyncio.create_task(scale_stream(
+            port, spec.name, prompts[i % len(prompts)], SCALE_AS_TOKENS))
+            for i in range(SCALE_AS_STREAMS)]
+        sigs = []
+        while not ctl.plans:
+            require(not all(t.done() for t in burst) and clock() - out["t_as"] < 60,
+                    f"phase 26: the autoscaler planned nothing (signals {sigs[-5:]})")
+            sigs.append(tel.signal())
+            await ctl.tick()
+            await asyncio.sleep(cfg.tick_interval_s)
+        out["as_signal"], out["as_plan"], out["t_as_plan"] = sigs[-1], ctl.plans[0], clock()
+        while ctl._converging is not None:
+            require(clock() - out["t_as_plan"] < 30, f"phase 26: plan not converged "
+                    f"({ctl.report()}, status {out['status'][-3:]})")
+            await asyncio.sleep(cfg.tick_interval_s)
+            await ctl.tick()
+        out["t_as_converged"] = clock()
+        out["as_report"] = ctl.report()
+        out["results"]["autoscale"] = await asyncio.gather(*burst)
+        await until(lambda: live() == 2 and len(inst) == n_before + 1,
+                    "the autoscaler's worker registered", PROC_START_S)
+        out["t_as_ready"] = clock()
+        await tel.close()
+    finally:
+        for t in pending:
+            t.cancel()
+        for t in tasks:
+            t.cancel()
+        await hub.close()
+    return out
+
+
+def scaling_phase(p4: dict, card: str, device: str | None = None, spec=None) -> int:
+    """Phase 26: the scaling plane on the card (see the module docstring).
+    Returns the workers' fused_decode launches (their ENGINE_LAUNCHES)."""
+    import dataclasses
+    import gc
+    import shutil
+
+    t26 = time.perf_counter()
+    spec = spec or tp8_spec()
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(SCALE_DIR, ignore_errors=True)
+    prof = scaling_profile(p4, SCALE_DIR / "profile")
+    rng = np.random.default_rng(SCALE_SEED)
+    # chat texts of 64-128 bytes (mock-tokenizer tokens), each opening with
+    # its own number so no two share a first KV block (the router would
+    # follow the overlap)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz     "))
+    prompts = [f"{i:03d} " + "".join(rng.choice(letters, int(n) - 4))
+               for i, n in enumerate(rng.integers(64, 129, 32))]
+    children: list[Child] = []
+    try:
+        hub_proc = Child("hub", "--port", "0")
+        children.append(hub_proc)
+        hub = hub_proc.wait_line("DYNAMO_HUB=", 60).split("=", 1)[1]
+        front = Child("frontend", "--hub", hub, "--port", "0", "--host", "127.0.0.1")
+        op = Child("operator", "--hub", hub, "--name", "scale", "--interval", "0.5",
+                   "--log-dir", str(SCALE_DIR / "workers"))
+        children += [front, op]
+        port = int(front.wait_line("DYNAMO_HTTP=", 120).rsplit(":", 1)[1])
+        planner = Child("planner", "--hub", hub, "--metrics-url",
+                        f"http://127.0.0.1:{port}/metrics", "--load-predictor", "constant",
+                        "--no-correction", "--adjustment-interval", str(SCALE_INTERVAL_S),
+                        "--min-endpoint", "1", "--max-chip-budget", str(SCALE_BUDGET),
+                        "--profile-dir", str(SCALE_DIR / "profile"))
+        children.append(planner)
+        op.wait_line("OPERATOR_READY", 60)
+        planner.wait_line("PLANNER_READY", 60)
+        worker_cmd = ["-m", "dynamo_tpu_torch.engine.worker", "--hub", hub, "--spec-json",
+                      json.dumps(dataclasses.asdict(spec)), "--page-size", "16",
+                      "--num-pages", "512", "--max-pages-per-seq", "64",
+                      "--max-decode-slots", "8", "--guided", "off", "--precompile",
+                      *(["--device", device] if device else [])]
+        rate = SCALE_LOAD * p4["tok_s"] / SERVE_TOKENS
+        res = asyncio.run(_scaling_drive(spec, hub, port, op, planner, worker_cmd, prompts,
+                                         rate))
+        for child in (op, front, hub_proc):
+            require(child.stop() == 0, f"{child.name} exited non-zero: {child.seen[-8:]}")
+        op.pump()
+    finally:
+        for child in children:
+            if child.proc.poll() is None:
+                child.proc.kill()
+                child.proc.wait(30)
+    return scaling_report(res, prof, spec, p4, op, card, time.perf_counter() - t26)
+
+
+def _compress(values) -> list:
+    out: list = []
+    for v in values:
+        if not out or v != out[-1]:
+            out.append(v)
+    return out
+
+
+def scaling_report(res, prof, spec, p4, op, card, wall) -> int:
+    """Phase 26's gates and lines; the workers' fused_decode launches."""
+    import statistics
+
+    results = res["results"]
+    for label, rs in results.items():
+        bad = [r for r in rs if not r["ok"]]
+        require(rs and not bad, f"phase 26 {label}: {len(bad)} of {len(rs)} streams "
+                f"failed: {bad[:3]}")
+    t_as = res["t_as"]
+    planner_writes = [d for d in res["desired"] if d[0] < t_as]
+    as_writes = [d for d in res["desired"] if d[0] >= t_as]
+    require(_compress([1] + [d[3] for d in planner_writes]) == [1, 2, 1]
+            and [d[1] for d in planner_writes] == list(range(1, len(planner_writes) + 1)),
+            f"phase 26: the planner's desired writes {planner_writes}")
+    status = [s for s in res["status"] if s[0] < t_as]
+    require(_compress([s[1] for s in status]) == [1, 2, 1]
+            and _compress([s[2] for s in status if s[2] > 0]) == [1, 2, 1],
+            f"phase 26: the operator's status {status}")
+    keys = sorted(res["instances"], key=lambda k: res["instances"][k][0])
+    require(len(keys) == 3, f"phase 26: instances {res['instances']}")
+    ids = [int(k.rsplit("/", 1)[1], 16) for k in keys]
+    m = res["metrics"]
+    t_up = next(d[0] for d in planner_writes if d[3] == 2)
+    t_down = next(d[0] for d in planner_writes if d[0] > t_up and d[3] == 1)
+    for i, wid in enumerate(ids[:2]):
+        w = m.get(wid, {})
+        require(w.get("running", 0) >= 1 and w.get("step_ms", 0) > 0,
+                f"phase 26: worker {i} ({wid:x}) metrics {w}")
+    served2 = [t for t in m[ids[1]].get("busy", []) if res["t_burst2"] <= t <= res["t_trickle"]]
+    require(served2, f"phase 26: the scaled-up worker ran nothing in the second burst "
+            f"({m[ids[1]].get('busy', [])[:8]})")
+    # the workers' own kernel counts since their precompile (ENGINE_LAUNCHES
+    # at each SIGTERM drain): decode-1.log holds the planner's replica,
+    # then the autoscaler's
+    launches = []
+    for log in sorted((SCALE_DIR / "workers").glob("decode-*.log")):
+        text = log.read_text()
+        for ln in text.splitlines():
+            if ln.startswith("ENGINE_LAUNCHES "):
+                d = json.loads(ln.split(" ", 1)[1])
+                launches.append((log.name, d["launches"].get("fused_decode_attention", 0),
+                                 d["steps"]))
+        require(text.count("ENGINE_DRAINED leftover=0") == text.count("ENGINE_LAUNCHES "),
+                f"phase 26: {log.name} did not drain clean: {text[-400:]}")
+    require(len(launches) == 3, f"phase 26: ENGINE_LAUNCHES lines {launches}")
+    for name, fused, steps in launches:
+        require(DEVICE != "cuda" or fused == spec.num_layers * steps,
+                f"phase 26: {name}: fused_decode {fused} over {steps} steps")
+    require(DEVICE != "cuda" or (launches[0][1] > 0 and launches[1][1] > 0),
+            f"phase 26: a planner-scaled worker launched no fused_decode: {launches}")
+    exit_s = [float(re.search(r"exited rc=0 ([0-9.]+) s after SIGTERM", ln).group(1))
+              for ln in op.seen if "decode[1]" in ln and "exited rc=0" in ln]
+    require(exit_s, f"phase 26: no clean exit of decode[1] in {op.seen[-10:]}")
+    withdraw = res["instances"][keys[1]][1]
+    sig, plan, rep = res["as_signal"], res["as_plan"], res["as_report"]
+    require(sig.workers_observed >= 1 and sig.demand >= 7 and plan.workers == 2
+            and not rep["unconverged"] and [d[3] for d in as_writes] == [2],
+            f"phase 26: autoscaler signal {sig}, plan {plan}, report {rep}, "
+            f"writes {as_writes}")
+
+    def lat(label):
+        rs = results[label]
+        tt = [r["ttft"] for r in rs]
+        it = [r["itl"] for r in rs if r["itl"] is not None]
+        return (f"{len(rs)} streams, TTFT mean {1e3 * statistics.fmean(tt):.1f} ms, max "
+                f"{1e3 * max(tt):.1f}, ITL mean {1e3 * statistics.fmean(it):.2f} ms")
+
+    thpt = float(prof["decode_thpt_per_chip"].max())
+    print(f"phase 26 [{card}]: scaling plane ({spec.name} workers started by the operator, "
+          f"each on this card); profile from phase 4 ({p4['tok_s']:.1f} tok/s per chip at B 8, "
+          f"ITL {1e3 * p4['itl_s']:.2f} ms, TTFT {1e3 * p4['ttft_s']:.1f} ms, prefill "
+          f"{p4['prefill_tok_s']:.0f} tok/s): one replica {thpt:.1f} tok/s; bursts of "
+          f"{SCALE_GROUP} x {SERVE_TOKENS}-token streams at {SCALE_LOAD} x that "
+          f"({SCALE_LOAD * thpt / SERVE_TOKENS:.2f} requests/s); planner interval "
+          f"{SCALE_INTERVAL_S} s, chip budget {SCALE_BUDGET} (1 prefill + 2 decode)")
+    gaps = [round(b[0] - a[0], 3) for a, b in zip(planner_writes, planner_writes[1:])]
+    print("phase 26 planner decisions (s since the DGD, revision, prefill, decode): "
+          + ", ".join(f"({t - res['t_dgd']:.2f}, r{r}, {p}, {d})"
+                      for t, r, p, d in planner_writes) + f"; intervals {gaps} s")
+    st_up = next(s[0] for s in status if s[2] == 2)
+    print(f"phase 26 scale-up: first worker ready {res['t_first'] - res['t_dgd']:.2f} s "
+          f"after the DGD; desired decode 2 at {t_up - res['t_dgd']:.2f} s; the second "
+          f"worker registered {res['instances'][keys[1]][0] - t_up:.2f} s after it "
+          f"(spawn, weights, graphs on the card), status ready 2 after "
+          f"{st_up - t_up:.2f} s")
+    print(f"phase 26 scale-down: desired decode 1 at {t_down - res['t_dgd']:.2f} s; the "
+          f"second worker withdrew {withdraw - t_down:.2f} s after it and exited rc 0 "
+          f"{exit_s[0]:.2f} s after its SIGTERM (drain)")
+    for i, wid in enumerate(ids):
+        w = m.get(wid, {})
+        print(f"phase 26 worker {i} ({wid:x}): peak running requests {w.get('running')}, "
+              f"max step {w.get('step_ms', 0):.2f} ms ({w.get('reports', 0)} "
+              f"ForwardPassMetrics reports)")
+    print("phase 26 workers' fused_decode launches (ENGINE_LAUNCHES): " + ", ".join(
+        f"{n} {f} = {spec.num_layers} x {s} steps" for n, f, s in launches))
+    for label in ("burst1", "burst2", "trickle", "autoscale"):
+        print(f"phase 26 {label}: {lat(label)}")
+    print("phase 26: two workers time-slice one card (no MPS): these lines show the "
+          "path, not a capacity gain")
+    print(f"phase 26 autoscaler: signal demand {sig.demand} from {sig.workers_observed} "
+          f"worker(s) (prefill queue {sig.prefill_queue_tokens}); plan r{plan.revision} "
+          f"workers {plan.workers} ({plan.reason}) {res['t_as_plan'] - res['t_as']:.2f} s "
+          f"into its burst; converged in {rep['converge_ticks_max']} ticks "
+          f"({res['t_as_converged'] - res['t_as_plan']:.2f} s, status ready 2), the new "
+          f"worker registered {res['t_as_ready'] - res['t_as_plan']:.2f} s after the plan")
+    print(f"phase 26: {wall:.1f} s")
+    return sum(f for _n, f, _s in launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the GPU",
@@ -10277,11 +10693,25 @@ def main() -> int:
     # group, the EPP in front of both decode workers
     p25_launches = disagg_tp_phase(cfg, prompts, tp2_tokens, card)
 
+    # the scaling plane: hub, frontend, operator and planner processes; the
+    # operator scales llama-3-8b workers (4 layers) 1 -> 2 -> 1 on the
+    # planner's decisions, then converges the load-based autoscaler's plan
+    p4_res, p4_ttft, p4_wall, _hit = default_out["res"]
+    p4 = {"tok_s": sum(len(x["token_ids"]) for items in p4_res.values() for x in items)
+          / p4_wall,
+          "ttft_s": sum(p4_ttft.values()) / len(p4_ttft),
+          "itl_s": sum(default_out["times"]) / len(default_out["times"]),
+          "prefill_tok_s": sum(len(p) for p in prompts) / max(p4_ttft.values()),
+          "kv_tokens": cfg["num_pages"] * cfg["page_size"],
+          "max_context": cfg["max_pages_per_seq"] * cfg["page_size"]}
+    scale_launches = scaling_phase(p4, card)
+
     launches = {"fused_decode": serve_launches["fused_decode"] + http_launches
                 + process_launches + overload_launches + guided_launches
                 + kvbm_launches + text_launches["fused_decode"] + disagg_launches
                 + obs_launches + mm_launches + tp_launches["fused_decode"]
-                + pp_launches["fused_decode"] + p25_launches["fused_decode"],
+                + pp_launches["fused_decode"] + p25_launches["fused_decode"]
+                + scale_launches,
                 "paged_attention_v3": unfused[0], "kv_write": unfused[2],
                 "kv_write/verify": spec_kv_launches + guided_kv_launches
                 + text_launches["kv_write/verify"],

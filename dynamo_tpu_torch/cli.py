@@ -30,6 +30,13 @@
         LLM's hidden (``--vit-size tiny`` for tests), or the mock encoder;
         pair it with a worker given ``--mm-tokens-per-image`` and
         ``--image-token-id``
+    python -m dynamo_tpu_torch.cli planner|operator --hub H ...
+        the scaling plane: the SLA planner (prints PLANNER_READY; scrapes
+        the frontend's /metrics every --adjustment-interval and writes the
+        desired replica counts to v1/planner/{ns}/desired) and the operator
+        (prints OPERATOR_READY; converges the DynamoGraphDeployment
+        v1/dgd/{name}, the planner's counts overriding its prefill/decode
+        services, onto worker processes; SIGTERM drains them)
 
 The engine runs on the GPU; ``--device cpu`` runs it on the CPU (tests).
 ``--spec``, ``--guided``, ``--tp`` and ``--sp`` are the reference's, each
@@ -39,8 +46,8 @@ E`` go through the worker's launcher (engine/worker.start_tp_group: ranks
 engine prints ``ENGINE_LAUNCHES {json}`` (kernel launches, steps, replays
 and speculation counters since it was ready), as a worker does.
 ``--out engine`` is the default (the reference's is ``mocker``): the port's
-main path is the card. The other service subcommands (planner, ...) are
-refused until their own slices.
+main path is the card. The other service subcommands (hub-replica, bench,
+profile) are refused until their own slices.
 """
 
 from __future__ import annotations
@@ -57,12 +64,13 @@ SUBCOMMAND_MODULES = {
     "encoder": "dynamo_tpu_torch.multimodal.worker",
     "router": "dynamo_tpu_torch.kv_router.service",
     "mocker": "dynamo_tpu_torch.mocker.__main__",
+    "operator": "dynamo_tpu_torch.operator.__main__",
+    "planner": "dynamo_tpu_torch.planner.__main__",
 }
 # the reference's other service commands -> the ROADMAP Queue A item that
 # ports them
 REFUSED_COMMANDS = {
-    "hub-replica": "item 14", "operator": "item 14", "planner": "item 14",
-    "bench": "item 14", "profile": "item 14",
+    "hub-replica": "item 14", "bench": "item 14", "profile": "item 14",
 }
 
 

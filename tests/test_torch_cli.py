@@ -159,3 +159,35 @@ def test_run_serves_a_tokenizer_checkpoint_and_reports_at_sigterm(tmp_path):
     line = next(ln for ln in out.splitlines() if ln.startswith("ENGINE_LAUNCHES "))
     report = json.loads(line.split(" ", 1)[1])
     assert report["spec"]["verifies"] > 0 and report["launches"]["kv_write"] == 0
+
+
+def test_planner_command_prints_the_reference_dryrun(tmp_path, capsys):
+    """``cli planner --dryrun-trace`` (moved from the refused commands)
+    prints the reference CLI's decisions line for line."""
+    import json
+
+    trace = tmp_path / "trace.jsonl"
+    trace.write_text("".join(json.dumps({"num_req": n, "isl": 300 + 10 * n, "osl": 120})
+                             + "\n" for n in (4, 90, 400, 1500, 60, 0)))
+    argv = ["planner", "--dryrun-trace", str(trace), "--load-predictor", "holt",
+            "--adjustment-interval", "5", "--max-chip-budget", "10"]
+    assert jax_cli.main(list(argv)) == 0
+    want = capsys.readouterr().out
+    assert cli.main(list(argv)) == 0
+    got = capsys.readouterr().out
+    assert got == want and len(got.splitlines()) == 6
+    assert "planner" in cli.SUBCOMMAND_MODULES and "planner" not in cli.REFUSED_COMMANDS
+
+
+def test_operator_command_refuses_without_a_hub_as_the_reference(monkeypatch):
+    """``cli operator`` (moved from the refused commands) needs a hub, and
+    says so in the reference's words."""
+    for k in ("DYN_HUB_ADDRESSES", "DYN_HUB_ADDRESS"):
+        monkeypatch.delenv(k, raising=False)
+    msgs = []
+    for main in (jax_cli.main, cli.main):
+        with pytest.raises(SystemExit) as e:
+            main(["operator", "--name", "g"])
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1] and "--hub" in msgs[1]
+    assert "operator" in cli.SUBCOMMAND_MODULES and "operator" not in cli.REFUSED_COMMANDS

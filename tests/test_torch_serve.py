@@ -808,7 +808,7 @@ def test_cli_batch_and_refusals(tmp_path):
     with pytest.raises(SystemExit):  # argparse: not one of the outputs
         cli.main(["run", "--out", "nope"])
     with pytest.raises(NotImplementedError, match="item 14"):
-        cli.main(["planner"])
+        cli.main(["hub-replica"])
 
 
 def test_cli_without_gpu_refuses_the_cpu():
