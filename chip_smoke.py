@@ -532,10 +532,10 @@ Phases, each of which must pass (any failure exits non-zero):
    first near-tie, prompt 0's pages within TP_POOL_TOL of the one-rank
    pools' matching layers and KV heads, kv_write and paged_attention_v3
    once per layer per tick (2 pp - 1 ticks) per step on every rank, (b)'s
-   dp replicas' pools bitwise equal; (d) llama-3-8b at full size over
-   sp=2 x tp=2 through InferenceEngine (leader and followers): the
-   2,048-token prompt's ring prefill logits within TP_LOGIT_TOL of one
-   rank's, then that prompt and phase 4's 8 (every cold one by ring
+   dp replicas' pools bitwise equal; (d) llama-3-8b at full width cut to
+   SP_LAYERS layers over sp=2 x tp=2 through InferenceEngine (leader and
+   followers): the 2,048-token prompt's ring prefill logits within
+   TP_LOGIT_TOL of one rank's, then that prompt and phase 4's 8 (every cold one by ring
    prefill) on bf16 and on fp8 pools, streams equal to one rank's engine up
    to the first near-tie, bf16 pages by block hash within TP_POOL_TOL, the
    sp replicas' pools bitwise equal; (e) ``cli worker`` with an EngineConfig
@@ -613,8 +613,36 @@ Phases, each of which must pass (any failure exits non-zero):
    and ITL per set; two workers time-slice the card, so not a capacity
    gain. The workers' launches join fused_decode.
 
+27. the replicated and the durable hub (after phase 26): (a) three ``cli
+   hub-replica`` processes (``--lease-s`` HUB27_LEASE_S, data dirs under
+   the git-ignored build/hub27/), ``cli frontend`` and ``cli worker``
+   serving llama-3-8b at full width cut to TP8_LAYERS layers (as phase
+   26's workers, ``--precompile``, on this card), each given the whole
+   address list with the elected leader first (so both hold their hub
+   connection to the replica that dies). Streamed token-id completions of SERVE_TOKENS tokens, two
+   at a time, through the frontend; after HUB27_BEFORE have finished the
+   leader replica is SIGKILLed while streams run; a writer in this process
+   puts a key every HUB27_WRITE_S through the port's RemoteHub all phase
+   long; the killed replica restarts on its address and data dir and
+   catches up; HUB27_AFTER more streams after that. Gates: every stream
+   ends "length" after SERVE_TOKENS tokens; every write acked; one leader
+   per term in the replicas' statuses; the frontend's /health counts the
+   worker's instance at every poll and no delete of its key is seen;
+   ``sim.cluster.check_cluster_invariants`` holds on the three data dirs
+   with the worker's registration inside the committed prefix; the
+   worker's ENGINE_LAUNCHES has fused_decode once per layer per step.
+   Prints kill to new leader, the writer's longest gap between acks,
+   restart to caught up, the client failover counters (this process's and
+   the frontend's), TTFT and ITL of the streams before, during and after
+   the election. (b) ``cli hub --data-dir build/hub27/single`` with ``cli
+   mocker`` and ``cli frontend``: the hub SIGKILLed and restarted on its
+   port and dir must answer with the same boot_id, the model card and the
+   instance key (no write to them in its WAL since the restart), and the
+   frontend must serve a chat after it. No kernel of its own: the worker
+   of (a) is the card's part, and its launches join fused_decode.
+
 Phases run in the order 1-8, 12, 13, 14, 18, 9, 20 (a, b, d), 21, 10, 11,
-19, 20 (c), 15, 16, 17, 22, 23, 24, 25, 26.
+19, 20 (c), 15, 16, 17, 22, 23, 24, 25, 26, 27.
 
 Prints, before the last line, the card line and one JSON object with every
 kernel's measurements; the last line is
@@ -8835,6 +8863,7 @@ SP_SEED = 2424
 # the table; graphs off (a gloo group's collectives cannot be captured)
 SP_CFG = dict(page_size=16, num_pages=512, max_pages_per_seq=160, max_decode_slots=8,
               cuda_graphs=False)
+SP_LAYERS = 8  # (d): llama-3-8b at full width, cut to this many layers
 DP_LAYERS = 4  # (e): llama-3-8b at full width, cut to this many layers
 
 
@@ -9379,7 +9408,8 @@ def pp_sp_phase(cfg, prompts, card, flush) -> tuple[dict, dict[str, int]]:
 
     t24 = time.perf_counter()
     rows = pp_kernel_rows(flush, card)
-    spec8 = ModelSpec.llama3_8b()
+    spec8 = dataclasses.replace(ModelSpec.llama3_8b(), num_layers=SP_LAYERS,
+                                name=f"llama-3-8b[{SP_LAYERS} layers]")
     specpp = dataclasses.replace(spec8, num_layers=PP8_LAYERS,
                                  name=f"llama-3-8b[{PP8_LAYERS} layers]")
     spec70 = dataclasses.replace(ModelSpec.llama3_70b(), num_layers=PP70_LAYERS,
@@ -9445,7 +9475,8 @@ def pp_sp_phase(cfg, prompts, card, flush) -> tuple[dict, dict[str, int]]:
                      f"128256; cut to {PP70_LAYERS} layers) pp=4 gloo", card)
         d = sp_check(spec8, prompts, long_prompt, (params8, logits, engines),
                      [r["d"] for r in ranks],
-                     "phase 24 (d) llama-3-8b (full size) sp=2 x tp=2 gloo engine", card)
+                     f"phase 24 (d) llama-3-8b (full width, cut to {SP_LAYERS} layers) sp=2 x "
+                     "tp=2 gloo engine", card)
     finally:
         drop_engine(engines["bf16"][0])
         del params8, engines
@@ -10180,12 +10211,18 @@ def scaling_profile(p4: dict, path: Path) -> dict:
 
 
 async def scale_stream(port, model, text, n) -> dict:
-    """One streamed chat completion through the frontend: status, the final
-    usage and finish, TTFT (send to the first chunk) and ITL (first to last
-    chunk over tokens - 1)."""
-    status, body, times = await http_call(port, "POST", "/v1/chat/completions", {
-        "model": model, "messages": [{"role": "user", "content": text}], "max_tokens": n,
-        "ignore_eos": True, "stream": True, "stream_options": {"include_usage": True}})
+    """One streamed chat completion through the frontend (stream_call)."""
+    return await stream_call(port, "/v1/chat/completions", {
+        "model": model, "messages": [{"role": "user", "content": text}]}, n)
+
+
+async def stream_call(port, path, body, n) -> dict:
+    """One streamed completion of ``n`` tokens through the frontend: status,
+    the final usage and finish, TTFT (send to the first chunk) and ITL
+    (first to last chunk over tokens - 1)."""
+    status, body, times = await http_call(port, "POST", path, {
+        **body, "max_tokens": n, "ignore_eos": True, "stream": True,
+        "stream_options": {"include_usage": True}})
     events = sse_events(body) if status == 200 else []
     usage = next((e["usage"] for e in events if isinstance(e, dict) and e.get("usage")), {})
     finish = [c.get("finish_reason") for e in events if isinstance(e, dict)
@@ -10518,6 +10555,363 @@ def scaling_report(res, prof, spec, p4, op, card, wall) -> int:
     return sum(f for _n, f, _s in launches)
 
 
+# ------------------------------------------------------------ phase 27
+
+HUB27_DIR = ROOT / "build" / "hub27"
+HUB27_LEASE_S = 1.0  # the replicas' leader lease
+HUB27_WRITE_S = 0.05  # the writer's put interval
+HUB27_BEFORE = 4  # streams finished before the leader is killed
+HUB27_AFTER = 8  # streams started after the killed replica caught up
+HUB27_SEED = 2727
+
+
+def hub27_replica(addr: str, peers: str, data_dir: Path) -> "Child":
+    """One ``cli hub-replica`` process, listening once this returns."""
+    host, port = addr.rsplit(":", 1)
+    child = Child("hub-replica", "--host", host, "--port", port, "--peers", peers,
+                  "--data-dir", str(data_dir), "--lease-s", str(HUB27_LEASE_S))
+    child.wait_line("DYNAMO_HUB=", 60)
+    return child
+
+
+def _p27_classes(streams, t_kill, t_elected) -> dict[str, list]:
+    """The streams that ended before the kill, ran while the cluster had no
+    leader (from the kill to the election), and started after it."""
+    return {"before": [s for s in streams if s["end"] < t_kill],
+            "during": [s for s in streams if s["end"] >= t_kill and s["start"] < t_elected],
+            "after": [s for s in streams if s["start"] >= t_elected]}
+
+
+async def _replicated_drive(spec, addrs, first_leader, port, replicas, dirs, vocab) -> dict:
+    """Phase 27 (a)'s traffic, kill, restart and observation."""
+    from dynamo_tpu_torch.runtime.hub_client import RemoteHub, failover_stats
+    from dynamo_tpu_torch.sim import cluster
+
+    peers = ",".join(addrs)
+    fo0 = failover_stats()
+    hub = await RemoteHub.connect(peers, reconnect_window_s=30.0)
+    t0 = time.monotonic()
+    clock = lambda: time.monotonic() - t0  # noqa: E731
+    out: dict = {"streams": [], "acks": [], "write_failures": [], "leaders": {},
+                 "health": [], "deletes": []}
+    stop, stop_streams = asyncio.Event(), asyncio.Event()
+    inst_prefix = "v1/instances/dynamo/backend/generate/"
+    inst = await hub.get_prefix(inst_prefix)
+    require(len(inst) == 1, f"phase 27: instance keys {inst}")
+    out["inst_key"] = next(iter(inst))
+    rng = np.random.default_rng(HUB27_SEED)
+    prompts = [rng.integers(3, vocab, int(n)).tolist() for n in rng.integers(64, 257, 64)]
+
+    async def writer():
+        i = 0
+        while not stop.is_set():
+            t = time.monotonic()
+            try:
+                await hub.put(f"p27/w/{i}", i)
+                out["acks"].append(clock())
+            except (ConnectionError, RuntimeError) as e:
+                out["write_failures"].append(f"{i}: {e}")
+            i += 1
+            await asyncio.sleep(max(0.0, t + HUB27_WRITE_S - time.monotonic()))
+
+    async def watch():
+        async for ev in hub.watch_prefix(inst_prefix):
+            if ev.kind == "delete":
+                out["deletes"].append((clock(), ev.key))
+
+    async def poll():
+        """The replicas' roles and the frontend's view of the worker."""
+        while not stop.is_set():
+            for a, st in zip(addrs, await asyncio.gather(
+                    *(cluster.repl_status(a) for a in addrs))):
+                if st and st["role"] == "leader":
+                    out["leaders"].setdefault(st["epoch"], set()).add(a)
+            status, body, _ = await http_call(port, "GET", "/health")
+            models = json.loads(body).get("models", {}) if status == 200 else {}
+            out["health"].append((clock(), models.get(spec.name, {}).get("instances", 0)))
+            await asyncio.sleep(0.1)
+
+    async def stream(i):
+        t = clock()
+        r = await stream_call(port, "/v1/completions", {
+            "model": spec.name, "prompt": prompts[i % len(prompts)]}, SERVE_TOKENS)
+        out["streams"].append(dict(r, i=i, start=t, end=clock()))
+
+    async def pairs(first):
+        i = first
+        while not stop_streams.is_set():
+            await asyncio.gather(stream(i), stream(i + 1))
+            i += 2
+
+    async def statuses(skip=()):
+        return {a: await cluster.repl_status(a) for a in addrs if a not in skip}
+
+    tasks = [asyncio.create_task(c) for c in (writer(), watch(), poll())]
+    runner = None
+    try:
+        for i in range(0, HUB27_BEFORE, 2):
+            await asyncio.gather(stream(i), stream(i + 1))
+        leader = await cluster.find_leader(addrs)
+        require(leader == first_leader, f"phase 27: the leader moved from {first_leader} "
+                f"to {leader} before the kill")
+        epoch0 = (await cluster.repl_status(leader))["epoch"]
+        runner = asyncio.create_task(pairs(HUB27_BEFORE))
+        await asyncio.sleep(0.1)  # two streams in flight
+        out["t_kill"] = clock()
+        replicas[leader].proc.kill()
+        replicas[leader].proc.wait(30)
+        while True:
+            sts = await statuses(skip=(leader,))
+            new = [a for a, st in sts.items()
+                   if st and st["role"] == "leader" and st["epoch"] > epoch0]
+            if new:
+                break
+            require(clock() - out["t_kill"] < 30, f"phase 27: no new leader in 30 s: {sts}")
+            await asyncio.sleep(0.02)
+        out["t_elected"], out["new_leader"], out["old_leader"] = clock(), new[0], leader
+        out["epochs"] = (epoch0, sts[new[0]]["epoch"])
+        out["t_restart"] = clock()
+        replicas[leader] = await asyncio.to_thread(hub27_replica, leader, peers, dirs[leader])
+        while True:
+            lead, back = await cluster.repl_status(new[0]), await cluster.repl_status(leader)
+            if lead and back and back["role"] == "follower" and back["leader"] == new[0] \
+                    and back["cursor"] >= lead["wal_seq"]:
+                break
+            require(clock() - out["t_restart"] < 30,
+                    f"phase 27: the restarted replica did not catch up: {back} vs {lead}")
+            await asyncio.sleep(0.02)
+        out["t_caught_up"] = clock()
+        while sum(s["start"] >= out["t_caught_up"] for s in out["streams"]) < HUB27_AFTER:
+            require(not runner.done() and clock() - out["t_caught_up"] < 120,
+                    "phase 27: the streams after the restart stalled")
+            await asyncio.sleep(0.05)
+        stop_streams.set()
+        await runner
+        status, body, _ = await http_call(port, "GET", "/metrics")
+        out["frontend_failover"] = [ln for ln in body.decode().splitlines()
+                                    if ln.startswith(("dynamo_hub_redirects_total",
+                                                      "dynamo_hub_backoff_seconds_count"))]
+    finally:
+        stop.set()
+        stop_streams.set()
+        for t in tasks + ([runner] if runner else []):
+            t.cancel()
+        await asyncio.gather(*tasks, *([runner] if runner else []), return_exceptions=True)
+        await hub.close()
+    out["failover"] = {k: v - fo0.get(k, 0.0) for k, v in failover_stats().items()}
+    return out
+
+
+async def _durable_drive(hub_addr, port, restart, data_dir) -> dict:
+    """Phase 27 (b): the durable single hub across a SIGKILL."""
+    from dynamo_tpu_torch.runtime.hub_client import RemoteHub
+    from dynamo_tpu_torch.sim import cluster
+
+    hub = await RemoteHub.connect(hub_addr, reconnect=False)
+    try:
+        t0 = time.monotonic()
+        while True:  # the frontend has the mocker's card
+            status, body, _ = await http_call(port, "GET", "/v1/models")
+            if status == 200 and json.loads(body)["data"]:
+                break
+            require(time.monotonic() - t0 < 60, f"phase 27 (b): /v1/models {body[:200]}")
+            await asyncio.sleep(0.05)
+        model = json.loads(body)["data"][0]["id"]
+        before = (await hub.get_boot_id(), await hub.get_prefix("v1/mdc/"),
+                  await hub.get_prefix("v1/instances/"))
+    finally:
+        await hub.close()
+    n_wal = len(cluster.read_wal(data_dir)[1])
+    restart_s = await asyncio.to_thread(restart)
+    hub = await RemoteHub.connect(hub_addr, reconnect=False)
+    try:
+        after = (await hub.get_boot_id(), await hub.get_prefix("v1/mdc/"),
+                 await hub.get_prefix("v1/instances/"))
+    finally:
+        await hub.close()
+    keys = set(before[1]) | set(before[2])
+    rewrites = [r for r in cluster.read_wal(data_dir)[1][n_wal:] if r.get("k") in keys]
+    t_chat = time.monotonic()
+    while True:
+        status, body, _ = await http_call(port, "POST", "/v1/chat/completions", {
+            "model": model, "messages": [{"role": "user", "content": "After the restart."}],
+            "max_tokens": 8})
+        if status == 200:
+            break
+        require(time.monotonic() - t_chat < 30, f"phase 27 (b): chat {status} {body[:200]}")
+        await asyncio.sleep(0.1)
+    return {"before": before, "after": after, "rewrites": rewrites, "restart_s": restart_s,
+            "chat": json.loads(body), "chat_s": time.monotonic() - t_chat, "model": model}
+
+
+def hub_phase(card: str, device: str | None = None, spec=None) -> int:
+    """Phase 27: the replicated hub under a worker on the card, then the
+    durable single hub (see the module docstring). Returns the worker's
+    fused_decode launches (its ENGINE_LAUNCHES)."""
+    import dataclasses
+    import gc
+    import shutil
+
+    from dynamo_tpu_torch.sim import cluster
+
+    t27 = time.perf_counter()
+    spec = spec or tp8_spec()
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(HUB27_DIR, ignore_errors=True)
+    ports = sorted(cluster.free_port() for _ in range(3))
+    addrs = [f"127.0.0.1:{p}" for p in ports]
+    peers = ",".join(addrs)
+    dirs = {a: HUB27_DIR / f"replica{i}" for i, a in enumerate(addrs)}
+    replicas: dict[str, Child] = {}
+    children: list[Child] = []
+    try:
+        for a in addrs:
+            replicas[a] = hub27_replica(a, peers, dirs[a])
+        # the leader first in the frontend's and the worker's lists: both
+        # hold their hub connection to the replica that is killed
+        leader = asyncio.run(cluster.find_leader(addrs))
+        first = ",".join([leader] + [a for a in addrs if a != leader])
+        front = Child("frontend", "--hub", first, "--port", "0", "--host", "127.0.0.1")
+        worker = Child("worker", "--hub", first, "--spec-json",
+                       json.dumps(dataclasses.asdict(spec)), "--page-size", "16",
+                       "--num-pages", "512", "--max-pages-per-seq", "64",
+                       "--max-decode-slots", "8", "--guided", "off", "--precompile",
+                       *(["--device", device] if device else []))
+        children += [front, worker]
+        port = int(front.wait_line("DYNAMO_HTTP=", 120).rsplit(":", 1)[1])
+        worker.wait_line("ENGINE_READY", PROC_START_S)
+        t_models = time.perf_counter()
+        while True:
+            status, body, _ = asyncio.run(http_call(port, "GET", "/v1/models"))
+            if status == 200 and spec.name in [m["id"] for m in json.loads(body)["data"]]:
+                break
+            require(time.perf_counter() - t_models < 30, f"phase 27: /v1/models {body[:200]}")
+            time.sleep(0.05)
+        t_drive = time.perf_counter()
+        res = asyncio.run(_replicated_drive(spec, addrs, leader, port, replicas, dirs,
+                                            spec.vocab_size))
+        res["drive_s"] = time.perf_counter() - t_drive
+        require(worker.stop() == 0, f"worker exited non-zero: {worker.seen[-8:]}")
+        require(front.stop() == 0, f"frontend exited non-zero: {front.seen[-8:]}")
+        for a in addrs:
+            require(replicas[a].stop() == 0, f"replica {a} exited non-zero: "
+                    f"{replicas[a].seen[-8:]}")
+        launches = [json.loads(ln.split(" ", 1)[1]) for ln in worker.pump()
+                    if ln.startswith("ENGINE_LAUNCHES ")]
+        res["invariants"] = cluster.check_cluster_invariants([dirs[a] for a in addrs])
+        res["registration"] = sorted(
+            int(r.get("rsq", r.get("sq"))) for a in addrs for r in cluster.read_wal(dirs[a])[1]
+            if r.get("op") == "put" and r.get("k") == res["inst_key"])
+
+        # (b) the durable single hub
+        hub_port = cluster.free_port()
+        single = HUB27_DIR / "single"
+        hub_args = ("hub", "--port", str(hub_port), "--data-dir", str(single))
+        hub = Child(*hub_args)
+        children.append(hub)
+        hub.wait_line("DYNAMO_HUB=", 60)
+        hub_addr = f"127.0.0.1:{hub_port}"
+        mocker = Child("mocker", "--hub", hub_addr, "--speedup-ratio", "10")
+        front_b = Child("frontend", "--hub", hub_addr, "--port", "0", "--host", "127.0.0.1")
+        children += [mocker, front_b]
+        mocker.wait_line("MOCKERS_READY", 60)
+        port_b = int(front_b.wait_line("DYNAMO_HTTP=", 120).rsplit(":", 1)[1])
+
+        def restart() -> float:
+            """SIGKILL the hub, start it again: seconds until it listens."""
+            t = time.monotonic()
+            hub.proc.kill()
+            hub.proc.wait(30)
+            new = Child(*hub_args)
+            children.append(new)
+            new.wait_line("DYNAMO_HUB=", 60)
+            return time.monotonic() - t
+
+        dur = asyncio.run(_durable_drive(hub_addr, port_b, restart, single))
+        mocker.stop()  # no SIGTERM handler of its own: it dies of the signal
+        for child in (front_b, children[-1]):
+            require(child.stop() == 0, f"{child.name} exited non-zero: {child.seen[-8:]}")
+    finally:
+        for child in children + list(replicas.values()):
+            if child.proc.poll() is None:
+                child.proc.kill()
+                child.proc.wait(30)
+    return hub_report(res, dur, launches, spec, card, time.perf_counter() - t27)
+
+
+def hub_report(res, dur, launches, spec, card, wall) -> int:
+    """Phase 27's gates and lines; the worker's fused_decode launches."""
+    import statistics
+
+    bad = [s for s in res["streams"] if not s["ok"]]
+    require(res["streams"] and not bad, f"phase 27: {len(bad)} of {len(res['streams'])} "
+            f"streams failed: {bad[:3]}")
+    require(not res["write_failures"], f"phase 27: writes failed: {res['write_failures'][:3]}")
+    dual = {e: a for e, a in res["leaders"].items() if len(a) > 1}
+    require(not dual, f"phase 27: two leaders in one term: {dual}")
+    seen = [n for t, n in res["health"]]
+    require(seen and all(n == 1 for n in seen), f"phase 27: the frontend's instance count "
+            f"left 1: {[(round(t, 2), n) for t, n in res['health'] if n != 1][:8]}")
+    require(not res["deletes"], f"phase 27: instance key deleted: {res['deletes']}")
+    committed = set(res["invariants"]["committed"])
+    require(res["registration"] and set(res["registration"]) <= committed,
+            f"phase 27: the worker's registration {res['registration']} outside the "
+            f"committed prefix ({len(committed)} seqs)")
+    require(len(launches) == 1, f"phase 27: ENGINE_LAUNCHES lines {launches}")
+    fused, steps = launches[0]["launches"].get("fused_decode_attention", 0), launches[0]["steps"]
+    require(DEVICE != "cuda" or (steps > 0 and fused == spec.num_layers * steps),
+            f"phase 27: fused_decode {fused} over {steps} steps")
+    before, after = dur["before"], dur["after"]
+    require(after == before and before[1] and before[2], f"phase 27 (b): state before the "
+            f"kill {before} and after the restart {after}")
+    require(not dur["rewrites"], f"phase 27 (b): re-registration writes {dur['rewrites']}")
+    text = dur["chat"]["choices"][0]["message"]["content"]
+    require(isinstance(text, str) and text, f"phase 27 (b): chat {dur['chat']}")
+
+    acks = sorted(res["acks"])
+    gaps = [b - a for a, b in zip(acks, acks[1:])]
+    worst = max(range(len(gaps)), key=gaps.__getitem__)
+    classes = _p27_classes(res["streams"], res["t_kill"], res["t_elected"])
+
+    def lat(rs):
+        if not rs:
+            return "none"
+        tt = [r["ttft"] for r in rs]
+        it = [r["itl"] for r in rs if r["itl"] is not None]
+        return (f"{len(rs)} streams, TTFT mean {1e3 * statistics.fmean(tt):.1f} ms, max "
+                f"{1e3 * max(tt):.1f}, ITL mean {1e3 * statistics.fmean(it):.2f} ms, max "
+                f"{1e3 * max(it):.2f}")
+
+    t_kill = res["t_kill"]
+    print(f"phase 27 [{card}]: replicated hub, 3 cli hub-replica (lease {HUB27_LEASE_S} s), "
+          f"a {spec.name} worker on this card and a frontend on the whole address list; "
+          f"{len(res['streams'])} streams of {SERVE_TOKENS} tokens two at a time, "
+          f"{len(acks)} writes every {1e3 * HUB27_WRITE_S:.0f} ms; leader {res['old_leader']} "
+          f"SIGKILLed (term {res['epochs'][0]})")
+    print(f"phase 27 election: kill -> new leader {res['new_leader']} (term "
+          f"{res['epochs'][1]}) {res['t_elected'] - t_kill:.3f} s; writer's longest gap "
+          f"between acks {gaps[worst]:.3f} s (from {acks[worst] - t_kill:+.3f} s of the kill); "
+          f"restart -> caught up {res['t_caught_up'] - res['t_restart']:.3f} s; terms "
+          f"seen {sorted(res['leaders'])}, one leader each; the worker's registration at "
+          f"seq {sorted(set(res['registration']))} in {len(res['registration'])} of the 3 WALs, "
+          f"inside the {len(committed)} committed seqs")
+    print("phase 27 client failover: this process "
+          + json.dumps({k: round(v, 4) for k, v in res["failover"].items() if v})
+          + "; frontend " + "; ".join(res["frontend_failover"] or ["none"]))
+    for label, rs in classes.items():
+        print(f"phase 27 streams {label} the election: {lat(rs)}")
+    print(f"phase 27 worker: fused_decode {fused} = {spec.num_layers} x {steps} steps "
+          f"(ENGINE_LAUNCHES); the frontend's /health counted 1 instance at all "
+          f"{len(seen)} polls")
+    print(f"phase 27 (b) durable hub: SIGKILL -> listening again {dur['restart_s']:.3f} s, "
+          f"boot_id {dur['after'][0]} kept, {len(dur['after'][1])} model card(s) and "
+          f"{len(dur['after'][2])} instance key(s) recovered with no write since the restart, "
+          f"a chat served {dur['chat_s']:.3f} s after it")
+    print(f"phase 27: {wall:.1f} s (the drive {res['drive_s']:.1f} s)")
+    return fused
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the GPU",
@@ -10706,12 +11100,19 @@ def main() -> int:
           "max_context": cfg["max_pages_per_seq"] * cfg["page_size"]}
     scale_launches = scaling_phase(p4, card)
 
+    # the control plane's durability: three hub replicas under a llama-3-8b
+    # worker (4 layers) on this card, the leader SIGKILLed mid-stream and
+    # restarted; then a durable single hub SIGKILLed and restarted
+    t27 = time.perf_counter()
+    hub_launches = hub_phase(card)
+    t27 = time.perf_counter() - t27
+
     launches = {"fused_decode": serve_launches["fused_decode"] + http_launches
                 + process_launches + overload_launches + guided_launches
                 + kvbm_launches + text_launches["fused_decode"] + disagg_launches
                 + obs_launches + mm_launches + tp_launches["fused_decode"]
                 + pp_launches["fused_decode"] + p25_launches["fused_decode"]
-                + scale_launches,
+                + scale_launches + hub_launches,
                 "paged_attention_v3": unfused[0], "kv_write": unfused[2],
                 "kv_write/verify": spec_kv_launches + guided_kv_launches
                 + text_launches["kv_write/verify"],
@@ -10789,7 +11190,7 @@ def main() -> int:
                               "long_bound_ms") if k in r}}
         for name, r in kernels.items()
     ]}
-    print(f"total: {time.perf_counter() - t_start:.1f} s")
+    print(f"total: {time.perf_counter() - t_start:.1f} s (phase 27: {t27:.1f} s)")
     print(card)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

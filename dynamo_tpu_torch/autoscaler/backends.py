@@ -43,9 +43,8 @@ class ScaleBackend(Protocol):
 
 
 class SimBackend:
-    """Actuate against a fleet with the reference sim's MockFleet interface
-    (``alive_workers()``, ``launch_worker()``, each worker's ``drain()``;
-    dynamo_tpu/sim/harness.py, not ported yet).
+    """Actuate against the sim's fleet (sim/harness.py ``MockFleet``:
+    ``alive_workers()``, ``launch_worker()``, each worker's ``drain()``).
 
     Scale-up: ``fleet.launch_worker()`` per missing replica. Scale-down:
     drain the most recently launched workers (LIFO keeps the fleet's

@@ -16,7 +16,8 @@
         model) instead of the torch engine; echo returns the prompt
     python -m dynamo_tpu_torch.cli hub|worker|frontend|router|mocker ...
         one service process of a deployment (the same as python -m
-        dynamo_tpu_torch.<module>): the TCP hub (prints DYNAMO_HUB=), an
+        dynamo_tpu_torch.<module>): the TCP hub (prints DYNAMO_HUB=;
+        ``--data-dir D`` makes it durable, WAL and snapshots in D), an
         engine worker (prints ENGINE_READY; SIGTERM drains it; publishes
         its KV events and load, router mode "kv" by default; ``--mode
         prefill|decode`` splits prefill from decode, disagg/), the OpenAI
@@ -37,6 +38,11 @@
         (prints OPERATOR_READY; converges the DynamoGraphDeployment
         v1/dgd/{name}, the planner's counts overriding its prefill/decode
         services, onto worker processes; SIGTERM drains them)
+    python -m dynamo_tpu_torch.cli hub-replica --port P --peers A,B,C --data-dir D
+        one member of a replicated hub (runtime/hub_replica.py; prints
+        DYNAMO_HUB=): the --peers list is the membership, a leader is
+        elected by quorum and acks a write once a majority holds it; point
+        clients at the whole list (``--hub A,B,C`` or DYN_HUB_ADDRESSES)
 
 The engine runs on the GPU; ``--device cpu`` runs it on the CPU (tests).
 ``--spec``, ``--guided``, ``--tp`` and ``--sp`` are the reference's, each
@@ -46,8 +52,8 @@ E`` go through the worker's launcher (engine/worker.start_tp_group: ranks
 engine prints ``ENGINE_LAUNCHES {json}`` (kernel launches, steps, replays
 and speculation counters since it was ready), as a worker does.
 ``--out engine`` is the default (the reference's is ``mocker``): the port's
-main path is the card. The other service subcommands (hub-replica, bench,
-profile) are refused until their own slices.
+main path is the card. ``bench`` and ``profile`` are refused until their own
+slice (ROADMAP Queue A item 14d).
 """
 
 from __future__ import annotations
@@ -59,6 +65,7 @@ import sys
 
 SUBCOMMAND_MODULES = {
     "hub": "dynamo_tpu_torch.runtime.hub_server",
+    "hub-replica": "dynamo_tpu_torch.runtime.hub_replica",
     "frontend": "dynamo_tpu_torch.frontend.__main__",
     "worker": "dynamo_tpu_torch.engine.worker",
     "encoder": "dynamo_tpu_torch.multimodal.worker",
@@ -69,19 +76,19 @@ SUBCOMMAND_MODULES = {
 }
 # the reference's other service commands -> the ROADMAP Queue A item that
 # ports them
-REFUSED_COMMANDS = {
-    "hub-replica": "item 14", "bench": "item 14", "profile": "item 14",
-}
+REFUSED_COMMANDS = {"bench": "item 14d", "profile": "item 14d"}
 
 
 def _usage() -> str:
     return (
         "usage: python -m dynamo_tpu_torch.cli <command> [args]\n"
         "commands:\n"
-        "  run        one-process serving stack (--in http|text|batch:FILE "
+        "  run         one-process serving stack (--in http|text|batch:FILE "
         "--out engine|mocker|echo)\n"
-        + "".join(f"  {name:<10} launch {mod}\n"
+        + "".join(f"  {name:<11} launch {mod}\n"
                   for name, mod in SUBCOMMAND_MODULES.items())
+        + "".join(f"  {name:<11} not ported (ROADMAP Queue A {item})\n"
+                  for name, item in REFUSED_COMMANDS.items())
     )
 
 

@@ -3,7 +3,7 @@ counterpart of dynamo_tpu/frontend/__main__.py).
 
 Connects to the hub, watches for model cards, serves the OpenAI API and
 prints ``DYNAMO_HTTP=host:port`` once listening. SIGTERM stops it. The
-KServe gRPC frontend (``--grpc-port``) is ROADMAP Queue A item 14.
+KServe gRPC frontend (``--grpc-port``) is ROADMAP Queue A item 14b.
 """
 
 from __future__ import annotations
@@ -59,7 +59,7 @@ def main(argv: list[str] | None = None) -> None:
     args = p.parse_args(argv)
     if args.grpc_port is not None:
         raise NotImplementedError(
-            "--grpc-port: the KServe gRPC frontend is ROADMAP Queue A item 14")
+            "--grpc-port: the KServe gRPC frontend is ROADMAP Queue A item 14b")
     setup_logging()
     try:
         asyncio.run(_amain(args))

@@ -2,8 +2,9 @@
 
 The port reads the frontend's exposition with its own stdlib parser
 (``parse_prometheus_text``) and fetches it with an asyncio GET
-(``http_get``): prometheus_client and aiohttp are not dependencies of the
-port. Everything else is the reference's arithmetic.
+(runtime/http_client.py ``http_get``): prometheus_client and aiohttp are
+not dependencies of the port. Everything else is the reference's
+arithmetic.
 
 Behavioral parity with the upstream planner
 (components/src/dynamo/planner/utils/planner_core.py:61-472):
@@ -40,7 +41,6 @@ import math
 import re
 from dataclasses import dataclass
 from typing import Any, Awaitable, Callable
-from urllib.parse import urlsplit
 
 from dynamo_tpu_torch.planner.connector import DesiredReplicas, LoggingConnector
 from dynamo_tpu_torch.planner.interpolation import (
@@ -48,6 +48,7 @@ from dynamo_tpu_torch.planner.interpolation import (
     PrefillInterpolator,
 )
 from dynamo_tpu_torch.planner.predictor import make_predictor
+from dynamo_tpu_torch.runtime.http_client import http_get
 
 log = logging.getLogger("dynamo.planner")
 
@@ -228,58 +229,6 @@ def parse_prometheus_text(text: str) -> dict[tuple[str, tuple], float]:
             name += "_total"
         out[(name, tuple(sorted(labels.items())))] = value
     return out
-
-
-async def http_get(url: str, timeout_s: float = 10.0) -> str:
-    """GET ``http://host[:port]/path`` with asyncio streams (HTTP/1.1,
-    ``Connection: close``): the body of a Content-Length, chunked or
-    read-to-close response, decoded as UTF-8. A status other than 2xx
-    raises."""
-    parts = urlsplit(url)
-    if parts.scheme != "http" or not parts.hostname:
-        raise ValueError(f"not an http:// URL: {url!r}")
-    path = (parts.path or "/") + (f"?{parts.query}" if parts.query else "")
-    port = parts.port or 80
-
-    async def fetch() -> str:
-        reader, writer = await asyncio.open_connection(parts.hostname, port)
-        try:
-            writer.write(f"GET {path} HTTP/1.1\r\nHost: {parts.netloc}\r\n"
-                         "Accept: text/plain\r\nConnection: close\r\n\r\n".encode())
-            await writer.drain()
-            status = (await reader.readline()).decode("latin-1").split()
-            if len(status) < 2 or not status[0].startswith("HTTP/"):
-                raise ConnectionError(f"GET {url}: malformed status line {status!r}")
-            headers: dict[str, str] = {}
-            while True:
-                line = (await reader.readline()).decode("latin-1").strip()
-                if not line:
-                    break
-                k, _, v = line.partition(":")
-                headers[k.strip().lower()] = v.strip()
-            if "chunked" in headers.get("transfer-encoding", "").lower():
-                body = bytearray()
-                while True:
-                    size = int((await reader.readline()).split(b";")[0].strip(), 16)
-                    if size == 0:
-                        break
-                    body += await reader.readexactly(size)
-                    await reader.readexactly(2)  # the chunk's CRLF
-            elif "content-length" in headers:
-                body = await reader.readexactly(int(headers["content-length"]))
-            else:
-                body = await reader.read()
-        finally:
-            writer.close()
-            try:
-                await writer.wait_closed()
-            except OSError:
-                pass
-        if not 200 <= int(status[1]) < 300:
-            raise ConnectionError(f"GET {url}: HTTP {status[1]}")
-        return bytes(body).decode("utf-8")
-
-    return await asyncio.wait_for(fetch(), timeout_s)
 
 
 class FrontendMetricsSource:

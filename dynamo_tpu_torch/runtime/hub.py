@@ -7,7 +7,8 @@ One small service with the capabilities the serving stack uses:
   - object store buckets
 
 Requests do NOT flow through the hub. ``InMemoryHub`` backs the one-process
-stack; the TCP hub server and client wait for ROADMAP Queue A item 4b.
+stack; ``hub_server.py`` serves the same interface over TCP, durably with
+``hub_store.py`` and replicated over a quorum with ``hub_replica.py``.
 """
 
 from __future__ import annotations
@@ -20,11 +21,18 @@ from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 from typing import Any, AsyncIterator
 
-__all__ = ["WatchEvent", "Hub", "InMemoryHub", "KeyExists"]
+__all__ = ["WatchEvent", "Hub", "InMemoryHub", "KeyExists", "NoQuorum"]
 
 
 class KeyExists(Exception):
     """Atomic create failed: key already present."""
+
+
+class NoQuorum(Exception):
+    """A replicated-hub write did not reach a majority of the configured
+    replica set before the commit timeout. The write is not committed and
+    may be discarded when a partition heals; clients get a retryable
+    ``no_quorum`` error (hub_client.py treats it like ``not_leader``)."""
 
 
 @dataclass(frozen=True)
@@ -255,6 +263,12 @@ class InMemoryHub(Hub):
 
     # -- pub/sub -----------------------------------------------------------
 
+    def _subject_seq_base(self) -> int:
+        """Seq baseline for a subject with no counter yet. The replicated
+        hub (hub_replica.py) raises it per term, so a subject the promoted
+        leader never learned still mints seqs above the dead leader's."""
+        return 0
+
     def _pub_id_fresh(self, pub_id: str | None) -> bool:
         """Record ``pub_id`` in the bounded dedup window; False when the
         id was already seen (a retried publish)."""
@@ -274,7 +288,7 @@ class InMemoryHub(Hub):
             return False
         if subject not in self._retained:
             self._retained[subject] = deque(maxlen=self.RETAIN_PER_SUBJECT)
-        seq = self._subject_seq.get(subject, 0) + 1
+        seq = self._subject_seq.get(subject, self._subject_seq_base()) + 1
         self._subject_seq[subject] = seq
         self._retained[subject].append((seq, payload))
         for pattern, q in self._subs:

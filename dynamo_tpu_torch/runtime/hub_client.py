@@ -33,7 +33,7 @@ replica answered, and — because failover rides the same reconnect path —
 re-syncs watches (snapshot diff) and re-subscribes with seq dedup
 against the promoted follower exactly as it does across a restart (the
 cluster shares one boot_id, so seq baselines stay valid). The replicated
-hub server itself is ROADMAP Queue A item 14.
+hub server is ``hub_replica.py``.
 
 Fault sites (runtime/faults.py): ``hub.dial`` before each dial (a drop or
 an error fails it), ``hub.call`` before each request (a drop is a

@@ -4,10 +4,12 @@ dynamo_tpu/runtime/hub_server.py).
 Run as ``python -m dynamo_tpu_torch.runtime.hub_server [--port N]`` (or
 ``python -m dynamo_tpu_torch.cli hub``): the deployment's single
 coordination process. It prints ``DYNAMO_HUB=host:port`` once listening.
-State lives in memory; the durable and replicated hubs (``--data-dir``,
-``--fsync``, the reference's ``hub_store`` / ``hub_replica`` and their
-``_route`` / ``_dispatch_repl`` / ``_commit_barrier`` hooks) are ROADMAP
-Queue A item 14 and raise here.
+Without ``--data-dir`` state lives in memory; with it the hub is durable
+(hub_store.py): every mutation is WAL-logged and periodically snapshotted,
+and a restarted hub recovers its model cards, instance keys, leases,
+retained event streams with their seqs, objects and ``boot_id``. The
+replicated hub (hub_replica.py) plugs in through the ``_route`` /
+``_dispatch_repl`` / ``_commit_barrier`` hooks.
 
 Protocol: framing.py frames, the same bytes as the JAX package's hub, so a
 JAX client can use this server and the port's client a JAX server. Request:
@@ -26,18 +28,32 @@ from typing import Any
 
 from dynamo_tpu_torch.runtime import framing
 from dynamo_tpu_torch.runtime.context import spawn
-from dynamo_tpu_torch.runtime.hub import InMemoryHub, KeyExists
+from dynamo_tpu_torch.runtime.hub import InMemoryHub, KeyExists, NoQuorum
+from dynamo_tpu_torch.runtime.hub_store import HubFenced
 
 log = logging.getLogger("dynamo_tpu_torch.hub")
 
-DURABLE_TODO = ("the durable and replicated hub (--data-dir, --fsync) are "
-                "ROADMAP Queue A item 14")
-
 
 class HubServer:
-    def __init__(self, host: str = "127.0.0.1", port: int = 0, *,
-                 hub: InMemoryHub | None = None):
-        self.hub: InMemoryHub = hub if hub is not None else InMemoryHub()
+    # ops that mutate hub state: a replicated follower bounces these with a
+    # ``not_leader`` error naming the current leader (hub_replica.py)
+    WRITE_OPS = frozenset({
+        "put", "create", "delete", "grant_lease", "keepalive",
+        "revoke_lease", "publish", "purge_subject", "put_object",
+        "delete_object",
+    })
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 0,
+                 data_dir: str | None = None, *,
+                 hub: InMemoryHub | None = None, fsync: bool | None = None):
+        if hub is not None:
+            self.hub: InMemoryHub = hub
+        elif data_dir:
+            from dynamo_tpu_torch.runtime.hub_store import DurableHub
+
+            self.hub = DurableHub(data_dir, fsync=fsync)
+        else:
+            self.hub = InMemoryHub()
         self.host = host
         self.port = port
         self._server: asyncio.AbstractServer | None = None
@@ -47,6 +63,9 @@ class HubServer:
         self._server = await asyncio.start_server(self._handle, self.host, self.port)
         sock = self._server.sockets[0]
         self.host, self.port = sock.getsockname()[:2]
+        # recovered leases must be reaped when their owners stay gone; the
+        # reaper otherwise starts on the first grant_lease, which may never
+        # come on a restarted hub serving only old leases
         self.hub._ensure_reaper()
         log.info("hub listening on %s:%d", self.host, self.port)
         return self.host, self.port
@@ -71,7 +90,9 @@ class HubServer:
         await self.hub.close()
 
     def kick_clients(self) -> None:
-        """Close every client connection (clients reconnect and re-sync)."""
+        """Close every client connection (clients reconnect and re-sync).
+        A replication follower does this after adopting a snapshot: its
+        subscribers would otherwise miss the events inside the snapshot."""
         for w in list(self._conns):
             w.close()
 
@@ -81,6 +102,9 @@ class HubServer:
         self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter
     ) -> None:
         streams: dict[int, asyncio.Task] = {}
+        # the leases granted on this connection, as the reference's server
+        # tracks them; a disconnect revokes none (expiry follows the TTL)
+        conn_leases: set[int] = set()
         write_lock = asyncio.Lock()
         self._conns.add(writer)
 
@@ -97,7 +121,7 @@ class HubServer:
                     break
                 # spawn: strong ref + crash logging — a GC'd dispatch task
                 # would silently drop the RPC (client hangs to timeout)
-                spawn(self._dispatch(msg, send, streams), name="hub-dispatch")
+                spawn(self._dispatch(msg, send, streams, conn_leases), name="hub-dispatch")
         except (ConnectionResetError, BrokenPipeError):
             pass
         except (ValueError, TypeError) as e:
@@ -114,11 +138,22 @@ class HubServer:
 
     async def _dispatch(
         self, msg: dict[str, Any], send, streams: dict[int, asyncio.Task],
+        conn_leases: set[int],
     ) -> None:
         op = msg.get("op")
         mid = msg.get("id")
         hub = self.hub
         try:
+            bounce = self._route(op)
+            if bounce is not None:
+                await send({"id": mid, "ok": False, **bounce})
+                return
+            if await self._dispatch_repl(op, mid, msg, send, streams):
+                return
+            # WAL position before the op: a replicated leader acks a write
+            # only once the records it logged past here are on a majority
+            # (_commit_barrier); ops that logged nothing skip the barrier
+            pre_seq = getattr(hub, "wal_seq", 0)
             if op == "put":
                 await hub.put(msg["key"], msg["value"], msg.get("lease"))
                 result: Any = True
@@ -133,6 +168,7 @@ class HubServer:
                 result = await hub.get_prefix(msg["prefix"])
             elif op == "grant_lease":
                 result = await hub.grant_lease(msg["ttl"])
+                conn_leases.add(result)
             elif op == "keepalive":
                 result = await hub.keepalive(msg["lease"])
             elif op == "revoke_lease":
@@ -183,15 +219,60 @@ class HubServer:
                 result = "pong"
             else:
                 raise ValueError(f"unknown op {op!r}")
+            if op in self.WRITE_OPS:
+                # the post-op position, taken before any await: waiting on a
+                # later one would tie this ack to its neighbours' replication
+                post_seq = getattr(hub, "wal_seq", 0)
+                if post_seq > pre_seq:
+                    await self._commit_barrier(post_seq)
             await send({"id": mid, "ok": True, "result": result})
         except KeyExists as e:
             await send({"id": mid, "ok": False, "error": "key_exists", "key": str(e)})
+        except NoQuorum as e:
+            # logged locally but not on a majority: the client must treat
+            # the write as not committed and retry; retry_after is the
+            # server's estimate of when a quorum can be back
+            log.warning("hub write %r failed commit quorum: %s", op, e)
+            bounce = {"id": mid, "ok": False, "error": "no_quorum"}
+            hint = self._retry_after_hint()
+            if hint is not None:
+                bounce["retry_after"] = hint
+            await send(bounce)
+        except HubFenced:
+            # deposed while the write was in flight: bounce like a follower
+            await send({"id": mid, "ok": False, "error": "not_leader",
+                        "leader": self._leader_hint()})
         except asyncio.CancelledError:
             raise
         except (ConnectionResetError, BrokenPipeError):
             pass  # the client went away before its answer
         except Exception as e:  # noqa: BLE001 - serve errors to the client
             await send({"id": mid, "ok": False, "error": repr(e)})
+
+    def _route(self, op: str) -> dict[str, Any] | None:
+        """Hook: an error payload to bounce ``op`` with instead of serving
+        it (a replicated follower bounces WRITE_OPS); None serves it."""
+        return None
+
+    def _leader_hint(self) -> str | None:
+        """Hook: the current leader's address for ``not_leader`` bounces."""
+        return None
+
+    def _retry_after_hint(self) -> float | None:
+        """Hook: seconds until a ``no_quorum`` bounce is worth retrying;
+        None sends no hint (clients back off on their own)."""
+        return None
+
+    async def _commit_barrier(self, seq: int) -> None:
+        """Hook: called after a WRITE_OPS op logged records up to WAL
+        position ``seq``, before its ack. The base server commits locally;
+        the replicated leader waits for a majority or raises NoQuorum."""
+
+    async def _dispatch_repl(
+        self, op: str, mid: int, msg: dict[str, Any], send, streams
+    ) -> bool:
+        """Hook: serve a replication op (``repl.*``); True when handled."""
+        return False
 
     async def _stream_watch(
         self, mid: int, prefix: str, initial: bool, sync: bool, send
@@ -222,7 +303,8 @@ class HubServer:
 
 
 async def _amain(args: argparse.Namespace) -> None:
-    server = HubServer(args.host, args.port)
+    server = HubServer(args.host, args.port, args.data_dir,
+                       fsync=True if args.fsync else None)
     await server.start()
     print(f"DYNAMO_HUB={server.host}:{server.port}", flush=True)
     loop = asyncio.get_running_loop()
@@ -246,12 +328,11 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=6650)
     parser.add_argument("--data-dir", default=None,
-                        help="durable hub state directory (not ported: raises)")
+                        help="durable hub: WAL and snapshots in this directory")
     parser.add_argument("--fsync", action="store_true",
-                        help="fsync every WAL append (not ported: raises)")
+                        help="fsync every WAL append (survive power loss, not just "
+                             "process death); default follows DYNAMO_HUB_FSYNC=1")
     args = parser.parse_args(argv)
-    if args.data_dir or args.fsync:
-        raise NotImplementedError(DURABLE_TODO)
     from dynamo_tpu_torch.runtime.logging_util import setup_logging
 
     setup_logging()

@@ -279,6 +279,29 @@ async def test_sim_backend_matches_the_reference():
             seen.append((await be.observed(), be.spawned, be.drained))
         got[pkg] = seen
     assert got["port"] == got["ref"]
+    # the same plans against each package's sim MockFleet: mock workers
+    # launched and drained through the runtime
+    from dynamo_tpu.sim import harness as jax_harness
+    from dynamo_tpu_torch.sim import harness
+
+    fleets = {}
+    for pkg, mod in (("port", harness), ("ref", jax_harness)):
+        p, b = PKGS[pkg][0], PKGS[pkg][3]
+        fleet = await mod.MockFleet(mod.SimConfig(workers=1, speedup=1000.0), 1).start()
+        try:
+            be = b.SimBackend(fleet)
+            seen = []
+            for rev, (w, pf, sh) in enumerate([(3, 1, 1), (5, 0, 2), (2, 2, 1), (2, 2, 1)]):
+                await be.apply(p.ScalePlan(revision=rev, workers=w, prefill=pf,
+                                           router_shards=sh))
+                seen.append((await be.observed(), be.spawned, be.drained,
+                             len(await fleet.hub.get_prefix("v1/instances/"))))
+            fleets[pkg] = seen
+        finally:
+            await fleet.close()
+    assert fleets["port"] == fleets["ref"]
+    assert [s[0][0] for s in fleets["port"]] == [3, 5, 2, 2]
+    assert [s[3] for s in fleets["port"]] == [3, 5, 2, 2]
 
 
 def _samples(text: str) -> dict:

@@ -539,15 +539,22 @@ async def test_disagg_processes_stream_like_an_aggregated_worker():
 
 
 def test_service_refusals_and_the_cpu_default():
-    """cli hub --data-dir and cli frontend --grpc-port raise (item 14);
-    without a GPU and without --device cpu, cli worker raises instead of
-    running on the CPU."""
+    """cli frontend --grpc-port raises (item 14b) and cli bench|profile
+    (item 14d); cli hub --data-dir and cli hub-replica are ported (a bad
+    flag is argparse's error, not a refusal); without a GPU and without
+    --device cpu, cli worker raises instead of running on the CPU."""
     from dynamo_tpu_torch import cli
 
-    with pytest.raises(NotImplementedError, match="item 14"):
-        cli.main(["hub", "--data-dir", "/tmp/x"])
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 14b"):
         cli.main(["frontend", "--grpc-port", "0"])
+    for cmd in ("bench", "profile"):
+        with pytest.raises(NotImplementedError, match="item 14d"):
+            cli.main([cmd])
+    assert "hub-replica" in cli.SUBCOMMAND_MODULES
+    assert "hub-replica" not in cli.REFUSED_COMMANDS
+    for argv in (["hub", "--data-dir"], ["hub-replica", "--peers", "a:1"]):
+        with pytest.raises(SystemExit):  # a flag without its value / no --data-dir
+            cli.main(argv)
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid")
     with pytest.raises(RuntimeError, match="device='cpu'"):

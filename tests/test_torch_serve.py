@@ -807,8 +807,8 @@ def test_cli_batch_and_refusals(tmp_path):
 
     with pytest.raises(SystemExit):  # argparse: not one of the outputs
         cli.main(["run", "--out", "nope"])
-    with pytest.raises(NotImplementedError, match="item 14"):
-        cli.main(["hub-replica"])
+    with pytest.raises(NotImplementedError, match="item 14d"):
+        cli.main(["bench"])
 
 
 def test_cli_without_gpu_refuses_the_cpu():
