@@ -161,8 +161,26 @@ Phases, each of which must pass (any failure exits non-zero):
    must all go to B; clearing the spec must readmit A within 3 canary
    periods (readmission takes 3 clean canaries; a period is the interval
    plus the slowest measured canary; 0.25 s of slack for the hub's put
-   and the poll). Each set of 8 is timed on cleared prefix caches and
-   printed beside phase 9's. Then the survivor, the frontend and the hub
+   and the poll). (g) The frontend runs with ``--grpc-port 0`` (it prints
+   DYNAMO_GRPC=), and before the drain this process drives its KServe
+   gRPC surface with GrpcClient, a minimal client on the port's own
+   HTTP/2 frames, HPACK and KServe messages (the script needs no grpc
+   package; where grpc is installed, the unary call also goes through
+   grpc.aio and must give the same bytes): ServerLive, ServerReady,
+   ModelReady and ModelMetadata; the 8 prompts as concurrent greedy
+   ModelStreamInfer input_ids streams of 32 tokens on cleared caches
+   (each ends with triton_final_response; their output_ids equal the TCP
+   set's, or are near-argmax under the reference forward; both workers'
+   fused_decode launches over the set, read through the admin
+   cache_status before and after, 32 per decode step); a unary
+   text_input ModelInfer of GRPC_TOKENS tokens; an openai_request chat
+   stream whose last message alone carries triton_final_response; a
+   stream cancelled with RST_STREAM after its 5th chunk, whose pages the
+   worker frees within GRPC_FREE_S; a 50 ms deadline ending
+   DEADLINE_EXCEEDED, its pages freed likewise. Printed, not gated: the
+   gRPC set's TTFT and ITL beside the HTTP set's, the host cost of
+   encoding and framing one stream message. Each set of 8 is timed on
+   cleared prefix caches and printed beside phase 9's. Then the survivor, the frontend and the hub
    SIGTERM'd, each exiting 0 within its deadline. The workers
    log their kernel launches since ENGINE_READY: fused_decode must launch
    32 times per logged step, and their sum joins the kernels line.
@@ -725,6 +743,13 @@ FAMILY_PREFIX = 384
 FAMILY_TAIL = 64
 FAMILY_SEED = 4242
 EVENT_DEADLINE_S = 5.0  # head blocks into the router's radix; cleared caches out
+# phase 11 (g), the frontend's KServe gRPC surface: the chat and unary
+# requests' tokens, the cancelled stream's chunk, the deadline, and the
+# limit for the worker to free a cancelled or timed-out request's pages
+GRPC_TOKENS = 16
+GRPC_CANCEL_AFTER = 5
+GRPC_DEADLINE_MS = 50
+GRPC_FREE_S = 2.0
 # phase 12 (speculative decoding): SPEC_REQUESTS greedy requests whose
 # prompts repeat a seeded SPEC_SEGMENT-token segment up to 64..512 tokens,
 # SPEC_TOKENS tokens each (the last SPEC_SHORT: not a multiple of the
@@ -3718,6 +3743,153 @@ def sse_events(body: bytes) -> list:
     return [e[6:] if e == "data: [DONE]" else json.loads(e[6:]) for e in events]
 
 
+class GrpcClient:
+    """A minimal gRPC client on the port's HTTP/2 frames (grpc/h2.py), HPACK
+    (grpc/hpack.py) and KServe messages (grpc/kserve.py), so that phase 11
+    needs no grpc package: one connection, calls concurrent on it. It ACKs
+    SETTINGS and PINGs, returns every DATA byte with WINDOW_UPDATEs, and
+    records a GOAWAY. A request must fit the server's initial window."""
+
+    def __init__(self):
+        from dynamo_tpu_torch.grpc import hpack
+
+        self.encoder, self.decoder = hpack.Encoder(), hpack.Decoder()
+        self.streams: dict[int, asyncio.Queue] = {}
+        self.next_id = 1
+        self.goaway: tuple[int, int] | None = None  # (last stream id, error code)
+
+    async def connect(self, port: int, host: str = "127.0.0.1") -> "GrpcClient":
+        from dynamo_tpu_torch.grpc import h2
+
+        self.reader, self.writer = await asyncio.open_connection(host, port)
+        self.writer.write(h2.PREFACE + h2.frame(h2.SETTINGS, 0, 0))
+        self.pump = asyncio.get_running_loop().create_task(self._pump())
+        return self
+
+    async def close(self) -> None:
+        self.writer.close()
+        self.pump.cancel()
+        await asyncio.gather(self.pump, return_exceptions=True)
+
+    async def _pump(self) -> None:
+        import struct
+
+        from dynamo_tpu_torch.grpc import h2
+
+        block = bytearray()
+        try:
+            while True:
+                ftype, flags, sid, payload = await h2.read_frame(self.reader, 1 << 24)
+                q = self.streams.get(sid)
+                if ftype == h2.SETTINGS and not flags & h2.ACK:
+                    self.writer.write(h2.frame(h2.SETTINGS, h2.ACK, 0))
+                elif ftype == h2.PING and not flags & h2.ACK:
+                    self.writer.write(h2.frame(h2.PING, h2.ACK, 0, payload))
+                elif ftype == h2.GOAWAY:
+                    self.goaway = struct.unpack_from(">II", payload)
+                elif ftype in (h2.HEADERS, h2.CONTINUATION):
+                    if ftype == h2.HEADERS:
+                        block = bytearray(h2.strip_padding(flags, payload, priority=True))
+                        end = flags & h2.END_STREAM
+                    else:
+                        block += payload
+                    if flags & h2.END_HEADERS:
+                        headers = self.decoder.decode(bytes(block))
+                        if q is not None:
+                            q.put_nowait(("headers", headers, time.perf_counter()))
+                            if end:
+                                q.put_nowait(("end", None, time.perf_counter()))
+                elif ftype == h2.DATA:
+                    if payload:
+                        inc = struct.pack(">I", len(payload))
+                        self.writer.write(h2.frame(h2.WINDOW_UPDATE, 0, 0, inc)
+                                          + h2.frame(h2.WINDOW_UPDATE, 0, sid, inc))
+                    if q is not None:
+                        q.put_nowait(("data", h2.strip_padding(flags, payload),
+                                      time.perf_counter()))
+                        if flags & h2.END_STREAM:
+                            q.put_nowait(("end", None, time.perf_counter()))
+                elif ftype == h2.RST_STREAM and q is not None:
+                    q.put_nowait(("reset", struct.unpack(">I", payload)[0],
+                                  time.perf_counter()))
+        except (asyncio.IncompleteReadError, ConnectionError):
+            for q in self.streams.values():
+                q.put_nowait(("reset", -1, time.perf_counter()))
+
+    async def call(self, method: str, request: bytes, *, timeout_ms: int | None = None,
+                   cancel_after: int | None = None, on_message=None) -> dict:
+        """One call to ``/inference.GRPCInferenceService/<method>``. Returns
+        {"messages": [bytes], "times": [s from the send to each message],
+        "status": int, "details": str, "trailers": {k: v}, "reset": code or
+        None}. With ``cancel_after`` the call sends RST_STREAM (CANCEL)
+        after that many messages; ``on_message(n)`` is awaited after the
+        n-th. ``timeout_ms`` goes to the server as ``grpc-timeout`` and is
+        kept here as well (status 4, DEADLINE_EXCEEDED, once it passes)."""
+        import struct
+
+        from dynamo_tpu_torch.grpc import h2
+        from dynamo_tpu_torch.grpc.server import frame_message, percent_decode
+
+        sid = self.next_id
+        self.next_id += 2
+        q: asyncio.Queue = asyncio.Queue()
+        self.streams[sid] = q
+        headers = [(":method", "POST"), (":scheme", "http"),
+                   (":path", f"/inference.GRPCInferenceService/{method}"),
+                   (":authority", "localhost"), ("te", "trailers"),
+                   ("content-type", "application/grpc")]
+        if timeout_ms is not None:
+            headers.append(("grpc-timeout", f"{int(timeout_ms)}m"))
+        body = frame_message(request)
+        require(len(body) < 65535, f"grpc request of {len(body)} bytes")
+        t0 = time.perf_counter()
+        self.writer.write(h2.header_frames(sid, self.encoder.encode(headers), False, 16384)
+                          + h2.frame(h2.DATA, h2.END_STREAM, sid, body))
+        out = {"messages": [], "times": [], "status": None, "details": "", "trailers": {},
+               "reset": None}
+        buf = bytearray()
+        # the caller's deadline is its own too, as grpc's client keeps it: past
+        # it the call is cancelled and ends DEADLINE_EXCEEDED
+        until = None if timeout_ms is None else t0 + timeout_ms / 1e3
+        try:
+            while True:
+                try:
+                    kind, value, t = await asyncio.wait_for(
+                        q.get(), None if until is None else max(until - time.perf_counter(), 0))
+                except TimeoutError:
+                    self.writer.write(h2.frame(h2.RST_STREAM, 0, sid,
+                                               struct.pack(">I", h2.CANCEL)))
+                    out.update(status=4, details="Deadline Exceeded", reset=h2.CANCEL)
+                    return out
+                if kind == "headers":
+                    hd = dict(value)
+                    if "grpc-status" in hd:
+                        out["status"] = int(hd["grpc-status"])
+                        out["details"] = percent_decode(hd.get("grpc-message", ""))
+                        out["trailers"] = {k: v for k, v in value if not k.startswith(":")}
+                elif kind == "data":
+                    buf += value
+                    while len(buf) >= 5 and len(buf) >= 5 + struct.unpack_from(">I", buf, 1)[0]:
+                        n = struct.unpack_from(">I", buf, 1)[0]
+                        out["messages"].append(bytes(buf[5:5 + n]))
+                        out["times"].append(t - t0)
+                        del buf[:5 + n]
+                        if on_message is not None:
+                            await on_message(len(out["messages"]))
+                        if cancel_after is not None and len(out["messages"]) >= cancel_after:
+                            self.writer.write(h2.frame(h2.RST_STREAM, 0, sid,
+                                                       struct.pack(">I", h2.CANCEL)))
+                            out["reset"] = h2.CANCEL
+                            return out
+                elif kind == "reset":
+                    out["reset"] = value
+                    return out
+                else:
+                    return out
+        finally:
+            self.streams.pop(sid, None)
+
+
 async def admin_call(drt, payload):
     """The worker's first answer to ``payload`` on its admin endpoint."""
     from dynamo_tpu_torch.runtime.context import Context
@@ -4325,9 +4497,11 @@ def process_phase(spec, cfg, prompts, default_tokens, http_stats, device=None) -
                          "--tool-call-parser", "hermes", "--reasoning-parser",
                          "deepseek_r1", *flags, *dev) for _ in range(2)]
         children += workers
-        front = Child("frontend", "--hub", hub, "--port", "0", "--host", "127.0.0.1")
+        front = Child("frontend", "--hub", hub, "--port", "0", "--host", "127.0.0.1",
+                      "--grpc-port", "0")
         children.append(front)
         port = int(front.wait_line("DYNAMO_HTTP=", 60).rsplit(":", 1)[1])
+        grpc_port = int(front.wait_line("DYNAMO_GRPC=", 60).rsplit(":", 1)[1])
         for w in workers:
             w.status_port = int(w.wait_line("SYSTEM_STATUS_PORT=", PROC_START_S)
                                 .split("=", 1)[1])
@@ -4335,7 +4509,8 @@ def process_phase(spec, cfg, prompts, default_tokens, http_stats, device=None) -
             line = next(ln for ln in w.seen if "engine worker " in ln)
             w.lease = int(re.search(r"engine worker ([0-9a-f]+) up", line).group(1), 16) >> 16
         t_ready = time.perf_counter() - t0
-        out = asyncio.run(_drive_processes(spec, prompts, hub, port, workers, front))
+        out = asyncio.run(_drive_processes(spec, prompts, hub, port, workers, front,
+                                           grpc_port))
         for child in (out["survivor"], front, hub_proc):
             require(child.stop() == 0, f"{child.name} exited non-zero: {child.seen[-8:]}")
     finally:
@@ -4402,6 +4577,12 @@ def process_phase(spec, cfg, prompts, default_tokens, http_stats, device=None) -
     # weights drawn here now that the workers are gone
     params = get_family(spec).init_params(spec, 0, device=DEVICE)
     checks = [near_argmax_check(spec, params, prompts[i], tcp_tokens[i]) for i in range(n)]
+    # the gRPC streams: equal to the TCP set's up to the first near-tie, each
+    # one that differs near-argmax under the same reference forward
+    g = out["grpc"]
+    grpc_same = sum(g["ids"][i] == tcp_tokens[i] for i in range(n))
+    grpc_checks = [near_argmax_check(spec, params, prompts[i], g["ids"][i])
+                   for i in range(n) if g["ids"][i] != tcp_tokens[i]]
     prefix_family_report(out["prefix"],
                          lambda p, t: near_argmax_check(spec, params, p, t))
     del params
@@ -4478,10 +4659,40 @@ def process_phase(spec, cfg, prompts, default_tokens, http_stats, device=None) -
           f"one-token prefill with no decode step (0 fused_decode launches)")
     print(f"processes: codec host time per coalesced frame of 8 token items "
           f"({len(body)} bytes): pack {pack_us:.2f} us, unpack {unpack_us:.2f} us")
+    require(g["steps"] > 0 and (DEVICE != "cuda" or g["fused"] == L * g["steps"]),
+            f"processes grpc: fused_decode launched {g['fused']} times over {g['steps']} "
+            "decode steps")
+
+    def itl(streams):
+        return sum((t[-1] - t[0]) / (SERVE_TOKENS - 1) for _, _, t in streams) / n
+
+    print(f"processes: grpc (g) clients: {', '.join(g['clients'])}; ServerLive, ServerReady, "
+          f"ModelReady and ModelMetadata answered; {n} concurrent ModelStreamInfer input_ids "
+          f"streams x {SERVE_TOKENS} tokens on cleared caches: {grpc_same}/{n} equal the TCP "
+          f"set's token ids"
+          + (f" (the others near-argmax, worst gap {max(x for _, x in grpc_checks):.3f})"
+             if grpc_checks else "")
+          + f"; fused_decode {g['fused']} = {L} x {g['steps']} decode steps over both workers")
+    grpc_rates = rates("grpc ModelStreamInfer -> 2 worker processes", g["wall"],
+                       sum(g["ttft"]) / n, max(g["ttft"]))
+    http_rates = rates("frontend -> 2 worker processes again", out["again_wall"],
+                       sum(again_ttft) / n, max(again_ttft))
+    print(f"processes: grpc (g) {grpc_rates}, ITL mean {1e3 * sum(g['itl']) / n:.2f} ms; the "
+          f"HTTP set's ({http_rates}, ITL mean {1e3 * itl(out['again']):.2f} ms)")
+    print(f"processes: grpc (g) unary ModelInfer text_input: {GRPC_TOKENS} tokens in "
+          f"{1e3 * g['unary_s']:.1f} ms, text_output {g['unary_text'][:40]!r}; openai_request "
+          f"chat stream: {g['chat'][0]} messages, triton_final_response on the last only, "
+          f"{g['chat'][1][:40]!r}; cancel after chunk {GRPC_CANCEL_AFTER} (RST_STREAM): "
+          f"{g['cancel'][0]} pages held, back to 0 after {g['cancel'][1]:.3f} s; "
+          f"{GRPC_DEADLINE_MS} ms deadline: DEADLINE_EXCEEDED ({g['deadline'][0]!r}), pages "
+          f"freed after {g['deadline'][1]:.3f} s")
+    print(f"processes: grpc (g) host cost per stream message ({g['message_bytes']} bytes): "
+          f"KServe encode {g['encode_us']:.2f} us, gRPC + HTTP/2 DATA framing "
+          f"{g['frame_us']:.2f} us; phase 11 (g) took {g['secs']:.2f} s")
     return fused, (sum(ttft) / n, max(ttft), [x["dispatch_ms"] for x in logs])
 
 
-async def _drive_processes(spec, prompts, hub, port, workers, front):
+async def _drive_processes(spec, prompts, hub, port, workers, front, grpc_port):
     """Phase 11's traffic, on this process's own loop."""
     import signal
 
@@ -4579,6 +4790,8 @@ async def _drive_processes(spec, prompts, hub, port, workers, front):
         # health: readiness, canary latency, SDC quarantine and readmission
         out["health"] = await _health_set(drt, workers, admin, cache_status,
                                           clear_caches, port, name, prompts)
+        # (g) the same frontend process's KServe gRPC surface
+        out["grpc"] = await _grpc_set(name, prompts, grpc_port, cache_status, clear_caches)
 
         # SIGTERM drain of the worker serving one more stream
         victim = {}
@@ -4633,6 +4846,194 @@ async def _drive_processes(spec, prompts, hub, port, workers, front):
         await drt.close()
     return out
 
+
+
+async def _grpc_set(name, prompts, grpc_port, cache_status, clear_caches) -> dict:
+    """Phase 11 (g): the frontend process's KServe gRPC surface through
+    GrpcClient (and, where grpc is installed, (c) through grpc.aio too):
+    (a) the probes; (b) the 8 prompts as concurrent greedy input_ids
+    streams of SERVE_TOKENS tokens on cleared caches, with both workers'
+    fused_decode launches and decode steps read before and after; (c) one
+    unary text_input ModelInfer; (d) one openai_request chat stream; (e) a
+    stream cancelled after its GRPC_CANCEL_AFTER-th chunk; (f) a
+    GRPC_DEADLINE_MS deadline. Gates what only this process sees; the
+    token ids go back to process_phase for the reference checks."""
+    import importlib
+    import importlib.util
+
+    from dynamo_tpu_torch.grpc import h2
+    from dynamo_tpu_torch.grpc import kserve as pb
+    from dynamo_tpu_torch.grpc.server import frame_message
+    from dynamo_tpu_torch.grpc.service import _text_output_response
+
+    t_set = time.perf_counter()
+    out: dict = {"clients": ["minimal (grpc/h2.py, hpack.py, kserve.py)"]}
+    temp0 = pb.InferParameter(double_param=0.0)
+
+    def params(n):
+        return {"max_tokens": pb.InferParameter(int64_param=n),
+                "ignore_eos": pb.InferParameter(bool_param=True), "temperature": temp0}
+
+    def ids_request(p, n, rid):
+        return pb.ModelInferRequest(model_name=name, id=rid, parameters=params(n), inputs=[
+            pb.InferInputTensor(name="input_ids", datatype="INT32", shape=[len(p)],
+                                contents=pb.InferTensorContents(int_contents=list(p)))])
+
+    def stream_items(r, label):
+        require(r["status"] == 0 and r["reset"] is None,
+                f"grpc {label}: status {r['status']} {r['details']!r}, reset {r['reset']}")
+        msgs = [pb.ModelStreamInferResponse.from_bytes(m) for m in r["messages"]]
+        bad = [m.error_message for m in msgs if m.error_message]
+        require(not bad, f"grpc {label}: error messages {bad[:2]}")
+        return [m.infer_response for m in msgs]
+
+    def final(resp) -> bool:
+        p = resp.parameters.get("triton_final_response")
+        return bool(p and p.bool_param)
+
+    async def free_within(limit: float, label: str) -> float:
+        t0 = time.perf_counter()
+        while any(s["active_pages"] for s in (await cache_status()).values()):
+            require(time.perf_counter() - t0 < limit,
+                    f"grpc {label}: the worker still holds its pages after {limit} s")
+            await asyncio.sleep(0.02)
+        return time.perf_counter() - t0
+
+    client = await GrpcClient().connect(grpc_port)
+    try:
+        # (a) probes
+        probes = {}
+        for method, req, cls in (
+                ("ServerLive", pb.ServerLiveRequest(), pb.ServerLiveResponse),
+                ("ServerReady", pb.ServerReadyRequest(), pb.ServerReadyResponse),
+                ("ModelReady", pb.ModelReadyRequest(name=name), pb.ModelReadyResponse),
+                ("ModelMetadata", pb.ModelMetadataRequest(name=name),
+                 pb.ModelMetadataResponse)):
+            r = await client.call(method, req.to_bytes())
+            require(r["status"] == 0 and len(r["messages"]) == 1,
+                    f"grpc {method}: status {r['status']} {r['details']!r}")
+            probes[method] = cls.from_bytes(r["messages"][0])
+        meta = probes["ModelMetadata"]
+        require(probes["ServerLive"].live and probes["ServerReady"].ready
+                and probes["ModelReady"].ready and meta.name == name
+                and [t.name for t in meta.inputs] == ["text_input", "input_ids",
+                                                      "openai_request", "streaming"],
+                f"grpc probes: {probes}")
+
+        # (b) the 8 prompts as concurrent input_ids streams
+        await clear_caches()
+        before = await cache_status()
+        t0 = time.perf_counter()
+        streams = await asyncio.gather(*(
+            client.call("ModelStreamInfer", ids_request(p, SERVE_TOKENS, f"g{i}").to_bytes())
+            for i, p in enumerate(prompts)))
+        out["wall"] = time.perf_counter() - t0
+        after = await cache_status()
+        out["ids"], out["ttft"], out["itl"] = [], [], []
+        for i, r in enumerate(streams):
+            resps = stream_items(r, f"stream {i}")
+            toks = [t for x in resps for o in x.outputs if o.name == "output_ids"
+                    for t in o.contents.int_contents]
+            require(len(toks) == SERVE_TOKENS and final(resps[-1])
+                    and not any(final(x) for x in resps[:-1]),
+                    f"grpc stream {i}: {len(toks)} tokens, finals "
+                    f"{[final(x) for x in resps]}")
+            out["ids"].append(toks)
+            out["ttft"].append(r["times"][0])
+            out["itl"].append((r["times"][-1] - r["times"][0]) / (SERVE_TOKENS - 1))
+        require(sorted(before) == sorted(after), f"grpc: workers {before} -> {after}")
+        out["fused"] = sum(after[w]["launches"].get("fused_decode_attention", 0)
+                           - before[w]["launches"].get("fused_decode_attention", 0)
+                           for w in after)
+        out["steps"] = sum(after[w]["steps"] - before[w]["steps"] for w in after)
+
+        # (c) one unary text_input ModelInfer, each client on cleared caches
+        text_req = pb.ModelInferRequest(model_name=name, id="smoke-c", parameters=params(
+            GRPC_TOKENS), inputs=[pb.InferInputTensor(
+                name="text_input", datatype="BYTES", shape=[1],
+                contents=pb.InferTensorContents(bytes_contents=[b"Hello there"]))]).to_bytes()
+        await clear_caches()
+        r = await client.call("ModelInfer", text_req)
+        require(r["status"] == 0 and len(r["messages"]) == 1,
+                f"grpc unary: status {r['status']} {r['details']!r}")
+        unary = pb.ModelInferResponse.from_bytes(r["messages"][0])
+        outputs = {o.name: o for o in unary.outputs}
+        tokens = unary.parameters.get("output_tokens")
+        require("text_output" in outputs and tokens and tokens.int64_param == GRPC_TOKENS
+                and final(unary), f"grpc unary: {unary}")
+        out["unary_text"] = outputs["text_output"].contents.bytes_contents[0]
+        out["unary_s"] = r["times"][0]
+        if importlib.util.find_spec("grpc") is not None:
+            grpc = importlib.import_module("grpc")
+            await clear_caches()
+            async with grpc.aio.insecure_channel(f"127.0.0.1:{grpc_port}") as chan:
+                got = await chan.unary_unary(
+                    "/inference.GRPCInferenceService/ModelInfer")(text_req)
+            require(got == r["messages"][0],
+                    f"grpc unary: grpc.aio's response {got!r} differs from "
+                    f"{r['messages'][0]!r}")
+            out["clients"].append(f"grpc.aio {grpc.__version__}")
+
+        # (d) one openai_request chat through ModelStreamInfer
+        body = {"messages": [{"role": "user", "content": "Hello there"}],
+                "max_tokens": GRPC_TOKENS, "ignore_eos": True, "temperature": 0.0,
+                "stream": True, "stream_options": {"include_usage": True}}
+        chat_req = pb.ModelInferRequest(model_name=name, inputs=[pb.InferInputTensor(
+            name="openai_request", datatype="BYTES", shape=[1],
+            contents=pb.InferTensorContents(bytes_contents=[json.dumps(body).encode()]))])
+        r = await client.call("ModelStreamInfer", chat_req.to_bytes())
+        resps = stream_items(r, "openai chat")
+        chunks = [json.loads(x.outputs[0].contents.bytes_contents[0]) for x in resps]
+        usage = chunks[-1].get("usage") or {}
+        require(len(chunks) > 1 and final(resps[-1])
+                and not any(final(x) for x in resps[:-1])
+                and all(c["object"] == "chat.completion.chunk" for c in chunks)
+                and usage.get("completion_tokens") == GRPC_TOKENS,
+                f"grpc openai chat: {chunks[-2:]}")
+        out["chat"] = (len(chunks), "".join(
+            c["choices"][0]["delta"].get("content") or "" for c in chunks if c["choices"]))
+
+        # (e) a stream cancelled after its GRPC_CANCEL_AFTER-th chunk
+        held = {}
+
+        async def on_message(k):
+            if k == GRPC_CANCEL_AFTER:
+                held["pages"] = sum(s["active_pages"] for s in (await cache_status()).values())
+
+        r = await client.call("ModelStreamInfer", ids_request(prompts[0], 4 * SERVE_TOKENS,
+                                                               "cancel").to_bytes(),
+                              cancel_after=GRPC_CANCEL_AFTER, on_message=on_message)
+        require(r["reset"] == h2.CANCEL and len(r["messages"]) == GRPC_CANCEL_AFTER
+                and held.get("pages", 0) > 0,
+                f"grpc cancel: {len(r['messages'])} messages, reset {r['reset']}, "
+                f"pages held at the cancel {held.get('pages')}")
+        out["cancel"] = (held["pages"], await free_within(GRPC_FREE_S, "cancel"))
+
+        # (f) a GRPC_DEADLINE_MS deadline
+        r = await client.call("ModelInfer", ids_request(prompts[1], 8 * SERVE_TOKENS,
+                                                        "deadline").to_bytes(),
+                              timeout_ms=GRPC_DEADLINE_MS)
+        require(r["status"] == 4, f"grpc deadline: status {r['status']} {r['details']!r}")
+        out["deadline"] = (r["details"], await free_within(GRPC_FREE_S, "deadline"))
+    finally:
+        await client.close()
+
+    # host cost of one stream message: the KServe encode, then its gRPC and
+    # HTTP/2 framing
+    resp = pb.ModelStreamInferResponse(infer_response=_text_output_response(
+        name, "chatcmpl-0123456789abcdef01234567", "abc", tokens=1, token_ids=[12345]))
+    reps = 2000
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        data = resp.to_bytes()
+    t1 = time.perf_counter()
+    for _ in range(reps):
+        h2.frame(h2.DATA, 0, 1, frame_message(data))
+    t2 = time.perf_counter()
+    out["encode_us"], out["frame_us"] = 1e6 * (t1 - t0) / reps, 1e6 * (t2 - t1) / reps
+    out["message_bytes"] = len(data)
+    out["secs"] = time.perf_counter() - t_set
+    return out
 
 
 async def _health_set(drt, workers, admin, cache_status, clear_caches, port, name,

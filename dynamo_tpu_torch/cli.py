@@ -22,7 +22,8 @@
         its KV events and load, router mode "kv" by default; ``--mode
         prefill|decode`` splits prefill from decode, disagg/), the OpenAI
         frontend (prints DYNAMO_HTTP=; routes a "kv" card by prefix
-        overlap) and the standalone KV router service (prints
+        overlap; ``--grpc-port N`` adds the KServe gRPC surface and prints
+        DYNAMO_GRPC=) and the standalone KV router service (prints
         ROUTER_READY; serves "generate" and "best_worker" on component
         "router") and a fleet of mock workers (prints MOCKERS_READY N)
     python -m dynamo_tpu_torch.cli encoder --hub H --hidden-size 4096 --encoder vit

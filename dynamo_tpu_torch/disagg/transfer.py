@@ -223,6 +223,9 @@ class PullStats:
 
 
 PULLS = PullStats()
+# how long a shard pull waits for its rank to export the shard (under the
+# pull's own 30 s socket timeout)
+SHARD_WAIT_S = 10.0
 
 
 @dataclass
@@ -499,6 +502,8 @@ class KvTransferSource:
                 await self._reply(writer, {"ok": False, "error": "bad op"})
                 return
             e = self._take(tid)
+            if e is None and own:
+                e = await self._await_shard(tid)
             if e is None:
                 await self._reply(writer, {"ok": False, "error": "unknown transfer_id"})
                 return
@@ -535,6 +540,21 @@ class KvTransferSource:
                 await writer.wait_closed()
             except ConnectionError:
                 pass
+
+    async def _await_shard(self, tid: str) -> _Export | None:
+        """A shard export not made yet, taken once it is (at most
+        SHARD_WAIT_S). Rank r of a tp group exports its shard when it
+        replays the leader's ``kv_export``; a puller that already holds the
+        leader's params (the leader joining a whole pull, or a decode rank's
+        prefetch) can ask before a lagging rank has replayed it."""
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + SHARD_WAIT_S
+        while loop.time() < deadline:
+            await asyncio.sleep(0.005)
+            e = self._take(tid)
+            if e is not None:
+                return e
+        return None
 
     async def _gc_loop(self) -> None:
         try:

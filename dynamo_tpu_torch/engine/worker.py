@@ -321,6 +321,9 @@ async def launch_engine_worker(
                 "active_pages": engine.allocator.active_pages,
                 "cached_pages": engine.allocator.evictable_pages,
                 "free_pages": engine.allocator.free_pages,
+                # kernel launches and decode steps since the process began:
+                # a caller reads them before and after a set of requests
+                "launches": launch_counts(), "steps": engine.steps,
                 "kvbm": (engine.kvbm.stats.to_dict()
                          if engine.kvbm is not None else None),
                 "disagg": disagg_status(engine) if mode != "aggregated" else None,

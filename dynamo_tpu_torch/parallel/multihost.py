@@ -72,13 +72,19 @@ def initialize_multihost(
     device=None,
     backend: str | None = None,
     timeout_s: float = DEFAULT_TIMEOUT_S,
+    store=None,
 ) -> bool:
     """Join the group as rank ``process_id`` of ``num_processes``; a no-op
     (False) with one process or no coordinator. ``device`` is the rank's
     device (default ``cuda:<local rank>``; the local rank is
     ``DYN_LOCAL_RANK``, else the process id modulo the host's cards).
     ``timeout_s`` bounds every collective wait: a rank that waits on a peer
-    that is gone raises instead of hanging."""
+    that is gone raises instead of hanging. ``store`` (a
+    ``torch.distributed.Store`` every rank reaches, such as a client of a
+    ``TCPStore`` its spawner holds) replaces the ``tcp://`` rendezvous, in
+    which rank 0 binds the coordinator's port: a port chosen free and
+    bound later can be taken in between. The coordinator address still
+    names rank 0's host."""
     coordinator_address = coordinator_address or os.environ.get("DYN_COORDINATOR")
     if num_processes is None:
         num_processes = _env_int("DYN_NUM_PROCESSES")
@@ -106,9 +112,10 @@ def initialize_multihost(
     addr = coordinator_address
     if "://" not in addr:
         addr = f"tcp://{addr}"
+    rendezvous = {"store": store} if store is not None else {"init_method": addr}
     dist.init_process_group(
-        backend, init_method=addr, world_size=num_processes, rank=process_id,
-        timeout=datetime.timedelta(seconds=timeout_s))
+        backend, world_size=num_processes, rank=process_id,
+        timeout=datetime.timedelta(seconds=timeout_s), **rendezvous)
     _STATE["device"] = dev
     log.info("joined group: rank %d/%d via %s (%s on %s)", process_id,
              num_processes, coordinator_address, backend, dev)

@@ -211,6 +211,14 @@ class FlightRecorder:
                     return tl
         return None
 
+    def lookup(self, request_id: str) -> Timeline | None:
+        """The timeline of ``request_id`` (active, recent, error or slow),
+        found under the recorder's lock. An active one is still being
+        changed by the step thread: render it with ``snapshot``, which
+        does so under the lock."""
+        with self._lock:
+            return self._lookup_locked(request_id)
+
     def snapshot(self, request_id: str | None = None,
                  n: int = 16) -> dict[str, Any]:
         """Admin-op payload: one full timeline (by request id), or the

@@ -22,6 +22,7 @@ tools/dynalint/catalog.py).
 
 from __future__ import annotations
 
+import asyncio
 import contextlib
 import contextvars
 import json
@@ -101,6 +102,13 @@ def parse_traceparent(header: str | None) -> TraceContext | None:
 
 def current_trace() -> TraceContext | None:
     return _current.get()
+
+
+def set_current(tc: TraceContext | None) -> None:
+    """Bind the current trace context by hand. ``span()`` and
+    ``bind_trace`` are the usual way; this is for code that manages span
+    identities itself (the flight recorder's span derivation)."""
+    _current.set(tc)
 
 
 def ensure_trace(headers: dict[str, str] | None = None) -> TraceContext:
@@ -373,6 +381,20 @@ class OtlpExporter:
                                 len(spans))
             elif self._stop.is_set():
                 return
+
+    def flush(self, timeout: float = 5.0) -> None:
+        """Best-effort synchronous drain, for tests and shutdown only: waits
+        (at most ``timeout`` s) until the queue is empty, then one beat more
+        for the batch being posted. Span emission never calls it; code on an
+        event loop uses ``aflush``."""
+        deadline = time.monotonic() + timeout
+        while not self._q.empty() and time.monotonic() < deadline:
+            time.sleep(0.02)
+        time.sleep(0.05)  # the in-flight POST
+
+    async def aflush(self, timeout: float = 5.0) -> None:
+        """``flush`` without blocking the event loop."""
+        await asyncio.to_thread(self.flush, timeout)
 
     def close(self, timeout: float = 5.0) -> None:
         """Flush AND join: the worker thread drains the queue, finishes

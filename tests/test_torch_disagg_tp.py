@@ -37,7 +37,6 @@ from __future__ import annotations
 
 import asyncio
 import json
-import socket
 import traceback
 
 import numpy as np
@@ -45,6 +44,7 @@ import pytest
 import torch
 
 from dynamo_tpu_torch.engine.config import EngineConfig, ModelSpec
+from test_torch_parallel import group_store, join_group
 
 pytestmark = pytest.mark.integration
 
@@ -64,12 +64,6 @@ def _few_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(prev)
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _req(prompt, n=TOKENS, **kw):
@@ -217,9 +211,9 @@ async def _rank_serve(role, rank, n, job, done):
 def _rank_main(role, rank, n, port, job, q, done):
     try:
         torch.set_num_threads(1)
-        from dynamo_tpu_torch.parallel.multihost import initialize_multihost, shutdown
+        from dynamo_tpu_torch.parallel.multihost import shutdown
 
-        initialize_multihost(f"127.0.0.1:{port}", n, rank, device="cpu", timeout_s=60)
+        join_group(port, n, rank, 60)
         try:
             q.put(((role, rank), "ok", asyncio.run(_rank_serve(role, rank, n, job, done))))
         finally:
@@ -389,16 +383,18 @@ async def _drive(job, jp) -> dict:
     return rec
 
 
-def _spawn(job, q, done):
+def _spawn(job, q, done, stores):
+    """The four ranks; ``stores`` gets each group's rendezvous store, which
+    the caller holds until the ranks are done."""
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
     procs = []
     for role in ("prefill", "decode"):
-        port = _free_port()
+        stores.append(group_store())
         for r in range(2):
             procs.append(ctx.Process(target=_rank_main,
-                                     args=(role, r, 2, port, job, q, done)))
+                                     args=(role, r, 2, stores[-1].port, job, q, done)))
     for p in procs:
         p.start()
     return procs
@@ -421,7 +417,8 @@ def groups():
         hub = HubServer()
         host, port = await hub.start()
         job = {"hub": f"{host}:{port}", "tree": tree, "shard_resumes": len(_prompts())}
-        procs = _spawn(job, q, done)
+        stores: list = []
+        procs = _spawn(job, q, done, stores)
         try:
             rec = await asyncio.wait_for(_drive(job, jp), RANK_TIMEOUT_S)
         finally:
@@ -676,6 +673,46 @@ async def test_fp8_sharded_export_pulled_whole_is_the_one_rank_pack():
             await s.close()
 
 
+async def test_a_shard_pull_waits_for_a_lagging_ranks_export(monkeypatch):
+    """Rank 1 exports its shard when it replays the leader's kv_export; a
+    whole pull at the leader (and a decode rank's own shard pull) can ask
+    for it first. The shard pull waits for the export, up to SHARD_WAIT_S,
+    so the whole pull joins both shards instead of failing over to a
+    local prefill; a shard that never comes still fails the pull."""
+    from dynamo_tpu_torch.disagg import transfer as tr
+
+    monkeypatch.setattr(tr, "SHARD_WAIT_S", 1.0)
+    k = [torch.randn(2, 3, 1, 4, 16) for _ in range(2)]
+    v = [torch.randn(2, 3, 1, 4, 16) for _ in range(2)]
+    srcs = [await tr.KvTransferSource().start() for _ in range(2)]
+    local = dict(tr._LOCAL_SOURCES)
+    tr._LOCAL_SOURCES.clear()  # TCP, as between processes
+    try:
+        for late in (True, False):
+            p0 = srcs[0].export(k[0], v[0], num_tokens=7, page_size=4)
+            tid = p0["transfer_id"]
+            shards = [{"start": r, "k_shape": list(k[r].shape), "v_shape": list(v[r].shape),
+                       "addr": f"{s.host}:{s.port}", "transfer_id": tid,
+                       "source_uid": s.uid} for r, s in enumerate(srcs)]
+            srcs[0].shard(tid, shards, packed=False)
+            params = {**p0, "shard_axis": 2, "shards": shards}
+            pull = asyncio.create_task(asyncio.to_thread(tr.pull_kv_blocks, params))
+            await asyncio.sleep(0.3)
+            if late:  # rank 1's export arrives while the leader waits for it
+                srcs[1].export(k[1], v[1], num_tokens=7, page_size=4, transfer_id=tid)
+                wk, wv, _meta = await pull
+                assert np.array_equal(wk, torch.cat(k, dim=2).numpy())
+                assert np.array_equal(wv, torch.cat(v, dim=2).numpy())
+            else:  # it never comes: the whole pull fails, the puller falls back
+                with pytest.raises(KeyError, match="shard pull failed"):
+                    await pull
+        assert srcs[0].pending == srcs[1].pending == 0
+    finally:
+        tr._LOCAL_SOURCES.update(local)
+        for s in srcs:
+            await s.close()
+
+
 class _Published:
     """An SPMD leader's stand-in: the descriptors the engine publishes."""
 
@@ -918,9 +955,9 @@ async def _mirror_rank_serve(role, rank, n, job, done):
 def _mirror_rank_main(role, rank, n, port, job, q):
     try:
         torch.set_num_threads(1)
-        from dynamo_tpu_torch.parallel.multihost import initialize_multihost, shutdown
+        from dynamo_tpu_torch.parallel.multihost import shutdown
 
-        initialize_multihost(f"127.0.0.1:{port}", n, rank, device="cpu", timeout_s=60)
+        join_group(port, n, rank, 60)
         try:
             q.put(((role, rank), "ok",
                    asyncio.run(_mirror_rank_serve(role, rank, n, job, None))))
@@ -945,10 +982,12 @@ def mirror_groups():
         host, port = await hub.start()
         job = {"hub": f"{host}:{port}", "tree": tree}
         procs = []
+        stores = []
         for role in ("lead", "mirror"):
-            rport = _free_port()
+            stores.append(group_store())
             procs += [ctx.Process(target=_mirror_rank_main,
-                                  args=(role, r, 2, rport, job, q)) for r in range(2)]
+                                  args=(role, r, 2, stores[-1].port, job, q))
+                      for r in range(2)]
         for p in procs:
             p.start()
         ranks = {}

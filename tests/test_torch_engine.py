@@ -38,7 +38,8 @@ CFG_KW = dict(page_size=4, num_pages=96, max_pages_per_seq=16,
 EMBED_SCALE = 32.0  # peaked logits (tests/test_quant_goldens.py)
 FORBIDDEN = ("jax", "jaxlib", "dynamo_tpu", "xxhash", "aiohttp", "msgpack",
              "prometheus_client", "ml_dtypes", "yaml", "transformers", "tokenizers",
-             "uvloop", "safetensors", "PIL", "torchvision", "benchmarks")
+             "uvloop", "safetensors", "PIL", "torchvision", "benchmarks", "grpc",
+             "google", "h2", "hpack", "hyperframe")
 
 
 @pytest.fixture(autouse=True)

@@ -15,7 +15,6 @@ reconnecting across a kill -9 of a ``cli hub --data-dir`` process.
 import asyncio
 import os
 import signal
-import socket
 import subprocess
 import sys
 import time
@@ -280,15 +279,9 @@ def test_store_load_ignores_older_generation_wal(tmp_path):
 # -- kill -9 + restart through real processes -------------------------------
 
 
-def _free_port() -> int:
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
-
-
-def _spawn_hub(port: int, data_dir: str) -> subprocess.Popen:
+def _spawn_hub(port: int, data_dir: str) -> tuple[subprocess.Popen, int]:
+    """A ``cli hub`` process on ``port`` (0: a port of its own choosing,
+    never one found free here and bound later); (process, its port)."""
     proc = subprocess.Popen(
         [sys.executable, "-m", "dynamo_tpu_torch.cli", "hub",
          "--port", str(port), "--data-dir", data_dir],
@@ -296,14 +289,13 @@ def _spawn_hub(port: int, data_dir: str) -> subprocess.Popen:
     )
     line = proc.stdout.readline().decode()
     assert "DYNAMO_HUB=" in line, line
-    return proc
+    return proc, int(line.strip().rsplit(":", 1)[1])
 
 
 async def test_hub_kill9_restart_clients_reconverge(tmp_path):
     """Kill -9 the hub mid-flight, restart it on the same port + data dir, and clients reconverge WITHOUT being
     restarted — state intact, watches live, event seqs continuous."""
-    port = _free_port()
-    proc = _spawn_hub(port, str(tmp_path))
+    proc, port = _spawn_hub(0, str(tmp_path))
     hub = None
     try:
         hub = await RemoteHub.connect(
@@ -339,7 +331,7 @@ async def test_hub_kill9_restart_clients_reconverge(tmp_path):
         # SIGKILL: no graceful close, no flush beyond the per-op WAL append
         proc.kill()
         proc.wait()
-        proc = _spawn_hub(port, str(tmp_path))
+        proc, _ = _spawn_hub(port, str(tmp_path))
 
         # calls reconverge through auto-reconnect
         assert await hub.get("mdc/llama") == {"card": 1}
@@ -380,8 +372,7 @@ async def test_hub_kill9_restart_clients_reconverge(tmp_path):
 async def test_watch_resync_synthesizes_missed_deletes(tmp_path):
     """A key deleted while the client was disconnected surfaces as a
     synthetic delete on re-sync (etcd watch re-establishment semantics)."""
-    port = _free_port()
-    proc = _spawn_hub(port, str(tmp_path))
+    proc, port = _spawn_hub(0, str(tmp_path))
     hub = None
     try:
         hub = await RemoteHub.connect(
@@ -401,7 +392,7 @@ async def test_watch_resync_synthesizes_missed_deletes(tmp_path):
 
         proc.kill()
         proc.wait()
-        proc = _spawn_hub(port, str(tmp_path))
+        proc, _ = _spawn_hub(port, str(tmp_path))
         # delete happens BEFORE the watcher re-syncs: a second client
         # (fresh connection) mutates immediately after restart
         hub2 = await RemoteHub.connect(f"127.0.0.1:{port}")
@@ -426,16 +417,16 @@ async def test_watch_resync_synthesizes_missed_deletes(tmp_path):
 async def test_nondurable_hub_still_works(tmp_path):
     """No --data-dir: in-memory hub, no files written (NATS-core mode),
     not even in the process's working directory."""
-    port = _free_port()
     proc = subprocess.Popen(
         [sys.executable, "-m", "dynamo_tpu_torch.cli", "hub",
-         "--port", str(port)],
+         "--port", "0"],
         stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, cwd=tmp_path,
         env={**os.environ, "PYTHONPATH": str(ROOT)},
     )
     try:
         line = proc.stdout.readline().decode()
         assert "DYNAMO_HUB=" in line
+        port = int(line.strip().rsplit(":", 1)[1])
         hub = await RemoteHub.connect(f"127.0.0.1:{port}")
         await hub.put("k", 1)
         assert await hub.get("k") == 1

@@ -21,7 +21,6 @@ token. Shards are equal bit for bit.
 from __future__ import annotations
 
 import asyncio
-import socket
 import traceback
 
 import numpy as np
@@ -65,19 +64,37 @@ def local_mesh(tp: int, rank: int) -> Mesh:
 # ------------------------------------------------------------ rank harness
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def group_store():
+    """A master TCPStore on a port of its own choosing, held by this process
+    for a group's life: the ranks join it as clients (``join_group``). A
+    port found free, closed and bound later by rank 0 can be taken in
+    between by another process (ephemeral ports are shared by every
+    test worker's connections)."""
+    import torch.distributed as dist
+
+    return dist.TCPStore("127.0.0.1", 0, is_master=True, wait_for_workers=False)
+
+
+def join_group(port: int, n: int, rank: int, timeout_s: float) -> None:
+    """Join rank ``rank`` of ``n`` through the store listening on ``port``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from dynamo_tpu_torch.parallel.multihost import initialize_multihost
+
+    store = dist.TCPStore("127.0.0.1", port, is_master=False,
+                          timeout=datetime.timedelta(seconds=timeout_s))
+    initialize_multihost(f"127.0.0.1:{port}", n, rank, device="cpu", timeout_s=timeout_s,
+                         store=store)
 
 
 def _rank_main(rank, n, port, task, args, q):
     try:
         torch.set_num_threads(1)  # up to 4 ranks beside other test workers
-        from dynamo_tpu_torch.parallel.multihost import initialize_multihost, shutdown
+        from dynamo_tpu_torch.parallel.multihost import shutdown
 
-        initialize_multihost(f"127.0.0.1:{port}", n, rank, device="cpu",
-                             timeout_s=60)
+        join_group(port, n, rank, 60)
         try:
             q.put((rank, "ok", task(rank, n, *args)))
         finally:
@@ -93,7 +110,8 @@ def run_ranks(n: int, task, *args) -> list:
 
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
-    port = _free_port()
+    store = group_store()
+    port = store.port
     procs = [ctx.Process(target=_rank_main, args=(r, n, port, task, args, q))
              for r in range(n)]
     for p in procs:
@@ -105,6 +123,7 @@ def run_ranks(n: int, task, *args) -> list:
             p.join(30)
             if p.is_alive():
                 p.kill()
+        del store
     errors = [msg for _r, status, msg in got if status != "ok"]
     assert not errors, "\n".join(errors)
     return [out for _r, _s, out in sorted(got, key=lambda g: g[0])]

@@ -20,7 +20,6 @@ import os
 import queue
 import re
 import signal
-import socket
 import subprocess
 import sys
 import threading
@@ -39,6 +38,7 @@ from dynamo_tpu_torch.models import llama
 from dynamo_tpu_torch.parallel.spmd import ADDR_KEY_FMT, SpmdFollower, SpmdLeader
 from dynamo_tpu_torch.runtime.context import Context
 from dynamo_tpu_torch.runtime.hub import InMemoryHub
+from test_torch_parallel import group_store, join_group
 
 pytestmark = pytest.mark.unit
 
@@ -303,12 +303,6 @@ async def test_leader_withdraws_its_address_and_rejects_past_the_window():
 # ------------------------------------------------- a tp group losing a rank
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _put_and_exit(q, item, code):
     q.put(item)
     q.close()
@@ -322,10 +316,9 @@ def _dying_group_rank(rank, port, q):
     try:
         torch.set_num_threads(1)
         from dynamo_tpu_torch.parallel.mesh import make_mesh
-        from dynamo_tpu_torch.parallel.multihost import initialize_multihost
         from dynamo_tpu_torch.parallel.spmd import StoreHub
 
-        initialize_multihost(f"127.0.0.1:{port}", 2, rank, device="cpu", timeout_s=20)
+        join_group(port, 2, rank, 20)
         mesh = make_mesh(tp=2)
         cfg = EngineConfig(**CFG_KW, tp=2)
 
@@ -370,7 +363,8 @@ def test_tp_group_leader_fails_loudly_when_a_rank_dies():
 
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
-    port = _free_port()
+    store = group_store()
+    port = store.port
     procs = [ctx.Process(target=_dying_group_rank, args=(r, port, q)) for r in range(2)]
     for p in procs:
         p.start()
@@ -396,10 +390,9 @@ def _tier_miss_group_rank(rank, port, q):
         torch.set_num_threads(1)
         from dynamo_tpu_torch.kvbm import KvbmConfig, KvBlockManager
         from dynamo_tpu_torch.parallel.mesh import make_mesh
-        from dynamo_tpu_torch.parallel.multihost import initialize_multihost
         from dynamo_tpu_torch.parallel.spmd import StoreHub
 
-        initialize_multihost(f"127.0.0.1:{port}", 2, rank, device="cpu", timeout_s=20)
+        join_group(port, 2, rank, 20)
         mesh = make_mesh(tp=2)
         cfg = EngineConfig(**CFG_KW, tp=2)
         kvbm = KvBlockManager(KvbmConfig(host_bytes=1 << 22))
@@ -455,7 +448,8 @@ def test_tp_group_fails_loudly_when_a_rank_misses_an_onboarded_block():
 
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
-    port = _free_port()
+    store = group_store()
+    port = store.port
     procs = [ctx.Process(target=_tier_miss_group_rank, args=(r, port, q))
              for r in range(2)]
     for p in procs:
