@@ -471,7 +471,19 @@ Phases, each of which must pass (any failure exits non-zero):
    token near-argmax; (d) a --model-type embeddings worker on the same
    weights answers /v1/embeddings for 1 and 8 inputs: unit norms within
    EMB_NORM_TOL, the batch equal to the inputs one by one within
-   EMB_EQ_TOL, ms per input.
+   EMB_EQ_TOL, ms per input; (e) JPEG, GIF and video: the committed
+   fixtures of tests/torch_mm_fixtures (a 640x480 baseline 4:2:0 JPEG with
+   an ICC profile and restart markers, a 500x375 progressive 4:2:2 one, a
+   333x251 grey one, a 320x240 12-frame GIF) decoded on the host, each
+   held to the manifest's sha256 of Pillow's RGB array; the GIF sampled
+   into 8 frames whose PNG bytes equal the manifest's when this zlib is
+   the manifest's (else each frame's pixels do); on an engine worker whose
+   chunk cap and top bucket hold one video prompt (5,120 tokens, 320 pages
+   per sequence), the JPEG chat through HTTP gives the tower rows and
+   greedy tokens of the same chat with the PNG encode_png makes of its
+   pixels, and the GIF video chat (8 x 576 placeholder rows) streams with
+   fused_decode at 32 launches per step; host ms of each decode and of the
+   sampling printed beside the card's name and power limit.
 22. tensor parallelism (after phase 17, every engine freed): fused_decode
    at a tp rank's shapes (KH 4 / G 4 and KH 2 / G 8, bf16 and fp8 pools)
    against its plain version, timed beside SDPA and its bound, kv_write
@@ -495,7 +507,8 @@ Phases, each of which must pass (any failure exits non-zero):
    in the decode and verify graphs, phase 5's and phase 12's graph checks
    (replay bitwise equal to eager), a serve equal to phase 4's streams;
    (d) ``cli hub`` with a ``--mirror leader`` and a ``--mirror follower``
-   worker serving phase 4's prompts over TCP: the follower's pages
+   worker (llama-3-8b at full width cut to MIRROR_LAYERS layers, by
+   ``--spec-json``) serving phase 4's prompts over TCP: the follower's pages
    bitwise equal to the leader's (kv_digest); a SIGKILLed follower's
    replacement rejoins through ``__sync__`` and equals the leader again
    after the next serve; descriptor bytes and host us per publish; (e)
@@ -7815,13 +7828,224 @@ def mm_cut_check(spec, params, prompt: list[int], positions: list[int], rows: np
     print(f"multimodal values [{card}]: the rows moved the cut's logits by up to {moved:.3e}")
 
 
+MM_FIXTURES = ROOT / "tests" / "torch_mm_fixtures"
+MM_VIDEO_FRAMES = 8  # the encode worker's and the card's default
+# the video engine: one prefill dispatch holds 8 x 576 placeholder rows and
+# the chat around them (the prompt must fit one dispatch)
+MM_VIDEO_TOKENS = 5120
+
+
+def mm_fixture_decodes(card: str) -> dict:
+    """Phase 21 (e), host side: each fixture decoded and held to the
+    manifest; the GIF sampled into PNG frames. Returns the files."""
+    import hashlib
+    import zlib
+
+    from dynamo_tpu_torch.multimodal import encoder, image
+
+    manifest = json.loads((MM_FIXTURES / "manifest.json").read_text())
+    files = {}
+    for name, entry in sorted(manifest["files"].items()):
+        data = (MM_FIXTURES / name).read_bytes()
+        require(hashlib.sha256(data).hexdigest() == entry["sha256"],
+                f"multimodal formats: {name} is not the committed file")
+        t0 = time.perf_counter()
+        rgb, info = image.decode_image(data)
+        ms = 1e3 * (time.perf_counter() - t0)
+        digest = hashlib.sha256(rgb.tobytes()).hexdigest()
+        require(digest == entry["rgb_sha256"] and list(rgb.shape) == entry["shape"],
+                f"multimodal formats: {name} decoded to {rgb.shape} {digest[:12]}, Pillow's "
+                f"{entry['shape']} {entry['rgb_sha256'][:12]}")
+        print(f"multimodal formats [{card}]: {name} ({len(data)} bytes) -> {rgb.shape[1]}x"
+              f"{rgb.shape[0]} RGB equal to Pillow's (sha256) in {ms:.1f} ms host"
+              + (", ICC profile kept" if info.get("icc_profile") else ""))
+        files[name] = data
+    gif = files["anim_320x240.gif"]
+    entry = manifest["files"]["anim_320x240.gif"]
+    t0 = time.perf_counter()
+    frames = encoder.sample_video_frames(gif, MM_VIDEO_FRAMES)
+    ms = 1e3 * (time.perf_counter() - t0)
+    ours, theirs = zlib.ZLIB_RUNTIME_VERSION, manifest["versions"]["zlib"]
+    if ours == theirs:
+        got = [hashlib.sha256(f).hexdigest() for f in frames]
+        require(got == entry["frame_png_sha256"],
+                "multimodal formats: the GIF's sampled PNG frames differ from the reference's")
+        held = "PNG bytes equal to the reference's (sha256)"
+    else:
+        got = [hashlib.sha256(image.decode_png(f).tobytes()).hexdigest() for f in frames]
+        require(got == entry["frame_rgb_sha256"],
+                "multimodal formats: the GIF's sampled frames' pixels differ from Pillow's")
+        same = sum(hashlib.sha256(f).hexdigest() == want
+                   for f, want in zip(frames, entry["frame_png_sha256"]))
+        held = (f"zlib {ours} here, {theirs} in the manifest: each frame's pixels equal "
+                f"to Pillow's (sha256), {same} of {len(frames)} frames' PNG bytes equal to "
+                "the manifest's")
+    print(f"multimodal formats [{card}]: anim_320x240.gif ({entry['n_frames']} frames) sampled "
+          f"into {len(frames)} PNG frames in {ms:.1f} ms host; {held}")
+    return files
+
+
+def mm_formats_phase(spec, cfg, params, enc, card) -> int:
+    """Phase 21 (e): the fixtures' decodes, then on an engine worker sized
+    for one video prompt the JPEG chat against its PNG twin and the GIF
+    video chat, through the HTTP frontend. Returns fused_decode launches."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.worker import launch_engine_worker
+    from dynamo_tpu_torch.frontend.http import HttpFrontend
+    from dynamo_tpu_torch.frontend.watcher import ModelManager, ModelWatcher
+    from dynamo_tpu_torch.multimodal import image
+    from dynamo_tpu_torch.multimodal.worker import launch_encode_worker
+    from dynamo_tpu_torch.runtime.context import Context
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.runtime.hub import InMemoryHub
+
+    t0 = time.perf_counter()
+    name, L = spec.name, spec.num_layers
+    files = mm_fixture_decodes(card)
+    jpeg = files["photo_420_icc_rst.jpg"]
+    rgb, info = image.decode_image(jpeg)
+    twin = image.encode_png(rgb, info.get("transparency"), info.get("icc_profile"))
+    rows = {k: enc.forward_pixels(enc.pixels([b])).float().cpu() for k, b in
+            (("jpeg", jpeg), ("png", twin))}
+    require(torch.equal(rows["jpeg"], rows["png"]),
+            "multimodal formats: the JPEG's tower rows differ from its PNG twin's")
+
+    def url(kind, data):
+        return f"data:{kind};base64," + base64.b64encode(data).decode()
+
+    def chat(part):
+        return {"model": name, "max_tokens": SERVE_TOKENS, "ignore_eos": True,
+                "temperature": 0.0,
+                "messages": [{"role": "user", "content": [{"type": "text", "text": MM_TEXT},
+                                                          part]}]}
+
+    jpeg_chat = chat({"type": "image_url", "image_url": {"url": url("image/jpeg", jpeg)}})
+    png_chat = chat({"type": "image_url", "image_url": {"url": url("image/png", twin)}})
+    video_chat = chat({"type": "video_url", "video_url": {
+        "url": url("image/gif", files["anim_320x240.gif"])}})
+    buckets = tuple(b for b in (64, 128, 256, 512, 1024, 2048, 4096) if b < MM_VIDEO_TOKENS)
+    encode_s: list[float] = []  # the encode worker's decode, sampling and tower
+    rows_s: list[float] = []  # the engine's decode of the rows' payload
+    tower_encode = enc.encode
+
+    def timed_encode(images):
+        t = time.perf_counter()
+        try:
+            return tower_encode(images)
+        finally:
+            encode_s.append(time.perf_counter() - t)
+
+    enc.encode = timed_encode
+
+    async def drive():
+        drt = DistributedRuntime(InMemoryHub())
+        await launch_encode_worker(drt, hidden_size=spec.hidden_size, encoder=enc,
+                                   video_frames=MM_VIDEO_FRAMES)
+        engine, _ = await launch_engine_worker(
+            drt, model=name, spec=spec, params=params, device=DEVICE,
+            engine_config=EngineConfig(**dict(
+                cfg, max_pages_per_seq=MM_VIDEO_TOKENS // cfg["page_size"],
+                max_prefill_chunk_tokens=MM_VIDEO_TOKENS,
+                prefill_buckets=buckets + (MM_VIDEO_TOKENS,)), pipeline_decode=True),
+            mm_tokens_per_image=MM_TOKENS, image_token_id=MM_IMAGE_TOKEN,
+            mm_video_frames=MM_VIDEO_FRAMES)
+        engine_decode = engine._decode_multimodal
+
+        def timed_decode(req):
+            t = time.perf_counter()
+            try:
+                return engine_decode(req)
+            finally:
+                rows_s.append(time.perf_counter() - t)
+
+        engine._decode_multimodal = timed_decode
+        watcher = await ModelWatcher(drt, ModelManager()).start()
+        frontend = HttpFrontend(watcher.manager, host="127.0.0.1", port=0)
+        out: dict = {}
+        try:
+            await watcher.wait_for_model(name, timeout=30)
+            _, port = await frontend.start()
+            pipe = watcher.manager.get(name)
+
+            async def post(body):
+                """(body, client wall s, encode s, rows decode s)."""
+                t, e0, d0 = time.perf_counter(), len(encode_s), len(rows_s)
+                status, raw, _ = await http_call(port, "POST", "/v1/chat/completions", body)
+                resp = json.loads(raw)
+                require(status == 200 and resp["usage"]["completion_tokens"] == SERVE_TOKENS,
+                        f"multimodal formats: {status} {str(resp)[:300]}")
+                return resp, time.perf_counter() - t, sum(encode_s[e0:]), sum(rows_s[d0:])
+
+            async def tokens(body):
+                items = [x async for x in pipe.generate(pipe.preprocessor.preprocess(body),
+                                                        Context())]
+                return [t for x in items for t in x.get("token_ids") or ()]
+
+            # warm-up: a text chat (the decode graphs' lazy capture)
+            await post({**chat({"type": "text", "text": "."}),
+                        "messages": [{"role": "user", "content": MM_TEXT}]})
+            zero_counts()
+            s0, r0 = engine.steps, engine._graphs.replays
+            out["jpeg"] = await post(jpeg_chat)
+            out["png"] = await post(png_chat)
+            out["streams"] = [await tokens(jpeg_chat), await tokens(png_chat)]
+            out["video"] = await post(video_chat)
+            out["text prompt"] = (await post({**chat({"type": "text", "text": "."}),
+                                              "messages": [{"role": "user",
+                                                            "content": MM_TEXT}]}))[0]
+            out["steps"], out["replays"] = engine.steps - s0, engine._graphs.replays - r0
+            out["counts"] = read_counts()
+        finally:
+            await frontend.stop()
+            await watcher.close()
+            await engine.close()
+            await drt.close()
+        return out
+
+    try:
+        out = asyncio.run(drive())
+    finally:
+        enc.encode = tower_encode
+    steps, counts = out["steps"], out["counts"]
+    require(counts["fused_decode"] == L * steps and steps > 0 and out["replays"] == steps,
+            f"multimodal formats: fused_decode {counts['fused_decode']} over {steps} steps, "
+            f"{out['replays']} replays")
+    a, b = out["streams"]
+    require(len(a) == SERVE_TOKENS and a == b,
+            "multimodal formats: the JPEG chat's greedy stream differs from its PNG twin's")
+    require(out["jpeg"][0]["choices"][0]["message"]["content"]
+            == out["png"][0]["choices"][0]["message"]["content"],
+            "multimodal formats: the JPEG chat's text differs from its PNG twin's")
+    video, wall, v_enc, v_rows = out["video"]
+    extra = video["usage"]["prompt_tokens"] - out["text prompt"]["usage"]["prompt_tokens"]
+    require(extra == MM_VIDEO_FRAMES * MM_TOKENS,
+            f"multimodal formats: the video chat adds {extra} prompt tokens")
+    for label in ("jpeg", "png"):
+        _, w, e, d = out[label]
+        print(f"multimodal formats [{card}]: {label} chat {1e3 * w:.1f} ms client wall "
+              f"({SERVE_TOKENS} tokens): encode {1e3 * e:.1f} ms (host decode, preprocess, "
+              f"tower), the engine's rows decode {1e3 * d:.1f} ms")
+    print(f"multimodal formats [{card}]: the JPEG chat's tower rows and its {SERVE_TOKENS} "
+          f"greedy tokens equal its PNG twin's")
+    print(f"multimodal video [{card}]: GIF of {MM_VIDEO_FRAMES} sampled frames, "
+          f"{video['usage']['prompt_tokens']} prompt tokens ({extra} placeholder rows) in one "
+          f"prefill dispatch, {SERVE_TOKENS} tokens in {wall:.3f} s client wall: the "
+          f"tower's encode {1e3 * v_enc:.1f} ms ({MM_VIDEO_FRAMES} PNG frames decoded and "
+          f"preprocessed, the tower; the sampling before it not included), the rows decode {1e3 * v_rows:.1f} ms; {steps} decode "
+          f"steps over the phase, fused_decode {counts['fused_decode']} ({L} per step)")
+    torch.cuda.empty_cache()
+    print(f"phase 21 (e): {time.perf_counter() - t0:.1f} s")
+    return counts["fused_decode"]
+
+
 def multimodal_phase(spec, cfg, params, card) -> int:
     """Phase 21 at full width on phase 4's llama-3-8b weights: (a) the
     PNGs decoded on the host, (b) the ViT-L/14-336 tower on the card, (c)
     the EPD serve through the HTTP frontend (in-memory hub, the port's
     encode worker on the tower, an engine worker with 576 placeholders per
-    image), (d) a --model-type embeddings worker on /v1/embeddings. Returns
-    the fused_decode launches of the image-conditioned streams."""
+    image), (d) a --model-type embeddings worker on /v1/embeddings, (e)
+    JPEG, GIF and a GIF video (mm_formats_phase). Returns the fused_decode
+    launches of the image- and video-conditioned streams."""
     from dynamo_tpu_torch.engine.config import EngineConfig
     from dynamo_tpu_torch.engine.worker import launch_engine_worker
     from dynamo_tpu_torch.frontend.http import HttpFrontend
@@ -8042,9 +8266,12 @@ def multimodal_phase(spec, cfg, params, card) -> int:
           f"8 inputs {1e3 * emb_wall['batch'][0]:.1f} ms "
           f"({1e3 * emb_wall['batch'][0] / EMB_INPUTS:.1f} ms per input, client wall); unit "
           f"norm within {EMB_NORM_TOL}; batch vs one by one max abs diff {eq:.3e}")
-    del engine, enc
+    del engine
     torch.cuda.empty_cache()
-    launches = counts["fused_decode"]
+    enc.encode = tower_encode
+    launches = counts["fused_decode"] + mm_formats_phase(spec, cfg, params, enc, card)
+    del enc
+    torch.cuda.empty_cache()
     print(f"phase 21: {time.perf_counter() - t21:.1f} s, fused_decode {launches}")
     return launches
 
@@ -8535,15 +8762,24 @@ async def _mirror_serve(hub, prompts) -> tuple[dict, float]:
         await drt.close()
 
 
-def mirror_phase(spec, cfg, prompts, bf16_tokens, card) -> int:
+MIRROR_LAYERS = 8  # phase 22 (d): llama-3-8b at full width, cut to this many layers
+
+
+def mirror_phase(spec, cfg, prompts, card) -> int:
     """Phase 22 (d): ``cli hub``, a ``--mirror leader`` worker and a
-    ``--mirror follower`` worker (each the whole llama-3-8b on this card)
-    serve phase 4's prompts over TCP; the follower's pages equal the
-    leader's bitwise (their kv_digest); the follower is SIGKILLed and a new
-    one rejoins through __sync__; after the next serve its pages equal the
-    leader's again. Prints the descriptors' bytes and host time."""
+    ``--mirror follower`` worker (each ``spec`` cut to MIRROR_LAYERS
+    layers, on this card) serve phase 4's prompts over TCP; the follower's
+    pages equal the leader's bitwise (their kv_digest); the follower is
+    SIGKILLed and a new one rejoins through __sync__; after the next serve
+    its pages equal the leader's again. Prints the descriptors' bytes and
+    host time."""
+    import dataclasses
+
     t0 = time.perf_counter()
-    flags = ["--model", spec.name, "--page-size", str(cfg["page_size"]), "--num-pages",
+    spec = dataclasses.replace(spec, num_layers=MIRROR_LAYERS,
+                               name=f"{spec.name}[{MIRROR_LAYERS} layers]")
+    flags = ["--spec-json", json.dumps(dataclasses.asdict(spec)),
+             "--page-size", str(cfg["page_size"]), "--num-pages",
              str(cfg["num_pages"]), "--max-pages-per-seq", str(cfg["max_pages_per_seq"]),
              "--max-decode-slots", str(cfg["max_decode_slots"])]
     children: list[Child] = []
@@ -8564,8 +8800,6 @@ def mirror_phase(spec, cfg, prompts, bf16_tokens, card) -> int:
         require(ld["pages"] > 0 and (fd["k"], fd["v"], fd["pages"]) ==
                 (ld["k"], ld["v"], ld["pages"]),
                 f"mirror: follower digest {fd} != leader's {ld}")
-        eq = sum(a == b for i in bf16_tokens for a, b in zip(bf16_tokens[i],
-                                                             first["tokens"][i]))
         follower.proc.kill()  # lost: the mirror leader serves on
         follower.proc.wait(30)
         rejoined = Child("worker", "--hub", hub, "--mirror", "follower", *flags,
@@ -8592,8 +8826,8 @@ def mirror_phase(spec, cfg, prompts, bf16_tokens, card) -> int:
                 child.proc.kill()
                 child.proc.wait(30)
     n_tok = sum(len(t) for t in first["tokens"].values())
-    print(f"phase 22 (d) [{card}]: mirror leader + follower (each the whole {spec.name}) "
-          f"served {n_tok} tokens in {wall1:.2f} s ({eq} of {n_tok} equal to phase 4's); "
+    print(f"phase 22 (d) [{card}]: mirror leader + follower (each {spec.name}, full width) "
+          f"served {n_tok} tokens in {wall1:.2f} s; "
           f"follower pages bitwise equal to the leader's ({ld['pages']} pages, sha256 "
           f"{ld['k'][:12]}/{ld['v'][:12]}); after a SIGKILL the new follower rejoined "
           f"through __sync__ ({synced.strip()[-80:]!r}) and after the next serve "
@@ -8748,7 +8982,7 @@ def tp_phase(cfg, prompts, bf16_tokens, card, flush) -> tuple[dict, dict[str, in
                           f"phase 22 (b) llama-3-70b (d 8192, 64/8 heads, FFN 28672, "
                           f"vocab 128256; cut to {TP70_LAYERS} layers) tp=4 gloo", card)
     c = tp_nccl_one(spec8, cfg, prompts, bf16_tokens, card)
-    d = mirror_phase(spec8, cfg, prompts, bf16_tokens, card)
+    d = mirror_phase(spec8, cfg, prompts, card)
     f = tp_worker_phase(spec8a, cfg, prompts, card)
     e = 0
     if torch.cuda.device_count() >= 2:

@@ -6,8 +6,10 @@ Image content parts in chat requests flow through a dedicated ENCODE worker
 into embedding rows; the frontend's MultimodalEncode operator (operator.py)
 calls it before routing, and the engine injects the rows at the prompt's
 placeholder positions during prefill (one masked scatter after the embedding
-lookup). Images are PNG, decoded and resized with the standard library and
-numpy (image.py), bit for bit the reference's Pillow pixels.
+lookup). Images are PNG, JPEG or GIF, decoded (image.py, jpeg.py, gif.py) and
+resized with the standard library and numpy, bit for bit the reference's
+Pillow pixels; a video is an animated GIF, sampled into frames that are
+re-encoded as Pillow's PNG bytes (encoder.sample_video_frames).
 """
 
 from dynamo_tpu_torch.multimodal.encoder import (

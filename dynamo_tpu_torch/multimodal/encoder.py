@@ -9,9 +9,11 @@ the model's output. The ViT tower (multimodal/vit.py) serves behind the same
 
 Images arrive as OpenAI ``image_url`` values: ``data:`` URIs (base64), and
 local ``file://`` paths behind ``DYNAMO_MM_ALLOW_FILE_URLS``; http(s) URLs
-raise. Video frame sampling (the reference's ``sample_video_frames``, which
-decodes GIF/WebP and re-encodes each frame as a Pillow PNG) is not here:
-the port has no Pillow to make those bytes (ROADMAP Queue A item 12b).
+raise. ``sample_video_frames`` is the reference's: frames sampled from an
+animated GIF (or a still PNG, JPEG or GIF repeated), each re-encoded as the
+PNG bytes Pillow writes (image.py), so the mock encoder's digest-seeded
+rows and the worker's frame deduplication see the reference's bytes.
+Animated WebP and PNG raise ValueError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -22,7 +24,38 @@ import os
 
 import numpy as np
 
-__all__ = ["MockVisionEncoder", "load_image_bytes"]
+from dynamo_tpu_torch.multimodal import image
+from dynamo_tpu_torch.multimodal.formats import ITEM_WEBP_APNG_MPO
+from dynamo_tpu_torch.multimodal.gif import GifReader
+
+__all__ = ["MockVisionEncoder", "load_image_bytes", "sample_video_frames"]
+
+
+def sample_video_frames(data: bytes, n_frames: int) -> list[bytes]:
+    """``n_frames`` frames sampled uniformly from an animated GIF, each as
+    the PNG bytes of Pillow's ``convert("RGB").save(format="PNG")``; a
+    still image gives its one frame ``n_frames`` times. The reference's
+    indices, endpoints included: ``round(i * (total - 1) / (n_frames -
+    1))``. Raises ``ValueError("undecodable video bytes ...")``."""
+    try:
+        gif = GifReader(data) if data[:6] in (b"GIF87a", b"GIF89a") else None
+        total = gif.n_frames if gif is not None else image.frame_count(data)
+        if n_frames == 1 or total == 1:
+            idx = [0] * n_frames
+        else:
+            idx = [round(i * (total - 1) / (n_frames - 1)) for i in range(n_frames)]
+        if gif is not None:
+            pngs = {k: image.encode_png(rgb, t) for k, rgb, t in gif.frames(idx)}
+        elif total == 1:
+            rgb, info = image.decode_image(data)
+            pngs = {0: image.encode_png(rgb, info.get("transparency"), info.get("icc_profile"))}
+        else:
+            raise ValueError("animated PNG frames are not decoded by this port "
+                             f"({ITEM_WEBP_APNG_MPO})")
+        return [pngs[i] for i in idx]
+    except Exception as e:  # noqa: BLE001 - a malformed or unported file of any kind
+        raise ValueError(f"undecodable video bytes (animated GIF, and still PNG, JPEG or "
+                         f"GIF, are decoded by this port): {e}") from e
 
 
 def load_image_bytes(url: str) -> bytes:

@@ -14,7 +14,7 @@ Matmuls run in true f32 (TF32 is never turned on).
 state dict onto the tree, as the reference's does; ``params_from_numpy``
 carries a tree of arrays (the JAX ``init_vit_params``) across; ``VitEncoder``
 serves ``encode`` on an explicit device, with an explicit generator for its
-seeded init. Images decode through multimodal/image.py (PNG only).
+seeded init. Images decode through multimodal/image.py (PNG, JPEG and GIF).
 """
 
 from __future__ import annotations

@@ -13,8 +13,8 @@ Run: ``python -m dynamo_tpu_torch.multimodal.worker --hub HOST:PORT
 --hidden-size 4096 --encoder vit`` (or ``python -m dynamo_tpu_torch.cli
 encoder ...``); ``--device cpu`` runs the tower on the CPU (default: the
 GPU). Prints ``ENCODER_READY`` once registered. A ``kind: "video"``
-attachment is refused: the reference samples its frames through Pillow
-(ROADMAP Queue A item 12b).
+attachment is sampled into ``video_frames`` PNG frames
+(encoder.sample_video_frames), each encoded like an image.
 """
 
 from __future__ import annotations
@@ -29,8 +29,11 @@ from typing import Any
 
 import numpy as np
 
-from dynamo_tpu_torch.multimodal.encoder import MockVisionEncoder, load_image_bytes
-from dynamo_tpu_torch.multimodal.image import UNSUPPORTED_FORMAT_ITEM
+from dynamo_tpu_torch.multimodal.encoder import (
+    MockVisionEncoder,
+    load_image_bytes,
+    sample_video_frames,
+)
 
 log = logging.getLogger("dynamo_tpu_torch.mm.worker")
 
@@ -74,9 +77,10 @@ async def launch_encode_worker(
 ):
     """Serve the encode endpoint on ``drt``; returns the served handle.
 
-    Attachments are image URLs (str) or ``{"url": ..., "kind": ...}`` dicts.
-    Each unique image is encoded once and its rows tiled where it repeats.
-    A video attachment answers an error (frame sampling is not ported)."""
+    Attachments are image URLs (str) or ``{"url": ..., "kind": ...}`` dicts;
+    a video is sampled into ``video_frames`` stills, each encoded as an
+    image. Each unique image or frame is encoded once and its rows tiled
+    where it repeats."""
     if video_frames < 1:
         raise ValueError(
             "video_frames must be >= 1 (a zero-frame video would "
@@ -89,9 +93,9 @@ async def launch_encode_worker(
         images: list[bytes] = []
         for a in atts:
             if isinstance(a, dict) and a.get("kind") == "video":
-                raise ValueError("video attachments are not ported (frame sampling "
-                                 f"needs Pillow's PNG encoder: {UNSUPPORTED_FORMAT_ITEM})")
-            images.append(load_image_bytes(a["url"] if isinstance(a, dict) else a))
+                images.extend(sample_video_frames(load_image_bytes(a["url"]), video_frames))
+            else:
+                images.append(load_image_bytes(a["url"] if isinstance(a, dict) else a))
         uniq: dict[bytes, int] = {}
         order = [uniq.setdefault(b, len(uniq)) for b in images]
         uniq_rows = enc.encode(list(uniq))
@@ -102,7 +106,7 @@ async def launch_encode_worker(
 
     async def handler(request: dict, context):
         try:
-            # the tower's forward (and the PNG decode) off the event loop
+            # the tower's forward (and the image decodes) off the event loop
             rows = await asyncio.to_thread(encode, list(request.get("images") or []))
         except Exception as e:  # noqa: BLE001
             yield {"error": f"image encode failed: {e}"}

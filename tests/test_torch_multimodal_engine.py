@@ -17,8 +17,13 @@ embedding scaled by EMBED_SCALE so no greedy token rides on a near-tie):
   with its own encode worker (the mock encoder) and engine, give equal chat
   bodies for one image, two images, a repeated image and another image,
   and equal /v1/embeddings bodies (vectors within EMB_TOL) and errors;
+- a JPEG image and a GIF video in one chat give equal bodies from both
+  EPD stacks (the port samples the reference's PNG frame bytes);
 - across packages over one TCP hub: a JAX frontend and encode worker serve
-  a port engine worker, and a port frontend and encode worker a JAX one.
+  a port engine worker, and a port frontend and encode worker a JAX one;
+- the port's ``cli encoder`` serves the tiny ViT tower on PNGs and a GIF
+  video, refuses WebP naming item 12b-ii, and its mock encode worker's
+  rows for a GIF video and a JPEG are the JAX encode worker's.
 """
 
 import asyncio
@@ -358,6 +363,7 @@ async def test_disagg_multimodal_resume_equals_aggregated():
 
 MM_MODEL, EMB_MODEL = "tiny-vl", "tiny-emb"
 TIMEOUT = 120
+VIDEO_FRAMES = 8  # both cards and both encode workers (their default)
 
 
 def _data_url(seed: int) -> str:
@@ -394,7 +400,7 @@ class _Stacks:
             eng = JaxEngine(JaxSpec(**SPEC_KW), JaxEngineConfig(**CFG_KW), params=jp)
             ep = self.jdrt.namespace("dynamo").component(name).endpoint("generate")
             mm = (dict(mm_tokens_per_image=TPI, image_token_id=IMAGE_TOKEN,
-                       mm_video_frames=0) if kind == "chat" else {})
+                       mm_video_frames=VIDEO_FRAMES) if kind == "chat" else {})
             await jax_register_llm(self.jdrt, ep, eng.generate, model_name=name,
                                    model_type=kind, router_mode="round_robin",
                                    context_length=eng.config.max_context,
@@ -487,6 +493,30 @@ def test_epd_chat_bodies_match_jax(stacks):
     (js, jb), (ps, pb) = stacks.both("/v1/chat/completions",
                                      _chat(1, text="a <|mm_image|> b"))
     assert js == ps == 200 and _strip(pb) == _strip(jb)
+
+
+def test_epd_jpeg_and_gif_video_match_jax(stacks):
+    """A JPEG image and a GIF video in one chat: the port's encode worker
+    samples the video's frames into the reference's PNG bytes, so both
+    stacks give the same body over 4 + 8 x 4 placeholder rows."""
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.open(io.BytesIO(_gif_video(4))).convert("RGB").save(buf, "JPEG", quality=85)
+    body = _chat()
+    body["messages"][0]["content"] += [
+        {"type": "image_url", "image_url": {
+            "url": "data:image/jpeg;base64," + base64.b64encode(buf.getvalue()).decode()}},
+        {"type": "video_url", "video_url": {
+            "url": "data:image/gif;base64," + base64.b64encode(_gif_video(4)).decode()}}]
+    (js, jb), (ps, pb) = stacks.both("/v1/chat/completions", body)
+    assert js == ps == 200, (jb, pb)
+    assert _strip(pb) == _strip(jb) and pb["usage"]["completion_tokens"] == TOKENS
+    (_, text) = stacks.both("/v1/chat/completions", _chat())[1]
+    assert pb["usage"]["prompt_tokens"] - text["usage"]["prompt_tokens"] == TPI * (
+        1 + VIDEO_FRAMES)
 
 
 def test_epd_errors_match_jax(stacks):
@@ -616,14 +646,63 @@ def _real_png(w=20, h=12):
             + chunk(b"IEND", b""))
 
 
+def _gif_video(n=3, size=(24, 18)) -> bytes:
+    """A Pillow-written animated GIF with a transparent index."""
+    import io
+
+    from PIL import Image
+
+    w, h = size
+    y, x = np.mgrid[:h, :w]
+    frames = [Image.fromarray(np.stack([(x * 9 + 40 * k) % 256, y * 13 % 256,
+                                        (x + y) * 5 % 256], -1).astype(np.uint8)).quantize(16)
+              for k in range(n)]
+    buf = io.BytesIO()
+    frames[0].save(buf, "GIF", save_all=True, append_images=frames[1:], transparency=3,
+                   disposal=2, duration=40)
+    return buf.getvalue()
+
+
+def _webp(animated: bool) -> bytes:
+    import io
+
+    from PIL import Image
+
+    frames = [Image.fromarray(np.full((8, 8, 3), 60 * k, np.uint8)) for k in range(3)]
+    buf = io.BytesIO()
+    kw = dict(save_all=True, append_images=frames[1:], duration=40) if animated else {}
+    frames[0].save(buf, "WEBP", **kw)
+    return buf.getvalue()
+
+
+async def _encode_rows(launch, drt, push, images) -> np.ndarray:
+    """One encode request's rows from an encode worker ``launch`` serves on
+    ``drt`` (the mock encoder), through ``push``'s router."""
+    await launch(drt, hidden_size=SPEC_KW["hidden_size"], tokens_per_image=TPI)
+    ep = drt.namespace("dynamo").component("encoder").endpoint("encode")
+    router = await push.PushRouter.from_endpoint(ep, push.RouterMode.ROUND_ROBIN)
+    await router.client.wait_for_instances(1, timeout=10)
+    ctx = (jctx if push.__name__.startswith("dynamo_tpu.") else tctx).Context
+    (reply,) = [r async for r in router.generate({"images": images}, ctx())]
+    await router.client.close()
+    assert "error" not in reply, reply
+    return np.frombuffer(base64.b64decode(reply["embeds_b64"]), "<f4").reshape(reply["shape"])
+
+
 async def test_cli_encoder_serves_the_vit_tower_and_refuses_video():
     """``cli encoder --encoder vit --vit-size tiny --device cpu`` on a TCP
     hub: a real PNG twice encodes once and tiles (LLM-hidden rows through
-    the projector), the reply carries the reference's keys; a video
-    attachment and a JPEG answer the encode error naming item 12b."""
+    the projector), the reply carries the reference's keys; a GIF video
+    gives 8 sampled frames' rows (repeated frames tiled); a WebP image and a
+    WebP video answer the encode error naming item 12b-ii. With the mock
+    encoder, the port's encode worker gives the JAX encode worker's rows
+    for the same GIF video and JPEG."""
+    import dynamo_tpu.runtime.push as jpush
+    import dynamo_tpu_torch.runtime.push as tpush
     from dynamo_tpu_torch.multimodal import worker
     from dynamo_tpu_torch.runtime.push import PushRouter, RouterMode
 
+    gif = "data:image/gif;base64," + base64.b64encode(_gif_video()).decode()
     hub = HubServer(port=0)
     await hub.start()
     addr = f"127.0.0.1:{hub.port}"
@@ -641,10 +720,18 @@ async def test_cli_encoder_serves_the_vit_tower_and_refuses_video():
         assert reply["video_frames"] == 8 and reply["dtype"] == "float32"
         rows = np.frombuffer(base64.b64decode(reply["embeds_b64"]), "<f4").reshape(8, 64)
         assert np.array_equal(rows[:4], rows[4:]) and np.isfinite(rows).all()
-        jpeg = "data:image/jpeg;base64," + base64.b64encode(b"\xff\xd8\xff\xe0junk").decode()
-        for att in ({"url": url, "kind": "video"}, jpeg):
+        (reply,) = [r async for r in router.generate(
+            {"images": [{"url": gif, "kind": "video"}]}, tctx.Context())]
+        rows = np.frombuffer(base64.b64decode(reply["embeds_b64"]), "<f4").reshape(-1, 4, 64)
+        # 3 frames sampled at round(i * 2 / 7): 0 0 1 1 1 1 2 2 (half to even)
+        assert rows.shape == (8, 4, 64) and np.isfinite(rows).all()
+        assert np.array_equal(rows[0], rows[1]) and np.array_equal(rows[2], rows[5])
+        assert not np.array_equal(rows[1], rows[2])
+        for att in ({"url": "data:image/webp;base64,"
+                     + base64.b64encode(_webp(True)).decode(), "kind": "video"},
+                    "data:image/webp;base64," + base64.b64encode(_webp(False)).decode()):
             (err,) = [r async for r in router.generate({"images": [att]}, tctx.Context())]
-            assert err["error"].startswith("image encode failed:") and "item 12b" in err["error"]
+            assert err["error"].startswith("image encode failed:") and "item 12b-ii" in err["error"]
         await router.client.close()
     finally:
         task.cancel()
@@ -652,3 +739,20 @@ async def test_cli_encoder_serves_the_vit_tower_and_refuses_video():
             await task
         await drt.close()
         await hub.stop()
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.open(io.BytesIO(_gif_video(5))).convert("RGB").save(buf, "JPEG", quality=90)
+    images = [{"url": "data:image/gif;base64," + base64.b64encode(_gif_video(5)).decode(),
+               "kind": "video"}, "data:image/jpeg;base64," + base64.b64encode(
+                   buf.getvalue()).decode(), {"url": gif, "kind": "video"}]
+    jdrt, pdrt = JaxRuntime(JaxHub()), DistributedRuntime(InMemoryHub())
+    try:
+        want = await _encode_rows(jax_launch_encoder, jdrt, jpush, images)
+        got = await _encode_rows(launch_encode_worker, pdrt, tpush, images)
+    finally:
+        await jdrt.close()
+        await pdrt.close()
+    assert got.shape == (17 * TPI, SPEC_KW["hidden_size"]) and np.array_equal(got, want)

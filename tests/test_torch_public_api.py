@@ -37,7 +37,9 @@ def test_set_current_binds_and_clears_the_trace(mod):
         mod.set_current(None)
         return before, bound, inner.trace_id, inner is child, after, mod.current_trace()
 
-    before, bound, inner_tid, same, after, cleared = contextvars.copy_context().run(run)
+    # a fresh context: a test that ran earlier in this process may have left
+    # a trace bound in the thread's own
+    before, bound, inner_tid, same, after, cleared = contextvars.Context().run(run)
     assert before is None and bound.span_id == SID and inner_tid == TID and same
     assert after is bound and cleared is None
 
