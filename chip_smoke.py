@@ -483,7 +483,15 @@ Phases, each of which must pass (any failure exits non-zero):
    greedy tokens of the same chat with the PNG encode_png makes of its
    pixels, and the GIF video chat (8 x 576 placeholder rows) streams with
    fused_decode at 32 launches per step; host ms of each decode and of the
-   sampling printed beside the card's name and power limit.
+   sampling printed beside the card's name and power limit; (f) WebP, APNG
+   and MPO on the same encode and engine workers: the fixtures (a lossy
+   640x480 WebP, a lossless 200x150 one with alpha, a 12-frame animated
+   WebP and a 12-frame APNG of a moving half-clear disc, a 2-frame MPO)
+   decoded on the host and held to the manifest as (e)'s are, the animated
+   ones and the MPO sampled into 8 frames (ms per decoded frame printed);
+   the lossy WebP chat and the MPO chat (frame 0) give the tower rows and
+   greedy tokens of their PNG twins; the animated WebP and the APNG video
+   chats stream 8 x 576 placeholder rows; fused_decode 32 per step.
 22. tensor parallelism (after phase 17, every engine freed): fused_decode
    at a tp rank's shapes (KH 4 / G 4 and KH 2 / G 8, bf16 and fp8 pools)
    against its plain version, timed beside SDPA and its bound, kv_write
@@ -7835,17 +7843,21 @@ MM_VIDEO_FRAMES = 8  # the encode worker's and the card's default
 MM_VIDEO_TOKENS = 5120
 
 
-def mm_fixture_decodes(card: str) -> dict:
-    """Phase 21 (e), host side: each fixture decoded and held to the
-    manifest; the GIF sampled into PNG frames. Returns the files."""
+def mm_fixture_decodes(card: str, names: tuple[str, ...]) -> dict:
+    """Phase 21 (e) and (f), host side: each named fixture decoded (frame
+    0) and held to the manifest; a file of several frames sampled into
+    MM_VIDEO_FRAMES PNG frames held to the manifest's digests. Returns the
+    files."""
     import hashlib
     import zlib
 
     from dynamo_tpu_torch.multimodal import encoder, image
 
     manifest = json.loads((MM_FIXTURES / "manifest.json").read_text())
+    ours, theirs = zlib.ZLIB_RUNTIME_VERSION, manifest["versions"]["zlib"]
     files = {}
-    for name, entry in sorted(manifest["files"].items()):
+    for name in names:
+        entry = manifest["files"][name]
         data = (MM_FIXTURES / name).read_bytes()
         require(hashlib.sha256(data).hexdigest() == entry["sha256"],
                 f"multimodal formats: {name} is not the committed file")
@@ -7860,35 +7872,55 @@ def mm_fixture_decodes(card: str) -> dict:
               f"{rgb.shape[0]} RGB equal to Pillow's (sha256) in {ms:.1f} ms host"
               + (", ICC profile kept" if info.get("icc_profile") else ""))
         files[name] = data
-    gif = files["anim_320x240.gif"]
-    entry = manifest["files"]["anim_320x240.gif"]
-    t0 = time.perf_counter()
-    frames = encoder.sample_video_frames(gif, MM_VIDEO_FRAMES)
-    ms = 1e3 * (time.perf_counter() - t0)
-    ours, theirs = zlib.ZLIB_RUNTIME_VERSION, manifest["versions"]["zlib"]
-    if ours == theirs:
-        got = [hashlib.sha256(f).hexdigest() for f in frames]
-        require(got == entry["frame_png_sha256"],
-                "multimodal formats: the GIF's sampled PNG frames differ from the reference's")
-        held = "PNG bytes equal to the reference's (sha256)"
-    else:
-        got = [hashlib.sha256(image.decode_png(f).tobytes()).hexdigest() for f in frames]
-        require(got == entry["frame_rgb_sha256"],
-                "multimodal formats: the GIF's sampled frames' pixels differ from Pillow's")
-        same = sum(hashlib.sha256(f).hexdigest() == want
-                   for f, want in zip(frames, entry["frame_png_sha256"]))
-        held = (f"zlib {ours} here, {theirs} in the manifest: each frame's pixels equal "
-                f"to Pillow's (sha256), {same} of {len(frames)} frames' PNG bytes equal to "
-                "the manifest's")
-    print(f"multimodal formats [{card}]: anim_320x240.gif ({entry['n_frames']} frames) sampled "
-          f"into {len(frames)} PNG frames in {ms:.1f} ms host; {held}")
+        if "n_frames" not in entry:
+            continue
+        require(image.frame_count(data) == entry["n_frames"],
+                f"multimodal formats: {name} counts {image.frame_count(data)} frames, "
+                f"Pillow {entry['n_frames']}")
+        n = entry["n_frames"]
+        idx = sorted({round(i * (n - 1) / (MM_VIDEO_FRAMES - 1)) for i in range(MM_VIDEO_FRAMES)})
+        t0 = time.perf_counter()
+        for _ in image.frames(data, idx):
+            pass
+        decode_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        frames = encoder.sample_video_frames(data, MM_VIDEO_FRAMES)
+        ms = 1e3 * (time.perf_counter() - t0)
+        if ours == theirs:
+            got = [hashlib.sha256(f).hexdigest() for f in frames]
+            require(got == entry["frame_png_sha256"],
+                    f"multimodal formats: {name}'s sampled PNG frames differ from the reference's")
+            held = "PNG bytes equal to the reference's (sha256)"
+        else:
+            got = [hashlib.sha256(image.decode_png(f).tobytes()).hexdigest() for f in frames]
+            require(got == entry["frame_rgb_sha256"],
+                    f"multimodal formats: {name}'s sampled frames' pixels differ from Pillow's")
+            same = sum(hashlib.sha256(f).hexdigest() == want
+                       for f, want in zip(frames, entry["frame_png_sha256"]))
+            held = (f"zlib {ours} here, {theirs} in the manifest: each frame's pixels equal "
+                    f"to Pillow's (sha256), {same} of {len(frames)} frames' PNG bytes equal to "
+                    "the manifest's")
+        last = idx[-1] + 1  # decoded forward to the last sampled frame
+        print(f"multimodal formats [{card}]: {name} ({n} frames) sampled into {len(frames)} PNG "
+              f"frames in {ms:.1f} ms host (decode alone {decode_ms:.1f} ms over the {last} "
+              f"frames decoded, {decode_ms / last:.1f} ms per frame); {held}")
     return files
 
 
+# phase 21 (e)'s fixtures, and (f)'s: WebP (lossy, lossless with alpha,
+# animated), APNG and MPO
+MM_FILES_E = ("anim_320x240.gif", "grey_333x251.jpg", "photo_420_icc_rst.jpg",
+              "photo_422_progressive.jpg")
+MM_FILES_F = ("alpha_200x150_lossless.webp", "anim_160x120.png", "anim_160x120.webp",
+              "photo_640x480.webp", "stereo_320x240.mpo")
+
+
 def mm_formats_phase(spec, cfg, params, enc, card) -> int:
-    """Phase 21 (e): the fixtures' decodes, then on an engine worker sized
-    for one video prompt the JPEG chat against its PNG twin and the GIF
-    video chat, through the HTTP frontend. Returns fused_decode launches."""
+    """Phase 21 (e) and (f) on one encode worker and one engine worker sized
+    for one video prompt, through the HTTP frontend: (e) the JPEG chat
+    against its PNG twin and the GIF video chat; (f) a lossy WebP chat and
+    an MPO chat (frame 0) each against its PNG twin, an animated WebP and
+    an APNG video chat. Returns the fused_decode launches of both."""
     from dynamo_tpu_torch.engine.config import EngineConfig
     from dynamo_tpu_torch.engine.worker import launch_engine_worker
     from dynamo_tpu_torch.frontend.http import HttpFrontend
@@ -7901,14 +7933,24 @@ def mm_formats_phase(spec, cfg, params, enc, card) -> int:
 
     t0 = time.perf_counter()
     name, L = spec.name, spec.num_layers
-    files = mm_fixture_decodes(card)
-    jpeg = files["photo_420_icc_rst.jpg"]
-    rgb, info = image.decode_image(jpeg)
-    twin = image.encode_png(rgb, info.get("transparency"), info.get("icc_profile"))
-    rows = {k: enc.forward_pixels(enc.pixels([b])).float().cpu() for k, b in
-            (("jpeg", jpeg), ("png", twin))}
-    require(torch.equal(rows["jpeg"], rows["png"]),
-            "multimodal formats: the JPEG's tower rows differ from its PNG twin's")
+    files = mm_fixture_decodes(card, MM_FILES_E)
+    print(f"phase 21 (e) host decodes: {time.perf_counter() - t0:.1f} s")
+    tf0 = time.perf_counter()
+    files.update(mm_fixture_decodes(card, MM_FILES_F))
+    tf_host = time.perf_counter() - tf0
+
+    def twin_of(data):
+        rgb, info = image.decode_image(data)
+        return image.encode_png(rgb, info.get("transparency"), info.get("icc_profile"))
+
+    stills = {"jpeg": files["photo_420_icc_rst.jpg"], "webp": files["photo_640x480.webp"],
+              "mpo": files["stereo_320x240.mpo"]}
+    twins = {k: twin_of(v) for k, v in stills.items()}
+    for k in stills:
+        rows = [enc.forward_pixels(enc.pixels([b])).float().cpu() for b in (stills[k], twins[k])]
+        require(torch.equal(*rows),
+                f"multimodal formats: the {k} image's tower rows differ from its PNG twin's")
+    mime = {"jpeg": "image/jpeg", "webp": "image/webp", "mpo": "image/jpeg"}
 
     def url(kind, data):
         return f"data:{kind};base64," + base64.b64encode(data).decode()
@@ -7919,10 +7961,19 @@ def mm_formats_phase(spec, cfg, params, enc, card) -> int:
                 "messages": [{"role": "user", "content": [{"type": "text", "text": MM_TEXT},
                                                           part]}]}
 
-    jpeg_chat = chat({"type": "image_url", "image_url": {"url": url("image/jpeg", jpeg)}})
-    png_chat = chat({"type": "image_url", "image_url": {"url": url("image/png", twin)}})
-    video_chat = chat({"type": "video_url", "video_url": {
-        "url": url("image/gif", files["anim_320x240.gif"])}})
+    def image_chat(kind, data):
+        return chat({"type": "image_url", "image_url": {"url": url(kind, data)}})
+
+    def video_chat(kind, data):
+        return chat({"type": "video_url", "video_url": {"url": url(kind, data)}})
+
+    chats = {k: image_chat(mime[k], v) for k, v in stills.items()}
+    twin_chats = {k: image_chat("image/png", v) for k, v in twins.items()}
+    videos = {"gif": video_chat("image/gif", files["anim_320x240.gif"]),
+              "webp": video_chat("image/webp", files["anim_160x120.webp"]),
+              "apng": video_chat("image/png", files["anim_160x120.png"])}
+    text_chat = {**chat({"type": "text", "text": "."}),
+                 "messages": [{"role": "user", "content": MM_TEXT}]}
     buckets = tuple(b for b in (64, 128, 256, 512, 1024, 2048, 4096) if b < MM_VIDEO_TOKENS)
     encode_s: list[float] = []  # the encode worker's decode, sampling and tower
     rows_s: list[float] = []  # the engine's decode of the rows' payload
@@ -7981,20 +8032,28 @@ def mm_formats_phase(spec, cfg, params, enc, card) -> int:
                                                         Context())]
                 return [t for x in items for t in x.get("token_ids") or ()]
 
+            async def part(stills_, videos_):
+                """The chats of one part, its decode steps and launches."""
+                zero_counts()
+                s0, r0 = engine.steps, engine._graphs.replays
+                res: dict = {"t0": time.perf_counter()}
+                for k in stills_:
+                    res[k] = await post(chats[k])
+                    res[k + " twin"] = await post(twin_chats[k])
+                    res[k + " streams"] = [await tokens(chats[k]), await tokens(twin_chats[k])]
+                for k in videos_:
+                    res[k + " video"] = await post(videos[k])
+                res["text prompt"] = (await post(text_chat))[0]
+                res["steps"] = engine.steps - s0
+                res["replays"] = engine._graphs.replays - r0
+                res["counts"] = read_counts()
+                res["wall"] = time.perf_counter() - res["t0"]
+                return res
+
             # warm-up: a text chat (the decode graphs' lazy capture)
-            await post({**chat({"type": "text", "text": "."}),
-                        "messages": [{"role": "user", "content": MM_TEXT}]})
-            zero_counts()
-            s0, r0 = engine.steps, engine._graphs.replays
-            out["jpeg"] = await post(jpeg_chat)
-            out["png"] = await post(png_chat)
-            out["streams"] = [await tokens(jpeg_chat), await tokens(png_chat)]
-            out["video"] = await post(video_chat)
-            out["text prompt"] = (await post({**chat({"type": "text", "text": "."}),
-                                              "messages": [{"role": "user",
-                                                            "content": MM_TEXT}]}))[0]
-            out["steps"], out["replays"] = engine.steps - s0, engine._graphs.replays - r0
-            out["counts"] = read_counts()
+            await post(text_chat)
+            out["e"] = await part(("jpeg",), ("gif",))
+            out["f"] = await part(("webp", "mpo"), ("webp", "apng"))
         finally:
             await frontend.stop()
             await watcher.close()
@@ -8006,36 +8065,46 @@ def mm_formats_phase(spec, cfg, params, enc, card) -> int:
         out = asyncio.run(drive())
     finally:
         enc.encode = tower_encode
-    steps, counts = out["steps"], out["counts"]
-    require(counts["fused_decode"] == L * steps and steps > 0 and out["replays"] == steps,
-            f"multimodal formats: fused_decode {counts['fused_decode']} over {steps} steps, "
-            f"{out['replays']} replays")
-    a, b = out["streams"]
-    require(len(a) == SERVE_TOKENS and a == b,
-            "multimodal formats: the JPEG chat's greedy stream differs from its PNG twin's")
-    require(out["jpeg"][0]["choices"][0]["message"]["content"]
-            == out["png"][0]["choices"][0]["message"]["content"],
-            "multimodal formats: the JPEG chat's text differs from its PNG twin's")
-    video, wall, v_enc, v_rows = out["video"]
-    extra = video["usage"]["prompt_tokens"] - out["text prompt"]["usage"]["prompt_tokens"]
-    require(extra == MM_VIDEO_FRAMES * MM_TOKENS,
-            f"multimodal formats: the video chat adds {extra} prompt tokens")
-    for label in ("jpeg", "png"):
-        _, w, e, d = out[label]
-        print(f"multimodal formats [{card}]: {label} chat {1e3 * w:.1f} ms client wall "
-              f"({SERVE_TOKENS} tokens): encode {1e3 * e:.1f} ms (host decode, preprocess, "
-              f"tower), the engine's rows decode {1e3 * d:.1f} ms")
-    print(f"multimodal formats [{card}]: the JPEG chat's tower rows and its {SERVE_TOKENS} "
-          f"greedy tokens equal its PNG twin's")
-    print(f"multimodal video [{card}]: GIF of {MM_VIDEO_FRAMES} sampled frames, "
-          f"{video['usage']['prompt_tokens']} prompt tokens ({extra} placeholder rows) in one "
-          f"prefill dispatch, {SERVE_TOKENS} tokens in {wall:.3f} s client wall: the "
-          f"tower's encode {1e3 * v_enc:.1f} ms ({MM_VIDEO_FRAMES} PNG frames decoded and "
-          f"preprocessed, the tower; the sampling before it not included), the rows decode {1e3 * v_rows:.1f} ms; {steps} decode "
-          f"steps over the phase, fused_decode {counts['fused_decode']} ({L} per step)")
+    launches = 0
+    for label, res, stills_, videos_ in (("e", out["e"], ("jpeg",), ("gif",)),
+                                         ("f", out["f"], ("webp", "mpo"), ("webp", "apng"))):
+        steps, counts = res["steps"], res["counts"]
+        require(counts["fused_decode"] == L * steps and steps > 0 and res["replays"] == steps,
+                f"multimodal formats ({label}): fused_decode {counts['fused_decode']} over "
+                f"{steps} steps, {res['replays']} replays")
+        launches += counts["fused_decode"]
+        for k in stills_:
+            a, b = res[k + " streams"]
+            require(len(a) == SERVE_TOKENS and a == b,
+                    f"multimodal formats: the {k} chat's greedy stream differs from its PNG "
+                    "twin's")
+            require(res[k][0]["choices"][0]["message"]["content"]
+                    == res[k + " twin"][0]["choices"][0]["message"]["content"],
+                    f"multimodal formats: the {k} chat's text differs from its PNG twin's")
+            for tag in (k, k + " twin"):
+                _, w, e, d = res[tag]
+                print(f"multimodal formats [{card}]: {tag} chat {1e3 * w:.1f} ms client wall "
+                      f"({SERVE_TOKENS} tokens): encode {1e3 * e:.1f} ms (host decode, "
+                      f"preprocess, tower), the engine's rows decode {1e3 * d:.1f} ms")
+            print(f"multimodal formats [{card}]: the {k} chat's tower rows and its "
+                  f"{SERVE_TOKENS} greedy tokens equal its PNG twin's")
+        for k in videos_:
+            video, wall, v_enc, v_rows = res[k + " video"]
+            extra = video["usage"]["prompt_tokens"] - res["text prompt"]["usage"]["prompt_tokens"]
+            require(extra == MM_VIDEO_FRAMES * MM_TOKENS,
+                    f"multimodal formats: the {k} video chat adds {extra} prompt tokens")
+            print(f"multimodal video [{card}]: {k} of {MM_VIDEO_FRAMES} sampled frames, "
+                  f"{video['usage']['prompt_tokens']} prompt tokens ({extra} placeholder rows) in "
+                  f"one prefill dispatch, {SERVE_TOKENS} tokens in {wall:.3f} s client wall: the "
+                  f"tower's encode {1e3 * v_enc:.1f} ms ({MM_VIDEO_FRAMES} PNG frames decoded and "
+                  f"preprocessed, the tower; the sampling before it not included), the rows "
+                  f"decode {1e3 * v_rows:.1f} ms")
+        print(f"multimodal formats [{card}]: phase 21 ({label}) chats {res['wall']:.1f} s, "
+              f"{steps} decode steps, fused_decode {counts['fused_decode']} ({L} per step)")
     torch.cuda.empty_cache()
-    print(f"phase 21 (e): {time.perf_counter() - t0:.1f} s")
-    return counts["fused_decode"]
+    print(f"phase 21 (f): host decodes {tf_host:.1f} s, chats {out['f']['wall']:.1f} s")
+    print(f"phase 21 (e) and (f): {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def multimodal_phase(spec, cfg, params, card) -> int:
@@ -11547,6 +11616,21 @@ def hub_report(res, dur, launches, spec, card, wall) -> int:
     return fused
 
 
+def phase21_alone(card: str) -> int:
+    """``chip_smoke.py --phase21``: phase 21 alone on llama-3-8b's seeded
+    weights, a quick check of the multimodal path (no kernel table, no
+    final line)."""
+    from dynamo_tpu_torch.engine.config import ModelSpec
+    from dynamo_tpu_torch.models import llama
+
+    spec = ModelSpec.llama3_8b()
+    cfg = dict(page_size=16, num_pages=2048, max_pages_per_seq=64, max_decode_slots=8)
+    t0 = time.perf_counter()
+    launches = multimodal_phase(spec, cfg, llama.init_params(spec, 0, device=DEVICE), card)
+    print(f"phase 21 alone: {time.perf_counter() - t0:.1f} s, fused_decode {launches}")
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the GPU",
@@ -11567,6 +11651,8 @@ def main() -> int:
     build.build(verbose=True)
     build.load_library()
     print(f"build: {time.perf_counter() - t0:.1f} s")
+    if sys.argv[1:] == ["--phase21"]:
+        return phase21_alone(card)
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
     kernels = check_kernels(flush)

@@ -25,37 +25,30 @@ import os
 import numpy as np
 
 from dynamo_tpu_torch.multimodal import image
-from dynamo_tpu_torch.multimodal.formats import ITEM_WEBP_APNG_MPO
-from dynamo_tpu_torch.multimodal.gif import GifReader
 
 __all__ = ["MockVisionEncoder", "load_image_bytes", "sample_video_frames"]
 
 
 def sample_video_frames(data: bytes, n_frames: int) -> list[bytes]:
-    """``n_frames`` frames sampled uniformly from an animated GIF, each as
-    the PNG bytes of Pillow's ``convert("RGB").save(format="PNG")``; a
-    still image gives its one frame ``n_frames`` times. The reference's
-    indices, endpoints included: ``round(i * (total - 1) / (n_frames -
-    1))``. Raises ``ValueError("undecodable video bytes ...")``."""
+    """``n_frames`` frames sampled uniformly from an animated GIF, WebP or
+    PNG or an MPO, each as the PNG bytes of Pillow's
+    ``convert("RGB").save(format="PNG")``; a still image gives its one
+    frame ``n_frames`` times. The reference's indices, endpoints included:
+    ``round(i * (total - 1) / (n_frames - 1))``; frames are decoded forward
+    only as far as the last of them. Raises ``ValueError("undecodable
+    video bytes ...")``."""
     try:
-        gif = GifReader(data) if data[:6] in (b"GIF87a", b"GIF89a") else None
-        total = gif.n_frames if gif is not None else image.frame_count(data)
+        total = image.frame_count(data)
         if n_frames == 1 or total == 1:
             idx = [0] * n_frames
         else:
             idx = [round(i * (total - 1) / (n_frames - 1)) for i in range(n_frames)]
-        if gif is not None:
-            pngs = {k: image.encode_png(rgb, t) for k, rgb, t in gif.frames(idx)}
-        elif total == 1:
-            rgb, info = image.decode_image(data)
-            pngs = {0: image.encode_png(rgb, info.get("transparency"), info.get("icc_profile"))}
-        else:
-            raise ValueError("animated PNG frames are not decoded by this port "
-                             f"({ITEM_WEBP_APNG_MPO})")
+        pngs = {k: image.encode_png(rgb, info.get("transparency"), info.get("icc_profile"))
+                for k, rgb, info in image.frames(data, idx)}
         return [pngs[i] for i in idx]
     except Exception as e:  # noqa: BLE001 - a malformed or unported file of any kind
-        raise ValueError(f"undecodable video bytes (animated GIF, and still PNG, JPEG or "
-                         f"GIF, are decoded by this port): {e}") from e
+        raise ValueError(f"undecodable video bytes ({image.DECODED} are decoded by this "
+                         f"port): {e}") from e
 
 
 def load_image_bytes(url: str) -> bytes:

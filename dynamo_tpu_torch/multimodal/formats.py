@@ -3,11 +3,8 @@ or variant left unported, and Pillow's decompression-bomb limit."""
 
 from __future__ import annotations
 
-__all__ = ["ITEM_OTHER_FORMATS", "ITEM_WEBP_APNG_MPO", "MAX_IMAGE_PIXELS",
-           "check_size", "undecodable"]
+__all__ = ["ITEM_OTHER_FORMATS", "MAX_IMAGE_PIXELS", "check_size", "undecodable"]
 
-# WebP (VP8, VP8L, animation), APNG animation and MPO
-ITEM_WEBP_APNG_MPO = "ROADMAP Queue A item 12b-ii"
 # BMP, TIFF, ICO and Pillow's other formats; CMYK/YCCK, lossless,
 # hierarchical, arithmetic-coded and 12-bit JPEG
 ITEM_OTHER_FORMATS = "ROADMAP Queue A item 12b-iii"

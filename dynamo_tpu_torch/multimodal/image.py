@@ -4,11 +4,15 @@ and numpy.
 The reference decodes, resizes and re-encodes through Pillow, which the GPU
 machine does not have. This module is the same function without it:
 
-- ``decode_image``: PNG, JPEG (jpeg.py) and GIF (gif.py, frame 0) by their
-  signature, each as Pillow's ``Image.open(...).convert("RGB")`` gives it:
-  the pixels, and the ``transparency`` and ``icc_profile`` Pillow keeps in
-  ``info``. An animated PNG decodes as its default image, which is Pillow's
-  frame 0 unless its first frame control names a smaller region (refused);
+- ``decode_image``: PNG, JPEG (jpeg.py; an MPO's first image), GIF (gif.py)
+  and WebP (webp.py) by their signature, frame 0 of each as Pillow's
+  ``Image.open(...).convert("RGB")`` gives it: the pixels, and the
+  ``transparency`` and ``icc_profile`` Pillow keeps in ``info``. An
+  animated PNG's frame 0 is its default image, or its first frame's
+  region over zeros;
+- ``frame_count`` and ``frames``: Pillow's ``n_frames``, and the frames
+  ``seek(k)`` reaches, of an animated GIF, WebP or PNG (apng.py) or an MPO
+  (mpo.py), decoded forward only as far as the largest index asked for;
 - ``decode_png``: a PNG decoder (zlib, the five scanline filters, bit
   depths 1, 2, 4, 8 and 16, grey, grey + alpha, RGB, RGBA, palette, tRNS
   and Adam7 interlacing) that returns what Pillow's ``convert("RGB")``
@@ -34,8 +38,8 @@ machine does not have. This module is the same function without it:
 - ``preprocess_image``: the shortest edge resized to the tower's size, the
   center crop and the CLIP mean/std, as the reference's.
 
-Other formats (WebP, BMP, TIFF, ...) raise ValueError naming the ROADMAP
-item that would port them.
+Other formats (BMP, TIFF, ...) raise ValueError naming the ROADMAP item
+that would port them.
 """
 
 from __future__ import annotations
@@ -43,22 +47,24 @@ from __future__ import annotations
 import re
 import struct
 import zlib
+from collections.abc import Iterable, Iterator
 
 import numpy as np
 
 from dynamo_tpu_torch.multimodal.formats import (
     ITEM_OTHER_FORMATS,
-    ITEM_WEBP_APNG_MPO,
     MAX_IMAGE_PIXELS,
     check_size,
     undecodable,
 )
 from dynamo_tpu_torch.multimodal.gif import GifReader
 from dynamo_tpu_torch.multimodal.jpeg import decode_jpeg
+from dynamo_tpu_torch.multimodal.mpo import MpoReader, mpo_reader
+from dynamo_tpu_torch.multimodal.webp import WebPReader, is_webp
 
 __all__ = [
-    "CLIP_MEAN", "CLIP_STD", "MAX_IMAGE_PIXELS", "decode_image", "decode_png",
-    "encode_png", "frame_count", "preprocess_image", "resize_bicubic",
+    "CLIP_MEAN", "CLIP_STD", "DECODED", "MAX_IMAGE_PIXELS", "decode_image", "decode_png",
+    "encode_png", "frame_count", "frames", "preprocess_image", "resize_bicubic",
 ]
 
 CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
@@ -68,8 +74,9 @@ PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 PRECISION_BITS = 32 - 8 - 2  # Pillow's fixed point for 8-bit channels
 # Pillow's cap on a decompressed iCCP profile (PngImagePlugin.MAX_TEXT_CHUNK)
 _MAX_ICC = 1024 * 1024
-# Pillow's encoder buffer: each write is one IDAT chunk
-_IDAT_BYTES = 65536
+# Pillow's encoder buffer: each write is one IDAT chunk; its decoder reads
+# image data in pieces of this size too (ImageFile's decodermaxblock)
+_IDAT_BYTES = _READ_BYTES = 65536
 
 # (channels, allowed bit depths) per PNG colour type
 _COLOR_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)),
@@ -82,10 +89,11 @@ _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
           (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
+# the formats this module decodes, as its errors name them
+DECODED = "PNG and APNG, JPEG and MPO, GIF, and WebP"
 # signatures of formats Pillow opens that this port does not decode, each
 # with the ROADMAP item that would port it
 _OTHER_FORMATS = (
-    (lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP", "WebP", ITEM_WEBP_APNG_MPO),
     (lambda d: d[:2] == b"BM", "BMP", ITEM_OTHER_FORMATS),
     (lambda d: d[:4] in (b"II*\x00", b"MM\x00*"), "TIFF", ITEM_OTHER_FORMATS),
     (lambda d: d[:4] in (b"\x00\x00\x01\x00", b"\x00\x00\x02\x00"), "ICO/CUR",
@@ -102,8 +110,8 @@ _OTHER_FORMATS = (
 
 
 def _sniff(data: bytes) -> str:
-    """"PNG", "JPEG" or "GIF" by the signature; raises ValueError naming
-    the ROADMAP item for another format Pillow opens, and Pillow's
+    """"PNG", "JPEG", "GIF" or "WEBP" by the signature; raises ValueError
+    naming the ROADMAP item for another format Pillow opens, and Pillow's
     "cannot identify image file" for anything else."""
     if data[: len(PNG_SIGNATURE)] == PNG_SIGNATURE:
         return "PNG"
@@ -111,12 +119,14 @@ def _sniff(data: bytes) -> str:
         return "JPEG"
     if data[:6] in (b"GIF87a", b"GIF89a"):
         return "GIF"
+    if is_webp(data):
+        return "WEBP"
     for match, name, item in _OTHER_FORMATS:
         if match(data):
-            raise ValueError(f"{name} images are not decoded by this port (PNG, JPEG and "
-                             f"GIF are; {name} is {item})")
-    raise undecodable("cannot identify image file (PNG, JPEG and GIF are decoded; "
-                      f"other formats are {ITEM_WEBP_APNG_MPO} and {ITEM_OTHER_FORMATS})")
+            raise ValueError(f"{name} images are not decoded by this port ({DECODED} are; "
+                             f"{name} is {item})")
+    raise undecodable(f"cannot identify image file ({DECODED} are decoded; other formats "
+                      f"are {ITEM_OTHER_FORMATS})")
 
 
 def _unfilter(raw: memoryview, height: int, stride: int, bpp: int) -> np.ndarray:
@@ -214,50 +224,100 @@ def decode_png(data: bytes) -> np.ndarray:
     return _read_png(data)[0]
 
 
-def _png_info(mode: str, trns: bytes | None, palette: np.ndarray | None,
-              icc: bytes | None, has_icc: bool) -> dict:
+def _png_transparency(mode: str, trns: bytes | None):
+    """``tRNS`` as Pillow's ``chunk_tRNS`` stores it in ``info``: a palette
+    image's one transparent index (or its alpha table), a grey level (0 or
+    255 in mode 1), an RGB tuple of 16-bit values."""
+    if trns is None:
+        return None
+    if mode == "P":
+        return trns.index(b"\x00") if re.fullmatch(b"\xff*\x00\xff*", trns) else trns
+    if len(trns) >= 2 and mode in ("1", "L", "I;16"):
+        t = struct.unpack(">H", trns[:2])[0]
+        return (255 if t else 0) if mode == "1" else t
+    if len(trns) >= 6 and mode == "RGB":
+        return struct.unpack(">HHH", trns[:6])
+    return None
+
+
+def _png_info(mode: str, t, palette: np.ndarray | None, icc: bytes | None,
+              has_icc: bool) -> dict:
     """What Pillow's ``convert("RGB")`` of the opened PNG keeps in
-    ``info``: ``icc_profile`` as read, and ``transparency`` as the plugin
-    reads tRNS and the conversion maps it (a palette index to its colour;
-    a grey sample, unscaled, to (t, t, t); an alpha table dropped; mode 1
-    and I;16 keep the bare int, which Pillow's PNG writer refuses)."""
+    ``info``: ``icc_profile`` as read, and the plugin's ``transparency``
+    ``t`` as the conversion maps it (a palette index to its colour; a grey
+    level, unscaled, to (t, t, t); an alpha table dropped; mode 1 and I;16
+    keep the bare int, which Pillow's PNG writer refuses)."""
     info: dict = {}
     if has_icc:
         info["icc_profile"] = icc
-    t = None
-    if trns is not None:
-        if mode == "P":
-            if re.fullmatch(b"\xff*\x00\xff*", trns):
-                full = np.zeros((256, 3), np.uint8)
-                full[: len(palette)] = palette[:256]
-                t = tuple(int(v) for v in full[trns.index(b"\x00")])
-        elif len(trns) >= 2 and mode in ("1", "L", "I;16"):
-            t = struct.unpack(">H", trns[:2])[0]
-            if mode == "1":
-                t = 255 if t else 0
-            elif mode == "L":
-                t = (t, t, t)
-        elif len(trns) >= 6 and mode == "RGB":
-            t = struct.unpack(">HHH", trns[:6])
+    if mode == "P" and isinstance(t, int):
+        full = np.zeros((256, 3), np.uint8)
+        full[: len(palette)] = palette[:256]
+        t = tuple(int(v) for v in full[t])
+    elif mode == "P":
+        t = None
+    elif mode == "L" and t is not None:
+        t = (t, t, t)
     if t is not None:
         info["transparency"] = t
     return info
 
 
-def _read_png(data: bytes, pixels: bool = True) -> tuple[np.ndarray | None, dict, int]:
-    """(pixels, info, Pillow's ``n_frames``) of a PNG: an animated PNG's
-    default image, refused where Pillow's frame 0 is not that image.
-    ``pixels=False`` stops after the chunk walk: (None, {}, n_frames)."""
+class PngHead:
+    """What Pillow's open reads of a PNG: the chunks before the first image
+    data. ``transparency`` is the ``tRNS`` value as the plugin stores it
+    (``info`` holds it as ``convert("RGB")`` maps it), ``first_ctl`` the
+    ``fcTL`` before the data (None when the data is a default image or the
+    PNG is not animated) and ``data_pos`` the offset of the first data chunk."""
+
+    __slots__ = ("width", "height", "depth", "ctype", "interlace", "palette",
+                 "transparency", "info", "actl", "n_frames", "first_ctl", "seq", "data_pos")
+
+
+class FrameControl:
+    """An ``fcTL``: the region (x0, y0, x1, y1), dispose op and blend op."""
+
+    __slots__ = ("bbox", "dispose", "blend")
+
+    def __init__(self, bbox: tuple, dispose: int, blend: int):
+        self.bbox, self.dispose, self.blend = bbox, dispose, blend
+
+
+def read_fctl(body: bytes, seq: int | None, width: int, height: int
+              ) -> tuple[FrameControl, int]:
+    """Pillow's ``chunk_fcTL``: the sequence number checked against the one
+    before (the first must be 0), the region inside the image."""
+    if len(body) < 26:
+        raise undecodable("APNG contains truncated fcTL chunk")
+    s, fw, fh, fx, fy = struct.unpack(">IIIII", body[:20])
+    if (seq is None and s != 0) or (seq is not None and seq != s - 1):
+        raise undecodable("APNG contains frame sequence errors")
+    if fx + fw > width or fy + fh > height:
+        raise undecodable("APNG contains invalid frames")
+    return FrameControl((fx, fy, fx + fw, fy + fh), body[24], body[25]), s
+
+
+def read_png_head(data: bytes) -> PngHead:
+    """The chunks up to the first ``IDAT`` or ``fdAT``, each checked (length
+    and CRC) as Pillow's open checks them."""
+    if data[: len(PNG_SIGNATURE)] != PNG_SIGNATURE:
+        raise undecodable("not a PNG file")
+    hd = PngHead()
     pos = len(PNG_SIGNATURE)
     header = None
-    palette = None
-    trns = icc = None
+    hd.palette = trns = icc = None
     has_icc = False
-    actl = None  # frames the acTL chunk declares
-    fctl = None  # the frame control before the image data
-    idat: list[bytes] = []
-    while pos + 8 <= len(data):
+    hd.actl = None  # frames the acTL chunk declares
+    hd.first_ctl, hd.seq = None, None
+    while True:
+        if pos + 8 > len(data):
+            raise undecodable("PNG without IHDR or IDAT")
         length, ctype = struct.unpack(">I4s", data[pos: pos + 8])
+        if ctype in (b"IDAT", b"fdAT"):
+            hd.data_pos = pos
+            if ctype == b"fdAT":
+                raise undecodable("APNG frame data before the default image")
+            break
         body = data[pos + 8: pos + 8 + length]
         crc = data[pos + 8 + length: pos + 12 + length]
         if len(body) != length or len(crc) != 4:
@@ -268,13 +328,9 @@ def _read_png(data: bytes, pixels: bool = True) -> tuple[np.ndarray | None, dict
         if ctype == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
         elif ctype == b"PLTE":
-            palette = np.frombuffer(body, np.uint8)[: len(body) // 3 * 3].reshape(-1, 3)
-        elif ctype == b"IDAT":
-            idat.append(body)
+            hd.palette = np.frombuffer(body, np.uint8)[: len(body) // 3 * 3].reshape(-1, 3)
         elif ctype == b"IEND":
-            break
-        elif idat:
-            continue  # Pillow reads the chunks below only before the image data
+            raise undecodable("PNG without IHDR or IDAT")
         elif ctype == b"tRNS":
             trns = body
         elif ctype == b"iCCP":
@@ -284,28 +340,37 @@ def _read_png(data: bytes, pixels: bool = True) -> tuple[np.ndarray | None, dict
                 raise undecodable("APNG contains truncated acTL chunk")
             n = struct.unpack(">I", body[:4])[0]
             # a second acTL, or a frame count of 0, leaves a still image
-            actl = None if actl is not None or not 0 < n <= 0x80000000 else n
+            hd.actl = None if hd.actl is not None or not 0 < n <= 0x80000000 else n
         elif ctype == b"fcTL":
-            if len(body) < 26:
-                raise undecodable("APNG contains truncated fcTL chunk")
-            seq, fw, fh, fx, fy = struct.unpack(">IIIII", body[:20])
-            if seq != 0:
-                raise undecodable("APNG contains frame sequence errors")
-            fctl = (fx, fy, fx + fw, fy + fh)
-    if header is None or not idat:
+            if header is None:
+                raise undecodable("PNG without IHDR or IDAT")
+            hd.first_ctl, hd.seq = read_fctl(body, hd.seq, header[0], header[1])
+    if header is None:
         raise undecodable("PNG without IHDR or IDAT")
-    if fctl is not None and fctl != (0, 0, header[0], header[1]):
-        raise ValueError("an animated PNG whose first frame is a region of the image is not "
-                         f"decoded by this port ({ITEM_WEBP_APNG_MPO})")
-    n_frames = 1 if actl is None else actl + (fctl is None)
-    if not pixels:
-        return None, {}, n_frames
-    width, height, depth, ctype, _comp, _filt, interlace = header
-    if ctype not in _COLOR_TYPES or depth not in _COLOR_TYPES[ctype][1]:
-        raise undecodable(f"PNG colour type {ctype} at bit depth {depth}")
-    if width == 0 or height == 0:
+    hd.width, hd.height, hd.depth, hd.ctype, _comp, _filt, hd.interlace = header
+    if hd.ctype not in _COLOR_TYPES or hd.depth not in _COLOR_TYPES[hd.ctype][1]:
+        raise undecodable(f"PNG colour type {hd.ctype} at bit depth {hd.depth}")
+    if hd.width == 0 or hd.height == 0:
         raise undecodable("empty PNG")
-    check_size(width, height)  # before anything is inflated
+    # an IDAT before any fcTL is a default image, outside the animation
+    hd.n_frames = 1 if hd.actl is None else hd.actl + (hd.first_ctl is None)
+    mode = png_mode(hd.ctype, hd.depth)
+    hd.transparency = _png_transparency(mode, trns)
+    hd.info = _png_info(mode, hd.transparency, hd.palette, icc, has_icc)
+    return hd
+
+
+def inflate_samples(chunks: Iterable[bytes], width: int, height: int, depth: int,
+                    ctype: int, interlace: int) -> tuple[np.ndarray, np.ndarray]:
+    """A zlib stream of filtered scanlines, in its data chunks -> (samples
+    [height, width, channels] (uint8, or uint16 at depth 16), written [height,
+    width] bool), inflated as Pillow's ``ZipDecode`` inflates it: a piece at
+    a time (a chunk, in reads of at most 65,536 bytes), one scanline per
+    inflate call and only while the piece has input left. So a checksum in
+    a later piece is never read, and a scanline the inflater could finish
+    from its window alone, after the input ran out, is missing (fewer
+    scanlines raise). A stream that ends at a scanline's end ends the image
+    there: the pixels not ``written`` keep what the image held."""
     channels = _COLOR_TYPES[ctype][0]
     bpp = max(1, channels * depth // 8)
 
@@ -317,26 +382,82 @@ def _read_png(data: bytes, pixels: bool = True) -> tuple[np.ndarray | None, dict
         (x0, y0, dx, dy, (width - x0 + dx - 1) // dx, (height - y0 + dy - 1) // dy)
         for x0, y0, dx, dy in _ADAM7]
     passes = [q for q in passes if q[4] > 0 and q[5] > 0]
-    need = sum(ph * (stride_of(pw) + 1) for *_, pw, ph in passes)
+    lines = [stride_of(pw) + 1 for *_, pw, ph in passes for _ in range(ph)]
+    z = zlib.decompressobj()
+    got = bytearray()
+    done = row = 0  # scanlines done, bytes of the one in progress
     try:
-        # at most the bytes the image has: data past them is not inflated
-        raw = memoryview(zlib.decompressobj().decompress(b"".join(idat), need))
+        for chunk in chunks:
+            for i in range(0, len(chunk), _READ_BYTES):
+                tail = chunk[i: i + _READ_BYTES]
+                while tail and done < len(lines):
+                    out = z.decompress(tail, lines[done] - row)
+                    tail = z.unconsumed_tail
+                    got += out
+                    row += len(out)
+                    if row < lines[done]:
+                        break  # the piece is spent: more input first
+                    done, row = done + 1, 0
+                    if z.eof:  # the stream's end is the image's
+                        lines = lines[:done]
+                if done == len(lines):
+                    break
+            if done == len(lines):
+                break
     except zlib.error as e:
         raise undecodable(str(e)) from e
-    if len(raw) < need:
+    if done < len(lines):
         raise undecodable("truncated PNG image data")
+    out = memoryview(bytes(got))
     px = np.zeros((height, width, channels), np.uint16 if depth == 16 else np.uint8)
+    written = np.zeros((height, width), bool)
     off = 0
     for x0, y0, dx, dy, pw, ph in passes:
+        ph = min(ph, done)  # the scanlines of this pass that came
+        done -= ph
         n = ph * (stride_of(pw) + 1)
-        rows = _unfilter(raw[off: off + n], ph, stride_of(pw), bpp)
-        px[y0::dy, x0::dx] = _samples(rows, ph, pw, channels, depth)
+        rows = _unfilter(out[off: off + n], ph, stride_of(pw), bpp)
+        px[y0: y0 + ph * dy: dy, x0::dx] = _samples(rows, ph, pw, channels, depth)
+        written[y0: y0 + ph * dy: dy, x0::dx] = True
         off += n
-    # Pillow's mode: grey is 1 at 1 bit and I;16 at 16
-    mode = {0: {1: "1", 16: "I;16"}.get(depth, "L"), 2: "RGB", 3: "P", 4: "LA",
-            6: "RGBA"}[ctype]
-    info = _png_info(mode, trns, palette, icc, has_icc)
-    return _to_rgb(px, ctype, depth, palette), info, n_frames
+    return px, written
+
+
+def _read_png(data: bytes, pixels: bool = True) -> tuple[np.ndarray | None, dict, int]:
+    """(pixels, info, Pillow's ``n_frames``) of a PNG: an animated PNG's
+    frame 0 (its default image, or its first frame's region over zeros).
+    ``pixels=False`` stops after the chunk walk: (None, {}, n_frames)."""
+    hd = read_png_head(data)
+    if not pixels:
+        return None, {}, hd.n_frames
+    # every IDAT up to IEND, each checked
+    pos = hd.data_pos
+    idat: list[bytes] = []
+    while pos + 8 <= len(data):
+        length, ctype = struct.unpack(">I4s", data[pos: pos + 8])
+        body = data[pos + 8: pos + 8 + length]
+        crc = data[pos + 8 + length: pos + 12 + length]
+        if len(body) != length or len(crc) != 4:
+            raise undecodable("truncated PNG chunk")
+        if struct.unpack(">I", crc)[0] != zlib.crc32(ctype + body):
+            raise undecodable(f"bad CRC in PNG chunk {ctype!r}")
+        pos += 12 + length
+        if ctype == b"IDAT":
+            idat.append(body)
+        elif ctype == b"IEND":
+            break
+    check_size(hd.width, hd.height)  # before anything is inflated
+    x0, y0, x1, y1 = (hd.first_ctl.bbox if hd.first_ctl is not None
+                      else (0, 0, hd.width, hd.height))
+    if x1 <= x0 or y1 <= y0:
+        raise undecodable("tile cannot extend outside image")
+    # the pixels not written keep the new image's zeros
+    px = inflate_samples(idat, x1 - x0, y1 - y0, hd.depth, hd.ctype, hd.interlace)[0]
+    if (x1 - x0, y1 - y0) != (hd.width, hd.height):
+        full = np.zeros((hd.height, hd.width, px.shape[2]), px.dtype)
+        full[y0:y1, x0:x1] = px
+        px = full
+    return _to_rgb(px, hd.ctype, hd.depth, hd.palette), hd.info, hd.n_frames
 
 
 def _read_iccp(body: bytes) -> bytes | None:
@@ -355,28 +476,46 @@ def _read_iccp(body: bytes) -> bytes | None:
     return icc
 
 
-def _to_rgb(px: np.ndarray, ctype: int, depth: int,
-            palette: np.ndarray | None) -> np.ndarray:
-    """Samples -> RGB uint8 as Pillow's mode mapping and ``convert("RGB")``
-    give them."""
+def png_mode(ctype: int, depth: int) -> str:
+    """Pillow's mode of a PNG: grey is 1 at 1 bit and I;16 at 16."""
+    return {0: {1: "1", 16: "I;16"}.get(depth, "L"), 2: "RGB", 3: "P", 4: "LA",
+            6: "RGBA"}[ctype]
+
+
+def mode_pixels(px: np.ndarray, ctype: int, depth: int) -> np.ndarray:
+    """Samples -> the image Pillow holds in the PNG's mode: palette
+    indices; grey of 1, 2 and 4 bits scaled to 0..255; 16-bit samples cut
+    to their high byte except I;16's (uint16)."""
+    if ctype == 3 or (ctype == 0 and depth == 16):
+        return px
+    if depth == 16:
+        return (px >> 8).astype(np.uint8)
+    if depth < 8:  # grey: 1-bit to 0/255, 2-bit x 85, 4-bit x 17
+        return (px * (255 // ((1 << depth) - 1))).astype(np.uint8)
+    return px
+
+
+def mode_to_rgb(px: np.ndarray, ctype: int, depth: int,
+                palette: np.ndarray | None) -> np.ndarray:
+    """The image in its mode -> RGB uint8 as ``convert("RGB")`` gives it."""
     if ctype == 3:
         if palette is None:
             raise undecodable("palette PNG without PLTE")
         full = np.zeros((256, 3), np.uint8)
         full[: len(palette)] = palette[:256]
         return full[px[..., 0]]
-    if depth == 16:
-        # Pillow opens 16-bit grey as I;16 (converted to RGB saturating at
-        # 255) and every other 16-bit type from its samples' high bytes
-        if ctype == 0:
-            px = np.minimum(px, 255).astype(np.uint8)
-        else:
-            px = (px >> 8).astype(np.uint8)
-    elif depth < 8:  # grey: 1-bit to 0/255, 2-bit x 85, 4-bit x 17
-        px = (px * (255 // ((1 << depth) - 1))).astype(np.uint8)
+    if ctype == 0 and depth == 16:  # I;16 to RGB saturates at 255
+        px = np.minimum(px, 255).astype(np.uint8)
     if ctype in (0, 4):
         return np.repeat(px[..., :1], 3, axis=2)
-    return np.ascontiguousarray(px[..., :3])
+    return np.array(px[..., :3])  # a copy: an APNG's canvas changes after
+
+
+def _to_rgb(px: np.ndarray, ctype: int, depth: int,
+            palette: np.ndarray | None) -> np.ndarray:
+    """Samples -> RGB uint8 as Pillow's mode mapping and ``convert("RGB")``
+    give them."""
+    return mode_to_rgb(mode_pixels(px, ctype, depth), ctype, depth, palette)
 
 
 # ------------------------------------------------------------------ resize
@@ -464,9 +603,10 @@ def resize_bicubic(img: np.ndarray, width: int, height: int,
 
 def decode_image(data: bytes) -> tuple[np.ndarray, dict]:
     """Image bytes -> (uint8 [H, W, 3], info): what Pillow's
-    ``Image.open(...).convert("RGB")`` gives for a PNG, a JPEG or a GIF's
-    frame 0, with the ``transparency`` and ``icc_profile`` its ``info``
-    carries. Raises ValueError on other or undecodable bytes."""
+    ``Image.open(...).convert("RGB")`` gives for frame 0 of a PNG, JPEG,
+    MPO, GIF or WebP, with the ``transparency`` and ``icc_profile`` its
+    ``info`` carries (and a WebP's ``loop``, ``background``, ``exif`` and
+    ``xmp``). Raises ValueError on other or undecodable bytes."""
     try:
         fmt = _sniff(data)
         if fmt == "PNG":
@@ -474,6 +614,9 @@ def decode_image(data: bytes) -> tuple[np.ndarray, dict]:
             return rgb, info
         if fmt == "JPEG":
             return decode_jpeg(data)
+        if fmt == "WEBP":
+            reader = WebPReader(data)
+            return next(reader.frames([0]))[1], dict(reader.info)
         _, rgb, t = next(GifReader(data).frames([0]))
         return rgb, ({} if t is None else {"transparency": t})
     except ValueError:
@@ -482,13 +625,53 @@ def decode_image(data: bytes) -> tuple[np.ndarray, dict]:
         raise undecodable(str(e)) from e
 
 
-def frame_count(data: bytes) -> int:
-    """Pillow's ``n_frames``: a GIF's frames, an animated PNG's, and 1 for
-    any other image this module decodes (nothing is inflated)."""
+def _animation(data: bytes):
+    """(n_frames, the reader of the frames past a still image, or None)."""
     fmt = _sniff(data)
     if fmt == "GIF":
-        return GifReader(data).n_frames
-    return _read_png(data, pixels=False)[2] if fmt == "PNG" else 1
+        gif = GifReader(data)
+        return gif.n_frames, gif
+    if fmt == "WEBP":
+        webp = WebPReader(data)
+        return webp.n_frames, webp
+    if fmt == "JPEG":
+        mpo = mpo_reader(data)
+        return (1, None) if mpo is None else (mpo.n_frames, mpo)
+    n = _read_png(data, pixels=False)[2]
+    if n == 1:
+        return 1, None
+    from dynamo_tpu_torch.multimodal.apng import ApngReader  # it builds on this module
+
+    return n, ApngReader(data)
+
+
+def frame_count(data: bytes) -> int:
+    """Pillow's ``n_frames``: a GIF's, a WebP's or an animated PNG's frames,
+    an MPO's images, and 1 for a still image (nothing is decoded)."""
+    return _animation(data)[0]
+
+
+def frames(data: bytes, indices) -> Iterator[tuple[int, np.ndarray, dict]]:
+    """``(k, rgb uint8 [H, W, 3], info)`` for each index k in ascending
+    order, as Pillow's ``seek(k).convert("RGB")`` gives the frame; ``info``
+    holds the ``transparency`` and ``icc_profile`` Pillow's PNG writer
+    reads. Frames are decoded forward, as far as the largest index."""
+    n, reader = _animation(data)
+    want = sorted(set(indices))
+    if want and (want[0] < 0 or want[-1] >= n):
+        raise undecodable("attempt to seek outside sequence")
+    if reader is None:
+        if want:
+            rgb, info = decode_image(data)
+            yield 0, rgb, info
+    elif isinstance(reader, GifReader):
+        for k, rgb, t in reader.frames(want):
+            yield k, rgb, ({} if t is None else {"transparency": t})
+    elif isinstance(reader, MpoReader):  # each frame its own info
+        yield from reader.frames(want)
+    else:  # WebP and animated PNG: one info for every frame
+        for k, rgb in reader.frames(want):
+            yield k, rgb, reader.info
 
 
 def encode_png(rgb: np.ndarray, transparency=None, icc_profile: bytes | None = None) -> bytes:
@@ -549,8 +732,8 @@ def _filter_rows(rgb: np.ndarray) -> bytes:
 def preprocess_image(data: bytes, image_size: int) -> np.ndarray:
     """Decode + CLIP-preprocess one image -> [3, S, S] f32: the shortest edge
     resized to S (bicubic), the center crop, then the CLIP mean/std, as the
-    reference's ``preprocess_image``. PNG, JPEG and GIF (frame 0); raises
-    ValueError on other or undecodable bytes."""
+    reference's ``preprocess_image``. Frame 0 of a PNG, JPEG, MPO, GIF or
+    WebP; raises ValueError on other or undecodable bytes."""
     img, _ = decode_image(data)
     h, w = img.shape[:2]
     short = min(w, h)

@@ -16,10 +16,11 @@ integer IDCT and fancy upsampling).
   there) and replication for other integral factors, ``jdcolor.c``'s
   fixed-point YCbCr to RGB tables; grey is replicated into three channels.
 
-Lossless, hierarchical, arithmetic-coded and 12-bit JPEG, four components
-(CMYK/YCCK) and MPO files raise ValueError naming the ROADMAP item that
-would port them; a truncated or corrupt file raises ``ValueError
-("undecodable image bytes: ...")``.
+An MPO's frame 0 is the file's first JPEG, decoded here (mpo.py reads its
+index and the other frames). Lossless, hierarchical, arithmetic-coded and
+12-bit JPEG and four components (CMYK/YCCK) raise ValueError naming the
+ROADMAP item that would port them; a truncated or corrupt file raises
+``ValueError("undecodable image bytes: ...")``.
 """
 
 from __future__ import annotations
@@ -31,7 +32,6 @@ import numpy as np
 
 from dynamo_tpu_torch.multimodal.formats import (
     ITEM_OTHER_FORMATS,
-    ITEM_WEBP_APNG_MPO,
     check_size,
     undecodable,
 )
@@ -114,23 +114,6 @@ def _huffman_lut(counts: bytes, symbols: bytes) -> list[int]:
             k += 1
         code <<= 1
     return lut.tolist()
-
-
-def _mpo_images(mp: bytes) -> int | None:
-    """The number of images an MPF segment's MP index declares (tag
-    0xB001), or None where Pillow would read the file as a plain JPEG."""
-    try:
-        end = ">" if mp[:4] == b"MM\x00*" else "<"
-        off = struct.unpack(end + "I", mp[4:8])[0]
-        (n,) = struct.unpack(end + "H", mp[off: off + 2])
-        for i in range(n):
-            tag, typ, count, value = struct.unpack(
-                end + "HHII", mp[off + 2 + 12 * i: off + 14 + 12 * i])
-            if tag == 0xB001:
-                return value
-    except struct.error:
-        return None
-    return None
 
 
 def _segments(data: bytes, pos: int) -> tuple[list[bytes], int]:
@@ -465,11 +448,12 @@ def _upsample(x: np.ndarray, hf: int, vf: int) -> np.ndarray:
 # ------------------------------------------------------------------ decode
 
 
-def decode_jpeg(data: bytes) -> tuple[np.ndarray, dict]:
+def decode_jpeg(data: bytes, pixels: bool = True) -> tuple[np.ndarray | None, dict]:
     """JPEG bytes -> (uint8 [H, W, 3], info): the pixels of Pillow's
     ``Image.open(...).convert("RGB")``, and the ``icc_profile`` Pillow keeps
     in ``info`` (present when the file has ICC segments; None when their
-    count is wrong, as Pillow leaves it)."""
+    count is wrong, as Pillow leaves it). ``pixels=False`` stops at the
+    frame header: (None, info)."""
     if data[:3] != b"\xff\xd8\xff":
         raise undecodable("not a JPEG file")
     n = len(data)
@@ -481,8 +465,6 @@ def decode_jpeg(data: bytes) -> tuple[np.ndarray, dict]:
     icc: list[bytes] = []
     saw_jfif = False
     adobe = None
-    mp = None
-    ultra_hdr = False
     ri = 0
     frame = None  # (progressive, width, height)
     eoi = False
@@ -511,12 +493,8 @@ def decode_jpeg(data: bytes) -> tuple[np.ndarray, dict]:
         if 0xE0 <= m <= 0xEF:
             if m == 0xE0 and len(body) >= 14 and body[:5] == b"JFIF\x00":
                 saw_jfif = True
-            elif m == 0xE1 and b' hdrgm:Version="' in body:
-                ultra_hdr = True
             elif m == 0xE2 and body[:12] == b"ICC_PROFILE\x00" and frame is None:
                 icc.append(body)
-            elif m == 0xE2 and body[:4] == b"MPF\x00":
-                mp = body[4:]
             elif m == 0xEE and len(body) >= 12 and body[:5] == b"Adobe":
                 adobe = body[11]
         elif m == 0xDB:
@@ -575,13 +553,11 @@ def decode_jpeg(data: bytes) -> tuple[np.ndarray, dict]:
                 icc.sort()  # Pillow's order: by sequence number
                 info["icc_profile"] = (b"".join(s[14:] for s in icc)
                                        if icc[0][13] == len(icc) else None)
+            if not pixels:
+                return None, info
         elif m == 0xDA:
             if frame is None:
                 raise undecodable("JPEG scan before its frame header")
-            if mp is not None and (_mpo_images(mp) or 0) > 1 and not ultra_hdr:
-                # Pillow opens it as MPO, each image a frame
-                raise ValueError(f"MPO images are not decoded by this port "
-                                 f"({ITEM_WEBP_APNG_MPO})")
             pos = _scan(data, pos, body, comps, qt, huff, ri, frame)
         elif m == 0xDC:
             raise undecodable("JPEG DNL marker")

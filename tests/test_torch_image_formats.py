@@ -17,9 +17,9 @@ against Pillow and the JAX package on the CPU, bit for bit:
 - ``encode_png``: the bytes of Pillow's ``save(format="PNG")``;
 - ``sample_video_frames``: the reference's list of bytes;
 - ``preprocess_image`` of JPEG and GIF: the reference's f32 arrays;
-- the committed fixtures (``tests/torch_mm_fixtures``) and their manifest,
-  which ``chip_smoke.py`` reads on the GPU machine; ``write_fixtures``
-  below made them.
+- the committed fixtures (``tests/torch_mm_fixtures``: JPEG, GIF, WebP,
+  APNG and MPO) and their manifest, which ``chip_smoke.py`` reads on the
+  GPU machine; ``write_fixtures`` below made them.
 """
 
 import hashlib
@@ -204,6 +204,8 @@ def _patched_sof(data: bytes, marker: int | None = None, precision: int | None =
 @pytest.mark.parametrize("case", ["lossless", "hierarchical", "arithmetic", "12-bit",
                                   "CMYK", "MPO"])
 def test_jpeg_variants_refused_naming_the_item(case):
+    """The variants left unported raise naming their item; an MPO (ported)
+    decodes as Pillow's frame 0 and preprocesses as the reference does."""
     base = _save(_content(16, 16, "smooth"), "JPEG")
     if case == "CMYK":
         data = _save(_content(16, 16, "smooth"), "JPEG", "CMYK")
@@ -213,8 +215,10 @@ def test_jpeg_variants_refused_naming_the_item(case):
         ims = [Image.fromarray(_content(16, 16, "smooth", s)) for s in (1, 2)]
         ims[0].save(buf, "MPO", save_all=True, append_images=ims[1:])
         data = buf.getvalue()
-        assert Image.open(io.BytesIO(data)).n_frames == 2
-        item = "item 12b-ii"
+        assert Image.open(io.BytesIO(data)).n_frames == 2 == image.frame_count(data)
+        assert np.array_equal(decode_jpeg(data)[0], _pillow_rgb(data)[0])
+        assert np.array_equal(image.preprocess_image(data, 28), jvit.preprocess_image(data, 28))
+        return
     else:
         marker = {"lossless": 0xC3, "hierarchical": 0xC5, "arithmetic": 0xC9}.get(case)
         data = _patched_sof(base, marker=marker, precision=12 if case == "12-bit" else None)
@@ -590,7 +594,7 @@ def _animated(fmt: str) -> bytes:
 def test_animated_png_still_is_pillows_frame_zero():
     """An animated PNG decodes as its default image, which is Pillow's
     frame 0 whether or not the image data is the animation's first frame;
-    as a video it is refused naming its item."""
+    as a video its frames are the reference's."""
     for mode in ("RGB", "RGBA", "P", "L"):
         for default_image in (False, True):
             frames = [Image.fromarray(_content(12, 16, "noise", s)).convert(mode)
@@ -603,8 +607,7 @@ def test_animated_png_still_is_pillows_frame_zero():
             assert im.n_frames == 3 and image.frame_count(data) == 3
             assert np.array_equal(image.decode_image(data)[0],
                                   np.asarray(im.convert("RGB"))), (mode, default_image)
-            with pytest.raises(ValueError, match="item 12b-ii"):
-                encoder.sample_video_frames(data, 2)
+            assert encoder.sample_video_frames(data, 2) == jenc.sample_video_frames(data, 2)
 
 
 # ------------------------------------------------------------- video
@@ -633,8 +636,8 @@ def test_sample_video_frames_equals_the_reference(name, n):
 
 
 def test_video_errors():
-    """Garbage: the reference's error class and prefix; WebP and animated
-    PNG: refused naming the item."""
+    """Garbage: the reference's error class and prefix; animated WebP and
+    PNG: the reference's frames."""
     for bad in (b"not a video at all", b"GIF89a\x01"):
         with pytest.raises(ValueError, match="undecodable video bytes"):
             jenc.sample_video_frames(bad, 4)
@@ -644,8 +647,7 @@ def test_video_errors():
     for fmt in ("WEBP", "PNG"):
         data = _animated(fmt)
         assert len(jenc.sample_video_frames(data, 3)) == 3
-        with pytest.raises(ValueError, match="undecodable video bytes.*item 12b-ii"):
-            encoder.sample_video_frames(data, 3)
+        assert encoder.sample_video_frames(data, 3) == jenc.sample_video_frames(data, 3)
 
 
 # ------------------------------------------------------------- fixtures
@@ -694,14 +696,68 @@ def _fixture_files() -> dict[str, bytes]:
                                            subsampling=1, progressive=True, optimize=True),
         "grey_333x251.jpg": _save(smooth[333].astype(np.uint8), "JPEG", "L", quality=90),
     }
-    return {**jpeg, "anim_320x240.gif": _fixture_gif()}
+    return {**jpeg, "anim_320x240.gif": _fixture_gif(), **_fixture_webp_apng_mpo()}
+
+
+def _textured(w: int, h: int, seed: int, t: int = 0) -> np.ndarray:
+    """Smooth colour fields with fine stripes and seeded grain: a photo's
+    share of texture for the lossy coders."""
+    y, x = np.mgrid[:h, :w]
+    grain = np.random.default_rng(seed).integers(-12, 13, (h, w, 3))
+    px = np.stack([(x + 9 * t) * 255 // (w + 120), y * 255 // h,
+                   128 + 90 * np.sin(x / 57 + y / 83 + seed + t / 3)], -1)
+    px = px + 24 * np.sin((x * 3 + y * 2) / 5.0)[..., None] + grain
+    return np.clip(px, 0, 255).astype(np.uint8)
+
+
+def _sprite_frames(w: int, h: int, n: int) -> list[np.ndarray]:
+    """RGBA frames: a still textured background and a moving half-clear
+    disc, so that animation writers emit sub-rectangles, blend and dispose."""
+    bg = _textured(w, h, 5)
+    y, x = np.mgrid[:h, :w]
+    out = []
+    for k in range(n):
+        cx, cy = 20 + k * (w - 40) // max(n - 1, 1), h // 2 + int(20 * np.sin(k))
+        disc = np.hypot(x - cx, y - cy) < 18
+        px = np.dstack([bg, np.full((h, w), 255, np.uint8)])
+        px[disc] = (240, 40 + 15 * k, 30, 140 if k % 3 else 0)
+        out.append(px)
+    return out
+
+
+def _fixture_webp_apng_mpo() -> dict[str, bytes]:
+    """A lossy 640x480 WebP, a lossless 200x150 WebP with alpha, a 12-frame
+    animated WebP and APNG of a moving disc, a 2-frame MPO."""
+    buf = io.BytesIO()
+    Image.fromarray(_textured(640, 480, 0)).save(buf, "WEBP", quality=80, method=4)
+    lossy = buf.getvalue()
+    a = np.clip(255 - np.hypot(*np.mgrid[-75:75, -100:100]) * 2, 0, 255).astype(np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(np.dstack([_textured(200, 150, 1), a]), "RGBA").save(buf, "WEBP",
+                                                                         lossless=True)
+    lossless = buf.getvalue()
+    frames = [Image.fromarray(f, "RGBA") for f in _sprite_frames(160, 120, 12)]
+    buf = io.BytesIO()
+    frames[0].save(buf, "WEBP", save_all=True, append_images=frames[1:], duration=80, loop=0,
+                   minimize_size=True, allow_mixed=True, quality=75, kmin=3, kmax=5)
+    anim_webp = buf.getvalue()
+    buf = io.BytesIO()
+    frames[0].save(buf, "PNG", save_all=True, append_images=frames[1:], duration=80,
+                   disposal=[0, 1, 2] * 4, blend=[0, 1] * 6)
+    apng = buf.getvalue()
+    buf = io.BytesIO()
+    ims = [Image.fromarray(_textured(320, 240, 3, t)) for t in (0, 4)]
+    ims[0].save(buf, "MPO", save_all=True, append_images=ims[1:], quality=85)
+    return {"photo_640x480.webp": lossy, "alpha_200x150_lossless.webp": lossless,
+            "anim_160x120.webp": anim_webp, "anim_160x120.png": apng,
+            "stereo_320x240.mpo": buf.getvalue()}
 
 
 def _versions() -> dict[str, str]:
     import PIL
 
     return {"pillow": PIL.__version__, "libjpeg_turbo": features.version("libjpeg_turbo"),
-            "zlib": zlib.ZLIB_RUNTIME_VERSION}
+            "libwebp": features.version("webp"), "zlib": zlib.ZLIB_RUNTIME_VERSION}
 
 
 def write_fixtures(folder: Path = FIXTURES) -> dict:
@@ -721,8 +777,9 @@ def write_fixtures(folder: Path = FIXTURES) -> dict:
 def _manifest_entry(data: bytes) -> dict:
     rgb, _ = _pillow_rgb(data)
     entry = {"sha256": _sha(data), "rgb_sha256": _sha(rgb.tobytes()), "shape": list(rgb.shape)}
-    if data[:3] == b"GIF":
-        entry["n_frames"] = Image.open(io.BytesIO(data)).n_frames
+    n = getattr(Image.open(io.BytesIO(data)), "n_frames", 1)
+    if n > 1:
+        entry["n_frames"] = n
         entry["frame_png_sha256"] = [_sha(f) for f in
                                      jenc.sample_video_frames(data, FIXTURE_FRAMES)]
         entry["frame_rgb_sha256"] = [
@@ -747,9 +804,11 @@ def test_fixtures_match_their_manifest():
         assert _manifest_entry(data) == entry, name
         if name.endswith(".gif"):
             rgb = next(GifReader(data).frames([0]))[1]
-            frames = encoder.sample_video_frames(data, FIXTURE_FRAMES)
-            assert [_sha(f) for f in frames] == entry["frame_png_sha256"]
         else:
             rgb = image.decode_image(data)[0]
+        if "n_frames" in entry:
+            assert image.frame_count(data) == entry["n_frames"], name
+            frames = encoder.sample_video_frames(data, FIXTURE_FRAMES)
+            assert [_sha(f) for f in frames] == entry["frame_png_sha256"], name
         assert _sha(rgb.tobytes()) == entry["rgb_sha256"] and list(rgb.shape) == entry["shape"]
     assert total < 400_000

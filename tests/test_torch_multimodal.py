@@ -11,9 +11,10 @@ the JAX package's on the CPU:
   1000x37. Pillow writes the kinds it can; the rest come from this file's
   own writer (Pillow writes neither Adam7, 16-bit colour nor chosen
   filters), and Pillow decodes them all for the reference;
-- JPEG and GIF decode to Pillow's pixels (tests/test_torch_image_formats.py
-  holds the decoders at length); WebP, BMP, TIFF and MPO raise ValueError
-  naming their ROADMAP item 12b-ii or 12b-iii;
+- JPEG, GIF, WebP and MPO decode to Pillow's pixels
+  (tests/test_torch_image_formats.py, test_torch_webp.py and
+  test_torch_apng_mpo.py hold the decoders at length); BMP, TIFF, ICO and
+  PPM raise ValueError naming their ROADMAP item 12b-iii;
 - ``VisionTower`` + ``project`` on the JAX init's tree equal ``vit_forward``
   + ``project`` within TOWER_TOL (f32 on both sides: XLA and PyTorch sum in
   other orders);
@@ -233,8 +234,8 @@ def test_resize_matches_pillow_up_and_down(shape):
 
 @pytest.mark.parametrize("fmt", ["JPEG", "GIF", "WEBP", "BMP", "TIFF", "MPO", "ICO", "PPM"])
 def test_other_formats_raise_naming_the_item(fmt):
-    """JPEG and GIF decode as the reference's Pillow does; the formats left
-    unported, which Pillow opens, raise naming their item."""
+    """JPEG, GIF, WebP and MPO decode as the reference's Pillow does; the
+    formats left unported, which Pillow opens, raise naming their item."""
     rng = np.random.default_rng(12)
     im = Image.fromarray(_content(rng, 8, 8, 3).astype(np.uint8), "RGB")
     buf = io.BytesIO()
@@ -243,13 +244,13 @@ def test_other_formats_raise_naming_the_item(fmt):
     im.save(buf, format=fmt, **kw)
     data = buf.getvalue()
     Image.open(io.BytesIO(data)).convert("RGB")
-    if fmt in ("JPEG", "GIF"):
+    if fmt in ("JPEG", "GIF", "WEBP", "MPO"):
         assert np.array_equal(image.decode_image(data)[0],
                               np.asarray(Image.open(io.BytesIO(data)).convert("RGB")))
         assert np.array_equal(image.preprocess_image(data, 336),
                               jvit.preprocess_image(data, 336))
         return
-    with pytest.raises(ValueError, match="item 12b-ii" if fmt in ("WEBP", "MPO") else "item 12b-iii"):
+    with pytest.raises(ValueError, match="item 12b-iii"):
         image.preprocess_image(data, 336)
 
 

@@ -18,12 +18,14 @@ embedding scaled by EMBED_SCALE so no greedy token rides on a near-tie):
   bodies for one image, two images, a repeated image and another image,
   and equal /v1/embeddings bodies (vectors within EMB_TOL) and errors;
 - a JPEG image and a GIF video in one chat give equal bodies from both
-  EPD stacks (the port samples the reference's PNG frame bytes);
+  EPD stacks (the port samples the reference's PNG frame bytes), and so do
+  a WebP image with an animated WebP video and an APNG video;
 - across packages over one TCP hub: a JAX frontend and encode worker serve
   a port engine worker, and a port frontend and encode worker a JAX one;
-- the port's ``cli encoder`` serves the tiny ViT tower on PNGs and a GIF
-  video, refuses WebP naming item 12b-ii, and its mock encode worker's
-  rows for a GIF video and a JPEG are the JAX encode worker's.
+- the port's ``cli encoder`` serves the tiny ViT tower on PNGs, a GIF
+  video and WebP images and videos, refuses BMP naming item 12b-iii, and
+  its mock encode worker's rows for a GIF video and a JPEG are the JAX
+  encode worker's.
 """
 
 import asyncio
@@ -519,6 +521,43 @@ def test_epd_jpeg_and_gif_video_match_jax(stacks):
         1 + VIDEO_FRAMES)
 
 
+def _apng_video(n: int = 5, size=(24, 20)) -> bytes:
+    import io
+
+    from PIL import Image
+
+    w, h = size
+    y, x = np.mgrid[:h, :w]
+    frames = [Image.fromarray(np.stack([(x * 11 + 30 * k) % 256, y * 7 % 256,
+                                        np.full_like(x, 200 - 20 * k), (x * y + 90) % 256],
+                                       -1).astype(np.uint8), "RGBA") for k in range(n)]
+    buf = io.BytesIO()
+    frames[0].save(buf, "PNG", save_all=True, append_images=frames[1:], duration=40,
+                   disposal=[0, 1, 2, 0, 1][:n], blend=[0, 1, 1, 0, 1][:n])
+    return buf.getvalue()
+
+
+def test_epd_webp_and_apng_video_match_jax(stacks):
+    """A lossy WebP image, an animated WebP video and an APNG video in one
+    chat: the port decodes them without Pillow into the reference's pixels
+    and PNG frame bytes, so both stacks give the same body over 4 + 2 x 8 x
+    4 placeholder rows."""
+    body = _chat()
+    body["messages"][0]["content"] += [
+        {"type": "image_url", "image_url": {
+            "url": "data:image/webp;base64," + base64.b64encode(_webp(False)).decode()}},
+        {"type": "video_url", "video_url": {
+            "url": "data:image/webp;base64," + base64.b64encode(_webp(True)).decode()}},
+        {"type": "video_url", "video_url": {
+            "url": "data:image/png;base64," + base64.b64encode(_apng_video()).decode()}}]
+    (js, jb), (ps, pb) = stacks.both("/v1/chat/completions", body)
+    assert js == ps == 200, (jb, pb)
+    assert _strip(pb) == _strip(jb) and pb["usage"]["completion_tokens"] == TOKENS
+    (_, text) = stacks.both("/v1/chat/completions", _chat())[1]
+    assert pb["usage"]["prompt_tokens"] - text["usage"]["prompt_tokens"] == TPI * (
+        1 + 2 * VIDEO_FRAMES)
+
+
 def test_epd_errors_match_jax(stacks):
     """A bad data URI fails at the encode hop with the reference's text; an
     embeddings model refuses chat images; http URLs are refused."""
@@ -668,10 +707,13 @@ def _webp(animated: bool) -> bytes:
 
     from PIL import Image
 
-    frames = [Image.fromarray(np.full((8, 8, 3), 60 * k, np.uint8)) for k in range(3)]
+    y, x = np.mgrid[:20, :28]
+    frames = [Image.fromarray(np.stack([(x * 9 + 60 * k) % 256, y * 12 % 256,
+                                        np.full_like(x, 60 * k)], -1).astype(np.uint8))
+              for k in range(3)]
     buf = io.BytesIO()
     kw = dict(save_all=True, append_images=frames[1:], duration=40) if animated else {}
-    frames[0].save(buf, "WEBP", **kw)
+    frames[0].save(buf, "WEBP", quality=70, **kw)
     return buf.getvalue()
 
 
@@ -693,10 +735,11 @@ async def test_cli_encoder_serves_the_vit_tower_and_refuses_video():
     """``cli encoder --encoder vit --vit-size tiny --device cpu`` on a TCP
     hub: a real PNG twice encodes once and tiles (LLM-hidden rows through
     the projector), the reply carries the reference's keys; a GIF video
-    gives 8 sampled frames' rows (repeated frames tiled); a WebP image and a
-    WebP video answer the encode error naming item 12b-ii. With the mock
-    encoder, the port's encode worker gives the JAX encode worker's rows
-    for the same GIF video and JPEG."""
+    gives 8 sampled frames' rows (repeated frames tiled); a WebP image and
+    an animated WebP video encode (the video's 3 frames tiled as the GIF's
+    are); a BMP image and a BMP video answer the encode error naming item
+    12b-iii. With the mock encoder, the port's encode worker gives the JAX
+    encode worker's rows for the same GIF video and JPEG."""
     import dynamo_tpu.runtime.push as jpush
     import dynamo_tpu_torch.runtime.push as tpush
     from dynamo_tpu_torch.multimodal import worker
@@ -727,11 +770,27 @@ async def test_cli_encoder_serves_the_vit_tower_and_refuses_video():
         assert rows.shape == (8, 4, 64) and np.isfinite(rows).all()
         assert np.array_equal(rows[0], rows[1]) and np.array_equal(rows[2], rows[5])
         assert not np.array_equal(rows[1], rows[2])
-        for att in ({"url": "data:image/webp;base64,"
-                     + base64.b64encode(_webp(True)).decode(), "kind": "video"},
-                    "data:image/webp;base64," + base64.b64encode(_webp(False)).decode()):
+        webp_video = {"url": "data:image/webp;base64," + base64.b64encode(_webp(True)).decode(),
+                      "kind": "video"}
+        (reply,) = [r async for r in router.generate({"images": [webp_video]}, tctx.Context())]
+        rows = np.frombuffer(base64.b64decode(reply["embeds_b64"]), "<f4").reshape(-1, 4, 64)
+        assert rows.shape == (8, 4, 64) and np.isfinite(rows).all()
+        assert np.array_equal(rows[0], rows[1]) and np.array_equal(rows[2], rows[5])
+        assert not np.array_equal(rows[1], rows[2])
+        webp = "data:image/webp;base64," + base64.b64encode(_webp(False)).decode()
+        (reply,) = [r async for r in router.generate({"images": [webp]}, tctx.Context())]
+        assert reply["shape"] == [4, 64]
+        assert np.isfinite(np.frombuffer(base64.b64decode(reply["embeds_b64"]), "<f4")).all()
+        import io
+
+        from PIL import Image
+
+        buf = io.BytesIO()
+        Image.open(io.BytesIO(_webp(False))).convert("RGB").save(buf, "BMP")
+        bmp = "data:image/bmp;base64," + base64.b64encode(buf.getvalue()).decode()
+        for att in ({"url": bmp, "kind": "video"}, bmp):
             (err,) = [r async for r in router.generate({"images": [att]}, tctx.Context())]
-            assert err["error"].startswith("image encode failed:") and "item 12b-ii" in err["error"]
+            assert err["error"].startswith("image encode failed:") and "item 12b-iii" in err["error"]
         await router.client.close()
     finally:
         task.cancel()
