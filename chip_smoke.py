@@ -114,6 +114,25 @@ Phases, each of which must pass (any failure exits non-zero):
 10. CLI: ``python3 -m dynamo_tpu_torch.cli run --in http --out engine
    --model llama-3-8b --port 0 --precompile`` in a process of its own
    prints DYNAMO_HTTP=host:port and streams a 16-token chat completion;
+   (b) while it serves, in processes of their own: ``cli bench`` closed
+   loop (BENCH_CLOSED: rungs 1 and 8, 16 requests each; gates: 0 errors,
+   16 requests per rung, TTFT p50 <= p99, output tok/s higher at 8 than at
+   1), ``cli bench`` open loop (BENCH_OPEN, Poisson; gates: 0 errors and
+   as many requests as ``loadgen.arrival_times`` schedules for the same
+   arguments) and ``cli profile`` (PROFILE_GRID, --max-kv-tokens the
+   server's pool; gates: prefill.npz and decode.npz written under the
+   git-ignored build/profile_sla/, and the port's interpolators read them
+   to finite positive TTFT and throughput); after SIGTERM the server's
+   ENGINE_LAUNCHES must show fused_decode once per layer per step. Then,
+   the server gone, ``python -m dynamo_tpu_torch.profiling.profile_engine``
+   (PROFILE_ENGINE: llama-1b-bench, 64 slots, 16 streams; gates:
+   model_steps, requests_done and phases non-empty, 0 graph captures in
+   the measured window, its ENGINE_LAUNCHES fused_decode once per layer
+   per step), and fused_decode and paged_attention_v3 held against their
+   plain versions at that engine's step shape (B 64 of which 16 live, KH
+   8, G 2, 13 pages per sequence) and timed there. Prints each rung's and
+   the open loop's JSON line, the profile's grids, the dispatch plus
+   readmission share of the profile window;
 11. processes: with every engine of phases 1-10 freed (the card's free
    memory printed, room for two workers required), ``cli hub``, two
    ``cli worker --model llama-3-8b --precompile`` on the phase-1 config
@@ -682,6 +701,8 @@ Phases, each of which must pass (any failure exits non-zero):
 
 Phases run in the order 1-8, 12, 13, 14, 18, 9, 20 (a, b, d), 21, 10, 11,
 19, 20 (c), 15, 16, 17, 22, 23, 24, 25, 26, 27.
+``python3 chip_smoke.py --phase10`` (``--phase21``) runs the build and
+phase 10 with (b) (phase 21) alone: no kernel table, no final line.
 
 Prints, before the last line, the card line and one JSON object with every
 kernel's measurements; the last line is
@@ -754,6 +775,15 @@ LOGPROBS = 5
 CLI_TOKENS = 16  # the CLI phase's streamed chat completion
 FEATURE_TOKENS = 16  # each request of phase 9's serving-feature set
 CLI_START_S = 180  # the CLI process's limit to print DYNAMO_HTTP=
+# phase 10 (b): cli bench's closed and open loops, cli profile's grid and
+# profile_engine's rung, each in a process of its own (TOOL_S at most)
+BENCH_CLOSED = ("--concurrency", "1,8", "--num-requests", "16", "--isl", "256",
+                "--osl", "32", "--warmup", "2", "--seed", "0")
+BENCH_OPEN = dict(arrival="poisson", rate=4.0, duration=10.0, isl=256, osl=32, seed=0)
+PROFILE_GRID = ("--isl-grid", "64,512", "--concurrency-grid", "1,8", "--context-grid",
+                "128,512", "--osl", "16", "--requests-per-point", "2")
+PROFILE_ENGINE = ("--concurrency", "16", "--secs", "5", "--warm-secs", "3")
+TOOL_S = 180
 REPS = 20
 SLEEP_CYCLES = 5_000_000  # ~2.5 ms of device time at the H100's clock
 # phase 11's prefix-family set: FAMILIES shared prefixes of FAMILY_PREFIX
@@ -4307,17 +4337,22 @@ def features_check(f: dict, L: int) -> int:
     return counts["fused_decode"]
 
 
-def cli_check(model: str, device: str | None = None) -> None:
+def cli_check(model: str, device: str | None = None) -> tuple[int, float]:
     """Phase 10: ``python3 -m dynamo_tpu_torch.cli run --in http --out
     engine`` in a process of its own (random weights, graphs captured
     first) must print DYNAMO_HTTP=host:port and stream a chat completion
-    of CLI_TOKENS tokens ending with data: [DONE]. The process is ended
-    before this returns."""
+    of CLI_TOKENS tokens ending with data: [DONE]; then (b)'s tools run
+    against it (cli_tools_check). The process is ended before this returns;
+    its ENGINE_LAUNCHES must show fused_decode once per layer per step.
+    Returns those launches and the seconds of (b) up to the process's end."""
+    from dynamo_tpu_torch.engine.config import ModelSpec
+
     cmd = [sys.executable, "-m", "dynamo_tpu_torch.cli", "run", "--in", "http", "--out",
            "engine", "--model", model, "--port", "0", "--precompile"]
     if device:
         cmd += ["--device", device]
-    with cli_process(cmd) as (port, t_ready):
+    lines: list[str] = []
+    with cli_process(cmd, lines) as (port, t_ready):
         status, body, times = asyncio.run(http_call(port, "POST", "/v1/chat/completions", {
             "model": model, "messages": [{"role": "user", "content": "Hello there"}],
             "max_tokens": CLI_TOKENS, "ignore_eos": True, "stream": True,
@@ -4332,6 +4367,146 @@ def cli_check(model: str, device: str | None = None) -> None:
         print(f"cli: {' '.join(cmd[1:])}: DYNAMO_HTTP after {t_ready:.1f} s; a streamed chat "
               f"completion of {CLI_TOKENS} tokens in {times[-1]:.3f} s ({len(chunks)} "
               f"chunks, client TTFT {1e3 * times[0]:.1f} ms), usage {usage}")
+        t_b = time.perf_counter()
+        cli_tools_check(port, model)
+    t_b = time.perf_counter() - t_b
+    log = launches_line(lines)
+    L = ModelSpec.preset(model).num_layers
+    fused, steps = log["launches"].get("fused_decode_attention", 0), log["steps"]
+    require(steps > 0 and fused == L * steps,
+            f"cli: fused_decode {fused} != {L} x {steps} steps (ENGINE_LAUNCHES)")
+    print(f"phase 10 server: fused_decode {fused} = {L} x {steps} steps, {log['replays']} "
+          f"graph replays (ENGINE_LAUNCHES, the chat and (b)'s tools)")
+    return fused, t_b
+
+
+def tool_run(*args: str, timeout: float = TOOL_S) -> subprocess.CompletedProcess:
+    """``python3 -m <args>`` in a process of its own, run to its end; an
+    exit code other than 0 fails."""
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, capture_output=True,
+                          text=True, timeout=timeout)
+    require(proc.returncode == 0, f"{' '.join(args[:2])}: exit code {proc.returncode}: "
+            f"{proc.stderr[-2000:]}")
+    return proc
+
+
+def json_lines(text: str) -> list[dict]:
+    return [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+
+
+def cli_tools_check(port: int, model: str) -> None:
+    """Phase 10 (b) against the cli run server on ``port``: cli bench's
+    closed and open loops and cli profile, each in a process of its own."""
+    from types import SimpleNamespace
+
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.planner import DecodeInterpolator, PrefillInterpolator
+    from dynamo_tpu_torch.profiling.loadgen import arrival_times
+
+    url = f"http://127.0.0.1:{port}"
+    t0 = time.perf_counter()
+    rungs = json_lines(tool_run("dynamo_tpu_torch.cli", "bench", "--url", url, "--model",
+                                model, *BENCH_CLOSED).stdout)
+    require([r["concurrency"] for r in rungs] == [1, 8], f"cli bench: rungs {rungs}")
+    for r in rungs:
+        ttft = r["ttft_ms"]
+        require(r["errors"] == 0 and r["requests"] == 16 and ttft["p50"] is not None
+                and ttft["p50"] <= ttft["p99"], f"cli bench rung: {r}")
+        print(f"phase 10 (b) cli bench rung {r['concurrency']}: {json.dumps(r)}")
+    require(rungs[1]["output_tok_per_s"] > rungs[0]["output_tok_per_s"],
+            f"cli bench: output tok/s at 8 {rungs[1]['output_tok_per_s']} not above "
+            f"at 1 {rungs[0]['output_tok_per_s']}")
+    t1 = time.perf_counter()
+    o = BENCH_OPEN
+    want = len(arrival_times(SimpleNamespace(trace=None, sin_amp=2.0, sin_period=20.0, **o)))
+    (opened,) = json_lines(tool_run(
+        "dynamo_tpu_torch.cli", "bench", "--url", url, "--model", model, "--arrival",
+        o["arrival"], "--rate", str(o["rate"]), "--duration", str(o["duration"]), "--isl",
+        str(o["isl"]), "--osl", str(o["osl"]), "--seed", str(o["seed"])).stdout)
+    require(opened["errors"] == 0 and opened["requests"] == want,
+            f"cli bench open loop: {opened}, {want} requests scheduled")
+    print(f"phase 10 (b) cli bench open loop: {json.dumps(opened)}")
+    t2 = time.perf_counter()
+    out = ROOT / "build" / "profile_sla"
+    for name in ("prefill.npz", "decode.npz"):
+        (out / name).unlink(missing_ok=True)
+    ecfg = EngineConfig()  # the cli run server's pool
+    pool_tokens = ecfg.num_pages * ecfg.page_size
+    said = json_lines(tool_run("dynamo_tpu_torch.cli", "profile", "--url", url, "--model",
+                               model, "--out", str(out), *PROFILE_GRID, "--max-kv-tokens",
+                               str(pool_tokens)).stdout)
+    require((out / "prefill.npz").is_file() and (out / "decode.npz").is_file(),
+            f"cli profile: no npz files in {out}: {said}")
+    pre, dec = PrefillInterpolator(str(out)), DecodeInterpolator(str(out))
+    read = {"ttft_s@256": pre.interpolate_ttft(256),
+            "prefill_thpt@256": pre.interpolate_thpt_per_chip(256),
+            "decode_thpt@c4,256": dec.interpolate_thpt_per_chip(4, 256),
+            "best_decode_thpt@0.05s,128": dec.find_best_throughput_per_chip(0.05, 128)[0]}
+    require(all(np.isfinite(v) and v > 0 for v in read.values()),
+            f"cli profile: interpolators read {read}")
+    with np.load(out / "prefill.npz") as p, np.load(out / "decode.npz") as d:
+        grids = {k: np.round(z[k], 6).tolist() for z in (p, d) for k in z.files}
+    print(f"phase 10 (b) cli profile: {json.dumps(said)}; grids {json.dumps(grids)}; "
+          f"read back {json.dumps({k: round(v, 6) for k, v in read.items()})}")
+    print(f"phase 10 (b) tools: closed loop {t1 - t0:.1f} s, open loop {t2 - t1:.1f} s, "
+          f"profile {time.perf_counter() - t2:.1f} s")
+
+
+def profile_engine_check(card: str) -> tuple[int, dict]:
+    """Phase 10 (b), the server gone: profile_engine on the card (PROFILE_ENGINE),
+    then its step shape's kernel row. Returns its fused_decode launches and
+    the row."""
+    proc = tool_run("dynamo_tpu_torch.profiling.profile_engine", *PROFILE_ENGINE)
+    rep = json.loads(proc.stdout)
+    disp, over = rep["dispatch"], rep["overhead"]
+    require(rep["model_steps"] > 0 and rep["requests_done"] > 0 and rep["phases"],
+            f"profile_engine: {json.dumps(rep)[:2000]}")
+    require(disp["compile_events"] == 0,
+            f"profile_engine: {disp['compile_events']} graph captures in the window")
+    log = launches_line(proc.stderr.splitlines())
+    fused, steps = log["launches"].get("fused_decode_attention", 0), log["steps"]
+    require(steps > 0 and fused == 16 * steps,
+            f"profile_engine: fused_decode {fused} != 16 x {steps} steps")
+    phases = {k: v for k, v in rep["phases"].items() if v["secs"] or v["calls"]}
+    print(f"phase 10 (b) profile_engine [{card}]: window {rep['window_s']} s, "
+          f"{rep['model_steps']} steps, {rep['requests_done']} requests, "
+          f"dispatch + readmission {over['dispatch_plus_readmit_frac_of_window']} of the "
+          f"window (dispatch {over['dispatch_s']} s, readmission {over['readmit_s']} s), "
+          f"dispatches per step {disp['dispatches_per_step']}, d2h wait "
+          f"{disp['d2h_wait_s']} s, 0 captures; readmission "
+          f"{json.dumps(rep['readmission'])}; phases {json.dumps(phases)}; fused_decode "
+          f"{fused} = 16 x {steps} steps since its warm-up (ENGINE_LAUNCHES)")
+    return fused, bench_kernel_row(card)
+
+
+def bench_kernel_row(card: str) -> dict:
+    """fused_decode and paged_attention_v3 against their plain versions at
+    profile_engine's step shape (llama-1b-bench: 64 slots, 16 live at
+    129..174 tokens, KH 8, G 2, D 128, 13 pages per sequence), and
+    fused_decode timed there beside its plain version, SDPA and the bound."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+    lens = tuple(129 + 3 * i for i in range(16)) + (1,) * 48
+    over = dict(B=64, KH=8, G=2, P=13)
+    t = kernel_inputs(torch.bfloat16, seq_lens=lens, **over)
+    err, _ = check_attention(t, "llama-1b-bench B 64 KH 8 G 2", 0, None)
+    times = time_attention_at(t, flush, False, seq_lens=lens, **over)
+    print(f"time llama-1b-bench B 64 KH 8 G 2 [{card}]: fused_decode {times['ms']:.4f} ms, "
+          f"plain {times['plain_ms']:.4f} ms, SDPA {times['library_ms']:.4f} ms, bound "
+          f"{times['bound_ms']:.6f} ms ({times['bound_by']})")
+    del t, flush
+    return {"max_abs_err": err, **times}
+
+
+def cli_phase(model: str, card: str) -> tuple[int, int, dict]:
+    """Phase 10 and (b): the cli run server's fused_decode launches,
+    profile_engine's, and the kernel row at profile_engine's shape."""
+    t0 = time.perf_counter()
+    cli_launches, t_b = cli_check(model)
+    t1 = time.perf_counter()
+    bench_launches, row = profile_engine_check(card)
+    t_b += time.perf_counter() - t1
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s, (b) {t_b:.1f} s")
+    return cli_launches, bench_launches, row
 
 
 @contextlib.contextmanager
@@ -11631,6 +11806,18 @@ def phase21_alone(card: str) -> int:
     return 0
 
 
+def phase10_alone(card: str) -> int:
+    """``chip_smoke.py --phase10``: phase 10 and (b) alone, a quick check of
+    cli run, cli bench, cli profile and profile_engine on the card (no
+    kernel table, no final line)."""
+    from dynamo_tpu_torch.engine.config import ModelSpec
+
+    cli_launches, bench_launches, _row = cli_phase(ModelSpec.llama3_8b().name, card)
+    print(f"phase 10 alone: fused_decode {cli_launches} (server) + {bench_launches} "
+          f"(profile_engine)")
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the GPU",
@@ -11653,6 +11840,8 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s")
     if sys.argv[1:] == ["--phase21"]:
         return phase21_alone(card)
+    if sys.argv[1:] == ["--phase10"]:
+        return phase10_alone(card)
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
     kernels = check_kernels(flush)
@@ -11740,8 +11929,10 @@ def main() -> int:
     mm_launches = multimodal_phase(spec, cfg, params, card)
     del params
     torch.cuda.empty_cache()
-    # the same stack from the command line, in a process of its own
-    cli_check(spec.name)
+    # the same stack from the command line, in a process of its own, with
+    # cli bench and cli profile against it; profile_engine on the card
+    cli_launches, bench_launches, kernels["fused_decode/llama-1b-bench"] = cli_phase(
+        spec.name, card)
     # hub, two workers and frontend, each a process of its own
     process_launches, p11_ttft = process_phase(spec, cfg, prompts, bf16_tokens, http_stats)
     # disaggregated serving on phase 4's weights: in process (bf16, fp8),
@@ -11829,7 +12020,7 @@ def main() -> int:
     t27 = time.perf_counter() - t27
 
     launches = {"fused_decode": serve_launches["fused_decode"] + http_launches
-                + process_launches + overload_launches + guided_launches
+                + cli_launches + process_launches + overload_launches + guided_launches
                 + kvbm_launches + text_launches["fused_decode"] + disagg_launches
                 + obs_launches + mm_launches + tp_launches["fused_decode"]
                 + pp_launches["fused_decode"] + p25_launches["fused_decode"]
@@ -11848,7 +12039,8 @@ def main() -> int:
                 + pp_launches["fused_decode/tp2"] + p25_launches["fused_decode/tp2"],
                 "paged_attention_v3/pp": pp_launches["paged_attention_v3/pp"],
                 "kv_write/pp": pp_launches["kv_write/pp"],
-                "fused_decode/tp4": tp_launches["fused_decode/tp4"]}
+                "fused_decode/tp4": tp_launches["fused_decode/tp4"],
+                "fused_decode/llama-1b-bench": bench_launches}
     sources = {
         "fused_decode": ("dynamo_tpu_torch/csrc/fused_decode.cu",
                          "dynamo_tpu/ops/pallas/fused_decode.py:58"),
@@ -11892,6 +12084,11 @@ def main() -> int:
                                      "dynamo_tpu/ops/pallas/fused_decode.py:58"),
         "fused_decode/tp4": ("dynamo_tpu_torch/csrc/fused_decode.cu",
                              "dynamo_tpu/ops/pallas/fused_decode.py:58"),
+        # the same kernel at profile_engine's card engine (llama-1b-bench: B 64,
+        # KH 8, G 2), launched by phase 10 (b)'s profiled rung; the reference
+        # profiles that configuration (benchmarks/profile_engine.py)
+        "fused_decode/llama-1b-bench": ("dynamo_tpu_torch/csrc/fused_decode.cu",
+                                        "dynamo_tpu/ops/pallas/fused_decode.py:58"),
         # the unfused pair at a pipeline stage's shape (a microbatch of 4 on a
         # tp=2 rank: KH 4, G 4), launched by every pp_decode_step tick of
         # phase 24 (a)-(c): the reference's write_new_kv then

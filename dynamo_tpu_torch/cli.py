@@ -53,8 +53,17 @@ E`` go through the worker's launcher (engine/worker.start_tp_group: ranks
 engine prints ``ENGINE_LAUNCHES {json}`` (kernel launches, steps, replays
 and speculation counters since it was ready), as a worker does.
 ``--out engine`` is the default (the reference's is ``mocker``): the port's
-main path is the card. ``bench`` and ``profile`` are refused until their own
-slice (ROADMAP Queue A item 14d).
+main path is the card.
+
+    python -m dynamo_tpu_torch.cli bench --url http://H:P --model M [--concurrency 1,8]
+        the load generator (profiling/loadgen.py): streaming chat
+        completions at fixed concurrency, or open loop with ``--arrival
+        poisson|sin|trace``; one JSON line of TTFT / ITL / duration
+        percentiles and throughput per rung
+    python -m dynamo_tpu_torch.cli profile --url http://H:P --model M --out DIR
+        the SLA profiler (profiling/profile_sla.py): TTFT over ISL and ITL /
+        throughput over a concurrency x context grid, written as the
+        planner's DIR/prefill.npz and DIR/decode.npz
 """
 
 from __future__ import annotations
@@ -74,10 +83,12 @@ SUBCOMMAND_MODULES = {
     "mocker": "dynamo_tpu_torch.mocker.__main__",
     "operator": "dynamo_tpu_torch.operator.__main__",
     "planner": "dynamo_tpu_torch.planner.__main__",
+    "bench": "dynamo_tpu_torch.profiling.loadgen",
+    "profile": "dynamo_tpu_torch.profiling.profile_sla",
 }
-# the reference's other service commands -> the ROADMAP Queue A item that
-# ports them
-REFUSED_COMMANDS = {"bench": "item 14d", "profile": "item 14d"}
+# the reference's commands not ported yet -> the ROADMAP Queue A item that
+# ports them (none: every command of the reference's cli.py is ported)
+REFUSED_COMMANDS: dict[str, str] = {}
 
 
 def _usage() -> str:

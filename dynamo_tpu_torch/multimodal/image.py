@@ -71,6 +71,7 @@ CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_CHUNK_TYPE = re.compile(rb"\w{4}")  # PngImagePlugin.is_cid
 PRECISION_BITS = 32 - 8 - 2  # Pillow's fixed point for 8-bit channels
 # Pillow's cap on a decompressed iCCP profile (PngImagePlugin.MAX_TEXT_CHUNK)
 _MAX_ICC = 1024 * 1024
@@ -430,17 +431,18 @@ def _read_png(data: bytes, pixels: bool = True) -> tuple[np.ndarray | None, dict
     hd = read_png_head(data)
     if not pixels:
         return None, {}, hd.n_frames
-    # every IDAT up to IEND, each checked
+    # every IDAT up to IEND. Pillow checks CRCs only in the walk before the
+    # first IDAT (read_png_head); from there on it reads each chunk's body,
+    # skips its CRC and stops at a chunk type that is not four word bytes
     pos = hd.data_pos
     idat: list[bytes] = []
     while pos + 8 <= len(data):
         length, ctype = struct.unpack(">I4s", data[pos: pos + 8])
+        if not _CHUNK_TYPE.fullmatch(ctype):
+            break
         body = data[pos + 8: pos + 8 + length]
-        crc = data[pos + 8 + length: pos + 12 + length]
-        if len(body) != length or len(crc) != 4:
+        if len(body) != length:
             raise undecodable("truncated PNG chunk")
-        if struct.unpack(">I", crc)[0] != zlib.crc32(ctype + body):
-            raise undecodable(f"bad CRC in PNG chunk {ctype!r}")
         pos += 12 + length
         if ctype == b"IDAT":
             idat.append(body)

@@ -4,7 +4,8 @@ dynamo_tpu/planner/interpolation.py: numpy only, the same file format).
 Role of the upstream planner's perf_interpolation.py:36-92: turn profiled
 (ISL -> TTFT, throughput/chip) and (kv-usage, context -> ITL,
 throughput/chip) curves into the inverse lookups the planner needs. Our
-profiler (benchmarks/profile_sla.py) emits REGULAR grids, so 1D piecewise-
+profiler (profiling/profile_sla.py, the reference's
+benchmarks/profile_sla.py) emits REGULAR grids, so 1D piecewise-
 linear (np.interp) and regular-grid bilinear interpolation are exact
 enough — no scattered-data cubic fitting, no scipy dependency on the
 serving path.

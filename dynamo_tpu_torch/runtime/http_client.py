@@ -1,27 +1,32 @@
 """A small HTTP/1.1 client on asyncio streams (the port's stand-in for the
-aiohttp client sessions the reference's planner and sim use).
+aiohttp client sessions the reference's planner, sim and load generator
+use).
 
 - ``read_response``: the status, headers and body of one response:
   Content-Length, chunked, or read to the close;
 - ``http_get``: one GET on a connection of its own (``Connection: close``);
 - ``HttpSession``: keep-alive requests to one ``host:port`` with JSON
-  bodies, idle connections reused.
+  bodies, idle connections reused; ``stream`` reads a response's SSE
+  events as they arrive, each stamped with its arrival time.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import json
+import time
+from collections.abc import AsyncIterator
 from typing import Any
 from urllib.parse import urlsplit
 
 __all__ = ["HttpSession", "http_get", "read_response"]
 
 
-async def read_response(reader: asyncio.StreamReader) -> tuple[int, dict[str, str], bytes]:
-    """(status, lower-cased headers, body) of the next response on ``reader``."""
+async def _read_head(reader: asyncio.StreamReader) -> tuple[int, dict[str, str]]:
+    """(status, lower-cased headers) of the next response on ``reader``."""
     status = (await reader.readline()).decode("latin-1").split()
-    if len(status) < 2 or not status[0].startswith("HTTP/"):
+    if len(status) < 2 or not status[0].startswith("HTTP/") or not status[1].isdigit():
         raise ConnectionError(f"malformed HTTP status line {status!r}")
     headers: dict[str, str] = {}
     while True:
@@ -30,20 +35,45 @@ async def read_response(reader: asyncio.StreamReader) -> tuple[int, dict[str, st
             break
         k, _, v = line.partition(":")
         headers[k.strip().lower()] = v.strip()
-    if "chunked" in headers.get("transfer-encoding", "").lower():
-        body = bytearray()
+    return int(status[1]), headers
+
+
+def _chunked(headers: dict[str, str]) -> bool:
+    return "chunked" in headers.get("transfer-encoding", "").lower()
+
+
+async def _body(reader: asyncio.StreamReader, headers: dict[str, str]
+                ) -> AsyncIterator[bytes]:
+    """The body's bytes as they arrive: chunk by chunk, the Content-Length
+    at once, or every read up to the close."""
+    if _chunked(headers):
         while True:
-            size = int((await reader.readline()).split(b";")[0].strip(), 16)
+            line = await reader.readline()
+            try:
+                size = int(line.split(b";")[0].strip(), 16)
+            except ValueError:
+                raise ConnectionError(f"malformed chunk size line {line!r}") from None
             if size == 0:
                 await reader.readline()  # the empty trailer's CRLF
-                break
-            body += await reader.readexactly(size)
+                return
+            chunk = await reader.readexactly(size)
             await reader.readexactly(2)  # the chunk's CRLF
+            yield chunk
     elif "content-length" in headers:
-        body = await reader.readexactly(int(headers["content-length"]))
+        yield await reader.readexactly(int(headers["content-length"]))
     else:
-        body = await reader.read()
-    return int(status[1]), headers, bytes(body)
+        while chunk := await reader.read(65536):
+            yield chunk
+
+
+async def read_response(reader: asyncio.StreamReader) -> tuple[int, dict[str, str], bytes]:
+    """(status, lower-cased headers, body) of the next response on ``reader``."""
+    status, headers = await _read_head(reader)
+    return status, headers, await _join(_body(reader, headers))
+
+
+async def _join(chunks: AsyncIterator[bytes]) -> bytes:
+    return b"".join([c async for c in chunks])
 
 
 async def http_get(url: str, timeout_s: float = 10.0) -> str:
@@ -77,8 +107,9 @@ async def http_get(url: str, timeout_s: float = 10.0) -> str:
 
 class HttpSession:
     """Keep-alive HTTP/1.1 requests to one server. Concurrent requests each
-    take an idle connection or dial a new one; a connection goes back to
-    the idle pool after its response unless the server closes it."""
+    take an idle connection or dial a new one, with no cap on their number;
+    a connection goes back to the idle pool after its response unless the
+    server closes it."""
 
     def __init__(self, host: str, port: int, timeout_s: float = 30.0):
         self.host, self.port = host, port
@@ -86,9 +117,12 @@ class HttpSession:
         self._idle: list[tuple[asyncio.StreamReader, asyncio.StreamWriter]] = []
         self._all: set[asyncio.StreamWriter] = set()
 
-    async def request(self, method: str, path: str, body: Any = None
-                      ) -> tuple[int, bytes]:
-        """(status, body) of one request; ``body`` goes out as JSON."""
+    async def _exchange(self, method: str, path: str, body: Any
+                        ) -> tuple[asyncio.StreamReader, asyncio.StreamWriter, int,
+                                   dict[str, str]]:
+        """Send one request and read its response head: (reader, writer,
+        status, headers). An idle connection the server closed is redialled
+        once; ``timeout_s`` bounds the dial and the head."""
         data = b"" if body is None else json.dumps(body).encode()
         head = (f"{method} {path} HTTP/1.1\r\nHost: {self.host}:{self.port}\r\n"
                 f"Content-Length: {len(data)}\r\n"
@@ -105,8 +139,8 @@ class HttpSession:
             try:
                 writer.write(head + data)
                 await writer.drain()
-                status, headers, out = await asyncio.wait_for(
-                    read_response(reader), self.timeout_s)
+                status, headers = await asyncio.wait_for(_read_head(reader),
+                                                         self.timeout_s)
             except (ConnectionError, asyncio.IncompleteReadError):
                 self._drop(writer)
                 if reused and attempt == 0:
@@ -115,12 +149,64 @@ class HttpSession:
             except BaseException:
                 self._drop(writer)
                 raise
-            if headers.get("connection", "").lower() == "close":
-                self._drop(writer)
-            else:
-                self._idle.append((reader, writer))
-            return status, out
+            return reader, writer, status, headers
         raise AssertionError("unreachable")
+
+    def _release(self, reader, writer, headers: dict[str, str]) -> None:
+        """Back to the idle pool after a body read to its end, unless the
+        server closes the connection."""
+        if (headers.get("connection", "").lower() == "close"
+                or not (_chunked(headers) or "content-length" in headers)):
+            self._drop(writer)
+        else:
+            self._idle.append((reader, writer))
+
+    async def request(self, method: str, path: str, body: Any = None
+                      ) -> tuple[int, bytes]:
+        """(status, body) of one request; ``body`` goes out as JSON."""
+        reader, writer, status, headers = await self._exchange(method, path, body)
+        try:
+            out = await asyncio.wait_for(
+                _join(_body(reader, headers)), self.timeout_s)
+        except BaseException:
+            self._drop(writer)
+            raise
+        self._release(reader, writer, headers)
+        return status, out
+
+    @contextlib.asynccontextmanager
+    async def stream(self, method: str, path: str, body: Any = None):
+        """One request whose response is read as it arrives: yields (status,
+        events), ``events`` an async iterator of (the payload of each SSE
+        ``data: `` line, ``time.perf_counter()`` when the bytes that end the
+        line arrived). The connection returns to the idle pool only when
+        ``events`` was read to the body's end; ``timeout_s`` bounds the dial
+        and the head, not the body."""
+        reader, writer, status, headers = await self._exchange(method, path, body)
+        done = False
+
+        async def events() -> AsyncIterator[tuple[bytes, float]]:
+            nonlocal done
+            rest = b""
+            async for chunk in _body(reader, headers):
+                t = time.perf_counter()
+                *lines, rest = (rest + chunk).split(b"\n")
+                for line in lines:
+                    if line.startswith(b"data: "):
+                        yield line[6:].rstrip(b"\r"), t
+            if rest.startswith(b"data: "):
+                yield rest[6:].rstrip(b"\r"), time.perf_counter()
+            done = True
+
+        gen = events()
+        try:
+            yield status, gen
+        finally:
+            await gen.aclose()
+            if done:
+                self._release(reader, writer, headers)
+            else:
+                self._drop(writer)
 
     def _drop(self, writer: asyncio.StreamWriter) -> None:
         self._all.discard(writer)
@@ -136,3 +222,4 @@ class HttpSession:
 
     async def __aexit__(self, *exc) -> None:
         await self.close()
+

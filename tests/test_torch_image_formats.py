@@ -610,6 +610,65 @@ def test_animated_png_still_is_pillows_frame_zero():
             assert encoder.sample_video_frames(data, 2) == jenc.sample_video_frames(data, 2)
 
 
+def _crc_chunk(kind: bytes, body: bytes, bad: bool = False) -> bytes:
+    crc = zlib.crc32(kind + body) ^ (1 if bad else 0)
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", crc)
+
+
+def _crc_case(case: str) -> bytes:
+    """A 5x4 RGB PNG, its image data in two IDATs and a tEXt after them,
+    with one flipped CRC bit, a cut, or junk where ``case`` says."""
+    px = _content(4, 5, "noise", 7)
+    data = zlib.compress(b"".join(b"\0" + px[y].tobytes() for y in range(4)))
+    chunks = [(b"IHDR", struct.pack(">IIBBBBB", 5, 4, 8, 2, 0, 0, 0)),
+              (b"IDAT", data[:9]), (b"IDAT", data[9:]), (b"tEXt", b"key\0value"),
+              (b"IEND", b"")]
+    bad = {"IHDR": 0, "first IDAT": 1, "second IDAT": 2, "tEXt after IDAT": 3, "IEND": 4}
+    out = b"".join(_crc_chunk(k, b, bad.get(case) == i) for i, (k, b) in enumerate(chunks))
+    text_at = out.index(b"tEXt") - 4
+    if case == "truncated tEXt":
+        return image.PNG_SIGNATURE + out[:text_at + 12]
+    if case == "tEXt without its CRC":
+        return image.PNG_SIGNATURE + out[:text_at + 8 + len(chunks[3][1])]
+    if case == "junk chunk type after IDAT":
+        return image.PNG_SIGNATURE + out[:text_at] + b"\0\x0f\x42\x40\xff\xfe\xfd\xfc" + b"x" * 6
+    return image.PNG_SIGNATURE + out
+
+
+@pytest.mark.parametrize("case", [
+    "first IDAT", "second IDAT", "tEXt after IDAT", "IEND", "tEXt without its CRC",
+    "junk chunk type after IDAT", "IHDR", "truncated tEXt"])
+def test_png_chunk_faults_read_as_pillow(case):
+    """Pillow checks chunk CRCs only before the first IDAT: a bad CRC from
+    there on, a CRC cut off at the end and a chunk type that is not four
+    word bytes decode to its pixels; a bad IHDR CRC and a truncated chunk
+    body raise in both."""
+    data = _crc_case(case)
+    try:
+        want = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+    except (OSError, SyntaxError):
+        want = None
+    if want is None:
+        assert case in ("IHDR", "truncated tEXt")
+        with pytest.raises(ValueError, match="^undecodable image bytes: "):
+            image.decode_image(data)
+    else:
+        assert np.array_equal(image.decode_image(data)[0], want)
+
+
+def test_apng_default_image_with_a_bad_idat_crc_is_pillows_frame_zero():
+    frames = [Image.fromarray(_content(6, 7, "noise", s)) for s in (3, 4)]
+    buf = io.BytesIO()
+    frames[0].save(buf, "PNG", save_all=True, append_images=frames[1:], default_image=True)
+    data = bytearray(buf.getvalue())
+    at = data.index(b"IDAT") - 4
+    end = at + 8 + struct.unpack(">I", data[at: at + 4])[0]
+    data[end + 3] ^= 1  # the IDAT's CRC
+    data = bytes(data)
+    want = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+    assert np.array_equal(image.decode_image(data)[0], want)
+
+
 # ------------------------------------------------------------- video
 
 
